@@ -1,0 +1,288 @@
+"""Direct volume rendering from DVNR models (paper §IV-C).
+
+The port of ``repro.core.render``'s uncached path: ray generation, the
+sample-streaming ray marcher (coordinates, INR inference, transfer function,
+front-to-back compositing) and exact sort-last depth compositing of the
+per-partition images.
+
+Where JAX ``vmap``s one partition's render over partitions (and the render
+service ``vmap``s the frame over clients), the port writes the batch out:
+every function here broadcasts over leading axes, and
+:func:`_render_batch` renders C cameras x P partitions with one hash-encode,
+one MLP and one compositing launch. Brick-cache sampling and the multi-device
+binary swap come with later slices.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import backends
+from repro_torch.configs.dvnr import DVNRConfig
+from repro_torch.core.inr import _inr_apply, _inr_apply_batched
+from repro_torch.kernels.composite.ops import composite
+from repro_torch.precision import torch_dtype
+
+
+# --------------------------------------------------------------------------- #
+# Camera / rays
+# --------------------------------------------------------------------------- #
+@dataclass(frozen=True)
+class Camera:
+    """An immutable pinhole camera (hashable: it rides inside requests)."""
+
+    eye: Tuple[float, float, float] = (1.8, 1.4, 1.6)
+    center: Tuple[float, float, float] = (0.5, 0.5, 0.5)
+    up: Tuple[float, float, float] = (0.0, 0.0, 1.0)
+    fov_deg: float = 45.0
+
+    def orbit(self, angle: float, *, radius: Optional[float] = None,
+              height: Optional[float] = None) -> "Camera":
+        """The camera rotated to ``angle`` (radians) on a horizontal orbit
+        around ``center``."""
+        cx, cy, cz = self.center
+        dx, dy, dz = (self.eye[0] - cx, self.eye[1] - cy, self.eye[2] - cz)
+        r = float(np.hypot(dx, dy)) if radius is None else radius
+        h = dz if height is None else height
+        return Camera(eye=(cx + r * float(np.cos(angle)),
+                           cy + r * float(np.sin(angle)), cz + h),
+                      center=self.center, up=self.up, fov_deg=self.fov_deg)
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def _normalize(v: torch.Tensor) -> torch.Tensor:
+    return v / torch.sqrt((v * v).sum(-1, keepdim=True))
+
+
+def rays_from_arrays(eye, center, up, fov_deg: float, width: int, height: int,
+                     device=None):
+    """Rays of pinhole cameras: eye/center/up (..., 3) each (tuples or
+    tensors; a leading axis batches cameras) -> (origins, dirs), each
+    (..., width*height, 3) f32."""
+    if device is None:
+        device = eye.device if torch.is_tensor(eye) else "cpu"
+    eye = _f32(eye, device)
+    fwd = _normalize(_f32(center, device) - eye)
+    right = _normalize(torch.linalg.cross(fwd, _f32(up, device).expand_as(fwd),
+                                          dim=-1))
+    upv = torch.linalg.cross(right, fwd, dim=-1)
+    tan = float(np.tan(np.radians(fov_deg) / 2))
+    xs = (torch.arange(width, dtype=torch.float32, device=device) + 0.5) \
+        / width * 2 - 1
+    ys = (torch.arange(height, dtype=torch.float32, device=device) + 0.5) \
+        / height * 2 - 1
+    X, Y = torch.meshgrid(xs * tan, ys * tan * (height / width), indexing="xy")
+    e = (..., None, None, slice(None))
+    dirs = fwd[e] + X[..., None] * right[e] + Y[..., None] * upv[e]
+    dirs = _normalize(dirs)
+    origins = eye[e].expand(dirs.shape)
+    lead = dirs.shape[:-3]
+    return origins.reshape(*lead, -1, 3), dirs.reshape(*lead, -1, 3)
+
+
+def make_rays(cam: Camera, width: int, height: int, device="cpu"):
+    return rays_from_arrays(cam.eye, cam.center, cam.up, cam.fov_deg,
+                            width, height, device=device)
+
+
+def ray_aabb(origins, dirs, box_lo, box_hi):
+    """Slab test -> (t0, t1) per ray; t1 <= t0 means miss."""
+    inv = 1.0 / torch.where(dirs.abs() < 1e-9, 1e-9, dirs)
+    t_lo = (box_lo - origins) * inv
+    t_hi = (box_hi - origins) * inv
+    t0 = torch.minimum(t_lo, t_hi).amax(dim=-1)
+    t1 = torch.maximum(t_lo, t_hi).amin(dim=-1)
+    return torch.clamp(t0, min=0.0), t1
+
+
+# --------------------------------------------------------------------------- #
+# Transfer function
+# --------------------------------------------------------------------------- #
+def default_tf(n: int = 64, device="cpu") -> torch.Tensor:
+    """A cool-to-warm piecewise-linear RGBA table over normalized value [0,1]."""
+    t = np.linspace(0, 1, n)
+    r = np.clip(1.5 * t, 0, 1)
+    g = np.clip(1.0 - np.abs(2 * t - 1), 0, 1) * 0.8
+    b = np.clip(1.5 * (1 - t), 0, 1)
+    a = np.clip(t**2 * 0.8 + 0.02, 0, 1)
+    return _f32(np.stack([r, g, b, a], -1), device)
+
+
+def apply_tf(values: torch.Tensor, tf_table: torch.Tensor) -> torch.Tensor:
+    """values (...) -> rgba (..., 4). ``tf_table`` is (K, 4), or (C, K, 4)
+    with one table per leading index of ``values`` (one per client)."""
+    K = tf_table.shape[-2]
+    v = torch.clamp(values, 0.0, 1.0) * (K - 1)
+    lo = torch.clamp(torch.floor(v).to(torch.int64), 0, K - 2)
+    w = (v - lo.to(v.dtype))[..., None]
+    if tf_table.ndim == 2:
+        flat = tf_table
+    else:
+        C = tf_table.shape[0]
+        flat = tf_table.reshape(C * K, 4)
+        lo = lo + (torch.arange(C, device=lo.device) * K) \
+            .reshape(C, *([1] * (values.ndim - 1)))
+    return flat[lo] * (1 - w) + flat[lo + 1] * w
+
+
+# --------------------------------------------------------------------------- #
+# Ray marching
+# --------------------------------------------------------------------------- #
+def _march_setup(origin, extent, origins, dirs, n_samples: int):
+    """Shared ray-march scaffolding: (hit, dt, local coords (..., R, S, 3),
+    t0). ``origin``/``extent`` (..., 3) are boxes, ``origins``/``dirs``
+    (..., R, 3) rays; leading axes broadcast (boxes (P,3) against rays
+    (C,1,R,3) march every partition for every client)."""
+    lo = _f32(origin, origins.device)[..., None, :]
+    hi = lo + _f32(extent, origins.device)[..., None, :]
+    t0, t1 = ray_aabb(origins, dirs, lo, hi)
+    hit = t1 > t0
+    dt = (t1 - t0) / n_samples
+    steps = torch.arange(n_samples, dtype=torch.float32, device=origins.device)
+    ts = t0[..., None] + (steps + 0.5) * dt[..., None]                 # (.., R, S)
+    pos = origins[..., None, :] + ts[..., None] * dirs[..., None, :]   # (.., R, S, 3)
+    local = (pos - lo[..., None, :]) / (hi - lo)[..., None, :]
+    return hit, dt, local, t0
+
+
+def _range_scale(lo, hi):
+    d = hi - lo
+    return torch.clamp(d, min=1e-12) if torch.is_tensor(d) else max(d, 1e-12)
+
+
+def _shade_samples(v, hit, dt, vrange, grange, tf_table, density: float):
+    """Value samples (..., R, S) -> rgba samples (..., R, S, 4) in f32:
+    de-normalize to the GLOBAL range, transfer function, opacity
+    integration; missed rays are transparent."""
+    vmin, vmax = vrange
+    gmin, gmax = grange
+    raw = v.to(torch.float32) * (vmax - vmin) + vmin
+    vg = (raw - gmin) / _range_scale(gmin, gmax)
+    rgba = apply_tf(vg, tf_table)
+    alpha = 1.0 - torch.exp(-rgba[..., 3] * density * dt[..., None])
+    rgba = torch.cat([rgba[..., :3], alpha[..., None]], -1)
+    return torch.where(hit[..., None, None], rgba, 0.0)
+
+
+def _shade_composite(v, hit, dt, t0, vrange, grange, tf_table, density,
+                     backend, compute_dtype):
+    """Value samples (..., R, S) -> (rgba (..., R, 4), depth (..., R))."""
+    rgba = _shade_samples(v, hit, dt, vrange, grange, tf_table, density)
+    out = composite(rgba, backend, compute_dtype=compute_dtype)
+    depth = torch.where(hit, t0, torch.inf)
+    return out, depth
+
+
+def _render_partition(cfg: DVNRConfig, params, origin, extent, vrange, grange,
+                      origins, dirs, tf_table, *, n_samples: int = 64,
+                      density: float = 50.0,
+                      impl: backends.BackendLike = "ref", compute_dtype=None):
+    """Ray-march one partition's INR. Returns (rgba (R,4), depth (R,))."""
+    backend = backends.resolve(impl)
+    hit, dt, local, t0 = _march_setup(origin, extent, origins, dirs, n_samples)
+    R, S = local.shape[:2]
+    v = _inr_apply(cfg, params, local.reshape(-1, 3), backend,
+                   compute_dtype=compute_dtype).reshape(R, S)
+    return _shade_composite(v, hit, dt, t0, vrange, grange, tf_table,
+                            density, backend, compute_dtype)
+
+
+def _render_batch(cfg: DVNRConfig, stacked_params, metas, origins, dirs,
+                  tf_tables, grange, *, n_samples: int = 64,
+                  density: float = 50.0, impl: backends.BackendLike = "ref",
+                  compute_dtype=None):
+    """Render C cameras x P partitions at once: ``origins``/``dirs``
+    (C, R, 3), ``tf_tables`` (C, K, 4), ``metas = (los, exts, vrs)`` of
+    the P partitions. Returns (images (C,P,R,4), depths (C,P,R)).
+
+    Row ``c * P + p`` of the batched INR call is client c's rays through
+    partition p, so one encode, one MLP and one compositing launch cover the
+    whole batch (the port of the ``jax.vmap`` over partitions and clients)."""
+    backend = backends.resolve(impl)
+    los, exts, vrs = metas
+    C, R = origins.shape[:2]
+    P = los.shape[0]
+    hit, dt, local, t0 = _march_setup(los, exts, origins[:, None],
+                                      dirs[:, None], n_samples)
+    S = local.shape[-2]
+    v = _inr_apply_batched(cfg, stacked_params, local.reshape(C * P, R * S, 3),
+                           list(range(P)) * C, backend,
+                           compute_dtype=compute_dtype).reshape(C, P, R, S)
+    vrange = (vrs[:, 0, None, None], vrs[:, 1, None, None])
+    return _shade_composite(v, hit, dt, t0, vrange, grange, tf_tables,
+                            density, backend, compute_dtype)
+
+
+# --------------------------------------------------------------------------- #
+# Sort-last compositing
+# --------------------------------------------------------------------------- #
+def over(front, back):
+    """Over-operator on (..., 4) rgba with premultiplied-style alpha."""
+    a_f = front[..., 3:4]
+    rgb = front[..., :3] + (1 - a_f) * back[..., :3]
+    a = a_f + (1 - a_f) * back[..., 3:4]
+    return torch.cat([rgb, a], dim=-1)
+
+
+def composite_depth_sort(images, depths):
+    """images (..., P, R, 4), depths (..., P, R) -> (..., R, 4): exact
+    per-ray depth ordering (a stable sort, as ``jnp.argsort``), then the
+    over-operator front to back. The loop is the ``lax.scan`` over the
+    sorted partitions; each step blends every client's every ray."""
+    order = torch.argsort(depths, dim=-2, stable=True)
+    sorted_imgs = torch.take_along_dim(images, order[..., None], dim=-3)
+    out = torch.zeros_like(sorted_imgs[..., 0, :, :])
+    for p in range(sorted_imgs.shape[-3]):
+        out = over(out, sorted_imgs[..., p, :, :])
+    return out
+
+
+def meta_arrays(parts_meta, device="cpu"):
+    """Partition metadata -> ``(los, exts, vrs)`` f32 tensors, each (P,·)."""
+    los = _f32([tuple(m["origin"]) for m in parts_meta], device)
+    exts = _f32([tuple(m["extent"]) for m in parts_meta], device)
+    vrs = _f32([(m["vmin"], m["vmax"]) for m in parts_meta], device)
+    return los, exts, vrs
+
+
+def _frame_from_rays(images, depths, width, height, out_dtype):
+    out = composite_depth_sort(images, depths)
+    # the image is f32 unless the caller asks otherwise: a reduced
+    # compute_dtype does not leak into the returned frame
+    out = out.to(torch.float32 if out_dtype is None else torch_dtype(out_dtype))
+    return out.reshape(*out.shape[:-2], height, width, 4)
+
+
+def _render_distributed(cfg, stacked_params, parts_meta, cam: Optional[Camera],
+                        width: int, height: int, grange, *,
+                        n_samples: int = 64,
+                        impl: backends.BackendLike = "ref",
+                        tf_table: Optional[torch.Tensor] = None,
+                        density: float = 50.0,
+                        compute_dtype=None, out_dtype=None, metas=None,
+                        rays=None):
+    """Render P partitions in one batched pass and depth-composite them.
+
+    ``rays=(origins, dirs)`` overrides the camera: (R,3) each for one frame
+    -> (H,W,4), or (C,R,3) with ``tf_table`` (C,K,4) for C clients at once
+    -> (C,H,W,4) (the render service's batched tick)."""
+    device = stacked_params["tables"].device
+    tf_table = default_tf(device=device) if tf_table is None else tf_table
+    origins, dirs = make_rays(cam, width, height, device) if rays is None \
+        else rays
+    metas = meta_arrays(parts_meta, device) if metas is None else metas
+    single = origins.ndim == 2
+    if single:
+        origins, dirs, tf_table = origins[None], dirs[None], tf_table[None]
+    images, depths = _render_batch(
+        cfg, stacked_params, metas, origins, dirs, tf_table, grange,
+        n_samples=n_samples, density=density, impl=impl,
+        compute_dtype=compute_dtype)
+    frames = _frame_from_rays(images, depths, width, height, out_dtype)
+    return frames[0] if single else frames

@@ -1,0 +1,149 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``*.cu`` under ``repro_torch/csrc`` is compiled with ``nvcc`` for
+``sm_90a`` (one ``nvcc -c`` per source, all started together) and linked into
+one shared library with a plain C interface, loaded with ``ctypes``. The
+library lands in ``build/`` at the root of the checkout, named by a hash of
+the sources and flags, so a changed source builds anew and an unchanged one
+is loaded as it is. Nothing is built when the package is imported: the first
+kernel launch builds, and a failed build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
+              "-Xptxas", "-v") + ARCH_FLAGS
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+#: C entry points: name -> argtypes (every entry returns cudaError_t as int)
+SIGNATURES = {
+    # coords, tables, res, part, out, B, N, L, T, F, is_bf16, stream
+    "repro_hash_encode_fwd": [_P, _P, _P, _P, _P, _L, _L, _I, _L, _I, _I, _P],
+    # x, w_in, w_hid, w_out, part, out, B, N, D_in, W, n_hidden, n_hid_slab,
+    # D_out, is_bf16, stream
+    "repro_fused_mlp_fwd": [_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I,
+                            _I, _I, _P],
+    # rgba, out, R, S, is_bf16, stream
+    "repro_composite": [_P, _P, _L, _I, _I, _P],
+}
+
+_lock = threading.Lock()
+_lib = None
+#: what the last build printed (register / shared-memory use per kernel) and
+#: how long it took; empty when the library came from an earlier build
+build_log = ""
+build_seconds = 0.0
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels are built on the "
+                       "machine with the card (CUDA toolkit under CUDA_HOME or "
+                       "/usr/local/cuda)")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _digest(sources) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources + sorted(CSRC.glob("*.cuh")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the library if this source tree has not been built; return
+    its path. Raises ``RuntimeError`` with the compiler's output on failure."""
+    global build_log, build_seconds
+    sources = _sources()
+    target = BUILD_DIR / f"librepro_torch_{_digest(sources)}.so"
+    if target.exists():
+        return target
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in sources:
+            obj = Path(tmp) / (src.stem + ".o")
+            objs.append(obj)
+            procs.append((src, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        logs, failed = [], []
+        for src, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(f"== {src.name} (done after "
+                        f"{time.perf_counter() - t0:.1f} s)\n{out}")
+            if proc.returncode:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        so = Path(tmp) / target.name
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(so),
+                               *map(str, objs)], capture_output=True, text=True)
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+        os.replace(so, target)
+    build_seconds = time.perf_counter() - t0
+    build_log = "\n".join(logs)
+    return target
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use), with every entry's
+    ``argtypes`` / ``restype`` declared."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.repro_error_string.argtypes = [ctypes.c_int]
+            lib.repro_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry reported a CUDA error (a refused launch never runs,
+    and a later synchronize would not say so)."""
+    if err:
+        msg = _lib.repro_error_string(err).decode() if _lib is not None else ""
+        raise RuntimeError(f"{name}: CUDA error {err} at launch ({msg})")
+
+
+def part_tensor(part, B: int, P: int, device):
+    """A kernel's row -> partition map as an int32 tensor on ``device``,
+    range-checked on the host (``part``: a sequence of ints or a CPU tensor)
+    so that no kernel reads another partition's weights out of bounds."""
+    import torch
+
+    part_cpu = torch.as_tensor(part, dtype=torch.int32, device="cpu").reshape(-1)
+    if part_cpu.numel() != B:
+        raise ValueError(f"part has {part_cpu.numel()} entries for {B} rows")
+    if B and (int(part_cpu.min()) < 0 or int(part_cpu.max()) >= P):
+        raise ValueError(f"part entries must lie in [0, {P})")
+    return part_cpu.to(device)
