@@ -1,11 +1,12 @@
-"""repro_torch.api — the serving subset of the DVNR facade.
+"""repro_torch.api — the training and serving subset of the DVNR facade.
 
-The port of ``repro.api``'s inference side: :class:`DVNRModel` (config +
-single or partition-stacked params + partition metadata) with ``init`` /
-``partition`` / ``stacked_params`` / ``meta_arrays`` / ``apply`` /
-``decode_grid`` / ``save`` / ``load``, the frozen request objects, and the
-uncached :func:`render`. Training, compression, isosurfaces and pathlines
-come with later slices.
+The port of ``repro.api``: :func:`train` (one INR per partition, no
+communication), :class:`DVNRModel` (config + single or partition-stacked
+params + partition metadata) with ``init`` / ``from_state`` / ``partition``
+/ ``stacked_params`` / ``meta_arrays`` / ``apply`` / ``decode_grid`` /
+``save`` / ``load``, the frozen request objects, and the uncached
+:func:`render`. Compression, isosurfaces and pathlines come with later
+slices.
 
 Models saved by either package load in the other: :meth:`DVNRModel.save`
 writes the JAX package's msgpack format byte for byte (``msgpack`` is
@@ -17,6 +18,7 @@ Everything runs on the GPU unless the caller asks for the CPU:
 from __future__ import annotations
 
 import dataclasses
+import time
 from dataclasses import dataclass
 from typing import Any, Optional, Sequence, Tuple
 
@@ -29,12 +31,14 @@ from repro_torch.configs.dvnr import DVNRConfig
 from repro_torch.core.inr import (_decode_grid, _inr_apply, init_inr,
                                   param_count)
 from repro_torch.core.render import Camera
+from repro_torch.core.sampling import as_key, split
+from repro_torch.core.trainer import DVNRState, DVNRTrainer, train_iterations
 from repro_torch.precision import Precision, resolve_precision
 
 __all__ = [
     "DVNRModel", "PartitionMeta", "Camera", "TransferFunction",
-    "RenderRequest", "render", "save", "load", "DVNRConfig", "Precision",
-    "resolve_precision",
+    "RenderRequest", "train", "render", "save", "load", "DVNRConfig",
+    "DVNRTrainer", "Precision", "resolve_precision",
 ]
 
 _SAVE_KIND = "dvnr_model_v1"
@@ -157,6 +161,12 @@ class DVNRModel:
                   "mlp": [torch.stack(ws) for ws in
                           zip(*(p["mlp"] for p in parts))]}
         return cls(cfg, params, _meta_tuple(parts_meta))
+
+    @classmethod
+    def from_state(cls, cfg: DVNRConfig, state: DVNRState,
+                   parts_meta=None) -> "DVNRModel":
+        """Wrap a trainer state's stacked params."""
+        return cls(cfg, state.params, _meta_tuple(parts_meta))
 
     @property
     def device(self) -> torch.device:
@@ -291,6 +301,95 @@ def _array_from_record(d: dict, device) -> torch.Tensor:
         return torch.from_numpy(a.copy()).view(torch.bfloat16).to(device)
     a = np.frombuffer(d["data"], np.dtype(d["dtype"])).reshape(d["shape"])
     return torch.from_numpy(a.copy()).to(device)
+
+
+def train(partitions, cfg: DVNRConfig, *, backend: BackendLike = "auto",
+          mesh=None, steps: Optional[int] = None, key=None,
+          cached_params=None, trainer: Optional[DVNRTrainer] = None,
+          ghost: Optional[int] = None, volumes=None,
+          log_every: int = 0, check_every: int = 0,
+          precision=None,
+          fuse_train_step: Optional[str] = None,
+          fuse_sampling: Optional[str] = None,
+          sampling_brick=None,
+          recovery=None, train_mask=None) -> Tuple[DVNRModel, dict]:
+    """Train one INR per partition (no communication) and return the model.
+
+    ``partitions``: :class:`~repro_torch.data.volume.VolumePartition`
+    objects (anything with ``normalized()``, ``owned_shape``, ``origin``,
+    ``extent``, ``vmin``, ``vmax``, ``ghost``); training runs on the device
+    their data lies on (``make_partition(device=...)``). ``steps`` defaults
+    to the paper's III-B iteration count. ``key`` is an int seed or a (2,)
+    pair of uint32 words (JAX's ``PRNGKey`` layout; default 0): it is split
+    into the init and training keys as the JAX package splits it, so both
+    packages draw the same init and the same batches. ``backend="auto"``
+    trains through the CUDA kernels and raises without a card; ``"ref"``
+    runs the plain PyTorch versions on any device.
+
+    The rest is the JAX signature: a pre-built ``trainer`` to reuse,
+    ``volumes`` (stacked (P, ...) normalized data) to train on instead of
+    the partitions' own, ``log_every`` / ``check_every`` (see
+    :meth:`DVNRTrainer.train`), and overrides of ``cfg.precision``,
+    ``cfg.fuse_train_step``, ``cfg.fuse_sampling`` and
+    ``cfg.sampling_brick``. ``train_mask`` ((P,) bool) keeps partitions out
+    of training from step 0. ``mesh`` and ``recovery`` are not ported yet
+    and raise ``NotImplementedError``.
+    """
+    k_init, k_train = split(as_key(0 if key is None else key))
+    P = len(partitions)
+    g = partitions[0].ghost if ghost is None else ghost
+    if fuse_train_step is not None:
+        cfg = cfg.replace(fuse_train_step=fuse_train_step)
+        if trainer is not None and \
+                trainer.fuse_train_step != trainer._resolve_fuse(fuse_train_step):
+            raise ValueError(
+                f"fuse_train_step={fuse_train_step!r} conflicts with the "
+                f"pre-built trainer's {trainer.cfg.fuse_train_step!r}")
+    if fuse_sampling is not None:
+        cfg = cfg.replace(fuse_sampling=fuse_sampling)
+        if trainer is not None and \
+                trainer.fuse_sampling != trainer._resolve_fuse_sampling(fuse_sampling):
+            raise ValueError(
+                f"fuse_sampling={fuse_sampling!r} conflicts with the "
+                f"pre-built trainer's {trainer.cfg.fuse_sampling!r}")
+    if sampling_brick is not None:
+        cfg = cfg.replace(sampling_brick=sampling_brick)
+        if trainer is not None and trainer.cfg.sampling_brick != sampling_brick:
+            raise ValueError(
+                f"sampling_brick={sampling_brick!r} conflicts with the "
+                f"pre-built trainer's {trainer.cfg.sampling_brick!r}")
+    if precision is not None:
+        cfg = cfg.replace(precision=resolve_precision(precision).name)
+        if trainer is not None and trainer.precision != resolve_precision(precision):
+            raise ValueError(
+                f"precision={precision!r} conflicts with the pre-built "
+                f"trainer's policy {trainer.cfg.precision!r}")
+    vols = torch.stack([p.normalized() for p in partitions]) \
+        if volumes is None else volumes
+    if trainer is None:
+        trainer = DVNRTrainer(cfg, P, mesh=mesh, impl=backend, ghost=g,
+                              device=vols.device)
+    state = trainer.init(k_init, cached_params=cached_params)
+    if train_mask is not None:
+        mask = torch.as_tensor(np.asarray(train_mask, bool),
+                               device=state.active.device)
+        state = dataclasses.replace(state, active=state.active & mask)
+    nvox = int(np.prod(partitions[0].owned_shape))
+    n_steps = train_iterations(cfg, nvox) if steps is None else steps
+    if vols.device.type == "cuda":
+        torch.cuda.synchronize(vols.device)
+    t0 = time.perf_counter()
+    state, hist = trainer.train(state, vols, steps=n_steps, key=k_train,
+                                log_every=log_every, check_every=check_every,
+                                recovery=recovery)
+    if vols.device.type == "cuda":
+        torch.cuda.synchronize(vols.device)
+    train_time_s = time.perf_counter() - t0
+    model = DVNRModel(cfg, state.params, _meta_tuple(partitions))
+    info = {"train_time_s": train_time_s, "steps": int(state.step),
+            "loss_history": hist.get("loss", []), "state": state,
+            "trainer": trainer}
+    return model, info
 
 
 def render(model: DVNRModel, request: Optional[RenderRequest] = None, *,

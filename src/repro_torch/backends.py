@@ -1,6 +1,6 @@
 """Backend registry and device resolution.
 
-The same op names (``OPS``) as ``repro.backends``; two backends in this slice:
+The same op names (``OPS``) as ``repro.backends``; two backends:
 
 - ``ref``   plain PyTorch on any device — the reference every kernel is held
             against, and what the tests run on the CPU;
@@ -26,8 +26,9 @@ from repro_torch.precision import SUPPORTED_DTYPES, torch_dtype
 OPS = ("hash_encoding", "fused_mlp", "composite", "flash_attention",
        "fused_train_step", "fused_sampling", "tiled_sampling", "brick_cache")
 
-#: ops this slice of the port implements (the others come with later slices)
-PORTED_OPS = frozenset({"hash_encoding", "fused_mlp", "composite"})
+#: ops the port implements so far (the others come with later slices)
+PORTED_OPS = frozenset({"hash_encoding", "fused_mlp", "composite",
+                        "fused_train_step", "fused_sampling", "tiled_sampling"})
 
 
 @dataclass(frozen=True)

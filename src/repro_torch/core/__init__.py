@@ -1,2 +1,3 @@
-"""The paper's core modules, ported: the INR (``inr``) and the renderer
-(``render``)."""
+"""The paper's core modules, ported: the INR (``inr``), the counter-based
+sampler (``sampling``), the trainer (``trainer``), metrics (``metrics``) and
+the renderer (``render``)."""

@@ -1,0 +1,118 @@
+// The gated AdamW update of the fused train step, in place.
+//
+// Replaces: src/repro/kernels/fused_train_step/kernel.py, the epilogue of
+// fused_train_step_pallas / fused_train_step_sampling_pallas /
+// fused_train_step_sampling_tiled_pallas (`_adamw` at lines 218-256: the
+// last batch tile of each partition applies AdamW to the gradients the
+// earlier tiles accumulated). That relies on the TPU running the grid in
+// order; on the GPU the gradients are complete only when the train-step
+// kernel (train_step.cu) has ended, so this is a second launch on the same
+// stream: one thread per parameter over the four state groups (tables,
+// input layer, hidden slab, output layer) of every partition.
+//
+// Per parameter, with the (P, 4) row [lr, 1-b1^t, 1-b2^t, gate] of its
+// partition: m = b1 m + (1-b1) g; v = b2 v + (1-b2) g^2 (moments advance
+// even where the gate is 0, as AdamW.step's); delta = (m / bc1) /
+// (sqrt(v / bc2) + eps) + wd * p; p += gate * (-lr * delta). Every product
+// and sum is rounded on its own (__fmul_rn / __fadd_rn, IEEE division and
+// square root), so the build's FMA contraction cannot fuse them: from the
+// same gradients the result is bit-exact against the plain version
+// (fused_train_step/ref.py, adamw_apply_ref). The params, m and v are
+// overwritten in place (the JAX package donates their buffers). The kernel
+// also writes the step's mean loss, loss_sum / (N D_out).
+//
+// Bound: bytes. Each parameter reads 4 floats (p, m, v, g) and writes 3:
+// 28 B against ~15 flops. PRODUCTION256's 8 partitions hold 1.3M parameters,
+// 37 MB moved, 11 us at 3.35 TB/s. float32 policy only (no master copy).
+#include "common.cuh"
+
+namespace {
+
+struct Group {
+  float* p;
+  float* m;
+  float* v;
+  const float* g;
+  long long n;   // parameters per partition (0: the group is skipped)
+};
+
+struct Groups {
+  Group k[4];
+};
+
+__global__ void adamw_kernel(const Groups gs, const float* __restrict__ scalars,
+                             const float* __restrict__ loss_sum,
+                             float* __restrict__ loss, long long P,
+                             long long total, float loss_div, float b1,
+                             float omb1, float b2, float omb2, float eps,
+                             float wd) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (long long q = first; q < P; q += stride)
+    loss[q] = __fdiv_rn(loss_sum[q], loss_div);
+  for (long long i = first; i < total; i += stride) {
+    long long j = i;
+    int k = 0;
+    while (k < 3 && j >= P * gs.k[k].n) {   // a group with n = 0 is passed over
+      j -= P * gs.k[k].n;
+      ++k;
+    }
+    const Group& G = gs.k[k];
+    const long long p = j / G.n;
+    const float lr = __ldg(scalars + 4 * p), bc1 = __ldg(scalars + 4 * p + 1);
+    const float bc2 = __ldg(scalars + 4 * p + 2), gate = __ldg(scalars + 4 * p + 3);
+    const float g = G.g[j], w = G.p[j];
+    const float m = __fadd_rn(__fmul_rn(b1, G.m[j]), __fmul_rn(omb1, g));
+    const float v = __fadd_rn(__fmul_rn(b2, G.v[j]), __fmul_rn(omb2, __fmul_rn(g, g)));
+    float delta = __fdiv_rn(__fdiv_rn(m, bc1),
+                            __fadd_rn(__fsqrt_rn(__fdiv_rn(v, bc2)), eps));
+    if (wd != 0.0f) delta = __fadd_rn(delta, __fmul_rn(wd, w));
+    G.m[j] = m;
+    G.v[j] = v;
+    G.p[j] = __fadd_rn(w, __fmul_rn(gate, __fmul_rn(-lr, delta)));
+  }
+}
+
+}  // namespace
+
+// Four groups of (params, m, v, grad) pointers, float32, (P, n_k) each, with
+// n_k parameters per partition (0 skips the group); scalars (P,4) f32 rows
+// [lr, 1-b1^t, 1-b2^t, gate]; loss_sum (P,) -> loss (P,) = loss_sum /
+// loss_div. The constants arrive as float32 values of the host's doubles
+// (1-b1 and 1-b2 are computed in double first, as the plain version's
+// Python scalars are).
+extern "C" int repro_adamw_apply(
+    void* p0, void* m0, void* v0, const void* g0, long long n0,
+    void* p1, void* m1, void* v1, const void* g1, long long n1,
+    void* p2, void* m2, void* v2, const void* g2, long long n2,
+    void* p3, void* m3, void* v3, const void* g3, long long n3,
+    const void* scalars, const void* loss_sum, void* loss, long long P,
+    float loss_div, float b1, float omb1, float b2, float omb2, float eps,
+    float wd, void* stream) {
+  if (P <= 0) return 0;
+  Groups gs;
+  void* ps[4] = {p0, p1, p2, p3};
+  void* ms[4] = {m0, m1, m2, m3};
+  void* vs[4] = {v0, v1, v2, v3};
+  const void* gr[4] = {g0, g1, g2, g3};
+  const long long ns[4] = {n0, n1, n2, n3};
+  long long total = 0;
+  for (int k = 0; k < 4; ++k) {
+    if (ns[k] < 0) return (int)cudaErrorInvalidValue;
+    gs.k[k] = Group{static_cast<float*>(ps[k]), static_cast<float*>(ms[k]),
+                    static_cast<float*>(vs[k]), static_cast<const float*>(gr[k]),
+                    ns[k]};
+    total += P * ns[k];
+  }
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int threads = 256;
+  long long blocks = (total + threads - 1) / threads;
+  if (blocks > 8LL * sms) blocks = 8LL * sms;
+  if (blocks < 1) blocks = 1;
+  adamw_kernel<<<(unsigned)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      gs, static_cast<const float*>(scalars), static_cast<const float*>(loss_sum),
+      static_cast<float*>(loss), P, total, loss_div, b1, omb1, b2, omb2, eps, wd);
+  return (int)cudaGetLastError();
+}

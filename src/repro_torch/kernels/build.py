@@ -26,7 +26,7 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v") + ARCH_FLAGS
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 #: C entry points: name -> argtypes (every entry returns cudaError_t as int)
 SIGNATURES = {
@@ -38,6 +38,20 @@ SIGNATURES = {
                             _I, _I, _P],
     # rgba, out, R, S, is_bf16, stream
     "repro_composite": [_P, _P, _L, _I, _I, _P],
+    # grad_out, coords, res, part, grad_tables, B, N, L, T, F, stream
+    "repro_hash_encode_bwd": [_P, _P, _P, _P, _P, _L, _L, _I, _L, _I, _P],
+    # x, w_in, w_hid, w_out, g, part, dx, dw_in, dw_hid, dw_out, B, N, D_in,
+    # W, n_hidden, n_hid_slab, D_out, stream
+    "repro_fused_mlp_bwd": [_P] * 10 + [_L, _L, _I, _I, _I, _I, _I, _P],
+    # coords, target, volumes, seeds, tab, win, whid, wout, g_tab, g_win,
+    # g_whid, g_wout, loss_sum, res, P, N, L, T, F, W, n_hidden, n_hid_slab,
+    # D_out, nx, ny, nz, ghost, n_uniform, sigma, sampling, stream
+    "repro_train_step": [_P] * 14 + [_L, _L, _I, _L, _I, _I, _I, _I, _I,
+                                     _L, _L, _L, _I, _L, _F, _I, _P],
+    # 4 x (params, m, v, grad, n per partition), scalars, loss_sum, loss, P,
+    # loss_div, b1, 1-b1, b2, 1-b2, eps, wd, stream
+    "repro_adamw_apply": [_P, _P, _P, _P, _L] * 4
+    + [_P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _P],
 }
 
 _lock = threading.Lock()

@@ -17,13 +17,22 @@ def _layers(h: torch.Tensor, weights, dtype: torch.dtype) -> torch.Tensor:
     return torch.matmul(h, weights[-1].float()).to(dtype)
 
 
-def fused_mlp_ref(x: torch.Tensor, weights) -> torch.Tensor:
-    """x (..., D_in); weights [w_in, hidden..., w_out] -> (..., D_out)."""
-    return _layers(x.float(), weights, x.dtype)
-
-
 def fused_mlp_batched_ref(x: torch.Tensor, weights, part: torch.Tensor) -> torch.Tensor:
     """x (B,N,D_in) against partition-stacked weights [(P,D_in,W), (P,W,W)...,
     (P,W,D_out)]; row ``b`` uses partition ``part[b]`` -> (B,N,D_out)."""
     idx = part.to(device=x.device, dtype=torch.int64)
     return _layers(x.float(), [w[idx] for w in weights], x.dtype)
+
+
+def fused_mlp_batched_bwd_ref(x: torch.Tensor, weights, g: torch.Tensor,
+                              part: torch.Tensor):
+    """The plain backward of :func:`fused_mlp_batched_ref`: the VJP of the
+    forward at cotangent ``g`` (B,N,D_out) -> ``(dx, [dW...])``, each dW
+    summed over the rows of its partition ((P, ...) like the weights). The
+    activations are recomputed, as the JAX package's backward kernel does."""
+    with torch.enable_grad():
+        xs = x.detach().requires_grad_(True)
+        ws = [w.detach().requires_grad_(True) for w in weights]
+        out = fused_mlp_batched_ref(xs, ws, part)
+        grads = torch.autograd.grad(out, [xs, *ws], g)
+    return grads[0], list(grads[1:])

@@ -1,0 +1,378 @@
+"""The fused train step: backend dispatch and the CUDA kernels' wrappers.
+
+- backend kind ``torch`` (``ref``) -> :func:`ref.train_step_ref` /
+  :func:`ref.train_step_sampling_ref` (autograd through the plain ops, then
+  ``AdamW.step``);
+- backend kind ``cuda`` -> two launches on the current stream:
+  ``repro_train_step`` (``csrc/train_step.cu``: [sampling,] encode, MLP
+  forward, masked L1 cotangent, MLP backward and the 8-corner table scatter
+  for every (partition, batch tile), gradients into a zeroed f32 buffer by
+  atomic adds) and ``repro_adamw_apply`` (``csrc/adamw.cu``: the gated
+  AdamW update, one thread per parameter). The TPU kernel applies AdamW on
+  the last batch tile because its grid runs in order; on the GPU that
+  grid-wide dependency is the boundary between the two launches.
+
+The CUDA path updates the params and moments IN PLACE (the JAX package
+donates them): the tensors of ``params`` / ``opt`` passed in hold the new
+state afterwards, and the returned trees are views of them (the hidden
+layers of a stacked MLP are views of one (P, H-1, W, W) slab). Clone a
+state that must survive the step. On CPU tensors the two wrappers run their
+plain versions (:func:`ref.train_step_grads_ref`,
+:func:`ref.adamw_apply_ref`), with the same in-place contract.
+
+The entry points work on the trainer's stacked (P, ...) state: the
+partition axis is a kernel grid axis, not a loop.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from repro_torch import backends
+from repro_torch.core.sampling import batch_coords, n_boundary
+from repro_torch.data.volume import sample_trilinear_batched
+from repro_torch.kernels import build
+from repro_torch.kernels.fused_mlp.ops import KERNEL_WIDTHS
+from repro_torch.kernels.fused_train_step import ref as _ref
+from repro_torch.optim.adamw import AdamW, OptConfig, bias_corrections
+from repro_torch.precision import torch_dtype
+
+STATE_KEYS = ("tab", "win", "whid", "wout")
+
+
+def _hid_slab(hid):
+    """The (P, H-1, W, W) slab of the hidden layers: the slab they are views
+    of when they are (what :func:`_unpack` hands out, so an in-place update
+    of the slab is an update of the layers), else a stacked copy."""
+    base = hid[0]._base
+    if base is not None and base.shape[1] == len(hid) and base.ndim == 4 \
+            and all(h._base is base and h.data_ptr() == base[:, k].data_ptr()
+                    and h.stride() == base[:, k].stride()
+                    for k, h in enumerate(hid)):
+        return base
+    return torch.stack(hid, dim=1)
+
+
+def _pack(tree_params):
+    """{"tables": (P,L,T,F), "mlp": [...]} -> the four stacked state groups
+    {tab, win, whid (P, max(H-1,1), W, W), wout} and H. An H = 1 MLP gets
+    an all-zero dummy hidden slab, which no kernel reads or updates."""
+    w_in, *hid, w_out = tree_params["mlp"]
+    if hid:
+        w_hid = _hid_slab(hid)
+    else:
+        w_hid = torch.zeros((w_in.shape[0], 1, w_in.shape[2], w_in.shape[2]),
+                            dtype=w_in.dtype, device=w_in.device)
+    return {"tab": tree_params["tables"], "win": w_in, "whid": w_hid,
+            "wout": w_out}, len(hid) + 1
+
+
+def _unpack(flat, n_hidden):
+    mlp = [flat["win"]] + [flat["whid"][:, k] for k in range(n_hidden - 1)] \
+        + [flat["wout"]]
+    return {"tables": flat["tab"], "mlp": mlp}
+
+
+def _check_kernel_opt(opt_cfg: OptConfig, backend, compute_dtype):
+    """The kernel path's guards, as the JAX package's Pallas leg has them:
+    no fused global-norm clipping, float32 moments."""
+    if opt_cfg.clip_norm:
+        raise ValueError("the CUDA fused_train_step does not fuse global-norm "
+                         "clipping (OptConfig.clip_norm must be 0)")
+    if torch_dtype(opt_cfg.moments_dtype) != torch.float32:
+        raise ValueError("the CUDA fused_train_step keeps f32 moments "
+                         f"(got moments_dtype={opt_cfg.moments_dtype!r})")
+    if compute_dtype is not None:
+        backend.require_dtype(compute_dtype)
+
+
+def _pack_state(params, opt):
+    flat_p, n_hidden = _pack(params)
+    flat_m = _pack(opt["m"])[0]
+    flat_v = _pack(opt["v"])[0]
+    flat_mw = _pack(opt["mw"])[0] if "mw" in opt else None
+    return flat_p, flat_m, flat_v, flat_mw, n_hidden
+
+
+def schedule_table(opt_step: torch.Tensor, opt_cfg: OptConfig, adam: AdamW,
+                   n_steps: int) -> torch.Tensor:
+    """(n_steps, P, 4) rows of ``[lr, 1-b1^t, 1-b2^t, gate]`` for the next
+    ``n_steps`` steps from the (P,) counter ``opt_step``; the gate column is
+    1 (the trainer writes the convergence mask into it step by step)."""
+    step = opt_step[None, :] + torch.arange(
+        1, n_steps + 1, dtype=opt_step.dtype, device=opt_step.device)[:, None]
+    bc1, bc2 = bias_corrections(opt_cfg, step)
+    return torch.stack([adam.schedule(step), bc1, bc2,
+                        torch.ones_like(bc1)], dim=-1)
+
+
+def _schedule_scalars(opt, opt_cfg: OptConfig, adam: AdamW, gate):
+    """(P, 4) [lr, 1-b1^t, 1-b2^t, gate] for the step after ``opt["step"]``;
+    the step counter advances for gated partitions too."""
+    scalars = schedule_table(opt["step"], opt_cfg, adam, 1)[0]
+    scalars[:, 3] = gate
+    return opt["step"] + 1, scalars
+
+
+def _rebuild(opt, step, new_p, new_m, new_v, new_mw, n_hidden):
+    new_params = _unpack(new_p, n_hidden)
+    new_opt = {**opt, "step": step, "m": _unpack(new_m, n_hidden),
+               "v": _unpack(new_v, n_hidden)}
+    if new_mw is not None:
+        new_opt["mw"] = _unpack(new_mw, n_hidden)
+    return new_params, new_opt
+
+
+def validate_sampling_brick(mode) -> None:
+    """Raise unless ``mode`` is a ``DVNRConfig.sampling_brick`` the JAX
+    package accepts ("auto", "pinned" or an int edge >= 0). The brick exists
+    to fit a TPU's 16 MiB of VMEM: the CUDA kernel gathers straight from
+    device memory through L2, so every valid mode gives the same trajectory
+    here."""
+    if isinstance(mode, bool) or not isinstance(mode, (int, str)) or \
+            (isinstance(mode, str) and mode not in ("auto", "pinned")):
+        raise ValueError("sampling_brick must be 'auto', 'pinned' or an int "
+                         f"edge, got {mode!r}")
+    if isinstance(mode, int) and mode < 0:
+        raise ValueError(f"sampling_brick edge must be >= 0, got {mode}")
+
+
+# --------------------------------------------------------------------------- #
+# the kernels' wrappers
+# --------------------------------------------------------------------------- #
+def _grad_buffers(flat_p, device):
+    """One zeroed f32 buffer (one memset) viewed as the four gradient
+    groups plus the (P,) loss sum."""
+    P = flat_p["tab"].shape[0]
+    sizes = [flat_p[k][0].numel() for k in STATE_KEYS]
+    buf = torch.zeros(P * sum(sizes) + P, dtype=torch.float32, device=device)
+    grads, off = {}, 0
+    for k, n in zip(STATE_KEYS, sizes):
+        grads[k] = buf[off:off + P * n].view(flat_p[k].shape)
+        off += P * n
+    return grads, buf[off:]
+
+
+def train_step_cuda(flat_p, n_hidden: int, resolutions: Sequence[int], *,
+                    coords=None, target=None, volumes=None, seeds=None,
+                    n_batch: int = 0, n_uniform: int = 0, sigma: float = 0.0,
+                    ghost: int = 1):
+    """The train-step kernel's wrapper: gradients of the per-partition L1
+    loss and the per-partition loss SUM for one batch, from the packed
+    params ``flat_p`` (f32 on the card). The batch is either given
+    (``coords`` (P,N,3), ``target`` (P,N,D_out)) or drawn in the kernel
+    (``volumes`` (P, nx+2g, ny+2g, nz+2g, C) and ``seeds`` (P,2) words as
+    int64, ``n_batch`` rows of which the first ``n_uniform`` uniform).
+    Returns ``(grads {tab, win, whid, wout} f32, loss_sum (P,) f32)``.
+
+    CPU tensors take the plain version (:func:`ref.train_step_grads_ref`,
+    drawing the batch with the plain sampler); CUDA tensors launch
+    ``repro_train_step`` or raise."""
+    sampling = volumes is not None
+    dev = flat_p["tab"].device
+    if dev.type == "cpu":
+        if sampling:
+            coords = batch_coords(seeds, n_batch, n_uniform, sigma)
+            target = sample_trilinear_batched(volumes, coords, ghost)
+        return _ref.train_step_grads_ref(flat_p, n_hidden, resolutions,
+                                         coords, target)
+    P, L, T, F = flat_p["tab"].shape
+    _, D_in, W = flat_p["win"].shape
+    D_out = flat_p["wout"].shape[-1]
+    if dev.type != "cuda":
+        raise ValueError("train_step_cuda: the state must lie on a CUDA device")
+    if any(flat_p[k].dtype != torch.float32 for k in STATE_KEYS):
+        raise NotImplementedError(
+            "the CUDA train step runs the float32 policy; bf16 params need "
+            "the bf16 training kernels, not written yet: train with "
+            "precision='f32' on the card, or with backend='ref'")
+    if D_in != L * F or W not in KERNEL_WIDTHS or F not in (1, 2, 4, 8) or \
+            T >= 2**31 or len(resolutions) != L or D_out > 4:
+        raise ValueError(f"unsupported shapes: tab {tuple(flat_p['tab'].shape)}, "
+                         f"win {tuple(flat_p['win'].shape)}, D_out {D_out} "
+                         f"(W in {KERNEL_WIDTHS}, F in 1/2/4/8, D_out <= 4)")
+    state = [flat_p[k].contiguous() for k in STATE_KEYS]
+    if sampling:
+        if volumes.ndim != 5 or volumes.shape[0] != P or \
+                volumes.shape[4] != D_out or tuple(seeds.shape) != (P, 2):
+            raise ValueError(f"volumes (P,nx,ny,nz,{D_out}) and seeds (P,2) "
+                             f"expected, got {tuple(volumes.shape)}, "
+                             f"{tuple(seeds.shape)}")
+        if volumes.dtype != torch.float32:
+            raise TypeError(f"volumes must be float32, got {volumes.dtype}")
+        batch = [None, None, volumes.contiguous(),
+                 seeds.to(device=dev, dtype=torch.int64).contiguous()]
+        N = int(n_batch)
+        nx, ny, nz = (int(d) for d in volumes.shape[1:4])
+    else:
+        N = coords.shape[1]
+        if tuple(coords.shape) != (P, N, 3) or \
+                tuple(target.shape) != (P, N, D_out):
+            raise ValueError(f"coords (P,N,3) and target (P,N,{D_out}) "
+                             f"expected, got {tuple(coords.shape)}, "
+                             f"{tuple(target.shape)}")
+        batch = [coords.float().contiguous(), target.float().contiguous(),
+                 None, None]
+        nx = ny = nz = 0
+    grads, loss_sum = _grad_buffers(flat_p, dev)
+    res_d = torch.as_tensor([int(r) for r in resolutions],
+                            dtype=torch.int32).to(dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    lib = build.library()
+    err = lib.repro_train_step(
+        *(ptr(t) for t in batch), *(t.data_ptr() for t in state),
+        *(grads[k].data_ptr() for k in STATE_KEYS), loss_sum.data_ptr(),
+        res_d.data_ptr(), P, N, L, T, F, W, n_hidden,
+        flat_p["whid"].shape[1], D_out, nx, ny, nz, int(ghost),
+        int(n_uniform), float(sigma), int(sampling),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "repro_train_step")
+    train_step_cuda.launches += 1
+    return grads, loss_sum
+
+
+train_step_cuda.launches = 0
+
+
+def adamw_apply_cuda(flat_p, flat_m, flat_v, grads, scalars, loss_sum, *,
+                     n_valid: int, beta1: float, beta2: float, eps: float,
+                     weight_decay: float, n_hidden: int) -> torch.Tensor:
+    """The AdamW kernel's wrapper: updates params and moments IN PLACE from
+    the f32 ``grads`` with the (P, 4) ``[lr, 1-b1^t, 1-b2^t, gate]``
+    ``scalars`` and returns the (P,) mean loss ``loss_sum / n_valid``.
+
+    CPU tensors take the plain version (:func:`ref.adamw_apply_ref`);
+    CUDA tensors launch ``repro_adamw_apply`` (``csrc/adamw.cu``) or
+    raise."""
+    dev = flat_p["tab"].device
+    if dev.type == "cpu":
+        _ref.adamw_apply_ref(flat_p, flat_m, flat_v, None, grads, scalars,
+                             beta1=beta1, beta2=beta2, eps=eps,
+                             weight_decay=weight_decay, n_hidden=n_hidden)
+        return loss_sum / float(n_valid)
+    groups = []
+    for k in STATE_KEYS:
+        ts = (flat_p[k], flat_m[k], flat_v[k], grads[k])
+        if any(t.device != dev or t.dtype != torch.float32 or
+               not t.is_contiguous() for t in ts):
+            raise NotImplementedError(
+                f"repro_adamw_apply takes contiguous float32 {k} params, "
+                "moments and gradients on one CUDA device (the float32 "
+                "policy; bf16 params need the bf16 training kernels)")
+        n = 0 if (k == "whid" and n_hidden == 1) else flat_p[k][0].numel()
+        groups += [t.data_ptr() for t in ts] + [n]
+    P = flat_p["tab"].shape[0]
+    scalars = scalars.to(device=dev, dtype=torch.float32).contiguous()
+    if tuple(scalars.shape) != (P, 4):
+        raise ValueError(f"scalars must be (P, 4), got {tuple(scalars.shape)}")
+    loss = torch.empty(P, dtype=torch.float32, device=dev)
+    lib = build.library()
+    err = lib.repro_adamw_apply(
+        *groups, scalars.data_ptr(), loss_sum.data_ptr(), loss.data_ptr(), P,
+        float(n_valid), beta1, 1.0 - beta1, beta2, 1.0 - beta2, eps,
+        weight_decay, torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "repro_adamw_apply")
+    adamw_apply_cuda.launches += 1
+    return loss
+
+
+adamw_apply_cuda.launches = 0
+
+
+# --------------------------------------------------------------------------- #
+# the entry points
+# --------------------------------------------------------------------------- #
+def _fused_cuda(params, opt, opt_cfg, adam, gate, scalars, n_valid,
+                **batch):
+    flat_p, flat_m, flat_v, flat_mw, n_hidden = _pack_state(params, opt)
+    if flat_mw is not None:
+        raise NotImplementedError(
+            "the CUDA fused train step runs the float32 policy; a master "
+            "copy (bf16 params) needs the bf16 training kernels, not written "
+            "yet: train with precision='f32' on the card, or with "
+            "backend='ref'")
+    if scalars is None:
+        step, scalars = _schedule_scalars(opt, opt_cfg, adam, gate)
+    else:
+        step = opt["step"] + 1
+    grads, loss_sum = train_step_cuda(flat_p, n_hidden, **batch)
+    loss = adamw_apply_cuda(flat_p, flat_m, flat_v, grads, scalars, loss_sum,
+                            n_valid=n_valid, beta1=opt_cfg.beta1,
+                            beta2=opt_cfg.beta2, eps=opt_cfg.eps,
+                            weight_decay=opt_cfg.weight_decay,
+                            n_hidden=n_hidden)
+    new_params, new_opt = _rebuild(opt, step, flat_p, flat_m, flat_v, None,
+                                   n_hidden)
+    return new_params, new_opt, loss
+
+
+def _gate_from(scalars, gate):
+    return scalars[:, 3] if scalars is not None else gate
+
+
+def fused_train_step(params, opt, coords, target, gate, *,
+                     resolutions: Sequence[int], opt_cfg: OptConfig,
+                     impl: backends.BackendLike = "ref", compute_dtype=None,
+                     scalars=None):
+    """One fused L1 train step over the stacked partition axis.
+
+    params/opt: the (P, ...)-stacked trainer trees (``opt`` from
+    ``AdamW.init(params, P)``: step/m/v and, under mixed precision, the f32
+    master ``"mw"``); coords (P, N, 3) f32; target (P, N, out_dim) f32;
+    gate (P,) f32 (1 = active, 0 = converged: moments still advance).
+    ``scalars`` optionally gives the (P, 4) ``[lr, 1-b1^t, 1-b2^t, gate]``
+    rows precomputed (:func:`schedule_table`; ``gate`` is then its last
+    column). Returns ``(params, opt, loss)``, loss (P,) f32. The ``cuda``
+    backend updates the given state in place (see the module notes)."""
+    backend = backends.resolve(impl)
+    if not backend.supports("fused_train_step"):
+        raise ValueError(f"backend {backend.name!r} does not implement "
+                         "fused_train_step")
+    adam = AdamW(opt_cfg)
+    if not backend.is_cuda:
+        return _ref.train_step_ref(params, opt, coords, target,
+                                   _gate_from(scalars, gate), resolutions,
+                                   adam, backend, compute_dtype)
+    _check_kernel_opt(opt_cfg, backend, compute_dtype)
+    return _fused_cuda(params, opt, opt_cfg, adam, gate, scalars,
+                       coords.shape[1] * target.shape[2],
+                       resolutions=resolutions, coords=coords, target=target)
+
+
+def fused_train_step_sampling(params, opt, volumes, seeds, gate, *,
+                              n_batch: int, boundary_lambda: float,
+                              sigma: float, ghost: int,
+                              resolutions: Sequence[int], opt_cfg: OptConfig,
+                              impl: backends.BackendLike = "ref",
+                              compute_dtype=None, sampling_brick="auto",
+                              scalars=None):
+    """One fused train step with the batch SAMPLING inside the op: instead
+    of coords/targets it takes the stacked ghost-padded ``volumes``
+    (P, nx+2g, ny+2g, nz+2g[, C]) and the (P, 2) per-(step, partition)
+    counter ``seeds`` (:func:`repro_torch.core.sampling.step_seeds`). On the
+    ``cuda`` backend the draws and the trilinear gather happen in the
+    train-step kernel, so no coordinates or targets reach device memory.
+    ``sampling_brick`` is validated and changes nothing here (see
+    :func:`validate_sampling_brick`). Otherwise as :func:`fused_train_step`."""
+    backend = backends.resolve(impl)
+    if not backend.supports("fused_sampling"):
+        raise ValueError(f"backend {backend.name!r} does not implement "
+                         "fused_sampling")
+    validate_sampling_brick(sampling_brick)
+    adam = AdamW(opt_cfg)
+    if not backend.is_cuda:
+        return _ref.train_step_sampling_ref(
+            params, opt, volumes, seeds, _gate_from(scalars, gate),
+            resolutions, adam, backend, n_batch=n_batch,
+            boundary_lambda=boundary_lambda, sigma=sigma, ghost=ghost,
+            compute_dtype=compute_dtype)
+    _check_kernel_opt(opt_cfg, backend, compute_dtype)
+    vols_c = volumes if volumes.ndim == 5 else volumes[..., None]
+    return _fused_cuda(params, opt, opt_cfg, adam, gate, scalars,
+                       int(n_batch) * vols_c.shape[4],
+                       resolutions=resolutions, volumes=vols_c, seeds=seeds,
+                       n_batch=int(n_batch),
+                       n_uniform=int(n_batch) - n_boundary(int(n_batch),
+                                                           boundary_lambda),
+                       sigma=float(sigma), ghost=int(ghost))

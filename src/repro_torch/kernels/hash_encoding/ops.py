@@ -1,10 +1,15 @@
-"""Hash encoding: backend dispatch and the CUDA kernel's wrapper.
+"""Hash encoding: backend dispatch, the autograd function, and the CUDA
+kernels' wrappers.
 
-``hash_encode`` is the single-model op (coords (N,3) against tables (L,T,F));
-``hash_encode_batched`` is the hot-path form: coordinate rows (B,N,3)
-against partition-stacked tables (P,L,T,F), where row ``b`` reads partition
-``part[b]`` — one launch covers every partition and every client of a render.
-Forward only in this slice (the backward scatter comes with training).
+``hash_encode`` is the single-model op (coords (N,3) against tables
+(L,T,F)); ``hash_encode_batched`` is the hot-path form: coordinate rows
+(B,N,3) against partition-stacked tables (P,L,T,F), where row ``b`` reads
+partition ``part[b]`` — one launch covers every partition and every client
+of a render. Both are differentiable in the tables (the coordinates get no
+gradient, as in the JAX package): the backward is the 8-corner scatter-add
+of the feature cotangent, ``index_add_`` in the plain version and the
+atomic scatter of ``repro_hash_encode_bwd`` (``csrc/hash_encode.cu``) on
+the card.
 """
 from __future__ import annotations
 
@@ -17,10 +22,16 @@ from repro_torch.kernels import build
 from repro_torch.kernels.hash_encoding import ref as _ref
 
 
+def _res_tensor(resolutions, device) -> torch.Tensor:
+    return torch.as_tensor([int(r) for r in resolutions], dtype=torch.int32) \
+        .to(device)
+
+
 def hash_encode_cuda(coords: torch.Tensor, tables: torch.Tensor,
                      resolutions: Sequence[int], part) -> torch.Tensor:
-    """The kernel's wrapper: coords (B,N,3) f32, tables (P,L,T,F) f32/bf16,
-    ``part`` (B,) partition of each row -> (B, N, L*F) in the table dtype.
+    """The forward kernel's wrapper: coords (B,N,3) f32, tables (P,L,T,F)
+    f32/bf16, ``part`` (B,) partition of each row -> (B, N, L*F) in the
+    table dtype.
 
     CPU tensors take the plain version; CUDA tensors launch
     ``repro_hash_encode_fwd`` (``csrc/hash_encode.cu``) or raise."""
@@ -46,8 +57,7 @@ def hash_encode_cuda(coords: torch.Tensor, tables: torch.Tensor,
     coords = coords.contiguous()
     tables = tables.contiguous()
     part_d = build.part_tensor(part, B, P, coords.device)
-    res_d = torch.as_tensor([int(r) for r in resolutions], dtype=torch.int32) \
-        .to(coords.device)
+    res_d = _res_tensor(resolutions, coords.device)
     out = torch.empty((B, N, L * F), dtype=tables.dtype, device=coords.device)
     lib = build.library()
     err = lib.repro_hash_encode_fwd(
@@ -63,27 +73,105 @@ def hash_encode_cuda(coords: torch.Tensor, tables: torch.Tensor,
 hash_encode_cuda.launches = 0
 
 
+def hash_encode_bwd_cuda(g: torch.Tensor, coords: torch.Tensor,
+                         resolutions: Sequence[int], part,
+                         table_shape) -> torch.Tensor:
+    """The backward kernel's wrapper: feature cotangent ``g`` (B,N,L*F),
+    coords (B,N,3), ``part`` (B,) -> the table gradient (P,L,T,F) in
+    float32 (``table_shape`` = (P,L,T,F)).
+
+    CPU tensors take the plain version (in ``g``'s dtype); CUDA tensors
+    launch ``repro_hash_encode_bwd`` (``csrc/hash_encode.cu``: one thread
+    per (point, level), 8 corners x F atomic adds into a zeroed f32
+    gradient) or raise. The kernel runs the float32 policy only."""
+    B, N, three = coords.shape
+    P, L, T, F = (int(d) for d in table_shape)
+    if three != 3 or tuple(g.shape) != (B, N, L * F):
+        raise ValueError(f"coords (B,N,3) and g (B,N,L*F) expected, got "
+                         f"{tuple(coords.shape)} and {tuple(g.shape)}")
+    if len(resolutions) != L:
+        raise ValueError(f"{len(resolutions)} resolutions for {L} levels")
+    if coords.device.type == "cpu":
+        return _ref.hash_encode_batched_bwd_ref(g, coords, resolutions,
+                                                torch.as_tensor(part),
+                                                (P, L, T, F))
+    if coords.device.type != "cuda" or g.device != coords.device:
+        raise ValueError("hash_encode_bwd_cuda: g and coords must lie on one "
+                         "CUDA device")
+    if g.dtype != torch.float32:
+        raise NotImplementedError(
+            f"hash_encode_bwd_cuda runs the float32 policy; a {g.dtype} "
+            "cotangent (bf16 training) needs the bf16 training kernels, not "
+            "written yet: train with precision='f32' on the card, or with "
+            "backend='ref'")
+    if coords.dtype != torch.float32:
+        raise TypeError(f"coords must be float32, got {coords.dtype}")
+    if F not in (1, 2, 4, 8) or T >= 2**32 or B > 65535:
+        raise ValueError(f"unsupported shape: F={F} (1, 2, 4 or 8), T={T} "
+                         f"(< 2^32), B={B} (<= 65535)")
+    g = g.contiguous()
+    coords = coords.contiguous()
+    part_d = build.part_tensor(part, B, P, coords.device)
+    res_d = _res_tensor(resolutions, coords.device)
+    grad = torch.zeros((P, L, T, F), dtype=torch.float32, device=g.device)
+    lib = build.library()
+    err = lib.repro_hash_encode_bwd(
+        g.data_ptr(), coords.data_ptr(), res_d.data_ptr(), part_d.data_ptr(),
+        grad.data_ptr(), B, N, L, T, F,
+        torch.cuda.current_stream(coords.device).cuda_stream)
+    build.check(err, "repro_hash_encode_bwd")
+    hash_encode_bwd_cuda.launches += 1
+    return grad
+
+
+hash_encode_bwd_cuda.launches = 0
+
+
+class _HashEncodeBatched(torch.autograd.Function):
+    """Forward through the backend's encode; backward the corner scatter
+    (the CUDA backward kernel on the ``cuda`` backend)."""
+
+    @staticmethod
+    def forward(ctx, coords, tables, resolutions, part, backend):
+        part_t = torch.as_tensor(part, dtype=torch.int64, device="cpu") \
+            .reshape(-1)
+        ctx.save_for_backward(coords)
+        ctx.part, ctx.resolutions, ctx.backend = part_t, resolutions, backend
+        ctx.table_shape, ctx.table_dtype = tuple(tables.shape), tables.dtype
+        if backend.is_cuda:
+            return hash_encode_cuda(coords, tables, resolutions, part_t)
+        return _ref.hash_encode_batched_ref(coords, tables, resolutions,
+                                            part_t.to(coords.device))
+
+    @staticmethod
+    def backward(ctx, g):
+        (coords,) = ctx.saved_tensors
+        if ctx.backend.is_cuda:
+            grad = hash_encode_bwd_cuda(g, coords, ctx.resolutions, ctx.part,
+                                        ctx.table_shape)
+        else:
+            grad = _ref.hash_encode_batched_bwd_ref(
+                g, coords, ctx.resolutions, ctx.part.to(coords.device),
+                ctx.table_shape)
+        return None, grad.to(ctx.table_dtype), None, None, None
+
+
 def hash_encode_batched(coords, tables, resolutions: Sequence[int], part,
                         impl: backends.BackendLike = "ref", *,
                         compute_dtype=None):
-    """coords (B,N,3); tables (P,L,T,F); part (B,) -> (B, N, L*F)."""
+    """coords (B,N,3); tables (P,L,T,F); part (B,) -> (B, N, L*F),
+    differentiable in ``tables``."""
     backend = backends.resolve(impl)
     if compute_dtype is not None:
         tables = tables.to(backend.require_dtype(compute_dtype))
-    if backend.is_cuda:
-        return hash_encode_cuda(coords, tables, resolutions, part)
-    return _ref.hash_encode_batched_ref(
-        coords, tables, resolutions,
-        torch.as_tensor(part, device=coords.device))
+    return _HashEncodeBatched.apply(coords, tables, tuple(resolutions), part,
+                                    backend)
 
 
 def hash_encode(coords, tables, resolutions: Sequence[int],
                 impl: backends.BackendLike = "ref", *, compute_dtype=None):
     """coords (N,3) in [0,1]; tables (L,T,F) -> (N, L*F) in the table dtype
-    (or ``compute_dtype``'s: the tables are cast first; coords stay f32)."""
-    backend = backends.resolve(impl)
-    if compute_dtype is not None:
-        tables = tables.to(backend.require_dtype(compute_dtype))
-    if backend.is_cuda:
-        return hash_encode_cuda(coords[None], tables[None], resolutions, [0])[0]
-    return _ref.hash_encode_ref(coords, tables, resolutions)
+    (or ``compute_dtype``'s: the tables are cast first; coords stay f32).
+    Differentiable in ``tables``."""
+    return hash_encode_batched(coords[None], tables[None], resolutions, [0],
+                               impl, compute_dtype=compute_dtype)[0]

@@ -12,8 +12,6 @@ int64 and the masked value is the uint32 wraparound exactly.
 """
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 PRIMES = (1, 2_654_435_761, 805_459_861)
@@ -47,20 +45,19 @@ def _corner_weight(w: torch.Tensor, dx: int, dy: int, dz: int) -> torch.Tensor:
             * (w[..., 2] if dz else 1 - w[..., 2]))
 
 
-def encode_level(coords: torch.Tensor, table: torch.Tensor, res: int, *,
-                 table_size: Optional[int] = None,
-                 row_base: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """coords (N,3); table (T,F) -> (N,F) trilinearly blended features.
+def encode_level(coords: torch.Tensor, table: torch.Tensor, res: int,
+                 table_size: int, row_base: torch.Tensor) -> torch.Tensor:
+    """coords (N,3) -> (N,F) trilinearly blended features of one level.
+
+    ``table`` holds several partitions' level tables one after another
+    ((P*T, F)): ``table_size`` is one partition's T and ``row_base`` (N,)
+    the offset of each point's partition in it.
 
     The 8-corner blend is accumulated in float32 and cast to the table dtype
     once at the end; each corner weight is first rounded to the table dtype
     (the JAX package's ``ww.astype(table.dtype)``). For float32 tables this is
-    the JAX reference's arithmetic step for step.
-
-    ``table`` may hold several partitions' level tables one after another
-    ((P*T, F)): then ``table_size`` is one partition's T and ``row_base`` (N,)
-    the offset of each point's partition in it."""
-    T = table.shape[0] if table_size is None else table_size
+    the JAX reference's arithmetic step for step."""
+    T = table_size
     lo, w = _level_corners(coords, res)
     out = torch.zeros((coords.shape[0], table.shape[1]), dtype=torch.float32,
                       device=coords.device)
@@ -68,20 +65,10 @@ def encode_level(coords: torch.Tensor, table: torch.Tensor, res: int, *,
         for dy in (0, 1):
             for dz in (0, 1):
                 corner = lo + torch.tensor([dx, dy, dz], device=lo.device)
-                idx = corner_indices(corner, res, T)
-                if row_base is not None:
-                    idx = idx + row_base
+                idx = corner_indices(corner, res, T) + row_base
                 ww = _corner_weight(w, dx, dy, dz).to(table.dtype)
                 out = out + ww[:, None].float() * table[idx].float()
     return out.to(table.dtype)
-
-
-def hash_encode_ref(coords: torch.Tensor, tables: torch.Tensor,
-                    resolutions) -> torch.Tensor:
-    """coords (N,3) in [0,1]; tables (L,T,F) -> (N, L*F) in the table dtype."""
-    feats = [encode_level(coords, tables[l], int(resolutions[l]))
-             for l in range(tables.shape[0])]
-    return torch.cat(feats, dim=-1)
 
 
 def hash_encode_batched_ref(coords: torch.Tensor, tables: torch.Tensor,
@@ -96,5 +83,34 @@ def hash_encode_batched_ref(coords: torch.Tensor, tables: torch.Tensor,
         .repeat_interleave(N)
     x = coords.reshape(B * N, 3)
     feats = [encode_level(x, tables[:, l].reshape(P * T, F), int(resolutions[l]),
-                          table_size=T, row_base=row_base) for l in range(L)]
+                          T, row_base) for l in range(L)]
     return torch.cat(feats, dim=-1).reshape(B, N, L * F)
+
+
+def hash_encode_batched_bwd_ref(g: torch.Tensor, coords: torch.Tensor,
+                                resolutions, part: torch.Tensor,
+                                table_shape) -> torch.Tensor:
+    """The plain backward of :func:`hash_encode_batched_ref`: the 8-corner
+    scatter-add of the feature cotangent ``g`` (B,N,L*F) into a table
+    gradient of ``table_shape`` (P,L,T,F) in ``g``'s dtype. Each corner adds
+    ``ww * g`` with ``ww`` rounded to ``g``'s dtype, as the JAX package's
+    ``_bwd`` does; ``index_add_`` covers every row of a (level, corner) at
+    once through the flattened (P*L*T, F) gradient."""
+    B, N, _ = coords.shape
+    P, L, T, F = table_shape
+    x = coords.reshape(B * N, 3)
+    gl = g.reshape(B * N, L, F)
+    base = (part.to(device=coords.device, dtype=torch.int64) * (L * T)) \
+        .repeat_interleave(N)
+    gt = torch.zeros((P * L * T, F), dtype=g.dtype, device=g.device)
+    for l in range(L):
+        res = int(resolutions[l])
+        lo, w = _level_corners(x, res)
+        for dx in (0, 1):
+            for dy in (0, 1):
+                for dz in (0, 1):
+                    corner = lo + torch.tensor([dx, dy, dz], device=lo.device)
+                    idx = corner_indices(corner, res, T) + base + l * T
+                    ww = _corner_weight(w, dx, dy, dz).to(g.dtype)
+                    gt.index_add_(0, idx, ww[:, None] * gl[:, l])
+    return gt.reshape(P, L, T, F)

@@ -1,10 +1,10 @@
 """Render-service entry point: serve a camera orbit to concurrent clients through
 :class:`repro_torch.serving.RenderService` and report frame latency.
 
-The port cannot train yet, so the model comes from ``--model PATH`` (a
-msgpack saved by either package's ``DVNRModel.save``) or is drawn from
-``--seed`` by the port's ``init_inr`` (SMOKE config over the two partitions
-of the JAX package's ``repro.launch.serve`` synthetic CloverLeaf volume):
+The model comes from ``--model PATH`` (a msgpack saved by either package's
+``DVNRModel.save``) or, without one, is trained first from ``--seed``: the
+SMOKE config over the two partitions of a synthetic CloverLeaf volume, as
+the JAX package's ``repro.launch.serve`` does:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke
   PYTHONPATH=src python -m repro_torch.launch.serve --model dvnr.msgpack \\
@@ -29,7 +29,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--model", default=None,
                     help="msgpack of a saved DVNRModel (either package)")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of a drawn model (when no --model)")
+                    help="training key of the model (when no --model)")
     ap.add_argument("--frames", type=int, default=16,
                     help="orbit frames (ticks) to serve")
     ap.add_argument("--clients", type=int, default=2,
@@ -50,13 +50,15 @@ def main(argv=None) -> dict:
     from repro_torch.data.volume import make_partition
     from repro_torch.serving import RenderService
 
+    train_s = 0.0
     if args.model is not None:
         model = api.load(args.model, device=args.device)
     else:
         parts = [make_partition("cloverleaf", p, (1, 1, 2), (16, 16, 16),
                                 t=0.3, device=args.device) for p in range(2)]
-        model = api.DVNRModel.init(SMOKE, args.seed, n_partitions=2,
-                                   parts_meta=parts, device=args.device)
+        t0 = time.perf_counter()
+        model, _ = api.train(parts, SMOKE, key=args.seed, backend=args.backend)
+        train_s = time.perf_counter() - t0
 
     svc = RenderService(model, backend=args.backend)
     cam = api.Camera()
@@ -82,6 +84,7 @@ def main(argv=None) -> dict:
     warm = tick_ms[1:] if len(tick_ms) > 1 else tick_ms
     result = {
         "mode": "uncached", "backend": svc.backend.name,
+        "train_s": train_s,
         "device": str(model.device), "partitions": model.n_partitions,
         "frames": args.frames, "clients": args.clients,
         "width": args.width, "height": args.height,
