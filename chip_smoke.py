@@ -34,7 +34,23 @@ toolkit; imports nothing of JAX or of the JAX package. Phases:
            bound, its plain version's time and a PyTorch yardstick, and the
            device's idle share over one profiled serving tick and one
            profiled training chunk, tagged with the card's name and power
-           limit.
+           limit;
+7. LM      serving with the dense transformer at ``llama3_8b``'s published
+           width and depth (32 layers, d=4,096, 32/8 heads, d_ff=14,336,
+           vocab 128,256; f32 params from a seed, bf16 compute): prefill of
+           2 x 4,096 prompt tokens (cut from ``prefill_32k``'s 32 x 32,768 to
+           stay inside the time limit) and 32 greedy decode steps through
+           ``build_model(cfg).prefill / decode_step``, counters zeroed just
+           before: the flash-attention kernel must launch once per layer in
+           the prefill and never in a decode step. Checks: the same width at
+           depth 2 in f32, kernel path against the plain path and prefill(S)
+           + decode(1) against prefill(S+1) (1e-4 of the largest logit);
+           at full depth in bf16, kernel path against the plain path (cosine
+           >= 0.999, every logit finite). Prefill ms, prompt tokens/s,
+           decode ms per step and peak memory, then the flash kernel's row
+           timed as phase 6 times the others (SDPA as its yardstick).
+           Phase 2 holds the flash kernel against its plain version at the
+           llama, danube (dh=80, window) and qwen2 (14/2 heads) shapes.
 
 Exits non-zero on any failure. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel JSON.
@@ -51,10 +67,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM published peaks: HBM bytes/s, and float32 FLOP/s outside the
-# tensor cores (the timed kernels run float32 on the CUDA cores)
+# H100 SXM published peaks: HBM bytes/s, float32 FLOP/s outside the tensor
+# cores (the DVNR kernels run float32 on the CUDA cores), and dense bf16
+# tensor-core FLOP/s (the bound of bf16 attention)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_FLOPS = 989e12
 REPLACES = {
     "hash_encode": "src/repro/kernels/hash_encoding/kernel.py:62",
     "fused_mlp_fwd": "src/repro/kernels/fused_mlp/kernel.py:66",
@@ -63,6 +81,7 @@ REPLACES = {
     "fused_mlp_bwd": "src/repro/kernels/fused_mlp/kernel.py:88",
     "train_step": "src/repro/kernels/fused_train_step/kernel.py:364",
     "adamw_apply": "src/repro/kernels/fused_train_step/kernel.py:218",
+    "flash_attention": "src/repro/kernels/flash_attention/kernel.py:94",
 }
 # sizes of the run (the rehearsal on a CPU shrinks them)
 DECODE_EDGE = 256          # phase 3: one 256^3 partition
@@ -73,6 +92,24 @@ DECODE_CHUNK = 1 << 22
 TRAIN_EDGE = 256             # phases 2 and 5: 2x2x2 partitions of 256^3 each
 TRAIN_STEPS, COMPARE_STEPS, PROFILE_STEPS = 512, 16, 16
 DEVICE = "cuda"
+# phase 2: flash attention against its plain version, (B, Sq, Sk, Hq, Hkv,
+# dh, causal, window, dtype)
+FLASH_CASES = (
+    (2, 4096, 4096, 32, 8, 128, True, None, "bfloat16"),    # llama
+    (2, 4096, 4096, 32, 8, 128, True, None, "float32"),
+    (1, 4099, 4099, 32, 8, 128, True, None, "float32"),     # ragged S
+    (1, 1000, 4099, 32, 8, 128, True, None, "bfloat16"),    # Sk > Sq, right-aligned
+    (1, 1000, 4099, 32, 8, 128, True, None, "float32"),
+    (1, 8192, 8192, 32, 8, 80, True, 4096, "bfloat16"),     # danube: dh=80, window
+    (1, 8192, 8192, 32, 8, 80, True, 4096, "float32"),
+    (2, 4096, 4096, 14, 2, 64, True, None, "bfloat16"),     # qwen2: g=7
+    (2, 4096, 4096, 14, 2, 64, True, None, "float32"),
+    (2, 2048, 2048, 16, 16, 128, False, None, "float32"),   # non-causal
+)
+# phase 7: the LM. LM_CONFIG None means llama3_8b's published CONFIG (the
+# rehearsal on a CPU hands in a SMOKE config)
+LM_ARCH, LM_CONFIG = "llama3_8b", None
+LM_BATCH, LM_PROMPT, LM_DECODE, LM_CHECK_LAYERS = 2, 4096, 32, 2
 
 SOURCES = {
     "hash_encode": "src/repro_torch/csrc/hash_encode.cu",
@@ -82,6 +119,7 @@ SOURCES = {
     "fused_mlp_bwd": "src/repro_torch/csrc/fused_mlp.cu",
     "train_step": "src/repro_torch/csrc/train_step.cu",
     "adamw_apply": "src/repro_torch/csrc/adamw.cu",
+    "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
 }
 
 
@@ -154,15 +192,232 @@ def profile_tick(tick):
     return (busy or None), ranked, wall
 
 
-def bound_ms(nbytes: float, flops: float):
+def bound_ms(nbytes: float, flops: float, peak_flops: float = F32_FLOPS):
     """The least time the card could take: each input read once, each output
-    written once at the HBM rate, or the operations at the f32 peak."""
+    written once at the HBM rate, or the operations at the peak rate of
+    their type (f32 unless said)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def main() -> int:
+def flash_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
+    """Live (query, key) pairs of one head under the masks: the work the
+    kernel must do (right-aligned positions, as the kernel)."""
+    import numpy as np
+    q_pos = (Sk - Sq) + np.arange(Sq, dtype=np.int64)
+    hi = np.minimum(q_pos, Sk - 1) if causal else np.full(Sq, Sk - 1)
+    lo = np.maximum(q_pos - window + 1, 0) if window is not None else 0
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def flash_checks(dev) -> float:
+    """Phase 2's flash-attention checks (FLASH_CASES); returns the error at
+    the first case, the LM phase's shapes and dtype."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    errs = []
+    for B, Sq, Sk, Hq, Hkv, dh, causal, window, dt in FLASH_CASES:
+        dtype = getattr(torch, dt)
+        q = torch.randn((B, Sq, Hq, dh), generator=gen, device=dev).to(dtype)
+        k = torch.randn((B, Sk, Hkv, dh), generator=gen, device=dev).to(dtype)
+        v = torch.randn((B, Sk, Hkv, dh), generator=gen, device=dev).to(dtype)
+        label = (f"flash_attention {dt} B={B} Sq={Sq} Sk={Sk} H={Hq}/{Hkv} "
+                 f"dh={dh} {'causal' if causal else 'full'}"
+                 f"{'' if window is None else f' window={window}'}")
+        got = flash_attention_cuda(q, k, v, causal, window)
+        want = attention_ref(q, k, v, causal=causal, window=window)
+        if dtype == torch.float32:   # JAX's tolerance: online vs two-pass
+            errs.append(check(label, got, want, atol=2e-5, rtol=2e-5))
+        else:   # the kernel keeps scores, p and PV in f32; the plain version
+            # rounds scores and p to bf16 (JAX's tolerance)
+            errs.append(check(label, got, want, atol=3e-2))
+            # and tightly: the plain version in f32 on the same bf16 values,
+            # within one bf16 rounding of the output
+            want = attention_ref(q.float(), k.float(), v.float(),
+                                 causal=causal, window=window)
+            check(f"{label} vs f32", got, want, atol=1e-5, rtol=8e-3)
+        del q, k, v, got, want
+    torch.cuda.synchronize()
+    return errs[0]
+
+
+def lm_phase(tag: str, dev, flash_err: float) -> dict:
+    """Phase 7: serve the dense LM at full width and depth; returns the
+    flash kernel's row of the kernels line."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as tF
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.models import build_model
+
+    cfg = LM_CONFIG or get_config(LM_ARCH)
+    dh = cfg.resolved_head_dim
+    cut = SHAPES["prefill_32k"]
+    B, S, n_dec = LM_BATCH, LM_PROMPT, LM_DECODE
+    seq_len = S + n_dec
+    print(f"== phase 7: LM serving, {cfg.name}: {cfg.n_layers} layers, "
+          f"d={cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {dh}, "
+          f"d_ff={cfg.d_ff}, vocab {cfg.vocab}, {cfg.param_count():,} "
+          f"{cfg.param_dtype} params, {cfg.compute_dtype} compute")
+    print(f"  cut: {cut.name} (B={cut.global_batch}, S={cut.seq_len}) -> "
+          f"B={B} x S={S} prompt tokens + {n_dec} greedy decode steps, "
+          f"seq_len {seq_len} (the time limit); width and depth not cut")
+    # the prompt: uniform token ids from the seed (make_lm_batch's Zipf
+    # sampler gives every token vocab-1, ROADMAP §C, which would leave a
+    # misplaced cache slot unseen)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, (B, S + 1)).astype(np.int32)
+    prompt = {"tokens": tokens[:, :S]}
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    print(f"  init on the card: {time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+
+    def greedy(logits):
+        return logits[:, -1].argmax(-1, keepdim=True)
+
+    # warm-up (cuBLAS handles, the allocator's pools), then the main run
+    logits, cache = model.prefill(params, prompt, seq_len, impl="cuda")
+    model.decode_step(params, cache, greedy(logits))
+    del logits, cache
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    flash_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, prompt, seq_len, impl="cuda")
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_launches = flash_attention_cuda.launches
+    finite = torch.isfinite(logits).all()
+    tok = greedy(logits)
+    t0 = time.perf_counter()
+    for _ in range(n_dec):
+        step_logits, cache = model.decode_step(params, cache, tok)
+        finite &= torch.isfinite(step_logits).all()
+        tok = greedy(step_logits)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / n_dec
+    launches = flash_attention_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  flash kernel launches: {prefill_launches} in the prefill, "
+          f"{launches - prefill_launches} in {n_dec} decode steps")
+    if prefill_launches != cfg.n_layers or launches != prefill_launches:
+        raise SmokeFailure(f"flash launches: {prefill_launches} per prefill "
+                           f"(want {cfg.n_layers}), {launches - prefill_launches} "
+                           f"in the decode steps (want 0)")
+    if not bool(finite) or int(cache["pos"]) != seq_len:
+        raise SmokeFailure(f"serving run: logits finite {bool(finite)}, cache "
+                           f"pos {int(cache['pos'])} (want {seq_len})")
+    print(f"  prefill {B}x{S}: {prefill_ms:.2f} ms, {B * S / prefill_ms * 1e3:.1f} "
+          f"prompt tokens/s; decode {decode_ms:.3f} ms per step ({B} "
+          f"sequences, host clock, synchronised) [{tag}]")
+    print(f"  peak memory {peak / 2**30:.3f} GiB (max_memory_allocated over the "
+          f"run; {base_mem / 2**30:.3f} GiB resident before it) [{tag}]")
+
+    # (c) full depth, bf16: the kernel path against the plain path
+    ref_logits, ref_cache = model.prefill(params, prompt, seq_len, impl="ref")
+    a, b = logits[:, -1].float(), ref_logits[:, -1].float()
+    cos = float(tF.cosine_similarity(a, b, dim=-1).min())
+    ok = bool(torch.isfinite(b).all()) and cos >= 0.999
+    print(f"  full depth {cfg.compute_dtype}: last-token logits, kernel vs plain "
+          f"path: min cosine {cos:.6f} (limit 0.999), max abs diff "
+          f"{float((a - b).abs().max()):.4e} of max |logit| "
+          f"{float(b.abs().max()):.4f}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"full-depth kernel vs plain path: cosine {cos}")
+
+    # where a prefill's and a decode step's time go
+    for label, fn in (("prefill", lambda: model.prefill(params, prompt, seq_len,
+                                                        impl="cuda")),
+                      ("decode step", lambda: model.decode_step(
+                          params, ref_cache, greedy(ref_logits)))):
+        torch.cuda.synchronize()
+        busy, by_kernel, wall = profile_tick(fn)
+        if busy is None:
+            print(f"  profiled {label}: no device time recorded (not measured) [{tag}]")
+            continue
+        print(f"  profiled {label}: {wall:.2f} ms host clock, device busy "
+              f"{busy:.2f} ms, idle share {1 - busy / wall:.3f} [{tag}]")
+        for name, (ms, n) in by_kernel[:8]:
+            print(f"    {ms:9.3f} ms  x{n:<4d} {name[:90]}")
+    del params, cache, logits, ref_logits, ref_cache, step_logits
+    torch.cuda.empty_cache()
+
+    # (a), (b): the same width at depth LM_CHECK_LAYERS in float32
+    cfg2 = cfg.replace(n_layers=LM_CHECK_LAYERS, compute_dtype="float32")
+    m2 = build_model(cfg2)
+    p2 = m2.init(torch.Generator(device=dev).manual_seed(1))
+    lk, c2 = m2.prefill(p2, prompt, seq_len, impl="cuda")
+    lp, _ = m2.prefill(p2, prompt, seq_len, impl="ref")
+    check(f"depth {LM_CHECK_LAYERS} f32: kernel vs plain path", lk, lp,
+          atol=1e-4 * float(lp.abs().max()))
+    ld, _ = m2.decode_step(p2, c2, tokens[:, S:S + 1])
+    lt, _ = m2.prefill(p2, {"tokens": tokens}, seq_len, impl="cuda")
+    check(f"depth {LM_CHECK_LAYERS} f32: prefill(S)+decode(1) vs prefill(S+1)",
+          ld, lt, atol=1e-4 * float(lt.abs().max()))
+    del m2, p2, lk, c2, lp, ld, lt
+    torch.cuda.empty_cache()
+
+    # the kernel's row, at the prefill's shapes
+    cdt = getattr(torch, cfg.compute_dtype)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    q = torch.randn((B, S, cfg.n_heads, dh), generator=gen, device=dev).to(cdt)
+    k = torch.randn((B, S, cfg.n_kv_heads, dh), generator=gen, device=dev).to(cdt)
+    v = torch.randn((B, S, cfg.n_kv_heads, dh), generator=gen, device=dev).to(cdt)
+    W = cfg.sliding_window
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def kern():
+        return flash_attention_cuda(q, k, v, True, W)
+
+    def plain():
+        return attention_ref(q, k, v, causal=True, window=W)
+
+    def library():   # yardstick only: the port never calls it
+        return tF.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True)
+
+    lib_fn = library if W is None else None   # SDPA has no sliding window
+    if lib_fn is not None:
+        check("SDPA yardstick vs plain (same function)",
+              lib_fn().transpose(1, 2), plain(), atol=3e-2)
+    ms = cuda_ms(kern, reps=5)
+    pms = cuda_ms(plain, reps=3)
+    lms = cuda_ms(lib_fn, reps=10) if lib_fn is not None else None
+    _, dev_ms, _ = profile_tick(lambda: [kern() for _ in range(3)])
+    kdev = [t / n for key, (t, n) in dev_ms if "flash_attention_kernel" in key]
+    pairs = flash_pairs(S, S, True, W)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops = 4 * B * cfg.n_heads * dh * pairs
+    bms, by = bound_ms(nbytes, flops, BF16_FLOPS if cdt == torch.bfloat16 else F32_FLOPS)
+    print(f"  flash_attention {ms:9.3f} ms  bound {bms:8.3f} ms ({by}; "
+          f"{pairs:,} live pairs per head)  plain {pms:9.3f} ms  SDPA "
+          f"{'-' if lms is None else f'{lms:.3f} ms'}  launches/prefill "
+          f"{prefill_launches}  kernel alone "
+          f"{f'{kdev[0]:.4f} ms' if kdev else 'not measured'} (profiler) [{tag}]")
+    if kdev:
+        print(f"  attention kernels: {kdev[0] * prefill_launches:.1f} ms of the "
+              f"{prefill_ms:.1f} ms prefill "
+              f"({kdev[0] * prefill_launches / prefill_ms:.1%}) [{tag}]")
+    return {"name": "flash_attention", "route": "cuda",
+            "source": SOURCES["flash_attention"],
+            "replaces": REPLACES["flash_attention"], "launches": launches,
+            "max_abs_err": flash_err, "ms": ms, "plain_ms": pms,
+            "bound_ms": bms, "bound_by": by, "library_ms": lms}
+
+
+def dvnr_phases():
+    """Phases 1-6 (the DVNR kernels, decode, serving, training and their
+    report); returns (card tag, the kernels' rows, the flash check's error)."""
     import torch
     if not torch.cuda.is_available():
         raise SmokeFailure("torch.cuda.is_available() is false: this check "
@@ -369,6 +624,7 @@ def main() -> int:
             e = check(f"adamw_apply {k} {name}", a[k], b[k], atol=0.0)
             errs["adamw_apply"] = max(errs.get("adamw_apply", 0.0), e)
     torch.cuda.synchronize()
+    flash_err = flash_checks(dev)
 
     # ---------------------------------------------------------------- 3
     print(f"== phase 3: decode_grid of one {DECODE_EDGE}^3 partition")
@@ -758,6 +1014,17 @@ def main() -> int:
               f"idle share {max(0.0, 1 - busy / wall_np):.3f} against the "
               f"profiled device time [{tag}]")
 
+    return tag, kernels, flash_err
+
+
+def main() -> int:
+    tag, kernels, flash_err = dvnr_phases()
+    import gc
+
+    import torch
+    gc.collect()                      # the DVNR phases' tensors
+    torch.cuda.empty_cache()
+    kernels.append(lm_phase(tag, torch.device(DEVICE), flash_err))
     print(tag)                        # name, power limit as nvidia-smi says
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

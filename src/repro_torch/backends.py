@@ -28,7 +28,8 @@ OPS = ("hash_encoding", "fused_mlp", "composite", "flash_attention",
 
 #: ops the port implements so far (the others come with later slices)
 PORTED_OPS = frozenset({"hash_encoding", "fused_mlp", "composite",
-                        "fused_train_step", "fused_sampling", "tiled_sampling"})
+                        "flash_attention", "fused_train_step",
+                        "fused_sampling", "tiled_sampling"})
 
 
 @dataclass(frozen=True)

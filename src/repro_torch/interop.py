@@ -11,6 +11,10 @@ A whole trainer state crosses as the numpy dict ``{"params", "opt":
 {"step", "m", "v"[, "mw"]}, "loss_ma", "active", "step"}`` — the JAX
 ``DVNRState``'s fields through ``jax.tree.map(np.asarray, ...)`` — so both
 packages can start from one state.
+
+An LM's parameters cross as the JAX ``init_lm`` tree of numpy arrays (the
+same nested keys, layers stacked on a leading L axis), and its KV cache as
+``{"k", "v", "pos"}``.
 """
 from __future__ import annotations
 
@@ -87,3 +91,23 @@ def state_to_numpy(state) -> dict:
             "loss_ma": _to_numpy(state.loss_ma),
             "active": _to_numpy(state.active),
             "step": int(state.step)}
+
+
+def lm_params_from_numpy(np_params: dict, device="auto") -> dict:
+    """The JAX LM parameter tree as numpy arrays -> the port's tensors on
+    ``device`` (``"auto"``: the GPU), keeping keys and dtypes."""
+    return _tree_to_torch(np_params, resolve_device(device))
+
+
+def lm_params_to_numpy(params: dict) -> dict:
+    """The port's LM parameters -> numpy arrays in the JAX tree layout."""
+    return _tree_to_numpy(params)
+
+
+def lm_cache_from_numpy(np_cache: dict, device="auto") -> dict:
+    """A KV cache ``{"k", "v", "pos"}`` as numpy -> the port's cache on
+    ``device``: k/v (L,B,S,Hkv,dh) and ``pos`` a 0-d int32 tensor."""
+    dev = resolve_device(device)
+    return {"k": _to_torch(np_cache["k"], dev), "v": _to_torch(np_cache["v"], dev),
+            "pos": torch.as_tensor(int(np.asarray(np_cache["pos"])),
+                                   dtype=torch.int32, device=dev)}

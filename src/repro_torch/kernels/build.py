@@ -52,6 +52,9 @@ SIGNATURES = {
     # loss_div, b1, 1-b1, b2, 1-b2, eps, wd, stream
     "repro_adamw_apply": [_P, _P, _P, _P, _L] * 4
     + [_P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _P],
+    # q, k, v, out, B, Sq, Sk, Hq, Hkv, dh, causal, has_window, window,
+    # is_bf16, stream
+    "repro_flash_attention": [_P] * 4 + [_L, _L, _L] + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()

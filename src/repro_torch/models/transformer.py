@@ -1,0 +1,267 @@
+"""Decoder-only transformer stack (dense / VLM families).
+
+The same functions as ``repro.models.transformer``, in PyTorch. Layers stay
+stacked on a leading L axis under the JAX package's tree keys; a Python loop
+over the layer slices takes the place of ``lax.scan`` (remat has no role in
+inference). MoE layers wait for ROADMAP item 16.
+
+The KV cache is laid out the way ``init_cache`` / ``decode_step`` read it:
+``prefill`` returns it at ``cache_len(cfg, seq_len)`` slots with position p
+at slot p, or at slot ``p % W`` under a sliding window, so that decoding
+continues the prompt. (The JAX package's ``prefill`` returns a cache of the
+prompt's length, laid out from its last W tokens; see ROADMAP §C.)
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (
+    apply_mlp, apply_norm, dense_init, embed_init, init_norm, softmax_xent,
+)
+from repro_torch.parallel.sharding import padded_vocab, require_no_sharder
+from repro_torch.precision import torch_dtype
+
+
+def compute_dtype(cfg) -> torch.dtype:
+    return torch_dtype(cfg.compute_dtype)
+
+
+def param_dtype(cfg) -> torch.dtype:
+    return torch_dtype(cfg.param_dtype)
+
+
+def _require_dense(cfg) -> None:
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers are not ported yet (ROADMAP item 16)")
+
+
+def layer_slice(layers: dict, i: int) -> dict:
+    """Layer ``i`` of a stacked layer tree (views, no copies)."""
+    return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
+            for k, v in layers.items()}
+
+
+# --------------------------------------------------------------------------- #
+# Init
+# --------------------------------------------------------------------------- #
+def init_layer(cfg, gen: torch.Generator, pdt, n: int) -> dict:
+    """Stacked params for n identical decoder layers."""
+    _require_dense(cfg)
+    d, dh = cfg.d_model, cfg.resolved_head_dim
+    hq, hkv, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
+    dev = gen.device
+    p: dict = {
+        "attn": {
+            "wq": dense_init(gen, (n, d, hq * dh), d, pdt),
+            "wk": dense_init(gen, (n, d, hkv * dh), d, pdt),
+            "wv": dense_init(gen, (n, d, hkv * dh), d, pdt),
+            "wo": dense_init(gen, (n, hq * dh, d), hq * dh, pdt),
+        },
+        "norm1": _stacked_norm(cfg, n, d, dev),
+        "norm2": _stacked_norm(cfg, n, d, dev),
+    }
+    if cfg.qkv_bias:
+        for name, heads in (("bq", hq), ("bk", hkv), ("bv", hkv)):
+            p["attn"][name] = torch.zeros((n, heads * dh), dtype=pdt, device=dev)
+    p["mlp"] = {
+        "wi": dense_init(gen, (n, d, f), d, pdt),
+        "wo": dense_init(gen, (n, f, d), f, pdt),
+    }
+    if cfg.act == "swiglu":
+        p["mlp"]["wg"] = dense_init(gen, (n, d, f), d, pdt)
+    return p
+
+
+def _stacked_norm(cfg, n, d, device):
+    if cfg.norm == "nonparam_ln":
+        return {}
+    p = {"scale": torch.ones((n, d), dtype=torch.float32, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((n, d), dtype=torch.float32, device=device)
+    return p
+
+
+def init_lm(cfg, gen: torch.Generator) -> dict:
+    """Random parameters in the JAX tree layout, drawn from ``gen`` on its
+    device (truncated normals of JAX's stds; not JAX's bits)."""
+    _require_dense(cfg)
+    pdt = param_dtype(cfg)
+    vp = padded_vocab(cfg.vocab)
+    params = {
+        "embed": {"tok": embed_init(gen, (vp, cfg.d_model), pdt)},
+        "layers": init_layer(cfg, gen, pdt, cfg.n_layers),
+        "final_norm": init_norm(cfg, cfg.d_model, gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = {"w": dense_init(gen, (cfg.d_model, vp), cfg.d_model, pdt)}
+    return params
+
+
+# --------------------------------------------------------------------------- #
+# Forward (prefill / loss)
+# --------------------------------------------------------------------------- #
+def _device(params) -> torch.device:
+    return params["embed"]["tok"].device
+
+
+def _as_tensor(a, device, dtype=None) -> torch.Tensor:
+    t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+    return t.to(device=device, dtype=dtype)
+
+
+def embed_tokens(cfg, params, tokens):
+    """Rows of the embedding table in the compute dtype. Gathers first and
+    casts the rows (the values of JAX's cast-then-gather, without casting
+    the whole table on every call)."""
+    table = params["embed"]["tok"]
+    return table[_as_tensor(tokens, table.device, torch.long)].to(compute_dtype(cfg))
+
+
+def make_positions(cfg, B, S, device=None):
+    pos = torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+    if cfg.mrope_sections is not None:
+        pos = pos[None].expand(3, B, S)
+    return pos
+
+
+def _inputs(cfg, params, batch):
+    """The batch's embeddings (B,S,D) in the compute dtype and positions."""
+    dev = _device(params)
+    if cfg.input_mode == "embeds":
+        x = _as_tensor(batch["embeds"], dev).to(compute_dtype(cfg))
+        B, S, _ = x.shape
+    else:
+        x = embed_tokens(cfg, params, batch["tokens"])
+        B, S = x.shape[:2]
+    positions = batch.get("positions")
+    if positions is None:
+        positions = make_positions(cfg, B, S, dev)
+    else:
+        positions = _as_tensor(positions, dev, torch.int32)
+    return x, positions
+
+
+def block_fn(cfg, lp, x, positions, sharder=None, impl="ref"):
+    """One decoder layer. Returns (x, aux_loss)."""
+    _require_dense(cfg)
+    h = apply_norm(cfg, lp["norm1"], x)
+    a = attn.attention_block(cfg, lp["attn"], h, positions, causal=True,
+                             sharder=sharder, impl=impl)
+    x = x + a
+    h2 = apply_norm(cfg, lp["norm2"], x)
+    x = x + apply_mlp(cfg, lp["mlp"], h2, sharder)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def forward_hidden(cfg, params, x, positions, sharder=None, impl="ref"):
+    """x: (B,S,D) embeddings -> final hidden states (B,S,D), aux loss."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_layers):
+        x, a = block_fn(cfg, layer_slice(params["layers"], i), x, positions,
+                        sharder, impl)
+        aux = aux + a
+    x = apply_norm(cfg, params["final_norm"], x)
+    return x, aux
+
+
+def logits_fn(cfg, params, h):
+    cdt = h.dtype
+    if cfg.tie_embeddings:
+        logits = h @ params["embed"]["tok"].to(cdt).T
+    else:
+        logits = h @ params["head"]["w"].to(cdt)
+    vp = logits.shape[-1]
+    if vp != cfg.vocab:  # mask padded vocab entries
+        neg = (torch.arange(vp, device=h.device) >= cfg.vocab).float() * -1e9
+        logits = logits + neg.to(logits.dtype)
+    return logits
+
+
+def lm_loss(cfg, params, batch, sharder=None, impl="ref"):
+    """Next-token cross-entropy (forward only: LM training is not ported)."""
+    require_no_sharder(sharder)
+    x, positions = _inputs(cfg, params, batch)
+    h, aux = forward_hidden(cfg, params, x, positions, sharder, impl)
+    logits = logits_fn(cfg, params, h)
+    loss = softmax_xent(logits, _as_tensor(batch["labels"], h.device, torch.long))
+    return loss + aux, {"xent": loss, "aux": aux}
+
+
+# --------------------------------------------------------------------------- #
+# KV cache: prefill + decode
+# --------------------------------------------------------------------------- #
+def cache_len(cfg, seq_len: int) -> int:
+    if cfg.sliding_window is not None:
+        return min(cfg.sliding_window, seq_len)
+    return seq_len
+
+
+def init_cache(cfg, batch: int, seq_len: int, device=None):
+    dh = cfg.resolved_head_dim
+    S = cache_len(cfg, seq_len)
+    cdt = compute_dtype(cfg)
+    shape = (cfg.n_layers, batch, S, cfg.n_kv_heads, dh)
+    return {
+        "k": torch.zeros(shape, dtype=cdt, device=device),
+        "v": torch.zeros(shape, dtype=cdt, device=device),
+        "pos": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+@torch.no_grad()
+def prefill(cfg, params, batch, seq_len: int, sharder=None, impl="ref"):
+    """Run the prompt through the stack, returning last-token logits + cache
+    (``init_cache(cfg, B, seq_len)``'s layout, ready for ``decode_step``)."""
+    require_no_sharder(sharder)
+    _require_dense(cfg)
+    cdt = compute_dtype(cfg)
+    x, positions = _inputs(cfg, params, batch)
+    B, S, _ = x.shape
+    cache = init_cache(cfg, B, seq_len, x.device)
+    W = cache["k"].shape[2]
+    if cfg.sliding_window is None and S > W:
+        raise ValueError(f"a prompt of {S} tokens does not fit a cache of "
+                         f"seq_len={seq_len}")
+    # the last min(S, W) positions, each at its decode slot
+    keep = min(S, W)
+    slots = torch.arange(S - keep, S, device=x.device) % W
+    for i in range(cfg.n_layers):
+        lp = layer_slice(params["layers"], i)
+        h = apply_norm(cfg, lp["norm1"], x)
+        q, k, v = attn.qkv_proj(cfg, lp["attn"], h, positions)
+        o = attn.sdpa(q, k, v, causal=True, window=cfg.sliding_window, impl=impl)
+        x = x + o.reshape(B, S, -1) @ lp["attn"]["wo"].to(cdt)
+        h2 = apply_norm(cfg, lp["norm2"], x)
+        x = x + apply_mlp(cfg, lp["mlp"], h2)
+        cache["k"][i].index_copy_(1, slots, k[:, S - keep:])
+        cache["v"][i].index_copy_(1, slots, v[:, S - keep:])
+    x = apply_norm(cfg, params["final_norm"], x)
+    logits = logits_fn(cfg, params, x[:, -1:])
+    cache["pos"].fill_(S)
+    return logits, cache
+
+
+@torch.no_grad()
+def decode_step(cfg, params, cache, tokens, sharder=None):
+    """One decode step. tokens (B,1) int; cache from init_cache/prefill,
+    whose k/v are updated in place (the returned cache holds the same
+    tensors and ``pos + 1``)."""
+    require_no_sharder(sharder)
+    _require_dense(cfg)
+    x = embed_tokens(cfg, params, tokens)
+    pos = _as_tensor(cache["pos"], x.device, torch.int32)
+    W = cfg.sliding_window
+    for i in range(cfg.n_layers):
+        lp = layer_slice(params["layers"], i)
+        h = apply_norm(cfg, lp["norm1"], x)
+        o, _, _ = attn.decode_attention(cfg, lp["attn"], h, cache["k"][i],
+                                        cache["v"][i], pos, window=W)
+        x = x + o
+        h2 = apply_norm(cfg, lp["norm2"], x)
+        x = x + apply_mlp(cfg, lp["mlp"], h2)
+    x = apply_norm(cfg, params["final_norm"], x)
+    logits = logits_fn(cfg, params, x)
+    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
