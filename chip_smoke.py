@@ -6,7 +6,9 @@
 Needs one CUDA card (an H100: the kernels are built for sm_90a) and the CUDA
 toolkit; imports nothing of JAX or of the JAX package. Phases:
 
-1. build   compile ``src/repro_torch/csrc/*.cu`` with nvcc into ``build/``;
+1. build   compile ``src/repro_torch/csrc/*.cu`` with nvcc into ``build/``,
+           and count the tensor-core (HGMMA) and TMA (UTMALDG) instructions
+           of the bf16 flash kernels in ``cuobjdump -sass`` (no HGMMA fails);
 2. kernels each kernel against its plain PyTorch version on the card, at
            PRODUCTION256 shapes (L=5, F=4, T=2^13, res 4..64: dense and
            hashed levels): the serving kernels with tables U(-1,1),
@@ -14,7 +16,13 @@ toolkit; imports nothing of JAX or of the JAX package. Phases:
            3, ragged N/R/S, f32 and bf16; the training kernels (hash-encode
            backward, MLP backward, both variants of the train step, AdamW)
            at the training shapes (8 partitions x a batch of 65,536, f32),
-           each from cloned state;
+           each from cloned state; the hash-encode backward also with every
+           point in one coarse cell, at PRODUCTION's T=2^16 (direct levels)
+           and at F = 1, 2 and 8 (ABLATION); each bf16 flash case against
+           the plain version (3e-2), the kernel's tile schedule in f32 with
+           p rounded to bf16 (``attention_tiled_ref``, 1e-5 + 8e-3 |out|
+           plus the p-rounding slack) and the f32 plain version (per-row
+           relative L2 1e-2);
 3. decode  ``DVNRModel.decode_grid`` of one 256^3 partition through the
            kernels, against the plain path on the card;
 4. serve   a ``RenderService`` over 8 PRODUCTION256 partitions (the 2x2x2
@@ -50,7 +58,9 @@ toolkit; imports nothing of JAX or of the JAX package. Phases:
            decode ms per step and peak memory, then the flash kernel's row
            timed as phase 6 times the others (SDPA as its yardstick).
            Phase 2 holds the flash kernel against its plain version at the
-           llama, danube (dh=80, window) and qwen2 (14/2 heads) shapes.
+           llama, danube (dh=80, window) and qwen2 (14/2 heads) shapes and
+           at dh 16 and 32. bf16 runs the tensor-core kernel, f32 the
+           CUDA-core one.
 
 Exits non-zero on any failure. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel JSON.
@@ -105,6 +115,9 @@ FLASH_CASES = (
     (2, 4096, 4096, 14, 2, 64, True, None, "bfloat16"),     # qwen2: g=7
     (2, 4096, 4096, 14, 2, 64, True, None, "float32"),
     (2, 2048, 2048, 16, 16, 128, False, None, "float32"),   # non-causal
+    (2, 2048, 2048, 16, 16, 128, False, None, "bfloat16"),
+    (2, 2048, 2048, 16, 4, 16, True, None, "bfloat16"),      # dh=16 (SMOKE)
+    (1, 1500, 3001, 8, 8, 32, True, 512, "bfloat16"),        # dh=32, Sk > Sq, window
 )
 # phase 7: the LM. LM_CONFIG None means llama3_8b's published CONFIG (the
 # rehearsal on a CPU hands in a SMOKE config)
@@ -136,8 +149,34 @@ def card_tag() -> str:
     return out.stdout.strip().splitlines()[0].strip()
 
 
-def check(name, got, want, *, atol, rtol=0.0):
-    """Elementwise |got - want| <= atol + rtol * |want|, compared in f32."""
+def flash_sass_counts(lib_path) -> dict:
+    """Per bf16 flash-kernel instantiation in the built library, the count
+    of tensor-core (HGMMA) and asynchronous-copy (UTMALDG: TMA, LDGSTS:
+    cp.async) instructions in its SASS (``cuobjdump -sass``)."""
+    import re
+    from repro_torch.kernels import build
+    cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=300)
+    if out.returncode:
+        raise SmokeFailure(f"cuobjdump failed: {out.stderr.strip()[:500]}")
+    counts, cur = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            cur = m.group(1) if "flash_attention_kernel_bf16" in m.group(1) else None
+            if cur:
+                counts[cur] = {"HGMMA": 0, "UTMALDG": 0, "LDGSTS": 0}
+        elif cur:
+            for op in counts[cur]:
+                if re.search(rf"\b{op}\b", line):
+                    counts[cur][op] += 1
+    return counts
+
+
+def check(name, got, want, *, atol, rtol=0.0, slack=None):
+    """Elementwise |got - want| <= atol + rtol * |want| (+ slack, a tensor
+    of per-element allowances, where given), compared in f32."""
     import torch
     g, w = got.float(), want.float()
     if g.shape != w.shape:
@@ -146,10 +185,13 @@ def check(name, got, want, *, atol, rtol=0.0):
         raise SmokeFailure(f"{name}: non-finite output")
     err = (g - w).abs()
     allowed = atol + rtol * w.abs()
+    if slack is not None:
+        allowed = allowed + slack
     worst = float((err - allowed).max())
     max_err = float(err.max())
+    extra = "" if slack is None else f" +slack (max {float(slack.max()):.1e})"
     print(f"  {name:<44s} max_abs_err={max_err:.3e}  tol: atol={atol:.1e} "
-          f"rtol={rtol:.1e}  {'ok' if worst <= 0 else 'FAIL'}")
+          f"rtol={rtol:.1e}{extra}  {'ok' if worst <= 0 else 'FAIL'}")
     if worst > 0:
         raise SmokeFailure(f"{name}: max abs err {max_err:.3e} over tolerance")
     return max_err
@@ -192,6 +234,26 @@ def profile_tick(tick):
     return (busy or None), ranked, wall
 
 
+def launch_times(fn, symbol: str, reps: int = 3):
+    """Device ms of each kernel launch whose name holds ``symbol`` in one
+    call of ``fn``, in launch order, averaged over ``reps`` calls under
+    torch.profiler; None when the profiler saw no such launch."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ms = [e.device_time_total / 1e3 for e in prof.events() if symbol in e.name]
+    if not ms or len(ms) % reps:
+        return None
+    n = len(ms) // reps
+    return [sum(ms[i::n]) / reps for i in range(n)]
+
+
 def bound_ms(nbytes: float, flops: float, peak_flops: float = F32_FLOPS):
     """The least time the card could take: each input read once, each output
     written once at the HBM rate, or the operations at the peak rate of
@@ -215,8 +277,11 @@ def flash_checks(dev) -> float:
     """Phase 2's flash-attention checks (FLASH_CASES); returns the error at
     the first case, the LM phase's shapes and dtype."""
     import torch
-    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
-    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_attention.ops import (KERNEL_BLOCK_K,
+                                                         flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                         attention_tiled_ref,
+                                                         p_rounding_slack)
 
     gen = torch.Generator(device=dev).manual_seed(13)
     errs = []
@@ -232,14 +297,31 @@ def flash_checks(dev) -> float:
         want = attention_ref(q, k, v, causal=causal, window=window)
         if dtype == torch.float32:   # JAX's tolerance: online vs two-pass
             errs.append(check(label, got, want, atol=2e-5, rtol=2e-5))
-        else:   # the kernel keeps scores, p and PV in f32; the plain version
-            # rounds scores and p to bf16 (JAX's tolerance)
+        else:   # the plain version rounds scores and p to bf16, the kernel
+            # p only (JAX's tolerance)
             errs.append(check(label, got, want, atol=3e-2))
-            # and tightly: the plain version in f32 on the same bf16 values,
-            # within one bf16 rounding of the output
+            # tightly, within one bf16 rounding of the output: the kernel's
+            # tile schedule in f32 on the same bf16 values, rounding p to
+            # bf16 where the kernel does; a p within 2^-16 of a bf16 tie may
+            # round either way (the kernel's scores are summed in another
+            # order), which p_rounding_slack allows for, element by element
+            tiled_kw = dict(causal=causal, window=window, block_k=KERNEL_BLOCK_K)
+            want = attention_tiled_ref(q.float(), k.float(), v.float(),
+                                       p_dtype=torch.bfloat16, **tiled_kw)
+            slack = p_rounding_slack(q.float(), k.float(), v.float(), **tiled_kw)
+            check(f"{label} vs tiled, p bf16", got, want, atol=1e-5, rtol=8e-3,
+                  slack=slack)
+            del slack
+            # and the f32 plain version, row by row (relative L2 error)
             want = attention_ref(q.float(), k.float(), v.float(),
                                  causal=causal, window=window)
-            check(f"{label} vs f32", got, want, atol=1e-5, rtol=8e-3)
+            rel = float(((got.float() - want).norm(dim=-1)
+                         / want.norm(dim=-1).clamp_min(1e-30)).max())
+            print(f"  {label + ' vs f32 (row rel L2)':<44s} max={rel:.3e}  "
+                  f"limit 1.0e-02  {'ok' if rel <= 1e-2 else 'FAIL'}")
+            if not rel <= 1e-2:
+                raise SmokeFailure(f"{label}: row relative L2 error {rel:.3e} "
+                                   "against the f32 plain version")
         del q, k, v, got, want
     torch.cuda.synchronize()
     return errs[0]
@@ -336,6 +418,7 @@ def lm_phase(tag: str, dev, flash_err: float) -> dict:
         raise SmokeFailure(f"full-depth kernel vs plain path: cosine {cos}")
 
     # where a prefill's and a decode step's time go
+    prefill_kernel_ms = None
     for label, fn in (("prefill", lambda: model.prefill(params, prompt, seq_len,
                                                         impl="cuda")),
                       ("decode step", lambda: model.decode_step(
@@ -349,6 +432,11 @@ def lm_phase(tag: str, dev, flash_err: float) -> dict:
               f"{busy:.2f} ms, idle share {1 - busy / wall:.3f} [{tag}]")
         for name, (ms, n) in by_kernel[:8]:
             print(f"    {ms:9.3f} ms  x{n:<4d} {name[:90]}")
+        if label == "prefill":   # the kernel's own time on the main path
+            fl = [(ms, n) for name, (ms, n) in by_kernel
+                  if "flash_attention_kernel" in name]
+            if fl:
+                prefill_kernel_ms = sum(m for m, _ in fl) / sum(n for _, n in fl)
     del params, cache, logits, ref_logits, ref_cache, step_logits
     torch.cuda.empty_cache()
 
@@ -393,8 +481,8 @@ def lm_phase(tag: str, dev, flash_err: float) -> dict:
     ms = cuda_ms(kern, reps=5)
     pms = cuda_ms(plain, reps=3)
     lms = cuda_ms(lib_fn, reps=10) if lib_fn is not None else None
-    _, dev_ms, _ = profile_tick(lambda: [kern() for _ in range(3)])
-    kdev = [t / n for key, (t, n) in dev_ms if "flash_attention_kernel" in key]
+    alone = launch_times(kern, "flash_attention_kernel")
+    kdev = [alone[0]] if alone else []
     pairs = flash_pairs(S, S, True, W)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     flops = 4 * B * cfg.n_heads * dh * pairs
@@ -403,16 +491,77 @@ def lm_phase(tag: str, dev, flash_err: float) -> dict:
           f"{pairs:,} live pairs per head)  plain {pms:9.3f} ms  SDPA "
           f"{'-' if lms is None else f'{lms:.3f} ms'}  launches/prefill "
           f"{prefill_launches}  kernel alone "
-          f"{f'{kdev[0]:.4f} ms' if kdev else 'not measured'} (profiler) [{tag}]")
-    if kdev:
-        print(f"  attention kernels: {kdev[0] * prefill_launches:.1f} ms of the "
-              f"{prefill_ms:.1f} ms prefill "
-              f"({kdev[0] * prefill_launches / prefill_ms:.1%}) [{tag}]")
+          f"{f'{kdev[0]:.4f} ms' if kdev else 'not measured'} (profiler; "
+          f"{'not measured' if prefill_kernel_ms is None else f'{prefill_kernel_ms:.4f} ms'}"
+          f" per launch in the profiled prefill) [{tag}]")
+    if prefill_kernel_ms is not None:
+        print(f"  attention kernels: {prefill_kernel_ms * prefill_launches:.1f} ms "
+              f"of the {prefill_ms:.1f} ms prefill "
+              f"({prefill_kernel_ms * prefill_launches / prefill_ms:.1%}) [{tag}]")
+    # the f32 inputs' CUDA-core kernel at the same shapes (not on this path:
+    # the model computes in bf16), with SDPA in f32 as its yardstick
+    q32, k32, v32 = q.float(), k.float(), v.float()
+    qt32, kt32, vt32 = qt.float(), kt.float(), vt.float()
+    kern32 = lambda: flash_attention_cuda(q32, k32, v32, True, W)
+    ms32 = cuda_ms(kern32, reps=3)
+    pms32 = cuda_ms(lambda: attention_ref(q32, k32, v32, causal=True, window=W),
+                    reps=2)
+    lms32 = (cuda_ms(lambda: tF.scaled_dot_product_attention(
+        qt32, kt32, vt32, is_causal=True, enable_gqa=True), reps=3)
+        if W is None else None)
+    k32ms = launch_times(kern32, "flash_attention_kernel", reps=2)
+    bms32, by32 = bound_ms((2 * q.numel() + k.numel() + v.numel()) * 4, flops,
+                           F32_FLOPS)
+    print(f"  flash_attention f32 (CUDA-core kernel) {ms32:.3f} ms  bound "
+          f"{bms32:.3f} ms ({by32})  plain {pms32:.3f} ms  SDPA f32 "
+          f"{'-' if lms32 is None else f'{lms32:.3f} ms'}  kernel alone "
+          f"{'not measured' if k32ms is None else f'{sum(k32ms):.4f} ms'} "
+          f"(profiler) [{tag}]")
+    del q32, k32, v32, qt32, kt32, vt32
     return {"name": "flash_attention", "route": "cuda",
             "source": SOURCES["flash_attention"],
             "replaces": REPLACES["flash_attention"], "launches": launches,
             "max_abs_err": flash_err, "ms": ms, "plain_ms": pms,
             "bound_ms": bms, "bound_by": by, "library_ms": lms}
+
+
+def scatter_requests(coords, res, T: int, F: int) -> dict:
+    """The atomic requests one hash-encode backward call makes on these
+    coordinates (B,N,3), as the kernel routes them: each warp (32
+    consecutive points of a block) adds one row per distinct corner row of
+    each of the 8 corners; on a staged level that add is one shared-memory
+    compare-and-swap loop per 4 features (F=1, 2: one), and each block then
+    flushes each row it touched with one 16-byte global atomic; on a
+    direct level the add is the global one (F=8: two). The kernel before
+    this design made 8 x F scalar global atomics per (point, level)."""
+    import torch
+    from repro_torch.kernels.hash_encoding import ref as he_ref
+    from repro_torch.kernels.hash_encoding.ops import (bwd_plan,
+                                                       bwd_points_per_block)
+    B, N, _ = coords.shape
+    glob = shared = 0
+    vec = 2 if F == 8 else 1
+    pad = (-N) % 32
+    for r, staged, ppb in zip(res, bwd_plan(res, T, F),
+                              bwd_points_per_block(res, T, F)):
+        lo, _ = he_ref._level_corners(coords.reshape(B * N, 3), r)
+        idx = torch.stack([he_ref.corner_indices(
+            lo + torch.tensor([dx, dy, dz], device=coords.device), r, T)
+            for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)], -1)
+        idx = idx.reshape(B, N, 8)
+        warp = torch.nn.functional.pad(idx, (0, 0, 0, pad), value=-1)
+        warp = warp.reshape(B, -1, 32, 8).sort(dim=2).values
+        adds = int(((warp[:, :, 1:] != warp[:, :, :-1]) & (warp[:, :, 1:] >= 0)).sum()
+                   + (warp[:, :, 0] >= 0).sum())
+        if staged:
+            shared += adds * max(1, F // 4)
+            block = torch.arange(N, device=coords.device) // ppb
+            key = ((torch.arange(B, device=coords.device)[:, None, None]
+                    * (N // ppb + 1) + block[None, :, None]) * T + idx)
+            glob += int(torch.unique(key).numel()) * vec
+        else:
+            glob += adds * vec
+    return {"global": glob, "shared": shared, "before": 8 * F * len(res) * B * N}
 
 
 def dvnr_phases():
@@ -485,6 +634,11 @@ def dvnr_phases():
     for line in build.build_log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             print("   ", line.strip())
+    sass = flash_sass_counts(build.build())
+    for fn, c in sorted(sass.items()):
+        print(f"  SASS {fn}: {c}")
+    if not sass or any(c["HGMMA"] == 0 for c in sass.values()):
+        raise SmokeFailure(f"bf16 flash kernels without HGMMA: {sass}")
 
     # ---------------------------------------------------------------- 2
     print("== phase 2: kernels against their plain versions "
@@ -573,6 +727,31 @@ def dvnr_phases():
     errs = {"hash_encode_bwd": check(
         "hash_encode_bwd (atomic scatter)", got, want,
         atol=2e-5 * float(want.abs().max()))}
+    del got, want
+    # the scatter's other routes: every point in one coarse cell (the
+    # warp pre-reduction and the shared-memory staging under contention),
+    # PRODUCTION's T=2^16 (its fine levels' slabs exceed the staging budget:
+    # direct vector atomics), and F = 1, 2 and 8 (ABLATION: T=2^19, F=8)
+    from repro_torch.configs.dvnr import ABLATION, PRODUCTION
+    from repro_torch.kernels.hash_encoding.ops import bwd_plan
+    for label, hc, hP, hF, (lo, hi) in (
+            ("contention: one coarse cell", cfg, TP, F, (0.30, 0.31)),
+            ("PRODUCTION T=2^16", PRODUCTION, TP, F, (0.0, 1.0)),
+            ("F=1", cfg, 4, 1, (-0.25, 1.25)),
+            ("F=2", cfg, 4, 2, (0.0, 1.0)),
+            ("ABLATION F=8 T=2^19", ABLATION, 2, 8, (0.0, 1.0))):
+        hres, hT, hL = hc.level_resolutions(), hc.table_size, hc.n_levels
+        hN = hc.batch_size
+        hcoords = t(rng.uniform(lo, hi, (hP, hN, 3)))
+        hg = t(rng.standard_normal((hP, hN, hL * hF)) * 1e-5)
+        got = hash_encode_bwd_cuda(hg, hcoords, hres, list(range(hP)), (hP, hL, hT, hF))
+        want = hash_encode_batched_bwd_ref(hg, hcoords, hres,
+                                           torch.arange(hP, device=dev),
+                                           (hP, hL, hT, hF))
+        plan = "".join("s" if x else "d" for x in bwd_plan(hres, hT, hF))
+        check(f"hash_encode_bwd {label} (levels {plan})", got, want,
+              atol=2e-5 * float(want.abs().max()))
+        del got, want, hcoords, hg
     feats_t = hash_encode_cuda(coords_t, tparams["tab"], res, rows_t)
     ws_t = fts._unpack(tparams, H)["mlp"]
     g_out = t(rng.choice([-1.0, 1.0], (TP, Nb, D_out)) / Nb)
@@ -960,7 +1139,10 @@ def dvnr_phases():
         pms = cuda_ms(plain_fn, reps=3)
         lms = cuda_ms(lib_fn, reps=5) if lib_fn is not None else None
         bms, by = bound_ms(nbytes, flops)
-        kdev = [t / n for key, (t, n) in dev_ms if kernel_symbol[name] in key]
+        # per wrapper call (5 in the profile), summed over the kernels that
+        # carry the symbol (the hash backward launches once per level)
+        kt = [t for key, (t, _) in dev_ms if kernel_symbol[name] in key]
+        kdev = [sum(kt) / 5] if kt else []
         print(f"  {name:<16s} {ms:9.3f} ms  bound {bms:8.3f} ms ({by})  "
               f"plain {pms:9.3f} ms  library "
               f"{'-' if lms is None else f'{lms:.3f} ms'}  "
@@ -985,6 +1167,26 @@ def dvnr_phases():
           f"({by})  plain {pms:.3f} ms  kernel alone "
           f"{f'{kdev[0]:.4f} ms' if kdev else 'not measured'} (profiler); "
           f"not on the default path [{tag}]")
+    # the backward's levels one by one (one launch each) on the staging plan,
+    # and with every level sent the direct route (a budget of 0 bytes)
+    from repro_torch.kernels.hash_encoding import ops as hops
+    bwd_call = lambda: hash_encode_bwd_cuda(g_feat, coords_t, res, rows_t,
+                                            (TP, L, T, F))
+    budget = hops.STAGE_BUDGET_BYTES
+    for label, b in (("staged (the plan)", budget), ("all direct", 0)):
+        hops.STAGE_BUDGET_BYTES = b
+        try:
+            per = launch_times(bwd_call, "hash_encode_bwd_kernel")
+        finally:
+            hops.STAGE_BUDGET_BYTES = budget
+        print(f"  hash_encode_bwd per level, {label}: "
+              f"{'not measured' if per is None else [round(x, 4) for x in per]}"
+              f"{'' if per is None else f' ms, sum {sum(per):.4f} ms'} (profiler) [{tag}]")
+    req = scatter_requests(coords_t, res, T, F)
+    print(f"  hash_encode_bwd atomic requests per call: {req['global']:,} "
+          f"global (16-byte rows), {req['shared']:,} shared (row compare-and-"
+          f"swap loops); the kernel before this design: {req['before']:,} "
+          f"scalar global [{tag}]")
     print(f"  train step bytes: {n_vox} distinct volume voxels read, tables "
           f"and MLP {TP * (L * T * F + n_w) * 4} B read and their gradients "
           f"written; {TP * Nb * L * 8 * F} table-gradient atomic adds per step")

@@ -31,20 +31,26 @@
 //
 // Replaces: src/repro/kernels/hash_encoding/ops.py, _bwd (line 85: jnp, the
 // per-level `.at[idx].add` that XLA lowers to a combining scatter; the TPU
-// has no pallas_call for it). One thread per (point, level) recomputes the
-// level's 8 corner indices and weights exactly as the forward does and adds
-// w * g into the float32 gradient (zeroed by the wrapper) with one atomicAdd
-// per (corner, feature): 8 * F per thread.
+// has no pallas_call for it). Each thread recomputes a point's 8 corner
+// indices and weights at one level exactly as the forward does and adds
+// w * g into the float32 gradient (zeroed by the wrapper).
 //
-// Bound: the atomics. It reads 12 B of coordinates and 4F B of cotangent per
-// (point, level) and does 8F read-modify-writes in L2. Dense levels are the
-// hot spots: at PRODUCTION256 the three coarse levels have (res+1)^3 = 125,
-// 729 and 4,913 rows, so the adds of 65,536 points per partition land on a
-// few hundred to a few thousand addresses and serialise in the L2's atomic
-// units. This first version does nothing about that contention (no
-// warp-level pre-reduction, no shared-memory staging of dense levels); its
-// time against its bound is in PERF.md. Atomic adds in float32 make the sum
-// order, and so the last bits, change from run to run.
+// Bound: the atomic requests it cannot avoid (the 0.016 ms byte bound of
+// the training shapes is out of reach). The design cuts the requests and
+// their contention:
+//   - level-major blocks: one launch per level, grid (point chunks, B), so
+//     a block's adds all land in one (partition, level) table;
+//   - warp pre-reduction: lanes that hit the same row are summed with
+//     __match_any_sync groups before any add (hash_grid.cuh), which takes
+//     the coarse dense levels (125 rows at PRODUCTION256: 2.1M adds per
+//     partition) off a few hot addresses;
+//   - staged levels (the wrapper's per-level flag, from rows x F x 4 B
+//     against a shared-memory budget): the level's slab is zeroed in
+//     dynamic shared memory, takes the adds as shared atomics, and is
+//     flushed once per block with one 16-byte global atomic per nonzero row;
+//   - direct levels (slabs above the budget: hashed tables of 2^16 rows and
+//     more): each group leader adds its row with one 16-byte atomicAdd.
+// Sums are float32, in an order that atomics make run-dependent.
 #include "common.cuh"
 #include "hash_grid.cuh"
 
@@ -107,55 +113,100 @@ cudaError_t launch(const float* coords, const void* tables, const int* res,
   return cudaGetLastError();
 }
 
-template <int F>
-__global__ void hash_encode_bwd_kernel(const float* __restrict__ grad_out,
-                                       const float* __restrict__ coords,
-                                       const int* __restrict__ resolutions,
-                                       const int* __restrict__ part,
-                                       float* __restrict__ grad_tables,
-                                       long long N, int L, long long T_size) {
+// threads per block: a staged block holds its slab for its whole chunk, so
+// it runs more warps against the shared memory it pins
+constexpr int BWD_THREADS_STAGED = 1024, BWD_THREADS_DIRECT = 512;
+
+template <int F, bool STAGED>
+__global__ void __launch_bounds__(BWD_THREADS_STAGED)
+hash_encode_bwd_kernel(const float* __restrict__ grad_out,
+                       const float* __restrict__ coords,
+                       const int* __restrict__ part,
+                       float* __restrict__ grad_tables, long long N, int L,
+                       int level, int res, long long T_size, int rows,
+                       int ppb) {
+  extern __shared__ float slab[];   // rows x F, when STAGED
   const int b = blockIdx.y;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= N * L) return;
-  const long long n = i / L;
-  const int l = (int)(i - n * L);
-  const float* c = coords + ((long long)b * N + n) * 3;
-  const float cc[3] = {__ldg(c), __ldg(c + 1), __ldg(c + 2)};
-  const repro::LevelGeom geo = repro::level_geom(cc, __ldg(resolutions + l), T_size);
-  const float* gr = grad_out + (((long long)b * N + n) * L + l) * F;
-  float g[F];
+  const long long n0 = (long long)blockIdx.x * ppb;   // this block's points
+  const long long n1 = min(N, n0 + ppb);
+  float* gt = grad_tables + ((long long)__ldg(part + b) * L + level) * T_size * F;
+  if constexpr (STAGED) {
+    for (int i = threadIdx.x; i < rows * F; i += blockDim.x) slab[i] = 0.0f;
+    __syncthreads();
+  }
+  // whole block strides, so that every lane of a warp reaches the warp-wide
+  // pre-reduction; lanes past the chunk carry no point
+  for (long long base = n0; base < n1; base += blockDim.x) {
+    const long long n = base + threadIdx.x;
+    const bool valid = n < n1;
+    float cc[3] = {0.0f, 0.0f, 0.0f}, g[F];
 #pragma unroll
-  for (int f = 0; f < F; ++f) g[f] = __ldg(gr + f);
-  float* gt = grad_tables + ((long long)__ldg(part + b) * L + l) * T_size * F;
+    for (int f = 0; f < F; ++f) g[f] = 0.0f;
+    if (valid) {
+      const float* c = coords + ((long long)b * N + n) * 3;
+      cc[0] = __ldg(c);
+      cc[1] = __ldg(c + 1);
+      cc[2] = __ldg(c + 2);
+      const float* gr = grad_out + (((long long)b * N + n) * L + level) * F;
 #pragma unroll
-  for (int dx = 0; dx < 2; ++dx) {
+      for (int f = 0; f < F; ++f) g[f] = __ldg(gr + f);
+    }
+    const repro::LevelGeom geo = repro::level_geom(cc, res, T_size);
+    repro::scatter_corners<F, STAGED>(geo, g, valid, STAGED ? slab : gt);
+  }
+  if constexpr (STAGED) {
+    __syncthreads();
+    for (int r = threadIdx.x; r < rows; r += blockDim.x) {
+      float v[F];
+      bool any = false;
 #pragma unroll
-    for (int dy = 0; dy < 2; ++dy) {
-#pragma unroll
-      for (int dz = 0; dz < 2; ++dz) {
-        const unsigned idx = repro::corner_index(geo, dx, dy, dz);
-        const float ww = repro::corner_weight(geo, dx, dy, dz);
-        float* row = gt + (long long)idx * F;
-#pragma unroll
-        for (int f = 0; f < F; ++f) atomicAdd(row + f, ww * g[f]);
+      for (int f = 0; f < F; ++f) {
+        v[f] = slab[r * F + f];
+        any |= v[f] != 0.0f;
       }
+      if (any) repro::atomic_add_row<F>(gt + (long long)r * F, v);
     }
   }
 }
 
-cudaError_t launch_bwd(const float* g, const float* coords, const int* res,
-                       const int* part, float* grad, long long B, long long N,
-                       int L, long long T_size, int F, cudaStream_t stream) {
-  const int threads = 256;
-  const dim3 grid((unsigned)((N * L + threads - 1) / threads), (unsigned)B);
-  switch (F) {
-    case 1: hash_encode_bwd_kernel<1><<<grid, threads, 0, stream>>>(g, coords, res, part, grad, N, L, T_size); break;
-    case 2: hash_encode_bwd_kernel<2><<<grid, threads, 0, stream>>>(g, coords, res, part, grad, N, L, T_size); break;
-    case 4: hash_encode_bwd_kernel<4><<<grid, threads, 0, stream>>>(g, coords, res, part, grad, N, L, T_size); break;
-    case 8: hash_encode_bwd_kernel<8><<<grid, threads, 0, stream>>>(g, coords, res, part, grad, N, L, T_size); break;
-    default: return cudaErrorInvalidValue;
+template <int F>
+cudaError_t launch_bwd_level(const float* g, const float* coords,
+                             const int* part, float* grad, long long B,
+                             long long N, int L, int level, int res,
+                             bool staged, int ppb, long long T_size,
+                             cudaStream_t stream) {
+  const long long r1 = (long long)res + 1;
+  const long long rows = r1 * r1 * r1 <= T_size ? r1 * r1 * r1 : T_size;
+  if (ppb <= 0 || ppb % 32) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)((N + ppb - 1) / ppb), (unsigned)B);
+  if (staged) {
+    const int smem = (int)(rows * F * sizeof(float));
+    auto kern = hash_encode_bwd_kernel<F, true>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kern<<<grid, BWD_THREADS_STAGED, smem, stream>>>(g, coords, part, grad, N, L, level,
+                                              res, T_size, (int)rows, ppb);
+  } else {
+    hash_encode_bwd_kernel<F, false><<<grid, BWD_THREADS_DIRECT, 0, stream>>>(
+        g, coords, part, grad, N, L, level, res, T_size, 0, ppb);
   }
   return cudaGetLastError();
+}
+
+template <int F>
+cudaError_t launch_bwd(const float* g, const float* coords, const int* res,
+                       const int* staged, const int* ppb, const int* part,
+                       float* grad,
+                       long long B, long long N, int L, long long T_size,
+                       cudaStream_t stream) {
+  for (int l = 0; l < L; ++l) {
+    const cudaError_t err = launch_bwd_level<F>(g, coords, part, grad, B, N, L, l,
+                                                res[l], staged[l] != 0, ppb[l],
+                                                T_size, stream);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -177,22 +228,34 @@ extern "C" int repro_hash_encode_fwd(const void* coords, const void* tables,
                        : launch<float>(c, tables, r, p, out, B, N, L, T_size, F, s));
 }
 
-// grad_out (B,N,L,F) f32; coords (B,N,3) f32; resolutions (L,) i32; part (B,)
-// i32 -> grad_tables (P,L,T,F) f32, zeroed by the caller, accumulated into;
-// 0 <= part[b] < P is checked on the host.
+// grad_out (B,N,L,F) f32; coords (B,N,3) f32; resolutions, staged and
+// points_per_block (L,) i32 in HOST memory (the level's resolution; nonzero:
+// stage the level's slab in shared memory; a multiple of 32); part (B,) i32
+// -> grad_tables (P,L,T,F) f32, zeroed by the caller, accumulated into;
+// 0 <= part[b] < P is checked on the host. One launch per level.
 extern "C" int repro_hash_encode_bwd(const void* grad_out, const void* coords,
-                                     const void* resolutions, const void* part,
-                                     void* grad_tables, long long B, long long N,
-                                     int L, long long T_size, int F,
-                                     void* stream) {
+                                     const void* resolutions, const void* staged,
+                                     const void* points_per_block,
+                                     const void* part, void* grad_tables,
+                                     long long B, long long N, int L,
+                                     long long T_size, int F, void* stream) {
   if (B <= 0 || N <= 0) return 0;
   if (B > 65535) return (int)cudaErrorInvalidValue;
-  return (int)launch_bwd(static_cast<const float*>(grad_out),
-                         static_cast<const float*>(coords),
-                         static_cast<const int*>(resolutions),
-                         static_cast<const int*>(part),
-                         static_cast<float*>(grad_tables), B, N, L, T_size, F,
-                         static_cast<cudaStream_t>(stream));
+  const float* g = static_cast<const float*>(grad_out);
+  const float* c = static_cast<const float*>(coords);
+  const int* r = static_cast<const int*>(resolutions);
+  const int* st = static_cast<const int*>(staged);
+  const int* pb = static_cast<const int*>(points_per_block);
+  const int* p = static_cast<const int*>(part);
+  float* gt = static_cast<float*>(grad_tables);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (F) {
+    case 1: return (int)launch_bwd<1>(g, c, r, st, pb, p, gt, B, N, L, T_size, s);
+    case 2: return (int)launch_bwd<2>(g, c, r, st, pb, p, gt, B, N, L, T_size, s);
+    case 4: return (int)launch_bwd<4>(g, c, r, st, pb, p, gt, B, N, L, T_size, s);
+    case 8: return (int)launch_bwd<8>(g, c, r, st, pb, p, gt, B, N, L, T_size, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* repro_error_string(int err) {

@@ -8,9 +8,18 @@
 // (res+1)^3 <= T, computed in 64 bits (the Pallas train-step kernel's int32
 // product would wrap for res >= 1291); hashed levels multiply by 1,
 // 2654435761 and 805459861 with uint32 wraparound and take the xor mod T.
+//
+// The corner scatter of the backward (the table-gradient adds) is here too:
+// lanes of a warp that hit the same row are summed first (__match_any_sync
+// groups, a tree of shuffles inside each group), and each group's leader
+// adds the row once, into a shared-memory slab (one 128-bit compare-and-
+// swap per 4 features: the card has no shared float atomic add) or straight
+// into the device gradient (one 16-byte atomicAdd per row of 4 features:
+// float2 for F=2, two float4 for F=8, a scalar for F=1).
 #pragma once
 
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace repro {
 
@@ -54,6 +63,142 @@ __device__ __forceinline__ float corner_weight(const LevelGeom& g, int dx,
                                                int dy, int dz) {
   return (dx ? g.w[0] : 1.0f - g.w[0]) * (dy ? g.w[1] : 1.0f - g.w[1]) *
          (dz ? g.w[2] : 1.0f - g.w[2]);
+}
+
+// Sum, over the lanes of a warp that hold the same key, their F values
+// into the group's lowest lane (its leader), which gets true back. Every
+// lane of the warp calls it. A tree over each group: round k adds the
+// partial sum of the group member 2^k ranks up; a warp whose keys are all
+// distinct runs no round.
+template <int F>
+__device__ __forceinline__ bool warp_reduce_peers(unsigned key, float (&v)[F]) {
+  const unsigned lane = threadIdx.x & 31;
+  unsigned peers = __match_any_sync(0xffffffffu, key);
+  const bool leader = (unsigned)(__ffs(peers) - 1) == lane;
+  unsigned rank = __popc(peers & ((1u << lane) - 1));   // rank in the group
+  peers &= 0xfffffffeu << lane;                        // members above me
+  while (__any_sync(0xffffffffu, peers)) {
+    const int next = __ffs(peers);                     // 1 + the next member
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      const float t = __shfl_sync(0xffffffffu, v[f], next ? next - 1 : lane);
+      if (next) v[f] += t;
+    }
+    // members of odd rank were just summed into their lower neighbour
+    peers &= ~__ballot_sync(0xffffffffu, rank & 1);
+    rank >>= 1;
+  }
+  return leader;
+}
+
+// row[0..F) += v, one vector atomic for 2, 4 and 8 features (global memory)
+template <int F>
+__device__ __forceinline__ void atomic_add_row(float* row, const float (&v)[F]) {
+  if constexpr (F == 8) {
+    atomicAdd(reinterpret_cast<float4*>(row), make_float4(v[0], v[1], v[2], v[3]));
+    atomicAdd(reinterpret_cast<float4*>(row) + 1, make_float4(v[4], v[5], v[6], v[7]));
+  } else if constexpr (F == 4) {
+    atomicAdd(reinterpret_cast<float4*>(row), make_float4(v[0], v[1], v[2], v[3]));
+  } else if constexpr (F == 2) {
+    atomicAdd(reinterpret_cast<float2*>(row), make_float2(v[0], v[1]));
+  } else {
+    atomicAdd(row, v[0]);
+  }
+}
+
+// p[0..4) += (a, b, c, d) in SHARED memory as one 128-bit compare-and-swap
+// loop (sm_90): the card has no shared-memory float atomic add, and
+// atomicAdd on a shared float is a compare-and-swap loop of its own, so one
+// loop per 4 features instead of 4. p must be 16-byte aligned.
+__device__ __forceinline__ void shared_add4(float* p, float a, float b, float c,
+                                            float d) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  float4 old = *reinterpret_cast<const float4*>(p);   // a torn read fails one CAS
+  while (true) {
+    const unsigned long long olo =
+        ((unsigned long long)__float_as_uint(old.y) << 32) | __float_as_uint(old.x);
+    const unsigned long long ohi =
+        ((unsigned long long)__float_as_uint(old.w) << 32) | __float_as_uint(old.z);
+    const unsigned long long nlo =
+        ((unsigned long long)__float_as_uint(old.y + b) << 32) | __float_as_uint(old.x + a);
+    const unsigned long long nhi =
+        ((unsigned long long)__float_as_uint(old.w + d) << 32) | __float_as_uint(old.z + c);
+    unsigned long long rlo, rhi;
+    asm volatile(
+        "{\n.reg .b128 cmp, swp, got;\n"
+        "mov.b128 cmp, {%2, %3};\n"
+        "mov.b128 swp, {%4, %5};\n"
+        "atom.shared::cta.cas.b128 got, [%6], cmp, swp;\n"
+        "mov.b128 {%0, %1}, got;\n}\n"
+        : "=l"(rlo), "=l"(rhi)
+        : "l"(olo), "l"(ohi), "l"(nlo), "l"(nhi), "r"(addr)
+        : "memory");
+    if (rlo == olo && rhi == ohi) return;
+    old = make_float4(__uint_as_float((unsigned)rlo), __uint_as_float((unsigned)(rlo >> 32)),
+                      __uint_as_float((unsigned)rhi), __uint_as_float((unsigned)(rhi >> 32)));
+  }
+}
+
+// p[0..2) += (a, b) in SHARED memory as one 64-bit compare-and-swap loop
+__device__ __forceinline__ void shared_add2(float* p, float a, float b) {
+  unsigned long long* q = reinterpret_cast<unsigned long long*>(p);
+  unsigned long long old = *reinterpret_cast<volatile unsigned long long*>(q);
+  while (true) {
+    const unsigned long long nw =
+        ((unsigned long long)__float_as_uint(__uint_as_float((unsigned)(old >> 32)) + b) << 32) |
+        __float_as_uint(__uint_as_float((unsigned)old) + a);
+    const unsigned long long got = atomicCAS(q, old, nw);
+    if (got == old) return;
+    old = got;
+  }
+}
+
+// row[0..F) += v in shared memory
+template <int F>
+__device__ __forceinline__ void shared_add_row(float* row, const float (&v)[F]) {
+  if constexpr (F >= 4) {
+#pragma unroll
+    for (int q = 0; q < F; q += 4)
+      shared_add4(row + q, v[q], v[q + 1], v[q + 2], v[q + 3]);
+  } else if constexpr (F == 2) {
+    shared_add2(row, v[0], v[1]);
+  } else {
+    atomicAdd(row, v[0]);
+  }
+}
+
+// Scatter corner_weight * g into the level's 8 corner rows of `dst` (rows
+// of F floats): a shared-memory slab when SHARED, else the level's device
+// gradient. Each product is taken in float32 as the forward's weight times
+// the cotangent; same-row lanes are summed before the add. Every lane of
+// the warp calls it; a lane without a point passes valid = false (its key
+// 0xffffffff is no row: T < 2^32).
+template <int F, bool SHARED>
+__device__ __forceinline__ void scatter_corners(const LevelGeom& geo,
+                                                const float (&g)[F], bool valid,
+                                                float* dst) {
+#pragma unroll
+  for (int dx = 0; dx < 2; ++dx) {
+#pragma unroll
+    for (int dy = 0; dy < 2; ++dy) {
+#pragma unroll
+      for (int dz = 0; dz < 2; ++dz) {
+        const unsigned idx = valid ? corner_index(geo, dx, dy, dz) : 0xffffffffu;
+        const float w = corner_weight(geo, dx, dy, dz);
+        float v[F];
+#pragma unroll
+        for (int f = 0; f < F; ++f) v[f] = w * g[f];
+        if (warp_reduce_peers<F>(idx, v) && valid) {
+          float* row = dst + (size_t)idx * F;
+          if constexpr (SHARED) {
+            shared_add_row<F>(row, v);
+          } else {
+            atomic_add_row<F>(row, v);
+          }
+        }
+      }
+    }
+  }
 }
 
 }  // namespace repro

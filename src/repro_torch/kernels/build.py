@@ -38,8 +38,9 @@ SIGNATURES = {
                             _I, _I, _P],
     # rgba, out, R, S, is_bf16, stream
     "repro_composite": [_P, _P, _L, _I, _I, _P],
-    # grad_out, coords, res, part, grad_tables, B, N, L, T, F, stream
-    "repro_hash_encode_bwd": [_P, _P, _P, _P, _P, _L, _L, _I, _L, _I, _P],
+    # grad_out, coords, res, staged, points per block (the three in host
+    # memory), part, grad_tables, B, N, L, T, F, stream
+    "repro_hash_encode_bwd": [_P] * 7 + [_L, _L, _I, _L, _I, _P],
     # x, w_in, w_hid, w_out, g, part, dx, dw_in, dw_hid, dw_out, B, N, D_in,
     # W, n_hidden, n_hid_slab, D_out, stream
     "repro_fused_mlp_bwd": [_P] * 10 + [_L, _L, _I, _I, _I, _I, _I, _P],

@@ -19,6 +19,9 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 #: head dims the kernel is instantiated for (SMOKE configs 16; qwen2 64;
 #: danube 80; llama / olmo 128)
 KERNEL_HEAD_DIMS = (16, 32, 64, 80, 128)
+#: keys per tile of the bf16 kernel, which rounds p to bf16 per tile:
+#: ``attention_tiled_ref(..., block_k=KERNEL_BLOCK_K)`` repeats it
+KERNEL_BLOCK_K = 128
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -31,7 +34,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     writes 0 and the plain version a uniform average.
 
     CPU tensors take the plain version; CUDA tensors launch
-    ``repro_flash_attention`` (``csrc/flash_attention.cu``) or raise."""
+    ``repro_flash_attention`` (``csrc/flash_attention.cu``) or raise. The
+    dtype picks the kernel: bfloat16 runs on the tensor cores (wgmma, TMA;
+    p rounded to bf16 before the PV product, as the plain version rounds
+    its probabilities), float32 on the CUDA cores (a TF32 product would
+    break float32's 2e-5 limit)."""
     if causal and q.dim() == 4 and k.dim() == 4 and q.shape[1] > k.shape[1]:
         raise ValueError(f"flash_attention_cuda: causal with Sq={q.shape[1]} > "
                          f"Sk={k.shape[1]} leaves query rows without keys")

@@ -35,3 +35,74 @@ def attention_ref(q, k, v, *, causal: bool = True,
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
     return out.reshape(B, Sq, Hq, dh)
+
+
+def _tiled(q, k, v, causal, window, block_k, p_weights) -> torch.Tensor:
+    """The kernels' online-softmax loop: sum_i p_weights(p)_i v_i / l over
+    ``block_k``-key tiles, p = exp(s - m_running) in float32, l from the
+    float32 p; (B,Sq,Hq,dh) float32."""
+    B, Sq, Hq, dh = q.shape
+    _, Sk, Hkv, _ = k.shape
+    g = Hq // Hkv
+    qg = q.float().reshape(B, Sq, Hkv, g, dh)
+    kf, vf = k.float(), v.float()
+    scale = 1.0 / math.sqrt(dh)
+    shift = Sk - Sq
+    q_pos = shift + torch.arange(Sq, device=q.device)[:, None]
+    k_hi = min(Sk, shift + Sq) if causal else Sk
+    k_lo = max(0, shift - window + 1) if window is not None else 0
+    m = torch.full((B, Hkv, g, Sq), NEG_INF, device=q.device)
+    l = torch.zeros((B, Hkv, g, Sq), device=q.device)
+    acc = torch.zeros((B, Hkv, g, Sq, dh), device=q.device)
+    for k0 in range((k_lo // block_k) * block_k, k_hi, block_k):
+        k1 = min(k0 + block_k, Sk)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf[:, k0:k1]) * scale
+        k_pos = torch.arange(k0, k1, device=q.device)[None, :]
+        mask = torch.ones((Sq, k1 - k0), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= k_pos <= q_pos
+        if window is not None:
+            mask &= k_pos > q_pos - window
+        s = torch.where(mask, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p_weights(p), vf[:, k0:k1])
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, dh)
+
+
+def attention_tiled_ref(q, k, v, *, causal: bool = True,
+                        window: Optional[int] = None, block_k: int = 64,
+                        p_dtype=torch.float32) -> torch.Tensor:
+    """The online-softmax schedule of the CUDA kernels, in plain PyTorch:
+    q (B,Sq,Hq,dh); k,v (B,Sk,Hkv,dh) -> (B,Sq,Hq,dh) in q's dtype.
+
+    Keys go in ``block_k`` tiles aligned as the kernels align them (from
+    ``(k_lo // block_k) * block_k``, ``k_lo`` the window's first live key);
+    scores are float32 with the ``-1e30`` sentinel; p = exp(s - m_running)
+    is cast to ``p_dtype`` before the PV product (the bf16 kernel's rounding
+    point with ``torch.bfloat16``) while the row sum l is taken from the
+    float32 p; out = acc / max(l, 1e-30). For the tests and the on-card
+    checks only: no path calls it."""
+    return _tiled(q, k, v, causal, window, block_k,
+                  lambda p: p.to(p_dtype).float()).to(q.dtype)
+
+
+def p_rounding_slack(q, k, v, *, causal: bool = True,
+                     window: Optional[int] = None, block_k: int = 64,
+                     p_dtype=torch.bfloat16, rel: float = 2.0 ** -16):
+    """How far ``attention_tiled_ref(..., p_dtype=p_dtype)`` may move where
+    its float32 p lies within a relative ``rel`` of a ``p_dtype`` rounding
+    tie: sum_i |round(p_i (1+rel)) - round(p_i (1-rel))| |v_i| / l, float32
+    (B,Sq,Hq,dh). Scores summed in another order (a tensor-core product
+    against a float32 GEMM) move p by a few float32 ulps, which rounds
+    those p to the other neighbour: one ulp of p_dtype each. Zero where no
+    p lies that near a tie."""
+    def flip(p):
+        return ((p * (1 + rel)).to(p_dtype).float()
+                - (p * (1 - rel)).to(p_dtype).float()).abs()
+    return _tiled(q, k, v.abs(), causal, window, block_k, flip)

@@ -18,6 +18,7 @@ import torch
 
 from repro.kernels.fused_mlp.ops import fused_mlp as jfused_mlp
 from repro.kernels.hash_encoding.ops import hash_encode as jhash_encode
+from repro_torch.configs import dvnr
 from repro_torch.kernels.fused_mlp import ops as mops
 from repro_torch.kernels.fused_mlp.ops import fused_mlp, fused_mlp_batched
 from repro_torch.kernels.hash_encoding import ops as hops
@@ -86,6 +87,28 @@ def test_hash_bwd_wrapper_takes_the_plain_version_on_cpu():
     with pytest.raises(ValueError):
         hops.hash_encode_bwd_cuda(g[..., :4], coords, (4, 8), [1, 0],
                                   (2, 2, 128, 4))
+
+
+@pytest.mark.parametrize("name,n_direct", [("PRODUCTION256", 0),
+                                          ("PRODUCTION", 3), ("ABLATION", 7)])
+def test_hash_bwd_plan_stages_exactly_the_slabs_that_fit(name, n_direct):
+    """The backward kernel's per-level route: a level's rows x F float32
+    gradient slab is staged in shared memory exactly when it fits the
+    budget (which fits a block's 227 KB), else its rows go straight to the
+    device gradient."""
+    cfg = getattr(dvnr, name)
+    res, T, F = cfg.level_resolutions(), cfg.table_size, cfg.n_features_per_level
+    plan = hops.bwd_plan(res, T, F)
+    assert len(plan) == len(res) and hops.STAGE_BUDGET_BYTES <= 232_448
+    for r, staged in zip(res, plan):
+        rows = min((r + 1) ** 3, T)
+        assert rows == hops.level_rows(r, T)
+        assert staged == (rows * F * 4 <= hops.STAGE_BUDGET_BYTES)
+    assert plan.count(False) == n_direct
+    assert plan[0]                     # the coarsest level is always staged
+    # points per block: whole warps, and a staged block at least 1,024
+    for ppb, staged in zip(hops.bwd_points_per_block(res, T, F), plan):
+        assert ppb % 32 == 0 and (ppb >= 1024 if staged else ppb > 0)
 
 
 def _mlp_weights(rng, D_in, W, H, D_out, lead=()):
