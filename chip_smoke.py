@@ -21,8 +21,10 @@ toolkit; imports nothing of JAX or of the JAX package. Phases:
            and at F = 1, 2 and 8 (ABLATION); each bf16 flash case against
            the plain version (3e-2), the kernel's tile schedule in f32 with
            p rounded to bf16 (``attention_tiled_ref``, 1e-5 + 8e-3 |out|
-           plus the p-rounding slack) and the f32 plain version (per-row
-           relative L2 1e-2);
+           plus the p-rounding slack, whose 2^-16 width is first held
+           against the kernel's own f32 p, dumped by its check
+           instantiation) and the f32 plain version (per-row relative L2
+           1e-2);
 3. decode  ``DVNRModel.decode_grid`` of one 256^3 partition through the
            kernels, against the plain path on the card;
 4. serve   a ``RenderService`` over 8 PRODUCTION256 partitions (the 2x2x2
@@ -189,7 +191,9 @@ def check(name, got, want, *, atol, rtol=0.0, slack=None):
         allowed = allowed + slack
     worst = float((err - allowed).max())
     max_err = float(err.max())
-    extra = "" if slack is None else f" +slack (max {float(slack.max()):.1e})"
+    extra = "" if slack is None else (
+        f" +slack (max {float(slack.max()):.1e}; "
+        f"{int((err > allowed - slack).sum()):,} elements need it)")
     print(f"  {name:<44s} max_abs_err={max_err:.3e}  tol: atol={atol:.1e} "
           f"rtol={rtol:.1e}{extra}  {'ok' if worst <= 0 else 'FAIL'}")
     if worst > 0:
@@ -273,15 +277,38 @@ def flash_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
     return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
+def p_deviation(kernel_p, tiled_probabilities, got, q, k, v, tiled_kw) -> float:
+    """The largest relative departure of the bf16 flash kernel's float32 p
+    (before its bf16 rounding) from ``tiled_probabilities``', over batch 0,
+    q head 0 and the rows of the last 128-row q tile: |p_k - p_y| /
+    max(p_y, 2^-120) (p below 2^-120 is flushed or moves no output). The
+    check instantiation must also give the wrapper's output bit for bit,
+    and must write every p the yardstick has above 0."""
+    import torch
+    out, pk = kernel_p(q, k, v, tiled_kw["causal"], tiled_kw["window"])
+    if not torch.equal(out, got):
+        raise SmokeFailure("the flash kernel's check instantiation gives "
+                           "another output than the kernel")
+    py = tiled_probabilities(q[:1, :, :1].float(), k[:1, :, :1].float(),
+                             v[:1, :, :1].float(), **tiled_kw)[0, :, 0]
+    py = py[py.shape[0] - pk.shape[0]:]
+    live = torch.isfinite(py)
+    if bool((live & torch.isnan(pk) & (py > 0)).any()):
+        raise SmokeFailure("the flash kernel skipped keys the yardstick weighs")
+    both = live & torch.isfinite(pk)
+    rel = (pk[both] - py[both]).abs() / py[both].clamp_min(2.0 ** -120)
+    return float(rel.max()) if rel.numel() else 0.0
+
+
 def flash_checks(dev) -> float:
     """Phase 2's flash-attention checks (FLASH_CASES); returns the error at
     the first case, the LM phase's shapes and dtype."""
     import torch
-    from repro_torch.kernels.flash_attention.ops import (KERNEL_BLOCK_K,
-                                                         flash_attention_cuda)
-    from repro_torch.kernels.flash_attention.ref import (attention_ref,
-                                                         attention_tiled_ref,
-                                                         p_rounding_slack)
+    from repro_torch.kernels.flash_attention.ops import (
+        KERNEL_BLOCK_K, flash_attention_bf16_p, flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ref import (
+        attention_ref, attention_tiled_ref, p_rounding_slack,
+        tiled_probabilities)
 
     gen = torch.Generator(device=dev).manual_seed(13)
     errs = []
@@ -301,11 +328,22 @@ def flash_checks(dev) -> float:
             # p only (JAX's tolerance)
             errs.append(check(label, got, want, atol=3e-2))
             # tightly, within one bf16 rounding of the output: the kernel's
-            # tile schedule in f32 on the same bf16 values, rounding p to
-            # bf16 where the kernel does; a p within 2^-16 of a bf16 tie may
-            # round either way (the kernel's scores are summed in another
-            # order), which p_rounding_slack allows for, element by element
+            # tile schedule in f32 on the same bf16 values, p computed and
+            # rounded to bf16 as the kernel does; a p within 2^-16 of a bf16
+            # tie may round either way (the kernel's scores are summed in
+            # another order), which p_rounding_slack allows for, element by
+            # element. That width is measured first: the kernel's own float32
+            # p (batch 0, head 0, the last q tile, from its check
+            # instantiation) against the yardstick's
             tiled_kw = dict(causal=causal, window=window, block_k=KERNEL_BLOCK_K)
+            dev_p = p_deviation(flash_attention_bf16_p, tiled_probabilities,
+                                got, q, k, v, tiled_kw)
+            print(f"  {label + ' p vs tiled (rel)':<44s} max={dev_p:.3e}  "
+                  f"slack width 2^-16={2.0 ** -16:.3e}  "
+                  f"{'ok' if dev_p <= 2.0 ** -16 else 'FAIL'}")
+            if not dev_p <= 2.0 ** -16:
+                raise SmokeFailure(f"{label}: the kernel's p lies {dev_p:.3e} "
+                                   "from the yardstick's, beyond the slack's 2^-16")
             want = attention_tiled_ref(q.float(), k.float(), v.float(),
                                        p_dtype=torch.bfloat16, **tiled_kw)
             slack = p_rounding_slack(q.float(), k.float(), v.float(), **tiled_kw)
@@ -481,8 +519,6 @@ def lm_phase(tag: str, dev, flash_err: float) -> dict:
     ms = cuda_ms(kern, reps=5)
     pms = cuda_ms(plain, reps=3)
     lms = cuda_ms(lib_fn, reps=10) if lib_fn is not None else None
-    alone = launch_times(kern, "flash_attention_kernel")
-    kdev = [alone[0]] if alone else []
     pairs = flash_pairs(S, S, True, W)
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     flops = 4 * B * cfg.n_heads * dh * pairs
@@ -491,9 +527,8 @@ def lm_phase(tag: str, dev, flash_err: float) -> dict:
           f"{pairs:,} live pairs per head)  plain {pms:9.3f} ms  SDPA "
           f"{'-' if lms is None else f'{lms:.3f} ms'}  launches/prefill "
           f"{prefill_launches}  kernel alone "
-          f"{f'{kdev[0]:.4f} ms' if kdev else 'not measured'} (profiler; "
           f"{'not measured' if prefill_kernel_ms is None else f'{prefill_kernel_ms:.4f} ms'}"
-          f" per launch in the profiled prefill) [{tag}]")
+          f" per launch in the profiled prefill (profiler) [{tag}]")
     if prefill_kernel_ms is not None:
         print(f"  attention kernels: {prefill_kernel_ms * prefill_launches:.1f} ms "
               f"of the {prefill_ms:.1f} ms prefill "
@@ -509,13 +544,17 @@ def lm_phase(tag: str, dev, flash_err: float) -> dict:
     lms32 = (cuda_ms(lambda: tF.scaled_dot_product_attention(
         qt32, kt32, vt32, is_causal=True, enable_gqa=True), reps=3)
         if W is None else None)
-    k32ms = launch_times(kern32, "flash_attention_kernel", reps=2)
+    # the kernel's own device time: one profiled call (torch.profiler's
+    # key_averages, as the prefill's profile above)
+    _, prof32, _ = profile_tick(kern32)
+    k32 = [(t, n) for name, (t, n) in prof32 if "flash_attention_kernel" in name]
+    k32ms = sum(t for t, _ in k32) / sum(n for _, n in k32) if k32 else None
     bms32, by32 = bound_ms((2 * q.numel() + k.numel() + v.numel()) * 4, flops,
                            F32_FLOPS)
     print(f"  flash_attention f32 (CUDA-core kernel) {ms32:.3f} ms  bound "
           f"{bms32:.3f} ms ({by32})  plain {pms32:.3f} ms  SDPA f32 "
           f"{'-' if lms32 is None else f'{lms32:.3f} ms'}  kernel alone "
-          f"{'not measured' if k32ms is None else f'{sum(k32ms):.4f} ms'} "
+          f"{'not measured' if k32ms is None else f'{k32ms:.4f} ms'} "
           f"(profiler) [{tag}]")
     del q32, k32, v32, qt32, kt32, vt32
     return {"name": "flash_attention", "route": "cuda",
@@ -534,16 +573,25 @@ def scatter_requests(coords, res, T: int, F: int) -> dict:
     flushes each row it touched with one 16-byte global atomic; on a
     direct level the add is the global one (F=8: two). The kernel before
     this design made 8 x F scalar global atomics per (point, level)."""
+    import ctypes
+
     import torch
+    from repro_torch.kernels import build
     from repro_torch.kernels.hash_encoding import ref as he_ref
-    from repro_torch.kernels.hash_encoding.ops import (bwd_plan,
-                                                       bwd_points_per_block)
+    from repro_torch.kernels.hash_encoding.ops import bwd_plan
     B, N, _ = coords.shape
+    L = len(res)
     glob = shared = 0
     vec = 2 if F == 8 else 1
     pad = (-N) % 32
-    for r, staged, ppb in zip(res, bwd_plan(res, T, F),
-                              bwd_points_per_block(res, T, F)):
+    plan = bwd_plan(res, T, F)
+    res_h = (ctypes.c_int * L)(*(int(r) for r in res))
+    staged_h = (ctypes.c_int * L)(*plan)
+    ppb_h = (ctypes.c_int * L)()
+    build.library().repro_hash_encode_bwd_points_per_block(
+        ctypes.addressof(res_h), ctypes.addressof(staged_h), L, T,
+        ctypes.addressof(ppb_h))
+    for r, staged, ppb in zip(res, plan, list(ppb_h)):
         lo, _ = he_ref._level_corners(coords.reshape(B * N, 3), r)
         idx = torch.stack([he_ref.corner_indices(
             lo + torch.tensor([dx, dy, dz], device=coords.device), r, T)
@@ -1139,15 +1187,17 @@ def dvnr_phases():
         pms = cuda_ms(plain_fn, reps=3)
         lms = cuda_ms(lib_fn, reps=5) if lib_fn is not None else None
         bms, by = bound_ms(nbytes, flops)
-        # per wrapper call (5 in the profile), summed over the kernels that
-        # carry the symbol (the hash backward launches once per level)
+        # times are per wrapper call (5 in the profile), summed over the
+        # kernels that carry the symbol: the hash backward launches once per
+        # level, and its counter counts those launches (L per call)
         kt = [t for key, (t, _) in dev_ms if kernel_symbol[name] in key]
         kdev = [sum(kt) / 5] if kt else []
         print(f"  {name:<16s} {ms:9.3f} ms  bound {bms:8.3f} ms ({by})  "
               f"plain {pms:9.3f} ms  library "
               f"{'-' if lms is None else f'{lms:.3f} ms'}  "
               f"launches/step {counts[name] / steps:.0f}  kernel alone "
-              f"{f'{kdev[0]:.4f} ms' if kdev else 'not measured'} (profiler) [{tag}]")
+              f"{f'{kdev[0]:.4f} ms' if kdev else 'not measured'} per call "
+              f"(profiler) [{tag}]")
         kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
                         "replaces": REPLACES[name], "launches": counts[name],
                         "max_abs_err": errs[name], "ms": ms, "plain_ms": pms,

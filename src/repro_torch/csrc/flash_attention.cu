@@ -63,10 +63,10 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (size_t)(BQ * (DH + 1) + BK * (DH + 1) + BK * DH + BQ * LP);
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(TPB, 2)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out,
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out,
                        int Sq, int Sk, int Hq, int Hkv, int causal,
                        int has_window, int window) {
   static_assert(DH % 16 == 0, "head dim must be a multiple of 16");
@@ -86,10 +86,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int nq = min(BQ, Sq - q0);
   const int shift = Sk - Sq;      // right alignment: q_pos = shift + i
   const long long qrs = (long long)Hq * DH, krs = (long long)Hkv * DH;
-  const T* qb = q + ((long long)b * Sq * Hq + h) * DH;
-  const T* kb = k + ((long long)b * Sk * Hkv + hk) * DH;
-  const T* vb = v + ((long long)b * Sk * Hkv + hk) * DH;
-  T* ob = out + ((long long)b * Sq * Hq + h) * DH;
+  const float* qb = q + ((long long)b * Sq * Hq + h) * DH;
+  const float* kb = k + ((long long)b * Sk * Hkv + hk) * DH;
+  const float* vb = v + ((long long)b * Sk * Hkv + hk) * DH;
+  float* ob = out + ((long long)b * Sq * Hq + h) * DH;
 
   // live keys of this q tile: [k_lo, k_hi)
   const int lo_q = shift + q0, hi_q = shift + q0 + nq - 1;
@@ -99,7 +99,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int i = tid; i < BQ * DH; i += TPB) {
     const int r = i / DH, d = i - r * DH;
-    Qs[r * LD + d] = r < nq ? repro::to_f32(qb[(q0 + r) * qrs + d]) : 0.0f;
+    Qs[r * LD + d] = r < nq ? qb[(q0 + r) * qrs + d] : 0.0f;
   }
   float m[RPT], l[RPT], acc[RPT][CPT];
 #pragma unroll
@@ -117,8 +117,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int kk = k0 + r;
       float kv = 0.0f, vv = 0.0f;
       if (kk < Sk) {
-        kv = repro::to_f32(kb[kk * krs + d]);
-        vv = repro::to_f32(vb[kk * krs + d]);
+        kv = kb[kk * krs + d];
+        vv = vb[kk * krs + d];
       }
       Ks[r * LD + d] = kv;
       Vs[r * DH + d] = vv;
@@ -201,19 +201,18 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (r >= nq) continue;
     const bool empty = causal && shift + q0 + r < 0;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* orow = ob + (q0 + r) * qrs;
+    float* orow = ob + (q0 + r) * qrs;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c)
-      orow[tx + 16 * c] = repro::from_f32<T>(empty ? 0.0f : acc[i][c] / denom);
+    for (int c = 0; c < CPT; ++c) orow[tx + 16 * c] = empty ? 0.0f : acc[i][c] / denom;
   }
 }
 
-template <typename T, int DH>
+template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    long long B, long long Sq, long long Sk, int Hq, int Hkv,
                    int causal, int has_window, int window, cudaStream_t s) {
   constexpr size_t smem = smem_bytes<DH>();
-  auto kern = flash_attention_kernel<T, DH>;
+  auto kern = flash_attention_kernel<DH>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -221,24 +220,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)Hq, (unsigned)B);
-  kern<<<grid, TPB, smem, s>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                               static_cast<const T*>(v), static_cast<T*>(out),
+  kern<<<grid, TPB, smem, s>>>(static_cast<const float*>(q),
+                               static_cast<const float*>(k),
+                               static_cast<const float*>(v), static_cast<float*>(out),
                                (int)Sq, (int)Sk, Hq, Hkv, causal, has_window,
                                window);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch(int dh, const void* q, const void* k, const void* v,
                      void* out, long long B, long long Sq, long long Sk, int Hq,
                      int Hkv, int causal, int has_window, int window,
                      cudaStream_t s) {
   switch (dh) {
-    case 16: return launch<T, 16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, has_window, window, s);
-    case 32: return launch<T, 32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, has_window, window, s);
-    case 64: return launch<T, 64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, has_window, window, s);
-    case 80: return launch<T, 80>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, has_window, window, s);
-    case 128: return launch<T, 128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, has_window, window, s);
+    case 16: return launch<16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, has_window, window, s);
+    case 32: return launch<32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, has_window, window, s);
+    case 64: return launch<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, has_window, window, s);
+    case 80: return launch<80>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, has_window, window, s);
+    case 128: return launch<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, has_window, window, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -277,9 +276,13 @@ cudaError_t dispatch(int dh, const void* q, const void* k, const void* v,
 //
 // Numerics: the products are exact bf16 x bf16 in float32 sums; scores are
 // masked with the -1e30 sentinel in raw units and p = 2^(s c - m c), c =
-// log2(e) / sqrt(dh), one FFMA and the hardware ex2 (relative error ~2^-22;
-// p_rounding_slack in ref.py bounds what such ulps do after p's bf16
-// rounding). A row whose keys so far are all masked takes p = 0, not the
+// log2(e) / sqrt(dh), one FFMA and the hardware ex2 (relative error ~2^-22).
+// attention_tiled_ref in ref.py computes p the same way; the scores' other
+// summation order still moves p by float32 ulps, which can send a p near a
+// bf16 tie to the other neighbour: p_rounding_slack allows one bf16 ulp
+// where p lies within 2^-16 of a tie, and repro_flash_attention_bf16_p
+// (below) lets the on-card check measure how far this kernel's p lies from
+// the yardstick's. A row whose keys so far are all masked takes p = 0, not the
 // TPU kernel's exp(0) terms: the next live tile's alpha = 0 wipes those
 // anyway, so the output is the same. The design's one rounding beyond the
 // CUDA-core kernel: the unnormalised p = exp(s - m_running) is rounded to
@@ -345,12 +348,16 @@ __device__ __forceinline__ void load_tile(const Maps& m, bool is_q, bool is_k,
   }
 }
 
-template <int DH>
+// DUMP_P (a check's instantiation, never on a path): block (0, 0, 0) also
+// writes the float32 p of each of its live tiles, before the bf16 rounding,
+// to p_dump[r * Sk + key] (r < 128: its q tile's rows)
+template <int DH, bool DUMP_P>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_kernel_bf16_wgmma(const __grid_constant__ Maps maps,
                                   __nv_bfloat16* __restrict__ out, int Sq,
                                   int Sk, int Hq, int Hkv, int causal,
-                                  int has_window, int window) {
+                                  int has_window, int window,
+                                  float* __restrict__ p_dump) {
   using G = Geo<DH>;
   extern __shared__ uint8_t smem_raw[];
   __shared__ uint64_t full_k[KV_STAGES], full_v[KV_STAGES], empty[KV_STAGES];
@@ -493,6 +500,16 @@ flash_attention_kernel_bf16_wgmma(const __grid_constant__ Maps maps,
       ps0 += sc[i] + sc[i + 1];
       ps1 += sc[i + 2] + sc[i + 3];
     }
+    if constexpr (DUMP_P) {
+      if (blockIdx.x == 0 && blockIdx.y == 0 && blockIdx.z == 0) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const int key = k0 + 8 * (i / 4) + 2 * (lane & 3) + (i & 1);
+          const int r = r0 + ((i & 2) ? 8 : 0);
+          if (r < nq && key < Sk) p_dump[(long long)r * Sk + key] = sc[i];
+        }
+      }
+    }
     l0 = l0 * alpha0 + ps0;      // per-thread partial sums: l is reduced
     l1 = l1 * alpha1 + ps1;      // over the row's 4 lanes once, at the end
     if (__any_sync(0xffffffffu, alpha0 != 1.0f || alpha1 != 1.0f)) {
@@ -603,10 +620,11 @@ bool encode_map(CUtensorMap* map, const void* base, int dh, int H, long long S,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DH>
+template <int DH, bool DUMP_P>
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
                       long long B, long long Sq, long long Sk, int Hq, int Hkv,
-                      int causal, int has_window, int window, cudaStream_t s) {
+                      int causal, int has_window, int window, float* p_dump,
+                      cudaStream_t s) {
   using G = tc::Geo<DH>;
   if (Sk == 0)   // no key: every row is acc / max(l, 1e-30) = 0
     return cudaMemsetAsync(out, 0, (size_t)B * Sq * Hq * DH * 2, s);
@@ -621,27 +639,28 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
       !encode_map(&m.vf, v, DH, Hkv, Sk, B, wf, tc::BK) ||
       !encode_map(&m.vr, v, DH, Hkv, Sk, B, wr, tc::BK))
     return cudaErrorInvalidValue;
-  auto kern = tc::flash_attention_kernel_bf16_wgmma<DH>;
+  auto kern = tc::flash_attention_kernel_bf16_wgmma<DH, DUMP_P>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((Sq + tc::BQ - 1) / tc::BQ), (unsigned)Hq, (unsigned)B);
   kern<<<grid, tc::THREADS, G::SMEM, s>>>(m, static_cast<__nv_bfloat16*>(out),
                                            (int)Sq, (int)Sk, Hq, Hkv, causal,
-                                           has_window, window);
+                                           has_window, window, p_dump);
   return cudaGetLastError();
 }
 
+template <bool DUMP_P>
 cudaError_t dispatch_tc(int dh, const void* q, const void* k, const void* v,
                         void* out, long long B, long long Sq, long long Sk,
                         int Hq, int Hkv, int causal, int has_window, int window,
-                        cudaStream_t s) {
+                        float* p_dump, cudaStream_t s) {
   switch (dh) {
-    case 16: return launch_tc<16>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, has_window, window, s);
-    case 32: return launch_tc<32>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, has_window, window, s);
-    case 64: return launch_tc<64>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, has_window, window, s);
-    case 80: return launch_tc<80>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, has_window, window, s);
-    case 128: return launch_tc<128>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, has_window, window, s);
+    case 16: return launch_tc<16, DUMP_P>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, has_window, window, p_dump, s);
+    case 32: return launch_tc<32, DUMP_P>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, has_window, window, p_dump, s);
+    case 64: return launch_tc<64, DUMP_P>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, has_window, window, p_dump, s);
+    case 80: return launch_tc<80, DUMP_P>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, has_window, window, p_dump, s);
+    case 128: return launch_tc<128, DUMP_P>(q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, has_window, window, p_dump, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -658,7 +677,28 @@ extern "C" int repro_flash_attention(const void* q, const void* k, const void* v
   if (Hkv <= 0 || Hq % Hkv != 0 || Sk < 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = is_bf16
-      ? dispatch_tc(dh, q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, has_window, window, s)
-      : dispatch<float>(dh, q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, has_window, window, s);
+      ? dispatch_tc<false>(dh, q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, has_window,
+                           window, nullptr, s)
+      : dispatch(dh, q, k, v, out, B, Sq, Sk, Hq, Hkv, causal, has_window, window, s);
   return (int)err;
+}
+
+// The bf16 kernel's check instantiation: as repro_flash_attention on bf16
+// inputs, and block (0, 0, 0) (batch 0, q head 0, the last q tile: rows
+// 128 * (ceil(Sq / 128) - 1) on) also writes the float32 p of its live tiles,
+// before their bf16 rounding, to p_dump (128, Sk) f32, p relative to the
+// row's running max at the key's tile; entries it does not reach keep what
+// the caller put there. For the on-card checks only: no path calls it.
+extern "C" int repro_flash_attention_bf16_p(const void* q, const void* k,
+                                            const void* v, void* out,
+                                            void* p_dump, long long B,
+                                            long long Sq, long long Sk, int Hq,
+                                            int Hkv, int dh, int causal,
+                                            int has_window, int window,
+                                            void* stream) {
+  if (B <= 0 || Sq <= 0 || Hq <= 0) return 0;
+  if (Hkv <= 0 || Hq % Hkv != 0 || Sk <= 0) return (int)cudaErrorInvalidValue;
+  return (int)dispatch_tc<true>(dh, q, k, v, out, B, Sq, Sk, Hq, Hkv, causal,
+                                has_window, window, static_cast<float*>(p_dump),
+                                static_cast<cudaStream_t>(stream));
 }

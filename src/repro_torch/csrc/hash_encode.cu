@@ -169,15 +169,24 @@ hash_encode_bwd_kernel(const float* __restrict__ grad_out,
   }
 }
 
+// Points a backward block takes: one per thread on the direct route; a
+// staged block flushes its slab once, so it takes about as many points as
+// the slab has rows (a power of two in [1,024, 4,096]).
+int bwd_points_per_block(long long rows, bool staged) {
+  if (!staged) return BWD_THREADS_DIRECT;
+  int ppb = 1024;
+  while (ppb < rows && ppb < 4096) ppb *= 2;
+  return ppb;
+}
+
 template <int F>
 cudaError_t launch_bwd_level(const float* g, const float* coords,
                              const int* part, float* grad, long long B,
                              long long N, int L, int level, int res,
-                             bool staged, int ppb, long long T_size,
+                             bool staged, long long T_size,
                              cudaStream_t stream) {
-  const long long r1 = (long long)res + 1;
-  const long long rows = r1 * r1 * r1 <= T_size ? r1 * r1 * r1 : T_size;
-  if (ppb <= 0 || ppb % 32) return cudaErrorInvalidValue;
+  const long long rows = repro::level_rows(res, T_size);
+  const int ppb = bwd_points_per_block(rows, staged);
   const dim3 grid((unsigned)((N + ppb - 1) / ppb), (unsigned)B);
   if (staged) {
     const int smem = (int)(rows * F * sizeof(float));
@@ -196,14 +205,13 @@ cudaError_t launch_bwd_level(const float* g, const float* coords,
 
 template <int F>
 cudaError_t launch_bwd(const float* g, const float* coords, const int* res,
-                       const int* staged, const int* ppb, const int* part,
-                       float* grad,
+                       const int* staged, const int* part, float* grad,
                        long long B, long long N, int L, long long T_size,
                        cudaStream_t stream) {
   for (int l = 0; l < L; ++l) {
     const cudaError_t err = launch_bwd_level<F>(g, coords, part, grad, B, N, L, l,
-                                                res[l], staged[l] != 0, ppb[l],
-                                                T_size, stream);
+                                                res[l], staged[l] != 0, T_size,
+                                                stream);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
@@ -228,14 +236,13 @@ extern "C" int repro_hash_encode_fwd(const void* coords, const void* tables,
                        : launch<float>(c, tables, r, p, out, B, N, L, T_size, F, s));
 }
 
-// grad_out (B,N,L,F) f32; coords (B,N,3) f32; resolutions, staged and
-// points_per_block (L,) i32 in HOST memory (the level's resolution; nonzero:
-// stage the level's slab in shared memory; a multiple of 32); part (B,) i32
-// -> grad_tables (P,L,T,F) f32, zeroed by the caller, accumulated into;
-// 0 <= part[b] < P is checked on the host. One launch per level.
+// grad_out (B,N,L,F) f32; coords (B,N,3) f32; resolutions and staged (L,)
+// i32 in HOST memory (the level's resolution; nonzero: stage the level's
+// slab in shared memory); part (B,) i32 -> grad_tables (P,L,T,F) f32,
+// zeroed by the caller, accumulated into; 0 <= part[b] < P is checked on
+// the host. One launch per level.
 extern "C" int repro_hash_encode_bwd(const void* grad_out, const void* coords,
                                      const void* resolutions, const void* staged,
-                                     const void* points_per_block,
                                      const void* part, void* grad_tables,
                                      long long B, long long N, int L,
                                      long long T_size, int F, void* stream) {
@@ -245,17 +252,31 @@ extern "C" int repro_hash_encode_bwd(const void* grad_out, const void* coords,
   const float* c = static_cast<const float*>(coords);
   const int* r = static_cast<const int*>(resolutions);
   const int* st = static_cast<const int*>(staged);
-  const int* pb = static_cast<const int*>(points_per_block);
   const int* p = static_cast<const int*>(part);
   float* gt = static_cast<float*>(grad_tables);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (F) {
-    case 1: return (int)launch_bwd<1>(g, c, r, st, pb, p, gt, B, N, L, T_size, s);
-    case 2: return (int)launch_bwd<2>(g, c, r, st, pb, p, gt, B, N, L, T_size, s);
-    case 4: return (int)launch_bwd<4>(g, c, r, st, pb, p, gt, B, N, L, T_size, s);
-    case 8: return (int)launch_bwd<8>(g, c, r, st, pb, p, gt, B, N, L, T_size, s);
+    case 1: return (int)launch_bwd<1>(g, c, r, st, p, gt, B, N, L, T_size, s);
+    case 2: return (int)launch_bwd<2>(g, c, r, st, p, gt, B, N, L, T_size, s);
+    case 4: return (int)launch_bwd<4>(g, c, r, st, p, gt, B, N, L, T_size, s);
+    case 8: return (int)launch_bwd<8>(g, c, r, st, p, gt, B, N, L, T_size, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The points per block of each level's backward launch, as
+// repro_hash_encode_bwd takes them (resolutions, staged and the result
+// (L,) i32 in host memory): for counting the launch's atomic requests.
+extern "C" int repro_hash_encode_bwd_points_per_block(const void* resolutions,
+                                                      const void* staged, int L,
+                                                      long long T_size,
+                                                      void* points_per_block) {
+  const int* r = static_cast<const int*>(resolutions);
+  const int* st = static_cast<const int*>(staged);
+  int* out = static_cast<int*>(points_per_block);
+  for (int l = 0; l < L; ++l)
+    out[l] = bwd_points_per_block(repro::level_rows(r[l], T_size), st[l] != 0);
+  return 0;
 }
 
 extern "C" const char* repro_error_string(int err) {

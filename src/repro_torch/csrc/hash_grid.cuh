@@ -31,6 +31,18 @@ struct LevelGeom {
   unsigned tsz;   // T
 };
 
+// a level is dense when its (res+1)^3 grid points fit the table's T rows
+__host__ __device__ __forceinline__ bool level_dense(int res, long long T) {
+  const long long r1 = (long long)res + 1;
+  return r1 * r1 * r1 <= T;
+}
+
+// the rows of its table a level uses: (res+1)^3 when dense, else T
+__host__ __device__ __forceinline__ long long level_rows(int res, long long T) {
+  const long long r1 = (long long)res + 1;
+  return level_dense(res, T) ? r1 * r1 * r1 : T;
+}
+
 __device__ __forceinline__ LevelGeom level_geom(const float c[3], int res,
                                                 long long T) {
   LevelGeom g;
@@ -43,9 +55,8 @@ __device__ __forceinline__ LevelGeom level_geom(const float c[3], int res,
     g.w[d] = pos - lo_f;
     g.lo[d] = (unsigned)lo_f;
   }
-  const long long r1 = (long long)res + 1;
-  g.dense = r1 * r1 * r1 <= T;
-  g.rp1 = (unsigned)r1;
+  g.dense = level_dense(res, T);
+  g.rp1 = (unsigned)(res + 1);
   g.tsz = (unsigned)T;
   return g;
 }

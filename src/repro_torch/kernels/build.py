@@ -38,9 +38,11 @@ SIGNATURES = {
                             _I, _I, _P],
     # rgba, out, R, S, is_bf16, stream
     "repro_composite": [_P, _P, _L, _I, _I, _P],
-    # grad_out, coords, res, staged, points per block (the three in host
-    # memory), part, grad_tables, B, N, L, T, F, stream
-    "repro_hash_encode_bwd": [_P] * 7 + [_L, _L, _I, _L, _I, _P],
+    # grad_out, coords, res, staged (the two in host memory), part,
+    # grad_tables, B, N, L, T, F, stream
+    "repro_hash_encode_bwd": [_P] * 6 + [_L, _L, _I, _L, _I, _P],
+    # res, staged, L, T, points per block out (host memory)
+    "repro_hash_encode_bwd_points_per_block": [_P, _P, _I, _L, _P],
     # x, w_in, w_hid, w_out, g, part, dx, dw_in, dw_hid, dw_out, B, N, D_in,
     # W, n_hidden, n_hid_slab, D_out, stream
     "repro_fused_mlp_bwd": [_P] * 10 + [_L, _L, _I, _I, _I, _I, _I, _P],
@@ -56,6 +58,9 @@ SIGNATURES = {
     # q, k, v, out, B, Sq, Sk, Hq, Hkv, dh, causal, has_window, window,
     # is_bf16, stream
     "repro_flash_attention": [_P] * 4 + [_L, _L, _L] + [_I] * 7 + [_P],
+    # q, k, v, out, p_dump, B, Sq, Sk, Hq, Hkv, dh, causal, has_window,
+    # window, stream
+    "repro_flash_attention_bf16_p": [_P] * 5 + [_L, _L, _L] + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()

@@ -22,6 +22,8 @@ KERNEL_HEAD_DIMS = (16, 32, 64, 80, 128)
 #: keys per tile of the bf16 kernel, which rounds p to bf16 per tile:
 #: ``attention_tiled_ref(..., block_k=KERNEL_BLOCK_K)`` repeats it
 KERNEL_BLOCK_K = 128
+#: query rows per block of the bf16 kernel
+TC_BLOCK_Q = 128
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -79,6 +81,31 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_cuda.launches = 0
+
+
+def flash_attention_bf16_p(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           causal: bool = True, window: Optional[int] = None):
+    """The bf16 kernel's check instantiation, for the on-card checks only (no
+    path calls it, and it counts no launch): bf16 CUDA q, k, v as
+    ``flash_attention_cuda`` takes them -> (out, p), out as the wrapper's
+    and p (rows, Sk) float32, the kernel's p before its bf16 rounding for
+    batch 0, q head 0 and the rows of the last 128-row q tile (``rows`` =
+    Sq - 128 * (ceil(Sq / 128) - 1)), NaN where the kernel skips a tile."""
+    B, Sq, Hq, dh = q.shape
+    _, Sk, Hkv, _ = k.shape
+    if q.device.type != "cuda" or q.dtype != torch.bfloat16 or \
+            k.dtype != q.dtype or v.dtype != q.dtype or dh not in KERNEL_HEAD_DIMS:
+        raise ValueError("flash_attention_bf16_p takes bf16 CUDA tensors with a "
+                         f"head dim in {KERNEL_HEAD_DIMS}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    out = torch.empty_like(q)
+    p = torch.full((TC_BLOCK_Q, Sk), float("nan"), device=q.device)
+    err = build.library().repro_flash_attention_bf16_p(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), p.data_ptr(),
+        B, Sq, Sk, Hq, Hkv, dh, int(causal), int(window is not None),
+        int(window or 0), torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "repro_flash_attention_bf16_p")
+    return out, p[:Sq - TC_BLOCK_Q * ((Sq - 1) // TC_BLOCK_Q)]
 
 
 def _fwd_impl(q, k, v, causal, window, backend):

@@ -14,7 +14,7 @@ routed per level by ``bwd_plan``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import Sequence
 
 import torch
 
@@ -28,36 +28,14 @@ from repro_torch.kernels.hash_encoding import ref as _ref
 STAGE_BUDGET_BYTES = 200 * 1024
 
 
-def level_rows(res: int, T: int) -> int:
-    """Rows a level's table uses: (res+1)^3 when dense, else T."""
-    return min((int(res) + 1) ** 3, int(T))
-
-
-def bwd_plan(resolutions: Sequence[int], T: int, F: int,
-             budget: Optional[int] = None) -> list:
+def bwd_plan(resolutions: Sequence[int], T: int, F: int) -> list:
     """The backward kernel's route per level: True (stage the level's
     rows x F float32 gradient slab in shared memory, flush it once per
-    block) exactly when the slab fits ``budget`` bytes (default
-    ``STAGE_BUDGET_BYTES``), else False (each row goes straight to the
-    device gradient as one vector atomic)."""
-    budget = STAGE_BUDGET_BYTES if budget is None else budget
-    return [level_rows(r, T) * F * 4 <= budget for r in resolutions]
-
-
-def bwd_points_per_block(resolutions: Sequence[int], T: int, F: int) -> list:
-    """Points a backward block takes, per level: 512 on the direct route
-    (one per thread); a staged block flushes its slab once, so it takes
-    about as many points as the slab has rows (a power of two in [1,024,
-    4,096])."""
-    out = []
-    for r, staged in zip(resolutions, bwd_plan(resolutions, T, F)):
-        ppb = 512
-        if staged:
-            ppb = 1024
-            while ppb < level_rows(r, T) and ppb < 4096:
-                ppb *= 2
-        out.append(ppb)
-    return out
+    block) exactly when the slab fits ``STAGE_BUDGET_BYTES``, else False
+    (each row goes straight to the device gradient as one vector atomic).
+    A level uses (res+1)^3 rows of its table when they fit T, else T."""
+    return [min((int(r) + 1) ** 3, int(T)) * F * 4 <= STAGE_BUDGET_BYTES
+            for r in resolutions]
 
 
 def _res_tensor(resolutions, device) -> torch.Tensor:
@@ -122,7 +100,8 @@ def hash_encode_bwd_cuda(g: torch.Tensor, coords: torch.Tensor,
     launch ``repro_hash_encode_bwd`` (``csrc/hash_encode.cu``: one launch
     per level, same-row lanes summed per warp, then shared-memory staging
     or vector atomics into a zeroed f32 gradient as ``bwd_plan`` says) or
-    raise. The kernel runs the float32 policy only."""
+    raise; ``launches`` counts the L kernel launches of each call. The
+    kernel runs the float32 policy only."""
     B, N, three = coords.shape
     P, L, T, F = (int(d) for d in table_shape)
     if three != 3 or tuple(g.shape) != (B, N, L * F):
@@ -153,16 +132,15 @@ def hash_encode_bwd_cuda(g: torch.Tensor, coords: torch.Tensor,
     part_d = build.part_tensor(part, B, P, coords.device)
     res_h = (ctypes.c_int * L)(*(int(r) for r in resolutions))
     staged_h = (ctypes.c_int * L)(*bwd_plan(resolutions, T, F))
-    ppb_h = (ctypes.c_int * L)(*bwd_points_per_block(resolutions, T, F))
     grad = torch.zeros((P, L, T, F), dtype=torch.float32, device=g.device)
     lib = build.library()
     err = lib.repro_hash_encode_bwd(
         g.data_ptr(), coords.data_ptr(), ctypes.addressof(res_h),
-        ctypes.addressof(staged_h), ctypes.addressof(ppb_h), part_d.data_ptr(),
+        ctypes.addressof(staged_h), part_d.data_ptr(),
         grad.data_ptr(), B, N, L, T, F,
         torch.cuda.current_stream(coords.device).cuda_stream)
     build.check(err, "repro_hash_encode_bwd")
-    hash_encode_bwd_cuda.launches += 1
+    hash_encode_bwd_cuda.launches += L   # one kernel launch per level
     return grad
 
 

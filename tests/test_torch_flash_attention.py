@@ -19,7 +19,8 @@ from repro_torch import backends
 from repro_torch.kernels.flash_attention import ops
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      attention_tiled_ref,
-                                                     p_rounding_slack)
+                                                     p_rounding_slack,
+                                                     tiled_probabilities)
 from repro_torch.models import attention as tattn
 
 CASES = [
@@ -108,6 +109,39 @@ def test_p_rounding_slack_covers_reordered_scores(B, Sq, Sk, Hq, Hkv, dh, causal
     assert float(err.max()) > 0            # the limit alone does not hold
     assert float((err - slack).max()) <= 0, float((err - slack).max())
     assert float(slack.mean()) <= 1e-2 * float(want.abs().mean())
+
+
+@pytest.mark.parametrize("B,Sq,Sk,Hq,Hkv,dh,causal,window", CASES)
+def test_tiled_probabilities_are_the_online_softmax_weights(B, Sq, Sk, Hq, Hkv,
+                                                            dh, causal, window):
+    """The yardstick's p, which the on-card check holds the bf16 kernel's
+    own p against: over one tile of every key, p / sum(p) is the plain
+    version's softmax; over the kernel's tiles, masked keys weigh 0, every
+    row's p peaks at 1 (within float32 ulps) in some tile, and keys before
+    the first tile are NaN."""
+    q, k, v = (_t(a) for a in _qkv(8, B, Sq, Sk, Hq, Hkv, dh))
+    kw = dict(causal=causal, window=window)
+    q_pos = (Sk - Sq) + torch.arange(Sq)[:, None]
+    k_pos = torch.arange(Sk)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window is not None:
+        mask &= k_pos > q_pos - window
+    scores = torch.einsum("bqhd,bkhd->bqhk", q,
+                          k.repeat_interleave(Hq // Hkv, dim=2)) / dh ** 0.5
+    want = torch.softmax(torch.where(mask[:, None], scores, -1e30), dim=-1)
+    one = tiled_probabilities(q, k, v, block_k=Sk, **kw)
+    np.testing.assert_allclose((one / one.sum(-1, keepdim=True)).numpy(),
+                               want.numpy(), atol=1e-6, rtol=1e-5)
+    p = tiled_probabilities(q, k, v, block_k=ops.KERNEL_BLOCK_K, **kw)
+    k_lo = max(0, Sk - Sq - window + 1) if window is not None else 0
+    k0 = (k_lo // ops.KERNEL_BLOCK_K) * ops.KERNEL_BLOCK_K
+    assert torch.isnan(p[..., :k0]).all() and torch.isfinite(p[..., k0:]).all()
+    p = p[..., k0:]
+    # at the running max, s c - f32(m c) is the rounding of m c: 1 +- ulps
+    np.testing.assert_allclose(p.amax(-1).numpy(), 1.0, atol=2.0 ** -21, rtol=0)
+    assert not p.masked_select(~mask[:, None, k0:]).any()
 
 
 @pytest.mark.parametrize("case", [CASES[1], CASES[7]], ids=["gqa", "dh80_window"])
