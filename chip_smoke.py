@@ -71,6 +71,8 @@ Float32 products of the plain versions run in full float32
 """
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import json
 import subprocess
 import sys
@@ -174,6 +176,28 @@ def flash_sass_counts(lib_path) -> dict:
                 if re.search(rf"\b{op}\b", line):
                     counts[cur][op] += 1
     return counts
+
+
+def ptxas_usage(log: str) -> list:
+    """(kernel, registers, spill-store bytes, spill-load bytes) of each
+    entry function in ``nvcc -Xptxas -v``'s output; empty when the library
+    came from an earlier build."""
+    import re
+    rows, cur, spill = [], None, (0, 0)
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            rows.append((cur, int(m.group(1)), *spill))
+            cur, spill = None, (0, 0)
+    return rows
 
 
 def check(name, got, want, *, atol, rtol=0.0, slack=None):
@@ -564,34 +588,23 @@ def lm_phase(tag: str, dev, flash_err: float) -> dict:
             "bound_ms": bms, "bound_by": by, "library_ms": lms}
 
 
-def scatter_requests(coords, res, T: int, F: int) -> dict:
-    """The atomic requests one hash-encode backward call makes on these
-    coordinates (B,N,3), as the kernel routes them: each warp (32
-    consecutive points of a block) adds one row per distinct corner row of
-    each of the 8 corners; on a staged level that add is one shared-memory
-    compare-and-swap loop per 4 features (F=1, 2: one), and each block then
-    flushes each row it touched with one 16-byte global atomic; on a
-    direct level the add is the global one (F=8: two). The kernel before
-    this design made 8 x F scalar global atomics per (point, level)."""
-    import ctypes
-
+def scatter_requests(coords, res, T: int, F: int, plan, blocks) -> dict:
+    """The atomic requests of the corner scatter on these coordinates
+    (B,N,3), as the kernels route them: each warp (32 consecutive points of
+    a partition) adds one row per distinct corner row of each of the 8
+    corners. A direct level's add is one 16-byte global atomic (F=8: two);
+    a staged level's (``plan[l]`` true) is one shared-memory compare-and-
+    swap loop per 4 features (F=1, 2: one), and a row-atomic flush then adds
+    each row a block touched once (``blocks[l]``: the (N,) block of each
+    point). Returns {"direct", "shared", "flush_rows"} and "before", the
+    8 x F scalar global atomics per (point, level) of the first kernels."""
     import torch
-    from repro_torch.kernels import build
     from repro_torch.kernels.hash_encoding import ref as he_ref
-    from repro_torch.kernels.hash_encoding.ops import bwd_plan
     B, N, _ = coords.shape
-    L = len(res)
-    glob = shared = 0
+    direct = shared = flush = 0
     vec = 2 if F == 8 else 1
     pad = (-N) % 32
-    plan = bwd_plan(res, T, F)
-    res_h = (ctypes.c_int * L)(*(int(r) for r in res))
-    staged_h = (ctypes.c_int * L)(*plan)
-    ppb_h = (ctypes.c_int * L)()
-    build.library().repro_hash_encode_bwd_points_per_block(
-        ctypes.addressof(res_h), ctypes.addressof(staged_h), L, T,
-        ctypes.addressof(ppb_h))
-    for r, staged, ppb in zip(res, plan, list(ppb_h)):
+    for r, staged, block in zip(res, plan, blocks):
         lo, _ = he_ref._level_corners(coords.reshape(B * N, 3), r)
         idx = torch.stack([he_ref.corner_indices(
             lo + torch.tensor([dx, dy, dz], device=coords.device), r, T)
@@ -603,13 +616,294 @@ def scatter_requests(coords, res, T: int, F: int) -> dict:
                    + (warp[:, :, 0] >= 0).sum())
         if staged:
             shared += adds * max(1, F // 4)
-            block = torch.arange(N, device=coords.device) // ppb
             key = ((torch.arange(B, device=coords.device)[:, None, None]
-                    * (N // ppb + 1) + block[None, :, None]) * T + idx)
-            glob += int(torch.unique(key).numel()) * vec
+                    * (int(block.max()) + 1) + block[None, :, None]) * T + idx)
+            flush += int(torch.unique(key).numel()) * vec
         else:
-            glob += adds * vec
-    return {"global": glob, "shared": shared, "before": 8 * F * len(res) * B * N}
+            direct += adds * vec
+    return {"direct": direct, "shared": shared, "flush_rows": flush,
+            "before": 8 * F * len(res) * B * N}
+
+
+def levels_str(mask: int, L: int) -> str:
+    """A staging bitmask as one letter per level: s staged, d direct."""
+    return "".join("s" if mask >> l & 1 else "d" for l in range(L))
+
+
+@contextlib.contextmanager
+def setting(module=None, name=None, value=None):
+    """``module.name = value`` for the block (nothing when no module)."""
+    if module is None:
+        yield
+        return
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def step_params(hc, P: int, dev, seed: int) -> dict:
+    """Packed train-step state for config ``hc`` (P partitions): MLP
+    weights U(-1,1) x sqrt(6 / fan-in), tables U(-0.05, 0.05) (a trained
+    model's magnitude), made on the card from ``seed``."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    L, T, F = hc.n_levels, hc.table_size, hc.n_features_per_level
+    W, H, D_out = hc.n_neurons, hc.n_hidden_layers, hc.out_dim
+
+    def u(shape, scale):
+        return (torch.rand(shape, generator=gen, device=dev) * 2 - 1) * scale
+
+    return {"tab": u((P, L, T, F), 0.05),
+            "win": u((P, L * F, W), (6.0 / (L * F)) ** 0.5),
+            "whid": (u((P, H - 1, W, W), (6.0 / W) ** 0.5) if H > 1
+                     else torch.zeros((P, 1, W, W), device=dev)),
+            "wout": u((P, W, D_out), (6.0 / W) ** 0.5)}
+
+
+def step_kinks(params, H, res, coords, target, rel) -> dict:
+    """The train step's forward in float64 and its kinks: where a ReLU
+    pre-activation, or the residual pred - target, of a sample lies within
+    ``rel`` (a number, or per sample (P,N,1)) of the summed magnitude of its
+    terms. There two float32 evaluations that sum in another order (the
+    kernel, the plain version), or draw a coordinate a few ulp apart, may
+    take either side, and the gradient has no value to hold them to."""
+    import torch
+    from repro_torch.kernels.fused_train_step import ops as fts
+    from repro_torch.kernels.hash_encoding.ref import hash_encode_batched_ref
+    f64 = torch.float64
+    ws = [w.to(f64) for w in fts._unpack(params, H)["mlp"]]
+    part = torch.arange(coords.shape[0], device=coords.device)
+    acts = [hash_encode_batched_ref(coords, params["tab"].to(f64), res, part)
+            .to(f64)]
+    masks, kinks = [], []
+    for w in ws[:-1]:
+        z = acts[-1] @ w
+        masks.append(z > 0)
+        kinks.append(z.abs() <= rel * (acts[-1].abs() @ w.abs()))
+        acts.append(torch.relu(z))
+    t64 = target.to(f64)
+    diff = acts[-1] @ ws[-1] - t64
+    return {"ws": ws, "acts": acts, "masks": masks, "kinks": kinks, "diff": diff,
+            "res_kink": diff.abs() <= rel * (acts[-1].abs() @ ws[-1].abs()
+                                             + t64.abs())}
+
+
+def kink_free_batch(params, H, res, coords, target, rel=2.0 ** -16):
+    """The host-sampled batch without its samples at a kink (``step_kinks``):
+    the first N' kink-free rows of every partition, N' the fewest any
+    partition has. Returns (coords, target, rows dropped per partition)."""
+    import torch
+    k = step_kinks(params, H, res, coords, target, rel)
+    bad = k["res_kink"].any(-1)
+    for kl in k["kinks"]:
+        bad |= kl.any(-1)
+    n = int((~bad).sum(1).min())
+    idx = torch.argsort(bad.to(torch.int8), dim=1, stable=True)[:, :n]
+    return (torch.gather(coords, 1, idx[..., None].expand(-1, -1, 3)),
+            torch.gather(target, 1, idx[..., None].expand(-1, -1, target.shape[2])),
+            coords.shape[1] - n)
+
+
+def kink_slack(params, H, res, coords, target, rel) -> dict:
+    """Per-entry allowances for the train step's gradients (the packed
+    shapes) at the kinks of its loss (``step_kinks``): at a kink a sample's
+    gradient may differ by the flipped unit's path, |dL/da| of the unit
+    (2 / (N D_out) for a residual) through everything below it. The
+    allowance bounds the sum of those differences with one backward pass,
+    in float64, through the network with absolute weights and inputs, a
+    unit's mask counting as open where it is open or at a kink. Training
+    coordinates lie in [0,1], where the corner weights are >= 0. Like the
+    flash check's p_rounding_slack, it widens the limit only where the
+    function has a kink within float32 reach of its inputs."""
+    import torch
+    from repro_torch.kernels.hash_encoding.ref import hash_encode_batched_bwd_ref
+    P, N, _ = coords.shape
+    D_out = target.shape[-1]
+    k = step_kinks(params, H, res, coords, target, rel)
+    ws, acts, masks, kinks = k["ws"], k["acts"], k["masks"], k["kinks"]
+    # dL/da of every hidden layer, the plain version's masks and signs
+    ups, u = [None] * H, (torch.sign(k["diff"]) / (N * D_out)) @ ws[-1].transpose(1, 2)
+    for l in range(H - 1, -1, -1):
+        ups[l] = u
+        u = (u * masks[l]) @ ws[l].transpose(1, 2)
+    # the allowance: the kinks' cotangents backpropagated through |W|
+    c_out = k["res_kink"].to(torch.float64) * (2.0 / (N * D_out))
+    slack_w = [None] * (H + 1)
+    slack_w[H] = acts[H].transpose(1, 2) @ c_out
+    b = c_out @ ws[H].abs().transpose(1, 2)
+    for l in range(H - 1, -1, -1):
+        bz = b * (masks[l] | kinks[l]) + ups[l].abs() * kinks[l]
+        slack_w[l] = acts[l].abs().transpose(1, 2) @ bz
+        b = bz @ ws[l].abs().transpose(1, 2)
+    hid = slack_w[1:H]
+    part = torch.arange(P, device=coords.device)
+    out = {"tab": hash_encode_batched_bwd_ref(b, coords, res, part,
+                                              tuple(params["tab"].shape)),
+           "win": slack_w[0],
+           "whid": (torch.stack(hid, 1) if hid
+                    else torch.zeros_like(params["whid"], dtype=torch.float64)),
+           "wout": slack_w[H]}
+    return {k: v.float() for k, v in out.items()}
+
+
+def sampling_rel(N: int, n_uniform: int, dev):
+    """``step_kinks``' margin per sample for the in-kernel draws: 2^-16 on
+    the uniform rows (bit-exact draws: two float32 evaluations that sum in
+    another order differ by a few ulp of the terms' magnitude), 2^-11 on
+    the boundary rows, whose coordinates come out of logf / cosf a few ulp
+    apart (an ulp of a coordinate moves a fine level's features by its
+    resolution times the table's slope)."""
+    import torch
+    rel = torch.full((1, N, 1), 2.0 ** -16, dtype=torch.float64, device=dev)
+    rel[:, n_uniform:] = 2.0 ** -11
+    return rel
+
+
+def check_step(label, params, H, res, want, slack=None, keys=None,
+               **batch) -> float:
+    """The train-step kernel on ``batch`` against the plain version's
+    (grads, loss sum) ``want``: each gradient within 2e-5 x its largest
+    |entry| (float32 sums in an order that atomics change from run to run;
+    in-kernel draws: uniform rows bit-exact, boundary rows within a few ulp
+    of logf/cosf), plus the ``kink_slack`` allowance where given; the loss
+    sum (continuous at the kinks) within 1e-5 relative. ``keys``: the
+    gradients held (all four by default)."""
+    from repro_torch.kernels.fused_train_step import ops as fts
+    got_g, got_loss = fts.train_step_cuda(params, H, res, **batch)
+    err = 0.0
+    for k in keys or fts.STATE_KEYS:
+        if k == "whid" and H == 1:
+            continue
+        err = max(err, check(f"train_step ({label}) grad {k}", got_g[k],
+                             want[0][k], atol=2e-5 * float(want[0][k].abs().max()),
+                             slack=None if slack is None else slack[k]))
+    check(f"train_step ({label}) loss sum", got_loss, want[1], atol=0.0, rtol=1e-5)
+    return err
+
+
+def step_case_checks(dev, vols_c, tseeds, cfg) -> None:
+    """Phase 2's further train-step cases: every sample in one coarse cell
+    (the warp pre-reduction under contention), PRODUCTION's T=2^16, F=1 (a
+    ragged batch) and F=2, an ABLATION-shaped step (W=64, H=3, L=10, F=8,
+    T=2^19), all on the plan (no level staged: PERF.md), then the staged
+    route at a 16 KB budget (levels 0 and 1): with the bulk reduce-add
+    flush, under contention, and with the row-atomic flush. Each against
+    the plain version; host-sampled on the batch without its kink rows,
+    and drawing in the kernel with the kink allowance, where the batch can
+    be drawn."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.dvnr import ABLATION, PRODUCTION
+    from repro_torch.core.sampling import n_boundary
+    from repro_torch.kernels.fused_train_step import ops as fts
+    from repro_torch.kernels.fused_train_step import ref as fts_ref
+    from repro_torch.kernels.hash_encoding import ops as hops
+
+    rng = np.random.default_rng(5)
+    cases = (
+        ("contention: one coarse cell", cfg, 8, cfg.batch_size, (0.30, 0.31), ()),
+        ("PRODUCTION T=2^16", PRODUCTION, 8, PRODUCTION.batch_size, None, ()),
+        ("F=1, N=40,009", cfg.replace(n_features_per_level=1), 8, 40_009, None, ()),
+        ("F=2", cfg.replace(n_features_per_level=2), 4, cfg.batch_size, None, ()),
+        ("ABLATION W=64 H=3 L=10 F=8 T=2^19", ABLATION, 2, ABLATION.batch_size,
+         None, ()),
+        ("staged, bulk flush (budget 16 KB)", cfg, 8, cfg.batch_size, None, ()),
+        ("staged, contention (budget 16 KB)", cfg, 8, cfg.batch_size,
+         (0.30, 0.31), ()),
+        ("staged, row-atomic flush (budget 16 KB)", cfg, 8, cfg.batch_size, None,
+         (fts, "FLUSH_BULK", False)),
+    )
+    for i, (label, hc, hP, hN, cell, knob) in enumerate(cases):
+        res, H = hc.level_resolutions(), hc.n_hidden_layers
+        params = step_params(hc, hP, dev, seed=100 + i)
+        budget = 16 * 1024 if "16 KB" in label else hops.STEP_STAGE_BUDGET_BYTES
+        with setting(*knob), setting(hops, "STEP_STAGE_BUDGET_BYTES", budget):
+            staged = fts.staged_levels(params, H, res)
+            label = f"{label}, levels {levels_str(staged, len(res))}"
+            if cell is None:
+                n_uni = hN - n_boundary(hN, hc.boundary_lambda)
+                draw = dict(n_batch=hN, n_uniform=n_uni, sigma=hc.boundary_sigma,
+                            ghost=1)
+                coords, target = fts_ref.sample_batch(
+                    vols_c[:hP], tseeds[:hP], n_batch=hN,
+                    boundary_lambda=hc.boundary_lambda, sigma=hc.boundary_sigma,
+                    ghost=1)
+            else:
+                # targets above every prediction: the cotangents share one
+                # sign, so the sums into the cell's rows do not cancel
+                coords = torch.as_tensor(rng.uniform(*cell, (hP, hN, 3)),
+                                         dtype=torch.float32, device=dev)
+                zero = torch.zeros((hP, hN, 1), device=dev)
+                pred = step_kinks(params, H, res, coords, zero, 0.0)["diff"]
+                target = torch.full_like(zero, float(pred.max()) + 1.0)
+            kc, kt, dropped = kink_free_batch(params, H, res, coords, target)
+            # In one cell the 65,536 samples are near-copies: the plain
+            # version's float32 index_add_ adds 65,536 terms into each of 8
+            # rows one after another and is itself ~1e-5 off, so the cell is
+            # held to the same function in float64; and each sample's
+            # float32 rounding in the MLP backward (large where a delta's
+            # dot product cancels) repeats in every sample instead of
+            # averaging out, so the MLP weight gradients miss 2e-5 of their
+            # largest entry in any float32 order. The cell holds what it is
+            # for, the table gradient, and the loss sum (PERF.md).
+            ref_p, ref_c, ref_t = ((params, kc, kt) if cell is None else (
+                {k: v.double() for k, v in params.items()}, kc.double(), kt.double()))
+            check_step(f"{label}, host-sampled, {dropped} kink rows out", params,
+                       H, res, fts_ref.train_step_grads_ref(ref_p, H, res, ref_c, ref_t),
+                       keys=fts.STATE_KEYS if cell is None else ("tab",),
+                       coords=kc, target=kt)
+            if cell is None:
+                slack = kink_slack(params, H, res, coords, target,
+                                   sampling_rel(hN, n_uni, dev))
+                check_step(f"{label}, in-kernel sampling", params, H, res,
+                           fts_ref.train_step_grads_ref(params, H, res, coords,
+                                                        target),
+                           slack, volumes=vols_c[:hP], seeds=tseeds[:hP], **draw)
+        del params, coords, target
+    torch.cuda.synchronize()
+
+
+def fwd_case_checks(dev) -> None:
+    """Phase 2's further hash-encode forward cases: PRODUCTION (T=2^16,
+    levels 8..128) and ABLATION (L=10, F=8, T=2^19) tables, f32 and bf16,
+    coordinates inside and outside [0,1], at the tolerances of the
+    PRODUCTION256 cases."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.dvnr import ABLATION, PRODUCTION
+    from repro_torch.kernels.hash_encoding.ops import fwd_plan, hash_encode_cuda
+    from repro_torch.kernels.hash_encoding.ref import hash_encode_batched_ref
+
+    rng = np.random.default_rng(6)
+    for name, hc, P, B, N in (("PRODUCTION", PRODUCTION, 4, 6, 30_011),
+                              ("ABLATION", ABLATION, 2, 3, 20_011)):
+        res, L = hc.level_resolutions(), hc.n_levels
+        T, F = hc.table_size, hc.n_features_per_level
+        gen = torch.Generator(device=dev).manual_seed(len(name))
+        tables32 = torch.rand((P, L, T, F), generator=gen, device=dev) * 2 - 1
+        part = [int(x) for x in rng.integers(0, P, B)]
+        part_d = torch.tensor(part, device=dev)
+        for lo, hi, where in ((0.0, 1.0, "in [0,1]"), (-0.25, 1.25, "in [-0.25,1.25]")):
+            coords = torch.as_tensor(rng.uniform(lo, hi, (B, N, 3)),
+                                     dtype=torch.float32, device=dev)
+            for dt in (torch.float32, torch.bfloat16):
+                tab = tables32.to(dt)
+                plan = levels_str(fwd_plan(res, T, F, tab.element_size()), L)
+                want = hash_encode_batched_ref(coords, tab, res, part_d)
+                got = hash_encode_cuda(coords, tab, res, part)
+                scale = max(1.0, float(want.float().abs().max()))
+                label = (f"hash_encode {name} {str(dt)[6:]} N={N} coords {where} "
+                         f"(levels {plan})")
+                if dt == torch.float32:
+                    check(label, got, want, atol=2e-6 * scale)
+                else:
+                    check(label, got, want, atol=1e-6 * scale, rtol=2.0 ** -7)
+                del tab, want, got
+        del tables32
+    torch.cuda.synchronize()
 
 
 def dvnr_phases():
@@ -645,6 +939,7 @@ def dvnr_phases():
                                                    fused_mlp_batched_ref)
     from repro_torch.kernels.fused_train_step import ops as fts
     from repro_torch.kernels.fused_train_step import ref as fts_ref
+    from repro_torch.kernels.hash_encoding import ops as hops
     from repro_torch.kernels.hash_encoding.ops import (hash_encode_bwd_cuda,
                                                        hash_encode_cuda)
     from repro_torch.kernels.hash_encoding.ref import (
@@ -679,9 +974,8 @@ def dvnr_phases():
     build.library()
     print(f"  built {sorted(p.name for p in build.CSRC.glob('*.cu'))} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc {build.build_seconds:.1f} s)")
-    for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print("   ", line.strip())
+    for fn, regs, st, ld in ptxas_usage(build.build_log):
+        print(f"    {regs:4d} registers, spill stores {st} B, loads {ld} B  {fn}")
     sass = flash_sass_counts(build.build())
     for fn, c in sorted(sass.items()):
         print(f"  SASS {fn}: {c}")
@@ -709,6 +1003,7 @@ def dvnr_phases():
             else:   # same f32 sums; the final bf16 rounding may flip 1 ulp
                 check(f"hash_encode bf16 N={N} coords {label}", got, want,
                       atol=1e-6 * scale, rtol=2.0 ** -7)
+    fwd_case_checks(dev)
     D_in = L * F
     W = cfg.n_neurons
     for H, D_out, N in ((cfg.n_hidden_layers, cfg.out_dim, CHECK_N[0]),
@@ -813,19 +1108,30 @@ def dvnr_phases():
         check(f"fused_mlp_bwd dW[{i}]", a, b, atol=2e-5 * float(b.abs().max()))
     want_g, want_loss = fts_ref.train_step_grads_ref(tparams, H, res, coords_t,
                                                      target_t)
-    for label, kw in (("host-sampled batch", dict(coords=coords_t, target=target_t)),
-                      ("in-kernel sampling", dict(volumes=vols_c, seeds=tseeds, **draw))):
-        got_g, got_loss = fts.train_step_cuda(tparams, H, res, **kw)
-        # gradients: atomic float32 sums as above; in-kernel draws: uniform
-        # rows bit-exact, boundary rows within a few ulp of logf/cosf
-        for k in fts.STATE_KEYS:
-            if k == "whid" and H == 1:
-                continue
-            e = check(f"train_step ({label}) grad {k}", got_g[k], want_g[k],
-                      atol=2e-5 * float(want_g[k].abs().max()))
-            errs["train_step"] = max(errs.get("train_step", 0.0), e)
-        check(f"train_step ({label}) loss sum", got_loss, want_loss,
-              atol=0.0, rtol=1e-5)
+    slack_t = kink_slack(tparams, H, res, coords_t, target_t,
+                         sampling_rel(Nb, n_uni, dev))
+    kc, kt, dropped = kink_free_batch(tparams, H, res, coords_t, target_t)
+    errs["train_step"] = max(
+        check_step(f"host-sampled batch, {dropped} kink rows out", tparams, H,
+                   res, fts_ref.train_step_grads_ref(tparams, H, res, kc, kt),
+                   coords=kc, target=kt),
+        check_step("in-kernel sampling", tparams, H, res, (want_g, want_loss),
+                   slack_t, volumes=vols_c, seeds=tseeds, **draw))
+    del kc, kt
+    got_g, got_loss = fts.train_step_cuda(tparams, H, res, volumes=vols_c,
+                                          seeds=tseeds, **draw)
+    # the two-launch split (the kernel writes the feature cotangent, the
+    # level-major backward scatters it): the same gradient
+    cot = torch.empty((TP, Nb, L * F), device=dev)
+    split_g, split_loss = fts.train_step_cuda(tparams, H, res, cotangent_out=cot,
+                                              volumes=vols_c, seeds=tseeds, **draw)
+    split_g["tab"] = hash_encode_bwd_cuda(cot, coords_t, res, rows_t, (TP, L, T, F))
+    check("train_step split (cotangent + hash_encode_bwd) grad tab",
+          split_g["tab"], want_g["tab"], atol=2e-5 * float(want_g["tab"].abs().max()),
+          slack=slack_t["tab"])
+    check("train_step split loss sum", split_loss, want_loss, atol=0.0, rtol=1e-5)
+    del cot, split_g, split_loss
+    step_case_checks(dev, vols_c, tseeds, cfg)
     adam = AdamW(_opt_config(cfg, resolve_precision(cfg.precision)))
     sched = fts.schedule_table(torch.zeros(TP, dtype=torch.int32, device=dev),
                                adam.cfg, adam, 1)[0]
@@ -993,6 +1299,10 @@ def dvnr_phases():
                              dtype=torch.float64)
         check(f"first {COMPARE_STEPS} losses: fused vs {label}", head, other,
               atol=0.0, rtol=1e-4)
+    unfused_ms = uinfo["train_time_s"] * 1e3 / COMPARE_STEPS
+    print(f"  unfused kernel path: {unfused_ms:.4f} ms per step over its "
+          f"{COMPARE_STEPS} steps; fused {ms_step:.4f} (host clock, "
+          f"synchronised) [{tag}]")
     del rinfo, uinfo
 
     # ---------------------------------------------------------------- 6
@@ -1063,6 +1373,16 @@ def dvnr_phases():
                         "replaces": REPLACES[name], "launches": launches[name],
                         "max_abs_err": err, "ms": ms, "plain_ms": pms,
                         "bound_ms": bms, "bound_by": by, "library_ms": lms})
+    # the forward's staging budget: which levels a block copies into shared
+    # memory (fwd_plan), at the tick's shapes
+    for b in (0, 16 * 1024, 96 * 1024, 224 * 1024):
+        with setting(hops, "FWD_STAGE_BUDGET_BYTES", b):
+            plan = hops.fwd_plan(res, T, F, 4)
+            ms = cuda_ms(lambda: hash_encode_cuda(coords, sp["tables"], res, rows),
+                         reps=10)
+        print(f"  hash_encode staging budget {b // 1024:3d} KB (levels "
+              f"{levels_str(plan, L)}): {ms:.3f} ms "
+              f"{'(the plan) ' if b == hops.FWD_STAGE_BUDGET_BYTES else ''}[{tag}]")
     del feats, v, rgba, coords, local
 
     # phase-3 shapes: one decode chunk of 2^22 points, one partition
@@ -1219,27 +1539,100 @@ def dvnr_phases():
           f"not on the default path [{tag}]")
     # the backward's levels one by one (one launch each) on the staging plan,
     # and with every level sent the direct route (a budget of 0 bytes)
-    from repro_torch.kernels.hash_encoding import ops as hops
     bwd_call = lambda: hash_encode_bwd_cuda(g_feat, coords_t, res, rows_t,
                                             (TP, L, T, F))
-    budget = hops.STAGE_BUDGET_BYTES
-    for label, b in (("staged (the plan)", budget), ("all direct", 0)):
-        hops.STAGE_BUDGET_BYTES = b
-        try:
+    for label, b in (("staged (the plan)", hops.STAGE_BUDGET_BYTES), ("all direct", 0)):
+        with setting(hops, "STAGE_BUDGET_BYTES", b):
             per = launch_times(bwd_call, "hash_encode_bwd_kernel")
-        finally:
-            hops.STAGE_BUDGET_BYTES = budget
         print(f"  hash_encode_bwd per level, {label}: "
               f"{'not measured' if per is None else [round(x, 4) for x in per]}"
               f"{'' if per is None else f' ms, sum {sum(per):.4f} ms'} (profiler) [{tag}]")
-    req = scatter_requests(coords_t, res, T, F)
-    print(f"  hash_encode_bwd atomic requests per call: {req['global']:,} "
-          f"global (16-byte rows), {req['shared']:,} shared (row compare-and-"
-          f"swap loops); the kernel before this design: {req['before']:,} "
-          f"scalar global [{tag}]")
+    plan = hops.bwd_plan(res, T, F)
+    ppb = (ctypes.c_int * L)()
+    build.library().repro_hash_encode_bwd_points_per_block(
+        ctypes.addressof(hops.levels_arg(res)),
+        ctypes.addressof((ctypes.c_int * L)(*plan)), L, T, ctypes.addressof(ppb))
+    req = scatter_requests(coords_t, res, T, F, plan,
+                           [torch.arange(Nb, device=dev) // n for n in ppb])
+    print(f"  hash_encode_bwd atomic requests per call: "
+          f"{req['direct'] + req['flush_rows']:,} global (16-byte rows), "
+          f"{req['shared']:,} shared (row compare-and-swap loops); the kernel "
+          f"before PR 14: {req['before']:,} scalar global [{tag}]")
+
+    # the train step's plan, its launch shape and its scatter's requests
+    staged = fts.staged_levels(tparams, H, res)
+    shape = (ctypes.c_longlong * 3)()
+    build.check(build.library().repro_train_step_shape(
+        ctypes.addressof(hops.levels_arg(res)), staged, TP, Nb, L, T, F, W, H,
+        D_out, ctypes.addressof(shape)), "repro_train_step_shape")
+    tile, gx, smem = list(shape)
+    mlp_b = fts.mlp_tile_bytes(D_in, W, H, D_out)
+    slab_b = [hops.level_rows(r, T) * F * 4 for r in res]
+    print(f"  train_step plan: levels {levels_str(staged, L)} (s staged, d "
+          f"direct; slabs {slab_b} B, budget {hops.STEP_STAGE_BUDGET_BYTES} B "
+          f"beside the {mlp_b} B MLP tile); {tile} threads x {gx} blocks per "
+          f"partition, {smem} B shared memory per block; flush "
+          f"{'bulk reduce-add' if fts.FLUSH_BULK else 'row atomics'}")
+    req = scatter_requests(coords_t, res, T, F,
+                           [bool(staged >> l & 1) for l in range(L)],
+                           [(torch.arange(Nb, device=dev) // tile) % gx] * L)
+    n_staged = bin(staged).count("1")
+    print(f"  train_step scatter requests per step: {req['direct']:,} global "
+          f"16-byte adds (direct levels), {req['shared']:,} shared row updates, "
+          f"then per block either {n_staged} bulk reduce-adds "
+          f"({TP * gx * n_staged:,} per step) or {req['flush_rows']:,} row "
+          f"atomics per step; the kernel before this design: "
+          f"{req['before']:,} scalar global atomics [{tag}]")
+    # the staging budget and the flush, on the main path's variant
+    step_call = lambda: fts.train_step_cuda(tparams, H, res, **sample_kw)
+    for b in (0, 16 * 1024, 96 * 1024):
+        for bulk in (True, False):
+            with setting(hops, "STEP_STAGE_BUDGET_BYTES", b), \
+                    setting(fts, "FLUSH_BULK", bulk):
+                plan_b = fts.staged_levels(tparams, H, res)
+                if bulk and not plan_b:
+                    continue   # nothing to flush: one row for both
+                ms = cuda_ms(step_call, reps=20)
+                per = launch_times(step_call, "train_step_kernel")
+            flush = ("bulk" if bulk else "rows") if plan_b else "none"
+            print(f"  train_step budget {b // 1024:3d} KB (levels "
+                  f"{levels_str(plan_b, L)}), flush {flush}: {ms:.4f} ms (events), kernel "
+                  f"alone {'not measured' if per is None else f'{per[0]:.4f} ms'}"
+                  f" (profiler) [{tag}]")
+    # the yardstick split: the kernel writes the feature cotangent (its
+    # scatter replaced by a 42 MB store), the level-major backward scatters it
+    cot = torch.empty((TP, Nb, L * F), device=dev)
+    cot_call = lambda: fts.train_step_cuda(tparams, H, res, cotangent_out=cot,
+                                           **sample_kw)
+
+    def split_call():
+        cot_call()
+        return hash_encode_bwd_cuda(cot, coords_t, res, rows_t, (TP, L, T, F))
+
+    ms_fused = cuda_ms(step_call, reps=20)
+    ms_split = cuda_ms(split_call, reps=20)
+    ms_cot = cuda_ms(cot_call, reps=20)
+    per_cot = launch_times(cot_call, "train_step_kernel")
+    print(f"  train_step fused {ms_fused:.4f} ms; the split (kernel writing the "
+          f"feature cotangent + hash_encode_bwd) {ms_split:.4f} ms; the kernel "
+          f"without its scatter (writing the cotangent) {ms_cot:.4f} ms, alone "
+          f"{'not measured' if per_cot is None else f'{per_cot[0]:.4f} ms'} "
+          f"(events; profiler) [{tag}]")
+    del cot
+    # AdamW with the L2 flushed before each launch, as a step finds its
+    # 36.8 MB of state after the train step's kernel
+    flush = torch.empty(64 << 20, device=dev)   # 256 MB, 5x the L2
+    pk, mk, vk = adam_state()
+    cold = lambda: fts.adamw_apply_cuda(pk, mk, vk, got_g, sched, got_loss,
+                                        n_valid=Nb, **adam_kw)
+    _, dev_cold, _ = profile_tick(lambda: [(flush.zero_(), cold()) for _ in range(5)])
+    kc = [t / n for key, (t, n) in dev_cold if "adamw_kernel" in key]
+    print(f"  adamw_apply with the L2 flushed before each launch: kernel alone "
+          f"{f'{kc[0]:.4f} ms' if kc else 'not measured'} (profiler) [{tag}]")
+    del flush
     print(f"  train step bytes: {n_vox} distinct volume voxels read, tables "
           f"and MLP {TP * (L * T * F + n_w) * 4} B read and their gradients "
-          f"written; {TP * Nb * L * 8 * F} table-gradient atomic adds per step")
+          f"written [{tag}]")
     del flat_idx, flat_val, scatter_buf
 
     # where a training chunk's time goes: PROFILE_STEPS more steps

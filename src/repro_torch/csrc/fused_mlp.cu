@@ -60,7 +60,7 @@ __global__ void fused_mlp_fwd_kernel(const T* __restrict__ x,
                                      const int* __restrict__ part,
                                      T* __restrict__ out, long long N, int D_in,
                                      int n_hidden, int n_hid_slab, int D_out) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.y;
   const long long p = __ldg(part + b);
   const int n_in = D_in * W, n_hid = (n_hidden - 1) * W * W, n_out = W * D_out;
@@ -170,7 +170,7 @@ __global__ void fused_mlp_bwd_kernel(const float* __restrict__ x,
                                      float* __restrict__ dw_out, long long N,
                                      int D_in, int n_hidden, int n_hid_slab,
                                      int D_out) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.y;
   const long long p = __ldg(part + b);
   const repro::MlpTile t =
@@ -191,9 +191,10 @@ __global__ void fused_mlp_bwd_kernel(const float* __restrict__ x,
     for (int d = 0; d < D_out; ++d)
       t.g[r * t.sg + d] = valid ? gout[row * D_out + d] : 0.0f;
     repro::mlp_tile_forward<W>(t, r);
-    repro::mlp_tile_backward<W>(t, r);
+    float d0[W];
+    repro::mlp_tile_backward<W>(t, r, d0);
     if (valid)
-      for (int i = 0; i < D_in; ++i) dx[row * D_in + i] = repro::mlp_tile_dx<W>(t, r, i);
+      for (int i = 0; i < D_in; ++i) dx[row * D_in + i] = repro::mlp_tile_dx<W>(t, d0, i);
     __syncthreads();
     repro::mlp_tile_accumulate<W>(t, blockDim.x);
     __syncthreads();

@@ -9,17 +9,29 @@
 // product would wrap for res >= 1291); hashed levels multiply by 1,
 // 2654435761 and 805459861 with uint32 wraparound and take the xor mod T.
 //
-// The corner scatter of the backward (the table-gradient adds) is here too:
+// The corner gather of the forward is here: each corner's row is read as one
+// vector load (float4 for 4 float32 features, two for 8, float2 for 2; 8
+// bytes for 4 bfloat16 features, 16 for 8), from device memory through the
+// read-only path or from a level staged in shared memory, and blended in
+// float32 with the weight rounded to the table type.
+//
+// So is the corner scatter of the backward (the table-gradient adds):
 // lanes of a warp that hit the same row are summed first (__match_any_sync
 // groups, a tree of shuffles inside each group), and each group's leader
 // adds the row once, into a shared-memory slab (one 128-bit compare-and-
 // swap per 4 features: the card has no shared float atomic add) or straight
 // into the device gradient (one 16-byte atomicAdd per row of 4 features:
 // float2 for F=2, two float4 for F=8, a scalar for F=1).
+//
+// A staged level's table or gradient slab takes level_rows x the row's bytes
+// of shared memory, rounded up to 16 (stage_bytes), in level order: the
+// kernels and the wrappers' plans (hash_encoding/ops.py) share that rule.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "common.cuh"
 
 namespace repro {
 
@@ -41,6 +53,13 @@ __host__ __device__ __forceinline__ bool level_dense(int res, long long T) {
 __host__ __device__ __forceinline__ long long level_rows(int res, long long T) {
   const long long r1 = (long long)res + 1;
   return level_dense(res, T) ? r1 * r1 * r1 : T;
+}
+
+// shared-memory bytes of a staged level: its rows of `row_bytes`, rounded
+// up to 16 so that the next level's slab starts 16-byte aligned
+__host__ __device__ __forceinline__ long long stage_bytes(int res, long long T,
+                                                          int row_bytes) {
+  return (level_rows(res, T) * row_bytes + 15) / 16 * 16;
 }
 
 __device__ __forceinline__ LevelGeom level_geom(const float c[3], int res,
@@ -74,6 +93,103 @@ __device__ __forceinline__ float corner_weight(const LevelGeom& g, int dx,
                                                int dy, int dz) {
   return (dx ? g.w[0] : 1.0f - g.w[0]) * (dy ? g.w[1] : 1.0f - g.w[1]) *
          (dz ? g.w[2] : 1.0f - g.w[2]);
+}
+
+// One table row of F values in T (float or bfloat16) as 32-bit words:
+// one vector load of F * sizeof(T) bytes (a bf16 row of 1 is 2 bytes),
+// through the read-only path when LDG (device memory), else a plain load
+// (shared memory). The row must be aligned to its size.
+template <typename T, int F, bool LDG>
+__device__ __forceinline__ void load_row(const T* row, float (&v)[F]) {
+  constexpr int BYTES = F * (int)sizeof(T);
+  if constexpr (BYTES == 2) {
+    const unsigned short* p = reinterpret_cast<const unsigned short*>(row);
+    v[0] = __uint_as_float((unsigned)(LDG ? __ldg(p) : *p) << 16);
+    return;
+  } else {
+    constexpr int WORDS = BYTES / 4;
+    unsigned u[WORDS];
+    if constexpr (WORDS == 1) {
+      const unsigned* p = reinterpret_cast<const unsigned*>(row);
+      u[0] = LDG ? __ldg(p) : *p;
+    } else if constexpr (WORDS == 2) {
+      const uint2* p = reinterpret_cast<const uint2*>(row);
+      const uint2 q = LDG ? __ldg(p) : *p;
+      u[0] = q.x; u[1] = q.y;
+    } else {
+      const uint4* p = reinterpret_cast<const uint4*>(row);
+#pragma unroll
+      for (int k = 0; k < WORDS / 4; ++k) {
+        const uint4 q = LDG ? __ldg(p + k) : p[k];
+        u[4 * k] = q.x; u[4 * k + 1] = q.y; u[4 * k + 2] = q.z; u[4 * k + 3] = q.w;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < WORDS; ++k) {
+      if constexpr (sizeof(T) == 4) {
+        v[k] = __uint_as_float(u[k]);
+      } else {   // two bfloat16 per word, the lower address in the low half
+        v[2 * k] = __uint_as_float(u[k] << 16);
+        v[2 * k + 1] = __uint_as_float(u[k] & 0xffff0000u);
+      }
+    }
+  }
+}
+
+// row[0..F) = v rounded to T, as one vector store
+template <typename T, int F>
+__device__ __forceinline__ void store_row(T* row, const float (&v)[F]) {
+  constexpr int BYTES = F * (int)sizeof(T);
+  if constexpr (BYTES == 2) {
+    row[0] = from_f32<T>(v[0]);
+  } else {
+    constexpr int WORDS = BYTES / 4;
+    unsigned u[WORDS];
+#pragma unroll
+    for (int k = 0; k < WORDS; ++k) {
+      if constexpr (sizeof(T) == 4) {
+        u[k] = __float_as_uint(v[k]);
+      } else {
+        const __nv_bfloat162 h = __floats2bfloat162_rn(v[2 * k], v[2 * k + 1]);
+        u[k] = *reinterpret_cast<const unsigned*>(&h);
+      }
+    }
+    if constexpr (WORDS == 1) {
+      *reinterpret_cast<unsigned*>(row) = u[0];
+    } else if constexpr (WORDS == 2) {
+      *reinterpret_cast<uint2*>(row) = make_uint2(u[0], u[1]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < WORDS / 4; ++k)
+        reinterpret_cast<uint4*>(row)[k] =
+            make_uint4(u[4 * k], u[4 * k + 1], u[4 * k + 2], u[4 * k + 3]);
+    }
+  }
+}
+
+// The forward's blend at one level: acc = sum over the 8 corners of
+// weight x row, in float32, each weight rounded to the table type; `table`
+// is the level's (T, F) table in device memory (LDG) or its staged rows in
+// shared memory.
+template <typename T, int F, bool LDG>
+__device__ __forceinline__ void gather_corners(const LevelGeom& g, const T* table,
+                                               float (&acc)[F]) {
+#pragma unroll
+  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+#pragma unroll
+  for (int dx = 0; dx < 2; ++dx) {
+#pragma unroll
+    for (int dy = 0; dy < 2; ++dy) {
+#pragma unroll
+      for (int dz = 0; dz < 2; ++dz) {
+        const float ww = round_to<T>(corner_weight(g, dx, dy, dz));
+        float v[F];
+        load_row<T, F, LDG>(table + (size_t)corner_index(g, dx, dy, dz) * F, v);
+#pragma unroll
+        for (int f = 0; f < F; ++f) acc[f] += ww * v[f];
+      }
+    }
+  }
 }
 
 // Sum, over the lanes of a warp that hold the same key, their F values

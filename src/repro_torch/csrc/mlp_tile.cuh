@@ -19,6 +19,13 @@
 // threads share a row and touch consecutive columns. Neither pass has bank
 // conflicts.
 //
+// The per-row passes read each weight row as float4 broadcasts (every lane
+// of a warp reads the same weights; the weight blocks start 16-byte
+// aligned: W is a multiple of 4, and so is every block's offset) and keep
+// the deltas they consume in registers: the layer above's while a hidden
+// layer's deltas are formed, the first layer's while the input cotangent
+// is formed. The sums run in the same order as a plain loop over j.
+//
 // The weight gradient of a tile is a sum over its rows. The TPU kernels
 // accumulate it with `+=` across an in-order grid; here each thread owns
 // weights i = tid, tid + TILE, ... and sums their products over the tile's
@@ -85,6 +92,36 @@ __device__ __forceinline__ void mlp_tile_load(const MlpTile& t,
 
 __device__ __forceinline__ float relu(float v) { return v < 0.0f ? 0.0f : v; }
 
+// acc[j] += s * w[j], j ascending; w a 16-byte aligned row of W weights
+template <int W>
+__device__ __forceinline__ void fma_row(float (&acc)[W], float s, const float* w) {
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+#pragma unroll
+  for (int j = 0; j < W / 4; ++j) {
+    const float4 q = w4[j];
+    acc[4 * j] += s * q.x;
+    acc[4 * j + 1] += s * q.y;
+    acc[4 * j + 2] += s * q.z;
+    acc[4 * j + 3] += s * q.w;
+  }
+}
+
+// sum over j ascending of v[j] * w[j]; w a 16-byte aligned row of W weights
+template <int W>
+__device__ __forceinline__ float dot_row(const float (&v)[W], const float* w) {
+  const float4* w4 = reinterpret_cast<const float4*>(w);
+  float s = 0.0f;
+#pragma unroll
+  for (int j = 0; j < W / 4; ++j) {
+    const float4 q = w4[j];
+    s += v[4 * j] * q.x;
+    s += v[4 * j + 1] * q.y;
+    s += v[4 * j + 2] * q.z;
+    s += v[4 * j + 3] * q.w;
+  }
+  return s;
+}
+
 // thread-local: row r's activations from its x row (act[l][r] for every
 // layer); returns nothing, the output is mlp_tile_out
 template <int W>
@@ -94,12 +131,7 @@ __device__ __forceinline__ void mlp_tile_forward(const MlpTile& t, int r) {
   float acc[W];
 #pragma unroll
   for (int j = 0; j < W; ++j) acc[j] = 0.0f;
-  for (int k = 0; k < t.D_in; ++k) {
-    const float xk = xr[k];
-    const float* wk = t.w + k * W;
-#pragma unroll
-    for (int j = 0; j < W; ++j) acc[j] += xk * wk[j];
-  }
+  for (int k = 0; k < t.D_in; ++k) fma_row<W>(acc, xr[k], t.w + k * W);
   float* a = t.act + r * t.sw;
 #pragma unroll
   for (int j = 0; j < W; ++j) a[j] = relu(acc[j]);
@@ -110,12 +142,7 @@ __device__ __forceinline__ void mlp_tile_forward(const MlpTile& t, int r) {
 #pragma unroll
     for (int j = 0; j < W; ++j) acc[j] = 0.0f;
 #pragma unroll 1
-    for (int k = 0; k < W; ++k) {
-      const float hk = in[k];
-      const float* wk = wl + k * W;
-#pragma unroll
-      for (int j = 0; j < W; ++j) acc[j] += hk * wk[j];
-    }
+    for (int k = 0; k < W; ++k) fma_row<W>(acc, in[k], wl + k * W);
 #pragma unroll
     for (int j = 0; j < W; ++j) out[j] = relu(acc[j]);
   }
@@ -132,11 +159,19 @@ __device__ __forceinline__ float mlp_tile_out(const MlpTile& t, int r, int d) {
   return s;
 }
 
+// row r's W values of a per-row array into registers
+template <int W>
+__device__ __forceinline__ void load_w(const float* row, float (&v)[W]) {
+#pragma unroll
+  for (int j = 0; j < W; ++j) v[j] = row[j];
+}
+
 // thread-local: row r's deltas from its output cotangent g[r] (ReLU masks
 // from the recomputed activations: a unit passes its cotangent where its
-// output is > 0)
+// output is > 0); d0 gets the first layer's deltas, for mlp_tile_dx
 template <int W>
-__device__ __forceinline__ void mlp_tile_backward(const MlpTile& t, int r) {
+__device__ __forceinline__ void mlp_tile_backward(const MlpTile& t, int r,
+                                                  float (&d0)[W]) {
   const int tile = blockDim.x;
   const float* gr = t.g + r * t.sg;
   const float* wo = t.w + t.n_in + t.n_hid;
@@ -147,34 +182,29 @@ __device__ __forceinline__ void mlp_tile_backward(const MlpTile& t, int r) {
     for (int j = 0; j < W; ++j) {
       float s = 0.0f;
       for (int d = 0; d < t.D_out; ++d) s += gr[d] * wo[j * t.D_out + d];
-      dl[j] = a[j] > 0.0f ? s : 0.0f;
+      d0[j] = a[j] > 0.0f ? s : 0.0f;
+      dl[j] = d0[j];
     }
   }
   for (int l = t.H - 2; l >= 0; --l) {
     const float* a = t.act + (l * tile + r) * t.sw;
-    const float* up = t.dl + ((l + 1) * tile + r) * t.sw;
     float* dl = t.dl + (l * tile + r) * t.sw;
     const float* wl = t.w + t.n_in + l * W * W;
 #pragma unroll 1
     for (int k = 0; k < W; ++k) {
-      const float* wk = wl + k * W;
-      float s = 0.0f;
-#pragma unroll
-      for (int j = 0; j < W; ++j) s += up[j] * wk[j];
+      const float s = dot_row<W>(d0, wl + k * W);   // d0: the layer above's
       dl[k] = a[k] > 0.0f ? s : 0.0f;
     }
+    load_w<W>(dl, d0);
   }
 }
 
-// thread-local: cotangent of input feature i of row r (after backward)
+// thread-local: cotangent of input feature i, from the first layer's
+// deltas d0 of mlp_tile_backward
 template <int W>
-__device__ __forceinline__ float mlp_tile_dx(const MlpTile& t, int r, int i) {
-  const float* d0 = t.dl + r * t.sw;
-  const float* wi = t.w + i * W;
-  float s = 0.0f;
-#pragma unroll
-  for (int j = 0; j < W; ++j) s += d0[j] * wi[j];
-  return s;
+__device__ __forceinline__ float mlp_tile_dx(const MlpTile& t, const float (&d0)[W],
+                                             int i) {
+  return dot_row<W>(d0, t.w + i * W);
 }
 
 // block-wide (call after a __syncthreads() that follows every row's

@@ -30,36 +30,46 @@
 //      with dz fastest), with explicitly rounded products and sums so the
 //      build's FMA contraction cannot change the draws: uniform rows are
 //      bit-exact against the plain version;
-//   2. the L-level hash encode (hash_grid.cuh) into the row's shared x;
+//   2. the L-level hash encode into the row's shared x: hash_grid.cuh's
+//      corner gather, one vector load per corner row;
 //   3. the MLP forward, 4. the cotangent sign(pred - target) / (N D_out)
 //      of rows < N (rows past the batch carry 0: the ragged edge is masked
 //      here, as kernel.py:191-196 masks its padding), and the per-thread
 //      |diff| sum for the loss, 5. the MLP backward (mlp_tile.cuh), with
 //      the tile's dW summed over its rows in shared memory;
-//   6. the 8-corner table scatter of the feature cotangent: 8 L F atomic
-//      adds per sample into the float32 gradient the wrapper zeroed.
-// After its last tile a block adds its dW (one atomicAdd per weight) and its
-// loss sum (one atomicAdd) to device memory. AdamW waits for the kernel's
-// end: the grid-wide dependency is the launch boundary.
+//   6. the 8-corner table scatter of the feature cotangent, hash_grid.cuh's
+//      scatter_corners: lanes of a warp that hit one row are summed first,
+//      and each group's leader adds the row once, either into the level's
+//      gradient slab in shared memory (staged levels: the wrapper's bitmask
+//      from step_plan, the smallest slabs first within a budget beside the
+//      MLP tile; the block zeroes them at its start) or straight into the
+//      float32 device gradient as one 16-byte atomic per row (the others).
+// After its last tile a block adds its dW (one atomicAdd per weight), its
+// loss sum (one atomicAdd) and its staged slabs to device memory: one bulk
+// reduce-add per slab (cp.reduce.async.bulk .add.f32), or, with flush_bulk
+// 0, one 16-byte atomic per nonzero row. AdamW waits for the kernel's end:
+// the grid-wide dependency is the launch boundary. With g_feat given, the
+// kernel stores the feature cotangent there instead of scattering it (the
+// two-launch split with the level-major hash_encode_bwd, a yardstick).
 //
-// Bound: the table scatter's atomics. Per PRODUCTION256 step (8 partitions
-// x 65,536 samples, L=5, F=4) the scatter is 84M float32 atomic adds, the
-// float work about 2.3 GFLOP (35 us at the f32 peak) and the bytes about
-// 27 MB (the ~4M distinct voxels a batch's corners touch, the tables read
-// and their gradients written: 8 us). Three of the five levels are dense
-// with 125 to 4,913 rows, so their adds pile onto a few thousand addresses,
-// and each lane sends its F features as F scattered atomic instructions.
-// This first version leaves both in place and measures them (PERF.md).
+// Bound: the table scatter's atomic requests. Per PRODUCTION256 step (8
+// partitions x 65,536 samples, L=5, F=4) the float work is about 2.3 GFLOP
+// (35 us at the f32 peak) and the bytes about 27 MB (8 us); the scatter is
+// 21M corner adds, of which three dense levels of 125 to 4,913 rows take
+// 12.6M onto a few thousand addresses. The warp pre-reduction and the
+// staged coarse slabs take those off the device memory's atomic units; the
+// hashed levels' adds stay 16-byte atomics, a few million per step.
 #include <stdint.h>
 
 #include "common.cuh"
 #include "hash_grid.cuh"
+#include "hopper.cuh"
 #include "mlp_tile.cuh"
 
 namespace {
 
-constexpr int F_MAX = 8;
 constexpr int C_MAX = 4;
+constexpr int MAX_LEVELS = 32;
 
 struct StepArgs {
   const float* coords;        // (P,N,3)        plain mode
@@ -68,10 +78,13 @@ struct StepArgs {
   const long long* seeds;     // (P,2) uint32 words in int64, sampling mode
   const float *tab, *win, *whid, *wout;
   float *g_tab, *g_win, *g_whid, *g_wout, *loss_sum;
-  const int* res;
+  float* g_feat;              // (P,N,L*F) or null: see the header
   long long N, T, nx, ny, nz, n_uniform;
-  int L, F, D_in, n_hidden, n_hid_slab, D_out, ghost;
+  long long staged;           // bit l: level l's gradient slab is staged
+  int L, D_in, n_hidden, n_hid_slab, D_out, ghost, flush_bulk;
+  int slab_off;               // floats of shared memory before the slabs
   float sigma;
+  int res[MAX_LEVELS];
 };
 
 __device__ __forceinline__ uint32_t rotl32(uint32_t x, int d) {
@@ -162,20 +175,74 @@ __device__ __forceinline__ void gather_trilinear(const float* __restrict__ vol,
       }
 }
 
-template <int W, bool SAMPLING>
+// After the block's last tile and a __syncthreads(): the staged slabs (in
+// level order, stage_bytes apart) into the partition's device gradient.
+template <int F>
+__device__ void flush_slabs(const StepArgs& a, const float* slabs, float* gtab) {
+  const long long T = a.T;
+  if (a.flush_bulk) {
+    // thread k sends the k-th staged slab: its 16-byte multiple as one bulk
+    // reduce-add, the < 4 floats left as scalar atomics
+    repro::hopper::fence_proxy_async_shared();
+    __syncthreads();
+    int k = 0;
+    long long off = 0;
+    for (int l = 0; l < a.L; ++l) {
+      if (!((a.staged >> l) & 1)) continue;
+      if ((int)threadIdx.x == k) {
+        const long long n = repro::level_rows(a.res[l], T) * F;
+        float* dst = gtab + (long long)l * T * F;
+        const long long body = n & ~3LL;
+        if (body) repro::hopper::bulk_reduce_add_f32(dst, slabs + off, (unsigned)(body * 4));
+        for (long long i = body; i < n; ++i) atomicAdd(dst + i, slabs[off + i]);
+      }
+      off += repro::stage_bytes(a.res[l], T, F * 4) / 4;
+      ++k;
+    }
+    if ((int)threadIdx.x < k) repro::hopper::bulk_commit_and_wait_read();
+  } else {
+    long long off = 0;
+    for (int l = 0; l < a.L; ++l) {
+      if (!((a.staged >> l) & 1)) continue;
+      const long long rows = repro::level_rows(a.res[l], T);
+      float* dst = gtab + (long long)l * T * F;
+      for (long long row = threadIdx.x; row < rows; row += blockDim.x) {
+        float v[F];
+        bool any = false;
+#pragma unroll
+        for (int f = 0; f < F; ++f) {
+          v[f] = slabs[off + row * F + f];
+          any |= v[f] != 0.0f;
+        }
+        if (any) repro::atomic_add_row<F>(dst + row * F, v);
+      }
+      off += repro::stage_bytes(a.res[l], T, F * 4) / 4;
+    }
+  }
+}
+
+template <int W, int F, bool SAMPLING>
 __global__ void train_step_kernel(const StepArgs a) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int p = blockIdx.y;
   const int tile = blockDim.x, r = threadIdx.x;
   const repro::MlpTile t =
       repro::mlp_tile_carve(smem, a.D_in, W, a.n_hidden, a.D_out, tile);
   float* red = smem + repro::mlp_tile_floats(a.D_in, W, a.n_hidden, a.D_out, tile);
+  float* slabs = smem + a.slab_off;
+  const int L = a.L;
+  const long long T = a.T;
+  const bool scatter = a.g_feat == nullptr;
+  if (scatter && a.staged) {
+    long long n = 0;
+    for (int l = 0; l < L; ++l)
+      if ((a.staged >> l) & 1) n += repro::stage_bytes(a.res[l], T, F * 4) / 4;
+    for (long long i = r; i < n; i += tile) slabs[i] = 0.0f;
+  }
   const long long hid_off = (long long)p * a.n_hid_slab * W * W;
   repro::mlp_tile_load(t, a.win + (long long)p * t.n_in, a.whid + hid_off,
-                       a.wout + (long long)p * t.n_out);
+                       a.wout + (long long)p * t.n_out);   // ends with a sync
 
-  const int L = a.L, F = a.F;
-  const long long T = a.T;
   const float* tab = a.tab + (long long)p * L * T * F;
   float* gtab = a.g_tab + (long long)p * L * T * F;
   const float nd = (float)(a.N * a.D_out);
@@ -188,6 +255,8 @@ __global__ void train_step_kernel(const StepArgs a) {
   }
   float loss_part = 0.0f;
   const long long n_tiles = (a.N + tile - 1) / tile;
+  // whole block strides, so that every lane of a warp reaches the warp-wide
+  // pre-reduction of the scatter; rows past N carry no sample
   for (long long ti = blockIdx.x; ti < n_tiles; ti += gridDim.x) {
     const long long row = ti * tile + r;
     const bool valid = row < a.N;
@@ -205,26 +274,11 @@ __global__ void train_step_kernel(const StepArgs a) {
     // encode: every level's F features into this row of x
     float* xr = t.x + r * t.sx;
     for (int l = 0; l < L; ++l) {
-      const repro::LevelGeom geo = repro::level_geom(c, __ldg(a.res + l), T);
-      const float* tl = tab + (long long)l * T * F;
-      float acc[F_MAX];
+      const repro::LevelGeom geo = repro::level_geom(c, a.res[l], T);
+      float acc[F];
+      repro::gather_corners<float, F, true>(geo, tab + (long long)l * T * F, acc);
 #pragma unroll
-      for (int f = 0; f < F_MAX; ++f) acc[f] = 0.0f;
-#pragma unroll
-      for (int dx = 0; dx < 2; ++dx)
-#pragma unroll
-        for (int dy = 0; dy < 2; ++dy)
-#pragma unroll
-          for (int dz = 0; dz < 2; ++dz) {
-            const float ww = repro::corner_weight(geo, dx, dy, dz);
-            const float* tr = tl + (long long)repro::corner_index(geo, dx, dy, dz) * F;
-#pragma unroll
-            for (int f = 0; f < F_MAX; ++f)
-              if (f < F) acc[f] += ww * tr[f];
-          }
-#pragma unroll
-      for (int f = 0; f < F_MAX; ++f)
-        if (f < F) xr[l * F + f] = acc[f];
+      for (int f = 0; f < F; ++f) xr[l * F + f] = acc[f];
     }
     repro::mlp_tile_forward<W>(t, r);
     // masked L1: loss sum and cotangent sign(diff) / (N * D_out)
@@ -238,28 +292,28 @@ __global__ void train_step_kernel(const StepArgs a) {
       }
       t.g[r * t.sg + d] = g;
     }
-    repro::mlp_tile_backward<W>(t, r);
+    float d0[W];
+    repro::mlp_tile_backward<W>(t, r, d0);
     // hash-encode backward: the feature cotangent into the tables' gradient
-    if (valid) {
-      for (int l = 0; l < L; ++l) {
-        float df[F_MAX];
+    float* slab = slabs;
+    for (int l = 0; l < L; ++l) {
+      float df[F];
 #pragma unroll
-        for (int f = 0; f < F_MAX; ++f)
-          df[f] = f < F ? repro::mlp_tile_dx<W>(t, r, l * F + f) : 0.0f;
-        const repro::LevelGeom geo = repro::level_geom(c, __ldg(a.res + l), T);
-        float* gl = gtab + (long long)l * T * F;
+      for (int f = 0; f < F; ++f) df[f] = repro::mlp_tile_dx<W>(t, d0, l * F + f);
+      if (!scatter) {
+        if (valid) {
+          float* o = a.g_feat + ((long long)p * a.N + row) * a.D_in + l * F;
 #pragma unroll
-        for (int dx = 0; dx < 2; ++dx)
-#pragma unroll
-          for (int dy = 0; dy < 2; ++dy)
-#pragma unroll
-            for (int dz = 0; dz < 2; ++dz) {
-              const float ww = repro::corner_weight(geo, dx, dy, dz);
-              float* gr = gl + (long long)repro::corner_index(geo, dx, dy, dz) * F;
-#pragma unroll
-              for (int f = 0; f < F_MAX; ++f)
-                if (f < F) atomicAdd(gr + f, ww * df[f]);
-            }
+          for (int f = 0; f < F; ++f) o[f] = df[f];
+        }
+        continue;
+      }
+      const repro::LevelGeom geo = repro::level_geom(c, a.res[l], T);
+      if ((a.staged >> l) & 1) {
+        repro::scatter_corners<F, true>(geo, df, valid, slab);
+        slab += repro::stage_bytes(a.res[l], T, F * 4) / 4;
+      } else {
+        repro::scatter_corners<F, false>(geo, df, valid, gtab + (long long)l * T * F);
       }
     }
     __syncthreads();
@@ -278,24 +332,64 @@ __global__ void train_step_kernel(const StepArgs a) {
   }
   repro::mlp_tile_flush(t, a.g_win + (long long)p * t.n_in, a.g_whid + hid_off,
                         a.g_wout + (long long)p * t.n_out);
+  if (scatter && a.staged) flush_slabs<F>(a, slabs, gtab);
+}
+
+// The launch's shape: threads per block (the MLP tile's rows), the float
+// offset of the staged slabs (the MLP tile and one float per row for the
+// loss reduction, rounded up to 16 bytes), the shared memory in all, and
+// the blocks per partition. False if no tile fits.
+struct StepShape {
+  int tile, slab_off;
+  size_t smem;
+  long long blocks;
+};
+
+bool step_shape(const int* res, int L, long long T, int F, int W, int n_hidden,
+                int D_out, long long staged, long long N, long long P,
+                StepShape* s) {
+  size_t mlp = 0;
+  // one extra float per row holds the loss reduction's per-warp sums
+  s->tile = repro::mlp_pick_tile(L * F, W, n_hidden, D_out, 1, &mlp);
+  if (s->tile == 0) return false;
+  s->slab_off = (int)((mlp / 4 + 3) / 4 * 4);
+  long long slab = 0;
+  for (int l = 0; l < L; ++l)
+    if ((staged >> l) & 1) slab += repro::stage_bytes(res[l], T, F * 4);
+  s->smem = (size_t)s->slab_off * 4 + (size_t)slab;
+  if (s->smem > 232448) return false;
+  const long long n_tiles = (N + s->tile - 1) / s->tile;
+  s->blocks = repro::blocks_per_row(n_tiles, P, s->tile, s->smem);
+  return true;
+}
+
+template <int W, int F>
+cudaError_t launch_wf(const StepArgs& a, const StepShape& sh, long long P,
+                      bool sampling, cudaStream_t stream) {
+  void (*kernel)(const StepArgs) =
+      sampling ? &train_step_kernel<W, F, true> : &train_step_kernel<W, F, false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh.smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<dim3((unsigned)sh.blocks, (unsigned)P), sh.tile, sh.smem, stream>>>(a);
+  return cudaGetLastError();
 }
 
 template <int W>
-cudaError_t launch_w(const StepArgs& a, long long P, bool sampling,
-                     cudaStream_t stream) {
-  size_t smem = 0;
-  // one extra float per row holds the loss reduction's per-warp sums
-  const int tile = repro::mlp_pick_tile(a.D_in, W, a.n_hidden, a.D_out, 1, &smem);
-  if (tile == 0) return cudaErrorInvalidValue;
-  void (*kernel)(const StepArgs) =
-      sampling ? &train_step_kernel<W, true> : &train_step_kernel<W, false>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const long long n_tiles = (a.N + tile - 1) / tile;
-  const dim3 grid((unsigned)repro::blocks_per_row(n_tiles, P, tile, smem), (unsigned)P);
-  kernel<<<grid, tile, smem, stream>>>(a);
-  return cudaGetLastError();
+cudaError_t launch_w(const StepArgs& a, const StepShape& sh, long long P, int F,
+                     bool sampling, cudaStream_t stream) {
+  switch (F) {
+    case 1: return launch_wf<W, 1>(a, sh, P, sampling, stream);
+    case 2: return launch_wf<W, 2>(a, sh, P, sampling, stream);
+    case 4: return launch_wf<W, 4>(a, sh, P, sampling, stream);
+    case 8: return launch_wf<W, 8>(a, sh, P, sampling, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+bool valid_levels(int L, int F, long long T, long long staged) {
+  return L >= 1 && L <= MAX_LEVELS && (staged >> L) == 0 &&
+         (staged == 0 || (T * F) % 4 == 0) && (F == 1 || F == 2 || F == 4 || F == 8);
 }
 
 }  // namespace
@@ -303,24 +397,36 @@ cudaError_t launch_w(const StepArgs& a, long long P, bool sampling,
 // Plain mode (sampling = 0): coords (P,N,3), target (P,N,D_out).
 // Sampling mode: volumes (P,nx,ny,nz,D_out) ghost-padded, seeds (P,2) uint32
 // words held in int64, N = n_batch rows of which the first n_uniform are
-// uniform. State: tab (P,L,T,F), win (P,L*F,W), whid (P,n_hid_slab,W,W),
-// wout (P,W,D_out), all float32. Outputs, zeroed by the caller and added
-// into: g_tab / g_win / g_whid / g_wout (the state's shapes) and loss_sum
-// (P,) = sum over rows and outputs of |pred - target|.
+// uniform. State: tab (P,L,T,F) (16-byte aligned), win (P,L*F,W), whid
+// (P,n_hid_slab,W,W), wout (P,W,D_out), all float32. Outputs, zeroed by the
+// caller and added into: g_tab / g_win / g_whid / g_wout (the state's
+// shapes; g_tab 16-byte aligned) and loss_sum (P,) = sum over rows and
+// outputs of |pred - target|. g_feat: null, or (P,N,L*F) f32 that takes the
+// feature cotangent instead of g_tab. resolutions (L,) i32 in HOST memory,
+// L <= 32; staged: bit l stages level l's gradient slab in shared memory
+// (T x F a multiple of 4); flush_bulk: flush the slabs by bulk reduce-add,
+// else by 16-byte row atomics.
 extern "C" int repro_train_step(
     const void* coords, const void* target, const void* volumes,
     const void* seeds, const void* tab, const void* win, const void* whid,
     const void* wout, void* g_tab, void* g_win, void* g_whid, void* g_wout,
-    void* loss_sum, const void* resolutions, long long P, long long N, int L,
-    long long T, int F, int W, int n_hidden, int n_hid_slab, int D_out,
-    long long nx, long long ny, long long nz, int ghost, long long n_uniform,
-    float sigma, int sampling, void* stream) {
+    void* loss_sum, void* g_feat, const void* resolutions, long long staged,
+    int flush_bulk, long long P, long long N, int L, long long T, int F, int W,
+    int n_hidden, int n_hid_slab, int D_out, long long nx, long long ny,
+    long long nz, int ghost, long long n_uniform, float sigma, int sampling,
+    void* stream) {
   if (P <= 0 || N <= 0) return 0;
-  if (P > 65535 || n_hidden < 1 || F < 1 || F > F_MAX || D_out < 1 ||
-      D_out > C_MAX)
+  if (P > 65535 || n_hidden < 1 || D_out < 1 || D_out > C_MAX ||
+      !valid_levels(L, F, T, staged) ||
+      ((reinterpret_cast<uintptr_t>(tab) | reinterpret_cast<uintptr_t>(g_tab)) & 15))
     return (int)cudaErrorInvalidValue;
   if (sampling ? (volumes == nullptr || seeds == nullptr)
                : (coords == nullptr || target == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int* res = static_cast<const int*>(resolutions);
+  if (g_feat != nullptr) staged = 0;   // no scatter, no slabs
+  StepShape sh;
+  if (!step_shape(res, L, T, F, W, n_hidden, D_out, staged, N, P, &sh))
     return (int)cudaErrorInvalidValue;
   StepArgs a;
   a.coords = static_cast<const float*>(coords);
@@ -336,15 +442,38 @@ extern "C" int repro_train_step(
   a.g_whid = static_cast<float*>(g_whid);
   a.g_wout = static_cast<float*>(g_wout);
   a.loss_sum = static_cast<float*>(loss_sum);
-  a.res = static_cast<const int*>(resolutions);
+  a.g_feat = static_cast<float*>(g_feat);
   a.N = N; a.T = T; a.nx = nx; a.ny = ny; a.nz = nz; a.n_uniform = n_uniform;
-  a.L = L; a.F = F; a.D_in = L * F; a.n_hidden = n_hidden;
-  a.n_hid_slab = n_hid_slab; a.D_out = D_out; a.ghost = ghost; a.sigma = sigma;
+  a.staged = staged;
+  a.L = L; a.D_in = L * F; a.n_hidden = n_hidden; a.n_hid_slab = n_hid_slab;
+  a.D_out = D_out; a.ghost = ghost; a.flush_bulk = flush_bulk;
+  a.slab_off = sh.slab_off; a.sigma = sigma;
+  for (int l = 0; l < L; ++l) a.res[l] = res[l];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (W) {
-    case 16: return (int)launch_w<16>(a, P, sampling != 0, s);
-    case 32: return (int)launch_w<32>(a, P, sampling != 0, s);
-    case 64: return (int)launch_w<64>(a, P, sampling != 0, s);
+    case 16: return (int)launch_w<16>(a, sh, P, F, sampling != 0, s);
+    case 32: return (int)launch_w<32>(a, sh, P, F, sampling != 0, s);
+    case 64: return (int)launch_w<64>(a, sh, P, F, sampling != 0, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// The train step's launch shape for these arguments (as repro_train_step
+// takes them; resolutions and shape in HOST memory): shape = {threads per
+// block, blocks per partition, shared-memory bytes}, for counting the
+// scatter's requests and reporting the plan.
+extern "C" int repro_train_step_shape(const void* resolutions, long long staged,
+                                      long long P, long long N, int L,
+                                      long long T, int F, int W, int n_hidden,
+                                      int D_out, void* shape) {
+  StepShape sh;
+  if (!valid_levels(L, F, T, staged) ||
+      !step_shape(static_cast<const int*>(resolutions), L, T, F, W, n_hidden,
+                  D_out, staged, N, P, &sh))
+    return (int)cudaErrorInvalidValue;
+  long long* out = static_cast<long long*>(shape);
+  out[0] = sh.tile;
+  out[1] = sh.blocks;
+  out[2] = (long long)sh.smem;
+  return 0;
 }

@@ -6,8 +6,10 @@
 - backend kind ``cuda`` -> two launches on the current stream:
   ``repro_train_step`` (``csrc/train_step.cu``: [sampling,] encode, MLP
   forward, masked L1 cotangent, MLP backward and the 8-corner table scatter
-  for every (partition, batch tile), gradients into a zeroed f32 buffer by
-  atomic adds) and ``repro_adamw_apply`` (``csrc/adamw.cu``: the gated
+  for every (partition, batch tile), gradients into a zeroed f32 buffer:
+  same-row lanes summed per warp, the levels of ``step_plan`` staged in
+  shared memory, the rest as 16-byte atomics) and ``repro_adamw_apply``
+  (``csrc/adamw.cu``: the gated
   AdamW update, one thread per parameter). The TPU kernel applies AdamW on
   the last batch tile because its grid runs in order; on the GPU that
   grid-wide dependency is the boundary between the two launches.
@@ -27,6 +29,8 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import ctypes
+
 import torch
 
 from repro_torch import backends
@@ -35,10 +39,14 @@ from repro_torch.data.volume import sample_trilinear_batched
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_mlp.ops import KERNEL_WIDTHS
 from repro_torch.kernels.fused_train_step import ref as _ref
+from repro_torch.kernels.hash_encoding.ops import levels_arg, step_plan
 from repro_torch.optim.adamw import AdamW, OptConfig, bias_corrections
 from repro_torch.precision import torch_dtype
 
 STATE_KEYS = ("tab", "win", "whid", "wout")
+#: flush the train step's staged gradient slabs with one bulk reduce-add
+#: each (True) or one 16-byte atomic per nonzero row (False)
+FLUSH_BULK = True
 
 
 def _hid_slab(hid):
@@ -154,10 +162,36 @@ def _grad_buffers(flat_p, device):
     return grads, buf[off:]
 
 
+def mlp_tile_bytes(D_in: int, W: int, n_hidden: int, D_out: int) -> int:
+    """Shared memory of the train-step kernel's MLP tile, as
+    ``csrc/mlp_tile.cuh`` lays it out (``mlp_pick_tile``: the largest tile
+    of 128 / 64 / 32 rows that fits a block, with one extra float per row
+    for the loss reduction), rounded up to 16 bytes: the staged gradient
+    slabs follow it."""
+    odd = lambda n: n | 1
+    n_w = D_in * W + (n_hidden - 1) * W * W + W * D_out
+    for tile in (128, 64, 32):
+        floats = 2 * n_w + tile * (odd(D_in) + 2 * n_hidden * odd(W)
+                                   + odd(D_out) + 1)
+        if floats * 4 <= 232_448:
+            return -(-floats * 4 // 16) * 16
+    raise ValueError(f"no MLP tile of D_in={D_in}, W={W}, H={n_hidden} fits "
+                     "a block's shared memory")
+
+
+def staged_levels(flat_p, n_hidden: int, resolutions: Sequence[int]) -> int:
+    """The train-step kernel's staged levels (``step_plan``'s bitmask) for
+    the packed params ``flat_p``."""
+    _, L, T, F = flat_p["tab"].shape
+    _, D_in, W = flat_p["win"].shape
+    return step_plan(resolutions, T, F,
+                     mlp_tile_bytes(D_in, W, n_hidden, flat_p["wout"].shape[-1]))
+
+
 def train_step_cuda(flat_p, n_hidden: int, resolutions: Sequence[int], *,
                     coords=None, target=None, volumes=None, seeds=None,
                     n_batch: int = 0, n_uniform: int = 0, sigma: float = 0.0,
-                    ghost: int = 1):
+                    ghost: int = 1, cotangent_out=None):
     """The train-step kernel's wrapper: gradients of the per-partition L1
     loss and the per-partition loss SUM for one batch, from the packed
     params ``flat_p`` (f32 on the card). The batch is either given
@@ -165,6 +199,10 @@ def train_step_cuda(flat_p, n_hidden: int, resolutions: Sequence[int], *,
     (``volumes`` (P, nx+2g, ny+2g, nz+2g, C) and ``seeds`` (P,2) words as
     int64, ``n_batch`` rows of which the first ``n_uniform`` uniform).
     Returns ``(grads {tab, win, whid, wout} f32, loss_sum (P,) f32)``.
+    Given ``cotangent_out`` ((P, N, L*F) f32), the feature cotangent is
+    written there and ``grads["tab"]`` stays zero: the first launch of the
+    two-launch split that ``hash_encode_bwd_cuda`` completes (a yardstick
+    of the fused scatter).
 
     CPU tensors take the plain version (:func:`ref.train_step_grads_ref`,
     drawing the batch with the plain sampler); CUDA tensors launch
@@ -176,7 +214,8 @@ def train_step_cuda(flat_p, n_hidden: int, resolutions: Sequence[int], *,
             coords = batch_coords(seeds, n_batch, n_uniform, sigma)
             target = sample_trilinear_batched(volumes, coords, ghost)
         return _ref.train_step_grads_ref(flat_p, n_hidden, resolutions,
-                                         coords, target)
+                                         coords, target,
+                                         cotangent_out=cotangent_out)
     P, L, T, F = flat_p["tab"].shape
     _, D_in, W = flat_p["win"].shape
     D_out = flat_p["wout"].shape[-1]
@@ -193,6 +232,9 @@ def train_step_cuda(flat_p, n_hidden: int, resolutions: Sequence[int], *,
                          f"win {tuple(flat_p['win'].shape)}, D_out {D_out} "
                          f"(W in {KERNEL_WIDTHS}, F in 1/2/4/8, D_out <= 4)")
     state = [flat_p[k].contiguous() for k in STATE_KEYS]
+    if state[0].data_ptr() % 16:
+        raise ValueError("train_step_cuda: the tables must start on a 16-byte "
+                         "boundary (the kernel's vector loads)")
     if sampling:
         if volumes.ndim != 5 or volumes.shape[0] != P or \
                 volumes.shape[4] != D_out or tuple(seeds.shape) != (P, 2):
@@ -215,17 +257,23 @@ def train_step_cuda(flat_p, n_hidden: int, resolutions: Sequence[int], *,
         batch = [coords.float().contiguous(), target.float().contiguous(),
                  None, None]
         nx = ny = nz = 0
+    if cotangent_out is not None and (
+            tuple(cotangent_out.shape) != (P, N, L * F) or
+            cotangent_out.dtype != torch.float32 or cotangent_out.device != dev
+            or not cotangent_out.is_contiguous()):
+        raise ValueError(f"cotangent_out must be a contiguous ({P}, {N}, "
+                         f"{L * F}) float32 tensor on {dev}")
     grads, loss_sum = _grad_buffers(flat_p, dev)
-    res_d = torch.as_tensor([int(r) for r in resolutions],
-                            dtype=torch.int32).to(dev)
+    res_h = levels_arg(resolutions)
+    staged = staged_levels(flat_p, n_hidden, resolutions)
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = build.library()
     err = lib.repro_train_step(
         *(ptr(t) for t in batch), *(t.data_ptr() for t in state),
         *(grads[k].data_ptr() for k in STATE_KEYS), loss_sum.data_ptr(),
-        res_d.data_ptr(), P, N, L, T, F, W, n_hidden,
-        flat_p["whid"].shape[1], D_out, nx, ny, nz, int(ghost),
-        int(n_uniform), float(sigma), int(sampling),
+        ptr(cotangent_out), ctypes.addressof(res_h), staged, int(FLUSH_BULK),
+        P, N, L, T, F, W, n_hidden, flat_p["whid"].shape[1], D_out, nx, ny,
+        nz, int(ghost), int(n_uniform), float(sigma), int(sampling),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "repro_train_step")
     train_step_cuda.launches += 1

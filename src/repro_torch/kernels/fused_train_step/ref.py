@@ -41,9 +41,11 @@ def sample_batch(volumes, seeds, *, n_batch: int, boundary_lambda: float,
 
 
 def loss_and_grads(params, coords, target, resolutions: Sequence[int],
-                   backend, compute_dtype=None):
+                   backend, compute_dtype=None, with_features: bool = False):
     """Per-partition L1 losses (P,) f32 and the gradient tree of their sum
-    w.r.t. the stacked ``params`` (each partition's own gradient)."""
+    w.r.t. the stacked ``params`` (each partition's own gradient); with
+    ``with_features`` the tree also holds ``"features"``, the gradient
+    w.r.t. the encoded features (P, N, L*F)."""
     P = coords.shape[0]
     leaves = [params["tables"], *params["mlp"]]
     leaves = [t.detach().requires_grad_(True) for t in leaves]
@@ -54,8 +56,12 @@ def loss_and_grads(params, coords, target, resolutions: Sequence[int],
         pred = fused_mlp_batched(feats, leaves[1:], part, backend,
                                  compute_dtype=compute_dtype)
         loss = torch.mean(torch.abs(pred.float() - target), dim=(1, 2))
-        grads = torch.autograd.grad(loss.sum(), leaves)
-    return loss.detach(), {"tables": grads[0], "mlp": list(grads[1:])}
+        grads = torch.autograd.grad(loss.sum(),
+                                    leaves + ([feats] if with_features else []))
+    tree = {"tables": grads[0], "mlp": list(grads[1:len(leaves)])}
+    if with_features:
+        tree["features"] = grads[-1]
+    return loss.detach(), tree
 
 
 def train_step_ref(params, opt, coords, target, gate,
@@ -97,19 +103,25 @@ def _unpacked(flat, n_hidden):
 
 
 def train_step_grads_ref(flat_p, n_hidden: int, resolutions, coords, target,
-                         compute_dtype=None):
+                         compute_dtype=None, cotangent_out=None):
     """The plain version of the train-step kernel: the packed state's f32
     gradients ({tab, win, whid, wout}, (P, ...)) and the per-partition SUM
     of |pred - target| (P,) for one batch (coords (P,N,3), target
-    (P,N,D_out))."""
+    (P,N,D_out)). Given ``cotangent_out`` (P, N, L*F), the feature
+    cotangent goes there and the table gradient is left zero, as the
+    kernel's split mode does."""
     loss, g = loss_and_grads(_unpacked(flat_p, n_hidden), coords, target,
                              resolutions, backends.resolve("ref"),
-                             compute_dtype)
+                             compute_dtype,
+                             with_features=cotangent_out is not None)
     hid = g["mlp"][1:-1]
     grads = {"tab": g["tables"].float(), "win": g["mlp"][0].float(),
              "whid": (torch.stack(hid, 1).float() if hid
                       else torch.zeros_like(flat_p["whid"], dtype=torch.float32)),
              "wout": g["mlp"][-1].float()}
+    if cotangent_out is not None:
+        cotangent_out.copy_(g["features"])
+        grads["tab"] = torch.zeros_like(grads["tab"])
     return grads, loss * float(target.shape[1] * target.shape[2])
 
 

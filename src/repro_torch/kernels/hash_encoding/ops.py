@@ -26,6 +26,26 @@ from repro_torch.kernels.hash_encoding import ref as _ref
 #: shared memory a backward block may give one level's gradient slab
 #: (rows x F float32): the H100 offers a block 227 KB
 STAGE_BUDGET_BYTES = 200 * 1024
+#: shared memory the train-step kernel may give its staged table-gradient
+#: slabs, beside its MLP tile (``step_plan``). 0: on the H100 the fused
+#: kernel runs faster with every level's rows sent straight to device
+#: memory (fire-and-forget vector atomics that the other warps' MLP work
+#: hides) than with any coarse slab staged (its shared compare-and-swap
+#: loops stall the warp, and the slab costs blocks per SM); PERF.md
+STEP_STAGE_BUDGET_BYTES = 0
+#: shared memory a forward block may give its staged level tables
+#: (``fwd_plan``)
+FWD_STAGE_BUDGET_BYTES = 96 * 1024
+#: shared memory one block may use on the H100
+BLOCK_SMEM_BYTES = 232_448
+#: levels a kernel takes (its resolutions travel as a kernel argument)
+MAX_LEVELS = 32
+
+
+def level_rows(res: int, T: int) -> int:
+    """The rows of its table a level uses: (res+1)^3 when they fit T (a
+    dense level), else T (hashed); ``level_rows`` of ``csrc/hash_grid.cuh``."""
+    return min((int(res) + 1) ** 3, int(T))
 
 
 def bwd_plan(resolutions: Sequence[int], T: int, F: int) -> list:
@@ -34,13 +54,57 @@ def bwd_plan(resolutions: Sequence[int], T: int, F: int) -> list:
     block) exactly when the slab fits ``STAGE_BUDGET_BYTES``, else False
     (each row goes straight to the device gradient as one vector atomic).
     A level uses (res+1)^3 rows of its table when they fit T, else T."""
-    return [min((int(r) + 1) ** 3, int(T)) * F * 4 <= STAGE_BUDGET_BYTES
-            for r in resolutions]
+    return [level_rows(r, T) * F * 4 <= STAGE_BUDGET_BYTES for r in resolutions]
 
 
-def _res_tensor(resolutions, device) -> torch.Tensor:
-    return torch.as_tensor([int(r) for r in resolutions], dtype=torch.int32) \
-        .to(device)
+def _stage_smallest_first(resolutions, T: int, row_bytes: int,
+                          budget: int) -> int:
+    """Bitmask of the levels whose slabs (``level_rows`` x ``row_bytes``,
+    rounded up to 16 bytes as the kernels lay them out) fit ``budget``
+    together, taken smallest first: the coarse levels, whose few rows take
+    the most contention and the most reads. None when the levels' tables
+    do not start on 16-byte boundaries (T x row bytes not a multiple of 16:
+    the bulk copies need them)."""
+    if (int(T) * row_bytes) % 16:
+        return 0
+    sizes = [(-(-level_rows(r, T) * row_bytes // 16) * 16, l)
+             for l, r in enumerate(resolutions) if l < MAX_LEVELS]
+    mask = used = 0
+    for size, l in sorted(sizes):
+        if used + size > budget:
+            break
+        mask |= 1 << l
+        used += size
+    return mask
+
+
+def step_plan(resolutions: Sequence[int], T: int, F: int,
+              mlp_bytes: int) -> int:
+    """The train-step kernel's staged levels, as the bitmask its C entry
+    takes: the smallest float32 gradient slabs that fit
+    ``STEP_STAGE_BUDGET_BYTES`` and, beside the ``mlp_bytes`` of the
+    kernel's MLP tile, one block's shared memory. The other levels' rows go
+    straight to the device gradient."""
+    budget = min(STEP_STAGE_BUDGET_BYTES, BLOCK_SMEM_BYTES - int(mlp_bytes))
+    return _stage_smallest_first(resolutions, T, F * 4, budget)
+
+
+def fwd_plan(resolutions: Sequence[int], T: int, F: int,
+             itemsize: int) -> int:
+    """The forward kernel's staged levels (bitmask): the smallest level
+    tables (rows x F x ``itemsize`` bytes) that fit
+    ``FWD_STAGE_BUDGET_BYTES``; the others are read from device memory."""
+    return _stage_smallest_first(resolutions, T, F * int(itemsize),
+                                 FWD_STAGE_BUDGET_BYTES)
+
+
+def levels_arg(resolutions: Sequence[int]):
+    """The resolutions as the C entries take them: an int32 array in host
+    memory (at most ``MAX_LEVELS``)."""
+    if len(resolutions) > MAX_LEVELS:
+        raise ValueError(f"{len(resolutions)} levels: the kernels take at "
+                         f"most {MAX_LEVELS}")
+    return (ctypes.c_int * len(resolutions))(*(int(r) for r in resolutions))
 
 
 def hash_encode_cuda(coords: torch.Tensor, tables: torch.Tensor,
@@ -50,7 +114,8 @@ def hash_encode_cuda(coords: torch.Tensor, tables: torch.Tensor,
     table dtype.
 
     CPU tensors take the plain version; CUDA tensors launch
-    ``repro_hash_encode_fwd`` (``csrc/hash_encode.cu``) or raise."""
+    ``repro_hash_encode_fwd`` (``csrc/hash_encode.cu``: one point per
+    thread, the levels of ``fwd_plan`` staged in shared memory) or raise."""
     B, N, three = coords.shape
     P, L, T, F = tables.shape
     if three != 3:
@@ -72,12 +137,16 @@ def hash_encode_cuda(coords: torch.Tensor, tables: torch.Tensor,
                          f"(< 2^32), B={B} (<= 65535)")
     coords = coords.contiguous()
     tables = tables.contiguous()
+    if tables.data_ptr() % 16:
+        raise ValueError("hash_encode_cuda: the tables must start on a "
+                         "16-byte boundary (the kernel's vector loads)")
     part_d = build.part_tensor(part, B, P, coords.device)
-    res_d = _res_tensor(resolutions, coords.device)
+    res_h = levels_arg(resolutions)
+    staged = fwd_plan(resolutions, T, F, tables.element_size())
     out = torch.empty((B, N, L * F), dtype=tables.dtype, device=coords.device)
     lib = build.library()
     err = lib.repro_hash_encode_fwd(
-        coords.data_ptr(), tables.data_ptr(), res_d.data_ptr(),
+        coords.data_ptr(), tables.data_ptr(), ctypes.addressof(res_h), staged,
         part_d.data_ptr(), out.data_ptr(), B, N, L, T, F,
         int(tables.dtype == torch.bfloat16),
         torch.cuda.current_stream(coords.device).cuda_stream)

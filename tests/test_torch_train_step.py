@@ -336,3 +336,91 @@ def test_ctypes_signatures_match_the_c_entries(name):
             assert t is ctypes.c_float, (name, p)
         else:
             assert p.startswith("int") and t is ctypes.c_int, (name, p)
+
+
+@pytest.mark.parametrize("name,staged,slab_bytes,mlp_bytes", [
+    ("PRODUCTION256", [0, 1], 2_000 + 11_664, 51_328),
+    ("PRODUCTION", [0], 11_664, 51_328),
+    ("ABLATION", [0], 4_000, 228_096)])
+def test_step_plan_stages_the_smallest_slabs_that_fit(name, staged, slab_bytes,
+                                                      mlp_bytes, monkeypatch):
+    """The train-step kernel's staged levels at a 16 KB budget (the one
+    measured beside no staging): the smallest float32 gradient slabs
+    first, while they fit the budget and, beside the kernel's MLP tile, one
+    block's 227 KB; the next smallest would not fit. ABLATION's W=64, H=3
+    tile (64 rows) leaves room for its 4,000-byte level-0 slab only. At the
+    default budget (0: staging lost on the card) no level is staged."""
+    from repro_torch.configs import dvnr
+    from repro_torch.kernels.hash_encoding import ops as hops
+
+    cfg = getattr(dvnr, name)
+    res, T, F = cfg.level_resolutions(), cfg.table_size, cfg.n_features_per_level
+    mlp = ops.mlp_tile_bytes(cfg.n_levels * F, cfg.n_neurons,
+                             cfg.n_hidden_layers, cfg.out_dim)
+    assert mlp == mlp_bytes and mlp % 16 == 0
+    assert hops.step_plan(res, T, F, mlp) == 0          # the default budget
+    monkeypatch.setattr(hops, "STEP_STAGE_BUDGET_BYTES", 16 * 1024)
+    mask = hops.step_plan(res, T, F, mlp)
+    assert [l for l in range(len(res)) if mask >> l & 1] == staged
+    slabs = [-(-hops.level_rows(r, T) * F * 4 // 16) * 16 for r in res]
+    used = sum(slabs[l] for l in staged)
+    assert used == slab_bytes
+    budget = min(hops.STEP_STAGE_BUDGET_BYTES, hops.BLOCK_SMEM_BYTES - mlp)
+    assert used <= budget
+    rest = [slabs[l] for l in range(len(res)) if l not in staged]
+    assert all(slabs[l] <= min(rest) for l in staged)       # smallest first
+    assert used + min(rest) > budget                         # the next won't fit
+    assert mlp + used <= hops.BLOCK_SMEM_BYTES
+
+
+def test_step_plan_stages_nothing_on_unaligned_levels(monkeypatch):
+    from repro_torch.kernels.hash_encoding import ops as hops
+
+    monkeypatch.setattr(hops, "STEP_STAGE_BUDGET_BYTES", 16 * 1024)
+    assert hops.step_plan((4, 8), 8192, 4, 51_328) == 0b11
+    assert hops.step_plan((4, 8), 8191, 1, 51_328) == 0      # T x F % 4 != 0
+    assert hops.step_plan((4, 8), 8192, 4, 232_448) == 0     # no room left
+
+
+def test_mlp_tile_bytes_follow_the_kernels_tile_rule():
+    """128 rows when they fit a block, else 64, else 32 (mlp_pick_tile),
+    with one float per row for the loss reduction."""
+    odd = lambda n: n | 1
+    for D_in, W, H, D_out in ((20, 16, 2, 1), (80, 64, 3, 1), (8, 32, 1, 3)):
+        n_w = D_in * W + (H - 1) * W * W + W * D_out
+        per_row = odd(D_in) + 2 * H * odd(W) + odd(D_out) + 1
+        tile = next(t for t in (128, 64, 32)
+                    if (2 * n_w + t * per_row) * 4 <= 232_448)
+        want = -(-(2 * n_w + tile * per_row) * 4 // 16) * 16
+        assert ops.mlp_tile_bytes(D_in, W, H, D_out) == want
+    with pytest.raises(ValueError):
+        ops.mlp_tile_bytes(64 * 8, 64, 40, 1)
+
+
+def test_split_cotangent_then_backward_gives_the_fused_gradient():
+    """The wrapper's ``cotangent_out`` (the kernel's split mode, here its
+    plain version): the feature cotangent, scattered by the hash-encode
+    backward, is the fused step's table gradient; the other gradients and
+    the loss sum are the fused step's, and the table gradient it returns
+    is zero."""
+    from repro_torch.kernels.hash_encoding.ops import hash_encode_bwd_cuda
+
+    tr, st = _jax_state(key=3)
+    flat = ops._pack(_port_state(st).params)[0]
+    H = CFG.n_hidden_layers
+    res = CFG.level_resolutions()
+    rng = np.random.default_rng(3)
+    coords = torch.from_numpy(rng.uniform(-0.1, 1.1, (P, 130, 3)).astype(np.float32))
+    target = torch.from_numpy(rng.uniform(0, 1, (P, 130, 1)).astype(np.float32))
+    want_g, want_l = ops.train_step_cuda(flat, H, res, coords=coords,
+                                         target=target)
+    _, L, T, F = flat["tab"].shape
+    cot = torch.empty((P, 130, L * F))
+    got_g, got_l = ops.train_step_cuda(flat, H, res, coords=coords,
+                                       target=target, cotangent_out=cot)
+    assert not got_g["tab"].any()
+    assert torch.equal(got_l, want_l)
+    for k in ("win", "whid", "wout"):
+        assert torch.equal(got_g[k], want_g[k])
+    tab = hash_encode_bwd_cuda(cot, coords, res, list(range(P)), (P, L, T, F))
+    torch.testing.assert_close(tab, want_g["tab"], rtol=0, atol=1e-8)
