@@ -874,7 +874,7 @@ def fwd_case_checks(dev) -> None:
     import numpy as np
     import torch
     from repro_torch.configs.dvnr import ABLATION, PRODUCTION
-    from repro_torch.kernels.hash_encoding.ops import fwd_plan, hash_encode_cuda
+    from repro_torch.kernels.hash_encoding.ops import hash_encode_cuda
     from repro_torch.kernels.hash_encoding.ref import hash_encode_batched_ref
 
     rng = np.random.default_rng(6)
@@ -891,12 +891,10 @@ def fwd_case_checks(dev) -> None:
                                      dtype=torch.float32, device=dev)
             for dt in (torch.float32, torch.bfloat16):
                 tab = tables32.to(dt)
-                plan = levels_str(fwd_plan(res, T, F, tab.element_size()), L)
                 want = hash_encode_batched_ref(coords, tab, res, part_d)
                 got = hash_encode_cuda(coords, tab, res, part)
                 scale = max(1.0, float(want.float().abs().max()))
-                label = (f"hash_encode {name} {str(dt)[6:]} N={N} coords {where} "
-                         f"(levels {plan})")
+                label = f"hash_encode {name} {str(dt)[6:]} N={N} coords {where}"
                 if dt == torch.float32:
                     check(label, got, want, atol=2e-6 * scale)
                 else:
@@ -1373,16 +1371,16 @@ def dvnr_phases():
                         "replaces": REPLACES[name], "launches": launches[name],
                         "max_abs_err": err, "ms": ms, "plain_ms": pms,
                         "bound_ms": bms, "bound_by": by, "library_ms": lms})
-    # the forward's staging budget: which levels a block copies into shared
-    # memory (fwd_plan), at the tick's shapes
-    for b in (0, 16 * 1024, 96 * 1024, 224 * 1024):
-        with setting(hops, "FWD_STAGE_BUDGET_BYTES", b):
-            plan = hops.fwd_plan(res, T, F, 4)
-            ms = cuda_ms(lambda: hash_encode_cuda(coords, sp["tables"], res, rows),
-                         reps=10)
-        print(f"  hash_encode staging budget {b // 1024:3d} KB (levels "
-              f"{levels_str(plan, L)}): {ms:.3f} ms "
-              f"{'(the plan) ' if b == hops.FWD_STAGE_BUDGET_BYTES else ''}[{tag}]")
+    # where the forward's time goes: the same call on the first k levels
+    # only (the coarse levels are dense and L1-resident, the fine ones
+    # hashed and read from L2)
+    prefix = []
+    for k in range(1, L + 1):
+        tk = sp["tables"][:, :k].contiguous()
+        prefix.append(cuda_ms(lambda: hash_encode_cuda(coords, tk, res[:k], rows),
+                              reps=10))
+    print(f"  hash_encode on levels 0..k-1, k = 1..{L}: "
+          f"{[round(x, 3) for x in prefix]} ms (events) [{tag}]")
     del feats, v, rgba, coords, local
 
     # phase-3 shapes: one decode chunk of 2^22 points, one partition

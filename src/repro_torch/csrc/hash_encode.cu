@@ -8,24 +8,23 @@
 // Replaces: src/repro/kernels/hash_encoding/kernel.py, hash_encode_pallas
 // (the pallas_call at line 74, body _encode_kernel). Where the TPU kernel pins
 // one level's (T, F) table in VMEM and walks a level-major grid of coordinate
-// tiles, here a thread takes one point at a time: it reads the point's
-// coordinates once, blends every level's 8 corners and writes the point's
-// L x F outputs contiguously (one vector store per level).
+// tiles, here every (point, level) pair is one thread, consecutive threads
+// consecutive pairs, and the tables are read straight from device memory: a
+// PRODUCTION256 partition's tables are 655 KB (8 partitions 5.2 MB), so they
+// stay resident in the 50 MB L2, and the coarse levels in L1.
 //
-// Bound: the corner gathers. The byte bound counts only the coordinates in
-// and the features out (12 + 4 L F bytes a point at f32); the 8 L corner
-// rows a point reads (2.7G rows per serving tick) are what set the pace.
-// The design serves them from the fastest place that holds them:
-//   - staged levels (the wrapper's bitmask, from fwd_plan: the smallest
-//     level tables first, while they fit a shared-memory budget): a block
-//     serves one batch row, so one partition, and copies those levels'
-//     rows into shared memory once, one bulk copy (cp.async.bulk) per level
-//     on one mbarrier, then walks a long strided run of the row's points,
-//     so that the copy is amortised;
-//   - the other levels (hashed, or too large) read each corner's row with
-//     one vector load through the read-only path: a partition's tables stay
-//     resident in the 50 MB L2, and the neighbouring samples of a ray that
-//     share a cell hit L1.
+// Bound: the corner gathers. The byte bound counts the coordinates in and
+// the features out (12 + 4 L F bytes a point at f32); the 8 L corner rows a
+// point reads (2.7G rows per serving tick, the hashed levels' mostly from
+// L2) set the pace. The design reads each corner row with one vector load
+// (hash_grid.cuh's corner gather: float4 for 4 f32 features, 8 bytes for 4
+// bf16) and keeps the write stream coalesced (thread i writes the F values
+// at i * F). Two other designs were measured on the H100 and lost (PERF.md):
+// one point per thread with all its levels (its stores scatter 16 bytes
+// across each warp's 2,560, and each thread's levels run one after
+// another), and shared-memory staging of the small level tables (a warp
+// holds pairs of every level, so staged and device gathers diverge; the
+// coarse tables sit in L1 anyway).
 //
 // Numerics, as the JAX kernel: the level geometry of hash_grid.cuh (lower
 // corner clamped, offset not: coordinates of rays that miss the box lie far
@@ -59,137 +58,46 @@
 // Sums are float32, in an order that atomics make run-dependent.
 #include "common.cuh"
 #include "hash_grid.cuh"
-#include "hopper.cuh"
 
 namespace {
 
-constexpr int MAX_LEVELS = 32;
-constexpr int FWD_THREADS = 512;
-
-// the levels' resolutions, handed to a kernel by value
-struct Levels {
-  int res[MAX_LEVELS];
-};
-
-// Block-wide: copy the staged levels of the partition's tables `tab`
-// (L levels of T_size rows of F values) into `stage`, level after level,
-// stage_bytes apart. The rows' 16-byte multiple goes as one bulk copy per
-// level, completing on `bar`; the last < 16 bytes as plain loads. Ends
-// with __syncthreads().
 template <typename T, int F>
-__device__ void stage_tables(const T* tab, const Levels& lv, int L,
-                             long long T_size, long long staged,
-                             unsigned char* stage, uint64_t* bar) {
-  constexpr int RB = F * (int)sizeof(T);
-  if (threadIdx.x == 0) {
-    repro::hopper::mbar_init(bar, 1);
-    repro::hopper::mbar_init_fence();
-    unsigned total = 0;
-    for (int l = 0; l < L; ++l)
-      if ((staged >> l) & 1) total += (unsigned)((repro::level_rows(lv.res[l], T_size) * RB) & ~15LL);
-    repro::hopper::mbar_expect_tx(bar, total);
-    long long off = 0;
-    for (int l = 0; l < L; ++l) {
-      if (!((staged >> l) & 1)) continue;
-      const unsigned body = (unsigned)((repro::level_rows(lv.res[l], T_size) * RB) & ~15LL);
-      if (body) repro::hopper::bulk_load(stage + off, tab + (long long)l * T_size * F, body, bar);
-      off += repro::stage_bytes(lv.res[l], T_size, RB);
-    }
-  }
-  long long off = 0;
-  for (int l = 0; l < L; ++l) {
-    if (!((staged >> l) & 1)) continue;
-    const long long bytes = repro::level_rows(lv.res[l], T_size) * RB;
-    const unsigned char* src =
-        reinterpret_cast<const unsigned char*>(tab + (long long)l * T_size * F);
-    for (long long i = (bytes & ~15LL) + threadIdx.x; i < bytes; i += blockDim.x)
-      stage[off + i] = src[i];
-    off += repro::stage_bytes(lv.res[l], T_size, RB);
-  }
-  __syncthreads();   // the barrier's init, before any thread waits on it
-  repro::hopper::mbar_wait(bar, 0);
-  __syncthreads();   // the tails
-}
-
-// grid (blocks, B): block (x, b) serves batch row b, whose partition's
-// staged levels it holds in shared memory, and walks that row's points
-// x * FWD_THREADS + threadIdx.x with a stride of the row's threads
-template <typename T, int F>
-__global__ void __launch_bounds__(FWD_THREADS)
-hash_encode_fwd_kernel(const float* __restrict__ coords,
-                       const T* __restrict__ tables, const Levels lv,
-                       const int* __restrict__ part, T* __restrict__ out,
-                       long long N, int L, long long T_size, long long staged) {
-  extern __shared__ __align__(16) unsigned char stage[];
-  __shared__ uint64_t bar;
+__global__ void hash_encode_fwd_kernel(const float* __restrict__ coords,
+                                       const T* __restrict__ tables,
+                                       const int* __restrict__ resolutions,
+                                       const int* __restrict__ part,
+                                       T* __restrict__ out, long long N, int L,
+                                       long long T_size) {
   const int b = blockIdx.y;
-  const T* tab = tables + (long long)__ldg(part + b) * L * T_size * F;
-  if (staged) stage_tables<T, F>(tab, lv, L, T_size, staged, stage, &bar);
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x; n < N;
-       n += stride) {
-    const float* c = coords + ((long long)b * N + n) * 3;
-    const float cc[3] = {__ldg(c), __ldg(c + 1), __ldg(c + 2)};
-    T* o = out + ((long long)b * N + n) * L * F;
-    long long off = 0;   // the next staged level's slab
-    for (int l = 0; l < L; ++l) {
-      const repro::LevelGeom geo = repro::level_geom(cc, lv.res[l], T_size);
-      float acc[F];
-      if ((staged >> l) & 1) {
-        repro::gather_corners<T, F, false>(geo, reinterpret_cast<const T*>(stage + off), acc);
-        off += repro::stage_bytes(lv.res[l], T_size, F * (int)sizeof(T));
-      } else {
-        repro::gather_corners<T, F, true>(geo, tab + (long long)l * T_size * F, acc);
-      }
-      repro::store_row<T, F>(o + l * F, acc);
-    }
-  }
-}
-
-// blocks per batch row: enough resident blocks to fill the card at the
-// occupancy the kernel's staged shared memory allows, capped at one block
-// per FWD_THREADS points
-template <typename T, int F>
-cudaError_t launch_fwd_f(const float* coords, const T* tables, const Levels& lv,
-                         const int* part, T* out, long long B, long long N, int L,
-                         long long T_size, long long staged, cudaStream_t stream) {
-  long long smem = 0;
-  for (int l = 0; l < L; ++l)
-    if ((staged >> l) & 1) smem += repro::stage_bytes(lv.res[l], T_size, F * (int)sizeof(T));
-  if (smem > 232448) return cudaErrorInvalidValue;
-  auto kern = hash_encode_fwd_kernel<T, F>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  int dev = 0, sms = 132, per_sm = 1;
-  if (cudaGetDevice(&dev) == cudaSuccess)
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, FWD_THREADS,
-                                                      (size_t)smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  long long gx = ((long long)sms * per_sm + B - 1) / B;
-  const long long need = (N + FWD_THREADS - 1) / FWD_THREADS;
-  if (gx > need) gx = need;
-  kern<<<dim3((unsigned)gx, (unsigned)B), FWD_THREADS, (size_t)smem, stream>>>(
-      coords, tables, lv, part, out, N, L, T_size, staged);
-  return cudaGetLastError();
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= N * L) return;
+  const long long n = i / L;
+  const int l = (int)(i - n * L);
+  const float* c = coords + ((long long)b * N + n) * 3;
+  const float cc[3] = {__ldg(c), __ldg(c + 1), __ldg(c + 2)};
+  const repro::LevelGeom geo = repro::level_geom(cc, __ldg(resolutions + l), T_size);
+  float acc[F];
+  repro::gather_corners<T, F>(geo, tables + ((long long)__ldg(part + b) * L + l) * T_size * F,
+                              acc);
+  repro::store_row<T, F>(out + (((long long)b * N + n) * L + l) * F, acc);
 }
 
 template <typename T>
-cudaError_t launch_fwd(const float* coords, const void* tables, const Levels& lv,
+cudaError_t launch_fwd(const float* coords, const void* tables, const int* res,
                        const int* part, void* out, long long B, long long N, int L,
-                       long long T_size, int F, long long staged,
-                       cudaStream_t stream) {
+                       long long T_size, int F, cudaStream_t stream) {
+  const int threads = 256;
+  const dim3 grid((unsigned)((N * L + threads - 1) / threads), (unsigned)B);
   const T* t = static_cast<const T*>(tables);
   T* o = static_cast<T*>(out);
   switch (F) {
-    case 1: return launch_fwd_f<T, 1>(coords, t, lv, part, o, B, N, L, T_size, staged, stream);
-    case 2: return launch_fwd_f<T, 2>(coords, t, lv, part, o, B, N, L, T_size, staged, stream);
-    case 4: return launch_fwd_f<T, 4>(coords, t, lv, part, o, B, N, L, T_size, staged, stream);
-    case 8: return launch_fwd_f<T, 8>(coords, t, lv, part, o, B, N, L, T_size, staged, stream);
+    case 1: hash_encode_fwd_kernel<T, 1><<<grid, threads, 0, stream>>>(coords, t, res, part, o, N, L, T_size); break;
+    case 2: hash_encode_fwd_kernel<T, 2><<<grid, threads, 0, stream>>>(coords, t, res, part, o, N, L, T_size); break;
+    case 4: hash_encode_fwd_kernel<T, 4><<<grid, threads, 0, stream>>>(coords, t, res, part, o, N, L, T_size); break;
+    case 8: hash_encode_fwd_kernel<T, 8><<<grid, threads, 0, stream>>>(coords, t, res, part, o, N, L, T_size); break;
     default: return cudaErrorInvalidValue;
   }
+  return cudaGetLastError();
 }
 
 // threads per block: a staged block holds its slab for its whole chunk, so
@@ -299,29 +207,22 @@ cudaError_t launch_bwd(const float* g, const float* coords, const int* res,
 }  // namespace
 
 // coords (B,N,3) f32; tables (P,L,T,F), 16-byte aligned; resolutions (L,)
-// i32 in HOST memory, L <= 32; staged: bit l stages level l's table in
-// shared memory (levels whose T x F x sizeof rows are a multiple of 16
-// bytes); part (B,) i32 -> out (B,N,L,F) in the table type;
-// 0 <= part[b] < P is checked on the host.
+// i32; part (B,) i32 -> out (B,N,L,F) in the table type; 0 <= part[b] < P
+// is checked on the host.
 extern "C" int repro_hash_encode_fwd(const void* coords, const void* tables,
-                                     const void* resolutions, long long staged,
-                                     const void* part, void* out, long long B,
-                                     long long N, int L, long long T_size, int F,
-                                     int is_bf16, void* stream) {
+                                     const void* resolutions, const void* part,
+                                     void* out, long long B, long long N, int L,
+                                     long long T_size, int F, int is_bf16,
+                                     void* stream) {
   if (B <= 0 || N <= 0) return 0;
-  if (B > 65535 || L < 1 || L > MAX_LEVELS || (staged >> L) != 0 ||
-      (reinterpret_cast<uintptr_t>(tables) & 15))
+  if (B > 65535 || (reinterpret_cast<uintptr_t>(tables) & 15))
     return (int)cudaErrorInvalidValue;
-  Levels lv;
-  const int* r = static_cast<const int*>(resolutions);
-  for (int l = 0; l < L; ++l) lv.res[l] = r[l];
-  const long long row_bytes = (long long)F * (is_bf16 ? 2 : 4);
-  if (staged && (T_size * row_bytes) % 16) return (int)cudaErrorInvalidValue;
   const float* c = static_cast<const float*>(coords);
+  const int* r = static_cast<const int*>(resolutions);
   const int* p = static_cast<const int*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16 ? launch_fwd<__nv_bfloat16>(c, tables, lv, p, out, B, N, L, T_size, F, staged, s)
-                       : launch_fwd<float>(c, tables, lv, p, out, B, N, L, T_size, F, staged, s));
+  return (int)(is_bf16 ? launch_fwd<__nv_bfloat16>(c, tables, r, p, out, B, N, L, T_size, F, s)
+                       : launch_fwd<float>(c, tables, r, p, out, B, N, L, T_size, F, s));
 }
 
 // grad_out (B,N,L,F) f32; coords (B,N,3) f32; resolutions and staged (L,)

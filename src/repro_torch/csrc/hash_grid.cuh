@@ -9,10 +9,10 @@
 // product would wrap for res >= 1291); hashed levels multiply by 1,
 // 2654435761 and 805459861 with uint32 wraparound and take the xor mod T.
 //
-// The corner gather of the forward is here: each corner's row is read as one
-// vector load (float4 for 4 float32 features, two for 8, float2 for 2; 8
-// bytes for 4 bfloat16 features, 16 for 8), from device memory through the
-// read-only path or from a level staged in shared memory, and blended in
+// The corner gather of the forward (the hash-encode forward and the train
+// step's encode) is here: each corner's row is read as one vector load
+// through the read-only path (float4 for 4 float32 features, two for 8,
+// float2 for 2; 8 bytes for 4 bfloat16 features, 16 for 8) and blended in
 // float32 with the weight rounded to the table type.
 //
 // So is the corner scatter of the backward (the table-gradient adds):
@@ -23,9 +23,10 @@
 // into the device gradient (one 16-byte atomicAdd per row of 4 features:
 // float2 for F=2, two float4 for F=8, a scalar for F=1).
 //
-// A staged level's table or gradient slab takes level_rows x the row's bytes
-// of shared memory, rounded up to 16 (stage_bytes), in level order: the
-// kernels and the wrappers' plans (hash_encoding/ops.py) share that rule.
+// A staged level's gradient slab takes level_rows x the row's bytes of
+// shared memory, rounded up to 16 (stage_bytes), in level order: the train
+// step and its wrapper's plan (hash_encoding/ops.py step_plan) share that
+// rule.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -95,32 +96,32 @@ __device__ __forceinline__ float corner_weight(const LevelGeom& g, int dx,
          (dz ? g.w[2] : 1.0f - g.w[2]);
 }
 
-// One table row of F values in T (float or bfloat16) as 32-bit words:
-// one vector load of F * sizeof(T) bytes (a bf16 row of 1 is 2 bytes),
-// through the read-only path when LDG (device memory), else a plain load
-// (shared memory). The row must be aligned to its size.
-template <typename T, int F, bool LDG>
+// One table row of F values in T (float or bfloat16), as float32: one
+// vector load of F * sizeof(T) bytes (a bf16 row of 1 is 2 bytes) through
+// the read-only path. The row must be aligned to its size (16 bytes at
+// most).
+template <typename T, int F>
 __device__ __forceinline__ void load_row(const T* row, float (&v)[F]) {
   constexpr int BYTES = F * (int)sizeof(T);
   if constexpr (BYTES == 2) {
     const unsigned short* p = reinterpret_cast<const unsigned short*>(row);
-    v[0] = __uint_as_float((unsigned)(LDG ? __ldg(p) : *p) << 16);
+    v[0] = __uint_as_float((unsigned)__ldg(p) << 16);
     return;
   } else {
     constexpr int WORDS = BYTES / 4;
     unsigned u[WORDS];
     if constexpr (WORDS == 1) {
       const unsigned* p = reinterpret_cast<const unsigned*>(row);
-      u[0] = LDG ? __ldg(p) : *p;
+      u[0] = __ldg(p);
     } else if constexpr (WORDS == 2) {
       const uint2* p = reinterpret_cast<const uint2*>(row);
-      const uint2 q = LDG ? __ldg(p) : *p;
+      const uint2 q = __ldg(p);
       u[0] = q.x; u[1] = q.y;
     } else {
       const uint4* p = reinterpret_cast<const uint4*>(row);
 #pragma unroll
       for (int k = 0; k < WORDS / 4; ++k) {
-        const uint4 q = LDG ? __ldg(p + k) : p[k];
+        const uint4 q = __ldg(p + k);
         u[4 * k] = q.x; u[4 * k + 1] = q.y; u[4 * k + 2] = q.z; u[4 * k + 3] = q.w;
       }
     }
@@ -168,10 +169,9 @@ __device__ __forceinline__ void store_row(T* row, const float (&v)[F]) {
 }
 
 // The forward's blend at one level: acc = sum over the 8 corners of
-// weight x row, in float32, each weight rounded to the table type; `table`
-// is the level's (T, F) table in device memory (LDG) or its staged rows in
-// shared memory.
-template <typename T, int F, bool LDG>
+// weight x row of the level's (T, F) table, in float32, each weight rounded
+// to the table type.
+template <typename T, int F>
 __device__ __forceinline__ void gather_corners(const LevelGeom& g, const T* table,
                                                float (&acc)[F]) {
 #pragma unroll
@@ -184,7 +184,7 @@ __device__ __forceinline__ void gather_corners(const LevelGeom& g, const T* tabl
       for (int dz = 0; dz < 2; ++dz) {
         const float ww = round_to<T>(corner_weight(g, dx, dy, dz));
         float v[F];
-        load_row<T, F, LDG>(table + (size_t)corner_index(g, dx, dy, dz) * F, v);
+        load_row<T, F>(table + (size_t)corner_index(g, dx, dy, dz) * F, v);
 #pragma unroll
         for (int f = 0; f < F; ++f) acc[f] += ww * v[f];
       }

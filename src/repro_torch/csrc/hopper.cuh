@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: shared
-// memory addresses, mbarriers, TMA tile loads, bulk copies and bulk
-// reduce-adds between device and shared memory, and the warpgroup matrix
-// multiply (wgmma) with its shared-memory matrix descriptors.
+// memory addresses, mbarriers, TMA tile loads, bulk reduce-adds from shared
+// to device memory, and the warpgroup matrix multiply (wgmma) with its
+// shared-memory matrix descriptors.
 //
 // Descriptors follow the PTX ISA's canonical layouts for 16-bit types with
 // the tile stored as rows of exactly one swizzle span (32, 64 or 128 bytes),
@@ -76,17 +76,6 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
 
 // ---- bulk copies without a tensor map: `bytes` a multiple of 16, both
 // addresses 16-byte aligned
-// shared dst <- device src, completing on `bar`'s transaction count
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          unsigned bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n"
-      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
-        "r"(smem_u32(bar))
-      : "memory");
-}
-
 // device dst[i] += shared src[i] (float32, each element an atomic add in
 // L2), in the thread's current bulk group
 __device__ __forceinline__ void bulk_reduce_add_f32(float* dst, const float* src,

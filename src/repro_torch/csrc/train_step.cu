@@ -276,7 +276,7 @@ __global__ void train_step_kernel(const StepArgs a) {
     for (int l = 0; l < L; ++l) {
       const repro::LevelGeom geo = repro::level_geom(c, a.res[l], T);
       float acc[F];
-      repro::gather_corners<float, F, true>(geo, tab + (long long)l * T * F, acc);
+      repro::gather_corners<float, F>(geo, tab + (long long)l * T * F, acc);
 #pragma unroll
       for (int f = 0; f < F; ++f) xr[l * F + f] = acc[f];
     }

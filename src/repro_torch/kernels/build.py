@@ -30,10 +30,8 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 
 #: C entry points: name -> argtypes (every entry returns cudaError_t as int)
 SIGNATURES = {
-    # coords, tables, res (host memory), staged, part, out, B, N, L, T, F,
-    # is_bf16, stream
-    "repro_hash_encode_fwd": [_P, _P, _P, _L, _P, _P, _L, _L, _I, _L, _I, _I,
-                              _P],
+    # coords, tables, res, part, out, B, N, L, T, F, is_bf16, stream
+    "repro_hash_encode_fwd": [_P, _P, _P, _P, _P, _L, _L, _I, _L, _I, _I, _P],
     # x, w_in, w_hid, w_out, part, out, B, N, D_in, W, n_hidden, n_hid_slab,
     # D_out, is_bf16, stream
     "repro_fused_mlp_fwd": [_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I,

@@ -14,6 +14,7 @@ routed per level by ``bwd_plan``.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence
 
 import torch
@@ -33,9 +34,6 @@ STAGE_BUDGET_BYTES = 200 * 1024
 #: hides) than with any coarse slab staged (its shared compare-and-swap
 #: loops stall the warp, and the slab costs blocks per SM); PERF.md
 STEP_STAGE_BUDGET_BYTES = 0
-#: shared memory a forward block may give its staged level tables
-#: (``fwd_plan``)
-FWD_STAGE_BUDGET_BYTES = 96 * 1024
 #: shared memory one block may use on the H100
 BLOCK_SMEM_BYTES = 232_448
 #: levels a kernel takes (its resolutions travel as a kernel argument)
@@ -57,7 +55,8 @@ def bwd_plan(resolutions: Sequence[int], T: int, F: int) -> list:
     return [level_rows(r, T) * F * 4 <= STAGE_BUDGET_BYTES for r in resolutions]
 
 
-def _stage_smallest_first(resolutions, T: int, row_bytes: int,
+@functools.lru_cache(maxsize=256)
+def _stage_smallest_first(resolutions: tuple, T: int, row_bytes: int,
                           budget: int) -> int:
     """Bitmask of the levels whose slabs (``level_rows`` x ``row_bytes``,
     rounded up to 16 bytes as the kernels lay them out) fit ``budget``
@@ -86,16 +85,8 @@ def step_plan(resolutions: Sequence[int], T: int, F: int,
     kernel's MLP tile, one block's shared memory. The other levels' rows go
     straight to the device gradient."""
     budget = min(STEP_STAGE_BUDGET_BYTES, BLOCK_SMEM_BYTES - int(mlp_bytes))
-    return _stage_smallest_first(resolutions, T, F * 4, budget)
-
-
-def fwd_plan(resolutions: Sequence[int], T: int, F: int,
-             itemsize: int) -> int:
-    """The forward kernel's staged levels (bitmask): the smallest level
-    tables (rows x F x ``itemsize`` bytes) that fit
-    ``FWD_STAGE_BUDGET_BYTES``; the others are read from device memory."""
-    return _stage_smallest_first(resolutions, T, F * int(itemsize),
-                                 FWD_STAGE_BUDGET_BYTES)
+    return _stage_smallest_first(tuple(int(r) for r in resolutions), int(T),
+                                 F * 4, budget)
 
 
 def levels_arg(resolutions: Sequence[int]):
@@ -107,6 +98,11 @@ def levels_arg(resolutions: Sequence[int]):
     return (ctypes.c_int * len(resolutions))(*(int(r) for r in resolutions))
 
 
+def _res_tensor(resolutions, device) -> torch.Tensor:
+    return torch.as_tensor([int(r) for r in resolutions], dtype=torch.int32) \
+        .to(device)
+
+
 def hash_encode_cuda(coords: torch.Tensor, tables: torch.Tensor,
                      resolutions: Sequence[int], part) -> torch.Tensor:
     """The forward kernel's wrapper: coords (B,N,3) f32, tables (P,L,T,F)
@@ -114,8 +110,8 @@ def hash_encode_cuda(coords: torch.Tensor, tables: torch.Tensor,
     table dtype.
 
     CPU tensors take the plain version; CUDA tensors launch
-    ``repro_hash_encode_fwd`` (``csrc/hash_encode.cu``: one point per
-    thread, the levels of ``fwd_plan`` staged in shared memory) or raise."""
+    ``repro_hash_encode_fwd`` (``csrc/hash_encode.cu``: one (point, level)
+    pair per thread, each corner row one vector load) or raise."""
     B, N, three = coords.shape
     P, L, T, F = tables.shape
     if three != 3:
@@ -141,12 +137,11 @@ def hash_encode_cuda(coords: torch.Tensor, tables: torch.Tensor,
         raise ValueError("hash_encode_cuda: the tables must start on a "
                          "16-byte boundary (the kernel's vector loads)")
     part_d = build.part_tensor(part, B, P, coords.device)
-    res_h = levels_arg(resolutions)
-    staged = fwd_plan(resolutions, T, F, tables.element_size())
+    res_d = _res_tensor(resolutions, coords.device)
     out = torch.empty((B, N, L * F), dtype=tables.dtype, device=coords.device)
     lib = build.library()
     err = lib.repro_hash_encode_fwd(
-        coords.data_ptr(), tables.data_ptr(), ctypes.addressof(res_h), staged,
+        coords.data_ptr(), tables.data_ptr(), res_d.data_ptr(),
         part_d.data_ptr(), out.data_ptr(), B, N, L, T, F,
         int(tables.dtype == torch.bfloat16),
         torch.cuda.current_stream(coords.device).cuda_stream)

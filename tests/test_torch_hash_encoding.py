@@ -110,32 +110,6 @@ def test_wrapper_counts_only_kernel_launches():
     assert hash_encode_cuda.launches == before
 
 
-@pytest.mark.parametrize("name,itemsize,staged,stage_bytes", [
-    ("PRODUCTION256", 4, [0, 1, 2], 2_000 + 11_664 + 78_608),
-    ("PRODUCTION256", 2, [0, 1, 2], 1_008 + 5_840 + 39_312),
-    ("PRODUCTION", 4, [0, 1], 11_664 + 78_608),
-    ("ABLATION", 4, [0, 1], 4_000 + 23_328),
-    ("ABLATION", 2, [0, 1, 2], 2_000 + 11_664 + 78_608)])
-def test_fwd_plan_stages_the_smallest_tables_that_fit(name, itemsize, staged,
-                                                      stage_bytes):
-    """The forward kernel's staged levels: the smallest level tables (rows x
-    F x itemsize, each rounded up to 16 bytes as the kernel lays them out)
-    first, while they fit the budget; the next smallest would not."""
-    from repro_torch.configs import dvnr
-    from repro_torch.kernels.hash_encoding import ops as hops
-
-    cfg = getattr(dvnr, name)
-    res, T, F = cfg.level_resolutions(), cfg.table_size, cfg.n_features_per_level
-    mask = hops.fwd_plan(res, T, F, itemsize)
-    assert [l for l in range(len(res)) if mask >> l & 1] == staged
-    sizes = [-(-hops.level_rows(r, T) * F * itemsize // 16) * 16 for r in res]
-    used = sum(sizes[l] for l in staged)
-    assert used == stage_bytes <= hops.FWD_STAGE_BUDGET_BYTES
-    assert used + min(s for l, s in enumerate(sizes) if l not in staged) \
-        > hops.FWD_STAGE_BUDGET_BYTES
-    assert hops.FWD_STAGE_BUDGET_BYTES <= hops.BLOCK_SMEM_BYTES
-
-
 def test_level_rows_and_levels_arg():
     """Dense levels use (res+1)^3 rows, hashed ones T; the C entries take
     at most 32 levels."""
