@@ -789,8 +789,8 @@ def step_case_checks(dev, vols_c, tseeds, cfg) -> None:
     (the warp pre-reduction under contention), PRODUCTION's T=2^16, F=1 (a
     ragged batch) and F=2, an ABLATION-shaped step (W=64, H=3, L=10, F=8,
     T=2^19), all on the plan (no level staged: PERF.md), then the staged
-    route at a 16 KB budget (levels 0 and 1): with the bulk reduce-add
-    flush, under contention, and with the row-atomic flush. Each against
+    route at a 16 KB budget (levels 0 and 1, flushed by bulk reduce-adds),
+    on the batch and under contention. Each against
     the plain version; host-sampled on the batch without its kink rows,
     and drawing in the kernel with the kink allowance, where the batch can
     be drawn."""
@@ -810,11 +810,9 @@ def step_case_checks(dev, vols_c, tseeds, cfg) -> None:
         ("F=2", cfg.replace(n_features_per_level=2), 4, cfg.batch_size, None, ()),
         ("ABLATION W=64 H=3 L=10 F=8 T=2^19", ABLATION, 2, ABLATION.batch_size,
          None, ()),
-        ("staged, bulk flush (budget 16 KB)", cfg, 8, cfg.batch_size, None, ()),
+        ("staged (budget 16 KB)", cfg, 8, cfg.batch_size, None, ()),
         ("staged, contention (budget 16 KB)", cfg, 8, cfg.batch_size,
          (0.30, 0.31), ()),
-        ("staged, row-atomic flush (budget 16 KB)", cfg, 8, cfg.batch_size, None,
-         (fts, "FLUSH_BULK", False)),
     )
     for i, (label, hc, hP, hN, cell, knob) in enumerate(cases):
         res, H = hc.level_resolutions(), hc.n_hidden_layers
@@ -1297,11 +1295,17 @@ def dvnr_phases():
                              dtype=torch.float64)
         check(f"first {COMPARE_STEPS} losses: fused vs {label}", head, other,
               atol=0.0, rtol=1e-4)
-    unfused_ms = uinfo["train_time_s"] * 1e3 / COMPARE_STEPS
-    print(f"  unfused kernel path: {unfused_ms:.4f} ms per step over its "
-          f"{COMPARE_STEPS} steps; fused {ms_step:.4f} (host clock, "
-          f"synchronised) [{tag}]")
-    del rinfo, uinfo
+    # the unfused path warm (its first run above pays its first calls), and
+    # the fused path over the same number of steps
+    _, uinfo = api.train(tparts, cfg, backend="cuda", steps=COMPARE_STEPS,
+                         key=1, log_every=1, fuse_train_step="off")
+    _, finfo = api.train(tparts, cfg, backend="cuda", steps=COMPARE_STEPS,
+                         key=1, log_every=1)
+    print(f"  {COMPARE_STEPS} steps, second run: unfused kernel path "
+          f"{uinfo['train_time_s'] * 1e3 / COMPARE_STEPS:.4f} ms per step, fused "
+          f"{finfo['train_time_s'] * 1e3 / COMPARE_STEPS:.4f} (host clock, "
+          f"synchronised; {TRAIN_STEPS} fused steps above: {ms_step:.4f}) [{tag}]")
+    del rinfo, uinfo, finfo
 
     # ---------------------------------------------------------------- 6
     print(f"== phase 6: per-kernel times at the tick's shapes [{tag}]")
@@ -1569,34 +1573,28 @@ def dvnr_phases():
     print(f"  train_step plan: levels {levels_str(staged, L)} (s staged, d "
           f"direct; slabs {slab_b} B, budget {hops.STEP_STAGE_BUDGET_BYTES} B "
           f"beside the {mlp_b} B MLP tile); {tile} threads x {gx} blocks per "
-          f"partition, {smem} B shared memory per block; flush "
-          f"{'bulk reduce-add' if fts.FLUSH_BULK else 'row atomics'}")
+          f"partition, {smem} B shared memory per block")
     req = scatter_requests(coords_t, res, T, F,
                            [bool(staged >> l & 1) for l in range(L)],
                            [(torch.arange(Nb, device=dev) // tile) % gx] * L)
     n_staged = bin(staged).count("1")
     print(f"  train_step scatter requests per step: {req['direct']:,} global "
-          f"16-byte adds (direct levels), {req['shared']:,} shared row updates, "
-          f"then per block either {n_staged} bulk reduce-adds "
-          f"({TP * gx * n_staged:,} per step) or {req['flush_rows']:,} row "
-          f"atomics per step; the kernel before this design: "
-          f"{req['before']:,} scalar global atomics [{tag}]")
-    # the staging budget and the flush, on the main path's variant
+          f"16-byte adds (direct levels), {req['shared']:,} shared row updates "
+          f"and {TP * gx * n_staged:,} bulk reduce-adds (staged levels); the "
+          f"kernel before this design: {req['before']:,} scalar global "
+          f"atomics [{tag}]")
+    # the staging budget, on the main path's variant
     step_call = lambda: fts.train_step_cuda(tparams, H, res, **sample_kw)
     for b in (0, 16 * 1024, 96 * 1024):
-        for bulk in (True, False):
-            with setting(hops, "STEP_STAGE_BUDGET_BYTES", b), \
-                    setting(fts, "FLUSH_BULK", bulk):
-                plan_b = fts.staged_levels(tparams, H, res)
-                if bulk and not plan_b:
-                    continue   # nothing to flush: one row for both
-                ms = cuda_ms(step_call, reps=20)
-                per = launch_times(step_call, "train_step_kernel")
-            flush = ("bulk" if bulk else "rows") if plan_b else "none"
-            print(f"  train_step budget {b // 1024:3d} KB (levels "
-                  f"{levels_str(plan_b, L)}), flush {flush}: {ms:.4f} ms (events), kernel "
-                  f"alone {'not measured' if per is None else f'{per[0]:.4f} ms'}"
-                  f" (profiler) [{tag}]")
+        with setting(hops, "STEP_STAGE_BUDGET_BYTES", b):
+            plan_b = fts.staged_levels(tparams, H, res)
+            ms = cuda_ms(step_call, reps=20)
+            per = launch_times(step_call, "train_step_kernel")
+        print(f"  train_step budget {b // 1024:3d} KB (levels "
+              f"{levels_str(plan_b, L)}): {ms:.4f} ms (events), kernel alone "
+              f"{'not measured' if per is None else f'{per[0]:.4f} ms'} "
+              f"(profiler){' the plan' if b == hops.STEP_STAGE_BUDGET_BYTES else ''} "
+              f"[{tag}]")
     # the yardstick split: the kernel writes the feature cotangent (its
     # scatter replaced by a 42 MB store), the level-major backward scatters it
     cot = torch.empty((TP, Nb, L * F), device=dev)

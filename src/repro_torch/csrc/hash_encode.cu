@@ -13,18 +13,21 @@
 // PRODUCTION256 partition's tables are 655 KB (8 partitions 5.2 MB), so they
 // stay resident in the 50 MB L2, and the coarse levels in L1.
 //
-// Bound: the corner gathers. The byte bound counts the coordinates in and
-// the features out (12 + 4 L F bytes a point at f32); the 8 L corner rows a
-// point reads (2.7G rows per serving tick, the hashed levels' mostly from
-// L2) set the pace. The design reads each corner row with one vector load
-// (hash_grid.cuh's corner gather: float4 for 4 f32 features, 8 bytes for 4
-// bf16) and keeps the write stream coalesced (thread i writes the F values
-// at i * F). Two other designs were measured on the H100 and lost (PERF.md):
-// one point per thread with all its levels (its stores scatter 16 bytes
-// across each warp's 2,560, and each thread's levels run one after
-// another), and shared-memory staging of the small level tables (a warp
-// holds pairs of every level, so staged and device gathers diverge; the
-// coarse tables sit in L1 anyway).
+// Bound: the byte bound counts the coordinates in and the features out (12
+// + 4 L F bytes a point at f32); what sets the pace is the instructions of
+// each pair's geometry and 8 corners (2.7G corner rows per serving tick),
+// and the hashed levels' rows read from L2. The design reads each corner
+// row with one vector load (hash_grid.cuh's corner gather: float4 for 4 f32
+// features, 8 bytes for 4 bf16), takes the hash's mod T as a mask and the
+// pair's i / L in 32 bits, and keeps the write stream coalesced (thread i
+// writes the F values at i * F). Designs measured on the H100 and not kept
+// (PERF.md): one point per thread with all its levels (its stores scatter
+// 16 bytes across each warp's 2,560, and its levels run one after
+// another), shared-memory staging of the small level tables (a warp holds
+// pairs of every level, so staged and device gathers diverge; the coarse
+// tables sit in L1 anyway), and warps of one level each with the outputs
+// through a shared tile (faster at the tick's shapes by a few percent,
+// slower on a decode chunk).
 //
 // Numerics, as the JAX kernel: the level geometry of hash_grid.cuh (lower
 // corner clamped, offset not: coordinates of rays that miss the box lie far
@@ -71,8 +74,16 @@ __global__ void hash_encode_fwd_kernel(const float* __restrict__ coords,
   const int b = blockIdx.y;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= N * L) return;
-  const long long n = i / L;
-  const int l = (int)(i - n * L);
+  long long n;   // i / L in 32 bits where it fits (a 64-bit division is ~3x
+  int l;         // the instructions, and this kernel is bound by them)
+  if (N * L <= 0xffffffffLL) {
+    const unsigned q = (unsigned)i / (unsigned)L;
+    n = q;
+    l = (int)((unsigned)i - q * (unsigned)L);
+  } else {
+    n = i / L;
+    l = (int)(i - n * L);
+  }
   const float* c = coords + ((long long)b * N + n) * 3;
   const float cc[3] = {__ldg(c), __ldg(c + 1), __ldg(c + 2)};
   const repro::LevelGeom geo = repro::level_geom(cc, __ldg(resolutions + l), T_size);

@@ -39,26 +39,30 @@
 //      the tile's dW summed over its rows in shared memory;
 //   6. the 8-corner table scatter of the feature cotangent, hash_grid.cuh's
 //      scatter_corners: lanes of a warp that hit one row are summed first,
-//      and each group's leader adds the row once, either into the level's
-//      gradient slab in shared memory (staged levels: the wrapper's bitmask
-//      from step_plan, the smallest slabs first within a budget beside the
-//      MLP tile; the block zeroes them at its start) or straight into the
-//      float32 device gradient as one 16-byte atomic per row (the others).
+//      and each group's leader adds the row once, straight into the float32
+//      device gradient as one 16-byte atomic, or into the level's gradient
+//      slab in shared memory for the levels the wrapper's bitmask stages
+//      (step_plan: the smallest slabs first within a budget beside the MLP
+//      tile; the block zeroes them at its start).
 // After its last tile a block adds its dW (one atomicAdd per weight), its
-// loss sum (one atomicAdd) and its staged slabs to device memory: one bulk
-// reduce-add per slab (cp.reduce.async.bulk .add.f32), or, with flush_bulk
-// 0, one 16-byte atomic per nonzero row. AdamW waits for the kernel's end:
-// the grid-wide dependency is the launch boundary. With g_feat given, the
-// kernel stores the feature cotangent there instead of scattering it (the
-// two-launch split with the level-major hash_encode_bwd, a yardstick).
+// loss sum (one atomicAdd) and its staged slabs to device memory, one bulk
+// reduce-add per slab (cp.reduce.async.bulk .add.f32). AdamW waits for the
+// kernel's end: the grid-wide dependency is the launch boundary. With g_feat
+// given, the kernel stores the feature cotangent there instead of
+// scattering it (the two-launch split with the level-major hash_encode_bwd,
+// a yardstick).
 //
-// Bound: the table scatter's atomic requests. Per PRODUCTION256 step (8
-// partitions x 65,536 samples, L=5, F=4) the float work is about 2.3 GFLOP
-// (35 us at the f32 peak) and the bytes about 27 MB (8 us); the scatter is
-// 21M corner adds, of which three dense levels of 125 to 4,913 rows take
-// 12.6M onto a few thousand addresses. The warp pre-reduction and the
-// staged coarse slabs take those off the device memory's atomic units; the
-// hashed levels' adds stay 16-byte atomics, a few million per step.
+// Bound: per PRODUCTION256 step (8 partitions x 65,536 samples, L=5, F=4)
+// the float work is about 2.3 GFLOP (35 us at the f32 peak) and the bytes
+// about 27 MB (8 us). What sets the pace on an H100 is the instructions of
+// the per-sample passes (draws, encode, MLP forward and backward, the dW
+// pass) and the encode's L2 gathers, about 0.34 ms a step, and the
+// scatter's 21M corner adds, about 0.2 ms more. The pre-reduction takes the
+// coarse dense levels' adds (125 to 4,913 rows) off a few hot addresses, and
+// the direct adds are fire-and-forget, so the other warps' MLP work hides
+// them. Staged slabs measured slower (their shared compare-and-swap loops
+// stall the warp, and a slab costs blocks per SM), so step_plan's budget is
+// 0 (PERF.md).
 #include <stdint.h>
 
 #include "common.cuh"
@@ -81,7 +85,7 @@ struct StepArgs {
   float* g_feat;              // (P,N,L*F) or null: see the header
   long long N, T, nx, ny, nz, n_uniform;
   long long staged;           // bit l: level l's gradient slab is staged
-  int L, D_in, n_hidden, n_hid_slab, D_out, ghost, flush_bulk;
+  int L, D_in, n_hidden, n_hid_slab, D_out, ghost;
   int slab_off;               // floats of shared memory before the slabs
   float sigma;
   int res[MAX_LEVELS];
@@ -177,48 +181,28 @@ __device__ __forceinline__ void gather_trilinear(const float* __restrict__ vol,
 
 // After the block's last tile and a __syncthreads(): the staged slabs (in
 // level order, stage_bytes apart) into the partition's device gradient.
+// Thread k sends the k-th staged slab: its 16-byte multiple as one bulk
+// reduce-add, the < 4 floats left as scalar atomics.
 template <int F>
 __device__ void flush_slabs(const StepArgs& a, const float* slabs, float* gtab) {
   const long long T = a.T;
-  if (a.flush_bulk) {
-    // thread k sends the k-th staged slab: its 16-byte multiple as one bulk
-    // reduce-add, the < 4 floats left as scalar atomics
-    repro::hopper::fence_proxy_async_shared();
-    __syncthreads();
-    int k = 0;
-    long long off = 0;
-    for (int l = 0; l < a.L; ++l) {
-      if (!((a.staged >> l) & 1)) continue;
-      if ((int)threadIdx.x == k) {
-        const long long n = repro::level_rows(a.res[l], T) * F;
-        float* dst = gtab + (long long)l * T * F;
-        const long long body = n & ~3LL;
-        if (body) repro::hopper::bulk_reduce_add_f32(dst, slabs + off, (unsigned)(body * 4));
-        for (long long i = body; i < n; ++i) atomicAdd(dst + i, slabs[off + i]);
-      }
-      off += repro::stage_bytes(a.res[l], T, F * 4) / 4;
-      ++k;
-    }
-    if ((int)threadIdx.x < k) repro::hopper::bulk_commit_and_wait_read();
-  } else {
-    long long off = 0;
-    for (int l = 0; l < a.L; ++l) {
-      if (!((a.staged >> l) & 1)) continue;
-      const long long rows = repro::level_rows(a.res[l], T);
+  repro::hopper::fence_proxy_async_shared();
+  __syncthreads();
+  int k = 0;
+  long long off = 0;
+  for (int l = 0; l < a.L; ++l) {
+    if (!((a.staged >> l) & 1)) continue;
+    if ((int)threadIdx.x == k) {
+      const long long n = repro::level_rows(a.res[l], T) * F;
       float* dst = gtab + (long long)l * T * F;
-      for (long long row = threadIdx.x; row < rows; row += blockDim.x) {
-        float v[F];
-        bool any = false;
-#pragma unroll
-        for (int f = 0; f < F; ++f) {
-          v[f] = slabs[off + row * F + f];
-          any |= v[f] != 0.0f;
-        }
-        if (any) repro::atomic_add_row<F>(dst + row * F, v);
-      }
-      off += repro::stage_bytes(a.res[l], T, F * 4) / 4;
+      const long long body = n & ~3LL;
+      if (body) repro::hopper::bulk_reduce_add_f32(dst, slabs + off, (unsigned)(body * 4));
+      for (long long i = body; i < n; ++i) atomicAdd(dst + i, slabs[off + i]);
     }
+    off += repro::stage_bytes(a.res[l], T, F * 4) / 4;
+    ++k;
   }
+  if ((int)threadIdx.x < k) repro::hopper::bulk_commit_and_wait_read();
 }
 
 template <int W, int F, bool SAMPLING>
@@ -404,14 +388,13 @@ bool valid_levels(int L, int F, long long T, long long staged) {
 // outputs of |pred - target|. g_feat: null, or (P,N,L*F) f32 that takes the
 // feature cotangent instead of g_tab. resolutions (L,) i32 in HOST memory,
 // L <= 32; staged: bit l stages level l's gradient slab in shared memory
-// (T x F a multiple of 4); flush_bulk: flush the slabs by bulk reduce-add,
-// else by 16-byte row atomics.
+// (T x F a multiple of 4).
 extern "C" int repro_train_step(
     const void* coords, const void* target, const void* volumes,
     const void* seeds, const void* tab, const void* win, const void* whid,
     const void* wout, void* g_tab, void* g_win, void* g_whid, void* g_wout,
     void* loss_sum, void* g_feat, const void* resolutions, long long staged,
-    int flush_bulk, long long P, long long N, int L, long long T, int F, int W,
+    long long P, long long N, int L, long long T, int F, int W,
     int n_hidden, int n_hid_slab, int D_out, long long nx, long long ny,
     long long nz, int ghost, long long n_uniform, float sigma, int sampling,
     void* stream) {
@@ -446,7 +429,7 @@ extern "C" int repro_train_step(
   a.N = N; a.T = T; a.nx = nx; a.ny = ny; a.nz = nz; a.n_uniform = n_uniform;
   a.staged = staged;
   a.L = L; a.D_in = L * F; a.n_hidden = n_hidden; a.n_hid_slab = n_hid_slab;
-  a.D_out = D_out; a.ghost = ghost; a.flush_bulk = flush_bulk;
+  a.D_out = D_out; a.ghost = ghost;
   a.slab_off = sh.slab_off; a.sigma = sigma;
   for (int l = 0; l < L; ++l) a.res[l] = res[l];
   cudaStream_t s = static_cast<cudaStream_t>(stream);

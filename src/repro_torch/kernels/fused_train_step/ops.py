@@ -27,9 +27,8 @@ partition axis is a kernel grid axis, not a loop.
 """
 from __future__ import annotations
 
-from typing import Sequence
-
 import ctypes
+from typing import Sequence
 
 import torch
 
@@ -39,14 +38,12 @@ from repro_torch.data.volume import sample_trilinear_batched
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_mlp.ops import KERNEL_WIDTHS
 from repro_torch.kernels.fused_train_step import ref as _ref
-from repro_torch.kernels.hash_encoding.ops import levels_arg, step_plan
+from repro_torch.kernels.hash_encoding.ops import (BLOCK_SMEM_BYTES,
+                                                   levels_arg, step_plan)
 from repro_torch.optim.adamw import AdamW, OptConfig, bias_corrections
 from repro_torch.precision import torch_dtype
 
 STATE_KEYS = ("tab", "win", "whid", "wout")
-#: flush the train step's staged gradient slabs with one bulk reduce-add
-#: each (True) or one 16-byte atomic per nonzero row (False)
-FLUSH_BULK = True
 
 
 def _hid_slab(hid):
@@ -173,7 +170,7 @@ def mlp_tile_bytes(D_in: int, W: int, n_hidden: int, D_out: int) -> int:
     for tile in (128, 64, 32):
         floats = 2 * n_w + tile * (odd(D_in) + 2 * n_hidden * odd(W)
                                    + odd(D_out) + 1)
-        if floats * 4 <= 232_448:
+        if floats * 4 <= BLOCK_SMEM_BYTES:
             return -(-floats * 4 // 16) * 16
     raise ValueError(f"no MLP tile of D_in={D_in}, W={W}, H={n_hidden} fits "
                      "a block's shared memory")
@@ -271,7 +268,7 @@ def train_step_cuda(flat_p, n_hidden: int, resolutions: Sequence[int], *,
     err = lib.repro_train_step(
         *(ptr(t) for t in batch), *(t.data_ptr() for t in state),
         *(grads[k].data_ptr() for k in STATE_KEYS), loss_sum.data_ptr(),
-        ptr(cotangent_out), ctypes.addressof(res_h), staged, int(FLUSH_BULK),
+        ptr(cotangent_out), ctypes.addressof(res_h), staged,
         P, N, L, T, F, W, n_hidden, flat_p["whid"].shape[1], D_out, nx, ny,
         nz, int(ghost), int(n_uniform), float(sigma), int(sampling),
         torch.cuda.current_stream(dev).cuda_stream)

@@ -14,7 +14,6 @@ routed per level by ``bwd_plan``.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Sequence
 
 import torch
@@ -55,38 +54,29 @@ def bwd_plan(resolutions: Sequence[int], T: int, F: int) -> list:
     return [level_rows(r, T) * F * 4 <= STAGE_BUDGET_BYTES for r in resolutions]
 
 
-@functools.lru_cache(maxsize=256)
-def _stage_smallest_first(resolutions: tuple, T: int, row_bytes: int,
-                          budget: int) -> int:
-    """Bitmask of the levels whose slabs (``level_rows`` x ``row_bytes``,
-    rounded up to 16 bytes as the kernels lay them out) fit ``budget``
-    together, taken smallest first: the coarse levels, whose few rows take
-    the most contention and the most reads. None when the levels' tables
-    do not start on 16-byte boundaries (T x row bytes not a multiple of 16:
-    the bulk copies need them)."""
-    if (int(T) * row_bytes) % 16:
+def step_plan(resolutions: Sequence[int], T: int, F: int,
+              mlp_bytes: int) -> int:
+    """The train-step kernel's staged levels, as the bitmask its C entry
+    takes: the float32 gradient slabs (``level_rows`` x F x 4 bytes, each
+    rounded up to 16 as the kernel lays them out) that fit
+    ``STEP_STAGE_BUDGET_BYTES`` together and, beside the ``mlp_bytes`` of
+    the kernel's MLP tile, one block's shared memory, taken smallest first:
+    the coarse levels, whose few rows take the most contention; no level
+    when T x F is not a multiple of 4 (the slabs' bulk flush needs 16-byte
+    aligned levels). The other levels' rows go straight to the device
+    gradient."""
+    budget = min(STEP_STAGE_BUDGET_BYTES, BLOCK_SMEM_BYTES - int(mlp_bytes))
+    if (int(T) * F) % 4:
         return 0
-    sizes = [(-(-level_rows(r, T) * row_bytes // 16) * 16, l)
-             for l, r in enumerate(resolutions) if l < MAX_LEVELS]
+    sizes = sorted((-(-level_rows(r, T) * F * 4 // 16) * 16, l)
+                   for l, r in enumerate(resolutions))
     mask = used = 0
-    for size, l in sorted(sizes):
+    for size, l in sizes:
         if used + size > budget:
             break
         mask |= 1 << l
         used += size
     return mask
-
-
-def step_plan(resolutions: Sequence[int], T: int, F: int,
-              mlp_bytes: int) -> int:
-    """The train-step kernel's staged levels, as the bitmask its C entry
-    takes: the smallest float32 gradient slabs that fit
-    ``STEP_STAGE_BUDGET_BYTES`` and, beside the ``mlp_bytes`` of the
-    kernel's MLP tile, one block's shared memory. The other levels' rows go
-    straight to the device gradient."""
-    budget = min(STEP_STAGE_BUDGET_BYTES, BLOCK_SMEM_BYTES - int(mlp_bytes))
-    return _stage_smallest_first(tuple(int(r) for r in resolutions), int(T),
-                                 F * 4, budget)
 
 
 def levels_arg(resolutions: Sequence[int]):
