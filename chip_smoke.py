@@ -1559,7 +1559,7 @@ def dvnr_phases():
     print(f"  hash_encode_bwd atomic requests per call: "
           f"{req['direct'] + req['flush_rows']:,} global (16-byte rows), "
           f"{req['shared']:,} shared (row compare-and-swap loops); the kernel "
-          f"before PR 14: {req['before']:,} scalar global [{tag}]")
+          f"before this design: {req['before']:,} scalar global [{tag}]")
 
     # the train step's plan, its launch shape and its scatter's requests
     staged = fts.staged_levels(tparams, H, res)
