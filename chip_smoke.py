@@ -625,17 +625,9 @@ def scatter_requests(coords, res, T: int, F: int, plan, blocks) -> dict:
             "before": 8 * F * len(res) * B * N}
 
 
-def levels_str(mask: int, L: int) -> str:
-    """A staging bitmask as one letter per level: s staged, d direct."""
-    return "".join("s" if mask >> l & 1 else "d" for l in range(L))
-
-
 @contextlib.contextmanager
-def setting(module=None, name=None, value=None):
-    """``module.name = value`` for the block (nothing when no module)."""
-    if module is None:
-        yield
-        return
+def setting(module, name, value):
+    """``module.name = value`` for the block."""
     old = getattr(module, name)
     setattr(module, name, value)
     try:
@@ -663,204 +655,162 @@ def step_params(hc, P: int, dev, seed: int) -> dict:
             "wout": u((P, W, D_out), (6.0 / W) ** 0.5)}
 
 
-def step_kinks(params, H, res, coords, target, rel) -> dict:
-    """The train step's forward in float64 and its kinks: where a ReLU
-    pre-activation, or the residual pred - target, of a sample lies within
-    ``rel`` (a number, or per sample (P,N,1)) of the summed magnitude of its
-    terms. There two float32 evaluations that sum in another order (the
-    kernel, the plain version), or draw a coordinate a few ulp apart, may
-    take either side, and the gradient has no value to hold them to."""
+def step_pred(params, H, res, coords):
+    """The train step's forward in float64: the (P,N,D_out) predictions."""
     import torch
     from repro_torch.kernels.fused_train_step import ops as fts
     from repro_torch.kernels.hash_encoding.ref import hash_encode_batched_ref
     f64 = torch.float64
-    ws = [w.to(f64) for w in fts._unpack(params, H)["mlp"]]
     part = torch.arange(coords.shape[0], device=coords.device)
-    acts = [hash_encode_batched_ref(coords, params["tab"].to(f64), res, part)
-            .to(f64)]
-    masks, kinks = [], []
-    for w in ws[:-1]:
-        z = acts[-1] @ w
-        masks.append(z > 0)
-        kinks.append(z.abs() <= rel * (acts[-1].abs() @ w.abs()))
-        acts.append(torch.relu(z))
-    t64 = target.to(f64)
-    diff = acts[-1] @ ws[-1] - t64
-    return {"ws": ws, "acts": acts, "masks": masks, "kinks": kinks, "diff": diff,
-            "res_kink": diff.abs() <= rel * (acts[-1].abs() @ ws[-1].abs()
-                                             + t64.abs())}
+    a = hash_encode_batched_ref(coords, params["tab"].to(f64), res, part)
+    for w in fts._unpack(params, H)["mlp"][:-1]:
+        a = torch.relu(a @ w.to(f64))
+    return a @ params["wout"].to(f64)
 
 
-def kink_free_batch(params, H, res, coords, target, rel=2.0 ** -16):
-    """The host-sampled batch without its samples at a kink (``step_kinks``):
-    the first N' kink-free rows of every partition, N' the fewest any
-    partition has. Returns (coords, target, rows dropped per partition)."""
+def step_grads_f64(params, H, res, coords, target):
+    """The plain version's function in float64: the gradients (rounded to
+    float32) and the per-partition loss sum, every product and sum in
+    float64, each ReLU and each residual's sign taken as the float32 plain
+    version's forward takes them. Where the two evaluations disagree, the
+    unit's input lies within float32 rounding of 0 and either side is a
+    gradient of the function; the count of such units is returned too."""
     import torch
-    k = step_kinks(params, H, res, coords, target, rel)
-    bad = k["res_kink"].any(-1)
-    for kl in k["kinks"]:
-        bad |= kl.any(-1)
-    n = int((~bad).sum(1).min())
-    idx = torch.argsort(bad.to(torch.int8), dim=1, stable=True)[:, :n]
-    return (torch.gather(coords, 1, idx[..., None].expand(-1, -1, 3)),
-            torch.gather(target, 1, idx[..., None].expand(-1, -1, target.shape[2])),
-            coords.shape[1] - n)
-
-
-def kink_slack(params, H, res, coords, target, rel) -> dict:
-    """Per-entry allowances for the train step's gradients (the packed
-    shapes) at the kinks of its loss (``step_kinks``): at a kink a sample's
-    gradient may differ by the flipped unit's path, |dL/da| of the unit
-    (2 / (N D_out) for a residual) through everything below it. The
-    allowance bounds the sum of those differences with one backward pass,
-    in float64, through the network with absolute weights and inputs, a
-    unit's mask counting as open where it is open or at a kink. Training
-    coordinates lie in [0,1], where the corner weights are >= 0. Like the
-    flash check's p_rounding_slack, it widens the limit only where the
-    function has a kink within float32 reach of its inputs."""
-    import torch
-    from repro_torch.kernels.hash_encoding.ref import hash_encode_batched_bwd_ref
+    from repro_torch.kernels.fused_train_step import ops as fts
+    from repro_torch.kernels.hash_encoding.ref import (
+        hash_encode_batched_bwd_ref, hash_encode_batched_ref)
+    f64 = torch.float64
     P, N, _ = coords.shape
     D_out = target.shape[-1]
-    k = step_kinks(params, H, res, coords, target, rel)
-    ws, acts, masks, kinks = k["ws"], k["acts"], k["masks"], k["kinks"]
-    # dL/da of every hidden layer, the plain version's masks and signs
-    ups, u = [None] * H, (torch.sign(k["diff"]) / (N * D_out)) @ ws[-1].transpose(1, 2)
-    for l in range(H - 1, -1, -1):
-        ups[l] = u
-        u = (u * masks[l]) @ ws[l].transpose(1, 2)
-    # the allowance: the kinks' cotangents backpropagated through |W|
-    c_out = k["res_kink"].to(torch.float64) * (2.0 / (N * D_out))
-    slack_w = [None] * (H + 1)
-    slack_w[H] = acts[H].transpose(1, 2) @ c_out
-    b = c_out @ ws[H].abs().transpose(1, 2)
-    for l in range(H - 1, -1, -1):
-        bz = b * (masks[l] | kinks[l]) + ups[l].abs() * kinks[l]
-        slack_w[l] = acts[l].abs().transpose(1, 2) @ bz
-        b = bz @ ws[l].abs().transpose(1, 2)
-    hid = slack_w[1:H]
     part = torch.arange(P, device=coords.device)
-    out = {"tab": hash_encode_batched_bwd_ref(b, coords, res, part,
-                                              tuple(params["tab"].shape)),
-           "win": slack_w[0],
-           "whid": (torch.stack(hid, 1) if hid
-                    else torch.zeros_like(params["whid"], dtype=torch.float64)),
-           "wout": slack_w[H]}
-    return {k: v.float() for k, v in out.items()}
+    ws32 = fts._unpack(params, H)["mlp"]
+    ws = [w.to(f64) for w in ws32]
+    h32 = hash_encode_batched_ref(coords, params["tab"], res, part)
+    acts = [hash_encode_batched_ref(coords, params["tab"].to(f64), res, part)]
+    masks, ties = [], 0
+    for w32, w in zip(ws32[:-1], ws[:-1]):
+        z32 = torch.matmul(h32, w32)
+        h32 = torch.relu(z32)
+        z = acts[-1] @ w
+        masks.append(z32 > 0)
+        ties += int(((z > 0) != masks[-1]).sum())
+        acts.append(z * masks[-1])
+    diff = acts[-1] @ ws[-1] - target.to(f64)
+    sign = torch.sign(torch.matmul(h32, ws32[-1]) - target)
+    ties += int((torch.sign(diff) != sign).sum())
+    d = sign.to(f64) / (N * D_out)
+    dw = [None] * (H + 1)
+    dw[H] = acts[H].transpose(1, 2) @ d
+    d = d @ ws[H].transpose(1, 2)
+    for l in range(H - 1, -1, -1):
+        d = d * masks[l]
+        dw[l] = acts[l].transpose(1, 2) @ d
+        d = d @ ws[l].transpose(1, 2)
+    grads = {"tab": hash_encode_batched_bwd_ref(d, coords, res, part,
+                                                tuple(params["tab"].shape)),
+             "win": dw[0],
+             "whid": (torch.stack(dw[1:H], 1) if H > 1
+                      else torch.zeros_like(params["whid"], dtype=f64)),
+             "wout": dw[H]}
+    return ({k: v.float() for k, v in grads.items()},
+            diff.abs().sum((1, 2))), ties
 
 
-def sampling_rel(N: int, n_uniform: int, dev):
-    """``step_kinks``' margin per sample for the in-kernel draws: 2^-16 on
-    the uniform rows (bit-exact draws: two float32 evaluations that sum in
-    another order differ by a few ulp of the terms' magnitude), 2^-11 on
-    the boundary rows, whose coordinates come out of logf / cosf a few ulp
-    apart (an ulp of a coordinate moves a fine level's features by its
-    resolution times the table's slope)."""
-    import torch
-    rel = torch.full((1, N, 1), 2.0 ** -16, dtype=torch.float64, device=dev)
-    rel[:, n_uniform:] = 2.0 ** -11
-    return rel
+def step_wants(params, H, res, coords, target) -> dict:
+    """The train step's two yardsticks on this batch: the plain version as
+    it runs (float32) and its function in float64 (``step_grads_f64``)."""
+    from repro_torch.kernels.fused_train_step import ref as fts_ref
+    want64, ties = step_grads_f64(params, H, res, coords, target)
+    return {"float32 plain": fts_ref.train_step_grads_ref(params, H, res, coords,
+                                                          target),
+            "float64": want64, "ties": ties}
 
 
-def check_step(label, params, H, res, want, slack=None, keys=None,
-               **batch) -> float:
-    """The train-step kernel on ``batch`` against the plain version's
-    (grads, loss sum) ``want``: each gradient within 2e-5 x its largest
-    |entry| (float32 sums in an order that atomics change from run to run;
-    in-kernel draws: uniform rows bit-exact, boundary rows within a few ulp
-    of logf/cosf), plus the ``kink_slack`` allowance where given; the loss
-    sum (continuous at the kinks) within 1e-5 relative. ``keys``: the
-    gradients held (all four by default)."""
+def check_step_grads(label, H, got_g, got_loss, wants, keys=None) -> float:
+    """The train step's gradients and loss sum against both yardsticks of
+    ``step_wants``: each gradient within 2e-5 x its largest |entry|
+    (float32 sums in an order that atomics change from run to run; in-kernel
+    draws: uniform rows bit-exact, boundary rows within a few ulp of
+    logf/cosf), the loss sum within 1e-5 relative. Prints, per gradient, the
+    departures from each yardstick as fractions of that limit, and the
+    float32 plain version's from float64."""
+    from repro_torch.kernels.fused_train_step import ops as fts
+    keys = keys or [k for k in fts.STATE_KEYS if k != "whid" or H > 1]
+    w32, w64 = wants["float32 plain"][0], wants["float64"][0]
+    frac = lambda a, b, k: float((a[k] - b[k]).abs().max()) / (
+        2e-5 * float(b[k].abs().max()))
+    print(f"  train_step ({label}): kernel's departure / limit from the float32 "
+          f"plain version, from float64 (the float32 plain version's from "
+          f"float64): " + ", ".join(
+              f"{k} {frac(got_g, w32, k):.4f}, {frac(got_g, w64, k):.4f} "
+              f"({frac(w32, w64, k):.4f})" for k in keys)
+          + f"; {wants['ties']} float32 ties")
+    err = 0.0
+    for name in ("float32 plain", "float64"):
+        want, want_loss = wants[name]
+        for k in keys:
+            err = max(err, check(f"train_step ({label}) grad {k} vs {name}",
+                                 got_g[k], want[k],
+                                 atol=2e-5 * float(want[k].abs().max())))
+        check(f"train_step ({label}) loss sum vs {name}", got_loss, want_loss,
+              atol=0.0, rtol=1e-5)
+    return err
+
+
+def check_step(label, params, H, res, wants, **batch) -> float:
+    """The train-step kernel on ``batch`` held by ``check_step_grads``."""
     from repro_torch.kernels.fused_train_step import ops as fts
     got_g, got_loss = fts.train_step_cuda(params, H, res, **batch)
-    err = 0.0
-    for k in keys or fts.STATE_KEYS:
-        if k == "whid" and H == 1:
-            continue
-        err = max(err, check(f"train_step ({label}) grad {k}", got_g[k],
-                             want[0][k], atol=2e-5 * float(want[0][k].abs().max()),
-                             slack=None if slack is None else slack[k]))
-    check(f"train_step ({label}) loss sum", got_loss, want[1], atol=0.0, rtol=1e-5)
-    return err
+    return check_step_grads(label, H, got_g, got_loss, wants)
 
 
 def step_case_checks(dev, vols_c, tseeds, cfg) -> None:
     """Phase 2's further train-step cases: every sample in one coarse cell
     (the warp pre-reduction under contention), PRODUCTION's T=2^16, F=1 (a
     ragged batch) and F=2, an ABLATION-shaped step (W=64, H=3, L=10, F=8,
-    T=2^19), all on the plan (no level staged: PERF.md), then the staged
-    route at a 16 KB budget (levels 0 and 1, flushed by bulk reduce-adds),
-    on the batch and under contention. Each against
-    the plain version; host-sampled on the batch without its kink rows,
-    and drawing in the kernel with the kink allowance, where the batch can
-    be drawn."""
+    T=2^19). Each held by ``check_step``, host-sampled and, where the batch
+    can be drawn, drawing in the kernel."""
     import numpy as np
     import torch
     from repro_torch.configs.dvnr import ABLATION, PRODUCTION
     from repro_torch.core.sampling import n_boundary
-    from repro_torch.kernels.fused_train_step import ops as fts
     from repro_torch.kernels.fused_train_step import ref as fts_ref
-    from repro_torch.kernels.hash_encoding import ops as hops
 
     rng = np.random.default_rng(5)
     cases = (
-        ("contention: one coarse cell", cfg, 8, cfg.batch_size, (0.30, 0.31), ()),
-        ("PRODUCTION T=2^16", PRODUCTION, 8, PRODUCTION.batch_size, None, ()),
-        ("F=1, N=40,009", cfg.replace(n_features_per_level=1), 8, 40_009, None, ()),
-        ("F=2", cfg.replace(n_features_per_level=2), 4, cfg.batch_size, None, ()),
+        ("contention: one coarse cell", cfg, 8, cfg.batch_size, (0.30, 0.31)),
+        ("PRODUCTION T=2^16", PRODUCTION, 8, PRODUCTION.batch_size, None),
+        ("F=1, N=40,009", cfg.replace(n_features_per_level=1), 8, 40_009, None),
+        ("F=2", cfg.replace(n_features_per_level=2), 4, cfg.batch_size, None),
         ("ABLATION W=64 H=3 L=10 F=8 T=2^19", ABLATION, 2, ABLATION.batch_size,
-         None, ()),
-        ("staged (budget 16 KB)", cfg, 8, cfg.batch_size, None, ()),
-        ("staged, contention (budget 16 KB)", cfg, 8, cfg.batch_size,
-         (0.30, 0.31), ()),
+         None),
     )
-    for i, (label, hc, hP, hN, cell, knob) in enumerate(cases):
+    for i, (label, hc, hP, hN, cell) in enumerate(cases):
         res, H = hc.level_resolutions(), hc.n_hidden_layers
         params = step_params(hc, hP, dev, seed=100 + i)
-        budget = 16 * 1024 if "16 KB" in label else hops.STEP_STAGE_BUDGET_BYTES
-        with setting(*knob), setting(hops, "STEP_STAGE_BUDGET_BYTES", budget):
-            staged = fts.staged_levels(params, H, res)
-            label = f"{label}, levels {levels_str(staged, len(res))}"
-            if cell is None:
-                n_uni = hN - n_boundary(hN, hc.boundary_lambda)
-                draw = dict(n_batch=hN, n_uniform=n_uni, sigma=hc.boundary_sigma,
-                            ghost=1)
-                coords, target = fts_ref.sample_batch(
-                    vols_c[:hP], tseeds[:hP], n_batch=hN,
-                    boundary_lambda=hc.boundary_lambda, sigma=hc.boundary_sigma,
-                    ghost=1)
-            else:
-                # targets above every prediction: the cotangents share one
-                # sign, so the sums into the cell's rows do not cancel
-                coords = torch.as_tensor(rng.uniform(*cell, (hP, hN, 3)),
-                                         dtype=torch.float32, device=dev)
-                zero = torch.zeros((hP, hN, 1), device=dev)
-                pred = step_kinks(params, H, res, coords, zero, 0.0)["diff"]
-                target = torch.full_like(zero, float(pred.max()) + 1.0)
-            kc, kt, dropped = kink_free_batch(params, H, res, coords, target)
-            # In one cell the 65,536 samples are near-copies: the plain
-            # version's float32 index_add_ adds 65,536 terms into each of 8
-            # rows one after another and is itself ~1e-5 off, so the cell is
-            # held to the same function in float64; and each sample's
-            # float32 rounding in the MLP backward (large where a delta's
-            # dot product cancels) repeats in every sample instead of
-            # averaging out, so the MLP weight gradients miss 2e-5 of their
-            # largest entry in any float32 order. The cell holds what it is
-            # for, the table gradient, and the loss sum (PERF.md).
-            ref_p, ref_c, ref_t = ((params, kc, kt) if cell is None else (
-                {k: v.double() for k, v in params.items()}, kc.double(), kt.double()))
-            check_step(f"{label}, host-sampled, {dropped} kink rows out", params,
-                       H, res, fts_ref.train_step_grads_ref(ref_p, H, res, ref_c, ref_t),
-                       keys=fts.STATE_KEYS if cell is None else ("tab",),
-                       coords=kc, target=kt)
-            if cell is None:
-                slack = kink_slack(params, H, res, coords, target,
-                                   sampling_rel(hN, n_uni, dev))
-                check_step(f"{label}, in-kernel sampling", params, H, res,
-                           fts_ref.train_step_grads_ref(params, H, res, coords,
-                                                        target),
-                           slack, volumes=vols_c[:hP], seeds=tseeds[:hP], **draw)
-        del params, coords, target
+        if cell is None:
+            n_uni = hN - n_boundary(hN, hc.boundary_lambda)
+            draw = dict(n_batch=hN, n_uniform=n_uni, sigma=hc.boundary_sigma,
+                        ghost=1)
+            coords, target = fts_ref.sample_batch(
+                vols_c[:hP], tseeds[:hP], n_batch=hN,
+                boundary_lambda=hc.boundary_lambda, sigma=hc.boundary_sigma,
+                ghost=1)
+        else:
+            # targets above every prediction: the cotangents share one
+            # sign, so the sums into the cell's rows do not cancel
+            coords = torch.as_tensor(rng.uniform(*cell, (hP, hN, 3)),
+                                     dtype=torch.float32, device=dev)
+            target = torch.full(
+                (hP, hN, 1), float(step_pred(params, H, res, coords).max()) + 1.0,
+                device=dev)
+        wants = step_wants(params, H, res, coords, target)
+        check_step(f"{label}, host-sampled", params, H, res, wants,
+                   coords=coords, target=target)
+        if cell is None:
+            check_step(f"{label}, in-kernel sampling", params, H, res, wants,
+                       volumes=vols_c[:hP], seeds=tseeds[:hP], **draw)
+        del params, coords, target, wants
     torch.cuda.synchronize()
 
 
@@ -1102,18 +1052,12 @@ def dvnr_phases():
                                   atol=2e-6 * max(1e-30, float(dx_p.abs().max())))
     for i, (a, b) in enumerate(zip(dws_k, dws_p)):
         check(f"fused_mlp_bwd dW[{i}]", a, b, atol=2e-5 * float(b.abs().max()))
-    want_g, want_loss = fts_ref.train_step_grads_ref(tparams, H, res, coords_t,
-                                                     target_t)
-    slack_t = kink_slack(tparams, H, res, coords_t, target_t,
-                         sampling_rel(Nb, n_uni, dev))
-    kc, kt, dropped = kink_free_batch(tparams, H, res, coords_t, target_t)
+    wants_t = step_wants(tparams, H, res, coords_t, target_t)
     errs["train_step"] = max(
-        check_step(f"host-sampled batch, {dropped} kink rows out", tparams, H,
-                   res, fts_ref.train_step_grads_ref(tparams, H, res, kc, kt),
-                   coords=kc, target=kt),
-        check_step("in-kernel sampling", tparams, H, res, (want_g, want_loss),
-                   slack_t, volumes=vols_c, seeds=tseeds, **draw))
-    del kc, kt
+        check_step("host-sampled batch", tparams, H, res, wants_t,
+                   coords=coords_t, target=target_t),
+        check_step("in-kernel sampling", tparams, H, res, wants_t,
+                   volumes=vols_c, seeds=tseeds, **draw))
     got_g, got_loss = fts.train_step_cuda(tparams, H, res, volumes=vols_c,
                                           seeds=tseeds, **draw)
     # the two-launch split (the kernel writes the feature cotangent, the
@@ -1122,11 +1066,9 @@ def dvnr_phases():
     split_g, split_loss = fts.train_step_cuda(tparams, H, res, cotangent_out=cot,
                                               volumes=vols_c, seeds=tseeds, **draw)
     split_g["tab"] = hash_encode_bwd_cuda(cot, coords_t, res, rows_t, (TP, L, T, F))
-    check("train_step split (cotangent + hash_encode_bwd) grad tab",
-          split_g["tab"], want_g["tab"], atol=2e-5 * float(want_g["tab"].abs().max()),
-          slack=slack_t["tab"])
-    check("train_step split loss sum", split_loss, want_loss, atol=0.0, rtol=1e-5)
-    del cot, split_g, split_loss
+    check_step_grads("split: cotangent + hash_encode_bwd", H, split_g, split_loss,
+                     wants_t, keys=["tab"])
+    del cot, split_g, split_loss, wants_t
     step_case_checks(dev, vols_c, tseeds, cfg)
     adam = AdamW(_opt_config(cfg, resolve_precision(cfg.precision)))
     sched = fts.schedule_table(torch.zeros(TP, dtype=torch.int32, device=dev),
@@ -1561,40 +1503,20 @@ def dvnr_phases():
           f"{req['shared']:,} shared (row compare-and-swap loops); the kernel "
           f"before this design: {req['before']:,} scalar global [{tag}]")
 
-    # the train step's plan, its launch shape and its scatter's requests
-    staged = fts.staged_levels(tparams, H, res)
+    # the train step's launch shape and its scatter's requests (every level
+    # straight to device memory: staged slabs measured slower, PERF.md)
     shape = (ctypes.c_longlong * 3)()
     build.check(build.library().repro_train_step_shape(
-        ctypes.addressof(hops.levels_arg(res)), staged, TP, Nb, L, T, F, W, H,
-        D_out, ctypes.addressof(shape)), "repro_train_step_shape")
+        TP, Nb, L, F, W, H, D_out, ctypes.addressof(shape)),
+        "repro_train_step_shape")
     tile, gx, smem = list(shape)
-    mlp_b = fts.mlp_tile_bytes(D_in, W, H, D_out)
-    slab_b = [hops.level_rows(r, T) * F * 4 for r in res]
-    print(f"  train_step plan: levels {levels_str(staged, L)} (s staged, d "
-          f"direct; slabs {slab_b} B, budget {hops.STEP_STAGE_BUDGET_BYTES} B "
-          f"beside the {mlp_b} B MLP tile); {tile} threads x {gx} blocks per "
+    print(f"  train_step: levels all direct; {tile} threads x {gx} blocks per "
           f"partition, {smem} B shared memory per block")
-    req = scatter_requests(coords_t, res, T, F,
-                           [bool(staged >> l & 1) for l in range(L)],
-                           [(torch.arange(Nb, device=dev) // tile) % gx] * L)
-    n_staged = bin(staged).count("1")
+    req = scatter_requests(coords_t, res, T, F, [False] * L, [None] * L)
     print(f"  train_step scatter requests per step: {req['direct']:,} global "
-          f"16-byte adds (direct levels), {req['shared']:,} shared row updates "
-          f"and {TP * gx * n_staged:,} bulk reduce-adds (staged levels); the "
-          f"kernel before this design: {req['before']:,} scalar global "
-          f"atomics [{tag}]")
-    # the staging budget, on the main path's variant
+          f"16-byte adds, no shared updates; the kernel before this design: "
+          f"{req['before']:,} scalar global atomics [{tag}]")
     step_call = lambda: fts.train_step_cuda(tparams, H, res, **sample_kw)
-    for b in (0, 16 * 1024, 96 * 1024):
-        with setting(hops, "STEP_STAGE_BUDGET_BYTES", b):
-            plan_b = fts.staged_levels(tparams, H, res)
-            ms = cuda_ms(step_call, reps=20)
-            per = launch_times(step_call, "train_step_kernel")
-        print(f"  train_step budget {b // 1024:3d} KB (levels "
-              f"{levels_str(plan_b, L)}): {ms:.4f} ms (events), kernel alone "
-              f"{'not measured' if per is None else f'{per[0]:.4f} ms'} "
-              f"(profiler){' the plan' if b == hops.STEP_STAGE_BUDGET_BYTES else ''} "
-              f"[{tag}]")
     # the yardstick split: the kernel writes the feature cotangent (its
     # scatter replaced by a 42 MB store), the level-major backward scatters it
     cot = torch.empty((TP, Nb, L * F), device=dev)
@@ -1606,14 +1528,16 @@ def dvnr_phases():
         return hash_encode_bwd_cuda(cot, coords_t, res, rows_t, (TP, L, T, F))
 
     ms_fused = cuda_ms(step_call, reps=20)
+    per_fused = launch_times(step_call, "train_step_kernel")
     ms_split = cuda_ms(split_call, reps=20)
     ms_cot = cuda_ms(cot_call, reps=20)
     per_cot = launch_times(cot_call, "train_step_kernel")
-    print(f"  train_step fused {ms_fused:.4f} ms; the split (kernel writing the "
-          f"feature cotangent + hash_encode_bwd) {ms_split:.4f} ms; the kernel "
+    alone = lambda per: "not measured" if per is None else f"{per[0]:.4f} ms"
+    print(f"  train_step fused {ms_fused:.4f} ms, alone {alone(per_fused)}; the "
+          f"split (kernel writing the feature cotangent + hash_encode_bwd) "
+          f"{ms_split:.4f} ms; the kernel "
           f"without its scatter (writing the cotangent) {ms_cot:.4f} ms, alone "
-          f"{'not measured' if per_cot is None else f'{per_cot[0]:.4f} ms'} "
-          f"(events; profiler) [{tag}]")
+          f"{alone(per_cot)} (events; profiler) [{tag}]")
     del cot
     # AdamW with the L2 flushed before each launch, as a step finds its
     # 36.8 MB of state after the train step's kernel

@@ -22,11 +22,6 @@
 // swap per 4 features: the card has no shared float atomic add) or straight
 // into the device gradient (one 16-byte atomicAdd per row of 4 features:
 // float2 for F=2, two float4 for F=8, a scalar for F=1).
-//
-// A staged level's gradient slab takes level_rows x the row's bytes of
-// shared memory, rounded up to 16 (stage_bytes), in level order: the train
-// step and its wrapper's plan (hash_encoding/ops.py step_plan) share that
-// rule.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -55,13 +50,6 @@ __host__ __device__ __forceinline__ bool level_dense(int res, long long T) {
 __host__ __device__ __forceinline__ long long level_rows(int res, long long T) {
   const long long r1 = (long long)res + 1;
   return level_dense(res, T) ? r1 * r1 * r1 : T;
-}
-
-// shared-memory bytes of a staged level: its rows of `row_bytes`, rounded
-// up to 16 so that the next level's slab starts 16-byte aligned
-__host__ __device__ __forceinline__ long long stage_bytes(int res, long long T,
-                                                          int row_bytes) {
-  return (level_rows(res, T) * row_bytes + 15) / 16 * 16;
 }
 
 __device__ __forceinline__ LevelGeom level_geom(const float c[3], int res,

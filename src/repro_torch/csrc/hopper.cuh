@@ -1,7 +1,6 @@
-// Hopper (sm_90a) building blocks shared by the port's kernels: shared
-// memory addresses, mbarriers, TMA tile loads, bulk reduce-adds from shared
-// to device memory, and the warpgroup matrix multiply (wgmma) with its
-// shared-memory matrix descriptors.
+// Hopper (sm_90a) building blocks shared by the tensor-core kernels: shared
+// memory addresses, mbarriers, TMA tile loads, and the warpgroup matrix
+// multiply (wgmma) with its shared-memory matrix descriptors.
 //
 // Descriptors follow the PTX ISA's canonical layouts for 16-bit types with
 // the tile stored as rows of exactly one swizzle span (32, 64 or 128 bytes),
@@ -72,31 +71,6 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
       ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
-}
-
-// ---- bulk copies without a tensor map: `bytes` a multiple of 16, both
-// addresses 16-byte aligned
-// device dst[i] += shared src[i] (float32, each element an atomic add in
-// L2), in the thread's current bulk group
-__device__ __forceinline__ void bulk_reduce_add_f32(float* dst, const float* src,
-                                                    unsigned bytes) {
-  asm volatile(
-      "cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n"
-      ::"l"(reinterpret_cast<uint64_t>(dst)), "r"(smem_u32(src)), "r"(bytes)
-      : "memory");
-}
-
-// close the thread's bulk group and wait until its reads of shared memory
-// are done (the block may then end)
-__device__ __forceinline__ void bulk_commit_and_wait_read() {
-  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
-}
-
-// order this thread's earlier shared-memory writes before later reads of
-// the asynchronous proxy (a bulk copy out of shared memory)
-__device__ __forceinline__ void fence_proxy_async_shared() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- wgmma

@@ -40,17 +40,12 @@
 //   6. the 8-corner table scatter of the feature cotangent, hash_grid.cuh's
 //      scatter_corners: lanes of a warp that hit one row are summed first,
 //      and each group's leader adds the row once, straight into the float32
-//      device gradient as one 16-byte atomic, or into the level's gradient
-//      slab in shared memory for the levels the wrapper's bitmask stages
-//      (step_plan: the smallest slabs first within a budget beside the MLP
-//      tile; the block zeroes them at its start).
-// After its last tile a block adds its dW (one atomicAdd per weight), its
-// loss sum (one atomicAdd) and its staged slabs to device memory, one bulk
-// reduce-add per slab (cp.reduce.async.bulk .add.f32). AdamW waits for the
-// kernel's end: the grid-wide dependency is the launch boundary. With g_feat
-// given, the kernel stores the feature cotangent there instead of
-// scattering it (the two-launch split with the level-major hash_encode_bwd,
-// a yardstick).
+//      device gradient as one 16-byte atomic.
+// After its last tile a block adds its dW (one atomicAdd per weight) and its
+// loss sum (one atomicAdd) to device memory. AdamW waits for the kernel's
+// end: the grid-wide dependency is the launch boundary. With g_feat given,
+// the kernel stores the feature cotangent there instead of scattering it
+// (the two-launch split with the level-major hash_encode_bwd, a yardstick).
 //
 // Bound: per PRODUCTION256 step (8 partitions x 65,536 samples, L=5, F=4)
 // the float work is about 2.3 GFLOP (35 us at the f32 peak) and the bytes
@@ -60,14 +55,14 @@
 // scatter's 21M corner adds, about 0.2 ms more. The pre-reduction takes the
 // coarse dense levels' adds (125 to 4,913 rows) off a few hot addresses, and
 // the direct adds are fire-and-forget, so the other warps' MLP work hides
-// them. Staged slabs measured slower (their shared compare-and-swap loops
-// stall the warp, and a slab costs blocks per SM), so step_plan's budget is
-// 0 (PERF.md).
+// them. Gradient slabs staged in shared memory for the coarse levels, as
+// the standalone backward stages them, measured slower here (their shared
+// compare-and-swap loops stall the warp, and a slab costs blocks per SM;
+// PERF.md), so every level goes straight to device memory.
 #include <stdint.h>
 
 #include "common.cuh"
 #include "hash_grid.cuh"
-#include "hopper.cuh"
 #include "mlp_tile.cuh"
 
 namespace {
@@ -84,9 +79,7 @@ struct StepArgs {
   float *g_tab, *g_win, *g_whid, *g_wout, *loss_sum;
   float* g_feat;              // (P,N,L*F) or null: see the header
   long long N, T, nx, ny, nz, n_uniform;
-  long long staged;           // bit l: level l's gradient slab is staged
   int L, D_in, n_hidden, n_hid_slab, D_out, ghost;
-  int slab_off;               // floats of shared memory before the slabs
   float sigma;
   int res[MAX_LEVELS];
 };
@@ -179,32 +172,6 @@ __device__ __forceinline__ void gather_trilinear(const float* __restrict__ vol,
       }
 }
 
-// After the block's last tile and a __syncthreads(): the staged slabs (in
-// level order, stage_bytes apart) into the partition's device gradient.
-// Thread k sends the k-th staged slab: its 16-byte multiple as one bulk
-// reduce-add, the < 4 floats left as scalar atomics.
-template <int F>
-__device__ void flush_slabs(const StepArgs& a, const float* slabs, float* gtab) {
-  const long long T = a.T;
-  repro::hopper::fence_proxy_async_shared();
-  __syncthreads();
-  int k = 0;
-  long long off = 0;
-  for (int l = 0; l < a.L; ++l) {
-    if (!((a.staged >> l) & 1)) continue;
-    if ((int)threadIdx.x == k) {
-      const long long n = repro::level_rows(a.res[l], T) * F;
-      float* dst = gtab + (long long)l * T * F;
-      const long long body = n & ~3LL;
-      if (body) repro::hopper::bulk_reduce_add_f32(dst, slabs + off, (unsigned)(body * 4));
-      for (long long i = body; i < n; ++i) atomicAdd(dst + i, slabs[off + i]);
-    }
-    off += repro::stage_bytes(a.res[l], T, F * 4) / 4;
-    ++k;
-  }
-  if ((int)threadIdx.x < k) repro::hopper::bulk_commit_and_wait_read();
-}
-
 template <int W, int F, bool SAMPLING>
 __global__ void train_step_kernel(const StepArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -213,16 +180,9 @@ __global__ void train_step_kernel(const StepArgs a) {
   const repro::MlpTile t =
       repro::mlp_tile_carve(smem, a.D_in, W, a.n_hidden, a.D_out, tile);
   float* red = smem + repro::mlp_tile_floats(a.D_in, W, a.n_hidden, a.D_out, tile);
-  float* slabs = smem + a.slab_off;
   const int L = a.L;
   const long long T = a.T;
   const bool scatter = a.g_feat == nullptr;
-  if (scatter && a.staged) {
-    long long n = 0;
-    for (int l = 0; l < L; ++l)
-      if ((a.staged >> l) & 1) n += repro::stage_bytes(a.res[l], T, F * 4) / 4;
-    for (long long i = r; i < n; i += tile) slabs[i] = 0.0f;
-  }
   const long long hid_off = (long long)p * a.n_hid_slab * W * W;
   repro::mlp_tile_load(t, a.win + (long long)p * t.n_in, a.whid + hid_off,
                        a.wout + (long long)p * t.n_out);   // ends with a sync
@@ -279,7 +239,6 @@ __global__ void train_step_kernel(const StepArgs a) {
     float d0[W];
     repro::mlp_tile_backward<W>(t, r, d0);
     // hash-encode backward: the feature cotangent into the tables' gradient
-    float* slab = slabs;
     for (int l = 0; l < L; ++l) {
       float df[F];
 #pragma unroll
@@ -293,12 +252,7 @@ __global__ void train_step_kernel(const StepArgs a) {
         continue;
       }
       const repro::LevelGeom geo = repro::level_geom(c, a.res[l], T);
-      if ((a.staged >> l) & 1) {
-        repro::scatter_corners<F, true>(geo, df, valid, slab);
-        slab += repro::stage_bytes(a.res[l], T, F * 4) / 4;
-      } else {
-        repro::scatter_corners<F, false>(geo, df, valid, gtab + (long long)l * T * F);
-      }
+      repro::scatter_corners<F, false>(geo, df, valid, gtab + (long long)l * T * F);
     }
     __syncthreads();
     repro::mlp_tile_accumulate<W>(t, tile);
@@ -316,32 +270,22 @@ __global__ void train_step_kernel(const StepArgs a) {
   }
   repro::mlp_tile_flush(t, a.g_win + (long long)p * t.n_in, a.g_whid + hid_off,
                         a.g_wout + (long long)p * t.n_out);
-  if (scatter && a.staged) flush_slabs<F>(a, slabs, gtab);
 }
 
-// The launch's shape: threads per block (the MLP tile's rows), the float
-// offset of the staged slabs (the MLP tile and one float per row for the
-// loss reduction, rounded up to 16 bytes), the shared memory in all, and
+// The launch's shape: threads per block (the MLP tile's rows), the shared
+// memory (the MLP tile and one float per row for the loss reduction) and
 // the blocks per partition. False if no tile fits.
 struct StepShape {
-  int tile, slab_off;
+  int tile;
   size_t smem;
   long long blocks;
 };
 
-bool step_shape(const int* res, int L, long long T, int F, int W, int n_hidden,
-                int D_out, long long staged, long long N, long long P,
-                StepShape* s) {
-  size_t mlp = 0;
+bool step_shape(int L, int F, int W, int n_hidden, int D_out, long long N,
+                long long P, StepShape* s) {
   // one extra float per row holds the loss reduction's per-warp sums
-  s->tile = repro::mlp_pick_tile(L * F, W, n_hidden, D_out, 1, &mlp);
+  s->tile = repro::mlp_pick_tile(L * F, W, n_hidden, D_out, 1, &s->smem);
   if (s->tile == 0) return false;
-  s->slab_off = (int)((mlp / 4 + 3) / 4 * 4);
-  long long slab = 0;
-  for (int l = 0; l < L; ++l)
-    if ((staged >> l) & 1) slab += repro::stage_bytes(res[l], T, F * 4);
-  s->smem = (size_t)s->slab_off * 4 + (size_t)slab;
-  if (s->smem > 232448) return false;
   const long long n_tiles = (N + s->tile - 1) / s->tile;
   s->blocks = repro::blocks_per_row(n_tiles, P, s->tile, s->smem);
   return true;
@@ -371,9 +315,8 @@ cudaError_t launch_w(const StepArgs& a, const StepShape& sh, long long P, int F,
   }
 }
 
-bool valid_levels(int L, int F, long long T, long long staged) {
-  return L >= 1 && L <= MAX_LEVELS && (staged >> L) == 0 &&
-         (staged == 0 || (T * F) % 4 == 0) && (F == 1 || F == 2 || F == 4 || F == 8);
+bool valid_levels(int L, int F) {
+  return L >= 1 && L <= MAX_LEVELS && (F == 1 || F == 2 || F == 4 || F == 8);
 }
 
 }  // namespace
@@ -387,29 +330,26 @@ bool valid_levels(int L, int F, long long T, long long staged) {
 // shapes; g_tab 16-byte aligned) and loss_sum (P,) = sum over rows and
 // outputs of |pred - target|. g_feat: null, or (P,N,L*F) f32 that takes the
 // feature cotangent instead of g_tab. resolutions (L,) i32 in HOST memory,
-// L <= 32; staged: bit l stages level l's gradient slab in shared memory
-// (T x F a multiple of 4).
+// L <= 32.
 extern "C" int repro_train_step(
     const void* coords, const void* target, const void* volumes,
     const void* seeds, const void* tab, const void* win, const void* whid,
     const void* wout, void* g_tab, void* g_win, void* g_whid, void* g_wout,
-    void* loss_sum, void* g_feat, const void* resolutions, long long staged,
-    long long P, long long N, int L, long long T, int F, int W,
-    int n_hidden, int n_hid_slab, int D_out, long long nx, long long ny,
-    long long nz, int ghost, long long n_uniform, float sigma, int sampling,
-    void* stream) {
+    void* loss_sum, void* g_feat, const void* resolutions, long long P,
+    long long N, int L, long long T, int F, int W, int n_hidden,
+    int n_hid_slab, int D_out, long long nx, long long ny, long long nz,
+    int ghost, long long n_uniform, float sigma, int sampling, void* stream) {
   if (P <= 0 || N <= 0) return 0;
   if (P > 65535 || n_hidden < 1 || D_out < 1 || D_out > C_MAX ||
-      !valid_levels(L, F, T, staged) ||
+      !valid_levels(L, F) ||
       ((reinterpret_cast<uintptr_t>(tab) | reinterpret_cast<uintptr_t>(g_tab)) & 15))
     return (int)cudaErrorInvalidValue;
   if (sampling ? (volumes == nullptr || seeds == nullptr)
                : (coords == nullptr || target == nullptr))
     return (int)cudaErrorInvalidValue;
   const int* res = static_cast<const int*>(resolutions);
-  if (g_feat != nullptr) staged = 0;   // no scatter, no slabs
   StepShape sh;
-  if (!step_shape(res, L, T, F, W, n_hidden, D_out, staged, N, P, &sh))
+  if (!step_shape(L, F, W, n_hidden, D_out, N, P, &sh))
     return (int)cudaErrorInvalidValue;
   StepArgs a;
   a.coords = static_cast<const float*>(coords);
@@ -427,10 +367,8 @@ extern "C" int repro_train_step(
   a.loss_sum = static_cast<float*>(loss_sum);
   a.g_feat = static_cast<float*>(g_feat);
   a.N = N; a.T = T; a.nx = nx; a.ny = ny; a.nz = nz; a.n_uniform = n_uniform;
-  a.staged = staged;
   a.L = L; a.D_in = L * F; a.n_hidden = n_hidden; a.n_hid_slab = n_hid_slab;
-  a.D_out = D_out; a.ghost = ghost;
-  a.slab_off = sh.slab_off; a.sigma = sigma;
+  a.D_out = D_out; a.ghost = ghost; a.sigma = sigma;
   for (int l = 0; l < L; ++l) a.res[l] = res[l];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (W) {
@@ -442,17 +380,13 @@ extern "C" int repro_train_step(
 }
 
 // The train step's launch shape for these arguments (as repro_train_step
-// takes them; resolutions and shape in HOST memory): shape = {threads per
-// block, blocks per partition, shared-memory bytes}, for counting the
-// scatter's requests and reporting the plan.
-extern "C" int repro_train_step_shape(const void* resolutions, long long staged,
-                                      long long P, long long N, int L,
-                                      long long T, int F, int W, int n_hidden,
-                                      int D_out, void* shape) {
+// takes them; shape in HOST memory): shape = {threads per block, blocks per
+// partition, shared-memory bytes}, for counting the scatter's requests.
+extern "C" int repro_train_step_shape(long long P, long long N, int L, int F,
+                                      int W, int n_hidden, int D_out,
+                                      void* shape) {
   StepShape sh;
-  if (!valid_levels(L, F, T, staged) ||
-      !step_shape(static_cast<const int*>(resolutions), L, T, F, W, n_hidden,
-                  D_out, staged, N, P, &sh))
+  if (!valid_levels(L, F) || !step_shape(L, F, W, n_hidden, D_out, N, P, &sh))
     return (int)cudaErrorInvalidValue;
   long long* out = static_cast<long long*>(shape);
   out[0] = sh.tile;

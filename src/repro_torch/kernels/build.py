@@ -47,14 +47,13 @@ SIGNATURES = {
     # W, n_hidden, n_hid_slab, D_out, stream
     "repro_fused_mlp_bwd": [_P] * 10 + [_L, _L, _I, _I, _I, _I, _I, _P],
     # coords, target, volumes, seeds, tab, win, whid, wout, g_tab, g_win,
-    # g_whid, g_wout, loss_sum, g_feat, res (host memory), staged, P, N, L,
-    # T, F, W, n_hidden, n_hid_slab, D_out, nx, ny, nz, ghost, n_uniform,
-    # sigma, sampling, stream
-    "repro_train_step": [_P] * 15 + [_L, _L, _L, _I, _L, _I, _I, _I, _I, _I,
+    # g_whid, g_wout, loss_sum, g_feat, res (host memory), P, N, L, T, F, W,
+    # n_hidden, n_hid_slab, D_out, nx, ny, nz, ghost, n_uniform, sigma,
+    # sampling, stream
+    "repro_train_step": [_P] * 15 + [_L, _L, _I, _L, _I, _I, _I, _I, _I,
                                      _L, _L, _L, _I, _L, _F, _I, _P],
-    # res (host memory), staged, P, N, L, T, F, W, n_hidden, D_out, shape out
-    # (3 int64 in host memory)
-    "repro_train_step_shape": [_P, _L, _L, _L, _I, _L, _I, _I, _I, _I, _P],
+    # P, N, L, F, W, n_hidden, D_out, shape out (3 int64 in host memory)
+    "repro_train_step_shape": [_L, _L, _I, _I, _I, _I, _I, _P],
     # 4 x (params, m, v, grad, n per partition), scalars, loss_sum, loss, P,
     # loss_div, b1, 1-b1, b2, 1-b2, eps, wd, stream
     "repro_adamw_apply": [_P, _P, _P, _P, _L] * 4

@@ -7,9 +7,8 @@
   ``repro_train_step`` (``csrc/train_step.cu``: [sampling,] encode, MLP
   forward, masked L1 cotangent, MLP backward and the 8-corner table scatter
   for every (partition, batch tile), gradients into a zeroed f32 buffer:
-  same-row lanes summed per warp, the levels of ``step_plan`` staged in
-  shared memory, the rest as 16-byte atomics) and ``repro_adamw_apply``
-  (``csrc/adamw.cu``: the gated
+  same-row lanes summed per warp, then one 16-byte atomic per row) and
+  ``repro_adamw_apply`` (``csrc/adamw.cu``: the gated
   AdamW update, one thread per parameter). The TPU kernel applies AdamW on
   the last batch tile because its grid runs in order; on the GPU that
   grid-wide dependency is the boundary between the two launches.
@@ -38,8 +37,7 @@ from repro_torch.data.volume import sample_trilinear_batched
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_mlp.ops import KERNEL_WIDTHS
 from repro_torch.kernels.fused_train_step import ref as _ref
-from repro_torch.kernels.hash_encoding.ops import (BLOCK_SMEM_BYTES,
-                                                   levels_arg, step_plan)
+from repro_torch.kernels.hash_encoding.ops import levels_arg
 from repro_torch.optim.adamw import AdamW, OptConfig, bias_corrections
 from repro_torch.precision import torch_dtype
 
@@ -159,32 +157,6 @@ def _grad_buffers(flat_p, device):
     return grads, buf[off:]
 
 
-def mlp_tile_bytes(D_in: int, W: int, n_hidden: int, D_out: int) -> int:
-    """Shared memory of the train-step kernel's MLP tile, as
-    ``csrc/mlp_tile.cuh`` lays it out (``mlp_pick_tile``: the largest tile
-    of 128 / 64 / 32 rows that fits a block, with one extra float per row
-    for the loss reduction), rounded up to 16 bytes: the staged gradient
-    slabs follow it."""
-    odd = lambda n: n | 1
-    n_w = D_in * W + (n_hidden - 1) * W * W + W * D_out
-    for tile in (128, 64, 32):
-        floats = 2 * n_w + tile * (odd(D_in) + 2 * n_hidden * odd(W)
-                                   + odd(D_out) + 1)
-        if floats * 4 <= BLOCK_SMEM_BYTES:
-            return -(-floats * 4 // 16) * 16
-    raise ValueError(f"no MLP tile of D_in={D_in}, W={W}, H={n_hidden} fits "
-                     "a block's shared memory")
-
-
-def staged_levels(flat_p, n_hidden: int, resolutions: Sequence[int]) -> int:
-    """The train-step kernel's staged levels (``step_plan``'s bitmask) for
-    the packed params ``flat_p``."""
-    _, L, T, F = flat_p["tab"].shape
-    _, D_in, W = flat_p["win"].shape
-    return step_plan(resolutions, T, F,
-                     mlp_tile_bytes(D_in, W, n_hidden, flat_p["wout"].shape[-1]))
-
-
 def train_step_cuda(flat_p, n_hidden: int, resolutions: Sequence[int], *,
                     coords=None, target=None, volumes=None, seeds=None,
                     n_batch: int = 0, n_uniform: int = 0, sigma: float = 0.0,
@@ -262,15 +234,14 @@ def train_step_cuda(flat_p, n_hidden: int, resolutions: Sequence[int], *,
                          f"{L * F}) float32 tensor on {dev}")
     grads, loss_sum = _grad_buffers(flat_p, dev)
     res_h = levels_arg(resolutions)
-    staged = staged_levels(flat_p, n_hidden, resolutions)
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = build.library()
     err = lib.repro_train_step(
         *(ptr(t) for t in batch), *(t.data_ptr() for t in state),
         *(grads[k].data_ptr() for k in STATE_KEYS), loss_sum.data_ptr(),
-        ptr(cotangent_out), ctypes.addressof(res_h), staged,
-        P, N, L, T, F, W, n_hidden, flat_p["whid"].shape[1], D_out, nx, ny,
-        nz, int(ghost), int(n_uniform), float(sigma), int(sampling),
+        ptr(cotangent_out), ctypes.addressof(res_h), P, N, L, T, F, W,
+        n_hidden, flat_p["whid"].shape[1], D_out, nx, ny, nz, int(ghost),
+        int(n_uniform), float(sigma), int(sampling),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "repro_train_step")
     train_step_cuda.launches += 1

@@ -26,15 +26,6 @@ from repro_torch.kernels.hash_encoding import ref as _ref
 #: shared memory a backward block may give one level's gradient slab
 #: (rows x F float32): the H100 offers a block 227 KB
 STAGE_BUDGET_BYTES = 200 * 1024
-#: shared memory the train-step kernel may give its staged table-gradient
-#: slabs, beside its MLP tile (``step_plan``). 0: on the H100 the fused
-#: kernel runs faster with every level's rows sent straight to device
-#: memory (fire-and-forget vector atomics that the other warps' MLP work
-#: hides) than with any coarse slab staged (its shared compare-and-swap
-#: loops stall the warp, and the slab costs blocks per SM); PERF.md
-STEP_STAGE_BUDGET_BYTES = 0
-#: shared memory one block may use on the H100
-BLOCK_SMEM_BYTES = 232_448
 #: levels a kernel takes (its resolutions travel as a kernel argument)
 MAX_LEVELS = 32
 
@@ -52,31 +43,6 @@ def bwd_plan(resolutions: Sequence[int], T: int, F: int) -> list:
     (each row goes straight to the device gradient as one vector atomic).
     A level uses (res+1)^3 rows of its table when they fit T, else T."""
     return [level_rows(r, T) * F * 4 <= STAGE_BUDGET_BYTES for r in resolutions]
-
-
-def step_plan(resolutions: Sequence[int], T: int, F: int,
-              mlp_bytes: int) -> int:
-    """The train-step kernel's staged levels, as the bitmask its C entry
-    takes: the float32 gradient slabs (``level_rows`` x F x 4 bytes, each
-    rounded up to 16 as the kernel lays them out) that fit
-    ``STEP_STAGE_BUDGET_BYTES`` together and, beside the ``mlp_bytes`` of
-    the kernel's MLP tile, one block's shared memory, taken smallest first:
-    the coarse levels, whose few rows take the most contention; no level
-    when T x F is not a multiple of 4 (the slabs' bulk flush needs 16-byte
-    aligned levels). The other levels' rows go straight to the device
-    gradient."""
-    budget = min(STEP_STAGE_BUDGET_BYTES, BLOCK_SMEM_BYTES - int(mlp_bytes))
-    if (int(T) * F) % 4:
-        return 0
-    sizes = sorted((-(-level_rows(r, T) * F * 4 // 16) * 16, l)
-                   for l, r in enumerate(resolutions))
-    mask = used = 0
-    for size, l in sizes:
-        if used + size > budget:
-            break
-        mask |= 1 << l
-        used += size
-    return mask
 
 
 def levels_arg(resolutions: Sequence[int]):

@@ -338,63 +338,74 @@ def test_ctypes_signatures_match_the_c_entries(name):
             assert p.startswith("int") and t is ctypes.c_int, (name, p)
 
 
-@pytest.mark.parametrize("name,staged,slab_bytes,mlp_bytes", [
-    ("PRODUCTION256", [0, 1], 2_000 + 11_664, 51_328),
-    ("PRODUCTION", [0], 11_664, 51_328),
-    ("ABLATION", [0], 4_000, 228_096)])
-def test_step_plan_stages_the_smallest_slabs_that_fit(name, staged, slab_bytes,
-                                                      mlp_bytes, monkeypatch):
-    """The train-step kernel's staged levels at a 16 KB budget (the one
-    measured beside no staging): the smallest float32 gradient slabs
-    first, while they fit the budget and, beside the kernel's MLP tile, one
-    block's 227 KB; the next smallest would not fit. ABLATION's W=64, H=3
-    tile (64 rows) leaves room for its 4,000-byte level-0 slab only. At the
-    default budget (0: staging lost on the card) no level is staged."""
-    from repro_torch.configs import dvnr
-    from repro_torch.kernels.hash_encoding import ops as hops
+@pytest.mark.parametrize("F,W,H,N", [(1, 16, 2, 203), (2, 16, 2, 256),
+                                     (8, 64, 3, 130), (4, 32, 1, 97)])
+def test_train_step_grads_match_jax_value_and_grad(F, W, H, N):
+    """The train-step kernel's plain version (the yardstick the kernel is
+    held to on the card) against JAX's value_and_grad of the per-partition
+    L1 loss, at the shapes of the kernel's further cases: F=1 on a ragged
+    batch, F=2, an ABLATION-like W=64, H=3, F=8 step, one hidden layer.
+    The split route (the feature cotangent, then the hash-encode backward)
+    gives the same table gradient."""
+    from repro.kernels.fused_mlp.ops import fused_mlp as jfused_mlp
+    from repro.kernels.hash_encoding.ops import hash_encode as jhash_encode
+    from repro_torch.kernels.hash_encoding.ops import hash_encode_bwd_cuda
 
-    cfg = getattr(dvnr, name)
-    res, T, F = cfg.level_resolutions(), cfg.table_size, cfg.n_features_per_level
-    mlp = ops.mlp_tile_bytes(cfg.n_levels * F, cfg.n_neurons,
-                             cfg.n_hidden_layers, cfg.out_dim)
-    assert mlp == mlp_bytes and mlp % 16 == 0
-    assert hops.step_plan(res, T, F, mlp) == 0          # the default budget
-    monkeypatch.setattr(hops, "STEP_STAGE_BUDGET_BYTES", 16 * 1024)
-    mask = hops.step_plan(res, T, F, mlp)
-    assert [l for l in range(len(res)) if mask >> l & 1] == staged
-    slabs = [-(-hops.level_rows(r, T) * F * 4 // 16) * 16 for r in res]
-    used = sum(slabs[l] for l in staged)
-    assert used == slab_bytes
-    budget = min(hops.STEP_STAGE_BUDGET_BYTES, hops.BLOCK_SMEM_BYTES - mlp)
-    assert used <= budget
-    rest = [slabs[l] for l in range(len(res)) if l not in staged]
-    assert all(slabs[l] <= min(rest) for l in staged)       # smallest first
-    assert used + min(rest) > budget                         # the next won't fit
-    assert mlp + used <= hops.BLOCK_SMEM_BYTES
+    cfg = CFG.replace(n_features_per_level=F, n_neurons=W, n_hidden_layers=H)
+    res = cfg.level_resolutions()
+    tr, st = _jax_state(cfg, key=F + H)
+    rng = np.random.default_rng(N)
+    coords = rng.uniform(0, 1, (P, N, 3)).astype(np.float32)
+    target = rng.uniform(0, 1, (P, N, 1)).astype(np.float32)
+
+    def loss_fn(p, c, t):
+        pred = jfused_mlp(jhash_encode(c, p["tables"], res, "ref"), p["mlp"], "ref")
+        return jnp.mean(jnp.abs(pred - t))
+
+    jl, jg = jax.vmap(jax.value_and_grad(loss_fn))(
+        st.params, jnp.asarray(coords), jnp.asarray(target))
+    flat = ops._pack(_port_state(st).params)[0]
+    c_t, t_t = torch.from_numpy(coords), torch.from_numpy(target)
+    got, loss_sum = ops.train_step_cuda(flat, H, res, coords=c_t, target=t_t)
+    np.testing.assert_allclose(loss_sum.numpy() / N, np.asarray(jl), rtol=1e-6)
+    want = {"tab": jg["tables"], "win": jg["mlp"][0], "wout": jg["mlp"][-1]}
+    if H > 1:
+        want["whid"] = jnp.stack(jg["mlp"][1:-1], 1)
+    for k, w in want.items():
+        w = np.asarray(w)
+        np.testing.assert_allclose(got[k].numpy(), w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max(), err_msg=k)
+    _, L, T, _ = flat["tab"].shape
+    cot = torch.empty((P, N, L * F))
+    ops.train_step_cuda(flat, H, res, coords=c_t, target=t_t, cotangent_out=cot)
+    tab = hash_encode_bwd_cuda(cot, c_t, res, list(range(P)), (P, L, T, F))
+    torch.testing.assert_close(tab, got["tab"], rtol=0, atol=1e-8)
 
 
-def test_step_plan_stages_nothing_on_unaligned_levels(monkeypatch):
-    from repro_torch.kernels.hash_encoding import ops as hops
+@pytest.mark.parametrize("H", [1, 2, 3])
+def test_float64_yardstick_matches_the_plain_version(H):
+    """``chip_smoke.step_grads_f64``, the float64 yardstick the card's
+    train-step checks hold the kernel to (float64 sums, the float32 plain
+    version's ReLU masks and residual signs), gives the plain version's
+    gradients and loss sum within float32 rounding, with no ties on
+    random data."""
+    import chip_smoke
 
-    monkeypatch.setattr(hops, "STEP_STAGE_BUDGET_BYTES", 16 * 1024)
-    assert hops.step_plan((4, 8), 8192, 4, 51_328) == 0b11
-    assert hops.step_plan((4, 8), 8191, 1, 51_328) == 0      # T x F % 4 != 0
-    assert hops.step_plan((4, 8), 8192, 4, 232_448) == 0     # no room left
-
-
-def test_mlp_tile_bytes_follow_the_kernels_tile_rule():
-    """128 rows when they fit a block, else 64, else 32 (mlp_pick_tile),
-    with one float per row for the loss reduction."""
-    odd = lambda n: n | 1
-    for D_in, W, H, D_out in ((20, 16, 2, 1), (80, 64, 3, 1), (8, 32, 1, 3)):
-        n_w = D_in * W + (H - 1) * W * W + W * D_out
-        per_row = odd(D_in) + 2 * H * odd(W) + odd(D_out) + 1
-        tile = next(t for t in (128, 64, 32)
-                    if (2 * n_w + t * per_row) * 4 <= 232_448)
-        want = -(-(2 * n_w + tile * per_row) * 4 // 16) * 16
-        assert ops.mlp_tile_bytes(D_in, W, H, D_out) == want
-    with pytest.raises(ValueError):
-        ops.mlp_tile_bytes(64 * 8, 64, 40, 1)
+    cfg = CFG.replace(n_hidden_layers=H)
+    tr, st = _jax_state(cfg, key=5 + H)
+    flat = ops._pack(_port_state(st).params)[0]
+    res = cfg.level_resolutions()
+    rng = np.random.default_rng(5)
+    coords = torch.from_numpy(rng.uniform(0, 1, (P, 160, 3)).astype(np.float32))
+    target = torch.from_numpy(rng.uniform(0, 1, (P, 160, 1)).astype(np.float32))
+    want, want_l = ref.train_step_grads_ref(flat, H, res, coords, target)
+    (got, got_l), ties = chip_smoke.step_grads_f64(flat, H, res, coords, target)
+    assert ties == 0
+    torch.testing.assert_close(got_l.float(), want_l, rtol=1e-6, atol=0)
+    for k in ops.STATE_KEYS:
+        assert got[k].dtype == torch.float32 and got[k].shape == want[k].shape, k
+        torch.testing.assert_close(got[k], want[k], rtol=0,
+                                   atol=1e-5 * float(want[k].abs().max()) + 1e-30)
 
 
 def test_split_cotangent_then_backward_gives_the_fused_gradient():
