@@ -97,6 +97,12 @@ REPLACES = {
     "adamw_apply": "src/repro/kernels/fused_train_step/kernel.py:218",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:94",
 }
+# the bf16 policy's instantiations replace the same TPU kernels (which take
+# the compute dtype and a master copy as options)
+REPLACES.update({"hash_encode_bwd_bf16": REPLACES["hash_encode_bwd"],
+                 "fused_mlp_bwd_bf16": REPLACES["fused_mlp_bwd"],
+                 "train_step_bf16": REPLACES["train_step"],
+                 "adamw_apply_master": REPLACES["adamw_apply"]})
 # sizes of the run (the rehearsal on a CPU shrinks them)
 DECODE_EDGE = 256          # phase 3: one 256^3 partition
 LOCAL_EDGE = 256           # phase 4: 2x2x2 partitions of 256^3 each
@@ -134,9 +140,13 @@ SOURCES = {
     "composite": "src/repro_torch/csrc/composite.cu",
     "hash_encode_bwd": "src/repro_torch/csrc/hash_encode.cu",
     "fused_mlp_bwd": "src/repro_torch/csrc/fused_mlp.cu",
-    "train_step": "src/repro_torch/csrc/train_step.cu",
+    "train_step": "src/repro_torch/csrc/train_step.cuh",
     "adamw_apply": "src/repro_torch/csrc/adamw.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "hash_encode_bwd_bf16": "src/repro_torch/csrc/hash_encode.cu",
+    "fused_mlp_bwd_bf16": "src/repro_torch/csrc/fused_mlp.cu",
+    "train_step_bf16": "src/repro_torch/csrc/train_step_bf16.cu",
+    "adamw_apply_master": "src/repro_torch/csrc/adamw.cu",
 }
 
 
@@ -764,12 +774,87 @@ def check_step(label, params, H, res, wants, **batch) -> float:
     return check_step_grads(label, H, got_g, got_loss, wants)
 
 
+#: a bf16 kernel's outputs against its bf16 plain version, as a fraction of
+#: the largest |entry| (see check_bf16)
+BF16_LIMIT = 1e-2
+
+
+def rel_l2(a, b) -> float:
+    """||a - b|| / ||b|| in float32."""
+    import torch
+    return float(torch.linalg.vector_norm((a.float() - b.float()).reshape(-1))
+                 / torch.linalg.vector_norm(b.float().reshape(-1)).clamp_min(1e-30))
+
+
+def check_bf16(label, got, want, want32, random_batch=True) -> float:
+    """A bf16 training kernel's output against its bf16 plain version
+    (``want``) and the float32 policy's plain version on the same values
+    widened (``want32``). The kernel rounds where the plain version rounds,
+    but sums in float32 in another order, so a value within float32
+    rounding of a bf16 tie may round the other way and move what follows it
+    by one bf16 ulp (2^-8 relative): every entry within BF16_LIMIT x the
+    largest |entry|. On a random batch the kernel must also hold the bf16
+    rounding points: its relative L2 departure at most a quarter of the
+    float32 policy's (which misses every one of them). Not on the
+    contention case's batch: its samples are near-copies, so one flip
+    between float32 sum orders hits most of them at once and the kernel's
+    departure nears the float32 policy's there (printed, not held). Prints
+    both departures."""
+    lim = BF16_LIMIT * max(1e-30, float(want.float().abs().max()))
+    dep = float((got.float() - want.float()).abs().max())
+    d32 = float((want32.float() - want.float()).abs().max())
+    r, r32 = rel_l2(got, want), rel_l2(want32, want)
+    ok = r <= 0.25 * r32 or not random_batch
+    print(f"  {label}: departure from the bf16 plain version / limit "
+          f"{dep / lim:.4f} (the float32 policy's {d32 / lim:.4f}); relative "
+          f"L2 {r:.3e} (the float32 policy's {r32:.3e}"
+          f"{', limit a quarter of it' if random_batch else '; not held'})"
+          f"  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"{label}: relative L2 departure {r:.3e} from the "
+                           f"bf16 plain version, not below a quarter of the "
+                           f"float32 policy's {r32:.3e}")
+    return check(f"{label} vs bf16 plain", got, want, atol=lim)
+
+
+def step_wants_bf16(params16, H, res, coords, target) -> dict:
+    """The bf16 train step's yardsticks on this batch: the bf16 plain
+    version, and the float32 policy's plain version on the same values."""
+    from repro_torch.kernels.fused_train_step import ref as fts_ref
+    return {"bf16 plain": fts_ref.train_step_grads_ref(params16, H, res, coords,
+                                                       target),
+            "float32 plain": fts_ref.train_step_grads_ref(
+                {k: v.float() for k, v in params16.items()}, H, res, coords,
+                target)}
+
+
+def check_step_bf16(label, params16, H, res, wants, random_batch=True,
+                    **batch) -> float:
+    """The bf16 train-step kernel on ``batch`` held by ``check_bf16``
+    gradient by gradient; the loss sum within 1e-3 relative of the bf16
+    plain version's (a prediction's rounding flip moves one |diff| by an
+    ulp)."""
+    from repro_torch.kernels.fused_train_step import ops as fts
+    got_g, got_loss = fts.train_step_cuda(params16, H, res, **batch)
+    (want, want_loss), want32 = wants["bf16 plain"], wants["float32 plain"][0]
+    err = 0.0
+    for k in fts.STATE_KEYS:
+        if k != "whid" or H > 1:
+            err = max(err, check_bf16(f"train_step bf16 ({label}) grad {k}",
+                                      got_g[k], want[k], want32[k],
+                                      random_batch))
+    check(f"train_step bf16 ({label}) loss sum", got_loss, want_loss, atol=0.0,
+          rtol=1e-3)
+    return err
+
+
 def step_case_checks(dev, vols_c, tseeds, cfg) -> None:
     """Phase 2's further train-step cases: every sample in one coarse cell
     (the warp pre-reduction under contention), PRODUCTION's T=2^16, F=1 (a
     ragged batch) and F=2, an ABLATION-shaped step (W=64, H=3, L=10, F=8,
     T=2^19). Each held by ``check_step``, host-sampled and, where the batch
-    can be drawn, drawing in the kernel."""
+    can be drawn, drawing in the kernel; and the bf16 kernel on the same
+    params rounded to bf16, held by ``check_step_bf16``."""
     import numpy as np
     import torch
     from repro_torch.configs.dvnr import ABLATION, PRODUCTION
@@ -810,7 +895,14 @@ def step_case_checks(dev, vols_c, tseeds, cfg) -> None:
         if cell is None:
             check_step(f"{label}, in-kernel sampling", params, H, res, wants,
                        volumes=vols_c[:hP], seeds=tseeds[:hP], **draw)
-        del params, coords, target, wants
+        params16 = {k: v.to(torch.bfloat16) for k, v in params.items()}
+        wants = step_wants_bf16(params16, H, res, coords, target)
+        check_step_bf16(f"{label}, host-sampled", params16, H, res, wants,
+                        random_batch=cell is None, coords=coords, target=target)
+        if cell is None:
+            check_step_bf16(f"{label}, in-kernel sampling", params16, H, res,
+                            wants, volumes=vols_c[:hP], seeds=tseeds[:hP], **draw)
+        del params, params16, coords, target, wants
     torch.cuda.synchronize()
 
 
@@ -850,6 +942,93 @@ def fwd_case_checks(dev) -> None:
                 del tab, want, got
         del tables32
     torch.cuda.synchronize()
+
+
+def bf16_training(tparts, vols, cfg, train_wrappers, tag, f32_run) -> dict:
+    """Phase 5 under the bf16 policy (bf16 params and compute, float32
+    master and moments): the same TRAIN_STEPS steps through
+    ``api.train(precision="bf16", backend="cuda")``, fused (the bf16 train
+    step and the master AdamW, every launch of theirs the bf16 kernel's)
+    and unfused (``fuse_train_step="off"``: the bf16 MLP and hash-encode
+    backward kernels), counters zeroed just before each. The loss must
+    fall; the first 16 losses of both must agree with ``backend="ref"``
+    bf16 within 1e-2 relative (bf16 rounds every feature, activation and
+    delta, so a rounding flip between float32 sum orders moves a value by
+    2^-8 relative, and Adam's normalised first steps pass such differences
+    on); the two runs' PSNRs within 1 dB. Returns the bf16 kernels'
+    launches of the two runs."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    TP, Nb = len(tparts), cfg.batch_size
+    print(f"  bf16 policy: {TRAIN_STEPS} steps, fused then unfused")
+    runs, out = {}, {}
+    for fuse in ("auto", "off"):
+        for w in train_wrappers.values():
+            w.launches = w.bf16_launches = 0
+        torch.cuda.synchronize()
+        _, info = api.train(tparts, cfg, backend="cuda", steps=TRAIN_STEPS,
+                            key=0, log_every=1, precision="bf16",
+                            fuse_train_step=fuse)
+        torch.cuda.synchronize()
+        st = info["state"]
+        launches = {n: (w.launches, w.bf16_launches)
+                    for n, w in train_wrappers.items()}
+        print(f"  bf16 {'fused' if fuse == 'auto' else 'unfused'}: launches "
+              f"(all, bf16 kernel) {launches}")
+        path = ("train_step", "adamw_apply") if fuse == "auto" else \
+            ("hash_encode_bwd", "fused_mlp_bwd")
+        for n in path:
+            every, bf16 = launches[n]
+            if bf16 <= 0 or every != bf16:
+                raise SmokeFailure(f"bf16 run ({fuse}): {n} launched {every} "
+                                   f"times, {bf16} of them the bf16 kernel")
+        if fuse == "auto" and launches["train_step"][1] != TRAIN_STEPS:
+            raise SmokeFailure(f"the bf16 train step launched "
+                               f"{launches['train_step'][1]} times in "
+                               f"{TRAIN_STEPS} steps")
+        if st.params["tables"].dtype != torch.bfloat16 or \
+                st.opt["mw"]["tables"].dtype != torch.float32:
+            raise SmokeFailure("the bf16 run's state is not bf16 params with "
+                               "an f32 master")
+        losses = np.array([l for _, l in info["loss_history"]])
+        if losses.shape != (TRAIN_STEPS,) or not np.isfinite(losses).all():
+            raise SmokeFailure(f"bf16 loss trace {losses.shape}, finite "
+                               f"{bool(np.isfinite(losses).all())}")
+        first, last = float(losses[:16].mean()), float(losses[-16:].mean())
+        if not last < 0.5 * first:
+            raise SmokeFailure(f"bf16 ({fuse}): the loss did not fall: first 16 "
+                               f"{first:.6f}, last 16 {last:.6f}")
+        ev = info["trainer"].evaluate(st, vols, (TRAIN_EDGE,) * 3)
+        if not np.isfinite(ev["psnr"]):
+            raise SmokeFailure(f"bf16 evaluate: PSNR {ev['psnr']}")
+        ms = info["train_time_s"] * 1e3 / TRAIN_STEPS
+        runs[fuse] = {"losses": losses, "psnr": ev["psnr"], "ms": ms}
+        out[fuse] = {n: b for n, (_, b) in launches.items()}
+        print(f"  bf16 {'fused' if fuse == 'auto' else 'unfused'}: "
+              f"{info['train_time_s']:.3f} s, {ms:.4f} ms per step, "
+              f"{TP * Nb * TRAIN_STEPS / info['train_time_s']:.4g} samples/s, "
+              f"loss first 16 {first:.6f} last 16 {last:.6f}, PSNR "
+              f"{ev['psnr']:.4f} dB (host clock, synchronised) [{tag}]")
+        del info, st
+    print(f"  f32 vs bf16 (fused, {TRAIN_STEPS} steps): {f32_run['ms_step']:.4f} "
+          f"vs {runs['auto']['ms']:.4f} ms per step, {f32_run['sps']:.4g} vs "
+          f"{TP * Nb / runs['auto']['ms'] * 1e3:.4g} samples/s, PSNR "
+          f"{f32_run['psnr']:.4f} vs {runs['auto']['psnr']:.4f} dB [{tag}]")
+    dpsnr = abs(runs["auto"]["psnr"] - runs["off"]["psnr"])
+    print(f"  bf16 fused vs unfused PSNR: {runs['auto']['psnr']:.4f} vs "
+          f"{runs['off']['psnr']:.4f} dB, |diff| {dpsnr:.4f} (limit 1 dB)  "
+          f"{'ok' if dpsnr < 1.0 else 'FAIL'}")
+    if not dpsnr < 1.0:
+        raise SmokeFailure(f"bf16 fused and unfused PSNRs {dpsnr:.3f} dB apart")
+    _, rinfo = api.train(tparts, cfg, backend="ref", steps=COMPARE_STEPS, key=0,
+                         log_every=1, precision="bf16")
+    ref = torch.tensor([l for _, l in rinfo["loss_history"]], dtype=torch.float64)
+    for fuse, label in (("auto", "fused"), ("off", "unfused")):
+        check(f"bf16 first {COMPARE_STEPS} losses: {label} vs plain path (ref)",
+              torch.from_numpy(runs[fuse]["losses"][:COMPARE_STEPS]), ref,
+              atol=0.0, rtol=1e-2)
+    return out
 
 
 def dvnr_phases():
@@ -1016,6 +1195,15 @@ def dvnr_phases():
     errs = {"hash_encode_bwd": check(
         "hash_encode_bwd (atomic scatter)", got, want,
         atol=2e-5 * float(want.abs().max()))}
+    # a bf16 cotangent: the kernel widens it, as the plain version does, so
+    # the float32 limit holds
+    g_feat16 = g_feat.to(torch.bfloat16)
+    got = hash_encode_bwd_cuda(g_feat16, coords_t, res, rows_t, (TP, L, T, F))
+    want = hash_encode_batched_bwd_ref(g_feat16, coords_t, res, rows_td,
+                                       (TP, L, T, F))
+    errs["hash_encode_bwd_bf16"] = check(
+        "hash_encode_bwd bf16 cotangent (atomic scatter)", got, want,
+        atol=2e-5 * float(want.abs().max()))
     del got, want
     # the scatter's other routes: every point in one coarse cell (the
     # warp pre-reduction and the shared-memory staging under contention),
@@ -1033,14 +1221,17 @@ def dvnr_phases():
         hN = hc.batch_size
         hcoords = t(rng.uniform(lo, hi, (hP, hN, 3)))
         hg = t(rng.standard_normal((hP, hN, hL * hF)) * 1e-5)
-        got = hash_encode_bwd_cuda(hg, hcoords, hres, list(range(hP)), (hP, hL, hT, hF))
-        want = hash_encode_batched_bwd_ref(hg, hcoords, hres,
-                                           torch.arange(hP, device=dev),
-                                           (hP, hL, hT, hF))
         plan = "".join("s" if x else "d" for x in bwd_plan(hres, hT, hF))
-        check(f"hash_encode_bwd {label} (levels {plan})", got, want,
-              atol=2e-5 * float(want.abs().max()))
-        del got, want, hcoords, hg
+        for hgd in (hg, hg.to(torch.bfloat16)):
+            got = hash_encode_bwd_cuda(hgd, hcoords, hres, list(range(hP)),
+                                       (hP, hL, hT, hF))
+            want = hash_encode_batched_bwd_ref(hgd, hcoords, hres,
+                                               torch.arange(hP, device=dev),
+                                               (hP, hL, hT, hF))
+            check(f"hash_encode_bwd {str(hgd.dtype)[6:]} {label} (levels {plan})",
+                  got, want, atol=2e-5 * float(want.abs().max()))
+            del got, want
+        del hcoords, hg
     feats_t = hash_encode_cuda(coords_t, tparams["tab"], res, rows_t)
     ws_t = fts._unpack(tparams, H)["mlp"]
     g_out = t(rng.choice([-1.0, 1.0], (TP, Nb, D_out)) / Nb)
@@ -1052,6 +1243,21 @@ def dvnr_phases():
                                   atol=2e-6 * max(1e-30, float(dx_p.abs().max())))
     for i, (a, b) in enumerate(zip(dws_k, dws_p)):
         check(f"fused_mlp_bwd dW[{i}]", a, b, atol=2e-5 * float(b.abs().max()))
+    # bf16 operands (the unfused bf16 step's): the features of the bf16
+    # tables, the weights and the cotangent rounded to bf16 (+-1/N is exact)
+    tparams16 = {k: v.to(torch.bfloat16) for k, v in tparams.items()}
+    feats16 = hash_encode_cuda(coords_t, tparams16["tab"], res, rows_t)
+    ws16 = fts._unpack(tparams16, H)["mlp"]
+    g_out16 = g_out.to(torch.bfloat16)
+    dx_k, dws_k = fused_mlp_bwd_cuda(feats16, ws16, g_out16, rows_t)
+    dx_p, dws_p = fused_mlp_batched_bwd_ref(feats16, ws16, g_out16, rows_td)
+    dx_32, dws_32 = fused_mlp_batched_bwd_ref(
+        feats16.float(), [w.float() for w in ws16], g_out16.float(), rows_td)
+    errs["fused_mlp_bwd_bf16"] = check_bf16("fused_mlp_bwd bf16 dx", dx_k, dx_p,
+                                            dx_32)
+    for i, (a, b, c) in enumerate(zip(dws_k, dws_p, dws_32)):
+        check_bf16(f"fused_mlp_bwd bf16 dW[{i}]", a, b, c)
+    del dx_k, dws_k, dx_p, dws_p, dx_32, dws_32
     wants_t = step_wants(tparams, H, res, coords_t, target_t)
     errs["train_step"] = max(
         check_step("host-sampled batch", tparams, H, res, wants_t,
@@ -1069,6 +1275,15 @@ def dvnr_phases():
     check_step_grads("split: cotangent + hash_encode_bwd", H, split_g, split_loss,
                      wants_t, keys=["tab"])
     del cot, split_g, split_loss, wants_t
+    wants16 = step_wants_bf16(tparams16, H, res, coords_t, target_t)
+    errs["train_step_bf16"] = max(
+        check_step_bf16("host-sampled batch", tparams16, H, res, wants16,
+                        coords=coords_t, target=target_t),
+        check_step_bf16("in-kernel sampling", tparams16, H, res, wants16,
+                        volumes=vols_c, seeds=tseeds, **draw))
+    got_g16, got_loss16 = fts.train_step_cuda(tparams16, H, res, volumes=vols_c,
+                                              seeds=tseeds, **draw)
+    del wants16
     step_case_checks(dev, vols_c, tseeds, cfg)
     adam = AdamW(_opt_config(cfg, resolve_precision(cfg.precision)))
     sched = fts.schedule_table(torch.zeros(TP, dtype=torch.int32, device=dev),
@@ -1094,6 +1309,22 @@ def dvnr_phases():
         for name, a, b in (("param", pk, pp), ("m", mk, mp), ("v", vk, vp)):
             e = check(f"adamw_apply {k} {name}", a[k], b[k], atol=0.0)
             errs["adamw_apply"] = max(errs.get("adamw_apply", 0.0), e)
+
+    def master_state():   # the bf16 policy's: bf16 params, f32 master
+        p, m, v = adam_state()
+        return {k: x.to(torch.bfloat16) for k, x in p.items()}, m, v, p
+
+    pk, mk, vk, wk = master_state()
+    fts.adamw_apply_cuda(pk, mk, vk, got_g16, sched, got_loss16, n_valid=Nb,
+                         flat_mw=wk, **adam_kw)
+    pp, mp, vp, wp = master_state()
+    fts_ref.adamw_apply_ref(pp, mp, vp, wp, got_g16, sched, **adam_kw)
+    # the same operations on the master, the bf16 params its rounding
+    for k in fts.STATE_KEYS:
+        for name, a, b in (("master", wk, wp), ("bf16 param", pk, pp),
+                           ("m", mk, mp), ("v", vk, vp)):
+            e = check(f"adamw_apply master {k} {name}", a[k], b[k], atol=0.0)
+            errs["adamw_apply_master"] = max(errs.get("adamw_apply_master", 0.0), e)
     torch.cuda.synchronize()
     flash_err = flash_checks(dev)
 
@@ -1248,6 +1479,8 @@ def dvnr_phases():
           f"{finfo['train_time_s'] * 1e3 / COMPARE_STEPS:.4f} (host clock, "
           f"synchronised; {TRAIN_STEPS} fused steps above: {ms_step:.4f}) [{tag}]")
     del rinfo, uinfo, finfo
+    bf16_runs = bf16_training(tparts, vols, cfg, train_wrappers, tag,
+                              {"ms_step": ms_step, "sps": sps, "psnr": ev["psnr"]})
 
     # ---------------------------------------------------------------- 6
     print(f"== phase 6: per-kernel times at the tick's shapes [{tag}]")
@@ -1368,20 +1601,26 @@ def dvnr_phases():
     n_w = D_in * W + (nH - 1) * W * W + W * D_out
     n_tab = TP * L * T * F
     rows = TP * Nb
-    flat_idx, flat_val = [], []                 # index_add_'s operands
     base = (rows_td * (L * T)).repeat_interleave(Nb)
-    xs, gl = coords_t.reshape(rows, 3), g_feat.reshape(rows, L, F)
-    for l in range(L):
-        lo, wl = he_ref._level_corners(xs, res[l])
-        for dx in (0, 1):
-            for dy in (0, 1):
-                for dz in (0, 1):
-                    corner = lo + torch.tensor([dx, dy, dz], device=dev)
-                    flat_idx.append(he_ref.corner_indices(corner, res[l], T)
-                                    + base + l * T)
-                    flat_val.append(he_ref._corner_weight(wl, dx, dy, dz)[:, None]
-                                    * gl[:, l])
-    flat_idx, flat_val = torch.cat(flat_idx), torch.cat(flat_val)
+    xs = coords_t.reshape(rows, 3)
+
+    def scatter_operands(g):   # index_add_'s operands for the cotangent g
+        idx, val = [], []
+        gl = g.float().reshape(rows, L, F)
+        for l in range(L):
+            lo, wl = he_ref._level_corners(xs, res[l])
+            for dx in (0, 1):
+                for dy in (0, 1):
+                    for dz in (0, 1):
+                        corner = lo + torch.tensor([dx, dy, dz], device=dev)
+                        idx.append(he_ref.corner_indices(corner, res[l], T)
+                                   + base + l * T)
+                        val.append(he_ref._corner_weight(wl, dx, dy, dz)[:, None]
+                                   * gl[:, l])
+        return torch.cat(idx), torch.cat(val)
+
+    flat_idx, flat_val = scatter_operands(g_feat)
+    _, flat_val16 = scatter_operands(g_feat16)   # the widened bf16 cotangent
     scatter_buf = torch.zeros((n_tab // F, F), device=dev)
     # the distinct voxels this batch's trilinear corners touch (the bytes of
     # the volume the train step must read)
@@ -1397,18 +1636,33 @@ def dvnr_phases():
     n_vox = int(torch.unique(torch.cat([v.reshape(-1) for v in vox])).numel())
     del vox, pos, lo_v
 
-    def mlp_bwd_chain():   # yardstick: autograd of one bmm + relu per layer
-        xs_ = feats_t.detach().requires_grad_(True)
-        ws_ = [w.detach().requires_grad_(True) for w in ws_t]
+    def mlp_bwd_chain(x, ws, g):   # yardstick: autograd of bmm + relu per layer
+        xs_ = x.detach().requires_grad_(True)
+        ws_ = [w.detach().requires_grad_(True) for w in ws]
         h = xs_
         for w in ws_[:-1]:
             h = torch.relu(torch.bmm(h, w))
-        return torch.autograd.grad(torch.bmm(h, ws_[-1]), [xs_, *ws_], g_out)
+        return torch.autograd.grad(torch.bmm(h, ws_[-1]), [xs_, *ws_], g)
 
     pk, mk, vk = adam_state()
     pp, mp, vp = adam_state()
+    pk16, mk16, vk16, wk16 = master_state()
+    pp16, mp16, vp16, wp16 = master_state()
     sample_kw = dict(volumes=vols_c, seeds=tseeds, **draw)
     enc_flops = rows * L * (25 + 8 * (3 + 2 * F))
+    step_flops = enc_flops + rows * (6 * n_w + 16 * L * F + 8 * 3 + 20)
+    n_par = n_tab + TP * n_w
+
+    def plain_step(params):
+        return fts_ref.train_step_grads_ref(params, H, res, *fts_ref.sample_batch(
+            vols_c, tseeds, n_batch=Nb, boundary_lambda=cfg.boundary_lambda,
+            sigma=cfg.boundary_sigma, ghost=1))
+
+    # (name, kernel, plain version, library call or None, bytes, operations,
+    # launches on the main path, its steps, the kernel's symbol); the bf16
+    # rows' launches are the bf16 runs' (fused: train step and AdamW;
+    # unfused: the backwards), each of TRAIN_STEPS steps
+    b_fused, b_unfused = bf16_runs["auto"], bf16_runs["off"]
     tspecs = [
         ("hash_encode_bwd",
          lambda: hash_encode_bwd_cuda(g_feat, coords_t, res, rows_t, (TP, L, T, F)),
@@ -1416,37 +1670,57 @@ def dvnr_phases():
                                              (TP, L, T, F)),
          lambda: scatter_buf.index_add_(0, flat_idx, flat_val),
          rows * (12 + L * F * 4) + n_tab * 4, enc_flops,
-         unfused_launches, COMPARE_STEPS),
+         unfused_launches["hash_encode_bwd"], COMPARE_STEPS, "hash_encode_bwd_kernel"),
         ("fused_mlp_bwd", lambda: fused_mlp_bwd_cuda(feats_t, ws_t, g_out, rows_t),
          lambda: fused_mlp_batched_bwd_ref(feats_t, ws_t, g_out, rows_td),
-         mlp_bwd_chain,
+         lambda: mlp_bwd_chain(feats_t, ws_t, g_out),
          rows * (2 * D_in + D_out) * 4 + 2 * TP * n_w * 4, 6 * rows * n_w,
-         unfused_launches, COMPARE_STEPS),
+         unfused_launches["fused_mlp_bwd"], COMPARE_STEPS, "fused_mlp_bwd_kernel"),
         # bound: float work only; the ~300 integer operations of each
         # sample's Threefry draws are not counted
         ("train_step", lambda: fts.train_step_cuda(tparams, H, res, **sample_kw),
-         lambda: fts_ref.train_step_grads_ref(
-             tparams, H, res, *fts_ref.sample_batch(
-                 vols_c, tseeds, n_batch=Nb, boundary_lambda=cfg.boundary_lambda,
-                 sigma=cfg.boundary_sigma, ghost=1)),
-         None,
-         2 * (n_tab + TP * n_w) * 4 + n_vox * 4 + TP * 4,
-         enc_flops + rows * (6 * n_w + 16 * L * F + 8 * 3 + 20), train_launches,
-         TRAIN_STEPS),
+         lambda: plain_step(tparams), None,
+         2 * n_par * 4 + n_vox * 4 + TP * 4, step_flops,
+         train_launches["train_step"], TRAIN_STEPS, "train_step_kernel"),
         ("adamw_apply",
          lambda: fts.adamw_apply_cuda(pk, mk, vk, got_g, sched, got_loss,
                                       n_valid=Nb, **adam_kw),
          lambda: fts_ref.adamw_apply_ref(pp, mp, vp, None, got_g, sched, **adam_kw),
-         None, (n_tab + TP * n_w) * 7 * 4 + TP * 4 * 4, (n_tab + TP * n_w) * 15,
-         train_launches, TRAIN_STEPS),
+         None, n_par * 7 * 4 + TP * 4 * 4, n_par * 15,
+         train_launches["adamw_apply"], TRAIN_STEPS, "adamw_kernel"),
+        # the bf16 policy's kernels: bf16 operands read, float32 gradients
+        # written, float32 arithmetic (the CUDA cores' float32 peak)
+        ("hash_encode_bwd_bf16",
+         lambda: hash_encode_bwd_cuda(g_feat16, coords_t, res, rows_t, (TP, L, T, F)),
+         lambda: hash_encode_batched_bwd_ref(g_feat16, coords_t, res, rows_td,
+                                             (TP, L, T, F)),
+         lambda: scatter_buf.index_add_(0, flat_idx, flat_val16),
+         rows * (12 + L * F * 2) + n_tab * 4, enc_flops,
+         b_unfused["hash_encode_bwd"], TRAIN_STEPS, "hash_encode_bwd_bf16_kernel"),
+        ("fused_mlp_bwd_bf16",
+         lambda: fused_mlp_bwd_cuda(feats16, ws16, g_out16, rows_t),
+         lambda: fused_mlp_batched_bwd_ref(feats16, ws16, g_out16, rows_td),
+         lambda: mlp_bwd_chain(feats16, ws16, g_out16),
+         rows * (2 * D_in + D_out) * 2 + TP * n_w * (2 + 4), 6 * rows * n_w,
+         b_unfused["fused_mlp_bwd"], TRAIN_STEPS, "fused_mlp_bwd_bf16_kernel"),
+        ("train_step_bf16",
+         lambda: fts.train_step_cuda(tparams16, H, res, **sample_kw),
+         lambda: plain_step(tparams16), None,
+         n_par * (2 + 4) + n_vox * 4 + TP * 4, step_flops,
+         b_fused["train_step"], TRAIN_STEPS, "train_step_bf16_kernel"),
+        ("adamw_apply_master",
+         lambda: fts.adamw_apply_cuda(pk16, mk16, vk16, got_g16, sched, got_loss16,
+                                      n_valid=Nb, flat_mw=wk16, **adam_kw),
+         lambda: fts_ref.adamw_apply_ref(pp16, mp16, vp16, wp16, got_g16, sched,
+                                         **adam_kw),
+         None, n_par * (4 * 4 + 3 * 4 + 2) + TP * 4 * 4, n_par * 15,
+         b_fused["adamw_apply"], TRAIN_STEPS, "adamw_master_kernel"),
     ]
     # the kernels' own device time per launch (the CUDA-event times above
     # span back-to-back wrapper calls, host work included)
     _, dev_ms, _ = profile_tick(lambda: [k() for _, k, *_ in tspecs for _ in range(5)])
-    kernel_symbol = {"hash_encode_bwd": "hash_encode_bwd_kernel",
-                     "fused_mlp_bwd": "fused_mlp_bwd_kernel",
-                     "train_step": "train_step_kernel", "adamw_apply": "adamw_kernel"}
-    for name, kern, plain_fn, lib_fn, nbytes, flops, counts, steps in tspecs:
+    for name, kern, plain_fn, lib_fn, nbytes, flops, launches, steps, symbol \
+            in tspecs:
         ms = cuda_ms(kern, reps=10)
         pms = cuda_ms(plain_fn, reps=3)
         lms = cuda_ms(lib_fn, reps=5) if lib_fn is not None else None
@@ -1454,16 +1728,16 @@ def dvnr_phases():
         # times are per wrapper call (5 in the profile), summed over the
         # kernels that carry the symbol: the hash backward launches once per
         # level, and its counter counts those launches (L per call)
-        kt = [t for key, (t, _) in dev_ms if kernel_symbol[name] in key]
+        kt = [t for key, (t, _) in dev_ms if symbol in key]
         kdev = [sum(kt) / 5] if kt else []
-        print(f"  {name:<16s} {ms:9.3f} ms  bound {bms:8.3f} ms ({by})  "
+        print(f"  {name:<20s} {ms:9.3f} ms  bound {bms:8.3f} ms ({by})  "
               f"plain {pms:9.3f} ms  library "
               f"{'-' if lms is None else f'{lms:.3f} ms'}  "
-              f"launches/step {counts[name] / steps:.0f}  kernel alone "
+              f"launches/step {launches / steps:.0f}  kernel alone "
               f"{f'{kdev[0]:.4f} ms' if kdev else 'not measured'} per call "
               f"(profiler) [{tag}]")
         kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                        "replaces": REPLACES[name], "launches": counts[name],
+                        "replaces": REPLACES[name], "launches": launches,
                         "max_abs_err": errs[name], "ms": ms, "plain_ms": pms,
                         "bound_ms": bms, "bound_by": by, "library_ms": lms})
     # the host-sampled variant (fused_train_step, fuse_sampling="off"): the
@@ -1545,15 +1819,21 @@ def dvnr_phases():
     pk, mk, vk = adam_state()
     cold = lambda: fts.adamw_apply_cuda(pk, mk, vk, got_g, sched, got_loss,
                                         n_valid=Nb, **adam_kw)
-    _, dev_cold, _ = profile_tick(lambda: [(flush.zero_(), cold()) for _ in range(5)])
-    kc = [t / n for key, (t, n) in dev_cold if "adamw_kernel" in key]
-    print(f"  adamw_apply with the L2 flushed before each launch: kernel alone "
-          f"{f'{kc[0]:.4f} ms' if kc else 'not measured'} (profiler) [{tag}]")
+    pk16, mk16, vk16, wk16 = master_state()
+    cold16 = lambda: fts.adamw_apply_cuda(pk16, mk16, vk16, got_g16, sched,
+                                          got_loss16, n_valid=Nb, flat_mw=wk16,
+                                          **adam_kw)
+    for label, fn, symbol in (("adamw_apply", cold, "adamw_kernel"),
+                              ("adamw_apply_master", cold16, "adamw_master_kernel")):
+        _, dev_cold, _ = profile_tick(lambda: [(flush.zero_(), fn()) for _ in range(5)])
+        kc = [t / n for key, (t, n) in dev_cold if symbol in key]
+        print(f"  {label} with the L2 flushed before each launch: kernel alone "
+              f"{f'{kc[0]:.4f} ms' if kc else 'not measured'} (profiler) [{tag}]")
     del flush
     print(f"  train step bytes: {n_vox} distinct volume voxels read, tables "
           f"and MLP {TP * (L * T * F + n_w) * 4} B read and their gradients "
           f"written [{tag}]")
-    del flat_idx, flat_val, scatter_buf
+    del flat_idx, flat_val, flat_val16, scatter_buf
 
     # where a training chunk's time goes: PROFILE_STEPS more steps
     trainer, tstate = tinfo["trainer"], tinfo["state"]

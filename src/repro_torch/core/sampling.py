@@ -4,7 +4,7 @@ The port of ``repro.core.sampling``. The generator is COUNTER-BASED: every
 random word is a pure function of ``(seed words, sample row, word index)``
 through a hand-written Threefry-2x32 block cipher, so the same draws come
 out of the plain PyTorch code here and out of the CUDA train-step kernel
-(``csrc/train_step.cu``), and the port draws exactly the JAX package's
+(``csrc/train_step.cuh``), and the port draws exactly the JAX package's
 batches for the same key.
 
 PyTorch's uint32 arithmetic is incomplete on the CPU, so words are carried

@@ -6,7 +6,7 @@
 // last batch tile of each partition applies AdamW to the gradients the
 // earlier tiles accumulated). That relies on the TPU running the grid in
 // order; on the GPU the gradients are complete only when the train-step
-// kernel (train_step.cu) has ended, so this is a second launch on the same
+// kernel (train_step.cuh) has ended, so this is a second launch on the same
 // stream: one thread per parameter over the four state groups (tables,
 // input layer, hidden slab, output layer) of every partition.
 //
@@ -21,18 +21,27 @@
 // overwritten in place (the JAX package donates their buffers). The kernel
 // also writes the step's mean loss, loss_sum / (N D_out).
 //
+// The bf16 policy's variant (adamw_master_kernel) keeps the float32 master
+// copy of kernel.py's has_master leg (lines 224-231, 251-253): the update
+// reads and writes the master in place of p, with the same operations in
+// the same order, and the bfloat16 params are re-derived from the new
+// master by round-to-nearest-even, as AdamW.step casts them.
+//
 // Bound: bytes. Each parameter reads 4 floats (p, m, v, g) and writes 3:
 // 28 B against ~15 flops. PRODUCTION256's 8 partitions hold 1.3M parameters,
-// 37 MB moved, 11 us at 3.35 TB/s. float32 policy only (no master copy).
+// 37 MB moved, 11 us at 3.35 TB/s. With a master, each reads mw, m, v and g
+// and writes mw, m, v and a bfloat16 p: 30 B, 39 MB, 12 us.
 #include "common.cuh"
 
 namespace {
 
 struct Group {
-  float* p;
+  float* p;              // the params (float32 policy)
   float* m;
   float* v;
   const float* g;
+  float* mw;             // the float32 master (bf16 policy), else null
+  __nv_bfloat16* pb;     // the bfloat16 params derived from it, else null
   long long n;   // parameters per partition (0: the group is skipped)
 };
 
@@ -40,12 +49,14 @@ struct Groups {
   Group k[4];
 };
 
-__global__ void adamw_kernel(const Groups gs, const float* __restrict__ scalars,
-                             const float* __restrict__ loss_sum,
-                             float* __restrict__ loss, long long P,
-                             long long total, float loss_div, float b1,
-                             float omb1, float b2, float omb2, float eps,
-                             float wd) {
+template <bool MASTER>
+__device__ __forceinline__ void adamw_body(const Groups& gs,
+                                           const float* __restrict__ scalars,
+                                           const float* __restrict__ loss_sum,
+                                           float* __restrict__ loss, long long P,
+                                           long long total, float loss_div,
+                                           float b1, float omb1, float b2,
+                                           float omb2, float eps, float wd) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   for (long long q = first; q < P; q += stride)
@@ -61,7 +72,7 @@ __global__ void adamw_kernel(const Groups gs, const float* __restrict__ scalars,
     const long long p = j / G.n;
     const float lr = __ldg(scalars + 4 * p), bc1 = __ldg(scalars + 4 * p + 1);
     const float bc2 = __ldg(scalars + 4 * p + 2), gate = __ldg(scalars + 4 * p + 3);
-    const float g = G.g[j], w = G.p[j];
+    const float g = G.g[j], w = MASTER ? G.mw[j] : G.p[j];
     const float m = __fadd_rn(__fmul_rn(b1, G.m[j]), __fmul_rn(omb1, g));
     const float v = __fadd_rn(__fmul_rn(b2, G.v[j]), __fmul_rn(omb2, __fmul_rn(g, g)));
     float delta = __fdiv_rn(__fdiv_rn(m, bc1),
@@ -69,39 +80,73 @@ __global__ void adamw_kernel(const Groups gs, const float* __restrict__ scalars,
     if (wd != 0.0f) delta = __fadd_rn(delta, __fmul_rn(wd, w));
     G.m[j] = m;
     G.v[j] = v;
-    G.p[j] = __fadd_rn(w, __fmul_rn(gate, __fmul_rn(-lr, delta)));
+    const float nw = __fadd_rn(w, __fmul_rn(gate, __fmul_rn(-lr, delta)));
+    if (MASTER) {
+      G.mw[j] = nw;
+      G.pb[j] = __float2bfloat16_rn(nw);
+    } else {
+      G.p[j] = nw;
+    }
   }
+}
+
+// the float32 policy's update (the params are their own master)
+__global__ void adamw_kernel(const Groups gs, const float* __restrict__ scalars,
+                             const float* __restrict__ loss_sum,
+                             float* __restrict__ loss, long long P,
+                             long long total, float loss_div, float b1,
+                             float omb1, float b2, float omb2, float eps,
+                             float wd) {
+  adamw_body<false>(gs, scalars, loss_sum, loss, P, total, loss_div, b1, omb1,
+                    b2, omb2, eps, wd);
+}
+
+// the bf16 policy's update: the float32 master, then the bfloat16 params
+__global__ void adamw_master_kernel(const Groups gs,
+                                    const float* __restrict__ scalars,
+                                    const float* __restrict__ loss_sum,
+                                    float* __restrict__ loss, long long P,
+                                    long long total, float loss_div, float b1,
+                                    float omb1, float b2, float omb2, float eps,
+                                    float wd) {
+  adamw_body<true>(gs, scalars, loss_sum, loss, P, total, loss_div, b1, omb1,
+                   b2, omb2, eps, wd);
 }
 
 }  // namespace
 
-// Four groups of (params, m, v, grad) pointers, float32, (P, n_k) each, with
-// n_k parameters per partition (0 skips the group); scalars (P,4) f32 rows
+// Four groups of (params, m, v, grad, master) pointers, (P, n_k) each, with
+// n_k parameters per partition (0 skips the group): float32 params and a
+// null master (master = 0), or bfloat16 params and a float32 master
+// (master = 1); m, v and grad float32. scalars (P,4) f32 rows
 // [lr, 1-b1^t, 1-b2^t, gate]; loss_sum (P,) -> loss (P,) = loss_sum /
 // loss_div. The constants arrive as float32 values of the host's doubles
 // (1-b1 and 1-b2 are computed in double first, as the plain version's
 // Python scalars are).
 extern "C" int repro_adamw_apply(
-    void* p0, void* m0, void* v0, const void* g0, long long n0,
-    void* p1, void* m1, void* v1, const void* g1, long long n1,
-    void* p2, void* m2, void* v2, const void* g2, long long n2,
-    void* p3, void* m3, void* v3, const void* g3, long long n3,
+    void* p0, void* m0, void* v0, const void* g0, void* mw0, long long n0,
+    void* p1, void* m1, void* v1, const void* g1, void* mw1, long long n1,
+    void* p2, void* m2, void* v2, const void* g2, void* mw2, long long n2,
+    void* p3, void* m3, void* v3, const void* g3, void* mw3, long long n3,
     const void* scalars, const void* loss_sum, void* loss, long long P,
     float loss_div, float b1, float omb1, float b2, float omb2, float eps,
-    float wd, void* stream) {
+    float wd, int master, void* stream) {
   if (P <= 0) return 0;
   Groups gs;
   void* ps[4] = {p0, p1, p2, p3};
   void* ms[4] = {m0, m1, m2, m3};
   void* vs[4] = {v0, v1, v2, v3};
   const void* gr[4] = {g0, g1, g2, g3};
+  void* mws[4] = {mw0, mw1, mw2, mw3};
   const long long ns[4] = {n0, n1, n2, n3};
   long long total = 0;
   for (int k = 0; k < 4; ++k) {
-    if (ns[k] < 0) return (int)cudaErrorInvalidValue;
-    gs.k[k] = Group{static_cast<float*>(ps[k]), static_cast<float*>(ms[k]),
-                    static_cast<float*>(vs[k]), static_cast<const float*>(gr[k]),
-                    ns[k]};
+    if (ns[k] < 0 || (master != 0) != (mws[k] != nullptr))
+      return (int)cudaErrorInvalidValue;
+    gs.k[k] = Group{master ? nullptr : static_cast<float*>(ps[k]),
+                    static_cast<float*>(ms[k]), static_cast<float*>(vs[k]),
+                    static_cast<const float*>(gr[k]), static_cast<float*>(mws[k]),
+                    master ? static_cast<__nv_bfloat16*>(ps[k]) : nullptr, ns[k]};
     total += P * ns[k];
   }
   int dev = 0, sms = 132;
@@ -111,7 +156,8 @@ extern "C" int repro_adamw_apply(
   long long blocks = (total + threads - 1) / threads;
   if (blocks > 8LL * sms) blocks = 8LL * sms;
   if (blocks < 1) blocks = 1;
-  adamw_kernel<<<(unsigned)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto kernel = master ? adamw_master_kernel : adamw_kernel;
+  kernel<<<(unsigned)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       gs, static_cast<const float*>(scalars), static_cast<const float*>(loss_sum),
       static_cast<float*>(loss), P, total, loss_div, b1, omb1, b2, omb2, eps, wd);
   return (int)cudaGetLastError();

@@ -45,8 +45,17 @@
 // 3,550 flop, 22 flop/B, at the f32 ridge of an H100. The products run on
 // the CUDA cores from shared memory (W = 16 is too narrow for a wgmma tile);
 // the dW pass reads two shared-memory operands per product, so shared-memory
-// bandwidth, not the bound, is the likely limit of this version. float32
-// policy only; the atomic adds make dW's last bits vary from run to run.
+// bandwidth, not the bound, is the likely limit of this version. The atomic
+// adds make dW's last bits vary from run to run.
+//
+// bfloat16 operands (fused_mlp_bwd_bf16_kernel, the bf16 training policy):
+// x, the cotangent and the weights are read as bfloat16 and widened; the
+// recomputed activations are rounded to bfloat16 as the forward rounds them,
+// and each layer's delta is rounded to bfloat16 before its ReLU mask, where
+// the plain version's autograd rounds it (fused_mlp/ref.py); dx is summed in
+// float32 and rounded once to bfloat16; dW is summed in float32 into the
+// float32 gradient (the autograd function rounds it once to the weights'
+// type). JAX's kernel sums dW in bfloat16 per grid tile (kernel.py:110-112).
 #include "common.cuh"
 #include "mlp_tile.cuh"
 
@@ -157,6 +166,51 @@ cudaError_t launch(const void* x, const void* w_in, const void* w_hid,
   }
 }
 
+// the backward's body for operands of type T (float or __nv_bfloat16)
+template <typename T, int W>
+__device__ __forceinline__ void fused_mlp_bwd_body(
+    const T* __restrict__ x, const T* __restrict__ w_in,
+    const T* __restrict__ w_hid, const T* __restrict__ w_out,
+    const T* __restrict__ gout, const int* __restrict__ part,
+    T* __restrict__ dx, float* __restrict__ dw_in, float* __restrict__ dw_hid,
+    float* __restrict__ dw_out, long long N, int D_in, int n_hidden,
+    int n_hid_slab, int D_out) {
+  constexpr bool RB = sizeof(T) == 2;
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.y;
+  const long long p = __ldg(part + b);
+  const repro::MlpTile t =
+      repro::mlp_tile_carve(smem, D_in, W, n_hidden, D_out, blockDim.x);
+  const long long hid_off = p * (long long)n_hid_slab * W * W;
+  repro::mlp_tile_load<T>(t, w_in + p * t.n_in, w_hid + hid_off,
+                          w_out + p * t.n_out);
+  const int r = threadIdx.x;
+  const long long n_tiles = (N + blockDim.x - 1) / blockDim.x;
+  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long long n = tile * blockDim.x + r;
+    const bool valid = n < N;
+    const long long row = (long long)b * N + n;
+    // rows past N take zeros: finite activations and zero deltas, so the
+    // block-wide dW pass may sum over the whole tile
+    for (int k = 0; k < D_in; ++k)
+      t.x[r * t.sx + k] = valid ? repro::to_f32(x[row * D_in + k]) : 0.0f;
+    for (int d = 0; d < D_out; ++d)
+      t.g[r * t.sg + d] = valid ? repro::to_f32(gout[row * D_out + d]) : 0.0f;
+    repro::mlp_tile_forward<W, RB>(t, r);
+    float d0[W];
+    repro::mlp_tile_backward<W, RB>(t, r, d0);
+    if (valid)
+      for (int i = 0; i < D_in; ++i)
+        dx[row * D_in + i] = repro::from_f32<T>(repro::mlp_tile_dx<W>(t, d0, i));
+    __syncthreads();
+    repro::mlp_tile_accumulate<W>(t, blockDim.x);
+    __syncthreads();
+  }
+  repro::mlp_tile_flush(t, dw_in + p * t.n_in, dw_hid + hid_off,
+                        dw_out + p * t.n_out);
+}
+
+// float32 operands (the float32 policy)
 template <int W>
 __global__ void fused_mlp_bwd_kernel(const float* __restrict__ x,
                                      const float* __restrict__ w_in,
@@ -170,46 +224,43 @@ __global__ void fused_mlp_bwd_kernel(const float* __restrict__ x,
                                      float* __restrict__ dw_out, long long N,
                                      int D_in, int n_hidden, int n_hid_slab,
                                      int D_out) {
-  extern __shared__ __align__(16) float smem[];
-  const int b = blockIdx.y;
-  const long long p = __ldg(part + b);
-  const repro::MlpTile t =
-      repro::mlp_tile_carve(smem, D_in, W, n_hidden, D_out, blockDim.x);
-  const long long hid_off = p * (long long)n_hid_slab * W * W;
-  repro::mlp_tile_load(t, w_in + p * t.n_in, w_hid + hid_off,
-                       w_out + p * t.n_out);
-  const int r = threadIdx.x;
-  const long long n_tiles = (N + blockDim.x - 1) / blockDim.x;
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long long n = tile * blockDim.x + r;
-    const bool valid = n < N;
-    const long long row = (long long)b * N + n;
-    // rows past N take zeros: finite activations and zero deltas, so the
-    // block-wide dW pass may sum over the whole tile
-    for (int k = 0; k < D_in; ++k)
-      t.x[r * t.sx + k] = valid ? x[row * D_in + k] : 0.0f;
-    for (int d = 0; d < D_out; ++d)
-      t.g[r * t.sg + d] = valid ? gout[row * D_out + d] : 0.0f;
-    repro::mlp_tile_forward<W>(t, r);
-    float d0[W];
-    repro::mlp_tile_backward<W>(t, r, d0);
-    if (valid)
-      for (int i = 0; i < D_in; ++i) dx[row * D_in + i] = repro::mlp_tile_dx<W>(t, d0, i);
-    __syncthreads();
-    repro::mlp_tile_accumulate<W>(t, blockDim.x);
-    __syncthreads();
-  }
-  repro::mlp_tile_flush(t, dw_in + p * t.n_in, dw_hid + hid_off,
-                        dw_out + p * t.n_out);
+  fused_mlp_bwd_body<float, W>(x, w_in, w_hid, w_out, gout, part, dx, dw_in,
+                               dw_hid, dw_out, N, D_in, n_hidden, n_hid_slab,
+                               D_out);
 }
 
+// bfloat16 operands (the bf16 policy), float32 dW
 template <int W>
-cudaError_t launch_bwd_w(const float* x, const float* w_in, const float* w_hid,
-                         const float* w_out, const float* g, const int* part,
-                         float* dx, float* dw_in, float* dw_hid, float* dw_out,
+__global__ void fused_mlp_bwd_bf16_kernel(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w_in,
+    const __nv_bfloat16* __restrict__ w_hid,
+    const __nv_bfloat16* __restrict__ w_out,
+    const __nv_bfloat16* __restrict__ gout, const int* __restrict__ part,
+    __nv_bfloat16* __restrict__ dx, float* __restrict__ dw_in,
+    float* __restrict__ dw_hid, float* __restrict__ dw_out, long long N,
+    int D_in, int n_hidden, int n_hid_slab, int D_out) {
+  fused_mlp_bwd_body<__nv_bfloat16, W>(x, w_in, w_hid, w_out, gout, part, dx,
+                                       dw_in, dw_hid, dw_out, N, D_in,
+                                       n_hidden, n_hid_slab, D_out);
+}
+
+// the backward kernel for operands of type T
+template <typename T, int W>
+constexpr auto bwd_kernel() {
+  if constexpr (sizeof(T) == 4) {
+    return &fused_mlp_bwd_kernel<W>;
+  } else {
+    return &fused_mlp_bwd_bf16_kernel<W>;
+  }
+}
+
+template <typename T, int W>
+cudaError_t launch_bwd_w(const void* x, const void* w_in, const void* w_hid,
+                         const void* w_out, const void* g, const int* part,
+                         void* dx, float* dw_in, float* dw_hid, float* dw_out,
                          long long B, long long N, int D_in, int n_hidden,
                          int n_hid_slab, int D_out, cudaStream_t stream) {
-  auto kernel = fused_mlp_bwd_kernel<W>;
+  const auto kernel = bwd_kernel<T, W>();
   size_t smem = 0;
   const int tile = repro::mlp_pick_tile(D_in, W, n_hidden, D_out, 0, &smem);
   if (tile == 0) return cudaErrorInvalidValue;
@@ -218,10 +269,26 @@ cudaError_t launch_bwd_w(const float* x, const float* w_in, const float* w_hid,
   if (e != cudaSuccess) return e;
   const long long n_tiles = (N + tile - 1) / tile;
   const dim3 grid((unsigned)repro::blocks_per_row(n_tiles, B, tile, smem), (unsigned)B);
-  kernel<<<grid, tile, smem, stream>>>(x, w_in, w_hid, w_out, g, part, dx,
-                                       dw_in, dw_hid, dw_out, N, D_in,
-                                       n_hidden, n_hid_slab, D_out);
+  kernel<<<grid, tile, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w_in),
+      static_cast<const T*>(w_hid), static_cast<const T*>(w_out),
+      static_cast<const T*>(g), part, static_cast<T*>(dx), dw_in, dw_hid,
+      dw_out, N, D_in, n_hidden, n_hid_slab, D_out);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_bwd(const void* x, const void* w_in, const void* w_hid,
+                       const void* w_out, const void* g, const int* part, void* dx,
+                       float* dw_in, float* dw_hid, float* dw_out, long long B,
+                       long long N, int D_in, int W, int n_hidden, int n_hid_slab,
+                       int D_out, cudaStream_t s) {
+  switch (W) {
+    case 16: return launch_bwd_w<T, 16>(x, w_in, w_hid, w_out, g, part, dx, dw_in, dw_hid, dw_out, B, N, D_in, n_hidden, n_hid_slab, D_out, s);
+    case 32: return launch_bwd_w<T, 32>(x, w_in, w_hid, w_out, g, part, dx, dw_in, dw_hid, dw_out, B, N, D_in, n_hidden, n_hid_slab, D_out, s);
+    case 64: return launch_bwd_w<T, 64>(x, w_in, w_hid, w_out, g, part, dx, dw_in, dw_hid, dw_out, B, N, D_in, n_hidden, n_hid_slab, D_out, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -245,33 +312,26 @@ extern "C" int repro_fused_mlp_fwd(const void* x, const void* w_in,
 }
 
 // x (B,N,D_in), w_in (P,D_in,W), w_hid (P,n_hid_slab,W,W), w_out (P,W,D_out),
-// g (B,N,D_out), part (B,) i32, all float32 -> dx (B,N,D_in) and dW summed
-// over each partition's rows into dw_in / dw_hid / dw_out (same shapes as
-// the weights, zeroed by the caller); 0 <= part[b] < P is checked on the host.
+// g (B,N,D_out), all float32 (is_bf16 = 0) or all bfloat16 (is_bf16 = 1);
+// part (B,) i32 -> dx (B,N,D_in) in the operands' type and dW summed over
+// each partition's rows into the float32 dw_in / dw_hid / dw_out (same
+// shapes as the weights, zeroed by the caller); 0 <= part[b] < P is checked
+// on the host.
 extern "C" int repro_fused_mlp_bwd(const void* x, const void* w_in,
                                    const void* w_hid, const void* w_out,
                                    const void* g, const void* part, void* dx,
                                    void* dw_in, void* dw_hid, void* dw_out,
                                    long long B, long long N, int D_in, int W,
                                    int n_hidden, int n_hid_slab, int D_out,
-                                   void* stream) {
+                                   int is_bf16, void* stream) {
   if (B <= 0 || N <= 0) return 0;
   if (B > 65535 || n_hidden < 1) return (int)cudaErrorInvalidValue;
-  const float* xf = static_cast<const float*>(x);
-  const float* wi = static_cast<const float*>(w_in);
-  const float* wh = static_cast<const float*>(w_hid);
-  const float* wo = static_cast<const float*>(w_out);
-  const float* gf = static_cast<const float*>(g);
   const int* p = static_cast<const int*>(part);
-  float* dxf = static_cast<float*>(dx);
   float* di = static_cast<float*>(dw_in);
   float* dh = static_cast<float*>(dw_hid);
   float* dout = static_cast<float*>(dw_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (W) {
-    case 16: return (int)launch_bwd_w<16>(xf, wi, wh, wo, gf, p, dxf, di, dh, dout, B, N, D_in, n_hidden, n_hid_slab, D_out, s);
-    case 32: return (int)launch_bwd_w<32>(xf, wi, wh, wo, gf, p, dxf, di, dh, dout, B, N, D_in, n_hidden, n_hid_slab, D_out, s);
-    case 64: return (int)launch_bwd_w<64>(xf, wi, wh, wo, gf, p, dxf, di, dh, dout, B, N, D_in, n_hidden, n_hid_slab, D_out, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)(is_bf16
+      ? launch_bwd<__nv_bfloat16>(x, w_in, w_hid, w_out, g, p, dx, di, dh, dout, B, N, D_in, W, n_hidden, n_hid_slab, D_out, s)
+      : launch_bwd<float>(x, w_in, w_hid, w_out, g, p, dx, di, dh, dout, B, N, D_in, W, n_hidden, n_hid_slab, D_out, s));
 }

@@ -59,6 +59,13 @@
 //   - direct levels (slabs above the budget: hashed tables of 2^16 rows and
 //     more): each group leader adds its row with one 16-byte atomicAdd.
 // Sums are float32, in an order that atomics make run-dependent.
+//
+// A bfloat16 cotangent (hash_encode_bwd_bf16_kernel, the bf16 training
+// policy) is read as one vector load of its F values per (row, level), 8
+// bytes at F = 4, and widened in registers; the corner weights, the sums and
+// the gradient stay float32. JAX's _bwd sums in the cotangent's dtype
+// (ops.py:101-106); the port sums in float32 and the autograd function
+// rounds the table gradient once to the tables' type.
 #include "common.cuh"
 #include "hash_grid.cuh"
 
@@ -115,14 +122,12 @@ cudaError_t launch_fwd(const float* coords, const void* tables, const int* res,
 // it runs more warps against the shared memory it pins
 constexpr int BWD_THREADS_STAGED = 1024, BWD_THREADS_DIRECT = 512;
 
-template <int F, bool STAGED>
-__global__ void __launch_bounds__(BWD_THREADS_STAGED)
-hash_encode_bwd_kernel(const float* __restrict__ grad_out,
-                       const float* __restrict__ coords,
-                       const int* __restrict__ part,
-                       float* __restrict__ grad_tables, long long N, int L,
-                       int level, int res, long long T_size, int rows,
-                       int ppb) {
+// the backward's body for a cotangent of type TG (float or __nv_bfloat16)
+template <typename TG, int F, bool STAGED>
+__device__ __forceinline__ void hash_encode_bwd_body(
+    const TG* __restrict__ grad_out, const float* __restrict__ coords,
+    const int* __restrict__ part, float* __restrict__ grad_tables, long long N,
+    int L, int level, int res, long long T_size, int rows, int ppb) {
   extern __shared__ float slab[];   // rows x F, when STAGED
   const int b = blockIdx.y;
   const long long n0 = (long long)blockIdx.x * ppb;   // this block's points
@@ -145,9 +150,13 @@ hash_encode_bwd_kernel(const float* __restrict__ grad_out,
       cc[0] = __ldg(c);
       cc[1] = __ldg(c + 1);
       cc[2] = __ldg(c + 2);
-      const float* gr = grad_out + (((long long)b * N + n) * L + level) * F;
+      const TG* gr = grad_out + (((long long)b * N + n) * L + level) * F;
+      if constexpr (sizeof(TG) == 4) {
 #pragma unroll
-      for (int f = 0; f < F; ++f) g[f] = __ldg(gr + f);
+        for (int f = 0; f < F; ++f) g[f] = __ldg(gr + f);
+      } else {
+        repro::load_row<TG, F>(gr, g);
+      }
     }
     const repro::LevelGeom geo = repro::level_geom(cc, res, T_size);
     repro::scatter_corners<F, STAGED>(geo, g, valid, STAGED ? slab : gt);
@@ -167,6 +176,43 @@ hash_encode_bwd_kernel(const float* __restrict__ grad_out,
   }
 }
 
+// a float32 cotangent (the float32 policy)
+template <int F, bool STAGED>
+__global__ void __launch_bounds__(BWD_THREADS_STAGED)
+hash_encode_bwd_kernel(const float* __restrict__ grad_out,
+                       const float* __restrict__ coords,
+                       const int* __restrict__ part,
+                       float* __restrict__ grad_tables, long long N, int L,
+                       int level, int res, long long T_size, int rows,
+                       int ppb) {
+  hash_encode_bwd_body<float, F, STAGED>(grad_out, coords, part, grad_tables, N, L,
+                                         level, res, T_size, rows, ppb);
+}
+
+// a bfloat16 cotangent (the bf16 policy), float32 gradient
+template <int F, bool STAGED>
+__global__ void __launch_bounds__(BWD_THREADS_STAGED)
+hash_encode_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ grad_out,
+                            const float* __restrict__ coords,
+                            const int* __restrict__ part,
+                            float* __restrict__ grad_tables, long long N, int L,
+                            int level, int res, long long T_size, int rows,
+                            int ppb) {
+  hash_encode_bwd_body<__nv_bfloat16, F, STAGED>(grad_out, coords, part,
+                                                 grad_tables, N, L, level, res,
+                                                 T_size, rows, ppb);
+}
+
+// the backward kernel for a cotangent of type TG
+template <typename TG, int F, bool STAGED>
+constexpr auto bwd_kernel() {
+  if constexpr (sizeof(TG) == 4) {
+    return &hash_encode_bwd_kernel<F, STAGED>;
+  } else {
+    return &hash_encode_bwd_bf16_kernel<F, STAGED>;
+  }
+}
+
 // Points a backward block takes: one per thread on the direct route; a
 // staged block flushes its slab once, so it takes about as many points as
 // the slab has rows (a power of two in [1,024, 4,096]).
@@ -177,8 +223,8 @@ int bwd_points_per_block(long long rows, bool staged) {
   return ppb;
 }
 
-template <int F>
-cudaError_t launch_bwd_level(const float* g, const float* coords,
+template <typename TG, int F>
+cudaError_t launch_bwd_level(const TG* g, const float* coords,
                              const int* part, float* grad, long long B,
                              long long N, int L, int level, int res,
                              bool staged, long long T_size,
@@ -188,31 +234,46 @@ cudaError_t launch_bwd_level(const float* g, const float* coords,
   const dim3 grid((unsigned)((N + ppb - 1) / ppb), (unsigned)B);
   if (staged) {
     const int smem = (int)(rows * F * sizeof(float));
-    auto kern = hash_encode_bwd_kernel<F, true>;
+    const auto kern = bwd_kernel<TG, F, true>();
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     kern<<<grid, BWD_THREADS_STAGED, smem, stream>>>(g, coords, part, grad, N, L, level,
                                               res, T_size, (int)rows, ppb);
   } else {
-    hash_encode_bwd_kernel<F, false><<<grid, BWD_THREADS_DIRECT, 0, stream>>>(
-        g, coords, part, grad, N, L, level, res, T_size, 0, ppb);
+    const auto kern = bwd_kernel<TG, F, false>();
+    kern<<<grid, BWD_THREADS_DIRECT, 0, stream>>>(g, coords, part, grad, N, L, level,
+                                               res, T_size, 0, ppb);
   }
   return cudaGetLastError();
 }
 
-template <int F>
-cudaError_t launch_bwd(const float* g, const float* coords, const int* res,
+template <typename TG, int F>
+cudaError_t launch_bwd(const void* g, const float* coords, const int* res,
                        const int* staged, const int* part, float* grad,
                        long long B, long long N, int L, long long T_size,
                        cudaStream_t stream) {
   for (int l = 0; l < L; ++l) {
-    const cudaError_t err = launch_bwd_level<F>(g, coords, part, grad, B, N, L, l,
-                                                res[l], staged[l] != 0, T_size,
-                                                stream);
+    const cudaError_t err = launch_bwd_level<TG, F>(
+        static_cast<const TG*>(g), coords, part, grad, B, N, L, l, res[l],
+        staged[l] != 0, T_size, stream);
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
+}
+
+template <typename TG>
+cudaError_t launch_bwd_f(const void* g, const float* coords, const int* res,
+                         const int* staged, const int* part, float* grad,
+                         long long B, long long N, int L, long long T_size, int F,
+                         cudaStream_t s) {
+  switch (F) {
+    case 1: return launch_bwd<TG, 1>(g, coords, res, staged, part, grad, B, N, L, T_size, s);
+    case 2: return launch_bwd<TG, 2>(g, coords, res, staged, part, grad, B, N, L, T_size, s);
+    case 4: return launch_bwd<TG, 4>(g, coords, res, staged, part, grad, B, N, L, T_size, s);
+    case 8: return launch_bwd<TG, 8>(g, coords, res, staged, part, grad, B, N, L, T_size, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -236,32 +297,30 @@ extern "C" int repro_hash_encode_fwd(const void* coords, const void* tables,
                        : launch_fwd<float>(c, tables, r, p, out, B, N, L, T_size, F, s));
 }
 
-// grad_out (B,N,L,F) f32; coords (B,N,3) f32; resolutions and staged (L,)
-// i32 in HOST memory (the level's resolution; nonzero: stage the level's
-// slab in shared memory); part (B,) i32 -> grad_tables (P,L,T,F) f32,
-// zeroed by the caller, accumulated into; 0 <= part[b] < P is checked on
-// the host. One launch per level.
+// grad_out (B,N,L,F) f32 (is_bf16 = 0) or bf16 (is_bf16 = 1, 16-byte
+// aligned: one vector load per (row, level)); coords (B,N,3) f32;
+// resolutions and staged (L,) i32 in HOST memory (the level's resolution;
+// nonzero: stage the level's slab in shared memory); part (B,) i32 ->
+// grad_tables (P,L,T,F) f32, zeroed by the caller, accumulated into;
+// 0 <= part[b] < P is checked on the host. One launch per level.
 extern "C" int repro_hash_encode_bwd(const void* grad_out, const void* coords,
                                      const void* resolutions, const void* staged,
                                      const void* part, void* grad_tables,
                                      long long B, long long N, int L,
-                                     long long T_size, int F, void* stream) {
+                                     long long T_size, int F, int is_bf16,
+                                     void* stream) {
   if (B <= 0 || N <= 0) return 0;
-  if (B > 65535) return (int)cudaErrorInvalidValue;
-  const float* g = static_cast<const float*>(grad_out);
+  if (B > 65535 || (is_bf16 && (reinterpret_cast<uintptr_t>(grad_out) & 15)))
+    return (int)cudaErrorInvalidValue;
   const float* c = static_cast<const float*>(coords);
   const int* r = static_cast<const int*>(resolutions);
   const int* st = static_cast<const int*>(staged);
   const int* p = static_cast<const int*>(part);
   float* gt = static_cast<float*>(grad_tables);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (F) {
-    case 1: return (int)launch_bwd<1>(g, c, r, st, p, gt, B, N, L, T_size, s);
-    case 2: return (int)launch_bwd<2>(g, c, r, st, p, gt, B, N, L, T_size, s);
-    case 4: return (int)launch_bwd<4>(g, c, r, st, p, gt, B, N, L, T_size, s);
-    case 8: return (int)launch_bwd<8>(g, c, r, st, p, gt, B, N, L, T_size, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)(is_bf16
+      ? launch_bwd_f<__nv_bfloat16>(grad_out, c, r, st, p, gt, B, N, L, T_size, F, s)
+      : launch_bwd_f<float>(grad_out, c, r, st, p, gt, B, N, L, T_size, F, s));
 }
 
 // The points per block of each level's backward launch, as

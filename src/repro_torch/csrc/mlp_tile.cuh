@@ -1,8 +1,13 @@
 // One block's tile of rows through the bias-free ReLU MLP, forward and
 // backward, with the weight gradients reduced in shared memory: the shared
 // core of the MLP backward kernel (fused_mlp.cu) and the fused train step
-// (train_step.cu). float32 throughout (the training kernels run the f32
-// policy).
+// (train_step.cuh). Shared memory and every sum are float32. Under the bf16
+// compute policy (the RB template flag) the values the plain version stores
+// in bfloat16 are rounded where it rounds them: each layer's ReLU output and
+// the prediction in the forward, and in the backward each layer's delta
+// before its ReLU mask (the plain version's autograd rounds a cotangent to
+// bfloat16 where it crosses a bfloat16 activation). With RB false (the
+// float32 policy) no rounding is compiled in.
 //
 // A block of TILE threads owns TILE rows, one row per thread. Shared memory
 // holds, in this order (all float32):
@@ -37,7 +42,19 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "common.cuh"
+
 namespace repro {
+
+// v rounded to bfloat16 and back under the bf16 compute policy, else v
+template <bool RB>
+__device__ __forceinline__ float round_if(float v) {
+  if constexpr (RB) {
+    return round_to<__nv_bfloat16>(v);
+  } else {
+    return v;
+  }
+}
 
 __host__ __device__ __forceinline__ int odd_stride(int n) { return n | 1; }
 
@@ -74,17 +91,19 @@ __device__ __forceinline__ MlpTile mlp_tile_carve(float* smem, int D_in, int W,
   return t;
 }
 
-// block-wide: this partition's weights into w (hidden slab of n_hid_slab
-// layers in device memory), dw zeroed; ends with __syncthreads()
+// block-wide: this partition's weights (float32 or bfloat16 in device
+// memory, hidden slab of n_hid_slab layers) into w as float32, dw zeroed;
+// ends with __syncthreads()
+template <typename T>
 __device__ __forceinline__ void mlp_tile_load(const MlpTile& t,
-                                              const float* __restrict__ w_in,
-                                              const float* __restrict__ w_hid,
-                                              const float* __restrict__ w_out) {
+                                              const T* __restrict__ w_in,
+                                              const T* __restrict__ w_hid,
+                                              const T* __restrict__ w_out) {
   for (int i = threadIdx.x; i < t.n_w; i += blockDim.x) {
     float v;
-    if (i < t.n_in) v = w_in[i];
-    else if (i < t.n_in + t.n_hid) v = w_hid[i - t.n_in];
-    else v = w_out[i - t.n_in - t.n_hid];
+    if (i < t.n_in) v = to_f32(w_in[i]);
+    else if (i < t.n_in + t.n_hid) v = to_f32(w_hid[i - t.n_in]);
+    else v = to_f32(w_out[i - t.n_in - t.n_hid]);
     t.w[i] = v;
     t.dw[i] = 0.0f;
   }
@@ -125,7 +144,7 @@ __device__ __forceinline__ float dot_row(const float (&v)[W], const float* w) {
 
 // thread-local: row r's activations from its x row (act[l][r] for every
 // layer); returns nothing, the output is mlp_tile_out
-template <int W>
+template <int W, bool RB = false>
 __device__ __forceinline__ void mlp_tile_forward(const MlpTile& t, int r) {
   const int tile = blockDim.x;
   const float* xr = t.x + r * t.sx;
@@ -135,7 +154,7 @@ __device__ __forceinline__ void mlp_tile_forward(const MlpTile& t, int r) {
   for (int k = 0; k < t.D_in; ++k) fma_row<W>(acc, xr[k], t.w + k * W);
   float* a = t.act + r * t.sw;
 #pragma unroll
-  for (int j = 0; j < W; ++j) a[j] = relu(acc[j]);
+  for (int j = 0; j < W; ++j) a[j] = round_if<RB>(relu(acc[j]));
   for (int l = 0; l + 1 < t.H; ++l) {
     const float* in = t.act + (l * tile + r) * t.sw;
     float* out = t.act + ((l + 1) * tile + r) * t.sw;
@@ -145,19 +164,19 @@ __device__ __forceinline__ void mlp_tile_forward(const MlpTile& t, int r) {
 #pragma unroll 1
     for (int k = 0; k < W; ++k) fma_row<W>(acc, in[k], wl + k * W);
 #pragma unroll
-    for (int j = 0; j < W; ++j) out[j] = relu(acc[j]);
+    for (int j = 0; j < W; ++j) out[j] = round_if<RB>(relu(acc[j]));
   }
 }
 
 // thread-local: output d of row r (after mlp_tile_forward)
-template <int W>
+template <int W, bool RB = false>
 __device__ __forceinline__ float mlp_tile_out(const MlpTile& t, int r, int d) {
   const float* a = t.act + ((t.H - 1) * blockDim.x + r) * t.sw;
   const float* wo = t.w + t.n_in + t.n_hid;
   float s = 0.0f;
 #pragma unroll
   for (int k = 0; k < W; ++k) s += a[k] * wo[k * t.D_out + d];
-  return s;
+  return round_if<RB>(s);
 }
 
 // row r's W values of a per-row array into registers
@@ -169,8 +188,9 @@ __device__ __forceinline__ void load_w(const float* row, float (&v)[W]) {
 
 // thread-local: row r's deltas from its output cotangent g[r] (ReLU masks
 // from the recomputed activations: a unit passes its cotangent where its
-// output is > 0); d0 gets the first layer's deltas, for mlp_tile_dx
-template <int W>
+// output is > 0; under RB the cotangent is rounded to bfloat16 first); d0
+// gets the first layer's deltas, for mlp_tile_dx
+template <int W, bool RB = false>
 __device__ __forceinline__ void mlp_tile_backward(const MlpTile& t, int r,
                                                   float (&d0)[W]) {
   const int tile = blockDim.x;
@@ -183,6 +203,7 @@ __device__ __forceinline__ void mlp_tile_backward(const MlpTile& t, int r,
     for (int j = 0; j < W; ++j) {
       float s = 0.0f;
       for (int d = 0; d < t.D_out; ++d) s += gr[d] * wo[j * t.D_out + d];
+      s = round_if<RB>(s);
       d0[j] = a[j] > 0.0f ? s : 0.0f;
       dl[j] = d0[j];
     }
@@ -193,7 +214,8 @@ __device__ __forceinline__ void mlp_tile_backward(const MlpTile& t, int r,
     const float* wl = t.w + t.n_in + l * W * W;
 #pragma unroll 1
     for (int k = 0; k < W; ++k) {
-      const float s = dot_row<W>(d0, wl + k * W);   // d0: the layer above's
+      // d0: the layer above's deltas
+      const float s = round_if<RB>(dot_row<W>(d0, wl + k * W));
       dl[k] = a[k] > 0.0f ? s : 0.0f;
     }
     load_w<W>(dl, d0);
@@ -201,7 +223,8 @@ __device__ __forceinline__ void mlp_tile_backward(const MlpTile& t, int r,
 }
 
 // thread-local: cotangent of input feature i, from the first layer's
-// deltas d0 of mlp_tile_backward
+// deltas d0 of mlp_tile_backward, in float32 (the caller rounds it to the
+// input's type)
 template <int W>
 __device__ __forceinline__ float mlp_tile_dx(const MlpTile& t, const float (&d0)[W],
                                              int i) {

@@ -39,25 +39,25 @@ SIGNATURES = {
     # rgba, out, R, S, is_bf16, stream
     "repro_composite": [_P, _P, _L, _I, _I, _P],
     # grad_out, coords, res, staged (the two in host memory), part,
-    # grad_tables, B, N, L, T, F, stream
-    "repro_hash_encode_bwd": [_P] * 6 + [_L, _L, _I, _L, _I, _P],
+    # grad_tables, B, N, L, T, F, is_bf16, stream
+    "repro_hash_encode_bwd": [_P] * 6 + [_L, _L, _I, _L, _I, _I, _P],
     # res, staged, L, T, points per block out (host memory)
     "repro_hash_encode_bwd_points_per_block": [_P, _P, _I, _L, _P],
     # x, w_in, w_hid, w_out, g, part, dx, dw_in, dw_hid, dw_out, B, N, D_in,
-    # W, n_hidden, n_hid_slab, D_out, stream
-    "repro_fused_mlp_bwd": [_P] * 10 + [_L, _L, _I, _I, _I, _I, _I, _P],
+    # W, n_hidden, n_hid_slab, D_out, is_bf16, stream
+    "repro_fused_mlp_bwd": [_P] * 10 + [_L, _L, _I, _I, _I, _I, _I, _I, _P],
     # coords, target, volumes, seeds, tab, win, whid, wout, g_tab, g_win,
     # g_whid, g_wout, loss_sum, g_feat, res (host memory), P, N, L, T, F, W,
     # n_hidden, n_hid_slab, D_out, nx, ny, nz, ghost, n_uniform, sigma,
-    # sampling, stream
+    # sampling, is_bf16, stream
     "repro_train_step": [_P] * 15 + [_L, _L, _I, _L, _I, _I, _I, _I, _I,
-                                     _L, _L, _L, _I, _L, _F, _I, _P],
+                                     _L, _L, _L, _I, _L, _F, _I, _I, _P],
     # P, N, L, F, W, n_hidden, D_out, shape out (3 int64 in host memory)
     "repro_train_step_shape": [_L, _L, _I, _I, _I, _I, _I, _P],
-    # 4 x (params, m, v, grad, n per partition), scalars, loss_sum, loss, P,
-    # loss_div, b1, 1-b1, b2, 1-b2, eps, wd, stream
-    "repro_adamw_apply": [_P, _P, _P, _P, _L] * 4
-    + [_P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _P],
+    # 4 x (params, m, v, grad, master, n per partition), scalars, loss_sum,
+    # loss, P, loss_div, b1, 1-b1, b2, 1-b2, eps, wd, master, stream
+    "repro_adamw_apply": [_P, _P, _P, _P, _P, _L] * 4
+    + [_P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _I, _P],
     # q, k, v, out, B, Sq, Sk, Hq, Hkv, dh, causal, has_window, window,
     # is_bf16, stream
     "repro_flash_attention": [_P] * 4 + [_L, _L, _L] + [_I] * 7 + [_P],

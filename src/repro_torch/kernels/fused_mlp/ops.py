@@ -82,15 +82,16 @@ fused_mlp_cuda.launches = 0
 
 def fused_mlp_bwd_cuda(x: torch.Tensor, weights, g: torch.Tensor, part):
     """The backward kernel's wrapper: x (B,N,D_in) and partition-stacked
-    weights as for :func:`fused_mlp_cuda`, cotangent ``g`` (B,N,D_out) ->
-    ``(dx (B,N,D_in), [dW (P, ...) ...])``, every dW summed over the rows of
-    its partition, all float32.
+    weights as for :func:`fused_mlp_cuda`, cotangent ``g`` (B,N,D_out), all
+    float32 or all bfloat16 -> ``(dx (B,N,D_in) in x's dtype, [dW (P, ...)
+    ...] float32)``, every dW the float32 sum over the rows of its
+    partition.
 
     CPU tensors take the plain version; CUDA tensors launch
     ``repro_fused_mlp_bwd`` (``csrc/fused_mlp.cu``: activations recomputed
     on chip, each block's dW reduced in shared memory, one atomic add per
-    weight per block into zeroed f32 gradients) or raise. The kernel runs
-    the float32 policy only."""
+    weight per block into zeroed f32 gradients; bf16 operands rounded where
+    the plain version rounds them) or raise."""
     if x.device.type == "cpu":
         return _ref.fused_mlp_batched_bwd_ref(x, weights, g, torch.as_tensor(part))
     w_in, w_hid, w_out, n_hidden = _stack(weights)
@@ -101,11 +102,10 @@ def fused_mlp_bwd_cuda(x: torch.Tensor, weights, g: torch.Tensor, part):
             any(w.device != x.device for w in weights):
         raise ValueError("fused_mlp_bwd_cuda: x, g and weights must lie on "
                          "one CUDA device")
-    if any(t.dtype != torch.float32 for t in (x, g, *weights)):
-        raise NotImplementedError(
-            "fused_mlp_bwd_cuda runs the float32 policy; bf16 training needs "
-            "the bf16 training kernels, not written yet: train with "
-            "precision='f32' on the card, or with backend='ref'")
+    if x.dtype not in (torch.float32, torch.bfloat16) or \
+            any(t.dtype != x.dtype for t in (g, *weights)):
+        raise TypeError("fused_mlp_bwd_cuda: x, g and weights must share one "
+                        f"dtype, float32 or bfloat16 (x is {x.dtype})")
     if D_in_w != D_in or W not in KERNEL_WIDTHS or B > 65535 or \
             tuple(w_out.shape[:2]) != (P, W) or tuple(g.shape) != (B, N, D_out):
         raise ValueError(f"unsupported shapes: x {tuple(x.shape)}, w_in "
@@ -114,21 +114,23 @@ def fused_mlp_bwd_cuda(x: torch.Tensor, weights, g: torch.Tensor, part):
     x, g, w_in, w_hid, w_out = (t.contiguous() for t in (x, g, w_in, w_hid, w_out))
     part_d = build.part_tensor(part, B, P, x.device)
     dx = torch.empty_like(x)
-    dw_in = torch.zeros_like(w_in)
-    dw_hid = torch.zeros_like(w_hid)
-    dw_out = torch.zeros_like(w_out)
+    dw_in, dw_hid, dw_out = (torch.zeros_like(w, dtype=torch.float32)
+                             for w in (w_in, w_hid, w_out))
     lib = build.library()
     err = lib.repro_fused_mlp_bwd(
         x.data_ptr(), w_in.data_ptr(), w_hid.data_ptr(), w_out.data_ptr(),
         g.data_ptr(), part_d.data_ptr(), dx.data_ptr(), dw_in.data_ptr(),
         dw_hid.data_ptr(), dw_out.data_ptr(), B, N, D_in, W, n_hidden,
-        w_hid.shape[1], D_out, torch.cuda.current_stream(x.device).cuda_stream)
+        w_hid.shape[1], D_out, int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "repro_fused_mlp_bwd")
     fused_mlp_bwd_cuda.launches += 1
+    fused_mlp_bwd_cuda.bf16_launches += int(x.dtype == torch.bfloat16)
     return dx, [dw_in] + [dw_hid[:, k] for k in range(n_hidden - 1)] + [dw_out]
 
 
-fused_mlp_bwd_cuda.launches = 0
+#: launches of the kernel, and of its bf16 instantiation among them
+fused_mlp_bwd_cuda.launches = fused_mlp_bwd_cuda.bf16_launches = 0
 
 
 class _FusedMLPBatched(torch.autograd.Function):

@@ -29,10 +29,16 @@ def fused_mlp_batched_bwd_ref(x: torch.Tensor, weights, g: torch.Tensor,
     """The plain backward of :func:`fused_mlp_batched_ref`: the VJP of the
     forward at cotangent ``g`` (B,N,D_out) -> ``(dx, [dW...])``, each dW
     summed over the rows of its partition ((P, ...) like the weights). The
-    activations are recomputed, as the JAX package's backward kernel does."""
+    activations are recomputed, as the JAX package's backward kernel does.
+    dx comes in x's dtype (a bf16 dx is rounded once from its float32 sum);
+    each dW is the float32 sum, unrounded, whatever the weights' dtype (the
+    autograd function rounds it once to the weights' dtype). Under bf16 the
+    autograd of the forward rounds each layer's delta to bf16 where it
+    crosses a bf16 activation: the CUDA backward's rounding points."""
     with torch.enable_grad():
         xs = x.detach().requires_grad_(True)
-        ws = [w.detach().requires_grad_(True) for w in weights]
+        ws = [w.detach().to(torch.promote_types(w.dtype, torch.float32))
+              .requires_grad_(True) for w in weights]
         out = fused_mlp_batched_ref(xs, ws, part)
         grads = torch.autograd.grad(out, [xs, *ws], g)
     return grads[0], list(grads[1:])

@@ -7,7 +7,8 @@ forward, the hand-derived backward and the gated AdamW update.
 - ``ref`` — the plain composition (autograd through the plain ops, then
   AdamW), and the plain versions of the two CUDA kernels;
 - ``ops.train_step_cuda`` / ``ops.adamw_apply_cuda`` — the wrappers of
-  ``csrc/train_step.cu`` and ``csrc/adamw.cu``.
+  ``csrc/train_step.cuh`` (f32 and bf16 instantiations) and
+  ``csrc/adamw.cu`` (with or without the f32 master).
 """
 from repro_torch.kernels.fused_train_step.ops import (fused_train_step,
                                                       fused_train_step_sampling)

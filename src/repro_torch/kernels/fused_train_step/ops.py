@@ -4,7 +4,7 @@
   :func:`ref.train_step_sampling_ref` (autograd through the plain ops, then
   ``AdamW.step``);
 - backend kind ``cuda`` -> two launches on the current stream:
-  ``repro_train_step`` (``csrc/train_step.cu``: [sampling,] encode, MLP
+  ``repro_train_step`` (``csrc/train_step.cuh``: [sampling,] encode, MLP
   forward, masked L1 cotangent, MLP backward and the 8-corner table scatter
   for every (partition, batch tile), gradients into a zeroed f32 buffer:
   same-row lanes summed per warp, then one 16-byte atomic per row) and
@@ -13,9 +13,17 @@
   the last batch tile because its grid runs in order; on the GPU that
   grid-wide dependency is the boundary between the two launches.
 
-The CUDA path updates the params and moments IN PLACE (the JAX package
-donates them): the tensors of ``params`` / ``opt`` passed in hold the new
-state afterwards, and the returned trees are views of them (the hidden
+Precision policies: the train-step kernel runs in the compute dtype, float32
+or bf16 (the bf16 kernel rounds where the plain version rounds, and its
+gradients stay float32); params stored in another dtype than the compute
+dtype are cast to it first, as the plain version and the JAX kernel cast
+them (``tables.astype(cdt)``). The AdamW kernel updates float32 params, or
+bf16 params through their float32 master (``opt["mw"]``). float16 and bf16
+moments are refused.
+
+The CUDA path updates the params, moments and master IN PLACE (the JAX
+package donates them): the tensors of ``params`` / ``opt`` passed in hold
+the new state afterwards, and the returned trees are views of them (the hidden
 layers of a stacked MLP are views of one (P, H-1, W, W) slab). Clone a
 state that must survive the step. On CPU tensors the two wrappers run their
 plain versions (:func:`ref.train_step_grads_ref`,
@@ -79,15 +87,15 @@ def _unpack(flat, n_hidden):
 
 def _check_kernel_opt(opt_cfg: OptConfig, backend, compute_dtype):
     """The kernel path's guards, as the JAX package's Pallas leg has them:
-    no fused global-norm clipping, float32 moments."""
+    no fused global-norm clipping, float32 moments, a compute dtype the
+    backend runs (float32 or bf16)."""
     if opt_cfg.clip_norm:
         raise ValueError("the CUDA fused_train_step does not fuse global-norm "
                          "clipping (OptConfig.clip_norm must be 0)")
     if torch_dtype(opt_cfg.moments_dtype) != torch.float32:
         raise ValueError("the CUDA fused_train_step keeps f32 moments "
                          f"(got moments_dtype={opt_cfg.moments_dtype!r})")
-    if compute_dtype is not None:
-        backend.require_dtype(compute_dtype)
+    return None if compute_dtype is None else backend.require_dtype(compute_dtype)
 
 
 def _pack_state(params, opt):
@@ -163,7 +171,8 @@ def train_step_cuda(flat_p, n_hidden: int, resolutions: Sequence[int], *,
                     ghost: int = 1, cotangent_out=None):
     """The train-step kernel's wrapper: gradients of the per-partition L1
     loss and the per-partition loss SUM for one batch, from the packed
-    params ``flat_p`` (f32 on the card). The batch is either given
+    params ``flat_p`` on the card, all float32 (the float32 kernel) or all
+    bf16 (the bf16 policy's kernel: bf16 compute). The batch is either given
     (``coords`` (P,N,3), ``target`` (P,N,D_out)) or drawn in the kernel
     (``volumes`` (P, nx+2g, ny+2g, nz+2g, C) and ``seeds`` (P,2) words as
     int64, ``n_batch`` rows of which the first ``n_uniform`` uniform).
@@ -190,11 +199,12 @@ def train_step_cuda(flat_p, n_hidden: int, resolutions: Sequence[int], *,
     D_out = flat_p["wout"].shape[-1]
     if dev.type != "cuda":
         raise ValueError("train_step_cuda: the state must lie on a CUDA device")
-    if any(flat_p[k].dtype != torch.float32 for k in STATE_KEYS):
-        raise NotImplementedError(
-            "the CUDA train step runs the float32 policy; bf16 params need "
-            "the bf16 training kernels, not written yet: train with "
-            "precision='f32' on the card, or with backend='ref'")
+    dtype = flat_p["tab"].dtype
+    if dtype not in (torch.float32, torch.bfloat16) or \
+            any(flat_p[k].dtype != dtype for k in STATE_KEYS):
+        raise TypeError("train_step_cuda: the packed params must share one "
+                        "dtype, float32 or bfloat16, got "
+                        f"{[flat_p[k].dtype for k in STATE_KEYS]}")
     if D_in != L * F or W not in KERNEL_WIDTHS or F not in (1, 2, 4, 8) or \
             T >= 2**31 or len(resolutions) != L or D_out > 4:
         raise ValueError(f"unsupported shapes: tab {tuple(flat_p['tab'].shape)}, "
@@ -242,42 +252,54 @@ def train_step_cuda(flat_p, n_hidden: int, resolutions: Sequence[int], *,
         ptr(cotangent_out), ctypes.addressof(res_h), P, N, L, T, F, W,
         n_hidden, flat_p["whid"].shape[1], D_out, nx, ny, nz, int(ghost),
         int(n_uniform), float(sigma), int(sampling),
-        torch.cuda.current_stream(dev).cuda_stream)
+        int(dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "repro_train_step")
     train_step_cuda.launches += 1
+    train_step_cuda.bf16_launches += int(dtype == torch.bfloat16)
     return grads, loss_sum
 
 
-train_step_cuda.launches = 0
+#: launches of the kernel, and of its bf16 instantiation among them
+train_step_cuda.launches = train_step_cuda.bf16_launches = 0
 
 
 def adamw_apply_cuda(flat_p, flat_m, flat_v, grads, scalars, loss_sum, *,
                      n_valid: int, beta1: float, beta2: float, eps: float,
-                     weight_decay: float, n_hidden: int) -> torch.Tensor:
+                     weight_decay: float, n_hidden: int,
+                     flat_mw=None) -> torch.Tensor:
     """The AdamW kernel's wrapper: updates params and moments IN PLACE from
     the f32 ``grads`` with the (P, 4) ``[lr, 1-b1^t, 1-b2^t, gate]``
     ``scalars`` and returns the (P,) mean loss ``loss_sum / n_valid``.
+    Params are float32 and their own master, or bf16 with the float32
+    master ``flat_mw`` (updated in place, the bf16 params re-derived from
+    it); moments float32.
 
     CPU tensors take the plain version (:func:`ref.adamw_apply_ref`);
     CUDA tensors launch ``repro_adamw_apply`` (``csrc/adamw.cu``) or
     raise."""
     dev = flat_p["tab"].device
     if dev.type == "cpu":
-        _ref.adamw_apply_ref(flat_p, flat_m, flat_v, None, grads, scalars,
+        _ref.adamw_apply_ref(flat_p, flat_m, flat_v, flat_mw, grads, scalars,
                              beta1=beta1, beta2=beta2, eps=eps,
                              weight_decay=weight_decay, n_hidden=n_hidden)
         return loss_sum / float(n_valid)
+    master = flat_mw is not None
+    p_dtype = torch.bfloat16 if master else torch.float32
     groups = []
     for k in STATE_KEYS:
-        ts = (flat_p[k], flat_m[k], flat_v[k], grads[k])
-        if any(t.device != dev or t.dtype != torch.float32 or
-               not t.is_contiguous() for t in ts):
-            raise NotImplementedError(
-                f"repro_adamw_apply takes contiguous float32 {k} params, "
-                "moments and gradients on one CUDA device (the float32 "
-                "policy; bf16 params need the bf16 training kernels)")
+        ts = (flat_p[k], flat_m[k], flat_v[k], grads[k]) \
+            + ((flat_mw[k],) if master else ())
+        if any(t.device != dev or not t.is_contiguous() for t in ts) or \
+                ts[0].dtype != p_dtype or \
+                any(t.dtype != torch.float32 for t in ts[1:]):
+            raise TypeError(
+                f"repro_adamw_apply takes contiguous {k} params, moments, "
+                "gradients (and master) on one CUDA device: float32 params "
+                "without a master, or bf16 params with a float32 master; "
+                "moments, gradients and master float32")
         n = 0 if (k == "whid" and n_hidden == 1) else flat_p[k][0].numel()
-        groups += [t.data_ptr() for t in ts] + [n]
+        groups += [t.data_ptr() for t in ts[:4]] \
+            + [ts[4].data_ptr() if master else None, n]
     P = flat_p["tab"].shape[0]
     scalars = scalars.to(device=dev, dtype=torch.float32).contiguous()
     if tuple(scalars.shape) != (P, 4):
@@ -287,38 +309,38 @@ def adamw_apply_cuda(flat_p, flat_m, flat_v, grads, scalars, loss_sum, *,
     err = lib.repro_adamw_apply(
         *groups, scalars.data_ptr(), loss_sum.data_ptr(), loss.data_ptr(), P,
         float(n_valid), beta1, 1.0 - beta1, beta2, 1.0 - beta2, eps,
-        weight_decay, torch.cuda.current_stream(dev).cuda_stream)
+        weight_decay, int(master), torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "repro_adamw_apply")
     adamw_apply_cuda.launches += 1
+    adamw_apply_cuda.bf16_launches += int(master)
     return loss
 
 
-adamw_apply_cuda.launches = 0
+#: launches of the kernel, and of its master-weight (bf16 policy) variant
+adamw_apply_cuda.launches = adamw_apply_cuda.bf16_launches = 0
 
 
 # --------------------------------------------------------------------------- #
 # the entry points
 # --------------------------------------------------------------------------- #
 def _fused_cuda(params, opt, opt_cfg, adam, gate, scalars, n_valid,
-                **batch):
+                compute_dtype, **batch):
     flat_p, flat_m, flat_v, flat_mw, n_hidden = _pack_state(params, opt)
-    if flat_mw is not None:
-        raise NotImplementedError(
-            "the CUDA fused train step runs the float32 policy; a master "
-            "copy (bf16 params) needs the bf16 training kernels, not written "
-            "yet: train with precision='f32' on the card, or with "
-            "backend='ref'")
     if scalars is None:
         step, scalars = _schedule_scalars(opt, opt_cfg, adam, gate)
     else:
         step = opt["step"] + 1
-    grads, loss_sum = train_step_cuda(flat_p, n_hidden, **batch)
+    # the kernel runs in the compute dtype: params stored in another dtype
+    # are cast to it, as the plain version casts them (a no-op otherwise)
+    flat_c = flat_p if compute_dtype is None else \
+        {k: v.to(compute_dtype) for k, v in flat_p.items()}
+    grads, loss_sum = train_step_cuda(flat_c, n_hidden, **batch)
     loss = adamw_apply_cuda(flat_p, flat_m, flat_v, grads, scalars, loss_sum,
                             n_valid=n_valid, beta1=opt_cfg.beta1,
                             beta2=opt_cfg.beta2, eps=opt_cfg.eps,
                             weight_decay=opt_cfg.weight_decay,
-                            n_hidden=n_hidden)
-    new_params, new_opt = _rebuild(opt, step, flat_p, flat_m, flat_v, None,
+                            n_hidden=n_hidden, flat_mw=flat_mw)
+    new_params, new_opt = _rebuild(opt, step, flat_p, flat_m, flat_v, flat_mw,
                                    n_hidden)
     return new_params, new_opt, loss
 
@@ -350,9 +372,9 @@ def fused_train_step(params, opt, coords, target, gate, *,
         return _ref.train_step_ref(params, opt, coords, target,
                                    _gate_from(scalars, gate), resolutions,
                                    adam, backend, compute_dtype)
-    _check_kernel_opt(opt_cfg, backend, compute_dtype)
+    cdt = _check_kernel_opt(opt_cfg, backend, compute_dtype)
     return _fused_cuda(params, opt, opt_cfg, adam, gate, scalars,
-                       coords.shape[1] * target.shape[2],
+                       coords.shape[1] * target.shape[2], cdt,
                        resolutions=resolutions, coords=coords, target=target)
 
 
@@ -383,10 +405,10 @@ def fused_train_step_sampling(params, opt, volumes, seeds, gate, *,
             resolutions, adam, backend, n_batch=n_batch,
             boundary_lambda=boundary_lambda, sigma=sigma, ghost=ghost,
             compute_dtype=compute_dtype)
-    _check_kernel_opt(opt_cfg, backend, compute_dtype)
+    cdt = _check_kernel_opt(opt_cfg, backend, compute_dtype)
     vols_c = volumes if volumes.ndim == 5 else volumes[..., None]
     return _fused_cuda(params, opt, opt_cfg, adam, gate, scalars,
-                       int(n_batch) * vols_c.shape[4],
+                       int(n_batch) * vols_c.shape[4], cdt,
                        resolutions=resolutions, volumes=vols_c, seeds=seeds,
                        n_batch=int(n_batch),
                        n_uniform=int(n_batch) - n_boundary(int(n_batch),

@@ -11,7 +11,7 @@ because no parameter is shared between partitions.
 
 This is what the ``ref`` backend runs as its fused train step, what the
 unfused trainer step runs on every backend, and the plain version the CUDA
-train-step and AdamW kernels (``csrc/train_step.cu``, ``csrc/adamw.cu``)
+train-step and AdamW kernels (``csrc/train_step.cuh``, ``csrc/adamw.cu``)
 are held against.
 """
 from __future__ import annotations
@@ -24,7 +24,11 @@ from repro_torch import backends
 from repro_torch.core.sampling import training_coords_counter
 from repro_torch.data.volume import sample_trilinear_batched
 from repro_torch.kernels.fused_mlp.ops import fused_mlp_batched
+from repro_torch.kernels.fused_mlp.ref import (fused_mlp_batched_bwd_ref,
+                                               fused_mlp_batched_ref)
 from repro_torch.kernels.hash_encoding.ops import hash_encode_batched
+from repro_torch.kernels.hash_encoding.ref import (hash_encode_batched_bwd_ref,
+                                                   hash_encode_batched_ref)
 from repro_torch.optim.adamw import AdamW, OptConfig, adamw_leaf
 
 
@@ -41,11 +45,9 @@ def sample_batch(volumes, seeds, *, n_batch: int, boundary_lambda: float,
 
 
 def loss_and_grads(params, coords, target, resolutions: Sequence[int],
-                   backend, compute_dtype=None, with_features: bool = False):
+                   backend, compute_dtype=None):
     """Per-partition L1 losses (P,) f32 and the gradient tree of their sum
-    w.r.t. the stacked ``params`` (each partition's own gradient); with
-    ``with_features`` the tree also holds ``"features"``, the gradient
-    w.r.t. the encoded features (P, N, L*F)."""
+    w.r.t. the stacked ``params`` (each partition's own gradient)."""
     P = coords.shape[0]
     leaves = [params["tables"], *params["mlp"]]
     leaves = [t.detach().requires_grad_(True) for t in leaves]
@@ -56,12 +58,8 @@ def loss_and_grads(params, coords, target, resolutions: Sequence[int],
         pred = fused_mlp_batched(feats, leaves[1:], part, backend,
                                  compute_dtype=compute_dtype)
         loss = torch.mean(torch.abs(pred.float() - target), dim=(1, 2))
-        grads = torch.autograd.grad(loss.sum(),
-                                    leaves + ([feats] if with_features else []))
-    tree = {"tables": grads[0], "mlp": list(grads[1:len(leaves)])}
-    if with_features:
-        tree["features"] = grads[-1]
-    return loss.detach(), tree
+        grads = torch.autograd.grad(loss.sum(), leaves)
+    return loss.detach(), {"tables": grads[0], "mlp": list(grads[1:])}
 
 
 def train_step_ref(params, opt, coords, target, gate,
@@ -103,26 +101,45 @@ def _unpacked(flat, n_hidden):
 
 
 def train_step_grads_ref(flat_p, n_hidden: int, resolutions, coords, target,
-                         compute_dtype=None, cotangent_out=None):
+                         cotangent_out=None):
     """The plain version of the train-step kernel: the packed state's f32
     gradients ({tab, win, whid, wout}, (P, ...)) and the per-partition SUM
     of |pred - target| (P,) for one batch (coords (P,N,3), target
     (P,N,D_out)). Given ``cotangent_out`` (P, N, L*F), the feature
     cotangent goes there and the table gradient is left zero, as the
-    kernel's split mode does."""
-    loss, g = loss_and_grads(_unpacked(flat_p, n_hidden), coords, target,
-                             resolutions, backends.resolve("ref"),
-                             compute_dtype,
-                             with_features=cotangent_out is not None)
-    hid = g["mlp"][1:-1]
-    grads = {"tab": g["tables"].float(), "win": g["mlp"][0].float(),
-             "whid": (torch.stack(hid, 1).float() if hid
-                      else torch.zeros_like(flat_p["whid"], dtype=torch.float32)),
-             "wout": g["mlp"][-1].float()}
+    kernel's split mode does.
+
+    The step of :func:`loss_and_grads` written out through the plain
+    forward and backward versions, so that the gradients come out as their
+    float32 sums: for a bf16 state (the bf16 policy, whose compute dtype is
+    the state's) autograd would round each one to bf16 at its leaf, where
+    the kernel (and JAX's Pallas kernel) hands float32 gradients to AdamW.
+    The rounding points are the plain versions': the encode rounds each
+    feature, the MLP each layer's output and, in its backward, each delta;
+    the prediction is rounded, the L1 cotangent sign / (N D_out) is taken in
+    float32 and rounded to the compute dtype, the feature cotangent comes
+    back in it, and the table scatter is float32. For float32 this is
+    autograd's arithmetic, operation for operation."""
+    tab, ws = flat_p["tab"], _unpacked(flat_p, n_hidden)["mlp"]
+    P, N, D_out = target.shape
+    part = torch.arange(P, device=coords.device)
+    feats = hash_encode_batched_ref(coords, tab, resolutions, part)
+    pred = fused_mlp_batched_ref(feats, ws, part)
+    diff = pred.float() - target
+    loss_sum = torch.mean(torch.abs(diff), dim=(1, 2)) * float(N * D_out)
+    g = (torch.sign(diff) / float(N * D_out)).to(pred.dtype)
+    dx, dws = fused_mlp_batched_bwd_ref(feats, ws, g, part)
     if cotangent_out is not None:
-        cotangent_out.copy_(g["features"])
-        grads["tab"] = torch.zeros_like(grads["tab"])
-    return grads, loss * float(target.shape[1] * target.shape[2])
+        cotangent_out.copy_(dx)
+        g_tab = torch.zeros(tab.shape, dtype=torch.float32, device=tab.device)
+    else:
+        g_tab = hash_encode_batched_bwd_ref(dx, coords, resolutions, part,
+                                            tuple(tab.shape))
+    hid = dws[1:-1]
+    return {"tab": g_tab, "win": dws[0],
+            "whid": (torch.stack(hid, 1) if hid
+                     else torch.zeros_like(flat_p["whid"], dtype=torch.float32)),
+            "wout": dws[-1]}, loss_sum
 
 
 def adamw_apply_ref(flat_p, flat_m, flat_v, flat_mw, grads, scalars, *,

@@ -113,15 +113,16 @@ def hash_encode_bwd_cuda(g: torch.Tensor, coords: torch.Tensor,
                          resolutions: Sequence[int], part,
                          table_shape) -> torch.Tensor:
     """The backward kernel's wrapper: feature cotangent ``g`` (B,N,L*F),
-    coords (B,N,3), ``part`` (B,) -> the table gradient (P,L,T,F) in
-    float32 (``table_shape`` = (P,L,T,F)).
+    float32 or bfloat16, coords (B,N,3), ``part`` (B,) -> the table gradient
+    (P,L,T,F) in float32 (``table_shape`` = (P,L,T,F)).
 
-    CPU tensors take the plain version (in ``g``'s dtype); CUDA tensors
-    launch ``repro_hash_encode_bwd`` (``csrc/hash_encode.cu``: one launch
-    per level, same-row lanes summed per warp, then shared-memory staging
-    or vector atomics into a zeroed f32 gradient as ``bwd_plan`` says) or
-    raise; ``launches`` counts the L kernel launches of each call. The
-    kernel runs the float32 policy only."""
+    CPU tensors take the plain version (a bf16 ``g`` widened to float32
+    first: the kernel's function); CUDA tensors launch
+    ``repro_hash_encode_bwd`` (``csrc/hash_encode.cu``: one launch per
+    level, same-row lanes summed per warp, then shared-memory staging or
+    vector atomics into a zeroed f32 gradient as ``bwd_plan`` says; a bf16
+    ``g`` read as one vector per (row, level) and widened) or raise;
+    ``launches`` counts the L kernel launches of each call."""
     B, N, three = coords.shape
     P, L, T, F = (int(d) for d in table_shape)
     if three != 3 or tuple(g.shape) != (B, N, L * F):
@@ -136,18 +137,17 @@ def hash_encode_bwd_cuda(g: torch.Tensor, coords: torch.Tensor,
     if coords.device.type != "cuda" or g.device != coords.device:
         raise ValueError("hash_encode_bwd_cuda: g and coords must lie on one "
                          "CUDA device")
-    if g.dtype != torch.float32:
-        raise NotImplementedError(
-            f"hash_encode_bwd_cuda runs the float32 policy; a {g.dtype} "
-            "cotangent (bf16 training) needs the bf16 training kernels, not "
-            "written yet: train with precision='f32' on the card, or with "
-            "backend='ref'")
+    if g.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"g must be float32 or bfloat16, got {g.dtype}")
     if coords.dtype != torch.float32:
         raise TypeError(f"coords must be float32, got {coords.dtype}")
     if F not in (1, 2, 4, 8) or T >= 2**32 or B > 65535:
         raise ValueError(f"unsupported shape: F={F} (1, 2, 4 or 8), T={T} "
                          f"(< 2^32), B={B} (<= 65535)")
     g = g.contiguous()
+    if g.dtype == torch.bfloat16 and g.data_ptr() % 16:
+        raise ValueError("hash_encode_bwd_cuda: a bf16 g must start on a "
+                         "16-byte boundary (the kernel's vector loads)")
     coords = coords.contiguous()
     part_d = build.part_tensor(part, B, P, coords.device)
     res_h = (ctypes.c_int * L)(*(int(r) for r in resolutions))
@@ -157,14 +157,16 @@ def hash_encode_bwd_cuda(g: torch.Tensor, coords: torch.Tensor,
     err = lib.repro_hash_encode_bwd(
         g.data_ptr(), coords.data_ptr(), ctypes.addressof(res_h),
         ctypes.addressof(staged_h), part_d.data_ptr(),
-        grad.data_ptr(), B, N, L, T, F,
+        grad.data_ptr(), B, N, L, T, F, int(g.dtype == torch.bfloat16),
         torch.cuda.current_stream(coords.device).cuda_stream)
     build.check(err, "repro_hash_encode_bwd")
     hash_encode_bwd_cuda.launches += L   # one kernel launch per level
+    hash_encode_bwd_cuda.bf16_launches += L * (g.dtype == torch.bfloat16)
     return grad
 
 
-hash_encode_bwd_cuda.launches = 0
+#: launches of the kernel, and of its bf16-cotangent instantiation among them
+hash_encode_bwd_cuda.launches = hash_encode_bwd_cuda.bf16_launches = 0
 
 
 class _HashEncodeBatched(torch.autograd.Function):

@@ -92,12 +92,17 @@ def hash_encode_batched_bwd_ref(g: torch.Tensor, coords: torch.Tensor,
                                 table_shape) -> torch.Tensor:
     """The plain backward of :func:`hash_encode_batched_ref`: the 8-corner
     scatter-add of the feature cotangent ``g`` (B,N,L*F) into a table
-    gradient of ``table_shape`` (P,L,T,F) in ``g``'s dtype. Each corner adds
-    ``ww * g`` with ``ww`` rounded to ``g``'s dtype, as the JAX package's
-    ``_bwd`` does; ``index_add_`` covers every row of a (level, corner) at
-    once through the flattened (P*L*T, F) gradient."""
+    gradient of ``table_shape`` (P,L,T,F). A cotangent narrower than
+    float32 (bf16) is widened first, so the corner weights, the products
+    and the sums are float32 and the gradient is float32 (float64 stays
+    float64): the function of the CUDA backward, which reads a bf16
+    cotangent and adds into a float32 gradient. (JAX's ``_bwd`` rounds each
+    weight and sums in ``g``'s dtype; ROADMAP §C.) ``index_add_`` covers
+    every row of a (level, corner) at once through the flattened
+    (P*L*T, F) gradient."""
     B, N, _ = coords.shape
     P, L, T, F = table_shape
+    g = g.to(torch.promote_types(g.dtype, torch.float32))
     x = coords.reshape(B * N, 3)
     gl = g.reshape(B * N, L, F)
     base = (part.to(device=coords.device, dtype=torch.int64) * (L * T)) \

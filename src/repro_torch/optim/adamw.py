@@ -123,7 +123,13 @@ def adamw_leaf(cfg: OptConfig, g, m, v, master, lr, bc1, bc2):
     g32 = g.float()
     m32 = b1 * m.float() + (1 - b1) * g32
     v32 = b2 * v.float() + (1 - b2) * torch.square(g32)
-    delta = (m32 / bc1) / (torch.sqrt(v32 / bc2) + cfg.eps)
+    # the square root correctly rounded on every device, as XLA's and the
+    # kernel's (__fsqrt_rn) are: PyTorch's vectorised CPU root can miss the
+    # float32 rounding by one ulp, and the float64 root of a float32 value,
+    # rounded to float32, is the correctly rounded float32 root
+    vhat = v32 / bc2
+    root = torch.sqrt(vhat.double()).to(vhat.dtype)
+    delta = (m32 / bc1) / (root + cfg.eps)
     if cfg.weight_decay:
         delta = delta + cfg.weight_decay * master.float()
     return (-lr * delta).to(master.dtype), m32, v32
