@@ -292,12 +292,15 @@ def launch_times(fn, symbol: str, reps: int = 3):
     return [sum(ms[i::n]) / reps for i in range(n)]
 
 
-def bound_ms(nbytes: float, flops: float, peak_flops: float = F32_FLOPS):
+def bound_ms(nbytes: float, flops: float, peak_flops: float = F32_FLOPS,
+             bf16_flops: float = 0.0):
     """The least time the card could take: each input read once, each output
     written once at the HBM rate, or the operations at the peak rate of
-    their type (f32 unless said)."""
+    their type: ``flops`` at ``peak_flops`` (f32 unless said), plus
+    ``bf16_flops``, products of bf16 operands summed in f32, at the bf16
+    tensor-core peak."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / peak_flops * 1e3
+    t_ops = (flops / peak_flops + bf16_flops / BF16_FLOPS) * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -774,9 +777,36 @@ def check_step(label, params, H, res, wants, **batch) -> float:
     return check_step_grads(label, H, got_g, got_loss, wants)
 
 
-#: a bf16 kernel's outputs against its bf16 plain version, as a fraction of
-#: the largest |entry| (see check_bf16)
-BF16_LIMIT = 1e-2
+#: a bf16 kernel's largest departure from its bf16 plain version, as a
+#: fraction of the output's largest |entry|, per output (see check_bf16).
+#: Each lies between two readings of this script's phase 2 over three runs
+#: (NVIDIA H100 80GB HBM3, 700.00 W): the kernel's largest departure over
+#: every batch (train step tab 1.3e-5, win 5.3e-5, whid 8e-6, wout 4.4e-7;
+#: MLP backward dx 0, dW 3.9e-6) and the float32 policy's smallest (tab
+#: 1.2e-3, win 9.6e-4, whid 5.9e-4, wout 2.1e-5; dx 0.50, dW 1.7e-3), which
+#: misses every bf16 rounding point
+BF16_LIMITS = {"tab": 1e-4, "win": 2e-4, "whid": 1e-4, "wout": 5e-6,
+               "dx": 1e-4, "dW": 1e-4}
+#: ``whid`` in the contention cell: the kernel departs by 3.3e-4 there, the
+#: float32 policy by 3.8e-4, so no limit tells them apart; this one only
+#: catches a gross fault
+BF16_WHID_CONTENTION = 1e-3
+#: the first 16 losses of a run with bf16 params or compute against
+#: ``backend="ref"`` under the same policy, relative (phase 5; see
+#: bf16_training), set from readings of this script over seven runs
+#: (NVIDIA H100 80GB HBM3, 700.00 W): the float32 policy's departure from
+#: the same bf16 reference is systematic, 8.38e-4 to 8.62e-4; a run with
+#: the bf16 kernels departs by the noise of atomic sum orders, 1.4e-5 to 3.1e-4
+#: (mixed policies included). The bound sits 2x above that noise's
+#: largest reading and 1.4x under the float32 policy's
+BF16_LOSS_RTOL = 6e-4
+
+
+def loss_departure(losses, ref) -> float:
+    """The largest |losses - ref| / |ref| over the first COMPARE_STEPS."""
+    import torch
+    got = torch.as_tensor(losses[:COMPARE_STEPS], dtype=torch.float64)
+    return float(((got - ref).abs() / ref.abs()).max())
 
 
 def rel_l2(a, b) -> float:
@@ -786,29 +816,29 @@ def rel_l2(a, b) -> float:
                  / torch.linalg.vector_norm(b.float().reshape(-1)).clamp_min(1e-30))
 
 
-def check_bf16(label, got, want, want32, random_batch=True) -> float:
+def check_bf16(label, got, want, want32, limit, separable=True) -> float:
     """A bf16 training kernel's output against its bf16 plain version
     (``want``) and the float32 policy's plain version on the same values
     widened (``want32``). The kernel rounds where the plain version rounds,
     but sums in float32 in another order, so a value within float32
     rounding of a bf16 tie may round the other way and move what follows it
-    by one bf16 ulp (2^-8 relative): every entry within BF16_LIMIT x the
-    largest |entry|. On a random batch the kernel must also hold the bf16
-    rounding points: its relative L2 departure at most a quarter of the
-    float32 policy's (which misses every one of them). Not on the
-    contention case's batch: its samples are near-copies, so one flip
-    between float32 sum orders hits most of them at once and the kernel's
-    departure nears the float32 policy's there (printed, not held). Prints
-    both departures."""
-    lim = BF16_LIMIT * max(1e-30, float(want.float().abs().max()))
+    by one bf16 ulp (2^-8 relative): every entry within ``limit`` x the
+    largest |entry| (BF16_LIMITS). Where the readings separate the two
+    (``separable``), the kernel must also hold the bf16 rounding points by
+    relative L2: its departure at most a quarter of the float32 policy's.
+    Not where they do not: in the contention cell's ``whid`` the samples are
+    near-copies, so one flip between float32 sum orders hits most of them at
+    once and the kernel's departure nears the float32 policy's (printed, not
+    held). Prints both departures."""
+    lim = limit * max(1e-30, float(want.float().abs().max()))
     dep = float((got.float() - want.float()).abs().max())
     d32 = float((want32.float() - want.float()).abs().max())
     r, r32 = rel_l2(got, want), rel_l2(want32, want)
-    ok = r <= 0.25 * r32 or not random_batch
+    ok = r <= 0.25 * r32 or not separable
     print(f"  {label}: departure from the bf16 plain version / limit "
           f"{dep / lim:.4f} (the float32 policy's {d32 / lim:.4f}); relative "
           f"L2 {r:.3e} (the float32 policy's {r32:.3e}"
-          f"{', limit a quarter of it' if random_batch else '; not held'})"
+          f"{', limit a quarter of it' if separable else '; not held'})"
           f"  {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SmokeFailure(f"{label}: relative L2 departure {r:.3e} from the "
@@ -828,21 +858,24 @@ def step_wants_bf16(params16, H, res, coords, target) -> dict:
                 target)}
 
 
-def check_step_bf16(label, params16, H, res, wants, random_batch=True,
+def check_step_bf16(label, params16, H, res, wants, contention=False,
                     **batch) -> float:
     """The bf16 train-step kernel on ``batch`` held by ``check_bf16``
-    gradient by gradient; the loss sum within 1e-3 relative of the bf16
-    plain version's (a prediction's rounding flip moves one |diff| by an
-    ulp)."""
+    gradient by gradient (``contention``: the one-cell batch, whose ``whid``
+    the readings cannot separate); the loss sum within 1e-3 relative of the
+    bf16 plain version's (a prediction's rounding flip moves one |diff| by
+    an ulp)."""
     from repro_torch.kernels.fused_train_step import ops as fts
     got_g, got_loss = fts.train_step_cuda(params16, H, res, **batch)
     (want, want_loss), want32 = wants["bf16 plain"], wants["float32 plain"][0]
     err = 0.0
     for k in fts.STATE_KEYS:
         if k != "whid" or H > 1:
-            err = max(err, check_bf16(f"train_step bf16 ({label}) grad {k}",
-                                      got_g[k], want[k], want32[k],
-                                      random_batch))
+            loose = contention and k == "whid"
+            err = max(err, check_bf16(
+                f"train_step bf16 ({label}) grad {k}", got_g[k], want[k],
+                want32[k], BF16_WHID_CONTENTION if loose else BF16_LIMITS[k],
+                separable=not loose))
     check(f"train_step bf16 ({label}) loss sum", got_loss, want_loss, atol=0.0,
           rtol=1e-3)
     return err
@@ -898,7 +931,8 @@ def step_case_checks(dev, vols_c, tseeds, cfg) -> None:
         params16 = {k: v.to(torch.bfloat16) for k, v in params.items()}
         wants = step_wants_bf16(params16, H, res, coords, target)
         check_step_bf16(f"{label}, host-sampled", params16, H, res, wants,
-                        random_batch=cell is None, coords=coords, target=target)
+                        contention=cell is not None, coords=coords,
+                        target=target)
         if cell is None:
             check_step_bf16(f"{label}, in-kernel sampling", params16, H, res,
                             wants, volumes=vols_c[:hP], seeds=tseeds[:hP], **draw)
@@ -952,11 +986,12 @@ def bf16_training(tparts, vols, cfg, train_wrappers, tag, f32_run) -> dict:
     and unfused (``fuse_train_step="off"``: the bf16 MLP and hash-encode
     backward kernels), counters zeroed just before each. The loss must
     fall; the first 16 losses of both must agree with ``backend="ref"``
-    bf16 within 1e-2 relative (bf16 rounds every feature, activation and
+    bf16 within BF16_LOSS_RTOL (bf16 rounds every feature, activation and
     delta, so a rounding flip between float32 sum orders moves a value by
     2^-8 relative, and Adam's normalised first steps pass such differences
-    on); the two runs' PSNRs within 1 dB. Returns the bf16 kernels'
-    launches of the two runs."""
+    on), printed beside the float32 policy's departure from the same
+    reference (``f32_run["losses"]``); the two runs' PSNRs within 1 dB.
+    Returns the bf16 kernels' launches of the two runs."""
     import numpy as np
     import torch
     from repro_torch import api
@@ -1024,11 +1059,68 @@ def bf16_training(tparts, vols, cfg, train_wrappers, tag, f32_run) -> dict:
     _, rinfo = api.train(tparts, cfg, backend="ref", steps=COMPARE_STEPS, key=0,
                          log_every=1, precision="bf16")
     ref = torch.tensor([l for _, l in rinfo["loss_history"]], dtype=torch.float64)
+    print(f"  first {COMPARE_STEPS} losses against the bf16 plain path (ref), "
+          f"largest relative departure: fused "
+          f"{loss_departure(runs['auto']['losses'], ref):.3e}, unfused "
+          f"{loss_departure(runs['off']['losses'], ref):.3e}, the float32 "
+          f"policy's fused run {loss_departure(f32_run['losses'], ref):.3e} "
+          f"(limit {BF16_LOSS_RTOL:.0e})")
     for fuse, label in (("auto", "fused"), ("off", "unfused")):
         check(f"bf16 first {COMPARE_STEPS} losses: {label} vs plain path (ref)",
               torch.from_numpy(runs[fuse]["losses"][:COMPARE_STEPS]), ref,
-              atol=0.0, rtol=1e-2)
+              atol=0.0, rtol=BF16_LOSS_RTOL)
     return out
+
+
+def mixed_policy_checks(tparts, cfg, train_wrappers) -> None:
+    """The mixed policies ``"bf16/f32/f32"`` (bf16 params and float32
+    compute: the float32 train step on the params cast to float32, the
+    master AdamW) and ``"f32/bf16/f32"`` (float32 params and bf16 compute:
+    the bf16 train step on the params cast to bf16, the float32 AdamW),
+    COMPARE_STEPS steps each through ``api.train(backend="cuda")``, fused
+    and unfused, counters zeroed just before each: every launch must be the
+    kernel of the policy's dtype, and the losses must agree with
+    ``backend="ref"`` under the same policy within BF16_LOSS_RTOL: bf16
+    compute rounds as the bf16 policy does, and with bf16 params a master
+    that differs in its last float32 bits between the paths may round a
+    param to the other bf16 neighbour (2^-8 relative), so float32 compute
+    alone does not bring the float32 policy's 1e-4."""
+    import torch
+    from repro_torch import api
+    for policy, bf16_compute, master in (("bf16/f32/f32", False, True),
+                                         ("f32/bf16/f32", True, False)):
+        _, rinfo = api.train(tparts, cfg, backend="ref", steps=COMPARE_STEPS,
+                             key=0, log_every=1, precision=policy)
+        ref = torch.tensor([l for _, l in rinfo["loss_history"]],
+                           dtype=torch.float64)
+        for fuse in ("auto", "off"):
+            for w in train_wrappers.values():
+                w.launches = w.bf16_launches = 0
+            torch.cuda.synchronize()
+            _, info = api.train(tparts, cfg, backend="cuda", steps=COMPARE_STEPS,
+                                key=0, log_every=1, precision=policy,
+                                fuse_train_step=fuse)
+            torch.cuda.synchronize()
+            launches = {n: (w.launches, w.bf16_launches)
+                        for n, w in train_wrappers.items()}
+            label = f"{policy} {'fused' if fuse == 'auto' else 'unfused'}"
+            print(f"  {label}: launches (all, bf16 kernel) {launches}")
+            want = {"train_step": bf16_compute, "adamw_apply": master} \
+                if fuse == "auto" else {"hash_encode_bwd": bf16_compute,
+                                        "fused_mlp_bwd": bf16_compute}
+            for n, bf16 in want.items():
+                every, b = launches[n]
+                if every <= 0 or b != (every if bf16 else 0):
+                    raise SmokeFailure(f"{label}: {n} launched {every} times, "
+                                       f"{b} of them the bf16 kernel")
+            losses = torch.tensor([l for _, l in info["loss_history"]],
+                                  dtype=torch.float64)
+            print(f"  {label}: first {COMPARE_STEPS} losses' largest relative "
+                  f"departure from the plain path {loss_departure(losses, ref):.3e}")
+            check(f"{label}: first {COMPARE_STEPS} losses vs plain path (ref)",
+                  losses, ref, atol=0.0, rtol=BF16_LOSS_RTOL)
+            del info
+        del rinfo
 
 
 def dvnr_phases():
@@ -1254,9 +1346,9 @@ def dvnr_phases():
     dx_32, dws_32 = fused_mlp_batched_bwd_ref(
         feats16.float(), [w.float() for w in ws16], g_out16.float(), rows_td)
     errs["fused_mlp_bwd_bf16"] = check_bf16("fused_mlp_bwd bf16 dx", dx_k, dx_p,
-                                            dx_32)
+                                            dx_32, BF16_LIMITS["dx"])
     for i, (a, b, c) in enumerate(zip(dws_k, dws_p, dws_32)):
-        check_bf16(f"fused_mlp_bwd bf16 dW[{i}]", a, b, c)
+        check_bf16(f"fused_mlp_bwd bf16 dW[{i}]", a, b, c, BF16_LIMITS["dW"])
     del dx_k, dws_k, dx_p, dws_p, dx_32, dws_32
     wants_t = step_wants(tparams, H, res, coords_t, target_t)
     errs["train_step"] = max(
@@ -1480,7 +1572,9 @@ def dvnr_phases():
           f"synchronised; {TRAIN_STEPS} fused steps above: {ms_step:.4f}) [{tag}]")
     del rinfo, uinfo, finfo
     bf16_runs = bf16_training(tparts, vols, cfg, train_wrappers, tag,
-                              {"ms_step": ms_step, "sps": sps, "psnr": ev["psnr"]})
+                              {"ms_step": ms_step, "sps": sps, "psnr": ev["psnr"],
+                               "losses": losses})
+    mixed_policy_checks(tparts, cfg, train_wrappers)
 
     # ---------------------------------------------------------------- 6
     print(f"== phase 6: per-kernel times at the tick's shapes [{tag}]")
@@ -1650,7 +1744,8 @@ def dvnr_phases():
     pp16, mp16, vp16, wp16 = master_state()
     sample_kw = dict(volumes=vols_c, seeds=tseeds, **draw)
     enc_flops = rows * L * (25 + 8 * (3 + 2 * F))
-    step_flops = enc_flops + rows * (6 * n_w + 16 * L * F + 8 * 3 + 20)
+    mlp_flops = 6 * rows * n_w     # forward, deltas and dW: the MLP's products
+    other_flops = enc_flops + rows * (16 * L * F + 8 * 3 + 20)
     n_par = n_tab + TP * n_w
 
     def plain_step(params):
@@ -1658,10 +1753,11 @@ def dvnr_phases():
             vols_c, tseeds, n_batch=Nb, boundary_lambda=cfg.boundary_lambda,
             sigma=cfg.boundary_sigma, ghost=1))
 
-    # (name, kernel, plain version, library call or None, bytes, operations,
-    # launches on the main path, its steps, the kernel's symbol); the bf16
-    # rows' launches are the bf16 runs' (fused: train step and AdamW;
-    # unfused: the backwards), each of TRAIN_STEPS steps
+    # (name, kernel, plain version, library call or None, bytes, (f32
+    # operations, products of bf16 operands), launches on the main path, its
+    # steps, the kernel's symbol: the demangled name up to its type
+    # argument); the bf16 rows' launches are the bf16 runs' (fused: train
+    # step and AdamW; unfused: the backwards), each of TRAIN_STEPS steps
     b_fused, b_unfused = bf16_runs["auto"], bf16_runs["off"]
     tspecs = [
         ("hash_encode_bwd",
@@ -1669,62 +1765,68 @@ def dvnr_phases():
          lambda: hash_encode_batched_bwd_ref(g_feat, coords_t, res, rows_td,
                                              (TP, L, T, F)),
          lambda: scatter_buf.index_add_(0, flat_idx, flat_val),
-         rows * (12 + L * F * 4) + n_tab * 4, enc_flops,
-         unfused_launches["hash_encode_bwd"], COMPARE_STEPS, "hash_encode_bwd_kernel"),
+         rows * (12 + L * F * 4) + n_tab * 4, (enc_flops, 0),
+         unfused_launches["hash_encode_bwd"], COMPARE_STEPS,
+         "hash_encode_bwd_kernel<float,"),
         ("fused_mlp_bwd", lambda: fused_mlp_bwd_cuda(feats_t, ws_t, g_out, rows_t),
          lambda: fused_mlp_batched_bwd_ref(feats_t, ws_t, g_out, rows_td),
          lambda: mlp_bwd_chain(feats_t, ws_t, g_out),
-         rows * (2 * D_in + D_out) * 4 + 2 * TP * n_w * 4, 6 * rows * n_w,
-         unfused_launches["fused_mlp_bwd"], COMPARE_STEPS, "fused_mlp_bwd_kernel"),
+         rows * (2 * D_in + D_out) * 4 + 2 * TP * n_w * 4, (mlp_flops, 0),
+         unfused_launches["fused_mlp_bwd"], COMPARE_STEPS,
+         "fused_mlp_bwd_kernel<float,"),
         # bound: float work only; the ~300 integer operations of each
         # sample's Threefry draws are not counted
         ("train_step", lambda: fts.train_step_cuda(tparams, H, res, **sample_kw),
          lambda: plain_step(tparams), None,
-         2 * n_par * 4 + n_vox * 4 + TP * 4, step_flops,
-         train_launches["train_step"], TRAIN_STEPS, "train_step_kernel"),
+         2 * n_par * 4 + n_vox * 4 + TP * 4, (other_flops + mlp_flops, 0),
+         train_launches["train_step"], TRAIN_STEPS, "train_step_kernel<float,"),
         ("adamw_apply",
          lambda: fts.adamw_apply_cuda(pk, mk, vk, got_g, sched, got_loss,
                                       n_valid=Nb, **adam_kw),
          lambda: fts_ref.adamw_apply_ref(pp, mp, vp, None, got_g, sched, **adam_kw),
-         None, n_par * 7 * 4 + TP * 4 * 4, n_par * 15,
-         train_launches["adamw_apply"], TRAIN_STEPS, "adamw_kernel"),
+         None, n_par * 7 * 4 + TP * 4 * 4, (n_par * 15, 0),
+         train_launches["adamw_apply"], TRAIN_STEPS, "adamw_kernel<false>"),
         # the bf16 policy's kernels: bf16 operands read, float32 gradients
-        # written, float32 arithmetic (the CUDA cores' float32 peak)
+        # written; the MLP's products take bf16 operands and sum in float32,
+        # which the card runs at its bf16 peak, the rest is float32 work
         ("hash_encode_bwd_bf16",
          lambda: hash_encode_bwd_cuda(g_feat16, coords_t, res, rows_t, (TP, L, T, F)),
          lambda: hash_encode_batched_bwd_ref(g_feat16, coords_t, res, rows_td,
                                              (TP, L, T, F)),
          lambda: scatter_buf.index_add_(0, flat_idx, flat_val16),
-         rows * (12 + L * F * 2) + n_tab * 4, enc_flops,
-         b_unfused["hash_encode_bwd"], TRAIN_STEPS, "hash_encode_bwd_bf16_kernel"),
+         rows * (12 + L * F * 2) + n_tab * 4, (enc_flops, 0),
+         b_unfused["hash_encode_bwd"], TRAIN_STEPS,
+         "hash_encode_bwd_kernel<__nv_bfloat16,"),
         ("fused_mlp_bwd_bf16",
          lambda: fused_mlp_bwd_cuda(feats16, ws16, g_out16, rows_t),
          lambda: fused_mlp_batched_bwd_ref(feats16, ws16, g_out16, rows_td),
          lambda: mlp_bwd_chain(feats16, ws16, g_out16),
-         rows * (2 * D_in + D_out) * 2 + TP * n_w * (2 + 4), 6 * rows * n_w,
-         b_unfused["fused_mlp_bwd"], TRAIN_STEPS, "fused_mlp_bwd_bf16_kernel"),
+         rows * (2 * D_in + D_out) * 2 + TP * n_w * (2 + 4), (0, mlp_flops),
+         b_unfused["fused_mlp_bwd"], TRAIN_STEPS,
+         "fused_mlp_bwd_kernel<__nv_bfloat16,"),
         ("train_step_bf16",
          lambda: fts.train_step_cuda(tparams16, H, res, **sample_kw),
          lambda: plain_step(tparams16), None,
-         n_par * (2 + 4) + n_vox * 4 + TP * 4, step_flops,
-         b_fused["train_step"], TRAIN_STEPS, "train_step_bf16_kernel"),
+         n_par * (2 + 4) + n_vox * 4 + TP * 4, (other_flops, mlp_flops),
+         b_fused["train_step"], TRAIN_STEPS,
+         "train_step_kernel<__nv_bfloat16,"),
         ("adamw_apply_master",
          lambda: fts.adamw_apply_cuda(pk16, mk16, vk16, got_g16, sched, got_loss16,
                                       n_valid=Nb, flat_mw=wk16, **adam_kw),
          lambda: fts_ref.adamw_apply_ref(pp16, mp16, vp16, wp16, got_g16, sched,
                                          **adam_kw),
-         None, n_par * (4 * 4 + 3 * 4 + 2) + TP * 4 * 4, n_par * 15,
-         b_fused["adamw_apply"], TRAIN_STEPS, "adamw_master_kernel"),
+         None, n_par * (4 * 4 + 3 * 4 + 2) + TP * 4 * 4, (n_par * 15, 0),
+         b_fused["adamw_apply"], TRAIN_STEPS, "adamw_kernel<true>"),
     ]
     # the kernels' own device time per launch (the CUDA-event times above
     # span back-to-back wrapper calls, host work included)
     _, dev_ms, _ = profile_tick(lambda: [k() for _, k, *_ in tspecs for _ in range(5)])
-    for name, kern, plain_fn, lib_fn, nbytes, flops, launches, steps, symbol \
-            in tspecs:
+    for name, kern, plain_fn, lib_fn, nbytes, (flops, bf16_flops), launches, \
+            steps, symbol in tspecs:
         ms = cuda_ms(kern, reps=10)
         pms = cuda_ms(plain_fn, reps=3)
         lms = cuda_ms(lib_fn, reps=5) if lib_fn is not None else None
-        bms, by = bound_ms(nbytes, flops)
+        bms, by = bound_ms(nbytes, flops, bf16_flops=bf16_flops)
         # times are per wrapper call (5 in the profile), summed over the
         # kernels that carry the symbol: the hash backward launches once per
         # level, and its counter counts those launches (L per call)
@@ -1748,7 +1850,7 @@ def dvnr_phases():
                                                        target_t), reps=3)
     _, dev_host, _ = profile_tick(
         lambda: [fts.train_step_cuda(tparams, H, res, **host_kw) for _ in range(5)])
-    kdev = [t / n for key, (t, n) in dev_host if "train_step_kernel" in key]
+    kdev = [t / n for key, (t, n) in dev_host if "train_step_kernel<float," in key]
     bms, by = bound_ms(2 * (n_tab + TP * n_w) * 4 + rows * (3 + D_out) * 4 + TP * 4,
                        enc_flops + rows * (6 * n_w + 16 * L * F + 20))
     print(f"  train_step (host-sampled batch) {ms:.3f} ms  bound {bms:.3f} ms "
@@ -1761,7 +1863,7 @@ def dvnr_phases():
                                             (TP, L, T, F))
     for label, b in (("staged (the plan)", hops.STAGE_BUDGET_BYTES), ("all direct", 0)):
         with setting(hops, "STAGE_BUDGET_BYTES", b):
-            per = launch_times(bwd_call, "hash_encode_bwd_kernel")
+            per = launch_times(bwd_call, "hash_encode_bwd_kernel<float,")
         print(f"  hash_encode_bwd per level, {label}: "
               f"{'not measured' if per is None else [round(x, 4) for x in per]}"
               f"{'' if per is None else f' ms, sum {sum(per):.4f} ms'} (profiler) [{tag}]")
@@ -1802,10 +1904,10 @@ def dvnr_phases():
         return hash_encode_bwd_cuda(cot, coords_t, res, rows_t, (TP, L, T, F))
 
     ms_fused = cuda_ms(step_call, reps=20)
-    per_fused = launch_times(step_call, "train_step_kernel")
+    per_fused = launch_times(step_call, "train_step_kernel<float,")
     ms_split = cuda_ms(split_call, reps=20)
     ms_cot = cuda_ms(cot_call, reps=20)
-    per_cot = launch_times(cot_call, "train_step_kernel")
+    per_cot = launch_times(cot_call, "train_step_kernel<float,")
     alone = lambda per: "not measured" if per is None else f"{per[0]:.4f} ms"
     print(f"  train_step fused {ms_fused:.4f} ms, alone {alone(per_fused)}; the "
           f"split (kernel writing the feature cotangent + hash_encode_bwd) "
@@ -1823,8 +1925,8 @@ def dvnr_phases():
     cold16 = lambda: fts.adamw_apply_cuda(pk16, mk16, vk16, got_g16, sched,
                                           got_loss16, n_valid=Nb, flat_mw=wk16,
                                           **adam_kw)
-    for label, fn, symbol in (("adamw_apply", cold, "adamw_kernel"),
-                              ("adamw_apply_master", cold16, "adamw_master_kernel")):
+    for label, fn, symbol in (("adamw_apply", cold, "adamw_kernel<false>"),
+                              ("adamw_apply_master", cold16, "adamw_kernel<true>")):
         _, dev_cold, _ = profile_tick(lambda: [(flush.zero_(), fn()) for _ in range(5)])
         kc = [t / n for key, (t, n) in dev_cold if symbol in key]
         print(f"  {label} with the L2 flushed before each launch: kernel alone "

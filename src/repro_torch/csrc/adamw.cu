@@ -21,7 +21,7 @@
 // overwritten in place (the JAX package donates their buffers). The kernel
 // also writes the step's mean loss, loss_sum / (N D_out).
 //
-// The bf16 policy's variant (adamw_master_kernel) keeps the float32 master
+// The bf16 policy's variant (adamw_kernel<true>) keeps the float32 master
 // copy of kernel.py's has_master leg (lines 224-231, 251-253): the update
 // reads and writes the master in place of p, with the same operations in
 // the same order, and the bfloat16 params are re-derived from the new
@@ -49,14 +49,16 @@ struct Groups {
   Group k[4];
 };
 
+// MASTER false: the float32 policy's update (the params are their own
+// master); true: the bf16 policy's, the float32 master and then the bfloat16
+// params
 template <bool MASTER>
-__device__ __forceinline__ void adamw_body(const Groups& gs,
-                                           const float* __restrict__ scalars,
-                                           const float* __restrict__ loss_sum,
-                                           float* __restrict__ loss, long long P,
-                                           long long total, float loss_div,
-                                           float b1, float omb1, float b2,
-                                           float omb2, float eps, float wd) {
+__global__ void adamw_kernel(const Groups gs, const float* __restrict__ scalars,
+                             const float* __restrict__ loss_sum,
+                             float* __restrict__ loss, long long P,
+                             long long total, float loss_div, float b1,
+                             float omb1, float b2, float omb2, float eps,
+                             float wd) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   for (long long q = first; q < P; q += stride)
@@ -88,29 +90,6 @@ __device__ __forceinline__ void adamw_body(const Groups& gs,
       G.p[j] = nw;
     }
   }
-}
-
-// the float32 policy's update (the params are their own master)
-__global__ void adamw_kernel(const Groups gs, const float* __restrict__ scalars,
-                             const float* __restrict__ loss_sum,
-                             float* __restrict__ loss, long long P,
-                             long long total, float loss_div, float b1,
-                             float omb1, float b2, float omb2, float eps,
-                             float wd) {
-  adamw_body<false>(gs, scalars, loss_sum, loss, P, total, loss_div, b1, omb1,
-                    b2, omb2, eps, wd);
-}
-
-// the bf16 policy's update: the float32 master, then the bfloat16 params
-__global__ void adamw_master_kernel(const Groups gs,
-                                    const float* __restrict__ scalars,
-                                    const float* __restrict__ loss_sum,
-                                    float* __restrict__ loss, long long P,
-                                    long long total, float loss_div, float b1,
-                                    float omb1, float b2, float omb2, float eps,
-                                    float wd) {
-  adamw_body<true>(gs, scalars, loss_sum, loss, P, total, loss_div, b1, omb1,
-                   b2, omb2, eps, wd);
 }
 
 }  // namespace
@@ -156,7 +135,7 @@ extern "C" int repro_adamw_apply(
   long long blocks = (total + threads - 1) / threads;
   if (blocks > 8LL * sms) blocks = 8LL * sms;
   if (blocks < 1) blocks = 1;
-  auto kernel = master ? adamw_master_kernel : adamw_kernel;
+  auto kernel = master ? &adamw_kernel<true> : &adamw_kernel<false>;
   kernel<<<(unsigned)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       gs, static_cast<const float*>(scalars), static_cast<const float*>(loss_sum),
       static_cast<float*>(loss), P, total, loss_div, b1, omb1, b2, omb2, eps, wd);

@@ -48,14 +48,15 @@
 // bandwidth, not the bound, is the likely limit of this version. The atomic
 // adds make dW's last bits vary from run to run.
 //
-// bfloat16 operands (fused_mlp_bwd_bf16_kernel, the bf16 training policy):
-// x, the cotangent and the weights are read as bfloat16 and widened; the
-// recomputed activations are rounded to bfloat16 as the forward rounds them,
-// and each layer's delta is rounded to bfloat16 before its ReLU mask, where
-// the plain version's autograd rounds it (fused_mlp/ref.py); dx is summed in
-// float32 and rounded once to bfloat16; dW is summed in float32 into the
-// float32 gradient (the autograd function rounds it once to the weights'
-// type). JAX's kernel sums dW in bfloat16 per grid tile (kernel.py:110-112).
+// bfloat16 operands (fused_mlp_bwd_kernel<__nv_bfloat16>, the bf16 training
+// policy): x, the cotangent and the weights are read as bfloat16 and
+// widened; the recomputed activations are rounded to bfloat16 as the forward
+// rounds them, and each layer's delta is rounded to bfloat16 before its ReLU
+// mask, where the plain version's autograd rounds it (fused_mlp/ref.py); dx
+// is summed in float32 and rounded once to bfloat16; dW is summed in float32
+// into the float32 gradient (the autograd function rounds it once to the
+// weights' type). JAX's kernel sums dW in bfloat16 per grid tile
+// (kernel.py:110-112).
 #include "common.cuh"
 #include "mlp_tile.cuh"
 
@@ -166,9 +167,10 @@ cudaError_t launch(const void* x, const void* w_in, const void* w_hid,
   }
 }
 
-// the backward's body for operands of type T (float or __nv_bfloat16)
+// the backward for operands of type T: float (the float32 policy) or
+// __nv_bfloat16 (the bf16 policy, float32 dW)
 template <typename T, int W>
-__device__ __forceinline__ void fused_mlp_bwd_body(
+__global__ void fused_mlp_bwd_kernel(
     const T* __restrict__ x, const T* __restrict__ w_in,
     const T* __restrict__ w_hid, const T* __restrict__ w_out,
     const T* __restrict__ gout, const int* __restrict__ part,
@@ -210,57 +212,13 @@ __device__ __forceinline__ void fused_mlp_bwd_body(
                         dw_out + p * t.n_out);
 }
 
-// float32 operands (the float32 policy)
-template <int W>
-__global__ void fused_mlp_bwd_kernel(const float* __restrict__ x,
-                                     const float* __restrict__ w_in,
-                                     const float* __restrict__ w_hid,
-                                     const float* __restrict__ w_out,
-                                     const float* __restrict__ gout,
-                                     const int* __restrict__ part,
-                                     float* __restrict__ dx,
-                                     float* __restrict__ dw_in,
-                                     float* __restrict__ dw_hid,
-                                     float* __restrict__ dw_out, long long N,
-                                     int D_in, int n_hidden, int n_hid_slab,
-                                     int D_out) {
-  fused_mlp_bwd_body<float, W>(x, w_in, w_hid, w_out, gout, part, dx, dw_in,
-                               dw_hid, dw_out, N, D_in, n_hidden, n_hid_slab,
-                               D_out);
-}
-
-// bfloat16 operands (the bf16 policy), float32 dW
-template <int W>
-__global__ void fused_mlp_bwd_bf16_kernel(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w_in,
-    const __nv_bfloat16* __restrict__ w_hid,
-    const __nv_bfloat16* __restrict__ w_out,
-    const __nv_bfloat16* __restrict__ gout, const int* __restrict__ part,
-    __nv_bfloat16* __restrict__ dx, float* __restrict__ dw_in,
-    float* __restrict__ dw_hid, float* __restrict__ dw_out, long long N,
-    int D_in, int n_hidden, int n_hid_slab, int D_out) {
-  fused_mlp_bwd_body<__nv_bfloat16, W>(x, w_in, w_hid, w_out, gout, part, dx,
-                                       dw_in, dw_hid, dw_out, N, D_in,
-                                       n_hidden, n_hid_slab, D_out);
-}
-
-// the backward kernel for operands of type T
-template <typename T, int W>
-constexpr auto bwd_kernel() {
-  if constexpr (sizeof(T) == 4) {
-    return &fused_mlp_bwd_kernel<W>;
-  } else {
-    return &fused_mlp_bwd_bf16_kernel<W>;
-  }
-}
-
 template <typename T, int W>
 cudaError_t launch_bwd_w(const void* x, const void* w_in, const void* w_hid,
                          const void* w_out, const void* g, const int* part,
                          void* dx, float* dw_in, float* dw_hid, float* dw_out,
                          long long B, long long N, int D_in, int n_hidden,
                          int n_hid_slab, int D_out, cudaStream_t stream) {
-  const auto kernel = bwd_kernel<T, W>();
+  const auto kernel = fused_mlp_bwd_kernel<T, W>;
   size_t smem = 0;
   const int tile = repro::mlp_pick_tile(D_in, W, n_hidden, D_out, 0, &smem);
   if (tile == 0) return cudaErrorInvalidValue;

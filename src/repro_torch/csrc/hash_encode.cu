@@ -60,10 +60,10 @@
 //     more): each group leader adds its row with one 16-byte atomicAdd.
 // Sums are float32, in an order that atomics make run-dependent.
 //
-// A bfloat16 cotangent (hash_encode_bwd_bf16_kernel, the bf16 training
-// policy) is read as one vector load of its F values per (row, level), 8
-// bytes at F = 4, and widened in registers; the corner weights, the sums and
-// the gradient stay float32. JAX's _bwd sums in the cotangent's dtype
+// A bfloat16 cotangent (hash_encode_bwd_kernel<__nv_bfloat16>, the bf16
+// training policy) is read as one vector load of its F values per (row,
+// level), 8 bytes at F = 4, and widened in registers; the corner weights,
+// the sums and the gradient stay float32. JAX's _bwd sums in the cotangent's dtype
 // (ops.py:101-106); the port sums in float32 and the autograd function
 // rounds the table gradient once to the tables' type.
 #include "common.cuh"
@@ -122,9 +122,10 @@ cudaError_t launch_fwd(const float* coords, const void* tables, const int* res,
 // it runs more warps against the shared memory it pins
 constexpr int BWD_THREADS_STAGED = 1024, BWD_THREADS_DIRECT = 512;
 
-// the backward's body for a cotangent of type TG (float or __nv_bfloat16)
+// the backward of one level for a cotangent of type TG: float (the float32
+// policy) or __nv_bfloat16 (the bf16 policy; the gradient stays float32)
 template <typename TG, int F, bool STAGED>
-__device__ __forceinline__ void hash_encode_bwd_body(
+__global__ void __launch_bounds__(BWD_THREADS_STAGED) hash_encode_bwd_kernel(
     const TG* __restrict__ grad_out, const float* __restrict__ coords,
     const int* __restrict__ part, float* __restrict__ grad_tables, long long N,
     int L, int level, int res, long long T_size, int rows, int ppb) {
@@ -176,43 +177,6 @@ __device__ __forceinline__ void hash_encode_bwd_body(
   }
 }
 
-// a float32 cotangent (the float32 policy)
-template <int F, bool STAGED>
-__global__ void __launch_bounds__(BWD_THREADS_STAGED)
-hash_encode_bwd_kernel(const float* __restrict__ grad_out,
-                       const float* __restrict__ coords,
-                       const int* __restrict__ part,
-                       float* __restrict__ grad_tables, long long N, int L,
-                       int level, int res, long long T_size, int rows,
-                       int ppb) {
-  hash_encode_bwd_body<float, F, STAGED>(grad_out, coords, part, grad_tables, N, L,
-                                         level, res, T_size, rows, ppb);
-}
-
-// a bfloat16 cotangent (the bf16 policy), float32 gradient
-template <int F, bool STAGED>
-__global__ void __launch_bounds__(BWD_THREADS_STAGED)
-hash_encode_bwd_bf16_kernel(const __nv_bfloat16* __restrict__ grad_out,
-                            const float* __restrict__ coords,
-                            const int* __restrict__ part,
-                            float* __restrict__ grad_tables, long long N, int L,
-                            int level, int res, long long T_size, int rows,
-                            int ppb) {
-  hash_encode_bwd_body<__nv_bfloat16, F, STAGED>(grad_out, coords, part,
-                                                 grad_tables, N, L, level, res,
-                                                 T_size, rows, ppb);
-}
-
-// the backward kernel for a cotangent of type TG
-template <typename TG, int F, bool STAGED>
-constexpr auto bwd_kernel() {
-  if constexpr (sizeof(TG) == 4) {
-    return &hash_encode_bwd_kernel<F, STAGED>;
-  } else {
-    return &hash_encode_bwd_bf16_kernel<F, STAGED>;
-  }
-}
-
 // Points a backward block takes: one per thread on the direct route; a
 // staged block flushes its slab once, so it takes about as many points as
 // the slab has rows (a power of two in [1,024, 4,096]).
@@ -234,14 +198,14 @@ cudaError_t launch_bwd_level(const TG* g, const float* coords,
   const dim3 grid((unsigned)((N + ppb - 1) / ppb), (unsigned)B);
   if (staged) {
     const int smem = (int)(rows * F * sizeof(float));
-    const auto kern = bwd_kernel<TG, F, true>();
+    const auto kern = hash_encode_bwd_kernel<TG, F, true>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     kern<<<grid, BWD_THREADS_STAGED, smem, stream>>>(g, coords, part, grad, N, L, level,
                                               res, T_size, (int)rows, ppb);
   } else {
-    const auto kern = bwd_kernel<TG, F, false>();
+    const auto kern = hash_encode_bwd_kernel<TG, F, false>;
     kern<<<grid, BWD_THREADS_DIRECT, 0, stream>>>(g, coords, part, grad, N, L, level,
                                                res, T_size, 0, ppb);
   }

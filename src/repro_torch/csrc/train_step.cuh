@@ -17,11 +17,12 @@
 // L1/L2, so the pinned and tiled variants are one kernel (sampling_brick
 // changes nothing here).
 //
-// The body is a template of the parameter type TP, in two translation units
-// so that their instantiations (W x F x variant, 24 each) compile in
-// parallel: train_step.cu holds the float32 policy's (train_step_kernel) and
-// the C entries, train_step_bf16.cu the bf16 policy's (train_step_bf16_
-// kernel: bfloat16 params, bfloat16 compute).
+// The kernel is a template of the parameter type TP, instantiated in two
+// translation units so that their instantiations (W x F x variant, 24 each)
+// compile in parallel: train_step.cu holds the float32 policy's
+// (train_step_kernel<float>) and the C entries, train_step_bf16.cu the bf16
+// policy's (train_step_kernel<__nv_bfloat16>: bfloat16 params, bfloat16
+// compute).
 //
 // Design. The TPU kernel walks a (partition, batch tile) grid in order,
 // accumulates gradients in VMEM scratch with `+=` and applies AdamW on the
@@ -216,11 +217,13 @@ __device__ __forceinline__ void gather_trilinear(const float* __restrict__ vol,
       }
 }
 
-// The kernel body for parameters of type TP (float: the float32 policy;
+}  // namespace step
+
+// The kernel for parameters of type TP (float: the float32 policy;
 // __nv_bfloat16: the bf16 policy, RB below, with the rounding points of the
 // header)
 template <typename TP, int W, int F, bool SAMPLING>
-__device__ __forceinline__ void train_step_body(const StepArgs& a) {
+__global__ void train_step_kernel(const StepArgs a) {
   constexpr bool RB = sizeof(TP) == 2;
   extern __shared__ __align__(16) float smem[];
   const int p = blockIdx.y;
@@ -257,8 +260,8 @@ __device__ __forceinline__ void train_step_body(const StepArgs& a) {
     float c[3] = {0.0f, 0.0f, 0.0f};
     float tgt[STEP_C_MAX] = {0.0f, 0.0f, 0.0f, 0.0f};
     if (SAMPLING) {
-      sample_coords(k0, k1, row, a.n_uniform, a.sigma, c);
-      gather_trilinear(vol, a.nx, a.ny, a.nz, a.D_out, a.ghost, c, tgt);
+      step::sample_coords(k0, k1, row, a.n_uniform, a.sigma, c);
+      step::gather_trilinear(vol, a.nx, a.ny, a.nz, a.D_out, a.ghost, c, tgt);
     } else if (valid) {
       const long long prow = (long long)p * a.N + row;
 #pragma unroll
@@ -323,20 +326,6 @@ __device__ __forceinline__ void train_step_body(const StepArgs& a) {
                         a.g_wout + (long long)p * t.n_out);
 }
 
-}  // namespace step
-
-// the float32 policy's kernel
-template <int W, int F, bool SAMPLING>
-__global__ void train_step_kernel(const StepArgs a) {
-  step::train_step_body<float, W, F, SAMPLING>(a);
-}
-
-// the bf16 policy's kernel (bfloat16 params and compute)
-template <int W, int F, bool SAMPLING>
-__global__ void train_step_bf16_kernel(const StepArgs a) {
-  step::train_step_body<__nv_bfloat16, W, F, SAMPLING>(a);
-}
-
 // False if no tile fits. The shape does not depend on the parameter type:
 // shared memory holds float32 weights under every policy.
 inline bool step_shape(int L, int F, int W, int n_hidden, int D_out, long long N,
@@ -352,13 +341,8 @@ inline bool step_shape(int L, int F, int W, int n_hidden, int D_out, long long N
 template <typename TP, int W, int F>
 cudaError_t step_launch_wf(const StepArgs& a, const StepShape& sh, long long P,
                            bool sampling, cudaStream_t stream) {
-  void (*kernel)(const StepArgs);
-  if constexpr (sizeof(TP) == 4) {
-    kernel = sampling ? &train_step_kernel<W, F, true> : &train_step_kernel<W, F, false>;
-  } else {
-    kernel = sampling ? &train_step_bf16_kernel<W, F, true>
-                      : &train_step_bf16_kernel<W, F, false>;
-  }
+  const auto kernel = sampling ? &train_step_kernel<TP, W, F, true>
+                               : &train_step_kernel<TP, W, F, false>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh.smem);
   if (e != cudaSuccess) return e;
