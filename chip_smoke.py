@@ -7,8 +7,12 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and the CUDA
 toolkit; imports nothing of JAX or of the JAX package. Phases:
 
 1. build   compile ``src/repro_torch/csrc/*.cu`` with nvcc into ``build/``,
-           and count the tensor-core (HGMMA) and TMA (UTMALDG) instructions
-           of the bf16 flash kernels in ``cuobjdump -sass`` (no HGMMA fails);
+           print every kernel's registers and spills (a spill in the MLP
+           forward or the INR inference kernel fails), and count the
+           tensor-core (HGMMA) and TMA (UTMALDG) instructions of the bf16
+           flash kernels and the mma.sync (HMMA) instructions of the MLP
+           forward and INR inference kernels in ``cuobjdump -sass`` (a bf16
+           instantiation without them fails);
 2. kernels each kernel against its plain PyTorch version on the card, at
            PRODUCTION256 shapes (L=5, F=4, T=2^13, res 4..64: dense and
            hashed levels): the serving kernels with tables U(-1,1),
@@ -18,7 +22,10 @@ toolkit; imports nothing of JAX or of the JAX package. Phases:
            at the training shapes (8 partitions x a batch of 65,536, f32),
            each from cloned state; the hash-encode backward also with every
            point in one coarse cell, at PRODUCTION's T=2^16 (direct levels)
-           and at F = 1, 2 and 8 (ABLATION); each bf16 flash case against
+           and at F = 1, 2 and 8 (ABLATION); the INR inference kernel
+           (encode and MLP in one launch) at the MLP cases' shapes, f32,
+           bf16 and "f32/bf16/f32", coordinates inside and outside [0,1];
+           each bf16 flash case against
            the plain version (3e-2), the kernel's tile schedule in f32 with
            p rounded to bf16 (``attention_tiled_ref``, 1e-5 + 8e-3 |out|
            plus the p-rounding slack, whose 2^-16 width is first held
@@ -26,22 +33,28 @@ toolkit; imports nothing of JAX or of the JAX package. Phases:
            instantiation) and the f32 plain version (per-row relative L2
            1e-2);
 3. decode  ``DVNRModel.decode_grid`` of one 256^3 partition through the
-           kernels, against the plain path on the card;
+           kernels, against the plain path on the card: the inference route
+           (one INR inference launch per chunk, no encode or MLP launch);
 4. serve   a ``RenderService`` over 8 PRODUCTION256 partitions (the 2x2x2
            split of a 512^3 volume): 4 ticks of 2 orbiting clients at
            256x256, 64 samples, every frame finite, one tick against the
-           plain path; the launch counters are zeroed just before the ticks
-           and each kernel must have launched during them;
+           plain path; the launch counters are zeroed just before the ticks:
+           the INR inference kernel must launch in every tick, compositing
+           during them, the encode and MLP forward kernels never;
 5. train   ``api.train(backend="cuda")`` of the 8 PRODUCTION256 partitions
            of a 512^3 CloverLeaf for 512 steps at the full batch, counters
            zeroed just before: the train-step and AdamW kernels must have
            launched, the loss must fall, and the first 16 losses must agree
            with the plain path (``backend="ref"``) and with the unfused
-           kernel path (hash-encode and MLP backward kernels, whose
-           counters must move too); ms per step, samples per second and the
-           final PSNR through ``evaluate``;
+           kernel path (hash-encode forward and backward, MLP forward and
+           backward kernels, whose counters must move too); ms per step,
+           samples per second and the final PSNR through ``evaluate`` (the
+           inference route; under bf16 its bf16 instantiation);
 6. report  per-tick and per-kernel times (CUDA events) with each kernel's
-           bound, its plain version's time and a PyTorch yardstick, and the
+           bound, its plain version's time and a PyTorch yardstick (for the
+           INR inference kernel the encode + MLP pair back to back, at the
+           tick's shapes and on a 2^22 decode chunk), a tick's peak memory
+           and host time with and without the inference route, and the
            device's idle share over one profiled serving tick and one
            profiled training chunk, tagged with the card's name and power
            limit;
@@ -96,13 +109,16 @@ REPLACES = {
     "train_step": "src/repro/kernels/fused_train_step/kernel.py:364",
     "adamw_apply": "src/repro/kernels/fused_train_step/kernel.py:218",
     "flash_attention": "src/repro/kernels/flash_attention/kernel.py:94",
+    "inr_forward": "src/repro/kernels/hash_encoding/kernel.py:62 and "
+                   "src/repro/kernels/fused_mlp/kernel.py:66",
 }
 # the bf16 policy's instantiations replace the same TPU kernels (which take
 # the compute dtype and a master copy as options)
 REPLACES.update({"hash_encode_bwd_bf16": REPLACES["hash_encode_bwd"],
                  "fused_mlp_bwd_bf16": REPLACES["fused_mlp_bwd"],
                  "train_step_bf16": REPLACES["train_step"],
-                 "adamw_apply_master": REPLACES["adamw_apply"]})
+                 "adamw_apply_master": REPLACES["adamw_apply"],
+                 "inr_forward_bf16": REPLACES["inr_forward"]})
 # sizes of the run (the rehearsal on a CPU shrinks them)
 DECODE_EDGE = 256          # phase 3: one 256^3 partition
 LOCAL_EDGE = 256           # phase 4: 2x2x2 partitions of 256^3 each
@@ -147,6 +163,8 @@ SOURCES = {
     "fused_mlp_bwd_bf16": "src/repro_torch/csrc/fused_mlp.cu",
     "train_step_bf16": "src/repro_torch/csrc/train_step_bf16.cu",
     "adamw_apply_master": "src/repro_torch/csrc/adamw.cu",
+    "inr_forward": "src/repro_torch/csrc/inr_forward.cu",
+    "inr_forward_bf16": "src/repro_torch/csrc/inr_forward.cu",
 }
 
 
@@ -163,10 +181,18 @@ def card_tag() -> str:
     return out.stdout.strip().splitlines()[0].strip()
 
 
-def flash_sass_counts(lib_path) -> dict:
-    """Per bf16 flash-kernel instantiation in the built library, the count
-    of tensor-core (HGMMA) and asynchronous-copy (UTMALDG: TMA, LDGSTS:
-    cp.async) instructions in its SASS (``cuobjdump -sass``)."""
+#: the kernels whose SASS phase 1 counts (a substring of the mangled name)
+#: and the instructions counted in each
+SASS_COUNTS = {"flash_attention_kernel_bf16": ("HGMMA", "UTMALDG", "LDGSTS"),
+               "fused_mlp_fwd_kernel": ("HMMA",),
+               "inr_forward_kernel": ("HMMA",)}
+
+
+def sass_counts(lib_path) -> dict:
+    """Per instantiation of the kernels of ``SASS_COUNTS`` in the built
+    library, the count of its instructions in its SASS (``cuobjdump
+    -sass``): HGMMA (wgmma), HMMA (mma.sync), UTMALDG (TMA), LDGSTS
+    (cp.async)."""
     import re
     from repro_torch.kernels import build
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
@@ -178,9 +204,10 @@ def flash_sass_counts(lib_path) -> dict:
     for line in out.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            cur = m.group(1) if "flash_attention_kernel_bf16" in m.group(1) else None
+            ops = [o for k, o in SASS_COUNTS.items() if k in m.group(1)]
+            cur = m.group(1) if ops else None
             if cur:
-                counts[cur] = {"HGMMA": 0, "UTMALDG": 0, "LDGSTS": 0}
+                counts[cur] = dict.fromkeys(ops[0], 0)
         elif cur:
             for op in counts[cur]:
                 if re.search(rf"\b{op}\b", line):
@@ -991,10 +1018,13 @@ def bf16_training(tparts, vols, cfg, train_wrappers, tag, f32_run) -> dict:
     2^-8 relative, and Adam's normalised first steps pass such differences
     on), printed beside the float32 policy's departure from the same
     reference (``f32_run["losses"]``); the two runs' PSNRs within 1 dB.
-    Returns the bf16 kernels' launches of the two runs."""
+    Each ``evaluate`` must take the bf16 INR inference kernel (counters
+    zeroed just before it). Returns the bf16 kernels' launches of the two
+    runs (``inr_forward``: their evaluates')."""
     import numpy as np
     import torch
     from repro_torch import api
+    from repro_torch.kernels.inr_forward.ops import inr_forward_cuda
     TP, Nb = len(tparts), cfg.batch_size
     print(f"  bf16 policy: {TRAIN_STEPS} steps, fused then unfused")
     runs, out = {}, {}
@@ -1034,12 +1064,18 @@ def bf16_training(tparts, vols, cfg, train_wrappers, tag, f32_run) -> dict:
         if not last < 0.5 * first:
             raise SmokeFailure(f"bf16 ({fuse}): the loss did not fall: first 16 "
                                f"{first:.6f}, last 16 {last:.6f}")
+        inr_forward_cuda.launches = inr_forward_cuda.bf16_launches = 0
         ev = info["trainer"].evaluate(st, vols, (TRAIN_EDGE,) * 3)
         if not np.isfinite(ev["psnr"]):
             raise SmokeFailure(f"bf16 evaluate: PSNR {ev['psnr']}")
+        inr = (inr_forward_cuda.launches, inr_forward_cuda.bf16_launches)
+        if inr[1] <= 0 or inr[0] != inr[1]:
+            raise SmokeFailure(f"bf16 evaluate: {inr[0]} INR inference "
+                               f"launches, {inr[1]} of them the bf16 kernel")
         ms = info["train_time_s"] * 1e3 / TRAIN_STEPS
         runs[fuse] = {"losses": losses, "psnr": ev["psnr"], "ms": ms}
         out[fuse] = {n: b for n, (_, b) in launches.items()}
+        out[fuse]["inr_forward"] = inr[1]
         print(f"  bf16 {'fused' if fuse == 'auto' else 'unfused'}: "
               f"{info['train_time_s']:.3f} s, {ms:.4f} ms per step, "
               f"{TP * Nb * TRAIN_STEPS / info['train_time_s']:.4g} samples/s, "
@@ -1143,6 +1179,7 @@ def dvnr_phases():
 
     from repro_torch import api
     from repro_torch.configs.dvnr import PRODUCTION256
+    from repro_torch.core import inr as inr_mod
     from repro_torch.core import render as R
     from repro_torch.data.volume import make_partition
     from repro_torch.kernels import build
@@ -1161,6 +1198,8 @@ def dvnr_phases():
                                                        hash_encode_cuda)
     from repro_torch.kernels.hash_encoding.ref import (
         hash_encode_batched_bwd_ref, hash_encode_batched_ref)
+    from repro_torch.kernels.inr_forward.ops import inr_forward_cuda
+    from repro_torch.kernels.inr_forward.ref import inr_forward_ref
     from repro_torch.optim.adamw import AdamW
     from repro_torch.precision import resolve_precision
     from repro_torch.serving import RenderService
@@ -1171,7 +1210,7 @@ def dvnr_phases():
     tag = card_tag()
     print(f"card: {tag}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     wrappers = {"hash_encode": hash_encode_cuda, "fused_mlp_fwd": fused_mlp_cuda,
-                "composite": composite_cuda}
+                "composite": composite_cuda, "inr_forward": inr_forward_cuda}
     train_wrappers = {"hash_encode_bwd": hash_encode_bwd_cuda,
                       "fused_mlp_bwd": fused_mlp_bwd_cuda,
                       "train_step": fts.train_step_cuda,
@@ -1191,13 +1230,27 @@ def dvnr_phases():
     build.library()
     print(f"  built {sorted(p.name for p in build.CSRC.glob('*.cu'))} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc {build.build_seconds:.1f} s)")
-    for fn, regs, st, ld in ptxas_usage(build.build_log):
+    usage = ptxas_usage(build.build_log)
+    if not usage:
+        print("    (the library came from an earlier build: its registers and "
+              "spills were read by the run that built it)")
+    for fn, regs, st, ld in usage:
         print(f"    {regs:4d} registers, spill stores {st} B, loads {ld} B  {fn}")
-    sass = flash_sass_counts(build.build())
+    spilled = [fn for fn, _, st, ld in usage if (st or ld) and (
+        "fused_mlp_fwd_kernel" in fn or "inr_forward_kernel" in fn)]
+    if spilled:
+        raise SmokeFailure(f"MLP forward / INR inference kernels that spill: {spilled}")
+    sass = sass_counts(build.build())
     for fn, c in sorted(sass.items()):
         print(f"  SASS {fn}: {c}")
-    if not sass or any(c["HGMMA"] == 0 for c in sass.values()):
+    flash = [c for fn, c in sass.items() if "flash_attention_kernel_bf16" in fn]
+    if not flash or any(c["HGMMA"] == 0 for c in flash):
         raise SmokeFailure(f"bf16 flash kernels without HGMMA: {sass}")
+    for kernel in ("fused_mlp_fwd_kernel", "inr_forward_kernel"):
+        bf16 = [c["HMMA"] for fn, c in sass.items()
+                if kernel in fn and "bfloat16" in fn]
+        if not bf16 or min(bf16) == 0:
+            raise SmokeFailure(f"bf16 {kernel} instantiations without HMMA: {bf16}")
 
     # ---------------------------------------------------------------- 2
     print("== phase 2: kernels against their plain versions "
@@ -1223,6 +1276,7 @@ def dvnr_phases():
     fwd_case_checks(dev)
     D_in = L * F
     W = cfg.n_neurons
+    inr_errs, rng_inr = {}, np.random.default_rng(17)
     for H, D_out, N in ((cfg.n_hidden_layers, cfg.out_dim, CHECK_N[0]),
                         (1, 1, 1_000), (3, 3, CHECK_N[1])):
         dims = [D_in] + [W] * H + [D_out]
@@ -1240,6 +1294,47 @@ def dvnr_phases():
             else:   # an ulp tie in a hidden layer can move the output 2 ulp
                 check(f"fused_mlp bf16 H={H} D_out={D_out} N={N}", got, want,
                       atol=2.0 ** -7 * scale, rtol=2.0 ** -7)
+        # the INR inference kernel on the same weights and tables (its
+        # coordinates from a generator of its own: the later checks keep
+        # their inputs)
+        for lo, hi, where in ((0.0, 1.0, "in [0,1]"),
+                              (-0.25, 1.25, "in [-0.25,1.25]")):
+            coords = t(rng_inr.uniform(lo, hi, (B, N, 3)))
+            for policy, tab, wss, cdt in (
+                    ("f32", tables32, ws, None),
+                    ("bf16", tables32.to(torch.bfloat16),
+                     [w.to(torch.bfloat16) for w in ws], None),
+                    ("f32/bf16/f32", tables32, ws, "bfloat16")):
+                want = inr_forward_ref(coords, tab, wss, part_d, res, cdt)
+                got = inr_forward_cuda(coords, tab, wss, part, res, cdt)
+                scale = max(1.0, float(want.float().abs().max()))
+                label = f"inr_forward {policy} H={H} D_out={D_out} N={N} {where}"
+                if want.dtype == torch.float32:   # the fused_mlp f32 limit
+                    key = "inr_forward"
+                    e = check(label, got, want, atol=2e-6 * scale)
+                else:   # the fused_mlp bf16 limit
+                    key = "inr_forward_bf16"
+                    e = check(label, got, want, atol=2.0 ** -7 * scale,
+                              rtol=2.0 ** -7)
+                inr_errs[key] = max(inr_errs.get(key, 0.0), e)
+                del want, got
+    # an output wider than the kernel's n = 8 tile: the wrapper launches it
+    # once per 8 columns (two launches, the second ragged)
+    N = CHECK_N[1]
+    dims = [D_in, W, W, 9]
+    ws = [t(rng_inr.uniform(-1, 1, (P, a, b)) * np.sqrt(6.0 / a))
+          for a, b in zip(dims[:-1], dims[1:])]
+    x = t(rng_inr.uniform(-1, 1, (B, N, D_in)))
+    for dt in (torch.float32, torch.bfloat16):
+        xs, wss = x.to(dt), [w.to(dt) for w in ws]
+        want = fused_mlp_batched_ref(xs, wss, part_d)
+        got = fused_mlp_cuda(xs, wss, part)
+        scale = max(1.0, float(want.float().abs().max()))
+        if dt == torch.float32:
+            check(f"fused_mlp f32 H=2 D_out=9 N={N}", got, want, atol=2e-6 * scale)
+        else:
+            check(f"fused_mlp bf16 H=2 D_out=9 N={N}", got, want,
+                  atol=2.0 ** -7 * scale, rtol=2.0 ** -7)
     for Rn, S in ((CHECK_N[0], 67), (1_000, 5)):
         rgba = rng.uniform(0, 1, (Rn, S, 4))
         rgba[..., 3] *= 0.1
@@ -1443,9 +1538,13 @@ def dvnr_phases():
     print(f"  decode {DECODE_EDGE}^3: {decode_ms:.2f} ms through the kernels, "
           f"{decode_plain_ms:.2f} ms plain (first call, host clock) "
           f"launches {decode_launches} [{tag}]")
-    for n in ("hash_encode", "fused_mlp_fwd"):
-        if decode_launches[n] <= 0:
-            raise SmokeFailure(f"decode_grid launched no {n} kernel")
+    # the inference route: one INR inference launch per chunk, neither
+    # kernel of the encode + MLP pair
+    n_chunks = -(-DECODE_EDGE ** 3 // DECODE_CHUNK)
+    if decode_launches["inr_forward"] != n_chunks or \
+            decode_launches["hash_encode"] or decode_launches["fused_mlp_fwd"]:
+        raise SmokeFailure(f"decode_grid did not take the inference route "
+                           f"({n_chunks} chunks): {decode_launches}")
     del grid_k, grid_p
 
     # ---------------------------------------------------------------- 4
@@ -1470,14 +1569,16 @@ def dvnr_phases():
     svc = RenderService(model, backend="cuda")
     for w in wrappers.values():
         w.launches = 0
-    tick_ms, first_frames = [], None
+    tick_ms, first_frames, inr_per_tick = [], None, []
     for tick in range(TICKS):
         for req in requests(tick):
             svc.submit(req)
         torch.cuda.synchronize()
+        before = inr_forward_cuda.launches
         t0 = time.perf_counter()
         resp = svc.tick()
         tick_ms.append((time.perf_counter() - t0) * 1e3)
+        inr_per_tick.append(inr_forward_cuda.launches - before)
         if len(resp) != C:
             raise SmokeFailure(f"tick {tick}: {len(resp)} responses for {C}")
         for r in resp:
@@ -1486,10 +1587,12 @@ def dvnr_phases():
         if first_frames is None:
             first_frames = np.stack([r.frame for r in resp])
     launches = {n: w.launches for n, w in wrappers.items()}
-    print(f"  launches during the {TICKS} ticks: {launches}")
-    for n, k in launches.items():
-        if k <= 0:
-            raise SmokeFailure(f"the serving path launched no {n} kernel")
+    print(f"  launches during the {TICKS} ticks: {launches}; INR inference "
+          f"per tick {inr_per_tick}")
+    if min(inr_per_tick) <= 0 or launches["composite"] <= 0 or \
+            launches["hash_encode"] or launches["fused_mlp_fwd"]:
+        raise SmokeFailure(f"the serving path did not take the inference "
+                           f"route in every tick: {launches}, {inr_per_tick}")
     for i, ms in enumerate(tick_ms):
         print(f"  tick {i}: {ms:.2f} ms ({C} clients {Wd}x{Hd}x{S}, host clock "
               f"incl. frame copy) [{tag}]")
@@ -1625,6 +1728,14 @@ def dvnr_phases():
         ("composite", lambda: composite_cuda(rgba), lambda: composite_ref(rgba),
          None, rgba.numel() * 4 + C * P * Rr * 4 * 4, C * P * Rr * S * 9),
     ]
+    # launches on each kernel's path, counted from zero just before it:
+    # compositing in the ticks; the encode and MLP forward kernels in the
+    # unfused training steps (the ticks take the INR inference kernel)
+    path_launches = {"hash_encode": (unfused_launches["hash_encode"], "unfused step",
+                                     COMPARE_STEPS),
+                     "fused_mlp_fwd": (unfused_launches["fused_mlp_fwd"],
+                                       "unfused step", COMPARE_STEPS),
+                     "composite": (launches["composite"], "tick", TICKS)}
     for name, kern, plain_fn, lib_fn, nbytes, flops in specs:
         got, want = kern(), plain_fn()
         if name != "composite":
@@ -1636,14 +1747,61 @@ def dvnr_phases():
         pms = cuda_ms(plain_fn, reps=3)
         lms = cuda_ms(lib_fn, reps=5) if lib_fn is not None else None
         bms, by = bound_ms(nbytes, flops)
+        n_path, path, n_runs = path_launches[name]
         print(f"  {name:<14s} {ms:9.3f} ms  bound {bms:8.3f} ms ({by})  "
               f"plain {pms:9.3f} ms  library "
               f"{'-' if lms is None else f'{lms:.3f} ms'}  "
-              f"launches/tick {launches[name] / TICKS:.0f} [{tag}]")
+              f"launches/{path} {n_path / n_runs:.0f} [{tag}]")
         kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                        "replaces": REPLACES[name], "launches": launches[name],
+                        "replaces": REPLACES[name], "launches": n_path,
                         "max_abs_err": err, "ms": ms, "plain_ms": pms,
                         "bound_ms": bms, "bound_by": by, "library_ms": lms})
+    # the INR inference kernel at the tick's shapes, f32 (the serving
+    # policy; launches: the ticks') and bf16 (launches: the bf16 training
+    # run's evaluate), against the encode + MLP pair back to back and the
+    # plain version. Bound: the coordinates in and the output out (16 B a
+    # point in f32), tables and weights read once; the encode's float work
+    # at the f32 peak, the MLP's products at the peak of their type
+    enc_pt = L * (25 + 16 * F)
+    mlp_pt = 2 * (D_in * W + (nH - 1) * W * W + W * cfg.out_dim)
+    n_w1 = sum(w.shape[1] * w.shape[2] for w in sp["mlp"])
+    sp16 = {"tables": sp["tables"].to(torch.bfloat16),
+            "mlp": [w.to(torch.bfloat16) for w in sp["mlp"]]}
+    for name, spx, n_inr in (("inr_forward", sp, launches["inr_forward"]),
+                             ("inr_forward_bf16", sp16,
+                              bf16_runs["auto"]["inr_forward"])):
+        isz = spx["tables"].element_size()
+        kern = lambda spx=spx: inr_forward_cuda(coords, spx["tables"], spx["mlp"],
+                                                rows, res)
+        pair = lambda spx=spx: fused_mlp_cuda(
+            hash_encode_cuda(coords, spx["tables"], res, rows), spx["mlp"], rows)
+        plain_fn = lambda spx=spx: inr_forward_ref(coords, spx["tables"],
+                                                   spx["mlp"], rows_d, res)
+        got, want = kern()[hitm], plain_fn()[hitm]
+        scale = max(1.0, float(want.float().abs().max()))
+        if isz == 4:
+            err = check(f"{name} at tick shapes (hit rays)", got, want,
+                        atol=2e-6 * scale)
+        else:
+            err = check(f"{name} at tick shapes (hit rays)", got, want,
+                        atol=2.0 ** -7 * scale, rtol=2.0 ** -7)
+        del got, want
+        ms, pair_ms = cuda_ms(kern, reps=10), cuda_ms(pair, reps=10)
+        pms = cuda_ms(plain_fn, reps=3)
+        nbytes = Bn * Nn * (12 + cfg.out_dim * isz) + P * (L * T * F + n_w1) * isz
+        if isz == 4:
+            bms, by = bound_ms(nbytes, Bn * Nn * (enc_pt + mlp_pt))
+        else:
+            bms, by = bound_ms(nbytes, Bn * Nn * enc_pt, bf16_flops=Bn * Nn * mlp_pt)
+        print(f"  {name:<16s} {ms:9.3f} ms  bound {bms:8.3f} ms ({by})  the "
+              f"encode + MLP pair {pair_ms:.3f} ms  plain {pms:9.3f} ms  "
+              f"launches {n_inr} [{tag}]")
+        kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
+                        "replaces": REPLACES[name], "launches": n_inr,
+                        "max_abs_err": max(err, inr_errs[name]), "ms": ms,
+                        "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                        "library_ms": None})
+    del sp16
     # where the forward's time goes: the same call on the first k levels
     # only (the coarse levels are dense and L1-resident, the fine ones
     # hashed and read from L2)
@@ -1656,35 +1814,84 @@ def dvnr_phases():
           f"{[round(x, 3) for x in prefix]} ms (events) [{tag}]")
     del feats, v, rgba, coords, local
 
-    # phase-3 shapes: one decode chunk of 2^22 points, one partition
+    # phase-3 shapes: one decode chunk of 2^22 points, one partition, on
+    # uniform random points (the earlier readings' inputs) and on the
+    # decode's own first chunk of cell centres (what phase 3 runs)
     Nd = DECODE_CHUNK
-    cd = torch.rand((1, Nd, 3), device=dev)
     sp1 = {"tables": model1.params["tables"][None],
            "mlp": [w[None] for w in model1.params["mlp"]]}
-    fd = hash_encode_cuda(cd, sp1["tables"], res, [0])
-    for name, kern, nbytes, flops in (
-            ("hash_encode", lambda: hash_encode_cuda(cd, sp1["tables"], res, [0]),
-             Nd * (12 + L * F * 4) + L * T * F * 4, Nd * L * (25 + 16 * F)),
-            ("fused_mlp_fwd", lambda: fused_mlp_cuda(fd, sp1["mlp"], [0]),
-             Nd * (D_in + 1) * 4, 2 * Nd * (D_in * W + (nH - 1) * W * W + W))):
-        ms = cuda_ms(kern, reps=10)
-        bms, by = bound_ms(nbytes, flops)
-        print(f"  decode chunk {name:<14s} N=2^22: {ms:.3f} ms  bound "
-              f"{bms:.3f} ms ({by}); {decode_launches[name]} launches per "
-              f"{DECODE_EDGE}^3 decode [{tag}]")
+    ax = (torch.arange(DECODE_EDGE, dtype=torch.float32, device=dev) + 0.5) / DECODE_EDGE
+    centres = torch.stack(torch.meshgrid(ax, ax, ax, indexing="ij"), -1) \
+        .reshape(-1, 3)[:Nd][None].contiguous()
+    for where, cd in (("uniform random points", torch.rand((1, Nd, 3), device=dev)),
+                      ("the decode's first chunk", centres)):
+        fd = hash_encode_cuda(cd, sp1["tables"], res, [0])
+        for name, kern, nbytes, flops in (
+                ("hash_encode", lambda: hash_encode_cuda(cd, sp1["tables"], res, [0]),
+                 Nd * (12 + L * F * 4) + L * T * F * 4, Nd * L * (25 + 16 * F)),
+                ("fused_mlp_fwd", lambda: fused_mlp_cuda(fd, sp1["mlp"], [0]),
+                 Nd * (D_in + 1) * 4, 2 * Nd * (D_in * W + (nH - 1) * W * W + W))):
+            ms = cuda_ms(kern, reps=10)
+            bms, by = bound_ms(nbytes, flops)
+            print(f"  decode chunk {name:<14s} N=2^22, {where}: {ms:.3f} ms  bound "
+                  f"{bms:.3f} ms ({by}) [{tag}]")
+        inr1 = lambda: inr_forward_cuda(cd, sp1["tables"], sp1["mlp"], [0], res)
+        pair1 = lambda: fused_mlp_cuda(hash_encode_cuda(cd, sp1["tables"], res, [0]),
+                                       sp1["mlp"], [0])
+        ms, pair_ms = cuda_ms(inr1, reps=10), cuda_ms(pair1, reps=10)
+        bms, by = bound_ms(Nd * 16 + (L * T * F + n_w1) * 4,
+                           Nd * (enc_pt + 2 * (D_in * W + (nH - 1) * W * W + W)))
+        print(f"  decode chunk inr_forward N=2^22, {where}: {ms:.3f} ms  bound "
+              f"{bms:.3f} ms ({by}); the encode + MLP pair {pair_ms:.3f} ms; "
+              f"{decode_launches['inr_forward']} launches per {DECODE_EDGE}^3 "
+              f"decode [{tag}]")
+        del fd
+    del cd, centres
     print(f"  frame max err vs plain {frame_err:.3e}; ticks "
           f"{[round(x, 3) for x in tick_ms]} ms")
 
-    # where a tick's time goes: one more tick under torch.profiler
-    for req in requests(TICKS):
-        svc.submit(req)
-    torch.cuda.synchronize()
-    busy, by_kernel, wall = profile_tick(svc.tick)
-    if busy is None:
-        print(f"  profiled tick: no device time recorded (not measured) [{tag}]")
-    else:
-        print(f"  profiled tick: {wall:.2f} ms host clock, device busy "
-              f"{busy:.2f} ms, idle share {1 - busy / wall:.3f} [{tag}]")
+    # a tick with the inference route and with the encode + MLP pair (the
+    # route switched off), in turns: host time and the peak device memory
+    # above what the tick started with
+    def tick_run():
+        for req in requests(TICKS):
+            svc.submit(req)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        svc.tick()
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t0) * 1e3,
+                (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+
+    def through(label):   # the pair: the route switched off for the block
+        return setting(inr_mod, "_inference", lambda *a: False) \
+            if label == "pair" else contextlib.nullcontext()
+
+    runs = {"route": [], "pair": []}
+    for label in ("route", "pair", "pair", "route"):
+        with through(label):
+            runs[label].append(tick_run())
+    for label, rs in runs.items():
+        print(f"  tick through the {label}: "
+              f"{[round(ms, 3) for ms, _ in rs]} ms (host clock), peak memory "
+              f"above the tick's start {[round(g, 3) for _, g in rs]} GiB [{tag}]")
+
+    # where a tick's time goes: one more tick under torch.profiler, through
+    # the route and through the pair
+    for label in ("route", "pair"):
+        for req in requests(TICKS):
+            svc.submit(req)
+        torch.cuda.synchronize()
+        with through(label):
+            busy, by_kernel, wall = profile_tick(svc.tick)
+        if busy is None:
+            print(f"  profiled tick ({label}): no device time recorded (not "
+                  f"measured) [{tag}]")
+            continue
+        print(f"  profiled tick ({label}): {wall:.2f} ms host clock, device "
+              f"busy {busy:.2f} ms, idle share {1 - busy / wall:.3f} [{tag}]")
         for name, (ms, n) in by_kernel[:12]:
             print(f"    {ms:9.3f} ms  x{n:<4d} {name[:90]}")
 

@@ -17,6 +17,7 @@ from repro_torch.configs.dvnr import DVNRConfig
 from repro_torch.precision import torch_dtype
 from repro_torch.kernels.fused_mlp.ops import fused_mlp, fused_mlp_batched
 from repro_torch.kernels.hash_encoding.ops import hash_encode, hash_encode_batched
+from repro_torch.kernels.inr_forward import inr_forward_cuda, refusal
 
 
 def _uniform(shape, lo: float, hi: float, generator: torch.Generator):
@@ -44,12 +45,31 @@ def init_inr(cfg: DVNRConfig, generator: Optional[torch.Generator] = None,
     return {"tables": tables.to(dev), "mlp": mlp}
 
 
+def _inference(b: backends.Backend, params: dict, coords: torch.Tensor,
+               compute_dtype) -> bool:
+    """Take the one-launch inference kernel (``inr_forward_cuda``)? On the
+    ``cuda`` backend when no gradient is needed (grad mode off, or neither
+    the coordinates nor any parameter requires grad) and the kernel takes
+    the operands (``refusal``); else the two autograd ops (hash encode, then
+    fused MLP)."""
+    leaves = [coords, params["tables"], *params["mlp"]]
+    if not b.is_cuda or (torch.is_grad_enabled()
+                         and any(t.requires_grad for t in leaves)):
+        return False
+    return refusal(coords, params["tables"], params["mlp"], compute_dtype) is None
+
+
 def _inr_apply(cfg: DVNRConfig, params: dict, coords: torch.Tensor,
                backend: backends.BackendLike = "ref",
                compute_dtype=None) -> torch.Tensor:
     """coords (N,3) in [0,1]^3 -> (N, out_dim) in the params' (or
     ``compute_dtype``'s) dtype; coords stay f32."""
     b = backends.resolve(backend)
+    single = {"tables": params["tables"][None],
+              "mlp": [w[None] for w in params["mlp"]]}
+    if _inference(b, single, coords[None], compute_dtype):
+        return inr_forward_cuda(coords[None], single["tables"], single["mlp"],
+                                [0], cfg.level_resolutions(), compute_dtype)[0]
     feats = hash_encode(coords, params["tables"], cfg.level_resolutions(), b,
                         compute_dtype=compute_dtype)
     return fused_mlp(feats, params["mlp"], b, compute_dtype=compute_dtype)
@@ -62,8 +82,14 @@ def _inr_apply_batched(cfg: DVNRConfig, stacked_params: dict,
     """coords (B,N,3) against partition-stacked params; row ``b`` runs the
     INR of partition ``part[b]`` -> (B, N, out_dim). One encode launch and
     one MLP launch for every row: the counterpart of ``jax.vmap`` over
-    partitions (and over the clients of a render-service tick)."""
+    partitions (and over the clients of a render-service tick). Without
+    a gradient the ``cuda`` backend runs both in one launch instead
+    (:func:`_inference`)."""
     b = backends.resolve(backend)
+    if _inference(b, stacked_params, coords, compute_dtype):
+        return inr_forward_cuda(coords, stacked_params["tables"],
+                                stacked_params["mlp"], part,
+                                cfg.level_resolutions(), compute_dtype)
     feats = hash_encode_batched(coords, stacked_params["tables"],
                                 cfg.level_resolutions(), part, b,
                                 compute_dtype=compute_dtype)

@@ -17,6 +17,9 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(v);
 }
 
+// max(v, 0) with NaN passed through, like jnp.maximum(v, 0)
+__device__ __forceinline__ float relu(float v) { return v < 0.0f ? 0.0f : v; }
+
 // Round a float32 value to the storage type and back: the rounding a value
 // takes when the reference stores it in T between two operations.
 template <typename T> __device__ __forceinline__ float round_to(float v) {

@@ -110,8 +110,6 @@ __device__ __forceinline__ void mlp_tile_load(const MlpTile& t,
   __syncthreads();
 }
 
-__device__ __forceinline__ float relu(float v) { return v < 0.0f ? 0.0f : v; }
-
 // acc[j] += s * w[j], j ascending; w a 16-byte aligned row of W weights
 template <int W>
 __device__ __forceinline__ void fma_row(float (&acc)[W], float s, const float* w) {

@@ -36,6 +36,9 @@ SIGNATURES = {
     # D_out, is_bf16, stream
     "repro_fused_mlp_fwd": [_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I,
                             _I, _I, _P],
+    # coords, tables, res, part, w_in, w_hid, w_out, out, B, N, L, T, F, W,
+    # n_hidden, n_hid_slab, D_out, is_bf16, stream
+    "repro_inr_forward": [_P] * 8 + [_L, _L, _I, _L, _I, _I, _I, _I, _I, _I, _P],
     # rgba, out, R, S, is_bf16, stream
     "repro_composite": [_P, _P, _L, _I, _I, _P],
     # grad_out, coords, res, staged (the two in host memory), part,

@@ -18,8 +18,28 @@ from repro_torch.kernels import build
 from repro_torch.kernels.fused_mlp import ref as _ref
 
 #: hidden widths the kernel is instantiated for (a layer's sums live in
-#: registers, W of them per thread)
+#: tensor-core fragments, W/8 n-tiles of them per warp)
 KERNEL_WIDTHS = (16, 32, 64)
+#: output columns one launch computes (one n = 8 tensor-core tile)
+MAX_OUT = 8
+#: shared memory a block may use on the H100
+SMEM_LIMIT = 232448
+
+
+def mma_smem_bytes(D_in: int, W: int, n_hidden: int, itemsize: int,
+                   tiles: int) -> int:
+    """Shared memory of the tensor-core MLP (``csrc/mlp_mma.cuh``) for one
+    warp: the weights as B fragments (bf16: k-tiles of 16, one 32-bit word
+    pair per lane; float32: k-tiles of 8, head and tail words; n-tiles of
+    8, one for the output) plus ``tiles`` 32-row input tiles of row stride
+    ``tile_stride(D_in)``; the C side's ``weight_words`` and
+    ``tile_stride``."""
+    ks, lw = (16, 2) if itemsize == 2 else (8, 4)
+    kt0 = -(-D_in // ks)
+    words = 32 * lw * (kt0 * (W // 8) + (n_hidden - 1) * (W // ks) * (W // 8)
+                       + W // ks)
+    stride = (D_in + 7) // 16 * 16 + 8
+    return 4 * words + tiles * 32 * stride * itemsize
 
 
 def _stack(weights):
@@ -44,9 +64,15 @@ def fused_mlp_cuda(x: torch.Tensor, weights, part) -> torch.Tensor:
     ``part`` (B,) -> (B,N,D_out).
 
     CPU tensors take the plain version; CUDA tensors launch
-    ``repro_fused_mlp_fwd`` (``csrc/fused_mlp.cu``) or raise."""
+    ``repro_fused_mlp_fwd`` (``csrc/fused_mlp.cu``: rows copied a 32-row
+    tile per warp into shared memory, the layers on the tensor cores; one
+    launch per ``MAX_OUT`` output columns) or raise."""
     if x.device.type == "cpu":
         return _ref.fused_mlp_batched_ref(x, weights, torch.as_tensor(part))
+    *hidden, w_last = weights
+    if w_last.shape[-1] > MAX_OUT:
+        return torch.cat([fused_mlp_cuda(x, [*hidden, w_last[..., j:j + MAX_OUT]], part)
+                          for j in range(0, w_last.shape[-1], MAX_OUT)], -1)
     w_in, w_hid, w_out, n_hidden = _stack(weights)
     B, N, D_in = x.shape
     P, D_in_w, W = w_in.shape
@@ -59,11 +85,15 @@ def fused_mlp_cuda(x: torch.Tensor, weights, part) -> torch.Tensor:
         raise TypeError("fused_mlp_cuda: x and weights must share one dtype, "
                         f"float32 or bfloat16 (x is {x.dtype})")
     if D_in_w != D_in or W not in KERNEL_WIDTHS or B > 65535 or \
-            tuple(w_out.shape[:2]) != (P, W):
+            tuple(w_out.shape[:2]) != (P, W) or \
+            mma_smem_bytes(D_in, W, n_hidden, x.element_size(), 2) > SMEM_LIMIT:
         raise ValueError(f"unsupported shapes: x {tuple(x.shape)}, w_in "
                          f"{tuple(w_in.shape)}, w_out {tuple(w_out.shape)} "
-                         f"(W in {KERNEL_WIDTHS}, B <= 65535)")
+                         f"(W in {KERNEL_WIDTHS}, B <= 65535, weights and two "
+                         f"32-row tiles within {SMEM_LIMIT} B of shared memory)")
     x, w_in, w_hid, w_out = (t.contiguous() for t in (x, w_in, w_hid, w_out))
+    if x.data_ptr() % 16:   # the kernel's 16-byte copies of x
+        x = x.clone()
     part_d = build.part_tensor(part, B, P, x.device)
     out = torch.empty((B, N, D_out), dtype=x.dtype, device=x.device)
     lib = build.library()
