@@ -8,11 +8,13 @@ toolkit; imports nothing of JAX or of the JAX package. Phases:
 
 1. build   compile ``src/repro_torch/csrc/*.cu`` with nvcc into ``build/``,
            print every kernel's registers and spills (a spill in the MLP
-           forward or the INR inference kernel fails), and count the
-           tensor-core (HGMMA) and TMA (UTMALDG) instructions of the bf16
-           flash kernels and the mma.sync (HMMA) instructions of the MLP
-           forward and INR inference kernels in ``cuobjdump -sass`` (a bf16
-           instantiation without them fails);
+           forward or backward or the INR inference kernel fails), and count
+           the tensor-core (HGMMA) and TMA (UTMALDG) instructions of the
+           bf16 flash kernels and the mma.sync (HMMA) instructions of the
+           MLP forward and backward and INR inference kernels in
+           ``cuobjdump -sass`` (a bf16 forward or inference instantiation
+           without them fails, and any backward one without them or without
+           cp.async);
 2. kernels each kernel against its plain PyTorch version on the card, at
            PRODUCTION256 shapes (L=5, F=4, T=2^13, res 4..64: dense and
            hashed levels): the serving kernels with tables U(-1,1),
@@ -22,7 +24,13 @@ toolkit; imports nothing of JAX or of the JAX package. Phases:
            at the training shapes (8 partitions x a batch of 65,536, f32),
            each from cloned state; the hash-encode backward also with every
            point in one coarse cell, at PRODUCTION's T=2^16 (direct levels)
-           and at F = 1, 2 and 8 (ABLATION); the INR inference kernel
+           and at F = 1, 2 and 8 (ABLATION); the MLP backward, f32 and bf16,
+           also at MLP_BWD_CASES' shapes; the MLP backward's and the f32
+           train step's checks add the allowance of the operands' ties
+           (``mlp_ties``, ``step_ties``: decisions within rounding of their
+           boundary taken the other way) and hold the tie counts; the
+           host-sampled train step also on the table draw that failed
+           before that rule and on TIE_DRAW_SEEDS' draws; the INR inference kernel
            (encode and MLP in one launch) at the MLP cases' shapes, f32,
            bf16 and "f32/bf16/f32", coordinates inside and outside [0,1];
            each bf16 flash case against
@@ -55,9 +63,10 @@ toolkit; imports nothing of JAX or of the JAX package. Phases:
            INR inference kernel the encode + MLP pair back to back, at the
            tick's shapes and on a 2^22 decode chunk), a tick's peak memory
            and host time with and without the inference route, and the
-           device's idle share over one profiled serving tick and one
-           profiled training chunk, tagged with the card's name and power
-           limit;
+           device's idle share over one profiled serving tick, one
+           profiled training chunk and one unfused chunk per policy (the
+           top device kernels and host operations), tagged with the card's
+           name and power limit;
 7. LM      serving with the dense transformer at ``llama3_8b``'s published
            width and depth (32 layers, d=4,096, 32/8 heads, d_ff=14,336,
            vocab 128,256; f32 params from a seed, bf16 compute): prefill of
@@ -149,6 +158,17 @@ FLASH_CASES = (
 # rehearsal on a CPU hands in a SMOKE config)
 LM_ARCH, LM_CONFIG = "llama3_8b", None
 LM_BATCH, LM_PROMPT, LM_DECODE, LM_CHECK_LAYERS = 2, 4096, 32, 2
+# phase 2: the MLP backward's further cases, (label, P, part, N, D_in, W,
+# H, D_out)
+MLP_BWD_CASES = (
+    ("N=30,011", 4, [0, 1, 2, 3, 0, 1], 30_011, 20, 16, 2, 1),
+    ("H=1 (CLOVERLEAF_CACHE)", 4, [0, 1, 2, 3], 65_536, 16, 16, 1, 1),
+    ("H=3 (NEKRS)", 4, [0, 1, 2, 3], 65_536, 20, 16, 3, 1),
+    ("W=32", 4, [0, 1, 2, 3], 65_536, 20, 32, 2, 1),
+    ("W=64 D_in=80 H=3 (ABLATION)", 2, [0, 1], 65_536, 80, 64, 3, 1),
+    ("D_out=3", 4, [0, 1, 2, 3], 40_009, 20, 16, 2, 3),
+    ("permuted part, P=5", 5, [4, 0, 3, 3, 1, 2], 20_011, 20, 16, 2, 1),
+)
 
 SOURCES = {
     "hash_encode": "src/repro_torch/csrc/hash_encode.cu",
@@ -185,6 +205,7 @@ def card_tag() -> str:
 #: and the instructions counted in each
 SASS_COUNTS = {"flash_attention_kernel_bf16": ("HGMMA", "UTMALDG", "LDGSTS"),
                "fused_mlp_fwd_kernel": ("HMMA",),
+               "fused_mlp_bwd_kernel": ("HMMA", "LDGSTS"),
                "inr_forward_kernel": ("HMMA",)}
 
 
@@ -297,6 +318,41 @@ def profile_tick(tick):
     busy = sum(ms for ms, _ in kernels.values())
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])
     return (busy or None), ranked, wall
+
+
+def profile_host(fn, steps: int, tag: str, label: str) -> None:
+    """Run ``fn()`` (``steps`` training steps) under torch.profiler and
+    print where its time goes: host wall and device busy ms (each per step),
+    the idle share, the top device kernels, and the top host operations by
+    their own CPU time (PyTorch's ops and the CUDA runtime calls), which
+    keep the device waiting while the host is the slower side."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev, host = [], []
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+            dev.append((e.self_device_time_total / 1e3, e.count, e.key))
+        elif e.device_type == torch.autograd.DeviceType.CPU and e.self_cpu_time_total > 0:
+            host.append((e.self_cpu_time_total / 1e3, e.count, e.key))
+    busy = sum(ms for ms, _, _ in dev)
+    if not busy:
+        print(f"  profiled {label}: no device time recorded (not measured) [{tag}]")
+        return
+    print(f"  profiled {label}: {wall:.2f} ms host clock ({wall / steps:.3f} a step), "
+          f"device busy {busy:.2f} ms ({busy / steps:.3f} a step), idle share "
+          f"{1 - busy / wall:.3f}; host ops' own CPU time "
+          f"{sum(ms for ms, _, _ in host):.2f} ms [{tag}]")
+    for ms, n, name in sorted(dev, reverse=True)[:8]:
+        print(f"    device {ms:9.3f} ms  x{n:<5d} {name[:90]}")
+    for ms, n, name in sorted(host, reverse=True)[:12]:
+        print(f"    host   {ms:9.3f} ms  x{n:<5d} {name[:90]}")
 
 
 def launch_times(fn, symbol: str, reps: int = 3):
@@ -756,14 +812,229 @@ def step_grads_f64(params, H, res, coords, target):
             diff.abs().sum((1, 2))), ties
 
 
+#: Decisions taken at a tie. A ReLU's or an L1 residual's input is a tie
+#: where it lies within TIE_REL x the sum of its terms' magnitudes of 0, and
+#: under bf16 a value rounded to bfloat16 (an activation, a delta, dx) where
+#: its float64 value lies that close to a rounding boundary (the midpoint of
+#: two neighbours): the kernel may find it on the other side. 3xTF32 keeps
+#: about 22 bits of each operand (2^-21 relative a product at most), and a
+#: float32 sum of K terms in another order, with the tensor cores' own
+#: rounding of their partial sums, moves by up to about K float32 ulps at
+#: the scale of the terms' magnitudes: 2^-16 covers K <= 256 (the MLPs here
+#: sum at most D_in = 80 terms). Either side of a tie is a derivative of the
+#: function there.
+TIE_REL = 2.0 ** -16
+#: the most ReLU or L1 ties (within TIE_REL of 0) a check may excuse, as a
+#: share of its decisions (rows x units), and the most dx elements that may
+#: need a tie's allowance (depart beyond the plain limit), as a share of
+#: dx's elements: each about 10x the largest reading over the MLP
+#: backward's cases (6.4e-5 and 8.6e-5, both ABLATION-shaped under bf16;
+#: PERF.md §6). Ties through bf16 rounding (a value near a rounding
+#: boundary, or a ReLU whose band a rounding above widens) are counted, not
+#: held: a tiny value near a boundary is a tie of a tiny allowance, and the
+#: elements that need any allowance are held instead.
+TIE_SHARE_MAX = 5e-4
+NEED_SHARE_MAX = 1e-3
+
+
+def bf16_rounding_gap(v):
+    """Per float64 value: its distance to the nearest bfloat16 rounding
+    boundary (the midpoint of two neighbours; inf at 0) and the bfloat16 ulp
+    at it, by which rounding to the other neighbour moves it."""
+    import torch
+    a = v.abs()
+    ulp = torch.exp2(torch.floor(torch.log2(a.clamp_min(1e-300))) - 7)
+    gap = (torch.remainder(a / ulp, 1.0) - 0.5).abs() * ulp
+    return torch.where(a > 0, gap, torch.full_like(a, float("inf"))), ulp
+
+
+def flip_allowance(ins, masks, wsb, starts):
+    """What the ties' other sides move: for each tie, the plain version's
+    backward (float64, its own ReLU masks) of the one change that taking
+    the other side makes, in absolute value, summed over the ties. ins[k]
+    (B,N,K_k): the input of layer k (x, then each hidden layer's output), k
+    = 0..H; masks[k] (B,N,W): hidden layer k's ReLU mask; wsb[k] (B,K_k,N_k):
+    layer k's weights for each batch row; starts: (k, ties, change), ties
+    (B,N,N_k) bool and change (B,N,N_k) the change of layer k's output
+    cotangent a tie makes (after the mask for a hidden layer, the
+    residual's for k = H). Returns the allowance on the input's cotangent
+    (B,N,K_0) and on each dW_k, per batch row (B,K_k,N_k)."""
+    import torch
+    d_in = torch.zeros_like(ins[0])
+    d_w = [torch.zeros_like(w) for w in wsb]
+    for k0, ties, change in starts:
+        b, n, j = ties.nonzero(as_tuple=True)
+        for r in b.unique().tolist():
+            rn, rj = n[b == r], j[b == r]
+            delta = torch.zeros((len(rn), wsb[k0].shape[-1]), dtype=torch.float64,
+                                device=b.device)
+            delta[torch.arange(len(rn), device=b.device), rj] = change[r, rn, rj]
+            for k in range(k0, -1, -1):
+                d_w[k][r] += ins[k][r, rn].abs().T @ delta.abs()
+                c = delta @ wsb[k][r].T
+                if k:
+                    delta = c * masks[k - 1][r, rn]
+                else:
+                    d_in[r].index_add_(0, rn, c.abs())
+    return d_in, d_w
+
+
+def mlp_ties(x, ws, g, part) -> dict:
+    """The MLP backward's ties on these operands, and the allowance they
+    earn: the plain version (fused_mlp/ref.py) run as it runs gives the ReLU
+    masks and the bf16 values, its float64 function the ties (ReLU inputs
+    within TIE_REL of 0; under bf16 also activations, deltas and dx within
+    TIE_REL, plus what the ties above may change in them, of a bfloat16
+    rounding boundary: an activation taken to its other neighbour moves the
+    layers below it, whose ReLU and rounding bands widen by a bound on that
+    move). The allowance is
+    flip_allowance's, under bf16 2^-7 above it (its deltas are bf16), plus
+    one ulp for each dx element at a rounding tie. An activation's rounding
+    moves dW only through its own row's term (2^-8 of one of the
+    partition's row terms) and is not counted. Returns {"dx" (B,N,D_in),
+    "dW" [per partition, the weights' shapes], "ties": ReLU ties within
+    TIE_REL, "widened": those within the bf16-widened bands only,
+    "decisions": ReLU units, "round_rows": rows with a rounding tie, "n":
+    rows}."""
+    import torch
+    f64 = torch.float64
+    bf16 = x.dtype == torch.bfloat16
+    dev = x.device
+    idx = torch.as_tensor(part, device=dev).long()
+    w32 = [w[idx].float() for w in ws]
+    wsb = [w.to(f64) for w in w32]
+    # the forward: under bf16 an activation that rounds to its other
+    # neighbour moves the next layer's pre-activations, and so on down the
+    # layers; ``da`` bounds each activation's change, propagated in
+    # magnitudes, and widens the bands below it
+    h = x.float()
+    ins, masks, ties, da, n_ties = [h.to(f64)], [], [], None, 0
+    for w, w64 in zip(w32[:-1], wsb[:-1]):
+        z = torch.matmul(h, w)
+        masks.append(z > 0)
+        z64, mag = ins[-1] @ w64, ins[-1].abs() @ w64.abs()
+        n_ties += int((z64.abs() < TIE_REL * mag).sum())
+        band = TIE_REL * mag if da is None else TIE_REL * mag + da @ w64.abs()
+        ties.append(z64.abs() < band)
+        h = torch.relu(z).to(x.dtype).float()
+        ins.append(h.to(f64))
+        if bf16:
+            gap, ulp = bf16_rounding_gap(torch.relu(z64))
+            moved = band - TIE_REL * mag
+            da = torch.where(z64 > -band, moved + torch.where(gap < band, ulp, 0.0), 0.0)
+    # the backward from the top: under bf16 a value's rounding band also
+    # takes the change the ties above may make to it (``up``: a bound on
+    # each delta's change, propagated in magnitudes)
+    round_rows = torch.zeros(x.shape[:2], dtype=torch.bool, device=dev)
+    starts, d, up = [], g.float(), None
+    for k in range(len(masks) - 1, -1, -1):
+        wt = wsb[k + 1].transpose(1, 2)
+        c64 = d.to(f64) @ wt
+        tie = ties[k]
+        change = torch.where(tie, c64.abs(), 0.0)
+        if bf16:
+            above = 0.0 if up is None else up @ wt.abs()
+            gap, ulp = bf16_rounding_gap(c64)
+            rt = masks[k] & (gap < TIE_REL * (d.to(f64).abs() @ wt.abs()) + above)
+            change = change * (1 + 2.0 ** -7) + torch.where(rt, ulp, 0.0)
+            round_rows |= rt.any(-1)
+            tie = tie | rt
+            up = change + masks[k] * above * (1 + 2.0 ** -7)
+        starts.append((k, tie, change))
+        d = torch.matmul(d, w32[k + 1].transpose(1, 2)).to(x.dtype).float() * masks[k]
+    d_in, d_w = flip_allowance(ins, masks, wsb, starts)
+    if bf16:
+        wt = wsb[0].transpose(1, 2)
+        gap, ulp = bf16_rounding_gap(d.to(f64) @ wt)
+        rt = gap < TIE_REL * (d.to(f64).abs() @ wt.abs()) + up @ wt.abs()
+        d_in = d_in * (1 + 2.0 ** -7) + torch.where(rt, ulp, 0.0)
+        round_rows |= rt.any(-1)
+    P = ws[0].shape[0]
+    dW = [torch.zeros((P, *w.shape[1:]), dtype=f64, device=dev).index_add_(0, idx, a)
+          for w, a in zip(wsb, d_w)]
+    return {"dx": d_in.float(), "dW": [a.float() for a in dW], "ties": n_ties,
+            "widened": int(sum(int(t.sum()) for t in ties)) - n_ties,
+            "decisions": sum(t.numel() for t in ties),
+            "round_rows": int(round_rows.sum()), "n": round_rows.numel()}
+
+
+def check_tie_count(label, ties, decisions, need=None, outputs=None, note="") -> None:
+    """Print a check's ReLU / L1 ties (of its decisions), ``note`` (the ties
+    through bf16 rounding, counted) and, where given, the output elements
+    that needed the ties' allowance; fail where the ties exceed
+    TIE_SHARE_MAX of the decisions or those elements NEED_SHARE_MAX of the
+    outputs (either at least one)."""
+    cap_t = max(1.0, TIE_SHARE_MAX * decisions)
+    cap_n = max(1.0, NEED_SHARE_MAX * (outputs or 0))
+    ok = ties <= cap_t and (need is None or need <= cap_n)
+    print(f"  {label}: ReLU/L1 ties {ties:,} of {decisions:,} decisions (held to "
+          f"{cap_t:.0f}){note}"
+          f"{'' if need is None else f'; elements that needed the allowance {need:,} of {outputs:,} (held to {cap_n:.0f})'}"
+          f"  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"{label}: {ties} ties of {decisions} decisions, {need} "
+                           f"of {outputs} elements needing the ties' allowance: "
+                           f"above {cap_t:.0f} / {cap_n:.0f}")
+
+
+def step_ties(params, H, res, coords, target):
+    """The f32 train step's ties on this batch (ReLU inputs and L1 residuals
+    within TIE_REL of 0, from the float32 plain version's forward in
+    float64) and the allowance they earn on each gradient (flip_allowance;
+    a residual taken the other way moves its cotangent by 2 / (N D_out); the
+    table's share through the plain hash-encode backward). Returns
+    ({"tab", "win", "whid", "wout"}, ties, decisions)."""
+    import torch
+    from repro_torch.kernels.fused_train_step import ops as fts
+    from repro_torch.kernels.hash_encoding.ref import (
+        hash_encode_batched_bwd_ref, hash_encode_batched_ref)
+    f64 = torch.float64
+    P, N, _ = coords.shape
+    D_out = target.shape[-1]
+    part = torch.arange(P, device=coords.device)
+    ws32 = fts._unpack(params, H)["mlp"]
+    wsb = [w.to(f64) for w in ws32]
+    h = hash_encode_batched_ref(coords, params["tab"], res, part)
+    ins, masks, ties = [h.to(f64)], [], []
+    for w, w64 in zip(ws32[:-1], wsb[:-1]):
+        z = torch.matmul(h, w)
+        masks.append(z > 0)
+        ties.append((ins[-1] @ w64).abs() < TIE_REL * (ins[-1].abs() @ w64.abs()))
+        h = torch.relu(z)
+        ins.append(h.to(f64))
+    t64 = target.to(f64)
+    rties = (ins[-1] @ wsb[-1] - t64).abs() < TIE_REL * (
+        ins[-1].abs() @ wsb[-1].abs() + t64.abs())
+    step = 1.0 / (N * D_out)
+    starts = [(H, rties, torch.full_like(t64, 2 * step))]
+    c = torch.sign(torch.matmul(h, ws32[-1]) - target).to(f64) * step \
+        @ wsb[H].transpose(1, 2)
+    for k in range(H - 1, -1, -1):
+        starts.append((k, ties[k], c.abs()))
+        c = (c * masks[k]) @ wsb[k].transpose(1, 2)
+    d_feat, d_w = flip_allowance(ins, masks, wsb, starts)
+    n_ties = int(rties.sum()) + sum(int(t.sum()) for t in ties)
+    decisions = rties.numel() + sum(t.numel() for t in ties)
+    allow = {"tab": hash_encode_batched_bwd_ref(d_feat, coords, res, part,
+                                                tuple(params["tab"].shape)),
+             "win": d_w[0],
+             "whid": (torch.stack(d_w[1:H], 1) if H > 1
+                      else torch.zeros_like(params["whid"], dtype=f64)),
+             "wout": d_w[H]}
+    return {k: v.float() for k, v in allow.items()}, n_ties, decisions
+
+
 def step_wants(params, H, res, coords, target) -> dict:
     """The train step's two yardsticks on this batch: the plain version as
-    it runs (float32) and its function in float64 (``step_grads_f64``)."""
+    it runs (float32) and its function in float64 (``step_grads_f64``),
+    with the allowance of the batch's ties (``step_ties``)."""
     from repro_torch.kernels.fused_train_step import ref as fts_ref
     want64, ties = step_grads_f64(params, H, res, coords, target)
+    allow, n_ties, decisions = step_ties(params, H, res, coords, target)
     return {"float32 plain": fts_ref.train_step_grads_ref(params, H, res, coords,
                                                           target),
-            "float64": want64, "ties": ties}
+            "float64": want64, "ties": ties, "allow": allow,
+            "tie_count": n_ties, "decisions": decisions}
 
 
 def check_step_grads(label, H, got_g, got_loss, wants, keys=None) -> float:
@@ -771,9 +1042,12 @@ def check_step_grads(label, H, got_g, got_loss, wants, keys=None) -> float:
     ``step_wants``: each gradient within 2e-5 x its largest |entry|
     (float32 sums in an order that atomics change from run to run; in-kernel
     draws: uniform rows bit-exact, boundary rows within a few ulp of
-    logf/cosf), the loss sum within 1e-5 relative. Prints, per gradient, the
-    departures from each yardstick as fractions of that limit, and the
-    float32 plain version's from float64."""
+    logf/cosf), plus the allowance of the batch's ties (``step_ties``: the
+    rows whose ReLU or L1 decision lies within rounding of 0 may take the
+    other side in the kernel), the loss sum within 1e-5 relative. Prints,
+    per gradient, the departures from each yardstick as fractions of that
+    limit without the ties' allowance, the float32 plain version's from
+    float64, and the ties (failing above TIE_SHARE_MAX of the decisions)."""
     from repro_torch.kernels.fused_train_step import ops as fts
     keys = keys or [k for k in fts.STATE_KEYS if k != "whid" or H > 1]
     w32, w64 = wants["float32 plain"][0], wants["float64"][0]
@@ -781,17 +1055,19 @@ def check_step_grads(label, H, got_g, got_loss, wants, keys=None) -> float:
         2e-5 * float(b[k].abs().max()))
     print(f"  train_step ({label}): kernel's departure / limit from the float32 "
           f"plain version, from float64 (the float32 plain version's from "
-          f"float64): " + ", ".join(
+          f"float64), before the ties' allowance: " + ", ".join(
               f"{k} {frac(got_g, w32, k):.4f}, {frac(got_g, w64, k):.4f} "
               f"({frac(w32, w64, k):.4f})" for k in keys)
           + f"; {wants['ties']} float32 ties")
+    check_tie_count(f"train_step ({label})", wants["tie_count"], wants["decisions"])
     err = 0.0
     for name in ("float32 plain", "float64"):
         want, want_loss = wants[name]
         for k in keys:
             err = max(err, check(f"train_step ({label}) grad {k} vs {name}",
                                  got_g[k], want[k],
-                                 atol=2e-5 * float(want[k].abs().max())))
+                                 atol=2e-5 * float(want[k].abs().max()),
+                                 slack=wants["allow"][k]))
         check(f"train_step ({label}) loss sum vs {name}", got_loss, want_loss,
               atol=0.0, rtol=1e-5)
     return err
@@ -843,7 +1119,7 @@ def rel_l2(a, b) -> float:
                  / torch.linalg.vector_norm(b.float().reshape(-1)).clamp_min(1e-30))
 
 
-def check_bf16(label, got, want, want32, limit, separable=True) -> float:
+def check_bf16(label, got, want, want32, limit, separable=True, slack=None) -> float:
     """A bf16 training kernel's output against its bf16 plain version
     (``want``) and the float32 policy's plain version on the same values
     widened (``want32``). The kernel rounds where the plain version rounds,
@@ -856,22 +1132,35 @@ def check_bf16(label, got, want, want32, limit, separable=True) -> float:
     Not where they do not: in the contention cell's ``whid`` the samples are
     near-copies, so one flip between float32 sum orders hits most of them at
     once and the kernel's departure nears the float32 policy's (printed, not
-    held). Prints both departures."""
+    held); nor where no rounding point reaches the output (the float32
+    policy's departure is 0, as for dW_in of a one-hidden-layer MLP, whose
+    delta g W_out^T is exact in bf16). ``slack``: the allowance of ties (``mlp_ties``), added to each
+    entry's limit and taken off its departure in the relative L2. Prints
+    both departures."""
+    import torch
     lim = limit * max(1e-30, float(want.float().abs().max()))
     dep = float((got.float() - want.float()).abs().max())
     d32 = float((want32.float() - want.float()).abs().max())
-    r, r32 = rel_l2(got, want), rel_l2(want32, want)
-    ok = r <= 0.25 * r32 or not separable
+    excess = (got.float() - want.float()).abs()
+    if slack is not None:
+        excess = (excess - slack).clamp_min(0.0)
+    r = float(torch.linalg.vector_norm(excess.reshape(-1))
+              / torch.linalg.vector_norm(want.float().reshape(-1)).clamp_min(1e-30))
+    r32 = rel_l2(want32, want)
+    # where no rounding point reaches this output (r32 = 0: the two
+    # policies agree), there is nothing for the L2 bound to hold
+    held = separable and r32 > 0
+    ok = r <= 0.25 * r32 or not held
     print(f"  {label}: departure from the bf16 plain version / limit "
           f"{dep / lim:.4f} (the float32 policy's {d32 / lim:.4f}); relative "
           f"L2 {r:.3e} (the float32 policy's {r32:.3e}"
-          f"{', limit a quarter of it' if separable else '; not held'})"
+          f"{', limit a quarter of it' if held else '; not held'})"
           f"  {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SmokeFailure(f"{label}: relative L2 departure {r:.3e} from the "
                            f"bf16 plain version, not below a quarter of the "
                            f"float32 policy's {r32:.3e}")
-    return check(f"{label} vs bf16 plain", got, want, atol=lim)
+    return check(f"{label} vs bf16 plain", got, want, atol=lim, slack=slack)
 
 
 def step_wants_bf16(params16, H, res, coords, target) -> dict:
@@ -906,6 +1195,141 @@ def check_step_bf16(label, params16, H, res, wants, contention=False,
     check(f"train_step bf16 ({label}) loss sum", got_loss, want_loss, atol=0.0,
           rtol=1e-3)
     return err
+
+
+def check_mlp_bwd(label, x, ws, g, part) -> float:
+    """The MLP backward kernel on (x, ws, g) against its plain version,
+    plus the allowance of the operands' ties (``mlp_ties``; the ties and
+    the dx elements that needed their allowance printed and held to their
+    shares): float32 dx within 2e-6 x max|dx|
+    (W-term sums on the tensor cores in another order), each dW within 2e-5
+    x its max (sums over a partition's rows, per warp, per block, then
+    atomic adds); bf16 by ``check_bf16`` at BF16_LIMITS against the bf16
+    plain version and the float32 policy's. Returns dx's largest error."""
+    import torch
+    from repro_torch.kernels.fused_mlp.ops import fused_mlp_bwd_cuda
+    from repro_torch.kernels.fused_mlp.ref import fused_mlp_batched_bwd_ref
+    part_d = torch.tensor(part, device=x.device)
+    dx_k, dws_k = fused_mlp_bwd_cuda(x, ws, g, part)
+    dx_p, dws_p = fused_mlp_batched_bwd_ref(x, ws, g, part_d)
+    ties = mlp_ties(x, ws, g, part_d)
+    limit = (2e-6 if x.dtype == torch.float32 else BF16_LIMITS["dx"]) * max(
+        1e-30, float(dx_p.float().abs().max()))
+    need = int(((dx_k.float() - dx_p.float()).abs() > limit).sum())
+    note = "" if x.dtype == torch.float32 else (
+        f"; through bf16 rounding: {ties['widened']:,} more ReLU ties, "
+        f"{ties['round_rows']:,} of {ties['n']:,} rows with a rounding tie")
+    check_tie_count(f"fused_mlp_bwd {label}", ties["ties"], ties["decisions"], need,
+                    dx_p.numel(), note)
+    if x.dtype == torch.float32:
+        err = check(f"fused_mlp_bwd {label} dx", dx_k, dx_p,
+                    atol=2e-6 * max(1e-30, float(dx_p.abs().max())), slack=ties["dx"])
+        for i, (a, b) in enumerate(zip(dws_k, dws_p)):
+            check(f"fused_mlp_bwd {label} dW[{i}]", a, b,
+                  atol=2e-5 * float(b.abs().max()), slack=ties["dW"][i])
+        return err
+    dx_32, dws_32 = fused_mlp_batched_bwd_ref(
+        x.float(), [w.float() for w in ws], g.float(), part_d)
+    err = check_bf16(f"fused_mlp_bwd {label} dx", dx_k, dx_p, dx_32,
+                     BF16_LIMITS["dx"], slack=ties["dx"])
+    for i, (a, b, c) in enumerate(zip(dws_k, dws_p, dws_32)):
+        check_bf16(f"fused_mlp_bwd {label} dW[{i}]", a, b, c, BF16_LIMITS["dW"],
+                   slack=ties["dW"][i])
+    return err
+
+
+def mlp_bwd_case_checks(dev) -> None:
+    """Phase 2's further MLP backward cases, float32 and bf16, each held by
+    ``check_mlp_bwd``: N not a multiple of 32, H = 1 (CLOVERLEAF_CACHE: the
+    dummy hidden slab), H = 3 (NEKRS), W = 32, W = 64 with D_in = 80
+    (ABLATION: L = 10, F = 8, H = 3), D_out = 3, and a permuted ``part``
+    over P = 5 partitions. Inputs of the training path's magnitudes:
+    features U(-0.05, 0.05), weights U(-1,1) x sqrt(6 / fan-in), cotangents
+    +-1/N; from a generator of their own."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(18)
+    for label, P, part, N, D_in, W, H, D_out in MLP_BWD_CASES:
+        dims = [D_in] + [W] * H + [D_out]
+        ws = [torch.as_tensor(rng.uniform(-1, 1, (P, a, b)) * np.sqrt(6.0 / a),
+                              dtype=torch.float32, device=dev)
+              for a, b in zip(dims[:-1], dims[1:])]
+        B = len(part)
+        x = torch.as_tensor(rng.uniform(-0.05, 0.05, (B, N, D_in)),
+                            dtype=torch.float32, device=dev)
+        g = torch.as_tensor(rng.choice([-1.0, 1.0], (B, N, D_out)) / N,
+                            dtype=torch.float32, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            check_mlp_bwd(f"{label} {str(dt)[6:]}", x.to(dt), [w.to(dt) for w in ws],
+                          g.to(dt), part)
+        del ws, x, g
+    torch.cuda.synchronize()
+
+
+#: the further table draws the host-sampled train-step check is re-run on
+#: (U(-0.05, 0.05) from np.random.default_rng(seed)): the draw that failed
+#: (shared_generator_tables) and these, which a scratch probe found to
+#: include others that fail without the ties' allowance
+TIE_DRAW_SEEDS = tuple(range(1, 13))
+
+
+def shared_generator_tables(shape, cfg):
+    """Phase 2's U(-0.05, 0.05) table draw for the training kernels as it was
+    when the INR inference checks drew their coordinates from the shared
+    generator (np.random.default_rng(0)) instead of one of their own: the
+    draw on which the host-sampled train-step check failed on tab at 15.45x
+    its limit (ROADMAP §C). Replays that generator's draws in phase 2's
+    order."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    P, B = 8, 16
+    L, T, F = cfg.n_levels, cfg.table_size, cfg.n_features_per_level
+    D_in, W = L * F, cfg.n_neurons
+    rng.integers(0, P, B)                                   # part
+    rng.uniform(-1, 1, (P, L, T, F))                        # the tables
+    for N, lo, hi in ((CHECK_N[0], 0.0, 1.0), (CHECK_N[1], -0.25, 1.25)):
+        rng.uniform(lo, hi, (B, N, 3))                      # hash_encode's
+    for H, D_out, N in ((cfg.n_hidden_layers, cfg.out_dim, CHECK_N[0]),
+                        (1, 1, 1_000), (3, 3, CHECK_N[1])):
+        dims = [D_in] + [W] * H + [D_out]
+        for a, b in zip(dims[:-1], dims[1:]):
+            rng.uniform(-1, 1, (P, a, b))                   # the MLP's weights
+        rng.uniform(-1, 1, (B, N, D_in))                    # its rows
+        for lo, hi in ((0.0, 1.0), (-0.25, 1.25)):
+            rng.uniform(lo, hi, (B, N, 3))                  # the INR checks'
+    for Rn, S in ((CHECK_N[0], 67), (1_000, 5)):
+        rng.uniform(0, 1, (Rn, S, 4))                       # compositing's
+    return rng.uniform(-0.05, 0.05, shape)
+
+
+def step_tie_draws(dev, params, H, res, coords, target, cfg) -> None:
+    """Phase 2: the host-sampled train-step check (``check_step_grads``,
+    with the ties' allowance) on the table draw that failed before it
+    (``shared_generator_tables``) and on TIE_DRAW_SEEDS' draws, each with
+    its departures before the allowance and its tie rows printed; counts
+    the draws that depart beyond the limit without the allowance."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.fused_train_step import ops as fts
+    shape = tuple(params["tab"].shape)
+    draws = [("the shared generator's draw", shared_generator_tables(shape, cfg))]
+    draws += [(f"seed {s}", np.random.default_rng(s).uniform(-0.05, 0.05, shape))
+              for s in TIE_DRAW_SEEDS]
+    keys = [k for k in fts.STATE_KEYS if k != "whid" or H > 1]
+    beyond = []
+    for label, tab in draws:
+        p = dict(params, tab=torch.as_tensor(tab, dtype=torch.float32, device=dev))
+        wants = step_wants(p, H, res, coords, target)
+        got_g, got_loss = fts.train_step_cuda(p, H, res, coords=coords, target=target)
+        worst = max(float((got_g[k] - w[0][k]).abs().max())
+                    / (2e-5 * float(w[0][k].abs().max()))
+                    for w in (wants["float32 plain"], wants["float64"]) for k in keys)
+        if worst > 1:
+            beyond.append(label)
+        check_step_grads(f"host-sampled, tables of {label}", H, got_g, got_loss, wants)
+        del p, wants, got_g
+    print(f"  train_step tie draws: {len(beyond)} of {len(draws)} depart beyond the "
+          f"limit without the ties' allowance ({beyond}); every one passes with it")
 
 
 def step_case_checks(dev, vols_c, tseeds, cfg) -> None:
@@ -1236,10 +1660,12 @@ def dvnr_phases():
               "spills were read by the run that built it)")
     for fn, regs, st, ld in usage:
         print(f"    {regs:4d} registers, spill stores {st} B, loads {ld} B  {fn}")
-    spilled = [fn for fn, _, st, ld in usage if (st or ld) and (
-        "fused_mlp_fwd_kernel" in fn or "inr_forward_kernel" in fn)]
+    spilled = [fn for fn, _, st, ld in usage if (st or ld) and any(
+        k in fn for k in ("fused_mlp_fwd_kernel", "fused_mlp_bwd_kernel",
+                          "inr_forward_kernel"))]
     if spilled:
-        raise SmokeFailure(f"MLP forward / INR inference kernels that spill: {spilled}")
+        raise SmokeFailure(f"MLP forward / backward or INR inference kernels "
+                           f"that spill: {spilled}")
     sass = sass_counts(build.build())
     for fn, c in sorted(sass.items()):
         print(f"  SASS {fn}: {c}")
@@ -1251,6 +1677,12 @@ def dvnr_phases():
                 if kernel in fn and "bfloat16" in fn]
         if not bf16 or min(bf16) == 0:
             raise SmokeFailure(f"bf16 {kernel} instantiations without HMMA: {bf16}")
+    # the backward: every instantiation, bf16 and tf32, on the tensor cores,
+    # its rows staged with cp.async
+    bwd = {fn: c for fn, c in sass.items() if "fused_mlp_bwd_kernel" in fn}
+    if len(bwd) != 6 or any(c["HMMA"] == 0 or c["LDGSTS"] == 0 for c in bwd.values()):
+        raise SmokeFailure(f"fused_mlp_bwd_kernel instantiations without HMMA or "
+                           f"LDGSTS: {bwd}")
 
     # ---------------------------------------------------------------- 2
     print("== phase 2: kernels against their plain versions "
@@ -1422,29 +1854,18 @@ def dvnr_phases():
     feats_t = hash_encode_cuda(coords_t, tparams["tab"], res, rows_t)
     ws_t = fts._unpack(tparams, H)["mlp"]
     g_out = t(rng.choice([-1.0, 1.0], (TP, Nb, D_out)) / Nb)
-    dx_k, dws_k = fused_mlp_bwd_cuda(feats_t, ws_t, g_out, rows_t)
-    dx_p, dws_p = fused_mlp_batched_bwd_ref(feats_t, ws_t, g_out, rows_td)
-    # dx: per-row sums of W terms in another order; dW: 65,536-row sums
-    # reduced per block, then atomic adds across blocks
-    errs["fused_mlp_bwd"] = check("fused_mlp_bwd dx", dx_k, dx_p,
-                                  atol=2e-6 * max(1e-30, float(dx_p.abs().max())))
-    for i, (a, b) in enumerate(zip(dws_k, dws_p)):
-        check(f"fused_mlp_bwd dW[{i}]", a, b, atol=2e-5 * float(b.abs().max()))
+    errs["fused_mlp_bwd"] = check_mlp_bwd(f"P={TP} N={Nb}", feats_t, ws_t, g_out,
+                                          rows_t)
     # bf16 operands (the unfused bf16 step's): the features of the bf16
     # tables, the weights and the cotangent rounded to bf16 (+-1/N is exact)
     tparams16 = {k: v.to(torch.bfloat16) for k, v in tparams.items()}
     feats16 = hash_encode_cuda(coords_t, tparams16["tab"], res, rows_t)
     ws16 = fts._unpack(tparams16, H)["mlp"]
     g_out16 = g_out.to(torch.bfloat16)
-    dx_k, dws_k = fused_mlp_bwd_cuda(feats16, ws16, g_out16, rows_t)
-    dx_p, dws_p = fused_mlp_batched_bwd_ref(feats16, ws16, g_out16, rows_td)
-    dx_32, dws_32 = fused_mlp_batched_bwd_ref(
-        feats16.float(), [w.float() for w in ws16], g_out16.float(), rows_td)
-    errs["fused_mlp_bwd_bf16"] = check_bf16("fused_mlp_bwd bf16 dx", dx_k, dx_p,
-                                            dx_32, BF16_LIMITS["dx"])
-    for i, (a, b, c) in enumerate(zip(dws_k, dws_p, dws_32)):
-        check_bf16(f"fused_mlp_bwd bf16 dW[{i}]", a, b, c, BF16_LIMITS["dW"])
-    del dx_k, dws_k, dx_p, dws_p, dx_32, dws_32
+    errs["fused_mlp_bwd_bf16"] = check_mlp_bwd(f"P={TP} N={Nb} bf16", feats16, ws16,
+                                               g_out16, rows_t)
+    mlp_bwd_case_checks(dev)
+    step_tie_draws(dev, tparams, H, res, coords_t, target_t, cfg)
     wants_t = step_wants(tparams, H, res, coords_t, target_t)
     errs["train_step"] = max(
         check_step("host-sampled batch", tparams, H, res, wants_t,
@@ -1801,7 +2222,19 @@ def dvnr_phases():
                         "max_abs_err": max(err, inr_errs[name]), "ms": ms,
                         "plain_ms": pms, "bound_ms": bms, "bound_by": by,
                         "library_ms": None})
-    del sp16
+    # rows 2 and 9b under bf16: each kernel's own device time per launch
+    tick16 = feats.to(torch.bfloat16)
+    for name, fn, symbol in (
+            ("fused_mlp_fwd bf16", lambda: fused_mlp_cuda(tick16, sp16["mlp"], rows),
+             "fused_mlp_fwd_kernel<__nv_bfloat16,"),
+            ("inr_forward_bf16", lambda: inr_forward_cuda(coords, sp16["tables"],
+                                                          sp16["mlp"], rows, res),
+             "inr_forward_kernel<__nv_bfloat16,")):
+        per = launch_times(fn, symbol)
+        print(f"  {name} at the tick's shapes: kernel alone "
+              f"{'not measured' if per is None else f'{sum(per):.4f} ms'} per call "
+              f"(profiler) [{tag}]")
+    del sp16, tick16
     # where the forward's time goes: the same call on the first k levels
     # only (the coarse levels are dense and L1-resident, the fine ones
     # hashed and read from L2)
@@ -2168,6 +2601,17 @@ def dvnr_phases():
               f"idle share {max(0.0, 1 - busy / wall_np):.3f} against the "
               f"profiled device time [{tag}]")
 
+    # where an unfused step's time goes (fuse_train_step="off": the encode
+    # and MLP kernels forward and backward, the glue between them): a
+    # PROFILE_STEPS chunk under each policy, after a warm-up run
+    for policy in ("f32", "bf16"):
+        kw = {} if policy == "f32" else {"precision": "bf16"}
+        _, winfo = api.train(tparts, cfg, backend="cuda", steps=COMPARE_STEPS, key=1,
+                             log_every=1, fuse_train_step="off", **kw)
+        wtrainer, wstate = winfo["trainer"], winfo["state"]
+        profile_host(lambda: wtrainer.train_chunk(wstate, vols, PROFILE_STEPS, key=4),
+                     PROFILE_STEPS, tag, f"unfused {policy} {PROFILE_STEPS}-step chunk")
+        del winfo, wtrainer, wstate
     return tag, kernels, flash_err
 
 

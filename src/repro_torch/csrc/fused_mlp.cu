@@ -44,35 +44,42 @@
 // 88; the pallas_call at line 93, body _bwd_kernel at line 32). The TPU kernel
 // recomputes the activations of a (BLOCK_N, D_in) tile on the MXU and adds
 // the tile's dW into whole-array output blocks with `+=`, which is safe only
-// because its grid runs in order. Here a block of TILE threads walks tiles
-// of its batch row (one row per thread) with the weights in shared memory,
-// recomputes the activations, runs the layer stack backwards per row, writes
-// dx, and sums the tile's dW over its rows in shared memory (mlp_tile.cuh:
-// each thread owns a set of weights, so there are no atomics inside the
-// block); after its last tile the block adds its dW to the partition's
-// float32 gradient with one atomicAdd per weight.
+// because its grid runs in order. Here, as in the forward, a block loads its
+// batch row's partition weights into shared memory once (as B fragments,
+// the forward's and the transposed ones) and each warp walks 32-row tiles
+// of the row with a grid stride, its x rows and cotangent rows copied into
+// shared memory with cp.async one tile ahead. For each pass of rows
+// (mlp_mma.cuh bwd_pass) the warp recomputes the activations, runs the
+// delta chain and dx on the tensor cores and adds the pass's dW, also on
+// the tensor cores (the rows as the mma's k), to its own float32 dW in
+// shared memory. dx goes back over the tile's x rows and leaves it as
+// coalesced 16-byte stores (8 or 4 bytes where D_in allows no more). After
+// its last tile the block sums its warps' dW and adds it to the
+// partition's float32 gradient with one atomicAdd per weight.
 //
-// Bound: bytes and operations are close. Per row it reads D_in + D_out and
-// writes D_in floats and does about 3 x 2 x (D_in W + (H-1) W^2 + W D_out)
-// flops (forward, delta, dW): at PRODUCTION256's widths 164 B against about
-// 3,550 flop, 22 flop/B, at the f32 ridge of an H100. The products run on
-// the CUDA cores from shared memory (W = 16 is too narrow for a wgmma tile);
-// the dW pass reads two shared-memory operands per product, so shared-memory
-// bandwidth, not the bound, is the likely limit of this version. The atomic
-// adds make dW's last bits vary from run to run.
+// Bound: operations under float32, bytes under bf16. Per row it reads D_in
+// + D_out values and writes D_in and does 3 x 2 x (D_in W + (H-1) W^2 + W
+// D_out) flop (forward, deltas and dx, dW): at PRODUCTION256's widths 164 B
+// (f32) against about 3,550 flop, 22 flop/B, at the f32 ridge of an H100;
+// on the tensor cores (3xTF32: three tf32 products each) the products are
+// far under their peak, and what sets the pace is the instructions around
+// them: the operands' splits, the fragments' shared-memory loads and the
+// mma.sync chains. The atomic adds make dW's last bits vary from run to run.
 //
-// bfloat16 operands (fused_mlp_bwd_kernel<__nv_bfloat16>, the bf16 training
-// policy): x, the cotangent and the weights are read as bfloat16 and
-// widened; the recomputed activations are rounded to bfloat16 as the forward
-// rounds them, and each layer's delta is rounded to bfloat16 before its ReLU
-// mask, where the plain version's autograd rounds it (fused_mlp/ref.py); dx
-// is summed in float32 and rounded once to bfloat16; dW is summed in float32
-// into the float32 gradient (the autograd function rounds it once to the
-// weights' type). JAX's kernel sums dW in bfloat16 per grid tile
-// (kernel.py:110-112).
+// Numerics, as the plain version (fused_mlp/ref.py): bfloat16 operands
+// (fused_mlp_bwd_kernel<__nv_bfloat16>, the bf16 training policy): exact
+// products summed in float32; the recomputed activations rounded to
+// bfloat16 as the forward rounds them; each layer's delta rounded to
+// bfloat16 before its ReLU mask, where the plain version's autograd rounds
+// it; dx summed in float32 and rounded once to bfloat16; dW summed in
+// float32 into the float32 gradient (the autograd function rounds it once
+// to the weights' type). JAX's kernel sums dW in bfloat16 per grid tile
+// (kernel.py:110-112). float32 operands: 3xTF32 (about 22 bits of each
+// operand), so a pre-activation within about 2^-21 of the sum of its
+// |products| from 0 may take the other ReLU mask than the plain version's
+// float32 sums; both are derivatives of the ReLU at a tie.
 #include "common.cuh"
 #include "mlp_mma.cuh"
-#include "mlp_tile.cuh"
 
 namespace {
 
@@ -94,6 +101,17 @@ __device__ __forceinline__ void copy_async(void* dst, const void* src, int bytes
       break;
     default:
       *static_cast<unsigned short*>(dst) = *static_cast<const unsigned short*>(src);
+  }
+}
+
+// `bytes` (16, 8, 4 or 2) from shared memory to device memory, both
+// aligned to it
+__device__ __forceinline__ void copy_out(void* dst, const void* src, int bytes) {
+  switch (bytes) {
+    case 16: *static_cast<uint4*>(dst) = *static_cast<const uint4*>(src); break;
+    case 8: *static_cast<uint2*>(dst) = *static_cast<const uint2*>(src); break;
+    case 4: *static_cast<uint32_t*>(dst) = *static_cast<const uint32_t*>(src); break;
+    default: *static_cast<unsigned short*>(dst) = *static_cast<const unsigned short*>(src);
   }
 }
 
@@ -205,49 +223,131 @@ cudaError_t launch(const void* x, const void* w_in, const void* w_hid,
   }
 }
 
+// blocks of 256 threads an SM must hold (see fwd_min_blocks): two where
+// shared memory lets two in (bf16 at W = 16), else one
+template <typename T, int W>
+constexpr int bwd_min_blocks() {
+  return sizeof(T) == 2 && W == 16 ? 2 : 1;
+}
+
 // the backward for operands of type T: float (the float32 policy) or
 // __nv_bfloat16 (the bf16 policy, float32 dW)
 template <typename T, int W>
-__global__ void fused_mlp_bwd_kernel(
+__global__ void __launch_bounds__(256, bwd_min_blocks<T, W>()) fused_mlp_bwd_kernel(
     const T* __restrict__ x, const T* __restrict__ w_in,
     const T* __restrict__ w_hid, const T* __restrict__ w_out,
     const T* __restrict__ gout, const int* __restrict__ part,
     T* __restrict__ dx, float* __restrict__ dw_in, float* __restrict__ dw_hid,
     float* __restrict__ dw_out, long long N, int D_in, int n_hidden,
     int n_hid_slab, int D_out) {
-  constexpr bool RB = sizeof(T) == 2;
+  using C = mm::Bwd<T, W>;
   extern __shared__ __align__(16) float smem[];
+  const mm::Shape s{D_in, n_hidden, D_out};
+  const mm::BwdLayout lay = mm::bwd_layout<T, W>(D_in, n_hidden, D_out);
   const int b = blockIdx.y;
   const long long p = __ldg(part + b);
-  const repro::MlpTile t =
-      repro::mlp_tile_carve(smem, D_in, W, n_hidden, D_out, blockDim.x);
-  const long long hid_off = p * (long long)n_hid_slab * W * W;
-  repro::mlp_tile_load<T>(t, w_in + p * t.n_in, w_hid + hid_off,
-                          w_out + p * t.n_out);
-  const int r = threadIdx.x;
-  const long long n_tiles = (N + blockDim.x - 1) / blockDim.x;
-  for (long long tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const long long n = tile * blockDim.x + r;
-    const bool valid = n < N;
-    const long long row = (long long)b * N + n;
-    // rows past N take zeros: finite activations and zero deltas, so the
-    // block-wide dW pass may sum over the whole tile
-    for (int k = 0; k < D_in; ++k)
-      t.x[r * t.sx + k] = valid ? repro::to_f32(x[row * D_in + k]) : 0.0f;
-    for (int d = 0; d < D_out; ++d)
-      t.g[r * t.sg + d] = valid ? repro::to_f32(gout[row * D_out + d]) : 0.0f;
-    repro::mlp_tile_forward<W, RB>(t, r);
-    float d0[W];
-    repro::mlp_tile_backward<W, RB>(t, r, d0);
-    if (valid)
-      for (int i = 0; i < D_in; ++i)
-        dx[row * D_in + i] = repro::from_f32<T>(repro::mlp_tile_dx<W>(t, d0, i));
-    __syncthreads();
-    repro::mlp_tile_accumulate<W>(t, blockDim.x);
-    __syncthreads();
+  uint32_t* sw = reinterpret_cast<uint32_t*>(smem);
+  mm::load_weights_bwd<T, W>(sw, lay, w_in + p * D_in * W,
+                             w_hid + p * n_hid_slab * W * W, w_out + p * W * D_out, s);
+  // the warp's region (bwd_layout): dW, two x tiles, two g tiles, the
+  // activation and delta tiles
+  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  unsigned char* regions = reinterpret_cast<unsigned char*>(sw + lay.words);
+  float* dw = reinterpret_cast<float*>(regions + (size_t)warp * lay.warp_bytes);
+  const int xs = lay.xs, GS = lay.gs;
+  T* xb = reinterpret_cast<T*>(dw + lay.dw_tiles * 128);
+  T* gb = xb + 2 * mm::TILE_ROWS * xs;
+  T* act = gb + 2 * mm::TILE_ROWS * GS;
+  T* dl = act + n_hidden * C::RP * C::AS;
+  for (int i = lane; i < lay.dw_tiles * 128; i += 32) dw[i] = 0.0f;
+  for (int i = lane; i < 2 * mm::TILE_ROWS * (xs + GS); i += 32)
+    xb[i] = repro::from_f32<T>(0.0f);
+  __syncthreads();   // the weights, and the zeros before any copy lands
+
+  // a tile's rows of x (of g) are one stretch, copied in units of V (Vg)
+  // values that never straddle a row, as the forward copies x; the
+  // cotangent rows past the batch are zeroed, so that those rows' deltas
+  // and dW terms are zero
+  const int V = D_in % 4 == 0 ? 4 : D_in % 2 == 0 ? 2 : 1;
+  const int bytes = V * (int)sizeof(T), upr = D_in / V;
+  const unsigned magic = ((1u << 26) + upr - 1) / upr;
+  const int Vg = D_out % 4 == 0 ? 4 : D_out % 2 == 0 ? 2 : 1;
+  const int gbytes = Vg * (int)sizeof(T), gpr = D_out / Vg;
+  const long long row0 = (long long)b * N;
+  auto fetch = [&](long long tile, int buf) {
+    const long long n0 = tile * mm::TILE_ROWS;
+    const int rows = (int)min((long long)mm::TILE_ROWS, N - n0);
+    T* xd = xb + buf * mm::TILE_ROWS * xs;
+    const T* xsrc = x + (row0 + n0) * D_in;
+    for (int u = lane; u < rows * upr; u += 32) {
+      const int r = (int)(((unsigned)u * magic) >> 26);
+      copy_async(xd + r * xs + (u - r * upr) * V, xsrc + u * V, bytes);
+    }
+    T* gd = gb + buf * mm::TILE_ROWS * GS;
+    const T* gsrc = gout + (row0 + n0) * D_out;
+    for (int u = lane; u < rows * gpr; u += 32) {
+      const int r = u / gpr;
+      copy_async(gd + r * GS + (u - r * gpr) * Vg, gsrc + u * Vg, gbytes);
+    }
+    for (int i = rows * GS + lane; i < mm::TILE_ROWS * GS; i += 32)
+      gd[i] = repro::from_f32<T>(0.0f);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  // dx rows leave in units of Vo values (16 bytes where D_in allows)
+  const int Vo = sizeof(T) == 2 && D_in % 8 == 0 ? 8 : V;
+  const int obytes = Vo * (int)sizeof(T), opr = D_in / Vo;
+  const long long n_tiles = (N + mm::TILE_ROWS - 1) / mm::TILE_ROWS;
+  const long long step = (long long)gridDim.x * warps;
+  long long tile = (long long)blockIdx.x * warps + warp;
+  if (tile < n_tiles) fetch(tile, 0);
+  for (int cur = 0; tile < n_tiles; tile += step, cur ^= 1) {
+    if (tile + step < n_tiles) {
+      fetch(tile + step, cur ^ 1);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncwarp();   // every lane's copies and zeros of this tile have landed
+    const long long n0 = tile * mm::TILE_ROWS;
+    const int rows = (int)min((long long)mm::TILE_ROWS, N - n0);
+    T* xt = xb + cur * mm::TILE_ROWS * xs;
+    const T* gt = gb + cur * mm::TILE_ROWS * GS;
+#pragma unroll 1
+    for (int pass = 0; pass < mm::TILE_ROWS / C::RP; ++pass)
+      mm::bwd_pass<T, W>(sw, lay, xt + pass * C::RP * xs, gt + pass * C::RP * GS, act,
+                         dl, dw, s);
+    __syncwarp();   // dx is in the x rows
+    T* dst = dx + (row0 + n0) * D_in;
+    for (int u = lane; u < rows * opr; u += 32) {
+      const int r = u / opr;
+      copy_out(dst + u * Vo, xt + r * xs + (u - r * opr) * Vo, obytes);
+    }
+    __syncwarp();   // read before the next copies overwrite it
   }
-  repro::mlp_tile_flush(t, dw_in + p * t.n_in, dw_hid + hid_off,
-                        dw_out + p * t.n_out);
+  __syncthreads();
+  // the block's dW: its warps' C-fragment tiles summed, each weight added
+  // to the partition's gradient once
+  const float* dws = reinterpret_cast<const float*>(regions);
+  const int wf = lay.warp_bytes / 4, in_tiles = lay.mi * C::NT;
+  const int hid_tiles = C::MW * C::NT, out_tile0 = in_tiles + (n_hidden - 1) * hid_tiles;
+  for (int e = threadIdx.x; e < lay.dw_tiles * 128; e += blockDim.x) {
+    float v = 0.0f;
+    for (int w = 0; w < warps; ++w) v += dws[(size_t)w * wf + e];
+    // element i of lane ln's C fragment of tile `tile`: row r, column c
+    const int tile_i = e >> 7, ln = (e >> 2) & 31, i = e & 3;
+    const int r = (ln >> 2) + (i >> 1) * 8, c = 2 * (ln & 3) + (i & 1);
+    if (tile_i < in_tiles) {
+      const int k = tile_i / C::NT * 16 + r, n = tile_i % C::NT * 8 + c;
+      if (k < D_in) atomicAdd(dw_in + (p * D_in + k) * W + n, v);
+    } else if (tile_i < out_tile0) {
+      const int l = (tile_i - in_tiles) / hid_tiles, q = (tile_i - in_tiles) % hid_tiles;
+      const int k = q / C::NT * 16 + r, n = q % C::NT * 8 + c;
+      atomicAdd(dw_hid + ((p * n_hid_slab + l) * W + k) * W + n, v);
+    } else if (c < D_out) {
+      const int k = (tile_i - out_tile0) * 16 + r;
+      atomicAdd(dw_out + (p * W + k) * D_out + c, v);
+    }
+  }
 }
 
 template <typename T, int W>
@@ -257,15 +357,18 @@ cudaError_t launch_bwd_w(const void* x, const void* w_in, const void* w_hid,
                          long long B, long long N, int D_in, int n_hidden,
                          int n_hid_slab, int D_out, cudaStream_t stream) {
   const auto kernel = fused_mlp_bwd_kernel<T, W>;
+  const mm::BwdLayout lay = mm::bwd_layout<T, W>(D_in, n_hidden, D_out);
   size_t smem = 0;
-  const int tile = repro::mlp_pick_tile(D_in, W, n_hidden, D_out, 0, &smem);
-  if (tile == 0) return cudaErrorInvalidValue;
+  const int warps = mm::bwd_pick_warps((size_t)lay.words * 4, lay.warp_bytes, &smem);
+  if (warps == 0) return cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
-  const long long n_tiles = (N + tile - 1) / tile;
-  const dim3 grid((unsigned)repro::blocks_per_row(n_tiles, B, tile, smem), (unsigned)B);
-  kernel<<<grid, tile, smem, stream>>>(
+  const long long n_tiles = (N + mm::TILE_ROWS - 1) / mm::TILE_ROWS;
+  const dim3 grid(
+      (unsigned)mm::grid_x((const void*)kernel, warps * 32, smem, n_tiles, warps, B),
+      (unsigned)B);
+  kernel<<<grid, warps * 32, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w_in),
       static_cast<const T*>(w_hid), static_cast<const T*>(w_out),
       static_cast<const T*>(g), part, static_cast<T*>(dx), dw_in, dw_hid,
@@ -314,8 +417,10 @@ extern "C" int repro_fused_mlp_fwd(const void* x, const void* w_in,
 // g (B,N,D_out), all float32 (is_bf16 = 0) or all bfloat16 (is_bf16 = 1);
 // part (B,) i32 -> dx (B,N,D_in) in the operands' type and dW summed over
 // each partition's rows into the float32 dw_in / dw_hid / dw_out (same
-// shapes as the weights, zeroed by the caller); 0 <= part[b] < P is checked
-// on the host.
+// shapes as the weights, zeroed by the caller); D_out <= 8; x and g start
+// 16-byte aligned; 0 <= part[b] < P is checked on the host. Returns
+// cudaErrorInvalidValue for shapes the kernel does not take (the weights'
+// fragments and one warp's region above 227 KB: bwd_layout).
 extern "C" int repro_fused_mlp_bwd(const void* x, const void* w_in,
                                    const void* w_hid, const void* w_out,
                                    const void* g, const void* part, void* dx,
@@ -324,7 +429,9 @@ extern "C" int repro_fused_mlp_bwd(const void* x, const void* w_in,
                                    int n_hidden, int n_hid_slab, int D_out,
                                    int is_bf16, void* stream) {
   if (B <= 0 || N <= 0) return 0;
-  if (B > 65535 || n_hidden < 1) return (int)cudaErrorInvalidValue;
+  if (B > 65535 || n_hidden < 1 || D_out < 1 || D_out > 8 ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(g) % 16)
+    return (int)cudaErrorInvalidValue;
   const int* p = static_cast<const int*>(part);
   float* di = static_cast<float*>(dw_in);
   float* dh = static_cast<float*>(dw_hid);

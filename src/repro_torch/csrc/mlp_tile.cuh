@@ -1,7 +1,8 @@
 // One block's tile of rows through the bias-free ReLU MLP, forward and
-// backward, with the weight gradients reduced in shared memory: the shared
-// core of the MLP backward kernel (fused_mlp.cu) and the fused train step
-// (train_step.cuh). Shared memory and every sum are float32. Under the bf16
+// backward, with the weight gradients reduced in shared memory, on the CUDA
+// cores: the core of the fused train step (train_step.cuh; the MLP backward
+// kernel runs on the tensor cores, mlp_mma.cuh). Shared memory and every sum
+// are float32. Under the bf16
 // compute policy (the RB template flag) the values the plain version stores
 // in bfloat16 are rounded where it rounds them: each layer's ReLU output and
 // the prediction in the forward, and in the backward each layer's delta

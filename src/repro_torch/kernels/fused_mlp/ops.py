@@ -7,7 +7,7 @@ rows (B,N,D_in) against partition-stacked weights, one launch for every
 partition and client. Both are differentiable in x and the weights: the
 backward recomputes the activations and runs the layer stack in reverse,
 the plain VJP on the ``ref`` backend and ``repro_fused_mlp_bwd``
-(``csrc/fused_mlp.cu``) on the card.
+(``csrc/fused_mlp.cu``, every product on the tensor cores) on the card.
 """
 from __future__ import annotations
 
@@ -40,6 +40,31 @@ def mma_smem_bytes(D_in: int, W: int, n_hidden: int, itemsize: int,
                        + W // ks)
     stride = (D_in + 7) // 16 * 16 + 8
     return 4 * words + tiles * 32 * stride * itemsize
+
+
+def mma_bwd_smem_bytes(D_in: int, W: int, n_hidden: int, D_out: int,
+                       itemsize: int, warps: int) -> int:
+    """Shared memory of the tensor-core MLP backward (``csrc/mlp_mma.cuh``
+    ``bwd_layout``) for ``warps`` warps: the weights as B fragments, the
+    forward's (w_in, the hidden layers) and the transposed ones (w_out^T
+    with K = D_out <= 8, the hidden layers', w_in^T with N = D_in), in
+    ``mma_smem_bytes``'s layout but at W = 64 under float32 (two words a
+    lane, split when loaded); then per warp its float32 dW as C fragments
+    (512 bytes a 16 x 8 tile: dW_in's ceil(D_in/16) x W/8, each hidden
+    layer's W/16 x W/8, dW_out's W/16), two 32-row x tiles (row stride
+    ``tile_stride(D_in)``) and two cotangent tiles (row stride 8, or 2 for
+    float32 with D_out <= 2), and H activation tiles and two delta tiles of
+    16 rows (a pass) with row stride W + 8."""
+    ks, lw = (16, 2) if itemsize == 2 else (8, 2 if W == 64 else 4)
+    nt, ktw, mw = W // 8, W // ks, W // 16
+    kt0, nx, mi = -(-D_in // ks), -(-D_in // 8), -(-D_in // 16)
+    frags = kt0 * nt + 2 * (n_hidden - 1) * ktw * nt + nt + ktw * nx
+    dw_tiles = mi * nt + (n_hidden - 1) * mw * nt + mw
+    xs = (D_in + 7) // 16 * 16 + 8
+    gs = 2 if itemsize == 4 and D_out <= 2 else 8
+    per_warp = dw_tiles * 512 + itemsize * (2 * 32 * (xs + gs)
+                                            + (n_hidden + 2) * 16 * (W + 8))
+    return 4 * 32 * lw * frags + warps * per_warp
 
 
 def _stack(weights):
@@ -91,9 +116,8 @@ def fused_mlp_cuda(x: torch.Tensor, weights, part) -> torch.Tensor:
                          f"{tuple(w_in.shape)}, w_out {tuple(w_out.shape)} "
                          f"(W in {KERNEL_WIDTHS}, B <= 65535, weights and two "
                          f"32-row tiles within {SMEM_LIMIT} B of shared memory)")
-    x, w_in, w_hid, w_out = (t.contiguous() for t in (x, w_in, w_hid, w_out))
-    if x.data_ptr() % 16:   # the kernel's 16-byte copies of x
-        x = x.clone()
+    x = aligned16(x)
+    w_in, w_hid, w_out = (t.contiguous() for t in (w_in, w_hid, w_out))
     part_d = build.part_tensor(part, B, P, x.device)
     out = torch.empty((B, N, D_out), dtype=x.dtype, device=x.device)
     lib = build.library()
@@ -110,6 +134,45 @@ def fused_mlp_cuda(x: torch.Tensor, weights, part) -> torch.Tensor:
 fused_mlp_cuda.launches = 0
 
 
+def bwd_refusal(x: torch.Tensor, weights, g: torch.Tensor):
+    """None if the backward kernel takes these operands, else ``(exception
+    class, message)``: x (B,N,D_in), partition-stacked weights ``[w_in
+    (P,D_in,W), hidden (P,W,W)..., w_out (P,W,D_out)]`` and g (B,N,D_out),
+    all float32 or all bfloat16, with W in ``KERNEL_WIDTHS``, 1 <= D_out <=
+    ``MAX_OUT`` (one n = 8 tile; the wrapper does not split wider outputs,
+    since the bf16 deltas' rounding does not add up over column blocks), B
+    <= 65535, and the weights' fragments plus one warp's tiles within
+    ``SMEM_LIMIT`` (:func:`mma_bwd_smem_bytes`)."""
+    if x.dtype not in (torch.float32, torch.bfloat16) or \
+            any(t.dtype != x.dtype for t in (g, *weights)):
+        return TypeError, ("x, g and weights must share one dtype, float32 or "
+                           f"bfloat16 (x is {x.dtype})")
+    if x.ndim != 3 or len(weights) < 2 or any(w.ndim != 3 for w in weights):
+        return ValueError, (f"x (B,N,D_in) and >= 2 stacked weights expected, got "
+                            f"{tuple(x.shape)} and {len(weights)} weights")
+    B, N, D_in = x.shape
+    P, W, D_out = weights[0].shape[0], weights[0].shape[-1], weights[-1].shape[-1]
+    H = len(weights) - 1
+    shapes = [(P, D_in, W)] + [(P, W, W)] * (H - 1) + [(P, W, D_out)]
+    if [tuple(w.shape) for w in weights] != shapes or tuple(g.shape) != (B, N, D_out):
+        return ValueError, (f"weights {[tuple(w.shape) for w in weights]} and g "
+                            f"{tuple(g.shape)} do not chain from x {tuple(x.shape)}")
+    if W not in KERNEL_WIDTHS or not 1 <= D_out <= MAX_OUT or B > 65535 or \
+            mma_bwd_smem_bytes(D_in, W, H, D_out, x.element_size(), 1) > SMEM_LIMIT:
+        return ValueError, (f"unsupported shape: W={W} (in {KERNEL_WIDTHS}), "
+                            f"D_out={D_out} (1..{MAX_OUT}), B={B} (<= 65535), "
+                            f"D_in={D_in}, H={H}: the weights' fragments and one "
+                            f"warp's tiles within {SMEM_LIMIT} B of shared memory")
+    return None
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous with a 16-byte aligned start (a copy where it is
+    not): the kernels copy rows with 16-byte cp.async."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def fused_mlp_bwd_cuda(x: torch.Tensor, weights, g: torch.Tensor, part):
     """The backward kernel's wrapper: x (B,N,D_in) and partition-stacked
     weights as for :func:`fused_mlp_cuda`, cotangent ``g`` (B,N,D_out), all
@@ -117,31 +180,28 @@ def fused_mlp_bwd_cuda(x: torch.Tensor, weights, g: torch.Tensor, part):
     ...] float32)``, every dW the float32 sum over the rows of its
     partition.
 
-    CPU tensors take the plain version; CUDA tensors launch
-    ``repro_fused_mlp_bwd`` (``csrc/fused_mlp.cu``: activations recomputed
-    on chip, each block's dW reduced in shared memory, one atomic add per
+    CPU tensors take the plain version; CUDA tensors must pass
+    :func:`bwd_refusal` and launch ``repro_fused_mlp_bwd``
+    (``csrc/fused_mlp.cu``: x and g rows copied a 32-row tile per warp into
+    shared memory; the recompute, the delta chain, dx and dW on the tensor
+    cores; each block's dW summed in shared memory, one atomic add per
     weight per block into zeroed f32 gradients; bf16 operands rounded where
     the plain version rounds them) or raise."""
     if x.device.type == "cpu":
         return _ref.fused_mlp_batched_bwd_ref(x, weights, g, torch.as_tensor(part))
-    w_in, w_hid, w_out, n_hidden = _stack(weights)
-    B, N, D_in = x.shape
-    P, D_in_w, W = w_in.shape
-    D_out = w_out.shape[-1]
     if x.device.type != "cuda" or g.device != x.device or \
             any(w.device != x.device for w in weights):
         raise ValueError("fused_mlp_bwd_cuda: x, g and weights must lie on "
                          "one CUDA device")
-    if x.dtype not in (torch.float32, torch.bfloat16) or \
-            any(t.dtype != x.dtype for t in (g, *weights)):
-        raise TypeError("fused_mlp_bwd_cuda: x, g and weights must share one "
-                        f"dtype, float32 or bfloat16 (x is {x.dtype})")
-    if D_in_w != D_in or W not in KERNEL_WIDTHS or B > 65535 or \
-            tuple(w_out.shape[:2]) != (P, W) or tuple(g.shape) != (B, N, D_out):
-        raise ValueError(f"unsupported shapes: x {tuple(x.shape)}, w_in "
-                         f"{tuple(w_in.shape)}, w_out {tuple(w_out.shape)}, g "
-                         f"{tuple(g.shape)} (W in {KERNEL_WIDTHS}, B <= 65535)")
-    x, g, w_in, w_hid, w_out = (t.contiguous() for t in (x, g, w_in, w_hid, w_out))
+    bad = bwd_refusal(x, weights, g)
+    if bad is not None:
+        raise bad[0](f"fused_mlp_bwd_cuda: {bad[1]}")
+    w_in, w_hid, w_out, n_hidden = _stack(weights)
+    B, N, D_in = x.shape
+    P, _, W = w_in.shape
+    D_out = w_out.shape[-1]
+    x, g = aligned16(x), aligned16(g)
+    w_in, w_hid, w_out = (t.contiguous() for t in (w_in, w_hid, w_out))
     part_d = build.part_tensor(part, B, P, x.device)
     dx = torch.empty_like(x)
     dw_in, dw_hid, dw_out = (torch.zeros_like(w, dtype=torch.float32)
