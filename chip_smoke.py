@@ -28,9 +28,10 @@ toolkit; imports nothing of JAX or of the JAX package. Phases:
            also at MLP_BWD_CASES' shapes; the MLP backward's and the f32
            train step's checks add the allowance of the operands' ties
            (``mlp_ties``, ``step_ties``: decisions within rounding of their
-           boundary taken the other way) and hold the tie counts; the
-           host-sampled train step also on the table draw that failed
-           before that rule and on TIE_DRAW_SEEDS' draws; the INR inference kernel
+           boundary taken the other way) and hold the tie counts, and
+           controls with a planted fault must fail; the host-sampled train
+           step also on the table draw that failed before that rule and on
+           TIE_DRAW_SEEDS' draws; the INR inference kernel
            (encode and MLP in one launch) at the MLP cases' shapes, f32,
            bf16 and "f32/bf16/f32", coordinates inside and outside [0,1];
            each bf16 flash case against
@@ -65,8 +66,9 @@ toolkit; imports nothing of JAX or of the JAX package. Phases:
            and host time with and without the inference route, and the
            device's idle share over one profiled serving tick, one
            profiled training chunk and one unfused chunk per policy (the
-           top device kernels and host operations), tagged with the card's
-           name and power limit;
+           top device kernels and host operations), and the MLP backward's
+           time by stage (a clock on each warp of its W = 16
+           instantiation), tagged with the card's name and power limit;
 7. LM      serving with the dense transformer at ``llama3_8b``'s published
            width and depth (32 layers, d=4,096, 32/8 heads, d_ff=14,336,
            vocab 128,256; f32 params from a seed, bf16 compute): prefill of
@@ -168,6 +170,7 @@ MLP_BWD_CASES = (
     ("W=64 D_in=80 H=3 (ABLATION)", 2, [0, 1], 65_536, 80, 64, 3, 1),
     ("D_out=3", 4, [0, 1, 2, 3], 40_009, 20, 16, 2, 3),
     ("permuted part, P=5", 5, [4, 0, 3, 3, 1, 2], 20_011, 20, 16, 2, 1),
+    ("D_in=5 (odd: 4- and 2-byte copies)", 4, [0, 1, 2, 3], 30_011, 5, 16, 2, 1),
 )
 
 SOURCES = {
@@ -301,7 +304,10 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
 def profile_tick(tick):
     """Run ``tick()`` (a serving tick, a training chunk) under
     torch.profiler: (device busy ms, [(kernel name, (ms, count))] by time,
-    host wall ms); busy is None when the profiler saw no device activity."""
+    host wall ms, [(host op, (own CPU ms, count))] by time: PyTorch's ops and
+    the CUDA runtime calls, which keep the device waiting while the host is
+    the slower side); busy is None when the profiler saw no device
+    activity."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -310,49 +316,16 @@ def profile_tick(tick):
         tick()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = {}
+    kernels, host = {}, {}
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA and \
                 e.self_device_time_total > 0:
             kernels[e.key] = (e.self_device_time_total / 1e3, e.count)
-    busy = sum(ms for ms, _ in kernels.values())
-    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])
-    return (busy or None), ranked, wall
-
-
-def profile_host(fn, steps: int, tag: str, label: str) -> None:
-    """Run ``fn()`` (``steps`` training steps) under torch.profiler and
-    print where its time goes: host wall and device busy ms (each per step),
-    the idle share, the top device kernels, and the top host operations by
-    their own CPU time (PyTorch's ops and the CUDA runtime calls), which
-    keep the device waiting while the host is the slower side."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    dev, host = [], []
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
-            dev.append((e.self_device_time_total / 1e3, e.count, e.key))
         elif e.device_type == torch.autograd.DeviceType.CPU and e.self_cpu_time_total > 0:
-            host.append((e.self_cpu_time_total / 1e3, e.count, e.key))
-    busy = sum(ms for ms, _, _ in dev)
-    if not busy:
-        print(f"  profiled {label}: no device time recorded (not measured) [{tag}]")
-        return
-    print(f"  profiled {label}: {wall:.2f} ms host clock ({wall / steps:.3f} a step), "
-          f"device busy {busy:.2f} ms ({busy / steps:.3f} a step), idle share "
-          f"{1 - busy / wall:.3f}; host ops' own CPU time "
-          f"{sum(ms for ms, _, _ in host):.2f} ms [{tag}]")
-    for ms, n, name in sorted(dev, reverse=True)[:8]:
-        print(f"    device {ms:9.3f} ms  x{n:<5d} {name[:90]}")
-    for ms, n, name in sorted(host, reverse=True)[:12]:
-        print(f"    host   {ms:9.3f} ms  x{n:<5d} {name[:90]}")
+            host[e.key] = (e.self_cpu_time_total / 1e3, e.count)
+    busy = sum(ms for ms, _ in kernels.values())
+    by_time = lambda d: sorted(d.items(), key=lambda kv: -kv[1][0])
+    return (busy or None), by_time(kernels), wall, by_time(host)
 
 
 def launch_times(fn, symbol: str, reps: int = 3):
@@ -582,7 +555,7 @@ def lm_phase(tag: str, dev, flash_err: float) -> dict:
                       ("decode step", lambda: model.decode_step(
                           params, ref_cache, greedy(ref_logits)))):
         torch.cuda.synchronize()
-        busy, by_kernel, wall = profile_tick(fn)
+        busy, by_kernel, wall, _ = profile_tick(fn)
         if busy is None:
             print(f"  profiled {label}: no device time recorded (not measured) [{tag}]")
             continue
@@ -666,7 +639,7 @@ def lm_phase(tag: str, dev, flash_err: float) -> dict:
         if W is None else None)
     # the kernel's own device time: one profiled call (torch.profiler's
     # key_averages, as the prefill's profile above)
-    _, prof32, _ = profile_tick(kern32)
+    _, prof32, _, _ = profile_tick(kern32)
     k32 = [(t, n) for name, (t, n) in prof32 if "flash_attention_kernel" in name]
     k32ms = sum(t for t, _ in k32) / sum(n for _, n in k32) if k32 else None
     bms32, by32 = bound_ms((2 * q.numel() + k.numel() + v.numel()) * 4, flops,
@@ -813,28 +786,63 @@ def step_grads_f64(params, H, res, coords, target):
 
 
 #: Decisions taken at a tie. A ReLU's or an L1 residual's input is a tie
-#: where it lies within TIE_REL x the sum of its terms' magnitudes of 0, and
-#: under bf16 a value rounded to bfloat16 (an activation, a delta, dx) where
-#: its float64 value lies that close to a rounding boundary (the midpoint of
-#: two neighbours): the kernel may find it on the other side. 3xTF32 keeps
-#: about 22 bits of each operand (2^-21 relative a product at most), and a
-#: float32 sum of K terms in another order, with the tensor cores' own
-#: rounding of their partial sums, moves by up to about K float32 ulps at
-#: the scale of the terms' magnitudes: 2^-16 covers K <= 256 (the MLPs here
-#: sum at most D_in = 80 terms). Either side of a tie is a derivative of the
-#: function there.
-TIE_REL = 2.0 ** -16
-#: the most ReLU or L1 ties (within TIE_REL of 0) a check may excuse, as a
-#: share of its decisions (rows x units), and the most dx elements that may
-#: need a tie's allowance (depart beyond the plain limit), as a share of
-#: dx's elements: each about 10x the largest reading over the MLP
-#: backward's cases (6.4e-5 and 8.6e-5, both ABLATION-shaped under bf16;
-#: PERF.md §6). Ties through bf16 rounding (a value near a rounding
-#: boundary, or a ReLU whose band a rounding above widens) are counted, not
-#: held: a tiny value near a boundary is a tie of a tiny allowance, and the
-#: elements that need any allowance are held instead.
-TIE_SHARE_MAX = 5e-4
-NEED_SHARE_MAX = 1e-3
+#: where its float64 value lies within its band of 0, and under bf16 a
+#: value rounded to bfloat16 (an activation, a delta, dx) where its float64
+#: value lies within its band of a rounding boundary (the midpoint of two
+#: neighbours): the kernel may find it on the other side, and either side is
+#: a derivative of the function there. A band is the bound on how far the
+#: kernel's evaluation and the plain version's may lie from the exact sum
+#: on the plain version's inputs: ``tie_rel(K)`` x the sum of its K terms'
+#: magnitudes (any float32 order, the tensor cores' truncating adds
+#: included, moves a sum of K terms by at most K x 2^-23 of that; 3xTF32's
+#: products, each operand's head and tail kept to 11 bits and the
+#: tail-tail product dropped, by at most 3 x 2^-22 = 6 x 2^-23 more, and two
+#: more ulps take the two accumulators' sum and the output's rounding; bf16
+#: products are exact in float32, so a bf16 sum of K terms moves by its K - 1
+#: adds only, and a lone product, exact on both sides, rounds alike on
+#: both), plus what the layers above may already
+#: have changed in the sum's inputs (through |W|): under float32 each
+#: hidden output may differ by its own band and the plain version's; under
+#: bf16 only where it lies within its band of a rounding boundary (by that
+#: plus one ulp) or of 0. At PRODUCTION256's first layer (K = 20) the band
+#: is 2^-18.2 under float32 and 2^-18.8 under bf16, against 2^-21 for
+#: 3xTF32's products alone.
+TIE_ULP = 2.0 ** -23
+#: the train step's features: the kernel's trilinear blend (corner weights
+#: and their sum in another order) within this share of sum_c w_c |t_c| of
+#: the plain version's (12 float32 ulps and a margin)
+FEAT_REL = 2.0 ** -20
+#: What each check holds (``check_tie_count``), each as a share of what it
+#: counts. The first three count what the plain version's float64 function
+#: finds in the operands (no kernel output enters them); the last counts the
+#: rows on which the kernel took a tie's other side:
+#: - TIE_SHARE_MAX: ReLU or L1 inputs within their own sum's band of 0, of
+#:   the decisions;
+#: - WIDENED_SHARE_MAX: ReLU or L1 inputs outside that but within the band
+#:   widened by the layers above, of the decisions;
+#: - ROUND_SHARE_MAX: under bf16, values within their band of a rounding
+#:   boundary, of the values rounded;
+#: - NEED_ROW_SHARE_MAX: rows whose dx departs from the plain version's by
+#:   more than the plain limit, of the rows: the only rows whose ties earn an
+#:   allowance on dW (a tie taken the other way moves its row's dx far more,
+#:   relative to dx's limit, than it moves dW relative to dW's).
+#: Each is set at about 4x the largest reading over the MLP backward's
+#: cases, all of them the ABLATION-shaped one under bf16 (3.5e-5, 2.4e-3,
+#: 3.5e-2 and, with the kernel's arithmetic emulated, 5.0e-4), read on the
+#: CPU before the card ran them: tests/test_torch_mlp_bwd.py's
+#: test_bf16_emulation_reproduces_the_ablation_departure runs that case's
+#: check there (PERF.md §6).
+TIE_SHARE_MAX = 1.5e-4
+WIDENED_SHARE_MAX = 1e-2
+ROUND_SHARE_MAX = 0.15
+NEED_ROW_SHARE_MAX = 2e-3
+
+
+def tie_rel(K: int, bf16: bool) -> float:
+    """The band of a sum of K terms as a share of its terms' magnitudes:
+    (K - 1) x 2^-23 for bf16 operands, (K + 8) x 2^-23 for float32 ones
+    (3xTF32; see TIE_ULP)."""
+    return (K - 1 if bf16 else K + 8) * TIE_ULP
 
 
 def bf16_rounding_gap(v):
@@ -848,7 +856,7 @@ def bf16_rounding_gap(v):
     return torch.where(a > 0, gap, torch.full_like(a, float("inf"))), ulp
 
 
-def flip_allowance(ins, masks, wsb, starts):
+def flip_allowance(ins, masks, wsb, starts, w_rows=None):
     """What the ties' other sides move: for each tie, the plain version's
     backward (float64, its own ReLU masks) of the one change that taking
     the other side makes, in absolute value, summed over the ties. ins[k]
@@ -857,8 +865,10 @@ def flip_allowance(ins, masks, wsb, starts):
     layer k's weights for each batch row; starts: (k, ties, change), ties
     (B,N,N_k) bool and change (B,N,N_k) the change of layer k's output
     cotangent a tie makes (after the mask for a hidden layer, the
-    residual's for k = H). Returns the allowance on the input's cotangent
-    (B,N,K_0) and on each dW_k, per batch row (B,K_k,N_k)."""
+    residual's for k = H); w_rows (B,N) bool, where given: the rows whose
+    ties count towards dW (all rows where not). Returns the allowance on
+    the input's cotangent (B,N,K_0) and on each dW_k, per batch row
+    (B,K_k,N_k)."""
     import torch
     d_in = torch.zeros_like(ins[0])
     d_w = [torch.zeros_like(w) for w in wsb]
@@ -866,11 +876,15 @@ def flip_allowance(ins, masks, wsb, starts):
         b, n, j = ties.nonzero(as_tuple=True)
         for r in b.unique().tolist():
             rn, rj = n[b == r], j[b == r]
+            keep = None if w_rows is None else w_rows[r, rn]
             delta = torch.zeros((len(rn), wsb[k0].shape[-1]), dtype=torch.float64,
                                 device=b.device)
             delta[torch.arange(len(rn), device=b.device), rj] = change[r, rn, rj]
             for k in range(k0, -1, -1):
-                d_w[k][r] += ins[k][r, rn].abs().T @ delta.abs()
+                if keep is None:
+                    d_w[k][r] += ins[k][r, rn].abs().T @ delta.abs()
+                elif keep.any():
+                    d_w[k][r] += ins[k][r, rn[keep]].abs().T @ delta[keep].abs()
                 c = delta @ wsb[k][r].T
                 if k:
                     delta = c * masks[k - 1][r, rn]
@@ -879,23 +893,69 @@ def flip_allowance(ins, masks, wsb, starts):
     return d_in, d_w
 
 
-def mlp_ties(x, ws, g, part) -> dict:
+def forward_ties(h, w32, dtype, e_in=None) -> dict:
+    """The plain version's forward through the hidden layers (h: its
+    float32 input rows (B,N,K_0); w32: each layer's float32 weights per
+    batch row, the output layer's last; each hidden output rounded to
+    ``dtype``) with its float64 function's ties (``tie_rel``): ``e_in``
+    (B,N,K_0), where given, bounds how far the kernel's input rows may lie
+    from h. Returns {"ins": each layer's float64 input, "masks": the plain
+    version's ReLU masks, "ties": (B,N,W) bool a hidden layer, "base": the
+    ties within their own sum's band, "da": a bound on how far the kernel's
+    last hidden output may lie from the plain version's, "h": that output
+    (float32), "round": bf16 values within their own sum's band of a
+    rounding boundary, "round_wide": more within the widened bands,
+    "rounded": bf16 values rounded}."""
+    import torch
+    f64 = torch.float64
+    bf16 = dtype == torch.bfloat16
+    ins, masks, ties, n_base = [h.to(f64)], [], [], 0
+    n_round, n_wide, n_rounded, da = 0, 0, 0, e_in
+    for w in w32[:-1]:
+        w64 = w.to(f64)
+        z = torch.matmul(h, w)
+        masks.append(z > 0)
+        z64 = ins[-1] @ w64
+        base = tie_rel(w.shape[-2], bf16) * (ins[-1].abs() @ w64.abs())
+        band = base if da is None else base + da @ w64.abs()
+        n_base += int((z64.abs() < base).sum())
+        ties.append(z64.abs() < band)
+        h = torch.relu(z).to(dtype).float()
+        ins.append(h.to(f64))
+        if bf16:
+            # both sides round to one neighbour unless the value lies
+            # within its band of a boundary; a ReLU tie's output is within
+            # its band of 0 on either side
+            gap, ulp = bf16_rounding_gap(torch.relu(z64))
+            at, own = gap < band, int((gap < base).sum())
+            n_round, n_wide = n_round + own, n_wide + int(at.sum()) - own
+            n_rounded += at.numel()
+            da = torch.where(at | ties[-1], band + base, 0.0) + torch.where(at, ulp, 0.0)
+        else:
+            # the kernel's output within its band of the float64 value, the
+            # plain version's within its own sum's band
+            da = torch.where(z64 > -band, band + base, 0.0)
+    return {"ins": ins, "masks": masks, "ties": ties, "base": n_base, "da": da, "h": h,
+            "round": n_round, "round_wide": n_wide, "rounded": n_rounded}
+
+
+def mlp_ties(x, ws, g, part, rows=None) -> dict:
     """The MLP backward's ties on these operands, and the allowance they
     earn: the plain version (fused_mlp/ref.py) run as it runs gives the ReLU
-    masks and the bf16 values, its float64 function the ties (ReLU inputs
-    within TIE_REL of 0; under bf16 also activations, deltas and dx within
-    TIE_REL, plus what the ties above may change in them, of a bfloat16
-    rounding boundary: an activation taken to its other neighbour moves the
-    layers below it, whose ReLU and rounding bands widen by a bound on that
-    move). The allowance is
-    flip_allowance's, under bf16 2^-7 above it (its deltas are bf16), plus
-    one ulp for each dx element at a rounding tie. An activation's rounding
-    moves dW only through its own row's term (2^-8 of one of the
-    partition's row terms) and is not counted. Returns {"dx" (B,N,D_in),
-    "dW" [per partition, the weights' shapes], "ties": ReLU ties within
-    TIE_REL, "widened": those within the bf16-widened bands only,
-    "decisions": ReLU units, "round_rows": rows with a rounding tie, "n":
-    rows}."""
+    masks and the bf16 values, its float64 function the ties
+    (``forward_ties``; under bf16 also the deltas and dx within their band,
+    widened by what the ties above may change in them, of a bfloat16
+    rounding boundary). The allowance is flip_allowance's, under bf16 2^-7
+    above it (its deltas are bf16), plus one ulp for each dx element at a
+    rounding tie; on dW only the ties of ``rows`` (B,N) bool count, where
+    given (the rows whose dx departs beyond the plain limit). An
+    activation's rounding moves dW only through its own row's term (2^-8 of
+    one of the partition's row terms) and is not counted. Returns {"dx"
+    (B,N,D_in), "dW" [per partition, the weights' shapes], "ties": ReLU ties
+    within their own sum's band, "widened": those within the widened bands
+    only, "decisions": ReLU units, "round": bf16 values within their own
+    sum's band of a rounding boundary, "round_wide": more within the
+    widened bands, "rounded": bf16 values rounded, "n": rows}."""
     import torch
     f64 = torch.float64
     bf16 = x.dtype == torch.bfloat16
@@ -903,29 +963,12 @@ def mlp_ties(x, ws, g, part) -> dict:
     idx = torch.as_tensor(part, device=dev).long()
     w32 = [w[idx].float() for w in ws]
     wsb = [w.to(f64) for w in w32]
-    # the forward: under bf16 an activation that rounds to its other
-    # neighbour moves the next layer's pre-activations, and so on down the
-    # layers; ``da`` bounds each activation's change, propagated in
-    # magnitudes, and widens the bands below it
-    h = x.float()
-    ins, masks, ties, da, n_ties = [h.to(f64)], [], [], None, 0
-    for w, w64 in zip(w32[:-1], wsb[:-1]):
-        z = torch.matmul(h, w)
-        masks.append(z > 0)
-        z64, mag = ins[-1] @ w64, ins[-1].abs() @ w64.abs()
-        n_ties += int((z64.abs() < TIE_REL * mag).sum())
-        band = TIE_REL * mag if da is None else TIE_REL * mag + da @ w64.abs()
-        ties.append(z64.abs() < band)
-        h = torch.relu(z).to(x.dtype).float()
-        ins.append(h.to(f64))
-        if bf16:
-            gap, ulp = bf16_rounding_gap(torch.relu(z64))
-            moved = band - TIE_REL * mag
-            da = torch.where(z64 > -band, moved + torch.where(gap < band, ulp, 0.0), 0.0)
-    # the backward from the top: under bf16 a value's rounding band also
+    fw = forward_ties(x.float(), w32, x.dtype)
+    ins, masks, ties = fw["ins"], fw["masks"], fw["ties"]
+    n_round, n_wide, n_rounded = fw["round"], fw["round_wide"], fw["rounded"]
+    # the backward from the top: under bf16 a delta's rounding band also
     # takes the change the ties above may make to it (``up``: a bound on
     # each delta's change, propagated in magnitudes)
-    round_rows = torch.zeros(x.shape[:2], dtype=torch.bool, device=dev)
     starts, d, up = [], g.float(), None
     for k in range(len(masks) - 1, -1, -1):
         wt = wsb[k + 1].transpose(1, 2)
@@ -935,55 +978,69 @@ def mlp_ties(x, ws, g, part) -> dict:
         if bf16:
             above = 0.0 if up is None else up @ wt.abs()
             gap, ulp = bf16_rounding_gap(c64)
-            rt = masks[k] & (gap < TIE_REL * (d.to(f64).abs() @ wt.abs()) + above)
+            own_band = tie_rel(wt.shape[-2], True) * (d.to(f64).abs() @ wt.abs())
+            own, rt = masks[k] & (gap < own_band), masks[k] & (gap < own_band + above)
+            n_round, n_rounded = n_round + int(own.sum()), n_rounded + int(masks[k].sum())
+            n_wide += int(rt.sum()) - int(own.sum())
+            up = torch.where(tie, c64.abs() * (1 + 2.0 ** -7) + above, 0.0) \
+                + torch.where(rt, above + ulp, 0.0)
             change = change * (1 + 2.0 ** -7) + torch.where(rt, ulp, 0.0)
-            round_rows |= rt.any(-1)
             tie = tie | rt
-            up = change + masks[k] * above * (1 + 2.0 ** -7)
         starts.append((k, tie, change))
         d = torch.matmul(d, w32[k + 1].transpose(1, 2)).to(x.dtype).float() * masks[k]
-    d_in, d_w = flip_allowance(ins, masks, wsb, starts)
+    d_in, d_w = flip_allowance(ins, masks, wsb, starts, rows)
     if bf16:
         wt = wsb[0].transpose(1, 2)
         gap, ulp = bf16_rounding_gap(d.to(f64) @ wt)
-        rt = gap < TIE_REL * (d.to(f64).abs() @ wt.abs()) + up @ wt.abs()
+        own_band = tie_rel(wt.shape[-2], True) * (d.to(f64).abs() @ wt.abs())
+        own, rt = gap < own_band, gap < own_band + up @ wt.abs()
         d_in = d_in * (1 + 2.0 ** -7) + torch.where(rt, ulp, 0.0)
-        round_rows |= rt.any(-1)
+        n_round, n_rounded = n_round + int(own.sum()), n_rounded + rt.numel()
+        n_wide += int(rt.sum()) - int(own.sum())
     P = ws[0].shape[0]
     dW = [torch.zeros((P, *w.shape[1:]), dtype=f64, device=dev).index_add_(0, idx, a)
           for w, a in zip(wsb, d_w)]
-    return {"dx": d_in.float(), "dW": [a.float() for a in dW], "ties": n_ties,
-            "widened": int(sum(int(t.sum()) for t in ties)) - n_ties,
-            "decisions": sum(t.numel() for t in ties),
-            "round_rows": int(round_rows.sum()), "n": round_rows.numel()}
+    return {"dx": d_in.float(), "dW": [a.float() for a in dW], "ties": fw["base"],
+            "widened": int(sum(int(t.sum()) for t in ties)) - fw["base"],
+            "decisions": sum(t.numel() for t in ties), "round": n_round,
+            "round_wide": n_wide, "rounded": n_rounded, "n": x.shape[0] * x.shape[1]}
 
 
-def check_tie_count(label, ties, decisions, need=None, outputs=None, note="") -> None:
-    """Print a check's ReLU / L1 ties (of its decisions), ``note`` (the ties
-    through bf16 rounding, counted) and, where given, the output elements
-    that needed the ties' allowance; fail where the ties exceed
-    TIE_SHARE_MAX of the decisions or those elements NEED_SHARE_MAX of the
-    outputs (either at least one)."""
-    cap_t = max(1.0, TIE_SHARE_MAX * decisions)
-    cap_n = max(1.0, NEED_SHARE_MAX * (outputs or 0))
-    ok = ties <= cap_t and (need is None or need <= cap_n)
-    print(f"  {label}: ReLU/L1 ties {ties:,} of {decisions:,} decisions (held to "
-          f"{cap_t:.0f}){note}"
-          f"{'' if need is None else f'; elements that needed the allowance {need:,} of {outputs:,} (held to {cap_n:.0f})'}"
-          f"  {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise SmokeFailure(f"{label}: {ties} ties of {decisions} decisions, {need} "
-                           f"of {outputs} elements needing the ties' allowance: "
-                           f"above {cap_t:.0f} / {cap_n:.0f}")
+def check_tie_count(label, counts) -> None:
+    """Print a check's tie counts, each (what, count, of what, share), and
+    fail where a count exceeds its share of what it counts (at least one)."""
+    capped = [(what, n, of, max(1.0, share * of)) for what, n, of, share in counts]
+    bad = [c for c in capped if c[1] > c[3]]
+    print(f"  {label}: " + "; ".join(f"{what} {n:,} of {of:,} (held to {cap:.0f})"
+                                     for what, n, of, cap in capped)
+          + f"  {'FAIL' if bad else 'ok'}")
+    if bad:
+        raise SmokeFailure(f"{label}: " + "; ".join(
+            f"{what} {n} of {of}, above {cap:.0f}" for what, n, of, cap in bad))
+
+
+def must_fail(label, check_fn) -> None:
+    """A control: ``check_fn`` holds a planted fault and must raise
+    SmokeFailure; fails where it passes."""
+    print(f"  control, must fail: {label}")
+    try:
+        check_fn()
+    except SmokeFailure as e:
+        print(f"  control caught: {label}: {e}")
+        return
+    raise SmokeFailure(f"control {label}: the check passed a planted fault")
 
 
 def step_ties(params, H, res, coords, target):
-    """The f32 train step's ties on this batch (ReLU inputs and L1 residuals
-    within TIE_REL of 0, from the float32 plain version's forward in
-    float64) and the allowance they earn on each gradient (flip_allowance;
-    a residual taken the other way moves its cotangent by 2 / (N D_out); the
-    table's share through the plain hash-encode backward). Returns
-    ({"tab", "win", "whid", "wout"}, ties, decisions)."""
+    """The f32 train step's ties on this batch (``forward_ties``: ReLU
+    inputs, and L1 residuals, within their band of 0, from the float32
+    plain version's forward in float64; the kernel's features within
+    FEAT_REL of the plain version's) and the allowance they earn on each
+    gradient (flip_allowance; a residual taken the other way moves its
+    cotangent by 2 / (N D_out); the table's share through the plain
+    hash-encode backward). Returns ({"tab", "win", "whid", "wout"}, ties
+    within their own sum's band, those within the widened bands only,
+    decisions)."""
     import torch
     from repro_torch.kernels.fused_train_step import ops as fts
     from repro_torch.kernels.hash_encoding.ref import (
@@ -995,25 +1052,24 @@ def step_ties(params, H, res, coords, target):
     ws32 = fts._unpack(params, H)["mlp"]
     wsb = [w.to(f64) for w in ws32]
     h = hash_encode_batched_ref(coords, params["tab"], res, part)
-    ins, masks, ties = [h.to(f64)], [], []
-    for w, w64 in zip(ws32[:-1], wsb[:-1]):
-        z = torch.matmul(h, w)
-        masks.append(z > 0)
-        ties.append((ins[-1] @ w64).abs() < TIE_REL * (ins[-1].abs() @ w64.abs()))
-        h = torch.relu(z)
-        ins.append(h.to(f64))
-    t64 = target.to(f64)
-    rties = (ins[-1] @ wsb[-1] - t64).abs() < TIE_REL * (
-        ins[-1].abs() @ wsb[-1].abs() + t64.abs())
+    e_feat = FEAT_REL * hash_encode_batched_ref(coords, params["tab"].abs(), res,
+                                                part).to(f64)
+    fw = forward_ties(h, ws32, torch.float32, e_feat)
+    ins, masks, ties = fw["ins"], fw["masks"], fw["ties"]
+    t64, w64 = target.to(f64), wsb[-1]
+    r64 = ins[-1] @ w64 - t64
+    base = tie_rel(w64.shape[-2] + 1, False) * (ins[-1].abs() @ w64.abs() + t64.abs())
+    rties = r64.abs() < base + fw["da"] @ w64.abs()
     step = 1.0 / (N * D_out)
     starts = [(H, rties, torch.full_like(t64, 2 * step))]
-    c = torch.sign(torch.matmul(h, ws32[-1]) - target).to(f64) * step \
+    c = torch.sign(torch.matmul(fw["h"], ws32[-1]) - target).to(f64) * step \
         @ wsb[H].transpose(1, 2)
     for k in range(H - 1, -1, -1):
         starts.append((k, ties[k], c.abs()))
         c = (c * masks[k]) @ wsb[k].transpose(1, 2)
     d_feat, d_w = flip_allowance(ins, masks, wsb, starts)
-    n_ties = int(rties.sum()) + sum(int(t.sum()) for t in ties)
+    n_base = fw["base"] + int((r64.abs() < base).sum())
+    n_all = int(rties.sum()) + sum(int(t.sum()) for t in ties)
     decisions = rties.numel() + sum(t.numel() for t in ties)
     allow = {"tab": hash_encode_batched_bwd_ref(d_feat, coords, res, part,
                                                 tuple(params["tab"].shape)),
@@ -1021,7 +1077,7 @@ def step_ties(params, H, res, coords, target):
              "whid": (torch.stack(d_w[1:H], 1) if H > 1
                       else torch.zeros_like(params["whid"], dtype=f64)),
              "wout": d_w[H]}
-    return {k: v.float() for k, v in allow.items()}, n_ties, decisions
+    return {k: v.float() for k, v in allow.items()}, n_base, n_all - n_base, decisions
 
 
 def step_wants(params, H, res, coords, target) -> dict:
@@ -1030,11 +1086,11 @@ def step_wants(params, H, res, coords, target) -> dict:
     with the allowance of the batch's ties (``step_ties``)."""
     from repro_torch.kernels.fused_train_step import ref as fts_ref
     want64, ties = step_grads_f64(params, H, res, coords, target)
-    allow, n_ties, decisions = step_ties(params, H, res, coords, target)
+    allow, n_ties, widened, decisions = step_ties(params, H, res, coords, target)
     return {"float32 plain": fts_ref.train_step_grads_ref(params, H, res, coords,
                                                           target),
             "float64": want64, "ties": ties, "allow": allow,
-            "tie_count": n_ties, "decisions": decisions}
+            "tie_count": n_ties, "widened": widened, "decisions": decisions}
 
 
 def check_step_grads(label, H, got_g, got_loss, wants, keys=None) -> float:
@@ -1059,7 +1115,10 @@ def check_step_grads(label, H, got_g, got_loss, wants, keys=None) -> float:
               f"{k} {frac(got_g, w32, k):.4f}, {frac(got_g, w64, k):.4f} "
               f"({frac(w32, w64, k):.4f})" for k in keys)
           + f"; {wants['ties']} float32 ties")
-    check_tie_count(f"train_step ({label})", wants["tie_count"], wants["decisions"])
+    check_tie_count(f"train_step ({label})", [
+        ("ReLU/L1 ties", wants["tie_count"], wants["decisions"], TIE_SHARE_MAX),
+        ("more in the widened bands", wants["widened"], wants["decisions"],
+         WIDENED_SHARE_MAX)])
     err = 0.0
     for name in ("float32 plain", "float64"):
         want, want_loss = wants[name]
@@ -1197,31 +1256,41 @@ def check_step_bf16(label, params16, H, res, wants, contention=False,
     return err
 
 
-def check_mlp_bwd(label, x, ws, g, part) -> float:
-    """The MLP backward kernel on (x, ws, g) against its plain version,
-    plus the allowance of the operands' ties (``mlp_ties``; the ties and
-    the dx elements that needed their allowance printed and held to their
-    shares): float32 dx within 2e-6 x max|dx|
-    (W-term sums on the tensor cores in another order), each dW within 2e-5
-    x its max (sums over a partition's rows, per warp, per block, then
-    atomic adds); bf16 by ``check_bf16`` at BF16_LIMITS against the bf16
-    plain version and the float32 policy's. Returns dx's largest error."""
+def check_mlp_bwd(label, x, ws, g, part, got=None) -> float:
+    """The MLP backward kernel on (x, ws, g) (or ``got``, its (dx, dW)
+    output) against its plain version, plus the allowance of the operands'
+    ties (``mlp_ties``, on dW only from the rows whose dx departs beyond
+    the plain limit; the tie counts and those rows printed and held,
+    ``check_tie_count``): float32 dx within 2e-6 x max|dx| (W-term sums on
+    the tensor cores in another order), each dW within 2e-5 x its max (sums
+    over a partition's rows, per warp, per block, then atomic adds); bf16
+    by ``check_bf16`` at BF16_LIMITS against the bf16 plain version and the
+    float32 policy's. Returns dx's largest error."""
     import torch
     from repro_torch.kernels.fused_mlp.ops import fused_mlp_bwd_cuda
     from repro_torch.kernels.fused_mlp.ref import fused_mlp_batched_bwd_ref
     part_d = torch.tensor(part, device=x.device)
-    dx_k, dws_k = fused_mlp_bwd_cuda(x, ws, g, part)
+    dx_k, dws_k = fused_mlp_bwd_cuda(x, ws, g, part) if got is None else got
     dx_p, dws_p = fused_mlp_batched_bwd_ref(x, ws, g, part_d)
-    ties = mlp_ties(x, ws, g, part_d)
-    limit = (2e-6 if x.dtype == torch.float32 else BF16_LIMITS["dx"]) * max(
+    f32 = x.dtype == torch.float32
+    limit = (2e-6 if f32 else BF16_LIMITS["dx"]) * max(
         1e-30, float(dx_p.float().abs().max()))
-    need = int(((dx_k.float() - dx_p.float()).abs() > limit).sum())
-    note = "" if x.dtype == torch.float32 else (
-        f"; through bf16 rounding: {ties['widened']:,} more ReLU ties, "
-        f"{ties['round_rows']:,} of {ties['n']:,} rows with a rounding tie")
-    check_tie_count(f"fused_mlp_bwd {label}", ties["ties"], ties["decisions"], need,
-                    dx_p.numel(), note)
-    if x.dtype == torch.float32:
+    departs = (dx_k.float() - dx_p.float()).abs() > limit
+    rows = departs.any(-1)
+    ties = mlp_ties(x, ws, g, part_d, rows)
+    counts = [("ReLU ties", ties["ties"], ties["decisions"], TIE_SHARE_MAX),
+              ("more in the widened bands", ties["widened"], ties["decisions"],
+               WIDENED_SHARE_MAX)]
+    if not f32:
+        counts.append(("values at a rounding tie", ties["round"], ties["rounded"],
+                       ROUND_SHARE_MAX))
+        print(f"  fused_mlp_bwd {label}: {ties['round_wide']:,} more values at a "
+              f"rounding tie in the widened bands (each earns an allowance on its "
+              f"own row only, where the rows are held)")
+    counts.append((f"rows whose dx needed the allowance ({int(departs.sum()):,} "
+                   f"elements)", int(rows.sum()), ties["n"], NEED_ROW_SHARE_MAX))
+    check_tie_count(f"fused_mlp_bwd {label}", counts)
+    if f32:
         err = check(f"fused_mlp_bwd {label} dx", dx_k, dx_p,
                     atol=2e-6 * max(1e-30, float(dx_p.abs().max())), slack=ties["dx"])
         for i, (a, b) in enumerate(zip(dws_k, dws_p)):
@@ -1238,12 +1307,38 @@ def check_mlp_bwd(label, x, ws, g, part) -> float:
     return err
 
 
+def mlp_bwd_controls(label, x, ws, g, part, got) -> None:
+    """Phase 2's controls of ``check_mlp_bwd`` at the full batch, each of
+    which must fail with the ties' allowance applied: the kernel's output
+    ``got`` with one 16-row pass left out of dW (the plain version's dW of
+    16 rows of the first batch row, from row N/2 on a tile boundary, taken
+    off; dx as the kernel gave it) and, under bf16, the float32 policy's dx
+    (rounded to bf16) and dW on the same values."""
+    import torch
+    from repro_torch.kernels.fused_mlp.ref import fused_mlp_batched_bwd_ref
+    dx_k, dws_k = got
+    part_d = torch.tensor(part, device=x.device)
+    s = x.shape[1] // 2 // 32 * 32
+    _, dws_c = fused_mlp_batched_bwd_ref(x[:1, s:s + 16], ws, g[:1, s:s + 16],
+                                         part_d[:1])
+    must_fail(f"fused_mlp_bwd {label}, one 16-row pass left out of dW",
+              lambda: check_mlp_bwd(f"{label} (pass left out)", x, ws, g, part,
+                                    (dx_k, [a - c for a, c in zip(dws_k, dws_c)])))
+    if x.dtype == torch.bfloat16:
+        dx_32, dws_32 = fused_mlp_batched_bwd_ref(
+            x.float(), [w.float() for w in ws], g.float(), part_d)
+        must_fail(f"fused_mlp_bwd {label}, the float32 policy's dx and dW",
+                  lambda: check_mlp_bwd(f"{label} (float32 policy)", x, ws, g, part,
+                                        (dx_32.to(x.dtype), dws_32)))
+
+
 def mlp_bwd_case_checks(dev) -> None:
     """Phase 2's further MLP backward cases, float32 and bf16, each held by
     ``check_mlp_bwd``: N not a multiple of 32, H = 1 (CLOVERLEAF_CACHE: the
     dummy hidden slab), H = 3 (NEKRS), W = 32, W = 64 with D_in = 80
-    (ABLATION: L = 10, F = 8, H = 3), D_out = 3, and a permuted ``part``
-    over P = 5 partitions. Inputs of the training path's magnitudes:
+    (ABLATION: L = 10, F = 8, H = 3), D_out = 3, a permuted ``part`` over
+    P = 5 partitions, and D_in = 5 (odd: x copied in 4-byte cp.async units
+    under float32, stored value by value under bf16). Inputs of the training path's magnitudes:
     features U(-0.05, 0.05), weights U(-1,1) x sqrt(6 / fan-in), cotangents
     +-1/N; from a generator of their own."""
     import numpy as np
@@ -1307,10 +1402,13 @@ def step_tie_draws(dev, params, H, res, coords, target, cfg) -> None:
     with the ties' allowance) on the table draw that failed before it
     (``shared_generator_tables``) and on TIE_DRAW_SEEDS' draws, each with
     its departures before the allowance and its tie rows printed; counts
-    the draws that depart beyond the limit without the allowance."""
+    the draws that depart beyond the limit without the allowance. On the
+    first draw a control must fail: the kernel's gradients with 16 samples
+    of partition 0 left out (their plain gradients taken off)."""
     import numpy as np
     import torch
     from repro_torch.kernels.fused_train_step import ops as fts
+    from repro_torch.kernels.fused_train_step import ref as fts_ref
     shape = tuple(params["tab"].shape)
     draws = [("the shared generator's draw", shared_generator_tables(shape, cfg))]
     draws += [(f"seed {s}", np.random.default_rng(s).uniform(-0.05, 0.05, shape))
@@ -1327,6 +1425,17 @@ def step_tie_draws(dev, params, H, res, coords, target, cfg) -> None:
         if worst > 1:
             beyond.append(label)
         check_step_grads(f"host-sampled, tables of {label}", H, got_g, got_loss, wants)
+        if label == draws[0][0]:
+            # the control: 16 samples of partition 0 left out of every gradient
+            part16, _ = fts_ref.train_step_grads_ref(p, H, res, coords[:, :16],
+                                                     target[:, :16])
+            short = {k: v.clone() for k, v in got_g.items()}
+            for k in short:
+                short[k][0] -= part16[k][0] * (16 / coords.shape[1])
+            must_fail(f"train_step, tables of {label}, 16 samples left out",
+                      lambda: check_step_grads(f"16 samples left out, tables of {label}",
+                                               H, short, got_loss, wants))
+            del part16, short
         del p, wants, got_g
     print(f"  train_step tie draws: {len(beyond)} of {len(draws)} depart beyond the "
           f"limit without the ties' allowance ({beyond}); every one passes with it")
@@ -1611,7 +1720,8 @@ def dvnr_phases():
     from repro_torch.core.trainer import _opt_config, init_params
     from repro_torch.kernels.composite.ops import composite_cuda
     from repro_torch.kernels.composite.ref import composite_ref
-    from repro_torch.kernels.fused_mlp.ops import (fused_mlp_bwd_cuda,
+    from repro_torch.kernels.fused_mlp.ops import (BWD_STAGES, fused_mlp_bwd_cuda,
+                                                   fused_mlp_bwd_stage_cycles,
                                                    fused_mlp_cuda)
     from repro_torch.kernels.fused_mlp.ref import (fused_mlp_batched_bwd_ref,
                                                    fused_mlp_batched_ref)
@@ -1660,9 +1770,11 @@ def dvnr_phases():
               "spills were read by the run that built it)")
     for fn, regs, st, ld in usage:
         print(f"    {regs:4d} registers, spill stores {st} B, loads {ld} B  {fn}")
+    # (the backward's clocked instantiations, StageClock, are a measurement
+    # of phase 6 and not held)
     spilled = [fn for fn, _, st, ld in usage if (st or ld) and any(
         k in fn for k in ("fused_mlp_fwd_kernel", "fused_mlp_bwd_kernel",
-                          "inr_forward_kernel"))]
+                          "inr_forward_kernel")) and "StageClock" not in fn]
     if spilled:
         raise SmokeFailure(f"MLP forward / backward or INR inference kernels "
                            f"that spill: {spilled}")
@@ -1679,7 +1791,8 @@ def dvnr_phases():
             raise SmokeFailure(f"bf16 {kernel} instantiations without HMMA: {bf16}")
     # the backward: every instantiation, bf16 and tf32, on the tensor cores,
     # its rows staged with cp.async
-    bwd = {fn: c for fn, c in sass.items() if "fused_mlp_bwd_kernel" in fn}
+    bwd = {fn: c for fn, c in sass.items()
+           if "fused_mlp_bwd_kernel" in fn and "StageClock" not in fn}
     if len(bwd) != 6 or any(c["HMMA"] == 0 or c["LDGSTS"] == 0 for c in bwd.values()):
         raise SmokeFailure(f"fused_mlp_bwd_kernel instantiations without HMMA or "
                            f"LDGSTS: {bwd}")
@@ -1854,16 +1967,21 @@ def dvnr_phases():
     feats_t = hash_encode_cuda(coords_t, tparams["tab"], res, rows_t)
     ws_t = fts._unpack(tparams, H)["mlp"]
     g_out = t(rng.choice([-1.0, 1.0], (TP, Nb, D_out)) / Nb)
+    got = fused_mlp_bwd_cuda(feats_t, ws_t, g_out, rows_t)
     errs["fused_mlp_bwd"] = check_mlp_bwd(f"P={TP} N={Nb}", feats_t, ws_t, g_out,
-                                          rows_t)
+                                          rows_t, got)
+    mlp_bwd_controls(f"P={TP} N={Nb}", feats_t, ws_t, g_out, rows_t, got)
     # bf16 operands (the unfused bf16 step's): the features of the bf16
     # tables, the weights and the cotangent rounded to bf16 (+-1/N is exact)
     tparams16 = {k: v.to(torch.bfloat16) for k, v in tparams.items()}
     feats16 = hash_encode_cuda(coords_t, tparams16["tab"], res, rows_t)
     ws16 = fts._unpack(tparams16, H)["mlp"]
     g_out16 = g_out.to(torch.bfloat16)
+    got = fused_mlp_bwd_cuda(feats16, ws16, g_out16, rows_t)
     errs["fused_mlp_bwd_bf16"] = check_mlp_bwd(f"P={TP} N={Nb} bf16", feats16, ws16,
-                                               g_out16, rows_t)
+                                               g_out16, rows_t, got)
+    mlp_bwd_controls(f"P={TP} N={Nb} bf16", feats16, ws16, g_out16, rows_t, got)
+    del got
     mlp_bwd_case_checks(dev)
     step_tie_draws(dev, tparams, H, res, coords_t, target_t, cfg)
     wants_t = step_wants(tparams, H, res, coords_t, target_t)
@@ -2318,7 +2436,7 @@ def dvnr_phases():
             svc.submit(req)
         torch.cuda.synchronize()
         with through(label):
-            busy, by_kernel, wall = profile_tick(svc.tick)
+            busy, by_kernel, wall, _ = profile_tick(svc.tick)
         if busy is None:
             print(f"  profiled tick ({label}): no device time recorded (not "
                   f"measured) [{tag}]")
@@ -2460,7 +2578,7 @@ def dvnr_phases():
     ]
     # the kernels' own device time per launch (the CUDA-event times above
     # span back-to-back wrapper calls, host work included)
-    _, dev_ms, _ = profile_tick(lambda: [k() for _, k, *_ in tspecs for _ in range(5)])
+    _, dev_ms, _, _ = profile_tick(lambda: [k() for _, k, *_ in tspecs for _ in range(5)])
     for name, kern, plain_fn, lib_fn, nbytes, (flops, bf16_flops), launches, \
             steps, symbol in tspecs:
         ms = cuda_ms(kern, reps=10)
@@ -2482,13 +2600,35 @@ def dvnr_phases():
                         "replaces": REPLACES[name], "launches": launches,
                         "max_abs_err": errs[name], "ms": ms, "plain_ms": pms,
                         "bound_ms": bms, "bound_by": by, "library_ms": lms})
+    # where the MLP backward's time goes, at the main path's shapes: its
+    # clocked instantiation's cycles by stage (each a share of the warps'
+    # summed cycles, and per warp per 16-row pass), its kernel time beside
+    # the unclocked kernel's
+    passes = TP * -(-Nb // 32) * 2
+    for label, args, symbol in (
+            ("float32", (feats_t, ws_t, g_out), "fused_mlp_bwd_kernel<float,"),
+            ("bf16", (feats16, ws16, g_out16), "fused_mlp_bwd_kernel<__nv_bfloat16,")):
+        staged = lambda: fused_mlp_bwd_stage_cycles(*args, rows_t)
+        *cyc, ns = staged()
+        clocked = launch_times(staged, "StageClock")
+        unclocked = launch_times(lambda: fused_mlp_bwd_cuda(*args, rows_t), symbol)
+        total = max(1, sum(cyc))
+        print(f"  fused_mlp_bwd {label} by stage (cycles, a clock on each warp): "
+              + ", ".join(f"{s} {c / total:.3f} ({c / passes:.0f} a pass)"
+                          for s, c in zip(BWD_STAGES, cyc))
+              + f"; {passes:,} passes; the warps' cycles over their lifetimes "
+              f"{total / max(1, ns):.3f} GHz, lifetimes {ns / 1e6:.3f} warp-ms; "
+              f"kernel clocked "
+              f"{'not measured' if clocked is None else f'{clocked[0]:.4f} ms'}, "
+              f"unclocked {'not measured' if unclocked is None else f'{unclocked[0]:.4f} ms'}"
+              f" (profiler) [{tag}]")
     # the host-sampled variant (fused_train_step, fuse_sampling="off"): the
     # same kernel reading coordinates and targets instead of drawing them
     host_kw = dict(coords=coords_t, target=target_t)
     ms = cuda_ms(lambda: fts.train_step_cuda(tparams, H, res, **host_kw), reps=10)
     pms = cuda_ms(lambda: fts_ref.train_step_grads_ref(tparams, H, res, coords_t,
                                                        target_t), reps=3)
-    _, dev_host, _ = profile_tick(
+    _, dev_host, _, _ = profile_tick(
         lambda: [fts.train_step_cuda(tparams, H, res, **host_kw) for _ in range(5)])
     kdev = [t / n for key, (t, n) in dev_host if "train_step_kernel<float," in key]
     bms, by = bound_ms(2 * (n_tab + TP * n_w) * 4 + rows * (3 + D_out) * 4 + TP * 4,
@@ -2567,7 +2707,7 @@ def dvnr_phases():
                                           **adam_kw)
     for label, fn, symbol in (("adamw_apply", cold, "adamw_kernel<false>"),
                               ("adamw_apply_master", cold16, "adamw_kernel<true>")):
-        _, dev_cold, _ = profile_tick(lambda: [(flush.zero_(), fn()) for _ in range(5)])
+        _, dev_cold, _, _ = profile_tick(lambda: [(flush.zero_(), fn()) for _ in range(5)])
         kc = [t / n for key, (t, n) in dev_cold if symbol in key]
         print(f"  {label} with the L2 flushed before each launch: kernel alone "
               f"{f'{kc[0]:.4f} ms' if kc else 'not measured'} (profiler) [{tag}]")
@@ -2580,7 +2720,7 @@ def dvnr_phases():
     # where a training chunk's time goes: PROFILE_STEPS more steps
     trainer, tstate = tinfo["trainer"], tinfo["state"]
     torch.cuda.synchronize()
-    busy, by_kernel, wall = profile_tick(
+    busy, by_kernel, wall, _ = profile_tick(
         lambda: trainer.train_chunk(tstate, vols, PROFILE_STEPS, key=1))
     if busy is None:
         print(f"  profiled chunk: no device time recorded (not measured) [{tag}]")
@@ -2609,8 +2749,21 @@ def dvnr_phases():
         _, winfo = api.train(tparts, cfg, backend="cuda", steps=COMPARE_STEPS, key=1,
                              log_every=1, fuse_train_step="off", **kw)
         wtrainer, wstate = winfo["trainer"], winfo["state"]
-        profile_host(lambda: wtrainer.train_chunk(wstate, vols, PROFILE_STEPS, key=4),
-                     PROFILE_STEPS, tag, f"unfused {policy} {PROFILE_STEPS}-step chunk")
+        torch.cuda.synchronize()
+        busy, by_kernel, wall, host = profile_tick(
+            lambda: wtrainer.train_chunk(wstate, vols, PROFILE_STEPS, key=4))
+        label, steps = f"unfused {policy} {PROFILE_STEPS}-step chunk", PROFILE_STEPS
+        if busy is None:
+            print(f"  profiled {label}: no device time recorded (not measured) [{tag}]")
+        else:
+            print(f"  profiled {label}: {wall:.2f} ms host clock ({wall / steps:.3f} "
+                  f"a step), device busy {busy:.2f} ms ({busy / steps:.3f} a step), "
+                  f"idle share {1 - busy / wall:.3f}; host ops' own CPU time "
+                  f"{sum(ms for _, (ms, _) in host):.2f} ms [{tag}]")
+            for name, (ms, n) in by_kernel[:8]:
+                print(f"    device {ms:9.3f} ms  x{n:<5d} {name[:90]}")
+            for name, (ms, n) in host[:12]:
+                print(f"    host   {ms:9.3f} ms  x{n:<5d} {name[:90]}")
         del winfo, wtrainer, wstate
     return tag, kernels, flash_err
 

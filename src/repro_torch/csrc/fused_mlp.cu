@@ -231,15 +231,16 @@ constexpr int bwd_min_blocks() {
 }
 
 // the backward for operands of type T: float (the float32 policy) or
-// __nv_bfloat16 (the bf16 policy, float32 dW)
-template <typename T, int W>
+// __nv_bfloat16 (the bf16 policy, float32 dW); Clk (mlp_mma.cuh) marks its
+// stages, into `clocks` for mm::StageClock
+template <typename T, int W, typename Clk>
 __global__ void __launch_bounds__(256, bwd_min_blocks<T, W>()) fused_mlp_bwd_kernel(
     const T* __restrict__ x, const T* __restrict__ w_in,
     const T* __restrict__ w_hid, const T* __restrict__ w_out,
     const T* __restrict__ gout, const int* __restrict__ part,
     T* __restrict__ dx, float* __restrict__ dw_in, float* __restrict__ dw_hid,
     float* __restrict__ dw_out, long long N, int D_in, int n_hidden,
-    int n_hid_slab, int D_out) {
+    int n_hid_slab, int D_out, unsigned long long* __restrict__ clocks) {
   using C = mm::Bwd<T, W>;
   extern __shared__ __align__(16) float smem[];
   const mm::Shape s{D_in, n_hidden, D_out};
@@ -263,6 +264,8 @@ __global__ void __launch_bounds__(256, bwd_min_blocks<T, W>()) fused_mlp_bwd_ker
   for (int i = lane; i < 2 * mm::TILE_ROWS * (xs + GS); i += 32)
     xb[i] = repro::from_f32<T>(0.0f);
   __syncthreads();   // the weights, and the zeros before any copy lands
+  Clk clk;
+  clk.start();
 
   // a tile's rows of x (of g) are one stretch, copied in units of V (Vg)
   // values that never straddle a row, as the forward copies x; the
@@ -308,6 +311,7 @@ __global__ void __launch_bounds__(256, bwd_min_blocks<T, W>()) fused_mlp_bwd_ker
       asm volatile("cp.async.wait_group 0;\n" ::: "memory");
     }
     __syncwarp();   // every lane's copies and zeros of this tile have landed
+    clk.mark(mm::kStageWait);
     const long long n0 = tile * mm::TILE_ROWS;
     const int rows = (int)min((long long)mm::TILE_ROWS, N - n0);
     T* xt = xb + cur * mm::TILE_ROWS * xs;
@@ -315,7 +319,7 @@ __global__ void __launch_bounds__(256, bwd_min_blocks<T, W>()) fused_mlp_bwd_ker
 #pragma unroll 1
     for (int pass = 0; pass < mm::TILE_ROWS / C::RP; ++pass)
       mm::bwd_pass<T, W>(sw, lay, xt + pass * C::RP * xs, gt + pass * C::RP * GS, act,
-                         dl, dw, s);
+                         dl, dw, s, clk);
     __syncwarp();   // dx is in the x rows
     T* dst = dx + (row0 + n0) * D_in;
     for (int u = lane; u < rows * opr; u += 32) {
@@ -323,6 +327,7 @@ __global__ void __launch_bounds__(256, bwd_min_blocks<T, W>()) fused_mlp_bwd_ker
       copy_out(dst + u * Vo, xt + r * xs + (u - r * opr) * Vo, obytes);
     }
     __syncwarp();   // read before the next copies overwrite it
+    clk.mark(mm::kStageOut);
   }
   __syncthreads();
   // the block's dW: its warps' C-fragment tiles summed, each weight added
@@ -348,15 +353,18 @@ __global__ void __launch_bounds__(256, bwd_min_blocks<T, W>()) fused_mlp_bwd_ker
       atomicAdd(dw_out + (p * W + k) * D_out + c, v);
     }
   }
+  clk.mark(mm::kStageReduce);
+  clk.flush(clocks);
 }
 
-template <typename T, int W>
+template <typename T, int W, typename Clk = mm::NoClock>
 cudaError_t launch_bwd_w(const void* x, const void* w_in, const void* w_hid,
                          const void* w_out, const void* g, const int* part,
                          void* dx, float* dw_in, float* dw_hid, float* dw_out,
                          long long B, long long N, int D_in, int n_hidden,
-                         int n_hid_slab, int D_out, cudaStream_t stream) {
-  const auto kernel = fused_mlp_bwd_kernel<T, W>;
+                         int n_hid_slab, int D_out, cudaStream_t stream,
+                         unsigned long long* clocks = nullptr) {
+  const auto kernel = fused_mlp_bwd_kernel<T, W, Clk>;
   const mm::BwdLayout lay = mm::bwd_layout<T, W>(D_in, n_hidden, D_out);
   size_t smem = 0;
   const int warps = mm::bwd_pick_warps((size_t)lay.words * 4, lay.warp_bytes, &smem);
@@ -366,13 +374,14 @@ cudaError_t launch_bwd_w(const void* x, const void* w_in, const void* w_hid,
   if (e != cudaSuccess) return e;
   const long long n_tiles = (N + mm::TILE_ROWS - 1) / mm::TILE_ROWS;
   const dim3 grid(
-      (unsigned)mm::grid_x((const void*)kernel, warps * 32, smem, n_tiles, warps, B),
+      (unsigned)mm::grid_x((const void*)kernel, warps * 32, smem, n_tiles, warps, B,
+                           true),
       (unsigned)B);
   kernel<<<grid, warps * 32, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w_in),
       static_cast<const T*>(w_hid), static_cast<const T*>(w_out),
       static_cast<const T*>(g), part, static_cast<T*>(dx), dw_in, dw_hid,
-      dw_out, N, D_in, n_hidden, n_hid_slab, D_out);
+      dw_out, N, D_in, n_hidden, n_hid_slab, D_out, clocks);
   return cudaGetLastError();
 }
 
@@ -440,4 +449,32 @@ extern "C" int repro_fused_mlp_bwd(const void* x, const void* w_in,
   return (int)(is_bf16
       ? launch_bwd<__nv_bfloat16>(x, w_in, w_hid, w_out, g, p, dx, di, dh, dout, B, N, D_in, W, n_hidden, n_hid_slab, D_out, s)
       : launch_bwd<float>(x, w_in, w_hid, w_out, g, p, dx, di, dh, dout, B, N, D_in, W, n_hidden, n_hid_slab, D_out, s));
+}
+
+// repro_fused_mlp_bwd at W = 16 with a clock on each warp: the same outputs,
+// and the warps' cycles by stage (mlp_mma.cuh BwdStage: waiting for a
+// tile's rows, recompute, delta chain, dW, dx products, dx out, the block's
+// dW sum) added to clocks[0 .. 7), their lifetimes in ns to clocks[7]
+// (zeroed by the caller). A measurement of where the kernel's time goes;
+// the marks cost a few cycles each.
+extern "C" int repro_fused_mlp_bwd_stages(const void* x, const void* w_in,
+                                          const void* w_hid, const void* w_out,
+                                          const void* g, const void* part, void* dx,
+                                          void* dw_in, void* dw_hid, void* dw_out,
+                                          long long B, long long N, int D_in, int W,
+                                          int n_hidden, int n_hid_slab, int D_out,
+                                          int is_bf16, void* clocks, void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  if (W != 16 || B > 65535 || n_hidden < 1 || D_out < 1 || D_out > 8 ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(g) % 16)
+    return (int)cudaErrorInvalidValue;
+  const int* p = static_cast<const int*>(part);
+  float* di = static_cast<float*>(dw_in);
+  float* dh = static_cast<float*>(dw_hid);
+  float* dout = static_cast<float*>(dw_out);
+  unsigned long long* c = static_cast<unsigned long long*>(clocks);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(is_bf16
+      ? launch_bwd_w<__nv_bfloat16, 16, mm::StageClock>(x, w_in, w_hid, w_out, g, p, dx, di, dh, dout, B, N, D_in, n_hidden, n_hid_slab, D_out, s, c)
+      : launch_bwd_w<float, 16, mm::StageClock>(x, w_in, w_hid, w_out, g, p, dx, di, dh, dout, B, N, D_in, n_hidden, n_hid_slab, D_out, s, c));
 }

@@ -354,9 +354,13 @@ inline int pick_warps(size_t fixed, size_t per_warp, size_t* smem) {
 // Blocks per batch row: enough for every SM to hold as many blocks as the
 // kernel's occupancy allows, and no more than the row's tiles need (each
 // block then walks its row's tiles with a grid stride, its weights loaded
-// once).
+// once). Where `one_wave`, the SMs' blocks are split over the batch rows
+// rounding down, so that every block starts at once: a block beyond what
+// the SMs hold waits for a first one to finish, and its grid-stride share
+// of tiles then ends a whole block's time after the rest.
 inline long long grid_x(const void* kernel, int threads, size_t smem,
-                        long long n_tiles, int warps, long long rows) {
+                        long long n_tiles, int warps, long long rows,
+                        bool one_wave = false) {
   int dev = 0, sms = 132, per_sm = 1;
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -364,7 +368,9 @@ inline long long grid_x(const void* kernel, int threads, size_t smem,
           cudaSuccess ||
       per_sm < 1)
     per_sm = 1;
-  const long long want = ((long long)sms * per_sm + rows - 1) / rows;
+  const long long slots = (long long)sms * per_sm;
+  const long long want = !one_wave ? (slots + rows - 1) / rows
+                         : slots >= rows ? slots / rows : 1;
   const long long need = (n_tiles + warps - 1) / warps;
   return want < need ? want : need;
 }
@@ -795,17 +801,60 @@ __device__ __forceinline__ void delta_product(const T* a, int as, int kts, int k
   store_delta<T, NT>(v, act, dst, C::AS);
 }
 
+// Where a warp's time goes in the backward, by stage: waiting for a tile's
+// rows (and issuing the next tile's copies), the recompute, the delta
+// chain, the dW products, the dx products, dx out, the block's dW sum.
+// NoClock (the kernels as they run) records nothing; StageClock adds the
+// cycles since its last mark to a stage's count, and its flush adds the
+// warp's counts and then its lifetime in ns (the global timer) to a global
+// array of kStages + 1 (a measurement: repro_fused_mlp_bwd_stages).
+enum BwdStage { kStageWait, kStageRecompute, kStageDelta, kStageDw, kStageDx,
+                kStageOut, kStageReduce, kStages };
+struct NoClock {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void flush(unsigned long long*) {}
+};
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long ns;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(ns));
+  return ns;
+}
+struct StageClock {
+  long long last;
+  unsigned long long born;
+  unsigned t[kStages];
+  __device__ __forceinline__ void start() {
+#pragma unroll
+    for (int i = 0; i < kStages; ++i) t[i] = 0;
+    born = global_ns();
+    last = clock64();
+  }
+  __device__ __forceinline__ void mark(int s) {
+    const long long now = clock64();
+    t[s] += (unsigned)(now - last);
+    last = now;
+  }
+  __device__ __forceinline__ void flush(unsigned long long* out) {
+    if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+      for (int i = 0; i < kStages; ++i) atomicAdd(out + i, (unsigned long long)t[i]);
+      atomicAdd(out + kStages, global_ns() - born);
+    }
+  }
+};
+
 // One pass of RP rows of a warp's tile through the backward: x rows at xt
 // (row stride lay.xs) and their cotangents at gt (row stride lay.gs;
 // columns at and past D_out and rows past the batch zero); the weights'
 // fragments in sw (bwd_layout); the warp's activation tiles `act` and delta
 // tiles `dl`. Adds the pass's dW to the warp's C-fragment tiles dw and
-// leaves dx, rounded to T, in the first D_in columns of the x rows. Every
-// lane of the warp calls it.
-template <typename T, int W>
+// leaves dx, rounded to T, in the first D_in columns of the x rows; marks
+// its stages on clk. Every lane of the warp calls it.
+template <typename T, int W, typename Clk>
 __device__ __forceinline__ void bwd_pass(const uint32_t* sw, const BwdLayout& lay, T* xt,
                                          const T* gt, T* act, T* dl, float* dw,
-                                         const Shape& s) {
+                                         const Shape& s, Clk& clk) {
   using C = Bwd<T, W>;
   using O = typename C::O;
   constexpr int NT = C::NT, KTW = C::KTW, FRAG = C::FRAG;
@@ -816,25 +865,31 @@ __device__ __forceinline__ void bwd_pass(const uint32_t* sw, const BwdLayout& la
   float* const dw_hid = dw + lay.mi * NT * 128;   // then dW_out's tiles
   recompute<T, W>(sw, xt, xs, s, act, LA);
   __syncwarp();
+  clk.mark(kStageRecompute);
   // delta_{H-1} = (g W_out^T) * mask_{H-1}
   const T* act_top = act + (H - 1) * LA;
   delta_product<T, W>(gt, gs, 1, s.D_out, wl + lay.t_out, act_top, dl);
   __syncwarp();
+  clk.mark(kStageDelta);
   dw_accum<T, C::RP, 1>(dw_hid + (H - 1) * MW * NT * 128, act_top, AS, W, MW, gt, gs,
                         s.D_out);
+  clk.mark(kStageDw);
   int cur = 0;
   for (int l = H - 1; l >= 1; --l) {
     const T* d = dl + cur * LA;
     dw_accum<T, C::RP, NT>(dw_hid + (l - 1) * MW * NT * 128, act + (l - 1) * LA, AS, W,
                            MW, d, AS, W);
+    clk.mark(kStageDw);
     delta_product<T, W>(d, AS, KTW, W, wl + lay.t_hid + (l - 1) * KTW * NT * FRAG,
                         act + (l - 1) * LA, dl + (cur ^ 1) * LA);
     __syncwarp();
+    clk.mark(kStageDelta);
     cur ^= 1;
   }
   const T* d0 = dl + cur * LA;
   dw_accum<T, C::RP, NT>(dw, xt, xs, s.D_in, lay.mi, d0, AS, W);
   __syncwarp();   // the x rows are read: dx goes over them
+  clk.mark(kStageDw);
   // dx = delta_0 W_in^T, one n-tile (8 columns) at a time
   typename O::A a[KTW];
 #pragma unroll
@@ -858,6 +913,7 @@ __device__ __forceinline__ void bwd_pass(const uint32_t* sw, const BwdLayout& la
       r8[col + 1] = from_f32<T>(acc[3]);
     }
   }
+  clk.mark(kStageDx);
 }
 
 }  // namespace mma

@@ -49,6 +49,8 @@ SIGNATURES = {
     # x, w_in, w_hid, w_out, g, part, dx, dw_in, dw_hid, dw_out, B, N, D_in,
     # W, n_hidden, n_hid_slab, D_out, is_bf16, stream
     "repro_fused_mlp_bwd": [_P] * 10 + [_L, _L, _I, _I, _I, _I, _I, _I, _P],
+    # the same, then clocks (8 uint64), stream
+    "repro_fused_mlp_bwd_stages": [_P] * 10 + [_L, _L, _I, _I, _I, _I, _I, _I, _P, _P],
     # coords, target, volumes, seeds, tab, win, whid, wout, g_tab, g_win,
     # g_whid, g_wout, loss_sum, g_feat, res (host memory), P, N, L, T, F, W,
     # n_hidden, n_hid_slab, D_out, nx, ny, nz, ghost, n_uniform, sigma,

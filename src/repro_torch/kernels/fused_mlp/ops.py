@@ -189,6 +189,16 @@ def fused_mlp_bwd_cuda(x: torch.Tensor, weights, g: torch.Tensor, part):
     the plain version rounds them) or raise."""
     if x.device.type == "cpu":
         return _ref.fused_mlp_batched_bwd_ref(x, weights, g, torch.as_tensor(part))
+    dx, dws = _bwd_launch("repro_fused_mlp_bwd", x, weights, g, part)
+    fused_mlp_bwd_cuda.launches += 1
+    fused_mlp_bwd_cuda.bf16_launches += int(x.dtype == torch.bfloat16)
+    return dx, dws
+
+
+def _bwd_launch(entry: str, x, weights, g, part, *extra):
+    """Check CUDA operands against :func:`bwd_refusal` and run the backward
+    C entry ``entry`` on them (``extra``: its arguments before the
+    stream): ``(dx, [dW ...])``."""
     if x.device.type != "cuda" or g.device != x.device or \
             any(w.device != x.device for w in weights):
         raise ValueError("fused_mlp_bwd_cuda: x, g and weights must lie on "
@@ -206,17 +216,32 @@ def fused_mlp_bwd_cuda(x: torch.Tensor, weights, g: torch.Tensor, part):
     dx = torch.empty_like(x)
     dw_in, dw_hid, dw_out = (torch.zeros_like(w, dtype=torch.float32)
                              for w in (w_in, w_hid, w_out))
-    lib = build.library()
-    err = lib.repro_fused_mlp_bwd(
+    err = getattr(build.library(), entry)(
         x.data_ptr(), w_in.data_ptr(), w_hid.data_ptr(), w_out.data_ptr(),
         g.data_ptr(), part_d.data_ptr(), dx.data_ptr(), dw_in.data_ptr(),
         dw_hid.data_ptr(), dw_out.data_ptr(), B, N, D_in, W, n_hidden,
-        w_hid.shape[1], D_out, int(x.dtype == torch.bfloat16),
+        w_hid.shape[1], D_out, int(x.dtype == torch.bfloat16), *extra,
         torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "repro_fused_mlp_bwd")
-    fused_mlp_bwd_cuda.launches += 1
-    fused_mlp_bwd_cuda.bf16_launches += int(x.dtype == torch.bfloat16)
+    build.check(err, entry)
     return dx, [dw_in] + [dw_hid[:, k] for k in range(n_hidden - 1)] + [dw_out]
+
+
+#: the backward's stages, in the order of ``fused_mlp_bwd_stage_cycles``
+BWD_STAGES = ("waiting for rows", "recompute", "delta chain", "dW", "dx products",
+              "dx out", "block dW sum")
+
+
+def fused_mlp_bwd_stage_cycles(x, weights, g, part) -> list:
+    """A measurement of where the backward kernel's time goes: one launch
+    of its W = 16 instantiation with a clock on each warp
+    (``repro_fused_mlp_bwd_stages``), on CUDA operands that
+    :func:`fused_mlp_bwd_cuda` takes; returns the warps' summed cycles in
+    each of ``BWD_STAGES`` and then their summed lifetimes in ns (so the
+    SM clock is the cycles over the ns). Not a launch of the main path: no
+    count."""
+    clocks = torch.zeros(len(BWD_STAGES) + 1, dtype=torch.int64, device=x.device)
+    _bwd_launch("repro_fused_mlp_bwd_stages", x, weights, g, part, clocks.data_ptr())
+    return clocks.tolist()
 
 
 #: launches of the kernel, and of its bf16 instantiation among them
