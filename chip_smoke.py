@@ -49,7 +49,24 @@ toolkit; imports nothing of JAX or of the JAX package. Phases:
            256x256, 64 samples, every frame finite, one tick against the
            plain path; the launch counters are zeroed just before the ticks:
            the INR inference kernel must launch in every tick, compositing
-           during them, the encode and MLP forward kernels never;
+           during them, the encode and MLP forward kernels never
+           (``use_cache=False``: INR inference per sample);
+4b. cache  the same model through a ``BrickCache`` (256^3 a partition in
+           bricks of 16, a 1 GiB pool: 32,768 bricks, 54,637 slots): the
+           cold fill (host clock and device time; one INR inference launch
+           per chunk) and warm ``ensure``, the pool against the plain fill;
+           a cold and 3 warm cached ticks (counters zeroed just before: the
+           inference kernel in the fills only, compositing in every tick,
+           the encode and MLP forward kernels never), cold-cache frames
+           equal to warm ones bit for bit and within 1e-5 of the plain
+           path's cached frames, cached and uncached ticks in turns (host
+           clock, peak memory: the cached at most the uncached + 2 GiB),
+           one profiled cached tick; a bf16 pool within 0.05 of the f32
+           pool's frames; a ``TemporalModelCache(window=2)`` of the model
+           and a perturbed copy, raw and compressed, served at timesteps
+           0, 1, 0, 1, 1 through a fresh cache: 10,899 evictions at each
+           switch, every one of the stale timestep, the last ``ensure``
+           all hits;
 5. train   ``api.train(backend="cuda")`` of the 8 PRODUCTION256 partitions
            of a 512^3 CloverLeaf for 512 steps at the full batch, counters
            zeroed just before: the train-step and AdamW kernels must have
@@ -62,7 +79,8 @@ toolkit; imports nothing of JAX or of the JAX package. Phases:
 6. report  per-tick and per-kernel times (CUDA events) with each kernel's
            bound, its plain version's time and a PyTorch yardstick (for the
            INR inference kernel the encode + MLP pair back to back, at the
-           tick's shapes and on a 2^22 decode chunk), a tick's peak memory
+           tick's shapes and on a 2^22 decode chunk; the MLP forward also
+           under bf16 against the bf16 bmm + relu chain), a tick's peak memory
            and host time with and without the inference route, and the
            device's idle share over one profiled serving tick, one
            profiled training chunk and one unfused chunk per policy (the
@@ -125,7 +143,8 @@ REPLACES = {
 }
 # the bf16 policy's instantiations replace the same TPU kernels (which take
 # the compute dtype and a master copy as options)
-REPLACES.update({"hash_encode_bwd_bf16": REPLACES["hash_encode_bwd"],
+REPLACES.update({"fused_mlp_fwd_bf16": REPLACES["fused_mlp_fwd"],
+                 "hash_encode_bwd_bf16": REPLACES["hash_encode_bwd"],
                  "fused_mlp_bwd_bf16": REPLACES["fused_mlp_bwd"],
                  "train_step_bf16": REPLACES["train_step"],
                  "adamw_apply_master": REPLACES["adamw_apply"],
@@ -134,6 +153,9 @@ REPLACES.update({"hash_encode_bwd_bf16": REPLACES["hash_encode_bwd"],
 DECODE_EDGE = 256          # phase 3: one 256^3 partition
 LOCAL_EDGE = 256           # phase 4: 2x2x2 partitions of 256^3 each
 IMAGE, SAMPLES, CLIENTS, TICKS = 256, 64, 2, 4
+# phase 4b: the brick cache's decode grid a partition, brick edge, pool
+# budget; warm cached ticks after the cold one
+CACHE_EDGE, BRICK_EDGE, CACHE_BUDGET, CACHED_WARM_TICKS = 256, 16, 1 << 30, 3
 CHECK_N = (100_003, 4_099)   # phase 2 coordinate rows (ragged)
 DECODE_CHUNK = 1 << 22
 TRAIN_EDGE = 256             # phases 2 and 5: 2x2x2 partitions of 256^3 each
@@ -182,6 +204,7 @@ SOURCES = {
     "train_step": "src/repro_torch/csrc/train_step.cuh",
     "adamw_apply": "src/repro_torch/csrc/adamw.cu",
     "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+    "fused_mlp_fwd_bf16": "src/repro_torch/csrc/fused_mlp.cu",
     "hash_encode_bwd_bf16": "src/repro_torch/csrc/hash_encode.cu",
     "fused_mlp_bwd_bf16": "src/repro_torch/csrc/fused_mlp.cu",
     "train_step_bf16": "src/repro_torch/csrc/train_step_bf16.cu",
@@ -1553,10 +1576,12 @@ def bf16_training(tparts, vols, cfg, train_wrappers, tag, f32_run) -> dict:
     reference (``f32_run["losses"]``); the two runs' PSNRs within 1 dB.
     Each ``evaluate`` must take the bf16 INR inference kernel (counters
     zeroed just before it). Returns the bf16 kernels' launches of the two
-    runs (``inr_forward``: their evaluates')."""
+    runs (``inr_forward``: their evaluates'; ``fused_mlp_fwd``: the MLP
+    forward's, every one of them bf16 under this policy)."""
     import numpy as np
     import torch
     from repro_torch import api
+    from repro_torch.kernels.fused_mlp.ops import fused_mlp_cuda
     from repro_torch.kernels.inr_forward.ops import inr_forward_cuda
     TP, Nb = len(tparts), cfg.batch_size
     print(f"  bf16 policy: {TRAIN_STEPS} steps, fused then unfused")
@@ -1564,11 +1589,13 @@ def bf16_training(tparts, vols, cfg, train_wrappers, tag, f32_run) -> dict:
     for fuse in ("auto", "off"):
         for w in train_wrappers.values():
             w.launches = w.bf16_launches = 0
+        fused_mlp_cuda.launches = 0
         torch.cuda.synchronize()
         _, info = api.train(tparts, cfg, backend="cuda", steps=TRAIN_STEPS,
                             key=0, log_every=1, precision="bf16",
                             fuse_train_step=fuse)
         torch.cuda.synchronize()
+        fwd_launches = fused_mlp_cuda.launches
         st = info["state"]
         launches = {n: (w.launches, w.bf16_launches)
                     for n, w in train_wrappers.items()}
@@ -1609,6 +1636,7 @@ def bf16_training(tparts, vols, cfg, train_wrappers, tag, f32_run) -> dict:
         runs[fuse] = {"losses": losses, "psnr": ev["psnr"], "ms": ms}
         out[fuse] = {n: b for n, (_, b) in launches.items()}
         out[fuse]["inr_forward"] = inr[1]
+        out[fuse]["fused_mlp_fwd"] = fwd_launches
         print(f"  bf16 {'fused' if fuse == 'auto' else 'unfused'}: "
               f"{info['train_time_s']:.3f} s, {ms:.4f} ms per step, "
               f"{TP * Nb * TRAIN_STEPS / info['train_time_s']:.4g} samples/s, "
@@ -1690,6 +1718,245 @@ def mixed_policy_checks(tparts, cfg, train_wrappers) -> None:
                   losses, ref, atol=0.0, rtol=BF16_LOSS_RTOL)
             del info
         del rinfo
+
+
+def cached_phase(model, requests, wrappers, tag, dev, uncached) -> None:
+    """Phase 4b: the cached serving path and the temporal path on phase 4's
+    model (8 PRODUCTION256 partitions, tables U(-1,1)).
+
+    A ``BrickCache`` of CACHE_EDGE^3 voxels a partition in bricks of
+    BRICK_EDGE, CACHE_BUDGET bytes of pool: a cold ``ensure`` (host clock,
+    then again under the profiler for the fills' device time; one INR
+    inference launch per fill chunk, no encode or MLP forward launch), warm
+    ``ensure`` calls, the pool against the same fill through the plain path
+    (``backend="ref"``, phase 3's decode tolerance). Ticks of
+    ``RenderService(model, cache=...)``, counters zeroed just before them:
+    a cold tick (the cache cleared) and CACHED_WARM_TICKS warm ones, the
+    inference kernel launching in the cold tick's fills and never in a warm
+    one, compositing in every tick, the encode and MLP forward kernels never;
+    the cold tick's frames against the same requests warm (bit for bit) and
+    against the plain path's cached frames (1e-5); cached and uncached ticks
+    in turns, host clock and peak memory above each tick's start (the
+    cached at most the uncached + 2 GiB); one profiled cached tick. A bf16
+    pool (bf16 storage and decode) against the f32 pool's frames (0.05).
+    The temporal path: a ``TemporalModelCache(window=2)`` of the model and a
+    perturbed copy, raw (``compress=False``) and compressed, served at
+    timesteps 0, 1, 0, 1, 1 through a fresh cache of the same geometry:
+    each switch of timestep evicts 2 x working set - slots bricks, every
+    one of the stale timestep, and the last ``ensure`` is all hits."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.core.temporal import TemporalModelCache
+    from repro_torch.kernels.inr_forward.ops import inr_forward_cuda
+    from repro_torch.serving import BrickCache, RenderService
+    from repro_torch.serving.cache import FILL_POINTS
+
+    cfg, P = model.cfg, model.n_partitions
+    geo = dict(grid_shape=(CACHE_EDGE,) * 3, brick_edge=BRICK_EDGE,
+               budget_bytes=CACHE_BUDGET, device=dev)
+    cache = BrickCache(cfg, backend="cuda", **geo)
+    bpp = cache.bricks_per_partition(0)
+    work, E = P * bpp, BRICK_EDGE + 1
+    per_chunk = max(1, FILL_POINTS // E ** 3)
+    fill_launches = P * -(-bpp // per_chunk)
+    print(f"  BrickCache {CACHE_EDGE}^3 a partition in bricks of {BRICK_EDGE}: "
+          f"{bpp:,} bricks a partition, {work:,} in all; {cache.slot_bytes:,} B a "
+          f"slot, {cache.n_slots:,} slots ({cache.pool_bytes:,} B pool); working "
+          f"set {work * cache.slot_bytes:,} B; one fill {work * E ** 3:,} points "
+          f"in {fill_launches} INR calls")
+
+    def zero():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def counts():
+        return {n: w.launches for n, w in wrappers.items()}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # ---- the fills: cold (host clock, synchronised), then under the
+    # profiler (the fills' device time), then warm ensure calls
+    zero()
+    _, cold_ms = timed(lambda: cache.ensure(model))
+    cold = counts()
+    print(f"  cold ensure: {cold_ms:.2f} ms (host clock, synchronised), launches "
+          f"{cold} [{tag}]")
+    if cold["inr_forward"] != fill_launches or cold["hash_encode"] or \
+            cold["fused_mlp_fwd"]:
+        raise SmokeFailure(f"the cold fill did not take the inference route "
+                           f"({fill_launches} chunks): {cold}")
+    cache.clear()
+    busy, by_kernel, wall, _ = profile_tick(lambda: cache.ensure(model))
+    if busy is None:
+        print(f"  profiled cold ensure: no device time recorded (not measured) "
+              f"[{tag}]")
+    else:
+        print(f"  profiled cold ensure: {wall:.2f} ms host clock, device busy "
+              f"{busy:.2f} ms (the fills' device time), idle share "
+              f"{1 - busy / wall:.3f} [{tag}]")
+        for name, (ms, n) in by_kernel[:6]:
+            print(f"    {ms:9.3f} ms  x{n:<4d} {name[:90]}")
+    warm_ms = [timed(lambda: cache.ensure(model))[1] for _ in range(3)]
+    print(f"  warm ensure: {[round(x, 3) for x in warm_ms]} ms (host clock; "
+          f"{work:,} lookups, all hits) [{tag}]")
+    ref = BrickCache(cfg, backend="ref", **geo)
+    _, ref_ms = timed(lambda: ref.ensure(model))
+    print(f"  the same cold fill through the plain path: {ref_ms:.2f} ms [{tag}]")
+    scale = max(1.0, float(ref.pool.abs().max()))
+    check("brick pool: cuda fill vs ref fill", cache.pool, ref.pool,
+          atol=2e-6 * scale)
+
+    # ---- cached ticks: cold, then warm
+    svc = RenderService(model, backend="cuda", cache=cache)
+    plain = RenderService(model, backend="ref", cache=ref)
+
+    def frames_of(service, reqs):
+        for req in reqs:
+            service.submit(req)
+        resp = service.tick()
+        if len(resp) != len(reqs):
+            raise SmokeFailure(f"{len(resp)} responses for {len(reqs)} requests")
+        out = np.stack([r.frame for r in resp])
+        if not np.isfinite(out).all():
+            raise SmokeFailure("a cached tick rendered a non-finite frame")
+        return out
+
+    cache.clear()
+    zero()
+    tick_ms, per_tick, first = [], [], None
+    for i in range(1 + CACHED_WARM_TICKS):
+        before = counts()
+        f, ms = timed(lambda: frames_of(svc, requests(i)))
+        after = counts()
+        per_tick.append({n: after[n] - before[n] for n in after})
+        tick_ms.append(ms)
+        first = f if first is None else first
+    launches = counts()
+    print(f"  launches during the {1 + CACHED_WARM_TICKS} cached ticks: "
+          f"{launches}; per tick {per_tick}")
+    if per_tick[0]["inr_forward"] != fill_launches or \
+            any(t["inr_forward"] for t in per_tick[1:]) or \
+            any(t["composite"] <= 0 for t in per_tick) or \
+            launches["hash_encode"] or launches["fused_mlp_fwd"]:
+        raise SmokeFailure(f"cached ticks: the inference kernel must launch in "
+                           f"the cold tick's fills only and compositing in every "
+                           f"tick: {per_tick}")
+    print(f"  cached ticks: cold {tick_ms[0]:.2f} ms (fills included), warm "
+          f"{[round(x, 3) for x in tick_ms[1:]]} ms (host clock incl. frame "
+          f"copy) [{tag}]")
+    warm0 = frames_of(svc, requests(0))
+    if not np.array_equal(first, warm0):
+        raise SmokeFailure(f"cold-cache and warm-cache frames differ: "
+                           f"{float(np.abs(first - warm0).max()):.3e}")
+    print("  cold-cache frames == warm-cache frames, bit for bit  ok")
+    check("cached tick frames: cuda vs ref", torch.from_numpy(warm0),
+          torch.from_numpy(frames_of(plain, requests(0))), atol=1e-5)
+    del plain, ref
+
+    # ---- cached and uncached ticks in turns: host clock, peak memory above
+    # each tick's start (the pools were allocated before either)
+    def tick_run(service):
+        for req in requests(1):
+            service.submit(req)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        service.tick()
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t0) * 1e3,
+                (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+
+    turns = {"cached": [], "uncached": []}
+    for label in ("uncached", "cached", "cached", "uncached"):
+        turns[label].append(tick_run(svc if label == "cached" else uncached))
+    for label, rs in turns.items():
+        print(f"  {label} tick: {[round(ms, 3) for ms, _ in rs]} ms (host clock), "
+              f"peak memory above the tick's start {[round(g, 3) for _, g in rs]} "
+              f"GiB [{tag}]")
+    peak_c = max(g for _, g in turns["cached"])
+    peak_u = max(g for _, g in turns["uncached"])
+    if peak_c > peak_u + 2.0:
+        raise SmokeFailure(f"the cached tick's peak {peak_c:.3f} GiB exceeds the "
+                           f"uncached {peak_u:.3f} GiB + 2 GiB")
+    for req in requests(2):
+        svc.submit(req)
+    torch.cuda.synchronize()
+    busy, by_kernel, wall, _ = profile_tick(svc.tick)
+    if busy is None:
+        print(f"  profiled cached tick: no device time recorded (not measured) "
+              f"[{tag}]")
+    else:
+        print(f"  profiled cached tick: {wall:.2f} ms host clock, device busy "
+              f"{busy:.2f} ms, idle share {1 - busy / wall:.3f} [{tag}]")
+        for name, (ms, n) in by_kernel[:12]:
+            print(f"    {ms:9.3f} ms  x{n:<4d} {name[:90]}")
+    del svc, cache
+    torch.cuda.empty_cache()
+
+    # ---- a bf16 pool (bf16 storage, bf16 decode) against the f32 frames
+    bf = BrickCache(cfg, backend="cuda", dtype="bfloat16",
+                    compute_dtype="bfloat16", **geo)
+    svc16 = RenderService(model, backend="cuda", cache=bf)
+    inr_forward_cuda.bf16_launches = 0
+    f16 = frames_of(svc16, requests(0))
+    if inr_forward_cuda.bf16_launches != fill_launches:
+        raise SmokeFailure(f"the bf16 pool's fills made "
+                           f"{inr_forward_cuda.bf16_launches} bf16 inference "
+                           f"launches, not {fill_launches}")
+    check("bf16 pool frames vs f32 pool frames", torch.from_numpy(f16),
+          torch.from_numpy(warm0), atol=0.05)
+    del svc16, bf
+    torch.cuda.empty_cache()
+
+    # ---- the temporal path
+    sp = model.stacked_params()
+    bumped = {"tables": sp["tables"] + 0.05, "mlp": sp["mlp"]}
+    for compress in (False, True):
+        tc = TemporalModelCache(cfg, window=2, device=dev)
+        _, append_ms = timed(lambda: (tc.append(0, sp, compress=compress),
+                                      tc.append(1, bumped, compress=compress)))
+        tcache = BrickCache(cfg, backend="cuda", trace=True, **geo)
+        stale = max(0, 2 * work - tcache.n_slots)
+        tsvc = RenderService(temporal=tc, cfg=cfg, parts_meta=model.parts_meta,
+                             grange=model.grange, backend="cuda", cache=tcache)
+        per_call, trace_ms, by_ts = [], [], {}
+        for k, ts in enumerate((0, 1, 0, 1, 1)):
+            n = len(tcache.events)
+            reqs = [dataclasses.replace(r, timestep=ts) for r in requests(k)]
+            f, ms = timed(lambda: frames_of(tsvc, reqs))
+            trace_ms.append(ms)
+            by_ts.setdefault(ts, f)
+            evicted = [key for kind, key in tcache.events[n:] if kind == "evict"]
+            if any(key[2] != 1 - ts for key in evicted):
+                raise SmokeFailure(f"timestep {ts}: a brick of the requested "
+                                   f"timestep was evicted")
+            per_call.append(len(evicted))
+        st = tcache.stats()
+        label = "compressed" if compress else "raw f16"
+        print(f"  temporal ({label}, {tc.total_bytes:,} B for 2 x {P} "
+              f"partitions, appended in {append_ms:.1f} ms): evictions per "
+              f"ensure {per_call}, hit rate {st['hit_rate']:.4f}, warm "
+              f"timesteps {tsvc.warm_timesteps}, ticks "
+              f"{[round(x, 1) for x in trace_ms]} ms (host clock) [{tag}]")
+        last = tcache.events[-work:]
+        if per_call != [0, stale, stale, stale, 0] or \
+                any(kind != "hit" for kind, _ in last):
+            raise SmokeFailure(f"temporal ({label}): evictions {per_call}, want "
+                               f"[0, {stale}, {stale}, {stale}, 0] and the last "
+                               f"ensure all hits")
+        if np.array_equal(by_ts[0], by_ts[1]):
+            raise SmokeFailure(f"temporal ({label}): timesteps 0 and 1 rendered "
+                               f"the same frames")
+        del tsvc, tcache, tc
+        torch.cuda.empty_cache()
 
 
 def dvnr_phases():
@@ -2105,7 +2372,7 @@ def dvnr_phases():
                                   width=Wd, height=Hd, n_samples=S)
                 for c in range(C)]
 
-    svc = RenderService(model, backend="cuda")
+    svc = RenderService(model, backend="cuda", use_cache=False)
     for w in wrappers.values():
         w.launches = 0
     tick_ms, first_frames, inr_per_tick = [], None, []
@@ -2135,7 +2402,7 @@ def dvnr_phases():
     for i, ms in enumerate(tick_ms):
         print(f"  tick {i}: {ms:.2f} ms ({C} clients {Wd}x{Hd}x{S}, host clock "
               f"incl. frame copy) [{tag}]")
-    plain = RenderService(model, backend="ref")
+    plain = RenderService(model, backend="ref", use_cache=False)
     for req in requests(0):
         plain.submit(req)
     plain_frames = np.stack([r.frame for r in plain.tick()])
@@ -2143,6 +2410,12 @@ def dvnr_phases():
                       torch.from_numpy(plain_frames), atol=1e-5)
     print(f"  frame alpha mean {float(first_frames[..., 3].mean()):.4f}, "
           f"rgb mean {float(first_frames[..., :3].mean()):.4f}")
+    del plain
+
+    # ---------------------------------------------------------------- 4b
+    print(f"== phase 4b: cached serving and the temporal path on phase 4's "
+          f"model")
+    cached_phase(model, requests, wrappers, tag, dev, svc)
 
     # ---------------------------------------------------------------- 5
     print(f"== phase 5: api.train of {TP} PRODUCTION256 partitions (2x2x2 "
@@ -2340,8 +2613,40 @@ def dvnr_phases():
                         "max_abs_err": max(err, inr_errs[name]), "ms": ms,
                         "plain_ms": pms, "bound_ms": bms, "bound_by": by,
                         "library_ms": None})
-    # rows 2 and 9b under bf16: each kernel's own device time per launch
+    # row 2b, the MLP forward under bf16 at the tick's shapes (bf16 features
+    # and weights): against its plain version and the bf16 bmm + relu
+    # chain; bound: bf16 features in and out, weights once, the products at
+    # the bf16 peak; launches: the bf16 unfused training run's
     tick16 = feats.to(torch.bfloat16)
+
+    def mlp_chain16():
+        h = tick16
+        for w in sp16["mlp"][:-1]:
+            h = torch.relu(torch.bmm(h, w[rows_d]))
+        return torch.bmm(h, sp16["mlp"][-1][rows_d])
+
+    kern = lambda: fused_mlp_cuda(tick16, sp16["mlp"], rows)
+    plain_fn = lambda: fused_mlp_batched_ref(tick16, sp16["mlp"], rows_d)
+    got, want = kern()[hitm], plain_fn()[hitm]
+    scale = max(1.0, float(want.float().abs().max()))
+    err = check("fused_mlp_fwd_bf16 at tick shapes (hit rays)", got, want,
+                atol=2.0 ** -7 * scale, rtol=2.0 ** -7)
+    del got, want
+    ms, pms, lms = cuda_ms(kern, reps=10), cuda_ms(plain_fn, reps=3), \
+        cuda_ms(mlp_chain16, reps=5)
+    bms, by = bound_ms(Bn * Nn * (D_in + cfg.out_dim) * 2 + P * 2 * sum(
+        w.shape[1] * w.shape[2] for w in sp["mlp"]), 0.0,
+        bf16_flops=2 * Bn * Nn * (D_in * W + (nH - 1) * W * W + W * cfg.out_dim))
+    n16 = bf16_runs["off"]["fused_mlp_fwd"]
+    print(f"  {'fused_mlp_fwd_bf16':<16s} {ms:9.3f} ms  bound {bms:8.3f} ms ({by})  "
+          f"plain {pms:9.3f} ms  library {lms:.3f} ms (bf16 bmm+relu chain)  "
+          f"launches/unfused bf16 step {n16 / TRAIN_STEPS:.0f} [{tag}]")
+    kernels.append({"name": "fused_mlp_fwd_bf16", "route": "cuda",
+                    "source": SOURCES["fused_mlp_fwd_bf16"],
+                    "replaces": REPLACES["fused_mlp_fwd_bf16"], "launches": n16,
+                    "max_abs_err": err, "ms": ms, "plain_ms": pms,
+                    "bound_ms": bms, "bound_by": by, "library_ms": lms})
+    # rows 2b and 9b: each kernel's own device time per launch
     for name, fn, symbol in (
             ("fused_mlp_fwd bf16", lambda: fused_mlp_cuda(tick16, sp16["mlp"], rows),
              "fused_mlp_fwd_kernel<__nv_bfloat16,"),

@@ -3,17 +3,23 @@
 A second package beside the JAX reference ``repro``: the same modules, names
 and parameter layouts, written in PyTorch for an NVIDIA H100, with the TPU
 kernels re-written by hand in CUDA C++ (``csrc/``). It imports nothing of
-``repro`` or of JAX. It trains (``api.train``) and serves frames (inference
-and rendering), and serves the inherited dense LM stack
+``repro`` or of JAX. It trains (``api.train``), compresses models and keeps
+a temporal window of them, serves frames (inference and rendering, through
+a brick cache or not), and serves the inherited dense LM stack
 (``models.build_model``: prefill and KV-cache decode).
 
-- ``repro_torch.api``       ``train``, ``DVNRModel``
-                            (init/from_state/apply/decode_grid/save/load)
-                            and ``render``
+- ``repro_torch.api``       ``train``, ``DVNRModel`` (init/from_state/
+                            from_compressed/apply/decode_grid/compress/
+                            save/load), ``render``, ``compress`` /
+                            ``decompress``
 - ``repro_torch.core``      the INR, the counter-based sampler, the trainer,
-                            metrics and the renderer
+                            metrics, the renderer and the temporal model
+                            cache
+- ``repro_torch.compress``  the error-bounded codecs and model compression
+                            (the JAX package's blobs, byte for byte)
 - ``repro_torch.optim``     AdamW
-- ``repro_torch.serving``   ``RenderService``: batched multi-client ticks
+- ``repro_torch.serving``   ``RenderService``: batched multi-client ticks in
+                            front of the ``BrickCache``
 - ``repro_torch.backends``  ``ref`` (plain PyTorch) / ``cuda`` (the kernels);
                             ``"auto"`` means the GPU and raises without one
 - ``repro_torch.models``    the LM stack: layers, GQA attention, the

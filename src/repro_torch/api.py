@@ -1,12 +1,14 @@
-"""repro_torch.api — the training and serving subset of the DVNR facade.
+"""repro_torch.api — the DVNR facade without isosurfaces and pathlines.
 
 The port of ``repro.api``: :func:`train` (one INR per partition, no
 communication), :class:`DVNRModel` (config + single or partition-stacked
-params + partition metadata) with ``init`` / ``from_state`` / ``partition``
-/ ``stacked_params`` / ``meta_arrays`` / ``apply`` / ``decode_grid`` /
-``save`` / ``load``, the frozen request objects, and the uncached
-:func:`render`. Compression, isosurfaces and pathlines come with later
-slices.
+params + partition metadata) with ``init`` / ``from_state`` /
+``from_compressed`` / ``partition`` / ``stacked_params`` / ``meta_arrays``
+/ ``apply`` / ``decode_grid`` / ``compress`` / ``save`` / ``load``, the
+frozen request objects, :func:`render` (through INR inference, or from a
+:class:`repro_torch.serving.BrickCache` with ``cache=``) and
+:func:`compress` / :func:`decompress` (the JAX package's blobs, byte for
+byte). Isosurfaces and pathlines come with a later slice.
 
 Models saved by either package load in the other: :meth:`DVNRModel.save`
 writes the JAX package's msgpack format byte for byte (``msgpack`` is
@@ -27,9 +29,13 @@ import torch
 
 from repro_torch import backends
 from repro_torch.backends import BackendLike, resolve_device
+from repro_torch.compress.model_compress import (compress_stacked,
+                                                 decompress_model)
+from repro_torch.compress.registry import (available_codecs, get_codec,
+                                           register_codec)
 from repro_torch.configs.dvnr import DVNRConfig
 from repro_torch.core.inr import (_decode_grid, _inr_apply, init_inr,
-                                  param_count)
+                                  param_bytes_f16, param_count)
 from repro_torch.core.render import Camera
 from repro_torch.core.sampling import as_key, split
 from repro_torch.core.trainer import DVNRState, DVNRTrainer, train_iterations
@@ -37,7 +43,8 @@ from repro_torch.precision import Precision, resolve_precision
 
 __all__ = [
     "DVNRModel", "PartitionMeta", "Camera", "TransferFunction",
-    "RenderRequest", "train", "render", "save", "load", "DVNRConfig",
+    "RenderRequest", "train", "render", "compress", "decompress", "save",
+    "load", "get_codec", "register_codec", "available_codecs", "DVNRConfig",
     "DVNRTrainer", "Precision", "resolve_precision",
 ]
 
@@ -106,9 +113,11 @@ class TransferFunction:
 @dataclass(frozen=True, eq=False)
 class RenderRequest:
     """One render ask: camera, transfer function, image and ray-march
-    resolution, and the reduced inference / output dtypes. ``iso``,
-    ``timestep`` and ``lod`` are carried for the later slices (isosurface,
-    temporal cache, brick cache) and group requests in the service."""
+    resolution, and the reduced inference / output dtypes. ``timestep``
+    selects a model of the render service's temporal cache, ``lod`` the
+    brick cache's level of detail (level ``l`` decodes at
+    ``ceil(shape / 2**l)``; cache path only); ``iso`` is carried for the
+    isosurface slice. All of them group requests in the service."""
 
     camera: Camera = Camera()
     tf: TransferFunction = TransferFunction()
@@ -167,6 +176,24 @@ class DVNRModel:
                    parts_meta=None) -> "DVNRModel":
         """Wrap a trainer state's stacked params."""
         return cls(cfg, state.params, _meta_tuple(parts_meta))
+
+    @classmethod
+    def from_compressed(cls, cfg: DVNRConfig, blobs, parts_meta=None,
+                        grange=None, *, device="auto") -> "DVNRModel":
+        """Rebuild a model from :meth:`compress` output (list of blobs, one
+        per partition; a single ``bytes`` blob is accepted too), either
+        package's, onto ``device``."""
+        if isinstance(blobs, (bytes, bytearray)):
+            blobs = [bytes(blobs)]
+        dev = resolve_device(device)
+        parts = [decompress_model(cfg, b, device=dev) for b in blobs]
+        if len(parts) == 1:
+            params = parts[0]
+        else:
+            params = {"tables": torch.stack([p["tables"] for p in parts]),
+                      "mlp": [torch.stack(ws) for ws in
+                              zip(*(p["mlp"] for p in parts))]}
+        return cls(cfg, params, _meta_tuple(parts_meta), grange)
 
     @property
     def device(self) -> torch.device:
@@ -238,6 +265,15 @@ class DVNRModel:
         return _decode_grid(self.cfg, self.params, shape,
                             backends.resolve(backend), chunk,
                             compute_dtype=compute_dtype, out_dtype=out_dtype)
+
+    # ------------------------------ compression ------------------------- #
+    def compress(self, r_enc: Optional[float] = None,
+                 r_mlp: Optional[float] = None, **codec_kw) -> list:
+        """Error-bounded weight compression (paper III-D) of every partition.
+        Returns one blob per partition. Codec selection by name via
+        ``dense_codec=`` / ``hash_codec=`` / ``mlp_codec=``."""
+        blobs, _ = compress(self, r_enc=r_enc, r_mlp=r_mlp, **codec_kw)
+        return blobs
 
     # ------------------------------ persistence ------------------------- #
     def save(self, path) -> None:
@@ -394,24 +430,55 @@ def train(partitions, cfg: DVNRConfig, *, backend: BackendLike = "auto",
 
 def render(model: DVNRModel, request: Optional[RenderRequest] = None, *,
            backend: BackendLike = "auto", cache=None):
-    """Sort-last direct volume rendering of the DVNR, through INR inference
-    (never decodes a grid). Returns the (H, W, 4) frame, f32 unless
-    ``request.out_dtype`` says otherwise. ``cache`` (the brick cache) comes
-    with a later slice."""
-    from repro_torch.core.render import _render_distributed
+    """Sort-last direct volume rendering of the DVNR (never decodes a grid).
+    Returns the (H, W, 4) frame, f32 unless ``request.out_dtype`` says
+    otherwise. ``cache`` (a :class:`repro_torch.serving.BrickCache`) swaps
+    per-frame INR inference for trilinear sampling of its decoded brick pool
+    (``request.lod`` / ``request.timestep`` select the cached level);
+    without it every frame runs INR inference."""
+    from repro_torch.core.render import (_render_distributed,
+                                         _render_distributed_sampled)
 
-    if cache is not None:
-        raise NotImplementedError("render(cache=...) needs the BrickCache "
-                                  "slice, which is not ported yet")
     if model.parts_meta is None:
         raise ValueError("render() needs model.parts_meta")
     r = RenderRequest() if request is None else request
+    b = backends.resolve(backend)
+    tf_table = r.tf.resolved_table(model.device)
+    if cache is not None:
+        view = cache.ensure(model, level=r.lod, timestep=r.timestep)
+        return _render_distributed_sampled(
+            view.pool, view.slots, view.grid_shape, view.brick_edge,
+            model.meta_arrays(), r.camera, r.width, r.height, model.grange,
+            n_samples=r.n_samples, impl=b, tf_table=tf_table,
+            density=r.tf.density, compute_dtype=r.compute_dtype,
+            out_dtype=r.out_dtype)
     return _render_distributed(
         model.cfg, model.stacked_params(), None, r.camera, r.width, r.height,
-        model.grange, n_samples=r.n_samples, impl=backends.resolve(backend),
-        tf_table=r.tf.resolved_table(model.device), density=r.tf.density,
-        compute_dtype=r.compute_dtype, out_dtype=r.out_dtype,
-        metas=model.meta_arrays())
+        model.grange, n_samples=r.n_samples, impl=b, tf_table=tf_table,
+        density=r.tf.density, compute_dtype=r.compute_dtype,
+        out_dtype=r.out_dtype, metas=model.meta_arrays())
+
+
+def compress(model: DVNRModel, *, r_enc: Optional[float] = None,
+             r_mlp: Optional[float] = None, **codec_kw) -> Tuple[list, dict]:
+    """Compress every partition; returns (blobs, info) where info aggregates
+    byte counts and the model compression ratio vs fp16 storage."""
+    pairs = compress_stacked(model.cfg, model.stacked_params(),
+                             r_enc=r_enc, r_mlp=r_mlp, **codec_kw)
+    blobs = [b for b, _ in pairs]
+    total = sum(len(b) for b in blobs)
+    f16 = model.n_partitions * param_bytes_f16(model.cfg)
+    info = {"bytes": total, "f16_bytes": f16,
+            "model_cr": f16 / max(total, 1),
+            "per_partition": [i for _, i in pairs]}
+    return blobs, info
+
+
+def decompress(cfg: DVNRConfig, blobs, *, parts_meta=None, grange=None,
+               device="auto") -> DVNRModel:
+    """Inverse of :func:`compress`, onto ``device``."""
+    return DVNRModel.from_compressed(cfg, blobs, parts_meta, grange,
+                                     device=device)
 
 
 def save(model: DVNRModel, path) -> None:

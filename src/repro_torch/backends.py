@@ -26,10 +26,10 @@ from repro_torch.precision import SUPPORTED_DTYPES, torch_dtype
 OPS = ("hash_encoding", "fused_mlp", "composite", "flash_attention",
        "fused_train_step", "fused_sampling", "tiled_sampling", "brick_cache")
 
-#: ops the port implements so far (the others come with later slices)
+#: ops the port implements (every op of ``OPS``)
 PORTED_OPS = frozenset({"hash_encoding", "fused_mlp", "composite",
                         "flash_attention", "fused_train_step",
-                        "fused_sampling", "tiled_sampling"})
+                        "fused_sampling", "tiled_sampling", "brick_cache"})
 
 
 @dataclass(frozen=True)
@@ -46,6 +46,8 @@ class Backend:
     priority: int = 0
     capabilities: frozenset = field(default_factory=frozenset)
     dtypes: Tuple[str, ...] = SUPPORTED_DTYPES
+    # default device-memory budget of a BrickCache pool on this backend
+    cache_budget_bytes: int = 64 * 2**20
 
     @property
     def is_cuda(self) -> bool:

@@ -1,16 +1,19 @@
 """Direct volume rendering from DVNR models (paper §IV-C).
 
-The port of ``repro.core.render``'s uncached path: ray generation, the
-sample-streaming ray marcher (coordinates, INR inference, transfer function,
-front-to-back compositing) and exact sort-last depth compositing of the
-per-partition images.
+The port of ``repro.core.render`` (without the multi-device binary swap):
+ray generation, the sample-streaming ray marcher (coordinates, INR
+inference or brick-pool sampling, transfer function, front-to-back
+compositing) and exact sort-last depth compositing of the per-partition
+images.
 
 Where JAX ``vmap``s one partition's render over partitions (and the render
 service ``vmap``s the frame over clients), the port writes the batch out:
 every function here broadcasts over leading axes, and
 :func:`_render_batch` renders C cameras x P partitions with one hash-encode,
-one MLP and one compositing launch. Brick-cache sampling and the multi-device
-binary swap come with later slices.
+one MLP and one compositing launch. The brick-cache twins
+(``*_sampled``) take their value samples from a decoded brick pool instead
+of the INR (:func:`sample_bricks`). The multi-device binary swap comes with
+a later slice.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 from repro_torch import backends
 from repro_torch.configs.dvnr import DVNRConfig
 from repro_torch.core.inr import _inr_apply, _inr_apply_batched
+from repro_torch.data.volume import _CORNERS
 from repro_torch.kernels.composite.ops import composite
 from repro_torch.precision import torch_dtype
 
@@ -132,6 +136,76 @@ def apply_tf(values: torch.Tensor, tf_table: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------- #
+# Brick-cache sampling (repro_torch.serving)
+# --------------------------------------------------------------------------- #
+#: points sampled at a time: bounds the (N, 8) index and weight tensors
+SAMPLE_CHUNK = 1 << 22
+
+
+def _sample_bricks(pool, slots, coords01, grid_shape, brick_edge: int):
+    dev = coords01.device
+    dims = torch.tensor(grid_shape, dtype=torch.float32, device=dev)
+    pos = coords01 * dims - 0.5
+    lo = torch.minimum(torch.clamp(torch.floor(pos), min=0), dims - 2)
+    w = torch.clamp(pos - lo, 0.0, 1.0)
+    lo = lo.to(torch.int64)
+    brick = torch.div(lo, brick_edge, rounding_mode="floor")            # (N,3)
+    nbx, nby, nbz = slots.shape
+    slot = slots.reshape(-1)[(brick[:, 0] * nby + brick[:, 1]) * nbz
+                             + brick[:, 2]].to(torch.int64)             # (N,)
+    local = lo - brick * brick_edge                                     # (N,3)
+    off = torch.as_tensor(_CORNERS, dtype=torch.int64, device=dev)      # (8,3)
+    E = brick_edge + 1
+    # the linear index of each corner, built axis by axis: integer math, so
+    # the same index as JAX's (N,8,3) corner array without materialising it
+    lin = slot[:, None] * E + (local[:, 0, None] + off[:, 0])
+    lin = lin * E + (local[:, 1, None] + off[:, 1])
+    lin = lin * E + (local[:, 2, None] + off[:, 2])                     # (N,8)
+    vals = pool.reshape(-1)[lin.reshape(-1)].reshape(lin.shape)
+    one = off == 1
+    ww = torch.where(one[:, 0], w[:, 0, None], 1.0 - w[:, 0, None])
+    ww = ww * torch.where(one[:, 1], w[:, 1, None], 1.0 - w[:, 1, None])
+    ww = ww * torch.where(one[:, 2], w[:, 2, None], 1.0 - w[:, 2, None])
+    return torch.einsum("nc,nc->n", ww, vals.to(ww.dtype))
+
+
+def sample_bricks(pool, slots, coords01, grid_shape, brick_edge: int):
+    """Trilinear sampling of a brick-tiled cell-centered grid.
+
+    ``pool`` (n_slots, E, E, E) with ``E = brick_edge + 1`` holds decoded
+    bricks with a one-voxel overlap row (each brick is self-contained for
+    trilinear interpolation over the cells it owns), ``slots`` (nbx, nby,
+    nbz) maps brick index -> pool slot, and ``coords01`` (N, 3) are
+    normalized coords over the grid. The arithmetic of JAX's
+    ``sample_bricks`` and of :func:`repro_torch.data.volume.sample_trilinear`
+    (ghost=0): the same cell-centered mapping, clamps, corner order and
+    8-corner sum, so it matches either bit for bit when the pool holds the
+    decoded grid values. Points go :data:`SAMPLE_CHUNK` at a time (each is
+    independent), which bounds the (N, 8) intermediates."""
+    N, chunk = coords01.shape[0], SAMPLE_CHUNK
+    if N <= chunk:
+        return _sample_bricks(pool, slots, coords01, grid_shape, brick_edge)
+    out = torch.empty(N, dtype=torch.float32, device=coords01.device)
+    for i in range(0, N, chunk):
+        out[i:i + chunk] = _sample_bricks(pool, slots, coords01[i:i + chunk],
+                                          grid_shape, brick_edge)
+    return out
+
+
+def sample_bricks_batched(pool, slots, coords01, grid_shape, brick_edge: int,
+                          part):
+    """:func:`sample_bricks` of B rows: ``coords01`` (B, N, 3), row ``b``
+    through partition ``part[b]``'s slot map ``slots[part[b]]`` ((P, nbx,
+    nby, nbz)) -> (B, N) f32."""
+    B, N = coords01.shape[:2]
+    out = torch.empty((B, N), dtype=torch.float32, device=coords01.device)
+    for b, p in enumerate(part):
+        out[b] = sample_bricks(pool, slots[p], coords01[b], grid_shape,
+                               brick_edge)
+    return out
+
+
+# --------------------------------------------------------------------------- #
 # Ray marching
 # --------------------------------------------------------------------------- #
 def _march_setup(origin, extent, origins, dirs, n_samples: int):
@@ -193,30 +267,80 @@ def _render_partition(cfg: DVNRConfig, params, origin, extent, vrange, grange,
                             density, backend, compute_dtype)
 
 
-def _render_batch(cfg: DVNRConfig, stacked_params, metas, origins, dirs,
-                  tf_tables, grange, *, n_samples: int = 64,
-                  density: float = 50.0, impl: backends.BackendLike = "ref",
-                  compute_dtype=None):
+def _render_rows(values, metas, origins, dirs, tf_tables, grange, *,
+                 n_samples: int, density: float, backend, compute_dtype):
     """Render C cameras x P partitions at once: ``origins``/``dirs``
     (C, R, 3), ``tf_tables`` (C, K, 4), ``metas = (los, exts, vrs)`` of
-    the P partitions. Returns (images (C,P,R,4), depths (C,P,R)).
-
-    Row ``c * P + p`` of the batched INR call is client c's rays through
-    partition p, so one encode, one MLP and one compositing launch cover the
-    whole batch (the port of the ``jax.vmap`` over partitions and clients)."""
-    backend = backends.resolve(impl)
+    the P partitions; ``values(coords (C*P, R*S, 3), part)`` gives the
+    value samples of row ``c * P + p`` (client c's rays through partition
+    ``part[c * P + p] = p``). Returns (images (C,P,R,4), depths (C,P,R)).
+    One call of ``values`` and one compositing launch cover the whole batch
+    (the port of the ``jax.vmap`` over partitions and clients)."""
     los, exts, vrs = metas
     C, R = origins.shape[:2]
     P = los.shape[0]
     hit, dt, local, t0 = _march_setup(los, exts, origins[:, None],
                                       dirs[:, None], n_samples)
     S = local.shape[-2]
-    v = _inr_apply_batched(cfg, stacked_params, local.reshape(C * P, R * S, 3),
-                           list(range(P)) * C, backend,
-                           compute_dtype=compute_dtype).reshape(C, P, R, S)
+    v = values(local.reshape(C * P, R * S, 3), list(range(P)) * C) \
+        .reshape(C, P, R, S)
     vrange = (vrs[:, 0, None, None], vrs[:, 1, None, None])
     return _shade_composite(v, hit, dt, t0, vrange, grange, tf_tables,
                             density, backend, compute_dtype)
+
+
+def _render_batch(cfg: DVNRConfig, stacked_params, metas, origins, dirs,
+                  tf_tables, grange, *, n_samples: int = 64,
+                  density: float = 50.0, impl: backends.BackendLike = "ref",
+                  compute_dtype=None):
+    """:func:`_render_rows` through INR inference: one batched INR call
+    (one inference launch on the ``cuda`` backend) for every row."""
+    backend = backends.resolve(impl)
+
+    def values(coords, part):
+        return _inr_apply_batched(cfg, stacked_params, coords, part, backend,
+                                  compute_dtype=compute_dtype)
+
+    return _render_rows(values, metas, origins, dirs, tf_tables, grange,
+                        n_samples=n_samples, density=density, backend=backend,
+                        compute_dtype=compute_dtype)
+
+
+def _render_partition_sampled(pool, slots, grid_shape, brick_edge: int,
+                              origin, extent, vrange, grange, origins, dirs,
+                              tf_table, *, n_samples: int = 64,
+                              density: float = 50.0,
+                              impl: backends.BackendLike = "ref",
+                              compute_dtype=None):
+    """The cache-aware twin of :func:`_render_partition`: value samples come
+    from a decoded brick pool (:class:`repro_torch.serving.BrickCache`,
+    ``slots`` (nbx, nby, nbz)) instead of INR inference."""
+    backend = backends.resolve(impl)
+    hit, dt, local, t0 = _march_setup(origin, extent, origins, dirs, n_samples)
+    R, S = local.shape[:2]
+    v = sample_bricks(pool, slots, local.reshape(-1, 3), grid_shape,
+                      brick_edge).reshape(R, S)
+    return _shade_composite(v, hit, dt, t0, vrange, grange, tf_table,
+                            density, backend, compute_dtype)
+
+
+def _render_batch_sampled(pool, slots, grid_shape, brick_edge: int, metas,
+                          origins, dirs, tf_tables, grange, *,
+                          n_samples: int = 64, density: float = 50.0,
+                          impl: backends.BackendLike = "ref",
+                          compute_dtype=None):
+    """:func:`_render_rows` from the brick pool: row ``c * P + p`` samples
+    partition p's slot map ``slots[p]`` ((P, nbx, nby, nbz)); no INR
+    inference."""
+    backend = backends.resolve(impl)
+
+    def values(coords, part):
+        return sample_bricks_batched(pool, slots, coords, grid_shape,
+                                     brick_edge, part)
+
+    return _render_rows(values, metas, origins, dirs, tf_tables, grange,
+                        n_samples=n_samples, density=density, backend=backend,
+                        compute_dtype=compute_dtype)
 
 
 # --------------------------------------------------------------------------- #
@@ -283,6 +407,34 @@ def _render_distributed(cfg, stacked_params, parts_meta, cam: Optional[Camera],
     images, depths = _render_batch(
         cfg, stacked_params, metas, origins, dirs, tf_table, grange,
         n_samples=n_samples, density=density, impl=impl,
+        compute_dtype=compute_dtype)
+    frames = _frame_from_rays(images, depths, width, height, out_dtype)
+    return frames[0] if single else frames
+
+
+def _render_distributed_sampled(pool, slots, grid_shape, brick_edge: int,
+                                metas, cam: Optional[Camera], width: int,
+                                height: int, grange, *, n_samples: int = 64,
+                                impl: backends.BackendLike = "ref",
+                                tf_table: Optional[torch.Tensor] = None,
+                                density: float = 50.0,
+                                compute_dtype=None, out_dtype=None,
+                                rays=None):
+    """Cache-aware twin of :func:`_render_distributed`: every partition's
+    value samples come from the decoded brick ``pool`` (``slots`` is the
+    (P, nbx, nby, nbz) brick->slot map of a
+    :class:`repro_torch.serving.BrickCache` view); the frame runs no INR
+    inference. ``rays`` as in :func:`_render_distributed`."""
+    device = pool.device
+    tf_table = default_tf(device=device) if tf_table is None else tf_table
+    origins, dirs = make_rays(cam, width, height, device) if rays is None \
+        else rays
+    single = origins.ndim == 2
+    if single:
+        origins, dirs, tf_table = origins[None], dirs[None], tf_table[None]
+    images, depths = _render_batch_sampled(
+        pool, slots, grid_shape, brick_edge, metas, origins, dirs, tf_table,
+        grange, n_samples=n_samples, density=density, impl=impl,
         compute_dtype=compute_dtype)
     frames = _frame_from_rays(images, depths, width, height, out_dtype)
     return frames[0] if single else frames

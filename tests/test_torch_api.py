@@ -77,8 +77,6 @@ def test_render_frame_matches_jax(angle):
                      backend="cuda")
     assert got.shape == (h, w, 4) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, atol=FRAME_ATOL)
-    with pytest.raises(NotImplementedError, match="BrickCache"):
-        api.render(tm, backend="ref", cache=object())
 
 
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])

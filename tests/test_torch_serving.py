@@ -1,5 +1,6 @@
 """repro_torch.serving against repro.serving's uncached RenderService, and
-``python -m repro_torch.launch.serve`` on the CPU."""
+``python -m repro_torch.launch.serve`` on the CPU (the cached service:
+tests/test_torch_brick_cache.py)."""
 import json
 
 import jax
@@ -50,7 +51,7 @@ def test_tick_frames_match_jax_uncached_service(models):
     jm, tm = models
     tf_table = np.linspace(0, 1, 4 * 9, dtype=np.float32).reshape(9, 4)
     jsvc = JaxRenderService(jm, backend="ref", use_cache=False)
-    tsvc = RenderService(tm, backend="cuda")
+    tsvc = RenderService(tm, backend="cuda", use_cache=False)
     for r in _requests(japi, tf_table):
         jsvc.submit(r)
     for r in _requests(api, tf_table):
@@ -62,13 +63,14 @@ def test_tick_frames_match_jax_uncached_service(models):
     for a, b in zip(want, got):
         assert b.frame.shape == a.frame.shape and b.frame.dtype == np.float32
         np.testing.assert_allclose(b.frame, a.frame, atol=FRAME_ATOL)
-    assert tsvc.stats() == {"ticks": 1, "served": 6, "pending": 0, "cache": None}
+    assert tsvc.stats() == jsvc.stats()
+    assert tsvc.stats()["cache"]["lookups"] == 0 and tsvc.stats()["served"] == 6
 
 
 def test_batched_tick_equals_single_renders(models):
     """Clients stacked on a leading axis render what each renders alone."""
     _, tm = models
-    svc = RenderService(tm, backend="cuda")
+    svc = RenderService(tm, backend="cuda", use_cache=False)
     reqs = _requests(api, None)[:3]
     for r in reqs:
         svc.submit(r)
@@ -79,18 +81,11 @@ def test_batched_tick_equals_single_renders(models):
     assert svc.render(reqs[0]).shape == (12, 16, 4)
 
 
-def test_brick_cache_path_is_not_ported_yet(models):
-    _, tm = models
-    with pytest.raises(NotImplementedError, match="BrickCache"):
-        RenderService(tm, use_cache=True, backend="ref")
-    with pytest.raises(ValueError, match="parts_meta"):
-        RenderService(api.DVNRModel(dvnr.SMOKE, tm.params), backend="ref")
-
-
 def test_serve_entry_point_smoke_on_cpu(capsys, tmp_path):
     out = serve.main(["--smoke", "--device", "cpu", "--backend", "cuda",
                       "--frames", "2"])
     assert out["served"] == 4 and out["device"] == "cpu"
+    assert out["mode"] == "cached" and out["cache_hit_rate"] == 0.5
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == out
     # a model saved by the JAX package serves through --model
     path = tmp_path / "m.msgpack"
