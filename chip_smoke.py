@@ -31,7 +31,9 @@ toolkit; imports nothing of JAX or of the JAX package. Phases:
            boundary taken the other way) and hold the tie counts, and
            controls with a planted fault must fail; the host-sampled train
            step also on the table draw that failed before that rule and on
-           TIE_DRAW_SEEDS' draws; the INR inference kernel
+           TIE_DRAW_SEEDS' draws; both variants of the train step at the
+           velocity models' D_out = 3 (8 x 65,536 samples of 3-component
+           volumes, the same tie-aware yardstick); the INR inference kernel
            (encode and MLP in one launch) at the MLP cases' shapes, f32,
            bf16 and "f32/bf16/f32", coordinates inside and outside [0,1];
            each bf16 flash case against
@@ -105,6 +107,29 @@ toolkit; imports nothing of JAX or of the JAX package. Phases:
            llama, danube (dh=80, window) and qwen2 (14/2 heads) shapes and
            at dh 16 and 32. bf16 runs the tensor-core kernel, f32 the
            CUDA-core one.
+8. in situ the reactive in situ loop through ``InSituSession(...).run`` on
+           PRODUCTION256: a CloverLeaf simulation of 8 ranks x 256^3 (ghost
+           1, dt 0.03), 3,584 steps a trained tick, a window of 4 compressed
+           models, ``RecoveryPolicy(max_retries=1)``, a 1 s deadline on the
+           injected clock and JAX's seed-11 acceptance plan on 8 cycles;
+           ``health()`` must be the dict its rules give, on a run a cycle at
+           a time (each tick's host clock split into publish, train, retry,
+           compress and actions, and its launch counters: the train step and
+           AdamW on every trained tick and on the retry, the inference kernel
+           on the trigger's tick only, compositing once a frame, the encode,
+           MLP and backward kernels never) and again on one ``run(8)``; a
+           shock trigger (the share of voxels above SHOCK_LEVEL, a device
+           reduction) fires once and renders 256^2 x 64, extracts a 128^3
+           isosurface a partition and renders every model in the window:
+           frames within 1e-5 of the plain path on the card, the isosurface
+           held by the tie rule (``check_isosurface``); the window's bytes
+           against the raw steps' and against ``cache_mode="raw"``, the
+           session's peak memory; ``api.train(recovery=RecoveryPolicy())``
+           with one NaN partition (frozen at its init after the ladder, the
+           healthy partitions against a clean run); two velocity models and
+           4,096 backward pathlines against the plain path within a per-seed
+           bound (``pathline_bound``) and against the analytic field; the
+           train step at D_out = 3 timed at the pathline path's shapes.
 
 Exits non-zero on any failure. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel JSON.
@@ -148,7 +173,8 @@ REPLACES.update({"fused_mlp_fwd_bf16": REPLACES["fused_mlp_fwd"],
                  "fused_mlp_bwd_bf16": REPLACES["fused_mlp_bwd"],
                  "train_step_bf16": REPLACES["train_step"],
                  "adamw_apply_master": REPLACES["adamw_apply"],
-                 "inr_forward_bf16": REPLACES["inr_forward"]})
+                 "inr_forward_bf16": REPLACES["inr_forward"],
+                 "train_step_v3": REPLACES["train_step"]})
 # sizes of the run (the rehearsal on a CPU shrinks them)
 DECODE_EDGE = 256          # phase 3: one 256^3 partition
 LOCAL_EDGE = 256           # phase 4: 2x2x2 partitions of 256^3 each
@@ -182,6 +208,17 @@ FLASH_CASES = (
 # rehearsal on a CPU hands in a SMOKE config)
 LM_ARCH, LM_CONFIG = "llama3_8b", None
 LM_BATCH, LM_PROMPT, LM_DECODE, LM_CHECK_LAYERS = 2, 4096, 32, 2
+# phase 8: the in situ session's rank edge (8 ranks: the 2x2x2 split of a
+# 512^3 volume), cycles and window; the shock trigger (the share of voxels
+# above SHOCK_LEVEL: ~0.024 at cycle 4 and ~0.028 at cycle 5 of a 512^3
+# CloverLeaf at dt 0.03); the isosurface's vertex grid a partition; the
+# pathline study's ranks, seeds and steps a model; the backend ("auto":
+# the card's kernels)
+INSITU_EDGE, INSITU_CYCLES, INSITU_WINDOW = 256, 8, 4
+SHOCK_LEVEL, SHOCK_FRAC = 3.0, 0.026
+ISO_RES = 128
+PATH_RANKS, PATH_SEEDS, PATH_STEPS = 4, 4096, 512
+INSITU_IMPL = "auto"
 # phase 2: the MLP backward's further cases, (label, P, part, N, D_in, W,
 # H, D_out)
 MLP_BWD_CASES = (
@@ -211,6 +248,7 @@ SOURCES = {
     "adamw_apply_master": "src/repro_torch/csrc/adamw.cu",
     "inr_forward": "src/repro_torch/csrc/inr_forward.cu",
     "inr_forward_bf16": "src/repro_torch/csrc/inr_forward.cu",
+    "train_step_v3": "src/repro_torch/csrc/train_step.cuh",
 }
 
 
@@ -2278,6 +2316,7 @@ def dvnr_phases():
                                               seeds=tseeds, **draw)
     del wants16
     step_case_checks(dev, vols_c, tseeds, cfg)
+    errs["train_step_v3"] = velocity_step_checks(dev, tseeds, cfg)
     adam = AdamW(_opt_config(cfg, resolve_precision(cfg.precision)))
     sched = fts.schedule_table(torch.zeros(TP, dtype=torch.int32, device=dev),
                                adam.cfg, adam, 1)[0]
@@ -3070,17 +3109,668 @@ def dvnr_phases():
             for name, (ms, n) in host[:12]:
                 print(f"    host   {ms:9.3f} ms  x{n:<5d} {name[:90]}")
         del winfo, wtrainer, wstate
-    return tag, kernels, flash_err
+    return tag, kernels, flash_err, errs
+
+
+def velocity_step_checks(dev, tseeds, cfg) -> float:
+    """Phase 2: the train step at the velocity models' D_out = 3 (the
+    pathline study's models, phase 8): 8 partitions x 65,536 samples of
+    3-component velocity volumes of TRAIN_EDGE^3, f32, host-sampled and
+    drawing in the kernel, each held by ``check_step`` (the tie-aware
+    yardstick of the f32 checks). Returns the largest departure."""
+    import torch
+    from repro_torch.core.sampling import n_boundary
+    from repro_torch.data.volume import make_partition
+    from repro_torch.kernels.fused_train_step import ref as fts_ref
+
+    vcfg = cfg.replace(out_dim=3)
+    res, H, P, Nb = vcfg.level_resolutions(), vcfg.n_hidden_layers, 8, vcfg.batch_size
+    vols = torch.stack([make_partition("velocity", p, (2, 2, 2), (TRAIN_EDGE,) * 3,
+                                       t=0.45, device=dev).normalized()
+                        for p in range(P)])
+    draw = dict(n_batch=Nb, n_uniform=Nb - n_boundary(Nb, vcfg.boundary_lambda),
+                sigma=vcfg.boundary_sigma, ghost=1)
+    coords, target = fts_ref.sample_batch(
+        vols, tseeds[:P], n_batch=Nb, boundary_lambda=vcfg.boundary_lambda,
+        sigma=vcfg.boundary_sigma, ghost=1)
+    params = step_params(vcfg, P, dev, seed=200)
+    wants = step_wants(params, H, res, coords, target)
+    err = max(check_step("velocity D_out=3, host-sampled", params, H, res, wants,
+                         coords=coords, target=target),
+              check_step("velocity D_out=3, in-kernel sampling", params, H, res,
+                         wants, volumes=vols, seeds=tseeds[:P], **draw))
+    del vols, coords, target, params, wants
+    torch.cuda.synchronize()
+    return err
+
+
+# --------------------------------------------------------------------------- #
+# phase 8: the in situ runtime
+# --------------------------------------------------------------------------- #
+def sync(dev) -> None:
+    """Wait for the card (a no-op for a CPU device)."""
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+@contextlib.contextmanager
+def timed_calls(owner, name, dev, log: list):
+    """``owner.name`` replaced for the block by a version that records the
+    host clock of each call, the card synchronised before and after, in
+    ``log``."""
+    fn = getattr(owner, name)
+
+    def timed(*a, **k):
+        sync(dev)
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        sync(dev)
+        log.append(time.perf_counter() - t0)
+        return out
+
+    with setting(owner, name, timed):
+        yield
+
+
+def insitu_plan():
+    """JAX's acceptance plan (tests/test_resilience.py), seed 11, on
+    INSITU_CYCLES cycles, and the health() its rules give."""
+    from repro_torch.resilience import FaultPlan, FaultSpec
+    plan = FaultPlan(11, [
+        FaultSpec("nan_field", cycle=2, partition=1, magnitude=1.0),
+        FaultSpec("drop_partition", cycle=3, partition=0),
+        FaultSpec("corrupt_blob", cycle=4, partition=0, magnitude=0.02),
+        FaultSpec("slow_tick", cycle=6, latency_s=9.0),
+        FaultSpec("kernel_exception", cycle=7),
+    ])
+    # the NaN partition: one retry (max_retries=1), then frozen; the dropped
+    # rank: masked out; the slow tick: the deadline spent before training;
+    # the kernel fault: the previous DVNR reused
+    expect = {"cycles": INSITU_CYCLES, "trained": INSITU_CYCLES - 2,
+              "retries": 1, "retry_cycles": (2,), "degraded": {2: (1,), 3: (0,)},
+              "deadline_missed": (6,), "fallbacks": (6, 7), "blob_repairs": 1,
+              "blob_repair_cycles": (4,)}
+    return plan, expect
+
+
+def run_session(cfg, dev, wrappers, per_tick: bool):
+    """Phase 8(a)'s session: 8 ranks x INSITU_EDGE^3 of CloverLeaf under
+    ``insitu_plan``, the window of compressed models, recovery, the
+    injected deadline clock, and the shock trigger (a device reduction of
+    the published field) whose actions render the current step, extract its
+    isosurface and render every model in the window. ``per_tick`` runs it a
+    cycle at a time and reads the launch counters and the host clock of
+    each part of a tick; else one ``run(INSITU_CYCLES)``. Returns (session,
+    the per-tick rows, the actions' outputs, the counters' totals)."""
+    import torch
+    from repro_torch import api
+    from repro_torch.core import isosurface as iso_mod
+    from repro_torch.core.trainer import DVNRTrainer
+    from repro_torch.insitu import InSituSession, SimulationConfig, render_action
+    from repro_torch.resilience import RecoveryPolicy
+
+    plan, _ = insitu_plan()
+    sess = InSituSession(
+        SimulationConfig("cloverleaf", n_ranks=8, local_shape=(INSITU_EDGE,) * 3,
+                         dt=0.03),
+        cfg, window=INSITU_WINDOW, compress=True, cache_mode="dvnr",
+        impl=INSITU_IMPL, device=dev, fault_plan=plan,
+        recovery=RecoveryPolicy(max_retries=1), deadline_s=1.0,
+        deadline_clock="injected")
+    fracs, out = [], {}
+
+    def shock(parts):   # the shell's share of the voxels, on the device
+        present = [p.data for p in parts if p is not None]
+        frac = float(torch.stack([(d > SHOCK_LEVEL).float().mean()
+                                  for d in present]).mean())
+        fracs.append(frac)
+        return frac > SHOCK_FRAC
+
+    def on_fire(tick):
+        sync(dev)
+        t0 = time.perf_counter()
+        out["tick"] = tick
+        out["value"] = sess.dvnr.value()
+        out["frames"] = [sess.render_now(width=IMAGE, height=IMAGE,
+                                         n_samples=SAMPLES, impl=INSITU_IMPL)]
+        n0 = wrappers["inr_forward"].launches
+        sync(dev)
+        t1 = time.perf_counter()
+        march = []
+        with timed_calls(iso_mod, "marching_tets", dev, march):
+            out["points"] = sess.isosurface_now(resolution=ISO_RES,
+                                                impl=INSITU_IMPL)
+        sync(dev)
+        out["iso_s"] = time.perf_counter() - t1
+        out["march_s"] = sum(march)
+        out["iso_launches"] = wrappers["inr_forward"].launches - n0
+        out["history"] = sess.window.values()
+        out["frames"] += [render_action(v, width=IMAGE, height=IMAGE,
+                                        n_samples=SAMPLES, impl=INSITU_IMPL)
+                          for v in out["history"]]
+        sync(dev)
+        out["actions_s"] = time.perf_counter() - t0
+
+    sess.add_trigger("shock", shock, [on_fire])
+    for w in wrappers.values():
+        w.launches = 0
+    rows = []
+    if not per_tick:
+        sess.run(INSITU_CYCLES)
+        sync(dev)
+        return sess, rows, out, fracs, {n: w.launches for n, w in wrappers.items()}
+    publish, chunks, compress = [], [], []
+    totals = dict.fromkeys(wrappers, 0)
+    with timed_calls(DVNRTrainer, "train_chunk", dev, chunks), \
+            timed_calls(api.DVNRModel, "compress", dev, compress), \
+            timed_calls(sess.sim, "publish", dev, publish):
+        for _ in range(INSITU_CYCLES):
+            for w in wrappers.values():
+                w.launches = 0
+            del publish[:], chunks[:], compress[:]
+            sess.run(1)
+            sync(dev)
+            rec = sess.records[-1]
+            launches = {n: w.launches for n, w in wrappers.items()}
+            for n, c in launches.items():
+                totals[n] += c
+            value = sess.dvnr._cache
+            rows.append({"cycle": rec.cycle, "step_s": rec.step_time_s,
+                         "publish_s": sum(publish),
+                         "train_s": value.train_time_s if rec.dvnr_trained else 0.0,
+                         "retry_s": sum(chunks[1:]), "compress_s": sum(compress),
+                         "actions_s": (out["actions_s"] if out.get("tick") ==
+                                       sess.rt.tick else 0.0),
+                         "launches": launches, "cache_bytes": rec.cache_bytes,
+                         "raw_equiv_bytes": rec.raw_equiv_bytes,
+                         "trained": rec.dvnr_trained, "fallback": rec.fallback})
+    return sess, rows, out, fracs, totals
+
+
+def check_isosurface(cfg, value, pts, dev, tag) -> None:
+    """Phase 8(a): the trigger's isosurface against the plain path's on the
+    card. Per partition the vertex grids agree within the inference
+    kernel's f32 limit (phase 2's 2e-6 x max(1, |value|)); a vertex may sit
+    on the other side of the iso value than in the plain grid only where its
+    plain value lies within that limit of the iso value (a tie), and the
+    triangles may differ only in the cells that touch a tie. Then the point
+    clouds: their counts differ by at most 36 points a tie cell, and their
+    Chamfer distance stays under a tenth of a cell's edge."""
+    import torch
+    from repro_torch import api
+    from repro_torch.core import isosurface as iso_mod
+
+    model = value.model
+    gmin, gmax = model.grange
+    R = ISO_RES
+    n_ties = n_flips = n_tie_cells = n_diff = crossed = 0
+    edge = float("inf")
+    for p in range(model.n_partitions):
+        meta = model.parts_meta[p]
+        iso_local = (gmin + 0.5 * (gmax - gmin) - meta.vmin) / max(
+            meta.vmax - meta.vmin, 1e-12)
+        if not (0.0 <= iso_local <= 1.0):
+            continue
+        crossed += 1
+        edge = min(edge, min(meta.extent) / (R - 1))
+        params = model.partition(p).params
+        gk = iso_mod.inr_vertex_grid(model.cfg, params, (R,) * 3, "cuda")
+        gp = iso_mod.inr_vertex_grid(model.cfg, params, (R,) * 3, "ref")
+        tol = 2e-6 * max(1.0, float(gp.abs().max()))
+        check(f"isosurface vertex grid, partition {p}", gk, gp, atol=tol)
+        lev = torch.tensor(iso_local, dtype=torch.float32, device=dev)
+        tie = (gp - lev).abs() <= tol
+        flip = (gk > lev) != (gp > lev)
+        if (flip & ~tie).any():
+            raise SmokeFailure(f"isosurface partition {p}: "
+                               f"{int((flip & ~tie).sum())} vertices change side "
+                               f"of the iso value beyond the kernel's limit")
+        cells = torch.zeros((R - 1,) * 3, dtype=torch.bool, device=dev)
+        for dx in (0, 1):
+            for dy in (0, 1):
+                for dz in (0, 1):
+                    cells |= tie[dx:R - 1 + dx, dy:R - 1 + dy, dz:R - 1 + dz]
+        _, vk = iso_mod.marching_tets(gk, iso_local, meta.origin, meta.extent)
+        _, vp = iso_mod.marching_tets(gp, iso_local, meta.origin, meta.extent)
+        diff = vk != vp
+        if (diff & ~cells.reshape(-1).repeat_interleave(12)).any():
+            raise SmokeFailure(f"isosurface partition {p}: triangles differ in "
+                               f"cells that touch no tie")
+        n_ties += int(tie.sum())
+        n_flips += int(flip.sum())
+        n_tie_cells += int(cells.sum())
+        n_diff += int(diff.sum())
+        del gk, gp, tie, flip, cells, vk, vp
+    plain = api.isosurface(model, 0.5, resolution=R, backend="ref")
+    if crossed == 0 or len(pts) == 0:
+        raise SmokeFailure("the isosurface crosses no partition")
+    if abs(len(pts) - len(plain)) > 36 * n_tie_cells:
+        raise SmokeFailure(f"isosurface: {len(pts)} points against the plain "
+                           f"path's {len(plain)}, beyond the {n_tie_cells} tie "
+                           f"cells' allowance")
+    chamfer = iso_mod.chamfer_distance(torch.as_tensor(pts, device=dev), plain)
+    print(f"  isosurface at {R}^3 a partition, {crossed} partitions crossed: "
+          f"{len(pts):,} points (plain path {len(plain):,}); {n_ties} vertices "
+          f"within the kernel's limit of the iso value, {n_flips} on the other "
+          f"side, {n_tie_cells} cells touch them, {n_diff} triangle slots "
+          f"differ; Chamfer distance {chamfer:.3e} (limit {0.1 * edge:.3e}: a "
+          f"tenth of a cell edge) [{tag}]")
+    if not chamfer <= 0.1 * edge:
+        raise SmokeFailure(f"isosurface Chamfer distance {chamfer:.3e} over "
+                           f"{0.1 * edge:.3e}")
+
+
+def session_phase(cfg, dev, wrappers, tag) -> None:
+    """Phase 8(a) and (d): the session under faults, twice, its checks and
+    its times and memory."""
+    import torch
+    from repro_torch.core.trainer import train_iterations
+    from repro_torch.insitu import InSituSession, SimulationConfig, render_action
+
+    _, expect = insitu_plan()
+    steps = train_iterations(cfg, INSITU_EDGE ** 3)
+    print(f"  session: 8 ranks x {INSITU_EDGE}^3 CloverLeaf (dt 0.03), "
+          f"{steps} steps a trained tick, window {INSITU_WINDOW}, compressed, "
+          f"RecoveryPolicy(max_retries=1), deadline 1 s (injected clock), "
+          f"seed-11 fault plan on {INSITU_CYCLES} cycles")
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    base_mem = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    sess, rows, out, fracs, totals = run_session(cfg, dev, wrappers, per_tick=True)
+    peak = (f"{(torch.cuda.max_memory_allocated(dev) - base_mem) / 2**30:.3f} GiB"
+            if dev.type == "cuda" else "not measured")
+    health = sess.health()
+    print(f"  health(): {health}")
+    if health != expect:
+        raise SmokeFailure(f"session health {health} != expected {expect}")
+    fired = sess.rt._triggers[0].fired_at
+    above = [c for c, f in enumerate(fracs, 1) if f > SHOCK_FRAC]
+    print(f"  shock fraction (voxels above {SHOCK_LEVEL}) by cycle: "
+          + ", ".join(f"{c}: {f:.5f}" for c, f in enumerate(fracs, 1))
+          + f"; threshold {SHOCK_FRAC}; fired at cycles {[t + 1 for t in fired]}")
+    if not above or fired != [above[0] - 1] or len(above) < 2 or \
+            above != list(range(above[0], INSITU_CYCLES + 1)):
+        raise SmokeFailure(f"shock trigger: above the threshold at {above}, "
+                           f"fired at ticks {fired} (one rising edge expected)")
+    fire_cycle = above[0]
+    for r in rows:
+        c, n = r["cycle"], r["launches"]
+        want_steps = 0 if c in expect["fallbacks"] else \
+            steps * (2 if c in expect["retry_cycles"] else 1)
+        frames = 1 + INSITU_WINDOW if c == fire_cycle else 0
+        print(f"  cycle {c}: tick {r['step_s']:.3f} s = publish "
+              f"{r['publish_s']:.3f} + train {r['train_s']:.3f} (retry "
+              f"{r['retry_s']:.3f}) + compress {r['compress_s']:.3f} + actions "
+              f"{r['actions_s']:.3f} + rest; cache {r['cache_bytes']:,} B, raw "
+              f"{r['raw_equiv_bytes']:,} B; launches {n} (host clock, synchronised) "
+              f"[{tag}]")
+        if n["train_step"] != want_steps or n["adamw_apply"] != want_steps:
+            raise SmokeFailure(f"cycle {c}: {n['train_step']} train-step and "
+                               f"{n['adamw_apply']} AdamW launches, {want_steps} "
+                               f"expected")
+        if (n["inr_forward"] > 0) != (c == fire_cycle) or n["composite"] != frames:
+            raise SmokeFailure(f"cycle {c}: {n['inr_forward']} inference and "
+                               f"{n['composite']} compositing launches "
+                               f"({frames} frames rendered)")
+        if any(n[k] for k in ("hash_encode", "fused_mlp_fwd", "fused_mlp_bwd",
+                              "hash_encode_bwd")):
+            raise SmokeFailure(f"cycle {c}: the encode / MLP / backward kernels "
+                               f"launched: {n}")
+    last = rows[-1]
+    print(f"  the window after {INSITU_CYCLES} cycles: {last['cache_bytes']:,} B "
+          f"of compressed models against {last['raw_equiv_bytes']:,} B of raw "
+          f"steps: {last['raw_equiv_bytes'] / last['cache_bytes']:.1f}x (Fig. 12); "
+          f"the session's peak device memory above its start {peak} [{tag}]")
+    print(f"  isosurface at {ISO_RES}^3: {out['iso_launches']} inference launches, "
+          f"{out['iso_s']:.3f} s in all, marching {out['march_s']:.3f} s; the "
+          f"fire cycle's actions {out['actions_s']:.3f} s (host clock, "
+          f"synchronised) [{tag}]")
+    # the actions' outputs against the plain path on the card
+    values = [out["value"]] + list(out["history"])
+    for i, (v, frame) in enumerate(zip(values, out["frames"])):
+        want = render_action(v, width=IMAGE, height=IMAGE, n_samples=SAMPLES,
+                             impl="ref")
+        check(f"trigger frame {i} ({'current' if i == 0 else 'window'}) vs plain",
+              frame, want, atol=1e-5)
+    check_isosurface(cfg, out["value"], out["points"], dev, tag)
+    del values, out, sess
+    # the whole session again, in one run(): the same health, triggers and
+    # launches
+    sess2, _, out2, _, totals2 = run_session(cfg, dev, wrappers, per_tick=False)
+    print(f"  second run: health {'identical' if sess2.health() == health else sess2.health()}, "
+          f"fired at ticks {sess2.rt._triggers[0].fired_at}, launches {totals2}")
+    if sess2.health() != health or sess2.rt._triggers[0].fired_at != fired or \
+            totals2 != totals:
+        raise SmokeFailure(f"the second run differs: {sess2.health()}, "
+                           f"{totals2} against {totals}")
+    del sess2, out2
+    # the paper's 'Data Cache' arm: raw copies in the window (nothing trains)
+    raw = InSituSession(
+        SimulationConfig("cloverleaf", n_ranks=8, local_shape=(INSITU_EDGE,) * 3,
+                         dt=0.03),
+        cfg, window=INSITU_WINDOW, cache_mode="raw", impl=INSITU_IMPL, device=dev)
+    rrec = raw.run(INSITU_WINDOW)[-1]
+    print(f"  cache_mode='raw': {rrec.cache_bytes:,} B for {rrec.cache_len} steps "
+          f"(ghosts included), dvnr {last['cache_bytes']:,} B: "
+          f"{rrec.cache_bytes / last['cache_bytes']:.1f}x [{tag}]")
+    if not last["cache_bytes"] < rrec.cache_bytes:
+        raise SmokeFailure("the compressed window is not smaller than the raw one")
+    del raw
+
+
+def recovery_phase(cfg, dev, wrappers, tag) -> None:
+    """Phase 8(b): ``api.train(recovery=RecoveryPolicy())`` on the 8
+    PRODUCTION256 partitions for TRAIN_STEPS steps with partition 1 all
+    NaN: the run ends finite, partition 1 frozen at its init after the
+    ladder, the healthy partitions against a clean run of the same key."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.core.sampling import split
+    from repro_torch.core.trainer import init_params
+    from repro_torch.data.volume import VolumePartition, make_partition
+    from repro_torch.resilience import RecoveryPolicy
+
+    parts = [make_partition("cloverleaf", p, (2, 2, 2), (TRAIN_EDGE,) * 3, t=0.3,
+                            device=dev) for p in range(8)]
+    bad = parts[1]
+    poisoned = list(parts)
+    poisoned[1] = VolumePartition(torch.full_like(bad.data, float("nan")),
+                                  bad.origin, bad.extent, bad.ghost, bad.vmin,
+                                  bad.vmax)
+    for w in wrappers.values():
+        w.launches = 0
+    model, info = api.train(poisoned, cfg, steps=TRAIN_STEPS, key=0,
+                            backend=INSITU_IMPL, recovery=RecoveryPolicy())
+    sync(dev)
+    launches = wrappers["train_step"].launches
+    clean, cinfo = api.train(parts, cfg, steps=TRAIN_STEPS, key=0,
+                             backend=INSITU_IMPL)
+    clean2, cinfo2 = api.train(parts, cfg, steps=TRAIN_STEPS, key=0,
+                               backend=INSITU_IMPL)
+    r = info["recovery"]
+    print(f"  recovery alone: {TRAIN_STEPS} steps, partition 1 all NaN: "
+          f"{r['retries']} retries, events {r['events']}, frozen "
+          f"{r['frozen_partitions']}, {launches} train-step launches; "
+          f"{info['train_time_s']:.3f} s against the clean run's "
+          f"{cinfo['train_time_s']:.3f} s (host clock) [{tag}]")
+    if r["frozen_partitions"] != (1,) or r["retries"] != 3 or \
+            launches != 4 * TRAIN_STEPS or bool(info["state"].active[1]):
+        raise SmokeFailure(f"recovery: {r}, {launches} launches")
+    leaves = [model.params["tables"], *model.params["mlp"]]
+    if not all(bool(torch.isfinite(x).all()) for x in leaves):
+        raise SmokeFailure("recovery: the run ended non-finite")
+    init = init_params(cfg, split(0)[0], 8)
+    for got, want in zip(leaves, [init["tables"], *init["mlp"]]):
+        if not torch.equal(got[1].cpu(), want[1]):
+            raise SmokeFailure("recovery: the frozen partition moved from its init")
+    # the healthy partitions against the clean run, and two clean runs
+    # against each other (the order of the train step's atomic adds): bit
+    # for bit or not, the largest parameter departure, the loss averages'
+    # and the evaluated PSNRs' departures after TRAIN_STEPS steps
+    healthy = [p for p in range(8) if p != 1]
+    vols = torch.stack([p.normalized() for p in parts])
+
+    def compare(a, ia, b, ib):
+        la, lb = ([m.params["tables"], *m.params["mlp"]] for m in (a, b))
+        same = all(torch.equal(x[healthy], y[healthy]) for x, y in zip(la, lb))
+        dep = max(float((x[healthy] - y[healthy]).abs().max()) for x, y in zip(la, lb))
+        ma, mb = ia["state"].loss_ma[healthy], ib["state"].loss_ma[healthy]
+        ea, eb = (np.array(i["trainer"].evaluate(i["state"], vols, (TRAIN_EDGE,) * 3)
+                           ["mse_per_partition"])[healthy] for i in (ia, ib))
+        return (same, dep, float(((ma - mb).abs() / mb.abs()).max()),
+                float(np.abs(10 * np.log10(ea / eb)).max()))
+
+    for label, (same, dep, rel, db) in (
+            ("recovered vs clean", compare(model, info, clean, cinfo)),
+            ("clean vs clean", compare(clean2, cinfo2, clean, cinfo))):
+        print(f"  {label}, healthy partitions after {TRAIN_STEPS} steps: bit for "
+              f"bit {'yes' if same else 'no'}; largest param departure "
+              f"{dep:.3e}, loss averages {rel:.3e} relative, PSNR {db:.4f} dB "
+              f"[{tag}]")
+    # held: the first COMPARE_STEPS steps (PERF.md §2's f32 trajectory
+    # limit, 1e-4 relative), on each healthy partition's loss average
+    _, s_info = api.train(poisoned, cfg, steps=COMPARE_STEPS, key=0,
+                          backend=INSITU_IMPL, recovery=RecoveryPolicy())
+    _, c_info = api.train(parts, cfg, steps=COMPARE_STEPS, key=0,
+                          backend=INSITU_IMPL)
+    ma, cma = s_info["state"].loss_ma[healthy], c_info["state"].loss_ma[healthy]
+    rel = float(((ma - cma).abs() / cma.abs()).max())
+    print(f"  after {COMPARE_STEPS} steps, the healthy partitions' loss averages "
+          f"{'equal' if torch.equal(ma, cma) else 'differ'}: {rel:.3e} relative "
+          f"(limit 1e-4, PERF.md §2's f32 trajectory limit) [{tag}]")
+    if not rel <= 1e-4:
+        raise SmokeFailure(f"recovery: healthy loss averages depart {rel:.3e} "
+                           f"after {COMPARE_STEPS} steps")
+    del parts, poisoned, model, info, clean, cinfo, clean2, cinfo2, vols
+
+
+def pathline_bound(cfg, values, seeds, dt, substeps, eps):
+    """A per-seed bound on how far the kernel path's backward pathline may
+    lie from the plain path's when every velocity query departs by at most
+    ``eps``: along the plain trajectory, an RK2 substep of h carries an
+    error e to e (1 + hL + (hL)^2 / 2) + h eps (1 + hL / 2), L the local
+    slope of the velocity field (twice the largest finite-difference slope,
+    steps of 1e-4 that stay in the point's partition, at the point and at
+    the midpoint). A seed whose query point comes within its bound of an
+    internal partition face may be evaluated by the other partition's INR
+    on one path: it is reported and not held. Returns (bound (N,), near
+    (N,) bool)."""
+    import torch
+    from repro_torch.core.pathlines import _query_velocity
+
+    delta, h = 1e-4, dt / substeps
+    pts = seeds
+    e = torch.zeros(len(seeds), dtype=torch.float64, device=seeds.device)
+    near = torch.zeros(len(seeds), dtype=torch.bool, device=seeds.device)
+    for v in reversed(values):               # newest first, as traced
+        stacked, meta = v.model.stacked_params(), list(v.model.parts_meta)
+        lo = torch.tensor([m.origin for m in meta], device=seeds.device)
+        hi = lo + torch.tensor([m.extent for m in meta], device=seeds.device)
+        faces = [sorted({float(o) for o in lo[:, ax].tolist() if 0.0 < o < 1.0})
+                 for ax in range(3)]
+
+        def owner(x):
+            inside = ((x[:, None] >= lo) & (x[:, None] <= hi)).all(-1)
+            return torch.where(inside.any(1), inside.float().argmax(1), -1)
+
+        def slope(x):
+            base = _query_velocity(cfg, stacked, meta, x, "ref")
+            own, s = owner(x), torch.zeros(len(x), device=x.device)
+            for ax in range(3):
+                d = torch.zeros(3, device=x.device)
+                d[ax] = delta
+                x2 = torch.where((owner(x + d) == own)[:, None], x + d, x - d)
+                moved = _query_velocity(cfg, stacked, meta, x2, "ref")
+                s = torch.maximum(s, (moved - base).norm(dim=-1) / delta)
+            return 2 * s.double()
+
+        def close(x, err):
+            c = torch.zeros(len(x), dtype=torch.bool, device=x.device)
+            for ax in range(3):
+                for f in faces[ax]:
+                    c |= (x[:, ax].double() - f).abs() <= err + 1e-6
+            return c
+
+        for _ in range(substeps):
+            v1 = -_query_velocity(cfg, stacked, meta, pts, "ref")
+            mid = torch.clamp(pts + 0.5 * h * v1, 0.0, 1.0)
+            L = torch.maximum(slope(pts), slope(mid))
+            near |= close(pts, e) | close(mid, e + h * eps)
+            e = e * (1 + h * L + (h * L) ** 2 / 2) + h * eps * (1 + h * L / 2)
+            v2 = -_query_velocity(cfg, stacked, meta, mid, "ref")
+            pts = torch.clamp(pts + h * v2, 0.0, 1.0)
+    return e.float(), near
+
+
+def pathlines_phase(cfg, dev, wrappers, errs, tag) -> dict:
+    """Phase 8(c): two velocity models (PRODUCTION256 at out_dim 3, PATH_RANKS
+    x INSITU_EDGE^3, t = 0.40 and 0.45, PATH_STEPS steps each), the
+    pathlines action with PATH_SEEDS seeds against the plain path within a
+    bound derived from the inference kernel's limit, the deviation from the
+    analytic field's pathlines, and row 6-v: the train step at D_out = 3 at
+    these shapes. Returns that kernel row."""
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch.core.inr import _inr_apply
+    from repro_torch.core.pathlines import (_query_velocity, pathline_deviation,
+                                            trace_ground_truth)
+    from repro_torch.core.sampling import n_boundary, step_seeds
+    from repro_torch.data.volume import make_partition, partition_grid
+    from repro_torch.insitu.actions import pathlines_action
+    from repro_torch.kernels.fused_train_step import ops as fts
+    from repro_torch.kernels.fused_train_step import ref as fts_ref
+    from repro_torch.reactive import DVNRValue
+
+    vcfg = cfg.replace(out_dim=3)
+    grid = partition_grid(PATH_RANKS)
+    values, n_train = [], 0
+    for i, t in enumerate((0.40, 0.45)):
+        parts = [make_partition("velocity", r, grid, (INSITU_EDGE,) * 3, t=t,
+                                device=dev) for r in range(PATH_RANKS)]
+        wrappers["train_step"].launches = 0
+        model, info = api.train(parts, vcfg, steps=PATH_STEPS, key=i,
+                                backend=INSITU_IMPL, log_every=PATH_STEPS)
+        n_train += wrappers["train_step"].launches
+        values.append(DVNRValue(model, info["train_time_s"], info["steps"]))
+        print(f"  velocity model t={t}: {PATH_RANKS} x {INSITU_EDGE}^3, "
+              f"{PATH_STEPS} steps in {info['train_time_s']:.3f} s, last loss "
+              f"{info['loss_history'][-1][1]:.6f} [{tag}]")
+    vols = torch.stack([p.normalized() for p in parts])
+    seeds = torch.as_tensor(np.random.default_rng(0).uniform(
+        0.3, 0.7, (PATH_SEEDS, 3)).astype(np.float32), device=dev)
+    dt, substeps = 0.05, 4
+    for w in wrappers.values():
+        w.launches = 0
+    sync(dev)
+    t0 = time.perf_counter()
+    traj = pathlines_action(values, seeds, dt, substeps=substeps, impl=INSITU_IMPL)
+    sync(dev)
+    path_s = time.perf_counter() - t0
+    n_inf = wrappers["inr_forward"].launches
+    plain = pathlines_action(values, seeds, dt, substeps=substeps, impl="ref")
+    # every velocity query within eps of the plain one: the inference
+    # kernel's f32 limit (phase 2: 2e-6 x max(1, |v01|)), de-normalized
+    eps = 0.0
+    for v in values:
+        m = v.model
+        for p in range(m.n_partitions):
+            v01 = _inr_apply(vcfg, m.partition(p).params, torch.clamp(seeds, 0, 1),
+                             "ref")
+            span = m.parts_meta[p].vmax - m.parts_meta[p].vmin
+            eps = max(eps, 2e-6 * max(1.0, float(v01.abs().max())) * span)
+    bound, near = pathline_bound(vcfg, values, seeds, dt, substeps, eps)
+    held = ~near
+    err = check(f"pathlines ({PATH_SEEDS} seeds, {2 * substeps} substeps) vs "
+                f"plain, {int(held.sum())} seeds held", traj[:, held],
+                plain[:, held], atol=0.0,
+                slack=bound[held][None, :, None].expand_as(traj[:, held]))
+    if int(near.sum()) > PATH_SEEDS // 100:
+        raise SmokeFailure(f"pathlines: {int(near.sum())} seeds pass within "
+                           f"their bound of a partition face")
+    gt = trace_ground_truth("velocity", [0.45, 0.40], seeds, dt, substeps=substeps)
+    dev_gt = pathline_deviation(traj, gt)
+    print(f"  pathlines: {path_s:.3f} s, {n_inf} inference launches; per-seed "
+          f"bound median {float(bound.median()):.3e}, max {float(bound.max()):.3e} "
+          f"(eps {eps:.2e}), {int(near.sum())} seeds near a partition face not "
+          f"held; departure {err:.3e}; "
+          f"deviation from the analytic pathlines: mean {dev_gt['mean']:.4e}, "
+          f"max {dev_gt['max']:.4e}, final mean {dev_gt['final_mean']:.4e} "
+          f"(host clock, synchronised) [{tag}]")
+    if n_inf != 4 * substeps * PATH_RANKS:
+        raise SmokeFailure(f"pathlines: {n_inf} inference launches, "
+                           f"{4 * substeps * PATH_RANKS} expected")
+    # row 6-v: the sampling train step at D_out = 3 at these shapes (the
+    # t = 0.45 model's params and volumes); bound by row 6's formula
+    flat = {k: v.contiguous() for k, v in fts._pack(values[1].model.params)[0].items()}
+    H, res = vcfg.n_hidden_layers, vcfg.level_resolutions()
+    L_, T_, F_, W_ = vcfg.n_levels, vcfg.table_size, vcfg.n_features_per_level, vcfg.n_neurons
+    P, Nb, D_out = PATH_RANKS, vcfg.batch_size, 3
+    vseeds = step_seeds(0, 0, P).to(dev)
+    draw = dict(n_batch=Nb, n_uniform=Nb - n_boundary(Nb, vcfg.boundary_lambda),
+                sigma=vcfg.boundary_sigma, ghost=1)
+    kern = lambda: fts.train_step_cuda(flat, H, res, volumes=vols, seeds=vseeds,
+                                       **draw)
+    coords, target = fts_ref.sample_batch(
+        vols, vseeds, n_batch=Nb, boundary_lambda=vcfg.boundary_lambda,
+        sigma=vcfg.boundary_sigma, ghost=1)
+    plain_fn = lambda: fts_ref.train_step_grads_ref(
+        flat, H, res, *fts_ref.sample_batch(
+            vols, vseeds, n_batch=Nb, boundary_lambda=vcfg.boundary_lambda,
+            sigma=vcfg.boundary_sigma, ghost=1))
+    ms, pms = cuda_ms(kern, reps=10), cuda_ms(plain_fn, reps=3)
+    n_w = L_ * F_ * W_ + (H - 1) * W_ * W_ + W_ * D_out
+    n_par = P * (L_ * T_ * F_ + n_w)
+    rows = P * Nb
+    E = INSITU_EDGE
+    pos = coords * E - 0.5 + 1
+    lo = torch.clamp(torch.floor(pos), 0, E).long()
+    vox = torch.cat([(((torch.arange(P, device=dev)[:, None] * (E + 2) + lo[..., 0] + dx)
+                       * (E + 2) + lo[..., 1] + dy) * (E + 2) + lo[..., 2] + dz).reshape(-1)
+                     for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)])
+    n_vox = int(torch.unique(vox).numel())
+    enc_flops = rows * L_ * (25 + 8 * (3 + 2 * F_))
+    flops = enc_flops + rows * (16 * L_ * F_ + 8 * 3 * D_out + 20) + 6 * rows * n_w
+    bms, by = bound_ms(2 * n_par * 4 + n_vox * D_out * 4 + P * 4, flops)
+    per = launch_times(kern, "train_step_kernel<float,")
+    print(f"  train_step_v3 (D_out=3, P={P} x N={Nb}) {ms:.3f} ms  bound "
+          f"{bms:.3f} ms ({by})  plain {pms:.3f} ms  launches on the pathline "
+          f"path {n_train}  kernel alone "
+          f"{'not measured' if per is None else f'{per[0]:.4f} ms'} (profiler) "
+          f"[{tag}]")
+    del vols, coords, target, vox
+    return {"name": "train_step_v3", "route": "cuda",
+            "source": SOURCES["train_step"], "replaces": REPLACES["train_step"],
+            "launches": n_train, "max_abs_err": errs["train_step_v3"], "ms": ms,
+            "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+
+def insitu_phase(tag, dev, errs) -> dict:
+    """Phase 8: the reactive in situ loop on PRODUCTION256 (see the module
+    notes); returns the kernels line's row 6-v."""
+    import gc
+    import torch
+    from repro_torch.configs.dvnr import PRODUCTION256
+    from repro_torch.kernels.composite.ops import composite_cuda
+    from repro_torch.kernels.fused_mlp.ops import fused_mlp_bwd_cuda, fused_mlp_cuda
+    from repro_torch.kernels.fused_train_step import ops as fts
+    from repro_torch.kernels.hash_encoding.ops import (hash_encode_bwd_cuda,
+                                                       hash_encode_cuda)
+    from repro_torch.kernels.inr_forward.ops import inr_forward_cuda
+
+    cfg = PRODUCTION256
+    wrappers = {"hash_encode": hash_encode_cuda, "fused_mlp_fwd": fused_mlp_cuda,
+                "composite": composite_cuda, "inr_forward": inr_forward_cuda,
+                "hash_encode_bwd": hash_encode_bwd_cuda,
+                "fused_mlp_bwd": fused_mlp_bwd_cuda,
+                "train_step": fts.train_step_cuda,
+                "adamw_apply": fts.adamw_apply_cuda}
+    print(f"== phase 8: in situ: InSituSession(...).run({INSITU_CYCLES}) -> "
+          f"health() on PRODUCTION256, recovery, pathlines [{tag}]")
+    session_phase(cfg, dev, wrappers, tag)
+    gc.collect()
+    recovery_phase(cfg, dev, wrappers, tag)
+    gc.collect()
+    row = pathlines_phase(cfg, dev, wrappers, errs, tag)
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return row
 
 
 def main() -> int:
-    tag, kernels, flash_err = dvnr_phases()
+    tag, kernels, flash_err, errs = dvnr_phases()
     import gc
 
     import torch
     gc.collect()                      # the DVNR phases' tensors
     torch.cuda.empty_cache()
     kernels.append(lm_phase(tag, torch.device(DEVICE), flash_err))
+    gc.collect()                      # the LM's weights
+    torch.cuda.empty_cache()
+    kernels.append(insitu_phase(tag, torch.device(DEVICE), errs))
     print(tag)                        # name, power limit as nvidia-smi says
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,18 +3,26 @@
 A second package beside the JAX reference ``repro``: the same modules, names
 and parameter layouts, written in PyTorch for an NVIDIA H100, with the TPU
 kernels re-written by hand in CUDA C++ (``csrc/``). It imports nothing of
-``repro`` or of JAX. It trains (``api.train``), compresses models and keeps
-a temporal window of them, serves frames (inference and rendering, through
-a brick cache or not), and serves the inherited dense LM stack
-(``models.build_model``: prefill and KV-cache decode).
+``repro`` or of JAX. It trains (``api.train``, with the non-finite retry
+ladder on request), compresses models and keeps a temporal window of them,
+serves frames (inference and rendering, through a brick cache or not),
+extracts isosurfaces and traces pathlines, runs the reactive in situ loop
+(``insitu.InSituSession``) under injected faults, and serves the inherited
+dense LM stack (``models.build_model``: prefill and KV-cache decode).
 
 - ``repro_torch.api``       ``train``, ``DVNRModel`` (init/from_state/
                             from_compressed/apply/decode_grid/compress/
-                            save/load), ``render``, ``compress`` /
+                            save/load), ``render``, ``isosurface``,
+                            ``trace_pathlines``, ``compress`` /
                             ``decompress``
 - ``repro_torch.core``      the INR, the counter-based sampler, the trainer,
-                            metrics, the renderer and the temporal model
-                            cache
+                            metrics, the renderer, the temporal model
+                            cache, isosurfaces and pathlines
+- ``repro_torch.reactive``  the lazy reactive graph and the DVNR node
+- ``repro_torch.insitu``    the synthetic simulations, the actions and the
+                            in situ session
+- ``repro_torch.resilience`` fault plans, the recovery ladder, partition
+                            sanitization
 - ``repro_torch.compress``  the error-bounded codecs and model compression
                             (the JAX package's blobs, byte for byte)
 - ``repro_torch.optim``     AdamW

@@ -1,14 +1,17 @@
-"""repro_torch.api — the DVNR facade without isosurfaces and pathlines.
+"""repro_torch.api — the DVNR facade.
 
 The port of ``repro.api``: :func:`train` (one INR per partition, no
-communication), :class:`DVNRModel` (config + single or partition-stacked
-params + partition metadata) with ``init`` / ``from_state`` /
-``from_compressed`` / ``partition`` / ``stacked_params`` / ``meta_arrays``
-/ ``apply`` / ``decode_grid`` / ``compress`` / ``save`` / ``load``, the
-frozen request objects, :func:`render` (through INR inference, or from a
-:class:`repro_torch.serving.BrickCache` with ``cache=``) and
-:func:`compress` / :func:`decompress` (the JAX package's blobs, byte for
-byte). Isosurfaces and pathlines come with a later slice.
+communication; ``recovery=`` runs the non-finite retry ladder),
+:class:`DVNRModel` (config + single or partition-stacked params + partition
+metadata) with ``init`` / ``from_state`` / ``from_compressed`` /
+``partition`` / ``stacked_params`` / ``meta_arrays`` / ``apply`` /
+``decode_grid`` / ``compress`` / ``save`` / ``load``, the frozen request
+objects, :func:`render` (through INR inference, or from a
+:class:`repro_torch.serving.BrickCache` with ``cache=``),
+:func:`isosurface` (marching tetrahedra on INR inference),
+:func:`trace_pathlines` (backward pathlines over a window of velocity
+models) and :func:`compress` / :func:`decompress` (the JAX package's
+blobs, byte for byte).
 
 Models saved by either package load in the other: :meth:`DVNRModel.save`
 writes the JAX package's msgpack format byte for byte (``msgpack`` is
@@ -43,8 +46,8 @@ from repro_torch.precision import Precision, resolve_precision
 
 __all__ = [
     "DVNRModel", "PartitionMeta", "Camera", "TransferFunction",
-    "RenderRequest", "train", "render", "compress", "decompress", "save",
-    "load", "get_codec", "register_codec", "available_codecs", "DVNRConfig",
+    "RenderRequest", "train", "render", "isosurface", "trace_pathlines",
+    "compress", "decompress", "save", "load", "get_codec", "register_codec", "available_codecs", "DVNRConfig",
     "DVNRTrainer", "Precision", "resolve_precision",
 ]
 
@@ -116,8 +119,8 @@ class RenderRequest:
     resolution, and the reduced inference / output dtypes. ``timestep``
     selects a model of the render service's temporal cache, ``lod`` the
     brick cache's level of detail (level ``l`` decodes at
-    ``ceil(shape / 2**l)``; cache path only); ``iso`` is carried for the
-    isosurface slice. All of them group requests in the service."""
+    ``ceil(shape / 2**l)``; cache path only); ``iso`` is the value
+    :func:`isosurface` takes from a request. All of them group requests in the service."""
 
     camera: Camera = Camera()
     tf: TransferFunction = TransferFunction()
@@ -368,8 +371,13 @@ def train(partitions, cfg: DVNRConfig, *, backend: BackendLike = "auto",
     :meth:`DVNRTrainer.train`), and overrides of ``cfg.precision``,
     ``cfg.fuse_train_step``, ``cfg.fuse_sampling`` and
     ``cfg.sampling_brick``. ``train_mask`` ((P,) bool) keeps partitions out
-    of training from step 0. ``mesh`` and ``recovery`` are not ported yet
-    and raise ``NotImplementedError``.
+    of training from step 0. ``recovery`` (a
+    :class:`repro_torch.resilience.RecoveryPolicy`) routes training through
+    the non-finite recovery loop: partitions tripping the detector are
+    retried (reseed -> moment reset -> lr backoff) and frozen at their
+    last-good params when the ladder is exhausted; ``info`` then carries a
+    ``"recovery"`` entry. ``mesh`` is not ported yet and raises
+    ``NotImplementedError``.
     """
     k_init, k_train = split(as_key(0 if key is None else key))
     P = len(partitions)
@@ -425,6 +433,8 @@ def train(partitions, cfg: DVNRConfig, *, backend: BackendLike = "auto",
     info = {"train_time_s": train_time_s, "steps": int(state.step),
             "loss_history": hist.get("loss", []), "state": state,
             "trainer": trainer}
+    if "recovery" in hist:
+        info["recovery"] = hist["recovery"]
     return model, info
 
 
@@ -457,6 +467,65 @@ def render(model: DVNRModel, request: Optional[RenderRequest] = None, *,
         model.grange, n_samples=r.n_samples, impl=b, tf_table=tf_table,
         density=r.tf.density, compute_dtype=r.compute_dtype,
         out_dtype=r.out_dtype, metas=model.meta_arrays())
+
+
+def isosurface(model: DVNRModel, iso01=0.5, *, resolution: int = 32,
+               backend: BackendLike = "auto") -> np.ndarray:
+    """Per-partition marching tets on the INR; returns world-space points
+    (a host-side (N, 3) float32 array). ``iso01`` is in GLOBAL normalized
+    units: a float or a :class:`RenderRequest` whose ``iso`` field carries
+    the value. The vertex grid is sampled through INR inference on the
+    model's device (the inference kernel on the ``cuda`` backend)."""
+    from repro_torch.core.isosurface import isosurface_from_inr, surface_points
+
+    if isinstance(iso01, RenderRequest):
+        if iso01.iso is None:
+            raise ValueError("isosurface() from a RenderRequest needs "
+                             "request.iso set")
+        iso01 = float(iso01.iso)
+    if model.parts_meta is None:
+        raise ValueError("isosurface() needs model.parts_meta")
+    b = backends.resolve(backend)
+    gmin, gmax = model.grange
+    clouds = []
+    for p in range(model.n_partitions):
+        meta = model.parts_meta[p]
+        iso_raw = gmin + iso01 * (gmax - gmin)
+        denom = max(meta.vmax - meta.vmin, 1e-12)
+        iso_local = (iso_raw - meta.vmin) / denom
+        if not (0.0 <= iso_local <= 1.0):
+            continue                   # the isosurface misses this partition
+        part = model.partition(p)
+        tris, valid = isosurface_from_inr(
+            model.cfg, part.params, float(iso_local),
+            shape=(resolution,) * 3, origin=meta.origin,
+            extent=meta.extent, impl=b)
+        pts = surface_points(tris, valid)
+        if len(pts):
+            clouds.append(pts)
+    if not clouds:
+        return np.zeros((0, 3), np.float32)
+    return np.concatenate(clouds, axis=0)
+
+
+def trace_pathlines(models: Sequence[DVNRModel], seeds, dt: float, *,
+                    substeps: int = 4, backend: BackendLike = "auto"):
+    """Backward pathline tracing over a temporal window of velocity DVNRs
+    (newest -> oldest). Returns the (T*substeps+1, N, 3) trajectory on the
+    models' device."""
+    from repro_torch.core.pathlines import trace_backward
+
+    if not models:
+        raise ValueError("empty model window")
+    if any(m.parts_meta is None for m in models):
+        raise ValueError("trace_pathlines() needs parts_meta on every model "
+                         "in the window (train via repro_torch.api.train or "
+                         "attach PartitionMeta)")
+    cfg = models[0].cfg
+    window = [m.stacked_params() for m in models]
+    metas = [list(m.parts_meta) for m in models]
+    return trace_backward(cfg, window, metas, seeds, dt, substeps=substeps,
+                          impl=backends.resolve(backend))
 
 
 def compress(model: DVNRModel, *, r_enc: Optional[float] = None,

@@ -14,9 +14,9 @@ same emulation as :mod:`repro_torch.kernels.hash_encoding.ref`).
 
 Keys are JAX's raw ``PRNGKey`` layout: a (2,) pair of uint32 words. An
 integer seed ``s`` means ``PRNGKey(s)`` = ``[0, s]``; :func:`split` and
-:func:`random_uniform` reproduce ``jax.random.split`` and
-``jax.random.uniform`` (threefry, ``jax_threefry_partitionable``) bit for
-bit, which is what makes the port's random init equal JAX's.
+:func:`random_uniform` reproduce ``jax.random.split``,
+``jax.random.fold_in`` (:func:`fold_in`) and ``jax.random.uniform``
+(threefry, ``jax_threefry_partitionable``) bit for bit, which is what makes the port's random init equal JAX's.
 """
 from __future__ import annotations
 
@@ -90,6 +90,15 @@ def split(key, n: int = 2) -> torch.Tensor:
     x0, x1 = threefry2x32(k0, k1, 0, torch.arange(n, dtype=torch.int64,
                                                   device=k0.device))
     return torch.stack([x0, x1], dim=1)
+
+
+def fold_in(key, data) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)``, bit for bit: the two words of
+    threefry(key, (0, data)), ``data`` taken as a uint32. Returns the (2,)
+    int64 key tensor (see :func:`as_key`) on the key's device."""
+    k0, k1 = key_words(key)
+    x0, x1 = threefry2x32(k0, k1, 0, int(data) & _MASK32)
+    return torch.stack([x0, x1])
 
 
 def random_bits(key, shape) -> torch.Tensor:

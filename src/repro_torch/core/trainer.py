@@ -23,12 +23,14 @@
 
 On the ``cuda`` backend the fused step updates params and moments in place:
 a state passed to :meth:`DVNRTrainer.train_chunk` is advanced, not kept.
-Not ported yet (they raise ``NotImplementedError``): a device mesh (ROADMAP
-§A item 14), the non-finite recovery ladder (item 11) and static checks
-(item 15).
+``train(recovery=...)`` runs the non-finite retry ladder
+(:func:`repro_torch.resilience.recovery.train_with_recovery`). Not ported
+yet (they raise ``NotImplementedError``): a device mesh (ROADMAP §A item 14)
+and static checks (item 15).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Optional
@@ -220,13 +222,15 @@ class DVNRTrainer:
             active = active & (loss_ma > self.cfg.target_loss)
         return loss_ma, active
 
-    def _build_spmd_step(self):
+    def _build_spmd_step(self, adam: Optional[AdamW] = None):
         """The per-step body ``(params, opt, vols, seeds, active, loss_ma,
         scalars) -> (params, opt, loss, loss_ma, active)``. ``seeds`` is the
         (P, 2) counter-seed table of the step; ``scalars`` the (P, 4)
-        schedule rows of the fused op (``None``: derived from the state)."""
+        schedule rows of the fused op (``None``: derived from the state).
+        ``adam`` replaces the trainer's optimizer (the lr-backoff rung)."""
         cfg, ghost, backend = self.cfg, self.ghost, self.backend
-        adam, compute_dtype = self.adam, self._compute_dtype
+        adam = self.adam if adam is None else adam
+        compute_dtype = self._compute_dtype
         resolutions = cfg.level_resolutions()
         draw = dict(n_batch=cfg.batch_size, boundary_lambda=cfg.boundary_lambda,
                     sigma=cfg.boundary_sigma, ghost=ghost)
@@ -264,19 +268,27 @@ class DVNRTrainer:
 
     # -------------------------- a chunk --------------------------------- #
     def train_chunk(self, state: DVNRState, volumes, n_steps: int, *,
-                    key) -> tuple:
+                    key, lr_scale: float = 1.0) -> tuple:
         """Run ``n_steps`` steps with no host synchronisation: the seed and
         schedule tables are built once, the steps are launched back to back,
         and the (n_steps, P) loss trace stays on the device. ``state.finite``
         of the result carries the non-finite detector (all True with
-        ``cfg.guard_nonfinite`` off)."""
+        ``cfg.guard_nonfinite`` off). ``lr_scale != 1`` runs the chunk with
+        an AdamW of ``lr * lr_scale`` (the lr-backoff rung of
+        :class:`repro_torch.resilience.RecoveryPolicy`): the fused op's
+        schedule table takes its lr column from that optimizer."""
         n_steps = int(n_steps)
         P, guard = self.P, self.cfg.guard_nonfinite
         dev = state.loss_ma.device
+        if lr_scale == 1.0:
+            adam, spmd_step = self.adam, self._spmd_step
+        else:
+            adam = AdamW(dataclasses.replace(
+                self.adam.cfg, lr=self.adam.cfg.lr * float(lr_scale)))
+            spmd_step = self._build_spmd_step(adam)
         seeds = step_seeds(key, torch.arange(state.step, state.step + n_steps),
                            P).to(dev)
-        sched = (fts.schedule_table(state.opt["step"], self.adam.cfg,
-                                    self.adam, n_steps)
+        sched = (fts.schedule_table(state.opt["step"], adam.cfg, adam, n_steps)
                  if self.fuse_train_step else None)
         params, opt = state.params, state.opt
         active, loss_ma = state.active, state.loss_ma
@@ -288,7 +300,7 @@ class DVNRTrainer:
                 scalars = sched[i]
                 scalars[:, 3] = active
             active_in = active
-            params, opt, loss, loss_ma, active = self._spmd_step(
+            params, opt, loss, loss_ma, active = spmd_step(
                 params, opt, volumes, seeds[i], active, loss_ma, scalars)
             if guard:
                 finite = finite & (torch.isfinite(loss) | ~active_in)
@@ -308,11 +320,20 @@ class DVNRTrainer:
         """The chunked training loop. ``volumes``: (P, nx+2g, ny+2g, nz+2g)
         normalized partitions. ``check_every`` is the chunk size, the
         granularity of the host's convergence checks (0: the whole run as
-        one chunk when early stopping is off, else 64-step chunks)."""
+        one chunk when early stopping is off, else 64-step chunks).
+
+        ``recovery`` (a :class:`repro_torch.resilience.RecoveryPolicy`)
+        routes the run through the non-finite recovery loop: each chunk is
+        snapshotted (cloned) before it runs, partitions whose detector flag
+        trips are retried on a reseed -> moment-reset -> lr-backoff ladder
+        and frozen at their last-good params once attempts are exhausted;
+        healthy partitions keep their first attempt's results."""
         if recovery is not None:
-            raise NotImplementedError(
-                "train(recovery=...): the non-finite recovery ladder comes "
-                "with the in situ runtime slice (ROADMAP §A item 11)")
+            from repro_torch.resilience.recovery import train_with_recovery
+            return train_with_recovery(self, state, volumes, steps=steps,
+                                       key=key, log_every=log_every,
+                                       check_every=check_every,
+                                       policy=recovery)
         if steps <= 0:
             return state, {"loss": [], "final_step": state.step}
         if check_every <= 0:

@@ -207,8 +207,11 @@ def test_unported_options_raise():
         ttr.DVNRTrainer(CFG.replace(static_checks="warn"), P, impl="ref",
                         device="cpu")
     _, tparts = _parts((6, 6, 6))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        api.train(tparts, CFG, backend="ref", steps=1, recovery=object())
+    # the recovery ladder is ported; it acts on the non-finite detector
+    from repro_torch.resilience import RecoveryPolicy
+    with pytest.raises(ValueError, match="guard_nonfinite"):
+        api.train(tparts, CFG.replace(guard_nonfinite=False), backend="ref",
+                  steps=1, recovery=RecoveryPolicy())
     with pytest.raises(ValueError, match="fuse_train_step"):
         ttr.DVNRTrainer(CFG.replace(fuse_train_step="always"), P, impl="ref",
                         device="cpu")
