@@ -129,7 +129,38 @@ toolkit; imports nothing of JAX or of the JAX package. Phases:
            healthy partitions against a clean run); two velocity models and
            4,096 backward pathlines against the plain path within a per-seed
            bound (``pathline_bound``) and against the analytic field; the
-           train step at D_out = 3 timed at the pathline path's shapes.
+           train step at D_out = 3 timed at the pathline path's shapes. The
+           recovery run and its clean runs take the train step's
+           deterministic route: the healthy partitions and two clean runs
+           bit for bit; the first 16 steps on the default route at 1e-4;
+9. ranks   DVNR across ranks (``distributed_phase``): 8 ``gloo`` ranks
+           spawned into one process group share the card (NCCL refuses two
+           ranks on one device; the halo's and the swap's wire is staged
+           through host copies, compute stays on the card), a 2x2x2 mesh,
+           one PRODUCTION256 partition of the 512^3 CloverLeaf a rank, the
+           kernels built by this process before any rank starts: (a)
+           partitions with their ghosts zeroed, filled by ``halo_exchange``,
+           bit for bit against ``halo_exchange_ref`` and equal to
+           make_partition's ghost cells on interior faces; (b) 512 steps
+           of ``api.train(mesh=)`` a rank on the deterministic route, a
+           checkpoint at step 256 in between: ``count_collectives`` reads 0
+           over every chunk and over a chunk with rank 1's partition masked
+           out, >= 1 over a control ring shift; every rank's train-step and
+           AdamW counters move; each rank's state bit for bit its
+           partition's in the single-process stacked run; (c)
+           ``make_distributed_render_step`` at 256^2 x 64: the same frame on
+           every rank, within 1e-5 of ``api.render``; (d) ``plan_restart(5)``
+           gives 4 ranks, ``elastic_restore`` onto them (2 partitions each),
+           512 steps reached: bit for bit (b)'s states.
+
+The deterministic route of the train step (``torch.use_deterministic_
+algorithms(True)``; int64 fixed-point table gradient, per-group dW and loss
+rows summed by AdamW in group order) is held wherever the default route is
+in phase 2 (``check_step`` / ``check_step_bf16``: the same yardsticks, two
+launches bit for bit, one partition alone bit for bit with its row of the
+stacked launch), its AdamW bit for bit against the plain AdamW on the same
+reduction, two clean 512-step runs bit for bit in phase 5 (f32 and bf16),
+and timed beside the default route in phase 6.
 
 Exits non-zero on any failure. The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the per-kernel JSON.
@@ -174,7 +205,12 @@ REPLACES.update({"fused_mlp_fwd_bf16": REPLACES["fused_mlp_fwd"],
                  "train_step_bf16": REPLACES["train_step"],
                  "adamw_apply_master": REPLACES["adamw_apply"],
                  "inr_forward_bf16": REPLACES["inr_forward"],
-                 "train_step_v3": REPLACES["train_step"]})
+                 "train_step_v3": REPLACES["train_step"],
+                 # the deterministic route (torch.use_deterministic_algorithms)
+                 "train_step_det": REPLACES["train_step"],
+                 "train_step_det_bf16": REPLACES["train_step"],
+                 "adamw_det": REPLACES["adamw_apply"],
+                 "adamw_det_master": REPLACES["adamw_apply"]})
 # sizes of the run (the rehearsal on a CPU shrinks them)
 DECODE_EDGE = 256          # phase 3: one 256^3 partition
 LOCAL_EDGE = 256           # phase 4: 2x2x2 partitions of 256^3 each
@@ -219,6 +255,11 @@ SHOCK_LEVEL, SHOCK_FRAC = 3.0, 0.026
 ISO_RES = 128
 PATH_RANKS, PATH_SEEDS, PATH_STEPS = 4, 4096, 512
 INSITU_IMPL = "auto"
+# phase 9: DVNR across ranks: the ranks (one partition each of the 2x2x2
+# split), the steps and the step of the checkpoint, the survivors of the
+# elastic restart, and a limit on each group of ranks (init and join)
+DIST_RANKS, DIST_STEPS, DIST_SAVE_AT, DIST_SURVIVORS = 8, 512, 256, 5
+DIST_TIMEOUT_S = 600
 # phase 2: the MLP backward's further cases, (label, P, part, N, D_in, W,
 # H, D_out)
 MLP_BWD_CASES = (
@@ -249,6 +290,10 @@ SOURCES = {
     "inr_forward": "src/repro_torch/csrc/inr_forward.cu",
     "inr_forward_bf16": "src/repro_torch/csrc/inr_forward.cu",
     "train_step_v3": "src/repro_torch/csrc/train_step.cuh",
+    "train_step_det": "src/repro_torch/csrc/train_step_det.cu",
+    "train_step_det_bf16": "src/repro_torch/csrc/train_step_det_bf16.cu",
+    "adamw_det": "src/repro_torch/csrc/adamw.cu",
+    "adamw_det_master": "src/repro_torch/csrc/adamw.cu",
 }
 
 
@@ -407,6 +452,16 @@ def launch_times(fn, symbol: str, reps: int = 3):
         return None
     n = len(ms) // reps
     return [sum(ms[i::n]) / reps for i in range(n)]
+
+
+def kernel_alone_ms(fn, symbol: str, calls: int = 5):
+    """Device ms a call of the kernels whose profiler key holds ``symbol``,
+    over ``calls`` calls of ``fn`` profiled together (``profile_tick``);
+    None when the profiler saw no such kernel."""
+    fn()
+    _, by_kernel, _, _ = profile_tick(lambda: [fn() for _ in range(calls)])
+    t = [ms for key, (ms, _) in by_kernel if symbol in key]
+    return sum(t) / calls if t else None
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float = F32_FLOPS,
@@ -1193,11 +1248,74 @@ def check_step_grads(label, H, got_g, got_loss, wants, keys=None) -> float:
     return err
 
 
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """``torch.use_deterministic_algorithms(True)`` for the block: the
+    switch that sends the fused train step down its deterministic route."""
+    import torch
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before)
+
+
+def det_step(label, params, H, res, **batch):
+    """The train step's deterministic route on ``batch``: two launches must
+    give the same bits (group rows, fixed-point table gradient), no flag
+    may be set, and the last partition launched alone must give its row of
+    the stacked launch bit for bit (the route's sums do not depend on the
+    grid). Returns its gradients and loss sum as the AdamW kernel reads
+    them (``det_grads_to_float``)."""
+    import torch
+    from repro_torch.kernels.fused_train_step import ops as fts
+    P = params["tab"].shape[0]
+    with deterministic_algorithms():
+        a, _ = fts.train_step_cuda(params, H, res, **batch)
+        b, _ = fts.train_step_cuda(params, H, res, **batch)
+        p = P - 1
+        one = {k: v[p:p + 1].contiguous() for k, v in params.items()}
+        cut = {k: (v[p:p + 1].contiguous()
+                   if k in ("coords", "target", "volumes", "seeds") else v)
+               for k, v in batch.items()}
+        c, _ = fts.train_step_cuda(one, H, res, **cut)
+    same = torch.equal(a.partials, b.partials) and torch.equal(a.tab_fx, b.tab_fx)
+    alone = torch.equal(c.partials[0], a.partials[p]) and \
+        torch.equal(c.tab_fx[0], a.tab_fx[p])
+    flags = int(a.flags.max())
+    print(f"  train_step ({label}), deterministic route: two launches bit for "
+          f"bit {same}; partition {p} alone = its row of the {P}-partition "
+          f"launch {alone}; flags {flags}; {a.partials.shape[1]} groups")
+    if not (same and alone) or flags:
+        raise SmokeFailure(f"train_step ({label}) deterministic route: repeat "
+                           f"{same}, alone {alone}, flags {flags}")
+    return fts.det_grads_to_float(a, params, H)
+
+
 def check_step(label, params, H, res, wants, **batch) -> float:
-    """The train-step kernel on ``batch`` held by ``check_step_grads``."""
+    """The train-step kernel on ``batch`` held by ``check_step_grads``, on
+    its default route and on its deterministic one (``det_step``)."""
     from repro_torch.kernels.fused_train_step import ops as fts
     got_g, got_loss = fts.train_step_cuda(params, H, res, **batch)
-    return check_step_grads(label, H, got_g, got_loss, wants)
+    err = check_step_grads(label, H, got_g, got_loss, wants)
+    det_g, det_loss = det_step(label, params, H, res, **batch)
+    DET_ERRS["train_step_det"] = max(DET_ERRS["train_step_det"], check_step_grads(
+        f"{label}, deterministic route", H, det_g, det_loss, wants))
+    return err
+
+
+def under_det(fn):
+    """``fn`` run under ``deterministic_algorithms`` (for the timers)."""
+    def run():
+        with deterministic_algorithms():
+            return fn()
+    return run
+
+
+#: the deterministic route's largest departures in phase 2's checks so far
+#: (read after the main batch's: the kernels line's max_abs_err of its rows)
+DET_ERRS = {"train_step_det": 0.0, "train_step_det_bf16": 0.0}
 
 
 #: a bf16 kernel's largest departure from its bf16 plain version, as a
@@ -1302,19 +1420,27 @@ def check_step_bf16(label, params16, H, res, wants, contention=False,
     bf16 plain version's (a prediction's rounding flip moves one |diff| by
     an ulp)."""
     from repro_torch.kernels.fused_train_step import ops as fts
-    got_g, got_loss = fts.train_step_cuda(params16, H, res, **batch)
     (want, want_loss), want32 = wants["bf16 plain"], wants["float32 plain"][0]
-    err = 0.0
-    for k in fts.STATE_KEYS:
-        if k != "whid" or H > 1:
-            loose = contention and k == "whid"
-            err = max(err, check_bf16(
-                f"train_step bf16 ({label}) grad {k}", got_g[k], want[k],
-                want32[k], BF16_WHID_CONTENTION if loose else BF16_LIMITS[k],
-                separable=not loose))
-    check(f"train_step bf16 ({label}) loss sum", got_loss, want_loss, atol=0.0,
-          rtol=1e-3)
-    return err
+    errs = {}
+    for route, (got_g, got_loss) in (
+            ("", fts.train_step_cuda(params16, H, res, **batch)),
+            (", deterministic route", det_step(f"bf16 {label}", params16, H, res,
+                                               **batch))):
+        err = 0.0
+        for k in fts.STATE_KEYS:
+            if k != "whid" or H > 1:
+                loose = contention and k == "whid"
+                err = max(err, check_bf16(
+                    f"train_step bf16 ({label}{route}) grad {k}", got_g[k],
+                    want[k], want32[k],
+                    BF16_WHID_CONTENTION if loose else BF16_LIMITS[k],
+                    separable=not loose))
+        check(f"train_step bf16 ({label}{route}) loss sum", got_loss, want_loss,
+              atol=0.0, rtol=1e-3)
+        errs[route] = err
+    DET_ERRS["train_step_det_bf16"] = max(DET_ERRS["train_step_det_bf16"],
+                                          errs[", deterministic route"])
+    return errs[""]
 
 
 def check_mlp_bwd(label, x, ws, g, part, got=None) -> float:
@@ -1756,6 +1882,63 @@ def mixed_policy_checks(tparts, cfg, train_wrappers) -> None:
                   losses, ref, atol=0.0, rtol=BF16_LOSS_RTOL)
             del info
         del rinfo
+
+
+def det_training(tparts, vols, cfg, wrappers, tag, rinfo) -> dict:
+    """Phase 5, the deterministic route: two clean TRAIN_STEPS-step runs of
+    the 8 PRODUCTION256 partitions under ``deterministic_algorithms``, f32
+    and bf16, must be the same bits in every parameter, moment, master,
+    loss average and loss of the trace, and the route must carry every step
+    (its counter); the f32 run's first COMPARE_STEPS losses against the
+    plain path (``rinfo``) at 1e-4, as the default route's. Returns each
+    policy's launches, ms a step and PSNR."""
+    import torch
+    from repro_torch import api, interop
+    from repro_torch.kernels.fused_train_step import ops as fts
+    from repro_torch.optim.adamw import tree_leaves
+    out = {}
+    for policy in ("f32", "bf16"):
+        kw = {} if policy == "f32" else {"precision": "bf16"}
+        runs = []
+        for _ in range(2):
+            for w in wrappers.values():
+                w.launches = 0
+            fts.train_step_cuda.det_launches = 0
+            torch.cuda.synchronize()
+            with deterministic_algorithms():
+                _, info = api.train(tparts, cfg, backend="cuda", steps=TRAIN_STEPS,
+                                    key=0, log_every=1, **kw)
+            torch.cuda.synchronize()
+            runs.append((info, {n: w.launches for n, w in wrappers.items()},
+                         fts.train_step_cuda.det_launches))
+        (ia, la, da), (ib, _, _) = runs
+        leaves = [tree_leaves(interop.state_tree(i["state"])) for i in (ia, ib)]
+        same = all(torch.equal(x, y) for x, y in zip(*leaves))
+        traces = [[l for _, l in i["loss_history"]] for i in (ia, ib)]
+        ms = ia["train_time_s"] * 1e3 / TRAIN_STEPS
+        ev = ia["trainer"].evaluate(ia["state"], vols, (TRAIN_EDGE,) * 3)
+        print(f"  deterministic route, {policy}: two clean {TRAIN_STEPS}-step runs "
+              f"bit for bit in every parameter, moment and loss average: {same}; "
+              f"loss traces equal: {traces[0] == traces[1]}; {da} of "
+              f"{la['train_step']} train-step launches on the route, "
+              f"{la['adamw_apply']} AdamW; {ms:.4f} ms per step (host clock), "
+              f"PSNR {ev['psnr']:.4f} dB [{tag}]")
+        if not same or traces[0] != traces[1]:
+            raise SmokeFailure(f"deterministic route ({policy}): two clean runs differ")
+        if da != TRAIN_STEPS or la["train_step"] != TRAIN_STEPS or \
+                la["adamw_apply"] != TRAIN_STEPS:
+            raise SmokeFailure(f"deterministic route ({policy}): launches {la}, "
+                               f"{da} on the route")
+        if policy == "f32":
+            other = torch.tensor([l for _, l in rinfo["loss_history"]],
+                                 dtype=torch.float64)
+            check(f"first {COMPARE_STEPS} losses: deterministic route vs plain "
+                  f"path (ref)", torch.tensor(traces[0][:COMPARE_STEPS],
+                                              dtype=torch.float64), other,
+                  atol=0.0, rtol=1e-4)
+        out[policy] = {"launches": la, "ms_step": ms, "psnr": ev["psnr"]}
+        del runs, ia, ib, leaves
+    return out
 
 
 def cached_phase(model, requests, wrappers, tag, dev, uncached) -> None:
@@ -2295,6 +2478,7 @@ def dvnr_phases():
                    coords=coords_t, target=target_t),
         check_step("in-kernel sampling", tparams, H, res, wants_t,
                    volumes=vols_c, seeds=tseeds, **draw))
+    errs["train_step_det"] = DET_ERRS["train_step_det"]    # this batch's
     got_g, got_loss = fts.train_step_cuda(tparams, H, res, volumes=vols_c,
                                           seeds=tseeds, **draw)
     # the two-launch split (the kernel writes the feature cotangent, the
@@ -2312,6 +2496,7 @@ def dvnr_phases():
                         coords=coords_t, target=target_t),
         check_step_bf16("in-kernel sampling", tparams16, H, res, wants16,
                         volumes=vols_c, seeds=tseeds, **draw))
+    errs["train_step_det_bf16"] = DET_ERRS["train_step_det_bf16"]
     got_g16, got_loss16 = fts.train_step_cuda(tparams16, H, res, volumes=vols_c,
                                               seeds=tseeds, **draw)
     del wants16
@@ -2357,6 +2542,31 @@ def dvnr_phases():
                            ("m", mk, mp), ("v", vk, vp)):
             e = check(f"adamw_apply master {k} {name}", a[k], b[k], atol=0.0)
             errs["adamw_apply_master"] = max(errs.get("adamw_apply_master", 0.0), e)
+    # the deterministic route's AdamW (it sums the train step's group rows in
+    # group order and converts the fixed-point table gradient) against the
+    # plain AdamW on det_grads_to_float's gradients, the same arithmetic:
+    # params, moments, master and the mean loss bit for bit
+    with deterministic_algorithms():
+        det32, _ = fts.train_step_cuda(tparams, H, res, volumes=vols_c,
+                                       seeds=tseeds, **draw)
+        det16, _ = fts.train_step_cuda(tparams16, H, res, volumes=vols_c,
+                                       seeds=tseeds, **draw)
+    for name, det, src in (("adamw_det", det32, tparams), ("adamw_det_master", det16,
+                                                           tparams16)):
+        master = name.endswith("master")
+        ks, ps = (master_state(), master_state()) if master else \
+            ((*adam_state(), None), (*adam_state(), None))
+        with deterministic_algorithms():
+            loss_k = fts.adamw_apply_cuda(*ks[:3], det, sched, None, n_valid=Nb,
+                                          flat_mw=ks[3], **adam_kw)
+        g_ref, loss_sum_ref = fts.det_grads_to_float(det, src, H)
+        fts_ref.adamw_apply_ref(*ps[:3], ps[3], g_ref, sched, **adam_kw)
+        errs[name] = check(f"{name} loss", loss_k, loss_sum_ref / float(Nb), atol=0.0)
+        for k in fts.STATE_KEYS:
+            for i, part_name in enumerate(("param", "m", "v", "master")[:4 if master else 3]):
+                errs[name] = max(errs[name], check(
+                    f"{name} {k} {part_name}", ks[i][k], ps[i][k], atol=0.0))
+    del det32, det16
     torch.cuda.synchronize()
     flash_err = flash_checks(dev)
 
@@ -2514,6 +2724,7 @@ def dvnr_phases():
                              dtype=torch.float64)
         check(f"first {COMPARE_STEPS} losses: fused vs {label}", head, other,
               atol=0.0, rtol=1e-4)
+    det_runs = det_training(tparts, vols, cfg, every_wrapper, tag, rinfo)
     # the unfused path warm (its first run above pays its first calls), and
     # the fused path over the same number of steps
     _, uinfo = api.train(tparts, cfg, backend="cuda", steps=COMPARE_STEPS,
@@ -2861,6 +3072,18 @@ def dvnr_phases():
     # argument); the bf16 rows' launches are the bf16 runs' (fused: train
     # step and AdamW; unfused: the backwards), each of TRAIN_STEPS steps
     b_fused, b_unfused = bf16_runs["auto"], bf16_runs["off"]
+    # the deterministic route's gradients and fresh AdamW states for its rows
+    with deterministic_algorithms():
+        det_g, _ = fts.train_step_cuda(tparams, H, res, **sample_kw)
+        det_g16, _ = fts.train_step_cuda(tparams16, H, res, **sample_kw)
+    pkd, mkd, vkd = adam_state()
+    ppd, mpd, vpd = adam_state()
+    pkd16, mkd16, vkd16, wkd16 = master_state()
+    ppd16, mpd16, vpd16, wpd16 = master_state()
+    groups = det_g.partials.shape[1]
+    part_floats = TP * groups * (n_w + 1)
+    det_launch = {p: det_runs[p]["launches"] for p in ("f32", "bf16")}
+    sym = lambda tp, det: f"train_step_kernel<{tp}, {W}, {F}, true, {det}>"
     tspecs = [
         ("hash_encode_bwd",
          lambda: hash_encode_bwd_cuda(g_feat, coords_t, res, rows_t, (TP, L, T, F)),
@@ -2881,13 +3104,30 @@ def dvnr_phases():
         ("train_step", lambda: fts.train_step_cuda(tparams, H, res, **sample_kw),
          lambda: plain_step(tparams), None,
          2 * n_par * 4 + n_vox * 4 + TP * 4, (other_flops + mlp_flops, 0),
-         train_launches["train_step"], TRAIN_STEPS, "train_step_kernel<float,"),
+         train_launches["train_step"], TRAIN_STEPS, sym("float", "false")),
         ("adamw_apply",
          lambda: fts.adamw_apply_cuda(pk, mk, vk, got_g, sched, got_loss,
                                       n_valid=Nb, **adam_kw),
          lambda: fts_ref.adamw_apply_ref(pp, mp, vp, None, got_g, sched, **adam_kw),
          None, n_par * 7 * 4 + TP * 4 * 4, (n_par * 15, 0),
-         train_launches["adamw_apply"], TRAIN_STEPS, "adamw_kernel<false>"),
+         train_launches["adamw_apply"], TRAIN_STEPS, "adamw_kernel<false, false>"),
+        # the deterministic route: the same function (the same bound); AdamW
+        # also reads the group rows and the int64 table gradient and sums
+        # the rows
+        ("train_step_det",
+         under_det(lambda: fts.train_step_cuda(tparams, H, res, **sample_kw)),
+         lambda: plain_step(tparams), None,
+         2 * n_par * 4 + n_vox * 4 + TP * 4, (other_flops + mlp_flops, 0),
+         det_launch["f32"]["train_step"], TRAIN_STEPS, sym("float", "true")),
+        ("adamw_det",
+         under_det(lambda: fts.adamw_apply_cuda(pkd, mkd, vkd, det_g, sched, None,
+                                                n_valid=Nb, **adam_kw)),
+         lambda: fts_ref.adamw_apply_ref(
+             ppd, mpd, vpd, None, fts.det_grads_to_float(det_g, tparams, H)[0],
+             sched, **adam_kw),
+         None, n_par * 6 * 4 + n_tab * 8 + part_floats * 4 + TP * 4 * 4,
+         (n_par * 15 + part_floats, 0),
+         det_launch["f32"]["adamw_apply"], TRAIN_STEPS, "adamw_kernel<false, true>"),
         # the bf16 policy's kernels: bf16 operands read, float32 gradients
         # written; the MLP's products take bf16 operands and sum in float32,
         # which the card runs at its bf16 peak, the rest is float32 work
@@ -2910,15 +3150,30 @@ def dvnr_phases():
          lambda: fts.train_step_cuda(tparams16, H, res, **sample_kw),
          lambda: plain_step(tparams16), None,
          n_par * (2 + 4) + n_vox * 4 + TP * 4, (other_flops, mlp_flops),
-         b_fused["train_step"], TRAIN_STEPS,
-         "train_step_kernel<__nv_bfloat16,"),
+         b_fused["train_step"], TRAIN_STEPS, sym("__nv_bfloat16", "false")),
         ("adamw_apply_master",
          lambda: fts.adamw_apply_cuda(pk16, mk16, vk16, got_g16, sched, got_loss16,
                                       n_valid=Nb, flat_mw=wk16, **adam_kw),
          lambda: fts_ref.adamw_apply_ref(pp16, mp16, vp16, wp16, got_g16, sched,
                                          **adam_kw),
          None, n_par * (4 * 4 + 3 * 4 + 2) + TP * 4 * 4, (n_par * 15, 0),
-         b_fused["adamw_apply"], TRAIN_STEPS, "adamw_kernel<true>"),
+         b_fused["adamw_apply"], TRAIN_STEPS, "adamw_kernel<true, false>"),
+        ("train_step_det_bf16",
+         under_det(lambda: fts.train_step_cuda(tparams16, H, res, **sample_kw)),
+         lambda: plain_step(tparams16), None,
+         n_par * (2 + 4) + n_vox * 4 + TP * 4, (other_flops, mlp_flops),
+         det_launch["bf16"]["train_step"], TRAIN_STEPS,
+         sym("__nv_bfloat16", "true")),
+        ("adamw_det_master",
+         under_det(lambda: fts.adamw_apply_cuda(pkd16, mkd16, vkd16, det_g16, sched,
+                                                None, n_valid=Nb, flat_mw=wkd16,
+                                                **adam_kw)),
+         lambda: fts_ref.adamw_apply_ref(
+             ppd16, mpd16, vpd16, wpd16,
+             fts.det_grads_to_float(det_g16, tparams16, H)[0], sched, **adam_kw),
+         None, n_par * (3 * 4 + 3 * 4 + 2) + n_tab * 8 + part_floats * 4 + TP * 4 * 4,
+         (n_par * 15 + part_floats, 0),
+         det_launch["bf16"]["adamw_apply"], TRAIN_STEPS, "adamw_kernel<true, true>"),
     ]
     # the kernels' own device time per launch (the CUDA-event times above
     # span back-to-back wrapper calls, host work included)
@@ -2981,6 +3236,13 @@ def dvnr_phases():
           f"({by})  plain {pms:.3f} ms  kernel alone "
           f"{f'{kdev[0]:.4f} ms' if kdev else 'not measured'} (profiler); "
           f"not on the default path [{tag}]")
+    host_det = under_det(lambda: fts.train_step_cuda(tparams, H, res, **host_kw))
+    ms_hd = cuda_ms(host_det, reps=10)
+    per_hd = kernel_alone_ms(host_det, f"train_step_kernel<float, {W}, {F}, false, true>")
+    print(f"  train_step (host-sampled batch), deterministic route {ms_hd:.3f} ms  "
+          f"bound {bms:.3f} ms ({by})  kernel alone "
+          f"{'not measured' if per_hd is None else f'{per_hd:.4f} ms'} "
+          f"(profiler) [{tag}]")
     # the backward's levels one by one (one launch each) on the staging plan,
     # and with every level sent the direct route (a budget of 0 bytes)
     bwd_call = lambda: hash_encode_bwd_cuda(g_feat, coords_t, res, rows_t,
@@ -3005,17 +3267,23 @@ def dvnr_phases():
 
     # the train step's launch shape and its scatter's requests (every level
     # straight to device memory: staged slabs measured slower, PERF.md)
-    shape = (ctypes.c_longlong * 3)()
-    build.check(build.library().repro_train_step_shape(
-        TP, Nb, L, F, W, H, D_out, ctypes.addressof(shape)),
-        "repro_train_step_shape")
-    tile, gx, smem = list(shape)
-    print(f"  train_step: levels all direct; {tile} threads x {gx} blocks per "
-          f"partition, {smem} B shared memory per block")
+    shape = (ctypes.c_longlong * 4)()
+    for det in (0, 1):
+        build.check(build.library().repro_train_step_shape(
+            TP, Nb, L, F, W, H, D_out, det, ctypes.addressof(shape)),
+            "repro_train_step_shape")
+        tile, gx, smem, n_groups = list(shape)
+        print(f"  train_step{', deterministic route' if det else ''}: levels all "
+              f"direct; {tile} threads x {gx} blocks per partition, {smem} B "
+              f"shared memory per block"
+              + (f", {n_groups} groups of 4 tiles a partition" if det else ""))
     req = scatter_requests(coords_t, res, T, F, [False] * L, [None] * L)
+    rows_added = req["direct"] // (2 if F == 8 else 1)
     print(f"  train_step scatter requests per step: {req['direct']:,} global "
-          f"16-byte adds, no shared updates; the kernel before this design: "
-          f"{req['before']:,} scalar global atomics [{tag}]")
+          f"16-byte adds, no shared updates; the deterministic route: "
+          f"{rows_added * F:,} global 8-byte integer adds ({F} a row) and "
+          f"{part_floats:,} group-row floats stored; the kernel before this "
+          f"design: {req['before']:,} scalar global atomics [{tag}]")
     step_call = lambda: fts.train_step_cuda(tparams, H, res, **sample_kw)
     # the yardstick split: the kernel writes the feature cotangent (its
     # scatter replaced by a 42 MB store), the level-major backward scatters it
@@ -3028,16 +3296,35 @@ def dvnr_phases():
         return hash_encode_bwd_cuda(cot, coords_t, res, rows_t, (TP, L, T, F))
 
     ms_fused = cuda_ms(step_call, reps=20)
-    per_fused = launch_times(step_call, "train_step_kernel<float,")
+    per_fused = launch_times(step_call, sym("float", "false"))
     ms_split = cuda_ms(split_call, reps=20)
     ms_cot = cuda_ms(cot_call, reps=20)
-    per_cot = launch_times(cot_call, "train_step_kernel<float,")
+    per_cot = launch_times(cot_call, sym("float", "false"))
     alone = lambda per: "not measured" if per is None else f"{per[0]:.4f} ms"
     print(f"  train_step fused {ms_fused:.4f} ms, alone {alone(per_fused)}; the "
           f"split (kernel writing the feature cotangent + hash_encode_bwd) "
           f"{ms_split:.4f} ms; the kernel "
           f"without its scatter (writing the cotangent) {ms_cot:.4f} ms, alone "
           f"{alone(per_cot)} (events; profiler) [{tag}]")
+    # the deterministic route beside the default one, in turns (default,
+    # route, route, default), f32 and bf16: the kernel alone and the step
+    # (train step + AdamW, events)
+    for tp, params_ in (("float", tparams), ("__nv_bfloat16", tparams16)):
+        call = lambda: fts.train_step_cuda(params_, H, res, **sample_kw)
+        runs = [kernel_alone_ms(call, sym(tp, "false")),
+                kernel_alone_ms(under_det(call), sym(tp, "true")),
+                kernel_alone_ms(under_det(call), sym(tp, "true")),
+                kernel_alone_ms(call, sym(tp, "false"))]
+        if all(r is not None for r in runs):
+            d = (runs[0] + runs[3]) / 2
+            r = (runs[1] + runs[2]) / 2
+            print(f"  train_step {tp}: default route alone {runs[0]:.4f} / "
+                  f"{runs[3]:.4f} ms, deterministic route {runs[1]:.4f} / "
+                  f"{runs[2]:.4f} ms: the route costs {100 * (r - d) / d:.1f}% "
+                  f"of the kernel's time (profiler, in turns) [{tag}]")
+        else:
+            print(f"  train_step {tp}: the route's kernel time not measured "
+                  f"(the profiler matched no launch) [{tag}]")
     del cot
     # AdamW with the L2 flushed before each launch, as a step finds its
     # 36.8 MB of state after the train step's kernel
@@ -3049,13 +3336,21 @@ def dvnr_phases():
     cold16 = lambda: fts.adamw_apply_cuda(pk16, mk16, vk16, got_g16, sched,
                                           got_loss16, n_valid=Nb, flat_mw=wk16,
                                           **adam_kw)
-    for label, fn, symbol in (("adamw_apply", cold, "adamw_kernel<false>"),
-                              ("adamw_apply_master", cold16, "adamw_kernel<true>")):
+    cold_det = under_det(lambda: fts.adamw_apply_cuda(
+        pkd, mkd, vkd, det_g, sched, None, n_valid=Nb, **adam_kw))
+    cold_det16 = under_det(lambda: fts.adamw_apply_cuda(
+        pkd16, mkd16, vkd16, det_g16, sched, None, n_valid=Nb, flat_mw=wkd16,
+        **adam_kw))
+    for label, fn, symbol in (("adamw_apply", cold, "adamw_kernel<false, false>"),
+                              ("adamw_apply_master", cold16, "adamw_kernel<true, false>"),
+                              ("adamw_det", cold_det, "adamw_kernel<false, true>"),
+                              ("adamw_det_master", cold_det16,
+                               "adamw_kernel<true, true>")):
         _, dev_cold, _, _ = profile_tick(lambda: [(flush.zero_(), fn()) for _ in range(5)])
         kc = [t / n for key, (t, n) in dev_cold if symbol in key]
         print(f"  {label} with the L2 flushed before each launch: kernel alone "
               f"{f'{kc[0]:.4f} ms' if kc else 'not measured'} (profiler) [{tag}]")
-    del flush
+    del flush, det_g, det_g16
     print(f"  train step bytes: {n_vox} distinct volume voxels read, tables "
           f"and MLP {TP * (L * T * F + n_w) * 4} B read and their gradients "
           f"written [{tag}]")
@@ -3462,8 +3757,11 @@ def session_phase(cfg, dev, wrappers, tag) -> None:
 def recovery_phase(cfg, dev, wrappers, tag) -> None:
     """Phase 8(b): ``api.train(recovery=RecoveryPolicy())`` on the 8
     PRODUCTION256 partitions for TRAIN_STEPS steps with partition 1 all
-    NaN: the run ends finite, partition 1 frozen at its init after the
-    ladder, the healthy partitions against a clean run of the same key."""
+    NaN, on the train step's deterministic route: the run ends finite,
+    partition 1 frozen at its init after the ladder, the healthy partitions
+    bit for bit with a clean run of the same key, and two clean runs bit
+    for bit with each other; then, on the default route (float atomics),
+    the first COMPARE_STEPS steps' loss averages within 1e-4."""
     import numpy as np
     import torch
     from repro_torch import api
@@ -3481,14 +3779,15 @@ def recovery_phase(cfg, dev, wrappers, tag) -> None:
                                   bad.vmax)
     for w in wrappers.values():
         w.launches = 0
-    model, info = api.train(poisoned, cfg, steps=TRAIN_STEPS, key=0,
-                            backend=INSITU_IMPL, recovery=RecoveryPolicy())
-    sync(dev)
-    launches = wrappers["train_step"].launches
-    clean, cinfo = api.train(parts, cfg, steps=TRAIN_STEPS, key=0,
-                             backend=INSITU_IMPL)
-    clean2, cinfo2 = api.train(parts, cfg, steps=TRAIN_STEPS, key=0,
-                               backend=INSITU_IMPL)
+    with deterministic_algorithms():
+        model, info = api.train(poisoned, cfg, steps=TRAIN_STEPS, key=0,
+                                backend=INSITU_IMPL, recovery=RecoveryPolicy())
+        sync(dev)
+        launches = wrappers["train_step"].launches
+        clean, cinfo = api.train(parts, cfg, steps=TRAIN_STEPS, key=0,
+                                 backend=INSITU_IMPL)
+        clean2, cinfo2 = api.train(parts, cfg, steps=TRAIN_STEPS, key=0,
+                                   backend=INSITU_IMPL)
     r = info["recovery"]
     print(f"  recovery alone: {TRAIN_STEPS} steps, partition 1 all NaN: "
           f"{r['retries']} retries, events {r['events']}, frozen "
@@ -3506,9 +3805,9 @@ def recovery_phase(cfg, dev, wrappers, tag) -> None:
         if not torch.equal(got[1].cpu(), want[1]):
             raise SmokeFailure("recovery: the frozen partition moved from its init")
     # the healthy partitions against the clean run, and two clean runs
-    # against each other (the order of the train step's atomic adds): bit
-    # for bit or not, the largest parameter departure, the loss averages'
-    # and the evaluated PSNRs' departures after TRAIN_STEPS steps
+    # against each other, on the deterministic route: bit for bit (held),
+    # the largest parameter departure, the loss averages' and the evaluated
+    # PSNRs' departures after TRAIN_STEPS steps
     healthy = [p for p in range(8) if p != 1]
     vols = torch.stack([p.normalized() for p in parts])
 
@@ -3525,12 +3824,16 @@ def recovery_phase(cfg, dev, wrappers, tag) -> None:
     for label, (same, dep, rel, db) in (
             ("recovered vs clean", compare(model, info, clean, cinfo)),
             ("clean vs clean", compare(clean2, cinfo2, clean, cinfo))):
-        print(f"  {label}, healthy partitions after {TRAIN_STEPS} steps: bit for "
-              f"bit {'yes' if same else 'no'}; largest param departure "
-              f"{dep:.3e}, loss averages {rel:.3e} relative, PSNR {db:.4f} dB "
-              f"[{tag}]")
-    # held: the first COMPARE_STEPS steps (PERF.md §2's f32 trajectory
-    # limit, 1e-4 relative), on each healthy partition's loss average
+        print(f"  {label}, healthy partitions after {TRAIN_STEPS} steps on the "
+              f"deterministic route: bit for bit {'yes' if same else 'no'}; "
+              f"largest param departure {dep:.3e}, loss averages {rel:.3e} "
+              f"relative, PSNR {db:.4f} dB [{tag}]")
+        if not same:
+            raise SmokeFailure(f"recovery ({label}): the healthy partitions are "
+                               f"not bit for bit on the deterministic route")
+    # held on the default route (its float atomics): the first COMPARE_STEPS
+    # steps (PERF.md §2's f32 trajectory limit, 1e-4 relative), on each
+    # healthy partition's loss average
     _, s_info = api.train(poisoned, cfg, steps=COMPARE_STEPS, key=0,
                           backend=INSITU_IMPL, recovery=RecoveryPolicy())
     _, c_info = api.train(parts, cfg, steps=COMPARE_STEPS, key=0,
@@ -3714,11 +4017,18 @@ def pathlines_phase(cfg, dev, wrappers, errs, tag) -> dict:
     enc_flops = rows * L_ * (25 + 8 * (3 + 2 * F_))
     flops = enc_flops + rows * (16 * L_ * F_ + 8 * 3 * D_out + 20) + 6 * rows * n_w
     bms, by = bound_ms(2 * n_par * 4 + n_vox * D_out * 4 + P * 4, flops)
-    per = launch_times(kern, "train_step_kernel<float,")
+    per = launch_times(kern, f"train_step_kernel<float, {W_}, {F_}, true, false>")
     print(f"  train_step_v3 (D_out=3, P={P} x N={Nb}) {ms:.3f} ms  bound "
           f"{bms:.3f} ms ({by})  plain {pms:.3f} ms  launches on the pathline "
           f"path {n_train}  kernel alone "
           f"{'not measured' if per is None else f'{per[0]:.4f} ms'} (profiler) "
+          f"[{tag}]")
+    ms_det = cuda_ms(under_det(kern), reps=10)
+    per = kernel_alone_ms(under_det(kern),
+                          f"train_step_kernel<float, {W_}, {F_}, true, true>")
+    print(f"  train_step_v3, deterministic route {ms_det:.3f} ms  bound {bms:.3f} ms "
+          f"({by})  kernel alone "
+          f"{'not measured' if per is None else f'{per:.4f} ms'} (profiler) "
           f"[{tag}]")
     del vols, coords, target, vox
     return {"name": "train_step_v3", "route": "cuda",
@@ -3760,6 +4070,346 @@ def insitu_phase(tag, dev, errs) -> dict:
     return row
 
 
+# --------------------------------------------------------------------------- #
+# phase 9: DVNR across ranks
+# --------------------------------------------------------------------------- #
+def _rank_entry(rank: int, world: int, fn_name: str, workdir: str, kwargs: dict):
+    """A spawned rank: join the ``gloo`` group through a ``file://`` store in
+    ``workdir``, run ``fn_name``, leave its result (``torch.save``) or its
+    traceback in ``workdir``."""
+    import datetime
+    import traceback
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.set_num_threads(1)     # the ranks share the host's cores
+    out = Path(workdir)
+    try:
+        dist.init_process_group(
+            "gloo", init_method=f"file://{out / 'store'}", rank=rank,
+            world_size=world, timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S))
+        try:
+            # every rank connected before any works, and none leaves while
+            # another may still be connecting (init has no barrier of its own)
+            dist.barrier()
+            result = globals()[fn_name](rank, world, out, **kwargs)
+            dist.barrier()
+        finally:
+            dist.destroy_process_group()
+        torch.save(result, out / f"result_{rank}.pt")
+    except BaseException:
+        (out / f"error_{rank}.txt").write_text(traceback.format_exc())
+        raise
+
+
+def spawn_ranks(fn_name: str, world: int, workdir: Path, **kwargs) -> list:
+    """``fn_name`` on ``world`` spawned ranks of one ``gloo`` process group;
+    their results in rank order. The ranks are joined against a deadline
+    and killed past it or when one fails; none outlives the call."""
+    import torch
+    import torch.multiprocessing as mp
+    workdir.mkdir(parents=True, exist_ok=True)
+    ctx = mp.start_processes(_rank_entry, args=(world, fn_name, str(workdir), kwargs),
+                             nprocs=world, start_method="spawn", join=False)
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() > deadline:
+                raise SmokeFailure(f"{fn_name} on {world} ranks did not end within "
+                                   f"{DIST_TIMEOUT_S} s")
+    except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        errs = sorted(workdir.glob("error_*.txt"))
+        raise SmokeFailure(f"{fn_name} failed on a rank:\n"
+                           + (errs[0].read_text() if errs else str(e))) from None
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join(timeout=30)
+    return [torch.load(workdir / f"result_{r}.pt", weights_only=False)
+            for r in range(world)]
+
+
+def _faces(v):
+    """The six one-cell-thick faces of a ghost-padded volume, on the host."""
+    return [v.narrow(ax, 0 if side == 0 else v.shape[ax] - 1, 1).cpu()
+            for ax in range(3) for side in (0, 1)]
+
+
+def _zero_ghosts(v):
+    import torch
+    bare = torch.zeros_like(v)
+    bare[..., 1:-1, 1:-1, 1:-1] = v[..., 1:-1, 1:-1, 1:-1]
+    return bare
+
+
+def _host_state(state) -> dict:
+    from repro_torch import interop
+    from repro_torch.optim.adamw import tree_map
+    return tree_map(lambda x: x.detach().cpu(), interop.state_tree(state))
+
+
+def dist_rank(rank, world, out, cfg, edge, steps, save_at, image, samples,
+              impl, device, ckpt):
+    """Phase 9 on one rank of the 2x2x2 mesh: (a) its partition loaded
+    without ghosts and filled by ``halo_exchange``; (b) ``api.train(mesh=)``
+    of its partition under the deterministic switch for ``save_at`` steps,
+    a checkpoint (rank 0 gathers and writes), ``steps - save_at`` more, a
+    chunk with rank 1's partition masked out, each under
+    ``count_collectives``, and a control ring shift; (c) the distributed
+    render step of its trained partition."""
+    import torch
+    from repro_torch import api, interop
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import render as R
+    from repro_torch.core.sampling import as_key, split
+    from repro_torch.data.halo import _neighbor_table, halo_exchange
+    from repro_torch.data.volume import make_partition
+    from repro_torch.kernels.composite.ops import composite_cuda
+    from repro_torch.kernels.fused_train_step import ops as fts
+    from repro_torch.kernels.inr_forward import ops as inr_ops
+    from repro_torch.launch.mesh import make_mesh_for
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.sharding import Sharder, partition_shardings
+
+    mesh = make_mesh_for(world, model_parallel=2, pods=2, device=device)
+    dev, p, grid = mesh.device, mesh.index, (2, 2, 2)
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" else (lambda: None)
+    part = make_partition("cloverleaf", p, grid, (edge,) * 3, t=0.3, device=dev)
+    res = {"partition": p, "mesh": dict(mesh.shape), "backend": mesh.backend}
+    # (a) the halo
+    sync()
+    t0 = time.perf_counter()
+    filled = halo_exchange(_zero_ghosts(part.data)[None], grid, mesh, 1)[0]
+    sync()
+    res["halo_s"] = time.perf_counter() - t0
+    res["faces"] = _faces(filled)
+    nbr = _neighbor_table(grid)
+
+    def face(v, ax, side):      # a face's ghost cells over the owned extent
+        sl = [slice(1, -1)] * 3
+        sl[ax] = slice(0, 1) if side == 0 else slice(-1, None)
+        return v[tuple(sl)]
+
+    res["faces_equal_make_partition"] = all(
+        torch.equal(face(filled, ax, side), face(part.data, ax, side))
+        for ax in range(3) for side in (0, 1) if nbr[p, ax, side] >= 0)
+    res["owned_unchanged"] = torch.equal(filled[1:-1, 1:-1, 1:-1],
+                                         part.data[1:-1, 1:-1, 1:-1])
+    del filled
+    # (b) training on the deterministic route, counted
+    for w in (fts.train_step_cuda, fts.adamw_apply_cuda):
+        w.launches = 0
+    fts.train_step_cuda.det_launches = 0
+    k_train = split(as_key(0))[1]
+    vols = part.normalized()[None]
+    with deterministic_algorithms():
+        sync()
+        t0 = time.perf_counter()
+        with C.count_collectives() as c1:
+            _, info = api.train([part], cfg, backend=impl, mesh=mesh,
+                                steps=save_at, key=0)
+        sync()
+        t_first = time.perf_counter() - t0
+        state, trainer = info["state"], info["trainer"]
+        tree = interop.state_tree(state)
+        CheckpointManager(ckpt, mesh=mesh, async_save=False).save(
+            save_at, tree, metadata={"ranks": world},
+            shardings=partition_shardings(tree, Sharder(mesh)))
+        sync()
+        t0 = time.perf_counter()
+        with C.count_collectives() as c2:
+            state, _ = trainer.train(state, vols, steps=steps - save_at, key=k_train)
+        sync()
+        t_second = time.perf_counter() - t0
+        res["launches"] = {"train_step": fts.train_step_cuda.launches,
+                           "det": fts.train_step_cuda.det_launches,
+                           "adamw_apply": fts.adamw_apply_cuda.launches}
+        with C.count_collectives() as c3:
+            api.train([part], cfg, backend=impl, mesh=mesh, steps=16, key=0,
+                      train_mask=[p != 1])
+    res["collectives"] = {"first chunk": c1.count, "second chunk": c2.count,
+                          "rank 1 masked out": c3.count}
+    res["ms_step"] = (t_first + t_second) * 1e3 / steps
+    res["state"] = _host_state(state)
+    with C.count_collectives() as c4:
+        got = C.ppermute(torch.full((1,), float(p), device=dev),
+                         [(i, (i + 1) % world) for i in range(world)],
+                         group=mesh.group)
+    res["control"] = (c4.count, float(got[0]))
+    # (c) the distributed render step
+    ranges = C.all_gather(torch.tensor([part.vmin, part.vmax], dtype=torch.float64),
+                          group=mesh.group)
+    grange = (float(ranges[:, 0].min()), float(ranges[:, 1].max()))
+    step = R.make_distributed_render_step(cfg, mesh, n_samples=samples, impl=impl)
+    origins, dirs = R.make_rays(R.Camera(), image, image, dev)
+    inr_ops.inr_forward_cuda.launches = composite_cuda.launches = 0
+    sync()
+    t0 = time.perf_counter()
+    frame = step(state.params, part.origin, part.extent, (part.vmin, part.vmax),
+                 origins, dirs, R.default_tf(device=dev), grange)
+    sync()
+    res["render_s"] = time.perf_counter() - t0
+    res["render_launches"] = {"inr_forward": inr_ops.inr_forward_cuda.launches,
+                              "composite": composite_cuda.launches}
+    res["frame"] = frame[0].cpu()
+    res["grange"] = grange
+    return res
+
+
+def dist_restart_rank(rank, world, out, cfg, edge, steps, survivors, impl, device,
+                      ckpt):
+    """Phase 9(d) on one rank of the restarted group: ``plan_restart``,
+    ``elastic_restore`` of the checkpoint onto the new mesh (two partitions
+    a rank), and training to ``steps`` on the deterministic route."""
+    import torch
+    from repro_torch import interop
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core.sampling import as_key, split
+    from repro_torch.core.trainer import DVNRTrainer
+    from repro_torch.data.volume import make_partition
+    from repro_torch.kernels.fused_train_step import ops as fts
+    from repro_torch.launch.elastic import elastic_restore, plan_restart
+    from repro_torch.parallel import collectives as C
+
+    plan = plan_restart(survivors, global_batch=cfg.batch_size, model_parallel=2,
+                        device=device)
+    trainer = DVNRTrainer(cfg, 8, mesh=plan.mesh, impl=impl)
+    parts = [make_partition("cloverleaf", p, (2, 2, 2), (edge,) * 3, t=0.3,
+                            device=plan.mesh.device) for p in trainer.partitions]
+    vols = torch.stack([q.normalized() for q in parts])
+    k_init, k_train = split(as_key(0))
+    like = interop.state_tree(trainer.init(k_init))
+    tree, meta = elastic_restore(CheckpointManager(ckpt, mesh=plan.mesh), like, cfg,
+                                 plan)
+    state = interop.state_from_tree(tree)
+    fts.train_step_cuda.det_launches = 0
+    with deterministic_algorithms(), C.count_collectives() as c:
+        state, _ = trainer.train(state, vols, steps=steps - state.step, key=k_train)
+    return {"partitions": trainer.partitions, "devices": plan.devices,
+            "note": plan.note, "meta": meta, "resumed_from": int(tree["step"]),
+            "collectives": c.count, "det": fts.train_step_cuda.det_launches,
+            "state": _host_state(state)}
+
+
+def distributed_phase(tag, dev) -> None:
+    """Phase 9: DVNR across ranks (the ROADMAP's item 14) on one card: 8
+    ``gloo`` ranks share it (NCCL refuses two ranks on one device; the
+    halo's and the swap's traffic is staged through host copies), one
+    PRODUCTION256 partition of the 512^3 CloverLeaf each. (a) the halo,
+    (b) training with zero collectives, each rank's state against the
+    single-process stacked run, (c) the binary-swap frame against
+    ``api.render``, (d) an elastic restart from 8 ranks to 4."""
+    import shutil
+
+    import torch
+    from repro_torch import api
+    from repro_torch.configs.dvnr import PRODUCTION256
+    from repro_torch.data.halo import halo_exchange_ref
+    from repro_torch.data.volume import make_partition
+    from repro_torch.kernels import build
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg, grid, P = PRODUCTION256, (2, 2, 2), DIST_RANKS
+    print(f"== phase 9: DVNR across ranks: {P} gloo ranks on one card, a 2x2x2 "
+          f"mesh of PRODUCTION256 partitions of the {2 * TRAIN_EDGE}^3 CloverLeaf "
+          f"[{tag}]")
+    build.library()          # built here, before any rank loads it
+    work = ROOT / "build" / "phase9"
+    shutil.rmtree(work, ignore_errors=True)
+    parts = [make_partition("cloverleaf", p, grid, (TRAIN_EDGE,) * 3, t=0.3,
+                            device=dev) for p in range(P)]
+    # the references: the halo of the stacked volumes, and the single-process
+    # stacked run on the deterministic route
+    ref_faces = [_faces(v) for v in halo_exchange_ref(
+        _zero_ghosts(torch.stack([q.data for q in parts])), grid, 1)]
+    with deterministic_algorithms():
+        ref_model, ref_info = api.train(parts, cfg, steps=DIST_STEPS, key=0,
+                                        backend=INSITU_IMPL)
+    ref_state = _host_state(ref_info["state"])
+    req = api.RenderRequest(width=IMAGE, height=IMAGE, n_samples=SAMPLES)
+    ref_frame = api.render(ref_model, req, backend=INSITU_IMPL).reshape(-1, 4).cpu()
+    del ref_info
+    kw = dict(cfg=cfg, edge=TRAIN_EDGE, steps=DIST_STEPS, impl=INSITU_IMPL,
+              device=DEVICE, ckpt=str(work / "ckpt"))
+    t0 = time.perf_counter()
+    res = spawn_ranks("dist_rank", P, work / "run", save_at=DIST_SAVE_AT,
+                      image=IMAGE, samples=SAMPLES, **kw)
+    wall = time.perf_counter() - t0
+    print(f"  {P} ranks, mesh {res[0]['mesh']}, backend {res[0]['backend']}: "
+          f"{wall:.1f} s from spawn to join (each process reaches the card "
+          f"on its own) [{tag}]")
+    # (a)
+    halo_ok = all(all(torch.equal(a, b) for a, b in zip(r["faces"], ref_faces[i]))
+                  for i, r in enumerate(res))
+    print(f"  (a) halo: every rank's ghost shell bit for bit against "
+          f"halo_exchange_ref: {halo_ok}; interior faces equal make_partition's "
+          f"ghosts: {all(r['faces_equal_make_partition'] for r in res)}; owned "
+          f"cells untouched: {all(r['owned_unchanged'] for r in res)}; exchange "
+          f"{max(r['halo_s'] for r in res):.3f} s (6 ppermutes of one "
+          f"{TRAIN_EDGE + 2}^2 slab, staged through the host) [{tag}]")
+    if not halo_ok or not all(r["faces_equal_make_partition"] and r["owned_unchanged"]
+                              for r in res):
+        raise SmokeFailure("phase 9 (a): the halo exchange")
+    # (b)
+    counts = [r["collectives"] for r in res]
+    print(f"  (b) collectives counted on rank 0: {counts[0]}, on every rank "
+          f"{sum(sum(c.values()) for c in counts)} in all; over the control "
+          f"ring shift {[r['control'][0] for r in res]}; launches on rank 0 "
+          f"{res[0]['launches']} [{tag}]")
+    if any(any(c.values()) for c in counts) or \
+            any(r["control"][0] < 1 or r["control"][1] != (i - 1) % P
+                for i, r in enumerate(res)):
+        raise SmokeFailure(f"phase 9 (b): collectives {counts}, control "
+                           f"{[r['control'] for r in res]}")
+    if any(r["launches"]["det"] != DIST_STEPS or r["launches"]["train_step"] != DIST_STEPS
+           or r["launches"]["adamw_apply"] != DIST_STEPS for r in res):
+        raise SmokeFailure(f"phase 9 (b): launches {[r['launches'] for r in res]}")
+    kept = lambda st: tree_leaves({k: st[k] for k in ("params", "opt", "loss_ma")})
+    same = [all(torch.equal(a[0], b[i]) for a, b in zip(kept(r["state"]),
+                                                        kept(ref_state)))
+            for i, r in enumerate(res)]
+    print(f"  (b) each rank's params, moments and loss average bit for bit "
+          f"those of its partition in the single-process stacked run: {same}; "
+          f"ms a step by rank {[round(r['ms_step'], 4) for r in res]} (host "
+          f"clock; {P} processes time-share one card) [{tag}]")
+    if not all(same):
+        raise SmokeFailure(f"phase 9 (b): ranks against the stacked run {same}")
+    # (c)
+    frames = [r["frame"] for r in res]
+    equal = all(torch.equal(f, frames[0]) for f in frames[1:])
+    err = float((frames[0] - ref_frame).abs().max())
+    print(f"  (c) binary swap at {IMAGE}^2 x {SAMPLES}: every rank's frame the "
+          f"same {equal}; against api.render of the stacked model "
+          f"{err:.3e} (limit 1e-5); launches a rank "
+          f"{res[0]['render_launches']}; render + swap "
+          f"{max(r['render_s'] for r in res):.3f} s [{tag}]")
+    if not equal or not err <= 1e-5 or not float(frames[0][:, 3].max()) > 0 or \
+            any(min(r["render_launches"].values()) < 1 for r in res):
+        raise SmokeFailure(f"phase 9 (c): frames equal {equal}, err {err:.3e}")
+    # (d)
+    t0 = time.perf_counter()
+    res4 = spawn_ranks("dist_restart_rank", 4, work / "restart",
+                       survivors=DIST_SURVIVORS, **kw)
+    wall = time.perf_counter() - t0
+    same4 = [all(torch.equal(a[j], b[0]) for a, b in zip(
+        kept(r["state"]), kept(res[p]["state"])))
+        for r in res4 for j, p in enumerate(r["partitions"])]
+    print(f"  (d) elastic restart: {res4[0]['note']}; partitions "
+          f"{[r['partitions'] for r in res4]}, resumed from step "
+          f"{res4[0]['resumed_from']} of the checkpoint {res4[0]['meta']}, "
+          f"collectives in training {[r['collectives'] for r in res4]}; trained to "
+          f"{DIST_STEPS}: bit for bit the uninterrupted ranks' {same4}; "
+          f"{wall:.1f} s [{tag}]")
+    if not all(same4) or any(r["collectives"] for r in res4) or \
+            res4[0]["devices"] != 4 or res4[0]["resumed_from"] != DIST_SAVE_AT or \
+            any(r["det"] != DIST_STEPS - DIST_SAVE_AT for r in res4):
+        raise SmokeFailure(f"phase 9 (d): {same4}, {[r['det'] for r in res4]}")
+    shutil.rmtree(work, ignore_errors=True)
+    del parts, ref_model
+
+
 def main() -> int:
     tag, kernels, flash_err, errs = dvnr_phases()
     import gc
@@ -3771,6 +4421,9 @@ def main() -> int:
     gc.collect()                      # the LM's weights
     torch.cuda.empty_cache()
     kernels.append(insitu_phase(tag, torch.device(DEVICE), errs))
+    gc.collect()
+    torch.cuda.empty_cache()
+    distributed_phase(tag, torch.device(DEVICE))
     print(tag)                        # name, power limit as nvidia-smi says
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

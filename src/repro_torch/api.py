@@ -376,11 +376,19 @@ def train(partitions, cfg: DVNRConfig, *, backend: BackendLike = "auto",
     the non-finite recovery loop: partitions tripping the detector are
     retried (reseed -> moment reset -> lr backoff) and frozen at their
     last-good params when the ladder is exhausted; ``info`` then carries a
-    ``"recovery"`` entry. ``mesh`` is not ported yet and raises
-    ``NotImplementedError``.
+    ``"recovery"`` entry.
+
+    ``mesh`` (a :class:`repro_torch.launch.mesh.Mesh`; every rank calls
+    ``train`` with it) trains across ranks with no communication: a rank
+    passes only its OWN partitions, the global partitions
+    ``mesh.index * k ... mesh.index * k + k - 1`` (k = ``len(partitions)``,
+    the same on every rank), and never another rank's volume (the in situ
+    premise). Its init and batches are those partitions' rows of a
+    single-process run of all ``k * mesh.size``; it returns a
+    :class:`DVNRModel` of its partitions.
     """
     k_init, k_train = split(as_key(0 if key is None else key))
-    P = len(partitions)
+    P = len(partitions) * (1 if mesh is None else mesh.size)
     g = partitions[0].ghost if ghost is None else ghost
     if fuse_train_step is not None:
         cfg = cfg.replace(fuse_train_step=fuse_train_step)
@@ -432,20 +440,24 @@ def train(partitions, cfg: DVNRConfig, *, backend: BackendLike = "auto",
     model = DVNRModel(cfg, state.params, _meta_tuple(partitions))
     info = {"train_time_s": train_time_s, "steps": int(state.step),
             "loss_history": hist.get("loss", []), "state": state,
-            "trainer": trainer}
+            "trainer": trainer, "partitions": trainer.partitions}
     if "recovery" in hist:
         info["recovery"] = hist["recovery"]
     return model, info
 
 
 def render(model: DVNRModel, request: Optional[RenderRequest] = None, *,
-           backend: BackendLike = "auto", cache=None):
+           backend: BackendLike = "auto", mesh=None, cache=None):
     """Sort-last direct volume rendering of the DVNR (never decodes a grid).
     Returns the (H, W, 4) frame, f32 unless ``request.out_dtype`` says
     otherwise. ``cache`` (a :class:`repro_torch.serving.BrickCache`) swaps
     per-frame INR inference for trilinear sampling of its decoded brick pool
     (``request.lod`` / ``request.timestep`` select the cached level);
-    without it every frame runs INR inference."""
+    without it every frame runs INR inference. ``mesh`` is accepted and, as
+    in the JAX package (whose ``_render_distributed`` does not use it),
+    changes nothing: the model's partitions are rendered and composited in
+    this process. Across ranks, each holding its own partition, use
+    :func:`repro_torch.core.render.make_distributed_render_step`."""
     from repro_torch.core.render import (_render_distributed,
                                          _render_distributed_sampled)
 

@@ -194,12 +194,18 @@ def training_coords_counter(seed, n_batch: int, boundary_lambda: float,
     return counter_coords(seed[0], seed[1], rows, n_u, sigma)
 
 
-def step_seeds(key, step, n_partitions: int, device=None) -> torch.Tensor:
+def step_seeds(key, step, n_partitions: int, device=None,
+               partitions=None) -> torch.Tensor:
     """(P, 2) per-partition seed words of one training step:
     ``threefry(key, (step, p))``. ``step`` may be a 1-D tensor of S steps,
-    then the result is the (S, P, 2) table of a whole chunk."""
+    then the result is the (S, P, 2) table of a whole chunk. ``partitions``
+    gives the GLOBAL indices p of the rows (default ``range(n_partitions)``):
+    a rank of a mesh draws its partitions' words, the same as in a run of
+    all partitions in one process."""
     k = as_key(key, device)
-    p = torch.arange(n_partitions, dtype=torch.int64, device=k.device)
+    p = torch.arange(n_partitions, dtype=torch.int64, device=k.device) \
+        if partitions is None else \
+        torch.as_tensor(partitions, dtype=torch.int64).to(k.device)
     st = _u32(step, k.device)
     if st.ndim:
         st, p = st[:, None], p[None, :]

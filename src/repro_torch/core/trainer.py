@@ -24,9 +24,26 @@
 On the ``cuda`` backend the fused step updates params and moments in place:
 a state passed to :meth:`DVNRTrainer.train_chunk` is advanced, not kept.
 ``train(recovery=...)`` runs the non-finite retry ladder
-(:func:`repro_torch.resilience.recovery.train_with_recovery`). Not ported
-yet (they raise ``NotImplementedError``): a device mesh (ROADMAP §A item 14)
-and static checks (item 15).
+(:func:`repro_torch.resilience.recovery.train_with_recovery`).
+
+On a mesh (:class:`repro_torch.launch.mesh.Mesh`, ``DVNRTrainer(mesh=)``)
+each rank holds the slice of the stacked (P, ...) state of its own global
+partitions, ``P / mesh.size`` of them (``partitions``: the JAX trainer's
+``shard_map`` over the partition axis, with a rank in place of a device).
+Its init is that slice of the single-process init, and its batches are
+drawn with the global partition indices, so a partition's draws do not
+depend on the world size. The step, the chunk and its non-finite flags
+stay per rank and issue no collective (the paper's zero communication:
+:func:`repro_torch.parallel.collectives.count_collectives` reads 0 over a
+chunk); so does early stopping (``cfg.target_loss > 0``): a rank stops when
+its own partitions have converged, where the JAX trainer waits for all of
+them. Under ``torch.use_deterministic_algorithms(True)`` the CUDA step
+takes its deterministic route, and a rank's partitions train to the same
+bits as in one stacked run; a chunk then ends with one host read of the
+route's fixed-point overflow flags (raising
+:class:`~repro_torch.kernels.fused_train_step.ops.FixedPointOverflowError`).
+Not ported yet (raises ``NotImplementedError``): static checks (ROADMAP
+item 15).
 """
 from __future__ import annotations
 
@@ -80,15 +97,20 @@ def _opt_config(cfg: DVNRConfig, prec: Precision) -> OptConfig:
     )
 
 
-def init_params(cfg: DVNRConfig, key, n_partitions: int) -> dict:
+def init_params(cfg: DVNRConfig, key, n_partitions: int,
+                partitions=None) -> dict:
     """The JAX package's ``vmap(init_inr)(jax.random.split(key, P))``, bit
     for bit, as CPU float32 tensors: tables U(-1e-4, 1e-4) (instant-ngp),
-    MLP He-uniform, each drawn with :func:`random_uniform`."""
+    MLP He-uniform, each drawn with :func:`random_uniform`. ``partitions``
+    (global indices) draws only those rows of the P."""
     L, T, F = cfg.n_levels, cfg.table_size, cfg.n_features_per_level
     W, H = cfg.n_neurons, cfg.n_hidden_layers
     dims = [L * F] + [W] * H + [cfg.out_dim]
     tables, mlps = [], []
-    for k in split(key, n_partitions):
+    keys = split(key, n_partitions)
+    if partitions is not None:
+        keys = keys[torch.as_tensor(partitions, dtype=torch.int64)]
+    for k in keys:
         k_t, k_m = split(k)
         tables.append(random_uniform(k_t, (L, T, F), -1e-4, 1e-4))
         ks = split(k_m, len(dims) - 1)
@@ -122,13 +144,27 @@ class DVNRTrainer:
                  device="auto"):
         """``impl``: the kernel backend (``"auto"``: the CUDA kernels, and a
         ``RuntimeError`` without a card); ``device``: where the state lives
-        (``"auto"``: the current CUDA device). The JAX trainer's
+        (``"auto"``: the current CUDA device, or the mesh's device for this
+        rank). ``n_partitions`` is the global count; on a ``mesh`` this rank
+        trains ``n_partitions / mesh.size`` of them (``partitions``, its
+        global indices) and ``P`` is that local count. The JAX trainer's
         ``volume_shape`` has no counterpart: it sizes a TPU VMEM budget,
         and the CUDA kernels read the volume from device memory."""
+        self.mesh = mesh
+        self.n_partitions = int(n_partitions)
         if mesh is not None:
-            raise NotImplementedError(
-                "DVNRTrainer(mesh=...): training across several cards comes "
-                "with the multi-GPU slice (ROADMAP §A item 14)")
+            if not all(hasattr(mesh, a) for a in ("size", "index", "device")):
+                raise TypeError("mesh must be a repro_torch.launch.mesh.Mesh, "
+                                f"got {type(mesh).__name__}")
+            if n_partitions % mesh.size:
+                raise ValueError(f"{n_partitions} partitions do not split over "
+                                 f"a mesh of {mesh.size} ranks")
+            k = n_partitions // mesh.size
+            self.partitions = tuple(range(mesh.index * k, (mesh.index + 1) * k))
+            if device == "auto":
+                device = mesh.device
+        else:
+            self.partitions = tuple(range(self.n_partitions))
         if cfg.static_checks not in ("off", "warn", "error"):
             raise ValueError(f"static_checks must be 'off', 'warn' or "
                              f"'error', got {cfg.static_checks!r}")
@@ -137,7 +173,7 @@ class DVNRTrainer:
                 f"static_checks={cfg.static_checks!r}: the static checks of "
                 "the trainer's program are not ported yet (ROADMAP §A item 15)")
         self.cfg = cfg
-        self.P = n_partitions
+        self.P = len(self.partitions)
         self.backend = backends.resolve(impl)
         self.device = resolve_device(device)
         self.ghost = ghost
@@ -202,7 +238,8 @@ class DVNRTrainer:
                 device=dev, dtype=pdt, copy=True), cached_params)
         else:
             params = tree_map(lambda x: x.to(device=dev, dtype=pdt),
-                              init_params(self.cfg, key, self.P))
+                              init_params(self.cfg, key, self.n_partitions,
+                                          self._global_rows()))
         opt = self.adam.init(params, self.P)
         if cached_params is not None and "mw" in opt:
             # seed the f32 master from the cache itself, not from the bf16
@@ -213,6 +250,17 @@ class DVNRTrainer:
         return DVNRState(params, opt,
                          torch.full((self.P,), float("inf"), device=dev),
                          torch.ones((self.P,), dtype=torch.bool, device=dev), 0)
+
+    def _global_rows(self):
+        """The global indices of this rank's partitions, or None when it
+        holds all of them."""
+        return None if self.mesh is None else self.partitions
+
+    def _det_route(self, device) -> bool:
+        """Does a fused step on ``device`` take the CUDA step's
+        deterministic route (and its overflow flags)?"""
+        return (self.fuse_train_step and self.backend.is_cuda and
+                torch.device(device).type == "cuda" and fts.deterministic())
 
     # -------------------------- one step ------------------------------- #
     def _mask_convergence(self, loss, loss_ma, active):
@@ -236,28 +284,33 @@ class DVNRTrainer:
                     sigma=cfg.boundary_sigma, ghost=ghost)
 
         if self.fuse_train_step and self.fuse_sampling:
-            def base_step(params, opt, vols, seeds, active, loss_ma, scalars):
+            def base_step(params, opt, vols, seeds, active, loss_ma, scalars,
+                          overflow=None):
                 vols_c = vols if vols.ndim == 5 else vols[..., None]
                 params, opt, loss = fts.fused_train_step_sampling(
                     params, opt, vols_c, seeds, active.float(),
                     resolutions=resolutions, opt_cfg=adam.cfg, impl=backend,
                     compute_dtype=compute_dtype,
-                    sampling_brick=cfg.sampling_brick, scalars=scalars, **draw)
+                    sampling_brick=cfg.sampling_brick, scalars=scalars,
+                    overflow=overflow, **draw)
                 return (params, opt, loss,
                         *self._mask_convergence(loss, loss_ma, active))
         elif self.fuse_train_step:
-            def base_step(params, opt, vols, seeds, active, loss_ma, scalars):
+            def base_step(params, opt, vols, seeds, active, loss_ma, scalars,
+                          overflow=None):
                 coords, target = sample_batch(vols, seeds, **draw)
                 params, opt, loss = fts.fused_train_step(
                     params, opt, coords, target, active.float(),
                     resolutions=resolutions, opt_cfg=adam.cfg, impl=backend,
-                    compute_dtype=compute_dtype, scalars=scalars)
+                    compute_dtype=compute_dtype, scalars=scalars,
+                    overflow=overflow)
                 return (params, opt, loss,
                         *self._mask_convergence(loss, loss_ma, active))
         else:
             # the unfused step (the fused path's parity baseline): autograd
             # through the backend's encode and MLP ops, then AdamW
-            def base_step(params, opt, vols, seeds, active, loss_ma, scalars):
+            def base_step(params, opt, vols, seeds, active, loss_ma, scalars,
+                          overflow=None):
                 coords, target = sample_batch(vols, seeds, **draw)
                 params, opt, loss = train_step_ref(
                     params, opt, coords, target, active.float(), resolutions,
@@ -287,7 +340,9 @@ class DVNRTrainer:
                 self.adam.cfg, lr=self.adam.cfg.lr * float(lr_scale)))
             spmd_step = self._build_spmd_step(adam)
         seeds = step_seeds(key, torch.arange(state.step, state.step + n_steps),
-                           P).to(dev)
+                           P, partitions=self._global_rows()).to(dev)
+        overflow = torch.zeros((P,), dtype=torch.int64, device=dev) \
+            if self._det_route(dev) else None
         sched = (fts.schedule_table(state.opt["step"], adam.cfg, adam, n_steps)
                  if self.fuse_train_step else None)
         params, opt = state.params, state.opt
@@ -301,13 +356,21 @@ class DVNRTrainer:
                 scalars[:, 3] = active
             active_in = active
             params, opt, loss, loss_ma, active = spmd_step(
-                params, opt, volumes, seeds[i], active, loss_ma, scalars)
+                params, opt, volumes, seeds[i], active, loss_ma, scalars,
+                overflow=overflow)
             if guard:
                 finite = finite & (torch.isfinite(loss) | ~active_in)
             losses.append(loss)
         if guard:
             for x in tree_leaves(params):
                 finite = finite & torch.isfinite(x.float()).reshape(P, -1).all(1)
+        if overflow is not None:
+            over = (overflow & fts.FX_OVER).cpu().numpy()   # one read a chunk
+            if over.any():
+                raise fts.FixedPointOverflowError(
+                    f"partitions {[self.partitions[p] for p in np.flatnonzero(over)]}: "
+                    "a table-gradient contribution left the deterministic "
+                    f"route's fixed-point bound (N |w g| <= {fts.FX_BOUND})")
         trace = torch.stack(losses) if losses else \
             torch.zeros((0, P), device=dev)
         return DVNRState(params, opt, loss_ma, active, state.step + n_steps,
@@ -358,7 +421,8 @@ class DVNRTrainer:
         host every step): the parity reference of :meth:`train_chunk`."""
         losses = []
         for i in range(steps):
-            seeds = step_seeds(key, state.step, self.P).to(state.loss_ma.device)
+            seeds = step_seeds(key, state.step, self.P,
+                               partitions=self._global_rows()).to(state.loss_ma.device)
             params, opt, loss, loss_ma, active = self._spmd_step(
                 state.params, state.opt, volumes, seeds, state.active,
                 state.loss_ma, None)

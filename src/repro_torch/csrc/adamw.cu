@@ -27,11 +27,21 @@
 // the same order, and the bfloat16 params are re-derived from the new
 // master by round-to-nearest-even, as AdamW.step casts them.
 //
+// The deterministic route (train_step.cuh, DET) hands over no float32
+// gradient buffer: the kernel sums each MLP weight's per-group rows of the
+// (P, groups, n_w + 1) partials in group order (and the loss from their last
+// column), and converts each table entry's int64 fixed-point sum to float32
+// (hash_grid.cuh: value = sum * 2^-47, through double, rounded once). A
+// partition whose flag is set (a contribution past the fixed-point bound,
+// or not finite) gets NaN gradients and a NaN loss, and its flag is ORed
+// into `overflow` for the trainer to read. The update itself is unchanged.
+//
 // Bound: bytes. Each parameter reads 4 floats (p, m, v, g) and writes 3:
 // 28 B against ~15 flops. PRODUCTION256's 8 partitions hold 1.3M parameters,
 // 37 MB moved, 11 us at 3.35 TB/s. With a master, each reads mw, m, v and g
 // and writes mw, m, v and a bfloat16 p: 30 B, 39 MB, 12 us.
 #include "common.cuh"
+#include "hash_grid.cuh"
 
 namespace {
 
@@ -43,17 +53,44 @@ struct Group {
   float* mw;             // the float32 master (bf16 policy), else null
   __nv_bfloat16* pb;     // the bfloat16 params derived from it, else null
   long long n;   // parameters per partition (0: the group is skipped)
+  int col;       // the deterministic route: its first column in a partials row
 };
 
 struct Groups {
   Group k[4];
 };
 
+// the deterministic route's gradients (see the header); partials null on the
+// default route
+struct Det {
+  const float* partials;             // (P, groups, cols)
+  long long groups;
+  int cols;                          // n_w + 1: the last column is the loss
+  const unsigned long long* tab_fx;  // (P, n_tab) int64 fixed point
+  const unsigned long long* flags;   // (P,)
+  unsigned long long* overflow;      // (P,) ORed with flags, or null
+};
+
+// column `col` of partition p's partials rows summed in group order
+__device__ __forceinline__ float group_sum(const Det& d, long long p, int col) {
+  const float* x = d.partials + p * d.groups * d.cols + col;
+  float s = 0.0f;
+#pragma unroll 8
+  for (long long i = 0; i < d.groups; ++i) s = __fadd_rn(s, x[i * d.cols]);
+  return s;
+}
+
+__device__ __forceinline__ float from_fixed(unsigned long long q) {
+  return __double2float_rn(__ll2double_rn((long long)q) *
+                           (1.0 / (double)(1LL << repro::FX_SHIFT)));
+}
+
 // MASTER false: the float32 policy's update (the params are their own
 // master); true: the bf16 policy's, the float32 master and then the bfloat16
 // params
-template <bool MASTER>
-__global__ void adamw_kernel(const Groups gs, const float* __restrict__ scalars,
+template <bool MASTER, bool DET>
+__global__ void adamw_kernel(const Groups gs, const Det det,
+                             const float* __restrict__ scalars,
                              const float* __restrict__ loss_sum,
                              float* __restrict__ loss, long long P,
                              long long total, float loss_div, float b1,
@@ -61,8 +98,16 @@ __global__ void adamw_kernel(const Groups gs, const float* __restrict__ scalars,
                              float wd) {
   const long long stride = (long long)gridDim.x * blockDim.x;
   const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  for (long long q = first; q < P; q += stride)
-    loss[q] = __fdiv_rn(loss_sum[q], loss_div);
+  const float nan = __int_as_float(0x7fffffff);
+  for (long long q = first; q < P; q += stride) {
+    if (DET) {
+      const unsigned long long f = det.flags[q];
+      loss[q] = f ? nan : __fdiv_rn(group_sum(det, q, det.cols - 1), loss_div);
+      if (det.overflow != nullptr) det.overflow[q] |= f;
+    } else {
+      loss[q] = __fdiv_rn(loss_sum[q], loss_div);
+    }
+  }
   for (long long i = first; i < total; i += stride) {
     long long j = i;
     int k = 0;
@@ -74,7 +119,15 @@ __global__ void adamw_kernel(const Groups gs, const float* __restrict__ scalars,
     const long long p = j / G.n;
     const float lr = __ldg(scalars + 4 * p), bc1 = __ldg(scalars + 4 * p + 1);
     const float bc2 = __ldg(scalars + 4 * p + 2), gate = __ldg(scalars + 4 * p + 3);
-    const float g = G.g[j], w = MASTER ? G.mw[j] : G.p[j];
+    float g;
+    if (DET) {
+      g = det.flags[p] ? nan
+          : k == 0     ? from_fixed(det.tab_fx[j])
+                       : group_sum(det, p, G.col + (int)(j - p * G.n));
+    } else {
+      g = G.g[j];
+    }
+    const float w = MASTER ? G.mw[j] : G.p[j];
     const float m = __fadd_rn(__fmul_rn(b1, G.m[j]), __fmul_rn(omb1, g));
     const float v = __fadd_rn(__fmul_rn(b2, G.v[j]), __fmul_rn(omb2, __fmul_rn(g, g)));
     float delta = __fdiv_rn(__fdiv_rn(m, bc1),
@@ -102,6 +155,10 @@ __global__ void adamw_kernel(const Groups gs, const float* __restrict__ scalars,
 // loss_div. The constants arrive as float32 values of the host's doubles
 // (1-b1 and 1-b2 are computed in double first, as the plain version's
 // Python scalars are).
+// The deterministic route: partials (P, groups, cols) non-null, tab_fx
+// (P, n0) and flags (P,) int64 from repro_train_step (det = 1), overflow
+// (P,) int64 or null; the grad pointers and loss_sum are not read, the
+// groups' columns run win, whid, wout from 0 (a group with n = 0 has none).
 extern "C" int repro_adamw_apply(
     void* p0, void* m0, void* v0, const void* g0, void* mw0, long long n0,
     void* p1, void* m1, void* v1, const void* g1, void* mw1, long long n1,
@@ -109,8 +166,17 @@ extern "C" int repro_adamw_apply(
     void* p3, void* m3, void* v3, const void* g3, void* mw3, long long n3,
     const void* scalars, const void* loss_sum, void* loss, long long P,
     float loss_div, float b1, float omb1, float b2, float omb2, float eps,
-    float wd, int master, void* stream) {
+    float wd, int master, const void* partials, long long groups, int cols,
+    const void* tab_fx, const void* flags, void* overflow, void* stream) {
   if (P <= 0) return 0;
+  const bool is_det = partials != nullptr;
+  if (is_det && (tab_fx == nullptr || flags == nullptr || groups <= 0 ||
+                 (long long)cols != 1 + n1 + n2 + n3))
+    return (int)cudaErrorInvalidValue;
+  const Det det{static_cast<const float*>(partials), groups, cols,
+                static_cast<const unsigned long long*>(tab_fx),
+                static_cast<const unsigned long long*>(flags),
+                static_cast<unsigned long long*>(overflow)};
   Groups gs;
   void* ps[4] = {p0, p1, p2, p3};
   void* ms[4] = {m0, m1, m2, m3};
@@ -119,13 +185,16 @@ extern "C" int repro_adamw_apply(
   void* mws[4] = {mw0, mw1, mw2, mw3};
   const long long ns[4] = {n0, n1, n2, n3};
   long long total = 0;
+  int col = 0;
   for (int k = 0; k < 4; ++k) {
     if (ns[k] < 0 || (master != 0) != (mws[k] != nullptr))
       return (int)cudaErrorInvalidValue;
     gs.k[k] = Group{master ? nullptr : static_cast<float*>(ps[k]),
                     static_cast<float*>(ms[k]), static_cast<float*>(vs[k]),
                     static_cast<const float*>(gr[k]), static_cast<float*>(mws[k]),
-                    master ? static_cast<__nv_bfloat16*>(ps[k]) : nullptr, ns[k]};
+                    master ? static_cast<__nv_bfloat16*>(ps[k]) : nullptr, ns[k],
+                    col};
+    if (k > 0) col += (int)ns[k];
     total += P * ns[k];
   }
   int dev = 0, sms = 132;
@@ -135,9 +204,10 @@ extern "C" int repro_adamw_apply(
   long long blocks = (total + threads - 1) / threads;
   if (blocks > 8LL * sms) blocks = 8LL * sms;
   if (blocks < 1) blocks = 1;
-  auto kernel = master ? &adamw_kernel<true> : &adamw_kernel<false>;
+  auto kernel = master ? (is_det ? &adamw_kernel<true, true> : &adamw_kernel<true, false>)
+                       : (is_det ? &adamw_kernel<false, true> : &adamw_kernel<false, false>);
   kernel<<<(unsigned)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      gs, static_cast<const float*>(scalars), static_cast<const float*>(loss_sum),
+      gs, det, static_cast<const float*>(scalars), static_cast<const float*>(loss_sum),
       static_cast<float*>(loss), P, total, loss_div, b1, omb1, b2, omb2, eps, wd);
   return (int)cudaGetLastError();
 }

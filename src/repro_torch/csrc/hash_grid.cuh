@@ -321,4 +321,72 @@ __device__ __forceinline__ void scatter_corners(const LevelGeom& geo,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The deterministic route's table gradient (train_step.cuh, DET): every
+// contribution is added as an int64 fixed-point number, value * 2^FX_SHIFT
+// rounded to the nearest integer. Integer addition is associative, so the
+// sum of a table entry does not depend on the order in which warps and
+// blocks reach it. It is converted to float32 once, by adamw.cu.
+//
+// The bound. A contribution is w * g: a trilinear weight (|w| <= 1 for a
+// coordinate in [0,1]) times the feature cotangent of one sample. The L1
+// loss's cotangent is +-1 / (N * D_out) a row, and the MLP backward carries
+// it to a feature with a gain of at most the product of its layers' norms,
+// so N * |w * g| <= that gain. The kernel requires N * |w * g| <= FX_BOUND
+// (2^12) of every contribution. An entry takes at most 8 N contributions
+// (every corner of every sample), each rounded once after the warp's
+// pre-reduction, so |sum| <= 8 N (FX_BOUND / N) 2^47 + 4 N = 2^62 + 4 N,
+// inside int64. A contribution past the bound is not added silently: it sets
+// bit FX_OVER of the partition's flag (a non-finite one sets FX_NONFINITE),
+// adamw.cu then gives the partition NaN gradients and a NaN loss, and the
+// trainer raises on FX_OVER. The quantum 2^-47 (7.1e-15) is ~1e-9 of a
+// typical contribution (1/N = 1.5e-5 at N = 65,536): the fixed-point sum is
+// closer to the exact sum than a float32 one.
+constexpr int FX_SHIFT = 47;
+constexpr float FX_BOUND = 4096.0f;
+constexpr unsigned FX_NONFINITE = 1u, FX_OVER = 2u;
+
+// row[0..F) += v as F 64-bit integer atomics of the fixed-point values (the
+// card has no vector integer atomic: a row of 4 features is 4 requests)
+template <int F>
+__device__ __forceinline__ void atomic_add_row_fx(unsigned long long* row,
+                                                  const float (&v)[F]) {
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    const long long q = __float2ll_rn(v[f] * 140737488355328.0f);   // 2^47
+    atomicAdd(row + f, (unsigned long long)q);   // two's complement: wraps back
+  }
+}
+
+// scatter_corners for the deterministic route: the same products and the
+// same warp pre-reduction (its tree depends only on the warp's rows, not on
+// timing), then the fixed-point adds. A valid lane whose contribution is
+// past vmax = FX_BOUND / N, or not finite, ORs its flag bit into `bad`.
+template <int F>
+__device__ __forceinline__ void scatter_corners_fx(const LevelGeom& geo,
+                                                   const float (&g)[F], bool valid,
+                                                   unsigned long long* dst,
+                                                   float vmax, unsigned& bad) {
+#pragma unroll
+  for (int dx = 0; dx < 2; ++dx) {
+#pragma unroll
+    for (int dy = 0; dy < 2; ++dy) {
+#pragma unroll
+      for (int dz = 0; dz < 2; ++dz) {
+        const unsigned idx = valid ? corner_index(geo, dx, dy, dz) : 0xffffffffu;
+        const float w = corner_weight(geo, dx, dy, dz);
+        float v[F];
+#pragma unroll
+        for (int f = 0; f < F; ++f) {
+          v[f] = w * g[f];
+          const float m = fabsf(v[f]);
+          if (valid && !(m <= vmax)) bad |= isfinite(m) ? FX_OVER : FX_NONFINITE;
+        }
+        if (warp_reduce_peers<F>(idx, v) && valid)
+          atomic_add_row_fx<F>(dst + (size_t)idx * F, v);
+      }
+    }
+  }
+}
+
 }  // namespace repro

@@ -56,6 +56,22 @@
 // the kernel stores the feature cotangent there instead of scattering it
 // (the two-launch split with the level-major hash_encode_bwd, a yardstick).
 //
+// The deterministic route (the DET template flag, taken when PyTorch's
+// torch.are_deterministic_algorithms_enabled() is true; its instantiations
+// live in train_step_det.cu and train_step_det_bf16.cu) makes every sum
+// independent of the order in which blocks and warps finish, and of the
+// grid's size, so that a partition trains to the same bits alone on a rank
+// as in a stacked P-partition launch:
+//   - the batch tiles are cut into fixed groups of STEP_DET_TILES
+//     consecutive tiles, and a block walks whole groups. A group's dW (its
+//     tiles' in order, through the same shared-memory sums) and its loss
+//     (each thread's rows, a fixed shuffle tree, then the warps in order)
+//     are written to the group's row of a (P, groups, n_w + 1) buffer in
+//     place of the atomics; adamw.cu sums the rows in group order;
+//   - the table gradient is added as int64 fixed point (hash_grid.cuh,
+//     scatter_corners_fx: its scale, bound and overflow flag), converted to
+//     float32 by adamw.cu.
+//
 // The bf16 policy (TP = bfloat16) rounds where the plain version
 // (fused_train_step/ref.py, train_step_grads_ref) rounds, and sums in
 // float32 everywhere else:
@@ -98,6 +114,9 @@ namespace repro {
 
 constexpr int STEP_C_MAX = 4;
 constexpr int STEP_MAX_LEVELS = 32;
+// batch tiles per group of the deterministic route: 128 groups of 4 tiles of
+// 128 rows at N = 65,536, enough groups to fill the card with one partition
+constexpr int STEP_DET_TILES = 4;
 
 struct StepArgs {
   const float* coords;        // (P,N,3)        plain mode
@@ -107,6 +126,13 @@ struct StepArgs {
   const void *tab, *win, *whid, *wout;   // the parameter type TP
   float *g_tab, *g_win, *g_whid, *g_wout, *loss_sum;
   float* g_feat;              // (P,N,L*F) or null: see the header
+  // the deterministic route's outputs (null otherwise): the int64 fixed-point
+  // table gradient (P,L,T,F), the per-group dW and loss (P,groups,n_w+1)
+  // and the per-partition flags (P,); fx_vmax = FX_BOUND / N
+  unsigned long long* g_tab_fx;
+  float* partials;
+  unsigned long long* flags;
+  float fx_vmax;
   long long N, T, nx, ny, nz, n_uniform;
   int L, D_in, n_hidden, n_hid_slab, D_out, ghost;
   float sigma;
@@ -120,12 +146,21 @@ struct StepShape {
   int tile;
   size_t smem;
   long long blocks;
+  long long groups;   // the deterministic route's tile groups (0 otherwise)
 };
 
-// the bf16 policy's launch, defined in train_step_bf16.cu
+// the other translation units' launches: the bf16 policy's
+// (train_step_bf16.cu) and the deterministic route's (train_step_det.cu,
+// train_step_det_bf16.cu)
 cudaError_t train_step_launch_bf16(const StepArgs& a, const StepShape& sh,
                                    long long P, int W, int F, bool sampling,
                                    cudaStream_t stream);
+cudaError_t train_step_launch_det(const StepArgs& a, const StepShape& sh,
+                                  long long P, int W, int F, bool sampling,
+                                  cudaStream_t stream);
+cudaError_t train_step_launch_det_bf16(const StepArgs& a, const StepShape& sh,
+                                       long long P, int W, int F, bool sampling,
+                                       cudaStream_t stream);
 
 namespace step {
 
@@ -217,12 +252,26 @@ __device__ __forceinline__ void gather_trilinear(const float* __restrict__ vol,
       }
 }
 
+// The block's sum of v, the same in thread 0 whatever the timing: a shuffle
+// tree in each warp, then the warps' sums in order (red: one float a warp).
+// Every thread calls it; it syncs once.
+__device__ __forceinline__ float block_sum(float v, float* red, int r, int tile) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if ((r & 31) == 0) red[r >> 5] = v;
+  __syncthreads();
+  float s = 0.0f;
+  if (r == 0)
+    for (int w = 0; w < (tile + 31) / 32; ++w) s += red[w];
+  return s;
+}
+
 }  // namespace step
 
 // The kernel for parameters of type TP (float: the float32 policy;
 // __nv_bfloat16: the bf16 policy, RB below, with the rounding points of the
 // header)
-template <typename TP, int W, int F, bool SAMPLING>
+template <typename TP, int W, int F, bool SAMPLING, bool DET>
 __global__ void train_step_kernel(const StepArgs a) {
   constexpr bool RB = sizeof(TP) == 2;
   extern __shared__ __align__(16) float smem[];
@@ -241,7 +290,7 @@ __global__ void train_step_kernel(const StepArgs a) {
   // (mlp_tile_load ends with a sync)
 
   const TP* tab = static_cast<const TP*>(a.tab) + (long long)p * L * T * F;
-  float* gtab = a.g_tab + (long long)p * L * T * F;
+  float* gtab = DET ? nullptr : a.g_tab + (long long)p * L * T * F;
   const float nd = (float)(a.N * a.D_out);
   uint32_t k0 = 0, k1 = 0;
   const float* vol = nullptr;
@@ -251,98 +300,124 @@ __global__ void train_step_kernel(const StepArgs a) {
     vol = a.vol + (long long)p * a.nx * a.ny * a.nz * a.D_out;
   }
   float loss_part = 0.0f;
+  unsigned bad = 0;   // the deterministic route's flag bits (hash_grid.cuh)
   const long long n_tiles = (a.N + tile - 1) / tile;
-  // whole block strides, so that every lane of a warp reaches the warp-wide
-  // pre-reduction of the scatter; rows past N carry no sample
-  for (long long ti = blockIdx.x; ti < n_tiles; ti += gridDim.x) {
-    const long long row = ti * tile + r;
-    const bool valid = row < a.N;
-    float c[3] = {0.0f, 0.0f, 0.0f};
-    float tgt[STEP_C_MAX] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (SAMPLING) {
-      step::sample_coords(k0, k1, row, a.n_uniform, a.sigma, c);
-      step::gather_trilinear(vol, a.nx, a.ny, a.nz, a.D_out, a.ghost, c, tgt);
-    } else if (valid) {
-      const long long prow = (long long)p * a.N + row;
-#pragma unroll
-      for (int d = 0; d < 3; ++d) c[d] = a.coords[prow * 3 + d];
-      for (int d = 0; d < a.D_out; ++d) tgt[d] = a.target[prow * a.D_out + d];
-    }
-    // encode: every level's F features into this row of x
-    float* xr = t.x + r * t.sx;
-    for (int l = 0; l < L; ++l) {
-      const repro::LevelGeom geo = repro::level_geom(c, a.res[l], T);
-      float acc[F];
-      repro::gather_corners<TP, F>(geo, tab + (long long)l * T * F, acc);
-#pragma unroll
-      for (int f = 0; f < F; ++f) xr[l * F + f] = repro::round_if<RB>(acc[f]);
-    }
-    repro::mlp_tile_forward<W, RB>(t, r);
-    // masked L1: loss sum and cotangent sign(diff) / (N * D_out)
-    for (int d = 0; d < a.D_out; ++d) {
-      const float diff = repro::mlp_tile_out<W, RB>(t, r, d) - tgt[d];
-      float g = 0.0f;
-      if (valid) {
-        loss_part += fabsf(diff);
-        const float s = diff > 0.0f ? 1.0f : (diff < 0.0f ? -1.0f : diff);
-        g = repro::round_if<RB>(s / nd);
+  // DET: a block walks whole groups of STEP_DET_TILES tiles; otherwise single
+  // tiles. Whole blocks stride, so that every lane of a warp reaches the
+  // warp-wide pre-reduction of the scatter; rows past N carry no sample
+  const long long n_items = DET ? (n_tiles + STEP_DET_TILES - 1) / STEP_DET_TILES
+                                : n_tiles;
+  for (long long it = blockIdx.x; it < n_items; it += gridDim.x) {
+    const long long t_end = DET ? min((it + 1) * STEP_DET_TILES, n_tiles) : it + 1;
+    for (long long ti = DET ? it * STEP_DET_TILES : it; ti < t_end; ++ti) {
+      const long long row = ti * tile + r;
+      const bool valid = row < a.N;
+      float c[3] = {0.0f, 0.0f, 0.0f};
+      float tgt[STEP_C_MAX] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (SAMPLING) {
+        step::sample_coords(k0, k1, row, a.n_uniform, a.sigma, c);
+        step::gather_trilinear(vol, a.nx, a.ny, a.nz, a.D_out, a.ghost, c, tgt);
+      } else if (valid) {
+        const long long prow = (long long)p * a.N + row;
+  #pragma unroll
+        for (int d = 0; d < 3; ++d) c[d] = a.coords[prow * 3 + d];
+        for (int d = 0; d < a.D_out; ++d) tgt[d] = a.target[prow * a.D_out + d];
       }
-      t.g[r * t.sg + d] = g;
-    }
-    float d0[W];
-    repro::mlp_tile_backward<W, RB>(t, r, d0);
-    // hash-encode backward: the feature cotangent into the tables' gradient
-    for (int l = 0; l < L; ++l) {
-      float df[F];
-#pragma unroll
-      for (int f = 0; f < F; ++f)
-        df[f] = repro::round_if<RB>(repro::mlp_tile_dx<W>(t, d0, l * F + f));
-      if (!scatter) {
+      // encode: every level's F features into this row of x
+      float* xr = t.x + r * t.sx;
+      for (int l = 0; l < L; ++l) {
+        const repro::LevelGeom geo = repro::level_geom(c, a.res[l], T);
+        float acc[F];
+        repro::gather_corners<TP, F>(geo, tab + (long long)l * T * F, acc);
+  #pragma unroll
+        for (int f = 0; f < F; ++f) xr[l * F + f] = repro::round_if<RB>(acc[f]);
+      }
+      repro::mlp_tile_forward<W, RB>(t, r);
+      // masked L1: loss sum and cotangent sign(diff) / (N * D_out)
+      for (int d = 0; d < a.D_out; ++d) {
+        const float diff = repro::mlp_tile_out<W, RB>(t, r, d) - tgt[d];
+        float g = 0.0f;
         if (valid) {
-          float* o = a.g_feat + ((long long)p * a.N + row) * a.D_in + l * F;
-#pragma unroll
-          for (int f = 0; f < F; ++f) o[f] = df[f];
+          loss_part += fabsf(diff);
+          const float s = diff > 0.0f ? 1.0f : (diff < 0.0f ? -1.0f : diff);
+          g = repro::round_if<RB>(s / nd);
         }
-        continue;
+        t.g[r * t.sg + d] = g;
       }
-      const repro::LevelGeom geo = repro::level_geom(c, a.res[l], T);
-      repro::scatter_corners<F, false>(geo, df, valid, gtab + (long long)l * T * F);
+      float d0[W];
+      repro::mlp_tile_backward<W, RB>(t, r, d0);
+      // hash-encode backward: the feature cotangent into the tables' gradient
+      for (int l = 0; l < L; ++l) {
+        float df[F];
+  #pragma unroll
+        for (int f = 0; f < F; ++f)
+          df[f] = repro::round_if<RB>(repro::mlp_tile_dx<W>(t, d0, l * F + f));
+        if (!scatter) {
+          if (valid) {
+            float* o = a.g_feat + ((long long)p * a.N + row) * a.D_in + l * F;
+  #pragma unroll
+            for (int f = 0; f < F; ++f) o[f] = df[f];
+          }
+          continue;
+        }
+        const repro::LevelGeom geo = repro::level_geom(c, a.res[l], T);
+        if constexpr (DET) {
+          repro::scatter_corners_fx<F>(geo, df, valid,
+                                       a.g_tab_fx + ((long long)p * L + l) * T * F,
+                                       a.fx_vmax, bad);
+        } else {
+          repro::scatter_corners<F, false>(geo, df, valid, gtab + (long long)l * T * F);
+        }
+      }
+      __syncthreads();
+      repro::mlp_tile_accumulate<W>(t, tile);
+      __syncthreads();
     }
-    __syncthreads();
-    repro::mlp_tile_accumulate<W>(t, tile);
-    __syncthreads();
+    if constexpr (DET) {
+      // the group's row: its dW (dw is complete after the tile loop's last
+      // sync), then dw zeroed for the next group, and its loss
+      float* out = a.partials + ((long long)p * n_items + it) * (t.n_w + 1);
+      for (int i = r; i < t.n_w; i += tile) {
+        out[i] = t.dw[i];
+        t.dw[i] = 0.0f;
+      }
+      const float s = step::block_sum(loss_part, red, r, tile);
+      if (r == 0) out[t.n_w] = s;
+      loss_part = 0.0f;
+      __syncthreads();
+    }
   }
-  // the block's loss sum: warp shuffles, then one add per warp in shared memory
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) loss_part += __shfl_xor_sync(0xffffffffu, loss_part, o);
-  if ((r & 31) == 0) red[r >> 5] = loss_part;
-  __syncthreads();
-  if (r == 0) {
-    float s = 0.0f;
-    for (int w = 0; w < (tile + 31) / 32; ++w) s += red[w];
-    atomicAdd(a.loss_sum + p, s);
+  if constexpr (DET) {
+    if (bad) atomicOr(a.flags + p, (unsigned long long)bad);   // faults only
+    return;
   }
+  // the block's loss sum and its dW: one atomicAdd each
+  const float s = step::block_sum(loss_part, red, r, tile);
+  if (r == 0) atomicAdd(a.loss_sum + p, s);
   repro::mlp_tile_flush(t, a.g_win + (long long)p * t.n_in, a.g_whid + hid_off,
                         a.g_wout + (long long)p * t.n_out);
 }
 
 // False if no tile fits. The shape does not depend on the parameter type:
 // shared memory holds float32 weights under every policy.
+// The deterministic route's grid is capped at its groups; its bits do not
+// depend on the grid.
 inline bool step_shape(int L, int F, int W, int n_hidden, int D_out, long long N,
-                       long long P, StepShape* s) {
+                       long long P, bool det, StepShape* s) {
   // one extra float per row holds the loss reduction's per-warp sums
   s->tile = repro::mlp_pick_tile(L * F, W, n_hidden, D_out, 1, &s->smem);
   if (s->tile == 0) return false;
   const long long n_tiles = (N + s->tile - 1) / s->tile;
-  s->blocks = repro::blocks_per_row(n_tiles, P, s->tile, s->smem);
+  s->groups = det ? (n_tiles + STEP_DET_TILES - 1) / STEP_DET_TILES : 0;
+  s->blocks = repro::blocks_per_row(det ? s->groups : n_tiles, P, s->tile, s->smem);
   return true;
 }
 
-template <typename TP, int W, int F>
+template <typename TP, bool DET, int W, int F>
 cudaError_t step_launch_wf(const StepArgs& a, const StepShape& sh, long long P,
                            bool sampling, cudaStream_t stream) {
-  const auto kernel = sampling ? &train_step_kernel<TP, W, F, true>
-                               : &train_step_kernel<TP, W, F, false>;
+  const auto kernel = sampling ? &train_step_kernel<TP, W, F, true, DET>
+                               : &train_step_kernel<TP, W, F, false, DET>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh.smem);
   if (e != cudaSuccess) return e;
@@ -350,26 +425,27 @@ cudaError_t step_launch_wf(const StepArgs& a, const StepShape& sh, long long P,
   return cudaGetLastError();
 }
 
-template <typename TP, int W>
+template <typename TP, bool DET, int W>
 cudaError_t step_launch_w(const StepArgs& a, const StepShape& sh, long long P, int F,
                           bool sampling, cudaStream_t stream) {
   switch (F) {
-    case 1: return step_launch_wf<TP, W, 1>(a, sh, P, sampling, stream);
-    case 2: return step_launch_wf<TP, W, 2>(a, sh, P, sampling, stream);
-    case 4: return step_launch_wf<TP, W, 4>(a, sh, P, sampling, stream);
-    case 8: return step_launch_wf<TP, W, 8>(a, sh, P, sampling, stream);
+    case 1: return step_launch_wf<TP, DET, W, 1>(a, sh, P, sampling, stream);
+    case 2: return step_launch_wf<TP, DET, W, 2>(a, sh, P, sampling, stream);
+    case 4: return step_launch_wf<TP, DET, W, 4>(a, sh, P, sampling, stream);
+    case 8: return step_launch_wf<TP, DET, W, 8>(a, sh, P, sampling, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// every (W, F, variant) instantiation of the kernel for parameter type TP
-template <typename TP>
+// every (W, F, variant) instantiation of the kernel for parameter type TP and
+// route DET
+template <typename TP, bool DET>
 cudaError_t step_launch(const StepArgs& a, const StepShape& sh, long long P, int W,
                         int F, bool sampling, cudaStream_t stream) {
   switch (W) {
-    case 16: return step_launch_w<TP, 16>(a, sh, P, F, sampling, stream);
-    case 32: return step_launch_w<TP, 32>(a, sh, P, F, sampling, stream);
-    case 64: return step_launch_w<TP, 64>(a, sh, P, F, sampling, stream);
+    case 16: return step_launch_w<TP, DET, 16>(a, sh, P, F, sampling, stream);
+    case 32: return step_launch_w<TP, DET, 32>(a, sh, P, F, sampling, stream);
+    case 64: return step_launch_w<TP, DET, 64>(a, sh, P, F, sampling, stream);
     default: return cudaErrorInvalidValue;
   }
 }

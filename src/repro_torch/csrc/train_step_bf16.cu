@@ -10,7 +10,7 @@ namespace repro {
 cudaError_t train_step_launch_bf16(const StepArgs& a, const StepShape& sh,
                                    long long P, int W, int F, bool sampling,
                                    cudaStream_t stream) {
-  return step_launch<__nv_bfloat16>(a, sh, P, W, F, sampling, stream);
+  return step_launch<__nv_bfloat16, false>(a, sh, P, W, F, sampling, stream);
 }
 
 }  // namespace repro

@@ -12,6 +12,13 @@ A whole trainer state crosses as the numpy dict ``{"params", "opt":
 ``DVNRState``'s fields through ``jax.tree.map(np.asarray, ...)`` — so both
 packages can start from one state.
 
+A checkpoint of a trainer state is the tree :func:`state_tree` gives
+(``{"params", "opt", "loss_ma", "active", "step"}``, the same fields): the
+port's :class:`~repro_torch.checkpoint.CheckpointManager` writes the JAX
+package's layout, and :func:`state_from_checkpoint` restores one that either
+package's manager wrote, leaf by leaf in the JAX leaf order, checked against
+the manifest's shapes and dtypes.
+
 An LM's parameters cross as the JAX ``init_lm`` tree of numpy arrays (the
 same nested keys, layers stacked on a leading L axis), and its KV cache as
 ``{"k", "v", "pos"}``.
@@ -111,3 +118,33 @@ def lm_cache_from_numpy(np_cache: dict, device="auto") -> dict:
     return {"k": _to_torch(np_cache["k"], dev), "v": _to_torch(np_cache["v"], dev),
             "pos": torch.as_tensor(int(np.asarray(np_cache["pos"])),
                                    dtype=torch.int32, device=dev)}
+
+
+def state_tree(state) -> dict:
+    """A trainer state as the checkpoint tree ``{"params", "opt",
+    "loss_ma", "active", "step"}`` (``step`` a 0-d int64 tensor; the
+    non-finite detector is not kept)."""
+    return {"params": state.params, "opt": state.opt, "loss_ma": state.loss_ma,
+            "active": state.active,
+            "step": torch.tensor(int(state.step), dtype=torch.int64)}
+
+
+def state_from_tree(tree: dict):
+    """The :class:`~repro_torch.core.trainer.DVNRState` of a checkpoint tree
+    (:func:`state_tree`), its tensors where the tree has them."""
+    from repro_torch.core.trainer import DVNRState
+
+    return DVNRState(tree["params"], tree["opt"], tree["loss_ma"],
+                     tree["active"], int(tree["step"]))
+
+
+def state_from_checkpoint(directory, like, step=None):
+    """``(state, metadata)`` of the checkpoint at ``step`` (default: the
+    latest) in ``directory``, written by either package's manager for a
+    trainer state of ``like``'s structure (a port ``DVNRState`` whose
+    tensors also give the devices). A JAX checkpoint of a state is the dict
+    ``{"params", "opt", "loss_ma", "active", "step"}`` of its fields."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    tree, meta = CheckpointManager(directory).restore(state_tree(like), step)
+    return state_from_tree(tree), meta

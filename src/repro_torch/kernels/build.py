@@ -52,17 +52,19 @@ SIGNATURES = {
     # the same, then clocks (8 uint64), stream
     "repro_fused_mlp_bwd_stages": [_P] * 10 + [_L, _L, _I, _I, _I, _I, _I, _I, _P, _P],
     # coords, target, volumes, seeds, tab, win, whid, wout, g_tab, g_win,
-    # g_whid, g_wout, loss_sum, g_feat, res (host memory), P, N, L, T, F, W,
-    # n_hidden, n_hid_slab, D_out, nx, ny, nz, ghost, n_uniform, sigma,
-    # sampling, is_bf16, stream
-    "repro_train_step": [_P] * 15 + [_L, _L, _I, _L, _I, _I, _I, _I, _I,
-                                     _L, _L, _L, _I, _L, _F, _I, _I, _P],
-    # P, N, L, F, W, n_hidden, D_out, shape out (3 int64 in host memory)
-    "repro_train_step_shape": [_L, _L, _I, _I, _I, _I, _I, _P],
+    # g_whid, g_wout, loss_sum, g_feat, g_tab_fx, partials, flags, res (host
+    # memory), P, N, L, T, F, W, n_hidden, n_hid_slab, D_out, nx, ny, nz,
+    # ghost, n_uniform, sigma, sampling, is_bf16, det, stream
+    "repro_train_step": [_P] * 18 + [_L, _L, _I, _L, _I, _I, _I, _I, _I,
+                                     _L, _L, _L, _I, _L, _F, _I, _I, _I, _P],
+    # P, N, L, F, W, n_hidden, D_out, det, shape out (4 int64 in host memory)
+    "repro_train_step_shape": [_L, _L, _I, _I, _I, _I, _I, _I, _P],
     # 4 x (params, m, v, grad, master, n per partition), scalars, loss_sum,
-    # loss, P, loss_div, b1, 1-b1, b2, 1-b2, eps, wd, master, stream
+    # loss, P, loss_div, b1, 1-b1, b2, 1-b2, eps, wd, master, partials,
+    # groups, cols, tab_fx, flags, overflow, stream
     "repro_adamw_apply": [_P, _P, _P, _P, _P, _L] * 4
-    + [_P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _I, _P],
+    + [_P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _I, _P, _L, _I, _P, _P, _P,
+       _P],
     # q, k, v, out, B, Sq, Sk, Hq, Hkv, dh, causal, has_window, window,
     # is_bf16, stream
     "repro_flash_attention": [_P] * 4 + [_L, _L, _L] + [_I] * 7 + [_P],
@@ -164,6 +166,21 @@ def check(err: int, name: str) -> None:
     if err:
         msg = _lib.repro_error_string(err).decode() if _lib is not None else ""
         raise RuntimeError(f"{name}: CUDA error {err} at launch ({msg})")
+
+
+def refuse_nondeterministic(name: str) -> None:
+    """Raise, as PyTorch's own non-deterministic CUDA operations do, when
+    ``torch.use_deterministic_algorithms(True)`` is on: for a kernel whose
+    sums land through float atomics in an order that changes run to run and
+    that has no deterministic route yet (ROADMAP §C1's remainder)."""
+    import torch
+
+    if torch.are_deterministic_algorithms_enabled():
+        raise RuntimeError(
+            f"{name} does not have a deterministic implementation (float "
+            "atomics), but torch.use_deterministic_algorithms(True) is set; "
+            "the fused train step (fuse_train_step='auto' or 'on') has a "
+            "deterministic route")
 
 
 def part_tensor(part, B: int, P: int, device):

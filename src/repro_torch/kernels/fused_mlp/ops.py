@@ -186,7 +186,8 @@ def fused_mlp_bwd_cuda(x: torch.Tensor, weights, g: torch.Tensor, part):
     shared memory; the recompute, the delta chain, dx and dW on the tensor
     cores; each block's dW summed in shared memory, one atomic add per
     weight per block into zeroed f32 gradients; bf16 operands rounded where
-    the plain version rounds them) or raise."""
+    the plain version rounds them) or raise (also under
+    ``torch.use_deterministic_algorithms(True)``: its dW atomics)."""
     if x.device.type == "cpu":
         return _ref.fused_mlp_batched_bwd_ref(x, weights, g, torch.as_tensor(part))
     dx, dws = _bwd_launch("repro_fused_mlp_bwd", x, weights, g, part)
@@ -199,6 +200,7 @@ def _bwd_launch(entry: str, x, weights, g, part, *extra):
     """Check CUDA operands against :func:`bwd_refusal` and run the backward
     C entry ``entry`` on them (``extra``: its arguments before the
     stream): ``(dx, [dW ...])``."""
+    build.refuse_nondeterministic("fused_mlp_bwd_cuda")
     if x.device.type != "cuda" or g.device != x.device or \
             any(w.device != x.device for w in weights):
         raise ValueError("fused_mlp_bwd_cuda: x, g and weights must lie on "

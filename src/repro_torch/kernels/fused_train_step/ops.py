@@ -31,10 +31,21 @@ plain versions (:func:`ref.train_step_grads_ref`,
 
 The entry points work on the trainer's stacked (P, ...) state: the
 partition axis is a kernel grid axis, not a loop.
+
+Under ``torch.use_deterministic_algorithms(True)`` the CUDA path takes the
+train step's deterministic route (``csrc/train_step.cuh``, DET): no float
+atomics, so its gradients, loss sums and every later step are the same bits
+run to run, and a partition trains to the same bits whatever the number of
+partitions stacked beside it. The train-step kernel then hands AdamW a
+:class:`DetGrads` (per-group dW and loss rows, an int64 fixed-point table
+gradient) in place of float32 gradients; :func:`det_grads_to_float`
+materialises them for checks.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
 from typing import Sequence
 
 import torch
@@ -152,6 +163,75 @@ def validate_sampling_brick(mode) -> None:
 # --------------------------------------------------------------------------- #
 # the kernels' wrappers
 # --------------------------------------------------------------------------- #
+#: the deterministic route's fixed-point table gradient (``csrc/hash_grid.cuh``:
+#: an entry is ``round(value * 2**FX_SHIFT)`` summed in int64; a contribution
+#: must keep ``N * |contribution| <= FX_BOUND``, else the partition's flag
+#: gets ``FX_OVER``; bit 1 marks a NaN or Inf contribution)
+FX_SHIFT = 47
+FX_BOUND = 4096.0
+FX_OVER = 2
+
+
+class FixedPointOverflowError(FloatingPointError):
+    """A table-gradient contribution of the deterministic route left the
+    fixed-point bound (``N * |w * g| > FX_BOUND``): the sum could have
+    wrapped, so the step is refused rather than kept."""
+
+
+def deterministic() -> bool:
+    """True when PyTorch's own switch asks for deterministic algorithms:
+    the CUDA train step then takes its deterministic route."""
+    return torch.are_deterministic_algorithms_enabled()
+
+
+@dataclass
+class DetGrads:
+    """The deterministic route's gradients as the train-step kernel leaves
+    them: ``partials`` (P, groups, n_w + 1) f32, each group's dW (win, whid,
+    wout flattened) and loss sum in its last column; ``tab_fx`` (P, L, T, F)
+    int64 fixed point; ``flags`` (P,) int64 flag bits."""
+    partials: torch.Tensor
+    tab_fx: torch.Tensor
+    flags: torch.Tensor
+
+
+@functools.lru_cache(maxsize=64)
+def _step_shape(P, N, L, F, W, n_hidden, D_out, det):
+    """(threads per block, blocks per partition, shared bytes, groups) of
+    the train step's launch, from the library (a pure function of ints)."""
+    shape = (ctypes.c_longlong * 4)()
+    build.check(build.library().repro_train_step_shape(
+        P, N, L, F, W, n_hidden, D_out, int(det), ctypes.addressof(shape)),
+        "repro_train_step_shape")
+    return tuple(int(v) for v in shape)
+
+
+def det_grads_to_float(det: DetGrads, flat_p, n_hidden: int):
+    """``(grads {tab, win, whid, wout} f32, loss_sum (P,) f32)`` from a
+    :class:`DetGrads`, with the AdamW kernel's arithmetic: each column of the
+    group rows summed in float32 in group order from 0, each fixed-point
+    entry through float64 (``q * 2**-47``) rounded once to float32. The
+    plain version of that reduction, for holding the route against the
+    plain step and the AdamW kernel bit for bit. An H = 1 MLP's dummy hidden
+    slab gets zeros."""
+    P = flat_p["tab"].shape[0]
+    rows = torch.zeros_like(det.partials[:, 0])
+    for i in range(det.partials.shape[1]):
+        rows = rows + det.partials[:, i]
+    grads = {"tab": (det.tab_fx.double() * 2.0 ** -FX_SHIFT).float()
+             .view(flat_p["tab"].shape)}
+    off = 0
+    for k in STATE_KEYS[1:]:
+        if k == "whid" and n_hidden == 1:
+            grads[k] = torch.zeros(flat_p[k].shape, dtype=torch.float32,
+                                   device=rows.device)
+            continue
+        n = flat_p[k][0].numel()
+        grads[k] = rows[:, off:off + n].reshape(flat_p[k].shape)
+        off += n
+    return grads, rows[:, -1]
+
+
 def _grad_buffers(flat_p, device):
     """One zeroed f32 buffer (one memset) viewed as the four gradient
     groups plus the (P,) loss sum."""
@@ -176,7 +256,9 @@ def train_step_cuda(flat_p, n_hidden: int, resolutions: Sequence[int], *,
     (``coords`` (P,N,3), ``target`` (P,N,D_out)) or drawn in the kernel
     (``volumes`` (P, nx+2g, ny+2g, nz+2g, C) and ``seeds`` (P,2) words as
     int64, ``n_batch`` rows of which the first ``n_uniform`` uniform).
-    Returns ``(grads {tab, win, whid, wout} f32, loss_sum (P,) f32)``.
+    Returns ``(grads {tab, win, whid, wout} f32, loss_sum (P,) f32)``, or
+    under :func:`deterministic` on the card ``(DetGrads, None)`` (the
+    deterministic route; :func:`det_grads_to_float` gives the former).
     Given ``cotangent_out`` ((P, N, L*F) f32), the feature cotangent is
     written there and ``grads["tab"]`` stays zero: the first launch of the
     two-launch split that ``hash_encode_bwd_cuda`` completes (a yardstick
@@ -242,37 +324,61 @@ def train_step_cuda(flat_p, n_hidden: int, resolutions: Sequence[int], *,
             or not cotangent_out.is_contiguous()):
         raise ValueError(f"cotangent_out must be a contiguous ({P}, {N}, "
                          f"{L * F}) float32 tensor on {dev}")
-    grads, loss_sum = _grad_buffers(flat_p, dev)
+    det = deterministic()
     res_h = levels_arg(resolutions)
     ptr = lambda t: None if t is None else t.data_ptr()
+    if det:
+        if N >= 2**40:
+            raise ValueError("the deterministic route's fixed-point bound "
+                             f"needs N < 2^40, got {N}")
+        groups = _step_shape(P, N, L, F, W, n_hidden, D_out, True)[3]
+        n_w = sum(flat_p[k][0].numel() for k in ("win", "wout")) + \
+            (flat_p["whid"][0].numel() if n_hidden > 1 else 0)
+        fx = torch.zeros(P * L * T * F + P, dtype=torch.int64, device=dev)
+        out = DetGrads(torch.empty((P, groups, n_w + 1), dtype=torch.float32,
+                                   device=dev),
+                       fx[:P * L * T * F].view(P, L, T, F), fx[P * L * T * F:])
+        outs = [None] * 5 + [ptr(cotangent_out), out.tab_fx.data_ptr(),
+                             out.partials.data_ptr(), out.flags.data_ptr()]
+    else:
+        grads, loss_sum = _grad_buffers(flat_p, dev)
+        outs = [grads[k].data_ptr() for k in STATE_KEYS] + \
+            [loss_sum.data_ptr(), ptr(cotangent_out), None, None, None]
     lib = build.library()
     err = lib.repro_train_step(
-        *(ptr(t) for t in batch), *(t.data_ptr() for t in state),
-        *(grads[k].data_ptr() for k in STATE_KEYS), loss_sum.data_ptr(),
-        ptr(cotangent_out), ctypes.addressof(res_h), P, N, L, T, F, W,
+        *(ptr(t) for t in batch), *(t.data_ptr() for t in state), *outs,
+        ctypes.addressof(res_h), P, N, L, T, F, W,
         n_hidden, flat_p["whid"].shape[1], D_out, nx, ny, nz, int(ghost),
         int(n_uniform), float(sigma), int(sampling),
-        int(dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
+        int(dtype == torch.bfloat16), int(det),
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "repro_train_step")
     train_step_cuda.launches += 1
     train_step_cuda.bf16_launches += int(dtype == torch.bfloat16)
-    return grads, loss_sum
+    train_step_cuda.det_launches += int(det)
+    return (out, None) if det else (grads, loss_sum)
 
 
-#: launches of the kernel, and of its bf16 instantiation among them
+#: launches of the kernel, of its bf16 instantiation and of its
+#: deterministic route among them
 train_step_cuda.launches = train_step_cuda.bf16_launches = 0
+train_step_cuda.det_launches = 0
 
 
 def adamw_apply_cuda(flat_p, flat_m, flat_v, grads, scalars, loss_sum, *,
                      n_valid: int, beta1: float, beta2: float, eps: float,
                      weight_decay: float, n_hidden: int,
-                     flat_mw=None) -> torch.Tensor:
+                     flat_mw=None, overflow=None) -> torch.Tensor:
     """The AdamW kernel's wrapper: updates params and moments IN PLACE from
     the f32 ``grads`` with the (P, 4) ``[lr, 1-b1^t, 1-b2^t, gate]``
     ``scalars`` and returns the (P,) mean loss ``loss_sum / n_valid``.
     Params are float32 and their own master, or bf16 with the float32
     master ``flat_mw`` (updated in place, the bf16 params re-derived from
-    it); moments float32.
+    it); moments float32. ``grads`` may be the deterministic route's
+    :class:`DetGrads` (``loss_sum`` None): the kernel sums its group rows in
+    order and converts the fixed-point table gradient, a flagged partition
+    gets NaN gradients and loss, and its flag bits are ORed into
+    ``overflow`` ((P,) int64 on the card) when given.
 
     CPU tensors take the plain version (:func:`ref.adamw_apply_ref`);
     CUDA tensors launch ``repro_adamw_apply`` (``csrc/adamw.cu``) or
@@ -284,10 +390,14 @@ def adamw_apply_cuda(flat_p, flat_m, flat_v, grads, scalars, loss_sum, *,
                              weight_decay=weight_decay, n_hidden=n_hidden)
         return loss_sum / float(n_valid)
     master = flat_mw is not None
+    det = grads if isinstance(grads, DetGrads) else None
     p_dtype = torch.bfloat16 if master else torch.float32
     groups = []
     for k in STATE_KEYS:
-        ts = (flat_p[k], flat_m[k], flat_v[k], grads[k]) \
+        # the deterministic route has no float32 gradient: its moments stand in
+        # for the checks
+        ts = (flat_p[k], flat_m[k], flat_v[k],
+              flat_m[k] if det is not None else grads[k]) \
             + ((flat_mw[k],) if master else ())
         if any(t.device != dev or not t.is_contiguous() for t in ts) or \
                 ts[0].dtype != p_dtype or \
@@ -298,18 +408,32 @@ def adamw_apply_cuda(flat_p, flat_m, flat_v, grads, scalars, loss_sum, *,
                 "without a master, or bf16 params with a float32 master; "
                 "moments, gradients and master float32")
         n = 0 if (k == "whid" and n_hidden == 1) else flat_p[k][0].numel()
-        groups += [t.data_ptr() for t in ts[:4]] \
-            + [ts[4].data_ptr() if master else None, n]
+        groups += [t.data_ptr() for t in ts[:3]] \
+            + [None if det is not None else ts[3].data_ptr(),
+               ts[4].data_ptr() if master else None, n]
     P = flat_p["tab"].shape[0]
     scalars = scalars.to(device=dev, dtype=torch.float32).contiguous()
     if tuple(scalars.shape) != (P, 4):
         raise ValueError(f"scalars must be (P, 4), got {tuple(scalars.shape)}")
     loss = torch.empty(P, dtype=torch.float32, device=dev)
+    if det is not None:
+        if overflow is not None and (overflow.dtype != torch.int64 or
+                                     tuple(overflow.shape) != (P,) or
+                                     overflow.device != dev):
+            raise ValueError(f"overflow must be a ({P},) int64 tensor on {dev}")
+        det_args = [det.partials.data_ptr(), det.partials.shape[1],
+                    det.partials.shape[2], det.tab_fx.data_ptr(),
+                    det.flags.data_ptr(),
+                    None if overflow is None else overflow.data_ptr()]
+    else:
+        det_args = [None, 0, 0, None, None, None]
     lib = build.library()
     err = lib.repro_adamw_apply(
-        *groups, scalars.data_ptr(), loss_sum.data_ptr(), loss.data_ptr(), P,
+        *groups, scalars.data_ptr(),
+        None if loss_sum is None else loss_sum.data_ptr(), loss.data_ptr(), P,
         float(n_valid), beta1, 1.0 - beta1, beta2, 1.0 - beta2, eps,
-        weight_decay, int(master), torch.cuda.current_stream(dev).cuda_stream)
+        weight_decay, int(master), *det_args,
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "repro_adamw_apply")
     adamw_apply_cuda.launches += 1
     adamw_apply_cuda.bf16_launches += int(master)
@@ -324,7 +448,7 @@ adamw_apply_cuda.launches = adamw_apply_cuda.bf16_launches = 0
 # the entry points
 # --------------------------------------------------------------------------- #
 def _fused_cuda(params, opt, opt_cfg, adam, gate, scalars, n_valid,
-                compute_dtype, **batch):
+                compute_dtype, overflow=None, **batch):
     flat_p, flat_m, flat_v, flat_mw, n_hidden = _pack_state(params, opt)
     if scalars is None:
         step, scalars = _schedule_scalars(opt, opt_cfg, adam, gate)
@@ -339,7 +463,8 @@ def _fused_cuda(params, opt, opt_cfg, adam, gate, scalars, n_valid,
                             n_valid=n_valid, beta1=opt_cfg.beta1,
                             beta2=opt_cfg.beta2, eps=opt_cfg.eps,
                             weight_decay=opt_cfg.weight_decay,
-                            n_hidden=n_hidden, flat_mw=flat_mw)
+                            n_hidden=n_hidden, flat_mw=flat_mw,
+                            overflow=overflow)
     new_params, new_opt = _rebuild(opt, step, flat_p, flat_m, flat_v, flat_mw,
                                    n_hidden)
     return new_params, new_opt, loss
@@ -352,7 +477,7 @@ def _gate_from(scalars, gate):
 def fused_train_step(params, opt, coords, target, gate, *,
                      resolutions: Sequence[int], opt_cfg: OptConfig,
                      impl: backends.BackendLike = "ref", compute_dtype=None,
-                     scalars=None):
+                     scalars=None, overflow=None):
     """One fused L1 train step over the stacked partition axis.
 
     params/opt: the (P, ...)-stacked trainer trees (``opt`` from
@@ -362,7 +487,9 @@ def fused_train_step(params, opt, coords, target, gate, *,
     ``scalars`` optionally gives the (P, 4) ``[lr, 1-b1^t, 1-b2^t, gate]``
     rows precomputed (:func:`schedule_table`; ``gate`` is then its last
     column). Returns ``(params, opt, loss)``, loss (P,) f32. The ``cuda``
-    backend updates the given state in place (see the module notes)."""
+    backend updates the given state in place (see the module notes); under
+    :func:`deterministic` it ORs each partition's fixed-point flag bits into
+    ``overflow`` ((P,) int64) when given."""
     backend = backends.resolve(impl)
     if not backend.supports("fused_train_step"):
         raise ValueError(f"backend {backend.name!r} does not implement "
@@ -374,7 +501,7 @@ def fused_train_step(params, opt, coords, target, gate, *,
                                    adam, backend, compute_dtype)
     cdt = _check_kernel_opt(opt_cfg, backend, compute_dtype)
     return _fused_cuda(params, opt, opt_cfg, adam, gate, scalars,
-                       coords.shape[1] * target.shape[2], cdt,
+                       coords.shape[1] * target.shape[2], cdt, overflow,
                        resolutions=resolutions, coords=coords, target=target)
 
 
@@ -384,7 +511,7 @@ def fused_train_step_sampling(params, opt, volumes, seeds, gate, *,
                               resolutions: Sequence[int], opt_cfg: OptConfig,
                               impl: backends.BackendLike = "ref",
                               compute_dtype=None, sampling_brick="auto",
-                              scalars=None):
+                              scalars=None, overflow=None):
     """One fused train step with the batch SAMPLING inside the op: instead
     of coords/targets it takes the stacked ghost-padded ``volumes``
     (P, nx+2g, ny+2g, nz+2g[, C]) and the (P, 2) per-(step, partition)
@@ -408,7 +535,7 @@ def fused_train_step_sampling(params, opt, volumes, seeds, gate, *,
     cdt = _check_kernel_opt(opt_cfg, backend, compute_dtype)
     vols_c = volumes if volumes.ndim == 5 else volumes[..., None]
     return _fused_cuda(params, opt, opt_cfg, adam, gate, scalars,
-                       int(n_batch) * vols_c.shape[4], cdt,
+                       int(n_batch) * vols_c.shape[4], cdt, overflow,
                        resolutions=resolutions, volumes=vols_c, seeds=seeds,
                        n_batch=int(n_batch),
                        n_uniform=int(n_batch) - n_boundary(int(n_batch),

@@ -121,7 +121,8 @@ def hash_encode_bwd_cuda(g: torch.Tensor, coords: torch.Tensor,
     ``repro_hash_encode_bwd`` (``csrc/hash_encode.cu``: one launch per
     level, same-row lanes summed per warp, then shared-memory staging or
     vector atomics into a zeroed f32 gradient as ``bwd_plan`` says; a bf16
-    ``g`` read as one vector per (row, level) and widened) or raise;
+    ``g`` read as one vector per (row, level) and widened) or raise (also
+    under ``torch.use_deterministic_algorithms(True)``: its atomics);
     ``launches`` counts the L kernel launches of each call."""
     B, N, three = coords.shape
     P, L, T, F = (int(d) for d in table_shape)
@@ -134,6 +135,7 @@ def hash_encode_bwd_cuda(g: torch.Tensor, coords: torch.Tensor,
         return _ref.hash_encode_batched_bwd_ref(g, coords, resolutions,
                                                 torch.as_tensor(part),
                                                 (P, L, T, F))
+    build.refuse_nondeterministic("hash_encode_bwd_cuda")
     if coords.device.type != "cuda" or g.device != coords.device:
         raise ValueError("hash_encode_bwd_cuda: g and coords must lie on one "
                          "CUDA device")

@@ -1,2 +1,3 @@
-"""Parallelism helpers. Only :func:`~repro_torch.parallel.sharding.padded_vocab`
-so far; the mesh and ``Sharder`` wait for multi-GPU (ROADMAP item 14)."""
+"""Parallelism: the port's door to ``torch.distributed``
+(:mod:`~repro_torch.parallel.collectives`) and the sharding rules
+(:mod:`~repro_torch.parallel.sharding`)."""

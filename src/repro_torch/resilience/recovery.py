@@ -135,6 +135,8 @@ def train_with_recovery(trainer, state, volumes, *, steps: int, key,
                        else min(steps, 64))
 
     P = trainer.P
+    # the events name global partitions (a rank of a mesh holds a slice)
+    gid = np.asarray(getattr(trainer, "partitions", range(P)), np.int64)
     dev = state.loss_ma.device
     frozen = np.zeros(P, bool)
     recovered: set = set()
@@ -151,7 +153,7 @@ def train_with_recovery(trainer, state, volumes, *, steps: int, key,
         bad = ~finite & ~frozen
 
         if bad.any():
-            event = {"step": int(start), "tripped": tuple(np.flatnonzero(bad)),
+            event = {"step": int(start), "tripped": tuple(gid[np.flatnonzero(bad)]),
                      "attempts": 0}
             for attempt in range(1, policy.max_retries + 1):
                 base = snapshot_state(pre)
@@ -180,7 +182,7 @@ def train_with_recovery(trainer, state, volumes, *, steps: int, key,
                         cand.step,
                         torch.where(m, r_state.finite, cand.finite))
                     trace = torch.where(m[None, :], r_trace, trace)
-                    recovered.update(int(p) for p in np.flatnonzero(fixed))
+                    recovered.update(int(p) for p in gid[np.flatnonzero(fixed)])
                     bad = bad & ~r_finite
                 if not bad.any():
                     break
@@ -188,11 +190,11 @@ def train_with_recovery(trainer, state, volumes, *, steps: int, key,
             if bad.any():
                 if not policy.freeze_on_failure:
                     raise NonFiniteTrainingError(
-                        f"partitions {sorted(np.flatnonzero(bad))} stayed "
+                        f"partitions {sorted(gid[np.flatnonzero(bad)])} stayed "
                         f"non-finite after {policy.max_retries} recovery "
                         f"attempts at step {start}")
                 frozen |= bad
-                event["frozen"] = tuple(int(p) for p in np.flatnonzero(bad))
+                event["frozen"] = tuple(int(p) for p in gid[np.flatnonzero(bad)])
             events.append(event)
 
         if frozen.any():
@@ -226,5 +228,5 @@ def train_with_recovery(trainer, state, volumes, *, steps: int, key,
             "recovery": {"retries": retries_total, "events": events,
                          "recovered_partitions": tuple(sorted(recovered)),
                          "frozen_partitions": tuple(
-                             int(p) for p in np.flatnonzero(frozen))}}
+                             int(p) for p in gid[np.flatnonzero(frozen)])}}
     return state, info

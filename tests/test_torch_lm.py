@@ -171,7 +171,7 @@ def test_mlp_equals_jax(act):
     tp = layers.init_mlp(torch.Generator().manual_seed(0), c, 64, 128, torch.float32)
     assert {k: tuple(v.shape) for k, v in tp.items()} == \
         {k: v.shape for k, v in jp.items()}
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 16"):
         layers.apply_mlp(c, p, torch.from_numpy(x), sharder=object())
 
 
@@ -381,7 +381,7 @@ def test_sharder_raises():
     cfg = _cfg("llama3_8b")
     model = build_model(cfg)
     params = model.init(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 16"):
         model.prefill(params, _prompt(_batch(cfg, 8), 8), 8, sharder=object(),
                       impl="ref")
 
