@@ -151,7 +151,25 @@ toolkit; imports nothing of JAX or of the JAX package. Phases:
            ``make_distributed_render_step`` at 256^2 x 64: the same frame on
            every rank, within 1e-5 of ``api.render``; (d) ``plan_restart(5)``
            gives 4 ranks, ``elastic_restore`` onto them (2 partitions each),
-           512 steps reached: bit for bit (b)'s states.
+           512 steps reached: bit for bit (b)'s states; the static check
+           ``zero_collectives`` passes over each rank's chunk and fails over
+           its control shift.
+10. checks ``python -m repro_torch.analysis --config production256
+           --backend cuda`` exits 0; ``kernel_budget`` reads each launched
+           kernel's ``cudaFuncGetAttributes``, which must agree with phase 1's
+           ``ptxas`` numbers; ``static_checks="error"`` builds on the clean
+           config and raises on each control (``analysis_phase``);
+11. examples ``examples/quickstart_torch.py`` and
+           ``examples/insitu_reactive_torch.py`` at a cut depth
+           (``examples_phase``).
+
+The unfused path's deterministic routes (the hash backward's int64
+fixed-point scatter, the MLP backward's per-block dW rows summed in order)
+are held in phase 2 (``unfused_det_checks``: the default route's
+yardsticks, controls, two launches bit for bit, one partition alone equal
+to its row), run two clean 512-step unfused runs bit for bit in phase 5
+(``unfused_det_training``, f32 and bf16) and are timed in phase 6 beside
+the default route.
 
 The deterministic route of the train step (``torch.use_deterministic_
 algorithms(True)``; int64 fixed-point table gradient, per-group dW and loss
@@ -210,7 +228,12 @@ REPLACES.update({"fused_mlp_fwd_bf16": REPLACES["fused_mlp_fwd"],
                  "train_step_det": REPLACES["train_step"],
                  "train_step_det_bf16": REPLACES["train_step"],
                  "adamw_det": REPLACES["adamw_apply"],
-                 "adamw_det_master": REPLACES["adamw_apply"]})
+                 "adamw_det_master": REPLACES["adamw_apply"],
+                 # the unfused backwards' deterministic routes
+                 "hash_encode_bwd_det": REPLACES["hash_encode_bwd"],
+                 "hash_encode_bwd_det_bf16": REPLACES["hash_encode_bwd"],
+                 "fused_mlp_bwd_det": REPLACES["fused_mlp_bwd"],
+                 "fused_mlp_bwd_det_bf16": REPLACES["fused_mlp_bwd"]})
 # sizes of the run (the rehearsal on a CPU shrinks them)
 DECODE_EDGE = 256          # phase 3: one 256^3 partition
 LOCAL_EDGE = 256           # phase 4: 2x2x2 partitions of 256^3 each
@@ -294,6 +317,10 @@ SOURCES = {
     "train_step_det_bf16": "src/repro_torch/csrc/train_step_det_bf16.cu",
     "adamw_det": "src/repro_torch/csrc/adamw.cu",
     "adamw_det_master": "src/repro_torch/csrc/adamw.cu",
+    "hash_encode_bwd_det": "src/repro_torch/csrc/hash_encode.cu",
+    "hash_encode_bwd_det_bf16": "src/repro_torch/csrc/hash_encode.cu",
+    "fused_mlp_bwd_det": "src/repro_torch/csrc/fused_mlp.cu",
+    "fused_mlp_bwd_det_bf16": "src/repro_torch/csrc/fused_mlp.cu",
 }
 
 
@@ -345,25 +372,35 @@ def sass_counts(lib_path) -> dict:
     return counts
 
 
+#: phase 1's ptxas reading of each entry function: mangled name ->
+#: {"registers", "spill", "static_smem", "stack"} (phase 10 holds the
+#: library's cudaFuncGetAttributes against it)
+PTXAS = {}
+
+
 def ptxas_usage(log: str) -> list:
-    """(kernel, registers, spill-store bytes, spill-load bytes) of each
-    entry function in ``nvcc -Xptxas -v``'s output; empty when the library
-    came from an earlier build."""
+    """(kernel, registers, spill-store bytes, spill-load bytes, static
+    shared bytes, stack-frame bytes) of each entry function in ``nvcc
+    -Xptxas -v``'s output; empty when the library came from an earlier
+    build."""
     import re
-    rows, cur, spill = [], None, (0, 0)
+    rows, cur, spill, stack = [], None, (0, 0), 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             cur = m.group(1)
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m:
-            spill = (int(m.group(1)), int(m.group(2)))
+            stack, spill = int(m.group(1)), (int(m.group(2)), int(m.group(3)))
             continue
         m = re.search(r"Used (\d+) registers", line)
         if m and cur is not None:
-            rows.append((cur, int(m.group(1)), *spill))
-            cur, spill = None, (0, 0)
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.append((cur, int(m.group(1)), *spill,
+                         int(smem.group(1)) if smem else 0, stack))
+            cur, spill, stack = None, (0, 0), 0
     return rows
 
 
@@ -454,13 +491,23 @@ def launch_times(fn, symbol: str, reps: int = 3):
     return [sum(ms[i::n]) / reps for i in range(n)]
 
 
-def kernel_alone_ms(fn, symbol: str, calls: int = 5):
-    """Device ms a call of the kernels whose profiler key holds ``symbol``,
-    over ``calls`` calls of ``fn`` profiled together (``profile_tick``);
-    None when the profiler saw no such kernel."""
+def kernel_alone_ms(fn, symbol, calls: int = 5):
+    """Device ms a call of the kernels whose profiler key holds ``symbol``
+    (or one of a tuple of symbols: a call's several kernels), over
+    ``calls`` calls of ``fn`` profiled together (``profile_tick``); None
+    when the profiler saw no such kernel."""
+    symbols = (symbol,) if isinstance(symbol, str) else tuple(symbol)
     fn()
-    _, by_kernel, _, _ = profile_tick(lambda: [fn() for _ in range(calls)])
-    t = [ms for key, (ms, _) in by_kernel if symbol in key]
+    # a profile that recorded no launch of the symbol at all is taken
+    # again, twice at most
+    for _ in range(3):
+        _, by_kernel, _, _ = profile_tick(lambda: [fn() for _ in range(calls)])
+        t = [ms for key, (ms, _) in by_kernel if any(s in key for s in symbols)]
+        if t:
+            break
+    if not t:
+        print(f"    (no profiled kernel holds {symbols}; the keys: "
+              f"{[key[:80] for key, _ in by_kernel[:6]]})")
     return sum(t) / calls if t else None
 
 
@@ -1941,6 +1988,151 @@ def det_training(tparts, vols, cfg, wrappers, tag, rinfo) -> dict:
     return out
 
 
+def det_repeat_alone(label, launch, cut) -> None:
+    """The unfused route's bits: two launches of ``launch()`` (under
+    ``deterministic_algorithms``) must be equal, and the last partition
+    launched alone (``cut()``) equal to its row of the stacked launch.
+    Each returns a tuple of tensors with the partition axis first."""
+    import torch
+    with deterministic_algorithms():
+        a, b, c = launch(), launch(), cut()
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    alone = all(torch.equal(z[0], x[-1]) for x, z in zip(a, c))
+    print(f"  {label}, deterministic route: two launches bit for bit {same}; "
+          f"the last partition alone = its row of the stacked launch {alone}")
+    if not (same and alone):
+        raise SmokeFailure(f"{label} deterministic route: repeat {same}, "
+                           f"alone {alone}")
+
+
+def unfused_det_checks(g_feat, coords, res, shape, feats, ws, g_out, feats16,
+                       ws16, g_out16, tag) -> dict:
+    """Phase 2, the unfused path's deterministic routes at the training
+    shapes (phase 2's inputs): the hash backward (f32 and bf16 cotangent,
+    also every point in one coarse cell) and the MLP backward (f32 and
+    bf16) held against their plain versions within the default route's
+    yardsticks (``check``, ``check_mlp_bwd``), with controls that must fail
+    (16 samples left out of the table gradient; ``mlp_bwd_controls``), two
+    launches bit for bit and the last partition alone equal to its row.
+    Returns each route's largest departure."""
+    import torch
+    from repro_torch.kernels.fused_mlp.ops import fused_mlp_bwd_cuda
+    from repro_torch.kernels.hash_encoding.ops import bwd_plan, hash_encode_bwd_cuda
+    from repro_torch.kernels.hash_encoding.ref import hash_encode_batched_bwd_ref
+    P = shape[0]
+    dev = coords.device
+    plan = "".join("s" if x else "d" for x in bwd_plan(res, shape[2], shape[3],
+                                                       fixed_point=True))
+    rows, rows_d = list(range(P)), torch.arange(P, device=dev)
+    errs = {}
+    cell = torch.rand(coords.shape, generator=torch.Generator(device=dev)
+                      .manual_seed(5), device=dev) * 0.01 + 0.30
+    for label, g, x in (("hash_encode_bwd_det", g_feat, coords),
+                        ("hash_encode_bwd_det_bf16", g_feat.to(torch.bfloat16), coords),
+                        ("hash_encode_bwd_det contention: one coarse cell", g_feat,
+                         cell)):
+        one = (1,) + tuple(shape[1:])
+        det_repeat_alone(label, lambda: (hash_encode_bwd_cuda(g, x, res, rows, shape),),
+                         lambda: (hash_encode_bwd_cuda(g[-1:].contiguous(),
+                                                       x[-1:].contiguous(), res,
+                                                       [0], one),))
+        with deterministic_algorithms():
+            got = hash_encode_bwd_cuda(g, x, res, rows, shape)
+        want = hash_encode_batched_bwd_ref(g, x, res, rows_d, shape)
+        atol = 2e-5 * float(want.abs().max())
+        err = check(f"{label} (int64 fixed point, levels {plan})", got, want,
+                    atol=atol)
+        if "contention" not in label:
+            errs[label] = err
+            s = g.shape[1] // 2
+            g_cut = g.clone()
+            g_cut[0, s:s + 16] = 0
+            cut = hash_encode_batched_bwd_ref(g_cut, x, res, rows_d, shape)
+            must_fail(f"{label}, 16 samples left out",
+                      lambda: check(f"{label} (16 samples left out)", got, cut,
+                                    atol=atol))
+        del got, want
+    for label, x, w, g in (("fused_mlp_bwd_det", feats, ws, g_out),
+                           ("fused_mlp_bwd_det_bf16", feats16, ws16, g_out16)):
+        det_repeat_alone(label, lambda: (lambda r: (r[0], *r[1]))(
+                             fused_mlp_bwd_cuda(x, w, g, rows)),
+                         lambda: (lambda r: (r[0], *r[1]))(fused_mlp_bwd_cuda(
+                             x[-1:].contiguous(), [t[-1:].contiguous() for t in w],
+                             g[-1:].contiguous(), [0])))
+        with deterministic_algorithms():
+            got = fused_mlp_bwd_cuda(x, w, g, rows)
+        errs[label] = check_mlp_bwd(f"P={P} {label}", x, w, g, rows, got)
+        mlp_bwd_controls(f"P={P} {label}", x, w, g, rows, got)
+        del got
+    print(f"  the unfused deterministic routes held [{tag}]")
+    return errs
+
+
+def unfused_det_training(tparts, vols, cfg, wrappers, tag, rinfo) -> dict:
+    """Phase 5, the unfused path (``fuse_train_step="off"``) under
+    ``deterministic_algorithms``: two clean TRAIN_STEPS-step runs, f32 and
+    bf16, must be the same bits in every parameter, moment, master, loss
+    average and loss, with no error from PyTorch's switch; every step must
+    take the routes (the hash backward's L levels and the MLP backward's
+    launch each step, counted by their ``det_launches``) and no fused step;
+    the f32 run's first COMPARE_STEPS losses against the plain path
+    (``rinfo``) at 1e-4. Returns each policy's route launches, ms a step
+    and PSNR."""
+    import torch
+    from repro_torch import api, interop
+    from repro_torch.kernels.fused_mlp.ops import fused_mlp_bwd_cuda
+    from repro_torch.kernels.hash_encoding.ops import hash_encode_bwd_cuda
+    from repro_torch.optim.adamw import tree_leaves
+    out = {}
+    routes = {"hash_encode_bwd": hash_encode_bwd_cuda, "fused_mlp_bwd": fused_mlp_bwd_cuda}
+    for policy in ("f32", "bf16"):
+        kw = {} if policy == "f32" else {"precision": "bf16"}
+        runs = []
+        for _ in range(2):
+            for w in (*wrappers.values(), *routes.values()):
+                w.launches = 0
+            for w in routes.values():
+                w.det_launches = 0
+            torch.cuda.synchronize()
+            with deterministic_algorithms():
+                _, info = api.train(tparts, cfg, backend="cuda", steps=TRAIN_STEPS,
+                                    key=0, log_every=1, fuse_train_step="off", **kw)
+            torch.cuda.synchronize()
+            runs.append((info, {n: w.launches for n, w in wrappers.items()},
+                         {n: w.det_launches for n, w in routes.items()}))
+        (ia, la, da), (ib, _, _) = runs
+        leaves = [tree_leaves(interop.state_tree(i["state"])) for i in (ia, ib)]
+        same = all(torch.equal(x, y) for x, y in zip(*leaves))
+        traces = [[l for _, l in i["loss_history"]] for i in (ia, ib)]
+        ms = ia["train_time_s"] * 1e3 / TRAIN_STEPS
+        ev = ia["trainer"].evaluate(ia["state"], vols, (TRAIN_EDGE,) * 3)
+        print(f"  unfused deterministic route, {policy}: two clean {TRAIN_STEPS}-step "
+              f"runs bit for bit in every parameter, moment and loss average: "
+              f"{same}; loss traces equal: {traces[0] == traces[1]}; route launches "
+              f"{da} of {la}; {ms:.4f} ms per step (host clock), PSNR "
+              f"{ev['psnr']:.4f} dB [{tag}]")
+        if not same or traces[0] != traces[1]:
+            raise SmokeFailure(f"unfused deterministic route ({policy}): two clean "
+                               "runs differ")
+        L = cfg.n_levels
+        if da["hash_encode_bwd"] != L * TRAIN_STEPS or \
+                la["hash_encode_bwd"] != L * TRAIN_STEPS or \
+                da["fused_mlp_bwd"] != TRAIN_STEPS or \
+                la["fused_mlp_bwd"] != TRAIN_STEPS or la["train_step"]:
+            raise SmokeFailure(f"unfused deterministic route ({policy}): launches "
+                               f"{la}, {da} on the routes")
+        if policy == "f32":
+            other = torch.tensor([l for _, l in rinfo["loss_history"]],
+                                 dtype=torch.float64)
+            check(f"first {COMPARE_STEPS} losses: unfused deterministic route vs "
+                  f"plain path (ref)", torch.tensor(traces[0][:COMPARE_STEPS],
+                                                    dtype=torch.float64), other,
+                  atol=0.0, rtol=1e-4)
+        out[policy] = {"launches": da, "ms_step": ms, "psnr": ev["psnr"]}
+        del runs, ia, ib, leaves
+    return out
+
+
 def cached_phase(model, requests, wrappers, tag, dev, uncached) -> None:
     """Phase 4b: the cached serving path and the temporal path on phase 4's
     model (8 PRODUCTION256 partitions, tables U(-1,1)).
@@ -2256,11 +2448,14 @@ def dvnr_phases():
     if not usage:
         print("    (the library came from an earlier build: its registers and "
               "spills were read by the run that built it)")
-    for fn, regs, st, ld in usage:
-        print(f"    {regs:4d} registers, spill stores {st} B, loads {ld} B  {fn}")
+    for fn, regs, st, ld, smem, stack in usage:
+        print(f"    {regs:4d} registers, spill stores {st} B, loads {ld} B, "
+              f"static shared {smem} B, stack {stack} B  {fn}")
+        PTXAS[fn] = {"registers": regs, "spill": st + ld, "static_smem": smem,
+                     "stack": stack}
     # (the backward's clocked instantiations, StageClock, are a measurement
     # of phase 6 and not held)
-    spilled = [fn for fn, _, st, ld in usage if (st or ld) and any(
+    spilled = [fn for fn, _, st, ld, *_ in usage if (st or ld) and any(
         k in fn for k in ("fused_mlp_fwd_kernel", "fused_mlp_bwd_kernel",
                           "inr_forward_kernel")) and "StageClock" not in fn]
     if spilled:
@@ -2471,6 +2666,9 @@ def dvnr_phases():
     mlp_bwd_controls(f"P={TP} N={Nb} bf16", feats16, ws16, g_out16, rows_t, got)
     del got
     mlp_bwd_case_checks(dev)
+    errs.update(unfused_det_checks(
+        g_feat, coords_t, res, (TP, L, T, F), feats_t, ws_t, g_out, feats16,
+        ws16, g_out16, tag))
     step_tie_draws(dev, tparams, H, res, coords_t, target_t, cfg)
     wants_t = step_wants(tparams, H, res, coords_t, target_t)
     errs["train_step"] = max(
@@ -2725,6 +2923,7 @@ def dvnr_phases():
         check(f"first {COMPARE_STEPS} losses: fused vs {label}", head, other,
               atol=0.0, rtol=1e-4)
     det_runs = det_training(tparts, vols, cfg, every_wrapper, tag, rinfo)
+    udet_runs = unfused_det_training(tparts, vols, cfg, every_wrapper, tag, rinfo)
     # the unfused path warm (its first run above pays its first calls), and
     # the fused path over the same number of steps
     _, uinfo = api.train(tparts, cfg, backend="cuda", steps=COMPARE_STEPS,
@@ -3194,6 +3393,64 @@ def dvnr_phases():
               f"{'-' if lms is None else f'{lms:.3f} ms'}  "
               f"launches/step {launches / steps:.0f}  kernel alone "
               f"{f'{kdev[0]:.4f} ms' if kdev else 'not measured'} per call "
+              f"(profiler) [{tag}]")
+        kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
+                        "replaces": REPLACES[name], "launches": launches,
+                        "max_abs_err": errs[name], "ms": ms, "plain_ms": pms,
+                        "bound_ms": bms, "bound_by": by, "library_ms": lms})
+    # the unfused backwards' deterministic routes (phase 5's runs under the
+    # switch), each computing its default row's function (the same bound),
+    # its time beside that row's; profiled a row at a time: the MLP route
+    # launches the default route's kernel (on another grid), then its sum
+    default_ms = {r["name"]: r["ms"] for r in kernels}
+    ud = {p: udet_runs[p]["launches"] for p in ("f32", "bf16")}
+    dspecs = [
+        ("hash_encode_bwd_det",
+         under_det(lambda: hash_encode_bwd_cuda(g_feat, coords_t, res, rows_t,
+                                                (TP, L, T, F))),
+         lambda: hash_encode_batched_bwd_ref(g_feat, coords_t, res, rows_td,
+                                             (TP, L, T, F)),
+         lambda: scatter_buf.index_add_(0, flat_idx, flat_val),
+         rows * (12 + L * F * 4) + n_tab * 4, (enc_flops, 0),
+         ud["f32"]["hash_encode_bwd"], TRAIN_STEPS,
+         ("hash_encode_bwd_fx_kernel<float,", "fx_to_float_kernel"), "hash_encode_bwd"),
+        ("hash_encode_bwd_det_bf16",
+         under_det(lambda: hash_encode_bwd_cuda(g_feat16, coords_t, res, rows_t,
+                                                (TP, L, T, F))),
+         lambda: hash_encode_batched_bwd_ref(g_feat16, coords_t, res, rows_td,
+                                             (TP, L, T, F)),
+         lambda: scatter_buf.index_add_(0, flat_idx, flat_val16),
+         rows * (12 + L * F * 2) + n_tab * 4, (enc_flops, 0),
+         ud["bf16"]["hash_encode_bwd"], TRAIN_STEPS,
+         ("hash_encode_bwd_fx_kernel<__nv_bfloat16,", "fx_to_float_kernel"),
+         "hash_encode_bwd_bf16"),
+        ("fused_mlp_bwd_det",
+         under_det(lambda: fused_mlp_bwd_cuda(feats_t, ws_t, g_out, rows_t)),
+         lambda: fused_mlp_batched_bwd_ref(feats_t, ws_t, g_out, rows_td),
+         lambda: mlp_bwd_chain(feats_t, ws_t, g_out),
+         rows * (2 * D_in + D_out) * 4 + 2 * TP * n_w * 4, (mlp_flops, 0),
+         ud["f32"]["fused_mlp_bwd"], TRAIN_STEPS,
+         ("fused_mlp_bwd_kernel<float,", "mlp_dw_reduce_kernel"), "fused_mlp_bwd"),
+        ("fused_mlp_bwd_det_bf16",
+         under_det(lambda: fused_mlp_bwd_cuda(feats16, ws16, g_out16, rows_t)),
+         lambda: fused_mlp_batched_bwd_ref(feats16, ws16, g_out16, rows_td),
+         lambda: mlp_bwd_chain(feats16, ws16, g_out16),
+         rows * (2 * D_in + D_out) * 2 + TP * n_w * (2 + 4), (0, mlp_flops),
+         ud["bf16"]["fused_mlp_bwd"], TRAIN_STEPS,
+         ("fused_mlp_bwd_kernel<__nv_bfloat16,", "mlp_dw_reduce_kernel"),
+         "fused_mlp_bwd_bf16"),
+    ]
+    for name, kern, plain_fn, lib_fn, nbytes, (flops, bf16_flops), launches, \
+            steps, symbols, default in dspecs:
+        ms = cuda_ms(kern, reps=10)
+        pms = cuda_ms(plain_fn, reps=3)
+        lms = cuda_ms(lib_fn, reps=5)
+        bms, by = bound_ms(nbytes, flops, bf16_flops=bf16_flops)
+        kdev = kernel_alone_ms(kern, symbols)
+        print(f"  {name:<24s} {ms:9.3f} ms (default route {default_ms[default]:.3f})  "
+              f"bound {bms:8.3f} ms ({by})  plain {pms:9.3f} ms  library "
+              f"{lms:.3f} ms  launches/step {launches / steps:.0f}  kernel alone "
+              f"{'not measured' if kdev is None else f'{kdev:.4f} ms'} per call "
               f"(profiler) [{tag}]")
         kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
                         "replaces": REPLACES[name], "launches": launches,
@@ -4017,18 +4274,21 @@ def pathlines_phase(cfg, dev, wrappers, errs, tag) -> dict:
     enc_flops = rows * L_ * (25 + 8 * (3 + 2 * F_))
     flops = enc_flops + rows * (16 * L_ * F_ + 8 * 3 * D_out + 20) + 6 * rows * n_w
     bms, by = bound_ms(2 * n_par * 4 + n_vox * D_out * 4 + P * 4, flops)
-    per = launch_times(kern, f"train_step_kernel<float, {W_}, {F_}, true, false>")
+    ms_det = cuda_ms(under_det(kern), reps=10)
+    per_det = kernel_alone_ms(under_det(kern),
+                              f"train_step_kernel<float, {W_}, {F_}, true, true>")
+    # the kernel alone by profile_tick's keys: the only train-step kernel
+    # of the profile (its profiles before the deterministic route's,
+    # taken first in this phase, recorded no device kernel at all)
+    per = kernel_alone_ms(kern, "train_step_kernel<float,")
     print(f"  train_step_v3 (D_out=3, P={P} x N={Nb}) {ms:.3f} ms  bound "
           f"{bms:.3f} ms ({by})  plain {pms:.3f} ms  launches on the pathline "
           f"path {n_train}  kernel alone "
-          f"{'not measured' if per is None else f'{per[0]:.4f} ms'} (profiler) "
+          f"{'not measured' if per is None else f'{per:.4f} ms'} (profiler) "
           f"[{tag}]")
-    ms_det = cuda_ms(under_det(kern), reps=10)
-    per = kernel_alone_ms(under_det(kern),
-                          f"train_step_kernel<float, {W_}, {F_}, true, true>")
     print(f"  train_step_v3, deterministic route {ms_det:.3f} ms  bound {bms:.3f} ms "
           f"({by})  kernel alone "
-          f"{'not measured' if per is None else f'{per:.4f} ms'} (profiler) "
+          f"{'not measured' if per_det is None else f'{per_det:.4f} ms'} (profiler) "
           f"[{tag}]")
     del vols, coords, target, vox
     return {"name": "train_step_v3", "route": "cuda",
@@ -4238,6 +4498,19 @@ def dist_rank(rank, world, out, cfg, edge, steps, save_at, image, samples,
                          [(i, (i + 1) % world) for i in range(world)],
                          group=mesh.group)
     res["control"] = (c4.count, float(got[0]))
+    # the static check over this rank's chunk (a throwaway 2-step chunk of
+    # its trainer on its volume, the route on) and over the control shift
+    from repro_torch.analysis import capture, run_checks
+    from repro_torch.analysis.programs import train_chunk_program, train_context
+    with deterministic_algorithms():
+        chunk = run_checks(train_chunk_program(trainer, volumes=vols),
+                           train_context(trainer), checks=["zero_collectives"])
+    ctl = run_checks(capture(lambda: C.ppermute(
+        torch.full((1,), float(p), device=dev),
+        [(i, (i + 1) % world) for i in range(world)], group=mesh.group)),
+        checks=["zero_collectives"])
+    res["analysis"] = (chunk.result("zero_collectives").status,
+                       ctl.result("zero_collectives").status)
     # (c) the distributed render step
     ranges = C.all_gather(torch.tensor([part.vmin, part.vmax], dtype=torch.float64),
                           group=mesh.group)
@@ -4366,6 +4639,10 @@ def distributed_phase(tag, dev) -> None:
     if any(r["launches"]["det"] != DIST_STEPS or r["launches"]["train_step"] != DIST_STEPS
            or r["launches"]["adamw_apply"] != DIST_STEPS for r in res):
         raise SmokeFailure(f"phase 9 (b): launches {[r['launches'] for r in res]}")
+    print(f"  (b) zero_collectives (repro_torch.analysis) over each rank's chunk "
+          f"and over its control shift: {[r['analysis'] for r in res]} [{tag}]")
+    if any(r["analysis"] != ("PASS", "FAIL") for r in res):
+        raise SmokeFailure(f"phase 9 (b): the static check {[r['analysis'] for r in res]}")
     kept = lambda st: tree_leaves({k: st[k] for k in ("params", "opt", "loss_ma")})
     same = [all(torch.equal(a[0], b[i]) for a, b in zip(kept(r["state"]),
                                                         kept(ref_state)))
@@ -4410,6 +4687,150 @@ def distributed_phase(tag, dev) -> None:
     del parts, ref_model
 
 
+# --------------------------------------------------------------------------- #
+# phase 10: the static checks on the card
+# --------------------------------------------------------------------------- #
+def _plant(kind):
+    """A ``DVNRTrainer._mask_convergence`` that also plants a violation in
+    every step: an all-reduce (a one-rank gloo group), an f32 product under
+    the bf16 policy, or a host RNG draw."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.trainer import DVNRTrainer
+    orig = DVNRTrainer._mask_convergence
+
+    def mask(self, loss, loss_ma, active):
+        if kind == "collective":
+            dist.all_reduce(loss.clone())
+        elif kind == "f32_product":
+            torch.ones(4, 4, device=loss.device) @ torch.ones(4, 4, device=loss.device)
+        else:
+            torch.rand(1, device=loss.device)
+        return orig(self, loss, loss_ma, active)
+
+    return mask
+
+
+def analysis_phase(tag, dev) -> None:
+    """Phase 10: ``python -m repro_torch.analysis --config production256
+    --backend cuda`` on the card (every check of every standard program
+    passes, exit 0), then the same programs in this process:
+    ``kernel_budget`` at level ``"device"`` reads every kernel the programs
+    launched, and its registers, local memory and static shared memory
+    must agree with phase 1's ``ptxas`` numbers; the trainer's
+    ``static_checks="error"`` builds on the clean config and raises
+    ``StaticCheckError`` on each control (a collective, an f32 product
+    under bf16, an RNG draw) on the card."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.analysis import StaticCheckError, analyze_config
+    from repro_torch.configs.dvnr import PRODUCTION256
+    from repro_torch.core.trainer import DVNRTrainer
+    from repro_torch.kernels import budgets
+    print(f"== phase 10: static checks of the production256 programs on the card "
+          f"[{tag}]")
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "repro_torch.analysis", "--config",
+                          "production256", "--backend", "cuda"],
+                         capture_output=True, text=True, timeout=600,
+                         env={**__import__("os").environ,
+                              "PYTHONPATH": str(ROOT / "src")})
+    print("\n".join("    " + l for l in cli.stdout.splitlines()))
+    print(f"  python -m repro_torch.analysis --config production256 --backend "
+          f"cuda: exit {cli.returncode}, {time.perf_counter() - t0:.1f} s")
+    if cli.returncode:
+        raise SmokeFailure(f"phase 10: the analysis CLI exited {cli.returncode}: "
+                           f"{cli.stderr[-2000:]}")
+    reports = analyze_config("production256", backend="cuda")
+    launched = {}
+    for rep in reports:
+        kb = rep.result("kernel_budget")
+        if not rep.passed or kb.status != "PASS" or not kb.details["launched"]:
+            raise SmokeFailure(f"phase 10: {rep.render()}")
+        for r in kb.details["launched"]:
+            launched[r["name"]] = r
+    rows, disagree = [], []
+    for name, r in sorted(launched.items()):
+        ref = PTXAS.get(name)
+        fam = budgets.family_of(name)
+        b = budgets.KERNEL_BUDGETS[fam]
+        rows.append(f"    {fam:<24s} registers {r['registers']:3d} (ptxas "
+                    f"{ref['registers'] if ref else '?'}; budget {b.registers}), local "
+                    f"{r['local_bytes']} B (ptxas stack {ref['stack'] if ref else '?'}, "
+                    f"spill {ref['spill'] if ref else '?'}), shared {r['static_smem']} "
+                    f"+ {r['dynamic_smem']} B (ptxas static "
+                    f"{ref['static_smem'] if ref else '?'}; budget {b.smem_bytes}), "
+                    f"{r['launches']} launches  {name[:60]}")
+        if ref is None or ref["registers"] != r["registers"] or \
+                ref["static_smem"] != r["static_smem"] or ref["spill"] or \
+                ref["stack"] != r["local_bytes"]:
+            disagree.append(name)
+    print(f"  kernel_budget at level device: {len(launched)} kernels launched by "
+          f"the {len(reports)} programs, each within its budget [{tag}]")
+    print("\n".join(rows))
+    if not PTXAS or disagree:
+        raise SmokeFailure(f"phase 10: cudaFuncGetAttributes and ptxas disagree on "
+                           f"{disagree or 'every kernel (no ptxas reading)'}")
+    families = {budgets.family_of(n) for n in launched}
+    print(f"  launched kernel families: {sorted(families)}")
+    if not {"train_step_kernel", "adamw_kernel", "inr_forward_kernel",
+            "composite_kernel"} <= families:
+        raise SmokeFailure(f"phase 10: the programs launched {sorted(families)}")
+    cfg = PRODUCTION256.replace(static_checks="error")
+    tr = DVNRTrainer(cfg, 2, impl="cuda", volume_shape=(12, 12, 12))
+    print(f"  DVNRTrainer(static_checks='error') builds on the clean config: "
+          f"{tr.run_static_checks(strict=True).passed}")
+    with tempfile.TemporaryDirectory() as d:
+        dist.init_process_group("gloo", init_method=f"file://{d}/store", rank=0,
+                                world_size=1)
+        try:
+            for kind in ("collective", "f32_product", "rng"):
+                prec = "bf16" if kind == "f32_product" else "f32"
+                with setting(DVNRTrainer, "_mask_convergence", _plant(kind)):
+                    try:
+                        DVNRTrainer(cfg.replace(precision=prec), 2, impl="cuda",
+                                    volume_shape=(12, 12, 12))
+                    except StaticCheckError as e:
+                        print(f"  control caught: {kind}: "
+                              f"{str(e).splitlines()[1][:110]}")
+                        continue
+                raise SmokeFailure(f"phase 10: the {kind} control built a trainer")
+        finally:
+            dist.destroy_process_group()
+    torch.cuda.synchronize()
+    print(f"  phase 10: {time.perf_counter() - t0:.1f} s [{tag}]")
+
+
+# --------------------------------------------------------------------------- #
+# phase 11: the port's examples
+# --------------------------------------------------------------------------- #
+def examples_phase(tag) -> None:
+    """Phase 11: ``examples/quickstart_torch.py`` (its 200 steps cut to 100)
+    and ``examples/insitu_reactive_torch.py`` (24 simulation steps cut to
+    20, the trigger's cycle 18 kept) on the card, through their ``main``:
+    their summary lines printed, PSNR, compression ratio and mean alpha in
+    range, the trigger fired and frames rendered."""
+    import importlib.util
+    out = {}
+    for name, argv in (("quickstart_torch", ["--steps", "100"]),
+                       ("insitu_reactive_torch", ["--steps", "20"])):
+        spec = importlib.util.spec_from_file_location(name, ROOT / "examples"
+                                                      / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        print(f"== phase 11: examples/{name}.py {' '.join(argv)} [{tag}]")
+        t0 = time.perf_counter()
+        out[name] = mod.main(argv)
+        print(f"  {name}: {out[name]}, {time.perf_counter() - t0:.1f} s [{tag}]")
+    q, s = out["quickstart_torch"], out["insitu_reactive_torch"]
+    if not (q["psnr"] > 15 and q["ratio"] > 3 and 0 < q["alpha"] < 1):
+        raise SmokeFailure(f"phase 11: quickstart {q}")
+    if not (s["trained"] > 0 and s["fired"] and s["frames"] > 0 and s["saving"] > 1):
+        raise SmokeFailure(f"phase 11: in situ {s}")
+
+
 def main() -> int:
     tag, kernels, flash_err, errs = dvnr_phases()
     import gc
@@ -4424,6 +4845,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     distributed_phase(tag, torch.device(DEVICE))
+    gc.collect()
+    torch.cuda.empty_cache()
+    analysis_phase(tag, torch.device(DEVICE))
+    examples_phase(tag)
     print(tag)                        # name, power limit as nvidia-smi says
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

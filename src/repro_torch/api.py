@@ -419,8 +419,10 @@ def train(partitions, cfg: DVNRConfig, *, backend: BackendLike = "auto",
     vols = torch.stack([p.normalized() for p in partitions]) \
         if volumes is None else volumes
     if trainer is None:
+        # the declared volume shape sizes cfg.static_checks' program
         trainer = DVNRTrainer(cfg, P, mesh=mesh, impl=backend, ghost=g,
-                              device=vols.device)
+                              device=vols.device,
+                              volume_shape=tuple(vols.shape[1:]))
     state = trainer.init(k_init, cached_params=cached_params)
     if train_mask is not None:
         mask = torch.as_tensor(np.asarray(train_mask, bool),
@@ -446,8 +448,42 @@ def train(partitions, cfg: DVNRConfig, *, backend: BackendLike = "auto",
     return model, info
 
 
+_LEGACY_RENDER_KW = ("camera", "eye", "center", "up", "fov_deg", "width",
+                     "height", "n_samples", "tf_table", "density",
+                     "compute_dtype", "out_dtype")
+
+
+def _request_from_legacy(kw: dict) -> RenderRequest:
+    """The keyword form of ``render`` from before :class:`RenderRequest`:
+    warns (``DeprecationWarning``, the JAX package's text) and builds the
+    request it stands for."""
+    import warnings
+
+    bad = set(kw) - set(_LEGACY_RENDER_KW)
+    if bad:
+        raise TypeError(f"render() got unexpected keyword arguments "
+                        f"{sorted(bad)}")
+    warnings.warn(
+        "api.render(eye=..., width=..., ...) kwargs are deprecated; pass a "
+        "request: api.render(model, RenderRequest(camera=Camera(eye=...), "
+        "width=...))", DeprecationWarning, stacklevel=3)
+    cam = kw.pop("camera", None)
+    if cam is None:
+        d = Camera()
+        cam = Camera(eye=tuple(kw.pop("eye", d.eye)),
+                     center=tuple(kw.pop("center", d.center)),
+                     up=tuple(kw.pop("up", d.up)),
+                     fov_deg=float(kw.pop("fov_deg", d.fov_deg)))
+    else:
+        for k in ("eye", "center", "up", "fov_deg"):
+            kw.pop(k, None)
+    tf = TransferFunction(table=kw.pop("tf_table", None),
+                          density=float(kw.pop("density", 50.0)))
+    return RenderRequest(camera=cam, tf=tf, **kw)
+
+
 def render(model: DVNRModel, request: Optional[RenderRequest] = None, *,
-           backend: BackendLike = "auto", mesh=None, cache=None):
+           backend: BackendLike = "auto", mesh=None, cache=None, **legacy):
     """Sort-last direct volume rendering of the DVNR (never decodes a grid).
     Returns the (H, W, 4) frame, f32 unless ``request.out_dtype`` says
     otherwise. ``cache`` (a :class:`repro_torch.serving.BrickCache`) swaps
@@ -457,12 +493,20 @@ def render(model: DVNRModel, request: Optional[RenderRequest] = None, *,
     in the JAX package (whose ``_render_distributed`` does not use it),
     changes nothing: the model's partitions are rendered and composited in
     this process. Across ranks, each holding its own partition, use
-    :func:`repro_torch.core.render.make_distributed_render_step`."""
+    :func:`repro_torch.core.render.make_distributed_render_step`.
+
+    The old keyword form ``render(model, eye=..., width=...)`` renders the
+    same frame and warns (``DeprecationWarning``)."""
     from repro_torch.core.render import (_render_distributed,
                                          _render_distributed_sampled)
 
     if model.parts_meta is None:
         raise ValueError("render() needs model.parts_meta")
+    if legacy:
+        if request is not None:
+            raise TypeError("render() takes a RenderRequest OR legacy "
+                            "kwargs, not both")
+        request = _request_from_legacy(dict(legacy))
     r = RenderRequest() if request is None else request
     b = backends.resolve(backend)
     tf_table = r.tf.resolved_table(model.device)

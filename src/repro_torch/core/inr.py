@@ -6,6 +6,8 @@ with a leading partition axis on every leaf for a partition-stacked model.
 """
 from __future__ import annotations
 
+import warnings
+
 from typing import Optional, Sequence
 
 import numpy as np
@@ -119,6 +121,28 @@ def _decode_grid(cfg: DVNRConfig, params: dict, shape: Sequence[int],
     if cfg.out_dim == 1:
         return out.reshape(nx, ny, nz)
     return out.reshape(nx, ny, nz, cfg.out_dim)
+
+
+# --------------------------------------------------------------------------- #
+# Deprecated free-function API (pre-DVNRModel)
+# --------------------------------------------------------------------------- #
+def inr_apply(cfg: DVNRConfig, params: dict, coords: torch.Tensor,
+              impl: backends.BackendLike = "ref") -> torch.Tensor:
+    """Deprecated: use ``repro_torch.api.DVNRModel(cfg, params).apply(coords)``."""
+    warnings.warn("inr_apply(cfg, params, coords, impl=...) is deprecated; "
+                  "use repro_torch.api.DVNRModel(cfg, params).apply(coords, "
+                  "backend=...)", DeprecationWarning, stacklevel=2)
+    return _inr_apply(cfg, params, coords, impl)
+
+
+def decode_grid(cfg: DVNRConfig, params: dict, shape: Sequence[int],
+                impl: backends.BackendLike = "ref",
+                chunk: int = 1 << 17) -> torch.Tensor:
+    """Deprecated: use ``repro_torch.api.DVNRModel(cfg, params).decode_grid(shape)``."""
+    warnings.warn("decode_grid(cfg, params, shape, impl=...) is deprecated; "
+                  "use repro_torch.api.DVNRModel(cfg, params).decode_grid(shape)",
+                  DeprecationWarning, stacklevel=2)
+    return _decode_grid(cfg, params, shape, impl, chunk)
 
 
 def param_count(cfg: DVNRConfig, in_dim: int = 3) -> int:

@@ -540,3 +540,30 @@ def _render_distributed_sampled(pool, slots, grid_shape, brick_edge: int,
         compute_dtype=compute_dtype)
     frames = _frame_from_rays(images, depths, width, height, out_dtype)
     return frames[0] if single else frames
+
+
+# --------------------------------------------------------------------------- #
+# Deprecated free-function render surface (pre-RenderRequest)
+# --------------------------------------------------------------------------- #
+def render_partition(cfg, params, origin, extent, vrange, grange, origins,
+                     dirs, tf_table, **kw):
+    """Deprecated: internal — use ``repro_torch.api.render(model,
+    RenderRequest())``."""
+    import warnings
+    warnings.warn("repro_torch.core.render.render_partition is internal; use "
+                  "repro_torch.api.render(model, RenderRequest(...))",
+                  DeprecationWarning, stacklevel=2)
+    return _render_partition(cfg, params, origin, extent, vrange, grange,
+                             origins, dirs, tf_table, **kw)
+
+
+def render_distributed(cfg, stacked_params, parts_meta, cam, width, height,
+                       grange, **kw):
+    """Deprecated: internal — use ``repro_torch.api.render(model,
+    RenderRequest())``."""
+    import warnings
+    warnings.warn("repro_torch.core.render.render_distributed is internal; use "
+                  "repro_torch.api.render(model, RenderRequest(...))",
+                  DeprecationWarning, stacklevel=2)
+    return _render_distributed(cfg, stacked_params, parts_meta, cam, width,
+                               height, grange, **kw)

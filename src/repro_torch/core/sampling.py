@@ -213,6 +213,23 @@ def step_seeds(key, step, n_partitions: int, device=None,
     return torch.stack(torch.broadcast_tensors(s0, s1), dim=-1)
 
 
+def step_keys(key, step, n_partitions: int) -> torch.Tensor:
+    """Per-partition keys for one step (fold in the step, then the
+    partition), ``jax.random.fold_in`` bit for bit: (P, 2) words. The
+    JAX package's helper for callers that need keys; the trainer derives
+    :func:`step_seeds` instead (the same contract, counter-based)."""
+    base = fold_in(key, step)
+    return torch.stack([fold_in(base, p) for p in range(n_partitions)])
+
+
+def training_coords(key, n_batch: int, boundary_lambda: float, sigma: float):
+    """(1-lambda)N uniform + lambda N boundary samples (paper III-C): the
+    JAX package's convenience wrapper, ``training_coords_counter`` of the
+    key's two words."""
+    return training_coords_counter(torch.stack(key_words(key)), n_batch,
+                                   boundary_lambda, sigma)
+
+
 def gather_trilinear_bricked(vol: torch.Tensor, coords: torch.Tensor,
                              ghost: int, brick) -> torch.Tensor:
     """The oracle of the JAX package's brick-TILED in-kernel gather: visit

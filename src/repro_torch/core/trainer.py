@@ -42,8 +42,12 @@ takes its deterministic route, and a rank's partitions train to the same
 bits as in one stacked run; a chunk then ends with one host read of the
 route's fixed-point overflow flags (raising
 :class:`~repro_torch.kernels.fused_train_step.ops.FixedPointOverflowError`).
-Not ported yet (raises ``NotImplementedError``): static checks (ROADMAP
-item 15).
+The unfused step has deterministic routes of its own (the hash and MLP
+backward kernels), so the switch holds on every training path.
+
+``cfg.static_checks`` (``"warn"`` / ``"error"``) runs the trace-level checks
+of :mod:`repro_torch.analysis` over a throwaway chunk when the trainer is
+built (:meth:`DVNRTrainer.run_static_checks`), as the JAX trainer does.
 """
 from __future__ import annotations
 
@@ -61,6 +65,7 @@ from repro_torch.configs.dvnr import DVNRConfig
 from repro_torch.core.inr import _inr_apply_batched
 from repro_torch.core.metrics import psnr_from_mses
 from repro_torch.core.sampling import random_uniform, split, step_seeds
+from repro_torch.kernels.fixed_point import raise_on_overflow
 from repro_torch.kernels.fused_train_step import ops as fts
 from repro_torch.kernels.fused_train_step.ref import sample_batch, train_step_ref
 from repro_torch.optim.adamw import AdamW, OptConfig, tree_leaves, tree_map
@@ -141,15 +146,18 @@ class DVNRState:
 class DVNRTrainer:
     def __init__(self, cfg: DVNRConfig, n_partitions: int, *, mesh=None,
                  impl: backends.BackendLike = "auto", ghost: int = 1,
-                 device="auto"):
+                 device="auto", volume_shape=None):
         """``impl``: the kernel backend (``"auto"``: the CUDA kernels, and a
         ``RuntimeError`` without a card); ``device``: where the state lives
         (``"auto"``: the current CUDA device, or the mesh's device for this
         rank). ``n_partitions`` is the global count; on a ``mesh`` this rank
         trains ``n_partitions / mesh.size`` of them (``partitions``, its
-        global indices) and ``P`` is that local count. The JAX trainer's
-        ``volume_shape`` has no counterpart: it sizes a TPU VMEM budget,
-        and the CUDA kernels read the volume from device memory."""
+        global indices) and ``P`` is that local count. ``volume_shape``
+        (the ghost-padded shape of one partition's volume, as ``api.train``
+        declares it) sizes the throwaway program of the static checks (the
+        JAX trainer's 8^3 placeholder when None); the JAX trainer's VMEM
+        guard on it has no counterpart here (the CUDA kernels read the
+        volume from device memory)."""
         self.mesh = mesh
         self.n_partitions = int(n_partitions)
         if mesh is not None:
@@ -168,11 +176,9 @@ class DVNRTrainer:
         if cfg.static_checks not in ("off", "warn", "error"):
             raise ValueError(f"static_checks must be 'off', 'warn' or "
                              f"'error', got {cfg.static_checks!r}")
-        if cfg.static_checks != "off":
-            raise NotImplementedError(
-                f"static_checks={cfg.static_checks!r}: the static checks of "
-                "the trainer's program are not ported yet (ROADMAP §A item 15)")
         self.cfg = cfg
+        self.volume_shape = None if volume_shape is None else \
+            tuple(int(d) for d in volume_shape)
         self.P = len(self.partitions)
         self.backend = backends.resolve(impl)
         self.device = resolve_device(device)
@@ -188,6 +194,30 @@ class DVNRTrainer:
         self.fuse_sampling = self._resolve_fuse_sampling(cfg.fuse_sampling)
         fts.validate_sampling_brick(cfg.sampling_brick)
         self._spmd_step = self._build_spmd_step()
+        if cfg.static_checks != "off":
+            self.run_static_checks(strict=cfg.static_checks == "error")
+
+    def run_static_checks(self, *, strict: bool = True, n_steps: int = 2):
+        """Run a throwaway chunk of ``n_steps`` steps (a fresh state, a
+        placeholder volume of ``volume_shape``) under capture and the
+        trace-level checks of :mod:`repro_torch.analysis` over it (zero
+        collectives, precision flow, RNG/gather placement). ``strict``
+        raises :class:`repro_torch.analysis.StaticCheckError` on a
+        violation; otherwise it is issued as a warning. Returns the report."""
+        import warnings
+
+        from repro_torch.analysis import StaticCheckError, run_checks
+        from repro_torch.analysis.programs import (train_chunk_program,
+                                                   train_context)
+
+        report = run_checks(train_chunk_program(self, n_steps=n_steps),
+                            train_context(self), max_level="trace")
+        if not report.passed:
+            if strict:
+                raise StaticCheckError(report)
+            warnings.warn("static checks failed (static_checks='warn'):\n"
+                          + report.render(), stacklevel=2)
+        return report
 
     def _resolve_fuse(self, mode: str) -> bool:
         """``cfg.fuse_train_step`` ("auto"/"on"/"off") -> use the fused step?"""
@@ -364,13 +394,8 @@ class DVNRTrainer:
         if guard:
             for x in tree_leaves(params):
                 finite = finite & torch.isfinite(x.float()).reshape(P, -1).all(1)
-        if overflow is not None:
-            over = (overflow & fts.FX_OVER).cpu().numpy()   # one read a chunk
-            if over.any():
-                raise fts.FixedPointOverflowError(
-                    f"partitions {[self.partitions[p] for p in np.flatnonzero(over)]}: "
-                    "a table-gradient contribution left the deterministic "
-                    f"route's fixed-point bound (N |w g| <= {fts.FX_BOUND})")
+        if overflow is not None:                      # one read a chunk
+            raise_on_overflow(overflow, "train_chunk", names=self.partitions)
         trace = torch.stack(losses) if losses else \
             torch.zeros((0, P), device=dev)
         return DVNRState(params, opt, loss_ma, active, state.step + n_steps,

@@ -206,6 +206,7 @@ extern "C" int repro_adamw_apply(
   if (blocks < 1) blocks = 1;
   auto kernel = master ? (is_det ? &adamw_kernel<true, true> : &adamw_kernel<true, false>)
                        : (is_det ? &adamw_kernel<false, true> : &adamw_kernel<false, false>);
+  REPRO_NOTE_LAUNCH(kernel, 0);
   kernel<<<(unsigned)blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       gs, det, static_cast<const float*>(scalars), static_cast<const float*>(loss_sum),
       static_cast<float*>(loss), P, total, loss_div, b1, omb1, b2, omb2, eps, wd);

@@ -72,11 +72,14 @@ extern "C" int repro_composite(const void* rgba, void* out, long long R, int S,
   if (R <= 0) return 0;
   const dim3 grid((unsigned)((R + RAYS - 1) / RAYS));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
+  if (is_bf16) {
+    REPRO_NOTE_LAUNCH(composite_kernel<__nv_bfloat16>, 0);
     composite_kernel<__nv_bfloat16><<<grid, RAYS, 0, s>>>(
         static_cast<const __nv_bfloat16*>(rgba), static_cast<__nv_bfloat16*>(out), R, S);
-  else
+  } else {
+    REPRO_NOTE_LAUNCH(composite_kernel<float>, 0);
     composite_kernel<float><<<grid, RAYS, 0, s>>>(
         static_cast<const float*>(rgba), static_cast<float*>(out), R, S);
+  }
   return (int)cudaGetLastError();
 }

@@ -220,6 +220,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)Hq, (unsigned)B);
+  REPRO_NOTE_LAUNCH(kern, smem);
   kern<<<grid, TPB, smem, s>>>(static_cast<const float*>(q),
                                static_cast<const float*>(k),
                                static_cast<const float*>(v), static_cast<float*>(out),
@@ -644,6 +645,7 @@ cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)G::SMEM);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)((Sq + tc::BQ - 1) / tc::BQ), (unsigned)Hq, (unsigned)B);
+  REPRO_NOTE_LAUNCH(kern, G::SMEM);
   kern<<<grid, tc::THREADS, G::SMEM, s>>>(m, static_cast<__nv_bfloat16*>(out),
                                            (int)Sq, (int)Sk, Hq, Hkv, causal,
                                            has_window, window, p_dump);

@@ -66,6 +66,15 @@
 // them: the operands' splits, the fragments' shared-memory loads and the
 // mma.sync chains. The atomic adds make dW's last bits vary from run to run.
 //
+// The deterministic route (torch.use_deterministic_algorithms(True): the
+// wrapper calls repro_fused_mlp_bwd_det) runs the same kernel on a grid
+// whose blocks a batch row depend on N alone (det_blocks: at most
+// DET_BLOCKS, never the SM count or the number of rows), so every warp
+// takes the same tiles whatever else is launched beside it; each block
+// writes its dW (its warps' sums, in warp order) to a row of its own, and
+// mlp_dw_reduce_kernel sums a partition's rows in (batch row, block)
+// order into the gradient. dx is row-local on both routes.
+//
 // Numerics, as the plain version (fused_mlp/ref.py): bfloat16 operands
 // (fused_mlp_bwd_kernel<__nv_bfloat16>, the bf16 training policy): exact
 // products summed in float32; the recomputed activations rounded to
@@ -203,6 +212,7 @@ cudaError_t launch_w(const void* x, const void* w_in, const void* w_hid,
   const dim3 grid(
       (unsigned)mm::grid_x((const void*)kernel, warps * 32, smem, n_tiles, warps, B),
       (unsigned)B);
+  REPRO_NOTE_LAUNCH(kernel, smem);
   kernel<<<grid, warps * 32, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w_in),
       static_cast<const T*>(w_hid), static_cast<const T*>(w_out), part,
@@ -240,7 +250,8 @@ __global__ void __launch_bounds__(256, bwd_min_blocks<T, W>()) fused_mlp_bwd_ker
     const T* __restrict__ gout, const int* __restrict__ part,
     T* __restrict__ dx, float* __restrict__ dw_in, float* __restrict__ dw_hid,
     float* __restrict__ dw_out, long long N, int D_in, int n_hidden,
-    int n_hid_slab, int D_out, unsigned long long* __restrict__ clocks) {
+    int n_hid_slab, int D_out, float* __restrict__ partials,
+    unsigned long long* __restrict__ clocks) {
   using C = mm::Bwd<T, W>;
   extern __shared__ __align__(16) float smem[];
   const mm::Shape s{D_in, n_hidden, D_out};
@@ -331,13 +342,20 @@ __global__ void __launch_bounds__(256, bwd_min_blocks<T, W>()) fused_mlp_bwd_ker
   }
   __syncthreads();
   // the block's dW: its warps' C-fragment tiles summed, each weight added
-  // to the partition's gradient once
+  // to the partition's gradient once (the deterministic route: the sums
+  // written to the block's own row of partials, in C-fragment order)
   const float* dws = reinterpret_cast<const float*>(regions);
   const int wf = lay.warp_bytes / 4, in_tiles = lay.mi * C::NT;
   const int hid_tiles = C::MW * C::NT, out_tile0 = in_tiles + (n_hidden - 1) * hid_tiles;
+  float* det_row = partials == nullptr ? nullptr
+      : partials + ((long long)b * gridDim.x + blockIdx.x) * (lay.dw_tiles * 128);
   for (int e = threadIdx.x; e < lay.dw_tiles * 128; e += blockDim.x) {
     float v = 0.0f;
     for (int w = 0; w < warps; ++w) v += dws[(size_t)w * wf + e];
+    if (det_row != nullptr) {
+      det_row[e] = v;
+      continue;
+    }
     // element i of lane ln's C fragment of tile `tile`: row r, column c
     const int tile_i = e >> 7, ln = (e >> 2) & 31, i = e & 3;
     const int r = (ln >> 2) + (i >> 1) * 8, c = 2 * (ln & 3) + (i & 1);
@@ -357,13 +375,65 @@ __global__ void __launch_bounds__(256, bwd_min_blocks<T, W>()) fused_mlp_bwd_ker
   clk.flush(clocks);
 }
 
+// The deterministic route's blocks a batch row: enough for the row's
+// tiles, at most DET_BLOCKS; a function of N and the warps a block (the
+// shapes) only. 64 fills the card at the training shapes (8 rows: 512
+// blocks, about the default route's one wave of two to four blocks an SM).
+constexpr int DET_BLOCKS = 64;
+inline long long det_blocks(long long N, int warps) {
+  const long long n_tiles = (N + mm::TILE_ROWS - 1) / mm::TILE_ROWS;
+  const long long need = (n_tiles + warps - 1) / warps;
+  return need < DET_BLOCKS ? need : DET_BLOCKS;
+}
+
+// The deterministic route's reduction: dW entry e of partition p is the sum,
+// in float32 from 0, of column e of the rows of partials (B, blocks, E)
+// whose batch row reads partition p, batch row after batch row and block
+// after block; one thread an (p, e), each weight written by one thread (the
+// C-fragment element e maps to one weight, or to padding)
+__global__ void mlp_dw_reduce_kernel(const float* __restrict__ partials,
+                                     const int* __restrict__ part,
+                                     float* __restrict__ dw_in,
+                                     float* __restrict__ dw_hid,
+                                     float* __restrict__ dw_out, long long B,
+                                     int blocks, int E, long long P, int D_in, int W,
+                                     int n_hidden, int n_hid_slab, int D_out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= P * E) return;
+  const long long p = i / E;
+  const int e = (int)(i - p * E);
+  float v = 0.0f;
+  for (long long b = 0; b < B; ++b) {
+    if (__ldg(part + b) != p) continue;
+    const float* x = partials + b * blocks * E + e;
+    for (int k = 0; k < blocks; ++k) v = __fadd_rn(v, x[(long long)k * E]);
+  }
+  const int NT = W / 8, MW = W / 16, mi = (D_in + 15) / 16;
+  const int in_tiles = mi * NT, hid_tiles = MW * NT;
+  const int out_tile0 = in_tiles + (n_hidden - 1) * hid_tiles;
+  const int tile_i = e >> 7, ln = (e >> 2) & 31, j = e & 3;
+  const int r = (ln >> 2) + (j >> 1) * 8, c = 2 * (ln & 3) + (j & 1);
+  if (tile_i < in_tiles) {
+    const int k = tile_i / NT * 16 + r, n = tile_i % NT * 8 + c;
+    if (k < D_in) dw_in[(p * D_in + k) * W + n] = v;
+  } else if (tile_i < out_tile0) {
+    const int l = (tile_i - in_tiles) / hid_tiles, q = (tile_i - in_tiles) % hid_tiles;
+    const int k = q / NT * 16 + r, n = q % NT * 8 + c;
+    dw_hid[((p * n_hid_slab + l) * W + k) * W + n] = v;
+  } else if (c < D_out) {
+    const int k = (tile_i - out_tile0) * 16 + r;
+    dw_out[(p * W + k) * D_out + c] = v;
+  }
+}
+
 template <typename T, int W, typename Clk = mm::NoClock>
 cudaError_t launch_bwd_w(const void* x, const void* w_in, const void* w_hid,
                          const void* w_out, const void* g, const int* part,
                          void* dx, float* dw_in, float* dw_hid, float* dw_out,
                          long long B, long long N, int D_in, int n_hidden,
                          int n_hid_slab, int D_out, cudaStream_t stream,
-                         unsigned long long* clocks = nullptr) {
+                         unsigned long long* clocks = nullptr,
+                         float* partials = nullptr, long long P = 0) {
   const auto kernel = fused_mlp_bwd_kernel<T, W, Clk>;
   const mm::BwdLayout lay = mm::bwd_layout<T, W>(D_in, n_hidden, D_out);
   size_t smem = 0;
@@ -373,15 +443,23 @@ cudaError_t launch_bwd_w(const void* x, const void* w_in, const void* w_hid,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
   const long long n_tiles = (N + mm::TILE_ROWS - 1) / mm::TILE_ROWS;
-  const dim3 grid(
-      (unsigned)mm::grid_x((const void*)kernel, warps * 32, smem, n_tiles, warps, B,
-                           true),
-      (unsigned)B);
+  const long long blocks = partials != nullptr
+      ? det_blocks(N, warps)
+      : mm::grid_x((const void*)kernel, warps * 32, smem, n_tiles, warps, B, true);
+  const dim3 grid((unsigned)blocks, (unsigned)B);
+  REPRO_NOTE_LAUNCH(kernel, smem);
   kernel<<<grid, warps * 32, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w_in),
       static_cast<const T*>(w_hid), static_cast<const T*>(w_out),
       static_cast<const T*>(g), part, static_cast<T*>(dx), dw_in, dw_hid,
-      dw_out, N, D_in, n_hidden, n_hid_slab, D_out, clocks);
+      dw_out, N, D_in, n_hidden, n_hid_slab, D_out, partials, clocks);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || partials == nullptr) return e;
+  const int E = lay.dw_tiles * 128;
+  REPRO_NOTE_LAUNCH(mlp_dw_reduce_kernel, 0);
+  mlp_dw_reduce_kernel<<<(unsigned)((P * E + 255) / 256), 256, 0, stream>>>(
+      partials, part, dw_in, dw_hid, dw_out, B, (int)blocks, E, P, D_in, W, n_hidden,
+      n_hid_slab, D_out);
   return cudaGetLastError();
 }
 
@@ -390,13 +468,33 @@ cudaError_t launch_bwd(const void* x, const void* w_in, const void* w_hid,
                        const void* w_out, const void* g, const int* part, void* dx,
                        float* dw_in, float* dw_hid, float* dw_out, long long B,
                        long long N, int D_in, int W, int n_hidden, int n_hid_slab,
-                       int D_out, cudaStream_t s) {
+                       int D_out, cudaStream_t s, float* partials = nullptr,
+                       long long P = 0) {
   switch (W) {
-    case 16: return launch_bwd_w<T, 16>(x, w_in, w_hid, w_out, g, part, dx, dw_in, dw_hid, dw_out, B, N, D_in, n_hidden, n_hid_slab, D_out, s);
-    case 32: return launch_bwd_w<T, 32>(x, w_in, w_hid, w_out, g, part, dx, dw_in, dw_hid, dw_out, B, N, D_in, n_hidden, n_hid_slab, D_out, s);
-    case 64: return launch_bwd_w<T, 64>(x, w_in, w_hid, w_out, g, part, dx, dw_in, dw_hid, dw_out, B, N, D_in, n_hidden, n_hid_slab, D_out, s);
+    case 16: return launch_bwd_w<T, 16>(x, w_in, w_hid, w_out, g, part, dx, dw_in, dw_hid, dw_out, B, N, D_in, n_hidden, n_hid_slab, D_out, s, nullptr, partials, P);
+    case 32: return launch_bwd_w<T, 32>(x, w_in, w_hid, w_out, g, part, dx, dw_in, dw_hid, dw_out, B, N, D_in, n_hidden, n_hid_slab, D_out, s, nullptr, partials, P);
+    case 64: return launch_bwd_w<T, 64>(x, w_in, w_hid, w_out, g, part, dx, dw_in, dw_hid, dw_out, B, N, D_in, n_hidden, n_hid_slab, D_out, s, nullptr, partials, P);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// (blocks a batch row, floats a block's row) of the deterministic route's
+// partials for these shapes: partials is (B, blocks, E) float32
+template <typename T>
+int det_shape_t(long long N, int D_in, int W, int n_hidden, int D_out, long long* out) {
+  mm::BwdLayout lay;
+  switch (W) {
+    case 16: lay = mm::bwd_layout<T, 16>(D_in, n_hidden, D_out); break;
+    case 32: lay = mm::bwd_layout<T, 32>(D_in, n_hidden, D_out); break;
+    case 64: lay = mm::bwd_layout<T, 64>(D_in, n_hidden, D_out); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  size_t smem = 0;
+  const int warps = mm::bwd_pick_warps((size_t)lay.words * 4, lay.warp_bytes, &smem);
+  if (warps == 0) return (int)cudaErrorInvalidValue;
+  out[0] = det_blocks(N, warps);
+  out[1] = lay.dw_tiles * 128;
+  return 0;
 }
 
 }  // namespace
@@ -449,6 +547,44 @@ extern "C" int repro_fused_mlp_bwd(const void* x, const void* w_in,
   return (int)(is_bf16
       ? launch_bwd<__nv_bfloat16>(x, w_in, w_hid, w_out, g, p, dx, di, dh, dout, B, N, D_in, W, n_hidden, n_hid_slab, D_out, s)
       : launch_bwd<float>(x, w_in, w_hid, w_out, g, p, dx, di, dh, dout, B, N, D_in, W, n_hidden, n_hid_slab, D_out, s));
+}
+
+// The deterministic route of repro_fused_mlp_bwd: the same operands and
+// outputs (dw_in / dw_hid / dw_out zeroed by the caller, each weight
+// written once), P partitions, and partials, a float32 scratch of (B,
+// blocks, E) from repro_fused_mlp_bwd_det_shape. Two launches: the
+// backward on det_blocks(N) blocks a batch row, then the ordered sum.
+extern "C" int repro_fused_mlp_bwd_det(const void* x, const void* w_in,
+                                       const void* w_hid, const void* w_out,
+                                       const void* g, const void* part, void* dx,
+                                       void* dw_in, void* dw_hid, void* dw_out,
+                                       void* partials, long long B, long long N,
+                                       long long P, int D_in, int W, int n_hidden,
+                                       int n_hid_slab, int D_out, int is_bf16,
+                                       void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  if (B > 65535 || n_hidden < 1 || D_out < 1 || D_out > 8 || partials == nullptr ||
+      reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(g) % 16)
+    return (int)cudaErrorInvalidValue;
+  const int* p = static_cast<const int*>(part);
+  float* di = static_cast<float*>(dw_in);
+  float* dh = static_cast<float*>(dw_hid);
+  float* dout = static_cast<float*>(dw_out);
+  float* pr = static_cast<float*>(partials);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return (int)(is_bf16
+      ? launch_bwd<__nv_bfloat16>(x, w_in, w_hid, w_out, g, p, dx, di, dh, dout, B, N, D_in, W, n_hidden, n_hid_slab, D_out, s, pr, P)
+      : launch_bwd<float>(x, w_in, w_hid, w_out, g, p, dx, di, dh, dout, B, N, D_in, W, n_hidden, n_hid_slab, D_out, s, pr, P));
+}
+
+// out (2 int64, host memory) = (blocks a batch row, floats a block's row)
+// of repro_fused_mlp_bwd_det's partials at these shapes
+extern "C" int repro_fused_mlp_bwd_det_shape(long long N, int D_in, int W,
+                                             int n_hidden, int D_out, int is_bf16,
+                                             void* out) {
+  long long* o = static_cast<long long*>(out);
+  return is_bf16 ? det_shape_t<__nv_bfloat16>(N, D_in, W, n_hidden, D_out, o)
+                 : det_shape_t<float>(N, D_in, W, n_hidden, D_out, o);
 }
 
 // repro_fused_mlp_bwd at W = 16 with a clock on each warp: the same outputs,

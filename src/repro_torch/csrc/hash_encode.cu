@@ -60,6 +60,22 @@
 //     more): each group leader adds its row with one 16-byte atomicAdd.
 // Sums are float32, in an order that atomics make run-dependent.
 //
+// The deterministic route (torch.use_deterministic_algorithms(True): the
+// wrapper calls repro_hash_encode_bwd_fx): the same per-level launches and
+// the same warp pre-reduction (its tree depends only on the rows a warp
+// holds), but each group leader adds its row as int64 fixed point
+// (hash_grid.cuh scatter_corners_fx: 2^-47 quanta, the bound M |w g| <=
+// FX_BOUND with M the points of a partition, and the partition's flag bits
+// past it). A level whose int64 slab (rows x F x 8 bytes) fits the staging
+// budget is summed in shared memory and flushed once a block, as the
+// default route stages its float slab; the others go direct. Integer adds
+// are associative, so the sum depends neither on the order in which
+// threads and blocks reach a row nor on the grid (which depends on N and
+// the level's rows alone) nor on the partitions stacked beside it. A last
+// launch converts each entry once to float32 through float64 (adamw.cu's
+// from_fixed, det_grads_to_float's arithmetic), NaN for a flagged
+// partition.
+//
 // A bfloat16 cotangent (hash_encode_bwd_kernel<__nv_bfloat16>, the bf16
 // training policy) is read as one vector load of its F values per (row,
 // level), 8 bytes at F = 4, and widened in registers; the corner weights,
@@ -109,10 +125,10 @@ cudaError_t launch_fwd(const float* coords, const void* tables, const int* res,
   const T* t = static_cast<const T*>(tables);
   T* o = static_cast<T*>(out);
   switch (F) {
-    case 1: hash_encode_fwd_kernel<T, 1><<<grid, threads, 0, stream>>>(coords, t, res, part, o, N, L, T_size); break;
-    case 2: hash_encode_fwd_kernel<T, 2><<<grid, threads, 0, stream>>>(coords, t, res, part, o, N, L, T_size); break;
-    case 4: hash_encode_fwd_kernel<T, 4><<<grid, threads, 0, stream>>>(coords, t, res, part, o, N, L, T_size); break;
-    case 8: hash_encode_fwd_kernel<T, 8><<<grid, threads, 0, stream>>>(coords, t, res, part, o, N, L, T_size); break;
+    case 1: REPRO_NOTE_LAUNCH((hash_encode_fwd_kernel<T, 1>), 0); hash_encode_fwd_kernel<T, 1><<<grid, threads, 0, stream>>>(coords, t, res, part, o, N, L, T_size); break;
+    case 2: REPRO_NOTE_LAUNCH((hash_encode_fwd_kernel<T, 2>), 0); hash_encode_fwd_kernel<T, 2><<<grid, threads, 0, stream>>>(coords, t, res, part, o, N, L, T_size); break;
+    case 4: REPRO_NOTE_LAUNCH((hash_encode_fwd_kernel<T, 4>), 0); hash_encode_fwd_kernel<T, 4><<<grid, threads, 0, stream>>>(coords, t, res, part, o, N, L, T_size); break;
+    case 8: REPRO_NOTE_LAUNCH((hash_encode_fwd_kernel<T, 8>), 0); hash_encode_fwd_kernel<T, 8><<<grid, threads, 0, stream>>>(coords, t, res, part, o, N, L, T_size); break;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
@@ -177,6 +193,133 @@ __global__ void __launch_bounds__(BWD_THREADS_STAGED) hash_encode_bwd_kernel(
   }
 }
 
+// The deterministic route's backward of one level: the corner adds as int64
+// fixed point, into the level's rows x F slab in shared memory when STAGED
+// (integer adds: the slab's sums do not depend on the order of the block's
+// adds), flushed once a block with one 64-bit atomic a nonzero entry, or
+// straight into grad_fx (P,L,T,F); each warp's flag bits ORed into its
+// partition's flags entry.
+template <typename TG, int F, bool STAGED>
+__global__ void __launch_bounds__(BWD_THREADS_STAGED) hash_encode_bwd_fx_kernel(
+    const TG* __restrict__ grad_out, const float* __restrict__ coords,
+    const int* __restrict__ part, unsigned long long* __restrict__ grad_fx,
+    unsigned long long* __restrict__ flags, long long N, int L, int level, int res,
+    long long T_size, int rows, int ppb, float vmax) {
+  extern __shared__ unsigned long long fx_slab[];   // rows x F, when STAGED
+  const int b = blockIdx.y;
+  const long long n0 = (long long)blockIdx.x * ppb;   // this block's points
+  const long long n1 = min(N, n0 + ppb);
+  const long long p = __ldg(part + b);
+  unsigned long long* gt = grad_fx + (p * L + level) * T_size * F;
+  if constexpr (STAGED) {
+    for (int i = threadIdx.x; i < rows * F; i += blockDim.x) fx_slab[i] = 0ull;
+    __syncthreads();
+  }
+  unsigned bad = 0;
+  // whole block strides, so that every lane of a warp reaches the warp-wide
+  // pre-reduction; lanes past the chunk carry no point
+  for (long long base = n0; base < n1; base += blockDim.x) {
+    const long long n = base + threadIdx.x;
+    const bool valid = n < n1;
+    float cc[3] = {0.0f, 0.0f, 0.0f}, g[F];
+#pragma unroll
+    for (int f = 0; f < F; ++f) g[f] = 0.0f;
+    if (valid) {
+      const float* c = coords + ((long long)b * N + n) * 3;
+      cc[0] = __ldg(c);
+      cc[1] = __ldg(c + 1);
+      cc[2] = __ldg(c + 2);
+      const TG* gr = grad_out + (((long long)b * N + n) * L + level) * F;
+      if constexpr (sizeof(TG) == 4) {
+#pragma unroll
+        for (int f = 0; f < F; ++f) g[f] = __ldg(gr + f);
+      } else {
+        repro::load_row<TG, F>(gr, g);
+      }
+    }
+    const repro::LevelGeom geo = repro::level_geom(cc, res, T_size);
+    repro::scatter_corners_fx<F>(geo, g, valid, STAGED ? fx_slab : gt, vmax, bad);
+  }
+  if constexpr (STAGED) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < rows * F; i += blockDim.x) {
+      const unsigned long long v = fx_slab[i];
+      if (v) atomicAdd(gt + i, v);
+    }
+  }
+  bad = __reduce_or_sync(0xffffffffu, bad);
+  if (bad && (threadIdx.x & 31) == 0) atomicOr(flags + p, (unsigned long long)bad);
+}
+
+// grad[i] = grad_fx[i] x 2^-FX_SHIFT through float64, rounded once to
+// float32; NaN in every entry of a flagged partition
+__global__ void fx_to_float_kernel(const unsigned long long* __restrict__ grad_fx,
+                                   const unsigned long long* __restrict__ flags,
+                                   float* __restrict__ grad, long long per_part,
+                                   long long total) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
+       i += stride) {
+    grad[i] = flags[i / per_part]
+        ? __int_as_float(0x7fffffff)
+        : __double2float_rn(__ll2double_rn((long long)grad_fx[i]) *
+                            (1.0 / (double)(1LL << repro::FX_SHIFT)));
+  }
+}
+
+int bwd_points_per_block(long long rows, bool staged);
+
+// One launch per level: staged (the level's int64 slab in shared memory)
+// where staged[l] says so, else direct. The grid depends on N and the
+// level's rows only.
+template <typename TG, int F>
+cudaError_t launch_bwd_fx(const void* g, const float* coords, const int* res,
+                          const int* staged, const int* part,
+                          unsigned long long* grad_fx, unsigned long long* flags,
+                          long long B, long long N, int L, long long T_size, float vmax,
+                          cudaStream_t stream) {
+  const TG* gt = static_cast<const TG*>(g);
+  for (int l = 0; l < L; ++l) {
+    const long long rows = repro::level_rows(res[l], T_size);
+    const int ppb = bwd_points_per_block(rows, staged[l] != 0);
+    const dim3 grid((unsigned)((N + ppb - 1) / ppb), (unsigned)B);
+    if (staged[l]) {
+      const int smem = (int)(rows * F * sizeof(unsigned long long));
+      const auto kern = hash_encode_bwd_fx_kernel<TG, F, true>;
+      cudaError_t err = cudaFuncSetAttribute(
+          kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return err;
+      REPRO_NOTE_LAUNCH(kern, smem);
+      kern<<<grid, BWD_THREADS_STAGED, smem, stream>>>(
+          gt, coords, part, grad_fx, flags, N, L, l, res[l], T_size, (int)rows, ppb,
+          vmax);
+    } else {
+      const auto kern = hash_encode_bwd_fx_kernel<TG, F, false>;
+      REPRO_NOTE_LAUNCH(kern, 0);
+      kern<<<grid, BWD_THREADS_DIRECT, 0, stream>>>(
+          gt, coords, part, grad_fx, flags, N, L, l, res[l], T_size, 0, ppb, vmax);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
+template <typename TG>
+cudaError_t launch_bwd_fx_f(const void* g, const float* coords, const int* res,
+                            const int* staged, const int* part,
+                            unsigned long long* grad_fx, unsigned long long* flags,
+                            long long B, long long N, int L, long long T_size, int F,
+                            float vmax, cudaStream_t s) {
+  switch (F) {
+    case 1: return launch_bwd_fx<TG, 1>(g, coords, res, staged, part, grad_fx, flags, B, N, L, T_size, vmax, s);
+    case 2: return launch_bwd_fx<TG, 2>(g, coords, res, staged, part, grad_fx, flags, B, N, L, T_size, vmax, s);
+    case 4: return launch_bwd_fx<TG, 4>(g, coords, res, staged, part, grad_fx, flags, B, N, L, T_size, vmax, s);
+    case 8: return launch_bwd_fx<TG, 8>(g, coords, res, staged, part, grad_fx, flags, B, N, L, T_size, vmax, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // Points a backward block takes: one per thread on the direct route; a
 // staged block flushes its slab once, so it takes about as many points as
 // the slab has rows (a power of two in [1,024, 4,096]).
@@ -202,10 +345,12 @@ cudaError_t launch_bwd_level(const TG* g, const float* coords,
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
+    REPRO_NOTE_LAUNCH(kern, smem);
     kern<<<grid, BWD_THREADS_STAGED, smem, stream>>>(g, coords, part, grad, N, L, level,
                                               res, T_size, (int)rows, ppb);
   } else {
     const auto kern = hash_encode_bwd_kernel<TG, F, false>;
+    REPRO_NOTE_LAUNCH(kern, 0);
     kern<<<grid, BWD_THREADS_DIRECT, 0, stream>>>(g, coords, part, grad, N, L, level,
                                                res, T_size, 0, ppb);
   }
@@ -285,6 +430,45 @@ extern "C" int repro_hash_encode_bwd(const void* grad_out, const void* coords,
   return (int)(is_bf16
       ? launch_bwd_f<__nv_bfloat16>(grad_out, c, r, st, p, gt, B, N, L, T_size, F, s)
       : launch_bwd_f<float>(grad_out, c, r, st, p, gt, B, N, L, T_size, F, s));
+}
+
+// The deterministic route of repro_hash_encode_bwd: the same g, coords,
+// resolutions and staged (host memory; staged: the level's int64 slab,
+// rows x F x 8 bytes, in shared memory), part and shapes; grad_fx (P,L,T,F) and flags
+// (P,) int64, zeroed by the caller, take the fixed-point sums and the
+// partitions' flag bits (FX_NONFINITE, FX_OVER); grad_tables (P,L,T,F) f32
+// gets every entry converted (NaN for a flagged partition). vmax =
+// FX_BOUND / M, M the points of one partition (N times its rows in part):
+// an entry takes at most 8 M contributions, so |sum| <= 2^62 + 4 M, and a
+// contribution above vmax flags its partition. One launch per level, then
+// the conversion.
+extern "C" int repro_hash_encode_bwd_fx(const void* grad_out, const void* coords,
+                                        const void* resolutions, const void* staged,
+                                        const void* part, void* grad_fx, void* flags,
+                                        void* grad_tables,
+                                        long long B, long long N, int L, long long P,
+                                        long long T_size, int F, float vmax,
+                                        int is_bf16, void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  if (B > 65535 || (is_bf16 && (reinterpret_cast<uintptr_t>(grad_out) & 15)))
+    return (int)cudaErrorInvalidValue;
+  const float* c = static_cast<const float*>(coords);
+  const int* r = static_cast<const int*>(resolutions);
+  const int* st = static_cast<const int*>(staged);
+  const int* p = static_cast<const int*>(part);
+  unsigned long long* fx = static_cast<unsigned long long*>(grad_fx);
+  unsigned long long* fl = static_cast<unsigned long long*>(flags);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = is_bf16
+      ? launch_bwd_fx_f<__nv_bfloat16>(grad_out, c, r, st, p, fx, fl, B, N, L, T_size, F, vmax, s)
+      : launch_bwd_fx_f<float>(grad_out, c, r, st, p, fx, fl, B, N, L, T_size, F, vmax, s);
+  if (err != cudaSuccess) return (int)err;
+  const long long per_part = (long long)L * T_size * F, total = P * per_part;
+  const long long blocks = (total + 255) / 256 < 4096 ? (total + 255) / 256 : 4096;
+  REPRO_NOTE_LAUNCH(fx_to_float_kernel, 0);
+  fx_to_float_kernel<<<(unsigned)blocks, 256, 0, s>>>(
+      fx, fl, static_cast<float*>(grad_tables), per_part, total);
+  return (int)cudaGetLastError();
 }
 
 // The points per block of each level's backward launch, as

@@ -129,6 +129,7 @@ cudaError_t launch_wf(const float* coords, const void* tables, const int* res,
   const dim3 grid(
       (unsigned)mm::grid_x((const void*)kernel, warps * 32, smem, n_tiles, warps, B),
       (unsigned)B);
+  REPRO_NOTE_LAUNCH(kernel, smem);
   kernel<<<grid, warps * 32, smem, stream>>>(
       coords, static_cast<const T*>(tables), res, part, static_cast<const T*>(w_in),
       static_cast<const T*>(w_hid), static_cast<const T*>(w_out), static_cast<T*>(out),

@@ -421,6 +421,7 @@ cudaError_t step_launch_wf(const StepArgs& a, const StepShape& sh, long long P,
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh.smem);
   if (e != cudaSuccess) return e;
+  REPRO_NOTE_LAUNCH(kernel, sh.smem);
   kernel<<<dim3((unsigned)sh.blocks, (unsigned)P), sh.tile, sh.smem, stream>>>(a);
   return cudaGetLastError();
 }

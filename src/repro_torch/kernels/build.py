@@ -44,11 +44,20 @@ SIGNATURES = {
     # grad_out, coords, res, staged (the two in host memory), part,
     # grad_tables, B, N, L, T, F, is_bf16, stream
     "repro_hash_encode_bwd": [_P] * 6 + [_L, _L, _I, _L, _I, _I, _P],
+    # the deterministic route: g, coords, res, staged (the two in host
+    # memory), part, grad_fx, flags, grad_tables, B, N, L, P, T, F, vmax,
+    # is_bf16, stream
+    "repro_hash_encode_bwd_fx": [_P] * 8 + [_L, _L, _I, _L, _L, _I, _F, _I, _P],
     # res, staged, L, T, points per block out (host memory)
     "repro_hash_encode_bwd_points_per_block": [_P, _P, _I, _L, _P],
     # x, w_in, w_hid, w_out, g, part, dx, dw_in, dw_hid, dw_out, B, N, D_in,
     # W, n_hidden, n_hid_slab, D_out, is_bf16, stream
     "repro_fused_mlp_bwd": [_P] * 10 + [_L, _L, _I, _I, _I, _I, _I, _I, _P],
+    # the deterministic route: the same operands, then partials, B, N, P,
+    # D_in, W, n_hidden, n_hid_slab, D_out, is_bf16, stream
+    "repro_fused_mlp_bwd_det": [_P] * 11 + [_L, _L, _L, _I, _I, _I, _I, _I, _I, _P],
+    # N, D_in, W, n_hidden, D_out, is_bf16, (blocks, E) out (host memory)
+    "repro_fused_mlp_bwd_det_shape": [_L, _I, _I, _I, _I, _I, _P],
     # the same, then clocks (8 uint64), stream
     "repro_fused_mlp_bwd_stages": [_P] * 10 + [_L, _L, _I, _I, _I, _I, _I, _I, _P, _P],
     # coords, target, volumes, seeds, tab, win, whid, wout, g_tab, g_win,
@@ -65,6 +74,9 @@ SIGNATURES = {
     "repro_adamw_apply": [_P, _P, _P, _P, _P, _L] * 4
     + [_P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _I, _P, _L, _I, _P, _P, _P,
        _P],
+    # index (< 0: forget the notes), attrs (5 int64 out), name buffer, its
+    # length: the kernels launched since the last reset (launch_notes.cu)
+    "repro_kernel_launches": [_I, _P, _P, _I],
     # q, k, v, out, B, Sq, Sk, Hq, Hkv, dh, causal, has_window, window,
     # is_bf16, stream
     "repro_flash_attention": [_P] * 4 + [_L, _L, _L] + [_I] * 7 + [_P],
@@ -170,17 +182,66 @@ def check(err: int, name: str) -> None:
 
 def refuse_nondeterministic(name: str) -> None:
     """Raise, as PyTorch's own non-deterministic CUDA operations do, when
-    ``torch.use_deterministic_algorithms(True)`` is on: for a kernel whose
+    ``torch.use_deterministic_algorithms(True)`` is on: for a launch whose
     sums land through float atomics in an order that changes run to run and
-    that has no deterministic route yet (ROADMAP §C1's remainder)."""
+    that has no deterministic route (the MLP backward's clocked measurement
+    launch; every training kernel has one)."""
     import torch
 
     if torch.are_deterministic_algorithms_enabled():
         raise RuntimeError(
             f"{name} does not have a deterministic implementation (float "
-            "atomics), but torch.use_deterministic_algorithms(True) is set; "
-            "the fused train step (fuse_train_step='auto' or 'on') has a "
-            "deterministic route")
+            "atomics), but torch.use_deterministic_algorithms(True) is set")
+
+
+#: the active program recorders (:mod:`repro_torch.analysis.ir`): while one
+#: is, each kernel wrapper's call is recorded as a region
+_recorders: list = []
+
+
+class _Region:
+    __slots__ = ("name", "operands", "plan")
+
+    def __init__(self, name, operands, plan):
+        self.name, self.operands, self.plan = name, operands, plan
+
+    def __enter__(self):
+        for r in _recorders:
+            r.enter_region(self.name, self.operands, self.plan)
+        return self
+
+    def __exit__(self, *exc):
+        for r in reversed(_recorders):
+            r.exit_region()
+        return False
+
+
+class _NoRegion:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NO_REGION = _NoRegion()
+
+
+def kernel_region(name: str, *operands, plan=None):
+    """``with kernel_region("hash_encode_bwd", g, coords, plan=...):`` around
+    a kernel wrapper's body: the counterpart of the JAX package's
+    ``pallas_call`` for the static checks (ctypes launches never reach
+    PyTorch's dispatcher). While a recorder is active it records one kernel
+    site with the floating dtypes of ``operands`` and marks every operation
+    inside (the CPU's plain version) as the kernel's; ``plan`` (a callable)
+    gives the kernels the wrapper would launch at these shapes, as
+    ``(family, dynamic shared bytes or None)`` pairs. Free when no recorder
+    is active."""
+    if not _recorders:
+        return _NO_REGION
+    return _Region(name, operands, plan)
 
 
 def part_tensor(part, B: int, P: int, device):

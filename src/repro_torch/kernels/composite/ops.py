@@ -17,25 +17,27 @@ def composite_cuda(rgba: torch.Tensor) -> torch.Tensor:
 
     CPU tensors take the plain version; CUDA tensors launch
     ``repro_composite`` (``csrc/composite.cu``) or raise."""
-    if rgba.device.type == "cpu":
-        return composite_ref(rgba)
-    if rgba.device.type != "cuda":
-        raise ValueError("composite_cuda: rgba must lie on a CUDA device")
-    if rgba.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"rgba must be float32 or bfloat16, got {rgba.dtype}")
-    *lead, S, four = rgba.shape
-    if four != 4:
-        raise ValueError(f"rgba must be (..., S, 4), got {tuple(rgba.shape)}")
-    rgba = rgba.contiguous()
-    R = math.prod(lead)
-    out = torch.empty((*lead, 4), dtype=rgba.dtype, device=rgba.device)
-    lib = build.library()
-    err = lib.repro_composite(rgba.data_ptr(), out.data_ptr(), R, S,
-                              int(rgba.dtype == torch.bfloat16),
-                              torch.cuda.current_stream(rgba.device).cuda_stream)
-    build.check(err, "repro_composite")
-    composite_cuda.launches += 1
-    return out
+    with build.kernel_region("composite", rgba,
+                             plan=lambda: [("composite_kernel", 0)]):
+        if rgba.device.type == "cpu":
+            return composite_ref(rgba)
+        if rgba.device.type != "cuda":
+            raise ValueError("composite_cuda: rgba must lie on a CUDA device")
+        if rgba.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"rgba must be float32 or bfloat16, got {rgba.dtype}")
+        *lead, S, four = rgba.shape
+        if four != 4:
+            raise ValueError(f"rgba must be (..., S, 4), got {tuple(rgba.shape)}")
+        rgba = rgba.contiguous()
+        R = math.prod(lead)
+        out = torch.empty((*lead, 4), dtype=rgba.dtype, device=rgba.device)
+        lib = build.library()
+        err = lib.repro_composite(rgba.data_ptr(), out.data_ptr(), R, S,
+                                  int(rgba.dtype == torch.bfloat16),
+                                  torch.cuda.current_stream(rgba.device).cuda_stream)
+        build.check(err, "repro_composite")
+        composite_cuda.launches += 1
+        return out
 
 
 composite_cuda.launches = 0

@@ -41,43 +41,46 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p rounded to bf16 before the PV product, as the plain version rounds
     its probabilities), float32 on the CUDA cores (a TF32 product would
     break float32's 2e-5 limit)."""
-    if causal and q.dim() == 4 and k.dim() == 4 and q.shape[1] > k.shape[1]:
-        raise ValueError(f"flash_attention_cuda: causal with Sq={q.shape[1]} > "
-                         f"Sk={k.shape[1]} leaves query rows without keys")
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError("flash_attention_cuda: q, k, v must lie on one CUDA "
-                         "device")
-    if q.dtype not in (torch.float32, torch.bfloat16) or \
-            k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError("flash_attention_cuda: q, k, v must share one dtype, "
-                        f"float32 or bfloat16 (q is {q.dtype})")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"flash_attention_cuda: q (B,Sq,Hq,dh), k/v (B,Sk,Hkv,dh) "
-                         f"expected, got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
-    B, Sq, Hq, dh = q.shape
-    Bk, Sk, Hkv, dhk = k.shape
-    if Bk != B or dhk != dh or Hkv == 0 or Hq % Hkv:
-        raise ValueError(f"flash_attention_cuda: incompatible q {tuple(q.shape)} "
-                         f"and k/v {tuple(k.shape)}")
-    if dh not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head dim {dh} not in "
-                         f"{KERNEL_HEAD_DIMS}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    out = torch.empty_like(q)
-    if out.numel() == 0:
+    with build.kernel_region("flash_attention", q, k, v, plan=lambda: [(
+            "flash_attention_kernel_bf16_wgmma" if q.dtype == torch.bfloat16
+            else "flash_attention_kernel", None)]):
+        if causal and q.dim() == 4 and k.dim() == 4 and q.shape[1] > k.shape[1]:
+            raise ValueError(f"flash_attention_cuda: causal with Sq={q.shape[1]} > "
+                             f"Sk={k.shape[1]} leaves query rows without keys")
+        if q.device.type == "cpu":
+            return attention_ref(q, k, v, causal=causal, window=window)
+        if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+            raise ValueError("flash_attention_cuda: q, k, v must lie on one CUDA "
+                             "device")
+        if q.dtype not in (torch.float32, torch.bfloat16) or \
+                k.dtype != q.dtype or v.dtype != q.dtype:
+            raise TypeError("flash_attention_cuda: q, k, v must share one dtype, "
+                            f"float32 or bfloat16 (q is {q.dtype})")
+        if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+            raise ValueError(f"flash_attention_cuda: q (B,Sq,Hq,dh), k/v (B,Sk,Hkv,dh) "
+                             f"expected, got {tuple(q.shape)}, {tuple(k.shape)}, "
+                             f"{tuple(v.shape)}")
+        B, Sq, Hq, dh = q.shape
+        Bk, Sk, Hkv, dhk = k.shape
+        if Bk != B or dhk != dh or Hkv == 0 or Hq % Hkv:
+            raise ValueError(f"flash_attention_cuda: incompatible q {tuple(q.shape)} "
+                             f"and k/v {tuple(k.shape)}")
+        if dh not in KERNEL_HEAD_DIMS:
+            raise ValueError(f"flash_attention_cuda: head dim {dh} not in "
+                             f"{KERNEL_HEAD_DIMS}")
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out = torch.empty_like(q)
+        if out.numel() == 0:
+            return out
+        lib = build.library()
+        err = lib.repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, Sq, Sk, Hq, Hkv, dh, int(causal), int(window is not None),
+            int(window or 0), int(q.dtype == torch.bfloat16),
+            torch.cuda.current_stream(q.device).cuda_stream)
+        build.check(err, "repro_flash_attention")
+        flash_attention_cuda.launches += 1
         return out
-    lib = build.library()
-    err = lib.repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        B, Sq, Sk, Hq, Hkv, dh, int(causal), int(window is not None),
-        int(window or 0), int(q.dtype == torch.bfloat16),
-        torch.cuda.current_stream(q.device).cuda_stream)
-    build.check(err, "repro_flash_attention")
-    flash_attention_cuda.launches += 1
-    return out
 
 
 flash_attention_cuda.launches = 0

@@ -7,9 +7,14 @@ rows (B,N,D_in) against partition-stacked weights, one launch for every
 partition and client. Both are differentiable in x and the weights: the
 backward recomputes the activations and runs the layer stack in reverse,
 the plain VJP on the ``ref`` backend and ``repro_fused_mlp_bwd``
-(``csrc/fused_mlp.cu``, every product on the tensor cores) on the card.
+(``csrc/fused_mlp.cu``, every product on the tensor cores) on the card;
+under ``torch.use_deterministic_algorithms(True)`` its deterministic route
+(``repro_fused_mlp_bwd_det``: per-block dW rows summed in a fixed order).
 """
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -67,6 +72,52 @@ def mma_bwd_smem_bytes(D_in: int, W: int, n_hidden: int, D_out: int,
     return 4 * 32 * lw * frags + warps * per_warp
 
 
+def fwd_smem_bytes(D_in: int, W: int, n_hidden: int, itemsize: int,
+                   extra: int = 0, tiles_per_warp: int = 2):
+    """The dynamic shared memory a forward launch asks for (``mlp_mma.cuh``
+    ``pick_warps``): the weights (plus ``extra`` bytes) and
+    ``tiles_per_warp`` input tiles a warp for the most of 8, 4, 2 and 1
+    warps that fit ``SMEM_LIMIT``; None when none fits."""
+    for warps in (8, 4, 2, 1):
+        b = mma_smem_bytes(D_in, W, n_hidden, itemsize,
+                           tiles_per_warp * warps) + extra
+        if b <= SMEM_LIMIT:
+            return b
+    return None
+
+
+def bwd_smem_bytes(D_in: int, W: int, n_hidden: int, D_out: int,
+                   itemsize: int):
+    """The dynamic shared memory a backward launch asks for (``mlp_mma.cuh``
+    ``bwd_pick_warps``: of 8, 4, 2 and 1 warps within ``SMEM_LIMIT``, the
+    count that keeps the most warps resident); None when none fits."""
+    best, resident = None, 0
+    for warps in (8, 4, 2, 1):
+        b = mma_bwd_smem_bytes(D_in, W, n_hidden, D_out, itemsize, warps)
+        if b <= SMEM_LIMIT and (233472 // (b + 1024)) * warps > resident:
+            best, resident = b, (233472 // (b + 1024)) * warps
+    return best
+
+
+def fwd_launch_plan(x, weights) -> list:
+    """The forward's launch at these shapes: ``[(kernel, dynamic shared
+    bytes)]``."""
+    return [("fused_mlp_fwd_kernel",
+             fwd_smem_bytes(x.shape[-1], weights[0].shape[-1], len(weights) - 1,
+                            x.element_size()))]
+
+
+def bwd_launch_plan(x, weights, g) -> list:
+    """The backward's launches at these shapes (the deterministic route
+    adds its ordered sum)."""
+    plan = [("fused_mlp_bwd_kernel",
+             bwd_smem_bytes(x.shape[-1], weights[0].shape[-1], len(weights) - 1,
+                            g.shape[-1], x.element_size()))]
+    if torch.are_deterministic_algorithms_enabled():
+        plan.append(("mlp_dw_reduce_kernel", 0))
+    return plan
+
+
 def _stack(weights):
     """[w_in, h1..h_{H-1}, w_out] -> (w_in, w_hid, w_out, n_hidden), with
     ``w_hid`` (..., max(H-1,1), W, W): an all-zero dummy slab when H == 1,
@@ -92,43 +143,45 @@ def fused_mlp_cuda(x: torch.Tensor, weights, part) -> torch.Tensor:
     ``repro_fused_mlp_fwd`` (``csrc/fused_mlp.cu``: rows copied a 32-row
     tile per warp into shared memory, the layers on the tensor cores; one
     launch per ``MAX_OUT`` output columns) or raise."""
-    if x.device.type == "cpu":
-        return _ref.fused_mlp_batched_ref(x, weights, torch.as_tensor(part))
-    *hidden, w_last = weights
-    if w_last.shape[-1] > MAX_OUT:
-        return torch.cat([fused_mlp_cuda(x, [*hidden, w_last[..., j:j + MAX_OUT]], part)
-                          for j in range(0, w_last.shape[-1], MAX_OUT)], -1)
-    w_in, w_hid, w_out, n_hidden = _stack(weights)
-    B, N, D_in = x.shape
-    P, D_in_w, W = w_in.shape
-    D_out = w_out.shape[-1]
-    if x.device.type != "cuda" or any(w.device != x.device for w in weights):
-        raise ValueError("fused_mlp_cuda: x and weights must lie on one CUDA "
-                         "device")
-    if x.dtype not in (torch.float32, torch.bfloat16) or \
-            any(w.dtype != x.dtype for w in weights):
-        raise TypeError("fused_mlp_cuda: x and weights must share one dtype, "
-                        f"float32 or bfloat16 (x is {x.dtype})")
-    if D_in_w != D_in or W not in KERNEL_WIDTHS or B > 65535 or \
-            tuple(w_out.shape[:2]) != (P, W) or \
-            mma_smem_bytes(D_in, W, n_hidden, x.element_size(), 2) > SMEM_LIMIT:
-        raise ValueError(f"unsupported shapes: x {tuple(x.shape)}, w_in "
-                         f"{tuple(w_in.shape)}, w_out {tuple(w_out.shape)} "
-                         f"(W in {KERNEL_WIDTHS}, B <= 65535, weights and two "
-                         f"32-row tiles within {SMEM_LIMIT} B of shared memory)")
-    x = aligned16(x)
-    w_in, w_hid, w_out = (t.contiguous() for t in (w_in, w_hid, w_out))
-    part_d = build.part_tensor(part, B, P, x.device)
-    out = torch.empty((B, N, D_out), dtype=x.dtype, device=x.device)
-    lib = build.library()
-    err = lib.repro_fused_mlp_fwd(
-        x.data_ptr(), w_in.data_ptr(), w_hid.data_ptr(), w_out.data_ptr(),
-        part_d.data_ptr(), out.data_ptr(), B, N, D_in, W, n_hidden,
-        w_hid.shape[1], D_out, int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
-    build.check(err, "repro_fused_mlp_fwd")
-    fused_mlp_cuda.launches += 1
-    return out
+    with build.kernel_region("fused_mlp_fwd", x, weights,
+                             plan=lambda: fwd_launch_plan(x, weights)):
+        if x.device.type == "cpu":
+            return _ref.fused_mlp_batched_ref(x, weights, torch.as_tensor(part))
+        *hidden, w_last = weights
+        if w_last.shape[-1] > MAX_OUT:
+            return torch.cat([fused_mlp_cuda(x, [*hidden, w_last[..., j:j + MAX_OUT]], part)
+                              for j in range(0, w_last.shape[-1], MAX_OUT)], -1)
+        w_in, w_hid, w_out, n_hidden = _stack(weights)
+        B, N, D_in = x.shape
+        P, D_in_w, W = w_in.shape
+        D_out = w_out.shape[-1]
+        if x.device.type != "cuda" or any(w.device != x.device for w in weights):
+            raise ValueError("fused_mlp_cuda: x and weights must lie on one CUDA "
+                             "device")
+        if x.dtype not in (torch.float32, torch.bfloat16) or \
+                any(w.dtype != x.dtype for w in weights):
+            raise TypeError("fused_mlp_cuda: x and weights must share one dtype, "
+                            f"float32 or bfloat16 (x is {x.dtype})")
+        if D_in_w != D_in or W not in KERNEL_WIDTHS or B > 65535 or \
+                tuple(w_out.shape[:2]) != (P, W) or \
+                mma_smem_bytes(D_in, W, n_hidden, x.element_size(), 2) > SMEM_LIMIT:
+            raise ValueError(f"unsupported shapes: x {tuple(x.shape)}, w_in "
+                             f"{tuple(w_in.shape)}, w_out {tuple(w_out.shape)} "
+                             f"(W in {KERNEL_WIDTHS}, B <= 65535, weights and two "
+                             f"32-row tiles within {SMEM_LIMIT} B of shared memory)")
+        x = aligned16(x)
+        w_in, w_hid, w_out = (t.contiguous() for t in (w_in, w_hid, w_out))
+        part_d = build.part_tensor(part, B, P, x.device)
+        out = torch.empty((B, N, D_out), dtype=x.dtype, device=x.device)
+        lib = build.library()
+        err = lib.repro_fused_mlp_fwd(
+            x.data_ptr(), w_in.data_ptr(), w_hid.data_ptr(), w_out.data_ptr(),
+            part_d.data_ptr(), out.data_ptr(), B, N, D_in, W, n_hidden,
+            w_hid.shape[1], D_out, int(x.dtype == torch.bfloat16),
+            torch.cuda.current_stream(x.device).cuda_stream)
+        build.check(err, "repro_fused_mlp_fwd")
+        fused_mlp_cuda.launches += 1
+        return out
 
 
 fused_mlp_cuda.launches = 0
@@ -186,21 +239,46 @@ def fused_mlp_bwd_cuda(x: torch.Tensor, weights, g: torch.Tensor, part):
     shared memory; the recompute, the delta chain, dx and dW on the tensor
     cores; each block's dW summed in shared memory, one atomic add per
     weight per block into zeroed f32 gradients; bf16 operands rounded where
-    the plain version rounds them) or raise (also under
-    ``torch.use_deterministic_algorithms(True)``: its dW atomics)."""
-    if x.device.type == "cpu":
-        return _ref.fused_mlp_batched_bwd_ref(x, weights, g, torch.as_tensor(part))
-    dx, dws = _bwd_launch("repro_fused_mlp_bwd", x, weights, g, part)
-    fused_mlp_bwd_cuda.launches += 1
-    fused_mlp_bwd_cuda.bf16_launches += int(x.dtype == torch.bfloat16)
-    return dx, dws
+    the plain version rounds them) or raise.
+
+    Under ``torch.use_deterministic_algorithms(True)`` a CUDA call takes
+    the deterministic route, ``repro_fused_mlp_bwd_det``: the same kernel
+    on a grid of ``det_blocks`` blocks a batch row (a function of N alone),
+    each block's dW written to a row of its own, then a second launch that
+    sums a partition's rows in a fixed order (counted in ``det_launches``
+    too). Its bits do not depend on the run or on the partitions stacked
+    beside one. The CPU's plain version is deterministic as it is."""
+    with build.kernel_region("fused_mlp_bwd", x, g, weights,
+                             plan=lambda: bwd_launch_plan(x, weights, g)):
+        if x.device.type == "cpu":
+            return _ref.fused_mlp_batched_bwd_ref(x, weights, g, torch.as_tensor(part))
+        det = torch.are_deterministic_algorithms_enabled()
+        dx, dws = _bwd_launch("repro_fused_mlp_bwd_det" if det else
+                              "repro_fused_mlp_bwd", x, weights, g, part, det=det)
+        fused_mlp_bwd_cuda.launches += 1
+        fused_mlp_bwd_cuda.bf16_launches += int(x.dtype == torch.bfloat16)
+        fused_mlp_bwd_cuda.det_launches += int(det)
+        return dx, dws
 
 
-def _bwd_launch(entry: str, x, weights, g, part, *extra):
+@functools.lru_cache(maxsize=64)
+def det_shape(N: int, D_in: int, W: int, n_hidden: int, D_out: int,
+              is_bf16: bool):
+    """(blocks a batch row, floats a block's row) of the deterministic
+    route's dW rows at these shapes, from the library (a pure function of
+    ints: the blocks depend on N and the shapes, never on the card)."""
+    out = (ctypes.c_longlong * 2)()
+    build.check(build.library().repro_fused_mlp_bwd_det_shape(
+        N, D_in, W, n_hidden, D_out, int(is_bf16), ctypes.addressof(out)),
+        "repro_fused_mlp_bwd_det_shape")
+    return int(out[0]), int(out[1])
+
+
+def _bwd_launch(entry: str, x, weights, g, part, *extra, det: bool = False):
     """Check CUDA operands against :func:`bwd_refusal` and run the backward
     C entry ``entry`` on them (``extra``: its arguments before the
-    stream): ``(dx, [dW ...])``."""
-    build.refuse_nondeterministic("fused_mlp_bwd_cuda")
+    stream; ``det``: the deterministic entry, which also takes its dW rows
+    and P): ``(dx, [dW ...])``."""
     if x.device.type != "cuda" or g.device != x.device or \
             any(w.device != x.device for w in weights):
         raise ValueError("fused_mlp_bwd_cuda: x, g and weights must lie on "
@@ -218,11 +296,19 @@ def _bwd_launch(entry: str, x, weights, g, part, *extra):
     dx = torch.empty_like(x)
     dw_in, dw_hid, dw_out = (torch.zeros_like(w, dtype=torch.float32)
                              for w in (w_in, w_hid, w_out))
+    bf16 = x.dtype == torch.bfloat16
+    ptrs = [x.data_ptr(), w_in.data_ptr(), w_hid.data_ptr(), w_out.data_ptr(),
+            g.data_ptr(), part_d.data_ptr(), dx.data_ptr(), dw_in.data_ptr(),
+            dw_hid.data_ptr(), dw_out.data_ptr()]
+    if det:
+        blocks, E = det_shape(N, D_in, W, n_hidden, D_out, bf16)
+        partials = torch.empty((B, blocks, E), dtype=torch.float32,
+                               device=x.device)
+        ptrs += [partials.data_ptr(), B, N, P]
+    else:
+        ptrs += [B, N]
     err = getattr(build.library(), entry)(
-        x.data_ptr(), w_in.data_ptr(), w_hid.data_ptr(), w_out.data_ptr(),
-        g.data_ptr(), part_d.data_ptr(), dx.data_ptr(), dw_in.data_ptr(),
-        dw_hid.data_ptr(), dw_out.data_ptr(), B, N, D_in, W, n_hidden,
-        w_hid.shape[1], D_out, int(x.dtype == torch.bfloat16), *extra,
+        *ptrs, D_in, W, n_hidden, w_hid.shape[1], D_out, int(bf16), *extra,
         torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, entry)
     return dx, [dw_in] + [dw_hid[:, k] for k in range(n_hidden - 1)] + [dw_out]
@@ -241,13 +327,16 @@ def fused_mlp_bwd_stage_cycles(x, weights, g, part) -> list:
     each of ``BWD_STAGES`` and then their summed lifetimes in ns (so the
     SM clock is the cycles over the ns). Not a launch of the main path: no
     count."""
+    build.refuse_nondeterministic("fused_mlp_bwd_stage_cycles")
     clocks = torch.zeros(len(BWD_STAGES) + 1, dtype=torch.int64, device=x.device)
     _bwd_launch("repro_fused_mlp_bwd_stages", x, weights, g, part, clocks.data_ptr())
     return clocks.tolist()
 
 
-#: launches of the kernel, and of its bf16 instantiation among them
+#: launches of the kernel, of its bf16 instantiation and of its
+#: deterministic route among them
 fused_mlp_bwd_cuda.launches = fused_mlp_bwd_cuda.bf16_launches = 0
+fused_mlp_bwd_cuda.det_launches = 0
 
 
 class _FusedMLPBatched(torch.autograd.Function):

@@ -54,7 +54,9 @@ from repro_torch import backends
 from repro_torch.core.sampling import batch_coords, n_boundary
 from repro_torch.data.volume import sample_trilinear_batched
 from repro_torch.kernels import build
-from repro_torch.kernels.fused_mlp.ops import KERNEL_WIDTHS
+from repro_torch.kernels.fixed_point import (FX_BOUND, FX_OVER, FX_SHIFT,  # noqa: F401
+                                              FixedPointOverflowError)
+from repro_torch.kernels.fused_mlp.ops import KERNEL_WIDTHS, SMEM_LIMIT
 from repro_torch.kernels.fused_train_step import ref as _ref
 from repro_torch.kernels.hash_encoding.ops import levels_arg
 from repro_torch.optim.adamw import AdamW, OptConfig, bias_corrections
@@ -166,16 +168,8 @@ def validate_sampling_brick(mode) -> None:
 #: the deterministic route's fixed-point table gradient (``csrc/hash_grid.cuh``:
 #: an entry is ``round(value * 2**FX_SHIFT)`` summed in int64; a contribution
 #: must keep ``N * |contribution| <= FX_BOUND``, else the partition's flag
-#: gets ``FX_OVER``; bit 1 marks a NaN or Inf contribution)
-FX_SHIFT = 47
-FX_BOUND = 4096.0
-FX_OVER = 2
-
-
-class FixedPointOverflowError(FloatingPointError):
-    """A table-gradient contribution of the deterministic route left the
-    fixed-point bound (``N * |w * g| > FX_BOUND``): the sum could have
-    wrapped, so the step is refused rather than kept."""
+#: gets ``FX_OVER``; bit 1 marks a NaN or Inf contribution):
+#: :mod:`repro_torch.kernels.fixed_point`, shared with the unfused route
 
 
 def deterministic() -> bool:
@@ -245,6 +239,24 @@ def _grad_buffers(flat_p, device):
     return grads, buf[off:]
 
 
+def step_launch_plan(flat_p, n_hidden: int) -> list:
+    """The train step's launch at these shapes: ``[(kernel, dynamic shared
+    bytes)]``, from ``mlp_tile.cuh``'s ``mlp_pick_tile`` (the largest tile
+    of 128, 64 and 32 rows whose weights, their gradients, the row tiles and
+    a float a row for the loss fit ``SMEM_LIMIT``); the bytes are None when
+    no tile fits."""
+    _, D_in, W = flat_p["win"].shape
+    D_out = flat_p["wout"].shape[-1]
+    odd = lambda n: n | 1
+    n_w = D_in * W + (n_hidden - 1) * W * W + W * D_out
+    for tile in (128, 64, 32):
+        smem = 4 * (2 * n_w + tile * (odd(D_in) + 2 * n_hidden * odd(W)
+                                      + odd(D_out)) + tile)
+        if smem <= SMEM_LIMIT:
+            return [("train_step_kernel", smem)]
+    return [("train_step_kernel", None)]
+
+
 def train_step_cuda(flat_p, n_hidden: int, resolutions: Sequence[int], *,
                     coords=None, target=None, volumes=None, seeds=None,
                     n_batch: int = 0, n_uniform: int = 0, sigma: float = 0.0,
@@ -267,96 +279,98 @@ def train_step_cuda(flat_p, n_hidden: int, resolutions: Sequence[int], *,
     CPU tensors take the plain version (:func:`ref.train_step_grads_ref`,
     drawing the batch with the plain sampler); CUDA tensors launch
     ``repro_train_step`` or raise."""
-    sampling = volumes is not None
-    dev = flat_p["tab"].device
-    if dev.type == "cpu":
+    with build.kernel_region("train_step", flat_p["tab"],
+                             plan=lambda: step_launch_plan(flat_p, n_hidden)):
+        sampling = volumes is not None
+        dev = flat_p["tab"].device
+        if dev.type == "cpu":
+            if sampling:
+                coords = batch_coords(seeds, n_batch, n_uniform, sigma)
+                target = sample_trilinear_batched(volumes, coords, ghost)
+            return _ref.train_step_grads_ref(flat_p, n_hidden, resolutions,
+                                             coords, target,
+                                             cotangent_out=cotangent_out)
+        P, L, T, F = flat_p["tab"].shape
+        _, D_in, W = flat_p["win"].shape
+        D_out = flat_p["wout"].shape[-1]
+        if dev.type != "cuda":
+            raise ValueError("train_step_cuda: the state must lie on a CUDA device")
+        dtype = flat_p["tab"].dtype
+        if dtype not in (torch.float32, torch.bfloat16) or \
+                any(flat_p[k].dtype != dtype for k in STATE_KEYS):
+            raise TypeError("train_step_cuda: the packed params must share one "
+                            "dtype, float32 or bfloat16, got "
+                            f"{[flat_p[k].dtype for k in STATE_KEYS]}")
+        if D_in != L * F or W not in KERNEL_WIDTHS or F not in (1, 2, 4, 8) or \
+                T >= 2**31 or len(resolutions) != L or D_out > 4:
+            raise ValueError(f"unsupported shapes: tab {tuple(flat_p['tab'].shape)}, "
+                             f"win {tuple(flat_p['win'].shape)}, D_out {D_out} "
+                             f"(W in {KERNEL_WIDTHS}, F in 1/2/4/8, D_out <= 4)")
+        state = [flat_p[k].contiguous() for k in STATE_KEYS]
+        if state[0].data_ptr() % 16:
+            raise ValueError("train_step_cuda: the tables must start on a 16-byte "
+                             "boundary (the kernel's vector loads)")
         if sampling:
-            coords = batch_coords(seeds, n_batch, n_uniform, sigma)
-            target = sample_trilinear_batched(volumes, coords, ghost)
-        return _ref.train_step_grads_ref(flat_p, n_hidden, resolutions,
-                                         coords, target,
-                                         cotangent_out=cotangent_out)
-    P, L, T, F = flat_p["tab"].shape
-    _, D_in, W = flat_p["win"].shape
-    D_out = flat_p["wout"].shape[-1]
-    if dev.type != "cuda":
-        raise ValueError("train_step_cuda: the state must lie on a CUDA device")
-    dtype = flat_p["tab"].dtype
-    if dtype not in (torch.float32, torch.bfloat16) or \
-            any(flat_p[k].dtype != dtype for k in STATE_KEYS):
-        raise TypeError("train_step_cuda: the packed params must share one "
-                        "dtype, float32 or bfloat16, got "
-                        f"{[flat_p[k].dtype for k in STATE_KEYS]}")
-    if D_in != L * F or W not in KERNEL_WIDTHS or F not in (1, 2, 4, 8) or \
-            T >= 2**31 or len(resolutions) != L or D_out > 4:
-        raise ValueError(f"unsupported shapes: tab {tuple(flat_p['tab'].shape)}, "
-                         f"win {tuple(flat_p['win'].shape)}, D_out {D_out} "
-                         f"(W in {KERNEL_WIDTHS}, F in 1/2/4/8, D_out <= 4)")
-    state = [flat_p[k].contiguous() for k in STATE_KEYS]
-    if state[0].data_ptr() % 16:
-        raise ValueError("train_step_cuda: the tables must start on a 16-byte "
-                         "boundary (the kernel's vector loads)")
-    if sampling:
-        if volumes.ndim != 5 or volumes.shape[0] != P or \
-                volumes.shape[4] != D_out or tuple(seeds.shape) != (P, 2):
-            raise ValueError(f"volumes (P,nx,ny,nz,{D_out}) and seeds (P,2) "
-                             f"expected, got {tuple(volumes.shape)}, "
-                             f"{tuple(seeds.shape)}")
-        if volumes.dtype != torch.float32:
-            raise TypeError(f"volumes must be float32, got {volumes.dtype}")
-        batch = [None, None, volumes.contiguous(),
-                 seeds.to(device=dev, dtype=torch.int64).contiguous()]
-        N = int(n_batch)
-        nx, ny, nz = (int(d) for d in volumes.shape[1:4])
-    else:
-        N = coords.shape[1]
-        if tuple(coords.shape) != (P, N, 3) or \
-                tuple(target.shape) != (P, N, D_out):
-            raise ValueError(f"coords (P,N,3) and target (P,N,{D_out}) "
-                             f"expected, got {tuple(coords.shape)}, "
-                             f"{tuple(target.shape)}")
-        batch = [coords.float().contiguous(), target.float().contiguous(),
-                 None, None]
-        nx = ny = nz = 0
-    if cotangent_out is not None and (
-            tuple(cotangent_out.shape) != (P, N, L * F) or
-            cotangent_out.dtype != torch.float32 or cotangent_out.device != dev
-            or not cotangent_out.is_contiguous()):
-        raise ValueError(f"cotangent_out must be a contiguous ({P}, {N}, "
-                         f"{L * F}) float32 tensor on {dev}")
-    det = deterministic()
-    res_h = levels_arg(resolutions)
-    ptr = lambda t: None if t is None else t.data_ptr()
-    if det:
-        if N >= 2**40:
-            raise ValueError("the deterministic route's fixed-point bound "
-                             f"needs N < 2^40, got {N}")
-        groups = _step_shape(P, N, L, F, W, n_hidden, D_out, True)[3]
-        n_w = sum(flat_p[k][0].numel() for k in ("win", "wout")) + \
-            (flat_p["whid"][0].numel() if n_hidden > 1 else 0)
-        fx = torch.zeros(P * L * T * F + P, dtype=torch.int64, device=dev)
-        out = DetGrads(torch.empty((P, groups, n_w + 1), dtype=torch.float32,
-                                   device=dev),
-                       fx[:P * L * T * F].view(P, L, T, F), fx[P * L * T * F:])
-        outs = [None] * 5 + [ptr(cotangent_out), out.tab_fx.data_ptr(),
-                             out.partials.data_ptr(), out.flags.data_ptr()]
-    else:
-        grads, loss_sum = _grad_buffers(flat_p, dev)
-        outs = [grads[k].data_ptr() for k in STATE_KEYS] + \
-            [loss_sum.data_ptr(), ptr(cotangent_out), None, None, None]
-    lib = build.library()
-    err = lib.repro_train_step(
-        *(ptr(t) for t in batch), *(t.data_ptr() for t in state), *outs,
-        ctypes.addressof(res_h), P, N, L, T, F, W,
-        n_hidden, flat_p["whid"].shape[1], D_out, nx, ny, nz, int(ghost),
-        int(n_uniform), float(sigma), int(sampling),
-        int(dtype == torch.bfloat16), int(det),
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "repro_train_step")
-    train_step_cuda.launches += 1
-    train_step_cuda.bf16_launches += int(dtype == torch.bfloat16)
-    train_step_cuda.det_launches += int(det)
-    return (out, None) if det else (grads, loss_sum)
+            if volumes.ndim != 5 or volumes.shape[0] != P or \
+                    volumes.shape[4] != D_out or tuple(seeds.shape) != (P, 2):
+                raise ValueError(f"volumes (P,nx,ny,nz,{D_out}) and seeds (P,2) "
+                                 f"expected, got {tuple(volumes.shape)}, "
+                                 f"{tuple(seeds.shape)}")
+            if volumes.dtype != torch.float32:
+                raise TypeError(f"volumes must be float32, got {volumes.dtype}")
+            batch = [None, None, volumes.contiguous(),
+                     seeds.to(device=dev, dtype=torch.int64).contiguous()]
+            N = int(n_batch)
+            nx, ny, nz = (int(d) for d in volumes.shape[1:4])
+        else:
+            N = coords.shape[1]
+            if tuple(coords.shape) != (P, N, 3) or \
+                    tuple(target.shape) != (P, N, D_out):
+                raise ValueError(f"coords (P,N,3) and target (P,N,{D_out}) "
+                                 f"expected, got {tuple(coords.shape)}, "
+                                 f"{tuple(target.shape)}")
+            batch = [coords.float().contiguous(), target.float().contiguous(),
+                     None, None]
+            nx = ny = nz = 0
+        if cotangent_out is not None and (
+                tuple(cotangent_out.shape) != (P, N, L * F) or
+                cotangent_out.dtype != torch.float32 or cotangent_out.device != dev
+                or not cotangent_out.is_contiguous()):
+            raise ValueError(f"cotangent_out must be a contiguous ({P}, {N}, "
+                             f"{L * F}) float32 tensor on {dev}")
+        det = deterministic()
+        res_h = levels_arg(resolutions)
+        ptr = lambda t: None if t is None else t.data_ptr()
+        if det:
+            if N >= 2**40:
+                raise ValueError("the deterministic route's fixed-point bound "
+                                 f"needs N < 2^40, got {N}")
+            groups = _step_shape(P, N, L, F, W, n_hidden, D_out, True)[3]
+            n_w = sum(flat_p[k][0].numel() for k in ("win", "wout")) + \
+                (flat_p["whid"][0].numel() if n_hidden > 1 else 0)
+            fx = torch.zeros(P * L * T * F + P, dtype=torch.int64, device=dev)
+            out = DetGrads(torch.empty((P, groups, n_w + 1), dtype=torch.float32,
+                                       device=dev),
+                           fx[:P * L * T * F].view(P, L, T, F), fx[P * L * T * F:])
+            outs = [None] * 5 + [ptr(cotangent_out), out.tab_fx.data_ptr(),
+                                 out.partials.data_ptr(), out.flags.data_ptr()]
+        else:
+            grads, loss_sum = _grad_buffers(flat_p, dev)
+            outs = [grads[k].data_ptr() for k in STATE_KEYS] + \
+                [loss_sum.data_ptr(), ptr(cotangent_out), None, None, None]
+        lib = build.library()
+        err = lib.repro_train_step(
+            *(ptr(t) for t in batch), *(t.data_ptr() for t in state), *outs,
+            ctypes.addressof(res_h), P, N, L, T, F, W,
+            n_hidden, flat_p["whid"].shape[1], D_out, nx, ny, nz, int(ghost),
+            int(n_uniform), float(sigma), int(sampling),
+            int(dtype == torch.bfloat16), int(det),
+            torch.cuda.current_stream(dev).cuda_stream)
+        build.check(err, "repro_train_step")
+        train_step_cuda.launches += 1
+        train_step_cuda.bf16_launches += int(dtype == torch.bfloat16)
+        train_step_cuda.det_launches += int(det)
+        return (out, None) if det else (grads, loss_sum)
 
 
 #: launches of the kernel, of its bf16 instantiation and of its
@@ -383,61 +397,63 @@ def adamw_apply_cuda(flat_p, flat_m, flat_v, grads, scalars, loss_sum, *,
     CPU tensors take the plain version (:func:`ref.adamw_apply_ref`);
     CUDA tensors launch ``repro_adamw_apply`` (``csrc/adamw.cu``) or
     raise."""
-    dev = flat_p["tab"].device
-    if dev.type == "cpu":
-        _ref.adamw_apply_ref(flat_p, flat_m, flat_v, flat_mw, grads, scalars,
-                             beta1=beta1, beta2=beta2, eps=eps,
-                             weight_decay=weight_decay, n_hidden=n_hidden)
-        return loss_sum / float(n_valid)
-    master = flat_mw is not None
-    det = grads if isinstance(grads, DetGrads) else None
-    p_dtype = torch.bfloat16 if master else torch.float32
-    groups = []
-    for k in STATE_KEYS:
-        # the deterministic route has no float32 gradient: its moments stand in
-        # for the checks
-        ts = (flat_p[k], flat_m[k], flat_v[k],
-              flat_m[k] if det is not None else grads[k]) \
-            + ((flat_mw[k],) if master else ())
-        if any(t.device != dev or not t.is_contiguous() for t in ts) or \
-                ts[0].dtype != p_dtype or \
-                any(t.dtype != torch.float32 for t in ts[1:]):
-            raise TypeError(
-                f"repro_adamw_apply takes contiguous {k} params, moments, "
-                "gradients (and master) on one CUDA device: float32 params "
-                "without a master, or bf16 params with a float32 master; "
-                "moments, gradients and master float32")
-        n = 0 if (k == "whid" and n_hidden == 1) else flat_p[k][0].numel()
-        groups += [t.data_ptr() for t in ts[:3]] \
-            + [None if det is not None else ts[3].data_ptr(),
-               ts[4].data_ptr() if master else None, n]
-    P = flat_p["tab"].shape[0]
-    scalars = scalars.to(device=dev, dtype=torch.float32).contiguous()
-    if tuple(scalars.shape) != (P, 4):
-        raise ValueError(f"scalars must be (P, 4), got {tuple(scalars.shape)}")
-    loss = torch.empty(P, dtype=torch.float32, device=dev)
-    if det is not None:
-        if overflow is not None and (overflow.dtype != torch.int64 or
-                                     tuple(overflow.shape) != (P,) or
-                                     overflow.device != dev):
-            raise ValueError(f"overflow must be a ({P},) int64 tensor on {dev}")
-        det_args = [det.partials.data_ptr(), det.partials.shape[1],
-                    det.partials.shape[2], det.tab_fx.data_ptr(),
-                    det.flags.data_ptr(),
-                    None if overflow is None else overflow.data_ptr()]
-    else:
-        det_args = [None, 0, 0, None, None, None]
-    lib = build.library()
-    err = lib.repro_adamw_apply(
-        *groups, scalars.data_ptr(),
-        None if loss_sum is None else loss_sum.data_ptr(), loss.data_ptr(), P,
-        float(n_valid), beta1, 1.0 - beta1, beta2, 1.0 - beta2, eps,
-        weight_decay, int(master), *det_args,
-        torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "repro_adamw_apply")
-    adamw_apply_cuda.launches += 1
-    adamw_apply_cuda.bf16_launches += int(master)
-    return loss
+    with build.kernel_region("adamw_apply",
+                             plan=lambda: [("adamw_kernel", 0)]):
+        dev = flat_p["tab"].device
+        if dev.type == "cpu":
+            _ref.adamw_apply_ref(flat_p, flat_m, flat_v, flat_mw, grads, scalars,
+                                 beta1=beta1, beta2=beta2, eps=eps,
+                                 weight_decay=weight_decay, n_hidden=n_hidden)
+            return loss_sum / float(n_valid)
+        master = flat_mw is not None
+        det = grads if isinstance(grads, DetGrads) else None
+        p_dtype = torch.bfloat16 if master else torch.float32
+        groups = []
+        for k in STATE_KEYS:
+            # the deterministic route has no float32 gradient: its moments stand in
+            # for the checks
+            ts = (flat_p[k], flat_m[k], flat_v[k],
+                  flat_m[k] if det is not None else grads[k]) \
+                + ((flat_mw[k],) if master else ())
+            if any(t.device != dev or not t.is_contiguous() for t in ts) or \
+                    ts[0].dtype != p_dtype or \
+                    any(t.dtype != torch.float32 for t in ts[1:]):
+                raise TypeError(
+                    f"repro_adamw_apply takes contiguous {k} params, moments, "
+                    "gradients (and master) on one CUDA device: float32 params "
+                    "without a master, or bf16 params with a float32 master; "
+                    "moments, gradients and master float32")
+            n = 0 if (k == "whid" and n_hidden == 1) else flat_p[k][0].numel()
+            groups += [t.data_ptr() for t in ts[:3]] \
+                + [None if det is not None else ts[3].data_ptr(),
+                   ts[4].data_ptr() if master else None, n]
+        P = flat_p["tab"].shape[0]
+        scalars = scalars.to(device=dev, dtype=torch.float32).contiguous()
+        if tuple(scalars.shape) != (P, 4):
+            raise ValueError(f"scalars must be (P, 4), got {tuple(scalars.shape)}")
+        loss = torch.empty(P, dtype=torch.float32, device=dev)
+        if det is not None:
+            if overflow is not None and (overflow.dtype != torch.int64 or
+                                         tuple(overflow.shape) != (P,) or
+                                         overflow.device != dev):
+                raise ValueError(f"overflow must be a ({P},) int64 tensor on {dev}")
+            det_args = [det.partials.data_ptr(), det.partials.shape[1],
+                        det.partials.shape[2], det.tab_fx.data_ptr(),
+                        det.flags.data_ptr(),
+                        None if overflow is None else overflow.data_ptr()]
+        else:
+            det_args = [None, 0, 0, None, None, None]
+        lib = build.library()
+        err = lib.repro_adamw_apply(
+            *groups, scalars.data_ptr(),
+            None if loss_sum is None else loss_sum.data_ptr(), loss.data_ptr(), P,
+            float(n_valid), beta1, 1.0 - beta1, beta2, 1.0 - beta2, eps,
+            weight_decay, int(master), *det_args,
+            torch.cuda.current_stream(dev).cuda_stream)
+        build.check(err, "repro_adamw_apply")
+        adamw_apply_cuda.launches += 1
+        adamw_apply_cuda.bf16_launches += int(master)
+        return loss
 
 
 #: launches of the kernel, and of its master-weight (bf16 policy) variant

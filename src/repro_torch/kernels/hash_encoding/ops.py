@@ -9,7 +9,11 @@ of a render. Both are differentiable in the tables (the coordinates get no
 gradient, as in the JAX package): the backward is the 8-corner scatter-add
 of the feature cotangent, ``index_add_`` in the plain version and the
 scatter of ``repro_hash_encode_bwd`` (``csrc/hash_encode.cu``) on the card,
-routed per level by ``bwd_plan``.
+routed per level by ``bwd_plan``. Under
+``torch.use_deterministic_algorithms(True)`` the backward takes its
+deterministic route (``repro_hash_encode_bwd_fx``: int64 fixed-point sums,
+:mod:`repro_torch.kernels.fixed_point`), whose bits do not depend on the
+order of the adds or on the partitions stacked beside one.
 """
 from __future__ import annotations
 
@@ -20,6 +24,7 @@ import torch
 
 from repro_torch import backends
 from repro_torch.kernels import build
+from repro_torch.kernels import fixed_point as fx
 from repro_torch.kernels.hash_encoding import ref as _ref
 
 
@@ -36,13 +41,34 @@ def level_rows(res: int, T: int) -> int:
     return min((int(res) + 1) ** 3, int(T))
 
 
-def bwd_plan(resolutions: Sequence[int], T: int, F: int) -> list:
+def bwd_plan(resolutions: Sequence[int], T: int, F: int, *,
+             fixed_point: bool = False) -> list:
     """The backward kernel's route per level: True (stage the level's
-    rows x F float32 gradient slab in shared memory, flush it once per
-    block) exactly when the slab fits ``STAGE_BUDGET_BYTES``, else False
-    (each row goes straight to the device gradient as one vector atomic).
-    A level uses (res+1)^3 rows of its table when they fit T, else T."""
-    return [level_rows(r, T) * F * 4 <= STAGE_BUDGET_BYTES for r in resolutions]
+    rows x F gradient slab in shared memory, flush it once per block)
+    exactly when the slab fits ``STAGE_BUDGET_BYTES``, else False (each row
+    goes straight to the device gradient: one vector atomic, or F 64-bit
+    ones). The slab's entries are float32, or int64 on the deterministic
+    route (``fixed_point``). A level uses (res+1)^3 rows of its table when
+    they fit T, else T."""
+    item = 8 if fixed_point else 4
+    return [level_rows(r, T) * F * item <= STAGE_BUDGET_BYTES for r in resolutions]
+
+
+def bwd_launch_plan(resolutions: Sequence[int], table_shape) -> list:
+    """The backward's launches at these shapes, as ``(kernel, dynamic
+    shared bytes)``: the per-level kernel with its largest staged slab
+    (``bwd_plan``; on the deterministic route the int64 slabs of
+    ``bwd_plan(..., fixed_point=True)``, then the conversion)."""
+    _, _, T, F = (int(d) for d in table_shape)
+    det = torch.are_deterministic_algorithms_enabled()
+    item = 8 if det else 4
+    slabs = [level_rows(r, T) * F * item for r, staged in
+             zip(resolutions, bwd_plan(resolutions, T, F, fixed_point=det))
+             if staged]
+    if det:
+        return [("hash_encode_bwd_fx_kernel", max(slabs, default=0)),
+                ("fx_to_float_kernel", 0)]
+    return [("hash_encode_bwd_kernel", max(slabs, default=0))]
 
 
 def levels_arg(resolutions: Sequence[int]):
@@ -68,42 +94,44 @@ def hash_encode_cuda(coords: torch.Tensor, tables: torch.Tensor,
     CPU tensors take the plain version; CUDA tensors launch
     ``repro_hash_encode_fwd`` (``csrc/hash_encode.cu``: one (point, level)
     pair per thread, each corner row one vector load) or raise."""
-    B, N, three = coords.shape
-    P, L, T, F = tables.shape
-    if three != 3:
-        raise ValueError(f"coords must be (B,N,3), got {tuple(coords.shape)}")
-    if len(resolutions) != L:
-        raise ValueError(f"{len(resolutions)} resolutions for {L} levels")
-    if coords.device.type == "cpu":
-        return _ref.hash_encode_batched_ref(coords, tables, resolutions,
-                                            torch.as_tensor(part))
-    if coords.device.type != "cuda" or tables.device != coords.device:
-        raise ValueError("hash_encode_cuda: coords and tables must lie on one "
-                         "CUDA device")
-    if coords.dtype != torch.float32:
-        raise TypeError(f"coords must be float32, got {coords.dtype}")
-    if tables.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"tables must be float32 or bfloat16, got {tables.dtype}")
-    if F not in (1, 2, 4, 8) or T >= 2**32 or B > 65535:
-        raise ValueError(f"unsupported shape: F={F} (1, 2, 4 or 8), T={T} "
-                         f"(< 2^32), B={B} (<= 65535)")
-    coords = coords.contiguous()
-    tables = tables.contiguous()
-    if tables.data_ptr() % 16:
-        raise ValueError("hash_encode_cuda: the tables must start on a "
-                         "16-byte boundary (the kernel's vector loads)")
-    part_d = build.part_tensor(part, B, P, coords.device)
-    res_d = _res_tensor(resolutions, coords.device)
-    out = torch.empty((B, N, L * F), dtype=tables.dtype, device=coords.device)
-    lib = build.library()
-    err = lib.repro_hash_encode_fwd(
-        coords.data_ptr(), tables.data_ptr(), res_d.data_ptr(),
-        part_d.data_ptr(), out.data_ptr(), B, N, L, T, F,
-        int(tables.dtype == torch.bfloat16),
-        torch.cuda.current_stream(coords.device).cuda_stream)
-    build.check(err, "repro_hash_encode_fwd")
-    hash_encode_cuda.launches += 1
-    return out
+    with build.kernel_region("hash_encode", tables,
+                             plan=lambda: [("hash_encode_fwd_kernel", 0)]):
+        B, N, three = coords.shape
+        P, L, T, F = tables.shape
+        if three != 3:
+            raise ValueError(f"coords must be (B,N,3), got {tuple(coords.shape)}")
+        if len(resolutions) != L:
+            raise ValueError(f"{len(resolutions)} resolutions for {L} levels")
+        if coords.device.type == "cpu":
+            return _ref.hash_encode_batched_ref(coords, tables, resolutions,
+                                                torch.as_tensor(part))
+        if coords.device.type != "cuda" or tables.device != coords.device:
+            raise ValueError("hash_encode_cuda: coords and tables must lie on one "
+                             "CUDA device")
+        if coords.dtype != torch.float32:
+            raise TypeError(f"coords must be float32, got {coords.dtype}")
+        if tables.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"tables must be float32 or bfloat16, got {tables.dtype}")
+        if F not in (1, 2, 4, 8) or T >= 2**32 or B > 65535:
+            raise ValueError(f"unsupported shape: F={F} (1, 2, 4 or 8), T={T} "
+                             f"(< 2^32), B={B} (<= 65535)")
+        coords = coords.contiguous()
+        tables = tables.contiguous()
+        if tables.data_ptr() % 16:
+            raise ValueError("hash_encode_cuda: the tables must start on a "
+                             "16-byte boundary (the kernel's vector loads)")
+        part_d = build.part_tensor(part, B, P, coords.device)
+        res_d = _res_tensor(resolutions, coords.device)
+        out = torch.empty((B, N, L * F), dtype=tables.dtype, device=coords.device)
+        lib = build.library()
+        err = lib.repro_hash_encode_fwd(
+            coords.data_ptr(), tables.data_ptr(), res_d.data_ptr(),
+            part_d.data_ptr(), out.data_ptr(), B, N, L, T, F,
+            int(tables.dtype == torch.bfloat16),
+            torch.cuda.current_stream(coords.device).cuda_stream)
+        build.check(err, "repro_hash_encode_fwd")
+        hash_encode_cuda.launches += 1
+        return out
 
 
 hash_encode_cuda.launches = 0
@@ -121,54 +149,100 @@ def hash_encode_bwd_cuda(g: torch.Tensor, coords: torch.Tensor,
     ``repro_hash_encode_bwd`` (``csrc/hash_encode.cu``: one launch per
     level, same-row lanes summed per warp, then shared-memory staging or
     vector atomics into a zeroed f32 gradient as ``bwd_plan`` says; a bf16
-    ``g`` read as one vector per (row, level) and widened) or raise (also
-    under ``torch.use_deterministic_algorithms(True)``: its atomics);
-    ``launches`` counts the L kernel launches of each call."""
-    B, N, three = coords.shape
-    P, L, T, F = (int(d) for d in table_shape)
-    if three != 3 or tuple(g.shape) != (B, N, L * F):
-        raise ValueError(f"coords (B,N,3) and g (B,N,L*F) expected, got "
-                         f"{tuple(coords.shape)} and {tuple(g.shape)}")
-    if len(resolutions) != L:
-        raise ValueError(f"{len(resolutions)} resolutions for {L} levels")
-    if coords.device.type == "cpu":
-        return _ref.hash_encode_batched_bwd_ref(g, coords, resolutions,
-                                                torch.as_tensor(part),
-                                                (P, L, T, F))
-    build.refuse_nondeterministic("hash_encode_bwd_cuda")
-    if coords.device.type != "cuda" or g.device != coords.device:
-        raise ValueError("hash_encode_bwd_cuda: g and coords must lie on one "
-                         "CUDA device")
-    if g.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"g must be float32 or bfloat16, got {g.dtype}")
-    if coords.dtype != torch.float32:
-        raise TypeError(f"coords must be float32, got {coords.dtype}")
-    if F not in (1, 2, 4, 8) or T >= 2**32 or B > 65535:
-        raise ValueError(f"unsupported shape: F={F} (1, 2, 4 or 8), T={T} "
-                         f"(< 2^32), B={B} (<= 65535)")
-    g = g.contiguous()
-    if g.dtype == torch.bfloat16 and g.data_ptr() % 16:
-        raise ValueError("hash_encode_bwd_cuda: a bf16 g must start on a "
-                         "16-byte boundary (the kernel's vector loads)")
-    coords = coords.contiguous()
-    part_d = build.part_tensor(part, B, P, coords.device)
-    res_h = (ctypes.c_int * L)(*(int(r) for r in resolutions))
-    staged_h = (ctypes.c_int * L)(*bwd_plan(resolutions, T, F))
-    grad = torch.zeros((P, L, T, F), dtype=torch.float32, device=g.device)
-    lib = build.library()
-    err = lib.repro_hash_encode_bwd(
+    ``g`` read as one vector per (row, level) and widened) or raise;
+    ``launches`` counts the L kernel launches of each call.
+
+    Under ``torch.use_deterministic_algorithms(True)`` both take the
+    deterministic route: the plain version
+    :func:`ref.hash_encode_batched_bwd_fx_ref` on the CPU, and on the card
+    ``repro_hash_encode_bwd_fx`` (the adds as int64 fixed point, staged
+    per level as ``bwd_plan(..., fixed_point=True)`` says, then one
+    conversion launch; counted in
+    ``det_launches`` too). A partition whose contribution leaves the bound
+    raises :class:`~repro_torch.kernels.fixed_point.FixedPointOverflowError`
+    (one host read of the flags a call)."""
+    with build.kernel_region("hash_encode_bwd", g, plan=lambda: bwd_launch_plan(
+            resolutions, table_shape)):
+        B, N, three = coords.shape
+        P, L, T, F = (int(d) for d in table_shape)
+        if three != 3 or tuple(g.shape) != (B, N, L * F):
+            raise ValueError(f"coords (B,N,3) and g (B,N,L*F) expected, got "
+                             f"{tuple(coords.shape)} and {tuple(g.shape)}")
+        if len(resolutions) != L:
+            raise ValueError(f"{len(resolutions)} resolutions for {L} levels")
+        det = torch.are_deterministic_algorithms_enabled()
+        if coords.device.type == "cpu":
+            if det:
+                sums, flags = _ref.hash_encode_batched_bwd_fx_ref(
+                    g, coords, resolutions, torch.as_tensor(part), (P, L, T, F))
+                fx.raise_on_overflow(flags, "hash_encode_bwd_cuda")
+                return _ref.fx_to_float(sums, flags)
+            return _ref.hash_encode_batched_bwd_ref(g, coords, resolutions,
+                                                    torch.as_tensor(part),
+                                                    (P, L, T, F))
+        if coords.device.type != "cuda" or g.device != coords.device:
+            raise ValueError("hash_encode_bwd_cuda: g and coords must lie on one "
+                             "CUDA device")
+        if g.dtype not in (torch.float32, torch.bfloat16):
+            raise TypeError(f"g must be float32 or bfloat16, got {g.dtype}")
+        if coords.dtype != torch.float32:
+            raise TypeError(f"coords must be float32, got {coords.dtype}")
+        if F not in (1, 2, 4, 8) or T >= 2**32 or B > 65535:
+            raise ValueError(f"unsupported shape: F={F} (1, 2, 4 or 8), T={T} "
+                             f"(< 2^32), B={B} (<= 65535)")
+        g = g.contiguous()
+        if g.dtype == torch.bfloat16 and g.data_ptr() % 16:
+            raise ValueError("hash_encode_bwd_cuda: a bf16 g must start on a "
+                             "16-byte boundary (the kernel's vector loads)")
+        coords = coords.contiguous()
+        part_d = build.part_tensor(part, B, P, coords.device)
+        res_h = (ctypes.c_int * L)(*(int(r) for r in resolutions))
+        lib = build.library()
+        if det:
+            return _bwd_fx(lib, g, coords, res_h, part, part_d, B, N, P, L, T, F)
+        staged_h = (ctypes.c_int * L)(*bwd_plan(resolutions, T, F))
+        grad = torch.zeros((P, L, T, F), dtype=torch.float32, device=g.device)
+        err = lib.repro_hash_encode_bwd(
+            g.data_ptr(), coords.data_ptr(), ctypes.addressof(res_h),
+            ctypes.addressof(staged_h), part_d.data_ptr(),
+            grad.data_ptr(), B, N, L, T, F, int(g.dtype == torch.bfloat16),
+            torch.cuda.current_stream(coords.device).cuda_stream)
+        build.check(err, "repro_hash_encode_bwd")
+        hash_encode_bwd_cuda.launches += L   # one kernel launch per level
+        hash_encode_bwd_cuda.bf16_launches += L * (g.dtype == torch.bfloat16)
+        return grad
+
+
+def _bwd_fx(lib, g, coords, res_h, part, part_d, B, N, P, L, T, F):
+    """The deterministic route's launch (see :func:`hash_encode_bwd_cuda`)."""
+    rows = max(int(torch.bincount(torch.as_tensor(part, dtype=torch.int64)
+                                  .reshape(-1).cpu(), minlength=P).max()), 1)
+    if N * rows >= 2**40:
+        raise ValueError("the deterministic route's fixed-point bound needs "
+                         f"N times a partition's rows < 2^40, got {N * rows}")
+    buf = torch.zeros(P * L * T * F + P, dtype=torch.int64, device=g.device)
+    sums, flags = buf[:P * L * T * F], buf[P * L * T * F:]
+    grad = torch.empty((P, L, T, F), dtype=torch.float32, device=g.device)
+    staged_h = (ctypes.c_int * L)(*bwd_plan(list(res_h), T, F, fixed_point=True))
+    err = lib.repro_hash_encode_bwd_fx(
         g.data_ptr(), coords.data_ptr(), ctypes.addressof(res_h),
-        ctypes.addressof(staged_h), part_d.data_ptr(),
-        grad.data_ptr(), B, N, L, T, F, int(g.dtype == torch.bfloat16),
+        ctypes.addressof(staged_h), part_d.data_ptr(), sums.data_ptr(),
+        flags.data_ptr(), grad.data_ptr(),
+        B, N, L, P, T, F, fx.FX_BOUND / (N * rows),
+        int(g.dtype == torch.bfloat16),
         torch.cuda.current_stream(coords.device).cuda_stream)
-    build.check(err, "repro_hash_encode_bwd")
-    hash_encode_bwd_cuda.launches += L   # one kernel launch per level
+    build.check(err, "repro_hash_encode_bwd_fx")
+    hash_encode_bwd_cuda.launches += L
     hash_encode_bwd_cuda.bf16_launches += L * (g.dtype == torch.bfloat16)
+    hash_encode_bwd_cuda.det_launches += L
+    fx.raise_on_overflow(flags, "hash_encode_bwd_cuda")
     return grad
 
 
-#: launches of the kernel, and of its bf16-cotangent instantiation among them
+#: launches of the kernel, of its bf16-cotangent instantiation and of its
+#: deterministic route among them
 hash_encode_bwd_cuda.launches = hash_encode_bwd_cuda.bf16_launches = 0
+hash_encode_bwd_cuda.det_launches = 0
 
 
 class _HashEncodeBatched(torch.autograd.Function):

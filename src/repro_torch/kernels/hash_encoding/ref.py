@@ -119,3 +119,62 @@ def hash_encode_batched_bwd_ref(g: torch.Tensor, coords: torch.Tensor,
                     ww = _corner_weight(w, dx, dy, dz).to(g.dtype)
                     gt.index_add_(0, idx, ww[:, None] * gl[:, l])
     return gt.reshape(P, L, T, F)
+
+
+def hash_encode_batched_bwd_fx_ref(g: torch.Tensor, coords: torch.Tensor,
+                                   resolutions, part: torch.Tensor,
+                                   table_shape):
+    """The plain version of the backward's deterministic route
+    (``repro_hash_encode_bwd_fx``): every contribution ``w * g`` (float32)
+    rounded once to a multiple of ``2**-FX_SHIFT`` and summed in int64
+    (the kernel first sums same-row lanes of a warp, then rounds: the two
+    agree within a quantum an add). Returns ``(fx (P,L,T,F) int64, flags
+    (P,) int64)``: a partition gets ``FX_OVER`` for a contribution above
+    ``FX_BOUND / M`` (M: its points, N times its rows in ``part``) and
+    ``FX_NONFINITE`` for a NaN or Inf one."""
+    from repro_torch.kernels import fixed_point as fx
+
+    B, N, _ = coords.shape
+    P, L, T, F = table_shape
+    part = part.to(device=coords.device, dtype=torch.int64).reshape(-1)
+    g = g.float()
+    x = coords.reshape(B * N, 3)
+    gl = g.reshape(B * N, L, F)
+    rows = torch.bincount(part, minlength=P)
+    vmax = torch.tensor(fx.FX_BOUND / (N * max(int(rows.max()), 1)),
+                        dtype=torch.float32)
+    point_part = part.repeat_interleave(N)
+    base = point_part * (L * T)
+    acc = torch.zeros((P * L * T, F), dtype=torch.int64, device=g.device)
+    over = torch.zeros(P, dtype=torch.int64, device=g.device)
+    nonfinite = torch.zeros_like(over)
+    for l in range(L):
+        res = int(resolutions[l])
+        lo, w = _level_corners(x, res)
+        for dx in (0, 1):
+            for dy in (0, 1):
+                for dz in (0, 1):
+                    corner = lo + torch.tensor([dx, dy, dz], device=lo.device)
+                    idx = corner_indices(corner, res, T) + base + l * T
+                    v = _corner_weight(w, dx, dy, dz)[:, None] * gl[:, l]
+                    m = v.abs()
+                    fin = torch.isfinite(m)
+                    over.scatter_reduce_(0, point_part, ((m > vmax) & fin)
+                                         .any(1).long(), reduce="amax")
+                    nonfinite.scatter_reduce_(0, point_part, (~fin).any(1).long(),
+                                              reduce="amax")
+                    q = torch.round(torch.nan_to_num(v) * 2.0 ** fx.FX_SHIFT) \
+                        .to(torch.int64)
+                    acc.index_add_(0, idx, q)
+    return (acc.reshape(P, L, T, F),
+            over * fx.FX_OVER | nonfinite * fx.FX_NONFINITE)
+
+
+def fx_to_float(fx_sums: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
+    """The route's conversion: each int64 entry times ``2**-FX_SHIFT`` in
+    float64, rounded once to float32; NaN for a flagged partition."""
+    from repro_torch.kernels.fixed_point import FX_SHIFT
+
+    out = (fx_sums.double() * 2.0 ** -FX_SHIFT).float()
+    bad = (flags != 0).reshape((-1,) + (1,) * (out.ndim - 1))
+    return torch.where(bad, torch.full_like(out, float("nan")), out)

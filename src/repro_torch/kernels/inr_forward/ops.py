@@ -11,7 +11,7 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.fused_mlp.ops import (KERNEL_WIDTHS, MAX_OUT,
                                               SMEM_LIMIT, _stack,
-                                              mma_smem_bytes)
+                                              fwd_smem_bytes, mma_smem_bytes)
 from repro_torch.kernels.hash_encoding.ops import MAX_LEVELS, _res_tensor
 from repro_torch.kernels.inr_forward import ref as _ref
 from repro_torch.precision import torch_dtype
@@ -64,6 +64,16 @@ def refusal(coords, tables, weights, compute_dtype=None) -> Optional[tuple]:
     return None
 
 
+def launch_plan(tables, weights, compute_dtype=None) -> list:
+    """The kernel's launch at these shapes: ``[(kernel, dynamic shared
+    bytes)]`` (the weights, the resolutions and one 32-row tile a warp)."""
+    _, L, _, F = tables.shape
+    return [("inr_forward_kernel", fwd_smem_bytes(
+        L * F, weights[0].shape[-1], len(weights) - 1,
+        _dtype(tables, compute_dtype).itemsize, extra=4 * MAX_LEVELS,
+        tiles_per_warp=1))]
+
+
 def inr_forward_cuda(coords: torch.Tensor, tables: torch.Tensor, weights, part,
                      resolutions: Sequence[int], compute_dtype=None) -> torch.Tensor:
     """coords (B,N,3) f32, tables (P,L,T,F), partition-stacked MLP weights,
@@ -75,41 +85,44 @@ def inr_forward_cuda(coords: torch.Tensor, tables: torch.Tensor, weights, part,
     point into a shared-memory tile, the warp runs the tile through the MLP
     on the tensor cores) or raise. Tables and weights are cast to the
     compute dtype first, as the two-kernel route casts them."""
-    bad = refusal(coords, tables, weights, compute_dtype)
-    if bad is not None:
-        raise bad[0](f"inr_forward_cuda: {bad[1]}")
-    if len(resolutions) != tables.shape[1]:
-        raise ValueError(f"{len(resolutions)} resolutions for {tables.shape[1]} "
-                         f"levels")
-    if coords.device.type == "cpu":
-        return _ref.inr_forward_ref(coords, tables, weights, part, resolutions,
-                                    compute_dtype)
-    if coords.device.type != "cuda" or tables.device != coords.device or \
-            any(w.device != coords.device for w in weights):
-        raise ValueError("inr_forward_cuda: coords, tables and weights must lie "
-                         "on one CUDA device")
-    dt = _dtype(tables, compute_dtype)
-    B, N, _ = coords.shape
-    P, L, T, F = tables.shape
-    w_in, w_hid, w_out, n_hidden = _stack([w.to(dt) for w in weights])
-    coords, tables, w_in, w_hid, w_out = (
-        t.contiguous() for t in (coords, tables.to(dt), w_in, w_hid, w_out))
-    if tables.data_ptr() % 16:   # the corner gathers' vector loads
-        tables = tables.clone()
-    part_d = build.part_tensor(part, B, P, coords.device)
-    res_d = _res_tensor(resolutions, coords.device)
-    out = torch.empty((B, N, w_out.shape[-1]), dtype=dt, device=coords.device)
-    lib = build.library()
-    err = lib.repro_inr_forward(
-        coords.data_ptr(), tables.data_ptr(), res_d.data_ptr(), part_d.data_ptr(),
-        w_in.data_ptr(), w_hid.data_ptr(), w_out.data_ptr(), out.data_ptr(),
-        B, N, L, T, F, w_in.shape[-1], n_hidden, w_hid.shape[1],
-        w_out.shape[-1], int(dt == torch.bfloat16),
-        torch.cuda.current_stream(coords.device).cuda_stream)
-    build.check(err, "repro_inr_forward")
-    inr_forward_cuda.launches += 1
-    inr_forward_cuda.bf16_launches += int(dt == torch.bfloat16)
-    return out
+    with build.kernel_region("inr_forward", _dtype(tables, compute_dtype),
+                             plan=lambda: launch_plan(tables, weights,
+                                                      compute_dtype)):
+        bad = refusal(coords, tables, weights, compute_dtype)
+        if bad is not None:
+            raise bad[0](f"inr_forward_cuda: {bad[1]}")
+        if len(resolutions) != tables.shape[1]:
+            raise ValueError(f"{len(resolutions)} resolutions for {tables.shape[1]} "
+                             f"levels")
+        if coords.device.type == "cpu":
+            return _ref.inr_forward_ref(coords, tables, weights, part, resolutions,
+                                        compute_dtype)
+        if coords.device.type != "cuda" or tables.device != coords.device or \
+                any(w.device != coords.device for w in weights):
+            raise ValueError("inr_forward_cuda: coords, tables and weights must lie "
+                             "on one CUDA device")
+        dt = _dtype(tables, compute_dtype)
+        B, N, _ = coords.shape
+        P, L, T, F = tables.shape
+        w_in, w_hid, w_out, n_hidden = _stack([w.to(dt) for w in weights])
+        coords, tables, w_in, w_hid, w_out = (
+            t.contiguous() for t in (coords, tables.to(dt), w_in, w_hid, w_out))
+        if tables.data_ptr() % 16:   # the corner gathers' vector loads
+            tables = tables.clone()
+        part_d = build.part_tensor(part, B, P, coords.device)
+        res_d = _res_tensor(resolutions, coords.device)
+        out = torch.empty((B, N, w_out.shape[-1]), dtype=dt, device=coords.device)
+        lib = build.library()
+        err = lib.repro_inr_forward(
+            coords.data_ptr(), tables.data_ptr(), res_d.data_ptr(), part_d.data_ptr(),
+            w_in.data_ptr(), w_hid.data_ptr(), w_out.data_ptr(), out.data_ptr(),
+            B, N, L, T, F, w_in.shape[-1], n_hidden, w_hid.shape[1],
+            w_out.shape[-1], int(dt == torch.bfloat16),
+            torch.cuda.current_stream(coords.device).cuda_stream)
+        build.check(err, "repro_inr_forward")
+        inr_forward_cuda.launches += 1
+        inr_forward_cuda.bf16_launches += int(dt == torch.bfloat16)
+        return out
 
 
 #: launches of the kernel, and of its bf16 instantiation among them

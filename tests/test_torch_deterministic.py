@@ -1,10 +1,13 @@
-"""The host side of the fused train step's deterministic route (ROADMAP C1;
-the route itself is a CUDA kernel, held on the card by ``chip_smoke.py``):
+"""The host side of the deterministic routes (ROADMAP C1; the routes
+themselves are CUDA kernels, held on the card by ``chip_smoke.py``):
 
 - PyTorch's own switch, ``torch.use_deterministic_algorithms(True)``,
-  selects it, and only for the fused step on a CUDA device;
-- the unfused path's kernels, whose sums stay float atomics, raise under
-  the switch, as PyTorch's own non-deterministic CUDA operations do;
+  selects the fused step's route, and only on a CUDA device;
+- the unfused path's backward kernels have routes of their own and no
+  longer refuse the switch; the MLP backward's clocked measurement launch,
+  which keeps float atomics, does;
+- the unfused route's plain version (the hash backward's int64 fixed-point
+  sum and its conversion) against a float64 sum, and its overflow guard;
 - the fixed-point scale: the bound it requires of a contribution
   (``N |w g| <= FX_BOUND``) against the plain version's largest feature
   cotangent at PRODUCTION256's widths, at init and after training; and the
@@ -21,12 +24,16 @@ from repro_torch.core.sampling import batch_coords, step_seeds
 from repro_torch.core.trainer import DVNRTrainer, init_params
 from repro_torch.data.volume import make_partition, sample_trilinear_batched
 from repro_torch.kernels import build
-from repro_torch.kernels.fused_mlp.ops import fused_mlp_bwd_cuda
+from repro_torch.kernels import fixed_point as fxp
+from repro_torch.kernels.fused_mlp.ops import (fused_mlp_bwd_cuda,
+                                               fused_mlp_bwd_stage_cycles)
 from repro_torch.kernels.fused_train_step import ops as fts
 from repro_torch.kernels.fused_train_step import ref as fref
 from repro_torch.kernels.hash_encoding.ops import hash_encode_bwd_cuda
 from repro_torch.kernels.hash_encoding.ref import (_corner_weight, _level_corners,
                                                    corner_indices,
+                                                   fx_to_float,
+                                                   hash_encode_batched_bwd_fx_ref,
                                                    hash_encode_batched_bwd_ref)
 from repro_torch.optim.adamw import tree_leaves
 
@@ -57,14 +64,19 @@ def test_switch_selects_the_route(deterministic):
 
 
 def test_unfused_kernels_raise_under_the_switch(deterministic):
+    """Under the switch the unfused backwards take their deterministic
+    routes: on tensors of no CUDA device they raise the device error, not a
+    refusal of the switch. Only a launch without a route refuses it."""
     meta = torch.device("meta")
     g = torch.zeros((1, 8, 4), device=meta)
     coords = torch.zeros((1, 8, 3), device=meta)
-    with pytest.raises(RuntimeError, match="deterministic"):
+    with pytest.raises(ValueError, match="CUDA device"):
         hash_encode_bwd_cuda(g, coords, [4, 8], [0], (1, 2, 64, 2))
     ws = [torch.zeros((1, 4, 16), device=meta), torch.zeros((1, 16, 1), device=meta)]
-    with pytest.raises(RuntimeError, match="deterministic"):
+    with pytest.raises(ValueError, match="CUDA device"):
         fused_mlp_bwd_cuda(g, ws, torch.zeros((1, 8, 1), device=meta), [0])
+    with pytest.raises(RuntimeError, match="deterministic"):
+        fused_mlp_bwd_stage_cycles(g, ws, torch.zeros((1, 8, 1), device=meta), [0])
     with pytest.raises(RuntimeError, match="deterministic"):
         build.refuse_nondeterministic("a kernel")
     torch.use_deterministic_algorithms(False)
@@ -181,3 +193,91 @@ def test_det_grads_to_float_reads_the_buffers():
     for i in range(groups):
         wout = wout + a[:, i, 64:80]
     assert torch.equal(g1["wout"], torch.from_numpy(wout).reshape(P, 16, 1))
+
+
+def _exact_table_grad(g, coords, res, part, shape):
+    """The float64 sum of every corner contribution (each the float32
+    product the kernel forms), and the number of adds an entry took."""
+    B, N, _ = coords.shape
+    P, L, T, F = shape
+    x, gl = coords.reshape(B * N, 3), g.float().reshape(B * N, L, F)
+    base = torch.as_tensor(part).repeat_interleave(N) * (L * T)
+    exact = torch.zeros((P * L * T, F), dtype=torch.float64)
+    adds = torch.zeros(P * L * T, dtype=torch.int64)
+    for l, r in enumerate(res):
+        lo, w = _level_corners(x, int(r))
+        for c in range(8):
+            dx, dy, dz = (c >> 2) & 1, (c >> 1) & 1, c & 1
+            idx = corner_indices(lo + torch.tensor([dx, dy, dz]), int(r), T) + base + l * T
+            v = _corner_weight(w, dx, dy, dz)[:, None] * gl[:, l]
+            exact.index_add_(0, idx, v.double())
+            adds.index_add_(0, idx, torch.ones_like(idx))
+    return exact.reshape(P, L, T, F), adds.reshape(P, L, T, 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unfused_fixed_point_sum_against_float64(dtype):
+    """The plain version of the unfused route (int64 fixed point, then the
+    conversion) against the float64 sum of the same float32 contributions:
+    within one 2^-47 quantum an add before the conversion, and the float32
+    conversion within half an ulp of that. Rows of one partition in two
+    batch rows (permuted part) add up as one."""
+    cfg = dvnr.SMOKE.replace(n_levels=3, log2_hashmap_size=9)
+    L, F, T = cfg.n_levels, cfg.n_features_per_level, cfg.table_size
+    res = cfg.level_resolutions()
+    rng = np.random.default_rng(7)
+    B, N, P = 3, 2048, 2
+    part = torch.tensor([1, 0, 1])
+    coords = torch.from_numpy(rng.uniform(0, 1, (B, N, 3)).astype(np.float32))
+    g = torch.from_numpy((rng.standard_normal((B, N, L * F)) / (N * 4))
+                         .astype(np.float32)).to(dtype)
+    sums, flags = hash_encode_batched_bwd_fx_ref(g, coords, res, part, (P, L, T, F))
+    assert sums.dtype == torch.int64 and not flags.any()
+    exact, adds = _exact_table_grad(g, coords, res, part, (P, L, T, F))
+    fixed = sums.double() * 2.0 ** -fxp.FX_SHIFT
+    quanta = ((fixed - exact).abs() / 2.0 ** -fxp.FX_SHIFT)
+    assert bool((quanta <= adds).all()), float((quanta - adds).max())
+    got = fx_to_float(sums, flags)
+    assert torch.equal(got, fixed.float())
+    # the wrapper on the CPU under the switch is this plain version
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        wrapped = hash_encode_bwd_cuda(g, coords, res, part, (P, L, T, F))
+    finally:
+        torch.use_deterministic_algorithms(before)
+    assert torch.equal(wrapped, got)
+
+
+def test_unfused_fixed_point_guard_raises():
+    """A contribution past FX_BOUND / M (M: the partition's points) flags
+    FX_OVER on its partition only, and the wrapper raises; a NaN one flags
+    FX_NONFINITE and its partition's gradient is NaN."""
+    cfg = dvnr.SMOKE.replace(n_levels=2, log2_hashmap_size=8)
+    L, F, T = cfg.n_levels, cfg.n_features_per_level, cfg.table_size
+    res = cfg.level_resolutions()
+    N, P = 256, 2
+    coords = torch.full((P, N, 3), 0.5)
+    g = torch.full((P, N, L * F), 1e-4)
+    limit = fxp.FX_BOUND / N
+    g[1, 3, 0] = 0.5 * limit           # a corner weight is at most 1
+    _, flags = hash_encode_batched_bwd_fx_ref(g, coords, res, torch.arange(P),
+                                              (P, L, T, F))
+    assert flags.tolist() == [0, 0]
+    g[1, 3, 0] = 16.0 * limit          # 0.5 lies on a vertex of a level: weight 1
+    _, flags = hash_encode_batched_bwd_fx_ref(g, coords, res, torch.arange(P),
+                                              (P, L, T, F))
+    assert flags.tolist() == [0, fxp.FX_OVER]
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        with pytest.raises(fxp.FixedPointOverflowError, match=r"partitions \[1\]"):
+            hash_encode_bwd_cuda(g, coords, res, torch.arange(P), (P, L, T, F))
+    finally:
+        torch.use_deterministic_algorithms(before)
+    g[1, 3, 0] = float("nan")
+    sums, flags = hash_encode_batched_bwd_fx_ref(g, coords, res, torch.arange(P),
+                                                 (P, L, T, F))
+    assert flags.tolist() == [0, fxp.FX_NONFINITE]
+    out = fx_to_float(sums, flags)
+    assert torch.isnan(out[1]).all() and torch.isfinite(out[0]).all()

@@ -11,6 +11,7 @@ another order than XLA's); the quickstart's PSNR within 0.1 dB."""
 import os
 import subprocess
 import sys
+import warnings
 from pathlib import Path
 
 import jax
@@ -204,8 +205,15 @@ def test_unported_options_raise():
     # a mesh is ported (test_torch_distributed.py); it must be the port's
     with pytest.raises(TypeError, match="Mesh"):
         ttr.DVNRTrainer(CFG, P, mesh=object(), impl="ref", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        ttr.DVNRTrainer(CFG.replace(static_checks="warn"), P, impl="ref",
+    # the static checks are ported (test_torch_analysis.py): a clean config
+    # builds under "warn" with no warning, and only the three modes exist
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        tr = ttr.DVNRTrainer(CFG.replace(static_checks="warn"), P, impl="ref",
+                             device="cpu")
+    assert tr.run_static_checks(strict=True).passed
+    with pytest.raises(ValueError, match="static_checks"):
+        ttr.DVNRTrainer(CFG.replace(static_checks="strict"), P, impl="ref",
                         device="cpu")
     _, tparts = _parts((6, 6, 6))
     # the recovery ladder is ported; it acts on the non-finite detector
