@@ -162,6 +162,34 @@ toolkit; imports nothing of JAX or of the JAX package. Phases:
 11. examples ``examples/quickstart_torch.py`` and
            ``examples/insitu_reactive_torch.py`` at a cut depth
            (``examples_phase``).
+12. families the MoE, SSM, hybrid and encoder-decoder models at published
+           width (``families_phase``): grok-1 (4 of 64 layers, bf16
+           params), arctic (2 of 35, bf16), mamba2 (48 layers), zamba2 (38)
+           and seamless (24 + 24), params from a seed on the card, each
+           serving 2 x 4,096 uniform prompt tokens (seamless: N(0,1) source
+           frames and a first target token) and 32 greedy decode steps
+           through ``build_model(cfg).prefill / decode_step`` (``impl`` and
+           ``device`` at ``"auto"``), the flash counter zeroed just before
+           each: 4, 2, 0, 6 and 24 launches in the prefill, none in a decode
+           step. Checks: the kernel path against the plain path at the
+           model's dtypes on the real vocabulary (cosine >= 0.999, every
+           logit finite; MoE: the routed experts layer by layer, a flip
+           only within twice the router probabilities' departure of a tie;
+           where the SSD scan runs in bf16, ROADMAP §C8, the kernel path
+           no further from the f32 computation of the same params than
+           1.5x the plain path, and the two f32 paths within 1e-4 of the
+           largest logit at full depth), and at a cut depth in
+           float32 (grok 1, mamba2 2, zamba2 7, seamless 2 + 2; arctic's
+           float32 layer does not fit) the kernel path against the plain
+           path and prefill then decode against a teacher-forced pass, both
+           at 1e-4 of the largest logit. Prefill ms, prompt tokens/s,
+           decode ms per step, peak memory and the idle share of one
+           profiled prefill; then row 8-nc, the flash kernel at the
+           encoder's shape (non-causal, 2 x 4,096 x 16 heads of 64) timed
+           against its bound, its plain version and SDPA. Phase 2 holds the
+           kernel at these shapes first (the encoder's, its cross-attention
+           with Sq = 512 < Sk = 4,096, grok's 48/8 and arctic's 56/8 heads
+           of 128, zamba2's 32/32 of 64).
 
 The unfused path's deterministic routes (the hash backward's int64
 fixed-point scatter, the MLP backward's per-block dW rows summed in order)
@@ -262,11 +290,40 @@ FLASH_CASES = (
     (2, 2048, 2048, 16, 16, 128, False, None, "bfloat16"),
     (2, 2048, 2048, 16, 4, 16, True, None, "bfloat16"),      # dh=16 (SMOKE)
     (1, 1500, 3001, 8, 8, 32, True, 512, "bfloat16"),        # dh=32, Sk > Sq, window
+    # phase 12's shapes: the seamless encoder (non-causal, dh=64), its
+    # decoder's cross-attention (Sq != Sk), grok (g=6), arctic (g=7) and
+    # zamba2's shared block (32/32 heads of 64)
+    (2, 4096, 4096, 16, 16, 64, False, None, "bfloat16"),
+    (2, 4096, 4096, 16, 16, 64, False, None, "float32"),
+    (2, 512, 4096, 16, 16, 64, False, None, "bfloat16"),
+    (2, 512, 4096, 16, 16, 64, False, None, "float32"),
+    (2, 4096, 4096, 48, 8, 128, True, None, "bfloat16"),
+    (2, 4096, 4096, 56, 8, 128, True, None, "bfloat16"),
+    (2, 4096, 4096, 32, 32, 64, True, None, "bfloat16"),
 )
+#: the seamless encoder's case (row 8-nc of the kernels line)
+ENCODER_CASE = (2, 4096, 4096, 16, 16, 64, False, None, "bfloat16")
+#: each FLASH_CASES case's max abs error against the plain version (phase 2)
+FLASH_CASE_ERRS: dict = {}
 # phase 7: the LM. LM_CONFIG None means llama3_8b's published CONFIG (the
 # rehearsal on a CPU hands in a SMOKE config)
 LM_ARCH, LM_CONFIG = "llama3_8b", None
 LM_BATCH, LM_PROMPT, LM_DECODE, LM_CHECK_LAYERS = 2, 4096, 32, 2
+# phase 12: the MoE, SSM, hybrid and encoder-decoder families at published
+# width: (arch, layers served (None: the published depth), layers of the
+# float32 checks (None: checked in bf16 only)); FAMILY_CONFIGS maps an arch
+# to the config to serve in the place of its published CONFIG (the
+# rehearsal on a CPU hands in SMOKE configs); the MoE prefill-then-decode
+# check's prompt (its capacity raised so that it does not bind: C >= S k)
+FAMILY_MODELS = (("grok_1_314b", 4, 1), ("arctic_480b", 2, None),
+                 ("mamba2_780m", None, 2), ("zamba2_1_2b", None, 7),
+                 ("seamless_m4t_large_v2", None, 2))
+FAMILY_CONFIGS: dict = {}
+FAMILY_FLASH = {"grok_1_314b": 4, "arctic_480b": 2, "zamba2_1_2b": 6,
+                "seamless_m4t_large_v2": 24, "mamba2_780m": 0}
+FAMILY_MOE_CHECK_PROMPT = 1024
+FAMILY_SEQ_STEPS = 4          # the encoder-decoder's teacher-forced steps
+FAMILY_IMPL = "auto"          # the served path's backend ("auto": the card's)
 # phase 8: the in situ session's rank edge (8 ranks: the 2x2x2 split of a
 # 512^3 volume), cycles and window; the shock trigger (the share of voxels
 # above SHOCK_LEVEL: ~0.024 at cycle 4 and ~0.028 at cycle 5 of a 512^3
@@ -616,6 +673,7 @@ def flash_checks(dev) -> float:
             if not rel <= 1e-2:
                 raise SmokeFailure(f"{label}: row relative L2 error {rel:.3e} "
                                    "against the f32 plain version")
+        FLASH_CASE_ERRS[(B, Sq, Sk, Hq, Hkv, dh, causal, window, dt)] = errs[-1]
         del q, k, v, got, want
     torch.cuda.synchronize()
     return errs[0]
@@ -818,6 +876,371 @@ def lm_phase(tag: str, dev, flash_err: float) -> dict:
             "replaces": REPLACES["flash_attention"], "launches": launches,
             "max_abs_err": flash_err, "ms": ms, "plain_ms": pms,
             "bound_ms": bms, "bound_by": by, "library_ms": lms}
+
+
+# --------------------------------------------------------------------------- #
+# phase 12: the MoE, SSM, hybrid and encoder-decoder families
+# --------------------------------------------------------------------------- #
+def family_config(arch, layers):
+    """The config phase 12 serves: the published CONFIG (FAMILY_CONFIGS'
+    stand-in where given) at ``layers`` (None: not cut)."""
+    from repro_torch.configs import get_config
+    cfg = FAMILY_CONFIGS.get(arch) or get_config(arch)
+    return cfg if layers is None else cfg.replace(n_layers=layers)
+
+
+def flash_launches_of(cfg) -> int:
+    """Attention layers whose prefill reaches the flash kernel."""
+    from repro_torch.models.hybrid import group_structure
+    if cfg.family == "ssm":
+        return 0
+    if cfg.family == "hybrid":
+        return group_structure(cfg)[0]
+    if cfg.family == "encdec":
+        return cfg.encoder_layers
+    return cfg.n_layers
+
+
+def family_inputs(cfg, dev, B, S, seed=0, extra=FAMILY_SEQ_STEPS + 1):
+    """The prompt a family's prefill takes: uniform token ids, or for the
+    encoder-decoder N(0,1) source embeddings and a uniform first target
+    token; and (B, S + extra) uniform ids whose first S the prompt holds
+    (the rest: teacher forcing)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab, (B, S + extra)).astype(np.int32)
+    if cfg.family == "encdec":
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        src = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
+        return {"src_embeds": src, "tgt_tokens": tokens[:, :1]}, tokens
+    return {"tokens": tokens[:, :S]}, tokens
+
+
+class RouteLog:
+    """Records each MoE layer's routing (ids (T,k), router probabilities
+    (T,E)) while installed in place of ``models.moe.route``."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.moe, self.real, self.calls = moe, moe.route, []
+
+    def __enter__(self):
+        import torch
+
+        def logged(cfg, p, x_flat):
+            w, ids, aux = self.real(cfg, p, x_flat)
+            probs = torch.softmax(x_flat.float() @ p["router"].float(), dim=-1)
+            self.calls.append((ids, probs))
+            return w, ids, aux
+
+        self.moe.route = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.route = self.real
+
+
+def route_flips(kern: RouteLog, plain: RouteLog, k: int) -> list:
+    """Per MoE layer: (tokens whose chosen expert set differs between the
+    two paths, the router probabilities' largest departure between them).
+    Each flip must lie where the plain path's k-th and (k+1)-th
+    probabilities are within twice that departure (a difference the
+    attention path's departure can order either way)."""
+    out = []
+    for (ik, pk), (ip, pp) in zip(kern.calls, plain.calls):
+        dep = float((pk - pp).abs().max())
+        flips = (ik.sort(-1).values != ip.sort(-1).values).any(-1)
+        top = pp.topk(k + 1, dim=-1).values
+        gap = top[:, k - 1] - top[:, k]
+        bad = int((flips & (gap > 2 * dep)).sum())
+        if bad:
+            raise SmokeFailure(f"{bad} routing flips where the router's k-th and "
+                               f"(k+1)-th probabilities lie further apart than "
+                               f"twice the paths' departure {dep:.3e}")
+        out.append((int(flips.sum()), dep))
+    if len(kern.calls) != len(plain.calls):
+        raise SmokeFailure(f"routing calls {len(kern.calls)} / {len(plain.calls)}")
+    return out
+
+
+#: how much further than the plain path the kernel path's bf16 logits may
+#: lie from the float32 computation where the SSD scan runs in bf16 (C8)
+SCAN_BF16_FACTOR = 1.5
+
+
+def scan_yardstick(arch, cfg, params, prompt, seq_len, kern, plain, finite):
+    """ROADMAP §C8 on the card: under bf16 compute the SSD scan's log-decays
+    are summed in bf16 (JAX's algorithm), whose roundings amplify any
+    difference upstream, so the two paths' bf16 logits (``kern``,
+    ``plain``, last token, real vocabulary) are held to the float32
+    computation of the same params instead: the kernel path no further
+    from it, in relative L2, than SCAN_BF16_FACTOR x the plain path. The
+    float32 computation's own kernel path is held to its plain path at
+    1e-4 of the largest logit, at full depth."""
+    from repro_torch.models import build_model
+    V = cfg.vocab
+    m32 = build_model(cfg.replace(compute_dtype="float32"))
+    r, _ = m32.prefill(params, prompt, seq_len, impl="ref")
+    rk, _ = m32.prefill(params, prompt, seq_len, impl="cuda")
+    check(f"{arch} full depth f32 compute: kernel vs plain path", rk[:, -1, :V],
+          r[:, -1, :V], atol=1e-4 * float(r[:, -1, :V].abs().max()))
+    r = r[:, -1, :V].float()
+    dk, dp = rel_l2(kern, r), rel_l2(plain, r)
+    ok = finite and dk <= SCAN_BF16_FACTOR * dp
+    print(f"    bf16 against the f32 computation (relative L2 of the last-token "
+          f"logits): kernel path {dk:.4e}, plain path {dp:.4e} (limit "
+          f"{SCAN_BF16_FACTOR} x the plain path's)  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"{arch}: bf16 kernel path {dk:.4e} from f32 against "
+                           f"the plain path's {dp:.4e}")
+
+
+def family_f32_checks(arch, cfg, layers, dev, B, S) -> None:
+    """The family at ``layers`` in float32: the kernel path against the plain
+    path, and prefill then decode against a teacher-forced pass (1e-4 of the
+    largest logit)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models import build_model
+    from repro_torch.models import encdec
+    from repro_torch.models.transformer import logits_fn
+
+    c32 = cfg.replace(n_layers=layers, compute_dtype="float32", param_dtype="float32")
+    if cfg.family == "encdec":
+        c32 = c32.replace(encoder_layers=layers)
+    model = build_model(c32)
+    params = model.init(torch.Generator(device=dev).manual_seed(1))
+    extra = max(FAMILY_SEQ_STEPS + 1, c32.ssm.chunk if c32.ssm is not None else 1)
+    prompt, tokens = family_inputs(c32, dev, B, S, seed=1, extra=extra)
+    label = f"{arch} depth {layers} f32"
+    V = cfg.vocab                     # the padded entries are masked to -1e9
+    lk, _ = model.prefill(params, prompt, S + FAMILY_SEQ_STEPS + 1, impl="cuda")
+    lp, _ = model.prefill(params, prompt, S + FAMILY_SEQ_STEPS + 1, impl="ref")
+    lk, lp = lk[..., :V], lp[..., :V]
+    check(f"{label}: kernel vs plain path", lk, lp, atol=1e-4 * float(lp.abs().max()))
+    del lk, lp
+    if cfg.family == "encdec":
+        # prefill (encoder + the first target token) and decode steps against
+        # the teacher-forced decoder over the same target prefix
+        tgt = torch.as_tensor(tokens[:, :FAMILY_SEQ_STEPS + 1], device=dev).long()
+        with torch.no_grad():
+            enc = encdec.encode(c32, params, prompt["src_embeds"], impl="cuda")
+            want = logits_fn(c32, params, encdec.decode_train(c32, params, tgt, enc,
+                                                              impl="cuda"))
+        got, cache = model.prefill(params, prompt, S, impl="cuda")
+        steps = [got]
+        for t in range(1, FAMILY_SEQ_STEPS + 1):
+            got, cache = model.decode_step(params, cache, tgt[:, t:t + 1])
+            steps.append(got)
+        want = want[..., :V]
+        check(f"{label}: prefill + {FAMILY_SEQ_STEPS} decode steps vs teacher-"
+              f"forced decoder", torch.cat(steps, 1)[..., :V], want,
+              atol=1e-4 * float(want.abs().max()))
+        return
+    if cfg.family in ("ssm", "hybrid"):
+        # prefill(S) + Q decode steps against prefill(S + Q): lengths that
+        # ssd_chunked takes (multiples of the chunk Q)
+        S1, n = S, c32.ssm.chunk
+    else:
+        # the MoE capacity raised so that it binds in neither pass
+        c32 = c32.replace(moe=dataclasses.replace(
+            c32.moe, capacity_factor=float(c32.moe.num_experts)))
+        model = build_model(c32)
+        S1, n = min(S, FAMILY_MOE_CHECK_PROMPT), 1
+    tok = torch.as_tensor(tokens[:, :S1 + n], device=dev)
+    want, _ = model.prefill(params, {"tokens": tok}, S1 + n, impl="cuda")
+    _, cache = model.prefill(params, {"tokens": tok[:, :S1]}, S1 + n, impl="cuda")
+    for t in range(n):
+        got, cache = model.decode_step(params, cache, tok[:, S1 + t:S1 + t + 1])
+    got, want = got[..., :V], want[..., :V]
+    check(f"{label}: prefill({S1}) + {n} decode step{'s' * (n > 1)} vs "
+          f"prefill({S1 + n})", got, want, atol=1e-4 * float(want.abs().max()))
+
+
+def families_phase(tag: str, dev) -> dict:
+    """Phase 12: serve each of FAMILY_MODELS at published width through
+    ``build_model(cfg).prefill / decode_step`` (``impl`` and ``device``
+    left at ``"auto"``: the card); returns each model's flash launches."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as tF
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    from repro_torch.models import build_model
+
+    B, S, n_dec = LM_BATCH, LM_PROMPT, LM_DECODE
+    seq_len = S + n_dec
+    print(f"== phase 12: the MoE, SSM, hybrid and encoder-decoder families at "
+          f"published width: {B} x {S} prompt tokens (seamless: source "
+          f"frames) + {n_dec} greedy decode steps each [{tag}]")
+    launches = {}
+    for arch, layers, f32_layers in FAMILY_MODELS:
+        cfg = family_config(arch, layers)
+        full = family_config(arch, None)
+        cut = (f"depth cut {full.n_layers} -> {cfg.n_layers} (device memory)"
+               if layers is not None else "depth not cut")
+        want_flash = flash_launches_of(cfg)
+        if not FAMILY_CONFIGS and want_flash != FAMILY_FLASH[arch]:
+            raise SmokeFailure(f"{arch}: {want_flash} attention layers reach "
+                               f"the kernel, the table says {FAMILY_FLASH[arch]}")
+        print(f"  {arch} ({cfg.family}): d={cfg.d_model}, {cfg.n_layers} layers"
+              f"{f' + {cfg.encoder_layers} encoder' if cfg.encoder_layers else ''}, "
+              f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, "
+              f"d_ff={cfg.d_ff}, vocab {cfg.vocab}"
+              f"{f', {cfg.moe.num_experts} experts top-{cfg.moe.top_k}' if cfg.moe else ''}"
+              f"{f', state {cfg.ssm.state_dim} chunk {cfg.ssm.chunk}' if cfg.ssm else ''}; "
+              f"{cfg.param_count():,} {cfg.param_dtype} params, {cfg.compute_dtype} "
+              f"compute; {cut}")
+        model = build_model(cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        print(f"    init on the card: {time.perf_counter() - t0:.2f} s, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+        prompt, _ = family_inputs(cfg, dev, B, S)
+
+        def greedy(logits):
+            return logits[:, -1].argmax(-1, keepdim=True)
+
+        # warm-up, then the main run with the counter zeroed just before it
+        logits, cache = model.prefill(params, prompt, seq_len, impl=FAMILY_IMPL)
+        model.decode_step(params, cache, greedy(logits))
+        del logits, cache
+        torch.cuda.synchronize()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        flash_attention_cuda.launches = 0
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, prompt, seq_len, impl=FAMILY_IMPL)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prefill_launches = flash_attention_cuda.launches
+        finite = torch.isfinite(logits).all()
+        tok = greedy(logits)
+        pos0 = int(cache["pos"])
+        t0 = time.perf_counter()
+        for _ in range(n_dec):
+            step_logits, cache = model.decode_step(params, cache, tok)
+            finite &= torch.isfinite(step_logits).all()
+            tok = greedy(step_logits)
+        torch.cuda.synchronize()
+        decode_ms = (time.perf_counter() - t0) * 1e3 / n_dec
+        n_launch = flash_attention_cuda.launches
+        peak = torch.cuda.max_memory_allocated()
+        print(f"    flash kernel launches: {prefill_launches} in the prefill "
+              f"(want {want_flash}), {n_launch - prefill_launches} in {n_dec} "
+              f"decode steps (want 0)")
+        if prefill_launches != want_flash or n_launch != prefill_launches:
+            raise SmokeFailure(f"{arch}: flash launches {prefill_launches} per "
+                               f"prefill, {n_launch - prefill_launches} in decode")
+        if not bool(finite) or int(cache["pos"]) != pos0 + n_dec:
+            raise SmokeFailure(f"{arch}: logits finite {bool(finite)}, cache pos "
+                               f"{int(cache['pos'])} (want {pos0 + n_dec})")
+        launches[arch] = n_launch
+        n_tok = B * S
+        print(f"    prefill {B}x{S}: {prefill_ms:.2f} ms, {n_tok / prefill_ms * 1e3:.1f} "
+              f"prompt tokens/s; decode {decode_ms:.3f} ms per step ({B} "
+              f"sequences, host clock, synchronised) [{tag}]")
+        print(f"    peak memory {peak / 2**30:.3f} GiB (max_memory_allocated over "
+              f"the run; {base_mem / 2**30:.3f} GiB resident before it) [{tag}]")
+        del step_logits, cache
+
+        # the kernel path against the plain path, at the model's own dtypes,
+        # on the real vocabulary (the padded entries are masked to -1e9);
+        # for MoE the routed experts of the two paths, layer by layer
+        V = cfg.vocab
+        with RouteLog() as rk:
+            lk, _ = model.prefill(params, prompt, seq_len, impl="cuda")
+        with RouteLog() as rp:
+            lp, _ = model.prefill(params, prompt, seq_len, impl="ref")
+        a, b = lk[:, -1, :V].float(), lp[:, -1, :V].float()
+        cos = float(tF.cosine_similarity(a, b, dim=-1).min())
+        finite = bool(torch.isfinite(a).all() and torch.isfinite(b).all())
+        ok = finite and cos >= 0.999
+        print(f"    {cfg.compute_dtype}: last-token logits, kernel vs plain path: min "
+              f"cosine {cos:.6f} (limit 0.999{'' if cfg.ssm is None else '; C8: below'}), "
+              f"max abs diff {float((a - b).abs().max()):.4e} of max |logit| "
+              f"{float(b.abs().max()):.4f}  "
+              f"{'ok' if ok else ('see below' if cfg.ssm is not None else 'FAIL')}")
+        if cfg.ssm is not None:
+            scan_yardstick(arch, cfg, params, prompt, seq_len, a, b, finite)
+        elif not ok:
+            raise SmokeFailure(f"{arch}: kernel vs plain path: cosine {cos}")
+        if cfg.moe is not None:
+            flips = route_flips(rk, rp, cfg.moe.top_k)
+            T_ = rk.calls[0][0].shape[0]
+            print(f"    routed experts, kernel vs plain path: flips per layer "
+                  f"{[f for f, _ in flips]} of {T_:,} tokens, the router "
+                  f"probabilities' departure per layer "
+                  f"{[float(f'{d:.3e}') for _, d in flips]}; each flip within twice "
+                  f"its layer's departure of a tie  ok")
+        del lk, lp, rk, rp, logits
+
+        # where a prefill's time goes
+        torch.cuda.synchronize()
+        busy, by_kernel, wall, _ = profile_tick(lambda: model.prefill(
+            params, prompt, seq_len, impl=FAMILY_IMPL))
+        if busy is None:
+            print(f"    profiled prefill: no device time recorded (not measured) [{tag}]")
+        else:
+            print(f"    profiled prefill: {wall:.2f} ms host clock, device busy "
+                  f"{busy:.2f} ms, idle share {1 - busy / wall:.3f} [{tag}]")
+            for name, (ms, n) in by_kernel[:6]:
+                print(f"      {ms:9.3f} ms  x{n:<5d} {name[:90]}")
+        del params, model
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        if f32_layers is None:
+            print(f"    float32 checks: none ({arch}'s float32 layer does not fit "
+                  f"beside its activations; checked in bf16 above)")
+        else:
+            family_f32_checks(arch, cfg, f32_layers, dev, B, S)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def flash_encoder_row(tag: str, dev, launches: int) -> dict:
+    """Row 8-nc: the flash kernel at the seamless encoder's shape
+    (ENCODER_CASE: non-causal, every (query, key) pair live), timed as phase
+    7 times row 8, with SDPA (non-causal) as its yardstick."""
+    import torch
+    import torch.nn.functional as tF
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    B, Sq, Sk, Hq, Hkv, dh, causal, window, dt = ENCODER_CASE
+    cdt = getattr(torch, dt)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    q = torch.randn((B, Sq, Hq, dh), generator=gen, device=dev).to(cdt)
+    k = torch.randn((B, Sk, Hkv, dh), generator=gen, device=dev).to(cdt)
+    v = torch.randn((B, Sk, Hkv, dh), generator=gen, device=dev).to(cdt)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    kern = lambda: flash_attention_cuda(q, k, v, causal, window)
+    plain = lambda: attention_ref(q, k, v, causal=causal, window=window)
+    library = lambda: tF.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    check("SDPA yardstick vs plain (same function), encoder shape",
+          library().transpose(1, 2), plain(), atol=3e-2)
+    ms = cuda_ms(kern, reps=5)
+    pms = cuda_ms(plain, reps=3)
+    lms = cuda_ms(library, reps=10)
+    alone = kernel_alone_ms(kern, "flash_attention_kernel")
+    pairs = flash_pairs(Sq, Sk, causal, window)
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops = 4 * B * Hq * dh * pairs
+    bms, by = bound_ms(nbytes, flops, BF16_FLOPS if cdt == torch.bfloat16 else F32_FLOPS)
+    print(f"  row 8-nc flash_attention {dt} B={B} S={Sq} H={Hq}/{Hkv} dh={dh} "
+          f"non-causal: {ms:.3f} ms  bound {bms:.3f} ms ({by}; {pairs:,} live "
+          f"pairs per head)  plain {pms:.3f} ms  SDPA {lms:.3f} ms  kernel alone "
+          f"{'not measured' if alone is None else f'{alone:.4f} ms'} (profiler)  "
+          f"launches {launches} [{tag}]")
+    return {"name": "flash_attention_encoder", "route": "cuda",
+            "source": SOURCES["flash_attention"],
+            "replaces": REPLACES["flash_attention"], "launches": launches,
+            "max_abs_err": FLASH_CASE_ERRS[ENCODER_CASE], "ms": ms,
+            "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": lms}
 
 
 def scatter_requests(coords, res, T: int, F: int, plan, blocks) -> dict:
@@ -4849,6 +5272,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     analysis_phase(tag, torch.device(DEVICE))
     examples_phase(tag)
+    gc.collect()
+    torch.cuda.empty_cache()
+    fam = families_phase(tag, torch.device(DEVICE))
+    # the flash kernel's launches on each main path: phase 7's and the
+    # families' causal prefills in row 8, the encoder's in row 8-nc
+    flash = next(r for r in kernels if r["name"] == "flash_attention")
+    by_path = {LM_ARCH: flash["launches"]}
+    by_path.update({a: n for a, n in fam.items() if a != "seamless_m4t_large_v2"})
+    flash["launches"] = sum(by_path.values())
+    flash["launches_by_path"] = by_path
+    kernels.append(flash_encoder_row(tag, torch.device(DEVICE),
+                                     fam["seamless_m4t_large_v2"]))
     print(tag)                        # name, power limit as nvidia-smi says
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

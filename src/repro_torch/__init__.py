@@ -8,7 +8,7 @@ ladder on request), compresses models and keeps a temporal window of them,
 serves frames (inference and rendering, through a brick cache or not),
 extracts isosurfaces and traces pathlines, runs the reactive in situ loop
 (``insitu.InSituSession``) under injected faults, and serves the inherited
-dense LM stack (``models.build_model``: prefill and KV-cache decode).
+LM stack, every family of it (``models.build_model``: prefill and decode).
 
 - ``repro_torch.api``       ``train``, ``DVNRModel`` (init/from_state/
                             from_compressed/apply/decode_grid/compress/
@@ -31,14 +31,17 @@ dense LM stack (``models.build_model``: prefill and KV-cache decode).
 - ``repro_torch.backends``  ``ref`` (plain PyTorch) / ``cuda`` (the kernels);
                             ``"auto"`` means the GPU and raises without one
 - ``repro_torch.models``    the LM stack: layers, GQA attention, the
-                            decoder-only transformer, ``build_model``
+                            decoder-only transformer with dense or MoE
+                            layers, Mamba2 and its LM, the hybrid, the
+                            encoder-decoder, ``build_model``
 - ``repro_torch.configs``   the DVNR presets and the ten LM arch configs
 - ``repro_torch.kernels``   hash encode and fused MLP (forward and
                             backward), compositing, the fused train step and
                             AdamW, flash attention, each beside its plain
                             PyTorch version
-- ``repro_torch.interop``   parameters, trainer states, LM parameters and KV
-                            caches to and from the JAX package's numpy export
+- ``repro_torch.interop``   parameters, trainer states, LM parameters and
+                            caches (every family's) to and from the JAX
+                            package's numpy export
 """
 
 __version__ = "0.1.0"

@@ -19,9 +19,12 @@ package's layout, and :func:`state_from_checkpoint` restores one that either
 package's manager wrote, leaf by leaf in the JAX leaf order, checked against
 the manifest's shapes and dtypes.
 
-An LM's parameters cross as the JAX ``init_lm`` tree of numpy arrays (the
-same nested keys, layers stacked on a leading L axis), and its KV cache as
-``{"k", "v", "pos"}``.
+An LM's parameters cross as the JAX ``init`` tree of numpy arrays of any
+family (the same nested keys, layers stacked on a leading L axis, bf16
+leaves as bf16), and its cache as one of the families' layouts: the
+transformer's ``{"k", "v", "pos"}``, the SSM's ``{"ssm", "conv", "pos"}``,
+the hybrid's ``{"ssm", "conv", "k", "v", "pos"}`` and the encoder-decoder's
+``{"k", "v", "cross_k", "cross_v", "pos"}``.
 """
 from __future__ import annotations
 
@@ -111,13 +114,38 @@ def lm_params_to_numpy(params: dict) -> dict:
     return _tree_to_numpy(params)
 
 
+#: the cache layouts of the model families (besides ``"pos"``)
+CACHE_LAYOUTS = (frozenset({"k", "v"}), frozenset({"ssm", "conv"}),
+                 frozenset({"ssm", "conv", "k", "v"}),
+                 frozenset({"k", "v", "cross_k", "cross_v"}))
+
+
+def _cache_keys(cache: dict) -> None:
+    keys = frozenset(cache) - {"pos"}
+    if "pos" not in cache or keys not in CACHE_LAYOUTS:
+        raise ValueError(f"not an LM cache layout: {sorted(cache)} (want 'pos' "
+                         f"and one of {[sorted(k) for k in CACHE_LAYOUTS]})")
+
+
 def lm_cache_from_numpy(np_cache: dict, device="auto") -> dict:
-    """A KV cache ``{"k", "v", "pos"}`` as numpy -> the port's cache on
-    ``device``: k/v (L,B,S,Hkv,dh) and ``pos`` a 0-d int32 tensor."""
+    """An LM cache as numpy (any family's layout, ``CACHE_LAYOUTS``) -> the
+    port's cache on ``device``: each array with its dtype, ``pos`` a 0-d
+    int32 tensor."""
+    _cache_keys(np_cache)
     dev = resolve_device(device)
-    return {"k": _to_torch(np_cache["k"], dev), "v": _to_torch(np_cache["v"], dev),
-            "pos": torch.as_tensor(int(np.asarray(np_cache["pos"])),
-                                   dtype=torch.int32, device=dev)}
+    out = {k: _to_torch(a, dev) for k, a in np_cache.items() if k != "pos"}
+    out["pos"] = torch.as_tensor(int(np.asarray(np_cache["pos"])),
+                                 dtype=torch.int32, device=dev)
+    return out
+
+
+def lm_cache_to_numpy(cache: dict) -> dict:
+    """The port's LM cache -> numpy in the JAX layout (``pos`` a 0-d int32
+    array)."""
+    _cache_keys(cache)
+    out = {k: _to_numpy(t) for k, t in cache.items() if k != "pos"}
+    out["pos"] = np.asarray(int(cache["pos"]), np.int32)
+    return out
 
 
 def state_tree(state) -> dict:

@@ -19,14 +19,43 @@ from repro_torch.parallel.sharding import require_no_sharder
 # --------------------------------------------------------------------------- #
 # Initializers
 # --------------------------------------------------------------------------- #
+#: elements drawn at once by ``truncated_normal`` for a non-float32 dtype
+_DRAW_CHUNK = 1 << 28
+
+
 def truncated_normal(gen: torch.Generator, shape, std: float,
                      dtype=torch.float32) -> torch.Tensor:
     """``std`` times a unit normal truncated at +-3, drawn in float32 on the
     generator's device and cast to ``dtype`` (JAX's
-    ``std * truncated_normal(key, -3, 3, shape)``)."""
-    t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
-    torch.nn.init.trunc_normal_(t, 0.0, std, -3.0 * std, 3.0 * std, generator=gen)
-    return t.to(dtype)
+    ``std * truncated_normal(key, -3, 3, shape)``). A narrower ``dtype``
+    over ``_DRAW_CHUNK`` elements is drawn a chunk at a time, so that the
+    float32 draw never holds twice the tensor (grok's and arctic's bf16
+    expert stacks on one card)."""
+    shape = tuple(shape)
+    n = int(np.prod(shape))
+    if dtype == torch.float32 or n <= _DRAW_CHUNK:
+        t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+        torch.nn.init.trunc_normal_(t, 0.0, std, -3.0 * std, 3.0 * std,
+                                    generator=gen)
+        return t.to(dtype)
+    out = torch.empty(shape, dtype=dtype, device=gen.device)
+    flat = out.view(-1)
+    for lo in range(0, n, _DRAW_CHUNK):
+        t = torch.empty(min(_DRAW_CHUNK, n - lo), dtype=torch.float32,
+                        device=gen.device)
+        torch.nn.init.trunc_normal_(t, 0.0, std, -3.0 * std, 3.0 * std,
+                                    generator=gen)
+        flat[lo:lo + t.numel()].copy_(t)
+    return out
+
+
+def normal(gen: torch.Generator, shape, std: float, dtype=torch.float32) -> torch.Tensor:
+    """``std`` times a unit normal, drawn in float32 on the generator's
+    device and cast to ``dtype`` (JAX's ``(std * normal(key, shape))
+    .astype(dtype)``)."""
+    t = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return (std * t).to(dtype)
 
 
 def dense_init(gen: torch.Generator, shape, in_dim: Optional[int] = None,

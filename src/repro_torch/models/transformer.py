@@ -1,9 +1,11 @@
-"""Decoder-only transformer stack (dense / VLM families).
+"""Decoder-only transformer stack (dense / MoE / VLM families).
 
 The same functions as ``repro.models.transformer``, in PyTorch. Layers stay
 stacked on a leading L axis under the JAX package's tree keys; a Python loop
 over the layer slices takes the place of ``lax.scan`` (remat has no role in
-inference). MoE layers wait for ROADMAP item 16.
+inference). An MoE layer's FFN is ``moe.moe_block`` (plus the dense
+residual MLP where the config has one); its auxiliary loss is summed over
+the layers. Decode steps dispatch with ``"scatter"``, as JAX's do.
 
 The KV cache is laid out the way ``init_cache`` / ``decode_step`` read it:
 ``prefill`` returns it at ``cache_len(cfg, seq_len)`` slots with position p
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, dense_init, embed_init, init_norm, softmax_xent,
 )
@@ -32,12 +35,6 @@ def param_dtype(cfg) -> torch.dtype:
     return torch_dtype(cfg.param_dtype)
 
 
-def _require_dense(cfg) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP item 16)")
-
-
 def layer_slice(layers: dict, i: int) -> dict:
     """Layer ``i`` of a stacked layer tree (views, no copies)."""
     return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
@@ -49,7 +46,6 @@ def layer_slice(layers: dict, i: int) -> dict:
 # --------------------------------------------------------------------------- #
 def init_layer(cfg, gen: torch.Generator, pdt, n: int) -> dict:
     """Stacked params for n identical decoder layers."""
-    _require_dense(cfg)
     d, dh = cfg.d_model, cfg.resolved_head_dim
     hq, hkv, f = cfg.n_heads, cfg.n_kv_heads, cfg.d_ff
     dev = gen.device
@@ -66,6 +62,22 @@ def init_layer(cfg, gen: torch.Generator, pdt, n: int) -> dict:
     if cfg.qkv_bias:
         for name, heads in (("bq", hq), ("bk", hkv), ("bv", hkv)):
             p["attn"][name] = torch.zeros((n, heads * dh), dtype=pdt, device=dev)
+    if cfg.moe is not None:
+        e = cfg.moe.num_experts
+        p["moe"] = {
+            "router": dense_init(gen, (n, d, e), d, torch.float32),
+            "wi": dense_init(gen, (n, e, d, f), d, pdt),
+            "wo": dense_init(gen, (n, e, f, d), f, pdt),
+        }
+        if cfg.act == "swiglu":
+            p["moe"]["wg"] = dense_init(gen, (n, e, d, f), d, pdt)
+        if cfg.moe.dense_residual:     # JAX's tree: wi, wg, wo whatever act
+            p["mlp"] = {
+                "wi": dense_init(gen, (n, d, f), d, pdt),
+                "wg": dense_init(gen, (n, d, f), d, pdt),
+                "wo": dense_init(gen, (n, f, d), f, pdt),
+            }
+        return p
     p["mlp"] = {
         "wi": dense_init(gen, (n, d, f), d, pdt),
         "wo": dense_init(gen, (n, f, d), f, pdt),
@@ -87,7 +99,6 @@ def _stacked_norm(cfg, n, d, device):
 def init_lm(cfg, gen: torch.Generator) -> dict:
     """Random parameters in the JAX tree layout, drawn from ``gen`` on its
     device (truncated normals of JAX's stds; not JAX's bits)."""
-    _require_dense(cfg)
     pdt = param_dtype(cfg)
     vp = padded_vocab(cfg.vocab)
     params = {
@@ -144,24 +155,38 @@ def _inputs(cfg, params, batch):
     return x, positions
 
 
-def block_fn(cfg, lp, x, positions, sharder=None, impl="ref"):
+def ffn(cfg, lp, h2, sharder=None, moe_dispatch="scatter"):
+    """A layer's FFN on its normed input: (y, aux_loss). MoE layers route
+    (and add the dense residual MLP where the config has one)."""
+    if cfg.moe is None:
+        return (apply_mlp(cfg, lp["mlp"], h2, sharder),
+                torch.zeros((), dtype=torch.float32, device=h2.device))
+    y, aux = moe_mod.moe_block(cfg, lp["moe"], h2, sharder, moe_dispatch)
+    if cfg.moe.dense_residual:
+        y = y + apply_mlp(cfg, lp["mlp"], h2, sharder)
+    return y, aux
+
+
+def block_fn(cfg, lp, x, positions, sharder=None, impl="ref",
+             moe_dispatch="scatter"):
     """One decoder layer. Returns (x, aux_loss)."""
-    _require_dense(cfg)
     h = apply_norm(cfg, lp["norm1"], x)
     a = attn.attention_block(cfg, lp["attn"], h, positions, causal=True,
                              sharder=sharder, impl=impl)
     x = x + a
     h2 = apply_norm(cfg, lp["norm2"], x)
-    x = x + apply_mlp(cfg, lp["mlp"], h2, sharder)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    y, aux = ffn(cfg, lp, h2, sharder, moe_dispatch)
+    return x + y, aux
 
 
-def forward_hidden(cfg, params, x, positions, sharder=None, impl="ref"):
-    """x: (B,S,D) embeddings -> final hidden states (B,S,D), aux loss."""
+def forward_hidden(cfg, params, x, positions, sharder=None, impl="ref",
+                   moe_dispatch="scatter"):
+    """x: (B,S,D) embeddings -> final hidden states (B,S,D), aux loss
+    summed over the layers."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(cfg.n_layers):
         x, a = block_fn(cfg, layer_slice(params["layers"], i), x, positions,
-                        sharder, impl)
+                        sharder, impl, moe_dispatch)
         aux = aux + a
     x = apply_norm(cfg, params["final_norm"], x)
     return x, aux
@@ -180,11 +205,13 @@ def logits_fn(cfg, params, h):
     return logits
 
 
-def lm_loss(cfg, params, batch, sharder=None, impl="ref"):
-    """Next-token cross-entropy (forward only: LM training is not ported)."""
+def lm_loss(cfg, params, batch, sharder=None, impl="ref", moe_dispatch="scatter"):
+    """Next-token cross-entropy plus the MoE auxiliary loss (differentiable
+    through autograd; the LM training step is not ported)."""
     require_no_sharder(sharder)
     x, positions = _inputs(cfg, params, batch)
-    h, aux = forward_hidden(cfg, params, x, positions, sharder, impl)
+    h, aux = forward_hidden(cfg, params, x, positions, sharder, impl,
+                            moe_dispatch)
     logits = logits_fn(cfg, params, h)
     loss = softmax_xent(logits, _as_tensor(batch["labels"], h.device, torch.long))
     return loss + aux, {"xent": loss, "aux": aux}
@@ -212,11 +239,11 @@ def init_cache(cfg, batch: int, seq_len: int, device=None):
 
 
 @torch.no_grad()
-def prefill(cfg, params, batch, seq_len: int, sharder=None, impl="ref"):
+def prefill(cfg, params, batch, seq_len: int, sharder=None, impl="ref",
+            moe_dispatch="scatter"):
     """Run the prompt through the stack, returning last-token logits + cache
     (``init_cache(cfg, B, seq_len)``'s layout, ready for ``decode_step``)."""
     require_no_sharder(sharder)
-    _require_dense(cfg)
     cdt = compute_dtype(cfg)
     x, positions = _inputs(cfg, params, batch)
     B, S, _ = x.shape
@@ -235,7 +262,7 @@ def prefill(cfg, params, batch, seq_len: int, sharder=None, impl="ref"):
         o = attn.sdpa(q, k, v, causal=True, window=cfg.sliding_window, impl=impl)
         x = x + o.reshape(B, S, -1) @ lp["attn"]["wo"].to(cdt)
         h2 = apply_norm(cfg, lp["norm2"], x)
-        x = x + apply_mlp(cfg, lp["mlp"], h2)
+        x = x + ffn(cfg, lp, h2, moe_dispatch=moe_dispatch)[0]
         cache["k"][i].index_copy_(1, slots, k[:, S - keep:])
         cache["v"][i].index_copy_(1, slots, v[:, S - keep:])
     x = apply_norm(cfg, params["final_norm"], x)
@@ -250,7 +277,6 @@ def decode_step(cfg, params, cache, tokens, sharder=None):
     whose k/v are updated in place (the returned cache holds the same
     tensors and ``pos + 1``)."""
     require_no_sharder(sharder)
-    _require_dense(cfg)
     x = embed_tokens(cfg, params, tokens)
     pos = _as_tensor(cache["pos"], x.device, torch.int32)
     W = cfg.sliding_window
@@ -261,7 +287,7 @@ def decode_step(cfg, params, cache, tokens, sharder=None):
                                         cache["v"][i], pos, window=W)
         x = x + o
         h2 = apply_norm(cfg, lp["norm2"], x)
-        x = x + apply_mlp(cfg, lp["mlp"], h2)
+        x = x + ffn(cfg, lp, h2, moe_dispatch="scatter")[0]
     x = apply_norm(cfg, params["final_norm"], x)
     logits = logits_fn(cfg, params, x)
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}

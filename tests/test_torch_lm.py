@@ -34,8 +34,6 @@ from repro_torch.models import transformer as T
 
 DENSE = ["llama3_8b", "h2o_danube_1_8b", "qwen2_0_5b", "olmo_1b"]
 SERVED = DENSE + ["qwen2_vl_7b"]
-NOT_PORTED = ["arctic_480b", "grok_1_314b", "mamba2_780m", "zamba2_1_2b",
-              "seamless_m4t_large_v2"]
 B, S = 2, 32
 
 
@@ -363,20 +361,8 @@ def test_loss_forward_equals_jax():
 
 
 # --------------------------------------------------------------------------- #
-# what is not ported, and the GPU-by-default rule
+# the sharder and the GPU-by-default rule
 # --------------------------------------------------------------------------- #
-@pytest.mark.parametrize("arch", NOT_PORTED)
-def test_build_model_raises_for_families_not_ported(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-        build_model(base.get_smoke_config(arch))
-
-
-def test_moe_layers_raise():
-    cfg = base.get_smoke_config("grok_1_314b")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
-        T.init_lm(cfg, torch.Generator())
-
-
 def test_sharder_raises():
     cfg = _cfg("llama3_8b")
     model = build_model(cfg)
