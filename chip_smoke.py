@@ -189,7 +189,36 @@ toolkit; imports nothing of JAX or of the JAX package. Phases:
            against its bound, its plain version and SDPA. Phase 2 holds the
            kernel at these shapes first (the encoder's, its cross-attention
            with Sq = 512 < Sk = 4,096, grok's 48/8 and arctic's 56/8 heads
-           of 128, zamba2's 32/32 of 64).
+           of 128, zamba2's 32/32 of 64), and at phase 13's training
+           shapes (qwen2 8 x 1,024; olmo, llama3, zamba2, the seamless
+           decoder, its encoder and cross-attention, grok and arctic at
+           4 x 1,024).
+13. train  LM training (``lm_training_phase``): ``python -m
+           repro_torch.launch.train --arch qwen2_0_5b --steps 8 --batch 8
+           --seq 1024 --ckpt-every 7`` through ``launch.train.main`` (the
+           published CONFIG, 24 layers, f32 params, bf16 compute, remat
+           "dots"), then ``--resume`` to step 12, which must continue at
+           step 9; every step's loss finite; the flash kernel launched 48
+           times a step (24 attention layers, twice under remat: the
+           recompute runs the forward again); step ms (median after the
+           first), tokens/s, peak memory and a profiled step's idle share.
+           Then 5 steps under remat "none" at the same batch (step ms
+           against "dots", peak memory, 24 flash launches a step, a
+           profiled step's idle share and host ops). Then the kernel path against the plain path at the driver's
+           params and first batch: one loss and gradient under
+           ``impl="cuda"`` and one under ``impl="ref"`` (bf16 compute: loss
+           within 2e-2 relative, gradient cosine >= 0.999; f32 compute:
+           loss and gradient relative L2 within 1e-4), each with a control
+           (the kernel path's gradient plus noise) that must fail. Then
+           olmo_1b (16 layers), llama3_8b (2 of 32), mamba2 (48), zamba2
+           (38), seamless (24 + 24), grok-1 (1 layer, 4 of 8 experts) and
+           arctic (1 layer, 16 of 128 experts) at published width, 3 steps
+           of 4 x 1,024 tokens each through ``make_train_step``, their flash
+           launches a step, peak memory and the same kernel-vs-plain checks
+           (MoE: routing flips only near ties; where the SSD scan runs in
+           bf16, ROADMAP §C8, the kernel path's gradient no further from
+           the f32 computation's than 1.5x the plain path's, and the f32
+           computation's own kernel path within 1e-4 of its plain path).
 
 The unfused path's deterministic routes (the hash backward's int64
 fixed-point scatter, the MLP backward's per-block dW rows summed in order)
@@ -300,6 +329,17 @@ FLASH_CASES = (
     (2, 4096, 4096, 48, 8, 128, True, None, "bfloat16"),
     (2, 4096, 4096, 56, 8, 128, True, None, "bfloat16"),
     (2, 4096, 4096, 32, 32, 64, True, None, "bfloat16"),
+    # phase 13's training shapes: qwen2 (8 x 1,024), then 4 x 1,024 for
+    # olmo, llama3, zamba2's shared block, the seamless decoder (causal) and
+    # its encoder and cross-attention (non-causal, Sq = Sk), grok and arctic
+    (8, 1024, 1024, 14, 2, 64, True, None, "bfloat16"),
+    (4, 1024, 1024, 16, 16, 128, True, None, "bfloat16"),
+    (4, 1024, 1024, 32, 8, 128, True, None, "bfloat16"),
+    (4, 1024, 1024, 32, 32, 64, True, None, "bfloat16"),
+    (4, 1024, 1024, 16, 16, 64, True, None, "bfloat16"),
+    (4, 1024, 1024, 16, 16, 64, False, None, "bfloat16"),
+    (4, 1024, 1024, 48, 8, 128, True, None, "bfloat16"),
+    (4, 1024, 1024, 56, 8, 128, True, None, "bfloat16"),
 )
 #: the seamless encoder's case (row 8-nc of the kernels line)
 ENCODER_CASE = (2, 4096, 4096, 16, 16, 64, False, None, "bfloat16")
@@ -324,6 +364,30 @@ FAMILY_FLASH = {"grok_1_314b": 4, "arctic_480b": 2, "zamba2_1_2b": 6,
 FAMILY_MOE_CHECK_PROMPT = 1024
 FAMILY_SEQ_STEPS = 4          # the encoder-decoder's teacher-forced steps
 FAMILY_IMPL = "auto"          # the served path's backend ("auto": the card's)
+# phase 13: LM training. The driver's run (``launch.train.main``) of
+# TRAIN_LM_ARCH at its published CONFIG with TRAIN_LM_ARGS, then resumed
+# to TRAIN_LM_RESUME; TRAIN_LM_EXTRA holds further driver flags (the
+# rehearsal on a CPU: ``--smoke --device cpu --impl cuda``). Then each of
+# TRAIN_FAMILIES, (arch, layers (None: the published depth), experts
+# (None: the published count)), trains TRAIN_FAMILY_STEPS steps of
+# TRAIN_FAMILY_BATCH x TRAIN_FAMILY_SEQ tokens through make_train_step;
+# TRAIN_CONFIGS maps an arch to the config to train in the place of its
+# published CONFIG (the rehearsal hands in SMOKE configs)
+TRAIN_LM_ARCH = "qwen2_0_5b"
+# (--ckpt-every divides neither --steps nor TRAIN_LM_RESUME, where the
+# driver's final save would write that step a second time: steps 7, 8 and
+# 12 are written, 7 asynchronously)
+TRAIN_LM_ARGS = ("--steps", "8", "--batch", "8", "--seq", "1024", "--ckpt-every", "7")
+TRAIN_LM_RESUME = 12
+TRAIN_REMAT_NONE_STEPS = 4    # TRAIN_LM_ARCH's steps under remat "none"
+TRAIN_LM_EXTRA: tuple = ()
+TRAIN_FAMILIES = (("olmo_1b", None, None), ("llama3_8b", 2, None),
+                  ("mamba2_780m", None, None), ("zamba2_1_2b", None, None),
+                  ("seamless_m4t_large_v2", None, None), ("grok_1_314b", 1, 4),
+                  ("arctic_480b", 1, 16))
+TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ, TRAIN_FAMILY_STEPS = 4, 1024, 3
+TRAIN_CONFIGS: dict = {}
+TRAIN_IMPL = "auto"           # the trained path's backend ("auto": the card's)
 # phase 8: the in situ session's rank edge (8 ranks: the 2x2x2 split of a
 # 512^3 volume), cycles and window; the shock trigger (the share of voxels
 # above SHOCK_LEVEL: ~0.024 at cycle 4 and ~0.028 at cycle 5 of a 512^3
@@ -930,8 +994,9 @@ class RouteLog:
 
         def logged(cfg, p, x_flat):
             w, ids, aux = self.real(cfg, p, x_flat)
-            probs = torch.softmax(x_flat.float() @ p["router"].float(), dim=-1)
-            self.calls.append((ids, probs))
+            with torch.no_grad():         # no graph kept under training
+                probs = torch.softmax(x_flat.float() @ p["router"].float(), dim=-1)
+            self.calls.append((ids.detach(), probs))
             return w, ids, aux
 
         self.moe.route = logged
@@ -1241,6 +1306,508 @@ def flash_encoder_row(tag: str, dev, launches: int) -> dict:
             "replaces": REPLACES["flash_attention"], "launches": launches,
             "max_abs_err": FLASH_CASE_ERRS[ENCODER_CASE], "ms": ms,
             "plain_ms": pms, "bound_ms": bms, "bound_by": by, "library_ms": lms}
+
+
+# --------------------------------------------------------------------------- #
+# phase 13: LM training
+# --------------------------------------------------------------------------- #
+def attention_calls_of(cfg) -> int:
+    """Attention calls of a training forward pass that reach the flash
+    kernel: every self-attention layer, the hybrid's shared block once a
+    group, the encoder-decoder's encoder, decoder and cross-attention."""
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.n_layers
+    return flash_launches_of(cfg)
+
+
+def flash_per_step(cfg) -> int:
+    """Flash launches a training step: the forward pass, and again in the
+    backward pass's recompute under remat ("dots" or "full")."""
+    return attention_calls_of(cfg) * (1 if cfg.remat == "none" else 2)
+
+
+def _chunks(t):
+    """Slices of AdamW.CHUNK elements of ``t`` flattened."""
+    from repro_torch.optim import AdamW
+    flat, n = t.reshape(-1), AdamW.CHUNK
+    for a in range(0, flat.numel(), n):
+        yield flat[a:a + n]
+
+
+def grad_stats(got, want) -> tuple:
+    """(cosine, relative L2 ||got - want|| / ||want||) of two gradient lists
+    taken as one vector, summed in float64 a slice at a time."""
+    dot = nn_ = ww = dd = 0.0
+    for g, w in zip(got, want):
+        for a, b in zip(_chunks(g), _chunks(w)):
+            a, b = a.double(), b.double()
+            dot += float((a * b).sum())
+            nn_ += float((a * a).sum())
+            ww += float((b * b).sum())
+            dd += float(((a - b) ** 2).sum())
+    return dot / max((nn_ * ww) ** 0.5, 1e-300), (dd / max(ww, 1e-300)) ** 0.5
+
+
+def loss_and_grads(model, params, batch, impl):
+    """The loss and its gradient w.r.t. every param (a list in
+    ``tree_leaves`` order), through autograd."""
+    import torch
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    work = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    loss, _ = model.loss(work, batch, impl=impl)
+    gs = torch.autograd.grad(loss, tree_leaves(work), allow_unused=True,
+                             materialize_grads=True)
+    return float(loss.detach()), list(gs)
+
+
+def perturbed(grads, rel: float, seed: int = 13) -> list:
+    """``grads`` plus Gaussian noise of relative L2 norm ``rel`` (a
+    control's planted fault)."""
+    import torch
+    gen = torch.Generator(device=grads[0].device).manual_seed(seed)
+    noise = [torch.randn(g.shape, generator=gen, device=g.device) for g in grads]
+    gn = sum(float(g.double().pow(2).sum()) for g in grads) ** 0.5
+    nn_ = sum(float(n.double().pow(2).sum()) for n in noise) ** 0.5
+    return [(g.float() + n * (rel * gn / nn_)).to(g.dtype) for g, n in zip(grads, noise)]
+
+
+def check_paths(label, dtype, lk, lp, gk, gp) -> None:
+    """The kernel path's loss and gradient against the plain path's: bf16
+    compute, loss within 2e-2 relative and gradient cosine >= 0.999;
+    float32 compute, loss and gradient (relative L2) within 1e-4."""
+    cos, rel = grad_stats(gk, gp)
+    lrel = abs(lk - lp) / max(abs(lp), 1e-30)
+    f32 = dtype == "float32"
+    ok = (lrel <= 1e-4 and rel <= 1e-4) if f32 else (lrel <= 2e-2 and cos >= 0.999)
+    print(f"    {label} {dtype}: loss {lk:.6f} kernel / {lp:.6f} plain (relative "
+          f"{lrel:.3e}, limit {'1e-4' if f32 else '2e-2'}); gradient cosine "
+          f"{cos:.6f}{'' if f32 else ' (limit 0.999)'}, relative L2 {rel:.3e}"
+          f"{' (limit 1e-4)' if f32 else ''}  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"{label} {dtype}: kernel vs plain path: loss {lrel:.3e}, "
+                           f"cosine {cos:.6f}, relative L2 {rel:.3e}")
+
+
+def check_scan_grads(label, gk, gp, g32) -> None:
+    """ROADMAP §C8 for training: where the SSD scan runs in bf16, the kernel
+    path's gradient no further from the float32 computation's, in relative
+    L2, than SCAN_BF16_FACTOR x the plain path's."""
+    dk, dp = grad_stats(gk, g32)[1], grad_stats(gp, g32)[1]
+    ok = dk <= SCAN_BF16_FACTOR * dp
+    print(f"    {label}: bf16 gradient against the f32 computation (relative L2): "
+          f"kernel path {dk:.4e}, plain path {dp:.4e} (limit {SCAN_BF16_FACTOR} x "
+          f"the plain path's)  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SmokeFailure(f"{label}: bf16 kernel path {dk:.4e} from f32 against "
+                           f"the plain path's {dp:.4e}")
+
+
+def path_checks(label, cfg, params, batch, dev) -> dict:
+    """Phase 13's check of one model: one loss and gradient under
+    ``impl="cuda"`` and one under ``impl="ref"`` from the same params and
+    batch (bf16 compute: ``check_paths``; the scan families: C8's yardstick
+    against the float32 computation, whose own kernel path is held to its
+    plain path at 1e-4 where it has attention), the MoE routing flips, and
+    a control with a perturbed gradient that must fail."""
+    import torch
+    from repro_torch.models import build_model
+    model = build_model(cfg)
+    with RouteLog() as rk:
+        lk, gk = loss_and_grads(model, params, batch, "cuda")
+    with RouteLog() as rp:
+        lp, gp = loss_and_grads(model, params, batch, "ref")
+    out = {"loss_kernel": lk, "loss_plain": lp}
+    if cfg.moe is not None:
+        flips = route_flips(rk, rp, cfg.moe.top_k)
+        print(f"    routed experts, kernel vs plain path (forward and recompute): "
+              f"flips per call {[f for f, _ in flips]} of "
+              f"{rk.calls[0][0].shape[0]:,} tokens, the router probabilities' "
+              f"departure {[float(f'{d:.3e}') for _, d in flips]}; each flip within "
+              f"twice its call's departure of a tie  ok")
+    del rk, rp
+    if cfg.ssm is not None and cfg.compute_dtype != "float32":
+        cos, _ = grad_stats(gk, gp)
+        print(f"    {label} {cfg.compute_dtype}: loss {lk:.6f} kernel / {lp:.6f} plain; "
+              f"gradient cosine {cos:.6f} (C8: held to the f32 computation below)")
+        m32 = build_model(cfg.replace(compute_dtype="float32"))
+        l32, g32 = loss_and_grads(m32, params, batch, "ref")
+        if attention_calls_of(cfg):
+            l32k, g32k = loss_and_grads(m32, params, batch, "cuda")
+            check_paths(f"{label} full depth", "float32", l32k, l32, g32k, g32)
+            del g32k
+        check_scan_grads(label, gk, gp, g32)
+        dp = grad_stats(gp, g32)[1]
+        must_fail(f"{label}: the kernel path's gradient plus noise of twice the "
+                  f"plain path's departure", lambda: check_scan_grads(
+                      label, perturbed(gk, 2 * dp), gp, g32))
+        out["loss_f32"] = l32
+    else:
+        check_paths(label, cfg.compute_dtype, lk, lp, gk, gp)
+        rel = 1e-3 if cfg.compute_dtype == "float32" else 5e-2
+        must_fail(f"{label}: the kernel path's gradient plus noise of relative "
+                  f"L2 {rel:g}", lambda: check_paths(
+                      label, cfg.compute_dtype, lk, lp, perturbed(gk, rel), gp))
+    del gk, gp
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+class StepLog:
+    """Times each call of the train steps ``make_train_step`` returns while
+    installed in its place in ``launch.train`` (synchronised on both sides;
+    host clock), counts their flash launches, and profiles the call
+    numbered ``profile_at``."""
+
+    def __init__(self, profile_at=None):
+        from repro_torch.launch import train
+        from repro_torch.kernels.flash_attention import ops as flash_ops
+        self.train, self.flash_ops = train, flash_ops
+        self.real = train.make_train_step
+        self.ms, self.flash, self.profile_at, self.profile = [], [], profile_at, None
+
+    def __enter__(self):
+        import torch
+        log = self
+
+        def make(*args, **kw):
+            step = log.real(*args, **kw)
+
+            def timed(params, opt_state, batch):
+                n = log.flash_ops.flash_attention_cuda.launches
+                torch.cuda.synchronize()
+                if len(log.ms) + (log.profile is not None) == log.profile_at:
+                    out = []
+                    log.profile = profile_tick(lambda: out.append(
+                        step(params, opt_state, batch)))
+                    log.profile_flash = log.flash_ops.flash_attention_cuda.launches - n
+                    return out[0]
+                t0 = time.perf_counter()
+                out = step(params, opt_state, batch)
+                torch.cuda.synchronize()
+                log.ms.append((time.perf_counter() - t0) * 1e3)
+                log.flash.append(log.flash_ops.flash_attention_cuda.launches - n)
+                return out
+
+            timed.optimizer = step.optimizer
+            return timed
+
+        self.train.make_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        self.train.make_train_step = self.real
+
+
+def print_profile(profile, tag, what) -> None:
+    """A profiled call's device busy time and idle share, its costliest
+    kernels and its costliest host ops (own CPU time)."""
+    busy, by_kernel, wall, host = profile
+    if busy is None:
+        print(f"    profiled {what}: no device time recorded (not measured) [{tag}]")
+        return
+    print(f"    profiled {what}: {wall:.2f} ms host clock, device busy {busy:.2f} ms, "
+          f"idle share {1 - busy / wall:.3f} [{tag}]")
+    for name, (ms, n) in by_kernel[:8]:
+        print(f"      {ms:9.3f} ms  x{n:<5d} {name[:90]}")
+    print(f"      host: {sum(n for _, (_, n) in host):,} op calls; the costliest:")
+    for name, (ms, n) in host[:6]:
+        print(f"      {ms:9.3f} ms  x{n:<5d} {name[:90]}")
+
+
+def plain_attention_share(cfg, B, S, dev, step_ms, busy_ms) -> float:
+    """The plain attention backward (JAX's: the plain version's VJP,
+    recomputed; there is no backward kernel) at a layer's shapes, timed
+    with CUDA events, and its share of a training step: x the layers,
+    over the step's host clock and over its device busy time."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
+    cdt = getattr(torch, cfg.compute_dtype)
+    dh = cfg.resolved_head_dim
+    gen = torch.Generator(device=dev).manual_seed(9)
+    q = torch.randn((B, S, cfg.n_heads, dh), generator=gen, device=dev).to(cdt)
+    k = torch.randn((B, S, cfg.n_kv_heads, dh), generator=gen, device=dev).to(cdt)
+    v = torch.randn((B, S, cfg.n_kv_heads, dh), generator=gen, device=dev).to(cdt)
+    g = torch.randn((B, S, cfg.n_heads, dh), generator=gen, device=dev).to(cdt)
+
+    def vjp():
+        qq, kk, vv = (t.detach().requires_grad_(True) for t in (q, k, v))
+        with torch.enable_grad():
+            out = attention_ref(qq, kk, vv, causal=True, window=cfg.sliding_window)
+        return torch.autograd.grad(out, (qq, kk, vv), g)
+
+    n = flash_attention_cuda.launches
+    bwd = cuda_ms(vjp, reps=5)
+    fwd = cuda_ms(lambda: flash_attention_cuda(q, k, v, True, cfg.sliding_window), reps=5)
+    flash_attention_cuda.launches = n          # a measurement, not the path
+    L = attention_calls_of(cfg)
+    share = f", {L * bwd / busy_ms:.3f} of its device busy time" if busy_ms else ""
+    print(f"    the plain attention backward (recomputed VJP) at a layer's shapes "
+          f"({B} x {S}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {dh}): {bwd:.3f} ms, "
+          f"x {L} layers = {L * bwd:.1f} ms, {L * bwd / step_ms:.3f} of a step's "
+          f"host clock{share}; the flash forward {fwd:.3f} ms, x {2 * L} a step "
+          f"[CUDA events]")
+    return bwd
+
+
+def train_config(arch, layers, experts):
+    """The config phase 13 trains: the published CONFIG (TRAIN_CONFIGS'
+    stand-in where given), cut to ``layers`` and ``experts``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = TRAIN_CONFIGS.get(arch) or get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    if experts is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, num_experts=experts))
+    return cfg
+
+
+def train_steps(model, params, dev, B: int, S: int, n: int) -> tuple:
+    """``n`` steps of ``make_train_step`` (the driver's optimizer, its
+    batches of B x S tokens), each timed on the host clock between
+    synchronisations with the flash counter zeroed just before it:
+    (params, opt state, step, losses, ms, flash launches a step)."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.optim import OptConfig
+    from repro_torch.train import make_train_step
+
+    step = make_train_step(model, OptConfig(lr=3e-4, schedule="cosine", warmup_steps=10,
+                                            total_steps=100, clip_norm=1.0),
+                           impl=TRAIN_IMPL)
+    opt = step.optimizer.init(params)
+    shape = ShapeConfig("t", "train", S, B)
+    losses, ms, flash = [], [], []
+    for i in range(n):
+        batch = synth_batch(model, shape, i, dev)
+        torch.cuda.synchronize()
+        flash_ops.flash_attention_cuda.launches = 0
+        t0 = time.perf_counter()
+        params, opt, metrics = step(params, opt, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        flash.append(flash_ops.flash_attention_cuda.launches)
+        losses.append(float(metrics["loss"]))
+    return params, opt, step, losses, ms, flash
+
+
+def remat_none_run(tag, dev, cfg, B, S, dots_ms) -> int:
+    """TRAIN_REMAT_NONE_STEPS steps of ``cfg`` under remat "none" at the
+    driver's batch (the driver's optimizer and batches, through
+    ``make_train_step``): step ms (median after the first, against the
+    "dots" median), peak memory, flash launches a step (the layers, once)
+    and a profiled step's idle share and host ops: what the "dots" policy's
+    dispatch mode costs. Returns its flash launches."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models import build_model
+
+    cfg = cfg.replace(remat="none")
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, step, losses, ms, flash = train_steps(
+        model, model.init(0, device=dev), dev, B, S, TRAIN_REMAT_NONE_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    batch = synth_batch(model, ShapeConfig("t", "train", S, B),
+                        TRAIN_REMAT_NONE_STEPS, dev)
+    flash_ops.flash_attention_cuda.launches = 0
+    profile = profile_tick(lambda: step(params, opt, batch))
+    flash.append(flash_ops.flash_attention_cuda.launches)
+    want = flash_per_step(cfg)
+    med = sorted(ms[1:])[len(ms[1:]) // 2]
+    print(f"    remat \"none\", {TRAIN_REMAT_NONE_STEPS + 1} steps: losses "
+          f"{[round(x, 4) for x in losses]}; step {med:.2f} ms (median after the "
+          f"first; {[round(x, 1) for x in ms]}; host clock, synchronised) against "
+          f"{dots_ms:.2f} ms under {cfg.name}'s \"dots\" ({dots_ms / med:.2f}x), "
+          f"{B * S / med * 1e3:.0f} tokens/s; peak memory {peak / 2**30:.3f} GiB; "
+          f"flash launches a step {flash} (want {want}) [{tag}]")
+    print_profile(profile, tag, f"remat \"none\" step {TRAIN_REMAT_NONE_STEPS + 1}")
+    if not np.isfinite(losses).all() or set(flash) != {want}:
+        raise SmokeFailure(f"phase 13 remat none: losses {losses}, flash {flash}")
+    del params, opt, step, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return sum(flash)
+
+
+def driver_run(tag, dev) -> dict:
+    """Phase 13 (a): TRAIN_LM_ARCH through ``launch.train.main`` with
+    TRAIN_LM_ARGS, then ``--resume`` to TRAIN_LM_RESUME: step ms (median
+    after the first), tokens/s, peak memory, a profiled step's idle share
+    and flash launches a step; then the kernel path against the plain path
+    (bf16 and float32 compute) at the driver's params and first batch."""
+    import shutil
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+
+    ckpt = ROOT / "build" / "lm_train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    argv = ["--arch", TRAIN_LM_ARCH, *TRAIN_LM_ARGS, "--ckpt-dir", str(ckpt),
+            "--log-every", "1", *TRAIN_LM_EXTRA]
+    smoke = "--smoke" in TRAIN_LM_EXTRA
+    cfg = get_smoke_config(TRAIN_LM_ARCH) if smoke else get_config(TRAIN_LM_ARCH)
+    steps = int(argv[argv.index("--steps") + 1])
+    B = int(argv[argv.index("--batch") + 1])
+    S = int(argv[argv.index("--seq") + 1])
+    print(f"  (a) python -m repro_torch.launch.train {' '.join(argv)}: "
+          f"{cfg.name}, {cfg.n_layers} layers, d={cfg.d_model}, {cfg.n_heads}/"
+          f"{cfg.n_kv_heads} heads, vocab {cfg.vocab}, {cfg.param_count():,} "
+          f"{cfg.param_dtype} params, {cfg.compute_dtype} compute, remat "
+          f"{cfg.remat}; width and depth not cut; disk free "
+          f"{shutil.disk_usage(ROOT).free / 2**30:.0f} GiB")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash_ops.flash_attention_cuda.launches = 0
+    t0 = time.perf_counter()
+    with StepLog(profile_at=5) as log:
+        r1 = train.main(argv)
+        t1 = time.perf_counter()
+        r2 = train.main(argv[:argv.index("--steps") + 1] + [str(TRAIN_LM_RESUME)]
+                        + argv[argv.index("--steps") + 2:] + ["--resume"])
+    t2 = time.perf_counter()
+    launches = flash_ops.flash_attention_cuda.launches
+    peak = torch.cuda.max_memory_allocated()
+    shutil.rmtree(ckpt, ignore_errors=True)
+    losses = [h["loss"] for h in r1["history"] + r2["history"]]
+    want_steps = list(range(1, steps + 1)) + list(range(steps + 1, TRAIN_LM_RESUME + 1))
+    got_steps = [h["step"] for h in r1["history"] + r2["history"]]
+    print(f"    losses by step {dict(zip(got_steps, [round(x, 4) for x in losses]))}")
+    if got_steps != want_steps or not np.isfinite(losses).all():
+        raise SmokeFailure(f"phase 13 (a): steps {got_steps} (want {want_steps}: the "
+                           f"resume must continue at {steps + 1}), losses {losses}")
+    want_flash = flash_per_step(cfg)
+    per_step = sorted(set(log.flash + [log.profile_flash]))
+    print(f"    resumed at step {r2['history'][0]['step']} (not restarted); flash "
+          f"launches a step {per_step} (want {want_flash}: {attention_calls_of(cfg)} "
+          f"attention layers, x2 for the recompute under remat={cfg.remat!r}); "
+          f"{launches} in the {TRAIN_LM_RESUME} steps")
+    if per_step != [want_flash] or launches != want_flash * TRAIN_LM_RESUME:
+        raise SmokeFailure(f"phase 13 (a): flash launches {per_step} a step, "
+                           f"{launches} in all")
+    ms = sorted(log.ms[1:])
+    med = ms[len(ms) // 2]
+    print(f"    step {med:.2f} ms (median of {len(ms)} after the first; range "
+          f"{ms[0]:.2f}-{ms[-1]:.2f}; first {log.ms[0]:.2f}), {B * S / med * 1e3:.0f} "
+          f"tokens/s; peak memory {peak / 2**30:.3f} GiB; the two driver runs "
+          f"{t1 - t0:.1f} + {t2 - t1:.1f} s with their checkpoints [{tag}]")
+    print_profile(log.profile, tag, f"step {log.profile_at + 1}")
+    busy = log.profile[0]
+    if busy is not None:
+        print(f"    the profiled step's device busy time against the median "
+              f"unprofiled step: idle share {1 - busy / med:.3f} [{tag}]")
+    attn = plain_attention_share(cfg, B, S, dev, med, busy)
+    none_launches = remat_none_run(tag, dev, cfg, B, S, med)
+    # the kernel path against the plain path at the driver's params and its
+    # first batch (the driver draws both from seed 0 / step 0)
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    batch = train.synth_batch(model, ShapeConfig("driver", "train", S, B), 0, dev)
+    path_checks(cfg.name, cfg, params, batch, dev)
+    path_checks(cfg.name, cfg.replace(compute_dtype="float32"), params, batch, dev)
+    del params, batch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"arch": TRAIN_LM_ARCH, "launches": launches,
+            "launches_remat_none": none_launches, "step_ms": med,
+            "plain_attention_bwd_ms": attn,
+            "tokens_per_s": B * S / med * 1e3, "peak_gib": peak / 2**30,
+            "idle": None if log.profile[0] is None else 1 - log.profile[0] / log.profile[2]}
+
+
+def train_family(tag, dev, arch, layers, experts) -> tuple:
+    """Phase 13 (b): one family at published width, ``layers`` / ``experts``
+    cut, TRAIN_FAMILY_STEPS steps through ``make_train_step`` (the driver's
+    optimizer), then ``path_checks``; returns its flash launches, (causal,
+    non-causal): the encoder-decoder's encoder and cross-attention are the
+    non-causal ones (row 8-nc)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models import build_model
+
+    cfg = train_config(arch, layers, experts)
+    full = TRAIN_CONFIGS.get(arch) or get_config(arch)
+    cuts = []
+    if layers is not None:
+        cuts.append(f"depth {full.n_layers} -> {cfg.n_layers}")
+    if experts is not None:
+        cuts.append(f"experts {full.moe.num_experts} -> {cfg.moe.num_experts} "
+                    f"(top-{cfg.moe.top_k} kept)")
+    B, S = TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ
+    print(f"  {arch} ({cfg.family}): d={cfg.d_model}, {cfg.n_layers} layers"
+          f"{f' + {cfg.encoder_layers} encoder' if cfg.encoder_layers else ''}"
+          f"{f', {cfg.moe.num_experts} experts top-{cfg.moe.top_k}' if cfg.moe else ''}; "
+          f"{cfg.param_count():,} {cfg.param_dtype} params, {cfg.compute_dtype} "
+          f"compute, remat {cfg.remat}; "
+          f"{'; '.join(cuts) + ' (device memory)' if cuts else 'width and depth not cut'}"
+          f"; {B} x {S} tokens a step")
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt, step, losses, ms, flash = train_steps(
+        model, model.init(torch.Generator(device=dev).manual_seed(0)), dev, B, S,
+        TRAIN_FAMILY_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    want = flash_per_step(cfg)
+    print(f"    losses {[round(x, 4) for x in losses]}; step ms "
+          f"{[round(x, 1) for x in ms]} (host clock, synchronised); peak memory "
+          f"{peak / 2**30:.3f} GiB; flash launches a step {flash} (want {want}) [{tag}]")
+    if not np.isfinite(losses).all() or set(flash) != {want}:
+        raise SmokeFailure(f"phase 13 {arch}: losses {losses}, flash launches {flash}")
+    del opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    path_checks(arch, cfg, params,
+                synth_batch(model, ShapeConfig("t", "train", S, B), 0, dev), dev)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    causal = (cfg.n_layers * want // attention_calls_of(cfg) * len(flash)
+              if cfg.family == "encdec" else sum(flash))
+    return causal, sum(flash) - causal
+
+
+def lm_training_phase(tag: str, dev) -> tuple:
+    """Phase 13: LM training on the card (``driver_run``, then
+    ``train_family`` for each of TRAIN_FAMILIES); returns each path's flash
+    launches, causal (row 8) and non-causal (row 8-nc)."""
+    import torch
+    t0 = time.perf_counter()
+    print(f"== phase 13: LM training: {TRAIN_LM_ARCH} through the driver, then "
+          f"{len(TRAIN_FAMILIES)} more architectures at published width [{tag}]")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    first = driver_run(tag, dev)
+    causal = {f"train {first['arch']}": first["launches"],
+              f"train {first['arch']} remat none": first["launches_remat_none"]}
+    full = {}
+    print(f"  (b) the other families, {TRAIN_FAMILY_STEPS} steps each")
+    for arch, layers, experts in TRAIN_FAMILIES:
+        c, nc = train_family(tag, dev, arch, layers, experts)
+        causal[f"train {arch}"] = c
+        if nc:
+            full[f"train {arch}"] = nc
+    print(f"  phase 13: {time.perf_counter() - t0:.1f} s [{tag}]")
+    return causal, full
 
 
 def scatter_requests(coords, res, T: int, F: int, plan, blocks) -> dict:
@@ -5275,15 +5842,22 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     fam = families_phase(tag, torch.device(DEVICE))
-    # the flash kernel's launches on each main path: phase 7's and the
-    # families' causal prefills in row 8, the encoder's in row 8-nc
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained, trained_nc = lm_training_phase(tag, torch.device(DEVICE))
+    # the flash kernel's launches on each main path: phase 7's, the
+    # families' causal prefills and the causal training steps in row 8, the
+    # encoder's and the cross-attention's in row 8-nc
     flash = next(r for r in kernels if r["name"] == "flash_attention")
     by_path = {LM_ARCH: flash["launches"]}
     by_path.update({a: n for a, n in fam.items() if a != "seamless_m4t_large_v2"})
+    by_path.update(trained)
     flash["launches"] = sum(by_path.values())
     flash["launches_by_path"] = by_path
-    kernels.append(flash_encoder_row(tag, torch.device(DEVICE),
-                                     fam["seamless_m4t_large_v2"]))
+    nc_by_path = {"seamless_m4t_large_v2": fam["seamless_m4t_large_v2"], **trained_nc}
+    encoder = flash_encoder_row(tag, torch.device(DEVICE), sum(nc_by_path.values()))
+    encoder["launches_by_path"] = nc_by_path
+    kernels.append(encoder)
     print(tag)                        # name, power limit as nvidia-smi says
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -49,9 +49,10 @@ _BF16 = "bfloat16"
 
 
 def _to_host(x):
-    """(numpy array, manifest dtype token) of one leaf."""
+    """(numpy array, manifest dtype token) of one leaf: a copy, so that an
+    asynchronous write never sees a later in-place update of ``x``."""
     if torch.is_tensor(x):
-        t = x.detach().to("cpu").contiguous()
+        t = x.detach().to("cpu", copy=True).contiguous()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), _BF16
         a = t.numpy()

@@ -10,9 +10,13 @@ one), ``prefill`` and ``loss`` take ``impl="auto"`` (the ``cuda`` backend;
 raises without a GPU), also where a family has no attention for ``impl``
 to choose. ``device="cpu"`` with ``impl="ref"`` runs the plain PyTorch
 versions on the CPU. ``moe_dispatch`` takes JAX's names; ``"a2a"`` and a
-``sharder`` (a mesh) raise ``NotImplementedError`` naming ROADMAP item 16.
-JAX's ``input_specs`` (the trainer's and the dry-run's shape stand-ins)
-waits for the LM training slice (ROADMAP item 16).
+``sharder`` with a mesh raise ``NotImplementedError`` naming ROADMAP item
+16 (``None`` or a mesh-less ``Sharder`` is the single-card path).
+
+``input_specs(shape)`` gives the inputs a family takes at a
+``ShapeConfig`` as shape-and-dtype stand-ins: tensors on ``device="meta"``
+(no storage, nothing executes), with the JAX package's keys, shapes and
+dtypes. The training driver fills them (``launch.train.synth_batch``).
 """
 from __future__ import annotations
 
@@ -22,9 +26,10 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch import backends
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec, hybrid, ssm_lm, transformer
 from repro_torch.models.moe import DISPATCHES, moe_block_a2a
+from repro_torch.precision import torch_dtype
 
 
 @dataclass
@@ -35,6 +40,7 @@ class Model:
     prefill: Optional[Callable[..., tuple]]          # (params, batch, seq_len, sharder, impl) -> (logits, cache)
     decode_step: Optional[Callable[..., tuple]]      # (params, cache, tokens, sharder) -> (logits, cache)
     init_cache: Optional[Callable[..., Any]]         # (batch, seq_len, device) -> cache
+    input_specs: Callable[[ShapeConfig], dict]       # meta-tensor stand-ins
 
 
 def build_model(cfg: ModelConfig, moe_dispatch: str = "scatter") -> Model:
@@ -54,6 +60,52 @@ def build_model(cfg: ModelConfig, moe_dispatch: str = "scatter") -> Model:
     raise ValueError(f"unknown family {fam!r}")
 
 
+# --------------------------------------------------------------------------- #
+def _sds(shape, dtype) -> torch.Tensor:
+    """A shape-and-dtype stand-in: a tensor on the meta device."""
+    dt = torch.int32 if dtype == "int32" else torch_dtype(dtype)
+    return torch.empty(shape, dtype=dt, device="meta")
+
+
+def _lm_token_specs(cfg, shape: ShapeConfig) -> dict:
+    B, S = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        return {"tokens": _sds((B, S), "int32"), "labels": _sds((B, S), "int32")}
+    if shape.kind == "prefill":
+        return {"tokens": _sds((B, S), "int32")}
+    return {"tokens": _sds((B, 1), "int32")}          # decode
+
+
+def _embeds_specs(cfg, shape: ShapeConfig) -> dict:
+    B, S = shape.global_batch, shape.seq_len
+    d = cfg.d_model
+    cdt = cfg.compute_dtype
+    if cfg.family == "encdec":
+        if shape.kind == "train":
+            return {"src_embeds": _sds((B, S, d), cdt),
+                    "tgt_tokens": _sds((B, S), "int32"),
+                    "labels": _sds((B, S), "int32")}
+        if shape.kind == "prefill":
+            return {"src_embeds": _sds((B, S, d), cdt),
+                    "tgt_tokens": _sds((B, 1), "int32")}
+        return {"tokens": _sds((B, 1), "int32")}
+    # vlm: precomputed patch/text embeddings + M-RoPE positions
+    if shape.kind == "train":
+        return {"embeds": _sds((B, S, d), cdt),
+                "labels": _sds((B, S), "int32"),
+                "positions": _sds((3, B, S), "int32")}
+    if shape.kind == "prefill":
+        return {"embeds": _sds((B, S, d), cdt),
+                "positions": _sds((3, B, S), "int32")}
+    return {"tokens": _sds((B, 1), "int32")}
+
+
+def _specs_of(cfg):
+    specs = _embeds_specs if cfg.input_mode == "embeds" else _lm_token_specs
+    return lambda shape: specs(cfg, shape)
+
+
+# --------------------------------------------------------------------------- #
 def _generator(rng, device) -> torch.Generator:
     if isinstance(rng, torch.Generator):
         return rng
@@ -79,7 +131,7 @@ def _model(cfg, init_fn, loss_fn, prefill_fn, decode_fn, cache_fn) -> Model:
     def init_cache(batch, seq_len, device="auto"):
         return cache_fn(batch, seq_len, backends.resolve_device(device))
 
-    return Model(cfg, init, loss, prefill, decode_fn, init_cache)
+    return Model(cfg, init, loss, prefill, decode_fn, init_cache, _specs_of(cfg))
 
 
 def _build_transformer(cfg, moe_dispatch="scatter") -> Model:

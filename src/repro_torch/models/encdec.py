@@ -1,7 +1,8 @@
 """Encoder-decoder backbone (seamless-m4t style).
 
 The same functions as ``repro.models.encdec``, in PyTorch (Python loops
-over the stacked layers in the place of ``lax.scan``). The encoder takes
+over the stacked layers in the place of ``lax.scan``, each layer under the
+config's remat policy where a gradient is taken). The encoder takes
 precomputed modality-frontend embeddings (``src_embeds``) and runs
 non-causal self-attention through ``sdpa``, which the ``cuda`` backend
 sends to the flash kernel; the decoder is a causal stack with
@@ -22,8 +23,8 @@ from repro_torch.models.layers import (
     apply_mlp, apply_norm, dense_init, embed_init, init_norm, softmax_xent,
 )
 from repro_torch.models.transformer import (
-    _as_tensor, _stacked_norm, compute_dtype, embed_tokens, layer_slice,
-    logits_fn, make_positions, param_dtype,
+    _as_tensor, _stacked_norm, compute_dtype, embed_tokens,
+    layer_slices, logits_fn, make_positions, param_dtype, remat_wrap,
 )
 from repro_torch.parallel.sharding import padded_vocab, require_no_sharder
 
@@ -85,14 +86,18 @@ def encode(cfg, params, src_embeds, sharder=None, impl="ref"):
     require_no_sharder(sharder)
     B, S, _ = src_embeds.shape
     positions = make_positions(cfg, B, S, src_embeds.device)
-    x = src_embeds
-    for i in range(cfg.encoder_layers):
-        lp = layer_slice(params["encoder"]["layers"], i)
+
+    def layer(x, lp):
         h = apply_norm(cfg, lp["norm1"], x)
         x = x + attn.attention_block(cfg, lp["attn"], h, positions, causal=False,
                                      impl=impl)
         h2 = apply_norm(cfg, lp["norm2"], x)
-        x = x + apply_mlp(cfg, lp["mlp"], h2)
+        return x + apply_mlp(cfg, lp["mlp"], h2)
+
+    body = remat_wrap(cfg, layer)
+    x = src_embeds
+    for lp in layer_slices(params["encoder"]["layers"], cfg.encoder_layers):
+        x = body(x, lp)
     return apply_norm(cfg, params["encoder"]["final_norm"], x)
 
 
@@ -102,15 +107,19 @@ def decode_train(cfg, params, tgt_tokens, enc_out, sharder=None, impl="ref"):
     x = embed_tokens(cfg, params, tgt_tokens)
     B, S = x.shape[:2]
     positions = make_positions(cfg, B, S, x.device)
-    for i in range(cfg.n_layers):
-        lp = layer_slice(params["decoder"]["layers"], i)
+
+    def layer(x, lp):
         h = apply_norm(cfg, lp["norm1"], x)
         x = x + attn.attention_block(cfg, lp["attn"], h, positions, causal=True,
                                      impl=impl)
         h2 = apply_norm(cfg, lp["norm3"], x)
         x = x + attn.cross_attention_block(cfg, lp["cross"], h2, enc_out, impl=impl)
         h3 = apply_norm(cfg, lp["norm2"], x)
-        x = x + apply_mlp(cfg, lp["mlp"], h3)
+        return x + apply_mlp(cfg, lp["mlp"], h3)
+
+    body = remat_wrap(cfg, layer)
+    for lp in layer_slices(params["decoder"]["layers"], cfg.n_layers):
+        x = body(x, lp)
     return apply_norm(cfg, params["decoder"]["final_norm"], x)
 
 
@@ -163,8 +172,8 @@ def encdec_decode_step(cfg, params, cache, tokens, sharder=None):
     pos = _as_tensor(cache["pos"], x.device, torch.int32)
     dh = cfg.resolved_head_dim
     B = x.shape[0]
-    for i in range(cfg.n_layers):
-        lp = layer_slice(params["decoder"]["layers"], i)
+    for i, lp in enumerate(layer_slices(params["decoder"]["layers"],
+                                        cfg.n_layers)):
         h = apply_norm(cfg, lp["norm1"], x)
         o, _, _ = attn.decode_attention(cfg, lp["attn"], h, cache["k"][i],
                                         cache["v"][i], pos)

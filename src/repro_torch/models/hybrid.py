@@ -2,9 +2,11 @@
 block applied after every ``hybrid_shared_every``-th mamba layer.
 
 The same functions as ``repro.models.hybrid``, in PyTorch (Python loops in
-the place of ``lax.scan``). 38 layers with period 6 give 6 groups of 6
-mamba layers, each followed by the shared block, then a tail of 2 mamba
-layers. The shared block's prefill attention goes through ``sdpa``, which
+the place of ``lax.scan``). Where a gradient is taken, each mamba layer and
+each application of the shared block runs under the config's remat policy
+(JAX nests a group's remat around its layers'; the values are the same).
+38 layers with period 6 give 6 groups of 6 mamba layers, each followed by
+the shared block, then a tail of 2 mamba layers. The shared block's prefill attention goes through ``sdpa``, which
 sends it to the flash kernel on the ``cuda`` backend.
 
 ``hybrid_prefill`` puts the prompt's KV at the head of a ``seq_len`` cache,
@@ -23,8 +25,8 @@ from repro_torch.models.layers import (
     softmax_xent,
 )
 from repro_torch.models.transformer import (
-    _as_tensor, _stacked_norm, compute_dtype, embed_tokens, layer_slice,
-    logits_fn, make_positions, param_dtype,
+    _as_tensor, _stacked_norm, compute_dtype, embed_tokens, layer_slices,
+    logits_fn, make_positions, param_dtype, remat_wrap,
 )
 from repro_torch.parallel.sharding import padded_vocab, require_no_sharder
 
@@ -70,10 +72,11 @@ def _mamba_layers(cfg, params):
     """Each mamba layer's params in order, with the index of the group it
     closes (None inside a group and in the tail)."""
     n_groups, g, tail = group_structure(cfg)
-    for i in range(n_groups * g):
-        yield layer_slice(params["groups"], i), (i // g if i % g == g - 1 else None)
-    for i in range(tail):
-        yield layer_slice(params["tail"], i), None
+    for i, lp in enumerate(layer_slices(params["groups"], n_groups * g)):
+        yield lp, (i // g if i % g == g - 1 else None)
+    if tail:
+        for lp in layer_slices(params["tail"], tail):
+            yield lp, None
 
 
 def _shared_block(cfg, sp, x, positions, impl):
@@ -86,11 +89,14 @@ def _shared_block(cfg, sp, x, positions, impl):
 
 def forward_hidden(cfg, params, x, positions, sharder=None, impl="ref"):
     require_no_sharder(sharder)
+    mamba = remat_wrap(cfg, lambda xx, lp: xx + mamba2.mamba2_block(
+        cfg, lp["ssm"], apply_norm(cfg, lp["norm1"], xx)))
+    shared = remat_wrap(cfg, lambda xx: _shared_block(cfg, params["shared"], xx,
+                                                      positions, impl))
     for lp, closes in _mamba_layers(cfg, params):
-        h = apply_norm(cfg, lp["norm1"], x)
-        x = x + mamba2.mamba2_block(cfg, lp["ssm"], h)
+        x = mamba(x, lp)
         if closes is not None:
-            x = _shared_block(cfg, params["shared"], x, positions, impl)
+            x = shared(x)
     return apply_norm(cfg, params["final_norm"], x)
 
 

@@ -2,7 +2,8 @@
 head.
 
 The same functions as ``repro.models.ssm_lm``, in PyTorch: a Python loop
-over the stacked layer slices takes the place of ``lax.scan``. The cache
+over the stacked layer slices takes the place of ``lax.scan``, each layer
+under the config's remat policy where a gradient is taken. The cache
 is ``{"ssm": (L,B,H,P,N) f32, "conv": (L,B,W-1,Cd), "pos"}``: O(1) in the
 context length, so ``seq_len`` sizes nothing. ``ssm_decode_step`` writes
 the new states into the cache's tensors (JAX returns new arrays; the port
@@ -17,8 +18,8 @@ from repro_torch.models.layers import (
     apply_norm, dense_init, embed_init, init_norm, softmax_xent,
 )
 from repro_torch.models.transformer import (
-    _as_tensor, _stacked_norm, compute_dtype, embed_tokens, layer_slice,
-    logits_fn, param_dtype,
+    _as_tensor, _stacked_norm, compute_dtype, embed_tokens,
+    layer_slices, logits_fn, param_dtype, remat_wrap,
 )
 from repro_torch.parallel.sharding import padded_vocab, require_no_sharder
 
@@ -44,10 +45,10 @@ def init_ssm_lm(cfg, gen: torch.Generator) -> dict:
 
 def forward_hidden(cfg, params, x, sharder=None):
     require_no_sharder(sharder)
-    for i in range(cfg.n_layers):
-        lp = layer_slice(params["layers"], i)
-        h = apply_norm(cfg, lp["norm1"], x)
-        x = x + mamba2.mamba2_block(cfg, lp["ssm"], h)
+    body = remat_wrap(cfg, lambda xx, lp: xx + mamba2.mamba2_block(
+        cfg, lp["ssm"], apply_norm(cfg, lp["norm1"], xx)))
+    for lp in layer_slices(params["layers"], cfg.n_layers):
+        x = body(x, lp)
     return apply_norm(cfg, params["final_norm"], x)
 
 
@@ -74,8 +75,7 @@ def ssm_prefill(cfg, params, batch, sharder=None):
     x = embed_tokens(cfg, params, batch["tokens"])
     B, S = x.shape[:2]
     cache = init_ssm_cache(cfg, B, x.device)
-    for i in range(cfg.n_layers):
-        lp = layer_slice(params["layers"], i)
+    for i, lp in enumerate(layer_slices(params["layers"], cfg.n_layers)):
         h = apply_norm(cfg, lp["norm1"], x)
         y, s, c = mamba2.mamba2_block_state(cfg, lp["ssm"], h)
         x = x + y
@@ -91,8 +91,7 @@ def ssm_prefill(cfg, params, batch, sharder=None):
 def ssm_decode_step(cfg, params, cache, tokens, sharder=None):
     require_no_sharder(sharder)
     x = embed_tokens(cfg, params, tokens)
-    for i in range(cfg.n_layers):
-        lp = layer_slice(params["layers"], i)
+    for i, lp in enumerate(layer_slices(params["layers"], cfg.n_layers)):
         h = apply_norm(cfg, lp["norm1"], x)
         y, new = mamba2.mamba2_decode_step(
             cfg, lp["ssm"], h, {"ssm": cache["ssm"][i], "conv": cache["conv"][i]})

@@ -2,10 +2,12 @@
 
 The same functions as ``repro.models.transformer``, in PyTorch. Layers stay
 stacked on a leading L axis under the JAX package's tree keys; a Python loop
-over the layer slices takes the place of ``lax.scan`` (remat has no role in
-inference). An MoE layer's FFN is ``moe.moe_block`` (plus the dense
-residual MLP where the config has one); its auxiliary loss is summed over
-the layers. Decode steps dispatch with ``"scatter"``, as JAX's do.
+over the layer slices takes the place of ``lax.scan``. ``remat_wrap`` is the
+config's remat policy as a per-layer activation checkpoint, applied where a
+gradient is taken (the loss under autograd; prefill and decode never). An
+MoE layer's FFN is ``moe.moe_block`` (plus the dense residual MLP where the
+config has one); its auxiliary loss is summed over the layers. Decode steps
+dispatch with ``"scatter"``, as JAX's do.
 
 The KV cache is laid out the way ``init_cache`` / ``decode_step`` read it:
 ``prefill`` returns it at ``cache_len(cfg, seq_len)`` slots with position p
@@ -14,6 +16,8 @@ continues the prompt. (The JAX package's ``prefill`` returns a cache of the
 prompt's length, laid out from its last W tokens; see ROADMAP §C.)
 """
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -35,10 +39,46 @@ def param_dtype(cfg) -> torch.dtype:
     return torch_dtype(cfg.param_dtype)
 
 
-def layer_slice(layers: dict, i: int) -> dict:
-    """Layer ``i`` of a stacked layer tree (views, no copies)."""
-    return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
+#: the products ``remat="dots"`` saves: those with no batch dimension, as
+#: ``jax.checkpoint_policies.checkpoint_dots_with_no_batch_dims`` does
+#: (a 2-D weight times activations folds to ``mm`` / ``addmm``; attention's
+#: and the experts' batched products are ``bmm``, recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_wrap(cfg, fn):
+    """``fn`` under the config's remat policy, as a non-reentrant activation
+    checkpoint of one layer: ``"none"`` keeps every activation, ``"dots"``
+    (the default) keeps the outputs of the non-batched products and
+    recomputes the rest in the backward pass, anything else (``"full"``)
+    keeps only the layer's inputs. Without grad mode (inference) ``fn``
+    runs as it is. The forward draws no random numbers, so no RNG state is
+    stashed."""
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    from torch.utils import checkpoint as ckpt
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return lambda *args: ckpt.checkpoint(fn, *args, use_reentrant=False,
+                                         preserve_rng_state=False, **kw)
+
+
+def layer_slices(layers: dict, n: int) -> list:
+    """The ``n`` layers of a stacked layer tree (views, no copies), each leaf
+    unbound once: under autograd its backward stacks the layers' gradients
+    in one write, where indexing each layer would add a zero-padded
+    gradient of the whole stack per layer (quadratic in the depth)."""
+    flat = {k: layer_slices(v, n) if isinstance(v, dict) else v.unbind(0)
             for k, v in layers.items()}
+    return [{k: v[i] for k, v in flat.items()} for i in range(n)]
 
 
 # --------------------------------------------------------------------------- #
@@ -119,7 +159,14 @@ def _device(params) -> torch.device:
 
 
 def _as_tensor(a, device, dtype=None) -> torch.Tensor:
-    t = a if isinstance(a, torch.Tensor) else torch.as_tensor(np.asarray(a))
+    """A tensor, or an array (numpy's bfloat16 too, as JAX hands it out), on
+    ``device`` in ``dtype``."""
+    if isinstance(a, torch.Tensor):
+        t = a
+    else:
+        a = np.asarray(a)
+        t = (torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+             if a.dtype.name == "bfloat16" else torch.as_tensor(a))
     return t.to(device=device, dtype=dtype)
 
 
@@ -184,9 +231,10 @@ def forward_hidden(cfg, params, x, positions, sharder=None, impl="ref",
     """x: (B,S,D) embeddings -> final hidden states (B,S,D), aux loss
     summed over the layers."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, a = block_fn(cfg, layer_slice(params["layers"], i), x, positions,
-                        sharder, impl, moe_dispatch)
+    body = remat_wrap(cfg, lambda xx, lp: block_fn(cfg, lp, xx, positions, sharder,
+                                                   impl, moe_dispatch))
+    for lp in layer_slices(params["layers"], cfg.n_layers):
+        x, a = body(x, lp)
         aux = aux + a
     x = apply_norm(cfg, params["final_norm"], x)
     return x, aux
@@ -207,7 +255,7 @@ def logits_fn(cfg, params, h):
 
 def lm_loss(cfg, params, batch, sharder=None, impl="ref", moe_dispatch="scatter"):
     """Next-token cross-entropy plus the MoE auxiliary loss (differentiable
-    through autograd; the LM training step is not ported)."""
+    through autograd: ``train.make_train_step`` takes its gradient)."""
     require_no_sharder(sharder)
     x, positions = _inputs(cfg, params, batch)
     h, aux = forward_hidden(cfg, params, x, positions, sharder, impl,
@@ -255,8 +303,7 @@ def prefill(cfg, params, batch, seq_len: int, sharder=None, impl="ref",
     # the last min(S, W) positions, each at its decode slot
     keep = min(S, W)
     slots = torch.arange(S - keep, S, device=x.device) % W
-    for i in range(cfg.n_layers):
-        lp = layer_slice(params["layers"], i)
+    for i, lp in enumerate(layer_slices(params["layers"], cfg.n_layers)):
         h = apply_norm(cfg, lp["norm1"], x)
         q, k, v = attn.qkv_proj(cfg, lp["attn"], h, positions)
         o = attn.sdpa(q, k, v, causal=True, window=cfg.sliding_window, impl=impl)
@@ -280,8 +327,7 @@ def decode_step(cfg, params, cache, tokens, sharder=None):
     x = embed_tokens(cfg, params, tokens)
     pos = _as_tensor(cache["pos"], x.device, torch.int32)
     W = cfg.sliding_window
-    for i in range(cfg.n_layers):
-        lp = layer_slice(params["layers"], i)
+    for i, lp in enumerate(layer_slices(params["layers"], cfg.n_layers)):
         h = apply_norm(cfg, lp["norm1"], x)
         o, _, _ = attn.decode_attention(cfg, lp["attn"], h, cache["k"][i],
                                         cache["v"][i], pos, window=W)

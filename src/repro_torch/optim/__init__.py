@@ -1,3 +1,6 @@
-from repro_torch.optim.adamw import AdamW, OptConfig
+from repro_torch.optim.adamw import (
+    AdamW, OptConfig, clip_by_global_norm, global_norm, make_schedule,
+)
 
-__all__ = ["AdamW", "OptConfig"]
+__all__ = ["AdamW", "OptConfig", "clip_by_global_norm", "global_norm",
+           "make_schedule"]

@@ -15,8 +15,13 @@ Mixed precision: with ``OptConfig.master_dtype`` set and narrower params
 casting, so bf16 rounding never feeds back into the trajectory.
 
 The float32 arithmetic is the JAX package's, operation for operation.
-:meth:`AdamW.step` builds new tensors; the CUDA train step
-(``csrc/adamw.cu``) applies the same update in place.
+:meth:`AdamW.update`, :meth:`AdamW.apply_updates` and :meth:`AdamW.step`
+build new tensors; :meth:`AdamW.apply_` is ``update`` then
+``apply_updates`` (with ``clip_by_global_norm``'s scaling before them)
+written into the params and moments in place, a slice of a leaf at a time,
+which is how the LM train step spends no memory beyond params, grads and
+moments (the counterpart of the JAX driver's buffer donation); the CUDA
+train step (``csrc/adamw.cu``) applies the same update in place.
 """
 from __future__ import annotations
 
@@ -94,11 +99,16 @@ def global_norm(tree) -> torch.Tensor:
                           for x in tree_leaves(tree)))
 
 
+def clip_scale(norm: torch.Tensor, max_norm: float) -> torch.Tensor:
+    """The factor ``clip_by_global_norm`` multiplies every leaf by."""
+    return torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+
+
 def clip_by_global_norm(tree, max_norm: float):
     norm = global_norm(tree)
     if max_norm <= 0:
         return tree, norm
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    scale = clip_scale(norm, max_norm)
     return tree_map(lambda x: (x.float() * scale).to(x.dtype), tree), norm
 
 
@@ -203,6 +213,42 @@ class AdamW:
         else:
             params = master
         return params, state
+
+    @staticmethod
+    def apply_updates(params, updates):
+        return tree_map(lambda p, u: p + u.to(p.dtype), params, updates)
+
+    #: elements of a leaf that :meth:`apply_` updates at once (bounds its
+    #: float32 temporaries on the largest embedding and expert leaves)
+    CHUNK = 1 << 26
+
+    def apply_(self, grads, state, params, grad_scale=None):
+        """``update(grads * grad_scale, state, params)`` then
+        ``apply_updates``, in place: the params, ``state["m"]`` and
+        ``state["v"]`` (contiguous tensors) are overwritten, leaf by leaf
+        and ``CHUNK`` elements at a time, with the values the functional
+        pair gives (element-wise, so the slicing changes no bit).
+        ``grad_scale`` (a 0-d tensor, or None) is ``clip_by_global_norm``'s
+        factor, applied as it applies it. Returns the new state (``step``
+        advanced; every other entry, the master copy included, as given)."""
+        cfg = self.cfg
+        step = state["step"] + 1
+        lr = self.schedule(step)
+        bc1, bc2 = bias_corrections(cfg, step)
+        mdt = torch_dtype(cfg.moments_dtype)
+        for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state["m"]),
+                              tree_leaves(state["v"]), tree_leaves(params)):
+            g, m, v, p = g.reshape(-1), m.view(-1), v.view(-1), p.view(-1)
+            for a in range(0, p.numel(), self.CHUNK):
+                sl = slice(a, a + self.CHUNK)
+                gs = g[sl]
+                if grad_scale is not None:
+                    gs = (gs.float() * grad_scale).to(gs.dtype)
+                u, m32, v32 = adamw_leaf(cfg, gs, m[sl], v[sl], p[sl], lr, bc1, bc2)
+                m[sl] = m32.to(mdt)
+                v[sl] = v32.to(mdt)
+                p[sl] = p[sl] + u
+        return {**state, "step": step}
 
 
 def _pick(tree_of_tuples, i):

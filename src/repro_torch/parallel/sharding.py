@@ -17,8 +17,9 @@ A :class:`Placement` (the counterpart of a ``NamedSharding``) is a spec on
 a :class:`~repro_torch.launch.mesh.Mesh`: :meth:`Placement.local` cuts a
 global array to this rank's block, which is how a checkpoint is restored
 onto another mesh. Executing the LM sharded (``Sharder.constrain`` on a
-mesh, every LM ``sharder=`` argument) is tensor parallelism, which the port
-does not have (ROADMAP item 16): those raise.
+mesh, an LM ``sharder=`` argument with a mesh) is tensor parallelism, which
+the port does not have (ROADMAP item 16): those raise. A ``Sharder`` without
+a mesh is a no-op, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -44,8 +45,11 @@ def padded_vocab(vocab: int, multiple: int = 256) -> int:
 
 
 def require_no_sharder(sharder) -> None:
-    """Raise unless ``sharder`` is None: the LM path runs on one card."""
-    if sharder is not None:
+    """Raise unless ``sharder`` is None or a :class:`Sharder` without a mesh
+    (the JAX package's no-op, which its training driver passes on one
+    device): the LM path runs on one card."""
+    if sharder is not None and not (isinstance(sharder, Sharder)
+                                    and sharder.mesh is None):
         raise NotImplementedError(
             "sharded LM execution (tensor parallelism) is not ported yet "
             "(ROADMAP item 16): pass sharder=None")

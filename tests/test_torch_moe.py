@@ -135,7 +135,7 @@ def test_dense_residual_block_equals_jax():
     assert cfg.moe.dense_residual
     jp = F.jax_params(jcfg)
     jlp = jax.tree.map(lambda a: a[0], jp["layers"])
-    lp = T.layer_slice(F.port_params(jp)["layers"], 0)
+    lp = T.layer_slices(F.port_params(jp)["layers"], cfg.n_layers)[0]
     assert sorted(lp["mlp"]) == ["wg", "wi", "wo"]
     rng = np.random.default_rng(3)
     x = rng.standard_normal((F.B, 16, cfg.d_model)).astype(np.float32)
