@@ -388,6 +388,33 @@ TRAIN_FAMILIES = (("olmo_1b", None, None), ("llama3_8b", 2, None),
 TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ, TRAIN_FAMILY_STEPS = 4, 1024, 3
 TRAIN_CONFIGS: dict = {}
 TRAIN_IMPL = "auto"           # the trained path's backend ("auto": the card's)
+# phase 14: the transformer LMs on a mesh of MESH_WORLD gloo ranks sharing
+# the card. (a) TRAIN_LM_ARCH through the driver, MESH_DRIVER_STEPS steps at
+# TRAIN_LM_ARGS' batch and sequence, on make_mesh_for's (1, 4); (b)
+# MESH_DENSE (arch, layers): on (1, 4) a MESH_SERVE (B, S, decode steps)
+# prefill and decode, then on (2, 2) the step-1 gradient and MESH_TRAIN (B,
+# S, steps) train steps; (c) each of MESH_MOE (arch, layers, experts): on
+# (2, 2) a MESH_MOE_PROMPT (B, S) prefill at the config's capacity and, for
+# expert-parallel experts, at one that does not bind, and the step-1
+# gradient (expert-parallel: at the capacity that does not bind, where a2a
+# drops what the scatter drops: nothing), then MESH_TRAIN's steps on (1, 4)
+# (the weights are whole over "data": on (2, 2) each rank would hold half
+# of the AdamW state, which four ranks on one card cannot). MESH_CONFIGS
+# maps an arch to the config in the place of its published CONFIG (the
+# rehearsal on a CPU hands in SMOKE configs).
+MESH_WORLD = 4
+MESH_DRIVER_STEPS = 3
+MESH_DENSE = ("llama3_8b", 2)
+MESH_SERVE = (2, 4096, 8)
+MESH_TRAIN = (4, 1024, 3)
+MESH_MOE = (("grok_1_314b", 1, 4), ("arctic_480b", 1, 16))
+MESH_MOE_PROMPT = (4, 1024)
+MESH_CONFIGS: dict = {}
+#: phase 14's yardsticks: bf16 losses against the one-rank run's (relative),
+#: and the cosine of gradients and logits against the one-rank path's
+MESH_LOSS_RTOL, MESH_COS = 2e-2, 0.999
+#: the one-rank runs phase 13 leaves for phase 14: each path's losses
+PHASE13: dict = {}
 # phase 8: the in situ session's rank edge (8 ranks: the 2x2x2 split of a
 # 512^3 volume), cycles and window; the shock trigger (the share of voxels
 # above SHOCK_LEVEL: ~0.024 at cycle 4 and ~0.028 at cycle 5 of a 512^3
@@ -992,8 +1019,8 @@ class RouteLog:
     def __enter__(self):
         import torch
 
-        def logged(cfg, p, x_flat):
-            w, ids, aux = self.real(cfg, p, x_flat)
+        def logged(cfg, p, x_flat, mean=None):
+            w, ids, aux = self.real(cfg, p, x_flat, mean)
             with torch.no_grad():         # no graph kept under training
                 probs = torch.softmax(x_flat.float() @ p["router"].float(), dim=-1)
             self.calls.append((ids.detach(), probs))
@@ -1685,6 +1712,7 @@ def driver_run(tag, dev) -> dict:
     peak = torch.cuda.max_memory_allocated()
     shutil.rmtree(ckpt, ignore_errors=True)
     losses = [h["loss"] for h in r1["history"] + r2["history"]]
+    PHASE13["driver"] = losses
     want_steps = list(range(1, steps + 1)) + list(range(steps + 1, TRAIN_LM_RESUME + 1))
     got_steps = [h["step"] for h in r1["history"] + r2["history"]]
     print(f"    losses by step {dict(zip(got_steps, [round(x, 4) for x in losses]))}")
@@ -1768,6 +1796,7 @@ def train_family(tag, dev, arch, layers, experts) -> tuple:
         model, model.init(torch.Generator(device=dev).manual_seed(0)), dev, B, S,
         TRAIN_FAMILY_STEPS)
     peak = torch.cuda.max_memory_allocated()
+    PHASE13[arch] = {"losses": losses, "cfg": cfg}
     want = flash_per_step(cfg)
     print(f"    losses {[round(x, 4) for x in losses]}; step ms "
           f"{[round(x, 1) for x in ms]} (host clock, synchronised); peak memory "
@@ -4437,15 +4466,29 @@ def dvnr_phases():
         lms = cuda_ms(lib_fn, reps=5)
         bms, by = bound_ms(nbytes, flops, bf16_flops=bf16_flops)
         kdev = kernel_alone_ms(kern, symbols)
+        row = {"name": name, "route": "cuda", "source": SOURCES[name],
+               "replaces": REPLACES[name], "launches": launches,
+               "max_abs_err": errs[name], "ms": ms, "plain_ms": pms,
+               "bound_ms": bms, "bound_by": by, "library_ms": lms}
+        lib_note = f"library {lms:.3f} ms"
+        if name.startswith("hash_encode_bwd_det"):
+            # the deterministic route computes a deterministic sum: the
+            # library call that computes the same function is index_add_
+            # under the same switch (outside it, an unordered atomic sum)
+            try:
+                det_lms = cuda_ms(under_det(lib_fn), reps=5)
+                det_note = f"{det_lms:.3f} ms"
+            except RuntimeError as e:       # PyTorch has no deterministic one
+                det_lms, det_note = None, f"none ({str(e).splitlines()[0][:80]})"
+            row.update(library_ms=det_lms, library_ms_unordered=lms)
+            lib_note = (f"library index_add_ {det_note} deterministic (the same "
+                        f"function), {lms:.3f} ms unordered")
         print(f"  {name:<24s} {ms:9.3f} ms (default route {default_ms[default]:.3f})  "
-              f"bound {bms:8.3f} ms ({by})  plain {pms:9.3f} ms  library "
-              f"{lms:.3f} ms  launches/step {launches / steps:.0f}  kernel alone "
+              f"bound {bms:8.3f} ms ({by})  plain {pms:9.3f} ms  {lib_note}  "
+              f"launches/step {launches / steps:.0f}  kernel alone "
               f"{'not measured' if kdev is None else f'{kdev:.4f} ms'} per call "
               f"(profiler) [{tag}]")
-        kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                        "replaces": REPLACES[name], "launches": launches,
-                        "max_abs_err": errs[name], "ms": ms, "plain_ms": pms,
-                        "bound_ms": bms, "bound_by": by, "library_ms": lms})
+        kernels.append(row)
     # where the MLP backward's time goes, at the main path's shapes: its
     # clocked instantiation's cycles by stage (each a share of the warps'
     # summed cycles, and per warp per 16-row pass), its kernel time beside
@@ -5821,6 +5864,661 @@ def examples_phase(tag) -> None:
         raise SmokeFailure(f"phase 11: in situ {s}")
 
 
+# --------------------------------------------------------------------------- #
+# phase 14: the transformer LMs on a mesh of ranks
+# --------------------------------------------------------------------------- #
+def mesh_config(arch, layers=None, experts=None):
+    """The config phase 14 runs: the published CONFIG (MESH_CONFIGS' stand-in
+    where given), cut to ``layers`` and ``experts``."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = MESH_CONFIGS.get(arch) or get_config(arch)
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
+    if experts is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, num_experts=experts))
+    return cfg
+
+
+def unbound(cfg):
+    """``cfg`` with its MoE capacity raised so that it binds nowhere."""
+    import dataclasses
+    return cfg.replace(moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+
+
+def _flag(args, name) -> int:
+    return int(args[list(args).index(name) + 1])
+
+
+def driver_config():
+    from repro_torch.configs import get_config, get_smoke_config
+    return (get_smoke_config(TRAIN_LM_ARCH) if "--smoke" in TRAIN_LM_EXTRA
+            else get_config(TRAIN_LM_ARCH))
+
+
+def mesh_references(dev, work: Path) -> Path:
+    """Phase 14's one-rank references, computed on the card before the ranks
+    start and kept on the host: in ``work/refs.pt`` (b) MESH_DENSE's prefill
+    and teacher-forced decode logits and (c) each MESH_MOE model's
+    last-token prefill logits and routing, the expert-parallel one also at
+    a capacity that does not bind; in ``work/grad_<key>.pt`` (the ranks map
+    them, each reading its blocks) the step-1 loss and gradient of (a) the
+    driver's model, (b) MESH_DENSE and (c) each MESH_MOE model (the
+    expert-parallel one at the capacity that does not bind)."""
+    import gc
+
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel.sharding import tree_paths
+
+    def free():
+        gc.collect()
+        sync(dev)
+        torch.cuda.empty_cache()
+
+    def gradient(model, params, B, S, key):
+        """The one-rank loss and gradient of step 1's batch, to the host."""
+        leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+        batch = synth_batch(model, ShapeConfig("t", "train", S, B), 0, dev)
+        loss, _ = model.loss(params, batch, impl=TRAIN_IMPL)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.save({"loss": float(loss.detach()), "grad": {k: g.cpu() for k, g in
+                                                  zip(tree_paths(params), grads)}},
+                   work / f"grad_{key}.pt")
+        for t in leaves:
+            t.requires_grad_(False)
+        del grads, loss, batch
+        free()
+
+    refs = {}
+    cfg = driver_config()
+    model = build_model(cfg)
+    params = model.init(0, device=dev)
+    gradient(model, params, _flag(TRAIN_LM_ARGS, "--batch"), _flag(TRAIN_LM_ARGS, "--seq"),
+             "driver")
+    del params
+    free()
+
+    arch, layers = MESH_DENSE
+    cfg = mesh_config(arch, layers)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    B, S, n = MESH_SERVE
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab, (B, S + n)).astype(np.int32)
+    with torch.no_grad():
+        logits, cache = model.prefill(params, {"tokens": tokens[:, :S]}, S + n,
+                                      impl=TRAIN_IMPL)
+        seq = [logits[:, -1].float().cpu()]
+        for t in range(n):
+            logits, cache = model.decode_step(
+                params, cache, torch.as_tensor(tokens[:, S + t:S + t + 1], device=dev))
+            seq.append(logits[:, -1].float().cpu())
+    refs["serve"] = {"tokens": tokens, "logits": torch.stack(seq, 1)}
+    del cache, logits
+    free()
+    gradient(model, params, MESH_TRAIN[0], MESH_TRAIN[1], "dense")
+    del params
+    free()
+
+    B, S = MESH_MOE_PROMPT
+    for arch, layers, experts in MESH_MOE:
+        cfg = mesh_config(arch, layers, experts)
+        tokens = np.random.default_rng(1).integers(0, cfg.vocab, (B, S)).astype(np.int32)
+        params = build_model(cfg).init(torch.Generator(device=dev).manual_seed(0))
+        refs[arch] = {"tokens": tokens}
+        ep = cfg.moe.expert_sharding == "ep"
+        for label, c in [("config", cfg)] + ([("unbound", unbound(cfg))] if ep else []):
+            with RouteLog() as rl, torch.no_grad():
+                logits, _ = build_model(c).prefill(params, {"tokens": tokens}, S,
+                                                   impl=TRAIN_IMPL)
+            refs[arch][label] = {"logits": logits[:, -1].float().cpu(),
+                                 "ids": [i.cpu() for i, _ in rl.calls],
+                                 "probs": [q.cpu() for _, q in rl.calls]}
+            del logits, rl
+            free()
+        gradient(build_model(unbound(cfg) if ep else cfg), params, MESH_TRAIN[0],
+                 MESH_TRAIN[1], arch)
+        del params
+        free()
+    path = work / "refs.pt"
+    torch.save(refs, path)
+    return path
+
+
+def mesh_route_flips(calls, ref_ids, ref_probs, k: int) -> list:
+    """``route_flips`` for a rank's routing (``calls``: (ids, probs) per MoE
+    layer, of its tokens) against the one-rank run's on the same tokens."""
+    out = []
+    for (ik, pk), ip, pp in zip(calls, ref_ids, ref_probs):
+        pk, ik = pk.float().cpu(), ik.cpu()
+        dep = float((pk - pp).abs().max())
+        flips = (ik.sort(-1).values != ip.sort(-1).values).any(-1)
+        top = pp.topk(k + 1, dim=-1).values
+        gap = top[:, k - 1] - top[:, k]
+        bad = int((flips & (gap > 2 * dep)).sum())
+        out.append((int(flips.sum()), dep, bad, int(pk.shape[0])))
+    return out
+
+
+def _min_cos(a, b) -> float:
+    import torch.nn.functional as tF
+    return float(tF.cosine_similarity(a.float(), b.float(), dim=-1).min())
+
+
+def _dots(g, b):
+    """(g.b, g.g, b.b) in float64, 2^24 elements at a time."""
+    import torch
+    g, b = g.reshape(-1), b.reshape(-1)
+    out = torch.zeros(3, dtype=torch.float64, device=g.device)
+    for lo in range(0, g.numel(), 1 << 24):
+        x, y = g[lo:lo + (1 << 24)].double(), b[lo:lo + (1 << 24)].double()
+        out += torch.stack([(x * y).sum(), (x * x).sum(), (y * y).sum()])
+    return out
+
+
+def largest_draw(model) -> int:
+    """Bytes of the largest float32 draw ``model.init`` holds at once: a
+    whole leaf, or one chunk of a narrow-dtype leaf drawn in chunks."""
+    import torch
+    from repro_torch.models import layers
+    from repro_torch.optim.adamw import tree_leaves
+    return 4 * max(t.numel() if t.dtype == torch.float32 or t.numel() <= layers._DRAW_CHUNK
+                   else layers._DRAW_CHUNK for t in tree_leaves(model.param_specs()))
+
+
+#: the init's peak may pass its blocks and largest draw by this much (the
+#: norm scales and biases, made whole and then cut; the allocator's rounding)
+INIT_SLACK = 128 * 2**20
+
+
+def _nbytes(tree) -> int:
+    from repro_torch.optim.adamw import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree)
+               if hasattr(t, "element_size"))
+
+
+def mesh_rank(rank, world, out, refs_path, st):
+    """Phase 14 on one rank: (a), (b) and (c) of ``mesh_phase``; this rank's
+    numbers and checks' inputs."""
+    import gc
+
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import build_mesh
+    from repro_torch.models import build_model
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel.collectives import count_collectives
+    from repro_torch.parallel.sharding import Sharder, held_shardings, tree_paths
+    from repro_torch.train import make_train_step
+
+    dev = torch.device(st["device"])
+    impl = st["impl"]
+    work = Path(refs_path).parent
+    refs = torch.load(refs_path, weights_only=False)
+    mesh14 = build_mesh((1, world), ("data", "model"), device=dev)
+    mesh22 = build_mesh((2, world // 2), ("data", "model"), device=dev)
+    res = {"rank": rank}
+    cuda = dev.type == "cuda"
+
+    def tidy():
+        gc.collect()
+        sync(dev)
+        if cuda:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    def peak():
+        return torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+
+    def held():
+        return torch.cuda.memory_allocated() if cuda else 0
+
+    def flash():
+        return getattr(flash_ops.flash_attention_cuda, "launches", 0)
+
+    def init_blocks(model, sharder, rng):
+        """This rank's blocks of the init from ``rng``, drawn the driver's
+        way (each leaf cut as it is drawn); with the init's peak over what
+        the rank held before, its bound (the blocks and the largest draw)
+        and the whole tree's size, in bytes."""
+        tidy()
+        base = held()
+        params = model.init(rng, device=dev, sharder=sharder)
+        sync(dev)
+        blocks = _nbytes(params)
+        return params, {"peak": torch.cuda.max_memory_allocated() - base if cuda else 0,
+                        "bound": blocks + largest_draw(model) + INIT_SLACK,
+                        "blocks": blocks, "whole": _nbytes(model.param_specs())}
+
+    def seed0():
+        return torch.Generator(device=dev).manual_seed(0)
+
+    def grad_check(model, cfg, params, sharder, key, B, S):
+        """Step 1's loss and gradient on the mesh against the one-rank
+        run's (``work/grad_<key>.pt``, mapped: the rank reads its blocks):
+        the loss and its one-rank value, the gathered gradient's cosine to
+        the one-rank gradient, and the pass's collectives."""
+        mesh = sharder.mesh
+        ref = torch.load(work / f"grad_{key}.pt", mmap=True, weights_only=False)
+        leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
+        batch = train.batch_block(train.synth_batch(
+            model, ShapeConfig("t", "train", S, B), 0, dev), sharder)
+        with count_collectives() as c:
+            loss, _ = model.loss(params, batch, sharder, impl=impl)
+            grads = torch.autograd.grad(loss, leaves)
+        for t in leaves:
+            t.requires_grad_(False)
+        acc = torch.zeros(3, dtype=torch.float64, device=dev)
+        for path, g, pl in zip(tree_paths(params), grads,
+                               tree_leaves(held_shardings(model.param_specs(), cfg,
+                                                          sharder))):
+            # a leaf the model axis cuts, each rank its block; a whole one once
+            if any(e is not None for e in pl.spec) or mesh.coords["model"] == 0:
+                b = ref["grad"][path]
+                acc += _dots(g, b[pl.slices(b.shape)].to(dev))
+        acc = col.psum(acc, mesh, "model")
+        out = {"loss": float(loss.detach()), "want": ref["loss"],
+               "cos": float(acc[0] / torch.sqrt(acc[1] * acc[2])),
+               "coll": (c.count, dict(c.kinds), c.nbytes)}
+        del ref, grads, loss, batch
+        tidy()
+        return out
+
+    def train_run(model, cfg, sharder, params, B, S, steps):
+        """``steps`` train steps from ``params``: the first's collectives
+        counted (its dispatch mode runs Python on every op: not timed), the
+        others timed."""
+        step = make_train_step(model, OptConfig(**st["opt"]), sharder, impl=impl)
+        opt = step.optimizer.init(params)
+        losses, ms, fl, counts = [], [], [], None
+        for i in range(steps):
+            batch = train.batch_block(train.synth_batch(
+                model, ShapeConfig("t", "train", S, B), i, dev), sharder)
+            sync(dev)
+            n0 = flash()
+            t0 = time.perf_counter()
+            if i == 0:
+                with count_collectives() as c:
+                    params, opt, metrics = step(params, opt, batch)
+                counts = (c.count, dict(c.kinds), c.nbytes)
+            else:
+                params, opt, metrics = step(params, opt, batch)
+            sync(dev)
+            if i:
+                ms.append((time.perf_counter() - t0) * 1e3)
+            fl.append(flash() - n0)
+            losses.append(float(metrics["loss"]))
+        return {"losses": losses, "ms": ms, "flash": fl, "coll": counts, "peak": peak()}
+
+    # (a) the driver's first step's gradient on the mesh, then the driver
+    cfg = st["driver_cfg"]
+    B, S = st["driver_bs"]
+    model = build_model(cfg)
+    sharder = Sharder(mesh14, B)
+    params, _ = init_blocks(model, sharder, 0)
+    res["a_grad"] = grad_check(model, cfg, params, sharder, "driver", B, S)
+    del params
+    tidy()
+    real, ms, fl, init = train.make_train_step, [], [], {}
+
+    def timed_maker(*args, **kw):       # each driver step timed, its flash counted
+        step = real(*args, **kw)
+
+        def timed(p, o, b):
+            if not init:                # the driver's init, up to its first step
+                init.update(peak=torch.cuda.max_memory_allocated() - base if cuda else 0,
+                            bound=_nbytes((p, o)) + largest_draw(model) + INIT_SLACK,
+                            blocks=_nbytes(p), state=_nbytes((p, o)),
+                            whole=_nbytes(model.param_specs()))
+            sync(dev)
+            n0, t0 = flash(), time.perf_counter()
+            out = step(p, o, b)
+            sync(dev)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            fl.append(flash() - n0)
+            return out
+
+        timed.optimizer = step.optimizer
+        return timed
+
+    train.make_train_step = timed_maker
+    base = held()
+    try:
+        run = train.main(st["driver_argv"])
+    finally:
+        train.make_train_step = real
+    res["a"] = {"losses": [h["loss"] for h in run["history"]], "ms": ms,
+                "flash": fl, "peak": peak(), "init": init}
+    tidy()
+
+    # (b) the dense LM: prefill and decode on (1, 4), then the step-1
+    # gradient and train steps on (2, 2)
+    cfg = st["dense"]
+    model = build_model(cfg)
+    B, S, n = st["serve"]
+    sharder = Sharder(mesh14, B)
+    params, res["b_init"] = init_blocks(model, sharder, seed0())
+    tokens = torch.as_tensor(refs["serve"]["tokens"], device=dev)
+    sync(dev)
+    n0 = flash()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": tokens[:, :S]}, S + n, sharder,
+                                  impl=impl)
+    sync(dev)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_flash = flash() - n0
+    seq = [logits[:, -1].float().cpu()]
+    t0 = time.perf_counter()
+    for t in range(n):
+        logits, cache = model.decode_step(params, cache, tokens[:, S + t:S + t + 1],
+                                          sharder)
+        seq.append(logits[:, -1].float().cpu())
+    sync(dev)
+    V = cfg.vocab
+    got, want = torch.stack(seq, 1)[..., :V], refs["serve"]["logits"][..., :V]
+    res["b_serve"] = {"prefill_ms": prefill_ms, "prefill_flash": prefill_flash,
+                      "decode_ms": (time.perf_counter() - t0) * 1e3 / n,
+                      "decode_flash": flash() - n0 - prefill_flash,
+                      "cos": _min_cos(got.reshape(-1, V), want.reshape(-1, V)),
+                      "finite": bool(torch.isfinite(got).all()),
+                      "slots": tuple(cache["k"].shape), "peak": peak()}
+    del logits, cache, seq, params
+    B, S, steps = st["train"]
+    sharder = Sharder(mesh22, B)
+    params, _ = init_blocks(model, sharder, seed0())
+    res["b_grad"] = grad_check(model, cfg, params, sharder, "dense", B, S)
+    res["b_train"] = train_run(model, cfg, sharder, params, B, S, steps)
+    del params
+    tidy()
+
+    # (c) each MoE model: prefill and the step-1 gradient on (2, 2), then
+    # train steps on (1, 4)
+    Bp, Sp = st["moe_prompt"]
+    res["c"] = {}
+    for arch, cfg in st["moe"]:
+        r = res["c"][arch] = {}
+        model = build_model(cfg)
+        sharder = Sharder(mesh22, Bp)
+        params, r["init"] = init_blocks(model, sharder, seed0())
+        tokens = torch.as_tensor(refs[arch]["tokens"], device=dev)
+        d, m = mesh22.coords["data"], mesh22.coords["model"]
+        b = Bp // mesh22.shape["data"]
+        rows = slice(d * b, (d + 1) * b)
+        ep = cfg.moe.expert_sharding == "ep"
+        h = Sp // mesh22.shape["model"]
+        kinds = [("config", cfg)] + ([("unbound", unbound(cfg))] if ep else [])
+        for label, c in kinds:
+            ref = refs[arch][label]
+            sync(dev)
+            n0 = flash()
+            t0 = time.perf_counter()
+            with RouteLog() as rl:
+                logits, _ = build_model(c).prefill(params, {"tokens": tokens[rows]}, Sp,
+                                                   sharder, impl=impl)
+            sync(dev)
+            k = cfg.moe.top_k
+            # the rank's tokens: its rows (tp) or its rows' block of the
+            # sequence (a2a) of the one-rank run's
+            sel = (lambda t: t.reshape(Bp, Sp, -1)[rows, h * m:h * (m + 1)].reshape(
+                -1, t.shape[-1])) if ep else \
+                (lambda t: t.reshape(Bp, Sp, -1)[rows].reshape(-1, t.shape[-1]))
+            r[label] = {"ms": (time.perf_counter() - t0) * 1e3, "flash": flash() - n0,
+                        "flips": mesh_route_flips(rl.calls, [sel(i) for i in ref["ids"]],
+                                                  [sel(q) for q in ref["probs"]], k),
+                        "cos": _min_cos(logits[:, -1, :c.vocab].cpu(),
+                                        ref["logits"][rows, :c.vocab]),
+                        "finite": bool(torch.isfinite(logits).all()), "peak": peak()}
+            del logits, rl
+            tidy()
+        B, S, steps = st["train"]
+        g = unbound(cfg) if ep else cfg
+        r["grad"] = grad_check(build_model(g), g, params, Sharder(mesh22, B), arch, B, S)
+        del params
+        sharder = Sharder(mesh14, B)
+        params, _ = init_blocks(model, sharder, seed0())
+        r["train"] = train_run(model, cfg, sharder, params, B, S, steps)
+        del params
+        tidy()
+    return res
+
+
+def mesh_phase(tag: str, dev) -> dict:
+    """Phase 14: the transformer LMs on MESH_WORLD gloo ranks sharing the
+    card (see the settings above); returns each path's flash launches (all
+    ranks')."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    t_start = time.perf_counter()
+    world = MESH_WORLD
+    print(f"== phase 14: the transformer LMs on a mesh of {world} gloo ranks "
+          f"sharing the card (collectives staged through the host: the gloo "
+          f"wire on one card, not NVLink's) [{tag}]")
+    work = ROOT / "build" / "mesh_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    refs_path = mesh_references(dev, work)
+    gc.collect()
+    sync(dev)
+    torch.cuda.empty_cache()
+    print(f"  one-rank references on the card, kept on the host: "
+          f"{time.perf_counter() - t0:.1f} s")
+    dcfg = driver_config()
+    B, S = _flag(TRAIN_LM_ARGS, "--batch"), _flag(TRAIN_LM_ARGS, "--seq")
+    dense = mesh_config(*MESH_DENSE)
+    moe = [(a, mesh_config(a, l, e)) for a, l, e in MESH_MOE]
+    st = {"device": "cuda:0" if DEVICE == "cuda" else DEVICE, "impl": TRAIN_IMPL,
+          "driver_cfg": dcfg, "driver_bs": (B, S),
+          "driver_argv": ["--arch", TRAIN_LM_ARCH, "--steps", str(MESH_DRIVER_STEPS),
+                          "--batch", str(B), "--seq", str(S), "--log-every", "1",
+                          *TRAIN_LM_EXTRA],
+          "dense": dense, "serve": MESH_SERVE, "train": MESH_TRAIN,
+          "moe": moe, "moe_prompt": MESH_MOE_PROMPT,
+          "opt": dict(lr=3e-4, schedule="cosine", warmup_steps=10, total_steps=100,
+                      clip_norm=1.0)}
+    full = {a: mesh_config(a) for a in [MESH_DENSE[0]] + [a for a, *_ in MESH_MOE]}
+    half = world // 2
+
+    def heads(cfg, m):
+        if cfg.n_heads % m:
+            return (f"{cfg.n_heads} q heads do not divide {m}: sequence mode, "
+                    f"K/V gathered")
+        kv = (f"{cfg.n_kv_heads // m} of {cfg.n_kv_heads} K/V heads"
+              if cfg.n_kv_heads % m == 0 else f"the {cfg.n_kv_heads} K/V heads gathered")
+        return f"head mode: {cfg.n_heads // m} of {cfg.n_heads} q heads and {kv} a rank"
+
+    print(f"  (a) {TRAIN_LM_ARCH} through launch.train.main on make_mesh_for({world}) = "
+          f"(1, {world}), {heads(dcfg, world)}; {MESH_DRIVER_STEPS} steps of {B} x {S} "
+          f"tokens; width and depth not cut")
+    print(f"  (b) {dense.name}: depth {full[MESH_DENSE[0]].n_layers} -> {dense.n_layers} "
+          f"(device memory: four ranks' AdamW state); on (1, {world}), "
+          f"{heads(dense, world)}: prefill {MESH_SERVE[0]} x {MESH_SERVE[1]} + "
+          f"{MESH_SERVE[2]} decode steps; on (2, {half}), {heads(dense, half)}: "
+          f"step 1's gradient, then {MESH_TRAIN[2]} steps of {MESH_TRAIN[0]} x "
+          f"{MESH_TRAIN[1]}")
+    for a, cfg in moe:
+        f = full[a]
+        ep = f.moe.expert_sharding == "ep"
+        print(f"  (c) {a}: depth {f.n_layers} -> {cfg.n_layers}, experts "
+              f"{f.moe.num_experts} -> {cfg.moe.num_experts} (device memory); on (2, "
+              f"{half}) ({'moe_block_a2a' if ep else 'moe_block_tp'}): prefill "
+              f"{MESH_MOE_PROMPT[0]} x {MESH_MOE_PROMPT[1]}, step 1's gradient"
+              f"{' at a capacity that does not bind' if ep else ''}; on (1, {world}) "
+              f"(weights whole over 'data', four ranks' AdamW state): {MESH_TRAIN[2]} "
+              f"steps of {MESH_TRAIN[0]} x {MESH_TRAIN[1]}")
+
+    def reckon(cfg, m, what):
+        """GiB a rank holds of ``cfg`` cut over m model ranks (the split
+        leaves dominate): the weights, with their gradients, and with their
+        gradients and AdamW's two float32 moments."""
+        b = 2 if cfg.param_dtype == "bfloat16" else 4
+        return cfg.param_count() / m * {"serve": b, "grad": 2 * b,
+                                         "train": 2 * b + 8}[what] / 2**30
+
+    parts = [f"(a) {dcfg.name} train on (1, {world}): {reckon(dcfg, world, 'train'):.1f}",
+             f"(b) {dense.name} serve on (1, {world}): {reckon(dense, world, 'serve'):.1f}, "
+             f"train on (2, {half}): {reckon(dense, half, 'train'):.1f}"]
+    parts += [f"(c) {a} serve / gradient on (2, {half}): {reckon(c, half, 'serve'):.1f} / "
+              f"{reckon(c, half, 'grad'):.1f}, train on (1, {world}): "
+              f"{reckon(c, world, 'train'):.1f} (on (2, {half}): "
+              f"{world * reckon(c, half, 'train'):.0f} for four)" for a, c in moe]
+    print("  reckoned state a rank before the run, GiB (x4 ranks, plus four CUDA "
+          "contexts and the activations): " + "; ".join(parts))
+    t0 = time.perf_counter()
+    got = spawn_ranks("mesh_rank", world, work / "ranks", refs_path=str(refs_path), st=st)
+    print(f"  the ranks: {time.perf_counter() - t0:.1f} s (spawn, init and all three "
+          f"parts)")
+    fails = []
+    by_path = {}
+    gib = 2**30
+
+    def rel(x, y):
+        return abs(x - y) / abs(y)
+
+    def grad_line(g, label):
+        """Print and hold step 1's loss and gathered gradient on the mesh."""
+        n, kinds, nbytes = g["coll"]
+        print(f"      step 1 on the mesh: loss {g['loss']:.6f} (one rank "
+              f"{g['want']:.6f}, rel {rel(g['loss'], g['want']):.2e}); gathered "
+              f"gradient's cosine to one rank {g['cos']:.6f} (>= {MESH_COS}); the "
+              f"loss+gradient pass: {n} collectives {kinds}, "
+              f"{nbytes / 2**20:.1f} MiB [{tag}]")
+        if not g["cos"] >= MESH_COS or not rel(g["loss"], g["want"]) <= MESH_LOSS_RTOL:
+            fails.append(f"{label} step 1: loss {g['loss']} vs {g['want']}, "
+                         f"cosine {g['cos']}")
+
+    def init_line(i, label):
+        """Print and hold the init's peak to its blocks and largest draw."""
+        if DEVICE != "cuda":
+            return
+        state = f", with AdamW state {i['state'] / gib:.3f}" if "state" in i else ""
+        print(f"      init on the mesh: peak {i['peak'] / gib:.3f} GiB over what the "
+              f"rank held (bound {i['bound'] / gib:.3f}: blocks {i['blocks'] / gib:.3f}"
+              f"{state}, the largest draw and {INIT_SLACK >> 20} MiB); the whole tree "
+              f"{i['whole'] / gib:.3f} GiB [{tag}]")
+        if i["peak"] > i["bound"]:
+            fails.append(f"{label} init peak {i['peak']} over {i['bound']}")
+
+    def train_line(tr, label, want, fl, note=""):
+        """Print and hold the train steps: losses, flash and finiteness."""
+        print(f"      train: losses {[round(x, 4) for x in tr['losses']]}"
+              f"{'' if want is None else f' (one rank {[round(x, 4) for x in want]}{note})'}"
+              f"; step ms after the first {[round(x, 1) for x in tr['ms']]}; flash a step "
+              f"{tr['flash']} (want {fl}); the first step's collectives {tr['coll'][0]} "
+              f"{tr['coll'][1]}, {tr['coll'][2] / 2**20:.1f} MiB; peak "
+              f"{tr['peak']:.3f} GiB [{tag}]")
+        held = want is not None and not note
+        if not np.isfinite(tr["losses"]).all() or (held and max(
+                rel(x, y) for x, y in zip(tr["losses"], want)) > MESH_LOSS_RTOL):
+            fails.append(f"{label} losses {tr['losses']} vs {want}")
+        if st_flash(tr["flash"], fl):
+            fails.append(f"{label} train flash launches {tr['flash']}")
+
+    # (a)
+    want_a = PHASE13["driver"][:MESH_DRIVER_STEPS]
+    fl_a = flash_per_step(dcfg)
+    for g in got:
+        a = g["a"]
+        r = max(rel(x, y) for x, y in zip(a["losses"], want_a))
+        print(f"    rank {g['rank']} (a): losses {[round(x, 4) for x in a['losses']]} "
+              f"(one rank {[round(x, 4) for x in want_a]}, worst rel {r:.2e}, limit "
+              f"{MESH_LOSS_RTOL}); step ms {[round(x, 1) for x in a['ms']]}; peak "
+              f"{a['peak']:.3f} GiB; flash a step {a['flash']} (want {fl_a}) [{tag}]")
+        init_line(a["init"], f"(a) rank {g['rank']}")
+        grad_line(g["a_grad"], f"(a) rank {g['rank']}")
+        if r > MESH_LOSS_RTOL or not np.isfinite(a["losses"]).all():
+            fails.append(f"(a) rank {g['rank']} losses {a['losses']} vs {want_a}")
+        if st_flash(a["flash"], fl_a):
+            fails.append(f"(a) rank {g['rank']} flash launches {a['flash']}")
+    by_path[f"mesh {TRAIN_LM_ARCH} driver"] = sum(sum(g["a"]["flash"]) for g in got)
+    # (b)
+    want_b = phase13_losses(MESH_DENSE[0], dense)
+    fl_b = flash_per_step(dense)
+    for g in got:
+        sv = g["b_serve"]
+        print(f"    rank {g['rank']} (b) serve: prefill {sv['prefill_ms']:.1f} ms "
+              f"(flash {sv['prefill_flash']}, want {dense.n_layers}), decode "
+              f"{sv['decode_ms']:.1f} ms a step (flash {sv['decode_flash']}, want 0), "
+              f"logits' min cosine to one rank {sv['cos']:.6f}, cache block "
+              f"{sv['slots']}, peak {sv['peak']:.3f} GiB [{tag}]")
+        init_line(g["b_init"], f"(b) rank {g['rank']}")
+        if not sv["finite"] or sv["cos"] < MESH_COS:
+            fails.append(f"(b) rank {g['rank']} serve cosine {sv['cos']}")
+        if st_flash([sv["prefill_flash"]], dense.n_layers) or sv["decode_flash"]:
+            fails.append(f"(b) rank {g['rank']} serve flash launches")
+        print(f"    rank {g['rank']} (b) on (2, {half}):")
+        grad_line(g["b_grad"], f"(b) rank {g['rank']}")
+        train_line(g["b_train"], f"(b) rank {g['rank']}", want_b, fl_b)
+    by_path[f"mesh {MESH_DENSE[0]}"] = sum(g["b_serve"]["prefill_flash"]
+                                          + sum(g["b_train"]["flash"]) for g in got)
+    # (c)
+    for a, cfg in moe:
+        fl_c = flash_per_step(cfg)
+        ep = cfg.moe.expert_sharding == "ep"
+        for g in got:
+            r = g["c"][a]
+            print(f"    rank {g['rank']} (c) {a}:")
+            init_line(r["init"], f"(c) {a} rank {g['rank']}")
+            for label in ("config", "unbound"):
+                if label not in r:
+                    continue
+                x = r[label]
+                flips = [f for f, *_ in x["flips"]]
+                bad = sum(b for *_, b, _ in x["flips"])
+                checked = label == "unbound" or not ep
+                print(f"      prefill at the {label} capacity: "
+                      f"{x['ms']:.1f} ms, flash {x['flash']} (want {cfg.n_layers}); "
+                      f"routing flips per layer {flips} of {x['flips'][0][3]} tokens, "
+                      f"{bad} not near a tie; last-token logits' min cosine to one rank "
+                      f"{x['cos']:.6f}{'' if checked else ' (drops differ: not held)'}; "
+                      f"peak {x['peak']:.3f} GiB [{tag}]")
+                if bad or not x["finite"] or (checked and x["cos"] < MESH_COS):
+                    fails.append(f"(c) {a} rank {g['rank']} {label}: {bad} flips off "
+                                 f"ties, cosine {x['cos']}")
+                if st_flash([x["flash"]], cfg.n_layers):
+                    fails.append(f"(c) {a} rank {g['rank']} prefill flash {x['flash']}")
+            grad_line(r["grad"], f"(c) {a} rank {g['rank']}")
+            print(f"      on (1, {world}):")
+            train_line(r["train"], f"(c) {a} rank {g['rank']}", phase13_losses(a, cfg),
+                       fl_c, "; not held: at the config's capacity a2a's per-shard "
+                       "capacity drops other tokens than the scatter" if ep else "")
+        by_path[f"mesh {a}"] = sum(sum(x["flash"] for k, x in g["c"][a].items()
+                                       if k in ("config", "unbound"))
+                                   + sum(g["c"][a]["train"]["flash"]) for g in got)
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"  phase 14: {time.perf_counter() - t_start:.1f} s [{tag}]")
+    if fails:
+        raise SmokeFailure("phase 14: " + "; ".join(fails))
+    return by_path
+
+
+def phase13_losses(arch, cfg):
+    """Phase 13's one-rank losses of ``arch`` where it trained ``cfg``
+    (the same init and batches), else None."""
+    run = PHASE13.get(arch)
+    return run["losses"] if run is not None and run["cfg"] == cfg else None
+
+
+def st_flash(seen, want: int) -> bool:
+    """Whether flash launches ``seen`` (a list, one a call) miss ``want``
+    each (the counter does not move on the CPU rehearsal's plain path)."""
+    return DEVICE == "cuda" and set(seen) != {want}
+
+
+
 def main() -> int:
     tag, kernels, flash_err, errs = dvnr_phases()
     import gc
@@ -5845,6 +6543,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     trained, trained_nc = lm_training_phase(tag, torch.device(DEVICE))
+    gc.collect()
+    torch.cuda.empty_cache()
+    meshed = mesh_phase(tag, torch.device(DEVICE))
     # the flash kernel's launches on each main path: phase 7's, the
     # families' causal prefills and the causal training steps in row 8, the
     # encoder's and the cross-attention's in row 8-nc
@@ -5852,6 +6553,7 @@ def main() -> int:
     by_path = {LM_ARCH: flash["launches"]}
     by_path.update({a: n for a, n in fam.items() if a != "seamless_m4t_large_v2"})
     by_path.update(trained)
+    by_path.update(meshed)
     flash["launches"] = sum(by_path.values())
     flash["launches_by_path"] = by_path
     nc_by_path = {"seamless_m4t_large_v2": fam["seamless_m4t_large_v2"], **trained_nc}

@@ -103,9 +103,16 @@ def state_to_numpy(state) -> dict:
             "step": int(state.step)}
 
 
-def lm_params_from_numpy(np_params: dict, device="auto") -> dict:
+def lm_params_from_numpy(np_params: dict, device="auto", *, cfg=None,
+                         sharder=None) -> dict:
     """The JAX LM parameter tree as numpy arrays -> the port's tensors on
-    ``device`` (``"auto"``: the GPU), keeping keys and dtypes."""
+    ``device`` (``"auto"``: the GPU), keeping keys and dtypes. With a
+    ``sharder`` on a mesh (and the model's ``cfg``): this rank's blocks
+    (``parallel.sharding.shard_params``), cut on the host so that only
+    they reach the device."""
+    if sharder is not None and sharder.mesh is not None:
+        from repro_torch.parallel.sharding import shard_params
+        np_params = shard_params(np_params, cfg, sharder)
     return _tree_to_torch(np_params, resolve_device(device))
 
 

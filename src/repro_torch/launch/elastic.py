@@ -20,7 +20,7 @@ from typing import Any, Optional
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.launch.mesh import make_mesh_for
-from repro_torch.parallel.sharding import (Sharder, param_shardings,
+from repro_torch.parallel.sharding import (Sharder, held_shardings,
                                            partition_shardings)
 
 
@@ -49,15 +49,21 @@ def plan_restart(surviving_devices: int, global_batch: int, *,
 
 
 def elastic_restore(mgr: CheckpointManager, example_tree, cfg, plan: RestartPlan,
-                    step: Optional[int] = None):
+                    step: Optional[int] = None, *, shapes=None):
     """Restore a checkpoint onto the new mesh's placements. ``example_tree``
     is this rank's share on the new mesh: for a DVNR config
     (``cfg.n_levels``), a partition-stacked trainer state whose leading axis
     is cut over every mesh axis (:func:`partition_shardings`); for an LM
-    config, its parameters by the LM rules (:func:`param_shardings`, which
-    need a tensor-parallel LM to use, ROADMAP item 16)."""
+    config, its blocks of the parameters (and optimizer state) as the LM
+    rules cut them over ``"model"`` (:func:`held_shardings`, the layout the
+    training driver holds and writes), with ``shapes`` the same tree's
+    global shapes (e.g. ``Model.param_specs()``): whether a block is cut
+    depends on its global length."""
     if hasattr(cfg, "n_levels"):
         shardings = partition_shardings(example_tree, plan.sharder)
+    elif shapes is None:
+        raise ValueError("elastic_restore of an LM needs shapes=, the global "
+                         "tree's shapes")
     else:
-        shardings = param_shardings(example_tree, cfg, plan.sharder)
+        shardings = held_shardings(shapes, cfg, plan.sharder)
     return mgr.restore(example_tree, step, shardings=shardings)

@@ -11,10 +11,17 @@ The caller initialises the process group (``init_process_group`` with its
 own address, world size and rank: nothing on the machine tells a program of
 a cluster) and names its backend. ``gloo`` runs on the CPU and lets several
 ranks share one card (NCCL refuses two ranks on one device); ``nccl``
-needs a card a rank. Nothing falls back from one to the other. The DVNR
-path shards only over all axes at once (the partition axis), so no per-axis
-subgroup, and no ``torch.distributed.device_mesh`` (whose CUDA meshes
-assume NCCL), is built.
+needs a card a rank. Nothing falls back from one to the other.
+
+Axis groups. A collective over some of the mesh's axes (``psum`` over
+``"model"``, over the batch axes ``("pod", "data")``) runs among the ranks
+that share this rank's coordinates on every other axis. :func:`build_mesh`
+creates one process group for each such set of ranks, for every set of
+axes, on every rank together (``torch.distributed.new_group`` is collective
+over the whole group, even for ranks outside the new one), and
+:meth:`Mesh.axis_group` hands out this rank's. A set of axes of size 1
+needs no group. No ``torch.distributed.device_mesh`` is built: its CUDA
+meshes assume NCCL.
 
 As in the JAX package, the functions build a mesh only when called, and
 raise when the process group holds fewer ranks than the shape asks for (or
@@ -22,7 +29,8 @@ more: the caller starts as many ranks as the mesh holds).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import itertools
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 import numpy as np
@@ -38,7 +46,9 @@ class Mesh:
     index on each axis; ``index``: their row-major flattening (the rank's
     position in ``P(axis_names)``, the partitions it holds); ``device``:
     where this rank's tensors live; ``group``: the process group of the
-    mesh's ranks (None: the default group)."""
+    mesh's ranks (None: the default group); ``groups``: this rank's process
+    group for each set of axes (a tuple in axis order) of size > 1 below the
+    whole mesh (:func:`build_mesh` fills it)."""
 
     shape: dict
     axis_names: Tuple[str, ...]
@@ -46,10 +56,46 @@ class Mesh:
     index: int
     device: torch.device
     group: Optional[object] = None
+    groups: dict = field(default_factory=dict, compare=False, repr=False)
 
     @property
     def size(self) -> int:
         return int(np.prod(list(self.shape.values()), dtype=np.int64))
+
+    def axes(self, axes) -> Tuple[str, ...]:
+        """``axes`` (None, a name or names) as the mesh's own axes among
+        them, in axis order; names the mesh lacks drop out, as JAX's
+        sharder drops them."""
+        if axes is None:
+            return ()
+        names = (axes,) if isinstance(axes, str) else tuple(axes)
+        return tuple(a for a in self.axis_names if a in names)
+
+    def axis_size(self, axes) -> int:
+        return int(np.prod([self.shape[a] for a in self.axes(axes)], dtype=np.int64))
+
+    def axis_index(self, axes) -> int:
+        """This rank's row-major index over ``axes`` (its block index along
+        a dimension those axes cut; JAX's ``axis_index``)."""
+        k = 0
+        for a in self.axes(axes):
+            k = k * self.shape[a] + int(self.coords[a])
+        return k
+
+    def axis_group(self, axes):
+        """The process group of the ranks that share this rank's
+        coordinates on every axis outside ``axes``, ordered by their index
+        over ``axes``; None when ``axes`` has size 1 (nothing to talk to)."""
+        axes = self.axes(axes)
+        if self.axis_size(axes) == 1:
+            return None
+        if all(self.shape[a] == 1 or a in axes for a in self.axis_names):
+            return self.group if self.group is not None else dist.group.WORLD
+        live = tuple(a for a in axes if self.shape[a] > 1)
+        if live not in self.groups:
+            raise RuntimeError(f"mesh {self.shape} has no process group over "
+                               f"{axes}: build it with build_mesh")
+        return self.groups[live]
 
     @property
     def backend(self) -> str:
@@ -91,7 +137,30 @@ def build_mesh(shape, axis_names, *, device="auto", group=None) -> Mesh:
     index = dist.get_rank(group)
     coords = dict(zip(axis_names, (int(c) for c in np.unravel_index(index, shape))))
     return Mesh(dict(zip(axis_names, shape)), axis_names, coords, index,
-                rank_device(device), group)
+                rank_device(device), group, _axis_groups(shape, axis_names,
+                                                         index, group))
+
+
+def _axis_groups(shape, axis_names, index, group) -> dict:
+    """This rank's process group for every set of axes of size > 1 (axes of
+    size 1 left out) short of all of them. Every rank creates every group,
+    in one order."""
+    live = [i for i, n in enumerate(shape) if n > 1]
+    members = (list(range(int(np.prod(shape, dtype=np.int64)))) if group is None
+               else dist.get_process_group_ranks(group))
+    grid = np.arange(len(members)).reshape(shape)
+    out = {}
+    for r in range(1, len(live)):
+        for sub in itertools.combinations(live, r):
+            rest = [i for i in range(len(shape)) if i not in sub]
+            # the ranks of one coset: the subset's axes last, row-major
+            cosets = np.transpose(grid, rest + list(sub)).reshape(
+                -1, int(np.prod([shape[i] for i in sub])))
+            for row in cosets:
+                g = dist.new_group([members[int(i)] for i in row])
+                if index in row:
+                    out[tuple(axis_names[i] for i in sub)] = g
+    return out
 
 
 def make_production_mesh(*, multi_pod: bool = False, pods: int = 2,

@@ -8,9 +8,17 @@ async checkpoints every ``--ckpt-every`` steps and a resume from the newest
 (``--resume``). The checkpoints are the JAX package's layout, so either
 package resumes the other's.
 
-It runs on ``cuda:0``. Where more than one card is visible the JAX driver
-builds a mesh; the port has no sharded LM execution yet (ROADMAP item 16),
-so it trains on one card and says so. ``--device cpu`` with ``--impl ref``
+On one process it runs on ``cuda:0``. On a process group of more than one
+rank (``torch.distributed`` initialised by the caller, or ``WORLD_SIZE`` >
+1 from ``torchrun``, when the driver initialises it from the environment:
+``nccl`` on the cards, ``gloo`` with ``--device cpu``) it builds JAX's
+mesh, ``make_mesh_for(world)`` (JAX's default ``model_parallel=16``:
+(1, 4) on 4 ranks), and trains the dense and MoE families sharded: every rank
+draws the same init and keeps its blocks, cutting each leaf as it is drawn
+(``Model.init(..., sharder=)``: a rank never holds the whole tree), and
+takes its block of each ``synth_batch``; checkpoints are written from the blocks'
+placements and restored onto whatever mesh resumes (another shape too).
+Rank 0 prints. ``--device cpu`` with ``--impl ref``
 (or ``cuda``: the kernel wrappers' plain versions) runs on the CPU, which
 the tests use; ``--device`` and ``--impl`` default to ``auto``, which raise
 without a GPU rather than falling back to the CPU.
@@ -18,6 +26,8 @@ without a GPU rather than falling back to the CPU.
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2_0_5b \\
       --steps 50 --batch 8 --seq 1024 --ckpt-dir ck --resume
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch qwen2_0_5b --steps 50 --batch 8 --seq 1024
   PYTHONPATH=src python -m repro_torch.launch.train --arch olmo_1b --smoke \\
       --steps 20 --device cpu --impl ref
 """
@@ -25,6 +35,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import time
 
 import numpy as np
@@ -34,9 +45,10 @@ from repro_torch import backends
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ShapeConfig
+from repro_torch.launch.mesh import make_mesh_for, rank_device
 from repro_torch.models import build_model
 from repro_torch.optim import OptConfig
-from repro_torch.parallel.sharding import Sharder
+from repro_torch.parallel.sharding import Sharder, held_shardings
 from repro_torch.train import make_train_step
 
 
@@ -57,6 +69,33 @@ def synth_batch(model, shape: ShapeConfig, step: int, device="auto") -> dict:
             a = rng.standard_normal(tuple(s.shape)) * 0.02
         out[k] = torch.from_numpy(a).to(s.dtype).to(dev)
     return out
+
+
+def batch_block(batch: dict, sharder) -> dict:
+    """This rank's rows of a global batch (its block over the sharder's
+    batch axes; the whole batch without a mesh)."""
+    if sharder.mesh is None:
+        return batch
+    mesh, axes = sharder.mesh, sharder.axes("batch")
+    n, k = mesh.axis_size(axes), mesh.axis_index(axes)
+    return {key: v[k * (v.shape[0] // n):(k + 1) * (v.shape[0] // n)]
+            for key, v in batch.items()}
+
+
+def _world(device) -> int:
+    """The ranks this process trains with: the initialised process group's,
+    else ``torchrun``'s ``WORLD_SIZE`` (initialising the group from the
+    environment: ``nccl`` on the cards, ``gloo`` on the CPU), else 1."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return dist.get_world_size()
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1:
+        cpu = str(device) == "cpu"
+        if not cpu:
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("gloo" if cpu else "nccl")
+    return world
 
 
 def main(argv=None) -> dict:
@@ -82,16 +121,22 @@ def main(argv=None) -> dict:
                     help="the loss's backend: 'auto' (the card's), 'cuda' or 'ref'")
     args = ap.parse_args(argv)
 
-    dev = backends.resolve_device(args.device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", 0)
-    if dev.type == "cuda" and torch.cuda.device_count() > 1:
-        print(f"[train] {torch.cuda.device_count()} cards visible: training on "
-              f"{dev} alone (sharded LM execution is ROADMAP item 16)")
+    world = _world(args.device)
+    if world > 1:
+        dev = rank_device(args.device)
+    else:
+        dev = backends.resolve_device(args.device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", 0)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     model = build_model(cfg, args.moe_dispatch)
     shape = ShapeConfig("driver", "train", args.seq, args.batch)
-    sharder = Sharder(None, args.batch)
+    mesh = make_mesh_for(world, device=dev) if world > 1 else None
+    sharder = Sharder(mesh, args.batch)
+    lead = mesh is None or mesh.index == 0
+    if mesh is not None and lead:
+        print(f"[train] mesh {dict(mesh.shape)} of {world} ranks "
+              f"({mesh.backend}), batch axes {sharder.axes('batch')}")
 
     step_fn = make_train_step(model, OptConfig(lr=args.lr, schedule="cosine",
                                                warmup_steps=10,
@@ -101,39 +146,49 @@ def main(argv=None) -> dict:
                               microbatches=args.microbatches,
                               grad_compress=args.grad_compress)
 
-    params = model.init(0, device=dev)
+    # every rank draws the same init, each leaf cut to its blocks as it is
+    # drawn; the checkpoints' placements come from the global shapes
+    params = model.init(0, device=dev, sharder=sharder)
     opt_state = step_fn.optimizer.init(params)
+    specs = model.param_specs()
+    places = held_shardings((specs, step_fn.optimizer.init(specs)), cfg, sharder) \
+        if mesh else None
     start = 0
 
     mgr = None
     if args.ckpt_dir:
-        mgr = CheckpointManager(args.ckpt_dir, keep_last=3)
+        mgr = CheckpointManager(args.ckpt_dir, keep_last=3, mesh=mesh)
         if args.resume and mgr.latest_step() is not None:
-            (params, opt_state), meta = mgr.restore((params, opt_state))
+            (params, opt_state), meta = mgr.restore((params, opt_state),
+                                                    shardings=places)
             start = int(meta.get("train_step", mgr.latest_step()))
-            print(f"[train] resumed from step {start}")
+            if lead:
+                print(f"[train] resumed from step {start}")
 
     history = []
     t0 = time.time()
     for i in range(start, args.steps):
-        batch = synth_batch(model, shape, i, dev)
+        batch = batch_block(synth_batch(model, shape, i, dev), sharder)
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         if (i + 1) % args.log_every == 0 or i == start:
             loss = float(metrics["loss"])
             history.append({"step": i + 1, "loss": loss})
-            print(f"[train] step {i+1:5d} loss {loss:.4f} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} "
-                  f"({(time.time()-t0)/(i-start+1):.2f}s/step)")
+            if lead:
+                print(f"[train] step {i+1:5d} loss {loss:.4f} "
+                      f"gnorm {float(metrics['grad_norm']):.3f} "
+                      f"({(time.time()-t0)/(i-start+1):.2f}s/step)")
         if mgr is not None and (i + 1) % args.ckpt_every == 0:
             mgr.save(i + 1, (params, opt_state),
                      metadata={"train_step": i + 1,
-                               "loss": float(metrics["loss"])})
+                               "loss": float(metrics["loss"])}, shardings=places)
     if mgr is not None:
         mgr.save(args.steps, (params, opt_state),
-                 metadata={"train_step": args.steps}, blocking=True)
+                 metadata={"train_step": args.steps}, blocking=True,
+                 shardings=places)
     result = {"arch": args.arch, "steps": args.steps, "history": history,
               "final_loss": history[-1]["loss"] if history else None}
-    print(json.dumps({"final": result["final_loss"], "steps": args.steps}))
+    if lead:
+        print(json.dumps({"final": result["final_loss"], "steps": args.steps}))
     return result
 
 

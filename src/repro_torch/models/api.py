@@ -9,10 +9,19 @@ The entry points run on the card unless the caller asks for the CPU:
 one), ``prefill`` and ``loss`` take ``impl="auto"`` (the ``cuda`` backend;
 raises without a GPU), also where a family has no attention for ``impl``
 to choose. ``device="cpu"`` with ``impl="ref"`` runs the plain PyTorch
-versions on the CPU. ``moe_dispatch`` takes JAX's names; ``"a2a"`` and a
-``sharder`` with a mesh raise ``NotImplementedError`` naming ROADMAP item
-16 (``None`` or a mesh-less ``Sharder`` is the single-card path).
+versions on the CPU. ``moe_dispatch`` takes JAX's names.
 
+``sharder``: None or a mesh-less ``Sharder`` is the single-card path; a
+``Sharder`` on a mesh runs the dense and MoE families sharded, each rank
+with its blocks of the parameters (``init(..., sharder=)``, which cuts each
+leaf as it is drawn, or ``parallel.sharding.shard_params`` of a global
+tree, e.g. JAX's ``init`` carried across by
+``interop.lm_params_from_numpy``) and of the batch; the other families
+raise ``NotImplementedError`` naming ROADMAP item 16, and anything that is
+not a ``Sharder`` raises ``TypeError``.
+
+``param_specs()`` gives ``init``'s tree as shapes (the large leaves on
+the meta device, nothing drawn), as ``jax.eval_shape`` does.
 ``input_specs(shape)`` gives the inputs a family takes at a
 ``ShapeConfig`` as shape-and-dtype stand-ins: tensors on ``device="meta"``
 (no storage, nothing executes), with the JAX package's keys, shapes and
@@ -28,19 +37,23 @@ import torch
 from repro_torch import backends
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.models import encdec, hybrid, ssm_lm, transformer
-from repro_torch.models.moe import DISPATCHES, moe_block_a2a
+from repro_torch.models.layers import cut_draws, shapes_only
+from repro_torch.models.moe import DISPATCHES
+from repro_torch.parallel.sharding import (_flatten_with_path, _unflatten_like,
+                                           held_shardings, mesh_sharder)
 from repro_torch.precision import torch_dtype
 
 
 @dataclass
 class Model:
     config: ModelConfig
-    init: Callable[..., Any]                         # (seed | Generator, device) -> params
+    init: Callable[..., Any]                         # (seed | Generator, device, sharder) -> params
     loss: Callable[..., tuple]                       # (params, batch, sharder, impl) -> (loss, metrics)
     prefill: Optional[Callable[..., tuple]]          # (params, batch, seq_len, sharder, impl) -> (logits, cache)
     decode_step: Optional[Callable[..., tuple]]      # (params, cache, tokens, sharder) -> (logits, cache)
     init_cache: Optional[Callable[..., Any]]         # (batch, seq_len, device) -> cache
     input_specs: Callable[[ShapeConfig], dict]       # meta-tensor stand-ins
+    param_specs: Callable[[], Any]                   # () -> init's tree, shapes only
 
 
 def build_model(cfg: ModelConfig, moe_dispatch: str = "scatter") -> Model:
@@ -48,8 +61,6 @@ def build_model(cfg: ModelConfig, moe_dispatch: str = "scatter") -> Model:
         raise ValueError(f"unknown moe_dispatch {moe_dispatch!r}; one of {DISPATCHES}")
     fam = cfg.family
     if fam in ("dense", "moe", "vlm"):
-        if cfg.moe is not None and moe_dispatch == "a2a":
-            moe_block_a2a(cfg, None, None)           # raises: no mesh (item 16)
         return _build_transformer(cfg, moe_dispatch)
     if fam == "ssm":
         return _build_ssm(cfg)
@@ -114,13 +125,42 @@ def _generator(rng, device) -> torch.Generator:
     return gen
 
 
+def _init_blocks(cfg, init_fn, gen, sh):
+    """This rank's blocks of ``init_fn(gen)`` on ``sh``'s mesh, bit for bit
+    ``shard_params`` of it, without the whole tree: each drawn leaf is cut
+    to its block as it is drawn (``layers.cut_draws``), so a rank holds its
+    blocks plus one leaf's draw (one chunk of a wide narrow-dtype leaf) at a
+    time; what is not drawn (norm scales, biases) is cut after."""
+    drawn: list = []
+    with shapes_only(drawn):
+        specs = init_fn(torch.Generator())
+    pairs = [(leaf, p) for (_, leaf), (_, p) in zip(
+        _flatten_with_path(specs), _flatten_with_path(held_shardings(specs, cfg, sh)))]
+    at = {id(leaf): p for leaf, p in pairs}
+    with cut_draws([at[id(t)].slices(t.shape) for t in drawn]):   # every draw is a leaf
+        params = init_fn(gen)
+
+    def block(leaf, spec, p):
+        if tuple(leaf.shape) != tuple(spec.shape):       # cut as drawn
+            return leaf
+        b = p.local(leaf)
+        return b.clone() if b.shape != leaf.shape else leaf
+
+    return _unflatten_like(params, [block(leaf, spec, p) for (_, leaf), (spec, p) in
+                                    zip(_flatten_with_path(params), pairs)])
+
+
 def _model(cfg, init_fn, loss_fn, prefill_fn, decode_fn, cache_fn) -> Model:
     """A Model whose entry points resolve ``device`` / ``impl`` (``"auto"``:
     the card) before they call the family's functions."""
 
-    def init(rng=0, device="auto"):
-        """``rng``: an int seed or a ``torch.Generator`` (its device wins)."""
-        return init_fn(_generator(rng, device))
+    def init(rng=0, device="auto", sharder=None):
+        """``rng``: an int seed or a ``torch.Generator`` (its device wins).
+        With a ``sharder`` on a mesh, this rank's blocks of the same tree
+        (:func:`_init_blocks`)."""
+        gen = _generator(rng, device)
+        sh = mesh_sharder(sharder)
+        return init_fn(gen) if sh is None else _init_blocks(cfg, init_fn, gen, sh)
 
     def loss(params, batch, sharder=None, impl="auto"):
         return loss_fn(params, batch, sharder, backends.resolve(impl))
@@ -131,7 +171,15 @@ def _model(cfg, init_fn, loss_fn, prefill_fn, decode_fn, cache_fn) -> Model:
     def init_cache(batch, seq_len, device="auto"):
         return cache_fn(batch, seq_len, backends.resolve_device(device))
 
-    return Model(cfg, init, loss, prefill, decode_fn, init_cache, _specs_of(cfg))
+    def param_specs():
+        """``init``'s tree with its shapes and dtypes and nothing drawn
+        (the large leaves on the meta device): JAX's ``jax.eval_shape`` of
+        ``init``, which the placements of a mesh need."""
+        with shapes_only():
+            return init_fn(torch.Generator())
+
+    return Model(cfg, init, loss, prefill, decode_fn, init_cache, _specs_of(cfg),
+                 param_specs)
 
 
 def _build_transformer(cfg, moe_dispatch="scatter") -> Model:

@@ -7,6 +7,30 @@ stored 2D-flattened ((d, Hq*dh) etc.), as in the JAX package.
 (``csrc/flash_attention.cu``) under JAX's condition: a kernel backend
 (``cuda``), no ``kv_valid_len`` and ``q_offset == 0`` (an int). Every other
 call, every decode step included, runs the plain masked path.
+
+On a mesh (a ``sharder`` with one) the input ``x`` is the rank's batch
+block, whole over ``"model"``, and the weights are the rank's blocks
+(``parallel.sharding.shard_params``). :func:`attention_block` runs in one of
+three modes, as XLA partitions JAX's block:
+
+- heads (``Hq`` divides over ``"model"``): the rank's q heads and the K/V
+  heads they read (gathered when the K/V heads do not split evenly, e.g.
+  qwen2's 2 on a 4-wide axis), flash on the kernel path, ``wo``'s rows and
+  a psum over ``"model"``;
+- sequence (JAX's ``_seq_parallel_mode``: ``Hq`` does not divide, the
+  sequence does, e.g. qwen2's 14 heads or arctic's 56 on a 4-wide axis):
+  q moves from column blocks to the rank's query rows by one all_to_all
+  (``Sharder.constrain`` from the layout it holds to JAX's ``"seq"``
+  constraint), K/V are gathered whole, the rank attends rows
+  ``[r*s, (r+1)*s)`` against keys ``[0, (r+1)*s)`` (the kernel right-aligns
+  queries to keys, which is JAX's causal mask), and the output goes back by
+  the reverse all_to_all;
+- whole (neither divides, e.g. a decode step of qwen2): every head on every
+  rank, then ``wo``'s rows.
+
+:func:`decode_attention` holds the cache cut over ``"seq"`` (the slots,
+JAX's ``decode_attention`` constraint) where the slot count divides: each
+rank attends over its slots and the ranks combine their softmax sums.
 """
 from __future__ import annotations
 
@@ -18,7 +42,8 @@ import torch
 from repro_torch import backends
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import apply_rope, dense_init, rope_angles
-from repro_torch.parallel.sharding import require_no_sharder
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel.sharding import mesh_sharder, model_split, require_no_sharder
 
 NEG_INF = -1e30
 
@@ -69,9 +94,9 @@ def routes_to_kernel(backend, q_offset=0, kv_valid_len=None) -> bool:
 
 
 def sdpa(q, k, v, *, causal: bool, window: Optional[int] = None,
-         q_offset=0, kv_valid_len=None, impl: backends.BackendLike = "ref",
-         sharder=None):
-    """Scaled dot-product attention with GQA.
+         q_offset=0, kv_valid_len=None, impl: backends.BackendLike = "ref"):
+    """Scaled dot-product attention with GQA, on one rank's tensors (on a
+    mesh, :func:`attention_block` splits the heads or the query rows).
 
     q: (B, Sq, Hq, dh); k, v: (B, Sk, Hkv, dh).
     ``q_offset``: absolute position of q[0] (decode: current pos; an int or
@@ -79,7 +104,6 @@ def sdpa(q, k, v, *, causal: bool, window: Optional[int] = None,
     ``kv_valid_len``: number of valid KV entries (decode with preallocated cache).
     ``window``: sliding-window size (None = full).
     """
-    require_no_sharder(sharder)
     backend = backends.resolve(impl)
     # the flash kernel has no q_offset / kv_valid_len support (decode with a
     # preallocated cache): those calls stay on the plain path
@@ -108,13 +132,148 @@ def sdpa(q, k, v, *, causal: bool, window: Optional[int] = None,
     return out.reshape(B, Sq, Hq, dh)
 
 
+def _seq_parallel_mode(sharder, Hq: int, Sq: int) -> bool:
+    """JAX's condition for sequence-parallel attention: the query heads do
+    not divide the model axis and the query rows do."""
+    if sharder is None or sharder.mesh is None:
+        return False
+    m = sharder.axis_size("model")
+    return m > 1 and Hq % m != 0 and Sq % m == 0 and Sq > 1
+
+
+def _attend_rows(q, k, v, q_start: int, *, causal, window, backend):
+    """Query rows ``[q_start, q_start + Sq)`` against the keys ``[0, Sk)``:
+    the flash kernel on the keys up to the last row (it right-aligns the
+    rows to them), else the plain path with ``q_offset``."""
+    if routes_to_kernel(backend) and causal:
+        end = q_start + q.shape[1]
+        return flash_ops.flash_attention(q, k[:, :end], v[:, :end], causal=True,
+                                         window=window, impl=backend)
+    if routes_to_kernel(backend) and q_start == 0 and q.shape[1] == k.shape[1]:
+        return flash_ops.flash_attention(q, k, v, causal=causal, window=window,
+                                         impl=backend)
+    return sdpa(q, k, v, causal=causal, window=window, q_offset=q_start,
+                impl="ref")
+
+
+def _kv_heads(lo: int, n: int, Hq: int, Hkv: int):
+    """The K/V heads q heads ``[lo, lo + n)`` read: a slice (whole GQA
+    groups, or one K/V head shared by all n) or, where the n heads cut
+    groups unevenly, an index per q head."""
+    g = Hq // Hkv
+    if n % g == 0:
+        return slice(lo // g, (lo + n) // g)
+    if g % n == 0:
+        return slice(lo // g, lo // g + 1)
+    return torch.arange(lo, lo + n) // g
+
+
+def _projection(cfg, p, x, xe, name, heads, sh):
+    """``x @ w`` (+ bias) for one of q / k / v: (values, split) with values
+    this rank's columns when the model axis cuts ``heads * dh`` (from the
+    entered ``xe``), else all of them (from ``x``)."""
+    split = model_split(sh, heads * cfg.resolved_head_dim)
+    src = xe if split else x
+    y = src @ p["w" + name].to(x.dtype)
+    if cfg.qkv_bias:
+        y = y + p["b" + name].to(x.dtype)
+    return y, split
+
+
+def _rope(cfg, t, positions):
+    if cfg.n_heads > 0 and positions is not None:
+        return apply_rope(t, rope_angles(positions, cfg.resolved_head_dim,
+                                         cfg.rope_theta, cfg.mrope_sections))
+    return t
+
+
+def attention_mode(sharder, cfg, S: int) -> str:
+    """``"heads"``, ``"seq"`` or ``"whole"`` (see the module docstring) for
+    a block of ``S`` query rows on ``sharder``'s mesh."""
+    if sharder.axis_size("model") == 1 or cfg.n_heads % sharder.axis_size("model") == 0:
+        return "heads"
+    return "seq" if _seq_parallel_mode(sharder, cfg.n_heads, S) else "whole"
+
+
+def attention_tp(cfg, p, x, positions, sh, *, causal=True, window=None,
+                 impl: backends.BackendLike = "ref", with_kv: bool = False):
+    """:func:`attention_block` on a mesh whose model axis is wider than 1
+    (``sh`` a sharder with one): (out, k, v), out whole over ``"model"``
+    and, when ``with_kv``, k / v (B,S,Hkv,dh) with every K/V head (the
+    prefill's cache), else None."""
+    mesh, M = sh.mesh, "model"
+    m, r = mesh.axis_size(M), mesh.axis_index(M)
+    backend = backends.resolve(impl)
+    B, S, _ = x.shape
+    dh, Hq, Hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    mode = attention_mode(sh, cfg, S)
+    xe = col.enter(x, mesh, M)
+    q, q_split = _projection(cfg, p, x, xe, "q", Hq, sh)
+    k, kv_split = _projection(cfg, p, x, xe, "k", Hkv, sh)
+    v, _ = _projection(cfg, p, x, xe, "v", Hkv, sh)
+    div = q_split or mode == "seq"      # the ranks' work differs from here
+    local_kv = mode == "heads" and kv_split and Hkv % m == 0
+
+    def whole(t):                        # every K/V (or q) column on this rank
+        if kv_split:
+            return col.all_gather_dim(t, mesh, M, 2) if div else col.gather(t, mesh, M, 2)
+        return col.enter(t, mesh, M) if div else t
+
+    if not local_kv:
+        k, v = whole(k), whole(v)
+    k = _rope(cfg, k.reshape(B, S, -1, dh), positions)
+    v = v.reshape(B, S, -1, dh)
+    if mode == "heads":
+        n = Hq // m
+        q = _rope(cfg, q.reshape(B, S, n, dh), positions)
+        kk, vv = (k, v) if local_kv else (k[:, :, _kv_heads(r * n, n, Hq, Hkv)],
+                                          v[:, :, _kv_heads(r * n, n, Hq, Hkv)])
+        o = _attend_rows(q, kk, vv, 0, causal=causal, window=window, backend=backend)
+        out = col.reduce(o.reshape(B, S, -1) @ p["wo"].to(x.dtype), mesh, M)
+    elif mode == "seq":
+        s = S // m
+        q = sh.constrain(q, "batch", "seq", None,
+                         held=("batch", None, "model" if q_split else None))
+        rows = positions[..., r * s:(r + 1) * s]
+        q = _rope(cfg, q.reshape(B, s, Hq, dh), rows)
+        o = _attend_rows(q, k, v, r * s, causal=causal, window=window,
+                         backend=backend).reshape(B, s, -1)
+        if q_split:
+            o = sh.constrain(o, "batch", None, "model", held=("batch", "seq", None))
+            out = col.reduce(o @ p["wo"].to(x.dtype), mesh, M)
+        else:
+            out = sh.constrain(o @ col.enter(p["wo"], mesh, M).to(x.dtype),
+                               "batch", None, None, held=("batch", "seq", None))
+    else:
+        if q_split:
+            q = col.all_gather_dim(q, mesh, M, 2)
+        q = _rope(cfg, q.reshape(B, S, Hq, dh), positions)
+        o = _attend_rows(q, k, v, 0, causal=causal, window=window,
+                         backend=backend).reshape(B, S, -1)
+        if q_split:
+            c = o.shape[-1] // m
+            out = col.reduce(o[..., r * c:(r + 1) * c] @ p["wo"].to(x.dtype), mesh, M)
+        else:
+            out = o @ p["wo"].to(x.dtype)
+    if not with_kv:
+        return out, None, None
+    if local_kv:                         # the cache holds every K/V head
+        k, v = (col.all_gather_dim(t.detach(), mesh, M, 2) for t in (k, v))
+    return out, k, v
+
+
 def attention_block(cfg, p, x, positions, *, causal=True, window=None,
                     sharder=None, impl: backends.BackendLike = "ref"):
-    """Full self-attention block (projection + sdpa + output proj)."""
+    """Full self-attention block (projection + sdpa + output proj); on a
+    mesh, :func:`attention_tp`."""
+    sh = mesh_sharder(sharder)
+    if sh is not None and sh.axis_size("model") > 1:
+        return attention_tp(cfg, p, x, positions, sh, causal=causal,
+                            window=window or cfg.sliding_window, impl=impl)[0]
     B, S, D = x.shape
     q, k, v = qkv_proj(cfg, p, x, positions)
     o = sdpa(q, k, v, causal=causal, window=window or cfg.sliding_window,
-             impl=impl, sharder=sharder)
+             impl=impl)
     o = o.reshape(B, S, -1)
     return o @ p["wo"].to(x.dtype)
 
@@ -122,13 +281,14 @@ def attention_block(cfg, p, x, positions, *, causal=True, window=None,
 def cross_attention_block(cfg, p, x, kv_src, *, sharder=None,
                           impl: backends.BackendLike = "ref"):
     """Cross-attention (enc-dec): queries from x, keys/values from kv_src."""
+    require_no_sharder(sharder, "cross-attention")
     B, S, D = x.shape
     dh = cfg.resolved_head_dim
     cdt = x.dtype
     q = (x @ p["wq"].to(cdt)).reshape(B, S, cfg.n_heads, dh)
     k = (kv_src @ p["wk"].to(cdt)).reshape(B, kv_src.shape[1], cfg.n_kv_heads, dh)
     v = (kv_src @ p["wv"].to(cdt)).reshape(B, kv_src.shape[1], cfg.n_kv_heads, dh)
-    o = sdpa(q, k, v, causal=False, impl=impl, sharder=sharder)
+    o = sdpa(q, k, v, causal=False, impl=impl)
     return o.reshape(B, S, -1) @ p["wo"].to(cdt)
 
 
@@ -151,10 +311,20 @@ def cache_update(cache_k, cache_v, k, v, pos, window: Optional[int] = None):
 
 
 def decode_attention(cfg, p, x, cache_k, cache_v, pos, *, window=None,
-                     sharder=None):
+                     sharder=None, slots=None):
     """One-token decode: x (B,1,D), cache (B,Smax,Hkv,dh), pos scalar. The
-    cache is updated in place (see :func:`cache_update`)."""
-    require_no_sharder(sharder)
+    cache is updated in place (see :func:`cache_update`).
+
+    On a mesh whose model axis is wider than 1, ``slots`` is the cache's
+    global slot count and ``cache_k`` / ``cache_v`` this rank's block of
+    them over ``"seq"`` (all of them when the count does not divide): the
+    rank that holds the slot of ``pos`` writes it, every rank attends over
+    its slots and the ranks combine their softmax sums (psum over
+    ``"model"``); then ``wo``'s rows and a psum. Not differentiated."""
+    sh = mesh_sharder(sharder)
+    if sh is not None and sh.axis_size("model") > 1:
+        return _decode_tp(cfg, p, x, cache_k, cache_v, pos, window, sh,
+                          cache_k.shape[1] if slots is None else slots)
     B = x.shape[0]
     positions = _decode_positions(cfg, pos, B, x.device)
     q, k, v = qkv_proj(cfg, p, x, positions)
@@ -169,6 +339,55 @@ def decode_attention(cfg, p, x, cache_k, cache_v, pos, *, window=None,
                                           max=ck.shape[1]))
     o = o.reshape(B, 1, -1)
     return o @ p["wo"].to(x.dtype), ck, cv
+
+
+@torch.no_grad()
+def _decode_tp(cfg, p, x, cache_k, cache_v, pos, window, sh, slots: int):
+    mesh, M = sh.mesh, "model"
+    m, r = mesh.axis_size(M), mesh.axis_index(M)
+    B = x.shape[0]
+    dh, Hq, Hkv = cfg.resolved_head_dim, cfg.n_heads, cfg.n_kv_heads
+    positions = _decode_positions(cfg, pos, B, x.device)
+    q, q_split = _projection(cfg, p, x, x, "q", Hq, sh)
+    k, kv_split = _projection(cfg, p, x, x, "k", Hkv, sh)
+    v, _ = _projection(cfg, p, x, x, "v", Hkv, sh)
+    if q_split:
+        q = col.all_gather_dim(q, mesh, M, 2)
+    if kv_split:
+        k, v = col.all_gather_dim(k, mesh, M, 2), col.all_gather_dim(v, mesh, M, 2)
+    q = _rope(cfg, q.reshape(B, 1, Hq, dh), positions)
+    k = _rope(cfg, k.reshape(B, 1, Hkv, dh), positions)
+    v = v.reshape(B, 1, Hkv, dh)
+    c = cache_k.shape[1]
+    lo = r * c if c != slots else 0                # this rank's first slot
+    pos_t = torch.as_tensor(pos, device=x.device)
+    idx = torch.clamp(pos_t, max=slots - 1) if window is None else pos_t % slots
+    mine = (idx >= lo) & (idx < lo + c)
+    at = (torch.clamp(idx - lo, 0, c - 1)).reshape(1).long()
+    keep_k, keep_v = cache_k.index_select(1, at), cache_v.index_select(1, at)
+    cache_k.index_copy_(1, at, torch.where(mine, k.to(cache_k.dtype), keep_k))
+    cache_v.index_copy_(1, at, torch.where(mine, v.to(cache_v.dtype), keep_v))
+    valid = pos_t + 1 if window is None else torch.clamp(pos_t + 1, max=slots)
+    g = Hq // Hkv
+    qg = q.reshape(B, 1, Hkv, g, dh)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, cache_k).float() / math.sqrt(dh)
+    k_pos = lo + torch.arange(c, device=x.device)
+    scores = torch.where(k_pos < valid, scores, NEG_INF)
+    top = col.pmax(scores.amax(-1, keepdim=True), mesh, M) if c != slots \
+        else scores.amax(-1, keepdim=True)
+    e = torch.exp(scores - top)
+    den = e.sum(-1, keepdim=True)
+    num = torch.einsum("bhgqk,bkhd->bhgqd", e, cache_v.float())
+    if c != slots:
+        den, num = col.psum(den, mesh, M), col.psum(num, mesh, M)
+    o = (num / den).to(q.dtype)                              # (B,Hkv,g,1,dh)
+    o = o.permute(0, 3, 1, 2, 4).reshape(B, 1, Hq * dh)
+    if q_split:
+        w = o.shape[-1] // m
+        out = col.psum(o[..., r * w:(r + 1) * w] @ p["wo"].to(x.dtype), mesh, M)
+    else:
+        out = o @ p["wo"].to(x.dtype)
+    return out, cache_k, cache_v
 
 
 def _decode_positions(cfg, pos, B, device=None):

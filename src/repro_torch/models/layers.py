@@ -7,13 +7,15 @@ dtypes.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.parallel.sharding import require_no_sharder
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel.sharding import mesh_sharder, model_split
 
 
 # --------------------------------------------------------------------------- #
@@ -21,6 +23,85 @@ from repro_torch.parallel.sharding import require_no_sharder
 # --------------------------------------------------------------------------- #
 #: elements drawn at once by ``truncated_normal`` for a non-float32 dtype
 _DRAW_CHUNK = 1 << 28
+#: set by ``shapes_only`` / ``cut_draws``: (kind, its state) or None
+_DRAW_HOOK: list = [None]
+
+
+@contextlib.contextmanager
+def _hooked(kind: str, state):
+    _DRAW_HOOK[0] = (kind, state)
+    try:
+        yield
+    finally:
+        _DRAW_HOOK[0] = None
+
+
+def shapes_only(drawn: Optional[list] = None):
+    """Within the block, ``truncated_normal`` and ``normal`` draw nothing
+    and return tensors on the meta device of their shape and dtype (an
+    ``init`` then gives its tree's shapes, as ``jax.eval_shape`` does); each
+    is appended to ``drawn`` when given."""
+    return _hooked("shapes", drawn)
+
+
+def cut_draws(cuts):
+    """Within the block, the i-th draw of ``truncated_normal`` or ``normal``
+    returns only the block ``cuts[i]`` (a tuple of slices, one a dimension)
+    of what it draws outside the block, the same values.
+    A draw made in chunks holds one chunk of the whole at a time."""
+    return _hooked("cut", iter(cuts))
+
+
+def _draw_hook(shape, dtype):
+    """(meta stand-in or None, cut or None) of the next draw under the hook."""
+    hook = _DRAW_HOOK[0]
+    if hook is None:
+        return None, None
+    kind, state = hook
+    if kind == "cut":
+        return None, next(state)
+    t = torch.empty(shape, dtype=dtype, device="meta")
+    if state is not None:
+        state.append(t)
+    return t, None
+
+
+def _row_boxes(shape, lo: int, hi: int, prefix=()):
+    """The flat range [lo, hi) of a row-major array of ``shape`` as boxes
+    (prefix, a, b): the elements whose index starts with ``prefix``, lies in
+    [a, b) along the next dimension and is whole along the rest."""
+    if lo >= hi:
+        return
+    row = int(np.prod(shape[1:]))
+    a, b = -(-lo // row), hi // row              # the whole rows in the range
+    if a > b:                                    # within the one row b
+        yield from _row_boxes(shape[1:], lo - b * row, hi - b * row, prefix + (b,))
+        return
+    if lo < a * row:
+        yield from _row_boxes(shape[1:], lo - (a - 1) * row, row, prefix + (a - 1,))
+    if a < b:
+        yield prefix, a, b
+    if b * row < hi:
+        yield from _row_boxes(shape[1:], 0, hi - b * row, prefix + (b,))
+
+
+def _copy_cut(out, cut, shape, lo: int, vals) -> None:
+    """Copy into ``out``, the block ``cut`` of an array of ``shape``, what
+    it holds of that array's flat elements ``[lo, lo + vals.numel())``,
+    given as the flat ``vals``."""
+    strides = [int(np.prod(shape[i + 1:])) for i in range(len(shape))]
+    for prefix, a, b in _row_boxes(shape, lo, lo + vals.numel()):
+        k = len(prefix)
+        if any(not c.start <= i < c.stop for i, c in zip(prefix, cut)):
+            continue
+        a2, b2 = max(a, cut[k].start), min(b, cut[k].stop)
+        if a2 >= b2:
+            continue
+        at = sum(i * s for i, s in zip(prefix, strides)) + a2 * strides[k] - lo
+        src = vals[at:at + (b2 - a2) * strides[k]].view(b2 - a2, *shape[k + 1:])
+        dst = tuple(i - c.start for i, c in zip(prefix, cut)) + (
+            slice(a2 - cut[k].start, b2 - cut[k].start),)
+        out[dst].copy_(src[(slice(None),) + tuple(cut[k + 1:])])
 
 
 def truncated_normal(gen: torch.Generator, shape, std: float,
@@ -30,22 +111,30 @@ def truncated_normal(gen: torch.Generator, shape, std: float,
     ``std * truncated_normal(key, -3, 3, shape)``). A narrower ``dtype``
     over ``_DRAW_CHUNK`` elements is drawn a chunk at a time, so that the
     float32 draw never holds twice the tensor (grok's and arctic's bf16
-    expert stacks on one card)."""
+    expert stacks on one card); under ``cut_draws`` each chunk goes
+    straight to the block."""
     shape = tuple(shape)
+    meta, cut = _draw_hook(shape, dtype)
+    if meta is not None:
+        return meta
     n = int(np.prod(shape))
     if dtype == torch.float32 or n <= _DRAW_CHUNK:
         t = torch.empty(shape, dtype=torch.float32, device=gen.device)
         torch.nn.init.trunc_normal_(t, 0.0, std, -3.0 * std, 3.0 * std,
                                     generator=gen)
-        return t.to(dtype)
-    out = torch.empty(shape, dtype=dtype, device=gen.device)
-    flat = out.view(-1)
+        return t.to(dtype) if cut is None else t[cut].to(dtype, copy=True)
+    out = torch.empty(shape if cut is None else tuple(c.stop - c.start for c in cut),
+                      dtype=dtype, device=gen.device)
     for lo in range(0, n, _DRAW_CHUNK):
         t = torch.empty(min(_DRAW_CHUNK, n - lo), dtype=torch.float32,
                         device=gen.device)
         torch.nn.init.trunc_normal_(t, 0.0, std, -3.0 * std, 3.0 * std,
                                     generator=gen)
-        flat[lo:lo + t.numel()].copy_(t)
+        if cut is None:
+            out.view(-1)[lo:lo + t.numel()].copy_(t)
+        else:
+            _copy_cut(out, cut, shape, lo, t)
+        del t                                    # one chunk held at a time
     return out
 
 
@@ -53,9 +142,13 @@ def normal(gen: torch.Generator, shape, std: float, dtype=torch.float32) -> torc
     """``std`` times a unit normal, drawn in float32 on the generator's
     device and cast to ``dtype`` (JAX's ``(std * normal(key, shape))
     .astype(dtype)``)."""
+    meta, cut = _draw_hook(tuple(shape), dtype)
+    if meta is not None:
+        return meta
     t = torch.randn(tuple(shape), generator=gen, dtype=torch.float32,
                     device=gen.device)
-    return (std * t).to(dtype)
+    t = (std * t).to(dtype)
+    return t if cut is None else t[cut].clone()
 
 
 def dense_init(gen: torch.Generator, shape, in_dim: Optional[int] = None,
@@ -173,14 +266,22 @@ def init_mlp(gen: torch.Generator, cfg, d: int, f: int, dtype) -> dict:
 
 
 def apply_mlp(cfg, p: dict, x, sharder=None):
-    require_no_sharder(sharder)
+    """The FFN. On a mesh (``sharder`` with one) whose model axis cuts
+    ``d_ff``, ``p`` holds this rank's columns of ``wi`` / ``wg`` and rows of
+    ``wo`` (the Megatron split): the partial products are summed over
+    ``"model"`` after ``wo`` (JAX's partitioner, ``layers.py``)."""
+    sh = mesh_sharder(sharder)
+    split = sh is not None and model_split(sh, cfg.d_ff)
+    if split:
+        x = col.enter(x, sh.mesh, "model")
     cdt = x.dtype
     h = x @ p["wi"].to(cdt)
     if cfg.act == "swiglu":
         h = silu(x @ p["wg"].to(cdt)) * h
     else:
         h = F.gelu(h, approximate="tanh")     # jax.nn.gelu's default
-    return h @ p["wo"].to(cdt)
+    y = h @ p["wo"].to(cdt)
+    return col.reduce(y, sh.mesh, "model") if split else y
 
 
 # --------------------------------------------------------------------------- #

@@ -14,6 +14,29 @@ The KV cache is laid out the way ``init_cache`` / ``decode_step`` read it:
 at slot p, or at slot ``p % W`` under a sliding window, so that decoding
 continues the prompt. (The JAX package's ``prefill`` returns a cache of the
 prompt's length, laid out from its last W tokens; see ROADMAP §C.)
+
+On a mesh (a ``sharder`` holding one; the dense and MoE families) every
+rank holds its blocks of the parameters (``parallel.sharding.shard_params``)
+and of the batch (cut over the sharder's batch axes), and computes what the
+JAX package computes on that mesh:
+
+- the embedding table is cut over the vocabulary (``"model"``): a masked
+  lookup of the rank's rows, then a psum;
+- the logits are cut over the vocabulary too (``head/w``'s columns, or the
+  tied table's rows), and :func:`lm_loss`'s cross-entropy is vocab-parallel
+  (a pmax of the row maxima, psums of the exponentials' sums and of the
+  label logits), JAX's ``softmax_xent`` on the whole logits;
+- the loss is the mean over the global batch (a pmean over the batch
+  axes), and the parameters enter the loss once, whole over the batch axes,
+  so that every rank's gradient is its block of the global-batch gradient
+  (summed over the batch axes in the backward pass);
+- :func:`prefill` returns the last token's logits whole on every rank and
+  a cache cut over ``"seq"`` (its slots, where they divide the model axis;
+  ``"slots"`` in the cache dict holds their global count), which
+  :func:`decode_step` continues.
+
+The VLM family (M-RoPE positions, embeddings input) raises on a mesh
+(ROADMAP item 16).
 """
 from __future__ import annotations
 
@@ -27,7 +50,10 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     apply_mlp, apply_norm, dense_init, embed_init, init_norm, softmax_xent,
 )
-from repro_torch.parallel.sharding import padded_vocab, require_no_sharder
+from repro_torch.optim.adamw import tree_map
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel.sharding import (mesh_sharder, model_split, padded_vocab,
+                                           require_no_sharder)
 from repro_torch.precision import torch_dtype
 
 
@@ -170,12 +196,22 @@ def _as_tensor(a, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def embed_tokens(cfg, params, tokens):
+def embed_tokens(cfg, params, tokens, sharder=None):
     """Rows of the embedding table in the compute dtype. Gathers first and
     casts the rows (the values of JAX's cast-then-gather, without casting
-    the whole table on every call)."""
+    the whole table on every call). On a mesh whose model axis cuts the
+    vocabulary, each rank looks up the tokens its rows hold (zeros for the
+    rest) and a psum over ``"model"`` assembles them."""
     table = params["embed"]["tok"]
-    return table[_as_tensor(tokens, table.device, torch.long)].to(compute_dtype(cfg))
+    tokens = _as_tensor(tokens, table.device, torch.long)
+    sh = mesh_sharder(sharder)
+    if sh is None or not model_split(sh, padded_vocab(cfg.vocab)):
+        return table[tokens].to(compute_dtype(cfg))
+    n = table.shape[0]
+    t = tokens - sh.mesh.axis_index("model") * n
+    ok = (t >= 0) & (t < n)
+    rows = table[t.clamp(0, n - 1)].to(compute_dtype(cfg)) * ok[..., None]
+    return col.reduce(rows, sh.mesh, "model")
 
 
 def make_positions(cfg, B, S, device=None):
@@ -185,14 +221,14 @@ def make_positions(cfg, B, S, device=None):
     return pos
 
 
-def _inputs(cfg, params, batch):
+def _inputs(cfg, params, batch, sharder=None):
     """The batch's embeddings (B,S,D) in the compute dtype and positions."""
     dev = _device(params)
     if cfg.input_mode == "embeds":
         x = _as_tensor(batch["embeds"], dev).to(compute_dtype(cfg))
         B, S, _ = x.shape
     else:
-        x = embed_tokens(cfg, params, batch["tokens"])
+        x = embed_tokens(cfg, params, batch["tokens"], sharder)
         B, S = x.shape[:2]
     positions = batch.get("positions")
     if positions is None:
@@ -240,28 +276,96 @@ def forward_hidden(cfg, params, x, positions, sharder=None, impl="ref",
     return x, aux
 
 
-def logits_fn(cfg, params, h):
+def logits_fn(cfg, params, h, sharder=None):
+    """The logits (..., Vp), padded entries masked. On a mesh whose model
+    axis cuts the vocabulary: this rank's block of them (``"model"``'s
+    index times the block's width is its first vocabulary entry)."""
     cdt = h.dtype
+    sh = mesh_sharder(sharder)
+    split = sh is not None and model_split(sh, padded_vocab(cfg.vocab))
+    if split:
+        h = col.enter(h, sh.mesh, "model")
     if cfg.tie_embeddings:
         logits = h @ params["embed"]["tok"].to(cdt).T
     else:
         logits = h @ params["head"]["w"].to(cdt)
     vp = logits.shape[-1]
-    if vp != cfg.vocab:  # mask padded vocab entries
-        neg = (torch.arange(vp, device=h.device) >= cfg.vocab).float() * -1e9
+    lo = sh.mesh.axis_index("model") * vp if split else 0
+    if lo + vp > cfg.vocab:  # mask padded vocab entries
+        neg = (torch.arange(lo, lo + vp, device=h.device) >= cfg.vocab).float() * -1e9
         logits = logits + neg.to(logits.dtype)
     return logits
 
 
+def _whole_logits(cfg, params, h, sh):
+    """Every vocabulary entry's logit on every rank (serving; no gradient)."""
+    logits = logits_fn(cfg, params, h, sh)
+    if sh is not None and model_split(sh, padded_vocab(cfg.vocab)):
+        logits = col.all_gather_dim(logits.detach(), sh.mesh, "model", -1)
+    return logits
+
+
+def _xent_vocab_parallel(logits, labels, sh, z_loss: float = 1e-4):
+    """``softmax_xent(whole logits, labels)`` (no mask) from this rank's
+    vocabulary block: a pmax of the row maxima (the shift, no gradient),
+    psums of the exponentials' sums and of the label logits; the mean over
+    this rank's tokens."""
+    mesh = sh.mesh
+    x = logits.float()
+    n = x.shape[-1]
+    top = col.pmax(x.amax(-1), mesh, "model")
+    se = col.reduce(torch.exp(x - top[..., None]).sum(-1), mesh, "model")
+    lse = top + torch.log(se)
+    t = labels - mesh.axis_index("model") * n
+    ok = (t >= 0) & (t < n)
+    ll = torch.gather(x, -1, t.clamp(0, n - 1)[..., None])[..., 0] * ok
+    loss = lse - col.reduce(ll, mesh, "model")
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse)
+    return loss.mean()
+
+
+def check_family(cfg, sharder):
+    """The transformer families this slice runs on a mesh: dense and MoE;
+    the VLM raises naming ROADMAP item 16. Returns the sharder with a mesh
+    (or None)."""
+    sh = mesh_sharder(sharder)
+    if sh is not None and cfg.family not in ("dense", "moe"):
+        require_no_sharder(sharder, f"the {cfg.family} family")
+    return sh
+
+
+def enter_batch(params, sh):
+    """The parameters entering a loss on a mesh: whole over the batch axes,
+    so that the backward pass sums each weight's gradient over them (the
+    global-batch gradient; JAX's partitioner sums the same)."""
+    if sh is None or sh.mesh.axis_size(sh.axes("batch")) == 1:
+        return params
+    axes = sh.axes("batch")
+    return tree_map(lambda p: col.enter(p, sh.mesh, axes)
+                    if p.is_floating_point() else p, params)
+
+
 def lm_loss(cfg, params, batch, sharder=None, impl="ref", moe_dispatch="scatter"):
     """Next-token cross-entropy plus the MoE auxiliary loss (differentiable
-    through autograd: ``train.make_train_step`` takes its gradient)."""
-    require_no_sharder(sharder)
-    x, positions = _inputs(cfg, params, batch)
-    h, aux = forward_hidden(cfg, params, x, positions, sharder, impl,
+    through autograd: ``train.make_train_step`` takes its gradient). On a
+    mesh the rank's loss is the global batch's (see the module docstring;
+    an ``a2a`` layer's auxiliary loss is the rank's own, as JAX's shard_map
+    returns it) and its gradient the rank's block of the global one."""
+    sh = check_family(cfg, sharder)
+    params = enter_batch(params, sh)
+    x, positions = _inputs(cfg, params, batch, sh)
+    h, aux = forward_hidden(cfg, params, x, positions, sh, impl,
                             moe_dispatch)
-    logits = logits_fn(cfg, params, h)
-    loss = softmax_xent(logits, _as_tensor(batch["labels"], h.device, torch.long))
+    logits = logits_fn(cfg, params, h, sh)
+    labels = _as_tensor(batch["labels"], h.device, torch.long)
+    if sh is not None and model_split(sh, padded_vocab(cfg.vocab)):
+        loss = _xent_vocab_parallel(logits, labels, sh)
+    else:
+        loss = softmax_xent(logits, labels)
+    if sh is not None:
+        loss = col.leave(col.pmean(loss, sh.mesh, sh.axes("batch")), sh.mesh,
+                         sh.axes("batch"))
     return loss + aux, {"xent": loss, "aux": aux}
 
 
@@ -290,10 +394,12 @@ def init_cache(cfg, batch: int, seq_len: int, device=None):
 def prefill(cfg, params, batch, seq_len: int, sharder=None, impl="ref",
             moe_dispatch="scatter"):
     """Run the prompt through the stack, returning last-token logits + cache
-    (``init_cache(cfg, B, seq_len)``'s layout, ready for ``decode_step``)."""
-    require_no_sharder(sharder)
+    (``init_cache(cfg, B, seq_len)``'s layout, ready for ``decode_step``;
+    on a mesh this rank's slots of it, see the module docstring)."""
+    sh = check_family(cfg, sharder)
+    tp = sh is not None and sh.axis_size("model") > 1
     cdt = compute_dtype(cfg)
-    x, positions = _inputs(cfg, params, batch)
+    x, positions = _inputs(cfg, params, batch, sh)
     B, S, _ = x.shape
     cache = init_cache(cfg, B, seq_len, x.device)
     W = cache["k"].shape[2]
@@ -303,17 +409,35 @@ def prefill(cfg, params, batch, seq_len: int, sharder=None, impl="ref",
     # the last min(S, W) positions, each at its decode slot
     keep = min(S, W)
     slots = torch.arange(S - keep, S, device=x.device) % W
+    lo, c = 0, W
+    if tp:
+        m = sh.axis_size("model")
+        if W % m == 0:                  # this rank's block of the slots
+            c = W // m
+            lo = sh.mesh.axis_index("model") * c
+            cache["k"], cache["v"] = cache["k"][:, :, lo:lo + c].clone(), \
+                cache["v"][:, :, lo:lo + c].clone()
+        cache["slots"] = W
+    mine = (slots >= lo) & (slots < lo + c)
+    src = torch.arange(S - keep, S, device=x.device)[mine]
     for i, lp in enumerate(layer_slices(params["layers"], cfg.n_layers)):
         h = apply_norm(cfg, lp["norm1"], x)
-        q, k, v = attn.qkv_proj(cfg, lp["attn"], h, positions)
-        o = attn.sdpa(q, k, v, causal=True, window=cfg.sliding_window, impl=impl)
-        x = x + o.reshape(B, S, -1) @ lp["attn"]["wo"].to(cdt)
+        if tp:
+            o, k, v = attn.attention_tp(cfg, lp["attn"], h, positions, sh,
+                                        window=cfg.sliding_window, impl=impl,
+                                        with_kv=True)
+            x = x + o
+        else:
+            q, k, v = attn.qkv_proj(cfg, lp["attn"], h, positions)
+            o = attn.sdpa(q, k, v, causal=True, window=cfg.sliding_window,
+                          impl=impl)
+            x = x + o.reshape(B, S, -1) @ lp["attn"]["wo"].to(cdt)
         h2 = apply_norm(cfg, lp["norm2"], x)
-        x = x + ffn(cfg, lp, h2, moe_dispatch=moe_dispatch)[0]
-        cache["k"][i].index_copy_(1, slots, k[:, S - keep:])
-        cache["v"][i].index_copy_(1, slots, v[:, S - keep:])
+        x = x + ffn(cfg, lp, h2, sh, moe_dispatch=moe_dispatch)[0]
+        cache["k"][i].index_copy_(1, slots[mine] - lo, k[:, src].to(cdt))
+        cache["v"][i].index_copy_(1, slots[mine] - lo, v[:, src].to(cdt))
     x = apply_norm(cfg, params["final_norm"], x)
-    logits = logits_fn(cfg, params, x[:, -1:])
+    logits = _whole_logits(cfg, params, x[:, -1:], sh)
     cache["pos"].fill_(S)
     return logits, cache
 
@@ -322,18 +446,24 @@ def prefill(cfg, params, batch, seq_len: int, sharder=None, impl="ref",
 def decode_step(cfg, params, cache, tokens, sharder=None):
     """One decode step. tokens (B,1) int; cache from init_cache/prefill,
     whose k/v are updated in place (the returned cache holds the same
-    tensors and ``pos + 1``)."""
-    require_no_sharder(sharder)
-    x = embed_tokens(cfg, params, tokens)
+    tensors and ``pos + 1``). On a mesh the cache is the mesh prefill's:
+    this rank's slots, ``cache["slots"]`` of them in all."""
+    sh = check_family(cfg, sharder)
+    x = embed_tokens(cfg, params, tokens, sh)
     pos = _as_tensor(cache["pos"], x.device, torch.int32)
     W = cfg.sliding_window
+    slots = cache.get("slots")
     for i, lp in enumerate(layer_slices(params["layers"], cfg.n_layers)):
         h = apply_norm(cfg, lp["norm1"], x)
         o, _, _ = attn.decode_attention(cfg, lp["attn"], h, cache["k"][i],
-                                        cache["v"][i], pos, window=W)
+                                        cache["v"][i], pos, window=W,
+                                        sharder=sh, slots=slots)
         x = x + o
         h2 = apply_norm(cfg, lp["norm2"], x)
-        x = x + ffn(cfg, lp, h2, moe_dispatch="scatter")[0]
+        x = x + ffn(cfg, lp, h2, sh, moe_dispatch="scatter")[0]
     x = apply_norm(cfg, params["final_norm"], x)
-    logits = logits_fn(cfg, params, x)
-    return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+    logits = _whole_logits(cfg, params, x, sh)
+    out = {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
+    if slots is not None:
+        out["slots"] = slots
+    return logits, out

@@ -16,10 +16,29 @@ a tuple of axis names, entry for entry what JAX's ``PartitionSpec`` holds.
 A :class:`Placement` (the counterpart of a ``NamedSharding``) is a spec on
 a :class:`~repro_torch.launch.mesh.Mesh`: :meth:`Placement.local` cuts a
 global array to this rank's block, which is how a checkpoint is restored
-onto another mesh. Executing the LM sharded (``Sharder.constrain`` on a
-mesh, an LM ``sharder=`` argument with a mesh) is tensor parallelism, which
-the port does not have (ROADMAP item 16): those raise. A ``Sharder`` without
-a mesh is a no-op, as in the JAX package.
+onto another mesh. A ``Sharder`` without a mesh is a no-op, as in the JAX
+package.
+
+Executing on a mesh. The JAX package states a layout
+(``with_sharding_constraint``) and XLA's partitioner inserts the
+collectives. Here every rank holds its block of each tensor and each site
+knows the layout it holds; :meth:`Sharder.constrain` takes that layout as
+``held=`` (logical names, one a dimension, as the target's) and moves the
+tensor to the target through :mod:`repro_torch.parallel.collectives`:
+a dimension that gains an axis is cut to this rank's block, one that loses
+it is gathered, and a pair that trades one axis is an ``all_to_all``. An
+activation holds its batch dimension cut over the batch axes throughout, so
+``held`` defaults to the target's ``"batch"`` entries and whole elsewhere.
+
+The parameters a rank holds are :func:`shard_params`'s blocks: each leaf cut
+by :func:`param_shardings` over ``"model"`` (the divisibility guard
+included), and held whole over the batch axes — the ``fsdp`` split of
+weights over ``"data"`` (ZeRO-3) is not ported (ROADMAP item 16), so a
+weight's gradient is summed over the batch axes instead.
+:func:`held_shardings` gives those placements, :func:`gather_params` the
+inverse. The dense and MoE transformer families run on a mesh
+(:func:`mesh_sharder`); the others raise naming ROADMAP item 16
+(:func:`require_no_sharder`).
 """
 from __future__ import annotations
 
@@ -44,15 +63,34 @@ def padded_vocab(vocab: int, multiple: int = 256) -> int:
     return int(-(-vocab // multiple) * multiple)
 
 
-def require_no_sharder(sharder) -> None:
-    """Raise unless ``sharder`` is None or a :class:`Sharder` without a mesh
-    (the JAX package's no-op, which its training driver passes on one
-    device): the LM path runs on one card."""
-    if sharder is not None and not (isinstance(sharder, Sharder)
-                                    and sharder.mesh is None):
+def mesh_sharder(sharder) -> Optional["Sharder"]:
+    """``sharder`` when it holds a mesh, None for None or a mesh-less
+    :class:`Sharder` (the JAX package's no-op); anything else raises
+    ``TypeError``."""
+    if sharder is None:
+        return None
+    if not isinstance(sharder, Sharder):
+        raise TypeError(f"sharder must be a Sharder or None, not "
+                        f"{type(sharder).__name__}")
+    return sharder if sharder.mesh is not None else None
+
+
+def model_split(sharder, n: int) -> bool:
+    """Whether a dimension of ``n`` that the rules put on ``"model"`` is cut
+    over it on ``sharder``'s mesh (more than one rank, and divisible: the
+    guard of :func:`param_shardings`)."""
+    m = sharder.axis_size("model") if sharder is not None else 1
+    return m > 1 and n % m == 0
+
+
+def require_no_sharder(sharder, what: str = "this model family") -> None:
+    """For what does not run on a mesh yet: raise ``NotImplementedError``
+    naming ROADMAP item 16 when ``sharder`` holds a mesh (``TypeError``
+    when it is not a :class:`Sharder`)."""
+    if mesh_sharder(sharder) is not None:
         raise NotImplementedError(
-            "sharded LM execution (tensor parallelism) is not ported yet "
-            "(ROADMAP item 16): pass sharder=None")
+            f"{what} on a mesh is not ported yet (ROADMAP item 16): only the "
+            "dense and MoE transformer families run sharded")
 
 
 def batch_axes_for(mesh, global_batch: int) -> tuple:
@@ -145,14 +183,58 @@ class Sharder:
             return 1
         return int(np.prod([self.mesh.shape[a] for a in self.axis_map.get(logical, ())] or [1]))
 
-    def constrain(self, x, *logical: Optional[str]):
-        """A no-op without a mesh, as in the JAX package; on a mesh this is
-        the LM's tensor-parallel execution, which is not ported."""
+    def axes(self, logical: Optional[str]) -> tuple:
+        """The mesh axes ``logical`` resolves to, as a tuple."""
+        r = self.resolve(logical)
+        return () if r is None else ((r,) if isinstance(r, str) else tuple(r))
+
+    def _dims(self, shape, logical) -> list:
+        """Per dimension the axes that cut it, where they divide it (JAX's
+        ``constrain`` leaves a dimension that does not divide whole)."""
+        logical = tuple(logical) + (None,) * (len(shape) - len(logical))
+        out = []
+        for d, ax in zip(shape, logical):
+            axes = self.axes(ax)
+            out.append(axes if axes and d % self.mesh.axis_size(axes) == 0 else ())
+        return out
+
+    def constrain(self, x, *logical: Optional[str], held=None):
+        """This rank's block of ``x`` in the layout ``logical`` (a no-op
+        without a mesh, as in the JAX package). ``held``: the layout the
+        site holds ``x`` in, in the same logical names (default: the
+        target's ``"batch"`` entries, whole elsewhere); where it differs,
+        ``x`` is resharded through the collectives (differentiable): a pair
+        of dimensions that trade one axis by one ``all_to_all``, else
+        gathers and then cuts. Each dimension's length is the global one
+        where it is whole and the block's where it is cut."""
+        from repro_torch.parallel import collectives as col
         if self.mesh is None:
             return x
-        raise NotImplementedError(
-            "Sharder.constrain on a mesh is tensor-parallel LM execution, "
-            "which is not ported yet (ROADMAP item 16)")
+        if held is None:
+            held = tuple(a if a == "batch" else None for a in logical)
+        mesh = self.mesh
+        have = self._held_dims(x.shape, held)
+        want = self._dims(self._global_shape(x.shape, have), logical)
+        moves = [d for d in range(x.dim()) if have[d] != want[d]]
+        if len(moves) == 2:
+            a, b = moves
+            if have[a] and not want[a] and want[b] == have[a] and not have[b]:
+                return col.all_to_all(x, mesh, have[a], b, a)
+            if have[b] and not want[b] and want[a] == have[b] and not have[a]:
+                return col.all_to_all(x, mesh, have[b], a, b)
+        for d in moves:
+            if have[d]:
+                x = col.gather(x, mesh, have[d], d)
+            if want[d]:
+                x = col.block(x, mesh, want[d], d)
+        return x
+
+    def _held_dims(self, shape, held) -> list:
+        held = tuple(held) + (None,) * (len(shape) - len(held))
+        return [self.axes(h) for h in held]
+
+    def _global_shape(self, shape, have) -> tuple:
+        return tuple(n * self.mesh.axis_size(a) for n, a in zip(shape, have))
 
 
 # --------------------------------------------------------------------------- #
@@ -270,3 +352,65 @@ def _guard_divisibility(spec: tuple, shape, sharder: Sharder) -> tuple:
         size = int(np.prod([sharder.mesh.shape[n] for n in names]))
         dims.append(ax if d % size == 0 else None)
     return tuple(dims)
+
+
+# --------------------------------------------------------------------------- #
+# The blocks a rank holds
+# --------------------------------------------------------------------------- #
+def _model_only(spec: tuple, sharder: Sharder) -> tuple:
+    """A spec with every axis but the model axes dropped: weights held
+    whole over the batch axes (no fsdp split)."""
+    keep = set(sharder.axes("model"))
+    out = []
+    for e in spec:
+        names = () if e is None else ((e,) if isinstance(e, str) else tuple(e))
+        names = tuple(a for a in names if a in keep)
+        out.append(None if not names else (names[0] if len(names) == 1 else names))
+    return tuple(out)
+
+
+def held_shardings(params_tree, config, sharder: Sharder):
+    """The placements of the blocks a rank holds (:func:`param_shardings`
+    without the fsdp axes); a tree of None without a mesh. Works on an
+    optimizer state too (its ``m`` / ``v`` / ``mw`` subtrees match the
+    rules by path; the step counter is replicated)."""
+    full = param_shardings(params_tree, config, sharder)
+    if sharder.mesh is None:
+        return full
+    return _unflatten_like(params_tree, [
+        Placement(p.mesh, _model_only(p.spec, sharder))
+        for _, p in _flatten_with_path(full)])
+
+
+def shard_params(params, config, sharder: Sharder):
+    """This rank's blocks of the global parameter tree ``params`` (tensors
+    or numpy arrays, as the JAX package's ``init`` tree): each leaf cut by
+    :func:`held_shardings` into storage of its own (so that the global
+    tree's memory goes with it). Without a mesh, ``params`` itself."""
+    if sharder.mesh is None:
+        return params
+    places = held_shardings(params, config, sharder)
+    return _unflatten_like(params, [
+        p.local(leaf).clone() if hasattr(leaf, "clone") else p.local(leaf).copy()
+        for (_, leaf), (_, p) in zip(_flatten_with_path(params),
+                                     _flatten_with_path(places))])
+
+
+def gather_params(local, like, config, sharder: Sharder):
+    """The inverse of :func:`shard_params`: the global tree, assembled from
+    every rank's blocks over the model axes (a collective: every rank of the
+    mesh calls it and gets the whole tree). ``like``: a tree of the global
+    shapes (anything with ``.shape``): whether a block is cut depends on
+    its global length (the divisibility guard)."""
+    from repro_torch.parallel import collectives as col
+    if sharder.mesh is None:
+        return local
+    mesh = sharder.mesh
+    places = held_shardings(like, config, sharder)
+    out = []
+    for (_, leaf), (_, p) in zip(_flatten_with_path(local), _flatten_with_path(places)):
+        for d, e in enumerate(p.spec):
+            if e is not None:
+                leaf = col.all_gather_dim(leaf.detach(), mesh, e, d)
+        out.append(leaf)
+    return _unflatten_like(local, out)

@@ -5,6 +5,15 @@ optional grad transform -> the optional int8 error-feedback compression ->
 global-norm clipping -> AdamW, in the JAX package's order, with optional
 microbatch gradient accumulation (a loop in the place of ``lax.scan``).
 
+On a mesh (a ``sharder`` with one; the dense and MoE families) the params
+and moments are the rank's blocks (``parallel.sharding.shard_params``) and
+the batch its block of the global batch: the model's loss already gives
+each rank its block of the global-batch gradient (summed over the batch
+axes for weights held whole over them), the clip's norm is taken over
+every block (a psum over ``"model"`` of the cut leaves' squares), int8
+compression scales each leaf by the whole tensor's maximum, and AdamW runs
+on the local blocks.
+
 Params are the model's tree of tensors (no ``nn.Module``). The step writes
 the new params and moments into the tensors it is given and returns them
 (the PyTorch counterpart of the JAX driver's ``donate_argnums=(0, 1)``), so
@@ -22,8 +31,11 @@ from repro_torch import backends
 from repro_torch.optim.adamw import (
     AdamW, OptConfig, clip_scale, global_norm, tree_leaves, tree_map,
 )
-from repro_torch.optim.compressed import ef_compress_decompress, init_error_feedback
-from repro_torch.parallel.sharding import _unflatten_like, require_no_sharder
+from repro_torch.optim.compressed import (cut_axes, ef_compress_decompress,
+                                          init_error_feedback)
+from repro_torch.parallel import collectives as col
+from repro_torch.parallel.sharding import (_unflatten_like, held_shardings,
+                                           mesh_sharder, require_no_sharder)
 
 
 @dataclass
@@ -59,11 +71,17 @@ def make_train_step(model, opt_cfg: OptConfig, sharder=None, impl="auto",
 
     ``impl``: the backend of the model's loss (``"auto"``: the card's;
     raises without a GPU). ``sharder``: None or a mesh-less ``Sharder``
-    (a mesh raises, ROADMAP item 16). ``grad_compress=True`` threads an
+    (one card), or a ``Sharder`` on a mesh for the dense and MoE families
+    (other families raise naming ROADMAP item 16). ``grad_compress=True`` threads an
     int8 error-feedback residual through ``opt_state["ef_residual"]``.
     ``metrics``: the model's metrics plus ``loss``, ``grad_norm`` and
     ``lr`` (0-d tensors)."""
-    require_no_sharder(sharder)
+    sh = mesh_sharder(sharder)
+    if sh is not None and model.config.family not in ("dense", "moe"):
+        require_no_sharder(sharder, f"training the {model.config.family} family")
+    # the blocks' placements, from the global shapes (the guard decides by them)
+    places = held_shardings(model.param_specs(), model.config, sh) \
+        if sh is not None else None
     backend = backends.resolve(impl)
     opt = AdamW(opt_cfg)
     if grad_compress:
@@ -108,8 +126,9 @@ def make_train_step(model, opt_cfg: OptConfig, sharder=None, impl="auto",
         if grad_compress:
             opt_state = dict(opt_state)
             residual = opt_state.pop("ef_residual")
-            grads, residual = ef_compress_decompress(grads, residual)
-        gnorm = global_norm(grads)
+            grads, residual = ef_compress_decompress(grads, residual,
+                                                     placements=places)
+        gnorm = global_norm(grads) if sh is None else mesh_global_norm(grads, places)
         scale = clip_scale(gnorm, opt_cfg.clip_norm) if opt_cfg.clip_norm > 0 else None
         opt_state = opt.apply_(grads, opt_state, params, grad_scale=scale)
         if grad_compress:
@@ -120,3 +139,21 @@ def make_train_step(model, opt_cfg: OptConfig, sharder=None, impl="auto",
 
     step.optimizer = opt
     return step
+
+
+def mesh_global_norm(grads, placements) -> torch.Tensor:
+    """The global norm of a tree of blocks: the squares of the leaves cut
+    over the mesh summed over their ranks (a psum over the axes that cut
+    them), the whole leaves' once."""
+    by_axes: dict = {}
+    for g, p in zip(tree_leaves(grads), tree_leaves(placements)):
+        axes = cut_axes(p)
+        by_axes[axes] = by_axes.get(axes, 0.0) + torch.sum(torch.square(g.float()))
+    total = 0.0
+    for axes, sq in sorted(by_axes.items()):
+        total = total + (col.psum(sq, placements_mesh(placements), axes) if axes else sq)
+    return torch.sqrt(total)
+
+
+def placements_mesh(placements):
+    return tree_leaves(placements)[0].mesh

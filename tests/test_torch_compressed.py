@@ -90,7 +90,30 @@ def test_grad_transform_and_axis():
         np.testing.assert_array_equal(tout["w"].numpy(), np.asarray(jout["w"]))
         np.testing.assert_array_equal(tref["value"]["w"].numpy(),
                                       np.asarray(jref["value"]["w"]))
-    with pytest.raises(NotImplementedError, match="item 16"):
+    # ``axis=`` sums the codes over a mesh axis: it needs the mesh; on a
+    # one-rank mesh it is JAX's inside shard_map on one device (4 ranks
+    # against 4 devices: test_torch_mesh_collectives.py)
+    with pytest.raises(ValueError, match="needs the mesh"):
         tc.ef_compress_decompress(tref["value"], tref["value"], axis="pod")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(ValueError, match="needs the mesh"):
         tc.make_ef_int8_transform(tref, axis="pod")
+    from jax.experimental.shard_map import shard_map
+    from jax.sharding import PartitionSpec as P
+    from repro.launch.mesh import build_mesh
+    from repro_torch.launch.mesh import Mesh
+    jmesh = build_mesh(np.array(jax.devices()[:1]), ("pod",))
+    mesh = Mesh({"pod": 1}, ("pod",), {"pod": 0}, 0, torch.device("cpu"))
+    r = {"w": (0.01 * rng.standard_normal((16, 4))).astype(np.float32)}
+    jg, jr = shard_map(lambda a, b: jc.ef_compress_decompress(a, b, axis="pod"),
+                       mesh=jmesh, in_specs=(P("pod"), P("pod")),
+                       out_specs=(P("pod"), P("pod")), check_rep=False)(
+        jax.tree.map(jnp.asarray, g), jax.tree.map(jnp.asarray, r))
+    tg, tr = tc.ef_compress_decompress(interop.lm_params_from_numpy(g, "cpu"),
+                                       interop.lm_params_from_numpy(r, "cpu"),
+                                       axis="pod", mesh=mesh)
+    np.testing.assert_array_equal(tg["w"].numpy(), np.asarray(jg["w"]))
+    np.testing.assert_array_equal(tr["w"].numpy(), np.asarray(jr["w"]))
+    tt = tc.make_ef_int8_transform({"value": interop.lm_params_from_numpy(r, "cpu")},
+                                   axis="pod", mesh=mesh)
+    np.testing.assert_array_equal(tt(interop.lm_params_from_numpy(g, "cpu"))["w"].numpy(),
+                                  np.asarray(jg["w"]))

@@ -1,7 +1,7 @@
 """Ranks for the port's distributed CPU tests (``test_torch_distributed.py``,
-``test_torch_checkpoint.py``): a launcher that spawns ``world`` processes
-into one ``gloo`` process group and the functions they run. It holds no
-test of its own.
+``test_torch_checkpoint.py``, ``test_torch_mesh_*.py``): a launcher that
+spawns ``world`` processes into one ``gloo`` process group and the
+functions they run. It holds no test of its own.
 
 This module imports no JAX, so the spawned ranks stay light. Every process
 group is initialised through a ``file://`` store in the test's own
@@ -233,3 +233,303 @@ def elastic_resume(rank, world, out, cfg, grid, local, steps, key, ckpt,
     return {"params": state.params, "partitions": trainer.partitions,
             "devices": plan.devices, "meta": meta, "restored": restored,
             "resumed_from": int(tree["step"])}
+
+
+# --------------------------------------------------------------------------- #
+# the LM on a mesh (test_torch_mesh_*.py; cases in torch_mesh_cases.py)
+# --------------------------------------------------------------------------- #
+_MESHES: dict = {}
+
+
+def _lm_mesh(shape):
+    """This rank's ("data", "model") mesh of ``shape`` (built once: every
+    rank builds the same meshes in one order)."""
+    from repro_torch.launch.mesh import build_mesh
+    if shape not in _MESHES:
+        _MESHES[shape] = build_mesh(shape, ("data", "model"), device="cpu")
+    return _MESHES[shape]
+
+
+def _batch_block(batch: dict, sharder) -> dict:
+    """This rank's block of a global batch (its rows over the batch axes)."""
+    mesh = sharder.mesh
+    axes = sharder.axes("batch")
+    n, k = mesh.axis_size(axes), mesh.axis_index(axes)
+    return {key: v[k * (v.shape[0] // n):(k + 1) * (v.shape[0] // n)]
+            for key, v in batch.items()}
+
+
+def _np_tree(tree):
+    from repro_torch.optim.adamw import tree_map
+    return tree_map(lambda t: t.detach().numpy().copy(), tree)
+
+
+def mesh_models(rank, world, out, inputs):
+    """Every LM case's loss and this rank's gradient blocks, and every
+    decode case's logits (prefill, then teacher-forced decode steps)."""
+    import pickle
+
+    import torch
+    sys_path_tests()
+    import torch_mesh_cases as C
+    from repro_torch import interop
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel.sharding import Sharder, _unflatten_like
+    with open(inputs, "rb") as f:
+        inp = pickle.load(f)
+    got = {}
+    for name, (arch, shape, B, S, ch, dispatch) in C.LM_CASES.items():
+        cfg = C.config(arch, ch)
+        sharder = Sharder(_lm_mesh(shape), B)
+        params = interop.lm_params_from_numpy(inp[name]["params"], "cpu", cfg=cfg,
+                                              sharder=sharder)
+        work = [p.requires_grad_(True) for p in tree_leaves(params)]
+        batch = _batch_block({k: torch.from_numpy(v) for k, v in
+                              inp[name]["batch"].items()}, sharder)
+        loss, _ = build_model(cfg, dispatch).loss(params, batch, sharder, impl="ref")
+        grads = torch.autograd.grad(loss, work)
+        got[name] = {"loss": float(loss),
+                     "grads": _np_tree(_unflatten_like(params, list(grads)))}
+    for name, (arch, shape, B, S, n, ch) in C.DECODE_CASES.items():
+        cfg = C.config(arch, ch)
+        sharder = Sharder(_lm_mesh(shape), B)
+        model = build_model(cfg)
+        params = interop.lm_params_from_numpy(inp[name]["params"], "cpu", cfg=cfg,
+                                              sharder=sharder)
+        toks = torch.from_numpy(inp[name]["batch"]["tokens"])
+        logits, cache = model.prefill(params, {"tokens": toks[:, :S]}, S + n, sharder,
+                                      impl="ref")
+        seq = [logits.numpy().copy()]
+        for i in range(n):
+            logits, cache = model.decode_step(params, cache, toks[:, S + i:S + i + 1],
+                                              sharder)
+            seq.append(logits.numpy().copy())
+        got[name] = {"logits": seq, "cache_slots": tuple(cache["k"].shape)}
+    return got
+
+
+def sys_path_tests():
+    """The tests folder on the path (the ranks import the case module)."""
+    import sys
+    here = str(Path(__file__).resolve().parent)
+    if here not in sys.path:
+        sys.path.insert(0, here)
+
+
+def f32_driver(model_parallel=16):
+    """``launch.train`` with its SMOKE configs in float32 compute (the
+    comparisons' precision: bf16 psums reorder the sums) and its mesh's
+    model axis at ``model_parallel``; returns the module."""
+    import functools
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train
+    train.get_smoke_config = lambda arch: get_smoke_config(arch).replace(
+        compute_dtype="float32")
+    train.make_mesh_for = functools.partial(mesh_mod.make_mesh_for,
+                                            model_parallel=model_parallel)
+    return train
+
+
+class PortLax:
+    """The ``lax`` collectives ``torch_mesh_cases.primitive_local`` calls, as
+    the port's on this rank's mesh."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+
+    def psum(self, x, axis):
+        from repro_torch.parallel import collectives as col
+        return col.psum(x, self.mesh, axis)
+
+    def pmean(self, x, axis):
+        from repro_torch.parallel import collectives as col
+        return col.pmean(x, self.mesh, axis)
+
+    def all_gather(self, x, axis_name, axis=0, tiled=True):
+        from repro_torch.parallel import collectives as col
+        return col.all_gather_dim(x, self.mesh, axis_name, axis)
+
+    def all_to_all(self, x, axis_name, split_axis, concat_axis, tiled=True):
+        from repro_torch.parallel import collectives as col
+        return col.all_to_all(x, self.mesh, axis_name, split_axis, concat_axis)
+
+
+def mesh_collectives(rank, world, out, inputs):
+    """The collectives' cases (forward, and the gradient of sum(w * y)),
+    the MoE blocks (forward, aux, gradients of y.sum(), drop sets), the
+    sequence-parallel attention block and the int8 all-reduce, on the (2, 2) mesh:
+    this rank's blocks of everything."""
+    import pickle
+
+    import torch
+    sys_path_tests()
+    import torch_mesh_cases as C
+    from repro_torch import interop
+    from repro_torch.models import moe
+    from repro_torch.models.attention import attention_block, attention_mode
+    from repro_torch.models.transformer import enter_batch
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.optim.compressed import ef_compress_decompress, quantize_int8
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel.sharding import Sharder, _unflatten_like
+    with open(inputs, "rb") as f:
+        inp = pickle.load(f)
+    mesh = _lm_mesh((2, 2))
+    d, r = mesh.coords["data"], mesh.coords["model"]
+    got = {"coords": (d, r), "prims": {}}
+    x = torch.from_numpy(inp["x"])
+    for name, (i, o) in C.PRIMITIVES.items():
+        rows = x[2 * d:2 * d + 2].clone().requires_grad_(True)
+        if i == "m" and name != "block":
+            leaf = x[2 * d:2 * d + 2, 4 * r:4 * r + 4].clone().requires_grad_(True)
+            xl = leaf
+        else:
+            leaf = rows
+            xl = col.block(rows, mesh, "model", 1) if name == "block" else \
+                col.enter(rows, mesh, "model")
+        if name == "reduce":
+            y = col.reduce(xl, mesh, "model")
+        elif name == "gather":
+            y = col.gather(xl, mesh, "model", 1)
+        else:
+            y = C.primitive_local(name, xl, float(r), PortLax(mesh))
+            if o == "r":
+                y = col.leave(y, mesh, "model")
+        a, b = y.shape
+        w = torch.from_numpy(inp["w"][name])
+        w = w[a * d:a * (d + 1), b * r:b * (r + 1)] if o == "m" else w[a * d:a * (d + 1), :b]
+        (g,) = torch.autograd.grad(torch.sum(w * y), leaf)
+        got["prims"][name] = {"y": y.detach().numpy().copy(), "grad": g.numpy().copy()}
+    sharder = Sharder(mesh, 4)
+    for name, (arch, cap, _, _) in C.MOE_CASES.items():
+        cfg = C.moe_config(arch, cap)
+        p = interop.lm_params_from_numpy({"moe": inp[name]["params"]}, "cpu", cfg=cfg,
+                                         sharder=sharder)["moe"]
+        for t in tree_leaves(p):
+            t.requires_grad_(True)
+        xb = torch.from_numpy(inp[name]["x"][2 * d:2 * d + 2]).requires_grad_(True)
+        pe = enter_batch(p, sharder)
+        keep = None
+        if name.startswith("tp"):
+            y, aux = moe.moe_block_tp(cfg, pe, xb, sharder)
+        else:
+            y, aux = moe.moe_block_a2a(cfg, pe, xb, sharder)
+            h = xb.shape[1] // 2          # this rank's block of the sequence
+            keep = moe._a2a_dispatch(cfg, xb[:, h * r:h * (r + 1)].detach(),
+                                     p["router"].detach(), 2)[3].numpy().copy()
+        grads = torch.autograd.grad(y.sum(), tree_leaves(p) + [xb])
+        got[name] = {"y": y.detach().numpy().copy(), "aux": float(aux.detach()),
+                     "grads": _np_tree(_unflatten_like(p, list(grads[:-1]))),
+                     "gx": grads[-1].numpy().copy(), "keep": keep}
+    cfg = C.config(*C.ATTN_CASE[:2])
+    sh2 = Sharder(mesh, C.ATTN_CASE[2])
+    p = interop.lm_params_from_numpy({"attn": inp["attn"]["params"]}, "cpu", cfg=cfg,
+                                     sharder=sh2)["attn"]
+    for t in tree_leaves(p):
+        t.requires_grad_(True)
+    xb = torch.from_numpy(inp["attn"]["x"][d:d + 1]).requires_grad_(True)
+    pos = torch.from_numpy(inp["attn"]["positions"][d:d + 1])
+    o = attention_block(cfg, enter_batch(p, sh2), xb, pos, sharder=sh2, impl="ref")
+    grads = torch.autograd.grad(torch.sum(o * torch.cos(o)), tree_leaves(p) + [xb])
+    got["attn"] = {"o": o.detach().numpy().copy(), "mode": attention_mode(sh2, cfg, xb.shape[1]),
+                   "grads": _np_tree(_unflatten_like(p, list(grads[:-1]))),
+                   "gx": grads[-1].numpy().copy()}
+    gb = torch.from_numpy(inp["ef"]["g"][2 * d:2 * d + 2, 4 * r:4 * r + 4].copy())
+    rb = torch.from_numpy(inp["ef"]["r"][2 * d:2 * d + 2, 4 * r:4 * r + 4].copy())
+    ng, nr = ef_compress_decompress({"w": gb}, {"w": rb}, axis="model", mesh=mesh)
+    got["ef"] = {"g": ng["w"].numpy().copy(), "r": nr["w"].numpy().copy(),
+                 "q": quantize_int8(gb + rb)[0].numpy().copy()}
+    return got
+
+
+def mesh_training(rank, world, out, argv, ef_argv):
+    """The training driver on this group (its mesh from ``make_mesh_for``),
+    then with ``ef_argv`` on a (2, 2) mesh; then on a (1, 4) mesh: one qwen2
+    SMOKE train step's collectives by kind (remat "none", float32), an
+    arctic step's clip norm, ``shard_params`` / ``gather_params`` round
+    trip and ``Sharder.constrain``'s reshardings."""
+    import torch
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel.collectives import count_collectives
+    from repro_torch.parallel.sharding import Sharder, gather_params, shard_params
+    from repro_torch.train import make_train_step
+    got = {"driver": f32_driver().main(list(argv)),
+           "ef": f32_driver(2).main(list(ef_argv))}
+    mesh = _lm_mesh((1, 4))
+    r = mesh.coords["model"]
+    cfg = get_smoke_config("qwen2_0_5b").replace(compute_dtype="float32", remat="none")
+    model = build_model(cfg)
+    sharder = Sharder(mesh, 4)
+    full = model.init(0, device="cpu")
+    params = shard_params(full, cfg, sharder)
+    back = gather_params(params, full, cfg, sharder)
+    got["round_trip"] = all(torch.equal(a, b) for a, b in
+                            zip(tree_leaves(back), tree_leaves(full)))
+    step = make_train_step(model, OptConfig(), sharder, impl="ref")
+    opt = step.optimizer.init(params)
+    batch = _batch_block(train.synth_batch(model, train.ShapeConfig("t", "train", 16, 4),
+                                           0, "cpu"), sharder)
+    counts = []
+    for _ in range(2):
+        with count_collectives() as c:
+            step(params, opt, batch)
+        counts.append((c.count, dict(c.kinds), c.nbytes))
+    got["step_counts"] = counts
+    # arctic's 8 experts on the 4-wide axis: 2 a rank, a block the
+    # divisibility guard alone would call whole; the grouped scatter (no
+    # rank-local aux): the step's clipped norm is the one-rank step's
+    acfg = get_smoke_config("arctic_480b").replace(compute_dtype="float32")
+    amodel = build_model(acfg, "scatter_gspmd")
+    aparams = shard_params(amodel.init(0, device="cpu"), acfg, sharder)
+    astep = make_train_step(amodel, OptConfig(), sharder, impl="ref")
+    abatch = _batch_block(train.synth_batch(amodel, train.ShapeConfig(
+        "t", "train", 16, 4), 0, "cpu"), sharder)
+    _, _, metrics = astep(aparams, astep.optimizer.init(aparams), abatch)
+    got["arctic_norm"] = float(metrics["grad_norm"])
+    x = torch.arange(2 * 8 * 12, dtype=torch.float32).reshape(2, 8, 12)
+    cols = x[:, :, 3 * r:3 * r + 3]
+    got["constrain"] = {
+        "a2a": torch.equal(sharder.constrain(cols, "batch", "seq", None,
+                                             held=("batch", None, "model")),
+                           x[:, 2 * r:2 * r + 2]),
+        "cut": torch.equal(sharder.constrain(x, "batch", None, "model"), cols),
+        "gather": torch.equal(sharder.constrain(cols, "batch", None, None,
+                                                held=("batch", None, "model")), x),
+        "same": sharder.constrain(cols, "batch", None, "model",
+                                  held=("batch", None, "model")) is cols,
+    }
+    return got
+
+
+def mesh_resume(rank, world, out, argv, ckpt):
+    """An LM checkpoint of another mesh restored onto this group's through
+    ``elastic_restore`` (the parameters' blocks, numpy), then the driver's
+    own ``--resume`` (``f32_driver``)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.launch.elastic import elastic_restore, plan_restart
+    from repro_torch.models import build_model
+    from repro_torch.optim import OptConfig
+    from repro_torch.parallel.sharding import shard_params
+    from repro_torch.train import make_train_step
+    train = f32_driver()
+    cfg = train.get_smoke_config("qwen2_0_5b")
+    model = build_model(cfg)
+    plan = plan_restart(world, 4, device="cpu")
+    opt = make_train_step(model, OptConfig(), plan.sharder, impl="ref").optimizer
+    params = shard_params(model.init(0, device="cpu"), cfg, plan.sharder)
+    specs = model.param_specs()
+    mgr = CheckpointManager(ckpt, mesh=plan.mesh)
+    (blocks, state), meta = elastic_restore(
+        mgr, (params, opt.init(params)), cfg, plan,
+        shapes=(specs, opt.init(specs)))
+    got = {"coords": dict(plan.mesh.coords), "step": int(state["step"]),
+           "meta": meta, "blocks": _np_tree(blocks)}
+    got["driver"] = train.main(list(argv))
+    return got

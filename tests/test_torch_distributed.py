@@ -241,11 +241,16 @@ def test_sharding_rules_match_jax(arch):
                 tsh.spec_for_path(path, rules, len(leaf.shape), ts), leaf.shape, ts)
             assert len(got) == len(tuple(want)) and \
                 all(a == b for a, b in zip(got, tuple(want))), (path, got, want)
-    # no mesh: every spec replicated, the LM path refuses a sharder
+    # no mesh: every spec replicated; on a mesh whose axes are all 1 wide
+    # constrain holds every block whole (the reshardings on 4 ranks:
+    # test_torch_mesh_training.py); a non-Sharder is refused
     assert tsh.Sharder().spec("batch", "model") == tuple(jsh.Sharder().spec("batch", "model"))
-    with pytest.raises(NotImplementedError, match="item 16"):
-        tsh.Sharder(types.SimpleNamespace(shape={"model": 2})).constrain(
-            torch.zeros(2), "model")
+    one = Mesh({"data": 1, "model": 1}, ("data", "model"), {"data": 0, "model": 0}, 0,
+               torch.device("cpu"))
+    x = torch.arange(6.0).reshape(2, 3)
+    assert torch.equal(tsh.Sharder(one).constrain(x, "batch", "model"), x)
+    with pytest.raises(TypeError, match="Sharder"):
+        tsh.mesh_sharder(types.SimpleNamespace(mesh=one))
 
 
 def test_placements_cut_and_param_shardings():

@@ -31,6 +31,8 @@ from repro_torch.data import lm
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models import build_model, layers
 from repro_torch.models import transformer as T
+from repro_torch.launch.mesh import Mesh
+from repro_torch.parallel.sharding import Sharder
 
 DENSE = ["llama3_8b", "h2o_danube_1_8b", "qwen2_0_5b", "olmo_1b"]
 SERVED = DENSE + ["qwen2_vl_7b"]
@@ -169,7 +171,11 @@ def test_mlp_equals_jax(act):
     tp = layers.init_mlp(torch.Generator().manual_seed(0), c, 64, 128, torch.float32)
     assert {k: tuple(v.shape) for k, v in tp.items()} == \
         {k: v.shape for k, v in jp.items()}
-    with pytest.raises(NotImplementedError, match="item 16"):
+    # a mesh-less Sharder is the single-card path; a non-Sharder is refused
+    # (the MLP on a mesh: test_torch_mesh_models.py)
+    assert torch.equal(layers.apply_mlp(c, p, torch.from_numpy(x), sharder=Sharder()),
+                       layers.apply_mlp(c, p, torch.from_numpy(x)))
+    with pytest.raises(TypeError, match="Sharder"):
         layers.apply_mlp(c, p, torch.from_numpy(x), sharder=object())
 
 
@@ -364,12 +370,25 @@ def test_loss_forward_equals_jax():
 # the sharder and the GPU-by-default rule
 # --------------------------------------------------------------------------- #
 def test_sharder_raises():
+    """A sharder that is not a ``Sharder`` is a TypeError; the VLM family
+    on a mesh is not ported (ROADMAP item 16) and raises rather than
+    running unsharded (the dense family on a mesh:
+    ``test_torch_mesh_models.py``)."""
     cfg = _cfg("llama3_8b")
     model = build_model(cfg)
     params = model.init(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    with pytest.raises(TypeError, match="Sharder"):
         model.prefill(params, _prompt(_batch(cfg, 8), 8), 8, sharder=object(),
                       impl="ref")
+    vlm = build_model(_cfg("qwen2_vl_7b"))
+    vparams = vlm.init(0, device="cpu")
+    mesh = Mesh({"data": 1, "model": 1}, ("data", "model"), {"data": 0, "model": 0},
+                0, torch.device("cpu"))
+    batch = _batch(_cfg("qwen2_vl_7b"), 8)
+    with pytest.raises(NotImplementedError, match="item 16"):
+        vlm.loss(vparams, batch, Sharder(mesh, B), impl="ref")
+    with pytest.raises(NotImplementedError, match="item 16"):
+        vlm.prefill(vparams, _prompt(batch, 8), 8, Sharder(mesh, B), impl="ref")
 
 
 def test_entry_points_raise_on_auto_without_a_gpu(monkeypatch):

@@ -151,15 +151,26 @@ def test_dense_residual_block_equals_jax():
 
 
 def test_a2a_tp_and_sharder_raise():
-    cfg, _, _, p, x = _block_inputs("arctic_480b")
+    """Without a mesh ``"a2a"`` is the scatter, as JAX's ``moe_block``
+    routes it, and ``build_model`` takes it; the mesh-only blocks refuse a
+    missing mesh, and a sharder that is not a ``Sharder`` is a TypeError
+    (the blocks on a mesh: ``test_torch_mesh_collectives.py``)."""
+    cfg, jcfg, jp, p, x = _block_inputs("arctic_480b")
     tx = torch.from_numpy(x)
-    for call in (lambda: moe.moe_block(cfg, p, tx, None, "a2a"),
-                 lambda: moe.moe_block_a2a(cfg, p, tx, object()),
+    y, aux = moe.moe_block(cfg, p, tx, None, "a2a")
+    jy, jaux = jmoe.moe_block(jcfg, jp, x, None, "a2a")
+    F.assert_close(y, jy, "float32", "a2a without a mesh")
+    np.testing.assert_allclose(float(aux), float(jaux), atol=1e-6, rtol=1e-6)
+    assert torch.equal(y, moe.moe_block_scatter(cfg, p, tx)[0])
+    for call in (lambda: moe.moe_block_a2a(cfg, p, tx, None),
+                 lambda: moe.moe_block_tp(cfg, p, tx, None)):
+        with pytest.raises(ValueError, match="needs a sharder with a mesh"):
+            call()
+    for call in (lambda: moe.moe_block_a2a(cfg, p, tx, object()),
                  lambda: moe.moe_block_tp(cfg, p, tx, object()),
                  lambda: moe.moe_block(cfg, p, tx, object(), "scatter"),
-                 lambda: moe.moe_block_scatter(cfg, p, tx, object()),
-                 lambda: build_model(cfg, moe_dispatch="a2a")):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 16"):
+                 lambda: moe.moe_block_scatter(cfg, p, tx, object())):
+        with pytest.raises(TypeError, match="Sharder"):
             call()
     with pytest.raises(ValueError, match="unknown"):
         moe.moe_block(cfg, p, tx, None, "ring")
@@ -167,7 +178,11 @@ def test_a2a_tp_and_sharder_raise():
         build_model(cfg, moe_dispatch="ring")
     model = build_model(cfg)
     params = model.init(0, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16"):
+    batch = F.make_batch(cfg)
+    a2a = build_model(cfg, moe_dispatch="a2a")
+    assert torch.equal(a2a.loss(params, batch, impl="ref")[0],
+                       model.loss(params, batch, impl="ref")[0])
+    with pytest.raises(TypeError, match="Sharder"):
         model.prefill(params, F.prompt(F.make_batch(cfg), 8), 8, sharder=object(),
                       impl="ref")
 

@@ -113,8 +113,25 @@ def test_meshless_sharder_runs_the_loss(arch):
     assert torch.equal(got, want)
     mesh = Mesh({"data": 1, "model": 1}, ("data", "model"), {"data": 0, "model": 0},
                 0, torch.device("cpu"))
-    for bad in (object(), Sharder(mesh, T.B)):
+    with pytest.raises(TypeError, match="Sharder"):
+        model.loss(params, batch, object(), impl="ref")
+    if cfg.family not in ("dense", "moe"):   # not on a mesh yet: raises
         with pytest.raises(NotImplementedError, match="item 16"):
-            model.loss(params, batch, bad, impl="ref")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        T.make_train_step(model, T.OptConfig(), Sharder(mesh, T.B), impl="ref")
+            model.loss(params, batch, Sharder(mesh, T.B), impl="ref")
+        with pytest.raises(NotImplementedError, match="item 16"):
+            T.make_train_step(model, T.OptConfig(), Sharder(mesh, T.B), impl="ref")
+        return
+    # on a one-rank mesh: JAX's loss on a one-device mesh (the MoE families
+    # route as JAX's do on a mesh: arctic to a2a, grok to the tp block; 4
+    # ranks against 4 devices: test_torch_mesh_models.py)
+    import jax
+    from repro.launch.mesh import build_mesh
+    from repro.models import build_model as jbuild
+    from repro.parallel.sharding import Sharder as JSharder
+    jmesh = build_mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
+    with jmesh:
+        jloss, _ = jax.jit(lambda p, b: jbuild(jcfg).loss(p, b, JSharder(jmesh, T.B)))(
+            T.jax_params(jcfg), batch)
+    got, _ = model.loss(params, batch, Sharder(mesh, T.B), impl="ref")
+    np.testing.assert_allclose(float(got), float(jloss), rtol=1e-5)
+    T.make_train_step(model, T.OptConfig(), Sharder(mesh, T.B), impl="ref")
