@@ -392,21 +392,24 @@ TRAIN_IMPL = "auto"           # the trained path's backend ("auto": the card's)
 # the card. (a) TRAIN_LM_ARCH through the driver, MESH_DRIVER_STEPS steps at
 # TRAIN_LM_ARGS' batch and sequence, on make_mesh_for's (1, 4); (b)
 # MESH_DENSE (arch, layers): on (1, 4) a MESH_SERVE (B, S, decode steps)
-# prefill and decode, then on (2, 2) the step-1 gradient and MESH_TRAIN (B,
-# S, steps) train steps; (c) each of MESH_MOE (arch, layers, experts): on
-# (2, 2) a MESH_MOE_PROMPT (B, S) prefill at the config's capacity and, for
-# expert-parallel experts, at one that does not bind, and the step-1
-# gradient (expert-parallel: at the capacity that does not bind, where a2a
-# drops what the scatter drops: nothing), then MESH_TRAIN's steps on (1, 4)
-# (the weights are whole over "data": on (2, 2) each rank would hold half
-# of the AdamW state, which four ranks on one card cannot). MESH_CONFIGS
-# maps an arch to the config in the place of its published CONFIG (the
-# rehearsal on a CPU hands in SMOKE configs).
+# prefill and decode, then on (2, 2) one MESH_TRAIN (B, S, steps) train
+# step; (c) each of MESH_MOE (arch, layers, experts): on (2, 2) a
+# MESH_MOE_PROMPT (B, S) prefill at the config's capacity and, for
+# expert-parallel experts, at one that does not bind, then train steps:
+# tensor-parallel experts MESH_TRAIN's (held to phase 13's losses: the
+# second checks an AdamW update of the fsdp blocks), expert-parallel ones
+# one at the capacity that does not bind (where a2a drops what the scatter
+# drops: nothing). Each train run's first step holds its gradient against
+# the one-rank run's. On (2, 2) the weights and AdamW state are cut over
+# "data" too (the fsdp split), each layer's gathered over "data" at its
+# use: the gloo wire carries 5-7 GB a rank a step (30-60 s), hence so few.
+# MESH_CONFIGS maps an arch to the config in the place of its published
+# CONFIG (the rehearsal on a CPU hands in SMOKE configs).
 MESH_WORLD = 4
 MESH_DRIVER_STEPS = 3
 MESH_DENSE = ("llama3_8b", 2)
 MESH_SERVE = (2, 4096, 8)
-MESH_TRAIN = (4, 1024, 3)
+MESH_TRAIN = (4, 1024, 2)
 MESH_MOE = (("grok_1_314b", 1, 4), ("arctic_480b", 1, 16))
 MESH_MOE_PROMPT = (4, 1024)
 MESH_CONFIGS: dict = {}
@@ -5412,9 +5415,11 @@ def spawn_ranks(fn_name: str, world: int, workdir: Path, **kwargs) -> list:
                 raise SmokeFailure(f"{fn_name} on {world} ranks did not end within "
                                    f"{DIST_TIMEOUT_S} s")
     except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+        # every rank's traceback: the first rank's is often a peer's loss
         errs = sorted(workdir.glob("error_*.txt"))
-        raise SmokeFailure(f"{fn_name} failed on a rank:\n"
-                           + (errs[0].read_text() if errs else str(e))) from None
+        raise SmokeFailure(f"{fn_name} failed on a rank:\n" + (
+            "\n".join(f"[{f.stem}] {f.read_text()}" for f in errs) if errs
+            else str(e))) from None
     finally:
         for p in ctx.processes:
             if p.is_alive():
@@ -5990,6 +5995,39 @@ def mesh_references(dev, work: Path) -> Path:
     return path
 
 
+def fsdp_reckon(cfg, shape) -> dict:
+    """Bytes a rank holds training ``cfg`` on a ("data", "model") mesh of
+    ``shape``, from the global shapes and the placements: ``blocks``, its
+    blocks of the weights, of their gradients and of AdamW's two float32
+    moments; ``gathered``, the most it holds whole over a "data" axis wider
+    than 1 at once (one layer's weights, or the head / tied table, each its
+    block over "model") with that set's unreduced gradient, an upper bound
+    (each leaf's gradient is reduce-scattered as soon as it is made). The
+    activations are not reckoned here."""
+    import types
+
+    import numpy as np
+    from repro_torch.models import build_model
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel.sharding import Sharder, fsdp_split, held_shardings, tree_paths
+    specs = build_model(cfg).param_specs()
+    mesh = types.SimpleNamespace(shape=dict(zip(("data", "model"), shape)),
+                                 coords={"data": 0, "model": 0})
+    sh = Sharder(mesh, shape[0])
+    blocks, layer, other = 0, 0.0, 0
+    for path, t, p in zip(tree_paths(specs), tree_leaves(specs),
+                          tree_leaves(held_shardings(specs, cfg, sh))):
+        n = int(np.prod(p.local_shape(t.shape)))
+        blocks += n * (2 * t.element_size() + 8)
+        if shape[0] > 1 and fsdp_split(p, sh)[0]:
+            whole = n * shape[0] * t.element_size()
+            if path.startswith("layers/"):
+                layer += whole / cfg.n_layers
+            else:
+                other = max(other, whole)
+    return {"blocks": blocks, "gathered": 2 * int(max(layer, other))}
+
+
 def mesh_route_flips(calls, ref_ids, ref_probs, k: int) -> list:
     """``route_flips`` for a rank's routing (``calls``: (ids, probs) per MoE
     layer, of its tokens) against the one-rank run's on the same tokens."""
@@ -6046,6 +6084,7 @@ def mesh_rank(rank, world, out, refs_path, st):
     """Phase 14 on one rank: (a), (b) and (c) of ``mesh_phase``; this rank's
     numbers and checks' inputs."""
     import gc
+    import os
 
     import torch
     from repro_torch.configs.base import ShapeConfig
@@ -6055,14 +6094,19 @@ def mesh_rank(rank, world, out, refs_path, st):
     from repro_torch.models import build_model
     from repro_torch.optim import OptConfig
     from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.optim.compressed import cut_axes
     from repro_torch.parallel import collectives as col
     from repro_torch.parallel.collectives import count_collectives
-    from repro_torch.parallel.sharding import Sharder, held_shardings, tree_paths
+    from repro_torch.parallel.sharding import (Sharder, _unflatten_like, held_shardings,
+                                               tree_paths)
     from repro_torch.train import make_train_step
 
     dev = torch.device(st["device"])
     impl = st["impl"]
     work = Path(refs_path).parent
+    # four ranks' caching allocators share one card: segments that grow in
+    # place keep each rank's cached but unused memory small
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
     refs = torch.load(refs_path, weights_only=False)
     mesh14 = build_mesh((1, world), ("data", "model"), device=dev)
     mesh22 = build_mesh((2, world // 2), ("data", "model"), device=dev)
@@ -6078,6 +6122,9 @@ def mesh_rank(rank, world, out, refs_path, st):
 
     def peak():
         return torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+
+    def reserved():
+        return torch.cuda.max_memory_reserved() / 2**30 if cuda else 0.0
 
     def held():
         return torch.cuda.memory_allocated() if cuda else 0
@@ -6102,13 +6149,33 @@ def mesh_rank(rank, world, out, refs_path, st):
     def seed0():
         return torch.Generator(device=dev).manual_seed(0)
 
-    def grad_check(model, cfg, params, sharder, key, B, S):
-        """Step 1's loss and gradient on the mesh against the one-rank
-        run's (``work/grad_<key>.pt``, mapped: the rank reads its blocks):
-        the loss and its one-rank value, the gathered gradient's cosine to
-        the one-rank gradient, and the pass's collectives."""
+    def ref_dots(model, cfg, sharder, grads, key):
+        """This rank's share of (g.b, g.g, b.b) for its gradient blocks
+        ``grads`` against the one-rank gradient (``work/grad_<key>.pt``,
+        mapped: the rank reads its blocks), and that run's loss; the psum
+        over the mesh gives the gathered gradient's."""
         mesh = sharder.mesh
         ref = torch.load(work / f"grad_{key}.pt", mmap=True, weights_only=False)
+        acc = torch.zeros(3, dtype=torch.float64, device=dev)
+        for path, g, pl in zip(tree_paths(grads), tree_leaves(grads),
+                               tree_leaves(held_shardings(model.param_specs(), cfg,
+                                                          sharder))):
+            # each block once: from the ranks at 0 on every axis that does
+            # not cut the leaf (a whole leaf: one rank)
+            cut = set(cut_axes(pl))
+            if all(mesh.coords[a] == 0 for a in mesh.axis_names if a not in cut):
+                b = ref["grad"][path]
+                acc += _dots(g, b[pl.slices(b.shape)].to(dev))
+        return acc, ref["loss"]
+
+    def cosine(acc, mesh) -> float:
+        acc = col.psum(acc, mesh, mesh.axis_names)
+        return float(acc[0] / torch.sqrt(acc[1] * acc[2]))
+
+    def grad_check(model, cfg, params, sharder, key, B, S):
+        """Step 1's loss and gradient on the mesh against the one-rank
+        run's: the loss and its one-rank value, the gathered gradient's
+        cosine to the one-rank gradient, and the pass's collectives."""
         leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
         batch = train.batch_block(train.synth_batch(
             model, ShapeConfig("t", "train", S, B), 0, dev), sharder)
@@ -6117,27 +6184,27 @@ def mesh_rank(rank, world, out, refs_path, st):
             grads = torch.autograd.grad(loss, leaves)
         for t in leaves:
             t.requires_grad_(False)
-        acc = torch.zeros(3, dtype=torch.float64, device=dev)
-        for path, g, pl in zip(tree_paths(params), grads,
-                               tree_leaves(held_shardings(model.param_specs(), cfg,
-                                                          sharder))):
-            # a leaf the model axis cuts, each rank its block; a whole one once
-            if any(e is not None for e in pl.spec) or mesh.coords["model"] == 0:
-                b = ref["grad"][path]
-                acc += _dots(g, b[pl.slices(b.shape)].to(dev))
-        acc = col.psum(acc, mesh, "model")
-        out = {"loss": float(loss.detach()), "want": ref["loss"],
-               "cos": float(acc[0] / torch.sqrt(acc[1] * acc[2])),
+        acc, want = ref_dots(model, cfg, sharder, _unflatten_like(params, list(grads)), key)
+        out = {"loss": float(loss.detach()), "want": want, "cos": cosine(acc, sharder.mesh),
                "coll": (c.count, dict(c.kinds), c.nbytes)}
-        del ref, grads, loss, batch
+        del grads, loss, batch
         tidy()
         return out
 
-    def train_run(model, cfg, sharder, params, B, S, steps):
-        """``steps`` train steps from ``params``: the first's collectives
-        counted (its dispatch mode runs Python on every op: not timed), the
-        others timed."""
-        step = make_train_step(model, OptConfig(**st["opt"]), sharder, impl=impl)
+    def train_run(model, cfg, sharder, params, B, S, steps, key):
+        """``steps`` train steps from ``params``, each timed: the first's
+        collectives counted (its dispatch mode runs Python on every op) and
+        its gradient, before clipping, held against the one-rank run's
+        (``key``: ``grad_check``'s numbers, from the trained step itself)."""
+        first: dict = {}
+
+        def hold(grads):
+            if not first:
+                first["acc"], first["want"] = ref_dots(model, cfg, sharder, grads, key)
+            return grads
+
+        step = make_train_step(model, OptConfig(**st["opt"]), sharder, impl=impl,
+                               grad_transform=hold)
         opt = step.optimizer.init(params)
         losses, ms, fl, counts = [], [], [], None
         for i in range(steps):
@@ -6153,11 +6220,13 @@ def mesh_rank(rank, world, out, refs_path, st):
             else:
                 params, opt, metrics = step(params, opt, batch)
             sync(dev)
-            if i:
-                ms.append((time.perf_counter() - t0) * 1e3)
+            ms.append((time.perf_counter() - t0) * 1e3)
             fl.append(flash() - n0)
             losses.append(float(metrics["loss"]))
-        return {"losses": losses, "ms": ms, "flash": fl, "coll": counts, "peak": peak()}
+        grad = {"loss": losses[0], "want": first["want"],
+                "cos": cosine(first["acc"], sharder.mesh), "coll": counts}
+        return {"losses": losses, "ms": ms, "flash": fl, "coll": counts, "peak": peak(),
+                "reserved": reserved(), "grad": grad}
 
     # (a) the driver's first step's gradient on the mesh, then the driver
     cfg = st["driver_cfg"]
@@ -6199,6 +6268,7 @@ def mesh_rank(rank, world, out, refs_path, st):
     res["a"] = {"losses": [h["loss"] for h in run["history"]], "ms": ms,
                 "flash": fl, "peak": peak(), "init": init}
     tidy()
+    res["held"] = [("after (a)", held())]
 
     # (b) the dense LM: prefill and decode on (1, 4), then the step-1
     # gradient and train steps on (2, 2)
@@ -6232,16 +6302,15 @@ def mesh_rank(rank, world, out, refs_path, st):
                       "finite": bool(torch.isfinite(got).all()),
                       "slots": tuple(cache["k"].shape), "peak": peak()}
     del logits, cache, seq, params
-    B, S, steps = st["train"]
+    B, S, _ = st["train"]
     sharder = Sharder(mesh22, B)
     params, _ = init_blocks(model, sharder, seed0())
-    res["b_grad"] = grad_check(model, cfg, params, sharder, "dense", B, S)
-    res["b_train"] = train_run(model, cfg, sharder, params, B, S, steps)
+    res["b_train"] = train_run(model, cfg, sharder, params, B, S, 1, "dense")
     del params
     tidy()
+    res["held"].append(("after (b)", held()))
 
-    # (c) each MoE model: prefill and the step-1 gradient on (2, 2), then
-    # train steps on (1, 4)
+    # (c) each MoE model on (2, 2): prefill, the step-1 gradient, train steps
     Bp, Sp = st["moe_prompt"]
     res["c"] = {}
     for arch, cfg in st["moe"]:
@@ -6280,12 +6349,13 @@ def mesh_rank(rank, world, out, refs_path, st):
             del logits, rl
             tidy()
         B, S, steps = st["train"]
+        # expert-parallel: one step at the capacity that does not bind,
+        # where a2a drops what the one-rank scatter drops (nothing): its
+        # gradient is held, and no one-rank run holds later losses
         g = unbound(cfg) if ep else cfg
-        r["grad"] = grad_check(build_model(g), g, params, Sharder(mesh22, B), arch, B, S)
-        del params
-        sharder = Sharder(mesh14, B)
-        params, _ = init_blocks(model, sharder, seed0())
-        r["train"] = train_run(model, cfg, sharder, params, B, S, steps)
+        res["held"].append((f"{arch}'s blocks, before its steps", held()))
+        r["train"] = train_run(build_model(g), g, Sharder(mesh22, B), params, B, S,
+                               1 if ep else steps, arch)
         del params
         tidy()
     return res
@@ -6331,6 +6401,7 @@ def mesh_phase(tag: str, dev) -> dict:
                       clip_norm=1.0)}
     full = {a: mesh_config(a) for a in [MESH_DENSE[0]] + [a for a, *_ in MESH_MOE]}
     half = world // 2
+    gib = 2**30
 
     def heads(cfg, m):
         if cfg.n_heads % m:
@@ -6347,43 +6418,31 @@ def mesh_phase(tag: str, dev) -> dict:
           f"(device memory: four ranks' AdamW state); on (1, {world}), "
           f"{heads(dense, world)}: prefill {MESH_SERVE[0]} x {MESH_SERVE[1]} + "
           f"{MESH_SERVE[2]} decode steps; on (2, {half}), {heads(dense, half)}: "
-          f"step 1's gradient, then {MESH_TRAIN[2]} steps of {MESH_TRAIN[0]} x "
-          f"{MESH_TRAIN[1]}")
+          f"1 step of {MESH_TRAIN[0]} x {MESH_TRAIN[1]}, its gradient held")
     for a, cfg in moe:
         f = full[a]
         ep = f.moe.expert_sharding == "ep"
         print(f"  (c) {a}: depth {f.n_layers} -> {cfg.n_layers}, experts "
               f"{f.moe.num_experts} -> {cfg.moe.num_experts} (device memory); on (2, "
               f"{half}) ({'moe_block_a2a' if ep else 'moe_block_tp'}): prefill "
-              f"{MESH_MOE_PROMPT[0]} x {MESH_MOE_PROMPT[1]}, step 1's gradient"
-              f"{' at a capacity that does not bind' if ep else ''}; on (1, {world}) "
-              f"(weights whole over 'data', four ranks' AdamW state): {MESH_TRAIN[2]} "
-              f"steps of {MESH_TRAIN[0]} x {MESH_TRAIN[1]}")
-
-    def reckon(cfg, m, what):
-        """GiB a rank holds of ``cfg`` cut over m model ranks (the split
-        leaves dominate): the weights, with their gradients, and with their
-        gradients and AdamW's two float32 moments."""
-        b = 2 if cfg.param_dtype == "bfloat16" else 4
-        return cfg.param_count() / m * {"serve": b, "grad": 2 * b,
-                                         "train": 2 * b + 8}[what] / 2**30
-
-    parts = [f"(a) {dcfg.name} train on (1, {world}): {reckon(dcfg, world, 'train'):.1f}",
-             f"(b) {dense.name} serve on (1, {world}): {reckon(dense, world, 'serve'):.1f}, "
-             f"train on (2, {half}): {reckon(dense, half, 'train'):.1f}"]
-    parts += [f"(c) {a} serve / gradient on (2, {half}): {reckon(c, half, 'serve'):.1f} / "
-              f"{reckon(c, half, 'grad'):.1f}, train on (1, {world}): "
-              f"{reckon(c, world, 'train'):.1f} (on (2, {half}): "
-              f"{world * reckon(c, half, 'train'):.0f} for four)" for a, c in moe]
-    print("  reckoned state a rank before the run, GiB (x4 ranks, plus four CUDA "
-          "contexts and the activations): " + "; ".join(parts))
+              f"{MESH_MOE_PROMPT[0]} x {MESH_MOE_PROMPT[1]}, then "
+              f"{1 if ep else MESH_TRAIN[2]} step(s) of {MESH_TRAIN[0]} x {MESH_TRAIN[1]}"
+              f"{' at a capacity that does not bind' if ep else ''}, step 1's gradient "
+              f"held")
+    reck = {"(a)": fsdp_reckon(dcfg, (1, world)), "(b)": fsdp_reckon(dense, (2, half)),
+            **{a: fsdp_reckon(c, (2, half)) for a, c in moe}}
+    print("  reckoned a rank's training state before the run, GiB (x4 ranks, plus "
+          "four CUDA contexts and the activations): " + "; ".join(
+              f"{k} {r['blocks'] / gib:.3f} (blocks of the weights, their gradients "
+              f"and AdamW moments) + {r['gathered'] / gib:.3f} (the largest leaf set "
+              f"gathered over 'data' at once, with its unreduced gradient)"
+              for k, r in reck.items()))
     t0 = time.perf_counter()
     got = spawn_ranks("mesh_rank", world, work / "ranks", refs_path=str(refs_path), st=st)
     print(f"  the ranks: {time.perf_counter() - t0:.1f} s (spawn, init and all three "
           f"parts)")
     fails = []
     by_path = {}
-    gib = 2**30
 
     def rel(x, y):
         return abs(x - y) / abs(y)
@@ -6393,8 +6452,8 @@ def mesh_phase(tag: str, dev) -> dict:
         n, kinds, nbytes = g["coll"]
         print(f"      step 1 on the mesh: loss {g['loss']:.6f} (one rank "
               f"{g['want']:.6f}, rel {rel(g['loss'], g['want']):.2e}); gathered "
-              f"gradient's cosine to one rank {g['cos']:.6f} (>= {MESH_COS}); the "
-              f"loss+gradient pass: {n} collectives {kinds}, "
+              f"gradient's cosine to one rank {g['cos']:.6f} (>= {MESH_COS}); its "
+              f"pass: {n} collectives {kinds}, "
               f"{nbytes / 2**20:.1f} MiB [{tag}]")
         if not g["cos"] >= MESH_COS or not rel(g["loss"], g["want"]) <= MESH_LOSS_RTOL:
             fails.append(f"{label} step 1: loss {g['loss']} vs {g['want']}, "
@@ -6412,14 +6471,19 @@ def mesh_phase(tag: str, dev) -> dict:
         if i["peak"] > i["bound"]:
             fails.append(f"{label} init peak {i['peak']} over {i['bound']}")
 
-    def train_line(tr, label, want, fl, note=""):
-        """Print and hold the train steps: losses, flash and finiteness."""
+    def train_line(tr, label, want, fl, r, note=""):
+        """Print and hold the train steps: losses, flash and finiteness;
+        the peak beside the reckoning ``r`` (``fsdp_reckon``)."""
         print(f"      train: losses {[round(x, 4) for x in tr['losses']]}"
               f"{'' if want is None else f' (one rank {[round(x, 4) for x in want]}{note})'}"
-              f"; step ms after the first {[round(x, 1) for x in tr['ms']]}; flash a step "
+              f"; step ms {[round(x, 1) for x in tr['ms']]} (the first under the "
+              f"collective counter); flash a step "
               f"{tr['flash']} (want {fl}); the first step's collectives {tr['coll'][0]} "
               f"{tr['coll'][1]}, {tr['coll'][2] / 2**20:.1f} MiB; peak "
-              f"{tr['peak']:.3f} GiB [{tag}]")
+              f"{tr['peak']:.3f} GiB, reserved {tr['reserved']:.3f} (reckoned "
+              f"{r['blocks'] / gib:.3f} + "
+              f"{r['gathered'] / gib:.3f} = {(r['blocks'] + r['gathered']) / gib:.3f} "
+              f"GiB and the activations) [{tag}]")
         held = want is not None and not note
         if not np.isfinite(tr["losses"]).all() or (held and max(
                 rel(x, y) for x, y in zip(tr["losses"], want)) > MESH_LOSS_RTOL):
@@ -6427,6 +6491,10 @@ def mesh_phase(tag: str, dev) -> dict:
         if st_flash(tr["flash"], fl):
             fails.append(f"{label} train flash launches {tr['flash']}")
 
+    if DEVICE == "cuda":
+        for g in got:
+            print(f"    rank {g['rank']} device memory held between the parts, GiB: " +
+                  ", ".join(f"{k} {v / gib:.3f}" for k, v in g["held"]) + f" [{tag}]")
     # (a)
     want_a = PHASE13["driver"][:MESH_DRIVER_STEPS]
     fl_a = flash_per_step(dcfg)
@@ -6460,8 +6528,8 @@ def mesh_phase(tag: str, dev) -> dict:
         if st_flash([sv["prefill_flash"]], dense.n_layers) or sv["decode_flash"]:
             fails.append(f"(b) rank {g['rank']} serve flash launches")
         print(f"    rank {g['rank']} (b) on (2, {half}):")
-        grad_line(g["b_grad"], f"(b) rank {g['rank']}")
-        train_line(g["b_train"], f"(b) rank {g['rank']}", want_b, fl_b)
+        grad_line(g["b_train"]["grad"], f"(b) rank {g['rank']}")
+        train_line(g["b_train"], f"(b) rank {g['rank']}", want_b, fl_b, reck["(b)"])
     by_path[f"mesh {MESH_DENSE[0]}"] = sum(g["b_serve"]["prefill_flash"]
                                           + sum(g["b_train"]["flash"]) for g in got)
     # (c)
@@ -6490,11 +6558,11 @@ def mesh_phase(tag: str, dev) -> dict:
                                  f"ties, cosine {x['cos']}")
                 if st_flash([x["flash"]], cfg.n_layers):
                     fails.append(f"(c) {a} rank {g['rank']} prefill flash {x['flash']}")
-            grad_line(r["grad"], f"(c) {a} rank {g['rank']}")
-            print(f"      on (1, {world}):")
-            train_line(r["train"], f"(c) {a} rank {g['rank']}", phase13_losses(a, cfg),
-                       fl_c, "; not held: at the config's capacity a2a's per-shard "
-                       "capacity drops other tokens than the scatter" if ep else "")
+            grad_line(r["train"]["grad"], f"(c) {a} rank {g['rank']}")
+            # phase 13 trained the config's capacity: none to hold the
+            # expert-parallel run's losses to
+            train_line(r["train"], f"(c) {a} rank {g['rank']}",
+                       None if ep else phase13_losses(a, cfg), fl_c, reck[a])
         by_path[f"mesh {a}"] = sum(sum(x["flash"] for k, x in g["c"][a].items()
                                        if k in ("config", "unbound"))
                                    + sum(g["c"][a]["train"]["flash"]) for g in got)

@@ -13,10 +13,11 @@ Layout per step (the JAX package's, so either package reads the other's):
   training; a failed write raises at the next ``wait()`` / ``save()``.
 - SHARDED SAVE: with shardings (a tree of
   :class:`repro_torch.parallel.sharding.Placement`, e.g. a rank's slice of
-  a partition-stacked DVNR state) every rank of the placements' mesh hands
-  its blocks to the mesh's rank 0, which assembles the global arrays and
-  writes them; the others write nothing. This is a collective, outside any
-  training step.
+  a partition-stacked DVNR state, or an LM's blocks cut over ``"model"``
+  and ``"data"``) every rank of the placements' mesh hands its blocks to
+  the mesh's rank 0, which assembles the global arrays (each block at its
+  placement's ``slices``) and writes them; the others write nothing. This
+  is a collective, outside any training step.
 - RESHARDING RESTORE: ``restore(..., shardings=)`` reads the global arrays
   on the target mesh's rank 0 and scatters each rank its own blocks, so a
   run resumes on another mesh shape (elastic restart after losing ranks).

@@ -55,10 +55,10 @@ def elastic_restore(mgr: CheckpointManager, example_tree, cfg, plan: RestartPlan
     (``cfg.n_levels``), a partition-stacked trainer state whose leading axis
     is cut over every mesh axis (:func:`partition_shardings`); for an LM
     config, its blocks of the parameters (and optimizer state) as the LM
-    rules cut them over ``"model"`` (:func:`held_shardings`, the layout the
-    training driver holds and writes), with ``shapes`` the same tree's
-    global shapes (e.g. ``Model.param_specs()``): whether a block is cut
-    depends on its global length."""
+    rules cut them over ``"model"`` and ``"data"`` (:func:`held_shardings`,
+    the layout the training driver holds and writes), with ``shapes`` the
+    same tree's global shapes (e.g. ``Model.param_specs()``): whether a
+    block is cut depends on its global length."""
     if hasattr(cfg, "n_levels"):
         shardings = partition_shardings(example_tree, plan.sharder)
     elif shapes is None:

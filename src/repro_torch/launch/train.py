@@ -14,10 +14,12 @@ rank (``torch.distributed`` initialised by the caller, or ``WORLD_SIZE`` >
 ``nccl`` on the cards, ``gloo`` with ``--device cpu``) it builds JAX's
 mesh, ``make_mesh_for(world)`` (JAX's default ``model_parallel=16``:
 (1, 4) on 4 ranks), and trains the dense and MoE families sharded: every rank
-draws the same init and keeps its blocks, cutting each leaf as it is drawn
-(``Model.init(..., sharder=)``: a rank never holds the whole tree), and
-takes its block of each ``synth_batch``; checkpoints are written from the blocks'
-placements and restored onto whatever mesh resumes (another shape too).
+draws the same init and keeps its blocks, cut over ``"model"`` and over
+``"data"`` (the fsdp split: the AdamW moments follow), cutting each leaf
+as it is drawn (``Model.init(..., sharder=)``: a rank never holds the
+whole tree), and takes its block of each ``synth_batch``; checkpoints are
+written from the blocks' placements and restored onto whatever mesh
+resumes (another shape too).
 Rank 0 prints. ``--device cpu`` with ``--impl ref``
 (or ``cuda``: the kernel wrappers' plain versions) runs on the CPU, which
 the tests use; ``--device`` and ``--impl`` default to ``auto``, which raise

@@ -13,12 +13,14 @@ versions on the CPU. ``moe_dispatch`` takes JAX's names.
 
 ``sharder``: None or a mesh-less ``Sharder`` is the single-card path; a
 ``Sharder`` on a mesh runs the dense and MoE families sharded, each rank
-with its blocks of the parameters (``init(..., sharder=)``, which cuts each
-leaf as it is drawn, or ``parallel.sharding.shard_params`` of a global
-tree, e.g. JAX's ``init`` carried across by
-``interop.lm_params_from_numpy``) and of the batch; the other families
-raise ``NotImplementedError`` naming ROADMAP item 16, and anything that is
-not a ``Sharder`` raises ``TypeError``.
+with its blocks of the parameters, cut over ``"model"`` and ``"data"``
+(``init(..., sharder=)``, which cuts each leaf as it is drawn, or
+``parallel.sharding.shard_params`` of a global tree, e.g. JAX's ``init``
+carried across by ``interop.lm_params_from_numpy``) and of the batch;
+``loss``, ``prefill`` and ``decode_step`` hand the family the blocks'
+placements, from the global shapes (``transformer.lm_places``). The other
+families raise ``NotImplementedError`` naming ROADMAP item 16, and
+anything that is not a ``Sharder`` raises ``TypeError``.
 
 ``param_specs()`` gives ``init``'s tree as shapes (the large leaves on
 the meta device, nothing drawn), as ``jax.eval_shape`` does.
@@ -184,15 +186,19 @@ def _model(cfg, init_fn, loss_fn, prefill_fn, decode_fn, cache_fn) -> Model:
 
 def _build_transformer(cfg, moe_dispatch="scatter") -> Model:
     t = transformer
+
+    def places(sharder):
+        return t.lm_places(cfg, mesh_sharder(sharder))
+
     return _model(
         cfg,
         lambda gen: t.init_lm(cfg, gen),
         lambda params, batch, sharder, impl: t.lm_loss(
-            cfg, params, batch, sharder, impl, moe_dispatch),
+            cfg, params, batch, sharder, impl, moe_dispatch, places(sharder)),
         lambda params, batch, seq_len, sharder, impl: t.prefill(
-            cfg, params, batch, seq_len, sharder, impl, moe_dispatch),
+            cfg, params, batch, seq_len, sharder, impl, moe_dispatch, places(sharder)),
         lambda params, cache, tokens, sharder=None: t.decode_step(
-            cfg, params, cache, tokens, sharder),
+            cfg, params, cache, tokens, sharder, places(sharder)),
         lambda batch, seq_len, device: t.init_cache(cfg, batch, seq_len, device),
     )
 

@@ -9,8 +9,10 @@ stored 2D-flattened ((d, Hq*dh) etc.), as in the JAX package.
 call, every decode step included, runs the plain masked path.
 
 On a mesh (a ``sharder`` with one) the input ``x`` is the rank's batch
-block, whole over ``"model"``, and the weights are the rank's blocks
-(``parallel.sharding.shard_params``). :func:`attention_block` runs in one of
+block, whole over ``"model"``, and the weights are the rank's blocks over
+``"model"`` (``parallel.sharding.shard_params``), which the layer has
+gathered whole over ``"data"`` before any of them is read
+(``transformer.gather_fsdp``). :func:`attention_block` runs in one of
 three modes, as XLA partitions JAX's block:
 
 - heads (``Hq`` divides over ``"model"``): the rank's q heads and the K/V

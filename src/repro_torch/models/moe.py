@@ -28,9 +28,12 @@ the out_specs do not cut leaves through ``collectives.leave``, and the
 token blocks move by ``block`` / ``gather``. So the auxiliary loss of an
 ``a2a`` layer is each rank's own (JAX returns the first device's, and its
 gradient is the mean over the devices'), and ``moe_block_tp``'s is the
-pmean over the batch axes. The parameters are held whole over the batch
-axes; the caller sums their gradients over them (``transformer.lm_loss``
-enters them once).
+pmean over the batch axes. The parameters arrive whole over ``"data"``:
+the caller gathers the rank's blocks of a layer before the block
+(``transformer.gather_fsdp``: the experts' ``("expert", "fsdp", None)``
+under ``ep``, ``(None, "fsdp", "model")`` under ``tp``), and the gathers'
+reduce-scatters and ``transformer.enter_batch`` sum their gradients over
+the batch axes.
 
 Dropped (token, slot) pairs still add ``x * 0`` into slot 0 of their
 expert, as JAX's scatter does, so the buffer holds JAX's values.

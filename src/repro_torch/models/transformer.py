@@ -16,10 +16,24 @@ continues the prompt. (The JAX package's ``prefill`` returns a cache of the
 prompt's length, laid out from its last W tokens; see ROADMAP §C.)
 
 On a mesh (a ``sharder`` holding one; the dense and MoE families) every
-rank holds its blocks of the parameters (``parallel.sharding.shard_params``)
-and of the batch (cut over the sharder's batch axes), and computes what the
-JAX package computes on that mesh:
+rank holds its blocks of the parameters (``parallel.sharding.shard_params``:
+cut over ``"model"`` and over ``"data"``, JAX's ``param_shardings``) and of
+the batch (cut over the sharder's batch axes), and computes what the JAX
+package computes on that mesh:
 
+- the placements come from the global shapes (:func:`lm_places`, handed
+  down from ``Model.loss`` / ``prefill`` / ``decode_step``), never from a
+  block's shape: a block of ``b`` rows with ``b % data != 0`` may be cut
+  or whole;
+- each weight the fsdp axes (``"data"``) cut is gathered whole over them
+  where it is used (:func:`gather_fsdp`): a layer's leaves inside the
+  function ``remat_wrap`` checkpoints, so a rank holds one layer's weights
+  whole over ``"data"`` at a time and the backward pass gathers them again
+  (ZeRO-3); the embedding table, the head and the final norm at their
+  use. The gather's backward reduce-scatters the gradient over ``"data"``
+  where ``"data"`` is a batch axis, and keeps the rank's block of it where
+  it is not (a batch that ``"data"`` does not divide: every data rank then
+  computed the same whole gradient);
 - the embedding table is cut over the vocabulary (``"model"``): a masked
   lookup of the rank's rows, then a psum;
 - the logits are cut over the vocabulary too (``head/w``'s columns, or the
@@ -27,9 +41,10 @@ JAX package computes on that mesh:
   (a pmax of the row maxima, psums of the exponentials' sums and of the
   label logits), JAX's ``softmax_xent`` on the whole logits;
 - the loss is the mean over the global batch (a pmean over the batch
-  axes), and the parameters enter the loss once, whole over the batch axes,
-  so that every rank's gradient is its block of the global-batch gradient
-  (summed over the batch axes in the backward pass);
+  axes), and each parameter enters the loss once over the batch axes it is
+  held whole over (:func:`enter_batch`: all of them for a leaf ``"data"``
+  does not cut, the others for one it cuts), so that every rank's gradient
+  is its block of the global-batch gradient;
 - :func:`prefill` returns the last token's logits whole on every rank and
   a cache cut over ``"seq"`` (its slots, where they divide the model axis;
   ``"slots"`` in the cache dict holds their global count), which
@@ -48,11 +63,14 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
-    apply_mlp, apply_norm, dense_init, embed_init, init_norm, softmax_xent,
+    apply_mlp, apply_norm, dense_init, embed_init, init_norm, shapes_only,
+    softmax_xent,
 )
-from repro_torch.optim.adamw import tree_map
 from repro_torch.parallel import collectives as col
-from repro_torch.parallel.sharding import (mesh_sharder, model_split, padded_vocab,
+from repro_torch.parallel.sharding import (Placement, _flatten_with_path,
+                                           _unflatten_like, fsdp_split,
+                                           held_shardings, mesh_sharder,
+                                           model_split, padded_vocab,
                                            require_no_sharder)
 from repro_torch.precision import torch_dtype
 
@@ -178,6 +196,54 @@ def init_lm(cfg, gen: torch.Generator) -> dict:
 
 
 # --------------------------------------------------------------------------- #
+# The fsdp split on a mesh
+# --------------------------------------------------------------------------- #
+def lm_places(cfg, sh):
+    """The placements of a rank's blocks on ``sh``'s mesh, from the global
+    shapes (``init_lm``'s tree with nothing drawn: ``Model.param_specs``);
+    None without a mesh."""
+    if sh is None:
+        return None
+    with shapes_only():
+        specs = init_lm(cfg, torch.Generator())
+    return held_shardings(specs, cfg, sh)
+
+
+def gather_fsdp(tree, places, sh):
+    """``tree`` (a rank's blocks, ``places`` their placements) with every
+    leaf the fsdp axes cut gathered whole over them
+    (``collectives.gather_weight``: under autograd its backward
+    reduce-scatters the gradient where the fsdp axes are batch axes, and
+    keeps the rank's block of it where they are not). Without a mesh, or
+    with fsdp axes of size 1, ``tree`` itself."""
+    if sh is None or sh.mesh.axis_size(sh.axes("fsdp")) == 1:
+        return tree
+    fsdp = sh.axes("fsdp")
+    summed = all(a in sh.axes("batch") for a in fsdp)
+    out = []
+    for (_, leaf), (_, p) in zip(_flatten_with_path(tree), _flatten_with_path(places)):
+        for d in fsdp_split(p, sh)[0]:
+            leaf = col.gather_weight(leaf, sh.mesh, fsdp, d, summed)
+        out.append(leaf)
+    return _unflatten_like(tree, out)
+
+
+def _used(params, places, sh, key):
+    """``params[key]`` whole over the fsdp axes, at its use."""
+    return params[key] if sh is None else gather_fsdp(params[key], places[key], sh)
+
+
+def _layer_places(places):
+    """One layer's placements, from the stacked layers' (the L dimension
+    dropped); None without a mesh."""
+    if places is None:
+        return None
+    flat = _flatten_with_path(places["layers"])
+    return _unflatten_like(places["layers"],
+                           [Placement(p.mesh, tuple(p.spec[1:])) for _, p in flat])
+
+
+# --------------------------------------------------------------------------- #
 # Forward (prefill / loss)
 # --------------------------------------------------------------------------- #
 def _device(params) -> torch.device:
@@ -196,15 +262,16 @@ def _as_tensor(a, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def embed_tokens(cfg, params, tokens, sharder=None):
+def embed_tokens(cfg, params, tokens, sharder=None, places=None):
     """Rows of the embedding table in the compute dtype. Gathers first and
     casts the rows (the values of JAX's cast-then-gather, without casting
-    the whole table on every call). On a mesh whose model axis cuts the
-    vocabulary, each rank looks up the tokens its rows hold (zeros for the
-    rest) and a psum over ``"model"`` assembles them."""
-    table = params["embed"]["tok"]
-    tokens = _as_tensor(tokens, table.device, torch.long)
+    the whole table on every call). On a mesh the table is first gathered
+    whole over ``"data"`` (``places``: the blocks' placements); where the
+    model axis cuts the vocabulary, each rank looks up the tokens its rows
+    hold (zeros for the rest) and a psum over ``"model"`` assembles them."""
     sh = mesh_sharder(sharder)
+    table = _used(params, places, sh, "embed")["tok"]
+    tokens = _as_tensor(tokens, table.device, torch.long)
     if sh is None or not model_split(sh, padded_vocab(cfg.vocab)):
         return table[tokens].to(compute_dtype(cfg))
     n = table.shape[0]
@@ -221,14 +288,14 @@ def make_positions(cfg, B, S, device=None):
     return pos
 
 
-def _inputs(cfg, params, batch, sharder=None):
+def _inputs(cfg, params, batch, sharder=None, places=None):
     """The batch's embeddings (B,S,D) in the compute dtype and positions."""
     dev = _device(params)
     if cfg.input_mode == "embeds":
         x = _as_tensor(batch["embeds"], dev).to(compute_dtype(cfg))
         B, S, _ = x.shape
     else:
-        x = embed_tokens(cfg, params, batch["tokens"], sharder)
+        x = embed_tokens(cfg, params, batch["tokens"], sharder, places)
         B, S = x.shape[:2]
     positions = batch.get("positions")
     if positions is None:
@@ -263,32 +330,39 @@ def block_fn(cfg, lp, x, positions, sharder=None, impl="ref",
 
 
 def forward_hidden(cfg, params, x, positions, sharder=None, impl="ref",
-                   moe_dispatch="scatter"):
+                   moe_dispatch="scatter", places=None):
     """x: (B,S,D) embeddings -> final hidden states (B,S,D), aux loss
-    summed over the layers."""
+    summed over the layers. On a mesh (``places``: the blocks' placements)
+    each layer gathers its leaves over ``"data"`` inside the checkpointed
+    function (see the module docstring)."""
+    sh = mesh_sharder(sharder)
+    lplaces = _layer_places(places)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    body = remat_wrap(cfg, lambda xx, lp: block_fn(cfg, lp, xx, positions, sharder,
-                                                   impl, moe_dispatch))
+    body = remat_wrap(cfg, lambda xx, lp: block_fn(
+        cfg, gather_fsdp(lp, lplaces, sh), xx, positions, sharder, impl, moe_dispatch))
     for lp in layer_slices(params["layers"], cfg.n_layers):
         x, a = body(x, lp)
         aux = aux + a
-    x = apply_norm(cfg, params["final_norm"], x)
+    x = apply_norm(cfg, _used(params, places, sh, "final_norm"), x)
     return x, aux
 
 
-def logits_fn(cfg, params, h, sharder=None):
-    """The logits (..., Vp), padded entries masked. On a mesh whose model
-    axis cuts the vocabulary: this rank's block of them (``"model"``'s
-    index times the block's width is its first vocabulary entry)."""
+def logits_fn(cfg, params, h, sharder=None, places=None):
+    """The logits (..., Vp), padded entries masked. On a mesh (``places``:
+    the blocks' placements) the head (or the tied table) is gathered whole
+    over ``"data"`` first; where the
+    model axis cuts the vocabulary: this rank's block of them
+    (``"model"``'s index times the block's width is its first vocabulary
+    entry)."""
     cdt = h.dtype
     sh = mesh_sharder(sharder)
     split = sh is not None and model_split(sh, padded_vocab(cfg.vocab))
     if split:
         h = col.enter(h, sh.mesh, "model")
     if cfg.tie_embeddings:
-        logits = h @ params["embed"]["tok"].to(cdt).T
+        logits = h @ _used(params, places, sh, "embed")["tok"].to(cdt).T
     else:
-        logits = h @ params["head"]["w"].to(cdt)
+        logits = h @ _used(params, places, sh, "head")["w"].to(cdt)
     vp = logits.shape[-1]
     lo = sh.mesh.axis_index("model") * vp if split else 0
     if lo + vp > cfg.vocab:  # mask padded vocab entries
@@ -297,9 +371,9 @@ def logits_fn(cfg, params, h, sharder=None):
     return logits
 
 
-def _whole_logits(cfg, params, h, sh):
+def _whole_logits(cfg, params, h, sh, places):
     """Every vocabulary entry's logit on every rank (serving; no gradient)."""
-    logits = logits_fn(cfg, params, h, sh)
+    logits = logits_fn(cfg, params, h, sh, places)
     if sh is not None and model_split(sh, padded_vocab(cfg.vocab)):
         logits = col.all_gather_dim(logits.detach(), sh.mesh, "model", -1)
     return logits
@@ -335,29 +409,36 @@ def check_family(cfg, sharder):
     return sh
 
 
-def enter_batch(params, sh):
-    """The parameters entering a loss on a mesh: whole over the batch axes,
-    so that the backward pass sums each weight's gradient over them (the
-    global-batch gradient; JAX's partitioner sums the same)."""
+def enter_batch(params, sh, places):
+    """The parameters (a tree of a rank's blocks, ``places`` their
+    placements) entering a loss on a mesh: each leaf over the batch axes it
+    is held whole over (``sharding.fsdp_split``), so that the backward pass
+    sums its gradient over them; a leaf the fsdp axes cut has the rest of
+    the sum from its gather's reduce-scatter. Together: the global-batch
+    gradient, which JAX's partitioner sums the same."""
     if sh is None or sh.mesh.axis_size(sh.axes("batch")) == 1:
         return params
-    axes = sh.axes("batch")
-    return tree_map(lambda p: col.enter(p, sh.mesh, axes)
-                    if p.is_floating_point() else p, params)
+    out = [col.enter(p, sh.mesh, fsdp_split(pl, sh)[1]) if p.is_floating_point() else p
+           for (_, p), (_, pl) in zip(_flatten_with_path(params),
+                                      _flatten_with_path(places))]
+    return _unflatten_like(params, out)
 
 
-def lm_loss(cfg, params, batch, sharder=None, impl="ref", moe_dispatch="scatter"):
+def lm_loss(cfg, params, batch, sharder=None, impl="ref", moe_dispatch="scatter",
+            places=None):
     """Next-token cross-entropy plus the MoE auxiliary loss (differentiable
     through autograd: ``train.make_train_step`` takes its gradient). On a
     mesh the rank's loss is the global batch's (see the module docstring;
     an ``a2a`` layer's auxiliary loss is the rank's own, as JAX's shard_map
-    returns it) and its gradient the rank's block of the global one."""
+    returns it) and its gradient the rank's block of the global one.
+    ``places``: the blocks' placements (default :func:`lm_places`)."""
     sh = check_family(cfg, sharder)
-    params = enter_batch(params, sh)
-    x, positions = _inputs(cfg, params, batch, sh)
+    places = lm_places(cfg, sh) if places is None else places
+    params = enter_batch(params, sh, places)
+    x, positions = _inputs(cfg, params, batch, sh, places)
     h, aux = forward_hidden(cfg, params, x, positions, sh, impl,
-                            moe_dispatch)
-    logits = logits_fn(cfg, params, h, sh)
+                            moe_dispatch, places)
+    logits = logits_fn(cfg, params, h, sh, places)
     labels = _as_tensor(batch["labels"], h.device, torch.long)
     if sh is not None and model_split(sh, padded_vocab(cfg.vocab)):
         loss = _xent_vocab_parallel(logits, labels, sh)
@@ -392,14 +473,17 @@ def init_cache(cfg, batch: int, seq_len: int, device=None):
 
 @torch.no_grad()
 def prefill(cfg, params, batch, seq_len: int, sharder=None, impl="ref",
-            moe_dispatch="scatter"):
+            moe_dispatch="scatter", places=None):
     """Run the prompt through the stack, returning last-token logits + cache
     (``init_cache(cfg, B, seq_len)``'s layout, ready for ``decode_step``;
-    on a mesh this rank's slots of it, see the module docstring)."""
+    on a mesh this rank's slots of it, see the module docstring).
+    ``places``: the blocks' placements (default :func:`lm_places`)."""
     sh = check_family(cfg, sharder)
+    places = lm_places(cfg, sh) if places is None else places
+    lplaces = _layer_places(places)
     tp = sh is not None and sh.axis_size("model") > 1
     cdt = compute_dtype(cfg)
-    x, positions = _inputs(cfg, params, batch, sh)
+    x, positions = _inputs(cfg, params, batch, sh, places)
     B, S, _ = x.shape
     cache = init_cache(cfg, B, seq_len, x.device)
     W = cache["k"].shape[2]
@@ -421,6 +505,7 @@ def prefill(cfg, params, batch, seq_len: int, sharder=None, impl="ref",
     mine = (slots >= lo) & (slots < lo + c)
     src = torch.arange(S - keep, S, device=x.device)[mine]
     for i, lp in enumerate(layer_slices(params["layers"], cfg.n_layers)):
+        lp = gather_fsdp(lp, lplaces, sh)
         h = apply_norm(cfg, lp["norm1"], x)
         if tp:
             o, k, v = attn.attention_tp(cfg, lp["attn"], h, positions, sh,
@@ -436,24 +521,28 @@ def prefill(cfg, params, batch, seq_len: int, sharder=None, impl="ref",
         x = x + ffn(cfg, lp, h2, sh, moe_dispatch=moe_dispatch)[0]
         cache["k"][i].index_copy_(1, slots[mine] - lo, k[:, src].to(cdt))
         cache["v"][i].index_copy_(1, slots[mine] - lo, v[:, src].to(cdt))
-    x = apply_norm(cfg, params["final_norm"], x)
-    logits = _whole_logits(cfg, params, x[:, -1:], sh)
+    x = apply_norm(cfg, _used(params, places, sh, "final_norm"), x)
+    logits = _whole_logits(cfg, params, x[:, -1:], sh, places)
     cache["pos"].fill_(S)
     return logits, cache
 
 
 @torch.no_grad()
-def decode_step(cfg, params, cache, tokens, sharder=None):
+def decode_step(cfg, params, cache, tokens, sharder=None, places=None):
     """One decode step. tokens (B,1) int; cache from init_cache/prefill,
     whose k/v are updated in place (the returned cache holds the same
     tensors and ``pos + 1``). On a mesh the cache is the mesh prefill's:
-    this rank's slots, ``cache["slots"]`` of them in all."""
+    this rank's slots, ``cache["slots"]`` of them in all; ``places``: the
+    blocks' placements (default :func:`lm_places`)."""
     sh = check_family(cfg, sharder)
-    x = embed_tokens(cfg, params, tokens, sh)
+    places = lm_places(cfg, sh) if places is None else places
+    lplaces = _layer_places(places)
+    x = embed_tokens(cfg, params, tokens, sh, places)
     pos = _as_tensor(cache["pos"], x.device, torch.int32)
     W = cfg.sliding_window
     slots = cache.get("slots")
     for i, lp in enumerate(layer_slices(params["layers"], cfg.n_layers)):
+        lp = gather_fsdp(lp, lplaces, sh)
         h = apply_norm(cfg, lp["norm1"], x)
         o, _, _ = attn.decode_attention(cfg, lp["attn"], h, cache["k"][i],
                                         cache["v"][i], pos, window=W,
@@ -461,8 +550,8 @@ def decode_step(cfg, params, cache, tokens, sharder=None):
         x = x + o
         h2 = apply_norm(cfg, lp["norm2"], x)
         x = x + ffn(cfg, lp, h2, sh, moe_dispatch="scatter")[0]
-    x = apply_norm(cfg, params["final_norm"], x)
-    logits = _whole_logits(cfg, params, x, sh)
+    x = apply_norm(cfg, _used(params, places, sh, "final_norm"), x)
+    logits = _whole_logits(cfg, params, x, sh, places)
     out = {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
     if slots is not None:
         out["slots"] = slots

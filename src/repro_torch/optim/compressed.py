@@ -19,7 +19,7 @@ quantization round trip. On a mesh:
 - without ``axis``, ``placements`` (a tree of the leaves'
   :class:`~repro_torch.parallel.sharding.Placement`, the blocks a rank
   holds) makes each leaf's scale the whole tensor's, a pmax over the axes
-  that cut it of the blocks' maxima: what ``jnp.max`` of a sharded array
+  that cut it (``"model"``, ``"data"``) of the blocks' maxima: what ``jnp.max`` of a sharded array
   gives under JAX's partitioner (the train step's ``grad_compress`` on a
   mesh).
 

@@ -30,7 +30,13 @@ transpose that JAX's ``shard_map`` (``check_rep=False``) gives it:
   what ``shard_map`` does to an output that no out_spec maps over them;
 - :func:`block` — this rank's block of a value replicated over the axes
   (a mapped in_spec); backward ``all_gather``;
-- :func:`pmax` — all-reduce max, not differentiated (a softmax's shift).
+- :func:`pmax` — all-reduce max, not differentiated (a softmax's shift);
+- :func:`gather_weight` — a weight's block over the ``fsdp`` axes to the
+  whole over them (``lax.all_gather(tiled=True)``, ZeRO-3's gather of a
+  layer's weights); backward ``psum_scatter`` as one reduce-scatter
+  (``dist.reduce_scatter_tensor``) where those axes are batch axes (each
+  rank's cotangent is its batch block's), else the cotangent's block with
+  no sum (every rank computed the same whole gradient).
 
 The GSPMD side of an LM (what XLA's partitioner inserts round a sharded
 product) is two more: :func:`reduce`, ``leave(psum(x))`` (a row-parallel
@@ -56,7 +62,8 @@ that a test or ``chip_smoke.py`` can show that a rank's training chunk
 issues none (the paper's zero-communication claim). It also counts them
 by kind (``kinds``: operation name -> count) and the bytes each sends
 (``nbytes``: its input tensors', e.g. an all-reduce's tensor, an
-all-gather's own block, an all_to_all's whole input).
+all-gather's own block, an all_to_all's or a reduce-scatter's whole
+input).
 """
 from __future__ import annotations
 
@@ -90,7 +97,17 @@ class CollectiveCounter(TorchDispatchMode):
 
 
 #: the schema argument that holds what a collective sends
-_SENT = ("tensors", "input_tensors", "input", "tensor")
+_SENT = ("tensors", "input_tensors", "input_tensor", "input", "tensor")
+
+
+def _tensors(a) -> list:
+    """The tensors of an argument: a tensor, or lists of them at any depth
+    (``reduce_scatter_``'s list of lists)."""
+    if isinstance(a, torch.Tensor):
+        return [a]
+    if isinstance(a, (list, tuple)):
+        return [t for x in a for t in _tensors(x)]
+    return []
 
 
 def _sent_bytes(func, args) -> int:
@@ -100,9 +117,7 @@ def _sent_bytes(func, args) -> int:
         return 0
     for spec, a in zip(func._schema.arguments, args):
         if spec.name in _SENT:
-            ts = a if isinstance(a, (list, tuple)) else (a,)
-            return sum(t.numel() * t.element_size() for t in ts
-                       if isinstance(t, torch.Tensor))
+            return sum(t.numel() * t.element_size() for t in _tensors(a))
     return 0
 
 
@@ -216,6 +231,21 @@ def _gather_dim(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
     return torch.cat(parts, dim=dim).to(x.device)
 
 
+def _reduce_scatter_dim(x: torch.Tensor, group, n: int, dim: int) -> torch.Tensor:
+    """The sum over the group's ranks of ``x``, this rank's block of it
+    along ``dim``: one reduce-scatter (no all-reduce), on ``dim`` moved
+    to the front."""
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce-scatter: dimension {dim} of {tuple(x.shape)} "
+                         f"does not split over {n} ranks")
+    w = x.detach().movedim(dim, 0)
+    w = (w.to("cpu") if _host_wire(group) else w).contiguous()
+    got = torch.empty((w.shape[0] // n,) + tuple(w.shape[1:]), dtype=w.dtype,
+                      device=w.device)
+    dist.reduce_scatter_tensor(got, w, group=group)
+    return got.movedim(0, dim).to(x.device).contiguous()
+
+
 def _scatter_dim(x: torch.Tensor, n: int, k: int, dim: int) -> torch.Tensor:
     """Block ``k`` of ``n`` equal blocks of ``x`` along ``dim``."""
     size = x.shape[dim]
@@ -309,6 +339,20 @@ class _AllGather(torch.autograd.Function):
             None, None, None, None
 
 
+class _GatherWeight(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, n, k, dim, summed):
+        ctx.args = (group, n, k, dim, summed)
+        return _gather_dim(x, group, n, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        group, n, k, dim, summed = ctx.args
+        out = _reduce_scatter_dim(g, group, n, dim) if summed else \
+            _scatter_dim(g, n, k, dim).contiguous()
+        return out, None, None, None, None, None
+
+
 class _Block(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, n, k, dim):
@@ -375,6 +419,17 @@ def all_gather_dim(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     ``lax.psum_scatter``."""
     group, n, k = _group_of(mesh, axes)
     return x if n == 1 else _AllGather.apply(x, group, n, k, _dim(x, dim))
+
+
+def gather_weight(x: torch.Tensor, mesh, axes, dim: int, summed: bool) -> torch.Tensor:
+    """A weight's block along ``dim`` (its fsdp dimension) to the whole
+    over ``axes``: an all-gather. Backward: with ``summed`` (``axes`` are
+    batch axes, so each rank's cotangent is its own batch block's) the
+    reduce-scatter of the ranks' cotangents, each rank its block of the
+    sum; without, the cotangent's block (every rank of ``axes`` computed
+    the same whole gradient: a sum would multiply it by their number)."""
+    group, n, k = _group_of(mesh, axes)
+    return x if n == 1 else _GatherWeight.apply(x, group, n, k, _dim(x, dim), summed)
 
 
 def block(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:

@@ -30,13 +30,17 @@ it is gathered, and a pair that trades one axis is an ``all_to_all``. An
 activation holds its batch dimension cut over the batch axes throughout, so
 ``held`` defaults to the target's ``"batch"`` entries and whole elsewhere.
 
-The parameters a rank holds are :func:`shard_params`'s blocks: each leaf cut
-by :func:`param_shardings` over ``"model"`` (the divisibility guard
-included), and held whole over the batch axes — the ``fsdp`` split of
-weights over ``"data"`` (ZeRO-3) is not ported (ROADMAP item 16), so a
-weight's gradient is summed over the batch axes instead.
-:func:`held_shardings` gives those placements, :func:`gather_params` the
-inverse. The dense and MoE transformer families run on a mesh
+The parameters a rank holds are :func:`shard_params`'s blocks: each leaf
+cut by :func:`param_shardings` (:func:`held_shardings`, the divisibility
+guard included), over ``"model"`` and over the ``fsdp`` axes (``"data"``:
+ZeRO-3's split of the weights and, through them, of the AdamW moments).
+:func:`gather_params` is the inverse. A site that uses a leaf reads from
+its placement which dimensions the fsdp axes cut (:func:`fsdp_split`):
+those it gathers whole over them just before use
+(``collectives.gather_weight``, whose backward reduce-scatters the
+gradient over them where they are batch axes), and over the other batch
+axes it enters the loss whole (``collectives.enter``, whose backward sums
+the gradient). The dense and MoE transformer families run on a mesh
 (:func:`mesh_sharder`); the others raise naming ROADMAP item 16
 (:func:`require_no_sharder`).
 """
@@ -295,16 +299,19 @@ def _flatten_with_path(tree, prefix=()):
 
 
 def _unflatten_like(tree, leaves):
-    it = iter(leaves)
+    return _build_like(tree, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, (list, tuple)):
-            return type(t)(build(x) for x in t)
-        return next(it)
 
-    return build(tree)
+def _build_like(t, it):
+    """``t``'s structure with its leaves taken from ``it`` in order. A
+    module-level function: a closure that calls itself is a reference
+    cycle, which would keep the leaves (a step's gradients, a layer's
+    gathered weights) alive until the garbage collector runs."""
+    if isinstance(t, dict):
+        return {k: _build_like(t[k], it) for k in sorted(t)}
+    if isinstance(t, (list, tuple)):
+        return type(t)(_build_like(x, it) for x in t)
+    return next(it)
 
 
 def tree_paths(tree) -> list:
@@ -357,29 +364,30 @@ def _guard_divisibility(spec: tuple, shape, sharder: Sharder) -> tuple:
 # --------------------------------------------------------------------------- #
 # The blocks a rank holds
 # --------------------------------------------------------------------------- #
-def _model_only(spec: tuple, sharder: Sharder) -> tuple:
-    """A spec with every axis but the model axes dropped: weights held
-    whole over the batch axes (no fsdp split)."""
-    keep = set(sharder.axes("model"))
-    out = []
-    for e in spec:
-        names = () if e is None else ((e,) if isinstance(e, str) else tuple(e))
-        names = tuple(a for a in names if a in keep)
-        out.append(None if not names else (names[0] if len(names) == 1 else names))
-    return tuple(out)
-
-
 def held_shardings(params_tree, config, sharder: Sharder):
-    """The placements of the blocks a rank holds (:func:`param_shardings`
-    without the fsdp axes); a tree of None without a mesh. Works on an
-    optimizer state too (its ``m`` / ``v`` / ``mw`` subtrees match the
-    rules by path; the step counter is replicated)."""
-    full = param_shardings(params_tree, config, sharder)
-    if sharder.mesh is None:
-        return full
-    return _unflatten_like(params_tree, [
-        Placement(p.mesh, _model_only(p.spec, sharder))
-        for _, p in _flatten_with_path(full)])
+    """The placements of the blocks a rank holds: :func:`param_shardings`
+    (cut over ``"model"`` and the fsdp axes, as JAX places them); a tree of
+    None without a mesh. Works on an optimizer state too (its ``m`` /
+    ``v`` / ``mw`` subtrees match the rules by path; the step counter is
+    replicated). Give it the global shapes (``Model.param_specs()``):
+    whether a block is cut depends on its global length."""
+    return param_shardings(params_tree, config, sharder)
+
+
+def fsdp_split(place: Placement, sharder: Sharder) -> tuple:
+    """(dims, enter) for a leaf held as ``place`` on ``sharder``'s mesh:
+    ``dims``, the dimensions it is cut over the fsdp axes along (each
+    gathered whole over them at its use), and ``enter``, the batch axes
+    over which it is held whole and enters a loss (its gradient summed
+    over them): all the batch axes for a leaf the fsdp axes do not cut
+    (a norm, a bias, the router, a dimension the guard left whole), the
+    others for one they cut (the gather's backward sums over them)."""
+    fsdp = sharder.axes("fsdp")
+    dims = tuple(d for d, e in enumerate(place.spec)
+                 if e is not None and any(a in fsdp for a in
+                                          ((e,) if isinstance(e, str) else e)))
+    batch = sharder.axes("batch")
+    return dims, tuple(a for a in batch if not (dims and a in fsdp))
 
 
 def shard_params(params, config, sharder: Sharder):
@@ -398,10 +406,10 @@ def shard_params(params, config, sharder: Sharder):
 
 def gather_params(local, like, config, sharder: Sharder):
     """The inverse of :func:`shard_params`: the global tree, assembled from
-    every rank's blocks over the model axes (a collective: every rank of the
-    mesh calls it and gets the whole tree). ``like``: a tree of the global
-    shapes (anything with ``.shape``): whether a block is cut depends on
-    its global length (the divisibility guard)."""
+    every rank's blocks over the axes that cut them (a collective: every
+    rank of the mesh calls it and gets the whole tree). ``like``: a tree of
+    the global shapes (anything with ``.shape``): whether a block is cut
+    depends on its global length (the divisibility guard)."""
     from repro_torch.parallel import collectives as col
     if sharder.mesh is None:
         return local

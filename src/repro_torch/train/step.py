@@ -6,13 +6,15 @@ global-norm clipping -> AdamW, in the JAX package's order, with optional
 microbatch gradient accumulation (a loop in the place of ``lax.scan``).
 
 On a mesh (a ``sharder`` with one; the dense and MoE families) the params
-and moments are the rank's blocks (``parallel.sharding.shard_params``) and
-the batch its block of the global batch: the model's loss already gives
-each rank its block of the global-batch gradient (summed over the batch
-axes for weights held whole over them), the clip's norm is taken over
-every block (a psum over ``"model"`` of the cut leaves' squares), int8
-compression scales each leaf by the whole tensor's maximum, and AdamW runs
-on the local blocks.
+and moments are the rank's blocks (``parallel.sharding.shard_params``: cut
+over ``"model"`` and over ``"data"``, ZeRO-3) and the batch its block of
+the global batch: the model's loss already gives each rank its block of
+the global-batch gradient (reduce-scattered over ``"data"`` for the
+leaves it cuts, summed over the batch axes for those held whole over
+them), the clip's norm is taken over every block (a psum of the cut
+leaves' squares over the axes that cut them), int8 compression scales
+each leaf by the whole tensor's maximum (a pmax over the same axes), and
+AdamW runs on the local blocks.
 
 Params are the model's tree of tensors (no ``nn.Module``). The step writes
 the new params and moments into the tensors it is given and returns them
@@ -143,15 +145,20 @@ def make_train_step(model, opt_cfg: OptConfig, sharder=None, impl="auto",
 
 def mesh_global_norm(grads, placements) -> torch.Tensor:
     """The global norm of a tree of blocks: the squares of the leaves cut
-    over the mesh summed over their ranks (a psum over the axes that cut
-    them), the whole leaves' once."""
+    over the mesh summed over their ranks (one psum for each set of axes
+    wider than 1 that cuts leaves, e.g. ``("data", "model")``), the whole
+    leaves' once."""
+    mesh = placements_mesh(placements)
     by_axes: dict = {}
     for g, p in zip(tree_leaves(grads), tree_leaves(placements)):
-        axes = cut_axes(p)
-        by_axes[axes] = by_axes.get(axes, 0.0) + torch.sum(torch.square(g.float()))
+        axes = tuple(a for a in mesh.axes(cut_axes(p)) if mesh.shape[a] > 1)
+        # AdamW.CHUNK elements at a time: no float32 copy of a whole leaf
+        sq = sum(torch.sum(torch.square(c.float()))
+                 for c in g.reshape(-1).split(AdamW.CHUNK))
+        by_axes[axes] = by_axes.get(axes, 0.0) + sq
     total = 0.0
     for axes, sq in sorted(by_axes.items()):
-        total = total + (col.psum(sq, placements_mesh(placements), axes) if axes else sq)
+        total = total + (col.psum(sq, mesh, axes) if axes else sq)
     return torch.sqrt(total)
 
 

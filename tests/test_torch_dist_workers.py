@@ -297,7 +297,8 @@ def mesh_models(rank, world, out, inputs):
         model = build_model(cfg)
         params = interop.lm_params_from_numpy(inp[name]["params"], "cpu", cfg=cfg,
                                               sharder=sharder)
-        toks = torch.from_numpy(inp[name]["batch"]["tokens"])
+        toks = _batch_block({"t": torch.from_numpy(inp[name]["batch"]["tokens"])},
+                            sharder)["t"]
         logits, cache = model.prefill(params, {"tokens": toks[:, :S]}, S + n, sharder,
                                       impl="ref")
         seq = [logits.numpy().copy()]
@@ -305,7 +306,9 @@ def mesh_models(rank, world, out, inputs):
             logits, cache = model.decode_step(params, cache, toks[:, S + i:S + i + 1],
                                               sharder)
             seq.append(logits.numpy().copy())
-        got[name] = {"logits": seq, "cache_slots": tuple(cache["k"].shape)}
+        k = sharder.mesh.axis_index(sharder.axes("batch"))
+        got[name] = {"logits": seq, "cache_slots": tuple(cache["k"].shape),
+                     "rows": (k * len(toks), (k + 1) * len(toks))}
     return got
 
 
@@ -359,9 +362,11 @@ class PortLax:
 
 def mesh_collectives(rank, world, out, inputs):
     """The collectives' cases (forward, and the gradient of sum(w * y)),
+    the weight gather over "data" (its backward's reduce-scatter, counted),
     the MoE blocks (forward, aux, gradients of y.sum(), drop sets), the
     sequence-parallel attention block and the int8 all-reduce, on the (2, 2) mesh:
-    this rank's blocks of everything."""
+    this rank's blocks of everything (the weights gathered over "data" at
+    their use, as a layer gathers them)."""
     import pickle
 
     import torch
@@ -370,16 +375,17 @@ def mesh_collectives(rank, world, out, inputs):
     from repro_torch import interop
     from repro_torch.models import moe
     from repro_torch.models.attention import attention_block, attention_mode
-    from repro_torch.models.transformer import enter_batch
+    from repro_torch.models.transformer import enter_batch, gather_fsdp
     from repro_torch.optim.adamw import tree_leaves
     from repro_torch.optim.compressed import ef_compress_decompress, quantize_int8
     from repro_torch.parallel import collectives as col
-    from repro_torch.parallel.sharding import Sharder, _unflatten_like
+    from repro_torch.parallel.collectives import count_collectives
+    from repro_torch.parallel.sharding import Sharder, _unflatten_like, held_shardings
     with open(inputs, "rb") as f:
         inp = pickle.load(f)
     mesh = _lm_mesh((2, 2))
     d, r = mesh.coords["data"], mesh.coords["model"]
-    got = {"coords": (d, r), "prims": {}}
+    got = {"coords": (d, r), "rank_index": mesh.index, "prims": {}}
     x = torch.from_numpy(inp["x"])
     for name, (i, o) in C.PRIMITIVES.items():
         rows = x[2 * d:2 * d + 2].clone().requires_grad_(True)
@@ -403,6 +409,24 @@ def mesh_collectives(rank, world, out, inputs):
         w = w[a * d:a * (d + 1), b * r:b * (r + 1)] if o == "m" else w[a * d:a * (d + 1), :b]
         (g,) = torch.autograd.grad(torch.sum(w * y), leaf)
         got["prims"][name] = {"y": y.detach().numpy().copy(), "grad": g.numpy().copy()}
+    # the weight gather of a (4, 8) weight cut over "data" along dim 0 and
+    # over "model" along dim 1: its backward summed over "data" (one
+    # reduce-scatter, its input's bytes counted) and not (the block); a
+    # list reduce-scatter's bytes
+    got["gather_weight"] = {}
+    for summed in (True, False):
+        wb = x[2 * d:2 * d + 2, 4 * r:4 * r + 4].clone().requires_grad_(True)
+        y = col.gather_weight(wb, mesh, "data", 0, summed)
+        with count_collectives() as c:
+            (g,) = torch.autograd.grad(torch.sum(y * (1.0 + d) * y), wb)
+        got["gather_weight"][summed] = {"y": y.detach().numpy().copy(),
+                                        "grad": g.numpy().copy(),
+                                        "coll": (c.count, dict(c.kinds), c.nbytes)}
+    out_rs = torch.empty(3)
+    with count_collectives() as c:
+        torch.distributed.reduce_scatter(out_rs, [torch.ones(3) * (i + 1) for i in range(4)],
+                                         group=mesh.group)
+    got["reduce_scatter_list"] = (out_rs.numpy().copy(), dict(c.kinds), c.nbytes)
     sharder = Sharder(mesh, 4)
     for name, (arch, cap, _, _) in C.MOE_CASES.items():
         cfg = C.moe_config(arch, cap)
@@ -411,7 +435,8 @@ def mesh_collectives(rank, world, out, inputs):
         for t in tree_leaves(p):
             t.requires_grad_(True)
         xb = torch.from_numpy(inp[name]["x"][2 * d:2 * d + 2]).requires_grad_(True)
-        pe = enter_batch(p, sharder)
+        places = held_shardings({"moe": inp[name]["params"]}, cfg, sharder)["moe"]
+        pe = gather_fsdp(enter_batch(p, sharder, places), places, sharder)
         keep = None
         if name.startswith("tp"):
             y, aux = moe.moe_block_tp(cfg, pe, xb, sharder)
@@ -432,7 +457,9 @@ def mesh_collectives(rank, world, out, inputs):
         t.requires_grad_(True)
     xb = torch.from_numpy(inp["attn"]["x"][d:d + 1]).requires_grad_(True)
     pos = torch.from_numpy(inp["attn"]["positions"][d:d + 1])
-    o = attention_block(cfg, enter_batch(p, sh2), xb, pos, sharder=sh2, impl="ref")
+    places = held_shardings({"attn": inp["attn"]["params"]}, cfg, sh2)["attn"]
+    o = attention_block(cfg, gather_fsdp(enter_batch(p, sh2, places), places, sh2), xb,
+                        pos, sharder=sh2, impl="ref")
     grads = torch.autograd.grad(torch.sum(o * torch.cos(o)), tree_leaves(p) + [xb])
     got["attn"] = {"o": o.detach().numpy().copy(), "mode": attention_mode(sh2, cfg, xb.shape[1]),
                    "grads": _np_tree(_unflatten_like(p, list(grads[:-1]))),
@@ -445,15 +472,19 @@ def mesh_collectives(rank, world, out, inputs):
     return got
 
 
-def mesh_training(rank, world, out, argv, ef_argv):
+def mesh_training(rank, world, out, argv, ef_argv, ef_ckpt):
     """The training driver on this group (its mesh from ``make_mesh_for``),
-    then with ``ef_argv`` on a (2, 2) mesh; then on a (1, 4) mesh: one qwen2
+    then with ``ef_argv`` on a (2, 2) mesh (the weights and AdamW state cut
+    over "data" too), its checkpoint in ``ef_ckpt`` restored onto (1, 4)
+    through ``elastic_restore``; then on a (1, 4) mesh: one qwen2
     SMOKE train step's collectives by kind (remat "none", float32), an
     arctic step's clip norm, ``shard_params`` / ``gather_params`` round
     trip and ``Sharder.constrain``'s reshardings."""
     import torch
+    from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch import train
+    from repro_torch.launch.elastic import elastic_restore, plan_restart
     from repro_torch.models import build_model
     from repro_torch.optim import OptConfig
     from repro_torch.optim.adamw import tree_leaves
@@ -462,6 +493,18 @@ def mesh_training(rank, world, out, argv, ef_argv):
     from repro_torch.train import make_train_step
     got = {"driver": f32_driver().main(list(argv)),
            "ef": f32_driver(2).main(list(ef_argv))}
+    ecfg = get_smoke_config("qwen2_0_5b").replace(compute_dtype="float32")
+    emodel = build_model(ecfg)
+    plan = plan_restart(world, 4, device="cpu")
+    eopt = make_train_step(emodel, OptConfig(), plan.sharder, impl="ref",
+                           grad_compress=True).optimizer
+    eparams = emodel.init(0, device="cpu", sharder=plan.sharder)
+    especs = emodel.param_specs()
+    restored, meta = elastic_restore(
+        CheckpointManager(ef_ckpt, mesh=plan.mesh), (eparams, eopt.init(eparams)), ecfg,
+        plan, shapes=(especs, eopt.init(especs)))
+    got["ef_restored"] = {"coords": dict(plan.mesh.coords), "meta": meta,
+                          "blocks": _np_tree(restored)}
     mesh = _lm_mesh((1, 4))
     r = mesh.coords["model"]
     cfg = get_smoke_config("qwen2_0_5b").replace(compute_dtype="float32", remat="none")

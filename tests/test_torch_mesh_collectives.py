@@ -10,6 +10,10 @@ for the module; cases and rank work in ``torch_mesh_cases.py`` and
   all_gather's is psum_scatter, an output no out_spec maps over an axis
   has its cotangent divided by the axis size, an input no in_spec maps
   has its cotangent summed, ...), exactly (small integers times normals);
+- the weight gather over ``"data"`` (the fsdp split): its backward one
+  reduce-scatter over ``"data"`` where ``"data"`` is a batch axis (its
+  input's bytes counted, as a list reduce-scatter's), else this rank's
+  block of the cotangent and no collective;
 - ``moe_block_tp`` (grok SMOKE, capacity 8) and ``moe_block_a2a`` (arctic
   SMOKE at capacity 16 and at the config's own, bound): forward within
   1e-5 and gradients within 2e-4 (JAX's own limits, ``test_moe_dispatch``),
@@ -61,6 +65,29 @@ def test_collective_and_its_transpose_match_jax(runs, name):
             else want["grad"][rows]
         np.testing.assert_array_equal(mine["grad"], jg)
         assert np.abs(jg).max() > 0.1
+
+
+def test_weight_gather_backward_is_a_reduce_scatter(runs):
+    """y = the (4, 4) column block gathered over "data"; the loss (1 + d)
+    * sum(y^2) on data rank d: summed, the gradient is the block of
+    sum_d 2 (1 + d) y = 6 y, by one reduce-scatter of 64 bytes; not
+    summed, 2 (1 + d) y, by none."""
+    _, got = runs
+    x = None
+    for g in got:
+        d, r = g["coords"]
+        s, n = g["gather_weight"][True], g["gather_weight"][False]
+        np.testing.assert_array_equal(s["y"], n["y"])
+        assert s["y"].shape == (4, 4)
+        x = s["y"][2 * d:2 * d + 2]
+        np.testing.assert_allclose(s["grad"], 6.0 * x, rtol=1e-6, atol=0)
+        np.testing.assert_allclose(n["grad"], 2.0 * (1 + d) * x, rtol=1e-6, atol=0)
+        assert s["coll"] == (1, {"_reduce_scatter_base_": 1}, 64)
+        assert n["coll"] == (0, {}, 0)
+        out, kinds, nbytes = g["reduce_scatter_list"]
+        np.testing.assert_array_equal(out, np.full(3, 4.0 * (g["rank_index"] + 1)))
+        assert kinds == {"reduce_scatter_": 1} and nbytes == 4 * 3 * 4
+    assert np.abs(x).max() > 0.1
 
 
 def _grad_blocks(cfg, jgrads, coords, key="moe"):

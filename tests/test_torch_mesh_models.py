@@ -5,17 +5,22 @@ same mesh: JAX's ``Model.loss`` jitted with ``Sharder(mesh)`` and
 (``interop.lm_params_from_numpy(..., sharder=)``) and of the batch (one
 launch; cases in ``torch_mesh_cases.py``).
 
-- the loss within 1e-5 and every rank's gradient blocks within 2e-4 of
+- the loss within 1e-5 and every rank's gradient blocks (cut over
+  ``"model"`` and ``"data"``, JAX's ``param_shardings``) within 2e-4 of
   JAX's global gradient: llama3 SMOKE on (2, 2) and (1, 4) (head mode,
-  the K/V heads gathered on (1, 4)), qwen2 SMOKE with 6 q / 3 K/V heads
+  the K/V heads gathered on (1, 4)), and on (2, 2) at a batch of 3, which
+  ``"data"`` does not divide (no batch axes: the weight gathers' backward
+  keeps each rank's block, no sum), qwen2 SMOKE with 6 q / 3 K/V heads
   on (1, 4) (6 does not divide 4: sequence mode), grok SMOKE
   (``moe_block_tp``) and arctic SMOKE (``moe_block_a2a``; its aux loss is
   the rank's own, rank 0's JAX's) on (2, 2), and the two scatters as XLA
   partitions them (arctic ``"scatter_gspmd"``, grok ``"scatter_global"``:
   the global batch gathered);
 - prefill and 4 decode steps on (1, 4) (the cache cut over ``"seq"``;
-  arctic's prefill by a2a, its decode steps by the scatter) against JAX's
-  teacher-forced prefills on the same mesh, within 1e-4 x max|logit|.
+  arctic's prefill by a2a, its decode steps by the scatter), and llama3's
+  on (2, 2) (each layer's weights gathered over ``"data"``), against JAX's
+  teacher-forced prefills (llama3's on (1, 4): they do not depend on the
+  mesh), within 1e-4 x max|logit|.
 """
 import pickle
 import types
@@ -69,11 +74,14 @@ def test_loss_and_gradient_blocks_match_jax(runs, name):
 def test_prefill_and_decode_match_jax(runs, name):
     jout, got = runs
     arch, shape, B, S, n, ch = C.DECODE_CASES[name]
-    want = jout[name]["logits"]
+    want = jout[C.DECODE_SAME.get(name, name)]["logits"]
     for g in got:
         mine = g[name]
         assert len(mine["logits"]) == n + 1
+        lo, hi = mine["rows"]           # the rank's block of the batch
+        assert hi - lo == B // (shape[0] if B % shape[0] == 0 else 1)
         for a, b in zip(mine["logits"], want):
+            b = b[lo:hi]
             a = np.asarray(a).reshape(b.shape)
             np.testing.assert_allclose(a, b, atol=1e-4 * np.abs(b).max(), rtol=0)
         # each rank holds its quarter of the S + n cache slots

@@ -4,9 +4,12 @@
   ((1, 4)) and trains qwen2 SMOKE (float32 compute, patched into the
   driver's config: bf16 psums reorder the sums) 3 steps at the one-rank
   driver's losses (1e-5), with its int8 error-feedback compression on a
-  (2, 2) mesh too; then the 4-rank checkpoint restores onto 2 ranks
+  (2, 2) mesh too (the weights and AdamW state cut over ``"data"`` as
+  well); then the 4-rank checkpoint restores onto 2 ranks
   ((1, 2)) through ``elastic_restore`` (each rank the checkpoint's blocks)
   and the driver's resume there continues at the one-rank run's losses;
+  the (2, 2) run's checkpoint restores onto (1, 4), each rank the global
+  arrays' blocks bit for bit, and holds the one-rank run's weights;
 - one mesh train step's collectives by kind, as the model's layout says
   they must be, and none without a mesh;
 - the clip norm over blocks where the divisibility guard alone would
@@ -17,7 +20,9 @@
 - ``Model.init(..., sharder=)`` (the driver's init on a mesh) gives every
   rank ``shard_params``' blocks of the whole init bit for bit while
   cutting each leaf as it is drawn: no draw larger than one chunk of a
-  leaf drawn in chunks, each block in storage of its own size.
+  leaf drawn in chunks, each block in storage of its own size;
+- on (2, 2) a rank's parameter and AdamW bytes are a quarter of the
+  tree's for every leaf the divisibility guard cuts over both axes.
 """
 import itertools
 import types
@@ -30,7 +35,7 @@ import test_torch_dist_workers as W
 from repro_torch.configs import get_smoke_config, list_archs
 from repro_torch.launch import train
 from repro_torch.models import build_model
-from repro_torch.optim import OptConfig
+from repro_torch.optim import AdamW, OptConfig
 from repro_torch.optim.adamw import tree_leaves
 from repro_torch.parallel.collectives import count_collectives
 from repro_torch.parallel.sharding import (Sharder, held_shardings, shard_params,
@@ -48,18 +53,25 @@ def _losses(result):
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     d = tmp_path_factory.mktemp("mesh_training")
-    ck = str(d / "ck")
+    ck, ck_ef = str(d / "ck"), str(d / "ck_ef")
+    ef = BASE + ["--steps", "3", "--grad-compress"]
     four = W.launch("mesh_training", 4, d / "r4",
                     argv=BASE + ["--steps", "3", "--ckpt-dir", ck],
-                    ef_argv=BASE + ["--steps", "3", "--grad-compress"])
+                    ef_argv=ef + ["--ckpt-dir", ck_ef], ef_ckpt=ck_ef)
     two = W.launch("mesh_resume", 2, d / "r2", ckpt=ck,
                    argv=BASE + ["--steps", "5", "--ckpt-dir", ck, "--resume"])
     with pytest.MonkeyPatch.context() as mp:    # the ranks' float32 configs
         mp.setattr(train, "get_smoke_config", lambda arch: get_smoke_config(arch)
                    .replace(compute_dtype="float32"))
         one = train.main(BASE + ["--steps", "5"])
-        one_ef = train.main(BASE + ["--steps", "3", "--grad-compress"])
-    return {"four": four, "two": two, "one": one, "one_ef": one_ef, "ck": d / "ck"}
+        one_ef = train.main(ef + ["--ckpt-dir", str(d / "ck_one_ef")])
+    return {"four": four, "two": two, "one": one, "one_ef": one_ef, "ck": d / "ck",
+            "ck_ef": d / "ck_ef", "ck_one_ef": d / "ck_one_ef"}
+
+
+def _arrays(ckdir, step):
+    return np.load(next(p for p in ckdir.iterdir() if p.name.endswith(f"{step:06d}"))
+                   / "arrays.npz")
 
 
 def test_driver_on_four_ranks_matches_one_rank(runs):
@@ -89,6 +101,35 @@ def test_resume_on_two_ranks_continues_the_run(runs, tmp_path_factory):
             np.testing.assert_array_equal(blk, a[pl.slices(a.shape, g["coords"])])
         assert [h["step"] for h in g["driver"]["history"]] == [4, 5]
         assert _losses(g["driver"]) == pytest.approx(want[3:], rel=1e-5)
+
+
+def test_fsdp_checkpoint_restores_onto_another_mesh(runs):
+    """The (2, 2) int8 run's checkpoint (step 3, written from blocks cut over
+    "data" and "model") restores onto (1, 4) through ``elastic_restore``:
+    every rank the global arrays' blocks bit for bit. The global weights
+    are the one-rank run's within what 3 AdamW steps can move a weight
+    apart (2 x 3 x lr): a misplaced block would be off by the init's scale."""
+    cfg = get_smoke_config("qwen2_0_5b")
+    model = build_model(cfg)
+    opt = make_train_step(model, OptConfig(), None, impl="ref",
+                          grad_compress=True).optimizer
+    specs = model.param_specs()
+    arrays, one = _arrays(runs["ck_ef"], 3), _arrays(runs["ck_one_ef"], 3)
+    n_params = len(tree_leaves(specs))
+    for i in range(n_params):
+        a, b = arrays[f"leaf_{i}"], one[f"leaf_{i}"]
+        assert a.shape == b.shape
+        assert np.abs(a.astype(np.float64) - b).max() <= 2 * 3 * 3e-4, i
+    for g in runs["four"]:
+        got = g["ef_restored"]
+        assert got["meta"]["train_step"] == 3
+        mesh = types.SimpleNamespace(shape={"data": 1, "model": 4}, coords=got["coords"])
+        places = held_shardings((specs, opt.init(specs)), cfg, Sharder(mesh, 4))
+        leaves = tree_leaves(got["blocks"])
+        assert len(leaves) == len(tree_leaves(places)) > n_params
+        for i, (blk, pl) in enumerate(zip(leaves, tree_leaves(places))):
+            a = arrays[f"leaf_{i}"]
+            np.testing.assert_array_equal(blk, a[pl.slices(a.shape, got["coords"])])
 
 
 def test_mesh_train_step_collectives_by_kind(runs):
@@ -148,9 +189,42 @@ def test_shard_gather_and_constrain_on_a_mesh(runs):
         assert g["constrain"] == {"a2a": True, "cut": True, "gather": True, "same": True}
 
 
-@pytest.mark.parametrize("arch,changes", [
-    ("grok_1_314b", {}), ("arctic_480b", {}), ("llama3_8b", {"param_dtype": "bfloat16"}),
-    ("qwen2_0_5b", {})])
+INIT_ARCHS = [("grok_1_314b", {}), ("arctic_480b", {}),
+              ("llama3_8b", {"param_dtype": "bfloat16"}), ("qwen2_0_5b", {})]
+
+
+@pytest.mark.parametrize("arch,changes", INIT_ARCHS)
+def test_fsdp_blocks_hold_a_quarter_of_the_state(arch, changes):
+    """Every rank of (2, 2): for each leaf that the divisibility guard cuts
+    over both "data" and "model", the rank's parameter block and its two
+    AdamW moments hold a quarter of the whole leaf's bytes."""
+    cfg = get_smoke_config(arch).replace(**changes)
+    model = build_model(cfg)
+    specs = model.param_specs()
+    opt = AdamW(OptConfig())
+    for d, r in itertools.product(range(2), range(2)):
+        mesh = types.SimpleNamespace(shape={"data": 2, "model": 2},
+                                     coords={"data": d, "model": r})
+        sh = Sharder(mesh, 4)
+        params = model.init(0, device="cpu", sharder=sh)
+        state = opt.init(params)
+        whole_m = opt.init(specs)
+        both = 0
+        for path, p, s, blk, m, v, wm in zip(
+                tree_paths(specs), tree_leaves(held_shardings(specs, cfg, sh)),
+                tree_leaves(specs), tree_leaves(params), tree_leaves(state["m"]),
+                tree_leaves(state["v"]), tree_leaves(whole_m["m"])):
+            cut = [e for e in p.spec if e is not None]
+            if sorted(cut) != ["data", "model"]:
+                continue
+            both += 1
+            assert 4 * blk.numel() * blk.element_size() == s.numel() * s.element_size(), path
+            for t in (m, v):
+                assert 4 * t.numel() * t.element_size() == wm.numel() * wm.element_size(), path
+        assert both >= 7          # the embedding, head and every layer weight
+
+
+@pytest.mark.parametrize("arch,changes", INIT_ARCHS)
 def test_init_on_a_mesh_cuts_each_leaf_as_it_is_drawn(monkeypatch, arch, changes):
     """Every rank of (2, 2) and (1, 4), with the draws' chunk cut to 1,000
     elements so that the narrow-dtype leaves are drawn in chunks that end

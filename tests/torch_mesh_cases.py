@@ -36,6 +36,9 @@ LM_CASES = {
     "arctic_2x2": ("arctic_480b", (2, 2), 4, 16, {}, "scatter"),        # a2a
     "arctic_gspmd_2x2": ("arctic_480b", (2, 2), 4, 16, {}, "scatter_gspmd"),
     "grok_global_2x2": ("grok_1_314b", (2, 2), 4, 16, {}, "scatter_global"),
+    # 3 rows do not split over "data": no batch axes, every data rank takes
+    # the whole batch and the weight gather's backward keeps its block
+    "llama_b3_2x2": ("llama3_8b", (2, 2), 3, 16, {}, "scatter"),
 }
 #: prefill + decode: (arch, mesh, batch, prompt, decode steps, changes)
 DECODE_CASES = {
@@ -47,7 +50,12 @@ DECODE_CASES = {
     # 17-19 tokens (the scatter: 4 does not divide them) drop what the
     # prefill of 16 (a2a) and the decode steps drop: nothing
     "arctic_decode_1x4": ("arctic_480b", (1, 4), 2, 16, 4, {"capacity_factor": 8.0}),
+    # the weights cut over "data" too, each layer's gathered at its use
+    "llama_decode_2x2": ("llama3_8b", (2, 2), 2, 16, 4, {}),
 }
+#: decode cases held to another case's JAX logits (the same model, inputs
+#: and prompt: the teacher-forced logits do not depend on the mesh)
+DECODE_SAME = {"llama_decode_2x2": "llama_decode_1x4"}
 
 
 def config(arch, changes, jax_side=False):
@@ -87,11 +95,14 @@ def model_inputs() -> dict:
     from repro.models import build_model
     out = {}
     for name, (arch, shape, B, S, ch, *_) in {**LM_CASES, **{
-            k: (a, sh, B, S + n, ch) for k, (a, sh, B, S, n, ch) in DECODE_CASES.items()}
+            k: (a, sh, B, S + n, ch) for k, (a, sh, B, S, n, ch) in DECODE_CASES.items()
+            if k not in DECODE_SAME}
     }.items():
         cfg = config(arch, ch, True)
         params = jax.tree.map(np.asarray, build_model(cfg).init(jax.random.PRNGKey(0)))
         out[name] = {"params": params, "batch": lm_batch(cfg.vocab, B, S, seed=1)}
+    for name, same in DECODE_SAME.items():
+        out[name] = out[same]
     return out
 
 
@@ -128,6 +139,8 @@ def jax_models(inp: dict) -> dict:
         out[name] = {"loss": float(loss),
                      "grads": jax.tree.map(np.asarray, grads)}
     for name, (arch, shape, B, S, n, ch) in DECODE_CASES.items():
+        if name in DECODE_SAME:
+            continue
         cfg = config(arch, ch, True)
         model = build_model(cfg)
         mesh = _jmesh(shape)
