@@ -349,18 +349,18 @@ FLASH_CASE_ERRS: dict = {}
 # rehearsal on a CPU hands in a SMOKE config)
 LM_ARCH, LM_CONFIG = "llama3_8b", None
 LM_BATCH, LM_PROMPT, LM_DECODE, LM_CHECK_LAYERS = 2, 4096, 32, 2
-# phase 12: the MoE, SSM, hybrid and encoder-decoder families at published
-# width: (arch, layers served (None: the published depth), layers of the
+# phase 12: the MoE, SSM, hybrid, encoder-decoder and VLM families at
+# published width: (arch, layers served (None: the published depth), layers of the
 # float32 checks (None: checked in bf16 only)); FAMILY_CONFIGS maps an arch
 # to the config to serve in the place of its published CONFIG (the
 # rehearsal on a CPU hands in SMOKE configs); the MoE prefill-then-decode
 # check's prompt (its capacity raised so that it does not bind: C >= S k)
 FAMILY_MODELS = (("grok_1_314b", 4, 1), ("arctic_480b", 2, None),
                  ("mamba2_780m", None, 2), ("zamba2_1_2b", None, 7),
-                 ("seamless_m4t_large_v2", None, 2))
+                 ("seamless_m4t_large_v2", None, 2), ("qwen2_vl_7b", 1, 1))
 FAMILY_CONFIGS: dict = {}
 FAMILY_FLASH = {"grok_1_314b": 4, "arctic_480b": 2, "zamba2_1_2b": 6,
-                "seamless_m4t_large_v2": 24, "mamba2_780m": 0}
+                "seamless_m4t_large_v2": 24, "mamba2_780m": 0, "qwen2_vl_7b": 1}
 FAMILY_MOE_CHECK_PROMPT = 1024
 FAMILY_SEQ_STEPS = 4          # the encoder-decoder's teacher-forced steps
 FAMILY_IMPL = "auto"          # the served path's backend ("auto": the card's)
@@ -384,12 +384,11 @@ TRAIN_LM_EXTRA: tuple = ()
 TRAIN_FAMILIES = (("olmo_1b", None, None), ("llama3_8b", 2, None),
                   ("mamba2_780m", None, None), ("zamba2_1_2b", None, None),
                   ("seamless_m4t_large_v2", None, None), ("grok_1_314b", 1, 4),
-                  ("arctic_480b", 1, 16))
+                  ("arctic_480b", 1, 16), ("qwen2_vl_7b", 1, None))
 TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ, TRAIN_FAMILY_STEPS = 4, 1024, 3
 TRAIN_CONFIGS: dict = {}
 TRAIN_IMPL = "auto"           # the trained path's backend ("auto": the card's)
-# phase 14: the transformer LMs on a mesh of MESH_WORLD gloo ranks sharing
-# the card. (a) TRAIN_LM_ARCH through the driver, MESH_DRIVER_STEPS steps at
+# phase 14: the LMs on a mesh of MESH_WORLD gloo ranks sharing the card. (a) TRAIN_LM_ARCH through the driver, MESH_DRIVER_STEPS steps at
 # TRAIN_LM_ARGS' batch and sequence, on make_mesh_for's (1, 4); (b)
 # MESH_DENSE (arch, layers): on (1, 4) a MESH_SERVE (B, S, decode steps)
 # prefill and decode, then on (2, 2) one MESH_TRAIN (B, S, steps) train
@@ -403,6 +402,11 @@ TRAIN_IMPL = "auto"           # the trained path's backend ("auto": the card's)
 # the one-rank run's. On (2, 2) the weights and AdamW state are cut over
 # "data" too (the fsdp split), each layer's gathered over "data" at its
 # use: the gloo wire carries 5-7 GB a rank a step (30-60 s), hence so few.
+# (d) each of MESH_FAMILIES (arch, config changes: the depth cut), the SSM,
+# hybrid, encoder-decoder and VLM families at published width: on (1, 4) a
+# MESH_FAMILY_SERVE (B, S, decode steps) prefill and decode against the
+# one-rank path's logits, then on (2, 2) one train step of MESH_TRAIN's
+# B x S, its gradient and loss held against the one-rank run's.
 # MESH_CONFIGS maps an arch to the config in the place of its published
 # CONFIG (the rehearsal on a CPU hands in SMOKE configs).
 MESH_WORLD = 4
@@ -412,6 +416,10 @@ MESH_SERVE = (2, 4096, 8)
 MESH_TRAIN = (4, 1024, 2)
 MESH_MOE = (("grok_1_314b", 1, 4), ("arctic_480b", 1, 16))
 MESH_MOE_PROMPT = (4, 1024)
+MESH_FAMILIES = (("mamba2_780m", {"n_layers": 2}), ("zamba2_1_2b", {"n_layers": 7}),
+                 ("seamless_m4t_large_v2", {"n_layers": 1, "encoder_layers": 1}),
+                 ("qwen2_vl_7b", {"n_layers": 1}))
+MESH_FAMILY_SERVE = (2, 1024, 2)
 MESH_CONFIGS: dict = {}
 #: phase 14's yardsticks: bf16 losses against the one-rank run's (relative),
 #: and the cosine of gradients and logits against the one-rank path's
@@ -973,7 +981,7 @@ def lm_phase(tag: str, dev, flash_err: float) -> dict:
 
 
 # --------------------------------------------------------------------------- #
-# phase 12: the MoE, SSM, hybrid and encoder-decoder families
+# phase 12: the MoE, SSM, hybrid, encoder-decoder and VLM families
 # --------------------------------------------------------------------------- #
 def family_config(arch, layers):
     """The config phase 12 serves: the published CONFIG (FAMILY_CONFIGS'
@@ -998,16 +1006,20 @@ def flash_launches_of(cfg) -> int:
 def family_inputs(cfg, dev, B, S, seed=0, extra=FAMILY_SEQ_STEPS + 1):
     """The prompt a family's prefill takes: uniform token ids, or for the
     encoder-decoder N(0,1) source embeddings and a uniform first target
-    token; and (B, S + extra) uniform ids whose first S the prompt holds
-    (the rest: teacher forcing)."""
+    token, or for the VLM N(0,1) embeddings and uniform M-RoPE positions
+    (3, B, S) in [0, S); and (B, S + extra) uniform ids whose first S the
+    prompt holds (the rest: teacher forcing, the decode steps' tokens)."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
     tokens = rng.integers(0, cfg.vocab, (B, S + extra)).astype(np.int32)
-    if cfg.family == "encdec":
+    if cfg.family in ("encdec", "vlm"):
         gen = torch.Generator(device=dev).manual_seed(seed)
         src = torch.randn((B, S, cfg.d_model), generator=gen, device=dev)
-        return {"src_embeds": src, "tgt_tokens": tokens[:, :1]}, tokens
+        if cfg.family == "encdec":
+            return {"src_embeds": src, "tgt_tokens": tokens[:, :1]}, tokens
+        pos = torch.as_tensor(rng.integers(0, S, (3, B, S)).astype(np.int32), device=dev)
+        return {"embeds": src, "positions": pos}, tokens
     return {"tokens": tokens[:, :S]}, tokens
 
 
@@ -1134,6 +1146,22 @@ def family_f32_checks(arch, cfg, layers, dev, B, S) -> None:
               f"forced decoder", torch.cat(steps, 1)[..., :V], want,
               atol=1e-4 * float(want.abs().max()))
         return
+    if cfg.family == "vlm":
+        # prefill(S) + 1 decode step against prefill(S + 1) whose last
+        # embedding is the step token's row of the table, at position S in
+        # every M-RoPE section
+        tok = torch.as_tensor(tokens[:, S:S + 1], device=dev)
+        emb = torch.cat([prompt["embeds"], params["embed"]["tok"][tok.long()].float()], 1)
+        pos = torch.cat([prompt["positions"], torch.full((3, B, 1), S, dtype=torch.int32,
+                                                         device=dev)], 2)
+        want, _ = model.prefill(params, {"embeds": emb, "positions": pos}, S + 1,
+                                impl="cuda")
+        _, cache = model.prefill(params, prompt, S + 1, impl="cuda")
+        got, _ = model.decode_step(params, cache, tok)
+        got, want = got[:, -1, :V], want[:, -1, :V]
+        check(f"{label}: prefill({S}) + 1 decode step vs prefill({S + 1})", got, want,
+              atol=1e-4 * float(want.abs().max()))
+        return
     if cfg.family in ("ssm", "hybrid"):
         # prefill(S) + Q decode steps against prefill(S + Q): lengths that
         # ssd_chunked takes (multiples of the chunk Q)
@@ -1166,9 +1194,10 @@ def families_phase(tag: str, dev) -> dict:
 
     B, S, n_dec = LM_BATCH, LM_PROMPT, LM_DECODE
     seq_len = S + n_dec
-    print(f"== phase 12: the MoE, SSM, hybrid and encoder-decoder families at "
+    print(f"== phase 12: the MoE, SSM, hybrid, encoder-decoder and VLM families at "
           f"published width: {B} x {S} prompt tokens (seamless: source "
-          f"frames) + {n_dec} greedy decode steps each [{tag}]")
+          f"frames; qwen2-VL: embeddings and M-RoPE positions) + {n_dec} greedy "
+          f"decode steps each [{tag}]")
     launches = {}
     for arch, layers, f32_layers in FAMILY_MODELS:
         cfg = family_config(arch, layers)
@@ -5885,6 +5914,40 @@ def mesh_config(arch, layers=None, experts=None):
     return cfg
 
 
+def mesh_families():
+    """(d)'s (arch, config): each of MESH_FAMILIES' published CONFIG
+    (MESH_CONFIGS' stand-in where given) with its changes."""
+    from repro_torch.configs import get_config
+    return [(a, (MESH_CONFIGS.get(a) or get_config(a)).replace(**ch))
+            for a, ch in MESH_FAMILIES]
+
+
+def family_slots(cfg, S: int, n: int) -> int:
+    """(d)'s serving cache length: room for the prompt (the encoder-decoder:
+    the BOS token) and ``n`` steps, rounded up to a multiple of MESH_WORLD
+    so that the (1, 4) ranks each hold a block of the slots."""
+    need = (1 if cfg.family == "encdec" else S) + n
+    return -(-need // MESH_WORLD) * MESH_WORLD
+
+
+def serve_logits(model, params, prompt, steps, seq_len, dev, sharder=None,
+                 impl="auto", after_prefill=None):
+    """The prefill's last-token logits and each decode step's (``steps``:
+    (B, n) token ids), on the host: (B, n + 1, vocab) float32.
+    ``after_prefill()`` runs between the prefill and the steps."""
+    import torch
+    logits, cache = model.prefill(params, {k: v.to(dev) for k, v in prompt.items()},
+                                  seq_len, sharder, impl=impl)
+    seq = [logits[:, -1].float().cpu()]
+    if after_prefill is not None:
+        after_prefill()
+    for t in range(steps.shape[1]):
+        logits, cache = model.decode_step(params, cache, steps[:, t:t + 1].to(dev),
+                                          sharder)
+        seq.append(logits[:, -1].float().cpu())
+    return torch.stack(seq, 1)[..., :model.config.vocab]
+
+
 def unbound(cfg):
     """``cfg`` with its MoE capacity raised so that it binds nowhere."""
     import dataclasses
@@ -5910,7 +5973,12 @@ def mesh_references(dev, work: Path) -> Path:
     a capacity that does not bind; in ``work/grad_<key>.pt`` (the ranks map
     them, each reading its blocks) the step-1 loss and gradient of (a) the
     driver's model, (b) MESH_DENSE and (c) each MESH_MOE model (the
-    expert-parallel one at the capacity that does not bind)."""
+    expert-parallel one at the capacity that does not bind); (d) each
+    family's prompt, decode tokens and serving logits, its step-1 loss and
+    gradient, and for the scan families (bf16 compute) the same from the
+    float32 computation of the same params (C8's yardstick) in
+    ``grad_<arch>_f32.pt``, with the one-rank bf16 gradient's relative L2
+    from it."""
     import gc
 
     import numpy as np
@@ -5931,7 +5999,8 @@ def mesh_references(dev, work: Path) -> Path:
         leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
         batch = synth_batch(model, ShapeConfig("t", "train", S, B), 0, dev)
         loss, _ = model.loss(params, batch, impl=TRAIN_IMPL)
-        grads = torch.autograd.grad(loss, leaves)
+        # (the VLM's embedding table, which embeds mode never reads: zeros)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
         torch.save({"loss": float(loss.detach()), "grad": {k: g.cpu() for k, g in
                                                   zip(tree_paths(params), grads)}},
                    work / f"grad_{key}.pt")
@@ -5990,6 +6059,40 @@ def mesh_references(dev, work: Path) -> Path:
                  MESH_TRAIN[1], arch)
         del params
         free()
+
+    B, S, n = MESH_FAMILY_SERVE
+    for arch, cfg in mesh_families():
+        model = build_model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0))
+        prompt, tokens = family_inputs(cfg, "cpu", B, S, extra=n)
+        prompt = {k: torch.as_tensor(v) for k, v in prompt.items()}
+        steps = torch.as_tensor(tokens[:, S:S + n])
+        refs[arch] = {"prompt": prompt, "steps": steps}
+        c8 = cfg.ssm is not None and cfg.compute_dtype != "float32"
+        kinds = [("bf16", cfg)] + ([("f32", cfg.replace(compute_dtype="float32"))]
+                                   if c8 else [])
+        with torch.no_grad():
+            for label, c in kinds:
+                refs[arch][label] = serve_logits(build_model(c), params, prompt, steps,
+                                                 family_slots(cfg, S, n), dev,
+                                                 impl=TRAIN_IMPL)
+        free()
+        gradient(model, params, MESH_TRAIN[0], MESH_TRAIN[1], arch)
+        if c8:
+            gradient(build_model(kinds[1][1]), params, MESH_TRAIN[0], MESH_TRAIN[1],
+                     f"{arch}_f32")
+            a = torch.load(work / f"grad_{arch}.pt", mmap=True, weights_only=False)
+            b = torch.load(work / f"grad_{arch}_f32.pt", mmap=True, weights_only=False)
+            d2 = w2 = 0.0
+            for k, g32 in b["grad"].items():
+                for x, y in zip(_chunks(a["grad"][k]), _chunks(g32)):
+                    x, y = x.double(), y.double()
+                    d2 += float(((x - y) ** 2).sum())
+                    w2 += float((y * y).sum())
+            refs[arch]["grad_c8"] = (d2 / w2) ** 0.5
+            del a, b
+        del params
+        free()
     path = work / "refs.pt"
     torch.save(refs, path)
     return path
@@ -6000,10 +6103,11 @@ def fsdp_reckon(cfg, shape) -> dict:
     ``shape``, from the global shapes and the placements: ``blocks``, its
     blocks of the weights, of their gradients and of AdamW's two float32
     moments; ``gathered``, the most it holds whole over a "data" axis wider
-    than 1 at once (one layer's weights, or the head / tied table, each its
-    block over "model") with that set's unreduced gradient, an upper bound
-    (each leaf's gradient is reduce-scattered as soon as it is made). The
-    activations are not reckoned here."""
+    than 1 at once (one layer of a stack, the hybrid's shared block, or the
+    head / tied table, each its block over "model") with that set's
+    unreduced gradient, an upper bound (each leaf's gradient is
+    reduce-scattered as soon as it is made). The activations are not
+    reckoned here."""
     import types
 
     import numpy as np
@@ -6014,18 +6118,22 @@ def fsdp_reckon(cfg, shape) -> dict:
     mesh = types.SimpleNamespace(shape=dict(zip(("data", "model"), shape)),
                                  coords={"data": 0, "model": 0})
     sh = Sharder(mesh, shape[0])
-    blocks, layer, other = 0, 0.0, 0
+    blocks, sets = 0, {}
     for path, t, p in zip(tree_paths(specs), tree_leaves(specs),
                           tree_leaves(held_shardings(specs, cfg, sh))):
         n = int(np.prod(p.local_shape(t.shape)))
         blocks += n * (2 * t.element_size() + 8)
         if shape[0] > 1 and fsdp_split(p, sh)[0]:
             whole = n * shape[0] * t.element_size()
-            if path.startswith("layers/"):
-                layer += whole / cfg.n_layers
-            else:
-                other = max(other, whole)
-    return {"blocks": blocks, "gathered": 2 * int(max(layer, other))}
+            keys = path.split("/")
+            stack = next((i for i, k in enumerate(keys) if k in ("layers", "groups", "tail")),
+                         None)
+            if stack is None:         # gathered alone (a table) or as a block
+                key = keys[0] if keys[0] == "shared" else path
+            else:                     # one layer of the stack at a time
+                key, whole = "/".join(keys[:stack + 1]), whole / t.shape[0]
+            sets[key] = sets.get(key, 0) + whole
+    return {"blocks": blocks, "gathered": 2 * int(max(sets.values(), default=0))}
 
 
 def mesh_route_flips(calls, ref_ids, ref_probs, k: int) -> list:
@@ -6081,8 +6189,8 @@ def _nbytes(tree) -> int:
 
 
 def mesh_rank(rank, world, out, refs_path, st):
-    """Phase 14 on one rank: (a), (b) and (c) of ``mesh_phase``; this rank's
-    numbers and checks' inputs."""
+    """Phase 14 on one rank: (a), (b), (c) and (d) of ``mesh_phase``; this
+    rank's numbers and checks' inputs."""
     import gc
     import os
 
@@ -6172,51 +6280,67 @@ def mesh_rank(rank, world, out, refs_path, st):
         acc = col.psum(acc, mesh, mesh.axis_names)
         return float(acc[0] / torch.sqrt(acc[1] * acc[2]))
 
+    def rel_from(acc, mesh) -> float:
+        """||g - b|| / ||b|| of the gathered gradient g and the reference b
+        from this rank's share of (g.b, g.g, b.b)."""
+        acc = col.psum(acc, mesh, mesh.axis_names)
+        return float(torch.sqrt(torch.clamp(acc[1] - 2 * acc[0] + acc[2], min=0) / acc[2]))
+
+    def counted(c):
+        return (c.count, dict(c.kinds), c.nbytes, dict(c.kind_bytes))
+
     def grad_check(model, cfg, params, sharder, key, B, S):
         """Step 1's loss and gradient on the mesh against the one-rank
         run's: the loss and its one-rank value, the gathered gradient's
         cosine to the one-rank gradient, and the pass's collectives."""
         leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
         batch = train.batch_block(train.synth_batch(
-            model, ShapeConfig("t", "train", S, B), 0, dev), sharder)
+            model, ShapeConfig("t", "train", S, B), 0, dev), sharder,
+            train.batch_dims(model))
         with count_collectives() as c:
             loss, _ = model.loss(params, batch, sharder, impl=impl)
-            grads = torch.autograd.grad(loss, leaves)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
         for t in leaves:
             t.requires_grad_(False)
         acc, want = ref_dots(model, cfg, sharder, _unflatten_like(params, list(grads)), key)
         out = {"loss": float(loss.detach()), "want": want, "cos": cosine(acc, sharder.mesh),
-               "coll": (c.count, dict(c.kinds), c.nbytes)}
+               "coll": counted(c)}
         del grads, loss, batch
         tidy()
         return out
 
-    def train_run(model, cfg, sharder, params, B, S, steps, key):
+    def train_run(model, cfg, sharder, params, B, S, steps, key, c8=False):
         """``steps`` train steps from ``params``, each timed: the first's
         collectives counted (its dispatch mode runs Python on every op) and
         its gradient, before clipping, held against the one-rank run's
-        (``key``: ``grad_check``'s numbers, from the trained step itself)."""
+        (``key``: ``grad_check``'s numbers, from the trained step itself;
+        with ``c8`` also its relative L2 from the float32 computation's,
+        ``grad_<key>_f32.pt``)."""
         first: dict = {}
 
         def hold(grads):
             if not first:
                 first["acc"], first["want"] = ref_dots(model, cfg, sharder, grads, key)
+                if c8:
+                    first["acc32"], _ = ref_dots(model, cfg, sharder, grads, f"{key}_f32")
             return grads
 
         step = make_train_step(model, OptConfig(**st["opt"]), sharder, impl=impl,
                                grad_transform=hold)
         opt = step.optimizer.init(params)
         losses, ms, fl, counts = [], [], [], None
+        dims = train.batch_dims(model)
         for i in range(steps):
             batch = train.batch_block(train.synth_batch(
-                model, ShapeConfig("t", "train", S, B), i, dev), sharder)
+                model, ShapeConfig("t", "train", S, B), i, dev), sharder, dims)
             sync(dev)
             n0 = flash()
             t0 = time.perf_counter()
             if i == 0:
                 with count_collectives() as c:
                     params, opt, metrics = step(params, opt, batch)
-                counts = (c.count, dict(c.kinds), c.nbytes)
+                counts = counted(c)
             else:
                 params, opt, metrics = step(params, opt, batch)
             sync(dev)
@@ -6225,6 +6349,8 @@ def mesh_rank(rank, world, out, refs_path, st):
             losses.append(float(metrics["loss"]))
         grad = {"loss": losses[0], "want": first["want"],
                 "cos": cosine(first["acc"], sharder.mesh), "coll": counts}
+        if c8:
+            grad["c8"] = rel_from(first["acc32"], sharder.mesh)
         return {"losses": losses, "ms": ms, "flash": fl, "coll": counts, "peak": peak(),
                 "reserved": reserved(), "grad": grad}
 
@@ -6358,13 +6484,62 @@ def mesh_rank(rank, world, out, refs_path, st):
                                1 if ep else steps, arch)
         del params
         tidy()
+
+    # (d) the SSM, hybrid, encoder-decoder and VLM families: prefill and
+    # decode on (1, 4), then one train step on (2, 2)
+    Bs, Ss, n = st["fam_serve"]
+    res["d"] = {}
+    for arch, cfg in st["families"]:
+        r = res["d"][arch] = {}
+        model = build_model(cfg)
+        sharder = Sharder(mesh14, Bs)
+        params, r["init"] = init_blocks(model, sharder, seed0())
+        ref = refs[arch]
+        marks = {}
+        sync(dev)
+        n0 = flash()
+        t0 = time.perf_counter()
+
+        def prefilled():
+            sync(dev)
+            marks.update(ms=(time.perf_counter() - t0) * 1e3, flash=flash() - n0,
+                         t=time.perf_counter(), sent=c.nbytes)
+
+        with count_collectives() as c:
+            got = serve_logits(model, params, ref["prompt"], ref["steps"],
+                               family_slots(cfg, Ss, n), dev, sharder, impl, prefilled)
+        sync(dev)
+        V = cfg.vocab
+        r["serve"] = {"prefill_ms": marks["ms"], "prefill_flash": marks["flash"],
+                      "decode_ms": (time.perf_counter() - marks["t"]) * 1e3 / n,
+                      "decode_flash": flash() - n0 - marks["flash"],
+                      "decode_sent": (c.nbytes - marks["sent"]) / n,
+                      "in_proj": sum(t.nbytes for k, t in zip(tree_paths(params),
+                                                               tree_leaves(params))
+                                     if k.endswith("in_proj")),
+                      "cos": _min_cos(got.reshape(-1, V), ref["bf16"].reshape(-1, V)),
+                      "finite": bool(torch.isfinite(got).all()), "coll": counted(c),
+                      "peak": peak()}
+        if "f32" in ref:              # C8: both paths against the f32 computation
+            r["serve"]["c8"] = (rel_l2(got, ref["f32"]), rel_l2(ref["bf16"], ref["f32"]))
+        del params, got
+        tidy()
+        B, S, _ = st["train"]
+        sharder = Sharder(mesh22, B)
+        params, r["train_init"] = init_blocks(model, sharder, seed0())
+        res["held"].append((f"{arch}'s blocks, before its step", held()))
+        r["train"] = train_run(model, cfg, sharder, params, B, S, 1, arch,
+                               c8="f32" in ref)
+        del params
+        tidy()
     return res
 
 
-def mesh_phase(tag: str, dev) -> dict:
-    """Phase 14: the transformer LMs on MESH_WORLD gloo ranks sharing the
-    card (see the settings above); returns each path's flash launches (all
-    ranks')."""
+def mesh_phase(tag: str, dev) -> tuple:
+    """Phase 14: the LMs on MESH_WORLD gloo ranks sharing the card (see the
+    settings above); returns each path's flash launches (all ranks'),
+    causal (row 8) and non-causal (row 8-nc: the encoder-decoder's encoder
+    and cross-attention)."""
     import gc
     import shutil
 
@@ -6373,7 +6548,7 @@ def mesh_phase(tag: str, dev) -> dict:
 
     t_start = time.perf_counter()
     world = MESH_WORLD
-    print(f"== phase 14: the transformer LMs on a mesh of {world} gloo ranks "
+    print(f"== phase 14: the LMs on a mesh of {world} gloo ranks "
           f"sharing the card (collectives staged through the host: the gloo "
           f"wire on one card, not NVLink's) [{tag}]")
     work = ROOT / "build" / "mesh_phase"
@@ -6397,8 +6572,10 @@ def mesh_phase(tag: str, dev) -> dict:
                           *TRAIN_LM_EXTRA],
           "dense": dense, "serve": MESH_SERVE, "train": MESH_TRAIN,
           "moe": moe, "moe_prompt": MESH_MOE_PROMPT,
+          "families": mesh_families(), "fam_serve": MESH_FAMILY_SERVE,
           "opt": dict(lr=3e-4, schedule="cosine", warmup_steps=10, total_steps=100,
                       clip_norm=1.0)}
+    from repro_torch.configs import get_config
     full = {a: mesh_config(a) for a in [MESH_DENSE[0]] + [a for a, *_ in MESH_MOE]}
     half = world // 2
     gib = 2**30
@@ -6429,8 +6606,21 @@ def mesh_phase(tag: str, dev) -> dict:
               f"{1 if ep else MESH_TRAIN[2]} step(s) of {MESH_TRAIN[0]} x {MESH_TRAIN[1]}"
               f"{' at a capacity that does not bind' if ep else ''}, step 1's gradient "
               f"held")
+    fams = st["families"]
+    Bs, Ss, ns = MESH_FAMILY_SERVE
+    for a, cfg in fams:
+        f = MESH_CONFIGS.get(a) or get_config(a)
+        depth = (f"{f.encoder_layers} + {f.n_layers} -> {cfg.encoder_layers} + "
+                 f"{cfg.n_layers}" if cfg.family == "encdec" else
+                 f"{f.n_layers} -> {cfg.n_layers}")
+        print(f"  (d) {a} ({cfg.family}): depth {depth} (the gloo wire's time), width "
+              f"not cut; on (1, {world}): prefill {Bs} x {Ss}"
+              f"{' source frames' if cfg.family == 'encdec' else ''} + {ns} decode "
+              f"steps against one rank; on (2, {half}): 1 step of {MESH_TRAIN[0]} x "
+              f"{MESH_TRAIN[1]}, its gradient and loss held")
     reck = {"(a)": fsdp_reckon(dcfg, (1, world)), "(b)": fsdp_reckon(dense, (2, half)),
-            **{a: fsdp_reckon(c, (2, half)) for a, c in moe}}
+            **{a: fsdp_reckon(c, (2, half)) for a, c in moe},
+            **{a: fsdp_reckon(c, (2, half)) for a, c in fams}}
     print("  reckoned a rank's training state before the run, GiB (x4 ranks, plus "
           "four CUDA contexts and the activations): " + "; ".join(
               f"{k} {r['blocks'] / gib:.3f} (blocks of the weights, their gradients "
@@ -6447,17 +6637,31 @@ def mesh_phase(tag: str, dev) -> dict:
     def rel(x, y):
         return abs(x - y) / abs(y)
 
-    def grad_line(g, label):
-        """Print and hold step 1's loss and gathered gradient on the mesh."""
-        n, kinds, nbytes = g["coll"]
+    def grad_line(g, label, c8_one=None):
+        """Print and hold step 1's loss and gathered gradient on the mesh
+        (``c8_one``: the one-rank bf16 gradient's relative L2 from the
+        float32 computation's; the scan families pass by the cosine or by
+        C8's yardstick, the mesh gradient no further from the float32 one
+        than SCAN_BF16_FACTOR x that)."""
+        n, kinds, nbytes, kb = g["coll"]
+        c8 = ""
+        ok = g["cos"] >= MESH_COS
+        if c8_one is not None:
+            c8 = (f"; C8: relative L2 from the f32 gradient {g['c8']:.4e} on the mesh, "
+                  f"{c8_one:.4e} on one rank (limit {SCAN_BF16_FACTOR} x)")
+            ok = ok or g["c8"] <= SCAN_BF16_FACTOR * c8_one
         print(f"      step 1 on the mesh: loss {g['loss']:.6f} (one rank "
               f"{g['want']:.6f}, rel {rel(g['loss'], g['want']):.2e}); gathered "
-              f"gradient's cosine to one rank {g['cos']:.6f} (>= {MESH_COS}); its "
+              f"gradient's cosine to one rank {g['cos']:.6f} (>= {MESH_COS}){c8}; its "
               f"pass: {n} collectives {kinds}, "
-              f"{nbytes / 2**20:.1f} MiB [{tag}]")
-        if not g["cos"] >= MESH_COS or not rel(g["loss"], g["want"]) <= MESH_LOSS_RTOL:
+              f"{nbytes / 2**20:.1f} MiB ({mib(kb)}) [{tag}]")
+        if not ok or not rel(g["loss"], g["want"]) <= MESH_LOSS_RTOL:
             fails.append(f"{label} step 1: loss {g['loss']} vs {g['want']}, "
                          f"cosine {g['cos']}")
+
+    def mib(kb) -> str:
+        """MiB sent by collective kind."""
+        return ", ".join(f"{k} {v / 2**20:.1f} MiB" for k, v in sorted(kb.items()))
 
     def init_line(i, label):
         """Print and hold the init's peak to its blocks and largest draw."""
@@ -6479,7 +6683,7 @@ def mesh_phase(tag: str, dev) -> dict:
               f"; step ms {[round(x, 1) for x in tr['ms']]} (the first under the "
               f"collective counter); flash a step "
               f"{tr['flash']} (want {fl}); the first step's collectives {tr['coll'][0]} "
-              f"{tr['coll'][1]}, {tr['coll'][2] / 2**20:.1f} MiB; peak "
+              f"{tr['coll'][1]}, {tr['coll'][2] / 2**20:.1f} MiB ({mib(tr['coll'][3])}); peak "
               f"{tr['peak']:.3f} GiB, reserved {tr['reserved']:.3f} (reckoned "
               f"{r['blocks'] / gib:.3f} + "
               f"{r['gathered'] / gib:.3f} = {(r['blocks'] + r['gathered']) / gib:.3f} "
@@ -6566,11 +6770,61 @@ def mesh_phase(tag: str, dev) -> dict:
         by_path[f"mesh {a}"] = sum(sum(x["flash"] for k, x in g["c"][a].items()
                                        if k in ("config", "unbound"))
                                    + sum(g["c"][a]["train"]["flash"]) for g in got)
+    # (d)
+    nc_by_path = {}
+    refs = torch.load(refs_path, weights_only=False)
+    for a, cfg in fams:
+        fl_d = flash_per_step(cfg)
+        fl_serve = flash_launches_of(cfg)
+        c8_one = refs[a].get("grad_c8")
+        for g in got:
+            r = g["d"][a]
+            sv = r["serve"]
+            n, kinds, nbytes, kb = sv["coll"]
+            c8 = ""
+            ok = sv["finite"] and sv["cos"] >= MESH_COS
+            if "c8" in sv:
+                dm, d1 = sv["c8"]
+                c8 = (f"; C8: relative L2 from the f32 computation {dm:.4e} on the mesh, "
+                      f"{d1:.4e} on one rank (limit {SCAN_BF16_FACTOR} x)")
+                ok = sv["finite"] and (ok or dm <= SCAN_BF16_FACTOR * d1)
+            wire = (f"; a decode step sends {sv['decode_sent'] / 2**10:.1f} KiB (the "
+                    f"rank's in_proj blocks: {sv['in_proj'] / 2**20:.1f} MiB, none "
+                    f"moved)" if sv["in_proj"] else "")
+            print(f"    rank {g['rank']} (d) {a} on (1, {world}): prefill "
+                  f"{sv['prefill_ms']:.1f} ms (flash {sv['prefill_flash']}, want "
+                  f"{fl_serve}), decode {sv['decode_ms']:.1f} ms a step (flash "
+                  f"{sv['decode_flash']}, want 0); logits' min cosine to one rank "
+                  f"{sv['cos']:.6f} (>= {MESH_COS}){c8}; {n} collectives {kinds}, "
+                  f"{nbytes / 2**20:.1f} MiB ({mib(kb)}){wire}; peak {sv['peak']:.3f} "
+                  f"GiB [{tag}]")
+            init_line(r["init"], f"(d) {a} rank {g['rank']}")
+            if sv["in_proj"] and sv["decode_sent"] >= sv["in_proj"]:
+                fails.append(f"(d) {a} rank {g['rank']} serve moves weights: "
+                             f"{sv['decode_sent']} bytes a decode step")
+            if not ok:
+                fails.append(f"(d) {a} rank {g['rank']} serve: cosine {sv['cos']}"
+                             f"{c8}")
+            if st_flash([sv["prefill_flash"]], fl_serve) or sv["decode_flash"]:
+                fails.append(f"(d) {a} rank {g['rank']} serve flash launches")
+            print(f"    rank {g['rank']} (d) {a} on (2, {half}):")
+            init_line(r["train_init"], f"(d) {a} rank {g['rank']}")
+            grad_line(r["train"]["grad"], f"(d) {a} rank {g['rank']}", c8_one)
+            train_line(r["train"], f"(d) {a} rank {g['rank']}", phase13_losses(a, cfg),
+                       fl_d, reck[a])
+        serve = sum(g["d"][a]["serve"]["prefill_flash"] for g in got)
+        trained = sum(sum(g["d"][a]["train"]["flash"]) for g in got)
+        if cfg.family == "encdec":    # the encoder's and cross-attention's: 8-nc
+            causal = trained * cfg.n_layers // attention_calls_of(cfg)
+            by_path[f"mesh {a}"] = causal
+            nc_by_path[f"mesh {a}"] = serve + trained - causal
+        else:
+            by_path[f"mesh {a}"] = serve + trained
     shutil.rmtree(work, ignore_errors=True)
     print(f"  phase 14: {time.perf_counter() - t_start:.1f} s [{tag}]")
     if fails:
         raise SmokeFailure("phase 14: " + "; ".join(fails))
-    return by_path
+    return by_path, nc_by_path
 
 
 def phase13_losses(arch, cfg):
@@ -6613,7 +6867,7 @@ def main() -> int:
     trained, trained_nc = lm_training_phase(tag, torch.device(DEVICE))
     gc.collect()
     torch.cuda.empty_cache()
-    meshed = mesh_phase(tag, torch.device(DEVICE))
+    meshed, meshed_nc = mesh_phase(tag, torch.device(DEVICE))
     # the flash kernel's launches on each main path: phase 7's, the
     # families' causal prefills and the causal training steps in row 8, the
     # encoder's and the cross-attention's in row 8-nc
@@ -6624,7 +6878,8 @@ def main() -> int:
     by_path.update(meshed)
     flash["launches"] = sum(by_path.values())
     flash["launches_by_path"] = by_path
-    nc_by_path = {"seamless_m4t_large_v2": fam["seamless_m4t_large_v2"], **trained_nc}
+    nc_by_path = {"seamless_m4t_large_v2": fam["seamless_m4t_large_v2"], **trained_nc,
+                  **meshed_nc}
     encoder = flash_encoder_row(tag, torch.device(DEVICE), sum(nc_by_path.values()))
     encoder["launches_by_path"] = nc_by_path
     kernels.append(encoder)

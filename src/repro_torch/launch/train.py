@@ -13,11 +13,12 @@ rank (``torch.distributed`` initialised by the caller, or ``WORLD_SIZE`` >
 1 from ``torchrun``, when the driver initialises it from the environment:
 ``nccl`` on the cards, ``gloo`` with ``--device cpu``) it builds JAX's
 mesh, ``make_mesh_for(world)`` (JAX's default ``model_parallel=16``:
-(1, 4) on 4 ranks), and trains the dense and MoE families sharded: every rank
+(1, 4) on 4 ranks), and trains every family sharded: every rank
 draws the same init and keeps its blocks, cut over ``"model"`` and over
 ``"data"`` (the fsdp split: the AdamW moments follow), cutting each leaf
 as it is drawn (``Model.init(..., sharder=)``: a rank never holds the
-whole tree), and takes its block of each ``synth_batch``; checkpoints are
+whole tree), and takes its block of each ``synth_batch`` (each input cut
+on its batch dimension, :func:`batch_dims`); checkpoints are
 written from the blocks' placements and restored onto whatever mesh
 resumes (another shape too).
 Rank 0 prints. ``--device cpu`` with ``--impl ref``
@@ -50,7 +51,7 @@ from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch.mesh import make_mesh_for, rank_device
 from repro_torch.models import build_model
 from repro_torch.optim import OptConfig
-from repro_torch.parallel.sharding import Sharder, held_shardings
+from repro_torch.parallel.sharding import Placement, Sharder, held_shardings
 from repro_torch.train import make_train_step
 
 
@@ -73,15 +74,29 @@ def synth_batch(model, shape: ShapeConfig, step: int, device="auto") -> dict:
     return out
 
 
-def batch_block(batch: dict, sharder) -> dict:
-    """This rank's rows of a global batch (its block over the sharder's
-    batch axes; the whole batch without a mesh)."""
+def batch_dims(model, kind: str = "train") -> dict:
+    """Each input's batch dimension, read from ``Model.input_specs``: the
+    dimension that changes with the global batch (0 for tokens, labels and
+    embeddings; 1 for the VLM's M-RoPE ``positions``, (3, B, S))."""
+    one, two = (model.input_specs(ShapeConfig("dims", kind, 8, b)) for b in (1, 2))
+    return {k: next(d for d, (a, b) in enumerate(zip(one[k].shape, two[k].shape))
+                    if a != b) for k in one}
+
+
+def batch_block(batch: dict, sharder, dims: dict) -> dict:
+    """This rank's rows of a global batch: each input's block over the
+    sharder's batch axes along its batch dimension (``dims``: key ->
+    dimension, :func:`batch_dims`); the whole batch without a mesh or
+    without batch axes."""
     if sharder.mesh is None:
         return batch
-    mesh, axes = sharder.mesh, sharder.axes("batch")
-    n, k = mesh.axis_size(axes), mesh.axis_index(axes)
-    return {key: v[k * (v.shape[0] // n):(k + 1) * (v.shape[0] // n)]
-            for key, v in batch.items()}
+    axes = sharder.resolve("batch")
+    out = {}
+    for key, v in batch.items():
+        spec = [None] * v.dim()
+        spec[dims[key]] = axes
+        out[key] = v[Placement(sharder.mesh, tuple(spec)).slices(v.shape)]
+    return out
 
 
 def _world(device) -> int:
@@ -167,10 +182,11 @@ def main(argv=None) -> dict:
             if lead:
                 print(f"[train] resumed from step {start}")
 
+    dims = batch_dims(model)
     history = []
     t0 = time.time()
     for i in range(start, args.steps):
-        batch = batch_block(synth_batch(model, shape, i, dev), sharder)
+        batch = batch_block(synth_batch(model, shape, i, dev), sharder, dims)
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         if (i + 1) % args.log_every == 0 or i == start:
             loss = float(metrics["loss"])

@@ -12,15 +12,15 @@ to choose. ``device="cpu"`` with ``impl="ref"`` runs the plain PyTorch
 versions on the CPU. ``moe_dispatch`` takes JAX's names.
 
 ``sharder``: None or a mesh-less ``Sharder`` is the single-card path; a
-``Sharder`` on a mesh runs the dense and MoE families sharded, each rank
-with its blocks of the parameters, cut over ``"model"`` and ``"data"``
+``Sharder`` on a mesh runs every family sharded, each rank with its
+blocks of the parameters, cut over ``"model"`` and ``"data"``
 (``init(..., sharder=)``, which cuts each leaf as it is drawn, or
 ``parallel.sharding.shard_params`` of a global tree, e.g. JAX's ``init``
-carried across by ``interop.lm_params_from_numpy``) and of the batch;
-``loss``, ``prefill`` and ``decode_step`` hand the family the blocks'
-placements, from the global shapes (``transformer.lm_places``). The other
-families raise ``NotImplementedError`` naming ROADMAP item 16, and
-anything that is not a ``Sharder`` raises ``TypeError``.
+carried across by ``interop.lm_params_from_numpy``) and of the batch (each
+input cut on its batch dimension: ``launch.train.batch_block``); ``loss``,
+``prefill`` and ``decode_step`` hand the family the blocks' placements,
+``held_shardings(param_specs())`` (from the global shapes, never from a
+block's). Anything that is not a ``Sharder`` raises ``TypeError``.
 
 ``param_specs()`` gives ``init``'s tree as shapes (the large leaves on
 the meta device, nothing drawn), as ``jax.eval_shape`` does.
@@ -154,7 +154,8 @@ def _init_blocks(cfg, init_fn, gen, sh):
 
 def _model(cfg, init_fn, loss_fn, prefill_fn, decode_fn, cache_fn) -> Model:
     """A Model whose entry points resolve ``device`` / ``impl`` (``"auto"``:
-    the card) before they call the family's functions."""
+    the card) before they call the family's functions, and hand them the
+    blocks' placements on a mesh (None without one)."""
 
     def init(rng=0, device="auto", sharder=None):
         """``rng``: an int seed or a ``torch.Generator`` (its device wins).
@@ -164,15 +165,6 @@ def _model(cfg, init_fn, loss_fn, prefill_fn, decode_fn, cache_fn) -> Model:
         sh = mesh_sharder(sharder)
         return init_fn(gen) if sh is None else _init_blocks(cfg, init_fn, gen, sh)
 
-    def loss(params, batch, sharder=None, impl="auto"):
-        return loss_fn(params, batch, sharder, backends.resolve(impl))
-
-    def prefill(params, batch, seq_len, sharder=None, impl="auto"):
-        return prefill_fn(params, batch, seq_len, sharder, backends.resolve(impl))
-
-    def init_cache(batch, seq_len, device="auto"):
-        return cache_fn(batch, seq_len, backends.resolve_device(device))
-
     def param_specs():
         """``init``'s tree with its shapes and dtypes and nothing drawn
         (the large leaves on the meta device): JAX's ``jax.eval_shape`` of
@@ -180,25 +172,39 @@ def _model(cfg, init_fn, loss_fn, prefill_fn, decode_fn, cache_fn) -> Model:
         with shapes_only():
             return init_fn(torch.Generator())
 
-    return Model(cfg, init, loss, prefill, decode_fn, init_cache, _specs_of(cfg),
+    def places(sharder):
+        sh = mesh_sharder(sharder)
+        return None if sh is None else held_shardings(param_specs(), cfg, sh)
+
+    def loss(params, batch, sharder=None, impl="auto"):
+        return loss_fn(params, batch, sharder, backends.resolve(impl),
+                       places=places(sharder))
+
+    def prefill(params, batch, seq_len, sharder=None, impl="auto"):
+        return prefill_fn(params, batch, seq_len, sharder, backends.resolve(impl),
+                          places=places(sharder))
+
+    def decode_step(params, cache, tokens, sharder=None):
+        return decode_fn(params, cache, tokens, sharder, places=places(sharder))
+
+    def init_cache(batch, seq_len, device="auto"):
+        return cache_fn(batch, seq_len, backends.resolve_device(device))
+
+    return Model(cfg, init, loss, prefill, decode_step, init_cache, _specs_of(cfg),
                  param_specs)
 
 
 def _build_transformer(cfg, moe_dispatch="scatter") -> Model:
     t = transformer
-
-    def places(sharder):
-        return t.lm_places(cfg, mesh_sharder(sharder))
-
     return _model(
         cfg,
         lambda gen: t.init_lm(cfg, gen),
-        lambda params, batch, sharder, impl: t.lm_loss(
-            cfg, params, batch, sharder, impl, moe_dispatch, places(sharder)),
-        lambda params, batch, seq_len, sharder, impl: t.prefill(
-            cfg, params, batch, seq_len, sharder, impl, moe_dispatch, places(sharder)),
-        lambda params, cache, tokens, sharder=None: t.decode_step(
-            cfg, params, cache, tokens, sharder, places(sharder)),
+        lambda params, batch, sh, impl, places: t.lm_loss(
+            cfg, params, batch, sh, impl, moe_dispatch, places=places),
+        lambda params, batch, seq_len, sh, impl, places: t.prefill(
+            cfg, params, batch, seq_len, sh, impl, moe_dispatch, places=places),
+        lambda params, cache, tokens, sh, places: t.decode_step(
+            cfg, params, cache, tokens, sh, places=places),
         lambda batch, seq_len, device: t.init_cache(cfg, batch, seq_len, device),
     )
 
@@ -210,11 +216,12 @@ def _build_ssm(cfg) -> Model:
     return _model(
         cfg,
         lambda gen: m.init_ssm_lm(cfg, gen),
-        lambda params, batch, sharder, impl: m.ssm_loss(cfg, params, batch, sharder),
-        lambda params, batch, seq_len, sharder, impl: m.ssm_prefill(
-            cfg, params, batch, sharder),
-        lambda params, cache, tokens, sharder=None: m.ssm_decode_step(
-            cfg, params, cache, tokens, sharder),
+        lambda params, batch, sh, impl, places: m.ssm_loss(
+            cfg, params, batch, sh, places=places),
+        lambda params, batch, seq_len, sh, impl, places: m.ssm_prefill(
+            cfg, params, batch, sh, places=places),
+        lambda params, cache, tokens, sh, places: m.ssm_decode_step(
+            cfg, params, cache, tokens, sh, places=places),
         lambda batch, seq_len, device: m.init_ssm_cache(cfg, batch, device),
     )
 
@@ -224,12 +231,12 @@ def _build_hybrid(cfg) -> Model:
     return _model(
         cfg,
         lambda gen: h.init_hybrid(cfg, gen),
-        lambda params, batch, sharder, impl: h.hybrid_loss(
-            cfg, params, batch, sharder, impl),
-        lambda params, batch, seq_len, sharder, impl: h.hybrid_prefill(
-            cfg, params, batch, seq_len, sharder, impl),
-        lambda params, cache, tokens, sharder=None: h.hybrid_decode_step(
-            cfg, params, cache, tokens, sharder),
+        lambda params, batch, sh, impl, places: h.hybrid_loss(
+            cfg, params, batch, sh, impl, places=places),
+        lambda params, batch, seq_len, sh, impl, places: h.hybrid_prefill(
+            cfg, params, batch, seq_len, sh, impl, places=places),
+        lambda params, cache, tokens, sh, places: h.hybrid_decode_step(
+            cfg, params, cache, tokens, sh, places=places),
         lambda batch, seq_len, device: h.init_hybrid_cache(cfg, batch, seq_len,
                                                            device),
     )
@@ -240,12 +247,12 @@ def _build_encdec(cfg) -> Model:
     return _model(
         cfg,
         lambda gen: e.init_encdec(cfg, gen),
-        lambda params, batch, sharder, impl: e.encdec_loss(
-            cfg, params, batch, sharder, impl),
-        lambda params, batch, seq_len, sharder, impl: e.encdec_prefill(
-            cfg, params, batch, seq_len, sharder, impl),
-        lambda params, cache, tokens, sharder=None: e.encdec_decode_step(
-            cfg, params, cache, tokens, sharder),
+        lambda params, batch, sh, impl, places: e.encdec_loss(
+            cfg, params, batch, sh, impl, places=places),
+        lambda params, batch, seq_len, sh, impl, places: e.encdec_prefill(
+            cfg, params, batch, seq_len, sh, impl, places=places),
+        lambda params, cache, tokens, sh, places: e.encdec_decode_step(
+            cfg, params, cache, tokens, sh, places=places),
         lambda batch, seq_len, device: e.init_encdec_cache(cfg, batch, seq_len,
                                                            device),
     )

@@ -45,7 +45,7 @@ from repro_torch import backends
 from repro_torch.kernels.flash_attention import ops as flash_ops
 from repro_torch.models.layers import apply_rope, dense_init, rope_angles
 from repro_torch.parallel import collectives as col
-from repro_torch.parallel.sharding import mesh_sharder, model_split, require_no_sharder
+from repro_torch.parallel.sharding import mesh_sharder, model_split
 
 NEG_INF = -1e30
 
@@ -280,10 +280,27 @@ def attention_block(cfg, p, x, positions, *, causal=True, window=None,
     return o @ p["wo"].to(x.dtype)
 
 
+def attention_with_kv(cfg, p, x, positions, sh, *, window=None,
+                      impl: backends.BackendLike = "ref"):
+    """A prefill's causal attention block: (out, k, v), k / v (B,S,Hkv,dh)
+    with every K/V head (the cache's); :func:`attention_tp` on a mesh whose
+    model axis is wider than 1."""
+    if sh is not None and sh.axis_size("model") > 1:
+        return attention_tp(cfg, p, x, positions, sh, window=window, impl=impl,
+                            with_kv=True)
+    B, S, _ = x.shape
+    q, k, v = qkv_proj(cfg, p, x, positions)
+    o = sdpa(q, k, v, causal=True, window=window, impl=impl)
+    return o.reshape(B, S, -1) @ p["wo"].to(x.dtype), k, v
+
+
 def cross_attention_block(cfg, p, x, kv_src, *, sharder=None,
                           impl: backends.BackendLike = "ref"):
-    """Cross-attention (enc-dec): queries from x, keys/values from kv_src."""
-    require_no_sharder(sharder, "cross-attention")
+    """Cross-attention (enc-dec): queries from x, keys/values from kv_src.
+    No rule of the sharding places its weights (``decoder/layers/cross/*``
+    lacks ``attn/``), so on a mesh every rank holds them whole and runs the
+    whole block on its batch rows, as JAX's block (no constraint) runs;
+    ``sharder`` is accepted for JAX's signature and not read."""
     B, S, D = x.shape
     dh = cfg.resolved_head_dim
     cdt = x.dtype
@@ -297,6 +314,36 @@ def cross_attention_block(cfg, p, x, kv_src, *, sharder=None,
 # --------------------------------------------------------------------------- #
 # KV-cache decode
 # --------------------------------------------------------------------------- #
+def mesh_cache(cache, keys, sh, W: int) -> tuple:
+    """(lo, c): this rank's block ``[lo, lo + c)`` of a prefill cache's
+    ``W`` slots (dimension 2 of each of ``keys``, (L, B, W, Hkv, dh)). On a
+    mesh whose model axis is wider than 1 and divides ``W``, its block over
+    ``"seq"``, those entries cut to it; there ``cache["slots"] = W`` holds
+    the global count, which :func:`decode_attention` reads. Else all of
+    them."""
+    lo, c = 0, W
+    if sh is not None and sh.axis_size("model") > 1:
+        m = sh.axis_size("model")
+        if W % m == 0:
+            c = W // m
+            lo = sh.mesh.axis_index("model") * c
+            for key in keys:
+                cache[key] = cache[key][:, :, lo:lo + c].clone()
+        cache["slots"] = W
+    return lo, c
+
+
+def prompt_slots(S: int, W: int, lo: int, c: int, device):
+    """(dst, src): the prompt's last ``min(S, W)`` positions ``src``, each at
+    its decode slot (``p % W``), that fall in the cache block ``[lo, lo +
+    c)``, and those slots' offsets ``dst`` in the block."""
+    keep = min(S, W)
+    pos = torch.arange(S - keep, S, device=device)
+    slots = pos % W
+    mine = (slots >= lo) & (slots < lo + c)
+    return slots[mine] - lo, pos[mine]
+
+
 def cache_update(cache_k, cache_v, k, v, pos, window: Optional[int] = None):
     """Insert one step's k/v (B,1,Hkv,dh) at position ``pos`` (an int or a
     0-d tensor); ring buffer if SWA. Updates ``cache_k`` / ``cache_v`` in

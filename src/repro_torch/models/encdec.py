@@ -13,6 +13,21 @@ layer's cross-attention K/V once and primes the decoder with one decode
 step of the BOS token (``tgt_tokens[:, :1]``); ``encdec_decode_step``
 reuses the cross K/V (plain ``sdpa``, non-causal) and writes the self-
 attention K/V row into the cache's tensors.
+
+On a mesh (a ``sharder`` with one; ``places`` the blocks' placements,
+``Model.places``) both stacks run as the transformer's do:
+``src_embeds`` and the target tokens enter as the rank's batch rows, each
+layer's leaves are gathered over ``"data"`` inside its checkpoint, the
+encoder's self-attention (non-causal) and the decoder's (causal) go through
+``attention.attention_tp`` and the MLPs through ``layers.apply_mlp``; the
+target tokens' embedding, the logits and the cross-entropy are
+vocab-parallel (``transformer.embed_tokens``, ``lm_xent``). The decoder's
+cross-attention leaves (``decoder/layers/cross/w*``) match no rule of the
+sharding (the rules' patterns need ``attn/``), so every rank holds them
+whole, as JAX does, and runs the whole cross-attention on its batch rows
+through ``sdpa`` (the flash kernel on the card). The prefill computes the
+cross K/V once (the rank's rows, every head); the self-attention cache is
+cut over ``"seq"`` as the transformer's (``attention.mesh_cache``).
 """
 from __future__ import annotations
 
@@ -20,13 +35,14 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
-    apply_mlp, apply_norm, dense_init, embed_init, init_norm, softmax_xent,
+    apply_mlp, apply_norm, dense_init, embed_init, init_norm,
 )
 from repro_torch.models.transformer import (
-    _as_tensor, _stacked_norm, compute_dtype, embed_tokens,
-    layer_slices, logits_fn, make_positions, param_dtype, remat_wrap,
+    _as_tensor, _stacked_norm, _used, compute_dtype, embed_tokens, gathered_layers,
+    lm_xent, make_positions, mesh_entry, param_dtype, remat_wrap, stack_layers,
+    sub_places, whole_logits,
 )
-from repro_torch.parallel.sharding import padded_vocab, require_no_sharder
+from repro_torch.parallel.sharding import mesh_sharder, padded_vocab
 
 
 def _init_stack(cfg, gen, pdt, n, cross: bool):
@@ -81,53 +97,64 @@ def _src(cfg, params, batch):
     return _as_tensor(batch["src_embeds"], dev).to(compute_dtype(cfg))
 
 
-def encode(cfg, params, src_embeds, sharder=None, impl="ref"):
+def _final_norm(cfg, params, places, sh, name, x):
+    return apply_norm(cfg, _used(params[name], sub_places(places, name), sh,
+                                 "final_norm"), x)
+
+
+def encode(cfg, params, src_embeds, sharder=None, impl="ref", places=None):
     """src_embeds (B,S,D) -> encoder hidden states."""
-    require_no_sharder(sharder)
+    sh = mesh_sharder(sharder)
     B, S, _ = src_embeds.shape
     positions = make_positions(cfg, B, S, src_embeds.device)
+    whole, layers = stack_layers(params, places, sh, cfg.encoder_layers, "encoder",
+                                 "layers")
 
     def layer(x, lp):
+        lp = whole(lp)
         h = apply_norm(cfg, lp["norm1"], x)
         x = x + attn.attention_block(cfg, lp["attn"], h, positions, causal=False,
-                                     impl=impl)
+                                     sharder=sh, impl=impl)
         h2 = apply_norm(cfg, lp["norm2"], x)
-        return x + apply_mlp(cfg, lp["mlp"], h2)
+        return x + apply_mlp(cfg, lp["mlp"], h2, sh)
 
     body = remat_wrap(cfg, layer)
     x = src_embeds
-    for lp in layer_slices(params["encoder"]["layers"], cfg.encoder_layers):
+    for lp in layers:
         x = body(x, lp)
-    return apply_norm(cfg, params["encoder"]["final_norm"], x)
+    return _final_norm(cfg, params, places, sh, "encoder", x)
 
 
-def decode_train(cfg, params, tgt_tokens, enc_out, sharder=None, impl="ref"):
+def decode_train(cfg, params, tgt_tokens, enc_out, sharder=None, impl="ref",
+                 places=None):
     """Teacher-forced decoder: tgt_tokens (B,S) -> final hidden states."""
-    require_no_sharder(sharder)
-    x = embed_tokens(cfg, params, tgt_tokens)
+    sh = mesh_sharder(sharder)
+    x = embed_tokens(cfg, params, tgt_tokens, sh, places)
     B, S = x.shape[:2]
     positions = make_positions(cfg, B, S, x.device)
+    whole, layers = stack_layers(params, places, sh, cfg.n_layers, "decoder", "layers")
 
     def layer(x, lp):
+        lp = whole(lp)
         h = apply_norm(cfg, lp["norm1"], x)
         x = x + attn.attention_block(cfg, lp["attn"], h, positions, causal=True,
-                                     impl=impl)
+                                     sharder=sh, impl=impl)
         h2 = apply_norm(cfg, lp["norm3"], x)
         x = x + attn.cross_attention_block(cfg, lp["cross"], h2, enc_out, impl=impl)
         h3 = apply_norm(cfg, lp["norm2"], x)
-        return x + apply_mlp(cfg, lp["mlp"], h3)
+        return x + apply_mlp(cfg, lp["mlp"], h3, sh)
 
     body = remat_wrap(cfg, layer)
-    for lp in layer_slices(params["decoder"]["layers"], cfg.n_layers):
+    for lp in layers:
         x = body(x, lp)
-    return apply_norm(cfg, params["decoder"]["final_norm"], x)
+    return _final_norm(cfg, params, places, sh, "decoder", x)
 
 
-def encdec_loss(cfg, params, batch, sharder=None, impl="ref"):
-    enc_out = encode(cfg, params, _src(cfg, params, batch), sharder, impl)
-    h = decode_train(cfg, params, batch["tgt_tokens"], enc_out, sharder, impl)
-    logits = logits_fn(cfg, params, h)
-    loss = softmax_xent(logits, _as_tensor(batch["labels"], h.device, torch.long))
+def encdec_loss(cfg, params, batch, sharder=None, impl="ref", *, places):
+    sh, params = mesh_entry(sharder, params, places)
+    enc_out = encode(cfg, params, _src(cfg, params, batch), sh, impl, places)
+    h = decode_train(cfg, params, batch["tgt_tokens"], enc_out, sh, impl, places)
+    loss = lm_xent(cfg, params, h, batch["labels"], sh, places)
     return loss, {"xent": loss}
 
 
@@ -145,45 +172,48 @@ def init_encdec_cache(cfg, batch: int, seq_len: int, device=None):
 
 
 @torch.no_grad()
-def encdec_prefill(cfg, params, batch, seq_len, sharder=None, impl="ref"):
+def encdec_prefill(cfg, params, batch, seq_len, sharder=None, impl="ref", *,
+                   places):
     """Encode the source, precompute each decoder layer's cross K/V (the
     source's length) and prime the decoder with the BOS token."""
-    require_no_sharder(sharder)
+    sh = mesh_sharder(sharder)
     cdt = compute_dtype(cfg)
     src = _src(cfg, params, batch)
     B = src.shape[0]
-    enc_out = encode(cfg, params, src, impl=impl)
+    enc_out = encode(cfg, params, src, sh, impl, places)
     dh = cfg.resolved_head_dim
-    cross = params["decoder"]["layers"]["cross"]
+    cross = params["decoder"]["layers"]["cross"]      # whole on every rank
     cache = init_encdec_cache(cfg, B, seq_len, src.device)
+    attn.mesh_cache(cache, ("k", "v"), sh, seq_len)
     for key, w in (("cross_k", cross["wk"]), ("cross_v", cross["wv"])):
         # (B,S,D) @ (L,1,D,Hkv*dh): every layer's K or V of the source
         cache[key] = (enc_out @ w.to(cdt)[:, None]).reshape(
             cfg.n_layers, B, -1, cfg.n_kv_heads, dh)
     tgt = _as_tensor(batch["tgt_tokens"], src.device, torch.long)
-    return encdec_decode_step(cfg, params, cache, tgt[:, :1])
+    return encdec_decode_step(cfg, params, cache, tgt[:, :1], sh, places=places)
 
 
 @torch.no_grad()
-def encdec_decode_step(cfg, params, cache, tokens, sharder=None):
-    require_no_sharder(sharder)
+def encdec_decode_step(cfg, params, cache, tokens, sharder=None, *, places):
+    sh = mesh_sharder(sharder)
     cdt = compute_dtype(cfg)
-    x = embed_tokens(cfg, params, tokens)
+    x = embed_tokens(cfg, params, tokens, sh, places)
     pos = _as_tensor(cache["pos"], x.device, torch.int32)
     dh = cfg.resolved_head_dim
     B = x.shape[0]
-    for i, lp in enumerate(layer_slices(params["decoder"]["layers"],
-                                        cfg.n_layers)):
+    for i, lp in enumerate(gathered_layers(params, places, sh, cfg.n_layers, "decoder",
+                                           "layers")):
         h = apply_norm(cfg, lp["norm1"], x)
         o, _, _ = attn.decode_attention(cfg, lp["attn"], h, cache["k"][i],
-                                        cache["v"][i], pos)
+                                        cache["v"][i], pos, sharder=sh,
+                                        slots=cache.get("slots"))
         x = x + o
         h2 = apply_norm(cfg, lp["norm3"], x)
         q = (h2 @ lp["cross"]["wq"].to(cdt)).reshape(B, 1, cfg.n_heads, dh)
         o2 = attn.sdpa(q, cache["cross_k"][i], cache["cross_v"][i], causal=False)
         x = x + o2.reshape(B, 1, -1) @ lp["cross"]["wo"].to(cdt)
         h3 = apply_norm(cfg, lp["norm2"], x)
-        x = x + apply_mlp(cfg, lp["mlp"], h3)
-    x = apply_norm(cfg, params["decoder"]["final_norm"], x)
-    logits = logits_fn(cfg, params, x)
+        x = x + apply_mlp(cfg, lp["mlp"], h3, sh)
+    x = _final_norm(cfg, params, places, sh, "decoder", x)
+    logits = whole_logits(cfg, params, x, sh, places)
     return logits, dict(cache, pos=pos + 1)

@@ -166,10 +166,13 @@ def embed_init(gen: torch.Generator, shape, dtype=torch.float32) -> torch.Tensor
 # --------------------------------------------------------------------------- #
 # Norms
 # --------------------------------------------------------------------------- #
-def rms_norm(x, scale=None, eps: float = 1e-6):
+def rms_norm(x, scale=None, eps: float = 1e-6, var=None):
+    """``var``: where the last dimension is a block of the normalised one,
+    the function from the block (float32) to the whole's mean of squares
+    (keepdim); by default the block's own."""
     dtype = x.dtype
     x = x.float()
-    var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    var = torch.mean(torch.square(x), dim=-1, keepdim=True) if var is None else var(x)
     y = x * torch.rsqrt(var + eps)
     if scale is not None:
         y = y * scale.float()

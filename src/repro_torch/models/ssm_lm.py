@@ -8,20 +8,27 @@ is ``{"ssm": (L,B,H,P,N) f32, "conv": (L,B,W-1,Cd), "pos"}``: O(1) in the
 context length, so ``seq_len`` sizes nothing. ``ssm_decode_step`` writes
 the new states into the cache's tensors (JAX returns new arrays; the port
 saves the copy) and returns them.
+
+On a mesh (a ``sharder`` with one; ``places`` the blocks' placements,
+``Model.places``) the model runs as the transformer's does
+(``models.transformer``): each layer's leaves gathered over ``"data"``
+inside the function ``remat_wrap`` checkpoints, the block head-parallel
+over ``"model"`` (``mamba2.rank_view``), the tied embedding's lookup, the
+logits and the cross-entropy vocab-parallel, the loss the global batch's
+mean and each rank's gradient its block of the global one; the cache
+holds the rank's batch rows and heads (``mamba2.init_mamba_cache``).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import mamba2
-from repro_torch.models.layers import (
-    apply_norm, dense_init, embed_init, init_norm, softmax_xent,
-)
+from repro_torch.models.layers import apply_norm, dense_init, embed_init, init_norm
 from repro_torch.models.transformer import (
-    _as_tensor, _stacked_norm, compute_dtype, embed_tokens,
-    layer_slices, logits_fn, param_dtype, remat_wrap,
+    _as_tensor, _stacked_norm, _used, compute_dtype, embed_tokens, gathered_layers,
+    lm_xent, mesh_entry, param_dtype, remat_wrap, stack_layers, whole_logits,
 )
-from repro_torch.parallel.sharding import padded_vocab, require_no_sharder
+from repro_torch.parallel.sharding import mesh_sharder, padded_vocab
 
 
 def init_ssm_lm(cfg, gen: torch.Generator) -> dict:
@@ -43,62 +50,67 @@ def init_ssm_lm(cfg, gen: torch.Generator) -> dict:
     return params
 
 
-def forward_hidden(cfg, params, x, sharder=None):
-    require_no_sharder(sharder)
-    body = remat_wrap(cfg, lambda xx, lp: xx + mamba2.mamba2_block(
-        cfg, lp["ssm"], apply_norm(cfg, lp["norm1"], xx)))
-    for lp in layer_slices(params["layers"], cfg.n_layers):
+def ssm_layer(cfg, lp, x, sh):
+    """One residual Mamba2 layer (``lp`` whole over ``"data"``)."""
+    return x + mamba2.mamba2_block(cfg, lp["ssm"], apply_norm(cfg, lp["norm1"], x), sh)
+
+
+def forward_hidden(cfg, params, x, sharder=None, places=None):
+    sh = mesh_sharder(sharder)
+    whole, layers = stack_layers(params, places, sh, cfg.n_layers, "layers")
+    body = remat_wrap(cfg, lambda xx, lp: ssm_layer(cfg, whole(lp), xx, sh))
+    for lp in layers:
         x = body(x, lp)
-    return apply_norm(cfg, params["final_norm"], x)
+    return apply_norm(cfg, _used(params, places, sh, "final_norm"), x)
 
 
-def ssm_loss(cfg, params, batch, sharder=None):
-    x = embed_tokens(cfg, params, batch["tokens"])
-    h = forward_hidden(cfg, params, x, sharder)
-    logits = logits_fn(cfg, params, h)
-    loss = softmax_xent(logits, _as_tensor(batch["labels"], h.device, torch.long))
+def ssm_loss(cfg, params, batch, sharder=None, *, places):
+    sh, params = mesh_entry(sharder, params, places)
+    x = embed_tokens(cfg, params, batch["tokens"], sh, places)
+    h = forward_hidden(cfg, params, x, sh, places)
+    loss = lm_xent(cfg, params, h, batch["labels"], sh, places)
     return loss, {"xent": loss}
 
 
-def init_ssm_cache(cfg, batch: int, device=None):
+def init_ssm_cache(cfg, batch: int, device=None, sharder=None):
     cache = mamba2.init_mamba_cache(cfg, batch, compute_dtype(cfg), device,
-                                    (cfg.n_layers,))
+                                    (cfg.n_layers,), sharder)
     cache["pos"] = torch.zeros((), dtype=torch.int32, device=device)
     return cache
 
 
 @torch.no_grad()
-def ssm_prefill(cfg, params, batch, sharder=None):
+def ssm_prefill(cfg, params, batch, sharder=None, *, places):
     """Run the prompt via the chunked scan, capturing each layer's final
     states: (last-token logits, cache)."""
-    require_no_sharder(sharder)
-    x = embed_tokens(cfg, params, batch["tokens"])
+    sh = mesh_sharder(sharder)
+    x = embed_tokens(cfg, params, batch["tokens"], sh, places)
     B, S = x.shape[:2]
-    cache = init_ssm_cache(cfg, B, x.device)
-    for i, lp in enumerate(layer_slices(params["layers"], cfg.n_layers)):
+    cache = init_ssm_cache(cfg, B, x.device, sh)
+    for i, lp in enumerate(gathered_layers(params, places, sh, cfg.n_layers, "layers")):
         h = apply_norm(cfg, lp["norm1"], x)
-        y, s, c = mamba2.mamba2_block_state(cfg, lp["ssm"], h)
+        y, s, c = mamba2.mamba2_block_state(cfg, lp["ssm"], h, sh)
         x = x + y
         cache["ssm"][i].copy_(s)
         cache["conv"][i].copy_(c)
-    x = apply_norm(cfg, params["final_norm"], x)
-    logits = logits_fn(cfg, params, x[:, -1:])
+    x = apply_norm(cfg, _used(params, places, sh, "final_norm"), x)
+    logits = whole_logits(cfg, params, x[:, -1:], sh, places)
     cache["pos"].fill_(S)
     return logits, cache
 
 
 @torch.no_grad()
-def ssm_decode_step(cfg, params, cache, tokens, sharder=None):
-    require_no_sharder(sharder)
-    x = embed_tokens(cfg, params, tokens)
-    for i, lp in enumerate(layer_slices(params["layers"], cfg.n_layers)):
+def ssm_decode_step(cfg, params, cache, tokens, sharder=None, *, places):
+    sh = mesh_sharder(sharder)
+    x = embed_tokens(cfg, params, tokens, sh, places)
+    for i, lp in enumerate(gathered_layers(params, places, sh, cfg.n_layers, "layers")):
         h = apply_norm(cfg, lp["norm1"], x)
         y, new = mamba2.mamba2_decode_step(
-            cfg, lp["ssm"], h, {"ssm": cache["ssm"][i], "conv": cache["conv"][i]})
+            cfg, lp["ssm"], h, {"ssm": cache["ssm"][i], "conv": cache["conv"][i]}, sh)
         x = x + y
         cache["ssm"][i].copy_(new["ssm"])
         cache["conv"][i].copy_(new["conv"])
-    x = apply_norm(cfg, params["final_norm"], x)
-    logits = logits_fn(cfg, params, x)
+    x = apply_norm(cfg, _used(params, places, sh, "final_norm"), x)
+    logits = whole_logits(cfg, params, x, sh, places)
     pos = _as_tensor(cache["pos"], x.device, torch.int32)
     return logits, {"ssm": cache["ssm"], "conv": cache["conv"], "pos": pos + 1}

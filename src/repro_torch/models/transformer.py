@@ -21,12 +21,12 @@ cut over ``"model"`` and over ``"data"``, JAX's ``param_shardings``) and of
 the batch (cut over the sharder's batch axes), and computes what the JAX
 package computes on that mesh:
 
-- the placements come from the global shapes (:func:`lm_places`, handed
-  down from ``Model.loss`` / ``prefill`` / ``decode_step``), never from a
+- the placements come from the global shapes (``Model.places``, which
+  ``Model.loss`` / ``prefill`` / ``decode_step`` hand down), never from a
   block's shape: a block of ``b`` rows with ``b % data != 0`` may be cut
   or whole;
 - each weight the fsdp axes (``"data"``) cut is gathered whole over them
-  where it is used (:func:`gather_fsdp`): a layer's leaves inside the
+  where it is used (:func:`gather_fsdp`, :func:`stack_layers`): a layer's leaves inside the
   function ``remat_wrap`` checkpoints, so a rank holds one layer's weights
   whole over ``"data"`` at a time and the backward pass gathers them again
   (ZeRO-3); the embedding table, the head and the final norm at their
@@ -50,8 +50,13 @@ package computes on that mesh:
   ``"slots"`` in the cache dict holds their global count), which
   :func:`decode_step` continues.
 
-The VLM family (M-RoPE positions, embeddings input) raises on a mesh
-(ROADMAP item 16).
+The VLM family runs the same path from its ``embeds`` and M-RoPE
+``positions`` (3, B, S), both the rank's batch rows (the batch is
+dimension 1 of the positions); its embedding table, which embeds mode
+never reads, gets a zero gradient block. The SSM, hybrid and
+encoder-decoder modules build on the helpers here (:func:`mesh_entry`,
+:func:`stack_layers`, :func:`gathered_layers`, :func:`gather_fsdp`,
+:func:`embed_tokens`, :func:`lm_xent`, :func:`whole_logits`).
 """
 from __future__ import annotations
 
@@ -63,15 +68,13 @@ import torch
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
-    apply_mlp, apply_norm, dense_init, embed_init, init_norm, shapes_only,
-    softmax_xent,
+    apply_mlp, apply_norm, dense_init, embed_init, init_norm, softmax_xent,
 )
 from repro_torch.parallel import collectives as col
 from repro_torch.parallel.sharding import (Placement, _flatten_with_path,
                                            _unflatten_like, fsdp_split,
-                                           held_shardings, mesh_sharder,
-                                           model_split, padded_vocab,
-                                           require_no_sharder)
+                                           mesh_sharder, model_split,
+                                           padded_vocab)
 from repro_torch.precision import torch_dtype
 
 
@@ -198,15 +201,12 @@ def init_lm(cfg, gen: torch.Generator) -> dict:
 # --------------------------------------------------------------------------- #
 # The fsdp split on a mesh
 # --------------------------------------------------------------------------- #
-def lm_places(cfg, sh):
-    """The placements of a rank's blocks on ``sh``'s mesh, from the global
-    shapes (``init_lm``'s tree with nothing drawn: ``Model.param_specs``);
-    None without a mesh."""
-    if sh is None:
-        return None
-    with shapes_only():
-        specs = init_lm(cfg, torch.Generator())
-    return held_shardings(specs, cfg, sh)
+def mesh_entry(sharder, params, places):
+    """(sh, params) at a loss's start: the sharder with a mesh (or None) and
+    the parameters entered over the batch axes (:func:`enter_batch`;
+    ``places``: the blocks' placements)."""
+    sh = mesh_sharder(sharder)
+    return sh, enter_batch(params, sh, places)
 
 
 def gather_fsdp(tree, places, sh):
@@ -233,14 +233,40 @@ def _used(params, places, sh, key):
     return params[key] if sh is None else gather_fsdp(params[key], places[key], sh)
 
 
-def _layer_places(places):
-    """One layer's placements, from the stacked layers' (the L dimension
-    dropped); None without a mesh."""
-    if places is None:
+def sub_places(places, *keys):
+    """``places[k1][k2]...``; None without a mesh."""
+    for k in keys:
+        places = None if places is None else places[k]
+    return places
+
+
+def layer_places(places, *keys):
+    """One layer's placements, from those of the stacked layer tree at
+    ``places[k1][k2]...`` (the L dimension dropped); None without a mesh."""
+    stacked = sub_places(places, *keys)
+    if stacked is None:
         return None
-    flat = _flatten_with_path(places["layers"])
-    return _unflatten_like(places["layers"],
-                           [Placement(p.mesh, tuple(p.spec[1:])) for _, p in flat])
+    flat = _flatten_with_path(stacked)
+    return _unflatten_like(stacked, [Placement(p.mesh, tuple(p.spec[1:])) for _, p in flat])
+
+
+def stack_layers(params, places, sh, n, *keys):
+    """``(whole, layers)``: the ``n`` layer slices of the stacked tree at
+    ``params[k1][k2]...`` and the function that gathers one of them whole
+    over ``"data"`` (:func:`gather_fsdp`, :func:`layer_places`). Where a
+    gradient is taken, call ``whole`` inside the checkpointed function."""
+    stack = params
+    for k in keys:
+        stack = stack[k]
+    lplaces = layer_places(places, *keys)
+    return (lambda lp: gather_fsdp(lp, lplaces, sh)), layer_slices(stack, n)
+
+
+def gathered_layers(params, places, sh, n, *keys):
+    """The ``n`` layers of the stacked tree at ``params[k1][k2]...``, one at
+    a time, each whole over ``"data"`` (serving: no checkpoint)."""
+    whole, layers = stack_layers(params, places, sh, n, *keys)
+    return map(whole, layers)
 
 
 # --------------------------------------------------------------------------- #
@@ -336,11 +362,11 @@ def forward_hidden(cfg, params, x, positions, sharder=None, impl="ref",
     each layer gathers its leaves over ``"data"`` inside the checkpointed
     function (see the module docstring)."""
     sh = mesh_sharder(sharder)
-    lplaces = _layer_places(places)
+    whole, layers = stack_layers(params, places, sh, cfg.n_layers, "layers")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     body = remat_wrap(cfg, lambda xx, lp: block_fn(
-        cfg, gather_fsdp(lp, lplaces, sh), xx, positions, sharder, impl, moe_dispatch))
-    for lp in layer_slices(params["layers"], cfg.n_layers):
+        cfg, whole(lp), xx, positions, sharder, impl, moe_dispatch))
+    for lp in layers:
         x, a = body(x, lp)
         aux = aux + a
     x = apply_norm(cfg, _used(params, places, sh, "final_norm"), x)
@@ -371,7 +397,7 @@ def logits_fn(cfg, params, h, sharder=None, places=None):
     return logits
 
 
-def _whole_logits(cfg, params, h, sh, places):
+def whole_logits(cfg, params, h, sh, places):
     """Every vocabulary entry's logit on every rank (serving; no gradient)."""
     logits = logits_fn(cfg, params, h, sh, places)
     if sh is not None and model_split(sh, padded_vocab(cfg.vocab)):
@@ -399,16 +425,6 @@ def _xent_vocab_parallel(logits, labels, sh, z_loss: float = 1e-4):
     return loss.mean()
 
 
-def check_family(cfg, sharder):
-    """The transformer families this slice runs on a mesh: dense and MoE;
-    the VLM raises naming ROADMAP item 16. Returns the sharder with a mesh
-    (or None)."""
-    sh = mesh_sharder(sharder)
-    if sh is not None and cfg.family not in ("dense", "moe"):
-        require_no_sharder(sharder, f"the {cfg.family} family")
-    return sh
-
-
 def enter_batch(params, sh, places):
     """The parameters (a tree of a rank's blocks, ``places`` their
     placements) entering a loss on a mesh: each leaf over the batch axes it
@@ -424,22 +440,13 @@ def enter_batch(params, sh, places):
     return _unflatten_like(params, out)
 
 
-def lm_loss(cfg, params, batch, sharder=None, impl="ref", moe_dispatch="scatter",
-            places=None):
-    """Next-token cross-entropy plus the MoE auxiliary loss (differentiable
-    through autograd: ``train.make_train_step`` takes its gradient). On a
-    mesh the rank's loss is the global batch's (see the module docstring;
-    an ``a2a`` layer's auxiliary loss is the rank's own, as JAX's shard_map
-    returns it) and its gradient the rank's block of the global one.
-    ``places``: the blocks' placements (default :func:`lm_places`)."""
-    sh = check_family(cfg, sharder)
-    places = lm_places(cfg, sh) if places is None else places
-    params = enter_batch(params, sh, places)
-    x, positions = _inputs(cfg, params, batch, sh, places)
-    h, aux = forward_hidden(cfg, params, x, positions, sh, impl,
-                            moe_dispatch, places)
+def lm_xent(cfg, params, h, labels, sh, places):
+    """The next-token cross-entropy of the final hidden states ``h``
+    (``softmax_xent``, JAX's): on a mesh vocab-parallel where the model
+    axis cuts the vocabulary, and the global batch's mean (a pmean over the
+    batch axes)."""
     logits = logits_fn(cfg, params, h, sh, places)
-    labels = _as_tensor(batch["labels"], h.device, torch.long)
+    labels = _as_tensor(labels, h.device, torch.long)
     if sh is not None and model_split(sh, padded_vocab(cfg.vocab)):
         loss = _xent_vocab_parallel(logits, labels, sh)
     else:
@@ -447,6 +454,23 @@ def lm_loss(cfg, params, batch, sharder=None, impl="ref", moe_dispatch="scatter"
     if sh is not None:
         loss = col.leave(col.pmean(loss, sh.mesh, sh.axes("batch")), sh.mesh,
                          sh.axes("batch"))
+    return loss
+
+
+def lm_loss(cfg, params, batch, sharder=None, impl="ref", moe_dispatch="scatter", *,
+            places):
+    """Next-token cross-entropy plus the MoE auxiliary loss (differentiable
+    through autograd: ``train.make_train_step`` takes its gradient). On a
+    mesh the rank's loss is the global batch's (see the module docstring;
+    an ``a2a`` layer's auxiliary loss is the rank's own, as JAX's shard_map
+    returns it) and its gradient the rank's block of the global one.
+    ``places``: the blocks' placements (``Model.places``; None without a
+    mesh)."""
+    sh, params = mesh_entry(sharder, params, places)
+    x, positions = _inputs(cfg, params, batch, sh, places)
+    h, aux = forward_hidden(cfg, params, x, positions, sh, impl,
+                            moe_dispatch, places)
+    loss = lm_xent(cfg, params, h, batch["labels"], sh, places)
     return loss + aux, {"xent": loss, "aux": aux}
 
 
@@ -473,15 +497,12 @@ def init_cache(cfg, batch: int, seq_len: int, device=None):
 
 @torch.no_grad()
 def prefill(cfg, params, batch, seq_len: int, sharder=None, impl="ref",
-            moe_dispatch="scatter", places=None):
+            moe_dispatch="scatter", *, places):
     """Run the prompt through the stack, returning last-token logits + cache
     (``init_cache(cfg, B, seq_len)``'s layout, ready for ``decode_step``;
     on a mesh this rank's slots of it, see the module docstring).
-    ``places``: the blocks' placements (default :func:`lm_places`)."""
-    sh = check_family(cfg, sharder)
-    places = lm_places(cfg, sh) if places is None else places
-    lplaces = _layer_places(places)
-    tp = sh is not None and sh.axis_size("model") > 1
+    ``places``: the blocks' placements (None without a mesh)."""
+    sh = mesh_sharder(sharder)
     cdt = compute_dtype(cfg)
     x, positions = _inputs(cfg, params, batch, sh, places)
     B, S, _ = x.shape
@@ -490,59 +511,36 @@ def prefill(cfg, params, batch, seq_len: int, sharder=None, impl="ref",
     if cfg.sliding_window is None and S > W:
         raise ValueError(f"a prompt of {S} tokens does not fit a cache of "
                          f"seq_len={seq_len}")
-    # the last min(S, W) positions, each at its decode slot
-    keep = min(S, W)
-    slots = torch.arange(S - keep, S, device=x.device) % W
-    lo, c = 0, W
-    if tp:
-        m = sh.axis_size("model")
-        if W % m == 0:                  # this rank's block of the slots
-            c = W // m
-            lo = sh.mesh.axis_index("model") * c
-            cache["k"], cache["v"] = cache["k"][:, :, lo:lo + c].clone(), \
-                cache["v"][:, :, lo:lo + c].clone()
-        cache["slots"] = W
-    mine = (slots >= lo) & (slots < lo + c)
-    src = torch.arange(S - keep, S, device=x.device)[mine]
-    for i, lp in enumerate(layer_slices(params["layers"], cfg.n_layers)):
-        lp = gather_fsdp(lp, lplaces, sh)
+    lo, c = attn.mesh_cache(cache, ("k", "v"), sh, W)
+    dst, src = attn.prompt_slots(S, W, lo, c, x.device)
+    for i, lp in enumerate(gathered_layers(params, places, sh, cfg.n_layers, "layers")):
         h = apply_norm(cfg, lp["norm1"], x)
-        if tp:
-            o, k, v = attn.attention_tp(cfg, lp["attn"], h, positions, sh,
-                                        window=cfg.sliding_window, impl=impl,
-                                        with_kv=True)
-            x = x + o
-        else:
-            q, k, v = attn.qkv_proj(cfg, lp["attn"], h, positions)
-            o = attn.sdpa(q, k, v, causal=True, window=cfg.sliding_window,
-                          impl=impl)
-            x = x + o.reshape(B, S, -1) @ lp["attn"]["wo"].to(cdt)
+        o, k, v = attn.attention_with_kv(cfg, lp["attn"], h, positions, sh,
+                                         window=cfg.sliding_window, impl=impl)
+        x = x + o
         h2 = apply_norm(cfg, lp["norm2"], x)
         x = x + ffn(cfg, lp, h2, sh, moe_dispatch=moe_dispatch)[0]
-        cache["k"][i].index_copy_(1, slots[mine] - lo, k[:, src].to(cdt))
-        cache["v"][i].index_copy_(1, slots[mine] - lo, v[:, src].to(cdt))
+        cache["k"][i].index_copy_(1, dst, k[:, src].to(cdt))
+        cache["v"][i].index_copy_(1, dst, v[:, src].to(cdt))
     x = apply_norm(cfg, _used(params, places, sh, "final_norm"), x)
-    logits = _whole_logits(cfg, params, x[:, -1:], sh, places)
+    logits = whole_logits(cfg, params, x[:, -1:], sh, places)
     cache["pos"].fill_(S)
     return logits, cache
 
 
 @torch.no_grad()
-def decode_step(cfg, params, cache, tokens, sharder=None, places=None):
+def decode_step(cfg, params, cache, tokens, sharder=None, *, places):
     """One decode step. tokens (B,1) int; cache from init_cache/prefill,
     whose k/v are updated in place (the returned cache holds the same
     tensors and ``pos + 1``). On a mesh the cache is the mesh prefill's:
     this rank's slots, ``cache["slots"]`` of them in all; ``places``: the
-    blocks' placements (default :func:`lm_places`)."""
-    sh = check_family(cfg, sharder)
-    places = lm_places(cfg, sh) if places is None else places
-    lplaces = _layer_places(places)
+    blocks' placements (None without a mesh)."""
+    sh = mesh_sharder(sharder)
     x = embed_tokens(cfg, params, tokens, sh, places)
     pos = _as_tensor(cache["pos"], x.device, torch.int32)
     W = cfg.sliding_window
     slots = cache.get("slots")
-    for i, lp in enumerate(layer_slices(params["layers"], cfg.n_layers)):
-        lp = gather_fsdp(lp, lplaces, sh)
+    for i, lp in enumerate(gathered_layers(params, places, sh, cfg.n_layers, "layers")):
         h = apply_norm(cfg, lp["norm1"], x)
         o, _, _ = attn.decode_attention(cfg, lp["attn"], h, cache["k"][i],
                                         cache["v"][i], pos, window=W,
@@ -551,7 +549,7 @@ def decode_step(cfg, params, cache, tokens, sharder=None, places=None):
         h2 = apply_norm(cfg, lp["norm2"], x)
         x = x + ffn(cfg, lp, h2, sh, moe_dispatch="scatter")[0]
     x = apply_norm(cfg, _used(params, places, sh, "final_norm"), x)
-    logits = _whole_logits(cfg, params, x, sh, places)
+    logits = whole_logits(cfg, params, x, sh, places)
     out = {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
     if slots is not None:
         out["slots"] = slots

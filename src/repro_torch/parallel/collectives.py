@@ -63,7 +63,7 @@ issues none (the paper's zero-communication claim). It also counts them
 by kind (``kinds``: operation name -> count) and the bytes each sends
 (``nbytes``: its input tensors', e.g. an all-reduce's tensor, an
 all-gather's own block, an all_to_all's or a reduce-scatter's whole
-input).
+input; ``kind_bytes``: operation name -> bytes).
 """
 from __future__ import annotations
 
@@ -86,13 +86,16 @@ class CollectiveCounter(TorchDispatchMode):
         super().__init__()
         self.count = 0
         self.kinds: Counter = Counter()
+        self.kind_bytes: Counter = Counter()
         self.nbytes = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if getattr(func, "namespace", "") in COLLECTIVE_NAMESPACES:
+            kind, sent = func._schema.name.split("::")[-1], _sent_bytes(func, args)
             self.count += 1
-            self.kinds[func._schema.name.split("::")[-1]] += 1
-            self.nbytes += _sent_bytes(func, args)
+            self.kinds[kind] += 1
+            self.kind_bytes[kind] += sent
+            self.nbytes += sent
         return func(*args, **(kwargs or {}))
 
 

@@ -40,9 +40,8 @@ those it gathers whole over them just before use
 (``collectives.gather_weight``, whose backward reduce-scatters the
 gradient over them where they are batch axes), and over the other batch
 axes it enters the loss whole (``collectives.enter``, whose backward sums
-the gradient). The dense and MoE transformer families run on a mesh
-(:func:`mesh_sharder`); the others raise naming ROADMAP item 16
-(:func:`require_no_sharder`).
+the gradient). Every model family runs on a mesh (:func:`mesh_sharder`
+tells a sharder that holds one from the single-card path).
 """
 from __future__ import annotations
 
@@ -85,16 +84,6 @@ def model_split(sharder, n: int) -> bool:
     guard of :func:`param_shardings`)."""
     m = sharder.axis_size("model") if sharder is not None else 1
     return m > 1 and n % m == 0
-
-
-def require_no_sharder(sharder, what: str = "this model family") -> None:
-    """For what does not run on a mesh yet: raise ``NotImplementedError``
-    naming ROADMAP item 16 when ``sharder`` holds a mesh (``TypeError``
-    when it is not a :class:`Sharder`)."""
-    if mesh_sharder(sharder) is not None:
-        raise NotImplementedError(
-            f"{what} on a mesh is not ported yet (ROADMAP item 16): only the "
-            "dense and MoE transformer families run sharded")
 
 
 def batch_axes_for(mesh, global_batch: int) -> tuple:

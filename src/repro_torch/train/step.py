@@ -5,7 +5,7 @@ optional grad transform -> the optional int8 error-feedback compression ->
 global-norm clipping -> AdamW, in the JAX package's order, with optional
 microbatch gradient accumulation (a loop in the place of ``lax.scan``).
 
-On a mesh (a ``sharder`` with one; the dense and MoE families) the params
+On a mesh (a ``sharder`` with one; every model family) the params
 and moments are the rank's blocks (``parallel.sharding.shard_params``: cut
 over ``"model"`` and over ``"data"``, ZeRO-3) and the batch its block of
 the global batch: the model's loss already gives each rank its block of
@@ -36,8 +36,7 @@ from repro_torch.optim.adamw import (
 from repro_torch.optim.compressed import (cut_axes, ef_compress_decompress,
                                           init_error_feedback)
 from repro_torch.parallel import collectives as col
-from repro_torch.parallel.sharding import (_unflatten_like, held_shardings,
-                                           mesh_sharder, require_no_sharder)
+from repro_torch.parallel.sharding import _unflatten_like, held_shardings, mesh_sharder
 
 
 @dataclass
@@ -73,14 +72,14 @@ def make_train_step(model, opt_cfg: OptConfig, sharder=None, impl="auto",
 
     ``impl``: the backend of the model's loss (``"auto"``: the card's;
     raises without a GPU). ``sharder``: None or a mesh-less ``Sharder``
-    (one card), or a ``Sharder`` on a mesh for the dense and MoE families
-    (other families raise naming ROADMAP item 16). ``grad_compress=True`` threads an
+    (one card), or a ``Sharder`` on a mesh (any family: the params and
+    moments the rank's blocks, the batch its rows; a leaf the loss does not
+    read, such as the VLM's embedding table, gets a zero gradient block,
+    which AdamW's decay still updates). ``grad_compress=True`` threads an
     int8 error-feedback residual through ``opt_state["ef_residual"]``.
     ``metrics``: the model's metrics plus ``loss``, ``grad_norm`` and
     ``lr`` (0-d tensors)."""
     sh = mesh_sharder(sharder)
-    if sh is not None and model.config.family not in ("dense", "moe"):
-        require_no_sharder(sharder, f"training the {model.config.family} family")
     # the blocks' placements, from the global shapes (the guard decides by them)
     places = held_shardings(model.param_specs(), model.config, sh) \
         if sh is not None else None

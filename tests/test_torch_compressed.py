@@ -2,7 +2,9 @@
 against the JAX package's, bit for bit on the same numpy inputs:
 ``quantize_int8``, ``dequantize_int8``, ``ef_compress_decompress`` over a
 tree (f32 and bf16 grads, residual threaded over steps) and the grad
-transform; ``axis=`` (the mesh's int8 all-reduce) raises naming item 16.
+transform. ``axis=`` (the mesh's int8 all-reduce) raises without a mesh
+and is JAX's inside ``shard_map`` on a one-rank mesh (4 ranks against 4
+host devices: ``test_torch_mesh_collectives.py``).
 """
 import jax
 import jax.numpy as jnp

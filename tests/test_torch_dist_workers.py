@@ -576,3 +576,88 @@ def mesh_resume(rank, world, out, argv, ckpt):
            "meta": meta, "blocks": _np_tree(blocks)}
     got["driver"] = train.main(list(argv))
     return got
+
+
+def mesh_families(rank, world, out, inputs, driver_argv):
+    """The SSM, hybrid, encoder-decoder and VLM families on this group's
+    meshes: every family case's loss and this rank's gradient blocks
+    (the rank's rows of each input, ``launch.train.batch_block`` on its
+    batch dimension), every decode case's prefill and decode logits on (1,
+    4), the VLM's mesh train step's gradient of its embedding table (which
+    the loss never reads), and the training driver on (2, 2)
+    (``driver_argv``)."""
+    import pickle
+
+    import torch
+    sys_path_tests()
+    import torch_mesh_cases as C
+    from repro_torch import interop
+    from repro_torch.launch import train
+    from repro_torch.models import build_model
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.parallel import collectives as col
+    from repro_torch.parallel.sharding import (Sharder, _flatten_with_path,
+                                               _unflatten_like)
+    from repro_torch.train import make_train_step
+    with open(inputs, "rb") as f:
+        inp = pickle.load(f)
+
+    def tensors(batch):
+        return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+    got = {}
+    for name, (arch, shape, B, S, ch) in C.FAMILY_CASES.items():
+        cfg = C.config(arch, ch)
+        model = build_model(cfg)
+        sharder = Sharder(_lm_mesh(shape), B)
+        params = interop.lm_params_from_numpy(inp[name]["params"], "cpu", cfg=cfg,
+                                              sharder=sharder)
+        work = [p.requires_grad_(True) for p in tree_leaves(params)]
+        batch = train.batch_block(tensors(inp[name]["batch"]), sharder,
+                                  train.batch_dims(model))
+        loss, _ = model.loss(params, batch, sharder, impl="ref")
+        grads = torch.autograd.grad(loss, work, allow_unused=True, materialize_grads=True)
+        got[name] = {"loss": float(loss),
+                     "grads": _np_tree(_unflatten_like(params, list(grads))),
+                     "batch_shapes": {k: tuple(v.shape) for k, v in batch.items()}}
+        if cfg.family == "vlm":       # the train step's block of the unread table
+            seen = {}
+            step = make_train_step(model, OptConfig(), sharder, impl="ref",
+                                   grad_transform=lambda g: seen.update(g=g) or g)
+            blocks = [t.detach().clone() for t in tree_leaves(params)]
+            step(_unflatten_like(params, blocks), step.optimizer.init(
+                _unflatten_like(params, blocks)), batch)
+            g = seen["g"]["embed"]["tok"]
+            got[name]["step_embed_grad"] = (type(g).__name__, tuple(g.shape),
+                                            float(g.abs().max()))
+    mesh = _lm_mesh((1, 4))
+    for name, (arch, B, S, n) in C.FAMILY_DECODE.items():
+        cfg = C.config(arch, {})
+        model = build_model(cfg)
+        sharder = Sharder(mesh, B)
+        params = interop.lm_params_from_numpy(inp[name]["params"], "cpu", cfg=cfg,
+                                              sharder=sharder)
+        batch = tensors({k: v for k, v in inp[name]["batch"].items()
+                         if k not in ("labels", "steps")})
+        steps = torch.from_numpy(inp[name]["batch"]["steps"])
+        if cfg.family == "encdec":
+            batch["tgt_tokens"] = batch["tgt_tokens"][:, :1]
+            seq_len = C.ENCDEC_SLOTS
+        else:
+            seq_len = S + n
+        logits, cache = model.prefill(params, batch, seq_len, sharder, impl="ref")
+        seq = [logits.numpy().copy()]
+        with col.count_collectives() as wire:
+            for i in range(n):
+                logits, cache = model.decode_step(params, cache, steps[:, i:i + 1],
+                                                  sharder)
+                seq.append(logits.numpy().copy())
+        got[name] = {"logits": seq,
+                     "cache": {k: tuple(v.shape) for k, v in cache.items()
+                               if isinstance(v, torch.Tensor) and v.dim()},
+                     "step_bytes": wire.nbytes / n,
+                     "in_proj_bytes": sum(t.nbytes for path, t in _flatten_with_path(params)
+                                          if path[-1] == "in_proj")}
+    got["driver"] = f32_driver(2).main(list(driver_argv))
+    return got

@@ -371,9 +371,8 @@ def test_loss_forward_equals_jax():
 # --------------------------------------------------------------------------- #
 def test_sharder_raises():
     """A sharder that is not a ``Sharder`` is a TypeError; the VLM family
-    on a mesh is not ported (ROADMAP item 16) and raises rather than
-    running unsharded (the dense family on a mesh:
-    ``test_torch_mesh_models.py``)."""
+    runs on a mesh (here one rank: the single-card loss bit for bit and its
+    prefill logits; on 4 ranks: ``test_torch_mesh_families.py``)."""
     cfg = _cfg("llama3_8b")
     model = build_model(cfg)
     params = model.init(0, device="cpu")
@@ -385,10 +384,13 @@ def test_sharder_raises():
     mesh = Mesh({"data": 1, "model": 1}, ("data", "model"), {"data": 0, "model": 0},
                 0, torch.device("cpu"))
     batch = _batch(_cfg("qwen2_vl_7b"), 8)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        vlm.loss(vparams, batch, Sharder(mesh, B), impl="ref")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        vlm.prefill(vparams, _prompt(batch, 8), 8, Sharder(mesh, B), impl="ref")
+    want, _ = vlm.loss(vparams, batch, impl="ref")
+    got, _ = vlm.loss(vparams, batch, Sharder(mesh, B), impl="ref")
+    assert torch.equal(got, want)
+    want, _ = vlm.prefill(vparams, _prompt(batch, 8), 8, impl="ref")
+    got, cache = vlm.prefill(vparams, _prompt(batch, 8), 8, Sharder(mesh, B), impl="ref")
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert "slots" not in cache
 
 
 def test_entry_points_raise_on_auto_without_a_gpu(monkeypatch):

@@ -3,7 +3,8 @@ and resumes (``tests/test_drivers.py``'s run), resumes a checkpoint the JAX
 driver wrote (step 5's loss within 1e-5 of JAX's own resumed step 5, both
 at float32 compute), takes microbatches and int8 compression, and raises
 without a GPU under ``"auto"``; a mesh-less ``Sharder`` runs every family's
-loss while ``object()`` and a mesh still raise.
+loss, ``object()`` raises, and every family's loss on a one-rank mesh is
+JAX's on a one-device mesh.
 """
 import shutil
 
@@ -115,15 +116,10 @@ def test_meshless_sharder_runs_the_loss(arch):
                 0, torch.device("cpu"))
     with pytest.raises(TypeError, match="Sharder"):
         model.loss(params, batch, object(), impl="ref")
-    if cfg.family not in ("dense", "moe"):   # not on a mesh yet: raises
-        with pytest.raises(NotImplementedError, match="item 16"):
-            model.loss(params, batch, Sharder(mesh, T.B), impl="ref")
-        with pytest.raises(NotImplementedError, match="item 16"):
-            T.make_train_step(model, T.OptConfig(), Sharder(mesh, T.B), impl="ref")
-        return
     # on a one-rank mesh: JAX's loss on a one-device mesh (the MoE families
     # route as JAX's do on a mesh: arctic to a2a, grok to the tp block; 4
-    # ranks against 4 devices: test_torch_mesh_models.py)
+    # ranks against 4 devices: test_torch_mesh_models.py and, for the SSM,
+    # hybrid, encoder-decoder and VLM families, test_torch_mesh_families.py)
     import jax
     from repro.launch.mesh import build_mesh
     from repro.models import build_model as jbuild

@@ -1,10 +1,10 @@
 """The LM-on-a-mesh cases of the port's CPU parity tests
-(``test_torch_mesh_{collectives,models,training}.py``): their inputs, the
+(``test_torch_mesh_{collectives,models,training,families}.py``): their inputs, the
 JAX package's results on 4 host devices, and the port's side on 4 ``gloo``
 ranks. It holds no test of its own.
 
 The JAX side runs in a subprocess (``python tests/torch_mesh_cases.py
-<group> <inputs.pkl> <out.pkl>`` with ``XLA_FLAGS=--xla_force_host_
+<group> <out.pkl> [<inputs.pkl>]`` with ``XLA_FLAGS=--xla_force_host_
 platform_device_count=4``), one per test module; the port's side runs in
 the ranks ``test_torch_dist_workers.launch`` spawns, one launch per test
 module. JAX is imported only inside the subprocess's functions, so the
@@ -17,6 +17,7 @@ import os
 import pickle
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -60,16 +61,20 @@ DECODE_SAME = {"llama_decode_2x2": "llama_decode_1x4"}
 
 def config(arch, changes, jax_side=False):
     """The SMOKE config in float32 compute with ``changes`` (a
-    ``capacity_factor`` entry goes to the MoE config)."""
+    ``capacity_factor`` entry goes to the MoE config, an ``ssm_head_dim``
+    one to the SSM config)."""
     if jax_side:
         from repro.configs import get_smoke_config
     else:
         from repro_torch.configs import get_smoke_config
     changes = dict(changes)
     cap = changes.pop("capacity_factor", None)
+    head_dim = changes.pop("ssm_head_dim", None)
     cfg = get_smoke_config(arch).replace(compute_dtype="float32", **changes)
     if cap is not None:
         cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, capacity_factor=cap))
+    if head_dim is not None:
+        cfg = cfg.replace(ssm=dataclasses.replace(cfg.ssm, head_dim=head_dim))
     return cfg
 
 
@@ -302,8 +307,155 @@ def jax_collectives(inp: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# the SSM, hybrid, encoder-decoder and VLM families
+# --------------------------------------------------------------------------- #
+#: loss cases: (arch, mesh, batch, sequence, config changes)
+FAMILY_CASES = {
+    # in_proj's 296 columns in blocks of 148 / 74: not the ranks' heads
+    "mamba_2x2": ("mamba2_780m", (2, 2), 4, 64, {}),
+    "mamba_1x4": ("mamba2_780m", (1, 4), 4, 64, {}),
+    # 2 groups of 2 and 1 tail layer: the shared block applied twice
+    "zamba_2x2": ("zamba2_1_2b", (2, 2), 4, 32, {}),
+    "seamless_2x2": ("seamless_m4t_large_v2", (2, 2), 4, 16, {}),
+    "qwen_vl_2x2": ("qwen2_vl_7b", (2, 2), 4, 16, {}),
+    # 3 rows do not split over "data": no batch axes
+    "mamba_b3_2x2": ("mamba2_780m", (2, 2), 3, 64, {}),
+    # 2 heads of 64 do not divide the 4-wide model axis: every rank the
+    # whole block, the leaves "model" cuts (conv_w, out_proj) gathered
+    "mamba_whole_1x4": ("mamba2_780m", (1, 4), 4, 32, {"ssm_head_dim": 64}),
+}
+#: prefill + decode on (1, 4): (arch, batch, prompt, decode steps); the
+#: prompt and its steps within one SSD chunk (JAX asserts whole chunks)
+FAMILY_DECODE = {
+    "mamba_decode_1x4": ("mamba2_780m", 2, 16, 4),
+    "zamba_decode_1x4": ("zamba2_1_2b", 2, 8, 4),
+    "seamless_decode_1x4": ("seamless_m4t_large_v2", 2, 16, 4),
+    "qwen_vl_decode_1x4": ("qwen2_vl_7b", 2, 16, 4),
+}
+#: the encoder-decoder's decode cache slots (>= its steps + 1; divides 4)
+ENCDEC_SLOTS = 8
+
+
+def family_batch(cfg, B, S, seed=1) -> dict:
+    """A train batch of the family's inputs: tokens, or the encoder's
+    embeddings and target tokens, or the VLM's embeddings and M-RoPE
+    positions (drawn at random, not from ``arange``: a wrong batch cut
+    of the (3, B, S) positions shows)."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (B, S + 1)).astype(np.int32)
+    emb = lambda: (0.5 * rng.standard_normal((B, S, cfg.d_model))).astype(np.float32)
+    if cfg.family == "encdec":
+        return {"src_embeds": emb(), "tgt_tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "vlm":
+        return {"embeds": emb(), "labels": toks[:, 1:],
+                "positions": rng.integers(0, S, (3, B, S)).astype(np.int32)}
+    return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+
+def family_inputs() -> dict:
+    """The family cases' params (JAX's init, numpy) and batches; a decode
+    case's batch holds the prompt and the tokens its steps feed."""
+    import jax
+    from repro.models import build_model
+    inits: dict = {}
+
+    def params(arch, ch):             # one init a config, shared by its cases
+        key = (arch, tuple(sorted(ch.items())))
+        if key not in inits:
+            inits[key] = jax.tree.map(np.asarray, jax.jit(build_model(
+                config(arch, ch, True)).init)(jax.random.PRNGKey(0)))
+        return inits[key]
+
+    out = {}
+    for name, (arch, shape, B, S, ch) in FAMILY_CASES.items():
+        out[name] = {"params": params(arch, ch),
+                     "batch": family_batch(config(arch, ch, True), B, S)}
+    for name, (arch, B, S, n) in FAMILY_DECODE.items():
+        cfg = config(arch, {}, True)
+        batch = family_batch(cfg, B, S, seed=2)
+        batch["steps"] = np.random.default_rng(3).integers(
+            0, cfg.vocab, (B, n)).astype(np.int32)
+        out[name] = {"params": params(arch, {}), "batch": batch}
+    return out
+
+
+def teacher_forced(cfg, params, batch, sharder):
+    """JAX's logits at every position of the prompt followed by the decode
+    steps' tokens (for the encoder-decoder: of the target tokens, BOS and
+    the steps' tokens, against the encoded source): (B, S + n, Vp)."""
+    import jax.numpy as jnp
+    from repro.models import encdec, hybrid, ssm_lm, transformer
+    cdt = jnp.float32
+    steps = batch["steps"]
+    if cfg.family == "encdec":
+        enc = encdec.encode(cfg, params, batch["src_embeds"].astype(cdt), sharder)
+        tgt = jnp.concatenate([batch["tgt_tokens"][:, :1], steps], axis=1)
+        return transformer.logits_fn(cfg, params, encdec.decode_train(
+            cfg, params, tgt, enc, sharder))
+    emb = params["embed"]["tok"].astype(cdt)
+    if cfg.family == "vlm":
+        B, S, _ = batch["embeds"].shape
+        x = jnp.concatenate([batch["embeds"], emb[steps]], axis=1)
+        later = jnp.broadcast_to(S + jnp.arange(steps.shape[1], dtype=jnp.int32),
+                                 (3, B, steps.shape[1]))
+        pos = jnp.concatenate([batch["positions"], later], axis=2)
+        h, _ = transformer.forward_hidden(cfg, params, x, pos, sharder)
+        return transformer.logits_fn(cfg, params, h)
+    toks = jnp.concatenate([batch["tokens"], steps], axis=1)
+    x = emb[toks]
+    if cfg.family == "ssm":
+        h = ssm_lm.forward_hidden(cfg, params, x, sharder)
+    else:
+        B, S = toks.shape
+        h = hybrid.forward_hidden(cfg, params, x, transformer.make_positions(cfg, B, S),
+                                  sharder)
+    return transformer.logits_fn(cfg, params, h)
+
+
+def jax_families(inp: dict) -> dict:
+    """JAX's loss and gradients of every family case, jitted with
+    ``Sharder(mesh, B)`` and ``param_shardings``; every decode case's
+    teacher-forced logits on (1, 4)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import build_model
+    from repro.parallel.sharding import Sharder, param_shardings
+    out = {}
+    for name, (arch, shape, B, S, ch) in FAMILY_CASES.items():
+        cfg = config(arch, ch, True)
+        model = build_model(cfg)
+        mesh = _jmesh(shape)
+        sharder = Sharder(mesh, B)
+        params = jax.tree.map(jnp.asarray, inp[name]["params"])
+        batch = jax.tree.map(jnp.asarray, inp[name]["batch"])
+        ps = param_shardings(jax.eval_shape(lambda: params), cfg, sharder)
+        f = jax.jit(jax.value_and_grad(lambda p, b: model.loss(p, b, sharder)[0]),
+                    in_shardings=(ps, None))
+        with mesh:
+            loss, grads = f(params, batch)
+        out[name] = {"loss": float(loss), "grads": jax.tree.map(np.asarray, grads)}
+    mesh = _jmesh((1, 4))
+    for name, (arch, B, S, n) in FAMILY_DECODE.items():
+        cfg = config(arch, {}, True)
+        sharder = Sharder(mesh, B)
+        params = jax.tree.map(jnp.asarray, inp[name]["params"])
+        batch = jax.tree.map(jnp.asarray, inp[name]["batch"])
+        with mesh:
+            logits = jax.jit(lambda p, b: teacher_forced(cfg, p, b, sharder))(params, batch)
+        out[name] = {"logits": np.asarray(logits)}
+    return out
+
+
 GROUPS = {"models": (model_inputs, jax_models),
-          "collectives": (collective_inputs, jax_collectives)}
+          "collectives": (collective_inputs, jax_collectives),
+          "families": (family_inputs, jax_families)}
+
+
+def _jax_env() -> dict:
+    return dict(os.environ, JAX_PLATFORMS="cpu",
+                XLA_FLAGS="--xla_force_host_platform_device_count=4",
+                PYTHONPATH=str(ROOT / "src") + os.pathsep + str(ROOT / "tests"))
 
 
 def run_jax(group: str, workdir: Path) -> tuple:
@@ -311,18 +463,60 @@ def run_jax(group: str, workdir: Path) -> tuple:
     subprocess on 4 host devices."""
     workdir.mkdir(parents=True, exist_ok=True)
     res = workdir / f"jax_{group}.pkl"
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=4",
-               PYTHONPATH=str(ROOT / "src") + os.pathsep + str(ROOT / "tests"))
     subprocess.run([sys.executable, str(Path(__file__)), group, str(res)],
-                   env=env, check=True, timeout=JAX_TIMEOUT_S)
+                   env=_jax_env(), check=True, timeout=JAX_TIMEOUT_S)
     with open(res, "rb") as f:
         inp, out = pickle.load(f)
     return inp, out
 
 
+class JaxJob:
+    """A group's JAX side started in a subprocess, so that the port's side
+    runs meanwhile: :meth:`inputs` waits for the group's inputs (written
+    first, to ``<workdir>/inputs_<group>.pkl``, whose path it returns with
+    them), :meth:`results` for JAX's results."""
+
+    def __init__(self, group: str, workdir: Path):
+        workdir.mkdir(parents=True, exist_ok=True)
+        self.res = workdir / f"jax_{group}.pkl"
+        self.inp = workdir / f"inputs_{group}.pkl"
+        self.t0 = time.monotonic()
+        self.proc = subprocess.Popen([sys.executable, str(Path(__file__)), group,
+                                      str(self.res), str(self.inp)], env=_jax_env())
+
+    def _wait_for(self, path: Path) -> None:
+        while not path.exists():
+            if self.proc.poll() is not None and not path.exists():
+                raise RuntimeError(f"the JAX side exited {self.proc.returncode}")
+            if time.monotonic() - self.t0 > JAX_TIMEOUT_S:
+                self.proc.kill()
+                raise TimeoutError(f"the JAX side took over {JAX_TIMEOUT_S} s")
+            time.sleep(0.2)
+
+    def inputs(self) -> tuple:
+        self._wait_for(self.inp)
+        with open(self.inp, "rb") as f:
+            return pickle.load(f), self.inp
+
+    def results(self) -> dict:
+        try:
+            self.proc.wait(timeout=max(1.0, JAX_TIMEOUT_S - (time.monotonic() - self.t0)))
+        finally:
+            if self.proc.poll() is None:
+                self.proc.kill()
+        if self.proc.returncode:
+            raise RuntimeError(f"the JAX side exited {self.proc.returncode}")
+        with open(self.res, "rb") as f:
+            return pickle.load(f)[1]
+
+
 if __name__ == "__main__":
     make, run = GROUPS[sys.argv[1]]
     inputs = make()
+    if len(sys.argv) > 3:            # the inputs first, for a port side meanwhile
+        tmp = sys.argv[3] + ".tmp"
+        with open(tmp, "wb") as fh:
+            pickle.dump(inputs, fh)
+        os.replace(tmp, sys.argv[3])
     with open(sys.argv[2], "wb") as fh:
         pickle.dump((inputs, run(inputs)), fh)
