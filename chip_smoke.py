@@ -14,7 +14,8 @@ toolkit; imports nothing of JAX or of the JAX package. Phases:
            MLP forward and backward and INR inference kernels in
            ``cuobjdump -sass`` (a bf16 forward or inference instantiation
            without them fails, and any backward one without them or without
-           cp.async);
+           cp.async; the listing is made in the background and these
+           counts are held once phase 5 is done);
 2. kernels each kernel against its plain PyTorch version on the card, at
            PRODUCTION256 shapes (L=5, F=4, T=2^13, res 4..64: dense and
            hashed levels): the serving kernels with tables U(-1,1),
@@ -81,7 +82,9 @@ toolkit; imports nothing of JAX or of the JAX package. Phases:
 6. report  per-tick and per-kernel times (CUDA events) with each kernel's
            bound, its plain version's time and a PyTorch yardstick (for the
            INR inference kernel the encode + MLP pair back to back, at the
-           tick's shapes and on a 2^22 decode chunk; the MLP forward also
+           tick's shapes and on a 2^22 decode chunk, and the grid-stride
+           design before it there and at PRODUCTION's and ABLATION's
+           widths, with the stage clock of both; the MLP forward also
            under bf16 against the bf16 bmm + relu chain), a tick's peak memory
            and host time with and without the inference route, and the
            device's idle share over one profiled serving tick, one
@@ -224,7 +227,7 @@ The unfused path's deterministic routes (the hash backward's int64
 fixed-point scatter, the MLP backward's per-block dW rows summed in order)
 are held in phase 2 (``unfused_det_checks``: the default route's
 yardsticks, controls, two launches bit for bit, one partition alone equal
-to its row), run two clean 512-step unfused runs bit for bit in phase 5
+to its row), run two clean 256-step unfused runs bit for bit in phase 5
 (``unfused_det_training``, f32 and bf16) and are timed in phase 6 beside
 the default route.
 
@@ -244,6 +247,7 @@ Float32 products of the plain versions run in full float32
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import ctypes
 import json
@@ -253,6 +257,7 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
+SCRIPT_T0 = time.perf_counter()
 
 # H100 SXM published peaks: HBM bytes/s, float32 FLOP/s outside the tensor
 # cores (the DVNR kernels run float32 on the CUDA cores), and dense bf16
@@ -302,6 +307,10 @@ CHECK_N = (100_003, 4_099)   # phase 2 coordinate rows (ragged)
 DECODE_CHUNK = 1 << 22
 TRAIN_EDGE = 256             # phases 2 and 5: 2x2x2 partitions of 256^3 each
 TRAIN_STEPS, COMPARE_STEPS, PROFILE_STEPS = 512, 16, 16
+#: phase 5's two clean runs of the unfused path's deterministic routes,
+#: f32 and bf16: fewer steps than TRAIN_STEPS (17.8 ms a step: four runs of
+#: 512 steps took 36 s of the script's time limit)
+DET_UNFUSED_STEPS = 256
 DEVICE = "cuda"
 # phase 2: flash attention against its plain version, (B, Sq, Sk, Hq, Hkv,
 # dh, causal, window, dtype)
@@ -388,29 +397,32 @@ TRAIN_FAMILIES = (("olmo_1b", None, None), ("llama3_8b", 2, None),
 TRAIN_FAMILY_BATCH, TRAIN_FAMILY_SEQ, TRAIN_FAMILY_STEPS = 4, 1024, 3
 TRAIN_CONFIGS: dict = {}
 TRAIN_IMPL = "auto"           # the trained path's backend ("auto": the card's)
-# phase 14: the LMs on a mesh of MESH_WORLD gloo ranks sharing the card. (a) TRAIN_LM_ARCH through the driver, MESH_DRIVER_STEPS steps at
+# phase 14: the LMs on a mesh of MESH_WORLD gloo ranks sharing the card.
+# (a) TRAIN_LM_ARCH through the driver, MESH_DRIVER_STEPS steps at
 # TRAIN_LM_ARGS' batch and sequence, on make_mesh_for's (1, 4); (b)
 # MESH_DENSE (arch, layers): on (1, 4) a MESH_SERVE (B, S, decode steps)
-# prefill and decode, then on (2, 2) one MESH_TRAIN (B, S, steps) train
-# step; (c) each of MESH_MOE (arch, layers, experts): on (2, 2) a
+# prefill and decode, then on (2, 2) one train step of MESH_TRAIN's (B, S,
+# steps) B x S; (c) each of MESH_MOE (arch, layers, experts): on (2, 2) a
 # MESH_MOE_PROMPT (B, S) prefill at the config's capacity and, for
-# expert-parallel experts, at one that does not bind, then train steps:
-# tensor-parallel experts MESH_TRAIN's (held to phase 13's losses: the
-# second checks an AdamW update of the fsdp blocks), expert-parallel ones
-# one at the capacity that does not bind (where a2a drops what the scatter
-# drops: nothing). Each train run's first step holds its gradient against
-# the one-rank run's. On (2, 2) the weights and AdamW state are cut over
-# "data" too (the fsdp split), each layer's gathered over "data" at its
-# use: the gloo wire carries 5-7 GB a rank a step (30-60 s), hence so few.
+# expert-parallel experts, at one that does not bind, then one train step
+# (expert-parallel experts at the capacity that does not bind, where a2a
+# drops what the scatter drops: nothing). Each train run's first step
+# holds its gradient against the one-rank run's. On (2, 2) the weights and
+# AdamW state are cut over "data" too (the fsdp split), each layer's
+# gathered over "data" at its use: the gloo wire carries 5-7 GB a rank a
+# step (30-60 s), hence so few.
 # (d) each of MESH_FAMILIES (arch, config changes: the depth cut), the SSM,
 # hybrid, encoder-decoder and VLM families at published width: on (1, 4) a
 # MESH_FAMILY_SERVE (B, S, decode steps) prefill and decode against the
 # one-rank path's logits, then on (2, 2) one train step of MESH_TRAIN's
-# B x S, its gradient and loss held against the one-rank run's.
+# B x S, its gradient and loss held against the one-rank run's; MESH_UPDATE
+# takes MESH_TRAIN's steps instead, held to phase 13's losses: the second
+# checks an AdamW update of the fsdp blocks (on the cheapest step of those
+# phase 13 trained at the same config).
 # MESH_CONFIGS maps an arch to the config in the place of its published
 # CONFIG (the rehearsal on a CPU hands in SMOKE configs).
 MESH_WORLD = 4
-MESH_DRIVER_STEPS = 3
+MESH_DRIVER_STEPS = 2
 MESH_DENSE = ("llama3_8b", 2)
 MESH_SERVE = (2, 4096, 8)
 MESH_TRAIN = (4, 1024, 2)
@@ -419,6 +431,7 @@ MESH_MOE_PROMPT = (4, 1024)
 MESH_FAMILIES = (("mamba2_780m", {"n_layers": 2}), ("zamba2_1_2b", {"n_layers": 7}),
                  ("seamless_m4t_large_v2", {"n_layers": 1, "encoder_layers": 1}),
                  ("qwen2_vl_7b", {"n_layers": 1}))
+MESH_UPDATE = "qwen2_vl_7b"
 MESH_FAMILY_SERVE = (2, 1024, 2)
 MESH_CONFIGS: dict = {}
 #: phase 14's yardsticks: bf16 losses against the one-rank run's (relative),
@@ -467,13 +480,13 @@ SOURCES = {
     "fused_mlp_fwd_bf16": "src/repro_torch/csrc/fused_mlp.cu",
     "hash_encode_bwd_bf16": "src/repro_torch/csrc/hash_encode.cu",
     "fused_mlp_bwd_bf16": "src/repro_torch/csrc/fused_mlp.cu",
-    "train_step_bf16": "src/repro_torch/csrc/train_step_bf16.cu",
+    "train_step_bf16": "src/repro_torch/csrc/train_step_bf16_sampling.cu",
     "adamw_apply_master": "src/repro_torch/csrc/adamw.cu",
-    "inr_forward": "src/repro_torch/csrc/inr_forward.cu",
-    "inr_forward_bf16": "src/repro_torch/csrc/inr_forward.cu",
+    "inr_forward": "src/repro_torch/csrc/inr_forward.cuh",
+    "inr_forward_bf16": "src/repro_torch/csrc/inr_forward_bf16.cu",
     "train_step_v3": "src/repro_torch/csrc/train_step.cuh",
-    "train_step_det": "src/repro_torch/csrc/train_step_det.cu",
-    "train_step_det_bf16": "src/repro_torch/csrc/train_step_det_bf16.cu",
+    "train_step_det": "src/repro_torch/csrc/train_step_det_sampling.cu",
+    "train_step_det_bf16": "src/repro_torch/csrc/train_step_det_bf16_sampling.cu",
     "adamw_det": "src/repro_torch/csrc/adamw.cu",
     "adamw_det_master": "src/repro_torch/csrc/adamw.cu",
     "hash_encode_bwd_det": "src/repro_torch/csrc/hash_encode.cu",
@@ -501,34 +514,84 @@ def card_tag() -> str:
 SASS_COUNTS = {"flash_attention_kernel_bf16": ("HGMMA", "UTMALDG", "LDGSTS"),
                "fused_mlp_fwd_kernel": ("HMMA",),
                "fused_mlp_bwd_kernel": ("HMMA", "LDGSTS"),
-               "inr_forward_kernel": ("HMMA",)}
+               "inr_forward_kernel": ("HMMA", "UBLKCP"),
+               "inr_forward_grid_kernel": ("HMMA",)}
 
 
-def sass_counts(lib_path) -> dict:
-    """Per instantiation of the kernels of ``SASS_COUNTS`` in the built
-    library, the count of its instructions in its SASS (``cuobjdump
-    -sass``): HGMMA (wgmma), HMMA (mma.sync), UTMALDG (TMA), LDGSTS
-    (cp.async)."""
+def sass_counts(lib_path):
+    """Start ``cuobjdump -sass`` of the built library in the background (its
+    listing into ``build/``; it takes most of a minute, which the phases
+    after the build overlap) and return a function that waits for it and
+    gives, per instantiation of the kernels of ``SASS_COUNTS``, the count
+    of its instructions in its SASS: HGMMA (wgmma), HMMA (mma.sync),
+    UTMALDG (TMA), LDGSTS (cp.async), UBLKCP (bulk copies)."""
     import re
     from repro_torch.kernels import build
     cuobjdump = Path(build._nvcc()).with_name("cuobjdump")
-    out = subprocess.run([str(cuobjdump), "-sass", str(lib_path)],
-                         capture_output=True, text=True, timeout=300)
-    if out.returncode:
-        raise SmokeFailure(f"cuobjdump failed: {out.stderr.strip()[:500]}")
-    counts, cur = {}, None
-    for line in out.stdout.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            ops = [o for k, o in SASS_COUNTS.items() if k in m.group(1)]
-            cur = m.group(1) if ops else None
-            if cur:
-                counts[cur] = dict.fromkeys(ops[0], 0)
-        elif cur:
-            for op in counts[cur]:
-                if re.search(rf"\b{op}\b", line):
-                    counts[cur][op] += 1
+    listing = Path(lib_path).with_suffix(".sass")
+    t0 = time.perf_counter()
+    with open(listing, "w") as f:
+        proc = subprocess.Popen([str(cuobjdump), "-sass", str(lib_path)], stdout=f,
+                                stderr=subprocess.PIPE, text=True)
+    atexit.register(proc.kill)        # a phase that fails first leaves none behind
+
+    def counts() -> dict:
+        try:
+            _, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+            raise SmokeFailure("cuobjdump -sass ran past 300 s")
+        if proc.returncode:
+            raise SmokeFailure(f"cuobjdump failed: {err.strip()[:500]}")
+        waited = time.perf_counter() - t0
+        out, cur = {}, None
+        with open(listing) as f:
+            for line in f:
+                if "Function : " in line:
+                    name = re.search(r"Function : (\S+)", line).group(1)
+                    ops = [o for k, o in SASS_COUNTS.items() if k in name]
+                    cur = None
+                    if ops:
+                        cur = out[name] = dict.fromkeys(ops[0], 0)
+                elif cur is not None:
+                    for op in cur:
+                        if op in line and re.search(rf"\b{op}\b", line):
+                            cur[op] += 1
+        listing.unlink()
+        print(f"  cuobjdump -sass of the library: {waited:.1f} s after its start, "
+              f"parsed in {time.perf_counter() - t0 - waited:.1f} s")
+        return out
+
     return counts
+
+
+def sass_checks(sass) -> None:
+    """Phase 1's checks of the library's SASS (``sass_counts``' function,
+    called once phase 5 is done): every bf16 flash kernel on HGMMA, every
+    bf16 MLP forward and INR inference instantiation on HMMA, every INR
+    inference instantiation with bulk copies (UBLKCP: it can stage levels),
+    every MLP backward one on HMMA and LDGSTS (its rows staged with
+    cp.async)."""
+    sass = sass()
+    for fn, c in sorted(sass.items()):
+        print(f"  SASS {fn}: {c}")
+    flash = [c for fn, c in sass.items() if "flash_attention_kernel_bf16" in fn]
+    if not flash or any(c["HGMMA"] == 0 for c in flash):
+        raise SmokeFailure(f"bf16 flash kernels without HGMMA: {sass}")
+    for kernel in ("fused_mlp_fwd_kernel", "inr_forward_kernel"):
+        bf16 = [c["HMMA"] for fn, c in sass.items()
+                if kernel in fn and "bfloat16" in fn]
+        if not bf16 or min(bf16) == 0:
+            raise SmokeFailure(f"bf16 {kernel} instantiations without HMMA: {bf16}")
+    inr = [c["UBLKCP"] for fn, c in sass.items() if "inr_forward_kernel" in fn]
+    if len(inr) != 26 or min(inr) == 0:
+        raise SmokeFailure(f"inr_forward_kernel instantiations without UBLKCP: {inr}")
+    bwd = {fn: c for fn, c in sass.items()
+           if "fused_mlp_bwd_kernel" in fn and "StageClock" not in fn}
+    if len(bwd) != 6 or any(c["HMMA"] == 0 or c["LDGSTS"] == 0 for c in bwd.values()):
+        raise SmokeFailure(f"fused_mlp_bwd_kernel instantiations without HMMA or "
+                           f"LDGSTS: {bwd}")
 
 
 #: phase 1's ptxas reading of each entry function: mangled name ->
@@ -587,6 +650,29 @@ def check(name, got, want, *, atol, rtol=0.0, slack=None):
         raise SmokeFailure(f"{name}: max abs err {max_err:.3e} over tolerance")
     return max_err
 
+
+#: the phases begun so far: (name, host clock at its header)
+PHASE_CLOCK: list = []
+
+
+def phase_header(text: str) -> None:
+    """Print a phase's header line, after the wall time of the phase before
+    it (host clock)."""
+    now = time.perf_counter()
+    if PHASE_CLOCK:
+        name, t = PHASE_CLOCK[-1]
+        print(f"  {name}: {now - t:.1f} s of wall time")
+    PHASE_CLOCK.append((text.removeprefix("== ").split(":")[0], now))
+    print(text)
+
+
+def phase_times() -> str:
+    """Each phase's wall time, from its header to the next one's (the last:
+    to now), and their sum, in seconds."""
+    now = time.perf_counter()
+    ends = [t for _, t in PHASE_CLOCK[1:]] + [now]
+    parts = [f"{name} {end - t:.1f}" for (name, t), end in zip(PHASE_CLOCK, ends)]
+    return "; ".join(parts) + f"; the script in all {now - SCRIPT_T0:.1f} s"
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     import torch
@@ -668,6 +754,22 @@ def kernel_alone_ms(fn, symbol, calls: int = 5):
         print(f"    (no profiled kernel holds {symbols}; the keys: "
               f"{[key[:80] for key, _ in by_kernel[:6]]})")
     return sum(t) / calls if t else None
+
+
+def per_launch_ms(fn, symbol: str, calls: int = 5):
+    """Device ms a launch of the kernels whose profiler key holds
+    ``symbol``, over ``calls`` calls of ``fn`` profiled together: their
+    device time over the launches the profiler counted (it may record
+    fewer than were made); (None, 0) when it counted none, else (ms,
+    launches counted)."""
+    fn()
+    for _ in range(3):
+        _, by_kernel, _, _ = profile_tick(lambda: [fn() for _ in range(calls)])
+        hits = [(ms, n) for key, (ms, n) in by_kernel if symbol in key]
+        if hits:
+            n = sum(c for _, c in hits)
+            return sum(ms for ms, _ in hits) / n, n
+    return None, 0
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float = F32_FLOPS,
@@ -797,7 +899,7 @@ def lm_phase(tag: str, dev, flash_err: float) -> dict:
     cut = SHAPES["prefill_32k"]
     B, S, n_dec = LM_BATCH, LM_PROMPT, LM_DECODE
     seq_len = S + n_dec
-    print(f"== phase 7: LM serving, {cfg.name}: {cfg.n_layers} layers, "
+    phase_header(f"== phase 7: LM serving, {cfg.name}: {cfg.n_layers} layers, "
           f"d={cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {dh}, "
           f"d_ff={cfg.d_ff}, vocab {cfg.vocab}, {cfg.param_count():,} "
           f"{cfg.param_dtype} params, {cfg.compute_dtype} compute")
@@ -1194,7 +1296,7 @@ def families_phase(tag: str, dev) -> dict:
 
     B, S, n_dec = LM_BATCH, LM_PROMPT, LM_DECODE
     seq_len = S + n_dec
-    print(f"== phase 12: the MoE, SSM, hybrid, encoder-decoder and VLM families at "
+    phase_header(f"== phase 12: the MoE, SSM, hybrid, encoder-decoder and VLM families at "
           f"published width: {B} x {S} prompt tokens (seamless: source "
           f"frames; qwen2-VL: embeddings and M-RoPE positions) + {n_dec} greedy "
           f"decode steps each [{tag}]")
@@ -1853,8 +1955,7 @@ def lm_training_phase(tag: str, dev) -> tuple:
     ``train_family`` for each of TRAIN_FAMILIES); returns each path's flash
     launches, causal (row 8) and non-causal (row 8-nc)."""
     import torch
-    t0 = time.perf_counter()
-    print(f"== phase 13: LM training: {TRAIN_LM_ARCH} through the driver, then "
+    phase_header(f"== phase 13: LM training: {TRAIN_LM_ARCH} through the driver, then "
           f"{len(TRAIN_FAMILIES)} more architectures at published width [{tag}]")
     torch.backends.cuda.matmul.allow_tf32 = False
     first = driver_run(tag, dev)
@@ -1867,7 +1968,6 @@ def lm_training_phase(tag: str, dev) -> tuple:
         causal[f"train {arch}"] = c
         if nc:
             full[f"train {arch}"] = nc
-    print(f"  phase 13: {time.perf_counter() - t0:.1f} s [{tag}]")
     return causal, full
 
 
@@ -2823,6 +2923,312 @@ def fwd_case_checks(dev) -> None:
     torch.cuda.synchronize()
 
 
+#: the INR inference kernel's plan at each config's widths (f32, bf16):
+#: the levels' letters phase 1 requires of fwd_layout and of the library
+INR_PLANS = {"PRODUCTION256": ("sssdd", "sssss"), "PRODUCTION": ("ssddd", "ssddd"),
+             "ABLATION": ("dddddddddd", "ssdddddddd"), "SMOKE": (None, None)}
+
+
+def inr_layout_checks() -> None:
+    """Phase 1: the inference kernel's layout (which levels it stages, the
+    warps with a tile, the shared bytes, the block's threads) as ``fwd_layout``
+    computes it and as the library does (``repro_inr_forward_plan``), at
+    each config's widths in f32 and bf16, by the rule and with a mixed plan
+    forced; they must agree, and the rule must give ``INR_PLANS``'s
+    letters. Then each design's residency there (blocks, threads and warps
+    an SM): at least one block must fit."""
+    from repro_torch.configs import dvnr
+    from repro_torch.kernels.inr_forward import ops as iops
+
+    widths = [(name, getattr(dvnr, name).n_neurons, getattr(dvnr, name).n_features_per_level,
+               plans) for name, plans in INR_PLANS.items()]
+    # every other block: PRODUCTION256's levels at W = 32, and at F = 8
+    widths += [("PRODUCTION256", 32, 4, (None, None)), ("PRODUCTION256", 16, 8, (None, None))]
+    for name, W, F, (want32, want16) in widths:
+        hc = getattr(dvnr, name)
+        res, T = hc.level_resolutions(), hc.table_size
+        L, H = hc.n_levels, hc.n_hidden_layers
+        for isz, want in ((4, want32), (2, want16)):
+            for plan in (None, "s" * (L // 2) + "d" * (L - L // 2)):
+                py = iops.fwd_layout(res, T, F, W, H, isz, plan)
+                lib = iops.native_layout(res, T, F, W, H, isz, plan)
+                print(f"  inr_forward layout {name} W={W} F={F} "
+                      f"{'f32' if isz == 4 else 'bf16'} "
+                      f"{'rule' if plan is None else 'forced ' + plan}: {lib}")
+                if py != lib:
+                    raise SmokeFailure(f"inr_forward layout {name}: fwd_layout {py} "
+                                       f"against the library's {lib}")
+                if plan is None and want is not None and lib["plan"] != want:
+                    raise SmokeFailure(f"inr_forward plan {name}: {lib['plan']}, "
+                                       f"want {want}")
+            # the warps an SM holds (the occupancy calculator), each design
+            for design in iops.DESIGNS:
+                if design == "grid" and (W, F) not in iops.GRID_WIDTHS:
+                    continue
+                occ = iops.residency(res, T, F, W, H, isz, design)
+                print(f"  inr_forward {design} design {name} W={W} F={F} "
+                      f"{'f32' if isz == 4 else 'bf16'}: {occ['blocks']} block(s) of "
+                      f"{occ['threads']} threads an SM, {occ['warps']} warps, "
+                      f"{occ['bytes']} B of dynamic shared memory a block")
+                if occ["blocks"] < 1:
+                    raise SmokeFailure(f"inr_forward {design} design {name}: no block fits "
+                                       f"an SM")
+
+
+#: phase 2's further INR inference cases: (label, L, F, T, W, H, D_out,
+#: base resolution, P, B, N); None for a config's own widths
+INR_CASES = (("PRODUCTION", None, None, None, None, None, 1, None, 4, 6, 30_011),
+             ("ABLATION", None, None, None, None, None, 1, None, 2, 3, 20_011),
+             ("F=1 W=32 D_out=3 T=3001", 8, 1, 3001, 32, 2, 3, 4, 3, 4, 9_001),
+             ("F=2 W=32 H=1 D_out=8", 16, 2, 1 << 14, 32, 1, 8, 4, 2, 2, 5_003),
+             ("L=32 F=1 W=16 D_out=2", 32, 1, 1 << 10, 16, 2, 2, 2, 2, 2, 4_097),
+             ("F=8 W=16 H=3", 6, 8, 1 << 12, 16, 3, 1, 4, 2, 3, 6_007),
+             ("B=65535 N=5", 5, 4, 1 << 13, 16, 2, 1, 4, 2, 65_535, 5))
+
+
+def inr_check(label, coords, got, want) -> float:
+    """The INR inference kernel against its plain version at the fused MLP's
+    limits (f32 2e-6 x scale; bf16 2^-7 x scale plus 2^-7 relative), the
+    scale the largest |want| of the rows held: the rows whose coordinates
+    lie in [0,1] apart from the rows outside it (extrapolated, their
+    outputs up to ~1e15), so that the ordinary rows keep their own tight
+    limit. Returns the largest error."""
+    import torch
+    inside = ((coords >= 0) & (coords <= 1)).all(-1)
+    worst = 0.0
+    for rows, what in ((inside, ""), (~inside, ", rows outside [0,1]")):
+        if not bool(rows.any()):
+            continue
+        if bool(rows.all()):
+            g, w = got, want
+        else:
+            g, w = got[rows], want[rows]
+            what = what or ", rows in [0,1]"
+        scale = max(1.0, float(w.float().abs().max()))
+        if want.dtype == torch.float32:
+            e = check(label + what, g, w, atol=2e-6 * scale)
+        else:
+            e = check(label + what, g, w, atol=2.0 ** -7 * scale, rtol=2.0 ** -7)
+        worst = max(worst, e)
+    return worst
+
+
+def inr_case_checks(dev) -> float:
+    """Phase 2's further INR inference cases against the plain version at
+    the f32 and bf16 limits of the PRODUCTION256 checks, coordinates inside
+    and outside [0,1]: PRODUCTION (T=2^16, levels 8..128) and ABLATION
+    (L=10, F=8, W=64, T=2^19) widths, every F and W, 32 levels, D_out up to
+    8, T not a power of two, B = 65535; then PRODUCTION256's widths with
+    half the levels forced into shared memory and the rest direct (the
+    measurement entry). Returns the largest f32 error."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import dvnr
+    from repro_torch.kernels.inr_forward.ops import inr_forward_cuda, inr_forward_with
+    from repro_torch.kernels.inr_forward.ref import inr_forward_ref
+
+    rng = np.random.default_rng(28)
+    worst = 0.0
+
+    def one(label, coords, tab, ws, part, res, got):
+        nonlocal worst
+        want = inr_forward_ref(coords, tab, ws, torch.tensor(part, device=dev), res)
+        e = inr_check(label, coords, got, want)
+        if tab.dtype == torch.float32:
+            worst = max(worst, e)
+
+    for label, L, F, T, W, H, D_out, base, P, B, N in INR_CASES:
+        if L is None:
+            hc = getattr(dvnr, label)
+            res, L, T = hc.level_resolutions(), hc.n_levels, hc.table_size
+            F, W, H = hc.n_features_per_level, hc.n_neurons, hc.n_hidden_layers
+        else:
+            res = [max(2, int(base * 1.5 ** l)) for l in range(L)]
+        gen = torch.Generator(device=dev).manual_seed(L * 100 + F)
+        tables32 = torch.rand((P, L, T, F), generator=gen, device=dev) * 2 - 1
+        dims = [L * F] + [W] * H + [D_out]
+        ws32 = [torch.as_tensor(rng.uniform(-1, 1, (P, a, b)) * np.sqrt(6.0 / a),
+                                dtype=torch.float32, device=dev)
+                for a, b in zip(dims[:-1], dims[1:])]
+        part = [int(x) for x in rng.integers(0, P, B)]
+        for lo, hi, where in ((0.0, 1.0, "in [0,1]"), (-0.25, 1.25, "in [-0.25,1.25]")):
+            coords = torch.as_tensor(rng.uniform(lo, hi, (B, N, 3)), dtype=torch.float32,
+                                     device=dev)
+            for dt in (torch.float32, torch.bfloat16):
+                tab, ws = tables32.to(dt), [w.to(dt) for w in ws32]
+                one(f"inr_forward {label} {str(dt)[6:]} coords {where}", coords, tab, ws,
+                    part, res, inr_forward_cuda(coords, tab, ws, part, res))
+                del tab, ws
+        del tables32
+    # PRODUCTION256's widths, levels 0..1 staged and 2..4 direct
+    hc = dvnr.PRODUCTION256
+    res, L, T, F = hc.level_resolutions(), hc.n_levels, hc.table_size, hc.n_features_per_level
+    P, B, N = 4, 6, 30_011
+    plan = "s" * (L // 2) + "d" * (L - L // 2)
+    tables32 = torch.rand((P, L, T, F), device=dev) * 2 - 1
+    dims = [L * F] + [hc.n_neurons] * hc.n_hidden_layers + [1]
+    ws32 = [torch.as_tensor(rng.uniform(-1, 1, (P, a, b)) * np.sqrt(6.0 / a),
+                            dtype=torch.float32, device=dev)
+            for a, b in zip(dims[:-1], dims[1:])]
+    part = [int(x) for x in rng.integers(0, P, B)]
+    coords = torch.as_tensor(rng.uniform(-0.25, 1.25, (B, N, 3)), dtype=torch.float32,
+                             device=dev)
+    for dt in (torch.float32, torch.bfloat16):
+        tab, ws = tables32.to(dt), [w.to(dt) for w in ws32]
+        one(f"inr_forward PRODUCTION256 {str(dt)[6:]} plan {plan}", coords, tab, ws, part,
+            res, inr_forward_with(coords, tab, ws, part, res, plan=plan))
+    torch.cuda.synchronize()
+    return worst
+
+
+def stage_shares(cycles) -> str:
+    """The stage clock's counts (``INR_STAGES``) as shares of their sum,
+    then the warps' summed lifetime in ms."""
+    from repro_torch.kernels.inr_forward.ops import INR_STAGES
+    n = len(INR_STAGES)
+    total = max(1, sum(cycles[:n]))
+    parts = [f"{s} {c / total:.3f}" for s, c in zip(INR_STAGES, cycles[:n])]
+    return ", ".join(parts) + f"; cycles {total:,}; warps' lifetimes {cycles[n] / 1e6:.1f} ms"
+
+
+def inr_designs(tag, dev, coords, sp, rows, res, hitm) -> dict:
+    """Phase 6's account of the INR inference kernel at the tick's shapes,
+    f32 and bf16: the kernel by its plan's rule and with other plans forced
+    (every level direct; half the levels staged; every level staged where
+    that fits), each against the rule's output (the same bits expected) and
+    timed once; the grid-stride one-warp design before it against the same;
+    the stage clock of both; their times in turns (grid, persistent,
+    persistent, grid); the kernel-alone time of both (the profiler, which
+    must see the kernel's). Returns, by dtype, the kernel's events and
+    kernel-alone ms, the yardstick's, the rule's plan and each plan's ms."""
+    import torch
+    from repro_torch.kernels.inr_forward import ops as iops
+
+    L = len(res)
+    _, _, T, F = sp["tables"].shape
+    W, H = sp["mlp"][0].shape[-1], len(sp["mlp"]) - 1
+    out = {}
+    for key, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        tab, ws = sp["tables"].to(dt), [w.to(dt) for w in sp["mlp"]]
+        isz = tab.element_size()
+        lay = iops.fwd_layout(res, T, F, W, H, isz)
+        print(f"  inr_forward {key}: layout {lay} [{tag}]")
+        run = lambda plan=None, design="persistent": iops.inr_forward_with(
+            coords, tab, ws, rows, res, design=design, plan=plan)
+        rule = run()
+        scale = max(1.0, float(rule[hitm].float().abs().max()))
+        atol, rtol = (2e-6 * scale, 0.0) if key == "f32" else (2.0 ** -7 * scale, 2.0 ** -7)
+        plans = sorted(p for p in {lay["plan"], "d" * L, "s" * (L // 2) + "d" * (L - L // 2),
+                                   "s" * L}
+                       if iops.fwd_layout(res, T, F, W, H, isz, p)["warps"] > 0)
+        times = {}
+        for plan in plans:
+            got = run(plan)
+            same = torch.equal(got, rule)
+            check(f"inr_forward {key} plan {plan} vs the rule's (hit rays"
+                  f"{'; bit for bit' if same else ''})", got[hitm], rule[hitm],
+                  atol=atol, rtol=rtol)
+            times[plan] = cuda_ms(lambda plan=plan: run(plan), reps=10)
+            del got
+        print(f"  inr_forward {key} by plan: "
+              + ", ".join(f"{p} {ms:.4f} ms" + (" (the rule's)" if p == lay["plan"] else "")
+                          for p, ms in times.items()) + f" (events) [{tag}]")
+        got = run(design="grid")
+        check(f"inr_forward {key} grid design vs the kernel (hit rays)", got[hitm],
+              rule[hitm], atol=atol, rtol=rtol)
+        del got, rule
+        for design in ("grid", "persistent"):
+            cyc = iops.inr_forward_stage_cycles(coords, tab, ws, rows, res, design=design)
+            print(f"  inr_forward {key} stage clock, {design} design: "
+                  f"{stage_shares(cyc)} [{tag}]")
+        turns, alone = design_turns(run, key)
+        print(f"  inr_forward {key}: {turns_line(turns, alone)} [{tag}]")
+        if alone["persistent"][0] is None:
+            raise SmokeFailure(f"inr_forward {key}: the profiler saw no launch of the kernel")
+        out[key] = {"ms": min(turns["persistent"]), "kernel_ms": alone["persistent"][0],
+                    "grid_ms": min(turns["grid"]), "grid_kernel_ms": alone["grid"][0],
+                    "plan": lay["plan"], "plans_ms": times}
+        del tab, ws
+    torch.cuda.synchronize()
+    return out
+
+
+#: the profiler's names of the INR inference designs' kernels
+INR_SYMBOLS = {"persistent": "inr_forward_kernel<", "grid": "inr_forward_grid_kernel<"}
+
+
+def design_turns(run, key, reps: int = 10):
+    """The persistent design against the grid-stride yardstick on one input
+    (``run(design=...)``): events ms in turns (grid, persistent, persistent,
+    grid), then each one's kernel-alone ms per launch (the profiler: (ms,
+    launches counted), or (None, 0))."""
+    turns = {d: [] for d in INR_SYMBOLS}
+    for design in ("grid", "persistent", "persistent", "grid"):
+        turns[design].append(cuda_ms(lambda design=design: run(design=design), reps=reps))
+    alone = {d: per_launch_ms(lambda d=d: run(design=d),
+                              sym + ("float," if key == "f32" else "__nv_bfloat16,"))
+             for d, sym in INR_SYMBOLS.items()}
+    return turns, alone
+
+
+def turns_line(turns, alone) -> str:
+    return ("events in turns: " + "; ".join(f"{d} {[round(x, 4) for x in ms]} ms"
+                                            for d, ms in turns.items())
+            + "; kernel alone (profiler, per launch counted): "
+            + "; ".join(f"{d} " + ("not measured" if ms is None else
+                                   f"{ms:.4f} ms over {n} launches")
+                        for d, (ms, n) in alone.items()))
+
+
+#: phase 6's other widths for the inference designs: (config, B, N, P)
+INR_WIDTH_RUNS = (("PRODUCTION", 4, 1 << 20, 4), ("ABLATION", 4, 1 << 20, 4))
+
+
+def inr_widths(tag, dev) -> None:
+    """Phase 6: the persistent design against the grid-stride yardstick at
+    PRODUCTION's (T = 2^16, levels 8..128) and ABLATION's (L = 10, F = 8,
+    W = 64, T = 2^19) widths, f32 and bf16, uniform random points in [0,1]:
+    the plan, each design's residency, the two designs against each other,
+    their events ms in turns and kernel-alone ms."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import dvnr
+    from repro_torch.kernels.inr_forward import ops as iops
+
+    rng = np.random.default_rng(6)
+    for name, B, N, P in INR_WIDTH_RUNS:
+        hc = getattr(dvnr, name)
+        res, L, T = hc.level_resolutions(), hc.n_levels, hc.table_size
+        F, W, H = hc.n_features_per_level, hc.n_neurons, hc.n_hidden_layers
+        gen = torch.Generator(device=dev).manual_seed(L * 100 + F)
+        tables32 = torch.rand((P, L, T, F), generator=gen, device=dev) * 2 - 1
+        dims = [L * F] + [W] * H + [1]
+        ws32 = [torch.as_tensor(rng.uniform(-1, 1, (P, a, b)) * np.sqrt(6.0 / a),
+                                dtype=torch.float32, device=dev)
+                for a, b in zip(dims[:-1], dims[1:])]
+        rows = [b % P for b in range(B)]
+        coords = torch.rand((B, N, 3), generator=gen, device=dev)
+        for key, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            tab, ws = tables32.to(dt), [w.to(dt) for w in ws32]
+            isz = tab.element_size()
+            run = lambda design="persistent": iops.inr_forward_with(
+                coords, tab, ws, rows, res, design=design)
+            a, g = run(), run(design="grid")
+            scale = max(1.0, float(g.float().abs().max()))
+            check(f"inr_forward {name} {key} persistent vs grid design", a, g,
+                  atol=2e-6 * scale if key == "f32" else 2.0 ** -7 * scale,
+                  rtol=0.0 if key == "f32" else 2.0 ** -7)
+            del a, g
+            occ = {d: iops.residency(res, T, F, W, H, isz, d)["warps"] for d in INR_SYMBOLS}
+            turns, alone = design_turns(run, key, reps=5)
+            print(f"  inr_forward {name} {key} B={B} N=2^{N.bit_length() - 1}: plan "
+                  f"{iops.fwd_layout(res, T, F, W, H, isz)['plan']}, warps an SM "
+                  f"{occ}; {turns_line(turns, alone)} [{tag}]")
+            del tab, ws
+        del tables32, ws32, coords
+    torch.cuda.synchronize()
+
+
 def bf16_training(tparts, vols, cfg, train_wrappers, tag, f32_run) -> dict:
     """Phase 5 under the bf16 policy (bf16 params and compute, float32
     master and moments): the same TRAIN_STEPS steps through
@@ -3121,8 +3527,8 @@ def unfused_det_checks(g_feat, coords, res, shape, feats, ws, g_out, feats16,
 
 def unfused_det_training(tparts, vols, cfg, wrappers, tag, rinfo) -> dict:
     """Phase 5, the unfused path (``fuse_train_step="off"``) under
-    ``deterministic_algorithms``: two clean TRAIN_STEPS-step runs, f32 and
-    bf16, must be the same bits in every parameter, moment, master, loss
+    ``deterministic_algorithms``: two clean DET_UNFUSED_STEPS-step runs, f32
+    and bf16, must be the same bits in every parameter, moment, master, loss
     average and loss, with no error from PyTorch's switch; every step must
     take the routes (the hash backward's L levels and the MLP backward's
     launch each step, counted by their ``det_launches``) and no fused step;
@@ -3146,8 +3552,9 @@ def unfused_det_training(tparts, vols, cfg, wrappers, tag, rinfo) -> dict:
                 w.det_launches = 0
             torch.cuda.synchronize()
             with deterministic_algorithms():
-                _, info = api.train(tparts, cfg, backend="cuda", steps=TRAIN_STEPS,
-                                    key=0, log_every=1, fuse_train_step="off", **kw)
+                _, info = api.train(tparts, cfg, backend="cuda",
+                                    steps=DET_UNFUSED_STEPS, key=0, log_every=1,
+                                    fuse_train_step="off", **kw)
             torch.cuda.synchronize()
             runs.append((info, {n: w.launches for n, w in wrappers.items()},
                          {n: w.det_launches for n, w in routes.items()}))
@@ -3155,21 +3562,22 @@ def unfused_det_training(tparts, vols, cfg, wrappers, tag, rinfo) -> dict:
         leaves = [tree_leaves(interop.state_tree(i["state"])) for i in (ia, ib)]
         same = all(torch.equal(x, y) for x, y in zip(*leaves))
         traces = [[l for _, l in i["loss_history"]] for i in (ia, ib)]
-        ms = ia["train_time_s"] * 1e3 / TRAIN_STEPS
+        ms = ia["train_time_s"] * 1e3 / DET_UNFUSED_STEPS
         ev = ia["trainer"].evaluate(ia["state"], vols, (TRAIN_EDGE,) * 3)
-        print(f"  unfused deterministic route, {policy}: two clean {TRAIN_STEPS}-step "
-              f"runs bit for bit in every parameter, moment and loss average: "
-              f"{same}; loss traces equal: {traces[0] == traces[1]}; route launches "
-              f"{da} of {la}; {ms:.4f} ms per step (host clock), PSNR "
+        print(f"  unfused deterministic route, {policy}: two clean "
+              f"{DET_UNFUSED_STEPS}-step runs bit for bit in every parameter, moment "
+              f"and loss average: {same}; loss traces equal: "
+              f"{traces[0] == traces[1]}; route launches {da} of {la}; {ms:.4f} ms "
+              f"per step (host clock), PSNR "
               f"{ev['psnr']:.4f} dB [{tag}]")
         if not same or traces[0] != traces[1]:
             raise SmokeFailure(f"unfused deterministic route ({policy}): two clean "
                                "runs differ")
         L = cfg.n_levels
-        if da["hash_encode_bwd"] != L * TRAIN_STEPS or \
-                la["hash_encode_bwd"] != L * TRAIN_STEPS or \
-                da["fused_mlp_bwd"] != TRAIN_STEPS or \
-                la["fused_mlp_bwd"] != TRAIN_STEPS or la["train_step"]:
+        if da["hash_encode_bwd"] != L * DET_UNFUSED_STEPS or \
+                la["hash_encode_bwd"] != L * DET_UNFUSED_STEPS or \
+                da["fused_mlp_bwd"] != DET_UNFUSED_STEPS or \
+                la["fused_mlp_bwd"] != DET_UNFUSED_STEPS or la["train_step"]:
             raise SmokeFailure(f"unfused deterministic route ({policy}): launches "
                                f"{la}, {da} on the routes")
         if policy == "f32":
@@ -3439,6 +3847,8 @@ def dvnr_phases():
     if Path(repro_torch.__file__).resolve().parents[1] != ROOT / "src":
         raise SmokeFailure(f"repro_torch was imported from "
                            f"{repro_torch.__file__}, not from this checkout")
+    import re
+
     import numpy as np
 
     from repro_torch import api
@@ -3463,6 +3873,7 @@ def dvnr_phases():
                                                        hash_encode_cuda)
     from repro_torch.kernels.hash_encoding.ref import (
         hash_encode_batched_bwd_ref, hash_encode_batched_ref)
+    from repro_torch.kernels.inr_forward import ops as inr_ops
     from repro_torch.kernels.inr_forward.ops import inr_forward_cuda
     from repro_torch.kernels.inr_forward.ref import inr_forward_ref
     from repro_torch.optim.adamw import AdamW
@@ -3490,11 +3901,15 @@ def dvnr_phases():
         return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
 
     # ---------------------------------------------------------------- 1
-    print("== phase 1: build")
+    phase_header("== phase 1: build")
     t0 = time.perf_counter()
     build.library()
     print(f"  built {sorted(p.name for p in build.CSRC.glob('*.cu'))} in "
           f"{time.perf_counter() - t0:.1f} s (nvcc {build.build_seconds:.1f} s)")
+    done = re.findall(r"== (\S+) \(done after ([0-9.]+) s\)", build.build_log)
+    if done:
+        print("  nvcc, each source done after (s): " + ", ".join(
+            f"{name} {t}" for name, t in sorted(done, key=lambda d: -float(d[1]))))
     usage = ptxas_usage(build.build_log)
     if not usage:
         print("    (the library came from an earlier build: its registers and "
@@ -3504,35 +3919,21 @@ def dvnr_phases():
               f"static shared {smem} B, stack {stack} B  {fn}")
         PTXAS[fn] = {"registers": regs, "spill": st + ld, "static_smem": smem,
                      "stack": stack}
-    # (the backward's clocked instantiations, StageClock, are a measurement
-    # of phase 6 and not held)
+    # (the clocked instantiations, StageClock and InrStageClock, are a
+    # measurement of phase 6 and not held)
     spilled = [fn for fn, _, st, ld, *_ in usage if (st or ld) and any(
         k in fn for k in ("fused_mlp_fwd_kernel", "fused_mlp_bwd_kernel",
-                          "inr_forward_kernel")) and "StageClock" not in fn]
+                          "inr_forward_kernel", "inr_forward_grid_kernel"))
+        and "StageClock" not in fn]
     if spilled:
         raise SmokeFailure(f"MLP forward / backward or INR inference kernels "
                            f"that spill: {spilled}")
     sass = sass_counts(build.build())
-    for fn, c in sorted(sass.items()):
-        print(f"  SASS {fn}: {c}")
-    flash = [c for fn, c in sass.items() if "flash_attention_kernel_bf16" in fn]
-    if not flash or any(c["HGMMA"] == 0 for c in flash):
-        raise SmokeFailure(f"bf16 flash kernels without HGMMA: {sass}")
-    for kernel in ("fused_mlp_fwd_kernel", "inr_forward_kernel"):
-        bf16 = [c["HMMA"] for fn, c in sass.items()
-                if kernel in fn and "bfloat16" in fn]
-        if not bf16 or min(bf16) == 0:
-            raise SmokeFailure(f"bf16 {kernel} instantiations without HMMA: {bf16}")
-    # the backward: every instantiation, bf16 and tf32, on the tensor cores,
-    # its rows staged with cp.async
-    bwd = {fn: c for fn, c in sass.items()
-           if "fused_mlp_bwd_kernel" in fn and "StageClock" not in fn}
-    if len(bwd) != 6 or any(c["HMMA"] == 0 or c["LDGSTS"] == 0 for c in bwd.values()):
-        raise SmokeFailure(f"fused_mlp_bwd_kernel instantiations without HMMA or "
-                           f"LDGSTS: {bwd}")
-
+    t0 = time.perf_counter()
+    inr_layout_checks()
+    print(f"  inr_forward layout checks: {time.perf_counter() - t0:.1f} s")
     # ---------------------------------------------------------------- 2
-    print("== phase 2: kernels against their plain versions "
+    phase_header("== phase 2: kernels against their plain versions "
           f"(PRODUCTION256: L={L} F={F} T={T} res={res})")
     P, B = 8, 16
     part = [int(p) for p in rng.integers(0, P, B)]
@@ -3586,17 +3987,12 @@ def dvnr_phases():
                     ("f32/bf16/f32", tables32, ws, "bfloat16")):
                 want = inr_forward_ref(coords, tab, wss, part_d, res, cdt)
                 got = inr_forward_cuda(coords, tab, wss, part, res, cdt)
-                scale = max(1.0, float(want.float().abs().max()))
-                label = f"inr_forward {policy} H={H} D_out={D_out} N={N} {where}"
-                if want.dtype == torch.float32:   # the fused_mlp f32 limit
-                    key = "inr_forward"
-                    e = check(label, got, want, atol=2e-6 * scale)
-                else:   # the fused_mlp bf16 limit
-                    key = "inr_forward_bf16"
-                    e = check(label, got, want, atol=2.0 ** -7 * scale,
-                              rtol=2.0 ** -7)
+                key = "inr_forward" if want.dtype == torch.float32 else "inr_forward_bf16"
+                e = inr_check(f"inr_forward {policy} H={H} D_out={D_out} N={N} {where}",
+                              coords, got, want)
                 inr_errs[key] = max(inr_errs.get(key, 0.0), e)
                 del want, got
+    inr_errs["inr_forward"] = max(inr_errs["inr_forward"], inr_case_checks(dev))
     # an output wider than the kernel's n = 8 tile: the wrapper launches it
     # once per 8 columns (two launches, the second ragged)
     N = CHECK_N[1]
@@ -3820,7 +4216,7 @@ def dvnr_phases():
     flash_err = flash_checks(dev)
 
     # ---------------------------------------------------------------- 3
-    print(f"== phase 3: decode_grid of one {DECODE_EDGE}^3 partition")
+    phase_header(f"== phase 3: decode_grid of one {DECODE_EDGE}^3 partition")
     model1 = api.DVNRModel.init(cfg, 1, device=dev)
     model1.params["tables"] = t(rng.uniform(-1, 1, (L, T, F)))
     shape = (DECODE_EDGE,) * 3
@@ -3852,7 +4248,7 @@ def dvnr_phases():
     del grid_k, grid_p
 
     # ---------------------------------------------------------------- 4
-    print("== phase 4: RenderService over 8 PRODUCTION256 partitions "
+    phase_header("== phase 4: RenderService over 8 PRODUCTION256 partitions "
           "(2x2x2 split of 512^3)")
     P = 8
     parts = [make_partition("cloverleaf", p, (2, 2, 2), (LOCAL_EDGE,) * 3,
@@ -3911,12 +4307,12 @@ def dvnr_phases():
     del plain
 
     # ---------------------------------------------------------------- 4b
-    print(f"== phase 4b: cached serving and the temporal path on phase 4's "
+    phase_header(f"== phase 4b: cached serving and the temporal path on phase 4's "
           f"model")
     cached_phase(model, requests, wrappers, tag, dev, svc)
 
     # ---------------------------------------------------------------- 5
-    print(f"== phase 5: api.train of {TP} PRODUCTION256 partitions (2x2x2 "
+    phase_header(f"== phase 5: api.train of {TP} PRODUCTION256 partitions (2x2x2 "
           f"split of {2 * TRAIN_EDGE}^3), {TRAIN_STEPS} steps at batch {Nb}")
     for w in every_wrapper.values():
         w.launches = 0
@@ -3990,9 +4386,10 @@ def dvnr_phases():
                               {"ms_step": ms_step, "sps": sps, "psnr": ev["psnr"],
                                "losses": losses})
     mixed_policy_checks(tparts, cfg, train_wrappers)
+    sass_checks(sass)                 # phase 1's, its listing made meanwhile
 
     # ---------------------------------------------------------------- 6
-    print(f"== phase 6: per-kernel times at the tick's shapes [{tag}]")
+    phase_header(f"== phase 6: per-kernel times at the tick's shapes [{tag}]")
     reqs = requests(0)
     eyes = torch.tensor([r.camera.eye for r in reqs], device=dev)
     ctrs = torch.tensor([r.camera.center for r in reqs], device=dev)
@@ -4056,7 +4453,7 @@ def dvnr_phases():
                     atol=2e-6 * max(1.0, float(want.abs().max())))
         del got, want
         ms = cuda_ms(kern, reps=10)
-        pms = cuda_ms(plain_fn, reps=3)
+        pms = cuda_ms(plain_fn, reps=1 if name == "hash_encode" else 3)   # ~2 s a call
         lms = cuda_ms(lib_fn, reps=5) if lib_fn is not None else None
         bms, by = bound_ms(nbytes, flops)
         n_path, path, n_runs = path_launches[name]
@@ -4070,18 +4467,23 @@ def dvnr_phases():
                         "bound_ms": bms, "bound_by": by, "library_ms": lms})
     # the INR inference kernel at the tick's shapes, f32 (the serving
     # policy; launches: the ticks') and bf16 (launches: the bf16 training
-    # run's evaluate), against the encode + MLP pair back to back and the
-    # plain version. Bound: the coordinates in and the output out (16 B a
-    # point in f32), tables and weights read once; the encode's float work
-    # at the f32 peak, the MLP's products at the peak of their type
+    # run's evaluate): the kernel's plans, clock and kernel-alone time
+    # against the grid-stride yardstick (inr_designs; inr_widths: the same
+    # at PRODUCTION's and ABLATION's widths), then the wrapper
+    # against the encode + MLP pair back to back and the plain version.
+    # Bound: the coordinates in and the output out (16 B a point in f32),
+    # tables and weights read once; the encode's float work at the f32
+    # peak, the MLP's products at the peak of their type
+    designs = inr_designs(tag, dev, coords, sp, rows, res, hitm)
+    inr_widths(tag, dev)
     enc_pt = L * (25 + 16 * F)
     mlp_pt = 2 * (D_in * W + (nH - 1) * W * W + W * cfg.out_dim)
     n_w1 = sum(w.shape[1] * w.shape[2] for w in sp["mlp"])
     sp16 = {"tables": sp["tables"].to(torch.bfloat16),
             "mlp": [w.to(torch.bfloat16) for w in sp["mlp"]]}
-    for name, spx, n_inr in (("inr_forward", sp, launches["inr_forward"]),
-                             ("inr_forward_bf16", sp16,
-                              bf16_runs["auto"]["inr_forward"])):
+    for name, key, spx, n_inr in (("inr_forward", "f32", sp, launches["inr_forward"]),
+                                  ("inr_forward_bf16", "bf16", sp16,
+                                   bf16_runs["auto"]["inr_forward"])):
         isz = spx["tables"].element_size()
         kern = lambda spx=spx: inr_forward_cuda(coords, spx["tables"], spx["mlp"],
                                                 rows, res)
@@ -4099,15 +4501,17 @@ def dvnr_phases():
                         atol=2.0 ** -7 * scale, rtol=2.0 ** -7)
         del got, want
         ms, pair_ms = cuda_ms(kern, reps=10), cuda_ms(pair, reps=10)
-        pms = cuda_ms(plain_fn, reps=3)
+        pms = cuda_ms(plain_fn, reps=1)
         nbytes = Bn * Nn * (12 + cfg.out_dim * isz) + P * (L * T * F + n_w1) * isz
         if isz == 4:
             bms, by = bound_ms(nbytes, Bn * Nn * (enc_pt + mlp_pt))
         else:
             bms, by = bound_ms(nbytes, Bn * Nn * enc_pt, bf16_flops=Bn * Nn * mlp_pt)
-        print(f"  {name:<16s} {ms:9.3f} ms  bound {bms:8.3f} ms ({by})  the "
-              f"encode + MLP pair {pair_ms:.3f} ms  plain {pms:9.3f} ms  "
-              f"launches {n_inr} [{tag}]")
+        d = designs[key]
+        print(f"  {name:<16s} {ms:9.3f} ms  kernel alone {d['kernel_ms']:.4f} ms  "
+              f"bound {bms:8.3f} ms ({by})  plan {d['plan']}  the grid-stride design "
+              f"{d['grid_ms']:.3f} ms  the encode + MLP pair {pair_ms:.3f} ms  "
+              f"plain {pms:9.3f} ms  launches {n_inr} [{tag}]")
         kernels.append({"name": name, "route": "cuda", "source": SOURCES[name],
                         "replaces": REPLACES[name], "launches": n_inr,
                         "max_abs_err": max(err, inr_errs[name]), "ms": ms,
@@ -4146,17 +4550,13 @@ def dvnr_phases():
                     "replaces": REPLACES["fused_mlp_fwd_bf16"], "launches": n16,
                     "max_abs_err": err, "ms": ms, "plain_ms": pms,
                     "bound_ms": bms, "bound_by": by, "library_ms": lms})
-    # rows 2b and 9b: each kernel's own device time per launch
-    for name, fn, symbol in (
-            ("fused_mlp_fwd bf16", lambda: fused_mlp_cuda(tick16, sp16["mlp"], rows),
-             "fused_mlp_fwd_kernel<__nv_bfloat16,"),
-            ("inr_forward_bf16", lambda: inr_forward_cuda(coords, sp16["tables"],
-                                                          sp16["mlp"], rows, res),
-             "inr_forward_kernel<__nv_bfloat16,")):
-        per = launch_times(fn, symbol)
-        print(f"  {name} at the tick's shapes: kernel alone "
-              f"{'not measured' if per is None else f'{sum(per):.4f} ms'} per call "
-              f"(profiler) [{tag}]")
+    # row 2b: the kernel's own device time per launch (rows 9 and 9b:
+    # inr_designs above)
+    per = kernel_alone_ms(lambda: fused_mlp_cuda(tick16, sp16["mlp"], rows),
+                          "fused_mlp_fwd_kernel<__nv_bfloat16,")
+    print(f"  fused_mlp_fwd bf16 at the tick's shapes: kernel alone "
+          f"{'not measured' if per is None else f'{per:.4f} ms'} per call "
+          f"(profiler) [{tag}]")
     del sp16, tick16
     # where the forward's time goes: the same call on the first k levels
     # only (the coarse levels are dense and L1-resident, the fine ones
@@ -4199,8 +4599,19 @@ def dvnr_phases():
                            Nd * (enc_pt + 2 * (D_in * W + (nH - 1) * W * W + W)))
         print(f"  decode chunk inr_forward N=2^22, {where}: {ms:.3f} ms  bound "
               f"{bms:.3f} ms ({by}); the encode + MLP pair {pair_ms:.3f} ms; "
-              f"{decode_launches['inr_forward']} launches per {DECODE_EDGE}^3 "
-              f"decode [{tag}]")
+              f"{decode_launches['inr_forward']} launches per {DECODE_EDGE}^3 decode "
+              f"[{tag}]")
+        # the two designs through the measurement entry alike (the path's
+        # wrapper above adds its own host time)
+        turns, alone = design_turns(
+            lambda design: inr_ops.inr_forward_with(cd, sp1["tables"], sp1["mlp"], [0],
+                                                    res, design=design), "f32")
+        print(f"  decode chunk designs, {where}: {turns_line(turns, alone)} [{tag}]")
+        for design in ("grid", "persistent"):
+            cyc = inr_ops.inr_forward_stage_cycles(cd, sp1["tables"], sp1["mlp"], [0],
+                                                   res, design=design)
+            print(f"  decode chunk stage clock, {design} design, {where}: "
+                  f"{stage_shares(cyc)} [{tag}]")
         del fd
     del cd, centres
     print(f"  frame max err vs plain {frame_err:.3e}; ticks "
@@ -4463,7 +4874,7 @@ def dvnr_phases():
                                              (TP, L, T, F)),
          lambda: scatter_buf.index_add_(0, flat_idx, flat_val),
          rows * (12 + L * F * 4) + n_tab * 4, (enc_flops, 0),
-         ud["f32"]["hash_encode_bwd"], TRAIN_STEPS,
+         ud["f32"]["hash_encode_bwd"], DET_UNFUSED_STEPS,
          ("hash_encode_bwd_fx_kernel<float,", "fx_to_float_kernel"), "hash_encode_bwd"),
         ("hash_encode_bwd_det_bf16",
          under_det(lambda: hash_encode_bwd_cuda(g_feat16, coords_t, res, rows_t,
@@ -4472,7 +4883,7 @@ def dvnr_phases():
                                              (TP, L, T, F)),
          lambda: scatter_buf.index_add_(0, flat_idx, flat_val16),
          rows * (12 + L * F * 2) + n_tab * 4, (enc_flops, 0),
-         ud["bf16"]["hash_encode_bwd"], TRAIN_STEPS,
+         ud["bf16"]["hash_encode_bwd"], DET_UNFUSED_STEPS,
          ("hash_encode_bwd_fx_kernel<__nv_bfloat16,", "fx_to_float_kernel"),
          "hash_encode_bwd_bf16"),
         ("fused_mlp_bwd_det",
@@ -4480,14 +4891,14 @@ def dvnr_phases():
          lambda: fused_mlp_batched_bwd_ref(feats_t, ws_t, g_out, rows_td),
          lambda: mlp_bwd_chain(feats_t, ws_t, g_out),
          rows * (2 * D_in + D_out) * 4 + 2 * TP * n_w * 4, (mlp_flops, 0),
-         ud["f32"]["fused_mlp_bwd"], TRAIN_STEPS,
+         ud["f32"]["fused_mlp_bwd"], DET_UNFUSED_STEPS,
          ("fused_mlp_bwd_kernel<float,", "mlp_dw_reduce_kernel"), "fused_mlp_bwd"),
         ("fused_mlp_bwd_det_bf16",
          under_det(lambda: fused_mlp_bwd_cuda(feats16, ws16, g_out16, rows_t)),
          lambda: fused_mlp_batched_bwd_ref(feats16, ws16, g_out16, rows_td),
          lambda: mlp_bwd_chain(feats16, ws16, g_out16),
          rows * (2 * D_in + D_out) * 2 + TP * n_w * (2 + 4), (0, mlp_flops),
-         ud["bf16"]["fused_mlp_bwd"], TRAIN_STEPS,
+         ud["bf16"]["fused_mlp_bwd"], DET_UNFUSED_STEPS,
          ("fused_mlp_bwd_kernel<__nv_bfloat16,", "mlp_dw_reduce_kernel"),
          "fused_mlp_bwd_bf16"),
     ]
@@ -5382,7 +5793,7 @@ def insitu_phase(tag, dev, errs) -> dict:
                 "fused_mlp_bwd": fused_mlp_bwd_cuda,
                 "train_step": fts.train_step_cuda,
                 "adamw_apply": fts.adamw_apply_cuda}
-    print(f"== phase 8: in situ: InSituSession(...).run({INSITU_CYCLES}) -> "
+    phase_header(f"== phase 8: in situ: InSituSession(...).run({INSITU_CYCLES}) -> "
           f"health() on PRODUCTION256, recovery, pathlines [{tag}]")
     session_phase(cfg, dev, wrappers, tag)
     gc.collect()
@@ -5652,7 +6063,7 @@ def distributed_phase(tag, dev) -> None:
     from repro_torch.optim.adamw import tree_leaves
 
     cfg, grid, P = PRODUCTION256, (2, 2, 2), DIST_RANKS
-    print(f"== phase 9: DVNR across ranks: {P} gloo ranks on one card, a 2x2x2 "
+    phase_header(f"== phase 9: DVNR across ranks: {P} gloo ranks on one card, a 2x2x2 "
           f"mesh of PRODUCTION256 partitions of the {2 * TRAIN_EDGE}^3 CloverLeaf "
           f"[{tag}]")
     build.library()          # built here, before any rank loads it
@@ -5796,7 +6207,7 @@ def analysis_phase(tag, dev) -> None:
     from repro_torch.configs.dvnr import PRODUCTION256
     from repro_torch.core.trainer import DVNRTrainer
     from repro_torch.kernels import budgets
-    print(f"== phase 10: static checks of the production256 programs on the card "
+    phase_header(f"== phase 10: static checks of the production256 programs on the card "
           f"[{tag}]")
     t0 = time.perf_counter()
     cli = subprocess.run([sys.executable, "-m", "repro_torch.analysis", "--config",
@@ -5887,7 +6298,7 @@ def examples_phase(tag) -> None:
                                                       / f"{name}.py")
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
-        print(f"== phase 11: examples/{name}.py {' '.join(argv)} [{tag}]")
+        phase_header(f"== phase 11: examples/{name}.py {' '.join(argv)} [{tag}]")
         t0 = time.perf_counter()
         out[name] = mod.main(argv)
         print(f"  {name}: {out[name]}, {time.perf_counter() - t0:.1f} s [{tag}]")
@@ -6289,27 +6700,6 @@ def mesh_rank(rank, world, out, refs_path, st):
     def counted(c):
         return (c.count, dict(c.kinds), c.nbytes, dict(c.kind_bytes))
 
-    def grad_check(model, cfg, params, sharder, key, B, S):
-        """Step 1's loss and gradient on the mesh against the one-rank
-        run's: the loss and its one-rank value, the gathered gradient's
-        cosine to the one-rank gradient, and the pass's collectives."""
-        leaves = [t.requires_grad_(True) for t in tree_leaves(params)]
-        batch = train.batch_block(train.synth_batch(
-            model, ShapeConfig("t", "train", S, B), 0, dev), sharder,
-            train.batch_dims(model))
-        with count_collectives() as c:
-            loss, _ = model.loss(params, batch, sharder, impl=impl)
-            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                        materialize_grads=True)
-        for t in leaves:
-            t.requires_grad_(False)
-        acc, want = ref_dots(model, cfg, sharder, _unflatten_like(params, list(grads)), key)
-        out = {"loss": float(loss.detach()), "want": want, "cos": cosine(acc, sharder.mesh),
-               "coll": counted(c)}
-        del grads, loss, batch
-        tidy()
-        return out
-
     def train_run(model, cfg, sharder, params, B, S, steps, key, c8=False):
         """``steps`` train steps from ``params``, each timed: the first's
         collectives counted (its dispatch mode runs Python on every op) and
@@ -6354,19 +6744,20 @@ def mesh_rank(rank, world, out, refs_path, st):
         return {"losses": losses, "ms": ms, "flash": fl, "coll": counts, "peak": peak(),
                 "reserved": reserved(), "grad": grad}
 
-    # (a) the driver's first step's gradient on the mesh, then the driver
+    # (a) the driver on the mesh, its first step's gradient (before
+    # clipping) held against the one-rank run's
     cfg = st["driver_cfg"]
-    B, S = st["driver_bs"]
-    model = build_model(cfg)
-    sharder = Sharder(mesh14, B)
-    params, _ = init_blocks(model, sharder, 0)
-    res["a_grad"] = grad_check(model, cfg, params, sharder, "driver", B, S)
-    del params
-    tidy()
-    real, ms, fl, init = train.make_train_step, [], [], {}
+    real, ms, fl, init, first = train.make_train_step, [], [], {}, {}
 
-    def timed_maker(*args, **kw):       # each driver step timed, its flash counted
-        step = real(*args, **kw)
+    def timed_maker(model, opt_cfg, sharder, **kw):  # each step timed, its flash counted
+        def hold(grads):
+            if not first:
+                first["acc"], first["want"] = ref_dots(model, cfg, sharder, grads,
+                                                       "driver")
+                first["mesh"] = sharder.mesh
+            return grads
+
+        step = real(model, opt_cfg, sharder, grad_transform=hold, **kw)
 
         def timed(p, o, b):
             if not init:                # the driver's init, up to its first step
@@ -6376,7 +6767,12 @@ def mesh_rank(rank, world, out, refs_path, st):
                             whole=_nbytes(model.param_specs()))
             sync(dev)
             n0, t0 = flash(), time.perf_counter()
-            out = step(p, o, b)
+            if ms:
+                out = step(p, o, b)
+            else:
+                with count_collectives() as c:
+                    out = step(p, o, b)
+                first["coll"] = counted(c)
             sync(dev)
             ms.append((time.perf_counter() - t0) * 1e3)
             fl.append(flash() - n0)
@@ -6393,6 +6789,8 @@ def mesh_rank(rank, world, out, refs_path, st):
         train.make_train_step = real
     res["a"] = {"losses": [h["loss"] for h in run["history"]], "ms": ms,
                 "flash": fl, "peak": peak(), "init": init}
+    res["a_grad"] = {"loss": res["a"]["losses"][0], "want": first["want"],
+                     "cos": cosine(first["acc"], first["mesh"]), "coll": first["coll"]}
     tidy()
     res["held"] = [("after (a)", held())]
 
@@ -6474,14 +6872,14 @@ def mesh_rank(rank, world, out, refs_path, st):
                         "finite": bool(torch.isfinite(logits).all()), "peak": peak()}
             del logits, rl
             tidy()
-        B, S, steps = st["train"]
-        # expert-parallel: one step at the capacity that does not bind,
+        B, S, _ = st["train"]
+        # expert-parallel: the step at the capacity that does not bind,
         # where a2a drops what the one-rank scatter drops (nothing): its
-        # gradient is held, and no one-rank run holds later losses
+        # gradient is held, and no one-rank run holds its loss
         g = unbound(cfg) if ep else cfg
         res["held"].append((f"{arch}'s blocks, before its steps", held()))
-        r["train"] = train_run(build_model(g), g, Sharder(mesh22, B), params, B, S,
-                               1 if ep else steps, arch)
+        r["train"] = train_run(build_model(g), g, Sharder(mesh22, B), params, B, S, 1,
+                               arch)
         del params
         tidy()
 
@@ -6524,11 +6922,12 @@ def mesh_rank(rank, world, out, refs_path, st):
             r["serve"]["c8"] = (rel_l2(got, ref["f32"]), rel_l2(ref["bf16"], ref["f32"]))
         del params, got
         tidy()
-        B, S, _ = st["train"]
+        B, S, steps = st["train"]
         sharder = Sharder(mesh22, B)
         params, r["train_init"] = init_blocks(model, sharder, seed0())
         res["held"].append((f"{arch}'s blocks, before its step", held()))
-        r["train"] = train_run(model, cfg, sharder, params, B, S, 1, arch,
+        r["train"] = train_run(model, cfg, sharder, params, B, S,
+                               steps if arch == st["update"] else 1, arch,
                                c8="f32" in ref)
         del params
         tidy()
@@ -6546,9 +6945,8 @@ def mesh_phase(tag: str, dev) -> tuple:
     import numpy as np
     import torch
 
-    t_start = time.perf_counter()
     world = MESH_WORLD
-    print(f"== phase 14: the LMs on a mesh of {world} gloo ranks "
+    phase_header(f"== phase 14: the LMs on a mesh of {world} gloo ranks "
           f"sharing the card (collectives staged through the host: the gloo "
           f"wire on one card, not NVLink's) [{tag}]")
     work = ROOT / "build" / "mesh_phase"
@@ -6573,6 +6971,7 @@ def mesh_phase(tag: str, dev) -> tuple:
           "dense": dense, "serve": MESH_SERVE, "train": MESH_TRAIN,
           "moe": moe, "moe_prompt": MESH_MOE_PROMPT,
           "families": mesh_families(), "fam_serve": MESH_FAMILY_SERVE,
+          "update": MESH_UPDATE,
           "opt": dict(lr=3e-4, schedule="cosine", warmup_steps=10, total_steps=100,
                       clip_norm=1.0)}
     from repro_torch.configs import get_config
@@ -6603,7 +7002,7 @@ def mesh_phase(tag: str, dev) -> tuple:
               f"{f.moe.num_experts} -> {cfg.moe.num_experts} (device memory); on (2, "
               f"{half}) ({'moe_block_a2a' if ep else 'moe_block_tp'}): prefill "
               f"{MESH_MOE_PROMPT[0]} x {MESH_MOE_PROMPT[1]}, then "
-              f"{1 if ep else MESH_TRAIN[2]} step(s) of {MESH_TRAIN[0]} x {MESH_TRAIN[1]}"
+              f"1 step of {MESH_TRAIN[0]} x {MESH_TRAIN[1]}"
               f"{' at a capacity that does not bind' if ep else ''}, step 1's gradient "
               f"held")
     fams = st["families"]
@@ -6616,8 +7015,10 @@ def mesh_phase(tag: str, dev) -> tuple:
         print(f"  (d) {a} ({cfg.family}): depth {depth} (the gloo wire's time), width "
               f"not cut; on (1, {world}): prefill {Bs} x {Ss}"
               f"{' source frames' if cfg.family == 'encdec' else ''} + {ns} decode "
-              f"steps against one rank; on (2, {half}): 1 step of {MESH_TRAIN[0]} x "
-              f"{MESH_TRAIN[1]}, its gradient and loss held")
+              f"steps against one rank; on (2, {half}): "
+              f"{MESH_TRAIN[2] if a == MESH_UPDATE else 1} step(s) of {MESH_TRAIN[0]} x "
+              f"{MESH_TRAIN[1]}, its gradient and loss held"
+              f"{' (the second: an AdamW update of the fsdp blocks)' if a == MESH_UPDATE else ''}")
     reck = {"(a)": fsdp_reckon(dcfg, (1, world)), "(b)": fsdp_reckon(dense, (2, half)),
             **{a: fsdp_reckon(c, (2, half)) for a, c in moe},
             **{a: fsdp_reckon(c, (2, half)) for a, c in fams}}
@@ -6821,7 +7222,6 @@ def mesh_phase(tag: str, dev) -> tuple:
         else:
             by_path[f"mesh {a}"] = serve + trained
     shutil.rmtree(work, ignore_errors=True)
-    print(f"  phase 14: {time.perf_counter() - t_start:.1f} s [{tag}]")
     if fails:
         raise SmokeFailure("phase 14: " + "; ".join(fails))
     return by_path, nc_by_path
@@ -6883,6 +7283,7 @@ def main() -> int:
     encoder = flash_encoder_row(tag, torch.device(DEVICE), sum(nc_by_path.values()))
     encoder["launches_by_path"] = nc_by_path
     kernels.append(encoder)
+    print(f"wall time by phase (host clock, s): {phase_times()} [{tag}]")
     print(tag)                        # name, power limit as nvidia-smi says
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -185,6 +185,65 @@ __device__ __forceinline__ void gather_corners(const LevelGeom& g, const T* tabl
   }
 }
 
+// load_row for a row in SHARED memory (a level the inference kernel staged
+// there by a bulk copy of the device rows): the same vector load and the
+// same unpacking, as a plain shared-memory load
+template <typename T, int F>
+__device__ __forceinline__ void load_row_shared(const T* row, float (&v)[F]) {
+  constexpr int BYTES = F * (int)sizeof(T);
+  if constexpr (BYTES == 2) {
+    v[0] = __uint_as_float((unsigned)*reinterpret_cast<const unsigned short*>(row) << 16);
+    return;
+  } else {
+    constexpr int WORDS = BYTES / 4;
+    unsigned u[WORDS];
+    if constexpr (WORDS == 1) {
+      u[0] = *reinterpret_cast<const unsigned*>(row);
+    } else if constexpr (WORDS == 2) {
+      const uint2 q = *reinterpret_cast<const uint2*>(row);
+      u[0] = q.x; u[1] = q.y;
+    } else {
+#pragma unroll
+      for (int k = 0; k < WORDS / 4; ++k) {
+        const uint4 q = reinterpret_cast<const uint4*>(row)[k];
+        u[4 * k] = q.x; u[4 * k + 1] = q.y; u[4 * k + 2] = q.z; u[4 * k + 3] = q.w;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < WORDS; ++k) {
+      if constexpr (sizeof(T) == 4) {
+        v[k] = __uint_as_float(u[k]);
+      } else {
+        v[2 * k] = __uint_as_float(u[k] << 16);
+        v[2 * k + 1] = __uint_as_float(u[k] & 0xffff0000u);
+      }
+    }
+  }
+}
+
+// gather_corners from a level's rows staged in shared memory: the same
+// corners in the same order, the same weights and sums
+template <typename T, int F>
+__device__ __forceinline__ void gather_corners_shared(const LevelGeom& g, const T* table,
+                                                      float (&acc)[F]) {
+#pragma unroll
+  for (int f = 0; f < F; ++f) acc[f] = 0.0f;
+#pragma unroll
+  for (int dx = 0; dx < 2; ++dx) {
+#pragma unroll
+    for (int dy = 0; dy < 2; ++dy) {
+#pragma unroll
+      for (int dz = 0; dz < 2; ++dz) {
+        const float ww = round_to<T>(corner_weight(g, dx, dy, dz));
+        float v[F];
+        load_row_shared<T, F>(table + (size_t)corner_index(g, dx, dy, dz) * F, v);
+#pragma unroll
+        for (int f = 0; f < F; ++f) acc[f] += ww * v[f];
+      }
+    }
+  }
+}
+
 // Sum, over the lanes of a warp that hold the same key, their F values
 // into the group's lowest lane (its leader), which gets true back. Every
 // lane of the warp calls it. A tree over each group: round k adds the

@@ -73,6 +73,25 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
       : "memory");
 }
 
+// ---- bulk copies (cp.async.bulk, no tensor map): `bytes` (a multiple of
+// 16; both addresses 16-byte aligned) from global to shared memory,
+// completing on `bar`'s transaction count
+__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src,
+                                              unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+        "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Order this thread's earlier generic accesses of shared memory before the
+// async proxy's later ones (a bulk copy over bytes the block has read)
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---- wgmma
 // Descriptor of a tile whose rows are `row_bytes` (32, 64 or 128: the
 // swizzle span) long, starting at shared address `addr`.

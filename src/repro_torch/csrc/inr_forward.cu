@@ -1,181 +1,73 @@
-// INR inference in one kernel: the multi-resolution hash encode of each
-// coordinate row, straight into a tile of shared memory, then the bias-free
-// ReLU MLP on the tensor cores. The path of decode, evaluate and render.
-//
-// Replaces hash_encode_pallas (src/repro/kernels/hash_encoding/kernel.py:62)
-// and fused_mlp_fwd_pallas (src/repro/kernels/fused_mlp/kernel.py:66) in one
-// pass. The TPU runs them as two pallas_calls with the (N, L*F) feature
-// array in HBM between them; so did the port's first route (hash_encode.cu
-// then fused_mlp.cu), which writes and reads back 80 bytes of features a
-// point (5.4 GB per serving tick at PRODUCTION256's widths).
-//
-// Design. A block loads its batch row's partition weights once, as B
-// fragments (mlp_mma.cuh), and each warp walks 32-row tiles of the row with
-// a grid stride. For a tile, each lane takes one point and all its levels
-// in turn: the level geometry and the 8-corner gather of hash_grid.cuh
-// (level_geom, gather_corners: one vector load per corner row; coarse dense
-// levels from L1, hashed rows from L2), each level's F features stored into
-// the lane's row of the warp's tile in shared memory. The warp then runs the
-// tile through the MLP (mma.sync; each layer's accumulators re-packed in
-// registers as the next layer's operands) and writes D_out values a row.
-// One point per thread with all its levels lost as the hash-encode forward
-// (hash_encode.cu) because its 16-byte stores scattered across a warp's
-// stretch of device memory; here they land in shared memory, and every
-// lane of a warp works on the same level at once.
-//
-// Bound: 16 bytes a point (the coordinates in, one float32 out) against
-// the float work of the encode (~450 flop a point at PRODUCTION256: 5 levels
-// of geometry and 8 weighted corner rows) and the MLP's products (1,184 flop
-// a point; on the tensor cores under bf16). At a serving tick's 67.1M
-// points: 0.32 ms by bytes, ~1.6 ms by float32 operations. What sets the
-// pace is instructions: the encode's geometry and corner rows (as in
-// hash_encode.cu, now without the feature array's round trip) and, under
-// float32, the MLP's 3xTF32 products, which on the H100 at a serving tick's
-// shapes take about half the kernel's time each.
-//
-// Numerics, the two-kernel route's exactly, up to the MLP's sum order: the
-// geometry of hash_grid.cuh (lower corner clamped, offset not, so rays that
-// miss the box extrapolate), each corner weight rounded to the table type,
-// the blend summed in float32 and rounded once to the table type. The
-// wrapper casts the tables and weights to the compute dtype first, as the
-// route's _cast does, so the table type is the compute type. Then the MLP
-// of mlp_mma.cuh (bf16: float32 sums of exact products, each hidden ReLU
-// output rounded to bfloat16; float32: 3xTF32), the output rounded to the
-// compute type.
-#include "common.cuh"
-#include "hash_grid.cuh"
-#include "mlp_mma.cuh"
+// The INR inference kernel's C entries and its float32 instantiations (the
+// kernel and its design: inr_forward.cuh; the bf16 instantiations:
+// inr_forward_bf16.cu).
+#include "inr_forward.cuh"
+
+namespace repro {
+namespace inr {
+
+cudaError_t dispatch_f32(int W, int F, int design, const Args& a) {
+  return dispatch<float>(W, F, design, a);
+}
+
+}  // namespace inr
+}  // namespace repro
 
 namespace {
 
-namespace mm = repro::mma;
-
-constexpr int MAX_LEVELS = 32;
-
-// blocks of 256 threads an SM must hold, which caps the registers at
-// 65536 / (256 x blocks): the occupancy each instantiation reaches without
-// spilling (ptxas would otherwise trade spills for the next block)
-template <typename T, int W, int F>
-constexpr int inr_min_blocks() {
-  constexpr bool h = sizeof(T) == 2;
-  return W == 16 ? (!h && F == 8 ? 3 : 4) : W == 32 ? (h ? 3 : 2) : (h ? 2 : 1);
-}
-
-template <typename T, int W, int F>
-__global__ void __launch_bounds__(256, inr_min_blocks<T, W, F>()) inr_forward_kernel(
-    const float* __restrict__ coords, const T* __restrict__ tables,
-    const int* __restrict__ res, const int* __restrict__ part,
-    const T* __restrict__ w_in, const T* __restrict__ w_hid,
-    const T* __restrict__ w_out, T* __restrict__ out, long long N, int L,
-    long long T_size, int n_hidden, int n_hid_slab, int D_out) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int D_in = L * F;
-  const mm::Shape s{D_in, n_hidden, D_out};
-  const int b = blockIdx.y;
-  const long long p = __ldg(part + b);
-  uint32_t* sw = reinterpret_cast<uint32_t*>(smem);
-  mm::load_weights<T, W>(sw, w_in + p * D_in * W, w_hid + p * n_hid_slab * W * W,
-                         w_out + p * W * D_out, s);
-  int* s_res = reinterpret_cast<int*>(sw + mm::weight_words<T>(D_in, W, n_hidden));
-  for (int i = threadIdx.x; i < L; i += blockDim.x) s_res[i] = __ldg(res + i);
-  // one tile per warp, after the weights and the resolutions
-  const int stride = mm::tile_stride(D_in), tile_elems = mm::TILE_ROWS * stride;
-  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  T* tile = reinterpret_cast<T*>(s_res + MAX_LEVELS) + (size_t)warp * tile_elems;
-  for (int i = lane; i < tile_elems; i += 32) tile[i] = repro::from_f32<T>(0.0f);
-  __syncthreads();
-
-  const T* tab = tables + p * L * T_size * F;
-  const long long row0 = (long long)b * N;
-  T* row = tile + lane * stride;
-  const long long n_tiles = (N + mm::TILE_ROWS - 1) / mm::TILE_ROWS;
-  const long long step = (long long)gridDim.x * warps;
-  for (long long t = (long long)blockIdx.x * warps + warp; t < n_tiles; t += step) {
-    const long long n0 = t * mm::TILE_ROWS, n = n0 + lane;
-    if (n < N) {   // rows past N keep stale features; their outputs are dropped
-      const float* c = coords + (row0 + n) * 3;
-      const float cc[3] = {__ldg(c), __ldg(c + 1), __ldg(c + 2)};
-      for (int l = 0; l < L; ++l) {
-        const repro::LevelGeom geo = repro::level_geom(cc, s_res[l], T_size);
-        float acc[F];
-        repro::gather_corners<T, F>(geo, tab + (long long)l * T_size * F, acc);
-        repro::store_row<T, F>(row + l * F, acc);
-      }
-    }
-    __syncwarp();   // the tile's rows are every lane's
-    mm::tile_forward<T, W, W == 64 ? 1 : 2>(sw, tile, stride, s, out + (row0 + n0) * D_out,
-                           (int)min((long long)mm::TILE_ROWS, N - n0));
-    __syncwarp();   // read before the next tile's features overwrite it
-  }
-}
-
-template <typename T, int W, int F>
-cudaError_t launch_wf(const float* coords, const void* tables, const int* res,
-                      const int* part, const void* w_in, const void* w_hid,
-                      const void* w_out, void* out, long long B, long long N,
-                      int L, long long T_size, int n_hidden, int n_hid_slab,
-                      int D_out, cudaStream_t stream) {
-  auto kernel = inr_forward_kernel<T, W, F>;
-  const int D_in = L * F;
-  size_t smem = 0;
-  const int warps = mm::pick_warps(
-      (size_t)mm::weight_words<T>(D_in, W, n_hidden) * 4 + MAX_LEVELS * sizeof(int),
-      sizeof(T) * mm::TILE_ROWS * mm::tile_stride(D_in), &smem);
-  if (warps == 0) return cudaErrorInvalidValue;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  const long long n_tiles = (N + mm::TILE_ROWS - 1) / mm::TILE_ROWS;
-  const dim3 grid(
-      (unsigned)mm::grid_x((const void*)kernel, warps * 32, smem, n_tiles, warps, B),
-      (unsigned)B);
-  REPRO_NOTE_LAUNCH(kernel, smem);
-  kernel<<<grid, warps * 32, smem, stream>>>(
-      coords, static_cast<const T*>(tables), res, part, static_cast<const T*>(w_in),
-      static_cast<const T*>(w_hid), static_cast<const T*>(w_out), static_cast<T*>(out),
-      N, L, T_size, n_hidden, n_hid_slab, D_out);
-  return cudaGetLastError();
-}
+using namespace repro::inr;
 
 template <typename T, int W>
-cudaError_t launch_w(int F, const float* coords, const void* tables, const int* res,
-                     const int* part, const void* w_in, const void* w_hid,
-                     const void* w_out, void* out, long long B, long long N, int L,
-                     long long T_size, int n_hidden, int n_hid_slab, int D_out,
-                     cudaStream_t s) {
+Layout layout_w(int F, const int* res, int L, long long T_size, int n_hidden,
+                long long force) {
   switch (F) {
-    case 1: return launch_wf<T, W, 1>(coords, tables, res, part, w_in, w_hid, w_out, out, B, N, L, T_size, n_hidden, n_hid_slab, D_out, s);
-    case 2: return launch_wf<T, W, 2>(coords, tables, res, part, w_in, w_hid, w_out, out, B, N, L, T_size, n_hidden, n_hid_slab, D_out, s);
-    case 4: return launch_wf<T, W, 4>(coords, tables, res, part, w_in, w_hid, w_out, out, B, N, L, T_size, n_hidden, n_hid_slab, D_out, s);
-    case 8: return launch_wf<T, W, 8>(coords, tables, res, part, w_in, w_hid, w_out, out, B, N, L, T_size, n_hidden, n_hid_slab, D_out, s);
-    default: return cudaErrorInvalidValue;
+    case 1: return plan_layout<T, W, 1>(res, L, T_size, n_hidden, force);
+    case 2: return plan_layout<T, W, 2>(res, L, T_size, n_hidden, force);
+    case 4: return plan_layout<T, W, 4>(res, L, T_size, n_hidden, force);
+    default: return plan_layout<T, W, 8>(res, L, T_size, n_hidden, force);
   }
 }
 
 template <typename T>
-cudaError_t launch(int W, int F, const float* coords, const void* tables,
-                   const int* res, const int* part, const void* w_in,
-                   const void* w_hid, const void* w_out, void* out, long long B,
-                   long long N, int L, long long T_size, int n_hidden,
-                   int n_hid_slab, int D_out, cudaStream_t s) {
-  switch (W) {
-    case 16: return launch_w<T, 16>(F, coords, tables, res, part, w_in, w_hid, w_out, out, B, N, L, T_size, n_hidden, n_hid_slab, D_out, s);
-    case 32: return launch_w<T, 32>(F, coords, tables, res, part, w_in, w_hid, w_out, out, B, N, L, T_size, n_hidden, n_hid_slab, D_out, s);
-    case 64: return launch_w<T, 64>(F, coords, tables, res, part, w_in, w_hid, w_out, out, B, N, L, T_size, n_hidden, n_hid_slab, D_out, s);
-    default: return cudaErrorInvalidValue;
-  }
+Layout layout_t(int W, int F, const int* res, int L, long long T_size, int n_hidden,
+                long long force, int* threads) {
+  *threads = W == 16 ? (F == 8 ? Block<T, 16, 8>::THREADS : Block<T, 16, 4>::THREADS)
+           : W == 32 ? Block<T, 32, 4>::THREADS : Block<T, 64, 4>::THREADS;
+  return W == 16 ? layout_w<T, 16>(F, res, L, T_size, n_hidden, force)
+       : W == 32 ? layout_w<T, 32>(F, res, L, T_size, n_hidden, force)
+                 : layout_w<T, 64>(F, res, L, T_size, n_hidden, force);
+}
+
+// the main design's layout and its block's threads (F in {1, 2, 4, 8} and
+// W in {16, 32, 64} checked by the caller)
+Layout host_layout(int is_bf16, int W, int F, const int* res, int L, long long T_size,
+                   int n_hidden, long long force, int* threads) {
+  return is_bf16 ? layout_t<__nv_bfloat16>(W, F, res, L, T_size, n_hidden, force, threads)
+                 : layout_t<float>(W, F, res, L, T_size, n_hidden, force, threads);
+}
+
+bool bad_shape(long long B, int L, int F, int W, int n_hidden, int D_out, long long T_size,
+               const void* tables) {
+  return B > 65535 || L < 1 || L > MAX_LEVELS || n_hidden < 1 || D_out > 8 ||
+         T_size < 1 || T_size >= (1LL << 32) || reinterpret_cast<uintptr_t>(tables) % 16 ||
+         (F != 1 && F != 2 && F != 4 && F != 8) || (W != 16 && W != 32 && W != 64);
+}
+
+int run(int is_bf16, int W, int F, int design, const Args& a) {
+  return (int)(is_bf16 ? dispatch_bf16(W, F, design, a) : dispatch_f32(W, F, design, a));
 }
 
 }  // namespace
 
-// coords (B,N,3) f32; tables (P,L,T,F), 16-byte aligned; res (L,) i32 on the
-// device; part (B,) i32; w_in (P,L*F,W), w_hid (P,n_hid_slab,W,W) with
-// n_hid_slab = max(n_hidden-1, 1), w_out (P,W,D_out) -> out (B,N,D_out);
+// coords (B,N,3) f32; tables (P,L,T,F), 16-byte aligned; res (L,) i32 in
+// HOST memory (the plan is made from it on the host); part (B,) i32; w_in
+// (P,L*F,W), w_hid (P,n_hid_slab,W,W) with n_hid_slab = max(n_hidden-1, 1),
+// w_out (P,W,D_out) -> out (B,N,D_out);
 // tables, weights and out in one type (float32 when is_bf16 = 0, else
 // bfloat16). F in {1,2,4,8}, W in {16,32,64}, L <= 32, D_out <= 8,
 // 0 <= part[b] < P checked on the host; cudaErrorInvalidValue for shapes
-// the kernel does not take (the weights' fragments and one warp's tile
-// above 227 KB).
+// the kernel does not take (the weights' fragments, the resolutions and
+// level offsets, the barrier and one warp's 32-row tile above 227 KB).
 extern "C" int repro_inr_forward(const void* coords, const void* tables,
                                  const void* res, const void* part, const void* w_in,
                                  const void* w_hid, const void* w_out, void* out,
@@ -183,15 +75,81 @@ extern "C" int repro_inr_forward(const void* coords, const void* tables,
                                  int F, int W, int n_hidden, int n_hid_slab,
                                  int D_out, int is_bf16, void* stream) {
   if (B <= 0 || N <= 0 || D_out <= 0) return 0;
-  if (B > 65535 || L < 1 || L > MAX_LEVELS || n_hidden < 1 || D_out > 8 ||
-      T_size < 1 || T_size >= (1LL << 32) ||
-      reinterpret_cast<uintptr_t>(tables) % 16)
+  if (bad_shape(B, L, F, W, n_hidden, D_out, T_size, tables)) return (int)cudaErrorInvalidValue;
+  // the layout with no level staged (the rule stages only into room left
+  // beside every warp's tile) must hold a warp
+  int zeros[MAX_LEVELS] = {}, threads = 0;
+  if (host_layout(is_bf16, W, F, zeros, L, T_size, n_hidden, 0, &threads).warps < 1)
     return (int)cudaErrorInvalidValue;
-  const float* c = static_cast<const float*>(coords);
-  const int* r = static_cast<const int*>(res);
-  const int* p = static_cast<const int*>(part);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16
-      ? launch<__nv_bfloat16>(W, F, c, tables, r, p, w_in, w_hid, w_out, out, B, N, L, T_size, n_hidden, n_hid_slab, D_out, s)
-      : launch<float>(W, F, c, tables, r, p, w_in, w_hid, w_out, out, B, N, L, T_size, n_hidden, n_hid_slab, D_out, s));
+  const Args a{static_cast<const float*>(coords), tables, static_cast<const int*>(res),
+               static_cast<const int*>(part), w_in, w_hid, w_out, out, B, N, L, T_size,
+               n_hidden, n_hid_slab, D_out, -1, nullptr, nullptr,
+               static_cast<cudaStream_t>(stream)};
+  return run(is_bf16, W, F, 0, a);
+}
+
+// repro_inr_forward with a choice, for measurements: design 0 the main
+// design (force < 0 its plan's rule, else the mask of levels to stage), 1
+// the grid yardstick (W = 16, F = 4 or W = 64, F = 8; every level direct);
+// clocks null, or (kStages + 1) uint64 zeroed on the device: the clocked
+// instantiation of the design (W = 16, F = 4 only) adds its stage counts
+// and its warps' summed lifetimes there.
+extern "C" int repro_inr_forward_with(const void* coords, const void* tables,
+                                      const void* res, const void* part,
+                                      const void* w_in, const void* w_hid,
+                                      const void* w_out, void* out, long long B,
+                                      long long N, int L, long long T_size, int F, int W,
+                                      int n_hidden, int n_hid_slab, int D_out,
+                                      int is_bf16, int design, long long force,
+                                      void* clocks, void* stream) {
+  if (B <= 0 || N <= 0 || D_out <= 0) return 0;
+  if (bad_shape(B, L, F, W, n_hidden, D_out, T_size, tables) || design < 0 || design > 1 ||
+      (design == 1 && force >= 0))
+    return (int)cudaErrorInvalidValue;
+  const Args a{static_cast<const float*>(coords), tables, static_cast<const int*>(res),
+               static_cast<const int*>(part), w_in, w_hid, w_out, out, B, N, L, T_size,
+               n_hidden, n_hid_slab, D_out, force,
+               static_cast<unsigned long long*>(clocks), nullptr,
+               static_cast<cudaStream_t>(stream)};
+  return run(is_bf16, W, F, design, a);
+}
+
+// The main design's layout at these shapes (res in host memory; force as
+// repro_inr_forward_with's): out[0..4) = staged mask, warps with a tile,
+// shared bytes the layout uses, the block's threads.
+extern "C" int repro_inr_forward_plan(const void* res, int L, long long T_size, int F,
+                                      int W, int n_hidden, int is_bf16, long long force,
+                                      void* out) {
+  if (L < 1 || L > MAX_LEVELS || bad_shape(1, L, F, W, n_hidden, 1, 1, nullptr))
+    return (int)cudaErrorInvalidValue;
+  int threads = 0;
+  const Layout lay = host_layout(is_bf16, W, F, static_cast<const int*>(res), L, T_size,
+                                 n_hidden, force, &threads);
+  long long* o = static_cast<long long*>(out);
+  o[0] = lay.staged;
+  o[1] = lay.warps;
+  o[2] = lay.bytes;
+  o[3] = threads;
+  return 0;
+}
+
+// A design's residency at these shapes (res in host memory; design and
+// instantiations as repro_inr_forward_with's, unclocked, the main design by
+// its rule): out[0..3) = the blocks an SM holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the block's threads and
+// the dynamic shared bytes its launch asks for. Launches nothing.
+extern "C" int repro_inr_forward_occupancy(const void* res, int L, long long T_size, int F,
+                                           int W, int n_hidden, int is_bf16, int design,
+                                           void* out) {
+  if (bad_shape(1, L, F, W, n_hidden, 1, T_size, nullptr) || design < 0 || design > 1)
+    return (int)cudaErrorInvalidValue;
+  Args a{};
+  a.res = static_cast<const int*>(res);
+  a.B = a.N = 1;
+  a.L = L;
+  a.T_size = T_size;
+  a.n_hidden = n_hidden;
+  a.force = -1;
+  a.occupancy = static_cast<long long*>(out);
+  return run(is_bf16, W, F, design, a);
 }

@@ -1,6 +1,6 @@
-// The fused train step's C entries and its float32 instantiations (the
-// kernel and its design: train_step.cuh; the bf16 policy's instantiations:
-// train_step_bf16.cu).
+// The fused train step's C entries and its float32 host-sampled
+// instantiations (the kernel and its design: train_step.cuh; the other
+// variants, policies and routes: train_step_*.cu, one each).
 #include "train_step.cuh"
 
 namespace {
@@ -76,13 +76,13 @@ extern "C" int repro_train_step(
   a.D_out = D_out; a.ghost = ghost; a.sigma = sigma;
   for (int l = 0; l < L; ++l) a.res[l] = res[l];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool smp = sampling != 0;
-  if (det) {
-    return (int)(is_bf16 ? repro::train_step_launch_det_bf16(a, sh, P, W, F, smp, s)
-                         : repro::train_step_launch_det(a, sh, P, W, F, smp, s));
-  }
-  if (is_bf16) return (int)repro::train_step_launch_bf16(a, sh, P, W, F, smp, s);
-  return (int)repro::step_launch<float, false>(a, sh, P, W, F, smp, s);
+  // [det][is_bf16][sampling]
+  repro::StepLaunch* const launch[2][2][2] = {
+      {{repro::step_launch<float, false, false>, repro::train_step_launch_sampling},
+       {repro::train_step_launch_bf16, repro::train_step_launch_bf16_sampling}},
+      {{repro::train_step_launch_det, repro::train_step_launch_det_sampling},
+       {repro::train_step_launch_det_bf16, repro::train_step_launch_det_bf16_sampling}}};
+  return (int)launch[det != 0][is_bf16 != 0][sampling != 0](a, sh, P, W, F, s);
 }
 
 // The train step's launch shape for these arguments (as repro_train_step

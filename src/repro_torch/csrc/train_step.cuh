@@ -149,18 +149,16 @@ struct StepShape {
   long long groups;   // the deterministic route's tile groups (0 otherwise)
 };
 
-// the other translation units' launches: the bf16 policy's
-// (train_step_bf16.cu) and the deterministic route's (train_step_det.cu,
-// train_step_det_bf16.cu)
-cudaError_t train_step_launch_bf16(const StepArgs& a, const StepShape& sh,
-                                   long long P, int W, int F, bool sampling,
-                                   cudaStream_t stream);
-cudaError_t train_step_launch_det(const StepArgs& a, const StepShape& sh,
-                                  long long P, int W, int F, bool sampling,
-                                  cudaStream_t stream);
-cudaError_t train_step_launch_det_bf16(const StepArgs& a, const StepShape& sh,
-                                       long long P, int W, int F, bool sampling,
-                                       cudaStream_t stream);
+// Each (parameter type, route, variant) has a translation unit of its own,
+// so that nvcc compiles its 12 kernels (W x F) beside the others': the
+// float32 host-sampled variant in train_step.cu, with the C entry; the rest
+// in train_step{,_bf16,_det,_det_bf16}[_sampling].cu.
+using StepLaunch = cudaError_t(const StepArgs& a, const StepShape& sh, long long P,
+                               int W, int F, cudaStream_t stream);
+StepLaunch train_step_launch_sampling, train_step_launch_bf16,
+    train_step_launch_bf16_sampling, train_step_launch_det,
+    train_step_launch_det_sampling, train_step_launch_det_bf16,
+    train_step_launch_det_bf16_sampling;
 
 namespace step {
 
@@ -413,11 +411,10 @@ inline bool step_shape(int L, int F, int W, int n_hidden, int D_out, long long N
   return true;
 }
 
-template <typename TP, bool DET, int W, int F>
+template <typename TP, bool DET, bool SAMPLING, int W, int F>
 cudaError_t step_launch_wf(const StepArgs& a, const StepShape& sh, long long P,
-                           bool sampling, cudaStream_t stream) {
-  const auto kernel = sampling ? &train_step_kernel<TP, W, F, true, DET>
-                               : &train_step_kernel<TP, W, F, false, DET>;
+                           cudaStream_t stream) {
+  const auto kernel = &train_step_kernel<TP, W, F, SAMPLING, DET>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sh.smem);
   if (e != cudaSuccess) return e;
@@ -426,27 +423,27 @@ cudaError_t step_launch_wf(const StepArgs& a, const StepShape& sh, long long P,
   return cudaGetLastError();
 }
 
-template <typename TP, bool DET, int W>
+template <typename TP, bool DET, bool SAMPLING, int W>
 cudaError_t step_launch_w(const StepArgs& a, const StepShape& sh, long long P, int F,
-                          bool sampling, cudaStream_t stream) {
+                          cudaStream_t stream) {
   switch (F) {
-    case 1: return step_launch_wf<TP, DET, W, 1>(a, sh, P, sampling, stream);
-    case 2: return step_launch_wf<TP, DET, W, 2>(a, sh, P, sampling, stream);
-    case 4: return step_launch_wf<TP, DET, W, 4>(a, sh, P, sampling, stream);
-    case 8: return step_launch_wf<TP, DET, W, 8>(a, sh, P, sampling, stream);
+    case 1: return step_launch_wf<TP, DET, SAMPLING, W, 1>(a, sh, P, stream);
+    case 2: return step_launch_wf<TP, DET, SAMPLING, W, 2>(a, sh, P, stream);
+    case 4: return step_launch_wf<TP, DET, SAMPLING, W, 4>(a, sh, P, stream);
+    case 8: return step_launch_wf<TP, DET, SAMPLING, W, 8>(a, sh, P, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
-// every (W, F, variant) instantiation of the kernel for parameter type TP and
-// route DET
-template <typename TP, bool DET>
+// every (W, F) instantiation of the kernel for parameter type TP, route DET
+// and variant SAMPLING
+template <typename TP, bool DET, bool SAMPLING>
 cudaError_t step_launch(const StepArgs& a, const StepShape& sh, long long P, int W,
-                        int F, bool sampling, cudaStream_t stream) {
+                        int F, cudaStream_t stream) {
   switch (W) {
-    case 16: return step_launch_w<TP, DET, 16>(a, sh, P, F, sampling, stream);
-    case 32: return step_launch_w<TP, DET, 32>(a, sh, P, F, sampling, stream);
-    case 64: return step_launch_w<TP, DET, 64>(a, sh, P, F, sampling, stream);
+    case 16: return step_launch_w<TP, DET, SAMPLING, 16>(a, sh, P, F, stream);
+    case 32: return step_launch_w<TP, DET, SAMPLING, 32>(a, sh, P, F, stream);
+    case 64: return step_launch_w<TP, DET, SAMPLING, 64>(a, sh, P, F, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -47,7 +47,9 @@ KERNEL_BUDGETS = {
     "fused_mlp_fwd_kernel": KernelBudget(160, 0, H100_SMEM_OPTIN),
     "fused_mlp_bwd_kernel": KernelBudget(255, 0, H100_SMEM_OPTIN),
     "mlp_dw_reduce_kernel": KernelBudget(64, 0, 0),
-    "inr_forward_kernel": KernelBudget(160, 0, H100_SMEM_OPTIN),
+    # one block an SM of as many warps as the one-warp design held there:
+    # 64 registers at W = 16, up to the ISA's 255 at W = 64 under float32
+    "inr_forward_kernel": KernelBudget(255, 0, H100_SMEM_OPTIN),
     "composite_kernel": KernelBudget(64, 0, STATIC_SMEM_LIMIT),
     # 64 B of stack: the per-level resolutions of StepArgs, indexed at run
     # time in the sampling variants (16 B in the host-sampled ones)

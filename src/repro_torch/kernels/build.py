@@ -36,9 +36,19 @@ SIGNATURES = {
     # D_out, is_bf16, stream
     "repro_fused_mlp_fwd": [_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I,
                             _I, _I, _P],
-    # coords, tables, res, part, w_in, w_hid, w_out, out, B, N, L, T, F, W,
-    # n_hidden, n_hid_slab, D_out, is_bf16, stream
+    # coords, tables, res (host memory), part, w_in, w_hid, w_out, out, B, N,
+    # L, T, F, W, n_hidden, n_hid_slab, D_out, is_bf16, stream
     "repro_inr_forward": [_P] * 8 + [_L, _L, _I, _L, _I, _I, _I, _I, _I, _I, _P],
+    # the same operands, then design, forced staging mask (< 0: the rule),
+    # clocks (or null), stream
+    "repro_inr_forward_with": [_P] * 8 + [_L, _L, _I, _L, _I, _I, _I, _I, _I, _I,
+                                          _I, _L, _P, _P],
+    # res (host memory), L, T, F, W, n_hidden, is_bf16, force, layout out (4
+    # int64 in host memory)
+    "repro_inr_forward_plan": [_P, _I, _L, _I, _I, _I, _I, _L, _P],
+    # res (host memory), L, T, F, W, n_hidden, is_bf16, design, out (3 int64
+    # in host memory)
+    "repro_inr_forward_occupancy": [_P, _I, _L, _I, _I, _I, _I, _I, _P],
     # rgba, out, R, S, is_bf16, stream
     "repro_composite": [_P, _P, _L, _I, _I, _P],
     # grad_out, coords, res, staged (the two in host memory), part,
@@ -135,11 +145,21 @@ def build() -> Path:
             procs.append((src, subprocess.Popen(
                 [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        done = {}
+
+        def finish(src, proc):          # each source's own finishing time
+            out, _ = proc.communicate()
+            done[src] = (out, time.perf_counter() - t0)
+
+        waits = [threading.Thread(target=finish, args=p) for p in procs]
+        for w in waits:
+            w.start()
+        for w in waits:
+            w.join()
         logs, failed = [], []
         for src, proc in procs:
-            out, _ = proc.communicate()
-            logs.append(f"== {src.name} (done after "
-                        f"{time.perf_counter() - t0:.1f} s)\n{out}")
+            out, t = done[src]
+            logs.append(f"== {src.name} (done after {t:.1f} s)\n{out}")
             if proc.returncode:
                 failed.append(src.name)
         if failed:

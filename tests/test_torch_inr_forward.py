@@ -300,10 +300,29 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad, exc, match):
 
 
 def test_shared_memory_rule_matches_the_kernel_layout():
-    """PRODUCTION256 in float32: 3 k-tiles of 8 (K = 20 padded to 24) x 2
-    n-tiles, one hidden layer of 2 x 2, the output 2 x 1, 512 bytes a
-    fragment; a 32-row tile of stride 24. bf16: k-tiles of 16, 256 bytes."""
-    assert mma_smem_bytes(20, 16, 2, 4, 1) == (3 * 2 + 2 * 2 + 2) * 512 + 32 * 24 * 4
-    assert mma_smem_bytes(20, 16, 2, 2, 2) == (2 * 2 + 1 * 2 + 1) * 256 + 2 * 32 * 24 * 2
+    """The kernel's block at PRODUCTION256 (csrc/inr_forward.cuh
+    plan_layout): the weights' fragments (float32: 3 k-tiles of 8, K = 20
+    padded to 24, x 2 n-tiles, one hidden layer of 2 x 2, the output 2 x 1,
+    512 bytes a fragment; bf16: k-tiles of 16, 256 bytes), 256 bytes of
+    resolutions and level offsets, 16 of the tables' barrier, the staged
+    levels' rows (125, 729 and 4,913 dense rows, then 2 x 8,192 hashed; a
+    row of 4 features, each level rounded up to 16 bytes) and one 32-row
+    tile of stride 24 for each of the block's 32 warps. float32 stages the
+    three dense levels (the first hashed one does not fit what is left);
+    bf16 stages all five."""
+    assert mma_smem_bytes(20, 16, 2, 4, 0) == (3 * 2 + 2 * 2 + 2) * 512
+    assert mma_smem_bytes(20, 16, 2, 2, 0) == (2 * 2 + 1 * 2 + 1) * 256
+    res = dvnr.PRODUCTION256.level_resolutions()
+    fixed32, fixed16 = 12 * 512 + 256 + 16, 7 * 256 + 256 + 16
+    dense32 = (125 + 729 + 4913) * 16
+    assert iops.SMEM_LIMIT - fixed32 - 32 * 32 * 24 * 4 - dense32 < 8192 * 16
+    assert iops.fwd_layout(res, 8192, 4, 16, 2, 4) == {
+        "plan": "sssdd", "warps": 32, "bytes": fixed32 + dense32 + 32 * 32 * 24 * 4,
+        "threads": 1024}
+    rows = 1008 + 5840 + 39312 + 2 * 65536
+    assert rows == sum(-(-r * 8 // 16) * 16 for r in (125, 729, 4913, 8192, 8192))
+    assert iops.fwd_layout(res, 8192, 4, 16, 2, 2) == {
+        "plan": "sssss", "warps": 32, "bytes": fixed16 + rows + 32 * 32 * 24 * 2,
+        "threads": 1024}
     assert refusal(*_operands(L=10, F=8, W=64, H=3)[:3]) is None   # ABLATION
     assert iops.KERNEL_FEATURES == (1, 2, 4, 8)
