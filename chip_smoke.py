@@ -160,8 +160,12 @@ toolkit; imports nothing of JAX or of the JAX package. Phases:
 10. checks ``python -m repro_torch.analysis --config production256
            --backend cuda`` exits 0; ``kernel_budget`` reads each launched
            kernel's ``cudaFuncGetAttributes``, which must agree with phase 1's
-           ``ptxas`` numbers; ``static_checks="error"`` builds on the clean
-           config and raises on each control (``analysis_phase``);
+           ``ptxas`` numbers; ``python -m repro_torch.analysis lock verify
+           --device cuda --config quickstart,smoke`` exits 0 against the
+           committed lock (written on the CPU), and the production256
+           reports of this process match its production256 entries;
+           ``static_checks="error"`` builds on the clean config and raises
+           on each control (``analysis_phase``);
 11. examples ``examples/quickstart_torch.py`` and
            ``examples/insitu_reactive_torch.py`` at a cut depth
            (``examples_phase``).
@@ -222,6 +226,19 @@ toolkit; imports nothing of JAX or of the JAX package. Phases:
            bf16, ROADMAP §C8, the kernel path's gradient no further from
            the f32 computation's than 1.5x the plain path's, and the f32
            computation's own kernel path within 1e-4 of its plain path).
+14. mesh   the LMs on a mesh of gloo ranks sharing the card
+           (``mesh_phase``).
+15. dryrun the dry-run against the card (``dryrun_phase``): in a
+           subprocess (its fake tensors never meet this process's), the
+           one-card dry-run cells of phase 5's fused f32 DVNR
+           step (8 PRODUCTION256 partitions x 65,536), phase 7's llama3_8b
+           bf16 prefill (2 x 4,096) and phase 13's qwen2_0_5b driver step
+           (8 x 1,024): model FLOPs, counted FLOPs and bytes, predicted
+           peak bytes and the roofline step time on the H100's constants,
+           beside each phase's measured time (the kernel route); then the
+           predicted peak against the measured peak of the same plain
+           route on the card (phase 7's plain prefill; the DVNR and qwen2
+           steps run once here on ``impl="ref"``).
 
 The unfused path's deterministic routes (the hash backward's int64
 fixed-point scatter, the MLP backward's per-block dW rows summed in order)
@@ -439,6 +456,10 @@ MESH_CONFIGS: dict = {}
 MESH_LOSS_RTOL, MESH_COS = 2e-2, 0.999
 #: the one-rank runs phase 13 leaves for phase 14: each path's losses
 PHASE13: dict = {}
+#: what phases 5, 7 and 13 measured for phase 15's dry-run cells: each
+#: cell's time (ms) and where the script ran its plain route, that route's
+#: peak memory (bytes: its inputs and what it allocated)
+DRYRUN_MEASURED: dict = {}
 # phase 8: the in situ session's rank edge (8 ranks: the 2x2x2 split of a
 # 512^3 volume), cycles and window; the shock trigger (the share of voxels
 # above SHOCK_LEVEL: ~0.024 at cycle 4 and ~0.028 at cycle 5 of a 512^3
@@ -893,6 +914,7 @@ def lm_phase(tag: str, dev, flash_err: float) -> dict:
     from repro_torch.kernels.flash_attention.ops import flash_attention_cuda
     from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.models import build_model
+    from repro_torch.optim.adamw import tree_leaves
 
     cfg = LM_CONFIG or get_config(LM_ARCH)
     dh = cfg.resolved_head_dim
@@ -961,8 +983,19 @@ def lm_phase(tag: str, dev, flash_err: float) -> dict:
     print(f"  peak memory {peak / 2**30:.3f} GiB (max_memory_allocated over the "
           f"run; {base_mem / 2**30:.3f} GiB resident before it) [{tag}]")
 
-    # (c) full depth, bf16: the kernel path against the plain path
+    # (c) full depth, bf16: the kernel path against the plain path (its
+    # peak memory for phase 15: the weights plus what the call allocates)
+    torch.cuda.synchronize()
+    plain_base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     ref_logits, ref_cache = model.prefill(params, prompt, seq_len, impl="ref")
+    torch.cuda.synchronize()
+    DRYRUN_MEASURED["llama_prefill"] = {
+        "ms": prefill_ms, "B": B, "S": S, "arch": LM_ARCH,
+        "what": f"phase 7, prefill {B}x{S} (impl='cuda'), host clock",
+        "plain_peak": torch.cuda.max_memory_allocated() - plain_base
+        + sum(t.numel() * t.element_size() for t in tree_leaves(params)),
+        "plain_route": f"phase 7's prefill(impl='ref'), {B}x{S}, seq_len {seq_len}"}
     a, b = logits[:, -1].float(), ref_logits[:, -1].float()
     cos = float(tF.cosine_similarity(a, b, dim=-1).min())
     ok = bool(torch.isfinite(b).all()) and cos >= 0.999
@@ -1864,6 +1897,10 @@ def driver_run(tag, dev) -> dict:
                            f"{launches} in all")
     ms = sorted(log.ms[1:])
     med = ms[len(ms) // 2]
+    DRYRUN_MEASURED["qwen_step"] = {
+        "ms": med, "B": B, "S": S, "arch": TRAIN_LM_ARCH, "cfg": cfg,
+        "what": f"phase 13, the driver's median step of {B}x{S} (impl='auto'), "
+                f"host clock"}
     print(f"    step {med:.2f} ms (median of {len(ms)} after the first; range "
           f"{ms[0]:.2f}-{ms[-1]:.2f}; first {log.ms[0]:.2f}), {B * S / med * 1e3:.0f} "
           f"tokens/s; peak memory {peak / 2**30:.3f} GiB; the two driver runs "
@@ -4331,6 +4368,9 @@ def dvnr_phases():
                            f"{bool(np.isfinite(losses).all())}")
     ms_step = tinfo["train_time_s"] * 1e3 / TRAIN_STEPS
     sps = TP * Nb * TRAIN_STEPS / tinfo["train_time_s"]
+    DRYRUN_MEASURED["dvnr_train"] = {"ms": ms_step, "partitions": TP,
+                                     "what": f"phase 5, api.train(backend='cuda'): "
+                                             f"{TRAIN_STEPS} fused steps, host clock"}
     first, last = float(losses[:16].mean()), float(losses[-16:].mean())
     print(f"  {TRAIN_STEPS} steps in {tinfo['train_time_s']:.3f} s: "
           f"{ms_step:.4f} ms per step, {sps:.4g} samples/s (host clock, "
@@ -6195,10 +6235,11 @@ def analysis_phase(tag, dev) -> None:
     passes, exit 0), then the same programs in this process:
     ``kernel_budget`` at level ``"device"`` reads every kernel the programs
     launched, and its registers, local memory and static shared memory
-    must agree with phase 1's ``ptxas`` numbers; the trainer's
-    ``static_checks="error"`` builds on the clean config and raises
-    ``StaticCheckError`` on each control (a collective, an f32 product
-    under bf16, an RNG draw) on the card."""
+    must agree with phase 1's ``ptxas`` numbers; the committed analysis
+    lock holds on the card (``lock_check``; its CLI runs beside the rest);
+    the trainer's ``static_checks="error"`` builds on the clean config and
+    raises ``StaticCheckError`` on each control (a collective, an f32
+    product under bf16, an RNG draw) on the card."""
     import tempfile
 
     import torch
@@ -6210,6 +6251,11 @@ def analysis_phase(tag, dev) -> None:
     phase_header(f"== phase 10: static checks of the production256 programs on the card "
           f"[{tag}]")
     t0 = time.perf_counter()
+    lock_cli = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.analysis", "lock", "verify", "--device",
+         "cuda", "--config", "quickstart,smoke"], stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True,
+        env={**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")})
     cli = subprocess.run([sys.executable, "-m", "repro_torch.analysis", "--config",
                           "production256", "--backend", "cuda"],
                          capture_output=True, text=True, timeout=600,
@@ -6256,6 +6302,7 @@ def analysis_phase(tag, dev) -> None:
     if not {"train_step_kernel", "adamw_kernel", "inr_forward_kernel",
             "composite_kernel"} <= families:
         raise SmokeFailure(f"phase 10: the programs launched {sorted(families)}")
+    lock_check(tag, reports, lock_cli)
     cfg = PRODUCTION256.replace(static_checks="error")
     tr = DVNRTrainer(cfg, 2, impl="cuda", volume_shape=(12, 12, 12))
     print(f"  DVNRTrainer(static_checks='error') builds on the clean config: "
@@ -6279,6 +6326,33 @@ def analysis_phase(tag, dev) -> None:
             dist.destroy_process_group()
     torch.cuda.synchronize()
     print(f"  phase 10: {time.perf_counter() - t0:.1f} s [{tag}]")
+
+
+def lock_check(tag, reports, cli) -> None:
+    """Phase 10's lock: the committed ``src/repro_torch/analysis/lock.json``
+    (derived on the CPU) against the card: the production256 programs'
+    fingerprints from ``reports`` (captured once, in this process), the
+    other configs through ``cli``, the running ``python -m
+    repro_torch.analysis lock verify --device cuda --config
+    quickstart,smoke``."""
+    from repro_torch.analysis import lock
+    drift = lock.diff_locks(lock.read_lock(), {
+        "version": lock.LOCK_VERSION,
+        "entries": lock.entries_of("production256", "cuda", reports)},
+        configs=["production256"])
+    print(f"  lock, production256 [cuda]: {len(reports)} programs of this process "
+          f"against the committed entries: {len(drift)} difference(s)")
+    for line in drift:
+        print(f"    {line}")
+    t0 = time.perf_counter()
+    out, err = cli.communicate(timeout=600)
+    print("\n".join("    " + l for l in out.splitlines()[-12:]))
+    print(f"  python -m repro_torch.analysis lock verify --device cuda --config "
+          f"quickstart,smoke (run beside the phase): exit {cli.returncode}; waited "
+          f"{time.perf_counter() - t0:.1f} s for it here [{tag}]")
+    if drift or cli.returncode:
+        raise SmokeFailure(f"phase 10: the analysis lock drifted on the card "
+                           f"(exit {cli.returncode}): {drift} {err[-2000:]}")
 
 
 # --------------------------------------------------------------------------- #
@@ -7241,6 +7315,178 @@ def st_flash(seen, want: int) -> bool:
 
 
 
+# --------------------------------------------------------------------------- #
+# phase 15: the dry-run against the card
+# --------------------------------------------------------------------------- #
+def dryrun_cells(spec: dict) -> dict:
+    """Phase 15's subprocess: the one-card dry-run cells of ``spec``
+    (``repro_torch.launch.cells``, ``repro_torch.core.dryrun_cells`` with
+    ``mesh=None``: the single-card route, which phases 5, 7 and 13 run;
+    a one-rank mesh would take the mesh's code paths): each cell's
+    roofline record (a dict of JSON numbers), and ``seconds``, its own wall
+    time. Nothing is allocated; nothing runs on the card."""
+    import warnings
+    warnings.filterwarnings("ignore")
+    t0 = time.perf_counter()
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import ShapeConfig, get_config, get_smoke_config
+    from repro_torch.configs.dvnr import DVNRConfig
+    from repro_torch.core.dryrun_cells import build_train_cell, model_flops_train
+    from repro_torch.launch.cells import build_cell, measure, roofline_record
+    from repro_torch.utils import hw
+
+    mesh = None
+    out = {}
+    d = spec["dvnr"]
+    cfg = DVNRConfig(**d["cfg"])
+    fn, args, meta, mode = build_train_cell(mesh, cfg, partitions_per_rank=d["partitions"],
+                                            part_n=d["edge"])
+    _, an, mem = measure(fn, args, mode)
+    out["dvnr_train"] = roofline_record(an, mem, model_flops_train(cfg, d["partitions"]),
+                                        1, hw.PEAK_FLOPS_F32)
+    for key, kind in (("llama_prefill", "prefill"), ("qwen_step", "train")):
+        arch, B, S = spec[key]
+        mcfg = get_smoke_config(arch) if spec["smoke"] else get_config(arch)
+        cell = build_cell(arch, key, mesh, config=mcfg, shape=ShapeConfig(key, kind, S, B))
+        _, an, mem = measure(cell.fn, cell.args, cell.fake_mode)
+        out[key] = roofline_record(an, mem, cell.meta["model_flops_global"], 1,
+                                   hw.peak_flops(mcfg.compute_dtype))
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def plain_peak(dev, make_args, run) -> int:
+    """The peak memory of one plain-route call on the card, counted as the
+    dry run counts it: the inputs ``make_args()`` allocates plus the most
+    the call holds beyond them (``max_memory_allocated``)."""
+    import torch
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    args = make_args()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del args
+    torch.cuda.empty_cache()
+    return peak
+
+
+def start_dryrun_cells():
+    """Phase 15's subprocess (``dryrun_cells``) at the shapes phases 5, 7 and
+    13 ran, started before phase 14 so that it runs beside that phase's
+    ranks (which wait on the gloo wire): (process, its start time)."""
+    import dataclasses
+
+    from repro_torch.configs.dvnr import PRODUCTION256
+    m = DRYRUN_MEASURED
+    spec = {"dvnr": {"cfg": dataclasses.asdict(PRODUCTION256),
+                     "partitions": m["dvnr_train"]["partitions"], "edge": TRAIN_EDGE},
+            "llama_prefill": [m["llama_prefill"][k] for k in ("arch", "B", "S")],
+            "qwen_step": [m["qwen_step"][k] for k in ("arch", "B", "S")],
+            "smoke": "--smoke" in TRAIN_LM_EXTRA}
+    return subprocess.Popen(
+        [sys.executable, "-c", "import json, sys, chip_smoke; print(json.dumps("
+         "chip_smoke.dryrun_cells(json.loads(sys.argv[1]))))", json.dumps(spec)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=str(ROOT),
+        env={**__import__("os").environ, "PYTHONPATH": str(ROOT / "src")}), \
+        time.perf_counter()
+
+
+def dryrun_phase(tag: str, dev, child) -> None:
+    """Phase 15: the dry-run cells at the shapes phases 5, 7 and 13 measured,
+    on one card (``child``, :func:`start_dryrun_cells`: a subprocess, so
+    that its fake tensors and modes never meet this process's); their
+    predictions beside the measured times, then the predicted peak against
+    the same plain route's peak on the card."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.configs.dvnr import PRODUCTION256
+    from repro_torch.core.sampling import step_seeds
+    from repro_torch.core.trainer import DVNRTrainer
+    from repro_torch.launch.cells import opt_config
+    from repro_torch.launch.train import synth_batch
+    from repro_torch.models import build_model
+    from repro_torch.train import make_train_step
+    from repro_torch.utils import hw
+
+    phase_header(f"== phase 15: the dry-run against the card: one-card cells at the "
+                 f"shapes phases 5, 7 and 13 measured [{tag}]")
+    t0 = time.perf_counter()
+    m = DRYRUN_MEASURED
+    P = m["dvnr_train"]["partitions"]
+    proc, started = child
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode:
+        raise SmokeFailure(f"phase 15: the dry-run subprocess exited "
+                           f"{proc.returncode}: {err[-3000:]}")
+    recs = json.loads(out.strip().splitlines()[-1])
+    print(f"  dry-run subprocess (one card, FakeTensorMode, impl='ref'): "
+          f"{recs['seconds']:.1f} s beside phase 14 (started {t0 - started:.1f} s "
+          f"before this phase), waited {time.perf_counter() - t0:.1f} s here")
+    if recs["dvnr_train"]["collective_calls"]:
+        raise SmokeFailure(f"phase 15: the DVNR step's cell sent "
+                           f"{recs['dvnr_train']['collective_calls']}")
+    # the plain routes' peaks on the card (phase 7 measured the prefill's)
+    side = TRAIN_EDGE + 2
+
+    def dvnr_args():
+        tr = DVNRTrainer(PRODUCTION256, P, impl="ref", ghost=1, volume_shape=(side,) * 3,
+                         device=dev)
+        st = tr.init(0)
+        return (tr, st, torch.rand((P, side, side, side), device=dev),
+                step_seeds(0, 0, P).to(dev))
+
+    m["dvnr_train"]["plain_peak"] = plain_peak(
+        dev, dvnr_args, lambda tr, st, v, sd: tr._spmd_step(
+            st.params, st.opt, v, sd, st.active, st.loss_ma, None))
+    m["dvnr_train"]["plain_route"] = (f"one DVNRTrainer(impl='ref') step of {P} x "
+                                      f"{side}^3, here")
+    q = m["qwen_step"]
+    qmodel = build_model(q["cfg"])
+
+    def qwen_args():
+        step = make_train_step(qmodel, opt_config(q["cfg"]), impl="ref")
+        params = qmodel.init(0, device=dev)
+        return (step, params, step.optimizer.init(params),
+                synth_batch(qmodel, ShapeConfig("d", "train", q["S"], q["B"]), 0, dev))
+
+    q["plain_peak"] = plain_peak(dev, qwen_args, lambda st, p, o, b: st(p, o, b))
+    q["plain_route"] = f"one make_train_step(impl='ref') step of {q['B']}x{q['S']}, here"
+    print(f"  predicted (dry run, the plain route's counts on the H100's constants) "
+          f"against measured (the kernel route's time) [{tag}]:")
+    for key, label in (("dvnr_train", f"DVNR fused f32 step, {P} PRODUCTION256 "
+                                      f"partitions x {PRODUCTION256.batch_size:,}"),
+                       ("llama_prefill", f"{m['llama_prefill']['arch']} bf16 prefill "
+                                         f"{m['llama_prefill']['B']}x"
+                                         f"{m['llama_prefill']['S']}"),
+                       ("qwen_step", f"{q['arch']} driver step {q['B']}x{q['S']}")):
+        r, meas = recs[key], m[key]
+        rf, s = r["roofline"], meas["ms"] / 1e3
+        peak = hw.PEAK_FLOPS_F32 if key == "dvnr_train" else hw.PEAK_FLOPS_BF16
+        mem = r["memory_analysis"]
+        gap = mem["peak_bytes"] / meas["plain_peak"] - 1
+        print(f"  {label}:\n"
+              f"    model FLOPs {r['model_flops_global']:.4e}; counted FLOPs "
+              f"{r['counted_flops_per_device']:.4e} {r['flops_by_dtype']}; op bytes "
+              f"{r['op_bytes_per_device']:.4e}; predicted peak {mem['peak_bytes']:,} B\n"
+              f"    roofline: compute {rf['compute_s'] * 1e3:.4f} ms, memory "
+              f"{rf['memory_s'] * 1e3:.4f} ms -> step {rf['step_time_s'] * 1e3:.4f} ms "
+              f"({rf['dominant']}); measured {meas['ms']:.4f} ms ({meas['what']})\n"
+              f"    model FLOPs / (measured x {peak:.3g}) = "
+              f"{r['model_flops_global'] / (s * peak):.4f}; roofline step / measured "
+              f"= {rf['step_time_s'] / s:.4f}\n"
+              f"    peak: predicted {mem['peak_bytes'] / 2**30:.3f} GiB against "
+              f"{meas['plain_peak'] / 2**30:.3f} GiB measured on the plain route "
+              f"({meas['plain_route']}): {gap:+.1%} [{tag}]")
+        if not all(x > 0 for x in (r["model_flops_global"], r["counted_flops_per_device"],
+                                   r["op_bytes_per_device"], mem["peak_bytes"],
+                                   rf["step_time_s"], meas["plain_peak"])):
+            raise SmokeFailure(f"phase 15: {key}: a zero in {r}")
+    print(f"  phase 15: {time.perf_counter() - t0:.1f} s [{tag}]")
+
+
 def main() -> int:
     tag, kernels, flash_err, errs = dvnr_phases()
     import gc
@@ -7267,7 +7513,11 @@ def main() -> int:
     trained, trained_nc = lm_training_phase(tag, torch.device(DEVICE))
     gc.collect()
     torch.cuda.empty_cache()
+    dryrun = start_dryrun_cells()
     meshed, meshed_nc = mesh_phase(tag, torch.device(DEVICE))
+    gc.collect()
+    torch.cuda.empty_cache()
+    dryrun_phase(tag, torch.device(DEVICE), dryrun)
     # the flash kernel's launches on each main path: phase 7's, the
     # families' causal prefills and the causal training steps in row 8, the
     # encoder's and the cross-attention's in row 8-nc

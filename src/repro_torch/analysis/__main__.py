@@ -14,8 +14,13 @@ Examples::
     # the production-scale programs on the card, each launched kernel read
     python -m repro_torch.analysis --config production256 --backend cuda
 
-Exit codes: 0 clean, 1 violations, 2 usage errors (unknown config or check
-name; the ``lock`` subcommand, which is not ported).
+    # the committed lock (src/repro_torch/analysis/lock.json): re-derive and
+    # diff, or rewrite it after an intended change
+    python -m repro_torch.analysis lock verify --device cpu
+    python -m repro_torch.analysis lock write --device cpu
+
+Exit codes: 0 clean, 1 violations (``lock verify``: drift), 2 usage errors
+(unknown config or check name; a missing or malformed lock file).
 """
 from __future__ import annotations
 
@@ -53,13 +58,62 @@ def _parse_args(argv):
     return ap.parse_args(argv)
 
 
+def _parse_lock_args(argv):
+    ap = argparse.ArgumentParser(
+        prog="python -m repro_torch.analysis lock",
+        description="Write or verify the port's committed analysis lock "
+                    "(pinned fingerprints of every check over the lock "
+                    "matrix; see repro_torch.analysis.lock).")
+    ap.add_argument("action", choices=("write", "verify"))
+    ap.add_argument("--path", default=None,
+                    help="lock file (default: src/repro_torch/analysis/lock.json)")
+    ap.add_argument("--backend", default=None,
+                    help="verify only these backend(s), comma-separated "
+                         "(write always covers the whole matrix)")
+    ap.add_argument("--config", default=None,
+                    help="verify only these config(s), comma-separated")
+    ap.add_argument("--device", default="auto",
+                    help="where the programs run (auto: the card)")
+    return ap.parse_args(argv)
+
+
+def _lock_main(argv) -> int:
+    args = _parse_lock_args(argv)
+    from repro_torch.analysis import lock as _lock
+
+    path = args.path or _lock.DEFAULT_LOCK_PATH
+    progress = lambda msg: print(f"[lock] {msg}", flush=True)  # noqa: E731
+    if args.action == "write":
+        lock = _lock.write_lock(path, device=args.device, progress=progress)
+        print(f"wrote {path}: {len(lock['entries'])} program fingerprints")
+        return 0
+    backends = args.backend.split(",") if args.backend else None
+    configs = args.config.split(",") if args.config else None
+    try:
+        drift = _lock.verify_lock(path, backends=backends, configs=configs,
+                                  device=args.device, progress=progress)
+    except FileNotFoundError:
+        print(f"error: lock file {path!r} not found: generate it with "
+              f"`python -m repro_torch.analysis lock write`", file=sys.stderr)
+        return EXIT_USAGE
+    except ValueError as e:
+        print(f"error: malformed lock file: {e}", file=sys.stderr)
+        return EXIT_USAGE
+    if drift:
+        print(f"analysis lock DRIFT ({len(drift)} difference(s) vs {path}):")
+        for line in drift:
+            print(f"  {line}")
+        print("if the change is intended, rewrite it with `python -m "
+              "repro_torch.analysis lock write` and commit the diff")
+        return 1
+    print(f"analysis lock verified against {path}")
+    return 0
+
+
 def main(argv=None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "lock":
-        print("error: `lock write|verify` is not ported: ANALYSIS_LOCK.json "
-              "pins the TPU checks' fingerprints (ROADMAP item 15)",
-              file=sys.stderr)
-        return EXIT_USAGE
+        return _lock_main(argv[1:])
     args = _parse_args(argv)
     from repro_torch.analysis import (analyze_config, available_checks,
                                       available_configs, get_check)

@@ -136,7 +136,8 @@ def check_precision_flow(program: ProgramArtifacts,
                        details={"note": f"{n_products} product(s) and kernel "
                                         f"region(s) checked against "
                                         f"{str(cdt).replace('torch.', '')}",
-                                "n_products": n_products})
+                                "n_products": n_products,
+                                "compute_dtype": str(cdt).replace("torch.", "")})
 
 
 # --------------------------------------------------------------------------- #
@@ -190,7 +191,9 @@ def check_rng_gather_placement(program: ProgramArtifacts,
     return CheckResult("rng_gather_placement", not violations, violations,
                        details={"note": f"{n_fused} fused step region(s), "
                                         f"{len(program.kernels)} kernel "
-                                        f"region(s)"})
+                                        f"region(s)",
+                                "n_fused": n_fused,
+                                "n_regions": len(program.kernels)})
 
 
 # --------------------------------------------------------------------------- #
@@ -274,7 +277,8 @@ def run_checks(program: ProgramArtifacts, ctx: Optional[CheckContext] = None,
     ctx = ctx or CheckContext()
     names = list(checks) if checks is not None else list(available_checks())
     cap = _LEVEL_ORDER[max_level] if max_level is not None else None
-    report = Report(program.name)
+    report = Report(program.name,
+                    plans=tuple(p for k in program.kernels for p in k.plan))
     for n in names:
         chk = get_check(n)
         if cap is not None and _LEVEL_ORDER[chk.level] > cap:

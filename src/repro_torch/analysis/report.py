@@ -8,7 +8,7 @@ trainer's build-time hook reads).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 
 @dataclass(frozen=True)
@@ -57,6 +57,9 @@ class Report:
 
     program: str
     results: List[CheckResult] = field(default_factory=list)
+    # the launches the program's kernel regions planned, (kernel family,
+    # dynamic shared bytes) each: the host's plan, on any device
+    plans: Tuple = ()
 
     @property
     def passed(self) -> bool:

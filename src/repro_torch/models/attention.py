@@ -39,6 +39,7 @@ from __future__ import annotations
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch import backends
@@ -336,12 +337,15 @@ def mesh_cache(cache, keys, sh, W: int) -> tuple:
 def prompt_slots(S: int, W: int, lo: int, c: int, device):
     """(dst, src): the prompt's last ``min(S, W)`` positions ``src``, each at
     its decode slot (``p % W``), that fall in the cache block ``[lo, lo +
-    c)``, and those slots' offsets ``dst`` in the block."""
+    c)``, and those slots' offsets ``dst`` in the block. Worked out on the
+    host from the integers alone (a mask's selection on the device would
+    read its data back, which a dry run's fake tensors do not have)."""
     keep = min(S, W)
-    pos = torch.arange(S - keep, S, device=device)
+    pos = np.arange(S - keep, S)
     slots = pos % W
     mine = (slots >= lo) & (slots < lo + c)
-    return slots[mine] - lo, pos[mine]
+    return (torch.as_tensor(slots[mine] - lo, device=device),
+            torch.as_tensor(pos[mine], device=device))
 
 
 def cache_update(cache_k, cache_v, k, v, pos, window: Optional[int] = None):

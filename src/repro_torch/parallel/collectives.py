@@ -218,7 +218,8 @@ def _out(x: torch.Tensor, group):
     the host under gloo."""
     t = x.detach()
     t = t.to("cpu") if _host_wire(group) else t
-    return t.contiguous().clone() if t.data_ptr() == x.data_ptr() else t.contiguous()
+    # on the same device t shares x's storage: copy it, never send in place
+    return t.contiguous().clone() if t.device == x.device else t.contiguous()
 
 
 def _all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:

@@ -213,7 +213,7 @@ def test_api_train_declares_the_volume_shape():
 # --------------------------------------------------------------------------- #
 # CLI
 # --------------------------------------------------------------------------- #
-def test_cli_exit_codes(capsys, monkeypatch):
+def test_cli_exit_codes(capsys, monkeypatch, tmp_path):
     from repro_torch.analysis.__main__ import main
 
     assert main(["--list-checks"]) == 0
@@ -222,7 +222,7 @@ def test_cli_exit_codes(capsys, monkeypatch):
         assert name in out
     assert main(["--config", "nope"]) == 2
     assert main(["--config", "smoke", "--checks", "vmem_budget"]) == 2
-    assert main(["lock", "verify"]) == 2
+    assert main(["lock", "verify", "--path", str(tmp_path / "missing.json")]) == 2
     assert main(["--config", "smoke", "--backend", "ref,cuda", "--device",
                  "cpu", "--max-level", "trace"]) == 0
     assert "static analysis: PASS" in capsys.readouterr().out
