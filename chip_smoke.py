@@ -244,9 +244,22 @@ The unfused path's deterministic routes (the hash backward's int64
 fixed-point scatter, the MLP backward's per-block dW rows summed in order)
 are held in phase 2 (``unfused_det_checks``: the default route's
 yardsticks, controls, two launches bit for bit, one partition alone equal
-to its row), run two clean 256-step unfused runs bit for bit in phase 5
+to its row), run two clean 128-step unfused runs bit for bit in phase 5
 (``unfused_det_training``, f32 and bf16) and are timed in phase 6 beside
 the default route.
+
+Both deterministic routes sum the table gradient through one fixed-point
+scatter (``csrc/hash_encode.cu``, each level's int64 slab in one block, a
+cluster's, or direct, by a host plan): phase 1 holds the plan's Python
+mirror against the C plan (``fx_plan_checks``) and its native shared adds
+in the SASS (``fx_sass_checks``), phase 2 its sums bit for bit against the
+design before it, the yardstick (``fx_yardstick_checks``,
+``det_yardstick_equal``: every plan letter, f32 and bf16, one coarse cell,
+ragged rows, PRODUCTION and ABLATION's levels, the train step's split
+against its fused design), and phase 6 times each row beside the
+yardstick in turns, the fused yardstick's stage clock and the hash
+backward's levels one by one (``det_design_turns``, ``det_step_clock``,
+``fx_level_times``). ``det_probe()`` runs those parts alone.
 
 The deterministic route of the train step (``torch.use_deterministic_
 algorithms(True)``; int64 fixed-point table gradient, per-group dW and loss
@@ -326,8 +339,9 @@ TRAIN_EDGE = 256             # phases 2 and 5: 2x2x2 partitions of 256^3 each
 TRAIN_STEPS, COMPARE_STEPS, PROFILE_STEPS = 512, 16, 16
 #: phase 5's two clean runs of the unfused path's deterministic routes,
 #: f32 and bf16: fewer steps than TRAIN_STEPS (17.8 ms a step: four runs of
-#: 512 steps took 36 s of the script's time limit)
-DET_UNFUSED_STEPS = 256
+#: 512 steps took 36 s of the script's time limit; 128 since the script
+#: passed 850 s on a card whose host ran the unfused path at 12.9 ms a step)
+DET_UNFUSED_STEPS = 128
 DEVICE = "cuda"
 # phase 2: flash attention against its plain version, (B, Sq, Sk, Hq, Hkv,
 # dh, causal, window, dtype)
@@ -566,7 +580,7 @@ def sass_counts(lib_path):
         if proc.returncode:
             raise SmokeFailure(f"cuobjdump failed: {err.strip()[:500]}")
         waited = time.perf_counter() - t0
-        out, cur = {}, None
+        out, cur, atoms = {}, None, None
         with open(listing) as f:
             for line in f:
                 if "Function : " in line:
@@ -575,10 +589,17 @@ def sass_counts(lib_path):
                     cur = None
                     if ops:
                         cur = out[name] = dict.fromkeys(ops[0], 0)
-                elif cur is not None:
-                    for op in cur:
+                    atoms = None
+                    if any(k in name for k in FX_SASS_KERNELS):
+                        atoms = SASS_ATOMICS[name] = {}
+                elif cur is not None or atoms is not None:
+                    for op in cur or ():
                         if op in line and re.search(rf"\b{op}\b", line):
                             cur[op] += 1
+                    if atoms is not None:
+                        for op in re.findall(r"\b((?:ATOMS|ATOMG|ATOM|REDG|REDS|RED)"
+                                             r"\.[A-Z0-9_.]+)", line):
+                            atoms[op] = atoms.get(op, 0) + 1
         listing.unlink()
         print(f"  cuobjdump -sass of the library: {waited:.1f} s after its start, "
               f"parsed in {time.perf_counter() - t0 - waited:.1f} s")
@@ -791,6 +812,28 @@ def per_launch_ms(fn, symbol: str, calls: int = 5):
             n = sum(c for _, c in hits)
             return sum(ms for ms, _ in hits) / n, n
     return None, 0
+
+
+def kernels_alone_ms(fn, counts, calls: int = 5):
+    """Device ms a call of ``fn``'s kernels, from one profile of ``calls``
+    calls: for each ``(symbol, launches a call)`` of ``counts``, the device
+    time a launch of the kernels whose name holds the symbol (their time
+    over the launches the profiler recorded, as ``per_launch_ms``, so a
+    launch it drops biases nothing) times the launches a call; None when a
+    symbol matched no launch in three profiles."""
+    fn()
+    for _ in range(3):
+        _, by_kernel, _, _ = profile_tick(lambda: [fn() for _ in range(calls)])
+        per = []
+        for symbol, n in counts:
+            hits = [(ms, c) for key, (ms, c) in by_kernel if symbol in key]
+            if not hits:
+                break
+            per.append(sum(ms for ms, _ in hits) / sum(c for _, c in hits) * n)
+        if len(per) == len(counts):
+            return sum(per)
+    print(f"    (no profiled kernel holds one of {[s for s, _ in counts]})")
+    return None
 
 
 def bound_ms(nbytes: float, flops: float, peak_flops: float = F32_FLOPS,
@@ -2515,6 +2558,8 @@ def det_step(label, params, H, res, **batch):
                    if k in ("coords", "target", "volumes", "seeds") else v)
                for k, v in batch.items()}
         c, _ = fts.train_step_cuda(one, H, res, **cut)
+        if params["win"].shape[2] == 16 and params["tab"].shape[3] == 4:
+            det_yardstick_equal(label, a, params, H, res, **batch)
     same = torch.equal(a.partials, b.partials) and torch.equal(a.tab_fx, b.tab_fx)
     alone = torch.equal(c.partials[0], a.partials[p]) and \
         torch.equal(c.tab_fx[0], a.tab_fx[p])
@@ -2919,6 +2964,22 @@ def step_case_checks(dev, vols_c, tseeds, cfg) -> None:
             check_step_bf16(f"{label}, in-kernel sampling", params16, H, res,
                             wants, volumes=vols_c[:hP], seeds=tseeds[:hP], **draw)
         del params, params16, coords, target, wants
+    # the deterministic split against its fused yardstick on a ragged batch
+    # at W = 16, F = 4 (where the yardstick is built), both variants
+    from repro_torch.kernels.fused_train_step import ops as fts
+    res, H, hN = cfg.level_resolutions(), cfg.n_hidden_layers, 40_009
+    params = step_params(cfg, 4, dev, seed=99)
+    draw = dict(n_batch=hN, n_uniform=hN - n_boundary(hN, cfg.boundary_lambda),
+                sigma=cfg.boundary_sigma, ghost=1)
+    coords = torch.as_tensor(rng.uniform(0, 1, (4, hN, 3)), dtype=torch.float32,
+                             device=dev)
+    for label, batch in (
+            ("host-sampled", dict(coords=coords, target=torch.as_tensor(
+                rng.uniform(0, 1, (4, hN, 1)), dtype=torch.float32, device=dev))),
+            ("in-kernel sampling", dict(volumes=vols_c[:4], seeds=tseeds[:4], **draw))):
+        with deterministic_algorithms():
+            got, _ = fts.train_step_cuda(params, H, res, **batch)
+        det_yardstick_equal(f"ragged N={hN:,}, {label}", got, params, H, res, **batch)
     torch.cuda.synchronize()
 
 
@@ -3508,15 +3569,17 @@ def unfused_det_checks(g_feat, coords, res, shape, feats, ws, g_out, feats16,
     yardsticks (``check``, ``check_mlp_bwd``), with controls that must fail
     (16 samples left out of the table gradient; ``mlp_bwd_controls``), two
     launches bit for bit and the last partition alone equal to its row.
-    Returns each route's largest departure."""
+    Returns each route's largest departure. Then the scatter layer against
+    its yardstick bit for bit (``fx_yardstick_checks``)."""
+    import numpy as np
     import torch
     from repro_torch.kernels.fused_mlp.ops import fused_mlp_bwd_cuda
-    from repro_torch.kernels.hash_encoding.ops import bwd_plan, hash_encode_bwd_cuda
+    from repro_torch.kernels.hash_encoding.ops import (fx_letters, fx_plan,
+                                                       hash_encode_bwd_cuda)
     from repro_torch.kernels.hash_encoding.ref import hash_encode_batched_bwd_ref
     P = shape[0]
     dev = coords.device
-    plan = "".join("s" if x else "d" for x in bwd_plan(res, shape[2], shape[3],
-                                                       fixed_point=True))
+    plan = fx_letters(fx_plan(res, shape[2], shape[3]))
     rows, rows_d = list(range(P)), torch.arange(P, device=dev)
     errs = {}
     cell = torch.rand(coords.shape, generator=torch.Generator(device=dev)
@@ -3558,6 +3621,7 @@ def unfused_det_checks(g_feat, coords, res, shape, feats, ws, g_out, feats16,
         errs[label] = check_mlp_bwd(f"P={P} {label}", x, w, g, rows, got)
         mlp_bwd_controls(f"P={P} {label}", x, w, g, rows, got)
         del got
+    fx_yardstick_checks(g_feat, coords, res, shape, np.random.default_rng(7), dev)
     print(f"  the unfused deterministic routes held [{tag}]")
     return errs
 
@@ -3627,6 +3691,297 @@ def unfused_det_training(tparts, vols, cfg, wrappers, tag, rinfo) -> dict:
         out[policy] = {"launches": da, "ms_step": ms, "psnr": ev["psnr"]}
         del runs, ia, ib, leaves
     return out
+
+
+# --------------------------------------------------------------------------- #
+# the deterministic route's scatter layer: its plan, its yardsticks, its clock
+# --------------------------------------------------------------------------- #
+#: the kernels whose SASS phase 1 reads for their atomic instructions (a
+#: substring of the mangled name): the scatter layer, its yardstick, and the
+#: train step's fused yardstick
+FX_SASS_KERNELS = ("hash_encode_bwd_fx_kernel", "hash_encode_bwd_fx_block_kernel",
+                   "train_step_det_fused_kernel")
+#: each such instantiation's atomic and reduction opcodes with their counts
+#: (filled by ``sass_counts``' function)
+SASS_ATOMICS = {}
+#: the plans forced once each in phase 2 against the yardstick (a force a
+#: level, repeated over the levels): every letter, every cluster size
+FX_FORCED = ("d", "s", ("c", 2), ("c", 4), ("c", 8))
+
+
+def fx_configs():
+    """The configurations whose plans phase 1 prints and holds."""
+    from repro_torch.configs import dvnr
+    return {"PRODUCTION256": dvnr.PRODUCTION256, "PRODUCTION": dvnr.PRODUCTION,
+            "ABLATION": dvnr.ABLATION, "SMOKE": dvnr.SMOKE}
+
+
+def fx_plan_checks() -> None:
+    """Phase 1: the Python mirror of the scatter layer's plan
+    (``hash_encoding.ops.fx_plan``) equals the C plan
+    (``repro_hash_encode_bwd_fx_plan``) at every config, at F = 1, 2, 4 and
+    8 and under every force the C entry takes; prints each config's letters
+    and cluster dimensions."""
+    from repro_torch.kernels.hash_encoding import ops as hops
+    n = 0
+    for name, hc in fx_configs().items():
+        res, T = hc.level_resolutions(), hc.table_size
+        for F in (1, 2, 4, 8):
+            for force in (None,) + tuple([f] * len(res) for f in FX_FORCED):
+                py = hops.fx_plan(res, T, F, force)
+                c = hops.native_fx_plan(res, T, F, force)
+                n += 1
+                if py != c:
+                    raise SmokeFailure(f"fx plan {name} F={F} force {force}: Python "
+                                       f"{py} != C {c}")
+        plan = hops.fx_plan(res, T, hc.n_features_per_level)
+        print(f"  fx plan {name} (F={hc.n_features_per_level}, T={T}): "
+              f"{hops.fx_letters(plan)}; cluster dims "
+              f"{[(p.cluster, 1, 1) for p in plan]}; slab bytes a block "
+              f"{[p.smem for p in plan]}; points a block {[p.points for p in plan]}")
+    print(f"  fx plan: Python mirror = C plan in {n} cases")
+
+
+def fx_sass_checks() -> None:
+    """Phase 1: the scatter layer's atomics in the SASS (``SASS_ATOMICS``,
+    filled by ``sass_checks``). The sm_90 shared-memory unit has no 64-bit
+    add (a 64-bit shared atomicAdd is an ATOMS.CAST.SPIN.64 loop: the
+    design before this layer, ``hash_encode_bwd_fx_block_kernel``, shows
+    it), so every one-block slab instantiation ('s') adds with 32-bit
+    ATOMS.ADD and has no compare-and-swap; every cluster instantiation ('c')
+    adds to another block's slab with the native 64-bit ATOM.E.ADD.64 (its
+    own share, one add in C, is a compare-and-swap loop)."""
+    for fn, ops in sorted(SASS_ATOMICS.items()):
+        print(f"  SASS atomics {fn}: {dict(sorted(ops.items()))}")
+    fx = {fn: ops for fn, ops in SASS_ATOMICS.items() if "hash_encode_bwd_fx_kernel" in fn}
+    slab = {fn: ops for fn, ops in fx.items() if "Lc115E" in fn}
+    cluster = {fn: ops for fn, ops in fx.items() if "Lc99E" in fn}
+    if len(slab) != 8 or len(cluster) != 8:
+        raise SmokeFailure(f"{len(slab)} 's' and {len(cluster)} 'c' instantiations of "
+                           f"hash_encode_bwd_fx_kernel in the SASS, 8 each expected")
+    bad = [fn for fn, ops in slab.items()
+           if not any(o.startswith("ATOMS.ADD") and ".64" not in o for o in ops)
+           or any("CAS" in o for o in ops)]
+    bad += [fn for fn, ops in cluster.items()
+            if not any(o.startswith("ATOM.E.ADD.64") for o in ops)]
+    if bad:
+        raise SmokeFailure(f"scatter-layer instantiations without their native "
+                           f"shared adds: {bad}")
+
+
+def fx_yardstick_equal(label, g, coords, res, part, shape, plan=None) -> None:
+    """The scatter layer's int64 sums and flags (``plan``: None for the rule,
+    else one force a level) against its yardstick (the design before the
+    clusters) on the same operands: bit for bit."""
+    import torch
+    from repro_torch.kernels.hash_encoding import ops as hops
+    a, fa, _ = hops.hash_encode_bwd_fx_with(g, coords, res, part, shape,
+                                            plan=plan, convert=False)
+    b, fb, _ = hops.hash_encode_bwd_fx_with(g, coords, res, part, shape,
+                                            design="block", convert=False)
+    same = torch.equal(a, b) and torch.equal(fa, fb)
+    letters = hops.fx_letters(hops.fx_plan(res, shape[2], shape[3], plan))
+    print(f"  hash_encode_bwd_det {label} (levels {letters}): int64 sums and flags "
+          f"= the yardstick's bit for bit {same}; nonzero entries "
+          f"{int((a != 0).sum()):,}")
+    if not same:
+        raise SmokeFailure(f"hash_encode_bwd_det {label} ({letters}): differs from "
+                           f"its yardstick in {int((a != b).sum())} entries")
+
+
+def fx_yardstick_checks(g_feat, coords, res, shape, rng, dev) -> None:
+    """Phase 2: the scatter layer against its yardstick bit for bit: at the
+    training shapes (f32 and bf16 cotangent), every point in one coarse cell
+    (contention), CHECK_N's ragged rows, PRODUCTION's levels (T = 2^16) and
+    ABLATION's (T = 2^19, L = 10; the yardstick is built at F = 4), and
+    every plan letter and cluster size forced once at the training
+    shapes."""
+    import torch
+    from repro_torch.configs.dvnr import ABLATION, PRODUCTION
+    from repro_torch.kernels.hash_encoding import ops as hops
+    t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=dev)
+    P = shape[0]
+    rows = list(range(P))
+    fx_yardstick_equal("f32", g_feat, coords, res, rows, shape)
+    fx_yardstick_equal("bf16 cotangent", g_feat.to(torch.bfloat16), coords, res,
+                       rows, shape)
+    cell = t(rng.uniform(0.30, 0.31, coords.shape))
+    fx_yardstick_equal("contention: one coarse cell", g_feat, cell, res, rows, shape)
+    n = CHECK_N[0]
+    fx_yardstick_equal(f"ragged N={n:,}", g_feat[:, :n].contiguous(),
+                       coords[:, :n].contiguous(), res, rows, shape)
+    fits = [hops.level_rows(r, shape[2]) * shape[3] * 8 <= hops.FX_STAGE_BUDGET
+            for r in res]
+    for f in FX_FORCED:   # 's' where one block holds the slab, else 'd'
+        fx_yardstick_equal(f"forced {f}", g_feat, coords, res, rows, shape,
+                           plan=[f if f != "s" or ok else "d" for ok in fits])
+    for label, hc in (("PRODUCTION T=2^16", PRODUCTION), ("ABLATION T=2^19 F=4", ABLATION)):
+        hres, hT, hL, hN = hc.level_resolutions(), hc.table_size, hc.n_levels, \
+            hc.batch_size
+        hP = 2
+        hcoords = t(rng.uniform(0.0, 1.0, (hP, hN, 3)))
+        hg = t(rng.standard_normal((hP, hN, hL * 4)) * 1e-5)
+        fx_yardstick_equal(label, hg, hcoords, hres, list(range(hP)),
+                           (hP, hL, hT, 4))
+        del hcoords, hg
+    torch.cuda.synchronize()
+
+
+def det_yardstick_equal(label, got, params, H, res, **batch) -> None:
+    """The train step's deterministic split (``got``, a ``DetGrads``)
+    against the route's fused yardstick on the same batch: the fixed-point
+    table gradient, the group rows and the flags bit for bit (W = 16, F = 4,
+    where the yardstick is built)."""
+    import torch
+    from repro_torch.kernels.fused_train_step import ops as fts
+    y, _ = fts.train_step_det_with(params, H, res, design="fused", **batch)
+    same = torch.equal(got.tab_fx, y.tab_fx) and \
+        torch.equal(got.partials, y.partials) and torch.equal(got.flags, y.flags)
+    print(f"  train_step ({label}), deterministic split = the fused yardstick bit "
+          f"for bit (tab_fx, partials, flags): {same}")
+    if not same:
+        raise SmokeFailure(f"train_step ({label}): the split differs from the "
+                           f"fused yardstick: tab_fx "
+                           f"{int((got.tab_fx != y.tab_fx).sum())}, partials "
+                           f"{int((got.partials != y.partials).sum())} entries")
+
+
+def det_step_clock(tag, params, H, res, **batch) -> dict:
+    """The fused yardstick's stage clock at these shapes (float32, in-kernel
+    sampling): each warp's cycles of the table scatter at the dense levels,
+    at the hashed levels and of the rest of the step, as shares of their
+    sum, and the warps' clock rate over their lifetimes. Returns the
+    shares."""
+    import torch
+    from repro_torch.kernels.fused_train_step import ops as fts
+    clocks = torch.zeros(4, dtype=torch.int64, device=params["tab"].device)
+    fts.train_step_det_with(params, H, res, design="fused", clocks=clocks, **batch)
+    torch.cuda.synchronize()
+    c = [int(x) for x in clocks.tolist()]
+    total = max(1, sum(c[:3]))
+    shares = dict(zip(("rest", "dense scatter", "hashed scatter"),
+                      (x / total for x in c[:3])))
+    print(f"  train_step deterministic route, the fused yardstick by stage (cycles, "
+          f"a clock on each warp): " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                                shares.items())
+          + f"; the warps' cycles over their lifetimes {total / max(1, c[3]):.3f} "
+          f"GHz, lifetimes {c[3] / 1e6:.3f} warp-ms [{tag}]")
+    return shares
+
+
+def fx_level_times(tag, g, coords, res, part, shape) -> None:
+    """The hash backward's deterministic route level by level: each level
+    launched alone (its resolution, its columns of the cotangent, a table
+    of one level), the scatter layer and its yardstick; the layer also on a
+    zero cotangent (every add of 0: the slabs' flushes then add nothing, so
+    the difference is the flush's time); device ms a launch by the profiler
+    (``per_launch_ms``), and the flush's share of each level's time."""
+    import torch
+    from repro_torch.kernels.hash_encoding import ops as hops
+    P, L, T, F = shape
+    letters = hops.fx_letters(hops.fx_plan(res, T, F))
+    for design, symbol in (("cluster", "hash_encode_bwd_fx_kernel<"),
+                           ("block", "hash_encode_bwd_fx_block_kernel<")):
+        per = {"g": [], "zero": []}
+        for l in range(L):
+            gl = g[..., l * F:(l + 1) * F].contiguous()
+            # (the yardstick's flush share was read before the redesign: PERF.md)
+            for which, gg in (("g", gl), ("zero", torch.zeros_like(gl)))[
+                    :2 if design == "cluster" else 1]:
+                ms, _ = per_launch_ms(lambda: hops.hash_encode_bwd_fx_with(
+                    gg, coords, [res[l]], part, (P, 1, T, F), design=design,
+                    convert=False), symbol, calls=3)
+                per[which].append(ms)
+        if any(x is None for x in per["g"] + per["zero"]):
+            print(f"  hash_encode_bwd_det {design} per level: not measured (the "
+                  f"profiler matched no launch) {per} [{tag}]")
+            continue
+        flush = [max(0.0, a - b) / a if a else 0.0 for a, b in zip(per["g"], per["zero"])]
+        print(f"  hash_encode_bwd_det per level, "
+              f"{'the scatter layer (' + letters + ')' if design == 'cluster' else 'the yardstick'}: "
+              f"{[round(x, 4) for x in per['g']]} ms, sum {sum(per['g']):.4f} ms"
+              + (f"; on a zero cotangent {[round(x, 4) for x in per['zero']]}; the "
+                 f"flush's share {[round(x, 3) for x in flush]}" if per["zero"] else "")
+              + f" (profiler, each level launched alone) [{tag}]")
+
+
+def det_design_turns(label, new, old, new_syms, old_syms, tag, new_alone=None) -> dict:
+    """A deterministic-route row beside its yardstick in the same run: each
+    design's events ms a call in turns (new, yardstick, yardstick, new; 10
+    calls each) and its kernels' device time a call alone (profiler,
+    ``kernels_alone_ms`` of its ``(symbol, launches a call)`` lists; the
+    new design's taken as ``new_alone`` where the caller measured it).
+    Returns {"new": (ms, alone), "yardstick": (ms, alone)}."""
+    runs = [cuda_ms(f, reps=10) for f in (new, old, old, new)]
+    alone = {"new": new_alone if new_alone is not None else kernels_alone_ms(new, new_syms),
+             "yardstick": kernels_alone_ms(old, old_syms)}
+    fmt = lambda x: "not measured" if x is None else f"{x:.4f} ms"
+    print(f"  {label}: the new design {runs[0]:.4f} / {runs[3]:.4f} ms, its "
+          f"yardstick {runs[1]:.4f} / {runs[2]:.4f} ms (events, in turns); kernels "
+          f"alone: new {fmt(alone['new'])}, yardstick {fmt(alone['yardstick'])} "
+          f"a call (profiler) [{tag}]")
+    return {"new": ((runs[0] + runs[3]) / 2, alone["new"]),
+            "yardstick": ((runs[1] + runs[2]) / 2, alone["yardstick"])}
+
+
+def det_probe() -> int:
+    """Phases 1, 2 and 6's parts of the deterministic route's scatter alone,
+    at the PRODUCTION256 training shapes on random data from seed 0: the
+    build with its registers and spills, the atomics in the SASS, the plan
+    checks, the yardstick checks, the fused yardstick's stage clock and the
+    hash backward's levels. ``python3 -c "import chip_smoke;
+    chip_smoke.det_probe()"`` on the card: the quickest look at the route."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    from repro_torch.configs.dvnr import PRODUCTION256 as cfg
+    from repro_torch.core.sampling import n_boundary, step_seeds
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_train_step import ops as fts
+    from repro_torch.kernels.fused_train_step import ref as fts_ref
+    dev = torch.device(DEVICE)
+    tag = card_tag()
+    print(tag)
+    t0 = time.perf_counter()
+    build.library()
+    print(f"  built in {time.perf_counter() - t0:.1f} s (nvcc {build.build_seconds:.1f} s)")
+    for fn, regs, st, ld, smem, stack in ptxas_usage(build.build_log):
+        if any(k in fn for k in FX_SASS_KERNELS) or ("train_step_kernel" in fn and
+                                                      "Lb1ELb1E" in fn):
+            print(f"    {regs:4d} registers, spill stores {st} B, loads {ld} B, "
+                  f"static shared {smem} B, stack {stack} B  {fn}")
+    sass = sass_counts(build.build())
+    fx_plan_checks()
+    rng = np.random.default_rng(0)
+    P, Nb = 8, cfg.batch_size
+    L, T, F = cfg.n_levels, cfg.table_size, cfg.n_features_per_level
+    H, res = cfg.n_hidden_layers, cfg.level_resolutions()
+    E = TRAIN_EDGE + 2
+    vols = torch.rand((P, E, E, E, 1), generator=torch.Generator(device=dev)
+                      .manual_seed(0), device=dev)
+    tseeds = step_seeds(0, 0, P).to(dev)
+    draw = dict(n_batch=Nb, n_uniform=Nb - n_boundary(Nb, cfg.boundary_lambda),
+                sigma=cfg.boundary_sigma, ghost=1)
+    params = step_params(cfg, P, dev, seed=0)
+    coords, _ = fts_ref.sample_batch(vols, tseeds, n_batch=Nb,
+                                     boundary_lambda=cfg.boundary_lambda,
+                                     sigma=cfg.boundary_sigma, ghost=1)
+    g_feat = torch.as_tensor(rng.standard_normal((P, Nb, L * F)) * 1e-5,
+                             dtype=torch.float32, device=dev)
+    fx_yardstick_checks(g_feat, coords, res, (P, L, T, F), rng, dev)
+    kw = dict(volumes=vols, seeds=tseeds, **draw)
+    for label, pr in (("f32", params), ("bf16", {k: v.to(torch.bfloat16)
+                                                 for k, v in params.items()})):
+        got, _ = fts.train_step_det_with(pr, H, res, design="split", **kw)
+        det_yardstick_equal(f"{label}, in-kernel sampling", got, pr, H, res, **kw)
+    det_step_clock(tag, params, H, res, **kw)
+    fx_level_times(tag, g_feat, coords, res, list(range(P)), (P, L, T, F))
+    sass_checks(sass)
+    fx_sass_checks()
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
 
 
 def cached_phase(model, requests, wrappers, tag, dev, uncached) -> None:
@@ -3958,17 +4313,19 @@ def dvnr_phases():
                      "stack": stack}
     # (the clocked instantiations, StageClock and InrStageClock, are a
     # measurement of phase 6 and not held)
-    spilled = [fn for fn, _, st, ld, *_ in usage if (st or ld) and any(
+    spilled = [fn for fn, _, st, ld, *_ in usage if (st or ld) and (any(
         k in fn for k in ("fused_mlp_fwd_kernel", "fused_mlp_bwd_kernel",
-                          "inr_forward_kernel", "inr_forward_grid_kernel"))
+                          "inr_forward_kernel", "inr_forward_grid_kernel")
+        + FX_SASS_KERNELS) or re.search(r"train_step_kernelI.*Lb1EEEv", fn))
         and "StageClock" not in fn]
     if spilled:
-        raise SmokeFailure(f"MLP forward / backward or INR inference kernels "
-                           f"that spill: {spilled}")
+        raise SmokeFailure(f"MLP forward / backward, INR inference, deterministic "
+                           f"scatter or train-step kernels that spill: {spilled}")
     sass = sass_counts(build.build())
     t0 = time.perf_counter()
     inr_layout_checks()
     print(f"  inr_forward layout checks: {time.perf_counter() - t0:.1f} s")
+    fx_plan_checks()
     # ---------------------------------------------------------------- 2
     phase_header("== phase 2: kernels against their plain versions "
           f"(PRODUCTION256: L={L} F={F} T={T} res={res})")
@@ -4427,6 +4784,7 @@ def dvnr_phases():
                                "losses": losses})
     mixed_policy_checks(tparts, cfg, train_wrappers)
     sass_checks(sass)                 # phase 1's, its listing made meanwhile
+    fx_sass_checks()
 
     # ---------------------------------------------------------------- 6
     phase_header(f"== phase 6: per-kernel times at the tick's shapes [{tag}]")
@@ -4819,7 +5177,8 @@ def dvnr_phases():
          under_det(lambda: fts.train_step_cuda(tparams, H, res, **sample_kw)),
          lambda: plain_step(tparams), None,
          2 * n_par * 4 + n_vox * 4 + TP * 4, (other_flops + mlp_flops, 0),
-         det_launch["f32"]["train_step"], TRAIN_STEPS, sym("float", "true")),
+         det_launch["f32"]["train_step"], TRAIN_STEPS,
+         [(sym("float", "true"), 1), ("hash_encode_bwd_fx_kernel<", L)]),
         ("adamw_det",
          under_det(lambda: fts.adamw_apply_cuda(pkd, mkd, vkd, det_g, sched, None,
                                                 n_valid=Nb, **adam_kw)),
@@ -4864,7 +5223,7 @@ def dvnr_phases():
          lambda: plain_step(tparams16), None,
          n_par * (2 + 4) + n_vox * 4 + TP * 4, (other_flops, mlp_flops),
          det_launch["bf16"]["train_step"], TRAIN_STEPS,
-         sym("__nv_bfloat16", "true")),
+         [(sym("__nv_bfloat16", "true"), 1), ("hash_encode_bwd_fx_kernel<", L)]),
         ("adamw_det_master",
          under_det(lambda: fts.adamw_apply_cuda(pkd16, mkd16, vkd16, det_g16, sched,
                                                 None, n_valid=Nb, flat_mw=wkd16,
@@ -4878,6 +5237,7 @@ def dvnr_phases():
     ]
     # the kernels' own device time per launch (the CUDA-event times above
     # span back-to-back wrapper calls, host work included)
+    det_alone = {}
     _, dev_ms, _, _ = profile_tick(lambda: [k() for _, k, *_ in tspecs for _ in range(5)])
     for name, kern, plain_fn, lib_fn, nbytes, (flops, bf16_flops), launches, \
             steps, symbol in tspecs:
@@ -4887,9 +5247,17 @@ def dvnr_phases():
         bms, by = bound_ms(nbytes, flops, bf16_flops=bf16_flops)
         # times are per wrapper call (5 in the profile), summed over the
         # kernels that carry the symbol: the hash backward launches once per
-        # level, and its counter counts those launches (L per call)
-        kt = [t for key, (t, _) in dev_ms if symbol in key]
-        kdev = [sum(kt) / 5] if kt else []
+        # level, and its counter counts those launches (L per call). The
+        # deterministic route's split (a list of (symbol, launches a call):
+        # the step and its scatter, whose float32 scatter both policies
+        # launch) is profiled alone
+        if isinstance(symbol, list):
+            alone_ms = kernels_alone_ms(kern, symbol)
+            kdev = [] if alone_ms is None else [alone_ms]
+            det_alone[name] = alone_ms
+        else:
+            kt = [t for key, (t, _) in dev_ms if symbol in key]
+            kdev = [sum(kt) / 5] if kt else []
         print(f"  {name:<20s} {ms:9.3f} ms  bound {bms:8.3f} ms ({by})  "
               f"plain {pms:9.3f} ms  library "
               f"{'-' if lms is None else f'{lms:.3f} ms'}  "
@@ -4915,7 +5283,8 @@ def dvnr_phases():
          lambda: scatter_buf.index_add_(0, flat_idx, flat_val),
          rows * (12 + L * F * 4) + n_tab * 4, (enc_flops, 0),
          ud["f32"]["hash_encode_bwd"], DET_UNFUSED_STEPS,
-         ("hash_encode_bwd_fx_kernel<float,", "fx_to_float_kernel"), "hash_encode_bwd"),
+         [("hash_encode_bwd_fx_kernel<float,", L), ("fx_to_float_kernel", 1)],
+         "hash_encode_bwd"),
         ("hash_encode_bwd_det_bf16",
          under_det(lambda: hash_encode_bwd_cuda(g_feat16, coords_t, res, rows_t,
                                                 (TP, L, T, F))),
@@ -4924,7 +5293,7 @@ def dvnr_phases():
          lambda: scatter_buf.index_add_(0, flat_idx, flat_val16),
          rows * (12 + L * F * 2) + n_tab * 4, (enc_flops, 0),
          ud["bf16"]["hash_encode_bwd"], DET_UNFUSED_STEPS,
-         ("hash_encode_bwd_fx_kernel<__nv_bfloat16,", "fx_to_float_kernel"),
+         [("hash_encode_bwd_fx_kernel<__nv_bfloat16,", L), ("fx_to_float_kernel", 1)],
          "hash_encode_bwd_bf16"),
         ("fused_mlp_bwd_det",
          under_det(lambda: fused_mlp_bwd_cuda(feats_t, ws_t, g_out, rows_t)),
@@ -4932,14 +5301,15 @@ def dvnr_phases():
          lambda: mlp_bwd_chain(feats_t, ws_t, g_out),
          rows * (2 * D_in + D_out) * 4 + 2 * TP * n_w * 4, (mlp_flops, 0),
          ud["f32"]["fused_mlp_bwd"], DET_UNFUSED_STEPS,
-         ("fused_mlp_bwd_kernel<float,", "mlp_dw_reduce_kernel"), "fused_mlp_bwd"),
+         [("fused_mlp_bwd_kernel<float,", 1), ("mlp_dw_reduce_kernel", 1)],
+         "fused_mlp_bwd"),
         ("fused_mlp_bwd_det_bf16",
          under_det(lambda: fused_mlp_bwd_cuda(feats16, ws16, g_out16, rows_t)),
          lambda: fused_mlp_batched_bwd_ref(feats16, ws16, g_out16, rows_td),
          lambda: mlp_bwd_chain(feats16, ws16, g_out16),
          rows * (2 * D_in + D_out) * 2 + TP * n_w * (2 + 4), (0, mlp_flops),
          ud["bf16"]["fused_mlp_bwd"], DET_UNFUSED_STEPS,
-         ("fused_mlp_bwd_kernel<__nv_bfloat16,", "mlp_dw_reduce_kernel"),
+         [("fused_mlp_bwd_kernel<__nv_bfloat16,", 1), ("mlp_dw_reduce_kernel", 1)],
          "fused_mlp_bwd_bf16"),
     ]
     for name, kern, plain_fn, lib_fn, nbytes, (flops, bf16_flops), launches, \
@@ -4948,7 +5318,7 @@ def dvnr_phases():
         pms = cuda_ms(plain_fn, reps=3)
         lms = cuda_ms(lib_fn, reps=5)
         bms, by = bound_ms(nbytes, flops, bf16_flops=bf16_flops)
-        kdev = kernel_alone_ms(kern, symbols)
+        kdev = kernels_alone_ms(kern, symbols)
         row = {"name": name, "route": "cuda", "source": SOURCES[name],
                "replaces": REPLACES[name], "launches": launches,
                "max_abs_err": errs[name], "ms": ms, "plain_ms": pms,
@@ -4971,6 +5341,21 @@ def dvnr_phases():
               f"launches/step {launches / steps:.0f}  kernel alone "
               f"{'not measured' if kdev is None else f'{kdev:.4f} ms'} per call "
               f"(profiler) [{tag}]")
+        if name.startswith("hash_encode_bwd_det"):
+            # the scatter layer beside its yardstick (the design before the
+            # clusters), through the same measurement entry
+            gg = g_feat16 if name.endswith("bf16") else g_feat
+            tp = "__nv_bfloat16" if name.endswith("bf16") else "float"
+            fx_call = lambda design: (lambda: hops.hash_encode_bwd_fx_with(
+                gg, coords_t, res, rows_t, (TP, L, T, F), design=design))
+            det_design_turns(
+                f"{name} (levels {hops.fx_letters(hops.fx_plan(res, T, F))})",
+                fx_call("cluster"), fx_call("block"),
+                [(f"hash_encode_bwd_fx_kernel<{tp},", L), ("fx_to_float_kernel", 1)],
+                [(f"hash_encode_bwd_fx_block_kernel<{tp},", L),
+                 ("fx_to_float_kernel", 1)], tag)
+            if tp == "float":
+                fx_level_times(tag, g_feat, coords_t, res, rows_t, (TP, L, T, F))
         kernels.append(row)
     # where the MLP backward's time goes, at the main path's shapes: its
     # clocked instantiation's cycles by stage (each a share of the warps'
@@ -5010,12 +5395,30 @@ def dvnr_phases():
           f"{f'{kdev[0]:.4f} ms' if kdev else 'not measured'} (profiler); "
           f"not on the default path [{tag}]")
     host_det = under_det(lambda: fts.train_step_cuda(tparams, H, res, **host_kw))
+    det_syms = lambda tp, smp: [(f"train_step_kernel<{tp}, {W}, {F}, {smp}, true>", 1),
+                                ("hash_encode_bwd_fx_kernel<", L)]
     ms_hd = cuda_ms(host_det, reps=10)
-    per_hd = kernel_alone_ms(host_det, f"train_step_kernel<float, {W}, {F}, false, true>")
+    per_hd = kernels_alone_ms(host_det, det_syms("float", "false"))
     print(f"  train_step (host-sampled batch), deterministic route {ms_hd:.3f} ms  "
-          f"bound {bms:.3f} ms ({by})  kernel alone "
+          f"bound {bms:.3f} ms ({by})  kernels alone (the step and its scatter) "
           f"{'not measured' if per_hd is None else f'{per_hd:.4f} ms'} "
           f"(profiler) [{tag}]")
+    # rows 5-d, 6-d and 6-b-d beside the route's fused yardstick (the design
+    # before the split), and the yardstick's stage clock
+    for label, pr, tp, kw, smp, row in (
+            ("5-d train_step host-sampled f32", tparams, "float", host_kw, "false", None),
+            ("6-d train_step_det f32", tparams, "float", sample_kw, "true",
+             "train_step_det"),
+            ("6-b-d train_step_det_bf16", tparams16, "__nv_bfloat16", sample_kw, "true",
+             "train_step_det_bf16")):
+        det_design_turns(
+            f"{label}, deterministic route (split: the step + the scatter "
+            f"{hops.fx_letters(hops.fx_plan(res, T, F))})",
+            lambda: fts.train_step_det_with(pr, H, res, design="split", **kw),
+            lambda: fts.train_step_det_with(pr, H, res, design="fused", **kw),
+            det_syms(tp, smp), [(f"train_step_det_fused_kernel<{tp}, {smp}", 1)], tag,
+            new_alone=per_hd if row is None else det_alone.get(row))
+    det_step_clock(tag, tparams, H, res, **sample_kw)
     # the backward's levels one by one (one launch each) on the staging plan,
     # and with every level sent the direct route (a budget of 0 bytes)
     bwd_call = lambda: hash_encode_bwd_cuda(g_feat, coords_t, res, rows_t,
@@ -5028,9 +5431,9 @@ def dvnr_phases():
               f"{'' if per is None else f' ms, sum {sum(per):.4f} ms'} (profiler) [{tag}]")
     plan = hops.bwd_plan(res, T, F)
     ppb = (ctypes.c_int * L)()
+    res_h, plan_h = hops.levels_arg(res), (ctypes.c_int * L)(*plan)
     build.library().repro_hash_encode_bwd_points_per_block(
-        ctypes.addressof(hops.levels_arg(res)),
-        ctypes.addressof((ctypes.c_int * L)(*plan)), L, T, ctypes.addressof(ppb))
+        ctypes.addressof(res_h), ctypes.addressof(plan_h), L, T, ctypes.addressof(ppb))
     req = scatter_requests(coords_t, res, T, F, plan,
                            [torch.arange(Nb, device=dev) // n for n in ppb])
     print(f"  hash_encode_bwd atomic requests per call: "
@@ -5046,16 +5449,19 @@ def dvnr_phases():
             TP, Nb, L, F, W, H, D_out, det, ctypes.addressof(shape)),
             "repro_train_step_shape")
         tile, gx, smem, n_groups = list(shape)
-        print(f"  train_step{', deterministic route' if det else ''}: levels all "
-              f"direct; {tile} threads x {gx} blocks per partition, {smem} B "
+        print(f"  train_step{', deterministic route' if det else ''}: "
+              + ("levels all direct" if not det else "split: the cotangent (and "
+                 "coordinates) to scratch, then the scatter, levels "
+                 + hops.fx_letters(hops.fx_plan(res, T, F)))
+              + f"; {tile} threads x {gx} blocks per partition, {smem} B "
               f"shared memory per block"
               + (f", {n_groups} groups of 4 tiles a partition" if det else ""))
     req = scatter_requests(coords_t, res, T, F, [False] * L, [None] * L)
     rows_added = req["direct"] // (2 if F == 8 else 1)
     print(f"  train_step scatter requests per step: {req['direct']:,} global "
-          f"16-byte adds, no shared updates; the deterministic route: "
-          f"{rows_added * F:,} global 8-byte integer adds ({F} a row) and "
-          f"{part_floats:,} group-row floats stored; the kernel before this "
+          f"16-byte adds, no shared updates; the deterministic route's fused "
+          f"yardstick: {rows_added * F:,} global 8-byte integer adds ({F} a row) "
+          f"and {part_floats:,} group-row floats stored; the kernel before this "
           f"design: {req['before']:,} scalar global atomics [{tag}]")
     step_call = lambda: fts.train_step_cuda(tparams, H, res, **sample_kw)
     # the yardstick split: the kernel writes the feature cotangent (its
@@ -5085,8 +5491,8 @@ def dvnr_phases():
     for tp, params_ in (("float", tparams), ("__nv_bfloat16", tparams16)):
         call = lambda: fts.train_step_cuda(params_, H, res, **sample_kw)
         runs = [kernel_alone_ms(call, sym(tp, "false")),
-                kernel_alone_ms(under_det(call), sym(tp, "true")),
-                kernel_alone_ms(under_det(call), sym(tp, "true")),
+                kernels_alone_ms(under_det(call), det_syms(tp, "true")),
+                kernels_alone_ms(under_det(call), det_syms(tp, "true")),
                 kernel_alone_ms(call, sym(tp, "false"))]
         if all(r is not None for r in runs):
             d = (runs[0] + runs[3]) / 2
@@ -5698,6 +6104,7 @@ def pathlines_phase(cfg, dev, wrappers, errs, tag) -> dict:
     from repro_torch.insitu.actions import pathlines_action
     from repro_torch.kernels.fused_train_step import ops as fts
     from repro_torch.kernels.fused_train_step import ref as fts_ref
+    from repro_torch.kernels.hash_encoding import ops as hops
     from repro_torch.reactive import DVNRValue
 
     vcfg = cfg.replace(out_dim=3)
@@ -5791,12 +6198,21 @@ def pathlines_phase(cfg, dev, wrappers, errs, tag) -> dict:
     flops = enc_flops + rows * (16 * L_ * F_ + 8 * 3 * D_out + 20) + 6 * rows * n_w
     bms, by = bound_ms(2 * n_par * 4 + n_vox * D_out * 4 + P * 4, flops)
     ms_det = cuda_ms(under_det(kern), reps=10)
-    per_det = kernel_alone_ms(under_det(kern),
-                              f"train_step_kernel<float, {W_}, {F_}, true, true>")
+    v_syms = [(f"train_step_kernel<float, {W_}, {F_}, true, true>", 1),
+              ("hash_encode_bwd_fx_kernel<", L_)]
+    per_det = kernels_alone_ms(under_det(kern), v_syms)
+    vkw = dict(volumes=vols, seeds=vseeds, **draw)
+    if W_ == 16 and F_ == 4:   # where the route's fused yardstick is built
+        det_design_turns(
+            f"6-v-d train_step_v3, deterministic route (split: the step + the "
+            f"scatter {hops.fx_letters(hops.fx_plan(res, T_, F_))})",
+            lambda: fts.train_step_det_with(flat, H, res, design="split", **vkw),
+            lambda: fts.train_step_det_with(flat, H, res, design="fused", **vkw),
+            v_syms, [("train_step_det_fused_kernel<float, true", 1)], tag)
     # the kernel alone by profile_tick's keys: the only train-step kernel
     # of the profile (its profiles before the deterministic route's,
     # taken first in this phase, recorded no device kernel at all)
-    per = kernel_alone_ms(kern, "train_step_kernel<float,")
+    per = kernels_alone_ms(kern, [(f"train_step_kernel<float, {W_}, {F_}, true, false>", 1)])
     print(f"  train_step_v3 (D_out=3, P={P} x N={Nb}) {ms:.3f} ms  bound "
           f"{bms:.3f} ms ({by})  plain {pms:.3f} ms  launches on the pathline "
           f"path {n_train}  kernel alone "

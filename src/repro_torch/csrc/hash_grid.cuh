@@ -381,11 +381,12 @@ __device__ __forceinline__ void scatter_corners(const LevelGeom& geo,
 }
 
 // ---------------------------------------------------------------------------
-// The deterministic route's table gradient (train_step.cuh, DET): every
-// contribution is added as an int64 fixed-point number, value * 2^FX_SHIFT
-// rounded to the nearest integer. Integer addition is associative, so the
-// sum of a table entry does not depend on the order in which warps and
-// blocks reach it. It is converted to float32 once, by adamw.cu.
+// The deterministic route's table gradient (the unfused backward and the
+// train step's DET route): every contribution is added as an int64
+// fixed-point number, value * 2^FX_SHIFT rounded to the nearest integer.
+// Integer addition is associative, so the sum of a table entry does not
+// depend on the order in which warps and blocks reach it. It is converted to
+// float32 once, by adamw.cu (or hash_encode.cu's fx_to_float_kernel).
 //
 // The bound. A contribution is w * g: a trilinear weight (|w| <= 1 for a
 // coordinate in [0,1]) times the feature cotangent of one sample. The L1
@@ -395,37 +396,116 @@ __device__ __forceinline__ void scatter_corners(const LevelGeom& geo,
 // (2^12) of every contribution. An entry takes at most 8 N contributions
 // (every corner of every sample), each rounded once after the warp's
 // pre-reduction, so |sum| <= 8 N (FX_BOUND / N) 2^47 + 4 N = 2^62 + 4 N,
-// inside int64. A contribution past the bound is not added silently: it sets
-// bit FX_OVER of the partition's flag (a non-finite one sets FX_NONFINITE),
-// adamw.cu then gives the partition NaN gradients and a NaN loss, and the
-// trainer raises on FX_OVER. The quantum 2^-47 (7.1e-15) is ~1e-9 of a
-// typical contribution (1/N = 1.5e-5 at N = 65,536): the fixed-point sum is
-// closer to the exact sum than a float32 one.
+// inside int64; a partial sum covers a subset of an entry's contributions,
+// so the bound holds for the slabs below too. A contribution past the bound
+// is not added silently: it sets bit FX_OVER of the partition's flag (a
+// non-finite one sets FX_NONFINITE), adamw.cu then gives the partition NaN
+// gradients and a NaN loss, and the trainer raises on FX_OVER. The quantum
+// 2^-47 (7.1e-15) is ~1e-9 of a typical contribution (1/N = 1.5e-5 at
+// N = 65,536): the fixed-point sum is closer to the exact sum than a float32
+// one.
 constexpr int FX_SHIFT = 47;
 constexpr float FX_BOUND = 4096.0f;
 constexpr unsigned FX_NONFINITE = 1u, FX_OVER = 2u;
 
-// row[0..F) += v as F 64-bit integer atomics of the fixed-point values (the
-// card has no vector integer atomic: a row of 4 features is 4 requests)
-template <int F>
-__device__ __forceinline__ void atomic_add_row_fx(unsigned long long* row,
-                                                  const float (&v)[F]) {
-#pragma unroll
-  for (int f = 0; f < F; ++f) {
-    const long long q = __float2ll_rn(v[f] * 140737488355328.0f);   // 2^47
-    atomicAdd(row + f, (unsigned long long)q);   // two's complement: wraps back
-  }
+// The scatter layer. Every contribution is formed and rounded the same way
+// (scatter_corners_fx: the same point in the same lane of the same warp,
+// the same warp_reduce_peers tree, the same __float2ll_rn(v 2^47)); only the
+// place where a group leader's int64 adds accumulate differs, a sink picked
+// by a plan letter a level (hash_encode.cu fx_level_plan, made on the host):
+//   s  FxSlab: one block's slab of the level's rows x F int64 in shared
+//      memory;
+//   c  FxCluster: the slab split across a thread-block cluster, each block
+//      owning a span of consecutive rows; a row's adds go to its owner's
+//      shared memory through distributed shared memory (its address mapped
+//      with mapa, as cluster.map_shared_rank maps it, the adds as
+//      red.shared::cluster, atom's form without a return value);
+//   d  FxAtomic on the device gradient: F 64-bit global atomics a row (the
+//      card has no vector integer atomic).
+// A slab is flushed once a block with one 64-bit global atomic a nonzero
+// entry. Integer addition is exact in any order and any grouping, so every
+// entry of the device gradient is the direct sum, bit for bit, whatever the
+// plan. The sm_90 shared-memory unit has no 64-bit add: a 64-bit atomicAdd
+// on shared memory compiles to a compare-and-swap loop (ATOMS.CAST.SPIN.64
+// in the SASS: FxAtomic on the yardstick's slab, hash_encode.cu's
+// hash_encode_bwd_fx_block_kernel), which stalls on the dense levels' hot
+// rows. So FxSlab adds each entry as two native 32-bit adds with a carry
+// (shared_add_fx); another block's shared memory does take a native 64-bit
+// add (chip_smoke.py's phase 1 holds both in the SASS).
+
+// one contribution in fixed point (two's complement: a negative one wraps
+// back in the unsigned sums)
+__device__ __forceinline__ unsigned long long fx_quantize(float v) {
+  return (unsigned long long)__float2ll_rn(v * 140737488355328.0f);   // 2^47
 }
+
+// row idx += v as F 64-bit atomicAdds at a generic address: the device
+// gradient ('d'), or the yardstick's slab in shared memory
+struct FxAtomic {
+  unsigned long long* rows;   // the level's (rows, F) entries
+  template <int F>
+  __device__ __forceinline__ void add(unsigned idx, const float (&v)[F]) const {
+    unsigned long long* r = rows + (size_t)idx * F;
+#pragma unroll
+    for (int f = 0; f < F; ++f) atomicAdd(r + f, fx_quantize(v[f]));
+  }
+};
+
+// e += q for an int64 entry e at shared-memory address a of this block, as
+// two native 32-bit adds: the low word's add returns its old value, whose
+// carry goes with the high half to the high word (skipped when that sum is
+// 0). Each add is exact mod 2^32 and every carry is counted once, so the
+// entry is the int64 sum mod 2^64 in any interleaving. Every add into an
+// FxSlab goes so: the words are never also added to as one 64-bit value.
+__device__ __forceinline__ void shared_add_fx(uint32_t a, unsigned long long q) {
+  const unsigned lo = (unsigned)q, hi = (unsigned)(q >> 32);
+  unsigned old;
+  asm volatile("atom.shared.add.u32 %0, [%1], %2;" : "=r"(old) : "r"(a), "r"(lo) : "memory");
+  const unsigned h = hi + (old + lo < old ? 1u : 0u);
+  if (h) asm volatile("red.shared.add.u32 [%0], %1;" ::"r"(a + 4u), "r"(h) : "memory");
+}
+
+struct FxSlab {
+  uint32_t base;   // the block's slab, a shared-memory (shared::cta) address
+  template <int F>
+  __device__ __forceinline__ void add(unsigned idx, const float (&v)[F]) const {
+    const uint32_t a = base + idx * (8u * F);
+#pragma unroll
+    for (int f = 0; f < F; ++f) shared_add_fx(a + 8u * f, fx_quantize(v[f]));
+  }
+};
+
+// A cluster's slab takes every add as one 64-bit red.shared::cluster: a
+// native 64-bit add (ATOM.E.ADD.64) in the block that owns the row when that
+// is another block of the cluster, a 64-bit compare-and-swap loop in its
+// own (one add in C at a cluster of C, where the hashed levels' rows see few
+// adds each). All adds to an entry are 64-bit, never mixed with halves.
+struct FxCluster {
+  uint32_t base;   // this block's slab; every block of the cluster has its own
+  unsigned span;   // at the same offset. Block k owns rows [k span, (k+1) span)
+  template <int F>
+  __device__ __forceinline__ void add(unsigned idx, const float (&v)[F]) const {
+    const unsigned owner = idx / span;
+    uint32_t a;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+                 : "=r"(a) : "r"(base + (idx - owner * span) * (8u * F)), "r"(owner));
+#pragma unroll
+    for (int f = 0; f < F; ++f)
+      asm volatile("red.shared::cluster.add.u64 [%0], %1;" ::"r"(a + 8u * f),
+                   "l"(fx_quantize(v[f])) : "memory");
+  }
+};
 
 // scatter_corners for the deterministic route: the same products and the
 // same warp pre-reduction (its tree depends only on the warp's rows, not on
-// timing), then the fixed-point adds. A valid lane whose contribution is
-// past vmax = FX_BOUND / N, or not finite, ORs its flag bit into `bad`.
-template <int F>
+// timing), then each group leader's fixed-point adds into `sink` (FxAtomic,
+// FxSlab or FxCluster). A valid lane whose contribution is past vmax =
+// FX_BOUND / N, or not finite, ORs its flag bit into `bad`.
+template <int F, typename Sink>
 __device__ __forceinline__ void scatter_corners_fx(const LevelGeom& geo,
                                                    const float (&g)[F], bool valid,
-                                                   unsigned long long* dst,
-                                                   float vmax, unsigned& bad) {
+                                                   const Sink& sink, float vmax,
+                                                   unsigned& bad) {
 #pragma unroll
   for (int dx = 0; dx < 2; ++dx) {
 #pragma unroll
@@ -441,8 +521,7 @@ __device__ __forceinline__ void scatter_corners_fx(const LevelGeom& geo,
           const float m = fabsf(v[f]);
           if (valid && !(m <= vmax)) bad |= isfinite(m) ? FX_OVER : FX_NONFINITE;
         }
-        if (warp_reduce_peers<F>(idx, v) && valid)
-          atomic_add_row_fx<F>(dst + (size_t)idx * F, v);
+        if (warp_reduce_peers<F>(idx, v) && valid) sink.template add<F>(idx, v);
       }
     }
   }

@@ -1,6 +1,7 @@
 // The fused train step's C entries and its float32 host-sampled
 // instantiations (the kernel and its design: train_step.cuh; the other
 // variants, policies and routes: train_step_*.cu, one each).
+#include "fx_scatter.cuh"
 #include "train_step.cuh"
 
 namespace {
@@ -26,13 +27,23 @@ bool valid_levels(int L, int F) {
 // loss_sum outputs are not written; g_tab_fx (P,L,T,F) int64 and flags (P,)
 // int64, zeroed by the caller, take the fixed-point table gradient and the
 // flag bits, and partials (P, groups, n_w + 1) f32 (groups from
-// repro_train_step_shape) each group's dW and loss, written whole.
+// repro_train_step_shape) each group's dW and loss, written whole. The step
+// is split: the kernel writes the feature cotangent to g_feat (required:
+// the caller's scratch) and, in sampling mode, the drawn coordinates to
+// g_coords ((P,N,3) f32 scratch, required), then hash_encode.cu's
+// fixed-point scatter (fx_scatter, one launch a level) sums them into
+// g_tab_fx. det = 2: the same kernel, writing the cotangent only (g_tab_fx
+// stays zero: the caller's cotangent_out). det = 3: the route's fused design
+// before the split (the yardstick, W = 16 and F = 4 only: the adds inside
+// the step, every level direct); det = 4: the same, float32 sampling
+// variant, with the stage clock added into clocks (kDetStages + 1 uint64,
+// zeroed by the caller).
 extern "C" int repro_train_step(
     const void* coords, const void* target, const void* volumes,
     const void* seeds, const void* tab, const void* win, const void* whid,
     const void* wout, void* g_tab, void* g_win, void* g_whid, void* g_wout,
     void* loss_sum, void* g_feat, void* g_tab_fx, void* partials, void* flags,
-    const void* resolutions, long long P,
+    void* g_coords, void* clocks, const void* resolutions, long long P,
     long long N, int L, long long T, int F, int W, int n_hidden,
     int n_hid_slab, int D_out, long long nx, long long ny, long long nz,
     int ghost, long long n_uniform, float sigma, int sampling, int is_bf16,
@@ -46,7 +57,10 @@ extern "C" int repro_train_step(
   if (sampling ? (volumes == nullptr || seeds == nullptr)
                : (coords == nullptr || target == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (det && (g_tab_fx == nullptr || partials == nullptr || flags == nullptr))
+  if (det < 0 || det > 4 ||
+      (det && (g_tab_fx == nullptr || partials == nullptr || flags == nullptr)) ||
+      ((det == 1 || det == 2) && g_feat == nullptr) ||
+      (det == 1 && sampling && g_coords == nullptr) || (det == 4 && clocks == nullptr))
     return (int)cudaErrorInvalidValue;
   const int* res = static_cast<const int*>(resolutions);
   repro::StepShape sh;
@@ -71,6 +85,8 @@ extern "C" int repro_train_step(
   a.partials = static_cast<float*>(partials);
   a.flags = static_cast<unsigned long long*>(flags);
   a.fx_vmax = repro::FX_BOUND / (float)N;
+  a.g_coords = det == 1 && sampling ? static_cast<float*>(g_coords) : nullptr;
+  a.clocks = static_cast<unsigned long long*>(clocks);
   a.N = N; a.T = T; a.nx = nx; a.ny = ny; a.nz = nz; a.n_uniform = n_uniform;
   a.L = L; a.D_in = L * F; a.n_hidden = n_hidden; a.n_hid_slab = n_hid_slab;
   a.D_out = D_out; a.ghost = ghost; a.sigma = sigma;
@@ -82,7 +98,15 @@ extern "C" int repro_train_step(
        {repro::train_step_launch_bf16, repro::train_step_launch_bf16_sampling}},
       {{repro::train_step_launch_det, repro::train_step_launch_det_sampling},
        {repro::train_step_launch_det_bf16, repro::train_step_launch_det_bf16_sampling}}};
-  return (int)launch[det != 0][is_bf16 != 0][sampling != 0](a, sh, P, W, F, s);
+  if (det >= 3)
+    return (int)repro::train_step_launch_det_fused(a, sh, P, W, F, is_bf16, sampling,
+                                                   det == 4, s);
+  const cudaError_t err = launch[det != 0][is_bf16 != 0][sampling != 0](a, sh, P, W, F, s);
+  if (err != cudaSuccess || det != 1) return (int)err;
+  // the split's second half: the cotangent's fixed-point scatter, row p into
+  // partition p, at the coordinates the kernel read or drew
+  return (int)repro::fx_scatter(g_feat, 0, sampling ? a.g_coords : a.coords, nullptr, res,
+                                nullptr, a.g_tab_fx, a.flags, P, N, L, T, F, a.fx_vmax, s);
 }
 
 // The train step's launch shape for these arguments (as repro_train_step

@@ -68,9 +68,24 @@
 //     (each thread's rows, a fixed shuffle tree, then the warps in order)
 //     are written to the group's row of a (P, groups, n_w + 1) buffer in
 //     place of the atomics; adamw.cu sums the rows in group order;
-//   - the table gradient is added as int64 fixed point (hash_grid.cuh,
-//     scatter_corners_fx: its scale, bound and overflow flag), converted to
-//     float32 by adamw.cu.
+//   - the table gradient is summed as int64 fixed point (hash_grid.cuh: its
+//     scale, bound and overflow flag), converted to float32 by adamw.cu. The
+//     step is split in two launches: the kernel writes each valid row's
+//     feature cotangent to g_feat ((P,N,L*F) f32 scratch, 42 MB a
+//     PRODUCTION256 step) and, in the sampling variant, its drawn
+//     coordinates to g_coords ((P,N,3), 6.3 MB), and hash_encode.cu's
+//     fixed-point scatter (fx_scatter) sums them, each level on its plan:
+//     the slab in one block's shared memory, across a cluster's, or direct.
+//     Both launches put rows 32k .. 32k+31 in one warp, so every
+//     contribution is formed and rounded as it was inside the step, and the
+//     int64 sums are its bits. The yardstick, train_step_det_fused_kernel,
+//     keeps the adds inside the step with every level direct: F 8-byte
+//     atomics a corner row to device memory, 79.5M a PRODUCTION256 step,
+//     whose hot dense rows cost most (its stage clock, step::DetStageClock,
+//     splits the cycles into the dense levels' scatter, the hashed levels'
+//     and the rest; PERF.md). Staging levels inside this kernel instead
+//     could hold only level 0's slab beside the MLP tile without losing
+//     blocks an SM, and would leave the rest direct.
 //
 // The bf16 policy (TP = bfloat16) rounds where the plain version
 // (fused_train_step/ref.py, train_step_grads_ref) rounds, and sums in
@@ -97,11 +112,14 @@
 // gathers, about 0.34 ms a step, and the scatter's 21M corner adds, about
 // 0.2 ms more. The pre-reduction takes the coarse dense levels' adds (125 to
 // 4,913 rows) off a few hot addresses, and the direct adds are
-// fire-and-forget, so the other warps' MLP work hides them. Gradient slabs
-// staged in shared memory for the coarse levels, as the standalone backward
-// stages them, measured slower here (their shared compare-and-swap loops
-// stall the warp, and a slab costs blocks per SM; PERF.md), so every level
-// goes straight to device memory.
+// fire-and-forget, so the other warps' MLP work hides them. On the default
+// route float32 gradient slabs staged in shared memory for the coarse
+// levels, as the standalone backward stages them, measured slower here
+// (a shared float add is a compare-and-swap loop that stalls the warp, and a
+// slab costs blocks per SM; PERF.md), so every level goes straight to device
+// memory as one 16-byte atomic a row. The deterministic route's int64 adds
+// are F requests a row and cannot be fused so; they leave the kernel (the
+// split above).
 #pragma once
 
 #include <stdint.h>
@@ -133,6 +151,11 @@ struct StepArgs {
   float* partials;
   unsigned long long* flags;
   float fx_vmax;
+  // the deterministic route's split (see the header): the sampling variant's
+  // drawn coordinates (P,N,3), or null; the clocked yardstick's stage
+  // counts (DetStageClock), or null
+  float* g_coords;
+  unsigned long long* clocks;
   long long N, T, nx, ny, nz, n_uniform;
   int L, D_in, n_hidden, n_hid_slab, D_out, ghost;
   float sigma;
@@ -159,6 +182,11 @@ StepLaunch train_step_launch_sampling, train_step_launch_bf16,
     train_step_launch_bf16_sampling, train_step_launch_det,
     train_step_launch_det_sampling, train_step_launch_det_bf16,
     train_step_launch_det_bf16_sampling;
+// the deterministic route's fused design, the yardstick (W = 16, F = 4 only;
+// train_step_det_fused.cu): is_bf16, sampling, clocked pick the instantiation
+cudaError_t train_step_launch_det_fused(const StepArgs& a, const StepShape& sh,
+                                        long long P, int W, int F, int is_bf16,
+                                        int sampling, int clocked, cudaStream_t stream);
 
 namespace step {
 
@@ -264,14 +292,63 @@ __device__ __forceinline__ float block_sum(float v, float* red, int r, int tile)
   return s;
 }
 
+// The stage clock of the deterministic route's fused scatter (the
+// yardstick's clocked instantiation, a measurement): each warp counts the
+// cycles (clock64) of its table scatter at the dense levels, at the hashed
+// levels, and of the rest of the step, and adds them, then its lifetime in
+// ns (the global timer), to a global array of kDetStages + 1.
+enum DetStage { kDetRest, kDetDense, kDetHashed, kDetStages };
+
+struct StepNoClock {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void mark(int) {}
+  __device__ __forceinline__ void flush(unsigned long long*) {}
+};
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+struct DetStageClock {
+  long long last;
+  unsigned long long born;
+  unsigned long long t[kDetStages];
+  __device__ __forceinline__ void start() {
+#pragma unroll
+    for (int i = 0; i < kDetStages; ++i) t[i] = 0;
+    born = global_ns();
+    last = clock64();
+  }
+  __device__ __forceinline__ void mark(int s) {
+    const long long now = clock64();
+    t[s] += (unsigned long long)(now - last);
+    last = now;
+  }
+  __device__ __forceinline__ void flush(unsigned long long* out) {
+    if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+      for (int i = 0; i < kDetStages; ++i) atomicAdd(out + i, t[i]);
+      atomicAdd(out + kDetStages, global_ns() - born);
+    }
+  }
+};
+
 }  // namespace step
 
-// The kernel for parameters of type TP (float: the float32 policy;
+// The step's body for parameters of type TP (float: the float32 policy;
 // __nv_bfloat16: the bf16 policy, RB below, with the rounding points of the
-// header)
-template <typename TP, int W, int F, bool SAMPLING, bool DET>
-__global__ void train_step_kernel(const StepArgs a) {
+// header). DET without FUSED_FX is the deterministic route's split:
+// the feature cotangent to g_feat (and the drawn coordinates to g_coords),
+// no scatter here. DET with FUSED_FX is the route's fused design before the
+// split (the yardstick): the fixed-point adds in the step, every level
+// straight to device memory. Clk marks the scatter's stages (the yardstick's
+// clocked instantiation; step::StepNoClock elsewhere).
+template <typename TP, int W, int F, bool SAMPLING, bool DET, bool FUSED_FX, typename Clk>
+__device__ __forceinline__ void train_step_body(const StepArgs& a, Clk& clk) {
   constexpr bool RB = sizeof(TP) == 2;
+  constexpr bool SPLIT = DET && !FUSED_FX;
   extern __shared__ __align__(16) float smem[];
   const int p = blockIdx.y;
   const int tile = blockDim.x, r = threadIdx.x;
@@ -280,7 +357,7 @@ __global__ void train_step_kernel(const StepArgs a) {
   float* red = smem + repro::mlp_tile_floats(a.D_in, W, a.n_hidden, a.D_out, tile);
   const int L = a.L;
   const long long T = a.T;
-  const bool scatter = a.g_feat == nullptr;
+  const bool scatter = !SPLIT && a.g_feat == nullptr;
   const long long hid_off = (long long)p * a.n_hid_slab * W * W;
   repro::mlp_tile_load<TP>(t, static_cast<const TP*>(a.win) + (long long)p * t.n_in,
                            static_cast<const TP*>(a.whid) + hid_off,
@@ -315,6 +392,11 @@ __global__ void train_step_kernel(const StepArgs a) {
       if (SAMPLING) {
         step::sample_coords(k0, k1, row, a.n_uniform, a.sigma, c);
         step::gather_trilinear(vol, a.nx, a.ny, a.nz, a.D_out, a.ghost, c, tgt);
+        if (SPLIT && valid && a.g_coords != nullptr) {
+          float* o = a.g_coords + ((long long)p * a.N + row) * 3;
+  #pragma unroll
+          for (int d = 0; d < 3; ++d) o[d] = c[d];
+        }
       } else if (valid) {
         const long long prow = (long long)p * a.N + row;
   #pragma unroll
@@ -360,9 +442,11 @@ __global__ void train_step_kernel(const StepArgs a) {
         }
         const repro::LevelGeom geo = repro::level_geom(c, a.res[l], T);
         if constexpr (DET) {
-          repro::scatter_corners_fx<F>(geo, df, valid,
-                                       a.g_tab_fx + ((long long)p * L + l) * T * F,
-                                       a.fx_vmax, bad);
+          clk.mark(step::kDetRest);
+          repro::scatter_corners_fx<F>(
+              geo, df, valid, repro::FxAtomic{a.g_tab_fx + ((long long)p * L + l) * T * F},
+              a.fx_vmax, bad);
+          clk.mark(geo.dense ? step::kDetDense : step::kDetHashed);
         } else {
           repro::scatter_corners<F, false>(geo, df, valid, gtab + (long long)l * T * F);
         }
@@ -387,6 +471,7 @@ __global__ void train_step_kernel(const StepArgs a) {
   }
   if constexpr (DET) {
     if (bad) atomicOr(a.flags + p, (unsigned long long)bad);   // faults only
+    clk.mark(step::kDetRest);
     return;
   }
   // the block's loss sum and its dW: one atomicAdd each
@@ -394,6 +479,23 @@ __global__ void train_step_kernel(const StepArgs a) {
   if (r == 0) atomicAdd(a.loss_sum + p, s);
   repro::mlp_tile_flush(t, a.g_win + (long long)p * t.n_in, a.g_whid + hid_off,
                         a.g_wout + (long long)p * t.n_out);
+}
+
+template <typename TP, int W, int F, bool SAMPLING, bool DET>
+__global__ void train_step_kernel(const StepArgs a) {
+  step::StepNoClock clk;
+  train_step_body<TP, W, F, SAMPLING, DET, false>(a, clk);
+}
+
+// The deterministic route's fused design (the yardstick of the split, at W =
+// 16, F = 4; launched only through repro_train_step's det = 3 and 4, the
+// latter with Clk = step::DetStageClock into a.clocks)
+template <typename TP, bool SAMPLING, typename Clk>
+__global__ void train_step_det_fused_kernel(const StepArgs a) {
+  Clk clk;
+  clk.start();
+  train_step_body<TP, 16, 4, SAMPLING, true, true>(a, clk);
+  clk.flush(a.clocks);
 }
 
 // False if no tile fits. The shape does not depend on the parameter type:

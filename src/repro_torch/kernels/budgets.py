@@ -42,7 +42,12 @@ KERNEL_BUDGETS = {
     "hash_encode_fwd_kernel": KernelBudget(64, 0, 0),
     # the staged levels' slab: hash_encoding.ops.STAGE_BUDGET_BYTES
     "hash_encode_bwd_kernel": KernelBudget(64, 0, 200 * 1024),
-    "hash_encode_bwd_fx_kernel": KernelBudget(96, 0, 0),
+    # the deterministic route's scatter: a level's int64 slab in one block, or
+    # a block's share of a cluster's (hash_encoding.ops.FX_STAGE_BUDGET);
+    # 1,024-thread launch bounds; its yardstick (the design before the
+    # clusters) the same
+    "hash_encode_bwd_fx_kernel": KernelBudget(64, 0, 200 * 1024),
+    "hash_encode_bwd_fx_block_kernel": KernelBudget(64, 0, 200 * 1024),
     "fx_to_float_kernel": KernelBudget(64, 0, 0),
     "fused_mlp_fwd_kernel": KernelBudget(160, 0, H100_SMEM_OPTIN),
     "fused_mlp_bwd_kernel": KernelBudget(255, 0, H100_SMEM_OPTIN),
@@ -54,6 +59,8 @@ KERNEL_BUDGETS = {
     # 64 B of stack: the per-level resolutions of StepArgs, indexed at run
     # time in the sampling variants (16 B in the host-sampled ones)
     "train_step_kernel": KernelBudget(176, 64, H100_SMEM_OPTIN),
+    # the deterministic route's fused yardstick (the design before the split)
+    "train_step_det_fused_kernel": KernelBudget(176, 64, H100_SMEM_OPTIN),
     "adamw_kernel": KernelBudget(64, 0, 0),
     "flash_attention_kernel_bf16_wgmma": KernelBudget(168, 0, H100_SMEM_OPTIN),
     "flash_attention_kernel": KernelBudget(128, 0, H100_SMEM_OPTIN),

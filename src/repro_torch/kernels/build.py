@@ -54,10 +54,15 @@ SIGNATURES = {
     # grad_out, coords, res, staged (the two in host memory), part,
     # grad_tables, B, N, L, T, F, is_bf16, stream
     "repro_hash_encode_bwd": [_P] * 6 + [_L, _L, _I, _L, _I, _I, _P],
-    # the deterministic route: g, coords, res, staged (the two in host
-    # memory), part, grad_fx, flags, grad_tables, B, N, L, P, T, F, vmax,
-    # is_bf16, stream
+    # the deterministic route: g, coords, res, force (the two in host memory;
+    # force may be null), part, grad_fx, flags, grad_tables (or null), B, N,
+    # L, P, T, F, vmax, is_bf16, stream
     "repro_hash_encode_bwd_fx": [_P] * 8 + [_L, _L, _I, _L, _L, _I, _F, _I, _P],
+    # its yardstick: the same without force
+    "repro_hash_encode_bwd_fx_block": [_P] * 7 + [_L, _L, _I, _L, _L, _I, _F, _I, _P],
+    # res, force (host memory; force may be null), L, T, F, plan out ((L, 7)
+    # int64 in host memory)
+    "repro_hash_encode_bwd_fx_plan": [_P, _P, _I, _L, _I, _P],
     # res, staged, L, T, points per block out (host memory)
     "repro_hash_encode_bwd_points_per_block": [_P, _P, _I, _L, _P],
     # x, w_in, w_hid, w_out, g, part, dx, dw_in, dw_hid, dw_out, B, N, D_in,
@@ -71,10 +76,11 @@ SIGNATURES = {
     # the same, then clocks (8 uint64), stream
     "repro_fused_mlp_bwd_stages": [_P] * 10 + [_L, _L, _I, _I, _I, _I, _I, _I, _P, _P],
     # coords, target, volumes, seeds, tab, win, whid, wout, g_tab, g_win,
-    # g_whid, g_wout, loss_sum, g_feat, g_tab_fx, partials, flags, res (host
-    # memory), P, N, L, T, F, W, n_hidden, n_hid_slab, D_out, nx, ny, nz,
-    # ghost, n_uniform, sigma, sampling, is_bf16, det, stream
-    "repro_train_step": [_P] * 18 + [_L, _L, _I, _L, _I, _I, _I, _I, _I,
+    # g_whid, g_wout, loss_sum, g_feat, g_tab_fx, partials, flags, g_coords,
+    # clocks, res (host memory), P, N, L, T, F, W, n_hidden, n_hid_slab,
+    # D_out, nx, ny, nz, ghost, n_uniform, sigma, sampling, is_bf16, det,
+    # stream
+    "repro_train_step": [_P] * 20 + [_L, _L, _I, _L, _I, _I, _I, _I, _I,
                                      _L, _L, _L, _I, _L, _F, _I, _I, _I, _P],
     # P, N, L, F, W, n_hidden, D_out, det, shape out (4 int64 in host memory)
     "repro_train_step_shape": [_L, _L, _I, _I, _I, _I, _I, _I, _P],

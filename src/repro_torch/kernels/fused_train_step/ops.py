@@ -58,7 +58,7 @@ from repro_torch.kernels.fixed_point import (FX_BOUND, FX_OVER, FX_SHIFT,  # noq
                                               FixedPointOverflowError)
 from repro_torch.kernels.fused_mlp.ops import KERNEL_WIDTHS, SMEM_LIMIT
 from repro_torch.kernels.fused_train_step import ref as _ref
-from repro_torch.kernels.hash_encoding.ops import levels_arg
+from repro_torch.kernels.hash_encoding.ops import bwd_launch_plan, levels_arg
 from repro_torch.optim.adamw import AdamW, OptConfig, bias_corrections
 from repro_torch.precision import torch_dtype
 
@@ -239,22 +239,28 @@ def _grad_buffers(flat_p, device):
     return grads, buf[off:]
 
 
-def step_launch_plan(flat_p, n_hidden: int) -> list:
-    """The train step's launch at these shapes: ``[(kernel, dynamic shared
+def step_launch_plan(flat_p, n_hidden: int, resolutions: Sequence[int]) -> list:
+    """The train step's launches at these shapes: ``[(kernel, dynamic shared
     bytes)]``, from ``mlp_tile.cuh``'s ``mlp_pick_tile`` (the largest tile
     of 128, 64 and 32 rows whose weights, their gradients, the row tiles and
     a float a row for the loss fit ``SMEM_LIMIT``); the bytes are None when
-    no tile fits."""
+    no tile fits. Under :func:`deterministic` the split's fixed-point
+    scatter follows, one launch a level (``hash_encoding.ops.
+    bwd_launch_plan``, without the conversion)."""
     _, D_in, W = flat_p["win"].shape
     D_out = flat_p["wout"].shape[-1]
     odd = lambda n: n | 1
     n_w = D_in * W + (n_hidden - 1) * W * W + W * D_out
+    plan = [("train_step_kernel", None)]
     for tile in (128, 64, 32):
         smem = 4 * (2 * n_w + tile * (odd(D_in) + 2 * n_hidden * odd(W)
                                       + odd(D_out)) + tile)
         if smem <= SMEM_LIMIT:
-            return [("train_step_kernel", smem)]
-    return [("train_step_kernel", None)]
+            plan = [("train_step_kernel", smem)]
+            break
+    if deterministic():
+        plan += bwd_launch_plan(resolutions, flat_p["tab"].shape)[:-1]
+    return plan
 
 
 def train_step_cuda(flat_p, n_hidden: int, resolutions: Sequence[int], *,
@@ -270,17 +276,20 @@ def train_step_cuda(flat_p, n_hidden: int, resolutions: Sequence[int], *,
     int64, ``n_batch`` rows of which the first ``n_uniform`` uniform).
     Returns ``(grads {tab, win, whid, wout} f32, loss_sum (P,) f32)``, or
     under :func:`deterministic` on the card ``(DetGrads, None)`` (the
-    deterministic route; :func:`det_grads_to_float` gives the former).
-    Given ``cotangent_out`` ((P, N, L*F) f32), the feature cotangent is
-    written there and ``grads["tab"]`` stays zero: the first launch of the
-    two-launch split that ``hash_encode_bwd_cuda`` completes (a yardstick
-    of the fused scatter).
+    deterministic route, split in two: the kernel writes the feature
+    cotangent, and the drawn coordinates, to scratch, then the hash
+    backward's fixed-point scatter sums them; :func:`det_grads_to_float`
+    gives the former). Given ``cotangent_out`` ((P, N, L*F) f32), the
+    feature cotangent is written there and ``grads["tab"]`` (``tab_fx``)
+    stays zero: the first launch of the two-launch split that
+    ``hash_encode_bwd_cuda`` completes (a yardstick of the fused scatter).
 
     CPU tensors take the plain version (:func:`ref.train_step_grads_ref`,
     drawing the batch with the plain sampler); CUDA tensors launch
     ``repro_train_step`` or raise."""
     with build.kernel_region("train_step", flat_p["tab"],
-                             plan=lambda: step_launch_plan(flat_p, n_hidden)):
+                             plan=lambda: step_launch_plan(flat_p, n_hidden,
+                                                           resolutions)):
         sampling = volumes is not None
         dev = flat_p["tab"].device
         if dev.type == "cpu":
@@ -290,87 +299,141 @@ def train_step_cuda(flat_p, n_hidden: int, resolutions: Sequence[int], *,
             return _ref.train_step_grads_ref(flat_p, n_hidden, resolutions,
                                              coords, target,
                                              cotangent_out=cotangent_out)
-        P, L, T, F = flat_p["tab"].shape
-        _, D_in, W = flat_p["win"].shape
-        D_out = flat_p["wout"].shape[-1]
-        if dev.type != "cuda":
-            raise ValueError("train_step_cuda: the state must lie on a CUDA device")
-        dtype = flat_p["tab"].dtype
-        if dtype not in (torch.float32, torch.bfloat16) or \
-                any(flat_p[k].dtype != dtype for k in STATE_KEYS):
-            raise TypeError("train_step_cuda: the packed params must share one "
-                            "dtype, float32 or bfloat16, got "
-                            f"{[flat_p[k].dtype for k in STATE_KEYS]}")
-        if D_in != L * F or W not in KERNEL_WIDTHS or F not in (1, 2, 4, 8) or \
-                T >= 2**31 or len(resolutions) != L or D_out > 4:
-            raise ValueError(f"unsupported shapes: tab {tuple(flat_p['tab'].shape)}, "
-                             f"win {tuple(flat_p['win'].shape)}, D_out {D_out} "
-                             f"(W in {KERNEL_WIDTHS}, F in 1/2/4/8, D_out <= 4)")
-        state = [flat_p[k].contiguous() for k in STATE_KEYS]
-        if state[0].data_ptr() % 16:
-            raise ValueError("train_step_cuda: the tables must start on a 16-byte "
-                             "boundary (the kernel's vector loads)")
-        if sampling:
-            if volumes.ndim != 5 or volumes.shape[0] != P or \
-                    volumes.shape[4] != D_out or tuple(seeds.shape) != (P, 2):
-                raise ValueError(f"volumes (P,nx,ny,nz,{D_out}) and seeds (P,2) "
-                                 f"expected, got {tuple(volumes.shape)}, "
-                                 f"{tuple(seeds.shape)}")
-            if volumes.dtype != torch.float32:
-                raise TypeError(f"volumes must be float32, got {volumes.dtype}")
-            batch = [None, None, volumes.contiguous(),
-                     seeds.to(device=dev, dtype=torch.int64).contiguous()]
-            N = int(n_batch)
-            nx, ny, nz = (int(d) for d in volumes.shape[1:4])
-        else:
-            N = coords.shape[1]
-            if tuple(coords.shape) != (P, N, 3) or \
-                    tuple(target.shape) != (P, N, D_out):
-                raise ValueError(f"coords (P,N,3) and target (P,N,{D_out}) "
-                                 f"expected, got {tuple(coords.shape)}, "
-                                 f"{tuple(target.shape)}")
-            batch = [coords.float().contiguous(), target.float().contiguous(),
-                     None, None]
-            nx = ny = nz = 0
-        if cotangent_out is not None and (
-                tuple(cotangent_out.shape) != (P, N, L * F) or
-                cotangent_out.dtype != torch.float32 or cotangent_out.device != dev
-                or not cotangent_out.is_contiguous()):
-            raise ValueError(f"cotangent_out must be a contiguous ({P}, {N}, "
-                             f"{L * F}) float32 tensor on {dev}")
         det = deterministic()
-        res_h = levels_arg(resolutions)
-        ptr = lambda t: None if t is None else t.data_ptr()
-        if det:
-            if N >= 2**40:
-                raise ValueError("the deterministic route's fixed-point bound "
-                                 f"needs N < 2^40, got {N}")
-            groups = _step_shape(P, N, L, F, W, n_hidden, D_out, True)[3]
-            n_w = sum(flat_p[k][0].numel() for k in ("win", "wout")) + \
-                (flat_p["whid"][0].numel() if n_hidden > 1 else 0)
-            fx = torch.zeros(P * L * T * F + P, dtype=torch.int64, device=dev)
-            out = DetGrads(torch.empty((P, groups, n_w + 1), dtype=torch.float32,
-                                       device=dev),
-                           fx[:P * L * T * F].view(P, L, T, F), fx[P * L * T * F:])
-            outs = [None] * 5 + [ptr(cotangent_out), out.tab_fx.data_ptr(),
-                                 out.partials.data_ptr(), out.flags.data_ptr()]
-        else:
-            grads, loss_sum = _grad_buffers(flat_p, dev)
-            outs = [grads[k].data_ptr() for k in STATE_KEYS] + \
-                [loss_sum.data_ptr(), ptr(cotangent_out), None, None, None]
-        lib = build.library()
-        err = lib.repro_train_step(
-            *(ptr(t) for t in batch), *(t.data_ptr() for t in state), *outs,
-            ctypes.addressof(res_h), P, N, L, T, F, W,
-            n_hidden, flat_p["whid"].shape[1], D_out, nx, ny, nz, int(ghost),
-            int(n_uniform), float(sigma), int(sampling),
-            int(dtype == torch.bfloat16), int(det),
-            torch.cuda.current_stream(dev).cuda_stream)
-        build.check(err, "repro_train_step")
+        mode = 0 if not det else (2 if cotangent_out is not None else 1)
+        out = _launch_step(flat_p, n_hidden, resolutions, coords, target, volumes,
+                           seeds, n_batch, n_uniform, sigma, ghost, cotangent_out,
+                           mode)
+        dtype = flat_p["tab"].dtype
         train_step_cuda.launches += 1
         train_step_cuda.bf16_launches += int(dtype == torch.bfloat16)
         train_step_cuda.det_launches += int(det)
-        return (out, None) if det else (grads, loss_sum)
+        return out
+
+
+def train_step_det_with(flat_p, n_hidden: int, resolutions: Sequence[int], *,
+                        design: str = "split", clocks=None, **batch):
+    """The deterministic route on the card, for measurement (no count):
+    ``design`` "split" (the route: the kernel, then the fixed-point
+    scatter) or "fused" (its yardstick, the design before the split: the
+    adds inside the step, every level direct; W = 16, F = 4 only). Given
+    ``clocks`` ((4,) int64 zeros on the card; "fused", float32, sampling
+    only), the clocked instantiation adds each warp's cycles of the scatter
+    at the dense levels, at the hashed levels and of the rest of the step,
+    then its lifetime in ns. Returns ``(DetGrads, None)``."""
+    if design not in ("split", "fused") or (clocks is not None and design != "fused"):
+        raise ValueError(f"design 'split' or 'fused' (clocks: 'fused' only), got "
+                         f"{design!r}")
+    if flat_p["tab"].device.type != "cuda":
+        raise ValueError("train_step_det_with runs on the card")
+    mode = 1 if design == "split" else (3 if clocks is None else 4)
+    kw = dict(coords=None, target=None, volumes=None, seeds=None, n_batch=0,
+              n_uniform=0, sigma=0.0, ghost=1)
+    kw.update(batch)
+    return _launch_step(flat_p, n_hidden, resolutions, kw["coords"], kw["target"],
+                        kw["volumes"], kw["seeds"], kw["n_batch"], kw["n_uniform"],
+                        kw["sigma"], kw["ghost"], None, mode, clocks)
+
+
+def _launch_step(flat_p, n_hidden, resolutions, coords, target, volumes, seeds,
+                 n_batch, n_uniform, sigma, ghost, cotangent_out, mode, clocks=None):
+    """One ``repro_train_step`` call on the card (the checks, the outputs,
+    the launch); ``mode`` is its ``det``: 0 the default route, 1 the
+    deterministic split, 2 the split's kernel writing ``cotangent_out``
+    only, 3 the route's fused yardstick, 4 the same clocked."""
+    sampling = volumes is not None
+    dev = flat_p["tab"].device
+    P, L, T, F = flat_p["tab"].shape
+    _, D_in, W = flat_p["win"].shape
+    D_out = flat_p["wout"].shape[-1]
+    if dev.type != "cuda":
+        raise ValueError("train_step_cuda: the state must lie on a CUDA device")
+    dtype = flat_p["tab"].dtype
+    if dtype not in (torch.float32, torch.bfloat16) or \
+            any(flat_p[k].dtype != dtype for k in STATE_KEYS):
+        raise TypeError("train_step_cuda: the packed params must share one "
+                        "dtype, float32 or bfloat16, got "
+                        f"{[flat_p[k].dtype for k in STATE_KEYS]}")
+    if D_in != L * F or W not in KERNEL_WIDTHS or F not in (1, 2, 4, 8) or \
+            T >= 2**31 or len(resolutions) != L or D_out > 4:
+        raise ValueError(f"unsupported shapes: tab {tuple(flat_p['tab'].shape)}, "
+                         f"win {tuple(flat_p['win'].shape)}, D_out {D_out} "
+                         f"(W in {KERNEL_WIDTHS}, F in 1/2/4/8, D_out <= 4)")
+    state = [flat_p[k].contiguous() for k in STATE_KEYS]
+    if state[0].data_ptr() % 16:
+        raise ValueError("train_step_cuda: the tables must start on a 16-byte "
+                         "boundary (the kernel's vector loads)")
+    if sampling:
+        if volumes.ndim != 5 or volumes.shape[0] != P or \
+                volumes.shape[4] != D_out or tuple(seeds.shape) != (P, 2):
+            raise ValueError(f"volumes (P,nx,ny,nz,{D_out}) and seeds (P,2) "
+                             f"expected, got {tuple(volumes.shape)}, "
+                             f"{tuple(seeds.shape)}")
+        if volumes.dtype != torch.float32:
+            raise TypeError(f"volumes must be float32, got {volumes.dtype}")
+        batch = [None, None, volumes.contiguous(),
+                 seeds.to(device=dev, dtype=torch.int64).contiguous()]
+        N = int(n_batch)
+        nx, ny, nz = (int(d) for d in volumes.shape[1:4])
+    else:
+        N = coords.shape[1]
+        if tuple(coords.shape) != (P, N, 3) or \
+                tuple(target.shape) != (P, N, D_out):
+            raise ValueError(f"coords (P,N,3) and target (P,N,{D_out}) "
+                             f"expected, got {tuple(coords.shape)}, "
+                             f"{tuple(target.shape)}")
+        batch = [coords.float().contiguous(), target.float().contiguous(),
+                 None, None]
+        nx = ny = nz = 0
+    if cotangent_out is not None and (
+            tuple(cotangent_out.shape) != (P, N, L * F) or
+            cotangent_out.dtype != torch.float32 or cotangent_out.device != dev
+            or not cotangent_out.is_contiguous()):
+        raise ValueError(f"cotangent_out must be a contiguous ({P}, {N}, "
+                         f"{L * F}) float32 tensor on {dev}")
+    if mode >= 3 and (W != 16 or F != 4):
+        raise ValueError("the deterministic route's fused yardstick is built at "
+                         f"W = 16, F = 4 only, got W = {W}, F = {F}")
+    res_h = levels_arg(resolutions)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    g_coords = clk = None
+    if mode:
+        if N >= 2**40:
+            raise ValueError("the deterministic route's fixed-point bound "
+                             f"needs N < 2^40, got {N}")
+        groups = _step_shape(P, N, L, F, W, n_hidden, D_out, True)[3]
+        n_w = sum(flat_p[k][0].numel() for k in ("win", "wout")) + \
+            (flat_p["whid"][0].numel() if n_hidden > 1 else 0)
+        fx = torch.zeros(P * L * T * F + P, dtype=torch.int64, device=dev)
+        out = DetGrads(torch.empty((P, groups, n_w + 1), dtype=torch.float32,
+                                   device=dev),
+                       fx[:P * L * T * F].view(P, L, T, F), fx[P * L * T * F:])
+        g_feat = cotangent_out
+        if mode == 1:   # the split's scratch: the cotangent, the drawn coords
+            g_feat = torch.empty((P, N, L * F), dtype=torch.float32, device=dev)
+            if sampling:
+                g_coords = torch.empty((P, N, 3), dtype=torch.float32, device=dev)
+        if mode == 4:
+            if clocks is None or clocks.dtype != torch.int64 or \
+                    clocks.device != dev or clocks.numel() < 4:
+                raise ValueError("clocks must be 4 int64 on the card")
+            clk = clocks
+        outs = [None] * 5 + [ptr(g_feat), out.tab_fx.data_ptr(),
+                             out.partials.data_ptr(), out.flags.data_ptr()]
+    else:
+        grads, loss_sum = _grad_buffers(flat_p, dev)
+        outs = [grads[k].data_ptr() for k in STATE_KEYS] + \
+            [loss_sum.data_ptr(), ptr(cotangent_out), None, None, None]
+    lib = build.library()
+    err = lib.repro_train_step(
+        *(ptr(t) for t in batch), *(t.data_ptr() for t in state), *outs,
+        ptr(g_coords), ptr(clk), ctypes.addressof(res_h), P, N, L, T, F, W,
+        n_hidden, flat_p["whid"].shape[1], D_out, nx, ny, nz, int(ghost),
+        int(n_uniform), float(sigma), int(sampling),
+        int(dtype == torch.bfloat16), int(mode),
+        torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "repro_train_step")
+    return (out, None) if mode else (grads, loss_sum)
 
 
 #: launches of the kernel, of its bf16 instantiation and of its

@@ -18,6 +18,7 @@ order of the adds or on the partitions stacked beside one.
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import Sequence
 
 import torch
@@ -41,33 +42,126 @@ def level_rows(res: int, T: int) -> int:
     return min((int(res) + 1) ** 3, int(T))
 
 
-def bwd_plan(resolutions: Sequence[int], T: int, F: int, *,
-             fixed_point: bool = False) -> list:
+def bwd_plan(resolutions: Sequence[int], T: int, F: int) -> list:
     """The backward kernel's route per level: True (stage the level's
-    rows x F gradient slab in shared memory, flush it once per block)
-    exactly when the slab fits ``STAGE_BUDGET_BYTES``, else False (each row
-    goes straight to the device gradient: one vector atomic, or F 64-bit
-    ones). The slab's entries are float32, or int64 on the deterministic
-    route (``fixed_point``). A level uses (res+1)^3 rows of its table when
-    they fit T, else T."""
-    item = 8 if fixed_point else 4
-    return [level_rows(r, T) * F * item <= STAGE_BUDGET_BYTES for r in resolutions]
+    rows x F float32 gradient slab in shared memory, flush it once per
+    block) exactly when the slab fits ``STAGE_BUDGET_BYTES``, else False
+    (each row goes straight to the device gradient: one vector atomic). A
+    level uses (res+1)^3 rows of its table when they fit T, else T. The
+    deterministic route plans by :func:`fx_plan`."""
+    return [level_rows(r, T) * F * 4 <= STAGE_BUDGET_BYTES for r in resolutions]
+
+
+#: the deterministic route's scatter (``csrc/fx_scatter.cuh``): shared memory
+#: a block may give its int64 slab, the cluster sizes tried, and the threads
+#: and points of a slab block ('s', 'c') and of a direct one ('d')
+FX_STAGE_BUDGET = 200 * 1024
+FX_CLUSTERS = (2, 4, 8)
+FX_SLAB_THREADS, FX_DIRECT_THREADS = 1024, 512
+
+
+@dataclass(frozen=True)
+class FxLevel:
+    """One level's plan on the deterministic route (``fx_level_plan`` of
+    ``csrc/hash_encode.cu``): ``site`` 's' (its rows x F int64 slab in one
+    block's shared memory), 'c' (split over a cluster of ``cluster`` blocks,
+    each owning ``span`` consecutive rows, added to through distributed
+    shared memory) or 'd' (straight to device memory); ``points`` a block
+    takes, ``threads`` a block, ``smem`` the slab's bytes a block."""
+    site: str
+    cluster: int
+    rows: int
+    span: int
+    points: int
+    threads: int
+    smem: int
+
+    def grid_x(self, N: int) -> int:
+        """Blocks along x for N points a row (a cluster's multiple: padding
+        blocks carry no point); with the rows of the batch, the grid."""
+        unit = self.points * self.cluster
+        return -(-int(N) // unit) * self.cluster
+
+
+def _slab_points(span: int) -> int:
+    ppb = 1024
+    while ppb < span and ppb < 4096:
+        ppb *= 2
+    return ppb
+
+
+def fx_level(res: int, T: int, F: int, force=None) -> FxLevel:
+    """The plan of one level: the slab (rows x F x 8 bytes) in one block
+    when it fits ``FX_STAGE_BUDGET``, else across the fewest blocks of
+    ``FX_CLUSTERS`` whose share fits, else direct. ``force``: None (the
+    rule), 'd', 's', or ('c', cluster). Raises on a force that is no plan."""
+    rows = level_rows(res, T)
+    row_bytes = 8 * int(F)
+    if force is None:
+        site, cluster = "d", 1
+        if rows * row_bytes <= FX_STAGE_BUDGET:
+            site = "s"
+        else:
+            for c in FX_CLUSTERS:
+                if -(-rows // c) * row_bytes <= FX_STAGE_BUDGET:
+                    site, cluster = "c", c
+                    break
+    else:
+        site, cluster = (force, 1) if isinstance(force, str) else tuple(force)
+        if site in ("s", "d"):
+            cluster = 1
+        if site not in ("s", "c", "d") or (site == "c" and cluster not in FX_CLUSTERS):
+            raise ValueError(f"not a plan: {force!r} (a letter 's', 'd' or "
+                             f"('c', cluster in {FX_CLUSTERS}))")
+    if site == "d":
+        return FxLevel("d", 1, rows, 0, FX_DIRECT_THREADS, FX_DIRECT_THREADS, 0)
+    span = -(-rows // cluster)
+    return FxLevel(site, cluster, rows, span, _slab_points(span), FX_SLAB_THREADS,
+                   span * row_bytes)
+
+
+def fx_plan(resolutions: Sequence[int], T: int, F: int, force=None) -> list:
+    """Each level's :class:`FxLevel` (``force``: None, or one force a level
+    for :func:`fx_level`)."""
+    force = [None] * len(resolutions) if force is None else list(force)
+    return [fx_level(r, T, F, f) for r, f in zip(resolutions, force)]
+
+
+def fx_letters(plan) -> str:
+    """A plan's letters, a cluster's size after its 'c' ("sssc2c2")."""
+    return "".join(p.site + (str(p.cluster) if p.site == "c" else "") for p in plan)
+
+
+def fx_force_arg(force, L: int):
+    """A force as the C entries take it (L int32 in host memory: 0, the
+    letter's code, or 'c' + 256 x cluster), or None for the rule."""
+    if force is None:
+        return None
+    codes = []
+    for f in force:
+        if f is None:
+            codes.append(0)
+        elif isinstance(f, str):
+            codes.append(ord(f))
+        else:
+            codes.append(ord(f[0]) + 256 * int(f[1]))
+    if len(codes) != L:
+        raise ValueError(f"{len(codes)} forced letters for {L} levels")
+    return (ctypes.c_int * L)(*codes)
 
 
 def bwd_launch_plan(resolutions: Sequence[int], table_shape) -> list:
     """The backward's launches at these shapes, as ``(kernel, dynamic
     shared bytes)``: the per-level kernel with its largest staged slab
-    (``bwd_plan``; on the deterministic route the int64 slabs of
-    ``bwd_plan(..., fixed_point=True)``, then the conversion)."""
+    (``bwd_plan``); on the deterministic route one launch a level with its
+    slab's bytes (:func:`fx_plan`: 's' one block's, 'c' each block's of the
+    cluster, 'd' none), then the conversion."""
     _, _, T, F = (int(d) for d in table_shape)
-    det = torch.are_deterministic_algorithms_enabled()
-    item = 8 if det else 4
-    slabs = [level_rows(r, T) * F * item for r, staged in
-             zip(resolutions, bwd_plan(resolutions, T, F, fixed_point=det))
-             if staged]
-    if det:
-        return [("hash_encode_bwd_fx_kernel", max(slabs, default=0)),
-                ("fx_to_float_kernel", 0)]
+    if torch.are_deterministic_algorithms_enabled():
+        return [("hash_encode_bwd_fx_kernel", p.smem)
+                for p in fx_plan(resolutions, T, F)] + [("fx_to_float_kernel", 0)]
+    slabs = [level_rows(r, T) * F * 4 for r, staged in
+             zip(resolutions, bwd_plan(resolutions, T, F)) if staged]
     return [("hash_encode_bwd_kernel", max(slabs, default=0))]
 
 
@@ -155,9 +249,9 @@ def hash_encode_bwd_cuda(g: torch.Tensor, coords: torch.Tensor,
     Under ``torch.use_deterministic_algorithms(True)`` both take the
     deterministic route: the plain version
     :func:`ref.hash_encode_batched_bwd_fx_ref` on the CPU, and on the card
-    ``repro_hash_encode_bwd_fx`` (the adds as int64 fixed point, staged
-    per level as ``bwd_plan(..., fixed_point=True)`` says, then one
-    conversion launch; counted in
+    ``repro_hash_encode_bwd_fx`` (the adds as int64 fixed point, one
+    launch a level on its :func:`fx_plan` (one block's slab, a cluster's,
+    or direct), then one conversion launch; counted in
     ``det_launches`` too). A partition whose contribution leaves the bound
     raises :class:`~repro_torch.kernels.fixed_point.FixedPointOverflowError`
     (one host read of the flags a call)."""
@@ -213,30 +307,84 @@ def hash_encode_bwd_cuda(g: torch.Tensor, coords: torch.Tensor,
         return grad
 
 
-def _bwd_fx(lib, g, coords, res_h, part, part_d, B, N, P, L, T, F):
-    """The deterministic route's launch (see :func:`hash_encode_bwd_cuda`)."""
-    rows = max(int(torch.bincount(torch.as_tensor(part, dtype=torch.int64)
+def _fx_rows(part, P: int) -> int:
+    """The most batch rows any partition has in ``part`` (at least 1)."""
+    return max(int(torch.bincount(torch.as_tensor(part, dtype=torch.int64)
                                   .reshape(-1).cpu(), minlength=P).max()), 1)
+
+
+def _fx_launch(lib, entry, g, coords, res_h, part_d, rows, B, N, P, L, T, F,
+               force=None, convert=True):
+    """One launch of a deterministic route's C entry (``entry``: the
+    scatter layer's ``repro_hash_encode_bwd_fx`` or its yardstick
+    ``repro_hash_encode_bwd_fx_block``): ``(sums (P,L,T,F) int64, flags
+    (P,) int64, grad (P,L,T,F) f32 or None)``."""
     if N * rows >= 2**40:
         raise ValueError("the deterministic route's fixed-point bound needs "
                          f"N times a partition's rows < 2^40, got {N * rows}")
     buf = torch.zeros(P * L * T * F + P, dtype=torch.int64, device=g.device)
     sums, flags = buf[:P * L * T * F], buf[P * L * T * F:]
-    grad = torch.empty((P, L, T, F), dtype=torch.float32, device=g.device)
-    staged_h = (ctypes.c_int * L)(*bwd_plan(list(res_h), T, F, fixed_point=True))
-    err = lib.repro_hash_encode_bwd_fx(
-        g.data_ptr(), coords.data_ptr(), ctypes.addressof(res_h),
-        ctypes.addressof(staged_h), part_d.data_ptr(), sums.data_ptr(),
-        flags.data_ptr(), grad.data_ptr(),
-        B, N, L, P, T, F, fx.FX_BOUND / (N * rows),
-        int(g.dtype == torch.bfloat16),
+    grad = torch.empty((P, L, T, F), dtype=torch.float32, device=g.device) \
+        if convert else None
+    head = [g.data_ptr(), coords.data_ptr(), ctypes.addressof(res_h)]
+    force_h = fx_force_arg(force, L)   # kept alive through the call
+    if entry == "repro_hash_encode_bwd_fx":
+        head.append(None if force_h is None else ctypes.addressof(force_h))
+    err = getattr(lib, entry)(
+        *head, part_d.data_ptr(), sums.data_ptr(), flags.data_ptr(),
+        None if grad is None else grad.data_ptr(),
+        B, N, L, P, T, F, fx.FX_BOUND / (N * rows), int(g.dtype == torch.bfloat16),
         torch.cuda.current_stream(coords.device).cuda_stream)
-    build.check(err, "repro_hash_encode_bwd_fx")
+    build.check(err, entry)
+    return sums.view(P, L, T, F), flags, grad
+
+
+def _bwd_fx(lib, g, coords, res_h, part, part_d, B, N, P, L, T, F):
+    """The deterministic route's launch (see :func:`hash_encode_bwd_cuda`)."""
+    _, flags, grad = _fx_launch(lib, "repro_hash_encode_bwd_fx", g, coords, res_h,
+                                part_d, _fx_rows(part, P), B, N, P, L, T, F)
     hash_encode_bwd_cuda.launches += L
     hash_encode_bwd_cuda.bf16_launches += L * (g.dtype == torch.bfloat16)
     hash_encode_bwd_cuda.det_launches += L
     fx.raise_on_overflow(flags, "hash_encode_bwd_cuda")
     return grad
+
+
+def hash_encode_bwd_fx_with(g, coords, resolutions: Sequence[int], part,
+                            table_shape, *, design: str = "cluster", plan=None,
+                            convert: bool = True):
+    """The deterministic route's backward on the card, for measurement (no
+    count, no overflow raise): ``design`` "cluster" (the scatter layer,
+    ``plan`` None for the rule or one force a level, see :func:`fx_level`)
+    or "block" (its yardstick: the design before the clusters, F = 4).
+    Returns ``(sums (P,L,T,F) int64, flags (P,) int64, grad f32 or None)``."""
+    B, N, _ = coords.shape
+    P, L, T, F = (int(d) for d in table_shape)
+    if coords.device.type != "cuda" or g.device != coords.device:
+        raise ValueError("hash_encode_bwd_fx_with runs on the card")
+    if design not in ("cluster", "block") or (design == "block" and plan is not None):
+        raise ValueError(f"design 'cluster' (with a plan) or 'block', got {design!r}")
+    g, coords = g.contiguous(), coords.contiguous()
+    part_d = build.part_tensor(part, B, P, coords.device)
+    res_h = levels_arg(resolutions)
+    entry = "repro_hash_encode_bwd_fx" if design == "cluster" \
+        else "repro_hash_encode_bwd_fx_block"
+    return _fx_launch(build.library(), entry, g, coords, res_h, part_d,
+                      _fx_rows(part, P), B, N, P, L, T, F,
+                      force=plan, convert=convert)
+
+
+def native_fx_plan(resolutions: Sequence[int], T: int, F: int, force=None) -> list:
+    """The C library's own plan (``repro_hash_encode_bwd_fx_plan``), as
+    :class:`FxLevel` s: what :func:`fx_plan` mirrors."""
+    L = len(resolutions)
+    out = (ctypes.c_longlong * (7 * L))()
+    res_h, force_h = levels_arg(resolutions), fx_force_arg(force, L)
+    build.check(build.library().repro_hash_encode_bwd_fx_plan(
+        ctypes.addressof(res_h), None if force_h is None else ctypes.addressof(force_h),
+        L, T, F, ctypes.addressof(out)), "repro_hash_encode_bwd_fx_plan")
+    rows = [list(out[7 * l:7 * l + 7]) for l in range(L)]
+    return [FxLevel(chr(r[0]) if r[0] else "", *r[1:]) for r in rows]
 
 
 #: launches of the kernel, of its bf16-cotangent instantiation and of its
