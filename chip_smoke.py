@@ -580,7 +580,7 @@ def sass_counts(lib_path):
         if proc.returncode:
             raise SmokeFailure(f"cuobjdump failed: {err.strip()[:500]}")
         waited = time.perf_counter() - t0
-        out, cur, atoms = {}, None, None
+        out, cur, atoms, loads, run = {}, None, None, None, 0
         with open(listing) as f:
             for line in f:
                 if "Function : " in line:
@@ -589,13 +589,26 @@ def sass_counts(lib_path):
                     cur = None
                     if ops:
                         cur = out[name] = dict.fromkeys(ops[0], 0)
-                    atoms = None
+                    atoms = loads = None
                     if any(k in name for k in FX_SASS_KERNELS):
                         atoms = SASS_ATOMICS[name] = {}
-                elif cur is not None or atoms is not None:
+                    if any(k in name for k in SUM_SASS_KERNELS):
+                        loads = SASS_LOADS[name] = {"LDG": 0, "FADD": 0, "LDG run": 0}
+                        run = 0
+                elif cur is not None or atoms is not None or loads is not None:
                     for op in cur or ():
                         if op in line and re.search(rf"\b{op}\b", line):
                             cur[op] += 1
+                    if loads is not None:
+                        # loads issued since the last float add: a chain's
+                        # loads in flight ahead of its adds
+                        if re.search(r"\bLDG\.", line):
+                            loads["LDG"] += 1
+                            run += 1
+                            loads["LDG run"] = max(loads["LDG run"], run)
+                        elif re.search(r"\bFADD\b", line):
+                            loads["FADD"] += 1
+                            run = 0
                     if atoms is not None:
                         for op in re.findall(r"\b((?:ATOMS|ATOMG|ATOM|REDG|REDS|RED)"
                                              r"\.[A-Z0-9_.]+)", line):
@@ -3924,13 +3937,367 @@ def det_design_turns(label, new, old, new_syms, old_syms, tag, new_alone=None) -
             "yardstick": ((runs[1] + runs[2]) / 2, alone["yardstick"])}
 
 
-def det_probe() -> int:
-    """Phases 1, 2 and 6's parts of the deterministic route's scatter alone,
-    at the PRODUCTION256 training shapes on random data from seed 0: the
-    build with its registers and spills, the atomics in the SASS, the plan
-    checks, the yardstick checks, the fused yardstick's stage clock and the
-    hash backward's levels. ``python3 -c "import chip_smoke;
-    chip_smoke.det_probe()"`` on the card: the quickest look at the route."""
+# --------------------------------------------------------------------------- #
+# the deterministic route's ordered sums: AdamW's group rows, the MLP
+# backward's dW rows
+# --------------------------------------------------------------------------- #
+#: the kernels whose SASS phase 1 reads for their global loads and float
+#: adds (a substring of the mangled name)
+SUM_SASS_KERNELS = ("adamw_kernel", "adamw_det_kernel", "mlp_dw_reduce_kernel",
+                    "mlp_dw_ordered_kernel")
+#: each such instantiation's LDG and FADD counts and its longest run of
+#: loads issued between two float adds (filled by ``sass_counts``' function)
+SASS_LOADS = {}
+
+
+def sums_plan_checks() -> None:
+    """Phase 1: the Python mirrors of the ordered sums' host plans equal the
+    C plans at every config: AdamW's role split
+    (``fused_train_step.ops.adamw_det_plan`` against ``repro_adamw_det_plan``:
+    8 partitions, the config's tables and MLP at D_out 1 and 3, the state
+    aligned or not, the card's SMs and 132) and the MLP backward's
+    deterministic grid and dW rows (``fused_mlp.ops.det_plan`` against
+    ``det_shape``: f32 and bf16, the batch and a ragged 40,009 rows); prints
+    PRODUCTION256's."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.fused_mlp import ops as mops
+    from repro_torch.kernels.fused_train_step import ops as fts
+    lib = build.library()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n = 0
+    for name, hc in fx_configs().items():
+        L, T, F = hc.n_levels, hc.table_size, hc.n_features_per_level
+        W, H, D_in = hc.n_neurons, hc.n_hidden_layers, hc.n_levels * hc.n_features_per_level
+        for D_out in (1, 3):
+            cols = D_in * W + (H - 1) * W * W + W * D_out + 1
+            for aligned in (0, 1):
+                for k in (sms, 132):
+                    out = (ctypes.c_longlong * 3)()
+                    build.check(lib.repro_adamw_det_plan(8, L * T * F, cols, k, aligned,
+                                                         ctypes.addressof(out)),
+                                "repro_adamw_det_plan")
+                    py = fts.adamw_det_plan(8, L * T * F, cols, k, aligned)
+                    n += 1
+                    if tuple(out) != py:
+                        raise SmokeFailure(f"adamw_det plan {name} D_out={D_out} aligned="
+                                           f"{aligned} sms={k}: Python {py} != C {tuple(out)}")
+            for bf16 in (False, True):
+                for N in (hc.batch_size, 40_009):
+                    py = mops.det_plan(N, D_in, W, H, D_out, 2 if bf16 else 4)
+                    c = mops.det_shape(N, D_in, W, H, D_out, bf16)
+                    n += 1
+                    if py != c:
+                        raise SmokeFailure(f"fused_mlp_bwd_det plan {name} N={N} "
+                                           f"D_out={D_out} bf16={bf16}: Python {py} != C {c}")
+        if name == "PRODUCTION256":
+            cols = D_in * W + (H - 1) * W * W + W * hc.out_dim + 1
+            print(f"  adamw_det plan {name}: (chain blocks, table blocks, vec) "
+                  f"{fts.adamw_det_plan(8, L * T * F, cols, sms, 1)} on {sms} SMs; "
+                  f"fused_mlp_bwd_det plan (blocks a batch row, dW row floats) "
+                  f"{mops.det_plan(hc.batch_size, D_in, W, H, hc.out_dim, 4)} f32, "
+                  f"{mops.det_plan(hc.batch_size, D_in, W, H, hc.out_dim, 2)} bf16")
+    print(f"  ordered sums' plans: Python mirror = C plan in {n} cases")
+
+
+def sum_sass_lines() -> None:
+    """Phase 1: the ordered sums' loads in the SASS (``SASS_LOADS``)."""
+    for fn, c in sorted(SASS_LOADS.items()):
+        print(f"  SASS loads {fn}: {c}")
+
+
+def adam_operands(params, H, master: bool):
+    """AdamW's state for a clock: a copy of ``params`` (bf16 with a float32
+    master where ``master``), moments from seed 1, and a (P, 4) schedule
+    row of a mid-training step (every partition live)."""
+    import torch
+    dev = params["tab"].device
+    gen = torch.Generator(device=dev).manual_seed(1)
+    P = params["tab"].shape[0]
+    p = {k: v.float().clone() for k, v in params.items()}
+    m = {k: torch.randn(v.shape, generator=gen, device=dev) * 1e-3 for k, v in p.items()}
+    v = {k: torch.rand(v.shape, generator=gen, device=dev) * 1e-6 for k, v in p.items()}
+    sched = torch.tensor([[1e-2, 0.4, 0.01, 1.0]] * P, device=dev)
+    sched[P // 2, 3] = 0.0                  # one converged (gated) partition
+    kw = dict(beta1=0.9, beta2=0.99, eps=1e-15, weight_decay=0.0, n_hidden=H)
+    if master:
+        return {k: x.to(torch.bfloat16) for k, x in p.items()}, m, v, p, sched, kw
+    return p, m, v, None, sched, kw
+
+
+def adamw_det_clock(tag, params, det, H, n_valid, master: bool = False,
+                    one_row: bool = True) -> dict:
+    """Row 6b-d (6b-b-d with the master) taken apart on the card, at the
+    train step's group rows and fixed-point table gradient ``det``: kernel
+    ms a launch (profiler), with the L2 flushed before each launch and from
+    L2, in turns (a, b, ..., b, a), of the route (``adamw_det_kernel``) and
+    of its yardstick (``adamw_kernel<MASTER, true>``), each as it is and on
+    the first group row alone (each MLP and loss chain one load: the time
+    its table stream takes), and of row 6b (the default kernel on
+    ``det_grads_to_float``'s float gradients: 4-byte table reads, no group
+    rows). A design less its one-row variant is its chains' tail; the
+    one-row variant less row 6b is the int64 table reads' (and, in the
+    yardstick, the group search's) cost. ``one_row`` False leaves the
+    one-row variants out. Returns {variant: {"flushed": ms, "L2": ms}}."""
+    import torch
+    from repro_torch.kernels.fused_train_step import ops as fts
+    dev = params["tab"].device
+    p, m, v, mw, sched, kw = adam_operands(params, H, master)
+    grads, loss_sum = fts.det_grads_to_float(det, params, H)
+    grads = {k: g.contiguous() for k, g in grads.items()}
+    one = fts.DetGrads(det.partials[:, :1].contiguous(), det.tab_fx, det.flags)
+    tp = "true" if master else "false"
+    run = lambda g, ls: (lambda: fts.adamw_apply_cuda(p, m, v, g, sched, ls,
+                                                      n_valid=n_valid, flat_mw=mw, **kw))
+    yard = lambda g: (lambda: fts.adamw_det_with(p, m, v, g, sched, design="grid",
+                                                 n_valid=n_valid, flat_mw=mw, **kw))
+    variants = {"route": (under_det(run(det, None)), f"adamw_det_kernel<{tp},"),
+                "route, one group row": (under_det(run(one, None)),
+                                         f"adamw_det_kernel<{tp},"),
+                "yardstick": (yard(det), f"adamw_kernel<{tp}, true>"),
+                "yardstick, one group row": (yard(one), f"adamw_kernel<{tp}, true>"),
+                "6b (float gradients)": (run(grads, loss_sum),
+                                         f"adamw_kernel<{tp}, false>")}
+    if not one_row:
+        variants = {k: v for k, v in variants.items() if "one group row" not in k}
+    flush = torch.empty(64 << 20, device=dev)   # 256 MB, 5x the L2
+    out = {k: {} for k in variants}
+    order = list(variants) + list(variants)[::-1]
+    name = f"adamw_det{'_master' if master else ''}"
+    for cache in ("flushed", "L2"):
+        got = {k: [] for k in variants}
+        for k in order:
+            fn, symbol = variants[k]
+            call = (lambda: (flush.zero_(), fn())) if cache == "flushed" else fn
+            ms, _ = per_launch_ms(call, symbol, calls=5)
+            got[k].append(ms)
+        for k, xs in got.items():
+            out[k][cache] = None if None in xs else sum(xs) / len(xs)
+        print(f"  {name} clock, "
+              f"{'L2 flushed before each launch' if cache == 'flushed' else 'from L2'}"
+              f": " + "; ".join(f"{k} {[None if x is None else round(x, 4) for x in xs]}"
+                                for k, xs in got.items())
+              + f" ms a launch (profiler, in turns) [{tag}]")
+    r = lambda k, c: out[k][c]
+    if one_row and all(r(k, c) is not None for k in out for c in ("flushed", "L2")):
+        base = "6b (float gradients)"
+        for c in ("flushed", "L2"):
+            print(f"    {c}: " + "; ".join(
+                f"{d}: {r(d, c):.4f} ms, its chains' tail "
+                f"{r(d, c) - r(d + ', one group row', c):.4f}, its table reads over "
+                f"row 6b's {r(d + ', one group row', c) - r(base, c):.4f}"
+                for d in ("route", "yardstick")) + f"; row 6b {r(base, c):.4f} ms")
+    del flush
+    return out
+
+
+def mlp_det_clock(tag, x, ws, g, part, grids=("default", "det")) -> dict:
+    """Row 3-d (3b-d under bf16) taken apart on the card, each launch read
+    apart by the profiler, in turns (default, route, yardstick, yardstick,
+    route, default): the route's two launches (the backward on the
+    deterministic grid, then ``mlp_dw_ordered_kernel``), its yardstick's
+    (the same backward, then ``mlp_dw_reduce_kernel``) and the default
+    route's backward; then the backward's stage clock on ``grids`` (W =
+    16; "det": the deterministic grid). Returns each launch's mean ms."""
+    from repro_torch.kernels.fused_mlp.ops import (BWD_STAGES, fused_mlp_bwd_cuda,
+                                                   fused_mlp_bwd_det_with,
+                                                   fused_mlp_bwd_stage_cycles)
+    tp = "__nv_bfloat16" if x.dtype.itemsize == 2 else "float"
+    body = f"fused_mlp_bwd_kernel<{tp},"
+    call = lambda: fused_mlp_bwd_cuda(x, ws, g, part)
+    yard = lambda: fused_mlp_bwd_det_with(x, ws, g, part, design="reduce")
+    reads = {"default": (call, body), "route backward": (under_det(call), body),
+             "route sum": (under_det(call), "mlp_dw_ordered_kernel"),
+             "yardstick backward": (yard, body),
+             "yardstick sum": (yard, "mlp_dw_reduce_kernel")}
+    turns = {k: [] for k in reads}
+    for k in list(reads) + list(reads)[::-1]:
+        fn, symbol = reads[k]
+        turns[k].append(per_launch_ms(fn, symbol)[0])
+    out = {k: None if None in xs else sum(xs) / len(xs) for k, xs in turns.items()}
+    print(f"  {'fused_mlp_bwd_det_bf16' if tp != 'float' else 'fused_mlp_bwd_det'} clock: "
+          + "; ".join(f"{k} {[None if v is None else round(v, 4) for v in xs]}"
+                      for k, xs in turns.items())
+          + f" ms a launch (profiler, in turns) [{tag}]")
+    if ws[0].shape[-1] == 16:
+        passes = x.shape[0] * -(-x.shape[1] // 32) * 2
+        for grid in grids:
+            *cyc, ns = fused_mlp_bwd_stage_cycles(x, ws, g, part, grid=grid)
+            total = max(1, sum(cyc))
+            print(f"    stage clock, {grid} grid: " + ", ".join(
+                f"{st} {c / total:.3f}" for st, c in zip(BWD_STAGES, cyc))
+                + f"; {total / passes:.0f} warp-cycles a 16-row pass, lifetimes "
+                f"{ns / 1e6:.3f} warp-ms, {total / max(1, ns):.3f} GHz")
+    return out
+
+
+def bits(t):
+    """``t``'s bits as integers (NaN payloads compared too)."""
+    import torch
+    return t.contiguous().view({8: torch.int64, 4: torch.int32,
+                                2: torch.int16}[t.element_size()])
+
+
+def same_bits(a, b) -> bool:
+    import torch
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(bits(a), bits(b))
+
+
+def synth_det(params, H, N, dev, seed, flagged=None):
+    """A ``DetGrads`` for ``params`` at batch ``N`` (the group count of the
+    train step's launch at those shapes): group rows N(0, 1e-3), fixed-point
+    table entries within 2^40 of 0, and partition ``flagged``'s flag set."""
+    import torch
+    from repro_torch.kernels.fused_train_step import ops as fts
+    P, L, T, F = params["tab"].shape
+    _, D_in, W = params["win"].shape
+    D_out = params["wout"].shape[-1]
+    groups = fts._step_shape(P, N, L, F, W, H, D_out, True)[3]
+    n_w = D_in * W + (H - 1) * W * W + W * D_out
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    flags = torch.zeros(P, dtype=torch.int64, device=dev)
+    if flagged is not None:
+        flags[flagged] = 1
+    return fts.DetGrads(
+        torch.randn((P, groups, n_w + 1), generator=gen, device=dev) * 1e-3,
+        torch.randint(-2**40, 2**40, (P, L, T, F), generator=gen, device=dev), flags)
+
+
+def adamw_yardstick_equal(label, params, det, H, master, n_valid, unaligned=False) -> None:
+    """AdamW's route (``adamw_det_kernel``) against its yardstick (the
+    grid-stride ``adamw_kernel<MASTER, true>``) on the same state and
+    ``det``: params, moments, master, loss and overflow bit for bit
+    (``unaligned``: the table state 4 bytes off a 16-byte boundary, the
+    scalar path)."""
+    import torch
+    from repro_torch.kernels.fused_train_step import ops as fts
+    outs = []
+    for design in ("roles", "grid"):
+        p, m, v, mw, sched, kw = adam_operands(params, H, master)
+        if unaligned:
+            for tree in (p, m, v) + ((mw,) if master else ()):
+                t = tree["tab"]
+                off = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+                tree["tab"] = off.view(t.shape).copy_(t)
+        over = torch.zeros(params["tab"].shape[0], dtype=torch.int64,
+                           device=params["tab"].device)
+        loss = fts.adamw_det_with(p, m, v, det, sched, design=design, n_valid=n_valid,
+                                  flat_mw=mw, overflow=over, **kw)
+        outs.append([loss, over] + [t[k] for t in (p, m, v) + ((mw,) if master else ())
+                                    for k in fts.STATE_KEYS])
+    same = all(same_bits(a, b) for a, b in zip(*outs))
+    print(f"  adamw_det{'_master' if master else ''} {label}: the route = its "
+          f"yardstick bit for bit (params, moments{', master' if master else ''}, "
+          f"loss, overflow) {same}")
+    if not same:
+        raise SmokeFailure(f"adamw_det {label}: the route differs from its yardstick")
+
+
+def mlp_yardstick_equal(label, x, ws, g, part) -> None:
+    """The MLP backward's ordered sum (``mlp_dw_ordered_kernel``) against
+    its yardstick (``mlp_dw_reduce_kernel``) on the same operands: dx and
+    every dW bit for bit."""
+    from repro_torch.kernels.fused_mlp.ops import fused_mlp_bwd_det_with
+    a = fused_mlp_bwd_det_with(x, ws, g, part, design="ordered")
+    b = fused_mlp_bwd_det_with(x, ws, g, part, design="reduce")
+    same = same_bits(a[0], b[0]) and all(same_bits(u, v) for u, v in zip(a[1], b[1]))
+    print(f"  fused_mlp_bwd_det {label}: the route's ordered sum = its "
+          f"yardstick bit for bit (dx, dW) {same}")
+    if not same:
+        raise SmokeFailure(f"fused_mlp_bwd_det {label}: the route differs from its "
+                           f"yardstick")
+
+
+def sums_yardstick_checks(dev, dets, params) -> None:
+    """Phase 2: the ordered sums' new designs against their yardsticks bit
+    for bit, f32 and bf16 (with the master): AdamW on the train step's own
+    group rows (``dets``) and on drawn ones at PRODUCTION256, ABLATION's
+    widths (W = 32, 64), a ragged N of 40,009, H = 1 (the dummy hidden
+    slab), D_out = 3, a flagged partition and an unaligned table state; the
+    MLP backward at the same shapes and with batch rows repeating a
+    partition (and one partition no row reads)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.dvnr import PRODUCTION256
+    cfg, P = PRODUCTION256, 8
+    H, Nb = cfg.n_hidden_layers, cfg.batch_size
+    p16 = {k: v.to(torch.bfloat16) for k, v in params.items()}
+    adamw_yardstick_equal("PRODUCTION256, the train step's rows", params, dets["f32"],
+                          H, False, Nb)
+    adamw_yardstick_equal("PRODUCTION256, the train step's rows", p16, dets["bf16"],
+                          H, True, Nb)
+    cases = [("PRODUCTION256", {}, Nb, None, False),
+             ("W=32", {"n_neurons": 32}, Nb, None, False),
+             ("W=64", {"n_neurons": 64}, Nb, None, False),
+             ("ragged N=40,009", {}, 40_009, None, False),
+             ("H=1", {"n_hidden_layers": 1}, Nb, None, False),
+             ("D_out=3", {"out_dim": 3}, Nb, None, False),
+             ("partition 5 flagged", {}, Nb, 5, False),
+             ("unaligned table state", {}, Nb, None, True)]
+    for i, (label, over, N, flagged, unaligned) in enumerate(cases):
+        hc = dataclasses.replace(cfg, **over)
+        pr = step_params(hc, P, dev, seed=10 + i)
+        det = synth_det(pr, hc.n_hidden_layers, N, dev, seed=20 + i, flagged=flagged)
+        for master in (False, True):
+            adamw_yardstick_equal(label, pr, det, hc.n_hidden_layers, master, N,
+                                  unaligned)
+        del pr, det
+    gen = torch.Generator(device=dev).manual_seed(30)
+    mcases = [("PRODUCTION256", {}, Nb, list(range(P))),
+              ("W=32", {"n_neurons": 32}, Nb, list(range(P))),
+              ("W=64", {"n_neurons": 64}, Nb, list(range(P))),
+              ("ragged N=40,009", {}, 40_009, list(range(P))),
+              ("H=1", {"n_hidden_layers": 1}, Nb, list(range(P))),
+              ("D_out=3", {"out_dim": 3}, Nb, list(range(P))),
+              ("batch rows repeating a partition", {}, Nb // 2,
+               [0, 1, 1, 3, 0, 2, 1, 3, 3, 0])]
+    for i, (label, over, N, part) in enumerate(mcases):
+        hc = dataclasses.replace(cfg, **over)
+        pr = step_params(hc, P, dev, seed=40 + i)
+        Hh, D_in = hc.n_hidden_layers, hc.n_levels * hc.n_features_per_level
+        ws = [pr["win"], *pr["whid"].unbind(1)[:Hh - 1], pr["wout"]]
+        B = len(part)
+        x = torch.rand((B, N, D_in), generator=gen, device=dev) * 2 - 1
+        g = torch.randn((B, N, hc.out_dim), generator=gen, device=dev) * 1e-3
+        for dt in (torch.float32, torch.bfloat16):
+            mlp_yardstick_equal(f"{label}, {'bf16' if dt != torch.float32 else 'f32'}",
+                                x.to(dt), [w.to(dt) for w in ws], g.to(dt), part)
+        del pr, ws, x, g
+    torch.cuda.synchronize()
+
+
+def sums_probe(tag, dev, params, dets, cfg) -> None:
+    """The ordered sums' clock at PRODUCTION256's shapes: AdamW on the
+    route's group rows (``dets``: the f32 and bf16 train steps'
+    ``DetGrads``), f32 and with the master, and the MLP backward on 8
+    partitions x the batch (inputs from seed 3)."""
+    import torch
+    H, Nb = cfg.n_hidden_layers, cfg.batch_size
+    adamw_det_clock(tag, params, dets["f32"], H, Nb)
+    adamw_det_clock(tag, params, dets["bf16"], H, Nb, master=True)
+    P = params["tab"].shape[0]
+    D_in = cfg.n_levels * cfg.n_features_per_level
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.rand((P, Nb, D_in), generator=gen, device=dev) * 2 - 1
+    ws = [params["win"], *params["whid"].unbind(1)[:H - 1], params["wout"]]
+    g = torch.randn((P, Nb, params["wout"].shape[-1]), generator=gen, device=dev) * 1e-3
+    rows = list(range(P))
+    mlp_det_clock(tag, x, ws, g, rows)
+    mlp_det_clock(tag, x.to(torch.bfloat16), [w.to(torch.bfloat16) for w in ws],
+                  g.to(torch.bfloat16), rows)
+
+
+def det_probe(families=("scatter", "sums")) -> int:
+    """Phases 1, 2 and 6's parts of the deterministic route alone, at the
+    PRODUCTION256 training shapes on random data from seed 0: the build
+    with its registers and spills, the SASS (the scatter's atomics, the
+    ordered sums' loads), and for ``"scatter"`` the plan checks, the
+    yardstick checks, the fused yardstick's stage clock and the hash
+    backward's levels, for ``"sums"`` the ordered sums' clock
+    (``sums_probe``). ``python3 -c "import sys, chip_smoke;
+    sys.exit(chip_smoke.det_probe())"`` on the card: the quickest look at
+    the route."""
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
     import torch
@@ -3946,12 +4313,12 @@ def det_probe() -> int:
     build.library()
     print(f"  built in {time.perf_counter() - t0:.1f} s (nvcc {build.build_seconds:.1f} s)")
     for fn, regs, st, ld, smem, stack in ptxas_usage(build.build_log):
-        if any(k in fn for k in FX_SASS_KERNELS) or ("train_step_kernel" in fn and
-                                                      "Lb1ELb1E" in fn):
+        if any(k in fn for k in FX_SASS_KERNELS + SUM_SASS_KERNELS) or \
+                ("train_step_kernel" in fn and "Lb1ELb1E" in fn) or \
+                "fused_mlp_bwd_kernel" in fn:
             print(f"    {regs:4d} registers, spill stores {st} B, loads {ld} B, "
                   f"static shared {smem} B, stack {stack} B  {fn}")
     sass = sass_counts(build.build())
-    fx_plan_checks()
     rng = np.random.default_rng(0)
     P, Nb = 8, cfg.batch_size
     L, T, F = cfg.n_levels, cfg.table_size, cfg.n_features_per_level
@@ -3963,21 +4330,33 @@ def det_probe() -> int:
     draw = dict(n_batch=Nb, n_uniform=Nb - n_boundary(Nb, cfg.boundary_lambda),
                 sigma=cfg.boundary_sigma, ghost=1)
     params = step_params(cfg, P, dev, seed=0)
-    coords, _ = fts_ref.sample_batch(vols, tseeds, n_batch=Nb,
-                                     boundary_lambda=cfg.boundary_lambda,
-                                     sigma=cfg.boundary_sigma, ghost=1)
-    g_feat = torch.as_tensor(rng.standard_normal((P, Nb, L * F)) * 1e-5,
-                             dtype=torch.float32, device=dev)
-    fx_yardstick_checks(g_feat, coords, res, (P, L, T, F), rng, dev)
     kw = dict(volumes=vols, seeds=tseeds, **draw)
+    dets = {}
     for label, pr in (("f32", params), ("bf16", {k: v.to(torch.bfloat16)
                                                  for k, v in params.items()})):
-        got, _ = fts.train_step_det_with(pr, H, res, design="split", **kw)
-        det_yardstick_equal(f"{label}, in-kernel sampling", got, pr, H, res, **kw)
-    det_step_clock(tag, params, H, res, **kw)
-    fx_level_times(tag, g_feat, coords, res, list(range(P)), (P, L, T, F))
+        dets[label], _ = fts.train_step_det_with(pr, H, res, design="split", **kw)
+    if "scatter" in families:
+        fx_plan_checks()
+        coords, _ = fts_ref.sample_batch(vols, tseeds, n_batch=Nb,
+                                         boundary_lambda=cfg.boundary_lambda,
+                                         sigma=cfg.boundary_sigma, ghost=1)
+        g_feat = torch.as_tensor(rng.standard_normal((P, Nb, L * F)) * 1e-5,
+                                 dtype=torch.float32, device=dev)
+        fx_yardstick_checks(g_feat, coords, res, (P, L, T, F), rng, dev)
+        for label, pr in (("f32", params), ("bf16", {k: v.to(torch.bfloat16)
+                                                     for k, v in params.items()})):
+            det_yardstick_equal(f"{label}, in-kernel sampling", dets[label], pr, H,
+                                res, **kw)
+        det_step_clock(tag, params, H, res, **kw)
+        fx_level_times(tag, g_feat, coords, res, list(range(P)), (P, L, T, F))
+    if "sums" in families:
+        sums_plan_checks()
+        sums_yardstick_checks(dev, dets, params)
+        sums_probe(tag, dev, params, dets, cfg)
     sass_checks(sass)
-    fx_sass_checks()
+    if "scatter" in families:
+        fx_sass_checks()
+    sum_sass_lines()
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
@@ -4315,17 +4694,19 @@ def dvnr_phases():
     # measurement of phase 6 and not held)
     spilled = [fn for fn, _, st, ld, *_ in usage if (st or ld) and (any(
         k in fn for k in ("fused_mlp_fwd_kernel", "fused_mlp_bwd_kernel",
-                          "inr_forward_kernel", "inr_forward_grid_kernel")
+                          "inr_forward_kernel", "inr_forward_grid_kernel",
+                          "adamw_det_kernel", "mlp_dw_ordered_kernel")
         + FX_SASS_KERNELS) or re.search(r"train_step_kernelI.*Lb1EEEv", fn))
         and "StageClock" not in fn]
     if spilled:
         raise SmokeFailure(f"MLP forward / backward, INR inference, deterministic "
-                           f"scatter or train-step kernels that spill: {spilled}")
+                           f"scatter, AdamW or train-step kernels that spill: {spilled}")
     sass = sass_counts(build.build())
     t0 = time.perf_counter()
     inr_layout_checks()
     print(f"  inr_forward layout checks: {time.perf_counter() - t0:.1f} s")
     fx_plan_checks()
+    sums_plan_checks()
     # ---------------------------------------------------------------- 2
     phase_header("== phase 2: kernels against their plain versions "
           f"(PRODUCTION256: L={L} F={F} T={T} res={res})")
@@ -4605,6 +4986,7 @@ def dvnr_phases():
             for i, part_name in enumerate(("param", "m", "v", "master")[:4 if master else 3]):
                 errs[name] = max(errs[name], check(
                     f"{name} {k} {part_name}", ks[i][k], ps[i][k], atol=0.0))
+    sums_yardstick_checks(dev, {"f32": det32, "bf16": det16}, tparams)
     del det32, det16
     torch.cuda.synchronize()
     flash_err = flash_checks(dev)
@@ -4785,6 +5167,7 @@ def dvnr_phases():
     mixed_policy_checks(tparts, cfg, train_wrappers)
     sass_checks(sass)                 # phase 1's, its listing made meanwhile
     fx_sass_checks()
+    sum_sass_lines()
 
     # ---------------------------------------------------------------- 6
     phase_header(f"== phase 6: per-kernel times at the tick's shapes [{tag}]")
@@ -5187,7 +5570,7 @@ def dvnr_phases():
              sched, **adam_kw),
          None, n_par * 6 * 4 + n_tab * 8 + part_floats * 4 + TP * 4 * 4,
          (n_par * 15 + part_floats, 0),
-         det_launch["f32"]["adamw_apply"], TRAIN_STEPS, "adamw_kernel<false, true>"),
+         det_launch["f32"]["adamw_apply"], TRAIN_STEPS, "adamw_det_kernel<false,"),
         # the bf16 policy's kernels: bf16 operands read, float32 gradients
         # written; the MLP's products take bf16 operands and sum in float32,
         # which the card runs at its bf16 peak, the rest is float32 work
@@ -5233,7 +5616,7 @@ def dvnr_phases():
              fts.det_grads_to_float(det_g16, tparams16, H)[0], sched, **adam_kw),
          None, n_par * (3 * 4 + 3 * 4 + 2) + n_tab * 8 + part_floats * 4 + TP * 4 * 4,
          (n_par * 15 + part_floats, 0),
-         det_launch["bf16"]["adamw_apply"], TRAIN_STEPS, "adamw_kernel<true, true>"),
+         det_launch["bf16"]["adamw_apply"], TRAIN_STEPS, "adamw_det_kernel<true,"),
     ]
     # the kernels' own device time per launch (the CUDA-event times above
     # span back-to-back wrapper calls, host work included)
@@ -5301,7 +5684,7 @@ def dvnr_phases():
          lambda: mlp_bwd_chain(feats_t, ws_t, g_out),
          rows * (2 * D_in + D_out) * 4 + 2 * TP * n_w * 4, (mlp_flops, 0),
          ud["f32"]["fused_mlp_bwd"], DET_UNFUSED_STEPS,
-         [("fused_mlp_bwd_kernel<float,", 1), ("mlp_dw_reduce_kernel", 1)],
+         [("fused_mlp_bwd_kernel<float,", 1), ("mlp_dw_ordered_kernel", 1)],
          "fused_mlp_bwd"),
         ("fused_mlp_bwd_det_bf16",
          under_det(lambda: fused_mlp_bwd_cuda(feats16, ws16, g_out16, rows_t)),
@@ -5309,7 +5692,7 @@ def dvnr_phases():
          lambda: mlp_bwd_chain(feats16, ws16, g_out16),
          rows * (2 * D_in + D_out) * 2 + TP * n_w * (2 + 4), (0, mlp_flops),
          ud["bf16"]["fused_mlp_bwd"], DET_UNFUSED_STEPS,
-         [("fused_mlp_bwd_kernel<__nv_bfloat16,", 1), ("mlp_dw_reduce_kernel", 1)],
+         [("fused_mlp_bwd_kernel<__nv_bfloat16,", 1), ("mlp_dw_ordered_kernel", 1)],
          "fused_mlp_bwd_bf16"),
     ]
     for name, kern, plain_fn, lib_fn, nbytes, (flops, bf16_flops), launches, \
@@ -5356,6 +5739,12 @@ def dvnr_phases():
                  ("fx_to_float_kernel", 1)], tag)
             if tp == "float":
                 fx_level_times(tag, g_feat, coords_t, res, rows_t, (TP, L, T, F))
+        if name.startswith("fused_mlp_bwd_det"):
+            # the route's launches beside its yardstick's and the default
+            # route's, in turns, and the stage clock on the route's grid
+            bf = name.endswith("bf16")
+            margs = (feats16, ws16, g_out16) if bf else (feats_t, ws_t, g_out)
+            mlp_det_clock(tag, *margs, rows_t, grids=("det",))
         kernels.append(row)
     # where the MLP backward's time goes, at the main path's shapes: its
     # clocked instantiation's cycles by stage (each a share of the warps'
@@ -5515,21 +5904,18 @@ def dvnr_phases():
     cold16 = lambda: fts.adamw_apply_cuda(pk16, mk16, vk16, got_g16, sched,
                                           got_loss16, n_valid=Nb, flat_mw=wk16,
                                           **adam_kw)
-    cold_det = under_det(lambda: fts.adamw_apply_cuda(
-        pkd, mkd, vkd, det_g, sched, None, n_valid=Nb, **adam_kw))
-    cold_det16 = under_det(lambda: fts.adamw_apply_cuda(
-        pkd16, mkd16, vkd16, det_g16, sched, None, n_valid=Nb, flat_mw=wkd16,
-        **adam_kw))
     for label, fn, symbol in (("adamw_apply", cold, "adamw_kernel<false, false>"),
-                              ("adamw_apply_master", cold16, "adamw_kernel<true, false>"),
-                              ("adamw_det", cold_det, "adamw_kernel<false, true>"),
-                              ("adamw_det_master", cold_det16,
-                               "adamw_kernel<true, true>")):
+                              ("adamw_apply_master", cold16, "adamw_kernel<true, false>")):
         _, dev_cold, _, _ = profile_tick(lambda: [(flush.zero_(), fn()) for _ in range(5)])
         kc = [t / n for key, (t, n) in dev_cold if symbol in key]
         print(f"  {label} with the L2 flushed before each launch: kernel alone "
               f"{f'{kc[0]:.4f} ms' if kc else 'not measured'} (profiler) [{tag}]")
-    del flush, det_g, det_g16
+    # rows 6b-d and 6b-b-d beside their yardstick, in turns, with the L2
+    # flushed and from L2, and taken apart (adamw_det_clock)
+    del flush
+    adamw_det_clock(tag, tparams, det_g, H, Nb, one_row=False)
+    adamw_det_clock(tag, tparams16, det_g16, H, Nb, master=True, one_row=False)
+    del det_g, det_g16
     print(f"  train step bytes: {n_vox} distinct volume voxels read, tables "
           f"and MLP {TP * (L * T * F + n_w) * 4} B read and their gradients "
           f"written [{tag}]")

@@ -72,8 +72,19 @@
 // DET_BLOCKS, never the SM count or the number of rows), so every warp
 // takes the same tiles whatever else is launched beside it; each block
 // writes its dW (its warps' sums, in warp order) to a row of its own, and
-// mlp_dw_reduce_kernel sums a partition's rows in (batch row, block)
-// order into the gradient. dx is row-local on both routes.
+// a second launch, mlp_dw_ordered_kernel, sums a partition's rows in
+// (batch row, block) order into the gradient, in float32 from 0: a block
+// per 32 columns of a partition (224 blocks at PRODUCTION256's shapes),
+// its 8 warps staging a batch row's rows of those columns in shared memory
+// with eight loads in flight a thread, warp 0 adding them in order. The
+// design before it, a thread a column that walks the rows one load at a
+// time (mlp_dw_reduce_kernel, 28 blocks at those shapes), is kept as the
+// yardstick (design 1 of repro_fused_mlp_bwd_det): the same rows in the
+// same order, the same bits. A first build that summed in the backward's
+// own launch, in the last block of each partition to arrive at a counter,
+// cost the card more than the second launch did: the partitions whose
+// blocks ran last summed 229 KB each on one SM, after the grid. dx is
+// row-local on both routes.
 //
 // Numerics, as the plain version (fused_mlp/ref.py): bfloat16 operands
 // (fused_mlp_bwd_kernel<__nv_bfloat16>, the bf16 training policy): exact
@@ -386,28 +397,12 @@ inline long long det_blocks(long long N, int warps) {
   return need < DET_BLOCKS ? need : DET_BLOCKS;
 }
 
-// The deterministic route's reduction: dW entry e of partition p is the sum,
-// in float32 from 0, of column e of the rows of partials (B, blocks, E)
-// whose batch row reads partition p, batch row after batch row and block
-// after block; one thread an (p, e), each weight written by one thread (the
-// C-fragment element e maps to one weight, or to padding)
-__global__ void mlp_dw_reduce_kernel(const float* __restrict__ partials,
-                                     const int* __restrict__ part,
-                                     float* __restrict__ dw_in,
-                                     float* __restrict__ dw_hid,
-                                     float* __restrict__ dw_out, long long B,
-                                     int blocks, int E, long long P, int D_in, int W,
-                                     int n_hidden, int n_hid_slab, int D_out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P * E) return;
-  const long long p = i / E;
-  const int e = (int)(i - p * E);
-  float v = 0.0f;
-  for (long long b = 0; b < B; ++b) {
-    if (__ldg(part + b) != p) continue;
-    const float* x = partials + b * blocks * E + e;
-    for (int k = 0; k < blocks; ++k) v = __fadd_rn(v, x[(long long)k * E]);
-  }
+// The weight of the deterministic route's dW column e (element e & 3 of
+// lane (e >> 2) & 31's C fragment of tile e >> 7) in partition p, written
+// as v; padding columns are not written
+__device__ __forceinline__ void store_dw(int e, float v, long long p, int D_in, int W,
+                                         int n_hidden, int n_hid_slab, int D_out,
+                                         float* dw_in, float* dw_hid, float* dw_out) {
   const int NT = W / 8, MW = W / 16, mi = (D_in + 15) / 16;
   const int in_tiles = mi * NT, hid_tiles = MW * NT;
   const int out_tile0 = in_tiles + (n_hidden - 1) * hid_tiles;
@@ -426,6 +421,81 @@ __global__ void mlp_dw_reduce_kernel(const float* __restrict__ partials,
   }
 }
 
+// The deterministic route's reduction as it was first written (the
+// yardstick): dW entry e of partition p is the sum, in float32 from 0, of
+// column e of the rows of partials (B, blocks, E) whose batch row reads
+// partition p, batch row after batch row and block after block; one thread
+// an (p, e), each weight written by one thread (the C-fragment element e
+// maps to one weight, or to padding)
+__global__ void mlp_dw_reduce_kernel(const float* __restrict__ partials,
+                                     const int* __restrict__ part,
+                                     float* __restrict__ dw_in,
+                                     float* __restrict__ dw_hid,
+                                     float* __restrict__ dw_out, long long B,
+                                     int blocks, int E, long long P, int D_in, int W,
+                                     int n_hidden, int n_hid_slab, int D_out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= P * E) return;
+  const long long p = i / E;
+  const int e = (int)(i - p * E);
+  float v = 0.0f;
+  for (long long b = 0; b < B; ++b) {
+    if (__ldg(part + b) != p) continue;
+    const float* x = partials + b * blocks * E + e;
+    for (int k = 0; k < blocks; ++k) v = __fadd_rn(v, x[(long long)k * E]);
+  }
+  store_dw(e, v, p, D_in, W, n_hidden, n_hid_slab, D_out, dw_in, dw_hid, dw_out);
+}
+
+// the ordered sum's columns a block, and the rows of a batch row it stages
+// at a time (DET_BLOCKS: one stage a batch row)
+constexpr int SUM_COLS = 32;
+constexpr int SUM_ROWS = 64;
+constexpr int SUM_THREADS = 256;
+
+// The deterministic route's reduction (the route): the same sums, order and
+// bits as mlp_dw_reduce_kernel. Block (j, p) takes columns [32 j, 32 j +
+// 32) of partition p; for each batch row that reads p, its 8 warps load
+// the row's blocks' entries of those columns into shared memory (a warp's
+// row one 128-byte line, each thread up to SUM_ROWS / 8 loads in flight),
+// then lane l of warp 0 adds column 32 j + l's entries in block order.
+__global__ void __launch_bounds__(SUM_THREADS) mlp_dw_ordered_kernel(
+    const float* __restrict__ partials, const int* __restrict__ part,
+    float* __restrict__ dw_in, float* __restrict__ dw_hid, float* __restrict__ dw_out,
+    long long B, int blocks, int E, int D_in, int W, int n_hidden, int n_hid_slab,
+    int D_out) {
+  __shared__ float rows[SUM_ROWS][SUM_COLS];
+  const long long p = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int e = blockIdx.x * SUM_COLS + lane;   // E is a multiple of 128
+  float s = 0.0f;
+  for (long long b = 0; b < B; ++b) {
+    if (__ldg(part + b) != p) continue;
+    const float* x = partials + b * blocks * E + e;
+    for (int k0 = 0; k0 < blocks; k0 += SUM_ROWS) {
+      const int n = min(SUM_ROWS, blocks - k0);
+      float r[SUM_ROWS / 8];
+#pragma unroll
+      for (int u = 0; u < SUM_ROWS / 8; ++u)
+        if (warp + 8 * u < n) r[u] = __ldg(x + (long long)(k0 + warp + 8 * u) * E);
+#pragma unroll
+      for (int u = 0; u < SUM_ROWS / 8; ++u)
+        if (warp + 8 * u < n) rows[warp + 8 * u][lane] = r[u];
+      __syncthreads();
+      if (warp == 0) {
+#pragma unroll 8
+        for (int k = 0; k < n; ++k) s = __fadd_rn(s, rows[k][lane]);
+      }
+      __syncthreads();   // read before the next rows land
+    }
+  }
+  if (warp == 0) store_dw(e, s, p, D_in, W, n_hidden, n_hid_slab, D_out, dw_in, dw_hid, dw_out);
+}
+
+// the backward's launch: the default route (partials null), or the
+// deterministic route's grid with its dW rows in partials, then their sum
+// (design 0: mlp_dw_ordered_kernel, the route; 1: mlp_dw_reduce_kernel,
+// its yardstick)
 template <typename T, int W, typename Clk = mm::NoClock>
 cudaError_t launch_bwd_w(const void* x, const void* w_in, const void* w_hid,
                          const void* w_out, const void* g, const int* part,
@@ -433,7 +503,7 @@ cudaError_t launch_bwd_w(const void* x, const void* w_in, const void* w_hid,
                          long long B, long long N, int D_in, int n_hidden,
                          int n_hid_slab, int D_out, cudaStream_t stream,
                          unsigned long long* clocks = nullptr,
-                         float* partials = nullptr, long long P = 0) {
+                         float* partials = nullptr, long long P = 0, int design = 0) {
   const auto kernel = fused_mlp_bwd_kernel<T, W, Clk>;
   const mm::BwdLayout lay = mm::bwd_layout<T, W>(D_in, n_hidden, D_out);
   size_t smem = 0;
@@ -456,6 +526,14 @@ cudaError_t launch_bwd_w(const void* x, const void* w_in, const void* w_hid,
   e = cudaGetLastError();
   if (e != cudaSuccess || partials == nullptr) return e;
   const int E = lay.dw_tiles * 128;
+  if (design == 0) {
+    REPRO_NOTE_LAUNCH(mlp_dw_ordered_kernel, 0);
+    mlp_dw_ordered_kernel<<<dim3((unsigned)(E / SUM_COLS), (unsigned)P), SUM_THREADS, 0,
+                            stream>>>(partials, part, dw_in, dw_hid, dw_out, B,
+                                      (int)blocks, E, D_in, W, n_hidden, n_hid_slab,
+                                      D_out);
+    return cudaGetLastError();
+  }
   REPRO_NOTE_LAUNCH(mlp_dw_reduce_kernel, 0);
   mlp_dw_reduce_kernel<<<(unsigned)((P * E + 255) / 256), 256, 0, stream>>>(
       partials, part, dw_in, dw_hid, dw_out, B, (int)blocks, E, P, D_in, W, n_hidden,
@@ -469,11 +547,11 @@ cudaError_t launch_bwd(const void* x, const void* w_in, const void* w_hid,
                        float* dw_in, float* dw_hid, float* dw_out, long long B,
                        long long N, int D_in, int W, int n_hidden, int n_hid_slab,
                        int D_out, cudaStream_t s, float* partials = nullptr,
-                       long long P = 0) {
+                       long long P = 0, int design = 0) {
   switch (W) {
-    case 16: return launch_bwd_w<T, 16>(x, w_in, w_hid, w_out, g, part, dx, dw_in, dw_hid, dw_out, B, N, D_in, n_hidden, n_hid_slab, D_out, s, nullptr, partials, P);
-    case 32: return launch_bwd_w<T, 32>(x, w_in, w_hid, w_out, g, part, dx, dw_in, dw_hid, dw_out, B, N, D_in, n_hidden, n_hid_slab, D_out, s, nullptr, partials, P);
-    case 64: return launch_bwd_w<T, 64>(x, w_in, w_hid, w_out, g, part, dx, dw_in, dw_hid, dw_out, B, N, D_in, n_hidden, n_hid_slab, D_out, s, nullptr, partials, P);
+    case 16: return launch_bwd_w<T, 16>(x, w_in, w_hid, w_out, g, part, dx, dw_in, dw_hid, dw_out, B, N, D_in, n_hidden, n_hid_slab, D_out, s, nullptr, partials, P, design);
+    case 32: return launch_bwd_w<T, 32>(x, w_in, w_hid, w_out, g, part, dx, dw_in, dw_hid, dw_out, B, N, D_in, n_hidden, n_hid_slab, D_out, s, nullptr, partials, P, design);
+    case 64: return launch_bwd_w<T, 64>(x, w_in, w_hid, w_out, g, part, dx, dw_in, dw_hid, dw_out, B, N, D_in, n_hidden, n_hid_slab, D_out, s, nullptr, partials, P, design);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -553,7 +631,9 @@ extern "C" int repro_fused_mlp_bwd(const void* x, const void* w_in,
 // outputs (dw_in / dw_hid / dw_out zeroed by the caller, each weight
 // written once), P partitions, and partials, a float32 scratch of (B,
 // blocks, E) from repro_fused_mlp_bwd_det_shape. Two launches: the
-// backward on det_blocks(N) blocks a batch row, then the ordered sum.
+// backward on det_blocks(N) blocks a batch row, then the ordered sum,
+// mlp_dw_ordered_kernel (design 0, the route) or mlp_dw_reduce_kernel
+// (design 1, its yardstick: a measurement). Both give the same bits.
 extern "C" int repro_fused_mlp_bwd_det(const void* x, const void* w_in,
                                        const void* w_hid, const void* w_out,
                                        const void* g, const void* part, void* dx,
@@ -561,9 +641,10 @@ extern "C" int repro_fused_mlp_bwd_det(const void* x, const void* w_in,
                                        void* partials, long long B, long long N,
                                        long long P, int D_in, int W, int n_hidden,
                                        int n_hid_slab, int D_out, int is_bf16,
-                                       void* stream) {
+                                       int design, void* stream) {
   if (B <= 0 || N <= 0) return 0;
-  if (B > 65535 || n_hidden < 1 || D_out < 1 || D_out > 8 || partials == nullptr ||
+  if (B > 65535 || P > 65535 || n_hidden < 1 || D_out < 1 || D_out > 8 ||
+      partials == nullptr || (design != 0 && design != 1) ||
       reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(g) % 16)
     return (int)cudaErrorInvalidValue;
   const int* p = static_cast<const int*>(part);
@@ -573,8 +654,8 @@ extern "C" int repro_fused_mlp_bwd_det(const void* x, const void* w_in,
   float* pr = static_cast<float*>(partials);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(is_bf16
-      ? launch_bwd<__nv_bfloat16>(x, w_in, w_hid, w_out, g, p, dx, di, dh, dout, B, N, D_in, W, n_hidden, n_hid_slab, D_out, s, pr, P)
-      : launch_bwd<float>(x, w_in, w_hid, w_out, g, p, dx, di, dh, dout, B, N, D_in, W, n_hidden, n_hid_slab, D_out, s, pr, P));
+      ? launch_bwd<__nv_bfloat16>(x, w_in, w_hid, w_out, g, p, dx, di, dh, dout, B, N, D_in, W, n_hidden, n_hid_slab, D_out, s, pr, P, design)
+      : launch_bwd<float>(x, w_in, w_hid, w_out, g, p, dx, di, dh, dout, B, N, D_in, W, n_hidden, n_hid_slab, D_out, s, pr, P, design));
 }
 
 // out (2 int64, host memory) = (blocks a batch row, floats a block's row)
@@ -592,16 +673,19 @@ extern "C" int repro_fused_mlp_bwd_det_shape(long long N, int D_in, int W,
 // tile's rows, recompute, delta chain, dW, dx products, dx out, the block's
 // dW sum) added to clocks[0 .. 7), their lifetimes in ns to clocks[7]
 // (zeroed by the caller). A measurement of where the kernel's time goes;
-// the marks cost a few cycles each.
+// the marks cost a few cycles each. With partials non-null (and P), the
+// deterministic route's grid as repro_fused_mlp_bwd_det's design 0 runs it
+// (its dW rows, then the ordered sum, which the clock does not see).
 extern "C" int repro_fused_mlp_bwd_stages(const void* x, const void* w_in,
                                           const void* w_hid, const void* w_out,
                                           const void* g, const void* part, void* dx,
                                           void* dw_in, void* dw_hid, void* dw_out,
                                           long long B, long long N, int D_in, int W,
                                           int n_hidden, int n_hid_slab, int D_out,
-                                          int is_bf16, void* clocks, void* stream) {
+                                          int is_bf16, void* clocks, void* partials,
+                                          long long P, void* stream) {
   if (B <= 0 || N <= 0) return 0;
-  if (W != 16 || B > 65535 || n_hidden < 1 || D_out < 1 || D_out > 8 ||
+  if (W != 16 || B > 65535 || P > 65535 || n_hidden < 1 || D_out < 1 || D_out > 8 ||
       reinterpret_cast<uintptr_t>(x) % 16 || reinterpret_cast<uintptr_t>(g) % 16)
     return (int)cudaErrorInvalidValue;
   const int* p = static_cast<const int*>(part);
@@ -609,8 +693,9 @@ extern "C" int repro_fused_mlp_bwd_stages(const void* x, const void* w_in,
   float* dh = static_cast<float*>(dw_hid);
   float* dout = static_cast<float*>(dw_out);
   unsigned long long* c = static_cast<unsigned long long*>(clocks);
+  float* pr = static_cast<float*>(partials);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(is_bf16
-      ? launch_bwd_w<__nv_bfloat16, 16, mm::StageClock>(x, w_in, w_hid, w_out, g, p, dx, di, dh, dout, B, N, D_in, n_hidden, n_hid_slab, D_out, s, c)
-      : launch_bwd_w<float, 16, mm::StageClock>(x, w_in, w_hid, w_out, g, p, dx, di, dh, dout, B, N, D_in, n_hidden, n_hid_slab, D_out, s, c));
+      ? launch_bwd_w<__nv_bfloat16, 16, mm::StageClock>(x, w_in, w_hid, w_out, g, p, dx, di, dh, dout, B, N, D_in, n_hidden, n_hid_slab, D_out, s, c, pr, P)
+      : launch_bwd_w<float, 16, mm::StageClock>(x, w_in, w_hid, w_out, g, p, dx, di, dh, dout, B, N, D_in, n_hidden, n_hid_slab, D_out, s, c, pr, P));
 }

@@ -51,6 +51,9 @@ KERNEL_BUDGETS = {
     "fx_to_float_kernel": KernelBudget(64, 0, 0),
     "fused_mlp_fwd_kernel": KernelBudget(160, 0, H100_SMEM_OPTIN),
     "fused_mlp_bwd_kernel": KernelBudget(255, 0, H100_SMEM_OPTIN),
+    # the deterministic route's ordered dW sum: 64 rows of 32 columns staged
+    # in static shared memory; and the design before it, its yardstick
+    "mlp_dw_ordered_kernel": KernelBudget(64, 0, 8 * 1024),
     "mlp_dw_reduce_kernel": KernelBudget(64, 0, 0),
     # one block an SM of as many warps as the one-warp design held there:
     # 64 registers at W = 16, up to the ISA's 255 at W = 64 under float32
@@ -62,6 +65,10 @@ KERNEL_BUDGETS = {
     # the deterministic route's fused yardstick (the design before the split)
     "train_step_det_fused_kernel": KernelBudget(176, 64, H100_SMEM_OPTIN),
     "adamw_kernel": KernelBudget(64, 0, 0),
+    # the deterministic route's AdamW (chain blocks, then the table stream):
+    # 256-thread launch bounds of four blocks an SM; the chain blocks stage
+    # 128 group rows of 32 columns in static shared memory
+    "adamw_det_kernel": KernelBudget(64, 0, 16 * 1024),
     "flash_attention_kernel_bf16_wgmma": KernelBudget(168, 0, H100_SMEM_OPTIN),
     "flash_attention_kernel": KernelBudget(128, 0, H100_SMEM_OPTIN),
 }

@@ -69,12 +69,15 @@ SIGNATURES = {
     # W, n_hidden, n_hid_slab, D_out, is_bf16, stream
     "repro_fused_mlp_bwd": [_P] * 10 + [_L, _L, _I, _I, _I, _I, _I, _I, _P],
     # the deterministic route: the same operands, then partials, B, N, P,
-    # D_in, W, n_hidden, n_hid_slab, D_out, is_bf16, stream
-    "repro_fused_mlp_bwd_det": [_P] * 11 + [_L, _L, _L, _I, _I, _I, _I, _I, _I, _P],
+    # D_in, W, n_hidden, n_hid_slab, D_out, is_bf16, design, stream
+    "repro_fused_mlp_bwd_det": [_P] * 11 + [_L, _L, _L, _I, _I, _I, _I, _I, _I, _I,
+                                            _P],
     # N, D_in, W, n_hidden, D_out, is_bf16, (blocks, E) out (host memory)
     "repro_fused_mlp_bwd_det_shape": [_L, _I, _I, _I, _I, _I, _P],
-    # the same, then clocks (8 uint64), stream
-    "repro_fused_mlp_bwd_stages": [_P] * 10 + [_L, _L, _I, _I, _I, _I, _I, _I, _P, _P],
+    # the same, then clocks (8 uint64), partials (null: the default grid),
+    # P, stream
+    "repro_fused_mlp_bwd_stages": [_P] * 10 + [_L, _L, _I, _I, _I, _I, _I, _I, _P, _P,
+                                               _L, _P],
     # coords, target, volumes, seeds, tab, win, whid, wout, g_tab, g_win,
     # g_whid, g_wout, loss_sum, g_feat, g_tab_fx, partials, flags, g_coords,
     # clocks, res (host memory), P, N, L, T, F, W, n_hidden, n_hid_slab,
@@ -86,10 +89,13 @@ SIGNATURES = {
     "repro_train_step_shape": [_L, _L, _I, _I, _I, _I, _I, _I, _P],
     # 4 x (params, m, v, grad, master, n per partition), scalars, loss_sum,
     # loss, P, loss_div, b1, 1-b1, b2, 1-b2, eps, wd, master, partials,
-    # groups, cols, tab_fx, flags, overflow, stream
+    # groups, cols, tab_fx, flags, overflow, design, stream
     "repro_adamw_apply": [_P, _P, _P, _P, _P, _L] * 4
     + [_P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _I, _P, _L, _I, _P, _P, _P,
-       _P],
+       _I, _P],
+    # P, n_tab, cols, sms, aligned, (chain blocks, table blocks, vec) out (3
+    # int64 in host memory)
+    "repro_adamw_det_plan": [_L, _L, _I, _I, _I, _P],
     # index (< 0: forget the notes), attrs (5 int64 out), name buffer, its
     # length: the kernels launched since the last reset (launch_notes.cu)
     "repro_kernel_launches": [_I, _P, _P, _I],

@@ -86,17 +86,47 @@ def fwd_smem_bytes(D_in: int, W: int, n_hidden: int, itemsize: int,
     return None
 
 
-def bwd_smem_bytes(D_in: int, W: int, n_hidden: int, D_out: int,
-                   itemsize: int):
-    """The dynamic shared memory a backward launch asks for (``mlp_mma.cuh``
-    ``bwd_pick_warps``: of 8, 4, 2 and 1 warps within ``SMEM_LIMIT``, the
-    count that keeps the most warps resident); None when none fits."""
-    best, resident = None, 0
+def bwd_pick(D_in: int, W: int, n_hidden: int, D_out: int, itemsize: int):
+    """``(warps a block, dynamic shared bytes)`` of a backward launch
+    (``mlp_mma.cuh`` ``bwd_pick_warps``: of 8, 4, 2 and 1 warps within
+    ``SMEM_LIMIT``, the count that keeps the most warps resident); (0,
+    None) when none fits."""
+    best, resident = (0, None), 0
     for warps in (8, 4, 2, 1):
         b = mma_bwd_smem_bytes(D_in, W, n_hidden, D_out, itemsize, warps)
         if b <= SMEM_LIMIT and (233472 // (b + 1024)) * warps > resident:
-            best, resident = b, (233472 // (b + 1024)) * warps
+            best, resident = (warps, b), (233472 // (b + 1024)) * warps
     return best
+
+
+def bwd_smem_bytes(D_in: int, W: int, n_hidden: int, D_out: int,
+                   itemsize: int):
+    """The dynamic shared memory a backward launch asks for (:func:`bwd_pick`);
+    None when no count of warps fits."""
+    return bwd_pick(D_in, W, n_hidden, D_out, itemsize)[1]
+
+
+#: the deterministic route's most blocks a batch row (``fused_mlp.cu``
+#: ``DET_BLOCKS``)
+DET_BLOCKS = 64
+
+
+def det_plan(N: int, D_in: int, W: int, n_hidden: int, D_out: int, itemsize: int):
+    """``(blocks a batch row, floats a block's dW row)`` of the
+    deterministic route at these shapes: the Python mirror of
+    ``repro_fused_mlp_bwd_det_shape`` (``fused_mlp.cu`` ``det_blocks``:
+    enough blocks of the picked warps for the row's 32-row tiles, at most
+    ``DET_BLOCKS``; a row of C-fragment tiles of 128 floats: dW_in's
+    ceil(D_in/16) x W/8, each hidden layer's W/16 x W/8, dW_out's W/16). A
+    function of the shapes alone, so the dW rows, their order and the bits
+    stay; (0, 0) when no count of warps fits."""
+    warps, _ = bwd_pick(D_in, W, n_hidden, D_out, itemsize)
+    if not warps:
+        return 0, 0
+    n_tiles = -(-N // 32)
+    blocks = min(-(-n_tiles // warps), DET_BLOCKS)
+    nt, mw, mi = W // 8, W // 16, -(-D_in // 16)
+    return blocks, (mi * nt + (n_hidden - 1) * mw * nt + mw) * 128
 
 
 def fwd_launch_plan(x, weights) -> list:
@@ -114,7 +144,7 @@ def bwd_launch_plan(x, weights, g) -> list:
              bwd_smem_bytes(x.shape[-1], weights[0].shape[-1], len(weights) - 1,
                             g.shape[-1], x.element_size()))]
     if torch.are_deterministic_algorithms_enabled():
-        plan.append(("mlp_dw_reduce_kernel", 0))
+        plan.append(("mlp_dw_ordered_kernel", 0))
     return plan
 
 
@@ -242,11 +272,12 @@ def fused_mlp_bwd_cuda(x: torch.Tensor, weights, g: torch.Tensor, part):
     the plain version rounds them) or raise.
 
     Under ``torch.use_deterministic_algorithms(True)`` a CUDA call takes
-    the deterministic route, ``repro_fused_mlp_bwd_det``: the same kernel
-    on a grid of ``det_blocks`` blocks a batch row (a function of N alone),
-    each block's dW written to a row of its own, then a second launch that
-    sums a partition's rows in a fixed order (counted in ``det_launches``
-    too). Its bits do not depend on the run or on the partitions stacked
+    the deterministic route, ``repro_fused_mlp_bwd_det`` (counted in
+    ``det_launches`` too): the same kernel on a grid of ``det_plan``'s
+    blocks a batch row (a function of N and the shapes alone), each
+    block's dW written to a row of its own, then a second launch,
+    ``mlp_dw_ordered_kernel``, that sums a partition's rows in a fixed
+    order. Its bits do not depend on the run or on the partitions stacked
     beside one. The CPU's plain version is deterministic as it is."""
     with build.kernel_region("fused_mlp_bwd", x, g, weights,
                              plan=lambda: bwd_launch_plan(x, weights, g)):
@@ -254,11 +285,33 @@ def fused_mlp_bwd_cuda(x: torch.Tensor, weights, g: torch.Tensor, part):
             return _ref.fused_mlp_batched_bwd_ref(x, weights, g, torch.as_tensor(part))
         det = torch.are_deterministic_algorithms_enabled()
         dx, dws = _bwd_launch("repro_fused_mlp_bwd_det" if det else
-                              "repro_fused_mlp_bwd", x, weights, g, part, det=det)
+                              "repro_fused_mlp_bwd", x, weights, g, part,
+                              *((DET_DESIGNS["ordered"],) if det else ()), det=det)
         fused_mlp_bwd_cuda.launches += 1
         fused_mlp_bwd_cuda.bf16_launches += int(x.dtype == torch.bfloat16)
         fused_mlp_bwd_cuda.det_launches += int(det)
         return dx, dws
+
+
+#: the deterministic route's ordered-sum designs (``repro_fused_mlp_bwd_det``'s
+#: design): the route, and the design before it, kept as its yardstick
+DET_DESIGNS = {"ordered": 0, "reduce": 1}
+
+
+def fused_mlp_bwd_det_with(x, weights, g, part, design: str = "ordered"):
+    """The deterministic route of :func:`fused_mlp_bwd_cuda` on the card,
+    for measurement (no count): the backward on the deterministic grid,
+    then ``design``'s ordered sum, "ordered" (the route,
+    ``mlp_dw_ordered_kernel``: a block per 32 columns of a partition, the
+    rows staged in shared memory) or "reduce" (its yardstick, the design
+    before it: ``mlp_dw_reduce_kernel``, a thread a column). Both give the
+    same bits. Returns ``(dx, [dW ...])``."""
+    if design not in DET_DESIGNS:
+        raise ValueError(f"design 'ordered' or 'reduce', got {design!r}")
+    if x.device.type != "cuda":
+        raise ValueError("fused_mlp_bwd_det_with runs on the card")
+    return _bwd_launch("repro_fused_mlp_bwd_det", x, weights, g, part,
+                       DET_DESIGNS[design], det=True)
 
 
 @functools.lru_cache(maxsize=64)
@@ -274,11 +327,14 @@ def det_shape(N: int, D_in: int, W: int, n_hidden: int, D_out: int,
     return int(out[0]), int(out[1])
 
 
-def _bwd_launch(entry: str, x, weights, g, part, *extra, det: bool = False):
+def _bwd_launch(entry: str, x, weights, g, part, *extra, det: bool = False,
+                clocked: bool = False):
     """Check CUDA operands against :func:`bwd_refusal` and run the backward
     C entry ``entry`` on them (``extra``: its arguments before the
-    stream; ``det``: the deterministic entry, which also takes its dW rows
-    and P): ``(dx, [dW ...])``."""
+    stream; ``det``: the deterministic grid, which also takes its dW rows
+    and P, before ``extra`` in the deterministic entry, after it in the
+    clock's, which takes a null and 0 on the default grid): ``(dx, [dW
+    ...])``."""
     if x.device.type != "cuda" or g.device != x.device or \
             any(w.device != x.device for w in weights):
         raise ValueError("fused_mlp_bwd_cuda: x, g and weights must lie on "
@@ -300,13 +356,18 @@ def _bwd_launch(entry: str, x, weights, g, part, *extra, det: bool = False):
     ptrs = [x.data_ptr(), w_in.data_ptr(), w_hid.data_ptr(), w_out.data_ptr(),
             g.data_ptr(), part_d.data_ptr(), dx.data_ptr(), dw_in.data_ptr(),
             dw_hid.data_ptr(), dw_out.data_ptr()]
+    rows = (None, 0)
     if det:
         blocks, E = det_shape(N, D_in, W, n_hidden, D_out, bf16)
         partials = torch.empty((B, blocks, E), dtype=torch.float32,
                                device=x.device)
-        ptrs += [partials.data_ptr(), B, N, P]
+        rows = (partials.data_ptr(), P)
+    if det and not clocked:
+        ptrs += [rows[0], B, N, P]
     else:
         ptrs += [B, N]
+        if clocked:
+            extra = extra + rows
     err = getattr(build.library(), entry)(
         *ptrs, D_in, W, n_hidden, w_hid.shape[1], D_out, int(bf16), *extra,
         torch.cuda.current_stream(x.device).cuda_stream)
@@ -319,17 +380,23 @@ BWD_STAGES = ("waiting for rows", "recompute", "delta chain", "dW", "dx products
               "dx out", "block dW sum")
 
 
-def fused_mlp_bwd_stage_cycles(x, weights, g, part) -> list:
+def fused_mlp_bwd_stage_cycles(x, weights, g, part, grid: str = "default") -> list:
     """A measurement of where the backward kernel's time goes: one launch
     of its W = 16 instantiation with a clock on each warp
     (``repro_fused_mlp_bwd_stages``), on CUDA operands that
     :func:`fused_mlp_bwd_cuda` takes; returns the warps' summed cycles in
     each of ``BWD_STAGES`` and then their summed lifetimes in ns (so the
-    SM clock is the cycles over the ns). Not a launch of the main path: no
-    count."""
-    build.refuse_nondeterministic("fused_mlp_bwd_stage_cycles")
+    SM clock is the cycles over the ns). ``grid`` "default" (one wave of
+    blocks, float atomics: refused under the deterministic switch) or
+    "det" (the deterministic route's grid and ordered dW sum). Not a
+    launch of the main path: no count."""
+    if grid not in ("default", "det"):
+        raise ValueError(f"grid 'default' or 'det', got {grid!r}")
+    if grid == "default":
+        build.refuse_nondeterministic("fused_mlp_bwd_stage_cycles")
     clocks = torch.zeros(len(BWD_STAGES) + 1, dtype=torch.int64, device=x.device)
-    _bwd_launch("repro_fused_mlp_bwd_stages", x, weights, g, part, clocks.data_ptr())
+    _bwd_launch("repro_fused_mlp_bwd_stages", x, weights, g, part, clocks.data_ptr(),
+                det=grid == "det", clocked=True)
     return clocks.tolist()
 
 

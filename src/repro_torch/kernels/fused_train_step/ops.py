@@ -458,65 +458,117 @@ def adamw_apply_cuda(flat_p, flat_m, flat_v, grads, scalars, loss_sum, *,
     ``overflow`` ((P,) int64 on the card) when given.
 
     CPU tensors take the plain version (:func:`ref.adamw_apply_ref`);
-    CUDA tensors launch ``repro_adamw_apply`` (``csrc/adamw.cu``) or
+    CUDA tensors launch ``repro_adamw_apply`` (``csrc/adamw.cu``:
+    ``adamw_kernel``, or on :class:`DetGrads` ``adamw_det_kernel``, whose
+    first blocks sum the group rows while the rest stream the tables) or
     raise."""
-    with build.kernel_region("adamw_apply",
-                             plan=lambda: [("adamw_kernel", 0)]):
+    det = isinstance(grads, DetGrads)
+    with build.kernel_region(
+            "adamw_apply",
+            plan=lambda: [("adamw_det_kernel" if det else "adamw_kernel", 0)]):
         dev = flat_p["tab"].device
         if dev.type == "cpu":
             _ref.adamw_apply_ref(flat_p, flat_m, flat_v, flat_mw, grads, scalars,
                                  beta1=beta1, beta2=beta2, eps=eps,
                                  weight_decay=weight_decay, n_hidden=n_hidden)
             return loss_sum / float(n_valid)
-        master = flat_mw is not None
-        det = grads if isinstance(grads, DetGrads) else None
-        p_dtype = torch.bfloat16 if master else torch.float32
-        groups = []
-        for k in STATE_KEYS:
-            # the deterministic route has no float32 gradient: its moments stand in
-            # for the checks
-            ts = (flat_p[k], flat_m[k], flat_v[k],
-                  flat_m[k] if det is not None else grads[k]) \
-                + ((flat_mw[k],) if master else ())
-            if any(t.device != dev or not t.is_contiguous() for t in ts) or \
-                    ts[0].dtype != p_dtype or \
-                    any(t.dtype != torch.float32 for t in ts[1:]):
-                raise TypeError(
-                    f"repro_adamw_apply takes contiguous {k} params, moments, "
-                    "gradients (and master) on one CUDA device: float32 params "
-                    "without a master, or bf16 params with a float32 master; "
-                    "moments, gradients and master float32")
-            n = 0 if (k == "whid" and n_hidden == 1) else flat_p[k][0].numel()
-            groups += [t.data_ptr() for t in ts[:3]] \
-                + [None if det is not None else ts[3].data_ptr(),
-                   ts[4].data_ptr() if master else None, n]
-        P = flat_p["tab"].shape[0]
-        scalars = scalars.to(device=dev, dtype=torch.float32).contiguous()
-        if tuple(scalars.shape) != (P, 4):
-            raise ValueError(f"scalars must be (P, 4), got {tuple(scalars.shape)}")
-        loss = torch.empty(P, dtype=torch.float32, device=dev)
-        if det is not None:
-            if overflow is not None and (overflow.dtype != torch.int64 or
-                                         tuple(overflow.shape) != (P,) or
-                                         overflow.device != dev):
-                raise ValueError(f"overflow must be a ({P},) int64 tensor on {dev}")
-            det_args = [det.partials.data_ptr(), det.partials.shape[1],
-                        det.partials.shape[2], det.tab_fx.data_ptr(),
-                        det.flags.data_ptr(),
-                        None if overflow is None else overflow.data_ptr()]
-        else:
-            det_args = [None, 0, 0, None, None, None]
-        lib = build.library()
-        err = lib.repro_adamw_apply(
-            *groups, scalars.data_ptr(),
-            None if loss_sum is None else loss_sum.data_ptr(), loss.data_ptr(), P,
-            float(n_valid), beta1, 1.0 - beta1, beta2, 1.0 - beta2, eps,
-            weight_decay, int(master), *det_args,
-            torch.cuda.current_stream(dev).cuda_stream)
-        build.check(err, "repro_adamw_apply")
+        loss = _adamw_launch(flat_p, flat_m, flat_v, grads, scalars, loss_sum,
+                             n_valid=n_valid, beta1=beta1, beta2=beta2, eps=eps,
+                             weight_decay=weight_decay, n_hidden=n_hidden,
+                             flat_mw=flat_mw, overflow=overflow, design=0)
         adamw_apply_cuda.launches += 1
-        adamw_apply_cuda.bf16_launches += int(master)
+        adamw_apply_cuda.bf16_launches += int(flat_mw is not None)
         return loss
+
+
+#: the deterministic route's AdamW designs (``repro_adamw_apply``'s design):
+#: the route, and the design before it, kept as its yardstick
+ADAMW_DET_DESIGNS = {"roles": 0, "grid": 1}
+
+
+def adamw_det_with(flat_p, flat_m, flat_v, det: "DetGrads", scalars, *,
+                   design: str = "roles", **kw) -> torch.Tensor:
+    """AdamW on the deterministic route on the card, for measurement (no
+    count): ``design`` "roles" (the route, ``adamw_det_kernel``: chain
+    blocks, then the table stream) or "grid" (its yardstick, the design
+    before it: ``adamw_kernel<MASTER, true>``, every parameter through one
+    grid-stride loop, the MLP chains last). ``kw``: :func:`adamw_apply_cuda`'s
+    keywords. The same bits either way; returns the loss."""
+    if design not in ADAMW_DET_DESIGNS:
+        raise ValueError(f"design 'roles' or 'grid', got {design!r}")
+    if flat_p["tab"].device.type != "cuda" or not isinstance(det, DetGrads):
+        raise ValueError("adamw_det_with runs on the card, on a DetGrads")
+    return _adamw_launch(flat_p, flat_m, flat_v, det, scalars, None,
+                         design=ADAMW_DET_DESIGNS[design], **kw)
+
+
+def adamw_det_plan(P: int, n_tab: int, cols: int, sms: int, aligned: bool):
+    """``(chain blocks, table blocks, vec)`` of ``adamw_det_kernel``'s grid
+    (the Python mirror of ``repro_adamw_det_plan``): a block per 32 columns
+    of the partitions' group rows (``cols`` a partition: the MLP weights
+    and the loss), then the tables' ``P * n_tab`` entries in units of four
+    where ``vec`` (``n_tab`` a multiple of 4 and the state 16-byte
+    aligned), else one, a thread a unit in blocks of 256, at most 16 blocks
+    an SM (a grid-stride loop past that)."""
+    vec = bool(aligned) and n_tab % 4 == 0
+    units = P * n_tab // (4 if vec else 1)
+    return -(-P * cols // 32), min(-(-units // 256), 16 * sms), int(vec)
+
+
+def _adamw_launch(flat_p, flat_m, flat_v, grads, scalars, loss_sum, *,
+                  n_valid: int, beta1: float, beta2: float, eps: float,
+                  weight_decay: float, n_hidden: int, flat_mw=None, overflow=None,
+                  design: int = 0) -> torch.Tensor:
+    """One ``repro_adamw_apply`` call on the card (the checks, the loss, the
+    launch); ``design`` its design on :class:`DetGrads`."""
+    dev = flat_p["tab"].device
+    master = flat_mw is not None
+    det = grads if isinstance(grads, DetGrads) else None
+    p_dtype = torch.bfloat16 if master else torch.float32
+    groups = []
+    for k in STATE_KEYS:
+        # the deterministic route has no float32 gradient: its moments stand in
+        # for the checks
+        ts = (flat_p[k], flat_m[k], flat_v[k],
+              flat_m[k] if det is not None else grads[k]) \
+            + ((flat_mw[k],) if master else ())
+        if any(t.device != dev or not t.is_contiguous() for t in ts) or \
+                ts[0].dtype != p_dtype or \
+                any(t.dtype != torch.float32 for t in ts[1:]):
+            raise TypeError(
+                f"repro_adamw_apply takes contiguous {k} params, moments, "
+                "gradients (and master) on one CUDA device: float32 params "
+                "without a master, or bf16 params with a float32 master; "
+                "moments, gradients and master float32")
+        n = 0 if (k == "whid" and n_hidden == 1) else flat_p[k][0].numel()
+        groups += [t.data_ptr() for t in ts[:3]] \
+            + [None if det is not None else ts[3].data_ptr(),
+               ts[4].data_ptr() if master else None, n]
+    P = flat_p["tab"].shape[0]
+    scalars = scalars.to(device=dev, dtype=torch.float32).contiguous()
+    if tuple(scalars.shape) != (P, 4):
+        raise ValueError(f"scalars must be (P, 4), got {tuple(scalars.shape)}")
+    loss = torch.empty(P, dtype=torch.float32, device=dev)
+    if det is not None:
+        if overflow is not None and (overflow.dtype != torch.int64 or
+                                     tuple(overflow.shape) != (P,) or
+                                     overflow.device != dev):
+            raise ValueError(f"overflow must be a ({P},) int64 tensor on {dev}")
+        det_args = [det.partials.data_ptr(), det.partials.shape[1],
+                    det.partials.shape[2], det.tab_fx.data_ptr(),
+                    det.flags.data_ptr(),
+                    None if overflow is None else overflow.data_ptr()]
+    else:
+        det_args = [None, 0, 0, None, None, None]
+    lib = build.library()
+    err = lib.repro_adamw_apply(
+        *groups, scalars.data_ptr(),
+        None if loss_sum is None else loss_sum.data_ptr(), loss.data_ptr(), P,
+        float(n_valid), beta1, 1.0 - beta1, beta2, 1.0 - beta2, eps,
+        weight_decay, int(master), *det_args,
+        int(design), torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "repro_adamw_apply")
+    return loss
 
 
 #: launches of the kernel, and of its master-weight (bf16 policy) variant

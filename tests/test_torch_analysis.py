@@ -28,6 +28,18 @@ from repro_torch.core.trainer import DVNRTrainer
 from repro_torch.kernels import budgets
 from repro_torch.kernels.hash_encoding import ops as hops
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while the module runs: its programs are tens of
+    thousands of small ops under a dispatch mode, whose thread barriers
+    stall on a machine whose cores are all busy (``test_torch_lock``'s
+    ``one_thread``)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 SHARED = ("zero_collectives", "precision_flow", "rng_gather_placement")
 LEGS = (("ref", "ref"), ("pallas", "cuda"))
 PROGRAMS = ("train_step", "train_chunk", "train_chunk_degraded", "render",

@@ -120,11 +120,14 @@ from repro.launch.mesh import build_mesh
 d = np.load(sys.argv[1], allow_pickle=True)
 n = d["images"].shape[0]
 mesh = build_mesh(np.asarray(jax.devices()[:n]), ("data",))
-swap = binary_swap(mesh, ("data",), jnp.asarray(d["images"]), jnp.asarray(d["depths"]))
+# both shard_map programs under jit, as they run in production (run op by
+# op, outside jit, they take most of two minutes on the CPU)
+swap = jax.jit(lambda i, z: binary_swap(mesh, ("data",), i, z))(
+    jnp.asarray(d["images"]), jnp.asarray(d["depths"]))
 cfg = dvnr.SMOKE
 params = {"tables": jnp.asarray(d["tables"]),
           "mlp": [jnp.asarray(d[f"mlp{i}"]) for i in range(int(d["n_mlp"]))]}
-step = make_distributed_render_step(cfg, mesh, n_samples=int(d["samples"]))
+step = jax.jit(make_distributed_render_step(cfg, mesh, n_samples=int(d["samples"])))
 frame = step(params, jnp.asarray(d["los"]), jnp.asarray(d["exts"]),
              jnp.asarray(d["vrs"]), jnp.asarray(d["origins"]),
              jnp.asarray(d["dirs"]), jnp.asarray(d["tf"]), jnp.asarray(d["grange"]))

@@ -7,13 +7,28 @@ The whole matrix is derived once for the module (the CLI's verify of the
 committed file reads that derivation); the planted fault and the second
 derivation each re-derive ``quickstart`` only.
 
-Cost: ~30 s serial (the matrix ~20 s, quickstart twice ~5 s each).
+Cost: ~30 s serial (the matrix ~20 s, quickstart twice ~5 s each), on
+one intra-op thread (``one_thread``).
 """
 import pytest
+import torch
 
 from repro_torch.analysis import lock as L
 from repro_torch.analysis.__main__ import main
 from repro_torch.core.trainer import DVNRTrainer
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while the module runs. A derivation is ~60,000
+    small ops under a dispatch mode; on a machine whose cores are all busy
+    (pytest-xdist workers on each of them) every op's thread barrier waits
+    for descheduled threads: six derivations at once on eight cores took
+    12.7 s each on one thread and 475 s each on eight."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
